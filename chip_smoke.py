@@ -10,17 +10,22 @@ non-zero (and without a result line when no CUDA device is present):
 
 1. device  — card name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 is switched off for matmuls and cuDNN.
-2. build   — nvcc builds csrc/flash_fwd.cu for sm_90a from the checkout;
-   registers, shared memory and spills per kernel instantiation.
-3. kernel  — the flash-attention kernel against its plain PyTorch version
-   on the card: the flagship shape (B=16, T=2048, H=16, D=128, bf16,
-   causal, fused-qkv strided views) and edge shapes (T=1000, variable-
-   length key masks, non-causal, D in 32/64/128, f32). Then timings at the
-   flagship shape with CUDA events: the kernel, its plain version, and
-   torch's scaled_dot_product_attention as a yardstick only.
+2. build   — nvcc builds csrc/flash_fwd.cu and csrc/flash_bwd.cu for
+   sm_90a from the checkout, both at once; registers, shared memory and
+   spills per kernel instantiation.
+3. kernel  — each kernel against its plain PyTorch version on the card:
+   the forward kernel and the backward pair (dq; dk/dv) at the flagship
+   shape (B=16, T=2048, H=16, D=128, bf16, causal, fused-qkv strided
+   views) and edge shapes (T=1000, variable-length key masks, non-causal,
+   D in 32/64/128, f32, query rows with no valid key). Then timings at the
+   flagship shape with CUDA events: each kernel, the plain versions, and
+   torch's scaled_dot_product_attention forward and backward as a
+   yardstick only.
 4. small   — a tiny TransformerLM through the port on the CPU (plain
-   attention) and on the GPU (the kernel) with the same weights.
-5. serve   — the main path at full width: TransformerLM(vocab 2048,
+   versions) and on the GPU (the kernels) with the same weights: the
+   output, then 3 SGD steps (loss per step, final params, 2 launches of
+   each backward kernel per step).
+5. serve   — the serving path at full width: TransformerLM(vocab 2048,
    max_len 2048, d_model 2048, 16 heads, 8 blocks, bf16, random weights
    from the seed) registered in ModelRegistry behind InferenceServer;
    concurrent HTTP :predict requests of 1x128 token ids, then 8 concurrent
@@ -28,6 +33,14 @@ non-zero (and without a result line when no CUDA device is present):
    16-row batch. Checks HTTP 200, finite rows that sum to 1, 8 kernel
    launches per dispatch, and a row served alone against the same row
    served in the batch.
+6. train   — the training path at the same full width through the trainer
+   CLI (``deeplearning4j_tpu_torch.train``, in-process): 16 rows of random
+   ids from a seed with y = roll(ids, -1), Adam at lr 1e-4 (bench.py's),
+   4 epochs of one batch, then the output zip. Checks a finite, falling
+   loss, 8 launches of each kernel per step, and that the zip restores to
+   a model with the same output. Then step time (CUDA events), its
+   forward / backward / update split, tokens/s, share of the bf16 peak and
+   peak memory.
 
 It ends with the kernels line, the card's name and power limit, and
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -35,14 +48,19 @@ It ends with the kernels line, the card's name and power limit, and
 
 from __future__ import annotations
 
+import gc
 import json
+import logging
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
+from pathlib import Path
 
+import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import obs
@@ -52,6 +70,10 @@ from deeplearning4j_tpu_torch.nn.model import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import _build
 from deeplearning4j_tpu_torch.ops import flash_attention as fa
 from deeplearning4j_tpu_torch.serve import InferenceServer, ModelRegistry, ServeConfig
+from deeplearning4j_tpu_torch.train import __main__ as train_cli
+from deeplearning4j_tpu_torch.train.listeners import CollectScoresListener
+from deeplearning4j_tpu_torch.utils.serialization import restore_network
+from deeplearning4j_tpu_torch.utils.tree import tree_leaves, tree_unflatten_like
 
 # H100 SXM published dense peaks (NVIDIA data sheet) at a 700 W limit
 PEAK_BF16_FLOPS = 989e12
@@ -61,6 +83,18 @@ FLAGSHIP = dict(B=16, T=2048, H=16, D=128)
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),   # summation order
        torch.bfloat16: dict(rtol=0.0, atol=2e-2)}   # ~2 bf16 ulps at O(1)
 LSE_ATOL = 1e-4
+# backward, bf16: the kernels round p and ds to bf16 before their products
+# (as the TPU kernels do) and sum in another order than the plain version.
+# Two bounds: max |err| per tensor within ~2 bf16 ulps of the tensor's
+# largest entry, and per (batch, head, 64-row tile) ||err|| within 1e-2 of
+# ||ref|| (bf16 rounding of both sides gives ~1e-3), so a tile of small late
+# causal gradients that is wrong cannot hide under the first bound
+BWD_BF16_REL = 2e-2
+BWD_BF16_TILE_REL = 1e-2
+BWD_TILE_ATOL = 1e-3   # RMS floor per element: tiles of pure rounding noise
+TRAIN_LR = 1e-4        # bench.py's Adam rate
+FLAGSHIP_CONF = dict(vocab_size=2048, max_len=2048, d_model=2048, n_heads=16,
+                     n_blocks=8, dtype="bfloat16", seed=12345)
 
 
 def emit(obj) -> None:
@@ -80,25 +114,51 @@ def check(cond: bool, what: str) -> None:
 
 # -- phase 2 ----------------------------------------------------------------
 
-def build_report() -> dict:
-    t0 = time.perf_counter()
-    lib = fa._kernel_lib()
-    seconds = time.perf_counter() - t0
-    log = _build.BUILD_LOG.get("flash_fwd", "")
-    kernels = []
+def _ptxas_report(log: str, kernel: str, smem_bytes) -> list:
+    """Registers, spills and shared memory of each instantiation of
+    ``kernel`` in an ``nvcc -Xptxas -v`` report."""
+    out = []
     for m in re.finditer(
-            r"flash_fwd_kernelI(\w+?)Li(\d+)E.*?"
+            kernel + r"I(\w+?)Li(\d+)E.*?"
             r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
             r"Used (\d+) registers", log, re.S):
         dtype = "bfloat16" if "bfloat16" in m.group(1) else "float32"
         D = int(m.group(2))
-        kernels.append({
-            "dtype": dtype, "D": D, "registers": int(m.group(5)),
+        out.append({
+            "kernel": kernel, "dtype": dtype, "D": D, "registers": int(m.group(5)),
             "spill_stores": int(m.group(3)), "spill_loads": int(m.group(4)),
-            "smem_bytes": int(lib.flash_fwd_smem_bytes(
-                1 if dtype == "bfloat16" else 0, D))})
-    check(len(kernels) == 6, f"expected 6 kernel instantiations in the "
-                             f"ptxas report, parsed {len(kernels)}")
+            "smem_bytes": int(smem_bytes(1 if dtype == "bfloat16" else 0, D))})
+    return out
+
+
+def build_report() -> dict:
+    # one nvcc per source, started together
+    t0 = time.perf_counter()
+    errors = []
+
+    def build(name):
+        try:
+            _build.build(name)
+        except Exception as e:   # re-raised below, on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=build, args=(n,)) for n in ("flash_fwd", "flash_bwd")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "an nvcc build hung")
+    if errors:
+        raise errors[0]
+    fwd, bwd = fa._kernel_lib(), fa._bwd_kernel_lib()
+    seconds = time.perf_counter() - t0
+    kernels = _ptxas_report(_build.BUILD_LOG.get("flash_fwd", ""), "flash_fwd_kernel",
+                            fwd.flash_fwd_smem_bytes)
+    for which, name in enumerate(("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")):
+        kernels += _ptxas_report(_build.BUILD_LOG.get("flash_bwd", ""), name,
+                                 lambda dt, D, w=which: bwd.flash_bwd_smem_bytes(w, dt, D))
+    check(len(kernels) == 18, f"expected 18 kernel instantiations (6 per kernel) in "
+                              f"the ptxas reports, parsed {len(kernels)}")
     return {"phase": "build", "seconds": round(seconds, 3), "kernels": kernels}
 
 
@@ -170,6 +230,80 @@ def attention_bound(B, T, H, D, causal, elem_bytes, peak_flops, kmask=False):
             flops, nbytes)
 
 
+def bwd_bound(B, T, H, D, causal, elem_bytes, kernel, kmask=False):
+    """(bound_ms, bound_by, flops, bytes) of one backward kernel: its
+    products over the kept (query, key) pairs — S, dP, dQ for dq; S, dP,
+    dV, dK for dk/dv — and q, k, v, do, lse, delta read once and its
+    gradients written once."""
+    pairs = T * (T + 1) // 2 if causal else T * T
+    products, outs = (3, 1) if kernel == "dq" else (4, 2)
+    flops = 2.0 * products * B * H * pairs * D
+    nbytes = (4 + outs) * B * T * H * D * elem_bytes + 2 * 4.0 * B * H * T
+    if kmask:
+        nbytes += 4.0 * B * T
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            flops, nbytes)
+
+
+def tile_rel_err(got, want, rows: int = 64) -> float:
+    """Worst ||got - want|| / (||want|| + BWD_TILE_ATOL * sqrt(n)) over the
+    (batch, head, ``rows``-row tile) blocks of [B, T, H, D] tensors."""
+    B, T, H, D = want.shape
+    pad = (0, 0, 0, 0, 0, (-T) % rows)
+    d = torch.nn.functional.pad(got.float() - want.float(), pad).view(B, -1, rows, H, D)
+    w = torch.nn.functional.pad(want.float(), pad).view(B, -1, rows, H, D)
+    num = d.square().sum((2, 4)).sqrt()
+    den = w.square().sum((2, 4)).sqrt() + BWD_TILE_ATOL * (rows * D) ** 0.5
+    return (num / den).max().item()
+
+
+def compare_bwd(case: dict) -> dict:
+    """The backward kernels against flash_attention_bwd_reference on the
+    same q, k, v, forward out/lse, cotangent and key mask."""
+    B, T, H, D = case["B"], case["T"], case["H"], case["D"]
+    dtype, causal = case["dtype"], case["causal"]
+    q, k, v = make_qkv(B, T, H, D, dtype, case["seed"])
+    km = None
+    if case["kmask"] == "varlen":
+        km = varlen_mask(B, T, case["seed"])
+    elif case["kmask"] == "leading":
+        # causal: the first queries of batch 0 have no valid key at all
+        km = torch.ones(B, T, device="cuda")
+        km[0, :37] = 0.0
+    out, lse = fa.flash_fwd_cuda(q, k, v, kmask=km, causal=causal)
+    g = torch.Generator(device="cuda").manual_seed(case["seed"] + 100)
+    do = torch.randn(B, T, H, D, generator=g, device="cuda").to(dtype)
+    got = fa.flash_bwd_cuda(q, k, v, out, lse, do, km, causal)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, km, causal)
+    res = {"B": B, "T": T, "H": H, "D": D, "dtype": str(dtype).split(".")[-1],
+           "causal": causal, "kmask": case["kmask"]}
+    ok = True
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        a, b = a.float(), b.float()
+        err = (a - b).abs().max().item()
+        res[f"{name}_max_abs_err"] = err
+        if dtype == torch.float32:
+            tol = TOL[torch.float32]
+            ok &= bool(((a - b).abs() <= tol["atol"] + tol["rtol"] * b.abs()).all())
+        else:
+            ref_max = b.abs().max().item()
+            tile = tile_rel_err(a, b)
+            res[f"{name}_ref_max_abs"] = ref_max
+            res[f"{name}_ref_median_abs"] = b.abs().median().item()
+            res[f"{name}_tile_rel_err"] = tile
+            ok &= err <= BWD_BF16_REL * ref_max and tile <= BWD_BF16_TILE_REL
+    if case["kmask"] == "leading" and causal:
+        ok &= int(torch.count_nonzero(got[0][0, :37])) == 0
+    res["tol"] = (TOL[torch.float32] if dtype == torch.float32
+                  else {"max_abs_err_over_max_abs_ref": BWD_BF16_REL,
+                        "tile_rel_err": BWD_BF16_TILE_REL,
+                        "tile_atol_rms": BWD_TILE_ATOL})
+    res["ok"] = ok
+    return res
+
+
 def kernel_phase() -> dict:
     fl = FLAGSHIP
     cases = [dict(fl, dtype=torch.bfloat16, causal=True, kmask=False, seed=0)]
@@ -201,7 +335,54 @@ def kernel_phase() -> dict:
               "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
               "bytes": nbytes, "achieved_tflops": flops / kernel_ms / 1e9,
               "roofline_share": bound_ms / kernel_ms}
-    return {"phase": "kernel", "cases": results, "timing": timing}
+
+    bf16 = torch.bfloat16
+    bwd_cases = [dict(fl, dtype=bf16, causal=True, kmask=None, seed=20)]
+    bwd_cases += [
+        dict(B=2, T=1000, H=4, D=128, dtype=bf16, causal=True, kmask=None, seed=21),
+        dict(B=3, T=700, H=4, D=64, dtype=bf16, causal=False, kmask="varlen", seed=22),
+        dict(B=3, T=700, H=4, D=64, dtype=bf16, causal=True, kmask="varlen", seed=23),
+        dict(B=2, T=333, H=3, D=32, dtype=bf16, causal=True, kmask="varlen", seed=24),
+        dict(B=2, T=300, H=2, D=64, dtype=bf16, causal=True, kmask="leading", seed=25),
+        dict(B=2, T=300, H=2, D=128, dtype=torch.float32, causal=True, kmask="leading",
+             seed=26),
+    ]
+    bwd_cases += [dict(B=2, T=257, H=3, D=D, dtype=torch.float32, causal=c, kmask=m,
+                       seed=30 + D) for D in (32, 64, 128)
+                  for c, m in ((True, None), (False, "varlen"))]
+    bwd_results = [compare_bwd(c) for c in bwd_cases]
+    bad = [r for r in bwd_results if not r["ok"]]
+    check(not bad, f"backward kernels disagree with their plain version: {bad}")
+    torch.cuda.empty_cache()
+
+    out, lse = fa.flash_fwd_cuda(q, k, v, causal=True)
+    do = torch.randn(B, T, H, D, generator=torch.Generator(device="cuda").manual_seed(7),
+                     device="cuda").to(bf16)
+    delta = fa._delta(out, do)
+    dq_ms = time_cuda(lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, None, True),
+                      iters=10)
+    dkv_ms = time_cuda(lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, None, True),
+                       iters=10)
+    plain_bwd_ms = time_cuda(
+        lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do, None, True),
+        iters=2, warmup=1)
+    torch.cuda.empty_cache()
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+    o = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+    sdpa_bwd_ms = time_cuda(lambda: torch.autograd.grad(o, (qg, kg, vg), dot,
+                                                        retain_graph=True), iters=10)
+    bwd_timing = {"shape": [B, T, H, D], "dtype": "bfloat16", "causal": True,
+                  "plain_ms": plain_bwd_ms, "library_ms": sdpa_bwd_ms,
+                  "library": "scaled_dot_product_attention backward (dq, dk, dv)"}
+    for name, ms in (("dq", dq_ms), ("dkv", dkv_ms)):
+        b_ms, b_by, b_flops, b_bytes = bwd_bound(B, T, H, D, True, 2, name)
+        bwd_timing[name] = {"kernel_ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                            "flops": b_flops, "bytes": b_bytes,
+                            "achieved_tflops": b_flops / ms / 1e9,
+                            "roofline_share": b_ms / ms}
+    return {"phase": "kernel", "cases": results, "timing": timing,
+            "bwd_cases": bwd_results, "bwd_timing": bwd_timing}
 
 
 # -- phase 4 ----------------------------------------------------------------
@@ -228,7 +409,46 @@ def small_phase() -> dict:
                "kernel_launches": launches, "ok": ok}
         check(ok, f"GPU and CPU disagree on the tiny TransformerLM: {run}")
         out["runs"].append(run)
+    out["train"] = small_train()
     return out
+
+
+def _bwd_launches():
+    return fa.flash_bwd_dq_cuda.launches, fa.flash_bwd_dkv_cuda.launches
+
+
+def small_train() -> dict:
+    """3 SGD steps of a tiny f32 TransformerLM on the CPU (plain versions)
+    and on the GPU (the kernels) from the same weights and batch. f32:
+    summation order differs (cuBLAS, the kernels' blockwise sums)."""
+    tol = dict(rtol=1e-4, atol=1e-5)
+    conf = zoo.TransformerLM(vocab_size=64, max_len=64, d_model=64, n_heads=2,
+                             n_blocks=2, dtype="float32", seed=11,
+                             updater={"type": "sgd", "lr": 0.1})
+    cpu = MultiLayerNetwork(conf, device="cpu").init()
+    gpu = params_from_numpy(MultiLayerNetwork(conf), params_to_numpy(cpu))
+    x = torch.randint(0, 64, (4, 64), generator=torch.Generator().manual_seed(3))
+    y = torch.roll(x, -1, dims=1)
+    scores, launches = {}, {}
+    for name, m in (("cpu", cpu), ("gpu", gpu)):
+        lis = CollectScoresListener()
+        m.set_listeners(lis)
+        before = _bwd_launches()
+        m.fit((x, y), epochs=3)
+        torch.cuda.synchronize()
+        launches[name] = [a - b for a, b in zip(_bwd_launches(), before)]
+        scores[name] = [s for _, s in lis.scores]
+    got = [p.cpu() for p in tree_leaves(gpu.params)]
+    want = tree_leaves(cpu.params)
+    param_err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    ok = (bool(np.allclose(scores["gpu"], scores["cpu"], **tol))
+          and all(torch.allclose(a, b, **tol) for a, b in zip(got, want))
+          and launches == {"cpu": [0, 0], "gpu": [6, 6]})
+    res = {"dtype": "float32", "steps": 3, "loss_cpu": scores["cpu"],
+           "loss_gpu": scores["gpu"], "param_max_abs_err": param_err, "tol": tol,
+           "bwd_launches_dq_dkv": launches, "ok": ok}
+    check(ok, f"GPU and CPU training disagree on the tiny TransformerLM: {res}")
+    return res
 
 
 # -- phase 5 ----------------------------------------------------------------
@@ -277,8 +497,7 @@ def run_concurrently(fn, args_list):
 
 def serve_phase() -> dict:
     vocab, T, name = 2048, 2048, "lm"
-    conf = zoo.TransformerLM(vocab_size=vocab, max_len=T, d_model=2048, n_heads=16,
-                             n_blocks=8, dtype="bfloat16", seed=12345)
+    conf = zoo.TransformerLM(**FLAGSHIP_CONF)
     g = torch.Generator().manual_seed(2)
     http_ids = [torch.randint(0, vocab, (1, 128), generator=g) for _ in range(4)]
     batch_ids = [torch.randint(0, vocab, (2, T), generator=g) for _ in range(8)]
@@ -286,6 +505,8 @@ def serve_phase() -> dict:
 
     # the main path: every launch below is counted
     fa.flash_fwd_cuda.launches = 0
+    fa.flash_bwd_dq_cuda.launches = 0
+    fa.flash_bwd_dkv_cuda.launches = 0
     t0 = time.perf_counter()
     model = MultiLayerNetwork(conf).init()
     registry = ModelRegistry(config=ServeConfig(
@@ -340,6 +561,7 @@ def serve_phase() -> dict:
     torch.cuda.synchronize()
     total_launches = fa.flash_fwd_cuda.launches
     check(total_launches > 0, "the main path never launched the kernel")
+    check(_bwd_launches() == (0, 0), "serving launched a backward kernel")
 
     # where a 16-row dispatch goes, outside the counted run: the forward
     # pass on the card, then the copy of its bf16 output to the host as f32
@@ -373,6 +595,146 @@ def serve_phase() -> dict:
     }
 
 
+# -- phase 6 ----------------------------------------------------------------
+
+class _ScoreLog(logging.Handler):
+    """Collects the CLI's ScoreIterationListener lines."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.scores = []
+
+    def emit(self, record):
+        m = re.match(r"Score at iteration (\d+) is (\S+)", record.getMessage())
+        if m:
+            self.scores.append((int(m.group(1)), float(m.group(2))))
+
+
+def _launch_counts():
+    return {"flash_fwd": fa.flash_fwd_cuda.launches,
+            "flash_bwd_dq": fa.flash_bwd_dq_cuda.launches,
+            "flash_bwd_dkv": fa.flash_bwd_dkv_cuda.launches}
+
+
+def train_phase(tmp: Path) -> dict:
+    rows, steps = 16, 4
+    conf = zoo.TransformerLM(updater={"type": "adam", "lr": TRAIN_LR}, **FLAGSHIP_CONF)
+    V, T = FLAGSHIP_CONF["vocab_size"], FLAGSHIP_CONF["max_len"]
+    L, C, H = FLAGSHIP_CONF["n_blocks"], FLAGSHIP_CONF["d_model"], FLAGSHIP_CONF["n_heads"]
+    (tmp / "conf.json").write_text(conf.to_json())
+    x = np.random.RandomState(4).randint(0, V, (rows, T)).astype(np.int64)
+    y = np.roll(x, -1, axis=1)
+    np.savez(tmp / "d.npz", x=x, y=y)
+    out_zip = tmp / "trained.zip"
+    log = logging.getLogger("deeplearning4j_tpu_torch")
+    handler = _ScoreLog()
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    torch.cuda.reset_peak_memory_stats()
+    n_spans = len(obs.recent_spans())
+
+    # the main path: every launch below is counted
+    fa.flash_fwd_cuda.launches = 0
+    fa.flash_bwd_dq_cuda.launches = 0
+    fa.flash_bwd_dkv_cuda.launches = 0
+    t0 = time.perf_counter()
+    try:
+        model = train_cli.run([str(tmp / "conf.json"), "--data", str(tmp / "d.npz"),
+                               "--epochs", str(steps), "--batch-size", str(rows),
+                               "--output", str(out_zip), "--listener-frequency", "1"])
+        torch.cuda.synchronize()
+    finally:
+        log.removeHandler(handler)
+    run_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_walls = [s["wall_s"] for s in obs.recent_spans()[n_spans:]
+                  if s["span"] == "mln.fit_batch"]
+
+    scores = [s for _, s in handler.scores]
+    check([i for i, _ in handler.scores] == list(range(1, steps + 1)),
+          f"scores logged for iterations {[i for i, _ in handler.scores]}")
+    check(all(np.isfinite(scores)), f"non-finite loss: {scores}")
+    # the loss sums over 2048 positions (~1.6e4, where a bf16 ulp is 128)
+    check(scores[-1] < scores[0] - 128.0, f"the loss did not fall: {scores}")
+    for name, n in launches.items():
+        check(n == 8 * steps, f"{name}: {n} launches over {steps} steps, not 8 per step")
+
+    # the zip restores to the same params and the same output
+    restored = restore_network(str(out_zip))
+    check(all(torch.equal(a, b) for a, b in zip(tree_leaves(model.params),
+                                                tree_leaves(restored.params))),
+          "restored params differ from the trained model's")
+    x2 = x[:2]
+    restore_diff = (model.output(x2).float() - restored.output(x2).float()).abs().max().item()
+    check(restore_diff == 0.0, f"restored output differs by {restore_diff}")
+    zip_bytes = out_zip.stat().st_size
+    del restored
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # step time after a warm step, then one step timed in phases (the
+    # phases are what _value_and_grad and _update_params run)
+    xt, yt = torch.as_tensor(x, device="cuda"), torch.as_tensor(y, device="cuda")
+    model._fit_batch(xt, yt, None, None)
+    torch.cuda.synchronize()
+    timed = 3
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(timed):
+        model._fit_batch(xt, yt, None, None)
+    ev[1].record()
+    torch.cuda.synchronize()
+    step_ms = ev[0].elapsed_time(ev[1]) / timed
+    ph = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    leaves = tree_leaves(model.params)
+    live = [p.detach().requires_grad_(True) for p in leaves]
+    ph[0].record()
+    loss, _ = model._loss(tree_unflatten_like(model.params, live), model.state, xt, yt,
+                          None, None, model._gen)
+    ph[1].record()
+    grads = torch.autograd.grad(loss, live)
+    ph[2].record()
+    model._update_params(tree_unflatten_like(model.params, list(grads)))
+    ph[3].record()
+    torch.cuda.synchronize()
+    fwd_ms, bwd_ms, upd_ms = (ph[i].elapsed_time(ph[i + 1]) for i in range(3))
+
+    tokens = rows * T
+    n_params = model.num_params()
+    pairs = T * (T + 1) // 2
+    # 6 N per token for the GEMMs (embedding and head included), and the
+    # attention products of the model: 2 forward, 4 backward per block
+    attn_flops = 6 * 2.0 * rows * H * pairs * (C // H) * L
+    flops = 6.0 * n_params * tokens + attn_flops
+    return {
+        "phase": "train",
+        "model": {"vocab": V, "T": T, "d_model": C, "heads": H, "blocks": L,
+                  "dtype": "bfloat16", "params": n_params},
+        "entry": "python -m deeplearning4j_tpu_torch.train (in-process)",
+        "updater": {"type": "adam", "lr": TRAIN_LR}, "rows": rows, "steps": steps,
+        "loss": scores, "launches": launches, "run_s": run_s,
+        "step_wall_s": step_walls, "zip_bytes": zip_bytes,
+        "restore_max_abs_diff": restore_diff,
+        "step_ms": step_ms,
+        "split_ms": {"forward": fwd_ms, "backward": bwd_ms, "update": upd_ms},
+        "tokens_per_s": tokens / (step_ms / 1e3),
+        "flops_per_step": flops, "attention_flops_per_step": attn_flops,
+        "achieved_tflops": flops / step_ms / 1e9,
+        "peak_share": flops / (step_ms / 1e3) / PEAK_BF16_FLOPS,
+        "max_memory_allocated_bytes": peak,
+    }
+
+
+def _kernel_row(name, source, replaces, launches, by_path, max_abs_err, ms, plain_ms,
+                bound_ms, bound_by, library_ms, **extra):
+    return dict({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": launches, "launches_by_path": by_path,
+                 "max_abs_err": max_abs_err, "ms": ms, "kernel_ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": library_ms}, **extra)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
@@ -394,22 +756,39 @@ def main() -> int:
     bd["attention_ms"] = 8 * t["kernel_ms"]   # 8 blocks at the flagship shape
     bd["attention_share"] = bd["attention_ms"] / bd["forward_ms"]
     emit(srv)
+    gc.collect()
+    torch.cuda.empty_cache()   # the serve model is gone before training starts
 
-    emit({"kernels": [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "deeplearning4j_tpu/ops/flash_attention.py:57",
-        "launches": srv["launches"],
-        "max_abs_err": kern["cases"][0]["max_abs_err"],
-        "max_err": max(c["max_abs_err"] for c in kern["cases"]),
-        "ms": t["kernel_ms"],
-        "kernel_ms": t["kernel_ms"],
-        "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"],
-    }]})
+    with tempfile.TemporaryDirectory() as tmp:
+        trn = train_phase(Path(tmp))
+    bt = kern["bwd_timing"]
+    trn["attention_ms"] = {"forward": 8 * t["kernel_ms"],
+                           "backward": 8 * (bt["dq"]["kernel_ms"] + bt["dkv"]["kernel_ms"])}
+    emit(trn)
+
+    fwd_cases = kern["cases"]
+    bwd_cases = kern["bwd_cases"]
+    tl = trn["launches"]
+    rows = [_kernel_row(
+        "flash_fwd", "deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
+        "deeplearning4j_tpu/ops/flash_attention.py:57",
+        srv["launches"] + tl["flash_fwd"],
+        {"serve": srv["launches"], "train": tl["flash_fwd"]},
+        fwd_cases[0]["max_abs_err"], t["kernel_ms"], t["plain_ms"], t["bound_ms"],
+        t["bound_by"], t["library_ms"],
+        max_err=max(c["max_abs_err"] for c in fwd_cases))]
+    for name, key, line, errs in (("flash_bwd_dq", "dq", 224, ("dq",)),
+                                  ("flash_bwd_dkv", "dkv", 275, ("dk", "dv"))):
+        bk = bt[key]
+        rows.append(_kernel_row(
+            name, "deeplearning4j_tpu_torch/csrc/flash_bwd.cu",
+            f"deeplearning4j_tpu/ops/flash_attention.py:{line}",
+            tl[name], {"serve": 0, "train": tl[name]},
+            max(bwd_cases[0][f"{e}_max_abs_err"] for e in errs), bk["kernel_ms"],
+            bt["plain_ms"], bk["bound_ms"], bk["bound_by"], bt["library_ms"],
+            max_err=max(c[f"{e}_max_abs_err"] for c in bwd_cases for e in errs),
+            plain_and_library_compute="dq, dk and dv together"))
+    emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -6,9 +6,14 @@ parity tests. Plain tensor code is PyTorch; every Pallas TPU kernel on a
 ported path becomes a hand-written CUDA kernel for Hopper (``csrc/``),
 built at first use (``ops/_build.py``).
 
-Ported so far: the TransformerLM serving path — config serde
-(``nn/config.py``, ``nn/model.py``), the layers it uses, the flash-attention
-forward kernel (``ops/flash_attention.py``), the bucket ladder
+Ported so far: the TransformerLM serving and training paths — config
+serde (``nn/config.py``, ``nn/model.py``), the layers they use, the
+flash-attention forward and backward kernels (``ops/flash_attention.py``),
+losses, updaters, constraints and the fit loop (``nn/losses.py``,
+``train/updaters.py``, ``nn/constraints.py``, ``nn/step_program.py``),
+listeners and evaluation, the checkpoint zip shared with the JAX package
+(``utils/serialization.py``), the trainer CLI
+(``python -m deeplearning4j_tpu_torch.train``), the bucket ladder
 (``utils/bucketing.py``), observability (``obs/``) and the HTTP
 ``:predict`` tier (``serve/``). Entry points run on the GPU unless the
 caller passes ``device="cpu"``.

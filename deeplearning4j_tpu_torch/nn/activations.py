@@ -64,6 +64,11 @@ def tanh(x):
     return torch.tanh(x)
 
 
+@register("sigmoid")
+def sigmoid(x):
+    return torch.sigmoid(x)
+
+
 @register("softmax")
 def softmax(x):
     return torch.softmax(x, dim=-1)

@@ -118,19 +118,37 @@ def layer_from_dict(d: dict) -> "LayerConfig":
 class LayerConfig:
     """Base for all layer configs: the knobs on DL4J's BaseLayer conf
     (activation, weight init, l1/l2, per-layer updater override, dropout,
-    name). Training-only fields ride along for serde parity; the training
-    slice gives them meaning in this package."""
+    name, constraints, gradient normalization, weight noise)."""
 
     name: Optional[str] = None
     dropout: float = 0.0            # input dropout, DL4J semantics (keep-prob = 1-dropout)
     l1: float = 0.0
     l2: float = 0.0
-    updater: Optional[dict] = None
-    trainable: bool = True
+    updater: Optional[dict] = None  # per-layer updater override (train/updaters.py)
+    trainable: bool = True          # False == FrozenLayer wrapper in the reference
+    # parameter constraints applied after each update (nn/constraints.py)
     constraints: Any = ()
+    # per-layer gradient normalization (train/updaters.py
+    # apply_gradient_normalization names the modes)
     gradient_normalization: Optional[str] = None
     gradient_normalization_threshold: float = 1.0
+    # train-time weight noise:
+    #   {"type": "dropconnect", "p": 0.95}  p = weight RETAIN probability,
+    #       inverted scaling
+    #   {"type": "gaussian", "stddev": 0.01, "additive": true}
     weight_noise: Optional[dict] = None
+
+    # Param names treated as bias-class: excluded from l1/l2, weight noise
+    # and constraints unless a spec asks otherwise.
+    BIAS_PARAM_NAMES = frozenset({"b", "vb", "bias", "beta", "gamma"})
+
+    def uses_rng(self) -> bool:
+        """Does a TRAIN-mode apply() draw randomness? Layers with extra
+        noise sources (attention dropout) extend this; ``score(train=True)``
+        runs such layers in eval mode so its result is deterministic."""
+        inner = getattr(self, "rnn", None)
+        return (bool(self.dropout) or self.weight_noise is not None
+                or (inner is not None and inner.uses_rng()))
 
     # -- registry / serde --------------------------------------------------
     _type_name = "base"
@@ -193,6 +211,65 @@ class LayerConfig:
         """Input dropout as configured on the layer (inverted dropout)."""
         return dropout(x, self.dropout, train, rng,
                        f"Layer {self.name or self._type_name}")
+
+    def maybe_weight_noise(self, params, train: bool, rng):
+        """Perturb weight-class params at train time per ``weight_noise``
+        (DropConnect / WeightNoise): a new param tree, gradients flow
+        through the noise; identity at inference. Leaves draw from ``rng``
+        in sorted-key order."""
+        wn = self.weight_noise
+        if not wn or not train or not params:
+            return params
+        if rng is None:
+            raise ValueError(f"Layer {self.name or self._type_name}: "
+                             "weight noise requires an rng generator")
+        kind = wn.get("type", "dropconnect")
+        if kind not in ("dropconnect", "gaussian"):
+            raise ValueError(f"unknown weight_noise type {kind!r}")
+
+        def visit(p):
+            out = {}
+            for name in sorted(p):
+                v = p[name]
+                if isinstance(v, dict):
+                    out[name] = visit(v)
+                elif name in self.BIAS_PARAM_NAMES and not wn.get("apply_to_bias", False):
+                    out[name] = v
+                elif kind == "dropconnect":
+                    keep = float(wn.get("p", 0.5))
+                    m = torch.rand(v.shape, generator=rng, device=v.device) < keep
+                    out[name] = torch.where(m, v / keep, torch.zeros_like(v))
+                else:
+                    noise = float(wn.get("stddev", 0.01)) * torch.randn(
+                        v.shape, generator=rng, device=v.device, dtype=v.dtype)
+                    out[name] = v + noise if wn.get("additive", True) else v * (1.0 + noise)
+            return {k: out[k] for k in p}
+
+        return visit(params)
+
+    def regularization_penalty(self, params: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """L1/L2 penalty (f32 scalar) over this layer's weight-class params,
+        recursing into nested param dicts."""
+        leaves = []
+
+        def visit(p):
+            for pname, v in p.items():
+                if isinstance(v, dict):
+                    visit(v)
+                elif pname not in self.BIAS_PARAM_NAMES:
+                    leaves.append(v)
+
+        visit(params)
+        dev = leaves[0].device if leaves else None
+        pen = torch.zeros((), dtype=torch.float32, device=dev)
+        if self.l1 == 0.0 and self.l2 == 0.0:
+            return pen
+        for v in leaves:
+            if self.l1:
+                pen = pen + self.l1 * torch.sum(torch.abs(v))
+            if self.l2:
+                pen = pen + 0.5 * self.l2 * torch.sum(v * v)
+        return pen
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,

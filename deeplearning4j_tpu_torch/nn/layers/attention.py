@@ -11,8 +11,11 @@ activations are [B, T, C] and the attention core works on [B, T, H, D].
 
 ``use_flash`` keeps its meaning: under ``"auto"`` and ``True`` the core is
 :func:`~deeplearning4j_tpu_torch.ops.flash_attention.flash_attention` — the
-hand-written CUDA kernel for CUDA tensors, its plain version for CPU
-tensors; ``False`` takes ``local_attention``. Sequence parallelism, the
+hand-written CUDA kernels (forward, and the dq and dk/dv backward under
+autograd) for CUDA tensors, their plain versions for CPU tensors;
+``False`` takes ``local_attention``. Attention dropout (``attn_dropout``)
+applies to the attention OUTPUT, as in the JAX package, so it never gates
+the kernels. Sequence parallelism, the
 decode path, block-size env knobs and per-block rematerialisation arrive
 with later slices; ``sequence_parallel`` is kept for serde parity and, as
 in the JAX package without a ``seq`` mesh axis, runs single-device
@@ -64,6 +67,9 @@ class MultiHeadAttention(LayerConfig):
 
     def output_type(self, input_type: InputType) -> InputType:
         return input_type
+
+    def uses_rng(self) -> bool:
+        return super().uses_rng() or self.attn_dropout > 0.0
 
     def init(self, gen, input_type, dtype=torch.float32, device=None):
         C = input_type.size

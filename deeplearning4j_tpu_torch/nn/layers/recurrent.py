@@ -1,7 +1,8 @@
 """Recurrent layers (PyTorch port of ``nn/layers/recurrent.py``).
 
 Ported so far: the ``BaseRecurrent`` scaffolding and ``RnnOutputLayer``,
-the time-distributed softmax head of the TransformerLM. LSTM, GravesLSTM
+the time-distributed softmax head of the TransformerLM with its loss head
+(``score``). LSTM, GravesLSTM
 (and their fused kernels), SimpleRnn, Bidirectional, LastTimeStep and
 MaskZero arrive with the recurrent slice.
 
@@ -15,7 +16,7 @@ from typing import Any
 
 import torch
 
-from deeplearning4j_tpu_torch.nn import initializers
+from deeplearning4j_tpu_torch.nn import initializers, losses
 from deeplearning4j_tpu_torch.nn.config import FeedForwardLayerConfig, register_layer
 from deeplearning4j_tpu_torch.nn.input_type import InputType
 
@@ -32,8 +33,7 @@ class BaseRecurrent(FeedForwardLayerConfig):
 @dataclass
 class RnnOutputLayer(BaseRecurrent):
     """Time-distributed output layer (RnnOutputLayer.java): dense + activation
-    applied at every timestep of [batch, time, feat]. The loss head
-    (``score``) arrives with the training slice."""
+    applied at every timestep of [batch, time, feat], with its loss."""
 
     activation: Any = "softmax"
     loss: Any = "mcxent"
@@ -62,3 +62,14 @@ class RnnOutputLayer(BaseRecurrent):
         if mask is not None:
             y = y * mask[..., None]
         return y, state
+
+    def score(self, params, x, labels, mask=None, average=True, weights=None):
+        """The loss head on the layer's input ``x`` [B, T, n_in]: the mean
+        score (``average``) or per-example scores, from the preactivation
+        (softmax+mcxent fused; integer labels [B, T] are sparse)."""
+        preact = self.preactivation(params, x)
+        if average:
+            return losses.average_score(self.loss, labels, preact, self.activation,
+                                        mask, weights)
+        return losses.per_example_scores(self.loss, labels, preact, self.activation,
+                                         mask, weights)

@@ -5,16 +5,24 @@ MultiLayerNetwork / MultiLayerConfiguration). The configuration class is
 the same and reads and writes the same JSON, ``"format"`` tag included.
 The network keeps the JAX package's surface: ``params`` is a tuple of
 per-layer dicts of tensors (same keys, shapes and layouts), ``state`` a
-tuple of per-layer dicts, and ``output`` pads a batch's rows up the shared
-bucket ladder before the forward pass and slices them back.
+tuple of per-layer dicts, ``opt_state`` a tuple of per-layer updater
+states (None until the first update needs it), and ``output`` pads a
+batch's rows up the shared bucket ladder before the forward pass and
+slices them back.
 
-Ported so far: init, the forward walk, ``output``/``predict``/
-``feed_forward`` and ``num_params``. Training (``fit``, losses, updaters)
-arrives with the training slice.
+Training: ``fit`` walks epochs and minibatches (a partial tail batch is
+padded to the full row count, its padded rows weighted out of the loss),
+and each step is forward, ``torch.autograd.grad`` of the average score
+plus L1/L2 penalties, then per layer gradient normalization, the updater
+and the constraints. Where the JAX step donates its buffers, the port
+updates params in place under ``torch.no_grad()``. ``score`` and
+``evaluate`` are here too. Not ported yet: chained K-step dispatch,
+tBPTT, the non-SGD solvers, resume/divergence guard and phase spans.
 
 The network lives on one device, chosen at construction: ``device=None``
 means the GPU, and raises when there is none; ``device="cpu"`` must be
-asked for.
+asked for. The training RNG is a ``torch.Generator`` on that device,
+seeded from ``conf.seed``.
 """
 
 from __future__ import annotations
@@ -28,13 +36,27 @@ import torch
 
 from deeplearning4j_tpu_torch import obs
 from deeplearning4j_tpu_torch.nn.config import LayerConfig, _encode_value, layer_from_dict
+from deeplearning4j_tpu_torch.nn.constraints import apply_constraints
 from deeplearning4j_tpu_torch.nn.input_type import InputType
 from deeplearning4j_tpu_torch.nn.layers import EmbeddingSequence
 from deeplearning4j_tpu_torch.nn.preprocessors import infer_preprocessor
+from deeplearning4j_tpu_torch.nn.step_program import (
+    accum_applicable,
+    accum_value_and_grad,
+    grad_accum_from_env,
+)
+from deeplearning4j_tpu_torch.train.listeners import close_listeners
+from deeplearning4j_tpu_torch.train.updaters import (
+    apply_gradient_normalization,
+    make_updater,
+)
 from deeplearning4j_tpu_torch.utils import bucketing
+from deeplearning4j_tpu_torch.utils.tree import tree_leaves, tree_unflatten_like
 
 __all__ = ["MultiLayerConfiguration", "MultiLayerNetwork", "resolve_device",
            "torch_dtype"]
+
+_SGD_NAMES = ("stochastic_gradient_descent", "sgd")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -145,11 +167,86 @@ def _cast_input(x, dtype: torch.dtype, device: torch.device):
     return t
 
 
+def _cast_labels(y, dtype: torch.dtype, device: torch.device):
+    """Labels on ``device``: integer (sparse class) labels stay integers as
+    int64 — the loss head's sparse path needs them — anything else takes
+    the model dtype."""
+    if y is None:
+        return None
+    t = y if isinstance(y, torch.Tensor) else torch.as_tensor(np.asarray(y))
+    t = t.to(device)
+    if t.is_floating_point():
+        return t.to(dtype)
+    return t.to(torch.int64)
+
+
+def _cast_mask(m, dtype: torch.dtype, device: torch.device):
+    if m is None:
+        return None
+    t = m if isinstance(m, torch.Tensor) else torch.as_tensor(np.asarray(m))
+    return t.to(device=device, dtype=dtype)
+
+
+def _as_batch(batch):
+    """A batch as (features, labels, features_mask, labels_mask): from an
+    (x, y), (x, y, fmask) or (x, y, fmask, lmask) tuple, or a dict with
+    those keys."""
+    if isinstance(batch, dict):
+        return (batch["features"], batch.get("labels"),
+                batch.get("features_mask"), batch.get("labels_mask"))
+    if isinstance(batch, (tuple, list)):
+        x = batch[0]
+        y = batch[1] if len(batch) > 1 else None
+        fm = batch[2] if len(batch) > 2 else None
+        lm = batch[3] if len(batch) > 3 else None
+        return x, y, fm, lm
+    return batch, None, None, None
+
+
+def _is_arrays(data) -> bool:
+    """(x, y[, masks]) arrays rather than an iterable of batches."""
+    return (isinstance(data, (tuple, list)) and len(data) >= 2
+            and not isinstance(data[0], (tuple, list, dict)))
+
+
+def _iter_batches(data, batch_size=None):
+    """Yield (x, y, fmask, lmask) batches from (x, y[, masks]) arrays
+    (minibatched when ``batch_size`` is given, the final partial batch
+    included) or from any iterable of batches."""
+    if _is_arrays(data):
+        x, y, fm, lm = _as_batch(data)
+        n = len(x)
+        if batch_size is None or batch_size >= n:
+            yield (x, y, fm, lm)
+            return
+        for i in range(0, n, batch_size):
+            sl = slice(i, min(i + batch_size, n))
+            yield tuple(a[sl] if a is not None else None for a in (x, y, fm, lm))
+        return
+    for b in data:
+        yield _as_batch(b)
+
+
+def _fit_pad_target(source, batch_size) -> Optional[int]:
+    """The uniform per-batch row count of a fit over in-memory arrays whose
+    length is not a multiple of ``batch_size`` (the tail is padded up to
+    it), else None. Streaming iterables return None: their batch shapes are
+    not known up front."""
+    if batch_size is None or not _is_arrays(source):
+        return None
+    n = len(source[0])
+    if n > batch_size and n % batch_size != 0:
+        return batch_size
+    return None
+
+
 class MultiLayerNetwork:
     """Model facade over the config's layer stack.
 
     Host state: ``params`` (tuple of per-layer dicts of tensors), ``state``
-    (tuple of per-layer dicts), ``device`` and ``dtype``.
+    (tuple of per-layer dicts), ``opt_state`` (tuple of per-layer updater
+    states), ``iteration``/``epoch``, ``listeners``, ``device`` and
+    ``dtype``.
     """
 
     def __init__(self, conf: MultiLayerConfiguration, device=None):
@@ -161,6 +258,13 @@ class MultiLayerNetwork:
         self._resolve_layers()
         self.params = None
         self.state = None
+        self.opt_state = None
+        self.iteration = 0
+        self.epoch = 0
+        self.batch_in_epoch = 0
+        self.listeners: list = []
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(conf.seed)
 
     # -- resolution: preprocessors + n_in inference + per-layer input types --
     def _resolve_layers(self):
@@ -185,39 +289,211 @@ class MultiLayerNetwork:
     # -- init --------------------------------------------------------------
     def init(self, seed: Optional[int] = None) -> "MultiLayerNetwork":
         """Draw every layer's params from one ``torch.Generator`` on the
-        model's device, seeded from ``conf.seed`` (or ``seed``)."""
+        model's device, seeded from ``conf.seed`` (or ``seed``); build the
+        per-layer updaters; reset the step counters. The updaters' state is
+        built at the first update (or when a checkpoint's is loaded), so a
+        model that only serves holds no optimizer moments."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.conf.seed if seed is None else seed)
         with torch.no_grad():
             self.params = tuple(
                 l.init(gen, it, self.dtype, self.device)
                 for l, it in zip(self.layers, self.layer_input_types))
-        self.state = tuple(l.init_state(it)
-                           for l, it in zip(self.layers, self.layer_input_types))
+            self.state = tuple(l.init_state(it)
+                               for l, it in zip(self.layers, self.layer_input_types))
+        self._build_updaters()
+        self.opt_state = None
+        self.iteration = 0
+        self.epoch = 0
         return self
 
+    def _build_updaters(self):
+        """One updater per layer: the layer's own ``updater`` overrides the
+        network default; frozen layers get ``noop``."""
+        self._updaters = []
+        for l in self.layers:
+            if not getattr(l, "trainable", True):
+                self._updaters.append(make_updater("noop"))
+            elif getattr(l, "updater", None) is not None:
+                self._updaters.append(make_updater(l.updater))
+            else:
+                self._updaters.append(make_updater(self.conf.updater))
+
+    def init_opt_state(self):
+        """The per-layer updater state, built from the params on first use."""
+        if self.opt_state is None:
+            with torch.no_grad():
+                self.opt_state = tuple(u.init(p) for u, p in zip(self._updaters, self.params))
+        return self.opt_state
+
     def num_params(self) -> int:
-        return sum(int(v.numel()) for p in self.params for v in _leaves(p))
+        return sum(int(v.numel()) for v in tree_leaves(self.params))
 
     # -- forward -----------------------------------------------------------
-    def _forward(self, x, fmask=None, collect=False):
-        """Walk the layer stack in inference mode: the output, or with
-        ``collect`` every layer's activation (kept alive only then)."""
+    def _forward(self, params, state, x, *, train: bool, rng=None, fmask=None,
+                 upto: Optional[int] = None, collect: bool = False,
+                 ex_weight=None, deterministic: bool = False):
+        """Walk the layer stack (the first ``upto`` layers). Returns (act,
+        new_state, mask, activations). ``ex_weight`` is a per-example [B]
+        validity weight for layers that declare CONSUMES_EXAMPLE_WEIGHT.
+        ``deterministic`` (``score(train=True)``): layers whose train-mode
+        apply draws randomness run in eval mode, everything else keeps
+        train-mode semantics."""
+        n = len(self.layers) if upto is None else upto
         acts = []
+        new_state = list(state)
         mask = fmask
         a = _cast_input(x, self.dtype, self.device)
-        for layer, p, st, it in zip(self.layers, self.params, self.state,
-                                    self.layer_input_types):
-            a, _ = layer.apply(p, st, a, train=False, mask=mask)
-            mask = layer.propagate_mask(mask, it)
+        for i in range(n):
+            layer = self.layers[i]
+            ltrain = train and not (deterministic and layer.uses_rng())
+            p_i = params[i]
+            if ltrain and layer.weight_noise and rng is not None:
+                p_i = layer.maybe_weight_noise(p_i, ltrain, rng)
+            kw = {}
+            if ex_weight is not None and getattr(layer, "CONSUMES_EXAMPLE_WEIGHT", False):
+                kw["ex_weight"] = ex_weight
+            a, new_state[i] = layer.apply(p_i, state[i], a, train=ltrain, rng=rng,
+                                          mask=mask, **kw)
+            mask = layer.propagate_mask(mask, self.layer_input_types[i])
             if collect:
                 acts.append(a)
-        return acts if collect else a
+        return a, tuple(new_state), mask, acts
 
     def feed_forward(self, x):
         """All layer activations (MultiLayerNetwork.feedForward)."""
         with torch.inference_mode():
-            return self._forward(x, collect=True)
+            return self._forward(self.params, self.state, x, train=False,
+                                 collect=True)[3]
+
+    # -- loss and the training step ----------------------------------------
+    def _loss(self, params, state, x, y, fmask, lmask, rng, train: bool = True,
+              ex_weight=None, deterministic: bool = False):
+        """Average score plus L1/L2 penalties; returns (loss, new_state)."""
+        a, new_state, prop_mask, _ = self._forward(
+            params, state, x, train=train, rng=rng, fmask=fmask,
+            upto=len(self.layers) - 1, ex_weight=ex_weight,
+            deterministic=deterministic)
+        out_layer = self.layers[-1]
+        out_mask = lmask if lmask is not None else prop_mask
+        loss = out_layer.score(params[-1], a, y, mask=out_mask, average=True)
+        reg = sum(l.regularization_penalty(p) for l, p in zip(self.layers, params))
+        return loss + reg, new_state
+
+    def _value_and_grad(self, state, x, y, fmask, lmask, ex_weight):
+        """Loss, new layer state and the gradient tree (the params' shape;
+        zeros where a param does not reach the loss) on one batch."""
+        leaves = tree_leaves(self.params)
+        live = [p.detach().requires_grad_(True) for p in leaves]
+        params = tree_unflatten_like(self.params, live)
+        loss, new_state = self._loss(params, state, x, y, fmask, lmask, self._gen,
+                                     ex_weight=ex_weight)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        return loss.detach(), new_state, tree_unflatten_like(self.params, grads)
+
+    def _update_params(self, grads):
+        """The per-layer optimizer update (gradient normalization, updater,
+        constraints), in place under ``torch.no_grad()``."""
+        self.init_opt_state()
+        new_params, new_opt = [], []
+        with torch.no_grad():
+            for i, (u, layer) in enumerate(zip(self._updaters, self.layers)):
+                p, g = self.params[i], grads[i]
+                if not g:  # param-free layer
+                    new_params.append(p)
+                    new_opt.append(self.opt_state[i])
+                    continue
+                gn = getattr(layer, "gradient_normalization", None)
+                if gn:
+                    g = apply_gradient_normalization(
+                        gn, getattr(layer, "gradient_normalization_threshold", 1.0), g)
+                upd, new_s = u.update(g, self.opt_state[i], p, self.iteration)
+                for pi, d in zip(tree_leaves(p), tree_leaves(upd)):
+                    pi.sub_(d)
+                if getattr(layer, "constraints", None):
+                    p = apply_constraints(layer, p)
+                new_params.append(p)
+                new_opt.append(new_s)
+        self.params = tuple(new_params)
+        self.opt_state = tuple(new_opt)
+
+    def _step(self, x, y, fmask, lmask, ex_weight):
+        """One training step on tensors already on the device; returns the
+        loss as a device scalar."""
+        accum = grad_accum_from_env()
+        batch = (x, y, fmask, lmask, ex_weight)
+        if accum_applicable(accum, batch):
+            loss, new_state, grads = accum_value_and_grad(
+                accum, self.params, self.state, batch,
+                lambda mb, st: self._value_and_grad(st, *mb))
+        else:
+            loss, new_state, grads = self._value_and_grad(self.state, *batch)
+        self._update_params(grads)
+        self.state = new_state
+        self.iteration += 1
+        return loss
+
+    # -- training ----------------------------------------------------------
+    def set_listeners(self, *listeners):
+        self.listeners = list(listeners)
+        return self
+
+    def fit(self, data, epochs: int = 1, batch_size: Optional[int] = None):
+        """Train. ``data``: (x, y[, fmask[, lmask]]) arrays (minibatched by
+        ``batch_size``), an iterable of such batches, or a callable returning
+        a fresh iterable per epoch. Over arrays whose length is not a
+        multiple of ``batch_size`` the tail batch is padded to
+        ``batch_size`` rows with tiled rows weighted out of the loss
+        (DL4J_TPU_BUCKETING=0 turns that off)."""
+        if self.conf.optimization_algo not in _SGD_NAMES:
+            raise NotImplementedError(
+                f"optimization_algo={self.conf.optimization_algo!r}: the non-SGD "
+                "solvers are not ported to deeplearning4j_tpu_torch yet")
+        if self.params is None:
+            self.init()
+        tbptt = self.conf.backprop_type == "tbptt"
+        try:
+            for _ in range(epochs):
+                self.batch_in_epoch = 0
+                for l in self.listeners:
+                    l.on_epoch_start(self, self.epoch)
+                source = data() if callable(data) else data
+                pad_target = (_fit_pad_target(source, batch_size)
+                              if bucketing.bucketing_enabled() else None)
+                for x, y, fm, lm in _iter_batches(source, batch_size):
+                    if tbptt and np.ndim(x) == 3:
+                        raise NotImplementedError(
+                            "truncated BPTT is not ported to deeplearning4j_tpu_torch yet")
+                    n = len(x)
+                    ew = None
+                    if pad_target is not None:
+                        x, y, fm, lm, ew = bucketing.pad_fit_batch(
+                            x, y, fm, lm, pad_target, site="mln.fit")
+                    with obs.span("mln.fit_batch"):
+                        score = self._fit_batch(x, y, fm, lm, ew=ew)
+                    self.batch_in_epoch += 1
+                    # the loss stays on the device unless a listener reads it
+                    if self.listeners:
+                        score = float(score)
+                        for l in self.listeners:
+                            l.iteration_done(self, self.iteration, score, n)
+                for l in self.listeners:
+                    l.on_epoch_end(self, self.epoch)
+                self.epoch += 1
+        finally:
+            close_listeners(self.listeners)
+        return self
+
+    def _fit_batch(self, x, y, fm, lm, ew=None):
+        """One step on a host or device batch; returns the loss as a device
+        scalar. ``ew``: optional per-example validity weight."""
+        return self._step(
+            _cast_input(x, self.dtype, self.device),
+            _cast_labels(y, self.dtype, self.device),
+            _cast_mask(fm, self.dtype, self.device),
+            _cast_mask(lm, self.dtype, self.device),
+            _cast_mask(ew, self.dtype, self.device))
 
     # -- inference ---------------------------------------------------------
     def output(self, x, fmask=None) -> torch.Tensor:
@@ -233,8 +509,7 @@ class MultiLayerNetwork:
             raise RuntimeError("call init() (or load params) before output()")
         with torch.inference_mode():
             x = _cast_input(x, self.dtype, self.device)
-            fmask = (torch.as_tensor(fmask).to(self.device, self.dtype)
-                     if fmask is not None else None)
+            fmask = _cast_mask(fmask, self.dtype, self.device)
             n = x.shape[0]
             with obs.span("mln.output"):
                 if bucketing.bucketing_enabled() and n > 0:
@@ -243,12 +518,60 @@ class MultiLayerNetwork:
                     if target > n:
                         x = bucketing.pad_rows_zero(x, target)
                         fmask = bucketing.pad_rows_zero(fmask, target)
-                        return bucketing.unpad(self._forward(x, fmask), n)
-                return self._forward(x, fmask)
+                        return bucketing.unpad(self._infer(x, fmask), n)
+                return self._infer(x, fmask)
+
+    def _infer(self, x, fmask):
+        return self._forward(self.params, self.state, x, train=False, fmask=fmask)[0]
 
     def predict(self, x) -> np.ndarray:
         """Class indices (argmax over the last axis, taken on the device)."""
         return self.output(x).argmax(dim=-1).cpu().numpy()
+
+    def score(self, batch_or_x, y=None, fmask=None, lmask=None,
+              train: bool = False) -> float:
+        """Average loss on a batch (MultiLayerNetwork.score(data, training)),
+        penalties included. ``train=True`` scores with training-mode layer
+        semantics while dropout and weight noise stay off, so the result is
+        deterministic."""
+        if y is None:
+            x, y, fmask, lmask = _as_batch(batch_or_x)
+        else:
+            x = batch_or_x
+        with torch.no_grad():
+            loss, _ = self._loss(
+                self.params, self.state, x,
+                _cast_labels(y, self.dtype, self.device),
+                _cast_mask(fmask, self.dtype, self.device),
+                _cast_mask(lmask, self.dtype, self.device),
+                rng=None, train=train, deterministic=True)
+        return float(loss)
+
+    # -- evaluation --------------------------------------------------------
+    def _output_mask(self, fm, lm):
+        """Mask for scoring/eval at the network output: the labels mask, or
+        the features mask propagated through the layer stack."""
+        if lm is not None:
+            return np.asarray(lm)
+        if fm is None:
+            return None
+        mask = _cast_mask(fm, self.dtype, self.device)
+        for layer, it in zip(self.layers, self.layer_input_types):
+            mask = layer.propagate_mask(mask, it)
+            if mask is None:
+                return None
+        return mask.float().cpu().numpy()
+
+    def evaluate(self, data, batch_size: Optional[int] = None, top_n: int = 1):
+        """Classification metrics (eval/Evaluation) over ``data``."""
+        from deeplearning4j_tpu_torch.eval import Evaluation
+
+        ev = Evaluation(top_n=top_n)
+        for x, y, fm, lm in _iter_batches(data, batch_size):
+            preds = self.output(x, fmask=fm).float().cpu().numpy()
+            y = y.cpu().numpy() if isinstance(y, torch.Tensor) else np.asarray(y)
+            ev.eval(y, preds, mask=self._output_mask(fm, lm))
+        return ev
 
     def dummy_input(self, batch: int) -> torch.Tensor:
         """A zero batch of ``batch`` rows shaped for this model's input: token
@@ -260,11 +583,3 @@ class MultiLayerNetwork:
                                device=self.device)
         return torch.zeros(it.batch_shape(batch), dtype=self.dtype,
                            device=self.device)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree

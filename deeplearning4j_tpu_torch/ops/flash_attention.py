@@ -1,28 +1,38 @@
-"""Flash attention: the hand-written CUDA forward kernel and its plain versions.
+"""Flash attention: the hand-written CUDA kernels and their plain versions.
 
 Counterpart of ``deeplearning4j_tpu/ops/flash_attention.py``. The TPU
-package runs a Pallas kernel (``_kernel``) that computes attention
-blockwise so the [T, T] score matrix never reaches device memory. Here the
-same function is ``csrc/flash_fwd.cu``, a CUDA C++ kernel for Hopper
-(``sm_90a``) built at first use and bound through ctypes
-(``ops/_build.py``). Its design notes and its bound at the flagship shape
-sit at the top of that source.
+package runs three Pallas kernels that compute attention blockwise so the
+[T, T] score matrix never reaches device memory: the forward ``_kernel``
+and the backward pair ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` behind a
+custom VJP. Here they are ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``,
+CUDA C++ for Hopper (``sm_90a``) built at first use and bound through
+ctypes (``ops/_build.py``). Their design notes and their bounds at the
+flagship shape sit at the top of each source.
 
 Dispatch follows one rule, with no fallback: a tensor on the CPU goes to
-the plain version (:func:`flash_attention_reference`), a CUDA tensor goes
-to the kernel (:func:`flash_fwd_cuda`) or raises.
+the plain version, a CUDA tensor goes to the kernel or raises.
 
-- :func:`flash_attention` — [B, T, H, D] -> [B, T, H, D] (forward only;
-  training arrives with the backward kernels).
-- :func:`flash_attention_with_lse` — also the per-row logsumexp [B, H, T].
+- :func:`flash_attention` — [B, T, H, D] -> [B, T, H, D], differentiable
+  through :class:`_FlashAttention`: forward kernel #1, backward kernels #2
+  (dq) and #3 (dk/dv) on CUDA tensors; :func:`flash_attention_reference`
+  and :func:`flash_attention_bwd_reference` on CPU tensors.
+- :func:`flash_attention_with_lse` — also the per-row logsumexp [B, H, T]
+  (forward only).
+- :func:`flash_fwd_cuda`, :func:`flash_bwd_cuda` (with
+  :func:`flash_bwd_dq_cuda` and :func:`flash_bwd_dkv_cuda`, one kernel
+  each) — the kernel wrappers, each counting its launches.
 - :func:`flash_attention_reference` — f32 scores and softmax, masked
   scores clamped at -1e30 (the JAX package's ``_reference``).
+- :func:`flash_attention_bwd_reference` — the backward kernels' formulas
+  over a materialised [B, H, T, T].
 - :func:`local_attention` — the non-flash path (``use_flash=False``),
   scores in the operand dtype (the JAX package's
   ``parallel/ring.py local_attention``).
 
-Query rows whose keys are all masked get an unspecified value from the
-kernel, as from the TPU kernel; callers compare only valid rows.
+Query rows whose keys are all masked get an unspecified forward value
+from the kernel, as from the TPU kernel; callers compare only valid rows.
+Their gradients are exactly 0 in both backward versions: p is masked by
+validity, never through the scores.
 """
 
 from __future__ import annotations
@@ -38,8 +48,12 @@ from deeplearning4j_tpu_torch.ops import _build
 __all__ = [
     "SUPPORTED_HEAD_DIMS",
     "flash_attention",
+    "flash_attention_bwd_reference",
     "flash_attention_reference",
     "flash_attention_with_lse",
+    "flash_bwd_cuda",
+    "flash_bwd_dkv_cuda",
+    "flash_bwd_dq_cuda",
     "flash_fwd_cuda",
     "local_attention",
 ]
@@ -48,6 +62,7 @@ _NEG_BIG = -1e30
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
+_bwd_lib = None
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -66,24 +81,48 @@ def _kernel_lib() -> ctypes.CDLL:
     return _lib
 
 
-def _check_operands(q, k, v, kmask):
-    if not (q.shape == k.shape == v.shape) or q.dim() != 4:
-        raise ValueError(f"q, k, v must share one [B, T, H, D] shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
+def _bwd_kernel_lib() -> ctypes.CDLL:
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = _build.load("flash_bwd")
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        head = [ptr] * 7                      # q, k, v, do, lse, delta, kmask
+        # B, T, H, D, dtype, causal, scale, the 12 strides, the stream
+        dims = [i32] * 6 + [ctypes.c_float, ctypes.POINTER(i64), ptr]
+        lib.flash_bwd_dq.argtypes = head + [ptr] + dims
+        lib.flash_bwd_dq.restype = i32
+        lib.flash_bwd_dkv.argtypes = head + [ptr, ptr] + dims
+        lib.flash_bwd_dkv.restype = i32
+        lib.flash_bwd_error_string.argtypes = [i32]
+        lib.flash_bwd_error_string.restype = ctypes.c_char_p
+        lib.flash_bwd_smem_bytes.argtypes = [i32, i32, i32]
+        lib.flash_bwd_smem_bytes.restype = i64
+        _bwd_lib = lib
+    return _bwd_lib
+
+
+def _check_operands(q, k, v, kmask, who="flash_fwd", **extra):
+    """Raise on anything the kernels do not take. ``extra`` names further
+    [B, T, H, D] operands (the backward's ``do``) held to q's rules."""
+    named = (("q", q), ("k", k), ("v", v)) + tuple(extra.items())
+    if any(x.shape != q.shape for _, x in named) or q.dim() != 4:
+        raise ValueError(f"{', '.join(n for n, _ in named)} must share one "
+                         f"[B, T, H, D] shape, got "
+                         f"{[tuple(x.shape) for _, x in named]}")
+    for name, x in named:
         if x.device != q.device or x.device.type != "cuda":
             raise ValueError(f"{name} must lie on q's CUDA device, got {x.device}")
         if x.dtype != q.dtype:
             raise ValueError(f"{name} is {x.dtype}, q is {q.dtype}")
     if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"flash_fwd takes bfloat16 or float32, got {q.dtype}")
+        raise ValueError(f"{who} takes bfloat16 or float32, got {q.dtype}")
     B, T, H, D = q.shape
     if D not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash_fwd takes head dim D in {SUPPORTED_HEAD_DIMS}, got {D}")
+        raise ValueError(f"{who} takes head dim D in {SUPPORTED_HEAD_DIMS}, got {D}")
     if T < 1 or B * H < 1 or B * H > 65535:
-        raise ValueError(f"flash_fwd needs T >= 1 and 1 <= B*H <= 65535, got {tuple(q.shape)}")
+        raise ValueError(f"{who} needs T >= 1 and 1 <= B*H <= 65535, got {tuple(q.shape)}")
     esize = q.element_size()
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    for name, x in named:
         # rows are read in 16-byte chunks through the B/T/H strides: the head
         # dim must be contiguous and every row start 16-byte aligned
         if x.stride(3) != 1 or x.data_ptr() % 16 or any(
@@ -137,6 +176,94 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_fwd_cuda.launches = 0
 
 
+def _bwd_operands(q, k, v, do, lse, delta, kmask, who):
+    """Check the backward kernels' operands; ``do`` comes back contiguous
+    (it is read through its strides, but autograd may hand any layout) and
+    ``kmask`` as contiguous f32."""
+    do = do.contiguous()
+    _check_operands(q, k, v, kmask, who=who, do=do)
+    B, T, H, _ = q.shape
+    for name, x in (("lse", lse), ("delta", delta)):
+        if (tuple(x.shape) != (B, H, T) or x.dtype != torch.float32
+                or x.device != q.device or not x.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 [B, H, T] = "
+                             f"{(B, H, T)} tensor on {q.device}, got "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    km = kmask.to(torch.float32).contiguous() if kmask is not None else None
+    return do, km
+
+
+def _launch_bwd(fn, q, k, v, do, lse, delta, km, outs, causal):
+    B, T, H, D = q.shape
+    lib = _bwd_kernel_lib()
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
+                                       *v.stride()[:3], *do.stride()[:3])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = getattr(lib, fn)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            km.data_ptr() if km is not None else None,
+            *(o.data_ptr() for o in outs),
+            B, T, H, D, _DTYPE_CODES[q.dtype], int(bool(causal)),
+            1.0 / math.sqrt(D), strides, stream)
+    if rc != 0:
+        msg = ("unsupported dtype/head dim" if rc < 0
+               else lib.flash_bwd_error_string(rc).decode())
+        raise RuntimeError(f"{fn} launch failed ({rc}): {msg}")
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, kmask=None, causal=False):
+    """Launch kernel #2 (``csrc/flash_bwd.cu`` ``flash_bwd_dq``): dq
+    [B, T, H, D] in q's dtype from q/k/v/do [B, T, H, D] (read through
+    their strides), the forward's ``lse`` and ``delta = rowsum(do * out)``
+    (both contiguous f32 [B, H, T]) and the optional [B, T] key mask.
+    Raises on anything the kernel does not take and on a failed launch.
+    Each launch adds one to ``flash_bwd_dq_cuda.launches``."""
+    do, km = _bwd_operands(q, k, v, do, lse, delta, kmask, "flash_bwd_dq")
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd("flash_bwd_dq", q, k, v, do, lse, delta, km,
+                (dq,), causal)
+    flash_bwd_dq_cuda.launches += 1
+    return dq
+
+
+flash_bwd_dq_cuda.launches = 0
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, kmask=None, causal=False):
+    """Launch kernel #3 (``csrc/flash_bwd.cu`` ``flash_bwd_dkv``): ``(dk,
+    dv)`` [B, T, H, D] in q's dtype, from the same operands as
+    :func:`flash_bwd_dq_cuda`. Each launch adds one to
+    ``flash_bwd_dkv_cuda.launches``."""
+    do, km = _bwd_operands(q, k, v, do, lse, delta, kmask, "flash_bwd_dkv")
+    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, km,
+                (dk, dv), causal)
+    flash_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv_cuda.launches = 0
+
+
+def _delta(out, do):
+    """delta = rowsum(do * out) in f32, as [B, H, T] (the TPU package
+    computes it with XLA outside its kernels too)."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_bwd_cuda(q, k, v, out, lse, do, kmask=None, causal=False):
+    """The attention backward on CUDA tensors: ``delta`` with torch ops,
+    then kernels #2 and #3. Returns ``(dq, dk, dv)`` [B, T, H, D] in q's
+    dtype."""
+    delta = _delta(out, do)
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, kmask, causal)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, kmask, causal)
+    return dq, dk, dv
+
+
 def _masked_scores(q, k, causal, kmask):
     """f32 scaled scores [B, H, Tq, Tk] with masked entries at -1e30."""
     scale = 1.0 / math.sqrt(q.shape[-1])
@@ -161,22 +288,73 @@ def flash_attention_reference(q, k, v, *, causal: bool = False, kmask=None,
     return (out, torch.logsumexp(s, dim=-1)) if with_lse else out
 
 
+def flash_attention_bwd_reference(q, k, v, out, lse, do, kmask=None,
+                                  causal: bool = False):
+    """The plain version of the backward kernels, on any device, with the
+    TPU kernels' formulas over a materialised [B, H, T, T] in f32:
+    p = exp(s - lse) where the pair is valid and exactly 0 elsewhere,
+    delta = rowsum(do * out), ds = p * (do . v^T - delta);
+    dv = p^T . do, dq = scale * ds . k, dk = scale * ds^T . q, with p and ds
+    rounded to the operand dtype before their products as the kernels do.
+    Returns ``(dq, dk, dv)`` [B, T, H, D] in q's dtype."""
+    dt = q.dtype
+    T = q.shape[1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    valid = torch.ones((T, T), dtype=torch.bool, device=q.device)
+    if causal:
+        valid = valid.tril()
+    valid = valid[None, None]
+    if kmask is not None:
+        valid = valid & (kmask[:, None, None, :] > 0)
+    p = torch.where(valid, torch.exp(s - lse[..., None]), torch.zeros((), device=q.device))
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = (p * (dp - _delta(out, do)[..., None])).to(dt).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), dof)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
 def flash_attention_with_lse(q, k, v, *, kmask=None, causal: bool = False):
     """``(out [B, T, H, D], lse [B, H, T] f32)``: the kernel on a CUDA
-    tensor, the plain version on a CPU tensor."""
+    tensor, the plain version on a CPU tensor. Forward only."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal, kmask=kmask,
                                          with_lse=True)
     return flash_fwd_cuda(q, k, v, kmask=kmask, causal=causal)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Attention with the TPU package's custom-VJP contract: the forward
+    saves q, k, v, out, lse and the key mask; the backward computes delta
+    and runs kernels #2 and #3 on CUDA tensors (the plain backward on CPU
+    tensors). The key mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kmask, causal):
+        out, lse = flash_attention_with_lse(q, k, v, kmask=kmask, causal=causal)
+        ctx.save_for_backward(q, k, v, out, lse, kmask)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, kmask = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_bwd_reference(
+                q, k, v, out, lse, do, kmask, ctx.causal)
+        else:
+            dq, dk, dv = flash_bwd_cuda(q, k, v, out, lse, do, kmask, ctx.causal)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, kmask=None, causal: bool = False):
-    """Attention over [B, T, H, D]: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor. ``kmask`` [B, T]: key validity shared
-    by the heads of a batch (1 = real key, 0 = padding)."""
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal=causal, kmask=kmask)
-    return flash_fwd_cuda(q, k, v, kmask=kmask, causal=causal)[0]
+    """Differentiable attention over [B, T, H, D]: kernels #1-#3 for CUDA
+    tensors, the plain versions for CPU tensors. ``kmask`` [B, T]: key
+    validity shared by the heads of a batch (1 = real key, 0 = padding)."""
+    return _FlashAttention.apply(q, k, v, kmask, causal)
 
 
 def local_attention(q, k, v, *, causal: bool = False, kmask=None):

@@ -1,0 +1,104 @@
+"""Trainer CLI: ``python -m deeplearning4j_tpu_torch.train``.
+
+Counterpart of ``python -m deeplearning4j_tpu.train`` (the reference's
+ParallelWrapperMain): loads a model zip or a configuration JSON with
+ModelGuesser semantics, trains it on an ``.npz`` dataset (arrays ``x`` and
+``y``, optional ``fmask``/``lmask``) and writes a checkpoint zip in the
+format both packages read.
+
+Example::
+
+    python -m deeplearning4j_tpu_torch.train conf.json \\
+        --data train.npz --epochs 3 --batch-size 16 --output trained.zip
+
+Training runs on the GPU unless ``--device`` names another device
+(``--device cpu`` runs the plain PyTorch path); with no GPU and no
+``--device`` it raises. ``--dataset`` (built-in fetchers) and
+``--data-parallel`` are not ported yet and exit with a message naming the
+slice that brings them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+
+from deeplearning4j_tpu_torch.nn.model import MultiLayerConfiguration, MultiLayerNetwork
+from deeplearning4j_tpu_torch.train.listeners import ScoreIterationListener
+from deeplearning4j_tpu_torch.utils.guesser import load_any
+from deeplearning4j_tpu_torch.utils.serialization import save_network
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m deeplearning4j_tpu_torch.train",
+        description="Train a model from a config JSON or a model zip.")
+    p.add_argument("model", help="configuration JSON or native model zip")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--data", help=".npz file with arrays x and y "
+                     "(optional fmask/lmask)")
+    src.add_argument("--dataset", choices=["mnist", "emnist", "iris", "cifar10"],
+                     help="built-in dataset fetcher (not ported yet)")
+    p.add_argument("--epochs", type=int, default=1)
+    p.add_argument("--batch-size", type=int, default=128)
+    p.add_argument("--output", default="model.zip", help="checkpoint zip path")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="shard batches over all local devices (not ported yet)")
+    p.add_argument("--listener-frequency", type=int, default=10,
+                   help="score print frequency (iterations)")
+    p.add_argument("--evaluate", action="store_true",
+                   help="run classification evaluation after training")
+    p.add_argument("--device", default=None,
+                   help="device to train on, e.g. cpu or cuda:1 (default: the GPU)")
+    return p
+
+
+def _load_model(path: str, device):
+    obj = load_any(path, device=device)
+    if isinstance(obj, MultiLayerConfiguration):
+        return MultiLayerNetwork(obj, device=device).init()
+    return obj  # already a model
+
+
+def _load_data(path: str):
+    with np.load(path) as d:
+        if "x" not in d or "y" not in d:
+            raise SystemExit(f"{path}: expected arrays 'x' and 'y', "
+                             f"found {sorted(d.files)}")
+        fmask = d["fmask"] if "fmask" in d else None
+        lmask = d["lmask"] if "lmask" in d else None
+        return (d["x"], d["y"], fmask, lmask)
+
+
+def run(argv=None) -> MultiLayerNetwork:
+    """Parse ``argv``, train, write the checkpoint (and evaluate with
+    ``--evaluate``); returns the trained model."""
+    args = build_parser().parse_args(argv)
+    if args.dataset:
+        raise SystemExit("--dataset: the dataset fetchers are not ported to "
+                         "deeplearning4j_tpu_torch yet (the data slice); use --data")
+    if args.data_parallel:
+        raise SystemExit("--data-parallel: data-parallel training is not ported to "
+                         "deeplearning4j_tpu_torch yet (the parallel slice)")
+    model = _load_model(args.model, args.device)
+    if not hasattr(model, "fit"):
+        raise SystemExit(f"{args.model} does not contain a trainable model")
+    model.set_listeners(ScoreIterationListener(args.listener_frequency))
+    data = _load_data(args.data)
+    model.fit(data, epochs=args.epochs, batch_size=args.batch_size)
+    save_network(model, args.output)
+    print(f"saved {args.output}")
+    if args.evaluate:
+        print(model.evaluate(data, batch_size=args.batch_size).stats())
+    return model
+
+
+def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,6 +13,9 @@ per-bucket latency estimates are keyed by the same rungs).
   row-independent, so padded rows are dead compute;
 - ``reachable_buckets`` — every rung a batch of 1..n rows can land on (the
   JAX package keeps it in ``nn/aot.py``; the serving warm-up uses it);
+- ``tile_pad`` / ``padded_label_mask`` / ``pad_fit_batch`` — the fit
+  loop's padding of a partial tail batch up to the full row count, with a
+  pre-scaled label mask so the loss stays the mean over the real rows;
 - ``telemetry()`` — process-wide bucket-hit and padding counters, kept in
   the obs metrics registry (``dl4j_bucketing_*``) so /metrics shows them.
 
@@ -43,9 +46,12 @@ __all__ = [
     "bucket_size",
     "bucketing_enabled",
     "ladder_from_env",
+    "pad_fit_batch",
     "pad_rows_zero",
+    "padded_label_mask",
     "reachable_buckets",
     "telemetry",
+    "tile_pad",
     "unpad",
 ]
 
@@ -228,3 +234,72 @@ def unpad(out, n: int):
     if isinstance(out, (tuple, list)):
         return type(out)(unpad(v, n) for v in out)
     return out[:n]
+
+
+def tile_pad(a, pad: int):
+    """Append ``pad`` rows to ``a`` by tiling its real rows (zero rows when
+    it is empty). Tiled rows keep batch-coupled numerics benign; the caller
+    zero-weights them in the loss. Tensors stay tensors on their device,
+    anything else becomes a numpy array."""
+    if a is None:
+        return None
+    if isinstance(a, torch.Tensor):
+        if len(a) == 0:
+            return a.new_zeros((pad,) + tuple(a.shape[1:]))
+        reps = a.repeat((pad // len(a) + 1,) + (1,) * (a.dim() - 1))[:pad]
+        return torch.cat([a, reps])
+    a = np.asarray(a)
+    if len(a) == 0:
+        return np.zeros((pad,) + a.shape[1:], a.dtype)
+    reps = np.concatenate([a] * (pad // len(a) + 1))[:pad]
+    return np.concatenate([a, reps])
+
+
+def padded_label_mask(y, lm, n: int):
+    """Label mask that zero-weights padded rows [n:] so the loss averages
+    over the n REAL examples only (exactly the unpadded fit's loss).
+
+    ``average_score`` divides a per-example-masked score by the full
+    minibatch size B (the reference's computeScore), so a 0/1 validity
+    mask alone would give sum_real/B_pad; the mask is therefore PRE-SCALED
+    by B_pad/n. The rank-3 sum/sum(mask) branch is scale-invariant and
+    stays exact. A user mask is multiplied by the scaled row validity;
+    absent one, rank-2/3 labels get a per-example [B] weight (a [B, T] mask
+    would switch ``average_score`` to its per-timestep branch) and rank-4
+    labels a per-pixel [B, H, W] mask. An unpadded batch (``n == len(y)``)
+    gets the all-ones mask, so full and padded batches share one calling
+    convention. Returns a float32 numpy array."""
+    total = len(y)
+    valid = np.zeros(total, np.float32)
+    valid[:n] = float(total) / float(n)
+    if lm is not None:
+        lm = (lm.detach().cpu().float().numpy() if isinstance(lm, torch.Tensor)
+              else np.asarray(lm, np.float32))
+        return lm * valid.reshape([total] + [1] * (lm.ndim - 1))
+    if len(y.shape) == 4:
+        return np.broadcast_to(valid[:, None, None], tuple(y.shape[:3])).copy()
+    return valid
+
+
+def pad_fit_batch(x, y, fm, lm, target: int, site: str = "fit"):
+    """Pad a training batch's leading axis up to ``target`` rows.
+
+    Returns ``(x, y, fm, lm, ew)``: rows [n:] are tiled copies of real rows,
+    ``ew`` is the per-example 0/1 weight and ``lm`` the pre-scaled validity
+    label mask (see :func:`padded_label_mask`), so the loss equals the mean
+    over the n real rows. Called with ``len(x) == target`` it only builds
+    the all-ones channels, keeping one calling convention for full and
+    partial batches alike."""
+    n = len(x)
+    if n > target:
+        raise ValueError(f"batch of {n} rows exceeds pad target {target}")
+    pad = target - n
+    telemetry().record_hit(site, n, target)
+    x, y, fm = (tile_pad(a, pad) if pad and a is not None else a
+                for a in (x, y, fm))
+    if pad and lm is not None:
+        lm = tile_pad(lm, pad)
+    lm = padded_label_mask(y, lm, n) if y is not None else lm
+    ew = np.zeros(target, np.float32)
+    ew[:n] = 1.0
+    return x, y, fm, lm, ew

@@ -1,0 +1,205 @@
+"""Model checkpointing: the JAX package's zip format (PyTorch port of
+``utils/serialization.py``).
+
+One zip holds ``configuration.json`` (the MultiLayerConfiguration JSON),
+``coefficients.npz`` (params), ``state.npz`` (layer state),
+``updaterState.npz`` (optimizer state) and ``meta.json`` (iteration,
+epoch), plus optional ``normalizer.json``. Each npz holds the tree's leaves
+as ``leaf_0``, ``leaf_1``, ... in JAX treedef order — dict keys sorted at
+every level (``utils/tree.py``) — so a zip written by either package
+restores in the other. Path targets are written atomically: a tmp file in
+the destination directory, fsync, ``os.replace``, directory fsync.
+
+bf16 leaves: the JAX package writes ``ml_dtypes.bfloat16`` arrays, which
+npz stores as raw 2-byte ``<V2`` records. The port reads any 2-byte void
+leaf as bf16 bits and writes its bf16 leaves in that same layout, header
+included, without needing ``ml_dtypes``.
+
+``trainState.json`` (a full-state checkpoint's RNG key, batch position and
+LR scale) and ``residuals.npz`` are read by the JAX package's resume path
+only: the RNG key is a JAX PRNG key, which a ``torch.Generator`` cannot
+take, so the port ignores both entries.
+
+No pickle anywhere: configs are JSON, tensors are npz.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import os
+import zipfile
+from typing import Optional
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.utils.tree import tree_leaves, tree_unflatten_like
+
+__all__ = ["apply_snapshot", "read_snapshot", "restore_network",
+           "restore_normalizer", "save_network"]
+
+CONFIG_ENTRY = "configuration.json"
+COEFFICIENTS_ENTRY = "coefficients.npz"
+STATE_ENTRY = "state.npz"
+UPDATER_ENTRY = "updaterState.npz"
+META_ENTRY = "meta.json"
+NORMALIZER_ENTRY = "normalizer.json"
+# npz entries are stored, not deflated: float leaves barely compress, and
+# deflating the gigabytes of a large model's params and Adam moments takes
+# minutes (either package reads both methods)
+_STORED = zipfile.ZIP_STORED
+
+
+def _npy_bytes(t: torch.Tensor) -> bytes:
+    """One leaf as .npy bytes; bf16 as raw 2-byte records under the
+    ``<V2`` descr that numpy gives ``ml_dtypes.bfloat16``."""
+    t = t.detach().cpu().contiguous()
+    buf = io.BytesIO()
+    if t.dtype == torch.bfloat16:
+        raw = t.view(torch.int16).numpy()
+        np.lib.format.write_array_header_1_0(
+            buf, {"descr": "<V2", "fortran_order": False, "shape": tuple(raw.shape)})
+        buf.write(raw.tobytes())
+    else:
+        np.lib.format.write_array(buf, t.numpy(), allow_pickle=False)
+    return buf.getvalue()
+
+
+def _tree_to_npz_bytes(tree) -> bytes:
+    """``np.savez``'s layout (stored, not deflated) over the tree's leaves."""
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w", zipfile.ZIP_STORED, allowZip64=True) as zf:
+        for i, leaf in enumerate(tree_leaves(tree)):
+            with zf.open(f"leaf_{i}.npy", "w", force_zip64=True) as f:
+                f.write(_npy_bytes(leaf))
+    return buf.getvalue()
+
+
+def _npz_bytes_to_leaves(data: bytes):
+    with np.load(io.BytesIO(data)) as z:
+        return [z[f"leaf_{i}"] for i in range(len(z.files))]
+
+
+def _leaf_tensor(a: np.ndarray) -> torch.Tensor:
+    """A stored leaf as a CPU tensor; 2-byte void records are bf16 bits."""
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _restore_tree_like(template, leaves):
+    flat = tree_leaves(template)
+    if len(flat) != len(leaves):
+        raise ValueError(
+            f"Checkpoint has {len(leaves)} arrays but model expects {len(flat)} — "
+            "config/checkpoint mismatch")
+    return tree_unflatten_like(template, [
+        _leaf_tensor(l).to(device=f.device, dtype=f.dtype).reshape(f.shape)
+        for l, f in zip(leaves, flat)])
+
+
+def _atomic_write_zip(path, write_entries) -> None:
+    """Write a zip durably: tmp in the same directory, fsync the file, swap
+    it in with ``os.replace``, then fsync the directory."""
+    target = os.fspath(path)
+    directory = os.path.dirname(os.path.abspath(target))
+    tmp = target + ".tmp"
+    with open(tmp, "wb") as f:
+        with zipfile.ZipFile(f, "w", zipfile.ZIP_DEFLATED) as zf:
+            write_entries(zf)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, target)
+    dfd = os.open(directory or ".", os.O_RDONLY)
+    try:
+        os.fsync(dfd)
+    finally:
+        os.close(dfd)
+
+
+def save_network(model, path, save_updater: bool = True,
+                 normalizer: Optional[dict] = None):
+    """Write a MultiLayerNetwork to a zip (a path, written atomically, or a
+    writable file object). ``updaterState.npz`` is written once the model
+    has optimizer state; a reader of a zip without it starts from a fresh
+    updater state, which is what an untrained model's would be."""
+    meta = {
+        "framework": "deeplearning4j_tpu_torch",
+        "format_version": 1,
+        "iteration": model.iteration,
+        "epoch": getattr(model, "epoch", 0),
+        "model_class": type(model).__name__,
+    }
+
+    def write_entries(zf):
+        zf.writestr(CONFIG_ENTRY, model.conf.to_json(indent=2))
+        zf.writestr(COEFFICIENTS_ENTRY, _tree_to_npz_bytes(model.params), _STORED)
+        zf.writestr(STATE_ENTRY, _tree_to_npz_bytes(model.state), _STORED)
+        if save_updater and model.opt_state is not None:
+            zf.writestr(UPDATER_ENTRY, _tree_to_npz_bytes(model.opt_state), _STORED)
+        if normalizer is not None:
+            zf.writestr(NORMALIZER_ENTRY, json.dumps(normalizer))
+        zf.writestr(META_ENTRY, json.dumps(meta))
+
+    if isinstance(path, (str, os.PathLike)):
+        _atomic_write_zip(path, write_entries)
+    else:
+        with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
+            write_entries(zf)
+    return path
+
+
+def read_snapshot(path, load_updater: bool = True) -> dict:
+    """Every entry the port reads, as plain host data: the config dict, meta
+    and the leaf lists."""
+    with zipfile.ZipFile(path, "r") as zf:
+        names = set(zf.namelist())
+
+        def leaves(entry, wanted=True):
+            return _npz_bytes_to_leaves(zf.read(entry)) if wanted and entry in names else None
+
+        return {
+            "conf": json.loads(zf.read(CONFIG_ENTRY)),
+            "meta": json.loads(zf.read(META_ENTRY)) if META_ENTRY in names else {},
+            "coeff": leaves(COEFFICIENTS_ENTRY),
+            "state": leaves(STATE_ENTRY),
+            "upd": leaves(UPDATER_ENTRY, load_updater),
+        }
+
+
+def apply_snapshot(model, snap: dict, load_updater: bool = True):
+    """Apply a :func:`read_snapshot` result onto an initialized model:
+    params, state, optimizer state, iteration and epoch."""
+    model.params = _restore_tree_like(model.params, snap["coeff"])
+    if snap["state"] is not None:
+        model.state = _restore_tree_like(model.state, snap["state"])
+    if load_updater and snap["upd"] is not None:
+        model.opt_state = _restore_tree_like(model.init_opt_state(), snap["upd"])
+    meta = snap["meta"]
+    model.iteration = meta.get("iteration", 0)
+    model.epoch = meta.get("epoch", 0)
+    return model
+
+
+def restore_network(path, load_updater: bool = True, device=None):
+    """Restore a MultiLayerNetwork saved by either package's
+    ``save_network`` onto ``device`` (the GPU unless named)."""
+    from deeplearning4j_tpu_torch.nn.model import MultiLayerConfiguration, MultiLayerNetwork
+
+    snap = read_snapshot(path, load_updater=load_updater)
+    fmt = snap["conf"].get("format", "")
+    if fmt.endswith("ComputationGraphConfiguration"):
+        raise NotImplementedError(
+            f"{path}: ComputationGraph is not ported to deeplearning4j_tpu_torch yet")
+    conf = MultiLayerConfiguration.from_dict(snap["conf"])
+    model = MultiLayerNetwork(conf, device=device).init()
+    return apply_snapshot(model, snap, load_updater=load_updater)
+
+
+def restore_normalizer(path) -> Optional[dict]:
+    with zipfile.ZipFile(path, "r") as zf:
+        if NORMALIZER_ENTRY in zf.namelist():
+            return json.loads(zf.read(NORMALIZER_ENTRY))
+    return None

@@ -1,6 +1,7 @@
-"""The hand-written CUDA flash-attention kernel against its plain PyTorch
-version on the GPU. Every test needs an NVIDIA card (marker ``cuda``) and
-skips without one; on a GPU host run
+"""The hand-written CUDA flash-attention kernels (forward; backward dq and
+dk/dv) against their plain PyTorch versions on the GPU, and a tiny
+TransformerLM served and trained through them. Every test needs an NVIDIA
+card (marker ``cuda``) and skips without one; on a GPU host run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -103,6 +104,106 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     assert fa.flash_fwd_cuda.launches == before
 
 
+def _bwd_case(dev, B, T, H, D, dtype, causal, masked, seed):
+    """Inputs of the backward kernels: fused-qkv views, the forward kernel's
+    out and lse, a cotangent of order 1, an optional variable-length mask."""
+    q, k, v = _qkv(dev, B, T, H, D, dtype, strided=True, seed=seed)
+    km = _varlen(dev, B, T, seed) if masked else None
+    out, lse = fa.flash_fwd_cuda(q, k, v, kmask=km, causal=causal)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    do = torch.randn(B, T, H, D, generator=g, device=dev).to(dtype)
+    return q, k, v, out, lse, do, km
+
+
+def _close_rel(got, want, rel):
+    """max |got - want| <= rel * max |want|, per tensor (bf16: ~2 ulps of
+    the largest gradient; the products' inputs were rounded to bf16)."""
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= rel * want.float().abs().max().item() + 1e-6, err
+
+
+def _close_per_tile(got, want, rel, atol=1e-3, rows=64):
+    """||got - want|| <= rel * (||want|| + atol * sqrt(n)) over each (batch,
+    head, 64-row tile) block of [B, T, H, D] gradients, so a tile of small
+    gradients (late causal rows) is held to its own scale; ``atol`` is an
+    RMS floor per element for tiles of pure rounding noise."""
+    B, T, H, D = want.shape
+    pad = (0, 0, 0, 0, 0, (-T) % rows)
+    d = torch.nn.functional.pad(got.float() - want.float(), pad).view(B, -1, rows, H, D)
+    w = torch.nn.functional.pad(want.float(), pad).view(B, -1, rows, H, D)
+    worst = (d.square().sum((2, 4)).sqrt()
+             / (w.square().sum((2, 4)).sqrt() + atol * (rows * D) ** 0.5)).max().item()
+    assert worst <= rel, worst
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_bwd_kernels_match_plain_version(cuda, D, dtype, causal, masked):
+    B, T, H = 2, 200, 3
+    q, k, v, out, lse, do, km = _bwd_case(cuda, B, T, H, D, dtype, causal, masked, 5)
+    before = (fa.flash_bwd_dq_cuda.launches, fa.flash_bwd_dkv_cuda.launches)
+    got = fa.flash_bwd_cuda(q, k, v, out, lse, do, km, causal)
+    assert (fa.flash_bwd_dq_cuda.launches, fa.flash_bwd_dkv_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, km, causal)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == (B, T, H, D)
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+        else:
+            _close_rel(a, b, 2e-2)
+            _close_per_tile(a, b, 1e-2)
+
+
+def test_bwd_rows_without_valid_keys_get_zero_grads(cuda):
+    B, T, H, D = 2, 96, 2, 64
+    q, k, v = _qkv(cuda, B, T, H, D, torch.float32, strided=False, seed=7)
+    km = torch.ones(B, T, device=cuda)
+    km[0, :5] = 0.0      # causal: queries 0-4 of batch 0 see no key
+    km[1] = 0.0          # batch 1 has no key at all
+    out, lse = fa.flash_fwd_cuda(q, k, v, kmask=km, causal=True)
+    do = torch.randn_like(q)
+    dq, dk, dv = fa.flash_bwd_cuda(q, k, v, out, lse, do, km, True)
+    assert torch.count_nonzero(dq[0, :5]) == 0 and torch.count_nonzero(dq[1]) == 0
+    assert torch.count_nonzero(dk[1]) == 0 and torch.count_nonzero(dv[1]) == 0
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, km, True)
+    for a, b in zip((dq, dk, dv), want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_autograd_runs_the_backward_kernels(cuda):
+    q, k, v = (x.detach().requires_grad_(True) for x in
+               _qkv(cuda, 2, 130, 2, 64, torch.bfloat16, strided=False, seed=8))
+    before = (fa.flash_fwd_cuda.launches, fa.flash_bwd_dq_cuda.launches,
+              fa.flash_bwd_dkv_cuda.launches)
+    out = fa.flash_attention(q, k, v, causal=True)
+    out.float().square().sum().backward()
+    assert (fa.flash_fwd_cuda.launches, fa.flash_bwd_dq_cuda.launches,
+            fa.flash_bwd_dkv_cuda.launches) == tuple(b + 1 for b in before)
+    assert all(torch.isfinite(x.grad.float()).all() for x in (q, k, v))
+
+
+def test_bwd_wrapper_refuses_what_the_kernels_do_not_take(cuda):
+    q, k, v, out, lse, do, _ = _bwd_case(cuda, 1, 32, 2, 64, torch.bfloat16,
+                                         True, False, 9)
+    delta = fa._delta(out, do)
+    bad = [
+        dict(do=do.float()),                     # do dtype
+        dict(lse=lse[:, :, :31]),                # lse shape
+        dict(delta=delta.to(torch.bfloat16)),    # delta dtype
+        dict(q=q[..., :16], k=k[..., :16], v=v[..., :16], do=do[..., :16]),
+    ]
+    before = fa.flash_bwd_dq_cuda.launches
+    for kw in bad:
+        args = dict(q=q, k=k, v=v, do=do, lse=lse, delta=delta)
+        args.update(kw)
+        with pytest.raises(ValueError):
+            fa.flash_bwd_dq_cuda(**args)
+    assert fa.flash_bwd_dq_cuda.launches == before
+
+
 # bf16: cuBLAS and the CPU GEMMs round the logits at other places; a logit
 # difference d moves a probability p by about p*d (a few percent for a few
 # bf16 ulps of logits of order 1-4)
@@ -120,3 +221,47 @@ def test_tiny_transformer_lm_gpu_matches_cpu(cuda, dtype, tol):
     assert fa.flash_fwd_cuda.launches == before + 2      # one per block
     torch.testing.assert_close(got.cpu().float(), cpu.output(x).float(), **tol)
     assert math.isclose(float(got.float().sum(-1).mean()), 1.0, abs_tol=1e-2)
+
+
+def test_tiny_transformer_lm_trains_alike_on_gpu_and_cpu(cuda):
+    # f32: cuBLAS and the kernels sum in other orders than the CPU
+    from deeplearning4j_tpu_torch.train.listeners import CollectScoresListener
+    from deeplearning4j_tpu_torch.utils.tree import tree_leaves
+
+    conf = zoo.TransformerLM(vocab_size=64, max_len=64, d_model=64, n_heads=2,
+                             n_blocks=2, dtype="float32",
+                             updater={"type": "adam", "lr": 1e-3})
+    cpu = MultiLayerNetwork(conf, device="cpu").init()
+    gpu = params_from_numpy(MultiLayerNetwork(conf), params_to_numpy(cpu))
+    x = torch.randint(0, 64, (6, 64), generator=torch.Generator().manual_seed(2))
+    y = torch.roll(x, -1, dims=1)
+    scores = []
+    for m in (cpu, gpu):
+        lis = CollectScoresListener()
+        m.set_listeners(lis)
+        m.fit((x, y), epochs=1, batch_size=4)        # 4 rows, then 2 padded to 4
+        scores.append([s for _, s in lis.scores])
+    torch.testing.assert_close(torch.tensor(scores[1]), torch.tensor(scores[0]),
+                               rtol=1e-4, atol=1e-5)
+    C = 64
+    for a, b in zip(tree_leaves(gpu.params), tree_leaves(cpu.params)):
+        a = a.cpu()
+        if a.shape == (3 * C,):   # bqkv: Adam amplifies its key third's noise
+            a, b = torch.cat([a[:C], a[2 * C:]]), torch.cat([b[:C], b[2 * C:]])
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_bf16_training_step_runs_the_kernels(cuda):
+    conf = zoo.TransformerLM(vocab_size=128, max_len=128, d_model=128, n_heads=2,
+                             n_blocks=3, dtype="bfloat16")
+    m = MultiLayerNetwork(conf).init()
+    x = torch.randint(0, 128, (4, 128), generator=torch.Generator().manual_seed(3))
+    before = (fa.flash_fwd_cuda.launches, fa.flash_bwd_dq_cuda.launches,
+              fa.flash_bwd_dkv_cuda.launches)
+    loss = m._fit_batch(x, torch.roll(x, -1, dims=1), None, None)
+    assert (fa.flash_fwd_cuda.launches, fa.flash_bwd_dq_cuda.launches,
+            fa.flash_bwd_dkv_cuda.launches) == tuple(b + 3 for b in before)
+    assert math.isfinite(float(loss))
+    assert all(p.dtype == torch.bfloat16 for p in m.params[2].values()
+               if isinstance(p, torch.Tensor))
+    assert m.opt_state[2]["m"]["Wi"].dtype == torch.float32
