@@ -10,9 +10,9 @@ non-zero (and without a result line when no CUDA device is present):
 
 1. device  — card name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 is switched off for matmuls and cuDNN.
-2. build   — nvcc builds csrc/flash_fwd.cu and csrc/flash_bwd.cu for
-   sm_90a from the checkout, both at once; registers, shared memory and
-   spills per kernel instantiation.
+2. build   — nvcc builds csrc/flash_fwd.cu, flash_bwd.cu, fused_lstm_fwd.cu
+   and fused_lstm_bwd.cu for sm_90a from the checkout, all at once;
+   registers, shared memory and spills per kernel instantiation.
 3. kernel  — each kernel against its plain PyTorch version on the card:
    the forward kernel and the backward pair (dq; dk/dv) at the flagship
    shape (B=16, T=2048, H=16, D=128, bf16, causal, fused-qkv strided
@@ -41,6 +41,29 @@ non-zero (and without a result line when no CUDA device is present):
    a model with the same output. Then step time (CUDA events), its
    forward / backward / update split, tokens/s, share of the bf16 peak and
    peak memory.
+7. lstm_kernel — the fused-LSTM kernels #4 (forward) and #5 (backward)
+   against their plain versions on the card: the char-RNN shape (B=128,
+   T=50, H=256) in f32 and bf16, with and without peepholes; B=1 and B=32
+   at T=1 (rnn_time_step); T=37; H=128 and 512; variable-length masks with
+   a row masked throughout; B=300 (several batch tiles per block); nonzero
+   h0, c0, dh_T and dc_T; the backward repeated bit for bit. Then timings
+   at the char-RNN shape: each kernel, the plain versions, and cuDNN's
+   torch.nn.LSTM forward and backward as the nearest yardstick only.
+8. lstm_small — a tiny TextGenerationLSTM (H=128) on the CPU (plain
+   versions) and on the GPU (the kernels) from the same weights: the
+   output, then 9 tBPTT updates of RMSProp (loss per batch, final params,
+   2 + 2 launches per chunk).
+9. lstm_train — TextGenerationLSTM(vocab 77, T 50, hidden 256, f32,
+   RMSProp 1e-3, tBPTT 50) at full width through the trainer CLI: 256 rows
+   x 200 steps of one-hot ids from a seed, batch 128, 2 epochs (4 chunks a
+   batch, 16 updates). Checks a finite, falling loss, 2 launches of each
+   kernel per chunk and the zip's restored output; then one step at
+   128 x 50 (CUDA events), its forward / backward / update split, tokens/s
+   and peak memory.
+10. lstm_sample — the zip restored; 32 rows primed with 50 steps, then 100
+   rnn_time_step calls of one step each (next character by argmax): 2
+   launches of kernel #4 per call, the stepped outputs equal to output()
+   over the whole sequence, the time per step.
 
 It ends with the kernels line, the card's name and power limit, and
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -69,6 +92,7 @@ from deeplearning4j_tpu_torch.models import zoo
 from deeplearning4j_tpu_torch.nn.model import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import _build
 from deeplearning4j_tpu_torch.ops import flash_attention as fa
+from deeplearning4j_tpu_torch.ops import fused_lstm as fl
 from deeplearning4j_tpu_torch.serve import InferenceServer, ModelRegistry, ServeConfig
 from deeplearning4j_tpu_torch.train import __main__ as train_cli
 from deeplearning4j_tpu_torch.train.listeners import CollectScoresListener
@@ -77,6 +101,7 @@ from deeplearning4j_tpu_torch.utils.tree import tree_leaves, tree_unflatten_like
 
 # H100 SXM published dense peaks (NVIDIA data sheet) at a 700 W limit
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12     # f32 FMA outside the tensor cores
 PEAK_BYTES = 3.35e12
 
 FLAGSHIP = dict(B=16, T=2048, H=16, D=128)
@@ -95,6 +120,15 @@ BWD_TILE_ATOL = 1e-3   # RMS floor per element: tiles of pure rounding noise
 TRAIN_LR = 1e-4        # bench.py's Adam rate
 FLAGSHIP_CONF = dict(vocab_size=2048, max_len=2048, d_model=2048, n_heads=16,
                      n_blocks=8, dtype="bfloat16", seed=12345)
+# the char-RNN (bench.py's BASELINE #3): B=128, T=50, hidden 256, f32
+LSTM_SHAPE = dict(B=128, T=50, H=256)
+LSTM_CONF = dict(vocab_size=77, timesteps=50, hidden=256, dtype="float32", seed=12345)
+# LSTM kernels, bf16: h and dz are rounded to bf16 before the products as
+# the TPU kernels do, and the f32 sums run in another order; per tensor
+# max |err| within 2e-2 of max |ref|, and per time step ||err|| within 1e-2
+# of ||ref||, so that one wrong step cannot hide under the first bound
+LSTM_BF16_REL = 2e-2
+LSTM_BF16_STEP_REL = 1e-2
 
 
 def emit(obj) -> None:
@@ -131,6 +165,21 @@ def _ptxas_report(log: str, kernel: str, smem_bytes) -> list:
     return out
 
 
+def _ptxas_report_lstm(log: str, kernel: str, smem_bytes) -> list:
+    """Registers, spills and shared memory (at the char-RNN's H) of each
+    dtype instantiation of an LSTM kernel."""
+    out = []
+    for m in re.finditer(
+            kernel + r"I(\w+?)E.*?(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
+            r"Used (\d+) registers", log, re.S):
+        dtype = "bfloat16" if "bfloat16" in m.group(1) else "float32"
+        out.append({
+            "kernel": kernel, "dtype": dtype, "registers": int(m.group(4)),
+            "spill_stores": int(m.group(2)), "spill_loads": int(m.group(3)),
+            "smem_bytes_H256": int(smem_bytes(1 if dtype == "bfloat16" else 0))})
+    return out
+
+
 def build_report() -> dict:
     # one nvcc per source, started together
     t0 = time.perf_counter()
@@ -142,7 +191,8 @@ def build_report() -> dict:
         except Exception as e:   # re-raised below, on the main thread
             errors.append(e)
 
-    threads = [threading.Thread(target=build, args=(n,)) for n in ("flash_fwd", "flash_bwd")]
+    threads = [threading.Thread(target=build, args=(n,))
+               for n in ("flash_fwd", "flash_bwd", "fused_lstm_fwd", "fused_lstm_bwd")]
     for t in threads:
         t.start()
     for t in threads:
@@ -151,15 +201,25 @@ def build_report() -> dict:
     if errors:
         raise errors[0]
     fwd, bwd = fa._kernel_lib(), fa._bwd_kernel_lib()
-    seconds = time.perf_counter() - t0
     kernels = _ptxas_report(_build.BUILD_LOG.get("flash_fwd", ""), "flash_fwd_kernel",
                             fwd.flash_fwd_smem_bytes)
     for which, name in enumerate(("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")):
         kernels += _ptxas_report(_build.BUILD_LOG.get("flash_bwd", ""), name,
                                  lambda dt, D, w=which: bwd.flash_bwd_smem_bytes(w, dt, D))
-    check(len(kernels) == 18, f"expected 18 kernel instantiations (6 per kernel) in "
-                              f"the ptxas reports, parsed {len(kernels)}")
-    return {"phase": "build", "seconds": round(seconds, 3), "kernels": kernels}
+    lf, lb = fl._fwd_kernel_lib(), fl._bwd_kernel_lib()
+    H = LSTM_SHAPE["H"]
+    kernels += _ptxas_report_lstm(_build.BUILD_LOG.get("fused_lstm_fwd", ""),
+                                  "fused_lstm_fwd_kernel",
+                                  lambda dt: lf.fused_lstm_fwd_smem_bytes(dt, H))
+    kernels += _ptxas_report_lstm(_build.BUILD_LOG.get("fused_lstm_bwd", ""),
+                                  "fused_lstm_bwd_kernel",
+                                  lambda dt: lb.fused_lstm_bwd_smem_bytes(dt, H))
+    seconds = time.perf_counter() - t0
+    check(len(kernels) == 22, f"expected 22 kernel instantiations (6 per flash kernel, "
+                              f"2 per LSTM kernel) in the ptxas reports, parsed {len(kernels)}")
+    groups = {f"B={B}": lb.fused_lstm_bwd_groups(B, H, 0) for B in (1, 32, 128)}
+    return {"phase": "build", "seconds": round(seconds, 3), "kernels": kernels,
+            "lstm_bwd_batch_groups_H256_f32": groups}
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -726,6 +786,373 @@ def train_phase(tmp: Path) -> dict:
     }
 
 
+# -- phase 7: the LSTM kernels -------------------------------------------------
+
+def lstm_inputs(B, T, H, dtype, seed, peep=True, mask=None):
+    """Kernel #4/#5 operands on the card from a seed: zx and carries of
+    order 0.5, Wh scaled so h·Wh is of order 1, nonzero h0, c0, output
+    cotangent, dh_T and dc_T. ``mask``: None, or "varlen" (random lengths,
+    row 0 masked at every step)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    ins = {"zx": rnd(B, T, 4 * H, scale=0.5).to(dtype),
+           "wh": rnd(H, 4 * H, scale=H ** -0.5).to(dtype),
+           "h0": rnd(B, H, scale=0.5).to(dtype), "c0": rnd(B, H, scale=0.5).to(dtype),
+           "peephole": rnd(3 * H, scale=0.3).to(dtype) if peep else None,
+           "mask": None, "dout": rnd(B, T, H), "dhT": rnd(B, H), "dcT": rnd(B, H)}
+    if mask == "varlen":
+        lens = torch.randint(1, T + 1, (B,), generator=g, device="cuda")
+        lens[0] = 0
+        ins["mask"] = (torch.arange(T, device="cuda")[None, :] < lens[:, None]).float()
+    return ins
+
+
+def _step_rel_err(got, want) -> float:
+    """Worst ||got_t - want_t|| / (||want_t|| + BWD_TILE_ATOL * sqrt(n)) over
+    the time steps t of [B, T, ...] tensors."""
+    d = (got.float() - want.float()).transpose(0, 1).reshape(want.shape[1], -1)
+    w = want.float().transpose(0, 1).reshape(want.shape[1], -1)
+    den = w.norm(dim=1) + BWD_TILE_ATOL * w.shape[1] ** 0.5
+    return (d.norm(dim=1) / den).max().item()
+
+
+def _lstm_close(name, got, want, dtype, res) -> bool:
+    """One tensor against its plain version: f32 elementwise within
+    TOL[f32]; bf16 within LSTM_BF16_REL x max |ref| per tensor and, for
+    tensors with a time axis, LSTM_BF16_STEP_REL per step."""
+    a, b = got.float(), want.float()
+    err = (a - b).abs().max().item() if b.numel() else 0.0
+    res[f"{name}_max_abs_err"] = err
+    if dtype == torch.float32:
+        tol = TOL[torch.float32]
+        worst = ((a - b).abs() - tol["rtol"] * b.abs()).max().item()
+        res[f"{name}_excess"] = worst - tol["atol"]
+        return worst <= tol["atol"]
+    ok = err <= LSTM_BF16_REL * b.abs().max().item()
+    if b.dim() == 3:
+        step = _step_rel_err(a, b)
+        res[f"{name}_step_rel_err"] = step
+        ok = ok and step <= LSTM_BF16_STEP_REL
+    return ok
+
+
+def compare_lstm(case: dict) -> dict:
+    """Kernels #4 and #5 against their plain versions on the same inputs:
+    the forward's outputs, then the backward's from the same residuals."""
+    B, T, H, dtype = case["B"], case["T"], case["H"], case["dtype"]
+    ins = lstm_inputs(B, T, H, dtype, case["seed"], case["peep"], case["mask"])
+    args = (ins["zx"], ins["wh"], ins["h0"], ins["c0"], ins["mask"], ins["peephole"])
+    got = fl.fused_lstm_fwd_cuda(*args)
+    torch.cuda.synchronize()
+    want = fl.fused_lstm_reference(*args)
+    res = {"B": B, "T": T, "H": H, "dtype": str(dtype).split(".")[-1],
+           "peephole": case["peep"], "mask": case["mask"]}
+    ok = True
+    for name, a, b in zip(("hs", "gates", "cs", "hT", "cT"), got, want):
+        ok &= _lstm_close(name, a, b, dtype, res)
+    hs, gates, cs = got[:3]
+    cprev, hprev, m, dhs = fl.bwd_operands(hs, cs, ins["h0"], ins["c0"], ins["mask"],
+                                           ins["dout"], ins["dhT"])
+    bargs = (gates, cs, cprev, hprev, ins["wh"], m, dhs, ins["dcT"], ins["peephole"])
+    bgot = fl.fused_lstm_bwd_cuda(*bargs)
+    torch.cuda.synchronize()
+    bwant = fl.fused_lstm_bwd_reference(*bargs)
+    for name, a, b in zip(("dzx", "dwh", "dh0", "dc0", "dpeep"), bgot, bwant):
+        if b is not None:
+            ok &= _lstm_close(name, a, b, dtype, res)
+    # a second run of the backward repeats bit for bit (no atomics)
+    again = fl.fused_lstm_bwd_cuda(*bargs)
+    res["bwd_repeats_bitwise"] = all(torch.equal(a, b) for a, b in zip(bgot, again)
+                                     if a is not None)
+    ok &= res["bwd_repeats_bitwise"]
+    res["ok"] = bool(ok)
+    return res
+
+
+def lstm_bound(B, T, H, elem_bytes, kernel, peep=True):
+    """(bound_ms, bound_by, flops, bytes) of one launch at these shapes: the
+    recurrent products (one forward, two backward) at the f32 FMA or bf16
+    tensor-core peak, and every input read once and output written once."""
+    peak = PEAK_F32_FLOPS if elem_bytes == 4 else PEAK_BF16_FLOPS
+    e, f4 = float(elem_bytes), 4.0
+    btH, bH = B * T * H, B * H
+    if kernel == "fwd":
+        flops = 2.0 * B * T * H * 4 * H
+        # zx, Wh, h0, c0 (and peepholes) in; hs, gates, cs, h_T, c_T out
+        nbytes = e * (4 * btH + 4 * H * H + 2 * bH) + e * (6 * btH + 2 * bH)
+    else:
+        flops = 2 * 2.0 * B * T * H * 4 * H
+        # gates, cs, hprev (zx's dtype), cprev, dhs, mask (f32), Wh, dc_T in;
+        # dzx, dWh, dh0, dc0 (f32) out
+        nbytes = (e * (4 * btH + 2 * btH + 4 * H * H) + f4 * (2 * btH + B * T + bH)
+                  + f4 * (4 * btH + 4 * H * H + 2 * bH))
+    if peep:
+        nbytes += e * 3 * H + (f4 * 3 * H if kernel == "bwd" else 0.0)
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            flops, nbytes)
+
+
+def lstm_kernel_phase() -> dict:
+    f32, bf16 = torch.float32, torch.bfloat16
+    sh = LSTM_SHAPE
+    cases = [dict(sh, dtype=dt, peep=p, mask=None, seed=40 + i)
+             for i, (dt, p) in enumerate(((f32, True), (f32, False), (bf16, True),
+                                          (bf16, False)))]
+    cases += [
+        dict(B=1, T=1, H=256, dtype=f32, peep=True, mask=None, seed=50),   # rnn_time_step
+        dict(B=1, T=1, H=256, dtype=bf16, peep=True, mask=None, seed=51),
+        dict(B=32, T=1, H=256, dtype=f32, peep=True, mask=None, seed=52),  # sampling batch
+        dict(B=5, T=37, H=256, dtype=f32, peep=True, mask="varlen", seed=53),
+        dict(B=5, T=37, H=256, dtype=bf16, peep=False, mask="varlen", seed=54),
+        dict(B=33, T=20, H=128, dtype=f32, peep=True, mask="varlen", seed=55),
+        dict(B=33, T=20, H=128, dtype=bf16, peep=True, mask=None, seed=56),
+        dict(B=40, T=12, H=512, dtype=f32, peep=True, mask="varlen", seed=57),
+        dict(B=40, T=12, H=512, dtype=bf16, peep=False, mask=None, seed=58),
+        dict(B=300, T=6, H=256, dtype=f32, peep=False, mask="varlen", seed=59),
+    ]
+    results = [compare_lstm(c) for c in cases]
+    bad = [r for r in results if not r["ok"]]
+    check(not bad, f"LSTM kernels disagree with their plain versions: {bad}")
+
+    # timings at the char-RNN shape, f32 with peepholes (one GravesLSTM layer)
+    B, T, H = sh["B"], sh["T"], sh["H"]
+    ins = lstm_inputs(B, T, H, f32, 60)
+    args = (ins["zx"], ins["wh"], ins["h0"], ins["c0"], None, ins["peephole"])
+    fwd_ms = time_cuda(lambda: fl.fused_lstm_fwd_cuda(*args), iters=20)
+    plain_fwd_ms = time_cuda(lambda: fl.fused_lstm_reference(*args), iters=5, warmup=1)
+    hs, gates, cs, _, _ = fl.fused_lstm_fwd_cuda(*args)
+    cprev, hprev, m, dhs = fl.bwd_operands(hs, cs, ins["h0"], ins["c0"], None,
+                                           ins["dout"], ins["dhT"])
+    bargs = (gates, cs, cprev, hprev, ins["wh"], m, dhs, ins["dcT"], ins["peephole"])
+    bwd_ms = time_cuda(lambda: fl.fused_lstm_bwd_cuda(*bargs), iters=20)
+    plain_bwd_ms = time_cuda(lambda: fl.fused_lstm_bwd_reference(*bargs), iters=5,
+                             warmup=1)
+    # the nearest library call, as a yardstick only: cuDNN's LSTM over
+    # x [B, T, 256] (its own input projection, no peepholes, no mask)
+    lib = torch.nn.LSTM(H, H, batch_first=True).cuda()
+    x = torch.randn(B, T, H, device="cuda", requires_grad=True)
+    lib_fwd_ms = time_cuda(lambda: lib(x), iters=20)
+    y, _ = lib(x)
+    dy = torch.randn_like(y)
+    lib_bwd_ms = time_cuda(lambda: torch.autograd.grad(
+        y, [x] + list(lib.parameters()), dy, retain_graph=True), iters=20)
+    lib_fwdbwd_ms = time_cuda(lambda: torch.autograd.grad(
+        lib(x)[0], [x] + list(lib.parameters()), dy), iters=20)
+    timing = {"shape": [B, T, H], "dtype": "float32", "peephole": True,
+              "plain_ms": {"fwd": plain_fwd_ms, "bwd": plain_bwd_ms},
+              "library": "torch.nn.LSTM (cuDNN), input 256 -> hidden 256, no "
+                         "peepholes or mask, its input projection included: the "
+                         "nearest yardstick, not the same function",
+              "library_ms": {"fwd": lib_fwd_ms, "bwd": lib_bwd_ms,
+                             "fwd_bwd": lib_fwdbwd_ms}}
+    for name, ms in (("fwd", fwd_ms), ("bwd", bwd_ms)):
+        b_ms, b_by, b_flops, b_bytes = lstm_bound(B, T, H, 4, name)
+        timing[name] = {"kernel_ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "flops": b_flops, "bytes": b_bytes,
+                        "achieved_tflops": b_flops / ms / 1e9,
+                        "roofline_share": b_ms / ms}
+    return {"phase": "lstm_kernel", "cases": results, "timing": timing,
+            "tol": {"float32": TOL[f32], "bfloat16": {
+                "max_abs_err_over_max_abs_ref": LSTM_BF16_REL,
+                "step_rel_err": LSTM_BF16_STEP_REL, "step_atol_rms": BWD_TILE_ATOL}}}
+
+
+def _lstm_launches():
+    return {"fused_lstm_fwd": fl.fused_lstm_fwd_cuda.launches,
+            "fused_lstm_bwd": fl.fused_lstm_bwd_cuda.launches}
+
+
+def _zero_lstm_counts():
+    fl.fused_lstm_fwd_cuda.launches = 0
+    fl.fused_lstm_bwd_cuda.launches = 0
+
+
+def lstm_small_phase() -> dict:
+    """A tiny f32 TextGenerationLSTM (H=128) on the CPU (plain versions) and
+    on the GPU (the kernels) from the same weights: the output, then 3 fit
+    batches of tBPTT over T=12 in chunks of 4 with RMSProp (9 updates): the
+    loss per batch, the final params and the exact launches."""
+    tol = TOL[torch.float32]
+    conf = zoo.TextGenerationLSTM(vocab_size=20, timesteps=12, hidden=128, seed=7)
+    conf.tbptt_fwd_length = conf.tbptt_back_length = 4
+    cpu = MultiLayerNetwork(conf, device="cpu").init()
+    gpu = params_from_numpy(MultiLayerNetwork(conf), params_to_numpy(cpu))
+    ids = np.random.RandomState(5).randint(0, 20, (6, 12))
+    eye = np.eye(20, dtype=np.float32)
+    x, y = eye[ids], eye[np.roll(ids, -1, axis=1)]
+    before = _lstm_launches()
+    got = gpu.output(x).cpu()
+    out_launches = {k: v - before[k] for k, v in _lstm_launches().items()}
+    want = cpu.output(x)
+    out_err = (got - want).abs().max().item()
+    scores, launches = {}, {}
+    for name, m in (("cpu", cpu), ("gpu", gpu)):
+        lis = CollectScoresListener()
+        m.set_listeners(lis)
+        before = _lstm_launches()
+        m.fit((x, y), epochs=3)
+        torch.cuda.synchronize()
+        launches[name] = {k: v - before[k] for k, v in _lstm_launches().items()}
+        scores[name] = [s for _, s in lis.scores]
+    gp = [p.cpu() for p in tree_leaves(gpu.params)]
+    cp = tree_leaves(cpu.params)
+    param_err = max((a - b).abs().max().item() for a, b in zip(gp, cp))
+    ok = (bool(torch.allclose(got, want, **tol))
+          and out_launches == {"fused_lstm_fwd": 2, "fused_lstm_bwd": 0}
+          and bool(np.allclose(scores["gpu"], scores["cpu"], **tol))
+          and all(torch.allclose(a, b, **tol) for a, b in zip(gp, cp))
+          and launches["cpu"] == {"fused_lstm_fwd": 0, "fused_lstm_bwd": 0}
+          and launches["gpu"] == {"fused_lstm_fwd": 18, "fused_lstm_bwd": 18}
+          and gpu.iteration == cpu.iteration == 9)
+    res = {"phase": "lstm_small", "dtype": "float32", "hidden": 128, "T": 12,
+           "tbptt": 4, "output_max_abs_err": out_err, "output_launches": out_launches,
+           "loss_cpu": scores["cpu"], "loss_gpu": scores["gpu"],
+           "param_max_abs_err": param_err, "fit_launches": launches, "tol": tol, "ok": ok}
+    check(ok, f"GPU and CPU disagree on the tiny TextGenerationLSTM: {res}")
+    return res
+
+
+def lstm_train_phase(tmp: Path) -> dict:
+    """The char-RNN at full width through the trainer CLI, in-process."""
+    V, T, H = LSTM_CONF["vocab_size"], LSTM_CONF["timesteps"], LSTM_CONF["hidden"]
+    rows, steps, batch, epochs = 256, 200, 128, 2
+    conf = zoo.TextGenerationLSTM(**LSTM_CONF)
+    (tmp / "lstm.json").write_text(conf.to_json())
+    ids = np.random.RandomState(8).randint(0, V, (rows, steps))
+    eye = np.eye(V, dtype=np.float32)
+    np.savez(tmp / "chars.npz", x=eye[ids], y=eye[np.roll(ids, -1, axis=1)])
+    out_zip = tmp / "lstm.zip"
+    log = logging.getLogger("deeplearning4j_tpu_torch")
+    handler = _ScoreLog()
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: every launch below is counted
+    _zero_lstm_counts()
+    t0 = time.perf_counter()
+    try:
+        model = train_cli.run([str(tmp / "lstm.json"), "--data", str(tmp / "chars.npz"),
+                               "--epochs", str(epochs), "--batch-size", str(batch),
+                               "--output", str(out_zip), "--listener-frequency", "1"])
+        torch.cuda.synchronize()
+    finally:
+        log.removeHandler(handler)
+    run_s = time.perf_counter() - t0
+    launches = _lstm_launches()
+    peak = torch.cuda.max_memory_allocated()
+
+    chunks = epochs * (rows // batch) * (steps // T)
+    scores = [s for _, s in handler.scores]
+    check(model.iteration == chunks, f"{model.iteration} updates, expected {chunks}")
+    check(len(scores) == epochs * rows // batch and all(np.isfinite(scores)),
+          f"scores {handler.scores}")
+    check(scores[-1] < scores[0], f"the loss did not fall: {scores}")
+    for name, n in launches.items():
+        check(n == 2 * chunks, f"{name}: {n} launches over {chunks} tBPTT chunks, not 2 each")
+
+    restored = restore_network(str(out_zip))
+    x2 = torch.as_tensor(eye[ids[:2, :T]], device="cuda")
+    restore_diff = (model.output(x2) - restored.output(x2)).abs().max().item()
+    check(restore_diff == 0.0, f"restored output differs by {restore_diff}")
+
+    # one step at bench.py's shape (128 x 50) after a warm step, then one
+    # step timed in phases (what _value_and_grad and _update_params run)
+    xt = torch.as_tensor(eye[ids[:batch, :T]], device="cuda")
+    yt = torch.as_tensor(eye[np.roll(ids, -1, axis=1)[:batch, :T]], device="cuda")
+    model._fit_tbptt(xt, yt, None, None)
+    torch.cuda.synchronize()
+    timed = 10
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(timed):
+        model._fit_tbptt(xt, yt, None, None)
+    ev[1].record()
+    torch.cuda.synchronize()
+    step_ms = ev[0].elapsed_time(ev[1]) / timed
+    ph = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    live = [p.detach().requires_grad_(True) for p in tree_leaves(model.params)]
+    ph[0].record()
+    loss, _ = model._loss(tree_unflatten_like(model.params, live), model.state, xt, yt,
+                          None, None, model._gen, carries=model._initial_carries(batch))
+    ph[1].record()
+    grads = torch.autograd.grad(loss, live)
+    ph[2].record()
+    model._update_params(tree_unflatten_like(model.params, list(grads)))
+    ph[3].record()
+    torch.cuda.synchronize()
+    fwd_ms, bwd_ms, upd_ms = (ph[i].elapsed_time(ph[i + 1]) for i in range(3))
+    return {
+        "phase": "lstm_train",
+        "model": {"vocab": V, "T": T, "hidden": H, "layers": "2 x GravesLSTM",
+                  "dtype": "float32", "params": model.num_params()},
+        "entry": "python -m deeplearning4j_tpu_torch.train (in-process)",
+        "updater": conf.updater, "rows": rows, "steps_per_row": steps,
+        "batch": batch, "epochs": epochs, "tbptt_chunks": chunks,
+        "loss": scores, "launches": launches, "run_s": run_s,
+        "restore_max_abs_diff": restore_diff,
+        "max_memory_allocated_bytes": peak,
+        "step_128x50": {"step_ms": step_ms,
+                        "split_ms": {"forward": fwd_ms, "backward": bwd_ms,
+                                     "update": upd_ms},
+                        "tokens_per_s": batch * T / (step_ms / 1e3)},
+        "zip": str(out_zip),
+    }
+
+
+def lstm_sample_phase(zip_path: str) -> dict:
+    """Sampling from the trained zip: prime 32 rows with 50 steps, then 100
+    rnn_time_step calls of one step each, the next character by argmax."""
+    V, T = LSTM_CONF["vocab_size"], LSTM_CONF["timesteps"]
+    rows, n_steps = 32, 100
+    model = restore_network(zip_path)
+    eye = torch.eye(V, device="cuda")
+    prime = eye[torch.as_tensor(np.random.RandomState(9).randint(0, V, (rows, T)),
+                                device="cuda")]
+
+    # the main path: every launch below is counted
+    _zero_lstm_counts()
+    model.rnn_clear_previous_state()
+    outs = [model.rnn_time_step(prime)]
+    inputs = [prime]
+    per_call = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        before = fl.fused_lstm_fwd_cuda.launches
+        nxt = eye[outs[-1][:, -1].argmax(-1) if outs[-1].dim() == 3
+                  else outs[-1].argmax(-1)]
+        inputs.append(nxt[:, None])
+        outs.append(model.rnn_time_step(nxt))
+        per_call.append(fl.fused_lstm_fwd_cuda.launches - before)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n_steps
+    launches = _lstm_launches()
+    check(launches == {"fused_lstm_fwd": 2 * (n_steps + 1), "fused_lstm_bwd": 0},
+          f"sampling launches {launches}")
+    check(set(per_call) == {2}, f"launches per rnn_time_step call: {sorted(set(per_call))}")
+
+    stepped = torch.cat([outs[0]] + [o[:, None] for o in outs[1:]], dim=1)
+    full = model.output(torch.cat(inputs, dim=1))
+    tol = TOL[torch.float32]
+    err = (stepped - full).abs().max().item()
+    check(tuple(stepped.shape) == (rows, T + n_steps, V)
+          and bool(torch.isfinite(stepped).all()), f"stepped outputs {tuple(stepped.shape)}")
+    check(bool(torch.allclose(stepped, full, **tol)),
+          f"stepped outputs differ from the full forward by {err}")
+    # host-clock time of one sampling step, its device time by CUDA events
+    x1 = inputs[-1][:, 0]
+    step_ms = time_cuda(lambda: model.rnn_time_step(x1), iters=50, warmup=5)
+    return {"phase": "lstm_sample", "rows": rows, "prime_steps": T, "steps": n_steps,
+            "launches": launches, "launches_per_call": 2,
+            "stepped_vs_full_max_abs_err": err, "tol": tol,
+            "step_wall_ms": step_s * 1e3, "step_ms_cuda_events": step_ms}
+
+
 def _kernel_row(name, source, replaces, launches, by_path, max_abs_err, ms, plain_ms,
                 bound_ms, bound_by, library_ms, **extra):
     return dict({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -765,6 +1192,20 @@ def main() -> int:
     trn["attention_ms"] = {"forward": 8 * t["kernel_ms"],
                            "backward": 8 * (bt["dq"]["kernel_ms"] + bt["dkv"]["kernel_ms"])}
     emit(trn)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lk = lstm_kernel_phase()
+    emit(lk)
+    emit(lstm_small_phase())
+    lt = lk["timing"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ltr = lstm_train_phase(Path(tmp))
+        ltr["step_128x50"]["kernel_ms"] = {"forward": 2 * lt["fwd"]["kernel_ms"],
+                                           "backward": 2 * lt["bwd"]["kernel_ms"]}
+        lsm = lstm_sample_phase(ltr.pop("zip"))
+    emit(ltr)
+    emit(lsm)
 
     fwd_cases = kern["cases"]
     bwd_cases = kern["bwd_cases"]
@@ -788,6 +1229,20 @@ def main() -> int:
             bt["plain_ms"], bk["bound_ms"], bk["bound_by"], bt["library_ms"],
             max_err=max(c[f"{e}_max_abs_err"] for c in bwd_cases for e in errs),
             plain_and_library_compute="dq, dk and dv together"))
+    lcases = lk["cases"]
+    for name, key, line, errs in (("fused_lstm_fwd", "fwd", 60, ("hs", "gates", "cs")),
+                                  ("fused_lstm_bwd", "bwd", 119, ("dzx", "dwh"))):
+        by_path = {"lstm_train": ltr["launches"][name], "lstm_sample": lsm["launches"][name]}
+        rows.append(_kernel_row(
+            name, f"deeplearning4j_tpu_torch/csrc/{name}.cu",
+            f"deeplearning4j_tpu/ops/fused_lstm.py:{line}",
+            sum(by_path.values()), by_path,
+            max(lcases[0][f"{e}_max_abs_err"] for e in errs), lt[key]["kernel_ms"],
+            lt["plain_ms"][key], lt[key]["bound_ms"], lt[key]["bound_by"],
+            lt["library_ms"][key],
+            max_err=max(c[f"{e}_max_abs_err"] for c in lcases for e in errs),
+            library=f"torch.nn.LSTM (cuDNN) {key}: the nearest yardstick, not the same "
+                    "function (its own input projection, no peepholes or mask)"))
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

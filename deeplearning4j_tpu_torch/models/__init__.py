@@ -1,5 +1,5 @@
 """Zoo architectures ported so far."""
 
-from deeplearning4j_tpu_torch.models.zoo import TransformerLM
+from deeplearning4j_tpu_torch.models.zoo import TextGenerationLSTM, TransformerLM
 
-__all__ = ["TransformerLM"]
+__all__ = ["TextGenerationLSTM", "TransformerLM"]

@@ -1,8 +1,9 @@
 """Zoo architectures (PyTorch port of ``models/zoo.py``).
 
 Ported so far: ``TransformerLM``, the framework's flagship decoder-only
-language model, without its mixture-of-experts option. LeNet5, SimpleCNN
-and TextGenerationLSTM arrive with their slices.
+language model, without its mixture-of-experts option, and
+``TextGenerationLSTM``, the GravesLSTM char-RNN. LeNet5 and SimpleCNN
+arrive with their slices.
 """
 
 from __future__ import annotations
@@ -10,12 +11,36 @@ from __future__ import annotations
 from deeplearning4j_tpu_torch.nn.input_type import InputType
 from deeplearning4j_tpu_torch.nn.layers import (
     EmbeddingSequence,
+    GravesLSTM,
     LayerNorm,
     PositionalEmbedding,
     RnnOutputLayer,
     TransformerBlock,
 )
 from deeplearning4j_tpu_torch.nn.model import MultiLayerConfiguration
+
+
+def TextGenerationLSTM(vocab_size: int = 77, timesteps: int = 50,
+                       hidden: int = 256, updater=None, seed: int = 12345,
+                       dtype: str = "float32") -> MultiLayerConfiguration:
+    """TextGenerationLSTM.java, the GravesLSTM char-RNN: 2 x GravesLSTM
+    (``hidden``) and a time-distributed softmax over ``vocab_size``
+    characters, RMSProp, truncated BPTT of length 50. The same
+    configuration (and JSON) as the JAX package's."""
+    return MultiLayerConfiguration(
+        layers=(
+            GravesLSTM(n_out=hidden),
+            GravesLSTM(n_out=hidden),
+            RnnOutputLayer(n_out=vocab_size, activation="softmax", loss="mcxent"),
+        ),
+        input_type=InputType.recurrent(vocab_size, timesteps),
+        updater=updater or {"type": "rmsprop", "lr": 1e-3},
+        seed=seed,
+        backprop_type="tbptt",
+        tbptt_fwd_length=50,
+        tbptt_back_length=50,
+        dtype=dtype,
+    )
 
 
 def TransformerLM(vocab_size: int = 256, max_len: int = 512, d_model: int = 256,

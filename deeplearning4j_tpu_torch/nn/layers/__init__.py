@@ -11,15 +11,34 @@ from deeplearning4j_tpu_torch.nn.layers.attention import (
 )
 from deeplearning4j_tpu_torch.nn.layers.core import EmbeddingSequence
 from deeplearning4j_tpu_torch.nn.layers.normalization import LayerNorm, layer_norm
-from deeplearning4j_tpu_torch.nn.layers.recurrent import BaseRecurrent, RnnOutputLayer
+from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+    GRU,
+    LSTM,
+    BaseRecurrent,
+    Bidirectional,
+    BidirectionalLastTimeStep,
+    GravesLSTM,
+    LastTimeStep,
+    MaskZero,
+    RnnOutputLayer,
+    SimpleRnn,
+)
 
 __all__ = [
     "BaseRecurrent",
+    "Bidirectional",
+    "BidirectionalLastTimeStep",
     "EmbeddingSequence",
+    "GRU",
+    "GravesLSTM",
+    "LSTM",
+    "LastTimeStep",
     "LayerNorm",
+    "MaskZero",
     "MultiHeadAttention",
     "PositionalEmbedding",
     "RnnOutputLayer",
+    "SimpleRnn",
     "TransformerBlock",
     "layer_norm",
 ]

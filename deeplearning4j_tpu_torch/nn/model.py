@@ -16,8 +16,15 @@ and each step is forward, ``torch.autograd.grad`` of the average score
 plus L1/L2 penalties, then per layer gradient normalization, the updater
 and the constraints. Where the JAX step donates its buffers, the port
 updates params in place under ``torch.no_grad()``. ``score`` and
-``evaluate`` are here too. Not ported yet: chained K-step dispatch,
-tBPTT, the non-SGD solvers, resume/divergence guard and phase spans.
+``evaluate`` are here too. Not ported yet: chained K-step dispatch, the
+non-SGD solvers, resume/divergence guard and phase spans.
+
+Recurrent state: layers with a carry (``BaseRecurrent.SUPPORTS_CARRY``)
+take their carries through ``_forward``. With ``backprop_type="tbptt"``
+``fit`` cuts a 3-D batch's time axis into ``tbptt_fwd_length`` chunks and
+takes one update per chunk, carrying the RNN state across chunks detached
+(the truncation); ``rnn_time_step`` feeds one or more steps at a time and
+keeps the carries on the model's device between calls.
 
 The network lives on one device, chosen at construction: ``device=None``
 means the GPU, and raises when there is none; ``device="cpu"`` must be
@@ -38,7 +45,7 @@ from deeplearning4j_tpu_torch import obs
 from deeplearning4j_tpu_torch.nn.config import LayerConfig, _encode_value, layer_from_dict
 from deeplearning4j_tpu_torch.nn.constraints import apply_constraints
 from deeplearning4j_tpu_torch.nn.input_type import InputType
-from deeplearning4j_tpu_torch.nn.layers import EmbeddingSequence
+from deeplearning4j_tpu_torch.nn.layers import BaseRecurrent, EmbeddingSequence
 from deeplearning4j_tpu_torch.nn.preprocessors import infer_preprocessor
 from deeplearning4j_tpu_torch.nn.step_program import (
     accum_applicable,
@@ -51,7 +58,7 @@ from deeplearning4j_tpu_torch.train.updaters import (
     make_updater,
 )
 from deeplearning4j_tpu_torch.utils import bucketing
-from deeplearning4j_tpu_torch.utils.tree import tree_leaves, tree_unflatten_like
+from deeplearning4j_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like
 
 __all__ = ["MultiLayerConfiguration", "MultiLayerNetwork", "resolve_device",
            "torch_dtype"]
@@ -263,6 +270,7 @@ class MultiLayerNetwork:
         self.epoch = 0
         self.batch_in_epoch = 0
         self.listeners: list = []
+        self._rnn_carries = None
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(conf.seed)
 
@@ -285,6 +293,8 @@ class MultiLayerNetwork:
         self.layers: List[LayerConfig] = layers
         self.layer_input_types: List[InputType] = input_types
         self.output_type: InputType = it
+        self._carry_flags = [isinstance(l, BaseRecurrent) and l.SUPPORTS_CARRY
+                             for l in layers]
 
     # -- init --------------------------------------------------------------
     def init(self, seed: Optional[int] = None) -> "MultiLayerNetwork":
@@ -330,18 +340,27 @@ class MultiLayerNetwork:
         return sum(int(v.numel()) for v in tree_leaves(self.params))
 
     # -- forward -----------------------------------------------------------
+    def _initial_carries(self, batch: int):
+        """Zero carries for every carry layer (``()`` for the others)."""
+        return tuple(l.initial_carry(batch, self.dtype, self.device) if f else ()
+                     for l, f in zip(self.layers, self._carry_flags))
+
     def _forward(self, params, state, x, *, train: bool, rng=None, fmask=None,
-                 upto: Optional[int] = None, collect: bool = False,
+                 carries=None, upto: Optional[int] = None, collect: bool = False,
                  ex_weight=None, deterministic: bool = False):
         """Walk the layer stack (the first ``upto`` layers). Returns (act,
-        new_state, mask, activations). ``ex_weight`` is a per-example [B]
-        validity weight for layers that declare CONSUMES_EXAMPLE_WEIGHT.
+        new_state, new_carries, mask, activations). With ``carries`` (one
+        per layer, as ``_initial_carries`` makes them) the carry layers
+        start from them and ``new_carries`` holds their final carries; else
+        ``new_carries`` is None. ``ex_weight`` is a per-example [B] validity
+        weight for layers that declare CONSUMES_EXAMPLE_WEIGHT.
         ``deterministic`` (``score(train=True)``): layers whose train-mode
         apply draws randomness run in eval mode, everything else keeps
         train-mode semantics."""
         n = len(self.layers) if upto is None else upto
         acts = []
         new_state = list(state)
+        new_carries = list(carries) if carries is not None else None
         mask = fmask
         a = _cast_input(x, self.dtype, self.device)
         for i in range(n):
@@ -350,47 +369,58 @@ class MultiLayerNetwork:
             p_i = params[i]
             if ltrain and layer.weight_noise and rng is not None:
                 p_i = layer.maybe_weight_noise(p_i, ltrain, rng)
-            kw = {}
-            if ex_weight is not None and getattr(layer, "CONSUMES_EXAMPLE_WEIGHT", False):
-                kw["ex_weight"] = ex_weight
-            a, new_state[i] = layer.apply(p_i, state[i], a, train=ltrain, rng=rng,
-                                          mask=mask, **kw)
+            if new_carries is not None and self._carry_flags[i]:
+                a = layer.maybe_dropout_input(a, ltrain, rng)
+                a, new_carries[i] = layer.apply_seq(p_i, a, new_carries[i], mask)
+            else:
+                kw = {}
+                if ex_weight is not None and getattr(layer, "CONSUMES_EXAMPLE_WEIGHT", False):
+                    kw["ex_weight"] = ex_weight
+                a, new_state[i] = layer.apply(p_i, state[i], a, train=ltrain, rng=rng,
+                                              mask=mask, **kw)
             mask = layer.propagate_mask(mask, self.layer_input_types[i])
             if collect:
                 acts.append(a)
-        return a, tuple(new_state), mask, acts
+        return (a, tuple(new_state),
+                tuple(new_carries) if new_carries is not None else None, mask, acts)
 
     def feed_forward(self, x):
         """All layer activations (MultiLayerNetwork.feedForward)."""
         with torch.inference_mode():
             return self._forward(self.params, self.state, x, train=False,
-                                 collect=True)[3]
+                                 collect=True)[4]
 
     # -- loss and the training step ----------------------------------------
-    def _loss(self, params, state, x, y, fmask, lmask, rng, train: bool = True,
-              ex_weight=None, deterministic: bool = False):
-        """Average score plus L1/L2 penalties; returns (loss, new_state)."""
-        a, new_state, prop_mask, _ = self._forward(
-            params, state, x, train=train, rng=rng, fmask=fmask,
+    def _loss(self, params, state, x, y, fmask, lmask, rng, carries=None,
+              train: bool = True, ex_weight=None, deterministic: bool = False):
+        """Average score plus L1/L2 penalties; returns (loss, (new_state,
+        new_carries))."""
+        a, new_state, new_carries, prop_mask, _ = self._forward(
+            params, state, x, train=train, rng=rng, fmask=fmask, carries=carries,
             upto=len(self.layers) - 1, ex_weight=ex_weight,
             deterministic=deterministic)
         out_layer = self.layers[-1]
         out_mask = lmask if lmask is not None else prop_mask
         loss = out_layer.score(params[-1], a, y, mask=out_mask, average=True)
         reg = sum(l.regularization_penalty(p) for l, p in zip(self.layers, params))
-        return loss + reg, new_state
+        return loss + reg, (new_state, new_carries)
 
-    def _value_and_grad(self, state, x, y, fmask, lmask, ex_weight):
-        """Loss, new layer state and the gradient tree (the params' shape;
-        zeros where a param does not reach the loss) on one batch."""
+    def _value_and_grad(self, state, x, y, fmask, lmask, ex_weight, carries=None):
+        """Loss, new layer state, the gradient tree (the params' shape; zeros
+        where a param does not reach the loss) and the final carries,
+        detached (None without ``carries``), on one batch."""
         leaves = tree_leaves(self.params)
         live = [p.detach().requires_grad_(True) for p in leaves]
         params = tree_unflatten_like(self.params, live)
-        loss, new_state = self._loss(params, state, x, y, fmask, lmask, self._gen,
-                                     ex_weight=ex_weight)
+        loss, (new_state, new_carries) = self._loss(
+            params, state, x, y, fmask, lmask, self._gen, carries=carries,
+            ex_weight=ex_weight)
         grads = torch.autograd.grad(loss, live, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        return loss.detach(), new_state, tree_unflatten_like(self.params, grads)
+        if new_carries is not None:
+            new_carries = tree_map(lambda c: c.detach(), new_carries)
+        return (loss.detach(), new_state, tree_unflatten_like(self.params, grads),
+                new_carries)
 
     def _update_params(self, grads):
         """The per-layer optimizer update (gradient normalization, updater,
@@ -426,9 +456,9 @@ class MultiLayerNetwork:
         if accum_applicable(accum, batch):
             loss, new_state, grads = accum_value_and_grad(
                 accum, self.params, self.state, batch,
-                lambda mb, st: self._value_and_grad(st, *mb))
+                lambda mb, st: self._value_and_grad(st, *mb)[:3])
         else:
-            loss, new_state, grads = self._value_and_grad(self.state, *batch)
+            loss, new_state, grads, _ = self._value_and_grad(self.state, *batch)
         self._update_params(grads)
         self.state = new_state
         self.iteration += 1
@@ -445,7 +475,8 @@ class MultiLayerNetwork:
         a fresh iterable per epoch. Over arrays whose length is not a
         multiple of ``batch_size`` the tail batch is padded to
         ``batch_size`` rows with tiled rows weighted out of the loss
-        (DL4J_TPU_BUCKETING=0 turns that off)."""
+        (DL4J_TPU_BUCKETING=0 turns that off); under tBPTT a 3-D batch is
+        cut into time chunks instead, and its tail is not padded."""
         if self.conf.optimization_algo not in _SGD_NAMES:
             raise NotImplementedError(
                 f"optimization_algo={self.conf.optimization_algo!r}: the non-SGD "
@@ -462,16 +493,17 @@ class MultiLayerNetwork:
                 pad_target = (_fit_pad_target(source, batch_size)
                               if bucketing.bucketing_enabled() else None)
                 for x, y, fm, lm in _iter_batches(source, batch_size):
-                    if tbptt and np.ndim(x) == 3:
-                        raise NotImplementedError(
-                            "truncated BPTT is not ported to deeplearning4j_tpu_torch yet")
                     n = len(x)
+                    chunked = tbptt and np.ndim(x) == 3
                     ew = None
-                    if pad_target is not None:
+                    if pad_target is not None and not chunked:
                         x, y, fm, lm, ew = bucketing.pad_fit_batch(
                             x, y, fm, lm, pad_target, site="mln.fit")
                     with obs.span("mln.fit_batch"):
-                        score = self._fit_batch(x, y, fm, lm, ew=ew)
+                        if chunked:
+                            score = self._fit_tbptt(x, y, fm, lm)
+                        else:
+                            score = self._fit_batch(x, y, fm, lm, ew=ew)
                     self.batch_in_epoch += 1
                     # the loss stays on the device unless a listener reads it
                     if self.listeners:
@@ -494,6 +526,35 @@ class MultiLayerNetwork:
             _cast_mask(fm, self.dtype, self.device),
             _cast_mask(lm, self.dtype, self.device),
             _cast_mask(ew, self.dtype, self.device))
+
+    def _fit_tbptt(self, x, y, fm, lm):
+        """Truncated BPTT (doTruncatedBPTT): cut the time axis into
+        ``tbptt_fwd_length`` chunks and take one update per chunk, passing
+        the RNN carries on detached. Returns the mean chunk loss as a device
+        scalar; ``iteration`` advances once per chunk."""
+        x = _cast_input(x, self.dtype, self.device)
+        T, L = x.shape[1], self.conf.tbptt_fwd_length
+        y = _cast_labels(y, self.dtype, self.device)
+        # time-sliced labels: one-hot [B, T, C] and sparse integer [B, T];
+        # rank-2 float labels (sequence-level heads) pass through whole
+        y_sliced = y is not None and (y.dim() == 3 or (
+            y.dim() == 2 and not y.is_floating_point()))
+        fm = _cast_mask(fm, self.dtype, self.device)
+        lm = _cast_mask(lm, self.dtype, self.device)
+        carries = self._initial_carries(x.shape[0])
+        total, nchunks = 0.0, 0
+        for t0 in range(0, T, L):
+            sl = slice(t0, min(t0 + L, T))
+            loss, new_state, grads, carries = self._value_and_grad(
+                self.state, x[:, sl], y[:, sl] if y_sliced else y,
+                fm[:, sl] if fm is not None else None,
+                lm[:, sl] if lm is not None else None, None, carries=carries)
+            self._update_params(grads)
+            self.state = new_state
+            total = total + loss
+            nchunks += 1
+            self.iteration += 1
+        return total / max(nchunks, 1)
 
     # -- inference ---------------------------------------------------------
     def output(self, x, fmask=None) -> torch.Tensor:
@@ -523,6 +584,28 @@ class MultiLayerNetwork:
 
     def _infer(self, x, fmask):
         return self._forward(self.params, self.state, x, train=False, fmask=fmask)[0]
+
+    def rnn_time_step(self, x) -> torch.Tensor:
+        """Feed one or more steps (rnnTimeStep), carrying the RNN state
+        between calls: ``x`` [B, T, F], or [B, F] for one step (the output
+        then has no time axis). The carries stay on the model's device; a
+        call with another batch size starts from zero carries. Runs under
+        ``torch.inference_mode()``."""
+        with torch.inference_mode():
+            x = _cast_input(x, self.dtype, self.device)
+            squeeze = x.ndim == 2
+            if squeeze:
+                x = x[:, None, :]
+            leaves = tree_leaves(self._rnn_carries)
+            if self._rnn_carries is None or (leaves and leaves[0].shape[0] != x.shape[0]):
+                self._rnn_carries = self._initial_carries(x.shape[0])
+            a, _, self._rnn_carries, _, _ = self._forward(
+                self.params, self.state, x, train=False, carries=self._rnn_carries)
+            return a[:, 0, :] if squeeze and a.ndim == 3 else a
+
+    def rnn_clear_previous_state(self):
+        """Forget the carries that ``rnn_time_step`` kept."""
+        self._rnn_carries = None
 
     def predict(self, x) -> np.ndarray:
         """Class indices (argmax over the last axis, taken on the device)."""

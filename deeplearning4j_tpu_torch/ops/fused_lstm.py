@@ -1,0 +1,407 @@
+"""Fused LSTM recurrence: the hand-written CUDA kernels and their plain versions.
+
+Counterpart of ``deeplearning4j_tpu/ops/fused_lstm.py``. The TPU package
+runs the whole LSTM / GravesLSTM recurrence over precomputed input rows
+``zx = x @ Wx + b`` in one Pallas kernel with ``Wh`` resident in VMEM and
+f32 h/c carries in scratch (``_fwd_kernel``), and the reverse-time sweep
+in a second one (``_bwd_kernel``) behind a custom VJP. Here they are
+``csrc/fused_lstm_fwd.cu`` (kernel #4) and ``csrc/fused_lstm_bwd.cu``
+(kernel #5), CUDA C++ for Hopper (``sm_90a``), each one cooperative launch
+that walks all T steps with one grid-wide barrier per step, built at first
+use and bound through ctypes (``ops/_build.py``). Their design notes and
+bounds sit at the top of each source.
+
+Dispatch follows one rule, with no fallback: a tensor on the CPU goes to
+the plain version, a CUDA tensor goes to the kernel or raises.
+
+- :func:`fused_lstm` — ``(out [B, T, H], (h_T, c_T))``, differentiable
+  through :class:`_FusedLSTM`.
+- :func:`fused_lstm_fwd_cuda`, :func:`fused_lstm_bwd_cuda` — the kernel
+  wrappers, each counting its launches.
+- :func:`fused_lstm_reference`, :func:`fused_lstm_bwd_reference` — the
+  plain versions, step by step as the TPU kernels compute, with the same
+  cast points (h and dz rounded to ``Wh``'s dtype before their products,
+  residuals stored in ``zx``'s dtype, the backward's sums in f32).
+
+Gate order is ``[i, f, g, o]``; ``peephole`` is ``[p_i | p_f | p_o]``
+(GravesLSTM: ``c_prev`` feeds i and f, ``c_new`` feeds o). A masked step
+outputs 0 and carries both h and c through unchanged. The TPU wrapper's
+time chunking (``_pick_chunk``, ``_pad_time``) budgets a TPU core's VMEM;
+the CUDA kernels walk every step in one launch and need neither.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from deeplearning4j_tpu_torch.ops import _build
+
+__all__ = [
+    "MAX_HIDDEN",
+    "bwd_operands",
+    "fused_lstm",
+    "fused_lstm_bwd_cuda",
+    "fused_lstm_bwd_reference",
+    "fused_lstm_fwd_cuda",
+    "fused_lstm_reference",
+]
+
+MAX_HIDDEN = 512
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_fwd_lib = None
+_bwd_lib = None
+
+
+def _fwd_kernel_lib() -> ctypes.CDLL:
+    global _fwd_lib
+    if _fwd_lib is None:
+        lib = _build.load("fused_lstm_fwd")
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        # zx, wh, mask, peephole, hbuf, cbuf, hs, gates, cs, hT, cT,
+        # B, T, H, dtype, stream
+        lib.fused_lstm_fwd.argtypes = [ptr] * 11 + [i32] * 4 + [ptr]
+        lib.fused_lstm_fwd.restype = i32
+        lib.fused_lstm_fwd_error_string.argtypes = [i32]
+        lib.fused_lstm_fwd_error_string.restype = ctypes.c_char_p
+        lib.fused_lstm_fwd_smem_bytes.argtypes = [i32, i32]
+        lib.fused_lstm_fwd_smem_bytes.restype = i64
+        _fwd_lib = lib
+    return _fwd_lib
+
+
+def _bwd_kernel_lib() -> ctypes.CDLL:
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = _build.load("fused_lstm_bwd")
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        # gates, cs, cprev, hprev, wh, mask, dhs, peephole, dzx, dwh, dh, dc,
+        # dpeep, part, B, T, H, dtype, stream
+        lib.fused_lstm_bwd.argtypes = [ptr] * 14 + [i32] * 4 + [ptr]
+        lib.fused_lstm_bwd.restype = i32
+        lib.fused_lstm_bwd_groups.argtypes = [i32, i32, i32]
+        lib.fused_lstm_bwd_groups.restype = i32
+        lib.fused_lstm_bwd_error_string.argtypes = [i32]
+        lib.fused_lstm_bwd_error_string.restype = ctypes.c_char_p
+        lib.fused_lstm_bwd_smem_bytes.argtypes = [i32, i32]
+        lib.fused_lstm_bwd_smem_bytes.restype = i64
+        _bwd_lib = lib
+    return _bwd_lib
+
+
+def _check_shapes(zx, wh, who):
+    """Raise on a recurrence the kernels do not take; returns (B, T, H)."""
+    if zx.dim() != 3 or wh.dim() != 2:
+        raise ValueError(f"{who}: zx must be [B, T, 4H] and wh [H, 4H], got "
+                         f"{tuple(zx.shape)} and {tuple(wh.shape)}")
+    B, T, Z = zx.shape
+    H = wh.shape[0]
+    if tuple(wh.shape) != (H, 4 * H) or Z != 4 * H:
+        raise ValueError(f"{who}: zx {tuple(zx.shape)} and wh {tuple(wh.shape)} "
+                         "do not form [B, T, 4H] and [H, 4H]")
+    if H % 128 or not 128 <= H <= MAX_HIDDEN:
+        raise ValueError(f"{who} takes H a multiple of 128 up to {MAX_HIDDEN}, got {H}")
+    if B < 1 or T < 1:
+        raise ValueError(f"{who} needs B >= 1 and T >= 1, got {tuple(zx.shape)}")
+    return B, T, H
+
+
+def _check_cuda(who, dtype, device, **named):
+    """Every named tensor on ``device`` (CUDA); those given a dtype of None
+    may be any float type, the others must have ``dtype``."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"{who} takes bfloat16 or float32, got {dtype}")
+    if device.type != "cuda":
+        raise ValueError(f"{who} takes CUDA tensors, got {device}")
+    for name, (x, want) in named.items():
+        if x is None:
+            continue
+        if x.device != device:
+            raise ValueError(f"{who}: {name} must lie on {device}, got {x.device}")
+        if want is not None and x.dtype != want:
+            raise ValueError(f"{who}: {name} is {x.dtype}, expected {want}")
+
+
+def _f32(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if x is None else x.to(torch.float32).contiguous()
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
+
+
+def fused_lstm_fwd_cuda(zx: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
+                        c0: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                        peephole: Optional[torch.Tensor] = None):
+    """Launch kernel #4 (``csrc/fused_lstm_fwd.cu``) on PyTorch's current
+    stream: the recurrence over ``zx`` [B, T, 4H] with ``wh`` [H, 4H] (both
+    bf16 or both f32, H a multiple of 128 up to :data:`MAX_HIDDEN`), carries
+    ``h0``/``c0`` [B, H], optional ``mask`` [B, T] and ``peephole`` [3H].
+    Returns ``(hs, gates, cs, h_T, c_T)`` in zx's dtype: the post-mask
+    carries [B, T, H], the pre-mask gates [B, T, 4H], the post-mask cells
+    [B, T, H] and the final carries [B, H]. Raises on anything the kernel
+    does not take and on a failed launch. Each launch adds one to
+    ``fused_lstm_fwd_cuda.launches``."""
+    B, T, H = _check_shapes(zx, wh, "fused_lstm_fwd")
+    _check_cuda("fused_lstm_fwd", zx.dtype, zx.device, wh=(wh, zx.dtype),
+                h0=(h0, None), c0=(c0, None), mask=(mask, None),
+                peephole=(peephole, None))
+    if tuple(h0.shape) != (B, H) or tuple(c0.shape) != (B, H):
+        raise ValueError(f"fused_lstm_fwd: h0/c0 must be [B, H] = {(B, H)}, got "
+                         f"{tuple(h0.shape)} and {tuple(c0.shape)}")
+    if mask is not None and tuple(mask.shape) != (B, T):
+        raise ValueError(f"fused_lstm_fwd: mask must be [B, T] = {(B, T)}, "
+                         f"got {tuple(mask.shape)}")
+    if peephole is not None and tuple(peephole.shape) != (3 * H,):
+        raise ValueError(f"fused_lstm_fwd: peephole must be [3H] = {(3 * H,)}, "
+                         f"got {tuple(peephole.shape)}")
+    lib = _fwd_kernel_lib()
+    dev, dt = zx.device, zx.dtype
+    zx, wh = zx.contiguous(), wh.contiguous()
+    # f32 carries exchanged between blocks (h double-buffered), seeded here
+    hbuf = torch.empty((2, B, H), dtype=torch.float32, device=dev)
+    hbuf[0].copy_(h0)
+    cbuf = _f32(c0).clone()
+    m, peep = _f32(mask), _f32(peephole)
+    hs = torch.empty((B, T, H), dtype=dt, device=dev)
+    gates = torch.empty((B, T, 4 * H), dtype=dt, device=dev)
+    cs = torch.empty((B, T, H), dtype=dt, device=dev)
+    hT = torch.empty((B, H), dtype=dt, device=dev)
+    cT = torch.empty((B, H), dtype=dt, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fused_lstm_fwd(
+            zx.data_ptr(), wh.data_ptr(), _ptr(m), _ptr(peep), hbuf.data_ptr(),
+            cbuf.data_ptr(), hs.data_ptr(), gates.data_ptr(), cs.data_ptr(),
+            hT.data_ptr(), cT.data_ptr(), B, T, H, _DTYPE_CODES[dt], stream)
+    if rc != 0:
+        msg = _rc_message(rc, lib.fused_lstm_fwd_error_string)
+        raise RuntimeError(f"fused_lstm_fwd launch failed ({rc}): {msg}")
+    fused_lstm_fwd_cuda.launches += 1
+    return hs, gates, cs, hT, cT
+
+
+fused_lstm_fwd_cuda.launches = 0
+
+
+def _rc_message(rc: int, error_string) -> str:
+    if rc == -1:
+        return "unsupported dtype or hidden width"
+    if rc == -2:
+        return "the grid cannot be co-resident on this device (cooperative launch)"
+    return error_string(rc).decode()   # a cudaError_t (bwd_groups: -(1000 + e))
+
+
+def fused_lstm_bwd_cuda(gates, cs, cprev, hprev, wh, m, dhs, dcT, peephole=None):
+    """Launch kernel #5 (``csrc/fused_lstm_bwd.cu``): the reverse-time sweep.
+
+    Operands as :func:`fused_lstm_bwd_reference` takes them: the forward's
+    residuals ``gates`` [B, T, 4H] and ``cs`` [B, T, H] (zx's dtype), the
+    shifted carries ``cprev`` [B, T, H] (f32) and ``hprev`` [B, T, H] (zx's
+    dtype), ``wh`` [H, 4H], the f32 mask ``m`` [B, T], the f32 output
+    cotangent ``dhs`` [B, T, H] (already times the mask, with dh_T folded
+    into step T-1), the f32 ``dcT`` [B, H] and the optional ``peephole``.
+    Returns f32 ``(dzx [B, T, 4H], dWh [H, 4H], dh0 [B, H], dc0 [B, H],
+    dpeep [3H] or None)``. dWh and dpeep are summed inside the kernel
+    without atomics, so a run repeats bit for bit. Each launch adds one to
+    ``fused_lstm_bwd_cuda.launches``."""
+    B, T, H = _check_shapes(gates, wh, "fused_lstm_bwd")
+    dt = gates.dtype
+    f32 = torch.float32
+    _check_cuda("fused_lstm_bwd", dt, gates.device, wh=(wh, dt), cs=(cs, dt),
+                hprev=(hprev, dt), cprev=(cprev, f32), m=(m, f32), dhs=(dhs, f32),
+                dcT=(dcT, f32), peephole=(peephole, None))
+    for name, x, shape in (("cs", cs, (B, T, H)), ("cprev", cprev, (B, T, H)),
+                           ("hprev", hprev, (B, T, H)), ("m", m, (B, T)),
+                           ("dhs", dhs, (B, T, H)), ("dcT", dcT, (B, H))):
+        if tuple(x.shape) != shape:
+            raise ValueError(f"fused_lstm_bwd: {name} must be {shape}, got {tuple(x.shape)}")
+    if peephole is not None and tuple(peephole.shape) != (3 * H,):
+        raise ValueError(f"fused_lstm_bwd: peephole must be [3H], got {tuple(peephole.shape)}")
+    lib = _bwd_kernel_lib()
+    dev = gates.device
+    args = [x.contiguous() for x in (gates, cs, cprev, hprev, wh, m, dhs)]
+    peep = _f32(peephole)
+    dzx = torch.empty((B, T, 4 * H), dtype=f32, device=dev)
+    dwh = torch.empty((H, 4 * H), dtype=f32, device=dev)
+    # the carry cotangents, updated in place by their owning threads
+    dh = torch.zeros((B, H), dtype=f32, device=dev)
+    dc = dcT.to(f32).contiguous().clone()
+    dpeep = torch.empty((3 * H,), dtype=f32, device=dev) if peep is not None else None
+    with torch.cuda.device(dev):
+        groups = lib.fused_lstm_bwd_groups(B, H, _DTYPE_CODES[dt])
+        if groups < 1:
+            raise RuntimeError(f"fused_lstm_bwd launch failed ({groups}): "
+                               f"{_rc_message(groups, lib.fused_lstm_bwd_error_string)}")
+        # per-group partial dWh / dpeep, summed in a fixed order in the kernel
+        part = (torch.empty((groups, H * 4 * H + 3 * H), dtype=f32, device=dev)
+                if groups > 1 else None)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fused_lstm_bwd(
+            *(x.data_ptr() for x in args[:6]), args[6].data_ptr(), _ptr(peep),
+            dzx.data_ptr(), dwh.data_ptr(), dh.data_ptr(), dc.data_ptr(),
+            _ptr(dpeep), _ptr(part), B, T, H, _DTYPE_CODES[dt], stream)
+    if rc != 0:
+        msg = _rc_message(rc, lib.fused_lstm_bwd_error_string)
+        raise RuntimeError(f"fused_lstm_bwd launch failed ({rc}): {msg}")
+    fused_lstm_bwd_cuda.launches += 1
+    return dzx, dwh, dh, dc, dpeep
+
+
+fused_lstm_bwd_cuda.launches = 0
+
+
+def _mask_f32(mask, B, T, zx):
+    """The step mask as f32 [B, T], through zx's dtype as the TPU wrapper
+    casts it (``mask.astype(zx.dtype)``); ones when there is none."""
+    if mask is None:
+        return torch.ones((B, T), dtype=torch.float32, device=zx.device)
+    return mask.to(zx.dtype).to(torch.float32)
+
+
+def fused_lstm_reference(zx, wh, h0, c0, mask=None, peephole=None):
+    """The plain version of kernel #4, on any device, step by step as
+    ``_fwd_kernel`` computes: f32 carries, ``h`` rounded to wh's dtype
+    before the recurrent product (accumulated in f32), the masked blend
+    ``m * new + (1 - m) * old``. Returns ``(hs, gates, cs, h_T, c_T)`` in
+    zx's dtype, as the kernel does."""
+    B, T, Z = zx.shape
+    H = Z // 4
+    dt = zx.dtype
+    m = _mask_f32(mask, B, T, zx)
+    whf = wh.float()
+    peep = peephole.float() if peephole is not None else None
+    h, c = h0.float(), c0.float()
+    hs, gates, cs = [], [], []
+    for t in range(T):
+        z = zx[:, t].float() + h.to(wh.dtype).float() @ whf
+        if peep is not None:
+            i = torch.sigmoid(z[:, :H] + c * peep[:H])
+            f = torch.sigmoid(z[:, H:2 * H] + c * peep[H:2 * H])
+            g = torch.tanh(z[:, 2 * H:3 * H])
+            c_new = f * c + i * g
+            o = torch.sigmoid(z[:, 3 * H:] + c_new * peep[2 * H:])
+        else:
+            i = torch.sigmoid(z[:, :H])
+            f = torch.sigmoid(z[:, H:2 * H])
+            g = torch.tanh(z[:, 2 * H:3 * H])
+            o = torch.sigmoid(z[:, 3 * H:])
+            c_new = f * c + i * g
+        h_new = o * torch.tanh(c_new)
+        mt = m[:, t, None]
+        h = mt * h_new + (1.0 - mt) * h
+        c = mt * c_new + (1.0 - mt) * c
+        hs.append(h.to(dt))
+        cs.append(c.to(dt))
+        gates.append(torch.cat([i, f, g, o], dim=-1).to(dt))
+    return (torch.stack(hs, 1), torch.stack(gates, 1), torch.stack(cs, 1),
+            h.to(dt), c.to(dt))
+
+
+def fused_lstm_bwd_reference(gates, cs, cprev, hprev, wh, m, dhs, dcT, peephole=None):
+    """The plain version of kernel #5, on any device, step by step as
+    ``_bwd_kernel`` computes, from the same operands as
+    :func:`fused_lstm_bwd_cuda`: dz is rounded to wh's dtype before
+    ``hprevᵀ·dz`` and ``dz·Whᵀ``; everything is summed in f32. Returns f32
+    ``(dzx, dWh, dh0, dc0, dpeep or None)``."""
+    B, T, Z = gates.shape
+    H = Z // 4
+    wdt = wh.dtype
+    whf = wh.float()
+    peep = peephole.float() if peephole is not None else None
+    dh = torch.zeros((B, H), dtype=torch.float32, device=gates.device)
+    dc = dcT.float()
+    dwh = torch.zeros((H, Z), dtype=torch.float32, device=gates.device)
+    dpeep = torch.zeros((3 * H,), dtype=torch.float32, device=gates.device)
+    dzx = [None] * T
+    for t in range(T - 1, -1, -1):
+        gt = gates[:, t].float()
+        i, f, g, o = gt[:, :H], gt[:, H:2 * H], gt[:, 2 * H:3 * H], gt[:, 3 * H:]
+        c_t = cs[:, t].float()
+        c_prev = cprev[:, t].float()
+        mt = m[:, t, None].float()
+        A = dh + dhs[:, t].float()
+        C = dc
+        tanh_c = torch.tanh(c_t)
+        dh_g = A * mt
+        do = dh_g * tanh_c * o * (1.0 - o)
+        dcg = C * mt + dh_g * o * (1.0 - tanh_c * tanh_c)
+        if peep is not None:
+            dcg = dcg + do * peep[2 * H:]
+        di = dcg * g * i * (1.0 - i)
+        dg = dcg * i * (1.0 - g * g)
+        df = dcg * c_prev * f * (1.0 - f)
+        dz = torch.cat([di, df, dg, do], dim=-1)
+        dzx[t] = dz
+        dzw = dz.to(wdt).float()
+        dwh = dwh + hprev[:, t].to(wdt).float().T @ dzw
+        dh = dzw @ whf.T + A * (1.0 - mt)
+        dc = dcg * f + C * (1.0 - mt)
+        if peep is not None:
+            dc = dc + di * peep[:H] + df * peep[H:2 * H]
+            dpeep = dpeep + torch.cat([(di * c_prev).sum(0), (df * c_prev).sum(0),
+                                       (do * c_t).sum(0)])
+    return (torch.stack(dzx, 1), dwh, dh, dc,
+            dpeep if peep is not None else None)
+
+
+def bwd_operands(hs, cs, h0, c0, mask, dout, dhT):
+    """The backward's operands built from the forward's residuals with torch
+    ops, as the TPU wrapper builds them: the shifted carries ``cprev`` (f32)
+    and ``hprev`` (hs's dtype) entering each step, the f32 mask ``m``, and
+    the f32 output cotangent ``dhs`` times the mask, with ``dhT`` folded into
+    the last step (h_T is hs[:, T-1]). Returns ``(cprev, hprev, m, dhs)``."""
+    B, T, _ = hs.shape
+    m = (torch.ones((B, T), dtype=torch.float32, device=hs.device)
+         if mask is None else mask.float())
+    dhs = dout.float() * m[..., None]
+    dhs[:, T - 1] += dhT.float()
+    hprev = torch.cat([h0.to(hs.dtype)[:, None], hs[:, :-1]], 1)
+    cprev = torch.cat([c0.float()[:, None], cs[:, :-1].float()], 1)
+    return cprev, hprev, m, dhs
+
+
+class _FusedLSTM(torch.autograd.Function):
+    """The TPU package's custom-VJP contract: the forward saves the gate and
+    cell residuals, ``hs`` and the inputs it needs (not ``zx``); the
+    backward builds the shifted carries with torch ops, folds ``dh_T`` into
+    the last step's output cotangent and seeds the sweep with ``dc_T``, then
+    runs kernel #5 on CUDA tensors (the plain backward on CPU tensors). The
+    mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, zx, wh, h0, c0, mask, peephole):
+        fwd = fused_lstm_reference if zx.device.type == "cpu" else fused_lstm_fwd_cuda
+        hs, gates, cs, hT, cT = fwd(zx, wh, h0, c0, mask, peephole)
+        out = hs * mask.to(zx.dtype)[..., None] if mask is not None else hs
+        ctx.save_for_backward(gates, wh, h0, c0, mask, peephole, hs, cs)
+        return out, hT, cT
+
+    @staticmethod
+    def backward(ctx, dout, dhT, dcT):
+        gates, wh, h0, c0, mask, peephole, hs, cs = ctx.saved_tensors
+        cprev, hprev, m, dhs = bwd_operands(hs, cs, h0, c0, mask, dout, dhT)
+        bwd = fused_lstm_bwd_reference if gates.device.type == "cpu" else fused_lstm_bwd_cuda
+        dzx, dwh, dh0, dc0, dpeep = bwd(gates, cs, cprev, hprev, wh, m, dhs,
+                                        dcT.float(), peephole)
+        return (dzx.to(hs.dtype), dwh.to(wh.dtype), dh0.to(h0.dtype),
+                dc0.to(c0.dtype), None,
+                dpeep.to(peephole.dtype) if peephole is not None else None)
+
+
+def fused_lstm(zx, wh, h0, c0, mask=None, peephole=None
+               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Weight-stationary LSTM recurrence over precomputed input rows.
+
+    ``zx`` [B, T, 4H] (= x @ Wx + b, gate order [i, f, g, o]); ``wh``
+    [H, 4H]; ``h0``/``c0`` [B, H]; ``mask`` optional [B, T] (a masked step
+    carries state through and outputs 0); ``peephole`` optional [3H].
+    Returns ``(out [B, T, H], (h_T, c_T))``, differentiable in zx, wh, h0,
+    c0 and peephole, both final-carry cotangents included: kernels #4/#5 for
+    CUDA tensors, the plain versions for CPU tensors."""
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=zx.device).to(torch.float32)
+    out, hT, cT = _FusedLSTM.apply(zx, wh, h0, c0, mask, peephole)
+    return out, (hT, cT)

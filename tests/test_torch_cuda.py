@@ -1,6 +1,8 @@
-"""The hand-written CUDA flash-attention kernels (forward; backward dq and
-dk/dv) against their plain PyTorch versions on the GPU, and a tiny
-TransformerLM served and trained through them. Every test needs an NVIDIA
+"""The hand-written CUDA kernels against their plain PyTorch versions on the
+GPU: flash attention (forward; backward dq and dk/dv) with a tiny
+TransformerLM served and trained through them, and the fused LSTM (forward
+#4, backward #5) with a tiny TextGenerationLSTM trained and sampled through
+them. Every test needs an NVIDIA
 card (marker ``cuda``) and skips without one; on a GPU host run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -18,6 +20,7 @@ from deeplearning4j_tpu_torch.interop import params_from_numpy, params_to_numpy
 from deeplearning4j_tpu_torch.models import zoo
 from deeplearning4j_tpu_torch.nn.model import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import flash_attention as fa
+from deeplearning4j_tpu_torch.ops import fused_lstm as fl
 
 pytestmark = pytest.mark.cuda
 
@@ -265,3 +268,164 @@ def test_bf16_training_step_runs_the_kernels(cuda):
     assert all(p.dtype == torch.bfloat16 for p in m.params[2].values()
                if isinstance(p, torch.Tensor))
     assert m.opt_state[2]["m"]["Wi"].dtype == torch.float32
+
+
+# -- the fused LSTM kernels (#4 forward, #5 backward) ------------------------
+
+def _lstm_case(dev, B, T, H, dtype, peep, masked, seed):
+    """Kernel operands of order 1 from a seed, nonzero carries and final-carry
+    cotangents; ``masked``: random lengths with row 0 masked throughout."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s, k=1.0: torch.randn(*s, generator=g, device=dev) * k   # noqa: E731
+    mask = None
+    if masked:
+        lens = torch.randint(1, T + 1, (B,), generator=g, device=dev)
+        lens[0] = 0
+        mask = (torch.arange(T, device=dev)[None, :] < lens[:, None]).float()
+    return dict(zx=r(B, T, 4 * H, k=0.5).to(dtype), wh=r(H, 4 * H, k=H ** -0.5).to(dtype),
+                h0=r(B, H, k=0.5).to(dtype), c0=r(B, H, k=0.5).to(dtype), mask=mask,
+                peephole=r(3 * H, k=0.3).to(dtype) if peep else None,
+                dout=r(B, T, H), dhT=r(B, H), dcT=r(B, H))
+
+
+def _lstm_close(got, want, dtype):
+    """f32: elementwise (summation order only); bf16: per tensor within 2e-2
+    of max |ref| and, with a time axis, per step ||err|| within 1e-2 of
+    (||ref|| + 1e-3 sqrt(n))."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+        return
+    _close_rel(got, want, 2e-2)
+    if want.dim() == 3:
+        d = (got.float() - want.float()).transpose(0, 1).reshape(want.shape[1], -1)
+        w = want.float().transpose(0, 1).reshape(want.shape[1], -1)
+        worst = (d.norm(dim=1) / (w.norm(dim=1) + 1e-3 * w.shape[1] ** 0.5)).max().item()
+        assert worst <= 1e-2, worst
+
+
+@pytest.mark.parametrize("B,T,H", [(1, 1, 256), (32, 1, 256), (3, 37, 256),
+                                   (33, 9, 128), (40, 6, 512), (300, 4, 256),
+                                   (128, 50, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("peep,masked", [(True, True), (False, False)])
+def test_lstm_kernels_match_plain_versions(cuda, B, T, H, dtype, peep, masked):
+    c = _lstm_case(cuda, B, T, H, dtype, peep, masked, seed=B + T + H)
+    args = (c["zx"], c["wh"], c["h0"], c["c0"], c["mask"], c["peephole"])
+    before = (fl.fused_lstm_fwd_cuda.launches, fl.fused_lstm_bwd_cuda.launches)
+    got = fl.fused_lstm_fwd_cuda(*args)
+    for a, b in zip(got, fl.fused_lstm_reference(*args)):
+        assert a.dtype == dtype
+        _lstm_close(a, b, dtype)
+    hs, gates, cs = got[:3]
+    cprev, hprev, m, dhs = fl.bwd_operands(hs, cs, c["h0"], c["c0"], c["mask"],
+                                           c["dout"], c["dhT"])
+    bargs = (gates, cs, cprev, hprev, c["wh"], m, dhs, c["dcT"], c["peephole"])
+    bgot = fl.fused_lstm_bwd_cuda(*bargs)
+    assert (fl.fused_lstm_fwd_cuda.launches, fl.fused_lstm_bwd_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    for a, b in zip(bgot, fl.fused_lstm_bwd_reference(*bargs)):
+        assert (a is None) == (b is None)
+        if b is not None:
+            assert a.dtype == torch.float32
+            _lstm_close(a, b, dtype)
+    # no atomics: a second run repeats bit for bit
+    for a, b in zip(bgot, fl.fused_lstm_bwd_cuda(*bargs)):
+        assert a is None or torch.equal(a, b)
+
+
+def test_lstm_masked_row_carries_state_through(cuda):
+    c = _lstm_case(cuda, 4, 9, 128, torch.float32, True, True, seed=3)
+    out, (hT, cT) = fl.fused_lstm(c["zx"], c["wh"], c["h0"], c["c0"], c["mask"],
+                                  c["peephole"])
+    assert torch.count_nonzero(out[0]) == 0            # row 0 masked throughout
+    torch.testing.assert_close(hT[0], c["h0"][0])
+    torch.testing.assert_close(cT[0], c["c0"][0])
+
+
+def test_lstm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    c = _lstm_case(cuda, 2, 3, 128, torch.float32, True, False, seed=4)
+    z, w, h0, c0 = c["zx"], c["wh"], c["h0"], c["c0"]
+    bad = [
+        (z[..., :400], w[:100, :400], h0[:, :100], c0[:, :100]),   # H=100
+        (torch.zeros(2, 3, 2560, device=cuda), torch.zeros(640, 2560, device=cuda),
+         torch.zeros(2, 640, device=cuda), torch.zeros(2, 640, device=cuda)),  # H=640
+        (z.half(), w.half(), h0, c0),                              # fp16
+        (z, w.to(torch.bfloat16), h0, c0),                         # mixed dtype
+        (z.cpu(), w.cpu(), h0.cpu(), c0.cpu()),                    # CPU tensors
+        (z, w, h0.cpu(), c0),                                      # mixed device
+        (z, w, h0[:1], c0),                                        # carry shape
+    ]
+    before = fl.fused_lstm_fwd_cuda.launches
+    for args in bad:
+        with pytest.raises(ValueError):
+            fl.fused_lstm_fwd_cuda(*args)
+    with pytest.raises(ValueError):
+        fl.fused_lstm_fwd_cuda(z, w, h0, c0, torch.ones(2, 4, device=cuda))   # mask shape
+    assert fl.fused_lstm_fwd_cuda.launches == before
+    hs, gates, cs, _, _ = fl.fused_lstm_fwd_cuda(z, w, h0, c0)
+    cprev, hprev, m, dhs = fl.bwd_operands(hs, cs, h0, c0, None, c["dout"], c["dhT"])
+    with pytest.raises(ValueError):
+        fl.fused_lstm_bwd_cuda(gates, cs, cprev.to(torch.bfloat16), hprev, w, m, dhs,
+                               c["dcT"])
+    with pytest.raises(ValueError):
+        fl.fused_lstm_bwd_cuda(gates, cs, cprev, hprev, w, m[:, :2], dhs, c["dcT"])
+
+
+def test_fused_lstm_on_cuda_never_runs_the_plain_versions(cuda, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(fl, "fused_lstm_reference", boom)
+    monkeypatch.setattr(fl, "fused_lstm_bwd_reference", boom)
+    c = _lstm_case(cuda, 3, 5, 256, torch.float32, True, True, seed=6)
+    zx, wh, pe = (c[k].requires_grad_(True) for k in ("zx", "wh", "peephole"))
+    before = (fl.fused_lstm_fwd_cuda.launches, fl.fused_lstm_bwd_cuda.launches)
+    out, (hT, cT) = fl.fused_lstm(zx, wh, c["h0"], c["c0"], c["mask"], pe)
+    (out.square().sum() + hT.sum() + 0.5 * cT.sum()).backward()
+    assert (fl.fused_lstm_fwd_cuda.launches, fl.fused_lstm_bwd_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert all(torch.isfinite(x.grad).all() for x in (zx, wh, pe))
+
+
+def _char_rnn(hidden=128, T=12, tbptt=4, vocab=20, seed=7):
+    conf = zoo.TextGenerationLSTM(vocab_size=vocab, timesteps=T, hidden=hidden, seed=seed)
+    conf.tbptt_fwd_length = conf.tbptt_back_length = tbptt
+    ids = torch.randint(0, vocab, (6, T), generator=torch.Generator().manual_seed(seed))
+    eye = torch.eye(vocab)
+    return conf, eye[ids], eye[torch.roll(ids, -1, dims=1)]
+
+
+def test_tiny_char_rnn_trains_alike_on_gpu_and_cpu(cuda):
+    # f32: cuBLAS and the kernels sum in other orders than the CPU
+    from deeplearning4j_tpu_torch.train.listeners import CollectScoresListener
+    from deeplearning4j_tpu_torch.utils.tree import tree_leaves
+
+    conf, x, y = _char_rnn()
+    cpu = MultiLayerNetwork(conf, device="cpu").init()
+    gpu = params_from_numpy(MultiLayerNetwork(conf), params_to_numpy(cpu))
+    torch.testing.assert_close(gpu.output(x).cpu(), cpu.output(x), rtol=1e-4, atol=1e-5)
+    scores = []
+    before = (fl.fused_lstm_fwd_cuda.launches, fl.fused_lstm_bwd_cuda.launches)
+    for m in (cpu, gpu):
+        lis = CollectScoresListener()
+        m.set_listeners(lis)
+        m.fit((x, y), epochs=2)                    # 3 tBPTT chunks a batch
+        scores.append([s for _, s in lis.scores])
+    # 2 GravesLSTM layers: 2 forward and 2 backward launches per chunk
+    assert (fl.fused_lstm_fwd_cuda.launches, fl.fused_lstm_bwd_cuda.launches) == (
+        before[0] + 12, before[1] + 12)
+    torch.testing.assert_close(torch.tensor(scores[1]), torch.tensor(scores[0]),
+                               rtol=1e-4, atol=1e-5)
+    for a, b in zip(tree_leaves(gpu.params), tree_leaves(cpu.params)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+def test_rnn_time_step_on_gpu_matches_the_full_forward(cuda):
+    conf, x, _ = _char_rnn(hidden=256)
+    m = MultiLayerNetwork(conf).init()
+    full = m.output(x)
+    before = fl.fused_lstm_fwd_cuda.launches
+    steps = [m.rnn_time_step(x[:, t]) for t in range(x.shape[1])]
+    assert fl.fused_lstm_fwd_cuda.launches == before + 2 * x.shape[1]
+    assert m._rnn_carries[0][0].device.type == "cuda"
+    torch.testing.assert_close(torch.stack(steps, 1), full, rtol=1e-4, atol=1e-5)

@@ -42,6 +42,8 @@ def _smoke_imports():
 def test_importing_every_port_module_leaves_jax_out():
     mods = _port_modules() + _smoke_imports()
     assert "deeplearning4j_tpu_torch.serve.server" in mods
+    assert "deeplearning4j_tpu_torch.ops.fused_lstm" in mods
+    assert "deeplearning4j_tpu_torch.nn.layers.recurrent" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

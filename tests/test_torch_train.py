@@ -119,7 +119,7 @@ def test_loss_and_grads_match_jax_value_and_grad(lmask):
         lm[1, 7:] = 0.0
     jloss, jgrads = jax.value_and_grad(
         lambda p: jm._loss(p, jm.state, x, y, None, lm, None)[0])(jm.params)
-    loss, _, grads = m._value_and_grad(
+    loss, _, grads, _ = m._value_and_grad(
         m.state, torch.from_numpy(x), torch.from_numpy(y), None,
         torch.from_numpy(lm) if lmask else None, None)
     np.testing.assert_allclose(float(loss), float(jloss), **F32)
