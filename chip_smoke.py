@@ -12,15 +12,19 @@ non-zero (and without a result line when no CUDA device is present):
    versions; TF32 is switched off for matmuls and cuDNN.
 2. build   — nvcc builds csrc/flash_fwd.cu, flash_bwd.cu, fused_lstm_fwd.cu
    and fused_lstm_bwd.cu for sm_90a from the checkout, all at once;
-   registers, shared memory and spills per kernel instantiation.
+   registers, shared memory and spills per kernel instantiation, and the
+   HGMMA (wgmma) count of each backward kernel from cuobjdump -sass. The
+   bf16 backward kernels must show HGMMA and no spills.
 3. kernel  — each kernel against its plain PyTorch version on the card:
    the forward kernel and the backward pair (dq; dk/dv) at the flagship
    shape (B=16, T=2048, H=16, D=128, bf16, causal, fused-qkv strided
    views) and edge shapes (T=1000, variable-length key masks, non-causal,
-   D in 32/64/128, f32, query rows with no valid key). Then timings at the
-   flagship shape with CUDA events: each kernel, the plain versions, and
-   torch's scaled_dot_product_attention forward and backward as a
-   yardstick only.
+   D in 32/64/128, f32, query rows with no valid key; for the backward
+   also T in 1/65/129, B*H = 1 and contiguous q/k/v), each backward run
+   twice and held bit for bit. Then timings at the flagship shape with
+   CUDA events: each kernel, the whole backward (delta and kernels #2/#3),
+   the plain versions, and torch's scaled_dot_product_attention forward
+   and backward as a yardstick only.
 4. small   — a tiny TransformerLM through the port on the CPU (plain
    versions) and on the GPU (the kernels) with the same weights: the
    output, then 3 SGD steps (loss per step, final params, 2 launches of
@@ -40,7 +44,8 @@ non-zero (and without a result line when no CUDA device is present):
    loss, 8 launches of each kernel per step, and that the zip restores to
    a model with the same output. Then step time (CUDA events), its
    forward / backward / update split, tokens/s, share of the bf16 peak and
-   peak memory.
+   peak memory; and the parameter gradients of one 4-row batch with
+   kernels #2/#3 against the same with the plain backward in their place.
 7. lstm_kernel — the fused-LSTM kernels #4 (forward) and #5 (backward)
    against their plain versions on the card: the char-RNN shape (B=128,
    T=50, H=256) in f32 and bf16, with and without peepholes; B=1 and B=32
@@ -72,6 +77,7 @@ It ends with the kernels line, the card's name and power limit, and
 from __future__ import annotations
 
 import gc
+import importlib.util
 import json
 import logging
 import re
@@ -117,7 +123,18 @@ LSE_ATOL = 1e-4
 BWD_BF16_REL = 2e-2
 BWD_BF16_TILE_REL = 1e-2
 BWD_TILE_ATOL = 1e-3   # RMS floor per element: tiles of pure rounding noise
+# T = 1: dq and dk are exactly 0 (one key, so ds = p * (do.v - delta) = 0);
+# the kernels' f32 rounding noise (~1e-6 at D=128) is held to this, 3
+# orders below a bf16 ulp of the O(1) gradients
+SINGLE_KEY_ATOL = 1e-5
 TRAIN_LR = 1e-4        # bench.py's Adam rate
+# full-width parameter gradients with kernels #2/#3 against the plain
+# backward in their place, per tensor ||diff|| / ||ref||: both are bf16, the
+# kernels sum in another order, and the difference then runs through the
+# rest of the bf16 backward (~2-4 bf16 ulps in norm). 4 rows keep the plain
+# backward's [B, H, T, T] f32 tensors to ~1 GB each
+GRAD_CHECK_REL = 1e-2
+GRAD_CHECK_ROWS = 4
 FLAGSHIP_CONF = dict(vocab_size=2048, max_len=2048, d_model=2048, n_heads=16,
                      n_blocks=8, dtype="bfloat16", seed=12345)
 # the char-RNN (bench.py's BASELINE #3): B=128, T=50, hidden 256, f32
@@ -180,6 +197,36 @@ def _ptxas_report_lstm(log: str, kernel: str, smem_bytes) -> list:
     return out
 
 
+_BWD_KERNELS = ("(flash_bwd_dq_wgmma_kernel|flash_bwd_dkv_wgmma_kernel|"
+                "flash_bwd_dq_kernel|flash_bwd_dkv_kernel)")
+
+
+def _cuobjdump() -> str:
+    """The cuobjdump beside the nvcc that built the kernels, else the one
+    Triton's package carries."""
+    cand = Path(_build.nvcc_path()).parent / "cuobjdump"
+    if cand.exists():
+        return str(cand)
+    spec = importlib.util.find_spec("triton")   # its bundled binaries, not imported
+    check(spec is not None and spec.origin is not None, "no cuobjdump found")
+    return str(Path(spec.origin).parent / "backends" / "nvidia" / "bin" / "cuobjdump")
+
+
+def _hgmma_counts(lib: Path) -> dict:
+    """HGMMA (wgmma) instructions per (kernel, D) in the SASS of ``lib``."""
+    sass = subprocess.run([_cuobjdump(), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, key = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*?" + _BWD_KERNELS + r"I\w*?Li(\d+)E", line)
+        if m:
+            key = (m.group(1), int(m.group(2)))
+            counts[key] = 0
+        elif key is not None and "HGMMA" in line:
+            counts[key] += 1
+    return counts
+
+
 def build_report() -> dict:
     # one nvcc per source, started together
     t0 = time.perf_counter()
@@ -203,9 +250,22 @@ def build_report() -> dict:
     fwd, bwd = fa._kernel_lib(), fa._bwd_kernel_lib()
     kernels = _ptxas_report(_build.BUILD_LOG.get("flash_fwd", ""), "flash_fwd_kernel",
                             fwd.flash_fwd_smem_bytes)
-    for which, name in enumerate(("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")):
-        kernels += _ptxas_report(_build.BUILD_LOG.get("flash_bwd", ""), name,
-                                 lambda dt, D, w=which: bwd.flash_bwd_smem_bytes(w, dt, D))
+    # backward: the wgmma kernels (bf16) and the FMA kernels (f32)
+    bwd_log = _build.BUILD_LOG.get("flash_bwd", "")
+    for which, name in enumerate(("flash_bwd_dq", "flash_bwd_dkv")):
+        for kernel in (name + "_wgmma_kernel", name + "_kernel"):
+            kernels += _ptxas_report(bwd_log, kernel,
+                                     lambda dt, D, w=which: bwd.flash_bwd_smem_bytes(w, dt, D))
+    hgmma = _hgmma_counts(_build.build("flash_bwd"))
+    for k in kernels:
+        if k["kernel"].startswith("flash_bwd"):
+            k["hgmma"] = hgmma.get((k["kernel"], k["D"]), 0)
+    wgmma = [k for k in kernels if "_wgmma_" in k["kernel"]]
+    check(len(wgmma) == 6 and all(k["dtype"] == "bfloat16" for k in wgmma),
+          f"expected the 6 bf16 wgmma backward instantiations, parsed {wgmma}")
+    check(all(k["hgmma"] > 0 for k in wgmma), f"a bf16 backward kernel has no HGMMA: {wgmma}")
+    check(all(k["spill_stores"] == 0 and k["spill_loads"] == 0 for k in wgmma),
+          f"a bf16 backward kernel spills: {wgmma}")
     lf, lb = fl._fwd_kernel_lib(), fl._bwd_kernel_lib()
     H = LSTM_SHAPE["H"]
     kernels += _ptxas_report_lstm(_build.BUILD_LOG.get("fused_lstm_fwd", ""),
@@ -215,8 +275,9 @@ def build_report() -> dict:
                                   "fused_lstm_bwd_kernel",
                                   lambda dt: lb.fused_lstm_bwd_smem_bytes(dt, H))
     seconds = time.perf_counter() - t0
-    check(len(kernels) == 22, f"expected 22 kernel instantiations (6 per flash kernel, "
-                              f"2 per LSTM kernel) in the ptxas reports, parsed {len(kernels)}")
+    check(len(kernels) == 22, f"expected 22 kernel instantiations (6 for the forward, 3 per "
+                              f"backward kernel and dtype, 2 per LSTM kernel) in the ptxas "
+                              f"reports, parsed {len(kernels)}")
     groups = {f"B={B}": lb.fused_lstm_bwd_groups(B, H, 0) for B in (1, 32, 128)}
     return {"phase": "build", "seconds": round(seconds, 3), "kernels": kernels,
             "lstm_bwd_batch_groups_H256_f32": groups}
@@ -320,10 +381,15 @@ def tile_rel_err(got, want, rows: int = 64) -> float:
 
 def compare_bwd(case: dict) -> dict:
     """The backward kernels against flash_attention_bwd_reference on the
-    same q, k, v, forward out/lse, cotangent and key mask."""
+    same q, k, v, forward out/lse, cotangent and key mask; then a second run
+    of the kernels on the same inputs, which must equal the first bit for
+    bit. q/k/v are the fused-qkv split views unless the case names
+    ``layout="separate"`` (three contiguous tensors)."""
     B, T, H, D = case["B"], case["T"], case["H"], case["D"]
     dtype, causal = case["dtype"], case["causal"]
     q, k, v = make_qkv(B, T, H, D, dtype, case["seed"])
+    if case.get("layout") == "separate":
+        q, k, v = (x.contiguous() for x in (q, k, v))
     km = None
     if case["kmask"] == "varlen":
         km = varlen_mask(B, T, case["seed"])
@@ -335,11 +401,14 @@ def compare_bwd(case: dict) -> dict:
     g = torch.Generator(device="cuda").manual_seed(case["seed"] + 100)
     do = torch.randn(B, T, H, D, generator=g, device="cuda").to(dtype)
     got = fa.flash_bwd_cuda(q, k, v, out, lse, do, km, causal)
+    again = fa.flash_bwd_cuda(q, k, v, out, lse, do, km, causal)
     torch.cuda.synchronize()
     want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, km, causal)
     res = {"B": B, "T": T, "H": H, "D": D, "dtype": str(dtype).split(".")[-1],
-           "causal": causal, "kmask": case["kmask"]}
-    ok = True
+           "causal": causal, "kmask": case["kmask"],
+           "layout": case.get("layout", "fused"),
+           "repeat_bit_identical": all(torch.equal(a, b) for a, b in zip(got, again))}
+    ok = res["repeat_bit_identical"]
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         a, b = a.float(), b.float()
         err = (a - b).abs().max().item()
@@ -347,6 +416,12 @@ def compare_bwd(case: dict) -> dict:
         if dtype == torch.float32:
             tol = TOL[torch.float32]
             ok &= bool(((a - b).abs() <= tol["atol"] + tol["rtol"] * b.abs()).all())
+        elif T == 1 and name != "dv":
+            # one key: p = 1 and dp - delta = 0 exactly, so dq and dk are 0 and
+            # both versions return f32 rounding noise; held to the exact 0
+            res[f"{name}_max_abs"] = a.abs().max().item()
+            res[f"{name}_ref_max_abs"] = b.abs().max().item()
+            ok &= res[f"{name}_max_abs"] <= SINGLE_KEY_ATOL
         else:
             ref_max = b.abs().max().item()
             tile = tile_rel_err(a, b)
@@ -359,7 +434,8 @@ def compare_bwd(case: dict) -> dict:
     res["tol"] = (TOL[torch.float32] if dtype == torch.float32
                   else {"max_abs_err_over_max_abs_ref": BWD_BF16_REL,
                         "tile_rel_err": BWD_BF16_TILE_REL,
-                        "tile_atol_rms": BWD_TILE_ATOL})
+                        "tile_atol_rms": BWD_TILE_ATOL,
+                        "single_key_dq_dk_max_abs": SINGLE_KEY_ATOL})
     res["ok"] = ok
     return res
 
@@ -410,6 +486,17 @@ def kernel_phase() -> dict:
     bwd_cases += [dict(B=2, T=257, H=3, D=D, dtype=torch.float32, causal=c, kmask=m,
                        seed=30 + D) for D in (32, 64, 128)
                   for c, m in ((True, None), (False, "varlen"))]
+    # the wgmma kernels' tiling: 128-row blocks over 64-row tiles, ragged T
+    # (1, 65, 129), one (batch, head), and both operand layouts
+    bwd_cases += [dict(B=2, T=T, H=3, D=D, dtype=bf16, causal=True, kmask=None,
+                       seed=40 + T + D) for T in (1, 65, 129) for D in (32, 64, 128)]
+    bwd_cases += [
+        dict(B=1, T=300, H=1, D=128, dtype=bf16, causal=True, kmask="varlen", seed=50),
+        dict(B=1, T=129, H=1, D=64, dtype=bf16, causal=False, kmask=None, seed=51),
+        dict(B=2, T=384, H=4, D=128, dtype=bf16, causal=True, kmask=None, seed=52),
+        dict(B=2, T=384, H=4, D=128, dtype=bf16, causal=True, kmask=None, seed=52,
+             layout="separate"),
+    ]
     bwd_results = [compare_bwd(c) for c in bwd_cases]
     bad = [r for r in bwd_results if not r["ok"]]
     check(not bad, f"backward kernels disagree with their plain version: {bad}")
@@ -423,6 +510,9 @@ def kernel_phase() -> dict:
                       iters=10)
     dkv_ms = time_cuda(lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, None, True),
                        iters=10)
+    # the whole backward as autograd runs it: delta, then kernels #2 and #3
+    whole_bwd_ms = time_cuda(lambda: fa.flash_bwd_cuda(q, k, v, out, lse, do, None, True),
+                             iters=10)
     plain_bwd_ms = time_cuda(
         lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do, None, True),
         iters=2, warmup=1)
@@ -433,8 +523,11 @@ def kernel_phase() -> dict:
     sdpa_bwd_ms = time_cuda(lambda: torch.autograd.grad(o, (qg, kg, vg), dot,
                                                         retain_graph=True), iters=10)
     bwd_timing = {"shape": [B, T, H, D], "dtype": "bfloat16", "causal": True,
+                  "whole_ms": whole_bwd_ms,
+                  "whole": "flash_bwd_cuda: delta = rowsum(do * out), kernel #2, kernel #3",
                   "plain_ms": plain_bwd_ms, "library_ms": sdpa_bwd_ms,
-                  "library": "scaled_dot_product_attention backward (dq, dk, dv)"}
+                  "library": "scaled_dot_product_attention backward (dq, dk, dv)",
+                  "whole_over_library": whole_bwd_ms / sdpa_bwd_ms}
     for name, ms in (("dq", dq_ms), ("dkv", dkv_ms)):
         b_ms, b_by, b_flops, b_bytes = bwd_bound(B, T, H, D, True, 2, name)
         bwd_timing[name] = {"kernel_ms": ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -760,6 +853,8 @@ def train_phase(tmp: Path) -> dict:
     torch.cuda.synchronize()
     fwd_ms, bwd_ms, upd_ms = (ph[i].elapsed_time(ph[i + 1]) for i in range(3))
 
+    grad_check = grads_vs_plain_backward(model, xt[:GRAD_CHECK_ROWS], yt[:GRAD_CHECK_ROWS])
+
     tokens = rows * T
     n_params = model.num_params()
     pairs = T * (T + 1) // 2
@@ -783,7 +878,44 @@ def train_phase(tmp: Path) -> dict:
         "achieved_tflops": flops / step_ms / 1e9,
         "peak_share": flops / (step_ms / 1e3) / PEAK_BF16_FLOPS,
         "max_memory_allocated_bytes": peak,
+        "grads_kernels_vs_plain_backward": grad_check,
     }
+
+
+def _param_grads(model, x, y) -> list:
+    """Gradients of the training loss with respect to every parameter, the
+    model's generator restored afterwards so a second call sees the same
+    randomness."""
+    live = [p.detach().requires_grad_(True) for p in tree_leaves(model.params)]
+    rng = model._gen.get_state()
+    loss, _ = model._loss(tree_unflatten_like(model.params, live), model.state, x, y,
+                          None, None, model._gen)
+    model._gen.set_state(rng)
+    return list(torch.autograd.grad(loss, live))
+
+
+def grads_vs_plain_backward(model, x, y) -> dict:
+    """The model's parameter gradients on one batch with kernels #2/#3 as the
+    attention backward, and again with flash_attention_bwd_reference in
+    their place (same weights, same batch): per tensor ||diff|| / ||ref||.
+    Outside the counted main path."""
+    got = _param_grads(model, x, y)
+    kernels = fa.flash_bwd_cuda
+    fa.flash_bwd_cuda = (lambda q, k, v, out, lse, do, kmask=None, causal=False:
+                         fa.flash_attention_bwd_reference(q, k, v, out, lse, do, kmask, causal))
+    try:
+        want = _param_grads(model, x, y)
+    finally:
+        fa.flash_bwd_cuda = kernels
+    rel = [((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+           for a, b in zip(got, want)]
+    res = {"rows": int(x.shape[0]), "tensors": len(rel), "max_rel_norm_diff": max(rel),
+           "median_rel_norm_diff": float(np.median(rel)), "rel_norm_diff": rel,
+           "tol": GRAD_CHECK_REL}
+    check(max(rel) <= GRAD_CHECK_REL,
+          f"parameter gradients with kernels #2/#3 differ from the plain backward's: {res}")
+    torch.cuda.empty_cache()
+    return res
 
 
 # -- phase 7: the LSTM kernels -------------------------------------------------
@@ -1190,7 +1322,8 @@ def main() -> int:
         trn = train_phase(Path(tmp))
     bt = kern["bwd_timing"]
     trn["attention_ms"] = {"forward": 8 * t["kernel_ms"],
-                           "backward": 8 * (bt["dq"]["kernel_ms"] + bt["dkv"]["kernel_ms"])}
+                           "backward": 8 * (bt["dq"]["kernel_ms"] + bt["dkv"]["kernel_ms"]),
+                           "backward_with_delta": 8 * bt["whole_ms"]}
     emit(trn)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1228,7 +1361,8 @@ def main() -> int:
             max(bwd_cases[0][f"{e}_max_abs_err"] for e in errs), bk["kernel_ms"],
             bt["plain_ms"], bk["bound_ms"], bk["bound_by"], bt["library_ms"],
             max_err=max(c[f"{e}_max_abs_err"] for c in bwd_cases for e in errs),
-            plain_and_library_compute="dq, dk and dv together"))
+            plain_and_library_compute="dq, dk and dv together",
+            whole_backward_ms=bt["whole_ms"]))
     lcases = lk["cases"]
     for name, key, line, errs in (("fused_lstm_fwd", "fwd", 60, ("hs", "gates", "cs")),
                                   ("fused_lstm_bwd", "bwd", 119, ("dzx", "dwh"))):

@@ -2,9 +2,9 @@
 // interface (ctypes; see ops/_build.py and ops/flash_attention.py).
 //
 // Replaces the Pallas TPU kernels of deeplearning4j_tpu/ops/flash_attention.py:
-// - `_bwd_dq_kernel`  -> flash_bwd_dq_kernel:
+// - `_bwd_dq_kernel`  -> flash_bwd_dq_wgmma_kernel (bf16), flash_bwd_dq_kernel (f32):
 //     dq = scale * sum_k [p * (do . v^T - delta)] . k
-// - `_bwd_dkv_kernel` -> flash_bwd_dkv_kernel:
+// - `_bwd_dkv_kernel` -> flash_bwd_dkv_wgmma_kernel (bf16), flash_bwd_dkv_kernel (f32):
 //     dv = sum_q p^T . do ;  dk = scale * sum_q [p * (do . v^T - delta)]^T . q
 // with p = exp(q . k^T * scale - lse) where the (query, key) pair is valid
 // (key < T, query < T, causal, key mask) and exactly 0 elsewhere; lse is the
@@ -12,19 +12,13 @@
 // FlashAttention-2's backward: scores are rebuilt per tile and no [T, T]
 // tensor reaches device memory.
 //
-// Design (what differs from the TPU kernels, and why):
-// - Two kernels and no atomics, as on the TPU: the dq kernel owns one
-//   64-row query tile per block and loops over key tiles up to the causal
-//   diagonal; the dk/dv kernel owns one 64-key tile per block and loops over
-//   query tiles from the diagonal on. Every gradient row is summed by one
-//   block in one order, so a run repeats bit for bit.
-// - Four warps per block, each owning 16 rows of the block's tile (query
-//   rows for dq, key rows for dk/dv), so a warp's products and its
-//   accumulator rows are its own and no reduction crosses warps.
-// - The TPU kernels hold the whole [T, D] K/V (dq) or Q/dO (dk/dv) in VMEM;
-//   here they stream through shared memory one tile at a time. The f32
-//   accumulators (dq, or dk and dv) live in shared memory, rescaled by
-//   nobody, loaded and stored around each tile's product.
+// Rules both dtypes keep:
+// - Two kernels and no atomics, as on the TPU: the dq kernel owns query
+//   rows and loops over key tiles up to the causal diagonal; the dk/dv
+//   kernel owns key rows and loops over query tiles from the diagonal on.
+//   Every gradient row is summed by one block in one order, so a run
+//   repeats bit for bit. (FlashAttention-2's one-kernel backward does 5
+//   products where these do 7, but needs atomic adds into dq.)
 // - Masks go into p, never into the scores: a query row with no valid key
 //   has lse ~ -1e30 from the forward kernel and exp(s - lse) would not be 0,
 //   so only the validity test makes its gradients exactly 0, as on the TPU.
@@ -32,51 +26,76 @@
 //   f32; p is cast to the operand type before p^T . do, ds before ds . k and
 //   ds^T . q; the final * scale of dq and dk is applied in f32 before the
 //   cast to the output type.
-// - bf16 operands go through the tensor cores with nvcuda::wmma 16x16x16
-//   (f32 accumulate); f32 operands use plain FMAs so f32 keeps f32 accuracy.
-//   f32 at D=128 does not fit a 64-query tile of the dk/dv kernel in the
-//   227 KB a block may use (K, V, Q, dO, two score tiles and the dk/dv
-//   accumulators come to ~270 KB), so f32 streams 32-query tiles there.
+//
+// bf16: the Hopper design. Each block is three warpgroups: two consumer
+// warpgroups of 64 rows each (128 query rows for dq, 128 key rows for
+// dk/dv) and one producer warpgroup whose first warp feeds them.
+// - The block's own 128 rows (Q and dO for dq; K and V for dk/dv) are
+//   loaded once. The other side streams in 64-row tiles (K/V for dq; Q, dO,
+//   lse and delta for dk/dv) through a ring of STAGES slots in shared
+//   memory, with an mbarrier per slot for "full" and one for "empty".
+// - Copies are TMA: one 4-D tensor map per operand over its strided
+//   [B, T, H, D] view (the fused-qkv split views need no copy), boxes of
+//   64 rows x 128 bytes (64 bytes at D=32) landing in the swizzled layout
+//   that wgmma reads; rows at or past T arrive as zeros. The producer warp's
+//   lanes fill the per-tile key validity (dq) or lse and delta (dk/dv) into
+//   the same slot and arrive on its "full" barrier with the TMA bytes.
+// - Products are wgmma with f32 accumulators in registers. dq: S = Q.K^T and
+//   dP = dO.V^T (m64n64k16, both operands in shared memory, K-major), then
+//   dQ += dS.K with dS as the register A operand and K as the MN-major B
+//   operand. dk/dv: S^T = K.Q^T and dP^T = V.dO^T land already transposed,
+//   so P^T and dS^T are register A operands of dV += P^T.dO and
+//   dK += dS^T.Q with dO and Q as MN-major B operands: no transposed copy.
+//   An f32 accumulator fragment of wgmma is, pair for pair, the bf16 A
+//   fragment of the next wgmma, so p and ds never touch shared memory.
+// - p and ds are built in registers: each thread's accumulator entries map
+//   to known (row, column) pairs, the row's lse and delta sit in registers
+//   (dq) or are read per column from the slot (dk/dv), and the validity
+//   test covers causal, T and the key mask.
+// - setmaxnreg gives each consumer thread 232 registers and the producer 40.
+//   dk/dv holds 2 x D/2 f32 accumulators a thread (128 at D=128) and takes
+//   each 64-query tile in two halves of 32 (m64n32 scores) so that S^T,
+//   dP^T and their bf16 fragments fit beside them without spilling.
+// - Blocks are numbered so that, under a causal mask, the tiles with the
+//   most work start first and the short ones fill the tail.
+// What this does about the first version's five costs: accumulators were in
+// shared memory (now registers); S and dP went through shared memory as f32
+// and back as bf16 (now registers only); copies were synchronous behind
+// __syncthreads (now TMA into a ring, overlapped with the other slots' math
+// and with the other consumer warpgroup); four warps per SM (now eight
+// consumer warps and a producer); legacy mma.sync via wmma (now wgmma).
+// Budget per instantiation: 168 registers a thread at launch
+// (__launch_bounds__(384, 1)), then 232 a consumer and 40 a producer thread;
+// no spills (nvcc 12.9). Dynamic shared memory, a ring of STAGES = 3 slots:
+//   dq   D=32 / 64 / 128: 42,808 / 83,768 / 165,688 B
+//   dkv  D=32 / 64 / 128: 43,576 / 84,536 / 166,456 B
+// (DqLayout and DkvLayout; flash_bwd_smem_bytes reports them), so one block
+// of 12 warps per SM.
+//
+// f32 keeps the first version's design: one block of four warps per 64-row
+// tile, tiles loaded synchronously into padded shared memory, plain FMAs so
+// that f32 keeps f32 accuracy, accumulators in shared memory. f32 at D=128
+// does not fit a 64-query tile of the dk/dv kernel in 227 KB, so f32
+// streams 32-query tiles there.
 //
 // Bound at the flagship shape (B=16, H=16, T=2048, D=128, causal, bf16,
 // 2,098,176 causal pairs per (batch, head)): dq does three products (S, dP,
 // dQ), 6 * B*H*pairs*D = 412.5 GFLOP, 0.417 ms at 989 TFLOP/s; dk/dv does
 // four (S, dP, dV, dK), 550 GFLOP, 0.556 ms. Both must move q, k, v, do, lse,
 // delta and their gradients once (~1.1 GB over the pair, ~0.32 ms at
-// 3.35 TB/s), so both are bound by operations. This first version issues
-// wmma from shared memory without asynchronous copies and keeps the
-// accumulators in shared memory, so it runs well below that bound; wgmma,
-// TMA and register accumulators are the later steps.
+// 3.35 TB/s), so both are bound by operations.
 
+#include <cuda.h>          // CUtensorMap and its enums; the encoder is found at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int TILE = 64;             // rows of the block's own tile
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int WROWS = TILE / WARPS;  // rows per warp (16)
-
-static_assert(WROWS == 16, "a warp's rows are one wmma fragment tall");
-
 constexpr size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
-
-// Row padding (elements) that keeps shared-memory rows off one bank and,
-// for bf16, every wmma tile pointer 32-byte aligned.
-template <typename T> struct Pad;
-template <> struct Pad<float> { static constexpr int ROW = 1, P = 4; };
-template <> struct Pad<bf16> { static constexpr int ROW = 8, P = 8; };
-
-// Streamed tile height of the dk/dv kernel (query rows per loop step).
-template <typename T> struct DkvQ;
-template <> struct DkvQ<float> { static constexpr int N = 32; };
-template <> struct DkvQ<bf16> { static constexpr int N = 64; };
 
 struct Params {
   const void* q;
@@ -98,74 +117,44 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ void put(float* d, float x) { *d = x; }
-__device__ __forceinline__ void put(bf16* d, float x) { *d = __float2bfloat16(x); }
+// ===========================================================================
+// f32: FMA kernels, one block of four warps per 64-row tile
+// ===========================================================================
 
-__device__ __forceinline__ void store16(bf16* dst, uint4 v) {
-  *reinterpret_cast<uint4*>(dst) = v;
-}
-__device__ __forceinline__ void store16(float* dst, uint4 v) {
-  const float* f = reinterpret_cast<const float*>(&v);
-  dst[0] = f[0];
-  dst[1] = f[1];
-  dst[2] = f[2];
-  dst[3] = f[3];
-}
+constexpr int TILE = 64;             // rows of the block's own tile
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int WROWS = TILE / WARPS;  // rows per warp (16)
+constexpr int LDPAD = 1;             // row padding (elements): rows off one bank
+constexpr int PPAD = 4;
+constexpr int DKV_BQ = 32;           // streamed query rows of the dk/dv kernel
 
 // Copy `rows` rows [r0, r0 + rows) of one (batch, head) slice into shared
 // memory (row pitch LD) in 16-byte chunks; rows at or past T are zero-filled.
-template <typename T, int D, int LD>
-__device__ void load_rows(T* dst, const T* base, long long stride_t, int r0,
+template <int D, int LD>
+__device__ void load_rows(float* dst, const float* base, long long stride_t, int r0,
                           int rows, int T_len, int tid) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CPR = D / VEC;
+  constexpr int CPR = D / 4;
   for (int i = tid; i < rows * CPR; i += THREADS) {
     const int r = i / CPR;
-    const int c = (i % CPR) * VEC;
+    const int c = (i % CPR) * 4;
     const int t = r0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (t < T_len) {
-      val = *reinterpret_cast<const uint4*>(base + (long long)t * stride_t + c);
+      val = *reinterpret_cast<const float4*>(base + (long long)t * stride_t + c);
     }
-    store16(dst + r * LD + c, val);
+    float* d = dst + r * LD + c;
+    d[0] = val.x;
+    d[1] = val.y;
+    d[2] = val.z;
+    d[3] = val.w;
   }
 }
 
-// A warp's 16 rows of an A operand [16, D] (row major, pitch LD): wmma
-// fragments for bf16, loaded once; for f32 only the shared-memory pointer.
-template <typename T, int D, int LD> struct Rows16 {
-  const float* p;
-  __device__ void load(const float* src) { p = src; }
-};
-template <int D, int LD> struct Rows16<bf16, D, LD> {
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> f[D / 16];
-  __device__ void load(const bf16* src) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) wmma::load_matrix_sync(f[kk], src + kk * 16, LD);
-  }
-};
-
-// C[16, N] = A[16, D] . B[N, D]^T   (f32 out, pitch LDC). B: N rows, pitch LD.
+// C[16, N] = A[16, D] . B[N, D]^T (pitch LDC). A: the warp's 16 rows, pitch
+// LD; B: N rows, pitch LD.
 template <int D, int LD, int N, int LDC>
-__device__ void mm_abt(const Rows16<bf16, D, LD>& a, const bf16* B, float* C, int) {
-#pragma unroll
-  for (int n = 0; n < N / 16; ++n) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      // B^T as a column-major operand: element (d, n) at B[n * LD + d]
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr;
-      wmma::load_matrix_sync(bfr, B + n * 16 * LD + kk * 16, LD);
-      wmma::mma_sync(acc, a.f[kk], bfr, acc);
-    }
-    wmma::store_matrix_sync(C + n * 16, acc, LDC, wmma::mem_row_major);
-  }
-}
-
-template <int D, int LD, int N, int LDC>
-__device__ void mm_abt(const Rows16<float, D, LD>& a, const float* B, float* C,
-                       int lane) {
+__device__ void mm_abt(const float* A, const float* B, float* C, int lane) {
   constexpr int NC = N / 32;           // columns lane + 32 * j
   float acc[WROWS][NC];
 #pragma unroll
@@ -179,7 +168,7 @@ __device__ void mm_abt(const Rows16<float, D, LD>& a, const float* B, float* C,
     for (int j = 0; j < NC; ++j) bv[j] = B[(lane + 32 * j) * LD + d];
 #pragma unroll
     for (int r = 0; r < WROWS; ++r) {
-      const float av = a.p[r * LD + d];
+      const float av = A[r * LD + d];
 #pragma unroll
       for (int j = 0; j < NC; ++j) acc[r][j] = fmaf(av, bv[j], acc[r][j]);
     }
@@ -190,26 +179,7 @@ __device__ void mm_abt(const Rows16<float, D, LD>& a, const float* B, float* C,
     for (int j = 0; j < NC; ++j) C[r * LDC + lane + 32 * j] = acc[r][j];
 }
 
-// C[16, D] += A[16, K] . B[K, D]   (C f32, pitch LDC; A pitch LDA; B pitch LDB)
-template <int D, int K, int LDA, int LDB, int LDC>
-__device__ void mm_ab_acc(const bf16* A, const bf16* B, float* C, int) {
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[K / 16];
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) wmma::load_matrix_sync(af[kk], A + kk * 16, LDA);
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::load_matrix_sync(acc, C + n * 16, LDC, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < K / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-      wmma::load_matrix_sync(bfr, B + kk * 16 * LDB + n * 16, LDB);
-      wmma::mma_sync(acc, af[kk], bfr, acc);
-    }
-    wmma::store_matrix_sync(C + n * 16, acc, LDC, wmma::mem_row_major);
-  }
-}
-
+// C[16, D] += A[16, K] . B[K, D]   (C pitch LDC; A pitch LDA; B pitch LDB)
 template <int D, int K, int LDA, int LDB, int LDC>
 __device__ void mm_ab_acc(const float* A, const float* B, float* C, int lane) {
   constexpr int NC = D / 32;           // columns lane + 32 * i
@@ -258,16 +228,13 @@ __device__ void load_rowstats(float* lse_s, float* delta_s, const Params& p,
   }
 }
 
-// ---------------------------------------------------------------------------
 // dq: one block per (batch*head, 64-row query tile)
-// ---------------------------------------------------------------------------
-
 template <typename T, int D>
 struct DqSmem {
-  static constexpr int LD = D + Pad<T>::ROW;   // Q, dO, K, V rows
-  static constexpr int LDS = TILE + 4;         // f32 S and dP
-  static constexpr int LDP = TILE + Pad<T>::P; // dS (operand type)
-  static constexpr int LDO = D + 4;            // f32 dq accumulator
+  static constexpr int LD = D + LDPAD;         // Q, dO, K, V rows
+  static constexpr int LDS = TILE + 4;         // S and dP
+  static constexpr int LDP = TILE + PPAD;      // dS
+  static constexpr int LDO = D + 4;            // dq accumulator
   static constexpr size_t q = 0;
   static constexpr size_t o = align128(q + size_t(TILE) * LD * sizeof(T));
   static constexpr size_t k = align128(o + size_t(TILE) * LD * sizeof(T));
@@ -314,16 +281,15 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
   const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const T* ob = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
 
-  load_rows<T, D, L::LD>(Qs, qb, p.q_st, q0, TILE, T_len, tid);
-  load_rows<T, D, L::LD>(Os, ob, p.o_st, q0, TILE, T_len, tid);
+  load_rows<D, L::LD>(Qs, qb, p.q_st, q0, TILE, T_len, tid);
+  load_rows<D, L::LD>(Os, ob, p.o_st, q0, TILE, T_len, tid);
   load_rowstats(lse_s, delta_s, p, bh_off, q0, TILE, tid);
   for (int i = tid; i < TILE * L::LDO; i += THREADS) Acc[i] = 0.0f;
   __syncthreads();
 
   const int wr0 = warp * WROWS;            // the warp's first row in the tile
-  Rows16<T, D, L::LD> qr, dor;
-  qr.load(Qs + wr0 * L::LD);
-  dor.load(Os + wr0 * L::LD);
+  const T* Q_w = Qs + wr0 * L::LD;
+  const T* O_w = Os + wr0 * L::LD;
   float* S_w = Ss + wr0 * L::LDS;
   float* DP_w = DPs + wr0 * L::LDS;
   T* DS_w = DSs + wr0 * L::LDP;
@@ -335,13 +301,13 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * TILE;
     __syncthreads();   // every warp is done with the previous K/V tile
-    load_rows<T, D, L::LD>(Ks, kb, p.k_st, k0, TILE, T_len, tid);
-    load_rows<T, D, L::LD>(Vs, vb, p.v_st, k0, TILE, T_len, tid);
+    load_rows<D, L::LD>(Ks, kb, p.k_st, k0, TILE, T_len, tid);
+    load_rows<D, L::LD>(Vs, vb, p.v_st, k0, TILE, T_len, tid);
     load_kvalid(kvalid, p.kmask, b, k0, T_len, tid);
     __syncthreads();
 
-    mm_abt<D, L::LD, TILE, L::LDS>(qr, Ks, S_w, lane);    // S  = Q . K^T
-    mm_abt<D, L::LD, TILE, L::LDS>(dor, Vs, DP_w, lane);  // dP = dO . V^T
+    mm_abt<D, L::LD, TILE, L::LDS>(Q_w, Ks, S_w, lane);    // S  = Q . K^T
+    mm_abt<D, L::LD, TILE, L::LDS>(O_w, Vs, DP_w, lane);   // dP = dO . V^T
     __syncwarp();
 
     for (int i = lane; i < WROWS * TILE; i += 32) {
@@ -351,7 +317,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
       const int kpos = k0 + c;
       const bool ok = kvalid[c] > 0.0f && qpos < T_len && (!p.causal || kpos <= qpos);
       const float pr = ok ? expf(S_w[r * L::LDS + c] * p.scale - lse_s[wr0 + r]) : 0.0f;
-      put(DS_w + r * L::LDP + c, pr * (DP_w[r * L::LDS + c] - delta_s[wr0 + r]));
+      DS_w[r * L::LDP + c] = pr * (DP_w[r * L::LDS + c] - delta_s[wr0 + r]);
     }
     __syncwarp();
 
@@ -365,23 +331,19 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
     const int c = i % D;
     const int t = q0 + wr0 + r;
     if (t < T_len) {
-      put(out + (((long long)b * T_len + t) * p.H + h) * D + c,
-          Acc_w[r * L::LDO + c] * p.scale);
+      out[(((long long)b * T_len + t) * p.H + h) * D + c] = Acc_w[r * L::LDO + c] * p.scale;
     }
   }
 }
 
-// ---------------------------------------------------------------------------
 // dk/dv: one block per (batch*head, 64-key tile)
-// ---------------------------------------------------------------------------
-
 template <typename T, int D>
 struct DkvSmem {
-  static constexpr int BQ = DkvQ<T>::N;        // streamed query rows
-  static constexpr int LD = D + Pad<T>::ROW;   // K, V, Q, dO rows
-  static constexpr int LDS = BQ + 4;           // f32 S^T and dP^T
-  static constexpr int LDP = BQ + Pad<T>::P;   // P^T and dS^T (operand type)
-  static constexpr int LDO = D + 4;            // f32 dk and dv accumulators
+  static constexpr int BQ = DKV_BQ;            // streamed query rows
+  static constexpr int LD = D + LDPAD;         // K, V, Q, dO rows
+  static constexpr int LDS = BQ + 4;           // S^T and dP^T
+  static constexpr int LDP = BQ + PPAD;        // P^T and dS^T
+  static constexpr int LDO = D + 4;            // dk and dv accumulators
   static constexpr size_t k = 0;
   static constexpr size_t v = align128(k + size_t(TILE) * LD * sizeof(T));
   static constexpr size_t q = align128(v + size_t(TILE) * LD * sizeof(T));
@@ -433,8 +395,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
   const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const T* ob = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
 
-  load_rows<T, D, L::LD>(Ks, kb, p.k_st, k0, TILE, T_len, tid);
-  load_rows<T, D, L::LD>(Vs, vb, p.v_st, k0, TILE, T_len, tid);
+  load_rows<D, L::LD>(Ks, kb, p.k_st, k0, TILE, T_len, tid);
+  load_rows<D, L::LD>(Vs, vb, p.v_st, k0, TILE, T_len, tid);
   load_kvalid(kvalid, p.kmask, b, k0, T_len, tid);
   for (int i = tid; i < TILE * L::LDO; i += THREADS) {
     dK[i] = 0.0f;
@@ -443,9 +405,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
   __syncthreads();
 
   const int wr0 = warp * WROWS;            // the warp's first key row
-  Rows16<T, D, L::LD> kr, vr;
-  kr.load(Ks + wr0 * L::LD);
-  vr.load(Vs + wr0 * L::LD);
+  const T* K_w = Ks + wr0 * L::LD;
+  const T* V_w = Vs + wr0 * L::LD;
   float* S_w = Ss + wr0 * L::LDS;
   float* DP_w = DPs + wr0 * L::LDS;
   T* P_w = Ps + wr0 * L::LDP;
@@ -460,13 +421,13 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
   for (int qt = qt0; qt < n_qt; ++qt) {
     const int q0 = qt * BQ;
     __syncthreads();   // every warp is done with the previous Q/dO tile
-    load_rows<T, D, L::LD>(Qs, qb, p.q_st, q0, BQ, T_len, tid);
-    load_rows<T, D, L::LD>(Os, ob, p.o_st, q0, BQ, T_len, tid);
+    load_rows<D, L::LD>(Qs, qb, p.q_st, q0, BQ, T_len, tid);
+    load_rows<D, L::LD>(Os, ob, p.o_st, q0, BQ, T_len, tid);
     load_rowstats(lse_s, delta_s, p, bh_off, q0, BQ, tid);
     __syncthreads();
 
-    mm_abt<D, L::LD, BQ, L::LDS>(kr, Qs, S_w, lane);    // S^T  = K . Q^T
-    mm_abt<D, L::LD, BQ, L::LDS>(vr, Os, DP_w, lane);   // dP^T = V . dO^T
+    mm_abt<D, L::LD, BQ, L::LDS>(K_w, Qs, S_w, lane);    // S^T  = K . Q^T
+    mm_abt<D, L::LD, BQ, L::LDS>(V_w, Os, DP_w, lane);   // dP^T = V . dO^T
     __syncwarp();
 
     for (int i = lane; i < WROWS * BQ; i += 32) {
@@ -477,8 +438,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
       const bool ok = kvalid[wr0 + r] > 0.0f && qpos < T_len &&
                       (!p.causal || kpos <= qpos);
       const float pr = ok ? expf(S_w[r * L::LDS + c] * p.scale - lse_s[c]) : 0.0f;
-      put(P_w + r * L::LDP + c, pr);
-      put(DS_w + r * L::LDP + c, pr * (DP_w[r * L::LDS + c] - delta_s[c]));
+      P_w[r * L::LDP + c] = pr;
+      DS_w[r * L::LDP + c] = pr * (DP_w[r * L::LDS + c] - delta_s[c]);
     }
     __syncwarp();
 
@@ -495,9 +456,650 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
     const int t = k0 + wr0 + r;
     if (t < T_len) {
       const long long off = (((long long)b * T_len + t) * p.H + h) * D + c;
-      put(dk_out + off, dK_w[r * L::LDO + c] * p.scale);
-      put(dv_out + off, dV_w[r * L::LDO + c]);
+      dk_out[off] = dK_w[r * L::LDO + c] * p.scale;
+      dv_out[off] = dV_w[r * L::LDO + c];
     }
+  }
+}
+
+// ===========================================================================
+// bf16: wgmma kernels fed by TMA through an mbarrier ring
+// ===========================================================================
+
+constexpr int WG = 128;                       // threads of a warpgroup
+constexpr int CONSUMERS = 2;                  // consumer warpgroups
+constexpr int THREADS90 = (CONSUMERS + 1) * WG;
+constexpr int ROWS = 64;                      // rows of a warpgroup and of a streamed tile
+constexpr int BLOCK_ROWS = CONSUMERS * ROWS;  // the block's own rows
+constexpr int STAGES = 3;                     // slots of the streamed ring
+constexpr float LOG2E = 1.4426950408889634f;
+// registers a thread after setmaxnreg: what the producer gives up, the two
+// consumer warpgroups take (168 a thread at launch from __launch_bounds__)
+constexpr int LAUNCH_REGS = 168;
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+static_assert((LAUNCH_REGS - PRODUCER_REGS) == CONSUMERS * (CONSUMER_REGS - LAUNCH_REGS),
+              "setmaxnreg must balance");
+
+// Shared-memory geometry of one head dim. A tile of R rows x D bf16 is
+// NCB column boxes of R rows, each row SWB bytes (CHUNK elements), in the
+// hardware's SWB-byte swizzle: box (c, rb) holds rows [64 rb, 64 rb + 64) of
+// columns [CHUNK c, CHUNK c + CHUNK) at byte (c * R / 64 + rb) * BOX.
+template <int D> struct Geo {
+  static constexpr int SWB = D >= 64 ? 128 : 64;
+  static constexpr int CHUNK = SWB / 2;
+  static constexpr int NCB = D / CHUNK;
+  static constexpr uint64_t LAYOUT = SWB == 128 ? 1 : 2;   // wgmma descriptor swizzle mode
+  static constexpr int BOX = ROWS * SWB;
+  static constexpr int TILE64 = NCB * BOX;
+  static constexpr int TILE128 = 2 * TILE64;
+  static_assert(D % CHUNK == 0 && (CHUNK == 32 || CHUNK == 64), "D in 32/64/128");
+};
+
+struct Params90 {
+  CUtensorMap q, k, v, o;   // [B, T, H, D] views, boxes of 64 rows
+  const float* lse;
+  const float* delta;
+  const float* kmask;
+  bf16* g0;                 // dq, or dk
+  bf16* g1;                 // dv
+  int B, T, H, causal;
+  float scale;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* b, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(b)) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive_tx(uint64_t* b, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(b)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool bar_try(uint32_t addr, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// Wait until the phase of parity `parity` of barrier `b` has completed.
+__device__ __forceinline__ void bar_wait(uint64_t* b, uint32_t parity) {
+  const uint32_t a = smem_u32(b);
+  while (!bar_try(a, parity)) {
+  }
+}
+
+// One TMA box of a [B, T, H, D] map: columns [d, d + CHUNK), rows [t, t + 64)
+// of (b, h), into shared memory at `dst`, completing on `bar`.
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
+                                        int d, int h, int t, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(d), "r"(h), "r"(t), "r"(b)
+      : "memory");
+}
+
+// Rows [t0, t0 + R) of (b, h) into the R-row tile at `dst`.
+template <int D, int R>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
+                                         int h, int t0, int b) {
+  using G = Geo<D>;
+#pragma unroll
+  for (int c = 0; c < G::NCB; ++c)
+#pragma unroll
+    for (int rb = 0; rb < R / ROWS; ++rb)
+      tma_box(dst + (c * (R / ROWS) + rb) * G::BOX, map, bar, c * G::CHUNK, h,
+              t0 + rb * ROWS, b);
+}
+
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+// K-major operand (rows = M or N, D along K): 64 rows from row r0 of an
+// R-row tile, k-step kk (columns [16 kk, 16 kk + 16)). Inside a swizzle row
+// the k-step moves the start address by 32 bytes; the hardware applies the
+// swizzle to the address it forms, as TMA did when it wrote the box.
+template <int D, int R>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
+  using G = Geo<D>;
+  const int col = kk * 16;
+  const uint32_t a =
+      tile + (col / G::CHUNK) * R * G::SWB + r0 * G::SWB + (col % G::CHUNK) * 2;
+  return make_desc(a, 16, 8 * G::SWB, G::LAYOUT);
+}
+
+// MN-major operand (tile rows along K, D along N): rows [16 kk, 16 kk + 16)
+// of an R-row tile and column box c, one swizzle atom wide (CHUNK columns).
+template <int D, int R>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int c, int kk) {
+  using G = Geo<D>;
+  const uint32_t a = tile + c * R * G::SWB + kk * 16 * G::SWB;
+  return make_desc(a, R * G::SWB, 8 * G::SWB, G::LAYOUT);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accumulator registers across the
+// asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <uint32_t N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <uint32_t N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// The thread's warpgroup, broadcast from lane 0 so that the compiler sees
+// it uniform across the warp: the role branch below must not diverge inside a
+// warp for setmaxnreg to apply.
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / WG, 0);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// D[64, 64] (+)= A[64, 16] . B[64, 16]^T, both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64, 32] (+)= A[64, 16] . B[32, 16]^T, both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64, 64] += A[64, 16] . B[16, 64]: A in registers (bf16 pairs), B MN-major
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D[64, 32] += A[64, 16] . B[16, 32]: A in registers (bf16 pairs), B MN-major
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// S[64, N] = A . B^T over D for one warpgroup (N = 64 or 32): A the 64 rows
+// from ra0 of an RA-row tile, B the N rows from rb0 of a 64-row tile, both
+// K-major.
+template <int D, int RA, int N>
+__device__ __forceinline__ void scores(float (&s)[N / 2], uint32_t a_tile, int ra0,
+                                       uint32_t b_tile, int rb0) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss(s, desc_k<D, RA>(a_tile, ra0, kk), desc_k<D, ROWS>(b_tile, rb0, kk), kk > 0);
+}
+
+// acc[64, D] += A[64, 16 KS] . B[16 KS, D]: A the bf16 fragments of KS
+// k-steps in registers, B rows [16 kk0, 16 (kk0 + KS)) of a 64-row tile read
+// MN-major (its rows along K).
+template <int D, int KS>
+__device__ __forceinline__ void accumulate(float (&acc)[Geo<D>::NCB][Geo<D>::CHUNK / 2],
+                                           const uint32_t (&a)[KS][4], uint32_t b_tile,
+                                           int kk0) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int c = 0; c < Geo<D>::NCB; ++c)
+      wgmma_rs(acc[c], a[kk], desc_mn<D, ROWS>(b_tile, c, kk0 + kk));
+}
+
+// Accumulator layout of m64nN (f32): entry i of thread (warp w, lane l)
+// holds row 16 w + l / 4 + 8 * ((i >> 1) & 1), column 8 * (i >> 2) + 2 * (l % 4)
+// + (i & 1). Entries 8 kk .. 8 kk + 7 as bf16 pairs are the A fragment of
+// k-step kk of the next product.
+__device__ __forceinline__ int frag_col(int i, int lane) {
+  return 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+}
+
+// Store rows of a [64, D] f32 accumulator times `mul` as bf16 into a
+// contiguous [B, T, H, D] tensor, rows at or past T skipped.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[Geo<D>::NCB][Geo<D>::CHUNK / 2],
+                                           float mul, int row0, int lane, int b, int h,
+                                           int T_len, int H) {
+  using G = Geo<D>;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int t = row0 + 8 * j;
+    if (t >= T_len) continue;
+    bf16* rowp = out + (((long long)b * T_len + t) * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < G::NCB; ++c)
+#pragma unroll
+      for (int i = 2 * j; i < G::CHUNK / 2; i += 4) {
+        const int col = c * G::CHUNK + frag_col(i, lane);
+        *reinterpret_cast<uint32_t*>(rowp + col) =
+            pack_bf16(acc[c][i] * mul, acc[c][i + 1] * mul);
+      }
+  }
+}
+
+template <int D>
+struct DqLayout {
+  using G = Geo<D>;
+  static constexpr size_t q = 0;                                 // 128 rows, resident
+  static constexpr size_t o = q + G::TILE128;
+  static constexpr size_t k = o + G::TILE128;                    // STAGES x 64 rows
+  static constexpr size_t v = k + size_t(STAGES) * G::TILE64;
+  static constexpr size_t kv = v + size_t(STAGES) * G::TILE64;   // STAGES x 64 f32
+  static constexpr size_t bars = kv + size_t(STAGES) * ROWS * sizeof(float);
+  static constexpr size_t bytes = bars + (1 + 2 * STAGES) * 8 + 1024;   // + alignment
+};
+
+template <int D>
+struct DkvLayout {
+  using G = Geo<D>;
+  static constexpr size_t k = 0;                                 // 128 rows, resident
+  static constexpr size_t v = k + G::TILE128;
+  static constexpr size_t q = v + G::TILE128;                    // STAGES x 64 rows
+  static constexpr size_t o = q + size_t(STAGES) * G::TILE64;
+  static constexpr size_t lse = o + size_t(STAGES) * G::TILE64;  // STAGES x 64 f32
+  static constexpr size_t delta = lse + size_t(STAGES) * ROWS * sizeof(float);
+  static constexpr size_t bars = delta + size_t(STAGES) * ROWS * sizeof(float);
+  static constexpr size_t bytes = bars + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+// Dynamic shared memory rounded up to the 1024-byte alignment the 128-byte
+// swizzle needs.
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  const uint32_t a = smem_u32(raw);
+  return raw + (((a + 1023u) & ~1023u) - a);
+}
+
+// ---------------------------------------------------------------------------
+// dq: one block per (batch*head, 128 query rows)
+// ---------------------------------------------------------------------------
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS90, 1)
+    flash_bwd_dq_wgmma_kernel(__grid_constant__ const Params90 p) {
+  static_assert(sizeof(T) == 2, "T names the operand type in the symbol; bf16 only");
+  using G = Geo<D>;
+  using L = DqLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* own_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+  float* kval = reinterpret_cast<float*>(smem + L::kv);
+
+  const int T_len = p.T;
+  const int BH = p.B * p.H;
+  const int n_qb = (T_len + BLOCK_ROWS - 1) / BLOCK_ROWS;
+  const int bh = blockIdx.x % BH;
+  const int qb = p.causal ? n_qb - 1 - int(blockIdx.x / BH) : int(blockIdx.x / BH);
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int q0 = qb * BLOCK_ROWS;
+  const int n_k = (T_len + ROWS - 1) / ROWS;
+  const int n_kt = p.causal ? min(n_k, (q0 + BLOCK_ROWS) / ROWS) : n_k;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    bar_init(own_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(&full[s], 32);              // the producer warp's lanes
+      bar_init(&empty[s], CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = warpgroup();
+  const int warp = (tid % WG) / 32;
+  const int lane = tid % 32;
+  if (wg == CONSUMERS) {
+    // producer: Q and dO once, then K, V and key validity per slot
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == 0) {
+      if (lane == 0) {
+        bar_arrive_tx(own_full, 2 * G::TILE128);
+        tma_tile<D, BLOCK_ROWS>(base + L::q, &p.q, own_full, h, q0, b);
+        tma_tile<D, BLOCK_ROWS>(base + L::o, &p.o, own_full, h, q0, b);
+      }
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % STAGES;
+        bar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+        const int k0 = kt * ROWS;
+        for (int i = lane; i < ROWS; i += 32) {
+          const int t = k0 + i;
+          bool ok = t < T_len;
+          if (ok && p.kmask != nullptr) ok = p.kmask[(long long)b * T_len + t] > 0.0f;
+          kval[s * ROWS + i] = ok ? 1.0f : 0.0f;
+        }
+        if (lane == 0) {
+          bar_arrive_tx(&full[s], 2 * G::TILE64);
+          tma_tile<D, ROWS>(base + L::k + s * G::TILE64, &p.k, &full[s], h, k0, b);
+          tma_tile<D, ROWS>(base + L::v + s * G::TILE64, &p.v, &full[s], h, k0, b);
+        } else {
+          bar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wq0 = q0 + wg * ROWS;            // the warpgroup's first query
+    const int row0 = wq0 + warp * 16 + lane / 4;   // the thread's rows: row0, row0 + 8
+    const long long bh_off = (long long)bh * T_len;
+    float lse2[2], dlt[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int t = row0 + 8 * j;
+      lse2[j] = t < T_len ? p.lse[bh_off + t] * LOG2E : 0.0f;
+      dlt[j] = t < T_len ? p.delta[bh_off + t] : 0.0f;
+    }
+    const float sl2 = p.scale * LOG2E;
+    float acc[G::NCB][G::CHUNK / 2];
+#pragma unroll
+    for (int c = 0; c < G::NCB; ++c)
+#pragma unroll
+      for (int i = 0; i < G::CHUNK / 2; ++i) acc[c][i] = 0.0f;
+
+    bar_wait(own_full, 0);
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int s = kt % STAGES;
+      const int k0 = kt * ROWS;
+      const uint32_t kt_tile = base + L::k + s * G::TILE64;
+      bar_wait(&full[s], (kt / STAGES) & 1);
+      // under a causal mask the last key tile of the block lies wholly above
+      // the first warpgroup's rows
+      if (!(p.causal && k0 > wq0 + ROWS - 1)) {
+        float sc[32], dp[32];
+        wg_fence();
+        scores<D, BLOCK_ROWS, ROWS>(sc, base + L::q, wg * ROWS, kt_tile, 0);  // S = Q.K^T
+        wg_commit();
+        scores<D, BLOCK_ROWS, ROWS>(dp, base + L::o, wg * ROWS,
+                                    base + L::v + s * G::TILE64, 0);  // dP = dO.V^T
+        wg_commit();
+        wg_wait<0>();
+        pin(sc);
+        pin(dp);
+        const float* kv = kval + s * ROWS;
+        uint32_t a[4][4];
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int j = (i >> 1) & 1;
+          const int col = frag_col(i, lane);
+          const int t = row0 + 8 * j;
+          float ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = k0 + col + e;
+            const bool ok = kv[col + e] > 0.0f && t < T_len && (!p.causal || key <= t);
+            const float pr = ok ? exp2f(fmaf(sc[i + e], sl2, -lse2[j])) : 0.0f;
+            ds[e] = pr * (dp[i + e] - dlt[j]);
+          }
+          a[i >> 3][(i >> 1) & 3] = pack_bf16(ds[0], ds[1]);
+        }
+        wg_fence();
+        accumulate<D, 4>(acc, a, kt_tile, 0);                          // dQ += dS . K
+        wg_commit();
+        wg_wait<0>();
+#pragma unroll
+        for (int c = 0; c < G::NCB; ++c) pin(acc[c]);
+      }
+      __syncwarp();
+      if (lane == 0) bar_arrive(&empty[s]);
+    }
+    store_rows<D>(p.g0, acc, p.scale, row0, lane, b, h, T_len, p.H);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dk/dv: one block per (batch*head, 128 key rows)
+// ---------------------------------------------------------------------------
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS90, 1)
+    flash_bwd_dkv_wgmma_kernel(__grid_constant__ const Params90 p) {
+  static_assert(sizeof(T) == 2, "T names the operand type in the symbol; bf16 only");
+  using G = Geo<D>;
+  using L = DkvLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* own_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+  float* lse_s = reinterpret_cast<float*>(smem + L::lse);
+  float* dlt_s = reinterpret_cast<float*>(smem + L::delta);
+
+  const int T_len = p.T;
+  const int BH = p.B * p.H;
+  const int bh = blockIdx.x % BH;
+  const int kb = blockIdx.x / BH;   // under a causal mask the first key rows have the most queries
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int k0 = kb * BLOCK_ROWS;
+  const int n_q = (T_len + ROWS - 1) / ROWS;
+  const int qt0 = p.causal ? k0 / ROWS : 0;   // query tiles wholly above k0 see no key here
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    bar_init(own_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(&full[s], 32);
+      bar_init(&empty[s], CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = warpgroup();
+  const int warp = (tid % WG) / 32;
+  const int lane = tid % 32;
+  const long long bh_off = (long long)bh * T_len;
+  if (wg == CONSUMERS) {
+    // producer: K and V once, then Q, dO, lse and delta per slot
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == 0) {
+      if (lane == 0) {
+        bar_arrive_tx(own_full, 2 * G::TILE128);
+        tma_tile<D, BLOCK_ROWS>(base + L::k, &p.k, own_full, h, k0, b);
+        tma_tile<D, BLOCK_ROWS>(base + L::v, &p.v, own_full, h, k0, b);
+      }
+      for (int qt = qt0; qt < n_q; ++qt) {
+        const int it = qt - qt0;
+        const int s = it % STAGES;
+        bar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        const int q0 = qt * ROWS;
+        for (int i = lane; i < ROWS; i += 32) {
+          const int t = q0 + i;
+          const bool in = t < T_len;
+          lse_s[s * ROWS + i] = in ? p.lse[bh_off + t] * LOG2E : 0.0f;
+          dlt_s[s * ROWS + i] = in ? p.delta[bh_off + t] : 0.0f;
+        }
+        if (lane == 0) {
+          bar_arrive_tx(&full[s], 2 * G::TILE64);
+          tma_tile<D, ROWS>(base + L::q + s * G::TILE64, &p.q, &full[s], h, q0, b);
+          tma_tile<D, ROWS>(base + L::o + s * G::TILE64, &p.o, &full[s], h, q0, b);
+        } else {
+          bar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wk0 = k0 + wg * ROWS;                 // the warpgroup's first key
+    const int row0 = wk0 + warp * 16 + lane / 4;    // the thread's keys: row0, row0 + 8
+    bool kok[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int t = row0 + 8 * j;
+      kok[j] = t < T_len && (p.kmask == nullptr || p.kmask[(long long)b * T_len + t] > 0.0f);
+    }
+    const float sl2 = p.scale * LOG2E;
+    float dk[G::NCB][G::CHUNK / 2], dv[G::NCB][G::CHUNK / 2];
+#pragma unroll
+    for (int c = 0; c < G::NCB; ++c)
+#pragma unroll
+      for (int i = 0; i < G::CHUNK / 2; ++i) {
+        dk[c][i] = 0.0f;
+        dv[c][i] = 0.0f;
+      }
+
+    bar_wait(own_full, 0);
+    for (int qt = qt0; qt < n_q; ++qt) {
+      const int it = qt - qt0;
+      const int s = it % STAGES;
+      const int q0 = qt * ROWS;
+      const uint32_t q_tile = base + L::q + s * G::TILE64;
+      const uint32_t o_tile = base + L::o + s * G::TILE64;
+      bar_wait(&full[s], (it / STAGES) & 1);
+      // under a causal mask the first query tile lies wholly above the
+      // second warpgroup's keys
+      if (!(p.causal && q0 + ROWS - 1 < wk0)) {
+        const float* ls = lse_s + s * ROWS;
+        const float* dl = dlt_s + s * ROWS;
+        // two halves of 32 queries, one after the other, so that S^T, dP^T
+        // and the bf16 fragments fit beside the 2 x D/2 accumulator registers
+#pragma unroll 1
+        for (int hf = 0; hf < 2; ++hf) {
+          float sc[16], dp[16];
+          wg_fence();
+          scores<D, BLOCK_ROWS, 32>(sc, base + L::k, wg * ROWS, q_tile, 32 * hf);  // S^T
+          wg_commit();
+          scores<D, BLOCK_ROWS, 32>(dp, base + L::v, wg * ROWS, o_tile, 32 * hf);  // dP^T
+          wg_commit();
+          wg_wait<0>();
+          pin(sc);
+          pin(dp);
+          uint32_t pa[2][4], sa[2][4];
+#pragma unroll
+          for (int i = 0; i < 16; i += 2) {
+            const int j = (i >> 1) & 1;
+            const int col = 32 * hf + frag_col(i, lane);   // query column in the tile
+            const int key = row0 + 8 * j;
+            float pr[2], ds[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int t = q0 + col + e;
+              const bool ok = kok[j] && t < T_len && (!p.causal || key <= t);
+              pr[e] = ok ? exp2f(fmaf(sc[i + e], sl2, -ls[col + e])) : 0.0f;
+              ds[e] = pr[e] * (dp[i + e] - dl[col + e]);
+            }
+            pa[i >> 3][(i >> 1) & 3] = pack_bf16(pr[0], pr[1]);
+            sa[i >> 3][(i >> 1) & 3] = pack_bf16(ds[0], ds[1]);
+          }
+          wg_fence();
+          accumulate<D, 2>(dv, pa, o_tile, 2 * hf);                    // dV += P^T . dO
+          accumulate<D, 2>(dk, sa, q_tile, 2 * hf);                    // dK += dS^T . Q
+          wg_commit();
+        }
+        wg_wait<0>();
+#pragma unroll
+        for (int c = 0; c < G::NCB; ++c) {
+          pin(dv[c]);
+          pin(dk[c]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) bar_arrive(&empty[s]);
+    }
+    store_rows<D>(p.g0, dk, p.scale, row0, lane, b, h, T_len, p.H);
+    store_rows<D>(p.g1, dv, 1.0f, row0, lane, b, h, T_len, p.H);
   }
 }
 
@@ -505,46 +1107,153 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
-int launch_dq(const Params& p, cudaStream_t stream) {
-  using L = DqSmem<T, D>;
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(L::bytes));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((p.T + TILE - 1) / TILE, p.B * p.H);
-  flash_bwd_dq_kernel<T, D><<<grid, THREADS, L::bytes, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+// Negative return codes of the C interface (cudaError_t codes are positive).
+constexpr int ERR_UNSUPPORTED = -1;   // dtype or head dim
+constexpr int ERR_NO_ENCODER = -2;    // cuTensorMapEncodeTiled not found in libcuda
+constexpr int ERR_TENSOR_MAP = -3;    // the driver refused a tensor map
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// The driver's tensor-map encoder, from the libcuda the process has loaded
+// (the library links only the CUDA runtime).
+EncodeTiledFn encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib != nullptr) fn = reinterpret_cast<EncodeTiledFn>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
 }
 
-template <typename T, int D>
-int launch_dkv(const Params& p, cudaStream_t stream) {
-  using L = DkvSmem<T, D>;
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(L::bytes));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((p.T + TILE - 1) / TILE, p.B * p.H);
-  flash_bwd_dkv_kernel<T, D><<<grid, THREADS, L::bytes, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+// A 4-D map over a bf16 [B, T, H, D] view with element strides (sb, st, sh)
+// and a contiguous head dim: boxes of CHUNK columns x 64 rows of one
+// (b, h), swizzled as Geo<D> says; reads past T fill zeros.
+template <int D>
+int encode_map(CUtensorMap* map, const void* ptr, int B, int T, int H, long long sb,
+               long long st, long long sh) {
+  using G = Geo<D>;
+  EncodeTiledFn enc = encoder();
+  if (enc == nullptr) return ERR_NO_ENCODER;
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(H), cuuint64_t(T), cuuint64_t(B)};
+  long long el[4] = {1, sh, st, sb};
+  // a dim of size 1 is never stepped over; give it the packed stride
+  for (int i = 1; i < 4; ++i)
+    if (dims[i] == 1) el[i] = el[i - 1] * (long long)dims[i - 1];
+  const cuuint64_t strides[3] = {cuuint64_t(el[1] * 2), cuuint64_t(el[2] * 2),
+                                 cuuint64_t(el[3] * 2)};
+  const cuuint32_t box[4] = {cuuint32_t(G::CHUNK), 1, cuuint32_t(ROWS), 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                         dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         G::SWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP;
 }
 
-template <typename T>
+template <int D>
+int make_params90(Params90* q, const Params& p) {
+  int rc = encode_map<D>(&q->q, p.q, p.B, p.T, p.H, p.q_sb, p.q_st, p.q_sh);
+  if (rc == 0) rc = encode_map<D>(&q->k, p.k, p.B, p.T, p.H, p.k_sb, p.k_st, p.k_sh);
+  if (rc == 0) rc = encode_map<D>(&q->v, p.v, p.B, p.T, p.H, p.v_sb, p.v_st, p.v_sh);
+  if (rc == 0) rc = encode_map<D>(&q->o, p.dout, p.B, p.T, p.H, p.o_sb, p.o_st, p.o_sh);
+  q->lse = p.lse;
+  q->delta = p.delta;
+  q->kmask = p.kmask;
+  q->B = p.B;
+  q->T = p.T;
+  q->H = p.H;
+  q->causal = p.causal;
+  q->scale = p.scale;
+  return rc;
+}
+
+template <int D>
+struct F32 {
+  static int dq(const Params& p, cudaStream_t stream) {
+    using L = DqSmem<float, D>;
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<float, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(L::bytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid((p.T + TILE - 1) / TILE, p.B * p.H);
+    flash_bwd_dq_kernel<float, D><<<grid, THREADS, L::bytes, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  static int dkv(const Params& p, cudaStream_t stream) {
+    using L = DkvSmem<float, D>;
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_kernel<float, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(L::bytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid((p.T + TILE - 1) / TILE, p.B * p.H);
+    flash_bwd_dkv_kernel<float, D><<<grid, THREADS, L::bytes, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+template <int D>
+struct Bf16 {
+  static int dq(const Params& p, cudaStream_t stream) {
+    using L = DqLayout<D>;
+    Params90 q;
+    int rc = make_params90<D>(&q, p);
+    if (rc != 0) return rc;
+    q.g0 = static_cast<bf16*>(p.dq);
+    q.g1 = nullptr;
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<bf16, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(L::bytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int blocks = (p.T + BLOCK_ROWS - 1) / BLOCK_ROWS * (p.B * p.H);
+    flash_bwd_dq_wgmma_kernel<bf16, D><<<blocks, THREADS90, L::bytes, stream>>>(q);
+    return static_cast<int>(cudaGetLastError());
+  }
+  static int dkv(const Params& p, cudaStream_t stream) {
+    using L = DkvLayout<D>;
+    Params90 q;
+    int rc = make_params90<D>(&q, p);
+    if (rc != 0) return rc;
+    q.g0 = static_cast<bf16*>(p.dk);
+    q.g1 = static_cast<bf16*>(p.dv);
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<bf16, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(L::bytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int blocks = (p.T + BLOCK_ROWS - 1) / BLOCK_ROWS * (p.B * p.H);
+    flash_bwd_dkv_wgmma_kernel<bf16, D><<<blocks, THREADS90, L::bytes, stream>>>(q);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+template <template <int> class K>
 int dispatch(int which, const Params& p, int D, cudaStream_t s) {
   switch (D) {
-    case 32: return which == 0 ? launch_dq<T, 32>(p, s) : launch_dkv<T, 32>(p, s);
-    case 64: return which == 0 ? launch_dq<T, 64>(p, s) : launch_dkv<T, 64>(p, s);
-    case 128: return which == 0 ? launch_dq<T, 128>(p, s) : launch_dkv<T, 128>(p, s);
+    case 32: return which == 0 ? K<32>::dq(p, s) : K<32>::dkv(p, s);
+    case 64: return which == 0 ? K<64>::dq(p, s) : K<64>::dkv(p, s);
+    case 128: return which == 0 ? K<128>::dq(p, s) : K<128>::dkv(p, s);
+    default: return ERR_UNSUPPORTED;
+  }
+}
+
+long long smem_f32(int which, int D) {
+  switch (D) {
+    case 32: return which == 0 ? DqSmem<float, 32>::bytes : DkvSmem<float, 32>::bytes;
+    case 64: return which == 0 ? DqSmem<float, 64>::bytes : DkvSmem<float, 64>::bytes;
+    case 128: return which == 0 ? DqSmem<float, 128>::bytes : DkvSmem<float, 128>::bytes;
     default: return -1;
   }
 }
 
-template <typename T>
-long long smem_d(int which, int D) {
+long long smem_bf16(int which, int D) {
   switch (D) {
-    case 32: return which == 0 ? DqSmem<T, 32>::bytes : DkvSmem<T, 32>::bytes;
-    case 64: return which == 0 ? DqSmem<T, 64>::bytes : DkvSmem<T, 64>::bytes;
-    case 128: return which == 0 ? DqSmem<T, 128>::bytes : DkvSmem<T, 128>::bytes;
+    case 32: return which == 0 ? DqLayout<32>::bytes : DkvLayout<32>::bytes;
+    case 64: return which == 0 ? DqLayout<64>::bytes : DkvLayout<64>::bytes;
+    case 128: return which == 0 ? DqLayout<128>::bytes : DkvLayout<128>::bytes;
     default: return -1;
   }
 }
@@ -578,9 +1287,9 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
 
 int run(int which, Params& p, int D, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(which, p, D, s);
-  if (dtype == 1) return dispatch<bf16>(which, p, D, s);
-  return -1;
+  if (dtype == 0) return dispatch<F32>(which, p, D, s);
+  if (dtype == 1) return dispatch<Bf16>(which, p, D, s);
+  return ERR_UNSUPPORTED;
 }
 
 }  // namespace
@@ -589,7 +1298,8 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. `strides` holds 12 element strides: the
 // B, T, H strides of q, k, v and dout, in that order. Returns 0 on a clean
-// launch, -1 for an unsupported dtype/D, else the cudaError_t code.
+// launch, a negative code of our own (flash_bwd_error_string) or the
+// cudaError_t code.
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                  const float* lse, const float* delta, const float* kmask,
                  void* dq, int B, int T, int H, int D, int dtype, int causal,
@@ -614,13 +1324,18 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
 // Dynamic shared memory one block of kernel `which` (0 = dq, 1 = dk/dv)
 // takes, or -1 when unsupported.
 long long flash_bwd_smem_bytes(int which, int dtype, int D) {
-  if (dtype == 0) return smem_d<float>(which, D);
-  if (dtype == 1) return smem_d<bf16>(which, D);
+  if (dtype == 0) return smem_f32(which, D);
+  if (dtype == 1) return smem_bf16(which, D);
   return -1;
 }
 
 const char* flash_bwd_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  switch (code) {
+    case ERR_UNSUPPORTED: return "unsupported dtype/head dim";
+    case ERR_NO_ENCODER: return "cuTensorMapEncodeTiled not found in libcuda.so.1";
+    case ERR_TENSOR_MAP: return "cuTensorMapEncodeTiled refused a [B, T, H, D] view";
+    default: return cudaGetErrorString(static_cast<cudaError_t>(code));
+  }
 }
 
 }  // extern "C"

@@ -208,9 +208,8 @@ def _launch_bwd(fn, q, k, v, do, lse, delta, km, outs, causal):
             B, T, H, D, _DTYPE_CODES[q.dtype], int(bool(causal)),
             1.0 / math.sqrt(D), strides, stream)
     if rc != 0:
-        msg = ("unsupported dtype/head dim" if rc < 0
-               else lib.flash_bwd_error_string(rc).decode())
-        raise RuntimeError(f"{fn} launch failed ({rc}): {msg}")
+        raise RuntimeError(f"{fn} launch failed ({rc}): "
+                           f"{lib.flash_bwd_error_string(rc).decode()}")
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, kmask=None, causal=False):

@@ -160,6 +160,66 @@ def test_bwd_kernels_match_plain_version(cuda, D, dtype, causal, masked):
             _close_per_tile(a, b, 1e-2)
 
 
+def _bwd_matches(got, want, dtype):
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        _close_rel(a, b, 2e-2)
+        _close_per_tile(a, b, 1e-2)
+
+
+def test_bwd_fused_qkv_views_bf16(cuda):
+    # q/k/v are the split views of one [B, T, 3H, D] projection (row stride
+    # 3*H*D), as the attention layer passes them: read in place, no copy
+    B, T, H, D = 2, 384, 4, 128
+    q, k, v, out, lse, do, km = _bwd_case(cuda, B, T, H, D, torch.bfloat16, True,
+                                          False, 11)
+    assert q.stride(1) == 3 * H * D and not q.is_contiguous()
+    got = fa.flash_bwd_cuda(q, k, v, out, lse, do, km, True)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, km, True)
+    _bwd_matches(got, want, torch.bfloat16)
+    # the same values as contiguous tensors give the same gradients
+    again = fa.flash_bwd_cuda(*(x.contiguous() for x in (q, k, v)), out, lse, do, km, True)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("T", [1, 65, 129])
+def test_bwd_ragged_lengths_bf16(cuda, T, D):
+    # T past 64- and 128-row tiles: rows at or past T arrive as zeros and
+    # are masked; T = 1 leaves one key, where dq and dk are exactly 0 and
+    # both versions return f32 rounding noise (held to the exact 0)
+    q, k, v, out, lse, do, km = _bwd_case(cuda, 2, T, 3, D, torch.bfloat16, True,
+                                          False, 12 + T)
+    got = fa.flash_bwd_cuda(q, k, v, out, lse, do, km, True)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, km, True)
+    if T == 1:
+        assert got[0].float().abs().max().item() <= 1e-5
+        assert got[1].float().abs().max().item() <= 1e-5
+        got, want = got[2:], want[2:]
+    _bwd_matches(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_repeats_bit_for_bit(cuda, dtype):
+    # no atomics: every gradient row is summed by one block in one order
+    q, k, v, out, lse, do, km = _bwd_case(cuda, 2, 300, 3, 64, dtype, True, True, 13)
+    first = fa.flash_bwd_cuda(q, k, v, out, lse, do, km, True)
+    second = fa.flash_bwd_cuda(q, k, v, out, lse, do, km, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bwd_one_batch_head_bf16(cuda, causal):
+    # B*H = 1: one (batch, head) slice, a grid of one block per row tile
+    q, k, v, out, lse, do, km = _bwd_case(cuda, 1, 200, 1, 128, torch.bfloat16, causal,
+                                          True, 14)
+    got = fa.flash_bwd_cuda(q, k, v, out, lse, do, km, causal)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, km, causal)
+    _bwd_matches(got, want, torch.bfloat16)
+
+
 def test_bwd_rows_without_valid_keys_get_zero_grads(cuda):
     B, T, H, D = 2, 96, 2, 64
     q, k, v = _qkv(cuda, B, T, H, D, torch.float32, strided=False, seed=7)
