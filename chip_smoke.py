@@ -11,20 +11,25 @@ non-zero (and without a result line when no CUDA device is present):
 1. device  — card name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 is switched off for matmuls and cuDNN.
 2. build   — nvcc builds csrc/flash_fwd.cu, flash_bwd.cu, fused_lstm_fwd.cu
-   and fused_lstm_bwd.cu for sm_90a from the checkout, all at once;
-   registers, shared memory and spills per kernel instantiation, and the
-   HGMMA (wgmma) count of each backward kernel from cuobjdump -sass. The
-   bf16 backward kernels must show HGMMA and no spills.
+   and fused_lstm_bwd.cu (with the shared csrc/sm90_common.cuh) for sm_90a
+   from the checkout, all at once; registers, shared memory and spills per
+   kernel instantiation, and the HGMMA (wgmma) count of each flash kernel
+   from cuobjdump -sass. The bf16 wgmma kernels (forward, dq, dk/dv) must
+   show HGMMA and no spills.
 3. kernel  — each kernel against its plain PyTorch version on the card:
    the forward kernel and the backward pair (dq; dk/dv) at the flagship
    shape (B=16, T=2048, H=16, D=128, bf16, causal, fused-qkv strided
    views) and edge shapes (T=1000, variable-length key masks, non-causal,
-   D in 32/64/128, f32, query rows with no valid key; for the backward
-   also T in 1/65/129, B*H = 1 and contiguous q/k/v), each backward run
-   twice and held bit for bit. Then timings at the flagship shape with
-   CUDA events: each kernel, the whole backward (delta and kernels #2/#3),
-   the plain versions, and torch's scaled_dot_product_attention forward
-   and backward as a yardstick only.
+   D in 32/64/128, f32, query rows with no valid key, T in 1/65/129
+   (forward also 200), B*H = 1 and contiguous q/k/v). Every forward case
+   runs twice and is held bit for bit, with every output and lse entry
+   finite (rows without a valid key included); the forward's ragged cases
+   give the same bits from fused-qkv views and from contiguous tensors;
+   each backward case runs twice and is held bit for bit. Then timings
+   with CUDA events: the forward at the flagship shape and at the 4 x 128
+   HTTP bucket, each backward kernel and the whole backward (delta and
+   kernels #2/#3) at the flagship shape, the plain versions, and torch's
+   scaled_dot_product_attention forward and backward as a yardstick only.
 4. small   — a tiny TransformerLM through the port on the CPU (plain
    versions) and on the GPU (the kernels) with the same weights: the
    output, then 3 SGD steps (loss per step, final params, 2 launches of
@@ -197,8 +202,8 @@ def _ptxas_report_lstm(log: str, kernel: str, smem_bytes) -> list:
     return out
 
 
-_BWD_KERNELS = ("(flash_bwd_dq_wgmma_kernel|flash_bwd_dkv_wgmma_kernel|"
-                "flash_bwd_dq_kernel|flash_bwd_dkv_kernel)")
+_FLASH_KERNELS = ("(flash_fwd_wgmma_kernel|flash_fwd_kernel|flash_bwd_dq_wgmma_kernel|"
+                  "flash_bwd_dkv_wgmma_kernel|flash_bwd_dq_kernel|flash_bwd_dkv_kernel)")
 
 
 def _cuobjdump() -> str:
@@ -218,7 +223,7 @@ def _hgmma_counts(lib: Path) -> dict:
                           text=True, check=True).stdout
     counts, key = {}, None
     for line in sass.splitlines():
-        m = re.search(r"Function : \S*?" + _BWD_KERNELS + r"I\w*?Li(\d+)E", line)
+        m = re.search(r"Function : \S*?" + _FLASH_KERNELS + r"I\w*?Li(\d+)E", line)
         if m:
             key = (m.group(1), int(m.group(2)))
             counts[key] = 0
@@ -248,24 +253,26 @@ def build_report() -> dict:
     if errors:
         raise errors[0]
     fwd, bwd = fa._kernel_lib(), fa._bwd_kernel_lib()
-    kernels = _ptxas_report(_build.BUILD_LOG.get("flash_fwd", ""), "flash_fwd_kernel",
-                            fwd.flash_fwd_smem_bytes)
-    # backward: the wgmma kernels (bf16) and the FMA kernels (f32)
+    # each flash kernel: the wgmma kernel (bf16) and the FMA kernel (f32)
+    fwd_log = _build.BUILD_LOG.get("flash_fwd", "")
+    kernels = []
+    for kernel in ("flash_fwd_wgmma_kernel", "flash_fwd_kernel"):
+        kernels += _ptxas_report(fwd_log, kernel, fwd.flash_fwd_smem_bytes)
     bwd_log = _build.BUILD_LOG.get("flash_bwd", "")
     for which, name in enumerate(("flash_bwd_dq", "flash_bwd_dkv")):
         for kernel in (name + "_wgmma_kernel", name + "_kernel"):
             kernels += _ptxas_report(bwd_log, kernel,
                                      lambda dt, D, w=which: bwd.flash_bwd_smem_bytes(w, dt, D))
-    hgmma = _hgmma_counts(_build.build("flash_bwd"))
+    hgmma = {**_hgmma_counts(_build.build("flash_fwd")),
+             **_hgmma_counts(_build.build("flash_bwd"))}
     for k in kernels:
-        if k["kernel"].startswith("flash_bwd"):
-            k["hgmma"] = hgmma.get((k["kernel"], k["D"]), 0)
+        k["hgmma"] = hgmma.get((k["kernel"], k["D"]), 0)
     wgmma = [k for k in kernels if "_wgmma_" in k["kernel"]]
-    check(len(wgmma) == 6 and all(k["dtype"] == "bfloat16" for k in wgmma),
-          f"expected the 6 bf16 wgmma backward instantiations, parsed {wgmma}")
-    check(all(k["hgmma"] > 0 for k in wgmma), f"a bf16 backward kernel has no HGMMA: {wgmma}")
+    check(len(wgmma) == 9 and all(k["dtype"] == "bfloat16" for k in wgmma),
+          f"expected the 9 bf16 wgmma instantiations (forward, dq, dk/dv), parsed {wgmma}")
+    check(all(k["hgmma"] > 0 for k in wgmma), f"a bf16 flash kernel has no HGMMA: {wgmma}")
     check(all(k["spill_stores"] == 0 and k["spill_loads"] == 0 for k in wgmma),
-          f"a bf16 backward kernel spills: {wgmma}")
+          f"a bf16 flash kernel spills: {wgmma}")
     lf, lb = fl._fwd_kernel_lib(), fl._bwd_kernel_lib()
     H = LSTM_SHAPE["H"]
     kernels += _ptxas_report_lstm(_build.BUILD_LOG.get("fused_lstm_fwd", ""),
@@ -275,9 +282,9 @@ def build_report() -> dict:
                                   "fused_lstm_bwd_kernel",
                                   lambda dt: lb.fused_lstm_bwd_smem_bytes(dt, H))
     seconds = time.perf_counter() - t0
-    check(len(kernels) == 22, f"expected 22 kernel instantiations (6 for the forward, 3 per "
-                              f"backward kernel and dtype, 2 per LSTM kernel) in the ptxas "
-                              f"reports, parsed {len(kernels)}")
+    check(len(kernels) == 22, f"expected 22 kernel instantiations (3 per flash kernel and "
+                              f"dtype, 2 per LSTM kernel) in the ptxas reports, parsed "
+                              f"{len(kernels)}")
     groups = {f"B={B}": lb.fused_lstm_bwd_groups(B, H, 0) for B in (1, 32, 128)}
     return {"phase": "build", "seconds": round(seconds, 3), "kernels": kernels,
             "lstm_bwd_batch_groups_H256_f32": groups}
@@ -299,26 +306,64 @@ def varlen_mask(B, T, seed):
     return (torch.arange(T, device="cuda")[None, :] < lens[:, None]).float()
 
 
+def key_mask(kind, B, T, seed):
+    """None, "varlen" (random lengths >= 1) or "leading" (the first 37 keys
+    of batch 0 masked: under a causal mask its first 37 queries have no
+    valid key at all)."""
+    if kind is None:
+        return None
+    if kind == "varlen":
+        return varlen_mask(B, T, seed)
+    km = torch.ones(B, T, device="cuda")
+    km[0, :37] = 0.0
+    return km
+
+
+def rows_with_a_key(km, B, T, causal):
+    """[B, T] 1.0 where a query row sees at least one valid key."""
+    if km is None:
+        return torch.ones(B, T, device="cuda")
+    valid = km > 0
+    if causal:
+        return valid.cummax(dim=1).values.float()
+    return valid.any(dim=1, keepdim=True).expand(B, T).float()
+
+
 def compare(case: dict) -> dict:
+    """Kernel #1 against flash_attention_reference on the rows that see a
+    valid key (the others are unspecified, as from the TPU kernel, but must
+    be finite); a second run must equal the first bit for bit, and with
+    ``same_as_contiguous`` so must a run on contiguous copies of the
+    fused-qkv views."""
     B, T, H, D = case["B"], case["T"], case["H"], case["D"]
-    dtype = case["dtype"]
+    dtype, causal = case["dtype"], case["causal"]
     q, k, v = make_qkv(B, T, H, D, dtype, case["seed"])
-    km = varlen_mask(B, T, case["seed"]) if case["kmask"] else None
-    out, lse = fa.flash_fwd_cuda(q, k, v, kmask=km, causal=case["causal"])
+    km = key_mask(case["kmask"], B, T, case["seed"])
+    out, lse = fa.flash_fwd_cuda(q, k, v, kmask=km, causal=causal)
+    out2, lse2 = fa.flash_fwd_cuda(q, k, v, kmask=km, causal=causal)
     torch.cuda.synchronize()
-    ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=case["causal"],
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal,
                                                 kmask=km, with_lse=True)
-    # rows with no valid key are unspecified (as from the TPU kernel)
-    w = torch.ones(B, T, device="cuda") if km is None else km
+    w = rows_with_a_key(km, B, T, causal)
     diff = (out.float() - ref.float()).abs()
     err = (diff * w[:, :, None, None]).max().item()
     lse_err = ((lse - ref_lse).abs() * w[:, None, :]).max().item()
     tol = TOL[dtype]
     worst = (diff - tol["rtol"] * ref.float().abs()) * w[:, :, None, None]
-    ok = worst.max().item() <= tol["atol"] and lse_err <= LSE_ATOL
     res = {"B": B, "T": T, "H": H, "D": D, "dtype": str(dtype).split(".")[-1],
-           "causal": case["causal"], "kmask": case["kmask"],
-           "max_abs_err": err, "lse_max_abs_err": lse_err, "tol": tol, "ok": ok}
+           "causal": causal, "kmask": case["kmask"],
+           "rows_without_a_key": int((w == 0).sum().item()),
+           "max_abs_err": err, "lse_max_abs_err": lse_err, "tol": tol,
+           "finite": bool(torch.isfinite(out.float()).all() and torch.isfinite(lse).all()),
+           "repeat_bit_identical": torch.equal(out, out2) and torch.equal(lse, lse2)}
+    ok = (worst.max().item() <= tol["atol"] and lse_err <= LSE_ATOL and res["finite"]
+          and res["repeat_bit_identical"])
+    if case.get("same_as_contiguous"):
+        out3, lse3 = fa.flash_fwd_cuda(*(x.contiguous() for x in (q, k, v)), kmask=km,
+                                       causal=causal)
+        res["contiguous_bit_identical"] = torch.equal(out, out3) and torch.equal(lse, lse3)
+        ok &= res["contiguous_bit_identical"]
+    res["ok"] = ok
     check(ok, f"kernel disagrees with its plain version: {res}")
     return res
 
@@ -390,13 +435,7 @@ def compare_bwd(case: dict) -> dict:
     q, k, v = make_qkv(B, T, H, D, dtype, case["seed"])
     if case.get("layout") == "separate":
         q, k, v = (x.contiguous() for x in (q, k, v))
-    km = None
-    if case["kmask"] == "varlen":
-        km = varlen_mask(B, T, case["seed"])
-    elif case["kmask"] == "leading":
-        # causal: the first queries of batch 0 have no valid key at all
-        km = torch.ones(B, T, device="cuda")
-        km[0, :37] = 0.0
+    km = key_mask(case["kmask"], B, T, case["seed"])
     out, lse = fa.flash_fwd_cuda(q, k, v, kmask=km, causal=causal)
     g = torch.Generator(device="cuda").manual_seed(case["seed"] + 100)
     do = torch.randn(B, T, H, D, generator=g, device="cuda").to(dtype)
@@ -442,18 +481,28 @@ def compare_bwd(case: dict) -> dict:
 
 def kernel_phase() -> dict:
     fl = FLAGSHIP
-    cases = [dict(fl, dtype=torch.bfloat16, causal=True, kmask=False, seed=0)]
+    bf16 = torch.bfloat16
+    cases = [dict(fl, dtype=bf16, causal=True, kmask=None, seed=0)]
     cases += [
         # the HTTP requests' bucket: 4 rows of 128 tokens
-        dict(B=4, T=128, H=16, D=128, dtype=torch.bfloat16, causal=True, kmask=False, seed=9),
-        dict(B=2, T=1000, H=4, D=128, dtype=torch.bfloat16, causal=True, kmask=False, seed=1),
-        dict(B=3, T=700, H=4, D=64, dtype=torch.bfloat16, causal=False, kmask=True, seed=2),
-        dict(B=3, T=700, H=4, D=64, dtype=torch.bfloat16, causal=True, kmask=True, seed=3),
-        dict(B=2, T=2048, H=2, D=128, dtype=torch.bfloat16, causal=False, kmask=False, seed=4),
-        dict(B=2, T=333, H=3, D=32, dtype=torch.bfloat16, causal=True, kmask=True, seed=5),
+        dict(B=4, T=128, H=16, D=128, dtype=bf16, causal=True, kmask=None, seed=9),
+        dict(B=2, T=1000, H=4, D=128, dtype=bf16, causal=True, kmask=None, seed=1),
+        dict(B=3, T=700, H=4, D=64, dtype=bf16, causal=False, kmask="varlen", seed=2),
+        dict(B=3, T=700, H=4, D=64, dtype=bf16, causal=True, kmask="varlen", seed=3),
+        dict(B=2, T=2048, H=2, D=128, dtype=bf16, causal=False, kmask=None, seed=4),
+        dict(B=2, T=333, H=3, D=32, dtype=bf16, causal=True, kmask="varlen", seed=5),
     ]
     cases += [dict(B=2, T=257, H=3, D=D, dtype=torch.float32, causal=c, kmask=m, seed=6 + D)
-              for D in (32, 64, 128) for c, m in ((True, False), (False, True))]
+              for D in (32, 64, 128) for c, m in ((True, None), (False, "varlen"))]
+    # the wgmma kernel's tiling: 128 query rows and 128-key tiles over ragged
+    # T, one (batch, head), fused-qkv views against contiguous copies
+    cases += [dict(B=1, T=T, H=1, D=D, dtype=bf16, causal=c, kmask=None,
+                   seed=60 + T + D + int(c), same_as_contiguous=True)
+              for T in (1, 65, 129, 200) for D in (32, 64, 128) for c in (False, True)]
+    # rows without a valid key: finite, and the other rows still right
+    cases += [dict(B=2, T=300, H=2, D=D, dtype=dt, causal=c, kmask="leading", seed=70 + D)
+              for D, dt, c in ((64, bf16, True), (128, bf16, True), (32, bf16, True),
+                               (128, bf16, False), (128, torch.float32, True))]
     results = [compare(c) for c in cases]
 
     B, T, H, D = fl["B"], fl["T"], fl["H"], fl["D"]
@@ -471,8 +520,18 @@ def kernel_phase() -> dict:
               "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
               "bytes": nbytes, "achieved_tflops": flops / kernel_ms / 1e9,
               "roofline_share": bound_ms / kernel_ms}
+    # the 4 x 128 bucket of the HTTP requests
+    hq, hk, hv = make_qkv(4, 128, H, D, bf16, 9)
+    http_ms = time_cuda(lambda: fa.flash_fwd_cuda(hq, hk, hv, causal=True), iters=50)
+    hqt, hkt, hvt = (x.transpose(1, 2).contiguous() for x in (hq, hk, hv))
+    http_lib_ms = time_cuda(lambda: torch.nn.functional.scaled_dot_product_attention(
+        hqt, hkt, hvt, is_causal=True), iters=50)
+    h_bound, h_by, h_flops, _ = attention_bound(4, 128, H, D, True, 2, PEAK_BF16_FLOPS)
+    timing["http_bucket"] = {"shape": [4, 128, H, D], "kernel_ms": http_ms,
+                             "library_ms": http_lib_ms, "bound_ms": h_bound, "bound_by": h_by,
+                             "achieved_tflops": h_flops / http_ms / 1e9,
+                             "roofline_share": h_bound / http_ms}
 
-    bf16 = torch.bfloat16
     bwd_cases = [dict(fl, dtype=bf16, causal=True, kmask=None, seed=20)]
     bwd_cases += [
         dict(B=2, T=1000, H=4, D=128, dtype=bf16, causal=True, kmask=None, seed=21),
@@ -1350,7 +1409,8 @@ def main() -> int:
         {"serve": srv["launches"], "train": tl["flash_fwd"]},
         fwd_cases[0]["max_abs_err"], t["kernel_ms"], t["plain_ms"], t["bound_ms"],
         t["bound_by"], t["library_ms"],
-        max_err=max(c["max_abs_err"] for c in fwd_cases))]
+        max_err=max(c["max_abs_err"] for c in fwd_cases),
+        roofline_share=t["roofline_share"], http_bucket_4x128=t["http_bucket"])]
     for name, key, line, errs in (("flash_bwd_dq", "dq", 224, ("dq",)),
                                   ("flash_bwd_dkv", "dkv", 275, ("dk", "dv"))):
         bk = bt[key]

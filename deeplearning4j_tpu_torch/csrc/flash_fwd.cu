@@ -6,79 +6,85 @@
 // attention with a causal mask, a length mask (keys past T) and an optional
 // per-batch key mask [B, T] shared by the H heads of a batch. It writes
 // `out` [B, T, H, D] in the input dtype and the per-row logsumexp
-// `lse` [B, H, T] in f32.
+// `lse` [B, H, T] in f32 (natural log).
 //
-// Design (what differs from the TPU kernel, and why):
-// - One thread block per (batch*head, 64-row query tile); four warps, each
-//   owning 16 query rows. The TPU kernel copies the whole [T, D] K and V
-//   into VMEM per program; at T=2048, D=128 bf16 that is 1 MB, far above
-//   the 227 KB of shared memory a block may use, so here K/V stream through
-//   shared memory one 64-key tile at a time.
-// - q, k and v are read in their [B, T, H, D] layout through row strides
-//   (the fused qkv projection's split views need no copy), and the ragged
-//   edge past T is masked in the kernel; the TPU wrapper instead padded and
-//   transposed to [B*H, t_pad, D].
-// - The running max m, normaliser l and the output accumulator stay in f32
-//   (m and l in registers of the lane pair that owns a row, the accumulator
-//   in shared memory). Tiles strictly above the causal diagonal are skipped.
-// - bf16 operands go through the tensor cores with nvcuda::wmma 16x16x16
-//   (f32 accumulate); f32 operands use plain FMAs so that f32 keeps f32
-//   accuracy (TF32 would not).
+// Rules both dtypes keep:
+// - q, k and v are read in their [B, T, H, D] layout through their strides
+//   (the fused qkv projection's split views need no copy), and keys at or
+//   past T are masked in the kernel; the TPU wrapper instead padded and
+//   transposed to [B*H, t_pad, D]. The TPU kernel holds the whole [T, D] K
+//   and V per program (1 MB at T=2048, D=128 bf16); a Hopper block has 227
+//   KB of shared memory, so K/V stream through it tile by tile.
+// - Scores, the running max m, the normaliser l and the output accumulator
+//   are f32. Masked scores take the finite NEG_BIG (-1e30), never -inf, as
+//   on the TPU (flash_attention.py:103): a query row with no valid key stays
+//   finite and its lse stays near -1e30 (the backward kernels mask such rows
+//   by validity, flash_bwd.cu). p is rounded to the operand type before
+//   p . v (flash_attention.py:108). Key tiles strictly above the causal
+//   diagonal are skipped.
+//
+// bf16: flash_fwd_wgmma_kernel, FlashAttention-3's forward shape without its
+// intra-warpgroup overlap. Each block is three warpgroups: two consumer
+// warpgroups of 64 query rows each (128 rows a block) and one producer
+// warpgroup whose first warp starts the copies (sm90_common.cuh holds the
+// pieces it shares with the backward kernels).
+// - The block's 128 Q rows are loaded once by TMA. K and V stream in tiles
+//   of BKW = 128 keys through a ring of STAGES = 3 slots, with a "full" and
+//   an "empty" mbarrier per slot; one 4-D tensor map per operand over its
+//   strided [B, T, H, D] view, boxes of 64 rows x 128 bytes (64 at D=32) in
+//   the swizzled layout wgmma reads; rows at or past T arrive as zeros. The
+//   producer warp's lanes write each slot's key validity (T and the key
+//   mask) and a flag that says whether any key of the slot is invalid.
+// - S = Q.K^T is wgmma m64n128k16 with both operands K-major in shared
+//   memory and an f32 accumulator in registers (64 a thread). The online
+//   softmax runs on that fragment in registers: the row max by quad
+//   shuffles, scale * log2(e) folded into one FFMA before ex2.approx, the row sum
+//   kept per thread until the end. P rounded to bf16 is, pair for pair, the
+//   register A operand of O += P.V (wgmma RS, V the MN-major B operand), and
+//   O (D/2 f32 a thread) stays in registers for the whole key loop; it is
+//   rescaled by alpha after the previous P.V has retired. No shared memory
+//   holds S, P or O.
+// - Only the tiles that cross the causal diagonal, T or a masked key pay for
+//   the validity test.
+// - Epilogue: O / l rounded to bf16; the four lanes of a quad transpose
+//   their 32-bit pairs by shuffles so that each lane writes 8 consecutive
+//   columns with one 16-byte store (rows at or past T skipped); lse =
+//   (m2 + log2 l) * ln 2 with m2 the row max in log2 units.
+// - Blocks are numbered head group by head group (HEAD_GROUP (batch, head)
+//   pairs a group), so that the ~132 blocks in flight share the K/V of a few
+//   heads in L2 (numbered head-fastest, each would stream its own head's
+//   K/V from device memory: 2.3 GB of tile loads at the flagship shape);
+//   inside a group, under a causal mask, the query blocks with the most key
+//   tiles start first and the short ones fill the tail.
+// Key tiles of 128 halve the softmax passes and barrier round trips of
+// 64-key tiles, and the 128-wide S product reads Q once per 128 keys.
+// Budget per instantiation: 168 registers a thread at launch
+// (__launch_bounds__(384, 1)), then 232 a consumer and 40 a producer thread
+// (S 64 + O D/2 + P 32 f32 registers a consumer thread at D=128). Dynamic
+// shared memory (FwdLayout; flash_fwd_smem_bytes reports it): Q 128 rows +
+// 3 x (K + V) 128-key tiles + validity + barriers + 1024 B of alignment,
+//   D=32 / 64 / 128: 59,976 / 117,320 / 232,008 B,
+// so one block of 12 warps per SM (232,448 B is the opt-in limit).
+// Not here yet: overlapping S_{j+1} with the softmax of tile j inside a
+// warpgroup, ping-pong of the two consumer warpgroups on named barriers, a
+// persistent grid, FP8.
+//
+// f32 keeps the first version's design: one block of four warps per 64-row
+// query tile, 64-key K/V tiles loaded synchronously into padded shared
+// memory, plain FMAs so that f32 keeps f32 accuracy (TF32 would not), the
+// accumulator in shared memory.
 //
 // Bound at the flagship shape (B=16, H=16, T=2048, D=128, causal, bf16):
 // the two products take 2 * 2 * B*H*T*T*D / 2 ~= 275 GFLOP and the kernel
 // must move q, k, v and out once (4 * 134 MB) plus lse, ~0.54 GB. On an
 // H100 SXM that is 0.28 ms at 989 TFLOP/s against 0.16 ms at 3.35 TB/s:
-// the kernel is bound by operations. This first version keeps the
-// accumulator in shared memory and issues wmma from four warps without
-// asynchronous copies, so it runs well below that bound; wgmma and TMA are
-// the later steps.
+// the kernel is bound by operations.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "sm90_common.cuh"
 
 namespace {
 
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
-
-constexpr int BQ = 64;               // query rows per block
-constexpr int BK = 64;               // keys per streamed K/V tile
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int WROWS = BQ / WARPS;    // query rows per warp (16)
 constexpr float NEG_BIG = -1e30f;    // the TPU kernel's masked-score value
-
-static_assert(BQ == BK, "the causal tile count assumes square tiles");
-static_assert(WROWS == 16, "a warp's rows are one wmma fragment tall");
-
-constexpr size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
-
-// Row padding (in elements) that keeps shared-memory rows off one bank and,
-// for bf16, keeps every wmma tile pointer 32-byte aligned.
-template <typename T> struct Pad;
-template <> struct Pad<float> { static constexpr int ROW = 1, P = 4; };
-template <> struct Pad<bf16> { static constexpr int ROW = 8, P = 8; };
-
-template <typename T, int D>
-struct Smem {
-  static constexpr int LD = D + Pad<T>::ROW;   // Q, K, V rows
-  static constexpr int LDS = BK + 4;           // f32 scores
-  static constexpr int LDP = BK + Pad<T>::P;   // probabilities (operand type)
-  static constexpr int LDO = D + 4;            // f32 output accumulator
-  static constexpr size_t q = 0;
-  static constexpr size_t k = align128(q + size_t(BQ) * LD * sizeof(T));
-  static constexpr size_t v = align128(k + size_t(BK) * LD * sizeof(T));
-  static constexpr size_t s = align128(v + size_t(BK) * LD * sizeof(T));
-  static constexpr size_t p = align128(s + size_t(BQ) * LDS * sizeof(float));
-  static constexpr size_t o = align128(p + size_t(BQ) * LDP * sizeof(T));
-  static constexpr size_t kv = align128(o + size_t(BQ) * LDO * sizeof(float));
-  static constexpr size_t alpha = align128(kv + size_t(BK) * sizeof(float));
-  static constexpr size_t l = align128(alpha + size_t(BQ) * sizeof(float));
-  static constexpr size_t bytes = align128(l + size_t(BQ) * sizeof(float));
-};
 
 struct Params {
   const void* q;
@@ -95,78 +101,64 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ void put(float* d, float x) { *d = x; }
-__device__ __forceinline__ void put(bf16* d, float x) { *d = __float2bfloat16(x); }
+// ===========================================================================
+// f32: FMA kernel, one block of four warps per 64-row query tile
+// ===========================================================================
 
-__device__ __forceinline__ void store16(bf16* dst, uint4 v) {
-  *reinterpret_cast<uint4*>(dst) = v;
-}
-__device__ __forceinline__ void store16(float* dst, uint4 v) {
-  const float* f = reinterpret_cast<const float*>(&v);
-  dst[0] = f[0];
-  dst[1] = f[1];
-  dst[2] = f[2];
-  dst[3] = f[3];
-}
+constexpr int BQ = 64;               // query rows per block
+constexpr int BK = 64;               // keys per streamed K/V tile
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int WROWS = BQ / WARPS;    // query rows per warp (16)
+
+static_assert(BQ == BK, "the causal tile count assumes square tiles");
+
+template <int D>
+struct Smem {
+  static constexpr int LD = D + 1;             // Q, K, V rows: off one bank
+  static constexpr int LDS = BK + 4;           // scores
+  static constexpr int LDP = BK + 4;           // probabilities
+  static constexpr int LDO = D + 4;            // output accumulator
+  static constexpr size_t q = 0;
+  static constexpr size_t k = align128(q + size_t(BQ) * LD * sizeof(float));
+  static constexpr size_t v = align128(k + size_t(BK) * LD * sizeof(float));
+  static constexpr size_t s = align128(v + size_t(BK) * LD * sizeof(float));
+  static constexpr size_t p = align128(s + size_t(BQ) * LDS * sizeof(float));
+  static constexpr size_t o = align128(p + size_t(BQ) * LDP * sizeof(float));
+  static constexpr size_t kv = align128(o + size_t(BQ) * LDO * sizeof(float));
+  static constexpr size_t alpha = align128(kv + size_t(BK) * sizeof(float));
+  static constexpr size_t l = align128(alpha + size_t(BQ) * sizeof(float));
+  static constexpr size_t bytes = align128(l + size_t(BQ) * sizeof(float));
+};
 
 // Copy rows [r0, r0 + 64) of one (batch, head) slice into shared memory in
 // 16-byte chunks; rows at or past T are zero-filled so masked keys never
 // multiply garbage.
-template <typename T, int D>
-__device__ void load_rows(T* dst, const T* base, long long stride_t, int r0,
+template <int D>
+__device__ void load_rows(float* dst, const float* base, long long stride_t, int r0,
                           int T_len, int tid) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CPR = D / VEC;
-  constexpr int LD = Smem<T, D>::LD;
+  constexpr int CPR = D / 4;
+  constexpr int LD = Smem<D>::LD;
   for (int i = tid; i < 64 * CPR; i += THREADS) {
     const int r = i / CPR;
-    const int c = (i % CPR) * VEC;
+    const int c = (i % CPR) * 4;
     const int t = r0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (t < T_len) {
-      val = *reinterpret_cast<const uint4*>(base + (long long)t * stride_t + c);
+      val = *reinterpret_cast<const float4*>(base + (long long)t * stride_t + c);
     }
-    store16(dst + r * LD + c, val);
+    float* d = dst + r * LD + c;
+    d[0] = val.x;
+    d[1] = val.y;
+    d[2] = val.z;
+    d[3] = val.w;
   }
 }
 
-// The warp's Q rows as wmma operands, loaded once per block (bf16 only).
-template <typename T, int D> struct QRegs {
-  __device__ void load(const T*) {}
-};
-template <int D> struct QRegs<bf16, D> {
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> f[D / 16];
-  __device__ void load(const bf16* q_warp) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wmma::load_matrix_sync(f[kk], q_warp + kk * 16, Smem<bf16, D>::LD);
-  }
-};
-
-// S[warp rows, 0:BK] = Q[warp rows] . K[tile]^T   (unscaled, f32)
+// S[warp rows, 0:BK] = Q[warp rows] . K[tile]^T   (unscaled)
 template <int D>
-__device__ void scores(const QRegs<bf16, D>& qr, const bf16*, const bf16* Ks,
-                       float* S_warp, int) {
-  using L = Smem<bf16, D>;
-#pragma unroll
-  for (int n = 0; n < BK / 16; ++n) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      // K^T as a column-major B operand: element (d, key) at Ks[key*LD + d]
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-      wmma::load_matrix_sync(kf, Ks + n * 16 * L::LD + kk * 16, L::LD);
-      wmma::mma_sync(acc, qr.f[kk], kf, acc);
-    }
-    wmma::store_matrix_sync(S_warp + n * 16, acc, L::LDS, wmma::mem_row_major);
-  }
-}
-
-template <int D>
-__device__ void scores(const QRegs<float, D>&, const float* Q_warp,
-                       const float* Ks, float* S_warp, int lane) {
-  using L = Smem<float, D>;
+__device__ void scores(const float* Q_warp, const float* Ks, float* S_warp, int lane) {
+  using L = Smem<D>;
   float a0[WROWS], a1[WROWS];
 #pragma unroll
   for (int r = 0; r < WROWS; ++r) a0[r] = a1[r] = 0.0f;
@@ -191,30 +183,8 @@ __device__ void scores(const QRegs<float, D>&, const float* Q_warp,
 
 // O[warp rows] += P[warp rows, 0:BK] . V[tile]
 template <int D>
-__device__ void accumulate(const bf16* P_warp, const bf16* Vs, float* O_warp, int) {
-  using L = Smem<bf16, D>;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf[BK / 16];
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-    wmma::load_matrix_sync(pf[kk], P_warp + kk * 16, L::LDP);
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::load_matrix_sync(acc, O_warp + n * 16, L::LDO, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-      wmma::load_matrix_sync(vf, Vs + kk * 16 * L::LD + n * 16, L::LD);
-      wmma::mma_sync(acc, pf[kk], vf, acc);
-    }
-    wmma::store_matrix_sync(O_warp + n * 16, acc, L::LDO, wmma::mem_row_major);
-  }
-}
-
-template <int D>
-__device__ void accumulate(const float* P_warp, const float* Vs, float* O_warp,
-                           int lane) {
-  using L = Smem<float, D>;
+__device__ void accumulate(const float* P_warp, const float* Vs, float* O_warp, int lane) {
+  using L = Smem<D>;
   constexpr int NC = D / 32;                    // columns lane + 32 * i
   float acc[WROWS][NC];
 #pragma unroll
@@ -241,13 +211,14 @@ __device__ void accumulate(const float* P_warp, const float* Vs, float* O_warp,
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
-  using L = Smem<T, D>;
+  static_assert(sizeof(T) == 4, "T names the operand type in the symbol; f32 only");
+  using L = Smem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + L::q);
-  T* Ks = reinterpret_cast<T*>(smem + L::k);
-  T* Vs = reinterpret_cast<T*>(smem + L::v);
+  float* Qs = reinterpret_cast<float*>(smem + L::q);
+  float* Ks = reinterpret_cast<float*>(smem + L::k);
+  float* Vs = reinterpret_cast<float*>(smem + L::v);
   float* Ss = reinterpret_cast<float*>(smem + L::s);
-  T* Ps = reinterpret_cast<T*>(smem + L::p);
+  float* Ps = reinterpret_cast<float*>(smem + L::p);
   float* Os = reinterpret_cast<float*>(smem + L::o);
   float* kvalid = reinterpret_cast<float*>(smem + L::kv);
   float* alpha_s = reinterpret_cast<float*>(smem + L::alpha);
@@ -263,20 +234,18 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
   const int q0 = qt * BQ;
   const int T_len = p.T;
 
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
 
-  load_rows<T, D>(Qs, qb, p.q_st, q0, T_len, tid);
+  load_rows<D>(Qs, qb, p.q_st, q0, T_len, tid);
   for (int i = tid; i < BQ * L::LDO; i += THREADS) Os[i] = 0.0f;
   __syncthreads();
 
-  const T* Q_warp = Qs + warp * WROWS * L::LD;
+  const float* Q_warp = Qs + warp * WROWS * L::LD;
   float* S_warp = Ss + warp * WROWS * L::LDS;
-  T* P_warp = Ps + warp * WROWS * L::LDP;
+  float* P_warp = Ps + warp * WROWS * L::LDP;
   float* O_warp = Os + warp * WROWS * L::LDO;
-  QRegs<T, D> qr;
-  qr.load(Q_warp);
 
   // the lane pair (2r, 2r+1) owns warp row r; each lane half of its columns
   const int r = lane >> 1;
@@ -292,8 +261,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();   // every warp is done with the previous K/V tile
-    load_rows<T, D>(Ks, kb, p.k_st, k0, T_len, tid);
-    load_rows<T, D>(Vs, vb, p.v_st, k0, T_len, tid);
+    load_rows<D>(Ks, kb, p.k_st, k0, T_len, tid);
+    load_rows<D>(Vs, vb, p.v_st, k0, T_len, tid);
     for (int i = tid; i < BK; i += THREADS) {
       const int t = k0 + i;
       bool ok = t < T_len;
@@ -302,7 +271,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
     }
     __syncthreads();
 
-    scores<D>(qr, Q_warp, Ks, S_warp, lane);
+    scores<D>(Q_warp, Ks, S_warp, lane);
     __syncwarp();
 
     // online softmax over this tile (f32), as in the TPU kernel: masked
@@ -322,12 +291,12 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     const float m_new = fmaxf(m_run, mx);
     float sum = 0.0f;
-    T* prow = P_warp + r * L::LDP + half * 32;
+    float* prow = P_warp + r * L::LDP + half * 32;
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const float e = expf(sv[j] - m_new);
       sum += e;
-      put(prow + j, e);
+      prow[j] = e;
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     const float alpha = expf(m_run - m_new);
@@ -353,49 +322,353 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
     }
   }
   __syncwarp();
-  T* ob = static_cast<T*>(p.o);
+  float* ob = static_cast<float*>(p.o);
   for (int i = lane; i < WROWS * D; i += 32) {
     const int rr = i / D;
     const int c = i % D;
     const int rw = warp * WROWS + rr;
     const int t = q0 + rw;
     if (t < T_len) {
-      const float val = O_warp[rr * L::LDO + c] / fmaxf(l_s[rw], 1e-30f);
-      put(ob + (((long long)b * T_len + t) * p.H + h) * D + c, val);
+      ob[(((long long)b * T_len + t) * p.H + h) * D + c] =
+          O_warp[rr * L::LDO + c] / fmaxf(l_s[rw], 1e-30f);
     }
   }
 }
 
+// ===========================================================================
+// bf16: wgmma kernel fed by TMA through an mbarrier ring
+// ===========================================================================
+
+constexpr int BKW = 128;                        // keys of a streamed K/V tile
+// (batch, head) pairs whose blocks are numbered together: their K and V (1
+// MB a pair at T=2048, D=128 bf16) stay in L2 while their blocks run
+constexpr int HEAD_GROUP = 8;
+constexpr float NEG_BIG2 = NEG_BIG * LOG2E;     // NEG_BIG in the log2 units of the softmax
+constexpr float LN2 = 0.6931471805599453f;
+
+struct Params90 {
+  CUtensorMap q, k, v;   // [B, T, H, D] views, boxes of 64 rows
+  const float* kmask;
+  bf16* o;               // [B, T, H, D] contiguous
+  float* lse;            // [B, H, T] contiguous
+  int B, T, H, causal;
+  float scale;
+};
+
+template <int D>
+struct FwdLayout {
+  using G = Geo<D>;
+  static constexpr int TILE = (BKW / ROWS) * G::TILE64;           // one K or V tile
+  static constexpr size_t q = 0;                                  // 128 rows, resident
+  static constexpr size_t k = q + G::TILE128;                     // STAGES x BKW rows
+  static constexpr size_t v = k + size_t(STAGES) * TILE;
+  static constexpr size_t kv = v + size_t(STAGES) * TILE;         // STAGES x BKW f32
+  static constexpr size_t flag = kv + size_t(STAGES) * BKW * sizeof(float);   // STAGES int
+  static constexpr size_t bars = flag + 16;
+  static constexpr size_t bytes = bars + (1 + 2 * STAGES) * 8 + 1024;   // + alignment
+  static_assert(STAGES * sizeof(int) <= 16, "slot flags overrun the barriers");
+  static_assert(bytes <= 232448, "over the 227 KB a block may use");
+};
+
+// 2^x on the MUFU.EX2 unit alone (ex2.approx.ftz: ~2 ulp, results below
+// 2^-126 flush to 0); exp2f wraps it in range handling for subnormal
+// results, three more instructions an element of the softmax.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A 4x4 transpose of 32-bit words inside a quad of lanes, by shuffles: lane
+// q holds in[r] = M[q][r] and gets back M[0..3][q]. In round i, lane s sends
+// in[(s - i) & 3] and lane q takes it from lane (q + i) & 3.
+__device__ __forceinline__ uint4 quad_transpose(const uint32_t (&in)[4], int lane) {
+  const int q = lane & 3;
+  uint32_t out[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int send = (q - i) & 3;
+    uint32_t v = in[0];
+#pragma unroll
+    for (int r = 1; r < 4; ++r) v = send == r ? in[r] : v;
+    const int src = (q + i) & 3;
+    const uint32_t got = __shfl_sync(0xffffffffu, v, src, 4);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) out[r] = src == r ? got : out[r];
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+// Rows row0 and row0 + 8 of a [64, D] f32 accumulator times inv_l[j] as
+// bf16 into a contiguous [B, T, H, D] tensor, rows at or past T skipped.
+// Entry 4 n + 2 j + e of a column box holds column 8 n + 2 (lane % 4) + e of
+// row j, so a quad holds 8-column group n of a row as one word a lane; the
+// quad transposes its words of groups 4 m .. 4 m + 3 so that lane q writes
+// group 4 m + q, 8 columns, with one 16-byte store.
+template <int D>
+__device__ __forceinline__ void store_out(bf16* out,
+                                          const float (&o)[Geo<D>::NCB][Geo<D>::CHUNK / 2],
+                                          const float (&inv_l)[2], int row0, int lane, int b,
+                                          int h, int T_len, int H) {
+  using G = Geo<D>;
+  constexpr int GROUPS = G::CHUNK / 8;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int t = row0 + 8 * j;
+#pragma unroll
+    for (int c = 0; c < G::NCB; ++c)
+#pragma unroll
+      for (int m = 0; m < GROUPS / 4; ++m) {
+        uint32_t w[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 4 * (4 * m + r) + 2 * j;
+          w[r] = pack_bf16(o[c][i] * inv_l[j], o[c][i + 1] * inv_l[j]);
+        }
+        const uint4 v = quad_transpose(w, lane);   // every lane: the shuffles need the quad
+        if (t < T_len) {
+          bf16* dst = out + (((long long)b * T_len + t) * H + h) * D + c * G::CHUNK + 32 * m +
+                      8 * (lane & 3);
+          *reinterpret_cast<uint4*>(dst) = v;
+        }
+      }
+  }
+}
+
+// The (batch*head, 128-row query block) of block i: groups of HEAD_GROUP
+// (batch, head) pairs one after the other, inside a group the query block
+// outermost (under a causal mask the last, longest, first).
+__device__ __forceinline__ void block_coords(int i, int BH, int n_qb, int causal, int& bh,
+                                             int& qb) {
+  const int group = i / (HEAD_GROUP * n_qb);
+  const int bh0 = group * HEAD_GROUP;
+  const int size = min(HEAD_GROUP, BH - bh0);   // the last group may be short
+  const int r = i - bh0 * n_qb;
+  bh = bh0 + r % size;
+  qb = causal ? n_qb - 1 - r / size : r / size;
+}
+
+// One block per (batch*head, 128 query rows)
 template <typename T, int D>
-int launch(const Params& p, cudaStream_t stream) {
-  using L = Smem<T, D>;
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+__global__ void __launch_bounds__(THREADS90, 1)
+    flash_fwd_wgmma_kernel(__grid_constant__ const Params90 p) {
+  static_assert(sizeof(T) == 2, "T names the operand type in the symbol; bf16 only");
+  using G = Geo<D>;
+  using L = FwdLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+  float* kval = reinterpret_cast<float*>(smem + L::kv);
+  int* kflag = reinterpret_cast<int*>(smem + L::flag);
+
+  const int T_len = p.T;
+  const int BH = p.B * p.H;
+  const int n_qb = (T_len + BLOCK_ROWS - 1) / BLOCK_ROWS;
+  int bh, qb;
+  block_coords(blockIdx.x, BH, n_qb, p.causal, bh, qb);
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int q0 = qb * BLOCK_ROWS;
+  const int n_k = (T_len + BKW - 1) / BKW;
+  // under a causal mask the block's last query, q0 + 127, ends its key tiles
+  const int n_kt = p.causal ? min(n_k, (q0 + BLOCK_ROWS - 1) / BKW + 1) : n_k;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    bar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(&full[s], 32);              // the producer warp's lanes
+      bar_init(&empty[s], CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = warpgroup();
+  const int warp = (tid % WG) / 32;
+  const int lane = tid % 32;
+  if (wg == CONSUMERS) {
+    // producer: Q once, then K, V, key validity and the slot's flag per slot
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == 0) {
+      if (lane == 0) {
+        bar_arrive_tx(q_full, G::TILE128);
+        tma_tile<D, BLOCK_ROWS>(base + L::q, &p.q, q_full, h, q0, b);
+      }
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % STAGES;
+        bar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+        const int k0 = kt * BKW;
+        bool all_ok = true;
+        for (int i = lane; i < BKW; i += 32) {
+          const int t = k0 + i;
+          bool ok = t < T_len;
+          if (ok && p.kmask != nullptr) ok = p.kmask[(long long)b * T_len + t] > 0.0f;
+          kval[s * BKW + i] = ok ? 1.0f : 0.0f;
+          all_ok = all_ok && ok;
+        }
+        const int any_masked = !__all_sync(0xffffffffu, all_ok);
+        if (lane == 0) {
+          kflag[s] = any_masked;
+          bar_arrive_tx(&full[s], 2 * L::TILE);
+          tma_tile<D, BKW>(base + L::k + s * L::TILE, &p.k, &full[s], h, k0, b);
+          tma_tile<D, BKW>(base + L::v + s * L::TILE, &p.v, &full[s], h, k0, b);
+        } else {
+          bar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wq0 = q0 + wg * ROWS;                // the warpgroup's first query
+    const int row0 = wq0 + warp * 16 + lane / 4;   // the thread's rows: row0, row0 + 8
+    const float sl2 = p.scale * LOG2E;
+    float o[G::NCB][G::CHUNK / 2];
+#pragma unroll
+    for (int c = 0; c < G::NCB; ++c)
+#pragma unroll
+      for (int i = 0; i < G::CHUNK / 2; ++i) o[c][i] = 0.0f;
+    float m2[2] = {NEG_BIG2, NEG_BIG2};   // running row max, log2 units
+    float l[2] = {0.0f, 0.0f};            // the thread's share of the row sum
+
+    bar_wait(q_full, 0);
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int s = kt % STAGES;
+      const int k0 = kt * BKW;
+      const uint32_t k_tile = base + L::k + s * L::TILE;
+      bar_wait(&full[s], (kt / STAGES) & 1);
+      // under a causal mask a key tile may lie wholly above this warpgroup's rows
+      if (!(p.causal && k0 > wq0 + ROWS - 1)) {
+        float sc[BKW / 2];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)                              // S = Q.K^T
+          wgmma_ss(sc, desc_k<D, BLOCK_ROWS>(base + L::q, wg * ROWS, kk),
+                   desc_k<D, BKW>(k_tile, 0, kk), kk > 0);
+        wg_commit();
+        wg_wait<0>();
+        pin(sc);
+        // x = s * scale * log2(e), or NEG_BIG2 where the pair is masked; only
+        // a tile that crosses the diagonal, T or a masked key tests validity
+        float mul = sl2;
+        if (kflag[s] || (p.causal && k0 + BKW - 1 > wq0)) {
+          const float* kv = kval + s * BKW;
+#pragma unroll
+          for (int i = 0; i < BKW / 2; ++i) {
+            const int col = frag_col(i, lane);
+            const int t = row0 + 8 * ((i >> 1) & 1);
+            const bool ok = kv[col] > 0.0f && (!p.causal || k0 + col <= t);
+            sc[i] = ok ? sc[i] * sl2 : NEG_BIG2;
+          }
+          mul = 1.0f;
+        }
+        float alpha[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float mx = sc[2 * j];
+#pragma unroll
+          for (int i = 0; i < BKW / 2; i += 4) mx = fmaxf(mx, fmaxf(sc[i + 2 * j], sc[i + 2 * j + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(m2[j], mx * mul);
+          alpha[j] = exp2_approx(m2[j] - m_new);
+          m2[j] = m_new;
+        }
+        float rs[2] = {0.0f, 0.0f};
+        uint32_t a[BKW / 16][4];
+#pragma unroll
+        for (int i = 0; i < BKW / 2; i += 2) {
+          const int j = (i >> 1) & 1;
+          const float p0 = exp2_approx(fmaf(sc[i], mul, -m2[j]));
+          const float p1 = exp2_approx(fmaf(sc[i + 1], mul, -m2[j]));
+          rs[j] += p0 + p1;
+          a[i >> 3][(i >> 1) & 3] = pack_bf16(p0, p1);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) l[j] = l[j] * alpha[j] + rs[j];
+#pragma unroll
+        for (int c = 0; c < G::NCB; ++c)
+#pragma unroll
+          for (int i = 0; i < G::CHUNK / 2; ++i) o[c][i] *= alpha[(i >> 1) & 1];
+        wg_fence();
+        accumulate<D, BKW / 16, BKW>(o, a, base + L::v + s * L::TILE, 0);   // O += P.V
+        wg_commit();
+        wg_wait<0>();
+#pragma unroll
+        for (int c = 0; c < G::NCB; ++c) pin(o[c]);
+      }
+      __syncwarp();
+      if (lane == 0) bar_arrive(&empty[s]);
+    }
+
+    float inv_l[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      l[j] += __shfl_xor_sync(0xffffffffu, l[j], 1);
+      l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
+      const float lc = fmaxf(l[j], 1e-30f);
+      inv_l[j] = 1.0f / lc;
+      const int t = row0 + 8 * j;
+      if ((lane & 3) == 0 && t < T_len) p.lse[(long long)bh * T_len + t] = (m2[j] + log2f(lc)) * LN2;
+    }
+    store_out<D>(p.o, o, inv_l, row0, lane, b, h, T_len, p.H);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+template <int D>
+int launch_f32(const Params& p, cudaStream_t stream) {
+  using L = Smem<D>;
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<float, D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(L::bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((p.T + BQ - 1) / BQ, p.B * p.H);
-  flash_fwd_kernel<T, D><<<grid, THREADS, L::bytes, stream>>>(p);
+  flash_fwd_kernel<float, D><<<grid, THREADS, L::bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_d(const Params& p, int D, cudaStream_t stream) {
-  switch (D) {
-    case 32: return launch<T, 32>(p, stream);
-    case 64: return launch<T, 64>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
-    default: return -1;
-  }
+template <int D>
+int launch_bf16(const Params& p, cudaStream_t stream) {
+  using L = FwdLayout<D>;
+  Params90 q;
+  int rc = encode_map<D>(&q.q, p.q, p.B, p.T, p.H, p.q_sb, p.q_st, p.q_sh);
+  if (rc == 0) rc = encode_map<D>(&q.k, p.k, p.B, p.T, p.H, p.k_sb, p.k_st, p.k_sh);
+  if (rc == 0) rc = encode_map<D>(&q.v, p.v, p.B, p.T, p.H, p.v_sb, p.v_st, p.v_sh);
+  if (rc != 0) return rc;
+  q.kmask = p.kmask;
+  q.o = static_cast<bf16*>(p.o);
+  q.lse = p.lse;
+  q.B = p.B;
+  q.T = p.T;
+  q.H = p.H;
+  q.causal = p.causal;
+  q.scale = p.scale;
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<bf16, D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(L::bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = (p.T + BLOCK_ROWS - 1) / BLOCK_ROWS * (p.B * p.H);
+  flash_fwd_wgmma_kernel<bf16, D><<<blocks, THREADS90, L::bytes, stream>>>(q);
+  return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-long long smem_d(int D) {
-  switch (D) {
-    case 32: return Smem<T, 32>::bytes;
-    case 64: return Smem<T, 64>::bytes;
-    case 128: return Smem<T, 128>::bytes;
-    default: return -1;
-  }
+template <int D>
+int launch(const Params& p, int dtype, cudaStream_t stream) {
+  return dtype == 0 ? launch_f32<D>(p, stream) : launch_bf16<D>(p, stream);
+}
+
+template <int D>
+long long smem_bytes(int dtype) {
+  return dtype == 0 ? static_cast<long long>(Smem<D>::bytes)
+                    : static_cast<long long>(FwdLayout<D>::bytes);
 }
 
 }  // namespace
@@ -403,7 +676,8 @@ long long smem_d(int D) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Returns 0 on a
-// clean launch, -1 for an unsupported dtype/D, else the cudaError_t code.
+// clean launch, a negative code of our own (flash_fwd_error_string) or the
+// cudaError_t code.
 int flash_fwd(const void* q, const void* k, const void* v, const float* kmask,
               void* out, float* lse, int B, int T, int H, int D, int dtype,
               int causal, float scale, long long q_sb, long long q_st,
@@ -425,20 +699,33 @@ int flash_fwd(const void* q, const void* k, const void* v, const float* kmask,
   p.causal = causal;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<float>(p, D, s);
-  if (dtype == 1) return dispatch_d<bf16>(p, D, s);
-  return -1;
+  if (dtype != 0 && dtype != 1) return ERR_UNSUPPORTED;
+  switch (D) {
+    case 32: return launch<32>(p, dtype, s);
+    case 64: return launch<64>(p, dtype, s);
+    case 128: return launch<128>(p, dtype, s);
+    default: return ERR_UNSUPPORTED;
+  }
 }
 
 // Dynamic shared memory one block takes, or -1 when unsupported.
 long long flash_fwd_smem_bytes(int dtype, int D) {
-  if (dtype == 0) return smem_d<float>(D);
-  if (dtype == 1) return smem_d<bf16>(D);
-  return -1;
+  if (dtype != 0 && dtype != 1) return -1;
+  switch (D) {
+    case 32: return smem_bytes<32>(dtype);
+    case 64: return smem_bytes<64>(dtype);
+    case 128: return smem_bytes<128>(dtype);
+    default: return -1;
+  }
 }
 
 const char* flash_fwd_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  switch (code) {
+    case ERR_UNSUPPORTED: return "unsupported dtype/head dim";
+    case ERR_NO_ENCODER: return "cuTensorMapEncodeTiled not found in libcuda.so.1";
+    case ERR_TENSOR_MAP: return "cuTensorMapEncodeTiled refused a [B, T, H, D] view";
+    default: return cudaGetErrorString(static_cast<cudaError_t>(code));
+  }
 }
 
 }  // extern "C"

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source compiles with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, loaded
 with :mod:`ctypes`. The build happens at first use, never at import, into
-``build/`` at the repository root (git-ignored), under a name keyed by the
-source's hash, so an edited source rebuilds and an unchanged one loads the
+``build/`` at the repository root (git-ignored), under a name keyed by
+:func:`source_digest` (the source and every shared ``csrc/*.cuh`` header),
+so an edited source or header rebuilds and an unchanged one loads the
 library already there. ``nvcc -Xptxas -v`` reports each kernel's registers,
 shared memory and spills; :func:`load` keeps that report in
 :data:`BUILD_LOG` and echoes it to stderr.
@@ -22,9 +23,9 @@ import subprocess
 import sys
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
-__all__ = ["BUILD_LOG", "build", "load", "nvcc_path"]
+__all__ = ["BUILD_LOG", "build", "load", "nvcc_path", "source_digest"]
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_DIR / "csrc"
@@ -50,11 +51,25 @@ def nvcc_path() -> str:
         "deeplearning4j_tpu_torch are built from source on the GPU host")
 
 
+def source_digest(name: str, source_dir: Optional[Path] = None) -> str:
+    """Hash of what a build of ``<name>.cu`` reads from ``source_dir``
+    (default ``csrc/``): the source and every ``*.cuh`` header there, sorted
+    by name (12 hex digits of sha256 over each file's name, length and
+    bytes)."""
+    source_dir = SOURCE_DIR if source_dir is None else source_dir
+    h = hashlib.sha256()
+    for path in [source_dir / f"{name}.cu", *sorted(source_dir.glob("*.cuh"))]:
+        data = path.read_bytes()
+        h.update(f"{path.name}\0{len(data)}\0".encode())
+        h.update(data)
+    return h.hexdigest()[:12]
+
+
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` (if its hashed library is not built yet)
-    and return the library path."""
+    """Compile ``csrc/<name>.cu`` (if its library for the current
+    :func:`source_digest` is not built yet) and return the library path."""
     src = SOURCE_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    digest = source_digest(name)
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     log = out.with_suffix(".log")
     if out.exists():

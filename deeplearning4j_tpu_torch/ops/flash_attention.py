@@ -29,10 +29,11 @@ the plain version, a CUDA tensor goes to the kernel or raises.
   scores in the operand dtype (the JAX package's
   ``parallel/ring.py local_attention``).
 
-Query rows whose keys are all masked get an unspecified forward value
-from the kernel, as from the TPU kernel; callers compare only valid rows.
-Their gradients are exactly 0 in both backward versions: p is masked by
-validity, never through the scores.
+Query rows whose keys are all masked get an unspecified but finite
+forward value from the kernel, as from the TPU kernel (masked scores are
+-1e30, never -inf), and an lse near -1e30; callers compare only rows with
+a valid key. Their gradients are exactly 0 in both backward versions: p is
+masked by validity, never through the scores.
 """
 
 from __future__ import annotations
@@ -140,14 +141,16 @@ def _check_operands(q, k, v, kmask, who="flash_fwd", **extra):
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    kmask: Optional[torch.Tensor] = None,
                    causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/flash_fwd.cu`` on PyTorch's current stream.
+    """Launch kernel #1 (``csrc/flash_fwd.cu``: the wgmma/TMA kernel for
+    bf16, the FMA kernel for f32) on PyTorch's current stream.
 
     q/k/v [B, T, H, D] CUDA tensors (bf16 or f32, D in 32/64/128, head dim
     contiguous; other strides are read as they are, so the fused-qkv split
     views need no copy); ``kmask`` [B, T] key validity (>0 = real key).
     Returns ``(out [B, T, H, D] in q's dtype, lse [B, H, T] f32)``. Raises
-    on anything the kernel does not take and on a failed launch. Each launch
-    adds one to ``flash_fwd_cuda.launches``."""
+    on anything the kernel does not take, on a tensor map libcuda
+    refuses and on a failed launch. Each launch adds one to
+    ``flash_fwd_cuda.launches``."""
     _check_operands(q, k, v, kmask)
     B, T, H, D = q.shape
     lib = _kernel_lib()
@@ -166,9 +169,8 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             1.0 / math.sqrt(D),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream)
     if rc != 0:
-        msg = ("unsupported dtype/head dim" if rc < 0
-               else lib.flash_fwd_error_string(rc).decode())
-        raise RuntimeError(f"flash_fwd launch failed ({rc}): {msg}")
+        raise RuntimeError(f"flash_fwd launch failed ({rc}): "
+                           f"{lib.flash_fwd_error_string(rc).decode()}")
     flash_fwd_cuda.launches += 1
     return out, lse
 

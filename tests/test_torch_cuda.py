@@ -1,9 +1,10 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on the
-GPU: flash attention (forward; backward dq and dk/dv) with a tiny
-TransformerLM served and trained through them, and the fused LSTM (forward
-#4, backward #5) with a tiny TextGenerationLSTM trained and sampled through
-them. Every test needs an NVIDIA
-card (marker ``cuda``) and skips without one; on a GPU host run
+GPU: flash attention (forward #1, its bf16 wgmma kernel at ragged T, B*H =
+1, on fused-qkv views, repeated and with rows without a valid key; backward
+#2 dq and #3 dk/dv) with a tiny TransformerLM served and trained through
+them, and the fused LSTM (forward #4, backward #5) with a tiny
+TextGenerationLSTM trained and sampled through them. Every test needs an
+NVIDIA card (marker ``cuda``) and skips without one; on a GPU host run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -105,6 +106,80 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         with pytest.raises(ValueError):
             fa.flash_fwd_cuda(*args, **kw)
     assert fa.flash_fwd_cuda.launches == before
+
+
+# -- kernel #1's bf16 wgmma kernel: 128-row query blocks, 128-key tiles ------
+
+def _fwd_close(dev, q, k, v, km, causal):
+    """Kernel #1 against flash_attention_reference on the rows that see a
+    valid key; every output and lse entry finite. Returns (out, lse)."""
+    out, lse = fa.flash_fwd_cuda(q, k, v, kmask=km, causal=causal)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal, kmask=km,
+                                                with_lse=True)
+    B, T = q.shape[:2]
+    w = torch.ones(B, T, device=dev)
+    if km is not None:
+        valid = km > 0
+        w = (valid.cummax(dim=1).values if causal
+             else valid.any(dim=1, keepdim=True).expand(B, T)).float()
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    tol = BF16 if q.dtype == torch.bfloat16 else F32
+    torch.testing.assert_close(out.float() * w[:, :, None, None],
+                               ref.float() * w[:, :, None, None], **tol)
+    torch.testing.assert_close(lse * w[:, None, :], ref_lse * w[:, None, :],
+                               rtol=1e-5, atol=1e-4)
+    return out, lse
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("T", [1, 65, 129])
+@pytest.mark.parametrize("causal", [False, True])
+def test_fwd_ragged_lengths_bf16(cuda, T, D, causal):
+    # T past 64- and 128-row boxes: rows at or past T arrive as zeros, are
+    # masked as keys and never stored as queries
+    q, k, v = _qkv(cuda, 2, T, 3, D, torch.bfloat16, strided=True, seed=20 + T + D)
+    _fwd_close(cuda, q, k, v, None, causal)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fwd_one_batch_head_bf16(cuda, causal):
+    q, k, v = _qkv(cuda, 1, 200, 1, 128, torch.bfloat16, strided=True, seed=21)
+    _fwd_close(cuda, q, k, v, _varlen(cuda, 1, 200, 21), causal)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_fwd_fused_views_equal_contiguous_bf16(cuda, D):
+    q, k, v = _qkv(cuda, 2, 300, 4, D, torch.bfloat16, strided=True, seed=22)
+    assert q.stride(1) == 3 * 4 * D and not q.is_contiguous()
+    got = fa.flash_fwd_cuda(q, k, v, causal=True)
+    again = fa.flash_fwd_cuda(*(x.contiguous() for x in (q, k, v)), causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwd_repeats_bit_for_bit(cuda, dtype):
+    q, k, v = _qkv(cuda, 2, 300, 3, 64, dtype, strided=True, seed=23)
+    km = _varlen(cuda, 2, 300, 23)
+    first = fa.flash_fwd_cuda(q, k, v, kmask=km, causal=True)
+    second = fa.flash_fwd_cuda(q, k, v, kmask=km, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_fwd_rows_without_valid_keys_are_finite_bf16(cuda, D, causal):
+    # causal: the first 37 queries of batch 0 see no valid key; batch 1 has
+    # no valid key at all. Their output is unspecified but finite, their lse
+    # near -1e30 (as on the TPU), and every other row is still right
+    B, T, H = 3, 300, 2
+    q, k, v = _qkv(cuda, B, T, H, D, torch.bfloat16, strided=True, seed=24)
+    km = torch.ones(B, T, device=cuda)
+    km[0, :37] = 0.0
+    km[1] = 0.0
+    _, lse = _fwd_close(cuda, q, k, v, km, causal)
+    assert (lse[1] < -1e29).all()
+    if causal:
+        assert (lse[0, :, :37] < -1e29).all()
 
 
 def _bwd_case(dev, B, T, H, D, dtype, causal, masked, seed):
@@ -236,15 +311,20 @@ def test_bwd_rows_without_valid_keys_get_zero_grads(cuda):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
 
 
-def test_autograd_runs_the_backward_kernels(cuda):
+@pytest.mark.parametrize("D,strided,masked", [(64, False, False), (128, True, True)])
+def test_autograd_runs_the_backward_kernels(cuda, D, strided, masked):
+    # each call launches kernels #1, #2 and #3 once; strided: the fused-qkv
+    # views the attention layer passes
     q, k, v = (x.detach().requires_grad_(True) for x in
-               _qkv(cuda, 2, 130, 2, 64, torch.bfloat16, strided=False, seed=8))
+               _qkv(cuda, 2, 130, 2, D, torch.bfloat16, strided=strided, seed=8))
+    km = _varlen(cuda, 2, 130, 8) if masked else None
     before = (fa.flash_fwd_cuda.launches, fa.flash_bwd_dq_cuda.launches,
               fa.flash_bwd_dkv_cuda.launches)
-    out = fa.flash_attention(q, k, v, causal=True)
-    out.float().square().sum().backward()
+    for _ in range(2):
+        out = fa.flash_attention(q, k, v, kmask=km, causal=True)
+        out.float().square().sum().backward()
     assert (fa.flash_fwd_cuda.launches, fa.flash_bwd_dq_cuda.launches,
-            fa.flash_bwd_dkv_cuda.launches) == tuple(b + 1 for b in before)
+            fa.flash_bwd_dkv_cuda.launches) == tuple(b + 2 for b in before)
     assert all(torch.isfinite(x.grad.float()).all() for x in (q, k, v))
 
 

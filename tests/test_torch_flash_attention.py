@@ -8,7 +8,7 @@ import torch
 
 import jax.numpy as jnp
 
-from deeplearning4j_tpu.ops.flash_attention import _flash_raw
+from deeplearning4j_tpu.ops.flash_attention import _flash_raw, _reference
 from deeplearning4j_tpu.ops.flash_attention import flash_attention as jflash
 from deeplearning4j_tpu.parallel.ring import local_attention as jlocal
 from deeplearning4j_tpu_torch.ops import flash_attention as fa
@@ -115,6 +115,28 @@ def test_local_attention_matches_ring_local_attention(causal, masked):
     want = jlocal(*(jnp.asarray(a) for a in (q, k, v)), causal=causal,
                   kmask=jnp.asarray(km) if masked else None)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_rows_without_a_valid_key_stay_finite_and_match_the_reference(causal):
+    # the leading keys of batch 0 are masked (under a causal mask its first
+    # 5 queries see no valid key) and batch 1 has no valid key at all:
+    # masked scores are -1e30, never -inf, so those rows are finite (the
+    # uniform mix of v) and equal the JAX package's _reference on every row,
+    # as the CUDA kernel is held to finiteness there on the card
+    B, T, H, D = 2, 24, 2, 16
+    q, k, v = _qkv(11, B, T, H, D)
+    km = np.ones((B, T), np.float32)
+    km[0, :5] = 0.0
+    km[1] = 0.0
+    out, lse = fa.flash_attention_with_lse(
+        *(torch.from_numpy(a) for a in (q, k, v)), kmask=torch.from_numpy(km),
+        causal=causal)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert (lse[1] < -1e29).all()
+    want = _reference(*(jnp.asarray(a) for a in (q, k, v)), causal,
+                      kmask=jnp.asarray(km))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=0.0, atol=1e-5)
 
 
 def test_cpu_call_runs_the_plain_version_without_launching():
