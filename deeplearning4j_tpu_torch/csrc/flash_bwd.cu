@@ -27,9 +27,14 @@
 //   ds^T . q; the final * scale of dq and dk is applied in f32 before the
 //   cast to the output type.
 //
-// bf16: the Hopper design. Each block is three warpgroups: two consumer
-// warpgroups of 64 rows each (128 query rows for dq, 128 key rows for
-// dk/dv) and one producer warpgroup whose first warp feeds them.
+// bf16 and f16: the Hopper design (f16 takes the same layouts and another
+// type in the wgmma instruction and the tensor maps). Each block is three
+// warpgroups: two consumer warpgroups of 64 rows each (128 query rows for
+// dq, 128 key rows for dk/dv) and one producer warpgroup whose first warp
+// feeds them. At D=256 (sm90_common.cuh Cfg) a block owns 64 rows, which
+// both consumer warpgroups share: each computes the same scores and sums
+// half of D's output columns, so its accumulators stay the size they have
+// at D=128, and the ring has two slots.
 // - The block's own 128 rows (Q and dO for dq; K and V for dk/dv) are
 //   loaded once. The other side streams in 64-row tiles (K/V for dq; Q, dO,
 //   lse and delta for dk/dv) through a ring of STAGES slots in shared
@@ -67,13 +72,13 @@
 // Budget per instantiation: 168 registers a thread at launch
 // (__launch_bounds__(384, 1)), then 232 a consumer and 40 a producer thread;
 // no spills (nvcc 12.9). Dynamic shared memory, a ring of STAGES = 3 slots:
-//   dq   D=32 / 64 / 128: 42,808 / 83,768 / 165,688 B
-//   dkv  D=32 / 64 / 128: 43,576 / 84,536 / 166,456 B
+//   dq   D=32 / 64 / 128: 42,808 / 83,768 / 165,688 B (D=256, 2 slots: 198,184)
+//   dkv  D=32 / 64 / 128: 43,576 / 84,536 / 166,456 B (D=256, 2 slots: 198,696)
 // (DqLayout and DkvLayout; flash_bwd_smem_bytes reports them), so one block
 // of 12 warps per SM.
 //
 // f32 keeps the first version's design: one block of four warps per 64-row
-// tile, tiles loaded synchronously into padded shared memory, plain FMAs so
+// tile (at D = 256 the tiles hold D in chunks of 64, Chunk below), tiles loaded synchronously into padded shared memory, plain FMAs so
 // that f32 keeps f32 accuracy, accumulators in shared memory. f32 at D=128
 // does not fit a 64-query tile of the dk/dv kernel in 227 KB, so f32
 // streams 32-query tiles there.
@@ -121,6 +126,15 @@ constexpr int LDPAD = 1;             // row padding (elements): rows off one ban
 constexpr int PPAD = 4;
 constexpr int DKV_BQ = 32;           // streamed query rows of the dk/dv kernel
 
+// The head-dim columns of a tile the f32 kernels hold at once: all of D up
+// to 128; at D = 256 chunks of 64, whose products are summed chunk by chunk
+// (S, dP) or written chunk by chunk (dq, dk, dv), so that the tiles and the
+// [64, D] accumulators fit 227 KB.
+template <int D> struct Chunk {
+  static constexpr int DC = D <= 128 ? D : 64;
+  static constexpr int N = D / DC;
+};
+
 // Copy `rows` rows [r0, r0 + rows) of one (batch, head) slice into shared
 // memory (row pitch LD) in 16-byte chunks; rows at or past T are zero-filled.
 template <int D, int LD>
@@ -143,16 +157,16 @@ __device__ void load_rows(float* dst, const float* base, long long stride_t, int
   }
 }
 
-// C[16, N] = A[16, D] . B[N, D]^T (pitch LDC). A: the warp's 16 rows, pitch
-// LD; B: N rows, pitch LD.
-template <int D, int LD, int N, int LDC>
+// C[16, N] (+)= A[16, D] . B[N, D]^T (pitch LDC; ACC adds to C, as the
+// chunks of D = 256 do). A: the warp's 16 rows, pitch LD; B: N rows, pitch LD.
+template <int D, int LD, int N, int LDC, bool ACC = false>
 __device__ void mm_abt(const float* A, const float* B, float* C, int lane) {
   constexpr int NC = N / 32;           // columns lane + 32 * j
   float acc[WROWS][NC];
 #pragma unroll
   for (int r = 0; r < WROWS; ++r)
 #pragma unroll
-    for (int j = 0; j < NC; ++j) acc[r][j] = 0.0f;
+    for (int j = 0; j < NC; ++j) acc[r][j] = ACC ? C[r * LDC + lane + 32 * j] : 0.0f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
     float bv[NC];
@@ -223,7 +237,7 @@ __device__ void load_rowstats(float* lse_s, float* delta_s, const Params& p,
 // dq: one block per (batch*head, 64-row query tile)
 template <typename T, int D>
 struct DqSmem {
-  static constexpr int LD = D + LDPAD;         // Q, dO, K, V rows
+  static constexpr int LD = Chunk<D>::DC + LDPAD;   // Q, dO, K, V rows
   static constexpr int LDS = TILE + 4;         // S and dP
   static constexpr int LDP = TILE + PPAD;      // dS
   static constexpr int LDO = D + 4;            // dq accumulator
@@ -273,8 +287,11 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
   const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const T* ob = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
 
-  load_rows<D, L::LD>(Qs, qb, p.q_st, q0, TILE, T_len, tid);
-  load_rows<D, L::LD>(Os, ob, p.o_st, q0, TILE, T_len, tid);
+  constexpr int DC = Chunk<D>::DC, NCH = Chunk<D>::N;
+  if constexpr (NCH == 1) {
+    load_rows<D, L::LD>(Qs, qb, p.q_st, q0, TILE, T_len, tid);
+    load_rows<D, L::LD>(Os, ob, p.o_st, q0, TILE, T_len, tid);
+  }
   load_rowstats(lse_s, delta_s, p, bh_off, q0, TILE, tid);
   for (int i = tid; i < TILE * L::LDO; i += THREADS) Acc[i] = 0.0f;
   __syncthreads();
@@ -293,13 +310,30 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * TILE;
     __syncthreads();   // every warp is done with the previous K/V tile
-    load_rows<D, L::LD>(Ks, kb, p.k_st, k0, TILE, T_len, tid);
-    load_rows<D, L::LD>(Vs, vb, p.v_st, k0, TILE, T_len, tid);
     load_kvalid(kvalid, p.kmask, b, k0, T_len, tid);
-    __syncthreads();
-
-    mm_abt<D, L::LD, TILE, L::LDS>(Q_w, Ks, S_w, lane);    // S  = Q . K^T
-    mm_abt<D, L::LD, TILE, L::LDS>(O_w, Vs, DP_w, lane);   // dP = dO . V^T
+    if constexpr (NCH == 1) {
+      load_rows<D, L::LD>(Ks, kb, p.k_st, k0, TILE, T_len, tid);
+      load_rows<D, L::LD>(Vs, vb, p.v_st, k0, TILE, T_len, tid);
+      __syncthreads();
+      mm_abt<D, L::LD, TILE, L::LDS>(Q_w, Ks, S_w, lane);    // S  = Q . K^T
+      mm_abt<D, L::LD, TILE, L::LDS>(O_w, Vs, DP_w, lane);   // dP = dO . V^T
+    } else {   // S and dP summed over the chunks of D
+      for (int c = 0; c < NCH; ++c) {
+        if (c > 0) __syncthreads();   // every warp is done with the previous chunk
+        load_rows<DC, L::LD>(Qs, qb + c * DC, p.q_st, q0, TILE, T_len, tid);
+        load_rows<DC, L::LD>(Os, ob + c * DC, p.o_st, q0, TILE, T_len, tid);
+        load_rows<DC, L::LD>(Ks, kb + c * DC, p.k_st, k0, TILE, T_len, tid);
+        load_rows<DC, L::LD>(Vs, vb + c * DC, p.v_st, k0, TILE, T_len, tid);
+        __syncthreads();
+        if (c == 0) {
+          mm_abt<DC, L::LD, TILE, L::LDS>(Q_w, Ks, S_w, lane);
+          mm_abt<DC, L::LD, TILE, L::LDS>(O_w, Vs, DP_w, lane);
+        } else {
+          mm_abt<DC, L::LD, TILE, L::LDS, true>(Q_w, Ks, S_w, lane);
+          mm_abt<DC, L::LD, TILE, L::LDS, true>(O_w, Vs, DP_w, lane);
+        }
+      }
+    }
     __syncwarp();
 
     for (int i = lane; i < WROWS * TILE; i += 32) {
@@ -313,7 +347,16 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
     }
     __syncwarp();
 
-    mm_ab_acc<D, TILE, L::LDP, L::LD, L::LDO>(DS_w, Ks, Acc_w, lane);  // dQ += dS . K
+    if constexpr (NCH == 1) {
+      mm_ab_acc<D, TILE, L::LDP, L::LD, L::LDO>(DS_w, Ks, Acc_w, lane);  // dQ += dS . K
+    } else {   // dQ written chunk by chunk of D
+      for (int c = 0; c < NCH; ++c) {
+        __syncthreads();   // every warp is done with the previous K chunk
+        load_rows<DC, L::LD>(Ks, kb + c * DC, p.k_st, k0, TILE, T_len, tid);
+        __syncthreads();
+        mm_ab_acc<DC, TILE, L::LDP, L::LD, L::LDO>(DS_w, Ks, Acc_w + c * DC, lane);
+      }
+    }
   }
 
   __syncwarp();
@@ -332,7 +375,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
 template <typename T, int D>
 struct DkvSmem {
   static constexpr int BQ = DKV_BQ;            // streamed query rows
-  static constexpr int LD = D + LDPAD;         // K, V, Q, dO rows
+  static constexpr int LD = Chunk<D>::DC + LDPAD;   // K, V, Q, dO rows
   static constexpr int LDS = BQ + 4;           // S^T and dP^T
   static constexpr int LDP = BQ + PPAD;        // P^T and dS^T
   static constexpr int LDO = D + 4;            // dk and dv accumulators
@@ -387,8 +430,11 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
   const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const T* ob = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
 
-  load_rows<D, L::LD>(Ks, kb, p.k_st, k0, TILE, T_len, tid);
-  load_rows<D, L::LD>(Vs, vb, p.v_st, k0, TILE, T_len, tid);
+  constexpr int DC = Chunk<D>::DC, NCH = Chunk<D>::N;
+  if constexpr (NCH == 1) {
+    load_rows<D, L::LD>(Ks, kb, p.k_st, k0, TILE, T_len, tid);
+    load_rows<D, L::LD>(Vs, vb, p.v_st, k0, TILE, T_len, tid);
+  }
   load_kvalid(kvalid, p.kmask, b, k0, T_len, tid);
   for (int i = tid; i < TILE * L::LDO; i += THREADS) {
     dK[i] = 0.0f;
@@ -413,13 +459,30 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
   for (int qt = qt0; qt < n_qt; ++qt) {
     const int q0 = qt * BQ;
     __syncthreads();   // every warp is done with the previous Q/dO tile
-    load_rows<D, L::LD>(Qs, qb, p.q_st, q0, BQ, T_len, tid);
-    load_rows<D, L::LD>(Os, ob, p.o_st, q0, BQ, T_len, tid);
     load_rowstats(lse_s, delta_s, p, bh_off, q0, BQ, tid);
-    __syncthreads();
-
-    mm_abt<D, L::LD, BQ, L::LDS>(K_w, Qs, S_w, lane);    // S^T  = K . Q^T
-    mm_abt<D, L::LD, BQ, L::LDS>(V_w, Os, DP_w, lane);   // dP^T = V . dO^T
+    if constexpr (NCH == 1) {
+      load_rows<D, L::LD>(Qs, qb, p.q_st, q0, BQ, T_len, tid);
+      load_rows<D, L::LD>(Os, ob, p.o_st, q0, BQ, T_len, tid);
+      __syncthreads();
+      mm_abt<D, L::LD, BQ, L::LDS>(K_w, Qs, S_w, lane);    // S^T  = K . Q^T
+      mm_abt<D, L::LD, BQ, L::LDS>(V_w, Os, DP_w, lane);   // dP^T = V . dO^T
+    } else {   // S^T and dP^T summed over the chunks of D
+      for (int c = 0; c < NCH; ++c) {
+        if (c > 0) __syncthreads();   // every warp is done with the previous chunk
+        load_rows<DC, L::LD>(Ks, kb + c * DC, p.k_st, k0, TILE, T_len, tid);
+        load_rows<DC, L::LD>(Vs, vb + c * DC, p.v_st, k0, TILE, T_len, tid);
+        load_rows<DC, L::LD>(Qs, qb + c * DC, p.q_st, q0, BQ, T_len, tid);
+        load_rows<DC, L::LD>(Os, ob + c * DC, p.o_st, q0, BQ, T_len, tid);
+        __syncthreads();
+        if (c == 0) {
+          mm_abt<DC, L::LD, BQ, L::LDS>(K_w, Qs, S_w, lane);
+          mm_abt<DC, L::LD, BQ, L::LDS>(V_w, Os, DP_w, lane);
+        } else {
+          mm_abt<DC, L::LD, BQ, L::LDS, true>(K_w, Qs, S_w, lane);
+          mm_abt<DC, L::LD, BQ, L::LDS, true>(V_w, Os, DP_w, lane);
+        }
+      }
+    }
     __syncwarp();
 
     for (int i = lane; i < WROWS * BQ; i += 32) {
@@ -435,8 +498,19 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
     }
     __syncwarp();
 
-    mm_ab_acc<D, BQ, L::LDP, L::LD, L::LDO>(P_w, Os, dV_w, lane);   // dV += P^T . dO
-    mm_ab_acc<D, BQ, L::LDP, L::LD, L::LDO>(DS_w, Qs, dK_w, lane);  // dK += dS^T . Q
+    if constexpr (NCH == 1) {
+      mm_ab_acc<D, BQ, L::LDP, L::LD, L::LDO>(P_w, Os, dV_w, lane);   // dV += P^T . dO
+      mm_ab_acc<D, BQ, L::LDP, L::LD, L::LDO>(DS_w, Qs, dK_w, lane);  // dK += dS^T . Q
+    } else {   // dV and dK written chunk by chunk of D
+      for (int c = 0; c < NCH; ++c) {
+        __syncthreads();   // every warp is done with the previous Q/dO chunk
+        load_rows<DC, L::LD>(Qs, qb + c * DC, p.q_st, q0, BQ, T_len, tid);
+        load_rows<DC, L::LD>(Os, ob + c * DC, p.o_st, q0, BQ, T_len, tid);
+        __syncthreads();
+        mm_ab_acc<DC, BQ, L::LDP, L::LD, L::LDO>(P_w, Os, dV_w + c * DC, lane);
+        mm_ab_acc<DC, BQ, L::LDP, L::LD, L::LDO>(DS_w, Qs, dK_w + c * DC, lane);
+      }
+    }
   }
 
   __syncwarp();
@@ -455,7 +529,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
 }
 
 // ===========================================================================
-// bf16: wgmma kernels fed by TMA through an mbarrier ring
+// bf16 and f16: wgmma kernels fed by TMA through an mbarrier ring
 // ===========================================================================
 
 struct Params90 {
@@ -463,8 +537,8 @@ struct Params90 {
   const float* lse;
   const float* delta;
   const float* kmask;
-  bf16* g0;                 // dq, or dk
-  bf16* g1;                 // dv
+  void* g0;                 // dq, or dk (the operand type)
+  void* g1;                 // dv
   int B, T, H, causal;
   float scale;
 };
@@ -472,33 +546,34 @@ struct Params90 {
 // S[64, N] = A . B^T over D for one warpgroup (N = 64 or 32): A the 64 rows
 // from ra0 of an RA-row tile, B the N rows from rb0 of a 64-row tile, both
 // K-major.
-template <int D, int RA, int N>
+template <typename T, int D, int RA, int N>
 __device__ __forceinline__ void scores(float (&s)[N / 2], uint32_t a_tile, int ra0,
                                        uint32_t b_tile, int rb0) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss(s, desc_k<D, RA>(a_tile, ra0, kk), desc_k<D, ROWS>(b_tile, rb0, kk), kk > 0);
+    wgmma_ss<T>(s, desc_k<D, RA>(a_tile, ra0, kk), desc_k<D, ROWS>(b_tile, rb0, kk), kk > 0);
 }
 
-// Store rows of a [64, D] f32 accumulator times `mul` as bf16 into a
-// contiguous [B, T, H, D] tensor, rows at or past T skipped.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[Geo<D>::NCB][Geo<D>::CHUNK / 2],
+// Store rows of a [64, CHUNK NC] f32 accumulator (column boxes c0 .. c0 +
+// NC of D) times `mul` in the operand type T into a contiguous
+// [B, T, H, D] tensor, rows at or past T skipped.
+template <typename T, int D, int NC = Geo<D>::NCB>
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[NC][Geo<D>::CHUNK / 2],
                                            float mul, int row0, int lane, int b, int h,
-                                           int T_len, int H) {
+                                           int T_len, int H, int c0 = 0) {
   using G = Geo<D>;
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     const int t = row0 + 8 * j;
     if (t >= T_len) continue;
-    bf16* rowp = out + (((long long)b * T_len + t) * H + h) * D;
+    T* rowp = out + (((long long)b * T_len + t) * H + h) * D;
 #pragma unroll
-    for (int c = 0; c < G::NCB; ++c)
+    for (int c = 0; c < NC; ++c)
 #pragma unroll
       for (int i = 2 * j; i < G::CHUNK / 2; i += 4) {
-        const int col = c * G::CHUNK + frag_col(i, lane);
+        const int col = (c0 + c) * G::CHUNK + frag_col(i, lane);
         *reinterpret_cast<uint32_t*>(rowp + col) =
-            pack_bf16(acc[c][i] * mul, acc[c][i + 1] * mul);
+            pack2<T>(acc[c][i] * mul, acc[c][i + 1] * mul);
       }
   }
 }
@@ -506,9 +581,11 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[Geo<D>:
 template <int D>
 struct DqLayout {
   using G = Geo<D>;
-  static constexpr size_t q = 0;                                 // 128 rows, resident
-  static constexpr size_t o = q + G::TILE128;
-  static constexpr size_t k = o + G::TILE128;                    // STAGES x 64 rows
+  static constexpr int STAGES = Cfg<D>::STAGES;
+  static constexpr size_t OWN_TILE = size_t(Cfg<D>::OWN / ROWS) * G::TILE64;
+  static constexpr size_t q = 0;                                 // own rows, resident
+  static constexpr size_t o = q + OWN_TILE;
+  static constexpr size_t k = o + OWN_TILE;                      // STAGES x 64 rows
   static constexpr size_t v = k + size_t(STAGES) * G::TILE64;
   static constexpr size_t kv = v + size_t(STAGES) * G::TILE64;   // STAGES x 64 f32
   static constexpr size_t bars = kv + size_t(STAGES) * ROWS * sizeof(float);
@@ -518,9 +595,11 @@ struct DqLayout {
 template <int D>
 struct DkvLayout {
   using G = Geo<D>;
-  static constexpr size_t k = 0;                                 // 128 rows, resident
-  static constexpr size_t v = k + G::TILE128;
-  static constexpr size_t q = v + G::TILE128;                    // STAGES x 64 rows
+  static constexpr int STAGES = Cfg<D>::STAGES;
+  static constexpr size_t OWN_TILE = size_t(Cfg<D>::OWN / ROWS) * G::TILE64;
+  static constexpr size_t k = 0;                                 // own rows, resident
+  static constexpr size_t v = k + OWN_TILE;
+  static constexpr size_t q = v + OWN_TILE;                      // STAGES x 64 rows
   static constexpr size_t o = q + size_t(STAGES) * G::TILE64;
   static constexpr size_t lse = o + size_t(STAGES) * G::TILE64;  // STAGES x 64 f32
   static constexpr size_t delta = lse + size_t(STAGES) * ROWS * sizeof(float);
@@ -529,15 +608,18 @@ struct DkvLayout {
 };
 
 // ---------------------------------------------------------------------------
-// dq: one block per (batch*head, 128 query rows)
+// dq: one block per (batch*head, 128 query rows; 64 at D = 256, shared by
+// both consumer warpgroups, each summing half of dq's columns)
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS90, 1)
     flash_bwd_dq_wgmma_kernel(__grid_constant__ const Params90 p) {
-  static_assert(sizeof(T) == 2, "T names the operand type in the symbol; bf16 only");
+  static_assert(sizeof(T) == 2, "bf16 or f16 operands");
   using G = Geo<D>;
   using L = DqLayout<D>;
+  constexpr int STAGES = L::STAGES, OWN = Cfg<D>::OWN, NC = Cfg<D>::NC;
+  constexpr bool SPLIT = Cfg<D>::SPLIT;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   const uint32_t base = smem_u32(smem);
@@ -549,14 +631,14 @@ __global__ void __launch_bounds__(THREADS90, 1)
 
   const int T_len = p.T;
   const int BH = p.B * p.H;
-  const int n_qb = (T_len + BLOCK_ROWS - 1) / BLOCK_ROWS;
+  const int n_qb = (T_len + OWN - 1) / OWN;
   const int bh = blockIdx.x % BH;
   const int qb = p.causal ? n_qb - 1 - int(blockIdx.x / BH) : int(blockIdx.x / BH);
   const int b = bh / p.H;
   const int h = bh % p.H;
-  const int q0 = qb * BLOCK_ROWS;
+  const int q0 = qb * OWN;
   const int n_k = (T_len + ROWS - 1) / ROWS;
-  const int n_kt = p.causal ? min(n_k, (q0 + BLOCK_ROWS) / ROWS) : n_k;
+  const int n_kt = p.causal ? min(n_k, (q0 + OWN) / ROWS) : n_k;
 
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -577,9 +659,9 @@ __global__ void __launch_bounds__(THREADS90, 1)
     setmaxnreg_dec<PRODUCER_REGS>();
     if (warp == 0) {
       if (lane == 0) {
-        bar_arrive_tx(own_full, 2 * G::TILE128);
-        tma_tile<D, BLOCK_ROWS>(base + L::q, &p.q, own_full, h, q0, b);
-        tma_tile<D, BLOCK_ROWS>(base + L::o, &p.o, own_full, h, q0, b);
+        bar_arrive_tx(own_full, 2 * L::OWN_TILE);
+        tma_tile<D, OWN>(base + L::q, &p.q, own_full, h, q0, b);
+        tma_tile<D, OWN>(base + L::o, &p.o, own_full, h, q0, b);
       }
       for (int kt = 0; kt < n_kt; ++kt) {
         const int s = kt % STAGES;
@@ -602,7 +684,9 @@ __global__ void __launch_bounds__(THREADS90, 1)
     }
   } else {
     setmaxnreg_inc<CONSUMER_REGS>();
-    const int wq0 = q0 + wg * ROWS;            // the warpgroup's first query
+    const int wr = SPLIT ? 0 : wg * ROWS;      // the warpgroup's rows in the block's
+    const int c0 = SPLIT ? wg * NC : 0;        // and its first output column box
+    const int wq0 = q0 + wr;                   // the warpgroup's first query
     const int row0 = wq0 + warp * 16 + lane / 4;   // the thread's rows: row0, row0 + 8
     const long long bh_off = (long long)bh * T_len;
     float lse2[2], dlt[2];
@@ -613,9 +697,9 @@ __global__ void __launch_bounds__(THREADS90, 1)
       dlt[j] = t < T_len ? p.delta[bh_off + t] : 0.0f;
     }
     const float sl2 = p.scale * LOG2E;
-    float acc[G::NCB][G::CHUNK / 2];
+    float acc[NC][G::CHUNK / 2];
 #pragma unroll
-    for (int c = 0; c < G::NCB; ++c)
+    for (int c = 0; c < NC; ++c)
 #pragma unroll
       for (int i = 0; i < G::CHUNK / 2; ++i) acc[c][i] = 0.0f;
 
@@ -630,10 +714,10 @@ __global__ void __launch_bounds__(THREADS90, 1)
       if (!(p.causal && k0 > wq0 + ROWS - 1)) {
         float sc[32], dp[32];
         wg_fence();
-        scores<D, BLOCK_ROWS, ROWS>(sc, base + L::q, wg * ROWS, kt_tile, 0);  // S = Q.K^T
+        scores<T, D, OWN, ROWS>(sc, base + L::q, wr, kt_tile, 0);   // S = Q.K^T
         wg_commit();
-        scores<D, BLOCK_ROWS, ROWS>(dp, base + L::o, wg * ROWS,
-                                    base + L::v + s * G::TILE64, 0);  // dP = dO.V^T
+        scores<T, D, OWN, ROWS>(dp, base + L::o, wr,
+                                base + L::v + s * G::TILE64, 0);     // dP = dO.V^T
         wg_commit();
         wg_wait<0>();
         pin(sc);
@@ -653,32 +737,36 @@ __global__ void __launch_bounds__(THREADS90, 1)
             const float pr = ok ? exp2f(fmaf(sc[i + e], sl2, -lse2[j])) : 0.0f;
             ds[e] = pr * (dp[i + e] - dlt[j]);
           }
-          a[i >> 3][(i >> 1) & 3] = pack_bf16(ds[0], ds[1]);
+          a[i >> 3][(i >> 1) & 3] = pack2<T>(ds[0], ds[1]);
         }
         wg_fence();
-        accumulate<D, 4>(acc, a, kt_tile, 0);                          // dQ += dS . K
+        accumulate<T, D, 4, ROWS, NC>(acc, a, kt_tile, 0, c0);         // dQ += dS . K
         wg_commit();
         wg_wait<0>();
 #pragma unroll
-        for (int c = 0; c < G::NCB; ++c) pin(acc[c]);
+        for (int c = 0; c < NC; ++c) pin(acc[c]);
       }
       __syncwarp();
       if (lane == 0) bar_arrive(&empty[s]);
     }
-    store_rows<D>(p.g0, acc, p.scale, row0, lane, b, h, T_len, p.H);
+    store_rows<T, D, NC>(static_cast<T*>(p.g0), acc, p.scale, row0, lane, b, h, T_len, p.H,
+                         c0);
   }
 }
 
 // ---------------------------------------------------------------------------
-// dk/dv: one block per (batch*head, 128 key rows)
+// dk/dv: one block per (batch*head, 128 key rows; 64 at D = 256, shared by
+// both consumer warpgroups, each summing half of dk's and dv's columns)
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS90, 1)
     flash_bwd_dkv_wgmma_kernel(__grid_constant__ const Params90 p) {
-  static_assert(sizeof(T) == 2, "T names the operand type in the symbol; bf16 only");
+  static_assert(sizeof(T) == 2, "bf16 or f16 operands");
   using G = Geo<D>;
   using L = DkvLayout<D>;
+  constexpr int STAGES = L::STAGES, OWN = Cfg<D>::OWN, NC = Cfg<D>::NC;
+  constexpr bool SPLIT = Cfg<D>::SPLIT;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   const uint32_t base = smem_u32(smem);
@@ -695,7 +783,7 @@ __global__ void __launch_bounds__(THREADS90, 1)
   const int kb = blockIdx.x / BH;   // under a causal mask the first key rows have the most queries
   const int b = bh / p.H;
   const int h = bh % p.H;
-  const int k0 = kb * BLOCK_ROWS;
+  const int k0 = kb * OWN;
   const int n_q = (T_len + ROWS - 1) / ROWS;
   const int qt0 = p.causal ? k0 / ROWS : 0;   // query tiles wholly above k0 see no key here
 
@@ -719,9 +807,9 @@ __global__ void __launch_bounds__(THREADS90, 1)
     setmaxnreg_dec<PRODUCER_REGS>();
     if (warp == 0) {
       if (lane == 0) {
-        bar_arrive_tx(own_full, 2 * G::TILE128);
-        tma_tile<D, BLOCK_ROWS>(base + L::k, &p.k, own_full, h, k0, b);
-        tma_tile<D, BLOCK_ROWS>(base + L::v, &p.v, own_full, h, k0, b);
+        bar_arrive_tx(own_full, 2 * L::OWN_TILE);
+        tma_tile<D, OWN>(base + L::k, &p.k, own_full, h, k0, b);
+        tma_tile<D, OWN>(base + L::v, &p.v, own_full, h, k0, b);
       }
       for (int qt = qt0; qt < n_q; ++qt) {
         const int it = qt - qt0;
@@ -745,7 +833,9 @@ __global__ void __launch_bounds__(THREADS90, 1)
     }
   } else {
     setmaxnreg_inc<CONSUMER_REGS>();
-    const int wk0 = k0 + wg * ROWS;                 // the warpgroup's first key
+    const int wr = SPLIT ? 0 : wg * ROWS;           // the warpgroup's rows in the block's
+    const int c0 = SPLIT ? wg * NC : 0;             // and its first output column box
+    const int wk0 = k0 + wr;                        // the warpgroup's first key
     const int row0 = wk0 + warp * 16 + lane / 4;    // the thread's keys: row0, row0 + 8
     bool kok[2];
 #pragma unroll
@@ -754,9 +844,9 @@ __global__ void __launch_bounds__(THREADS90, 1)
       kok[j] = t < T_len && (p.kmask == nullptr || p.kmask[(long long)b * T_len + t] > 0.0f);
     }
     const float sl2 = p.scale * LOG2E;
-    float dk[G::NCB][G::CHUNK / 2], dv[G::NCB][G::CHUNK / 2];
+    float dk[NC][G::CHUNK / 2], dv[NC][G::CHUNK / 2];
 #pragma unroll
-    for (int c = 0; c < G::NCB; ++c)
+    for (int c = 0; c < NC; ++c)
 #pragma unroll
       for (int i = 0; i < G::CHUNK / 2; ++i) {
         dk[c][i] = 0.0f;
@@ -782,9 +872,9 @@ __global__ void __launch_bounds__(THREADS90, 1)
         for (int hf = 0; hf < 2; ++hf) {
           float sc[16], dp[16];
           wg_fence();
-          scores<D, BLOCK_ROWS, 32>(sc, base + L::k, wg * ROWS, q_tile, 32 * hf);  // S^T
+          scores<T, D, OWN, 32>(sc, base + L::k, wr, q_tile, 32 * hf);  // S^T
           wg_commit();
-          scores<D, BLOCK_ROWS, 32>(dp, base + L::v, wg * ROWS, o_tile, 32 * hf);  // dP^T
+          scores<T, D, OWN, 32>(dp, base + L::v, wr, o_tile, 32 * hf);  // dP^T
           wg_commit();
           wg_wait<0>();
           pin(sc);
@@ -803,17 +893,17 @@ __global__ void __launch_bounds__(THREADS90, 1)
               pr[e] = ok ? exp2f(fmaf(sc[i + e], sl2, -ls[col + e])) : 0.0f;
               ds[e] = pr[e] * (dp[i + e] - dl[col + e]);
             }
-            pa[i >> 3][(i >> 1) & 3] = pack_bf16(pr[0], pr[1]);
-            sa[i >> 3][(i >> 1) & 3] = pack_bf16(ds[0], ds[1]);
+            pa[i >> 3][(i >> 1) & 3] = pack2<T>(pr[0], pr[1]);
+            sa[i >> 3][(i >> 1) & 3] = pack2<T>(ds[0], ds[1]);
           }
           wg_fence();
-          accumulate<D, 2>(dv, pa, o_tile, 2 * hf);                    // dV += P^T . dO
-          accumulate<D, 2>(dk, sa, q_tile, 2 * hf);                    // dK += dS^T . Q
+          accumulate<T, D, 2, ROWS, NC>(dv, pa, o_tile, 2 * hf, c0);   // dV += P^T . dO
+          accumulate<T, D, 2, ROWS, NC>(dk, sa, q_tile, 2 * hf, c0);   // dK += dS^T . Q
           wg_commit();
         }
         wg_wait<0>();
 #pragma unroll
-        for (int c = 0; c < G::NCB; ++c) {
+        for (int c = 0; c < NC; ++c) {
           pin(dv[c]);
           pin(dk[c]);
         }
@@ -821,8 +911,8 @@ __global__ void __launch_bounds__(THREADS90, 1)
       __syncwarp();
       if (lane == 0) bar_arrive(&empty[s]);
     }
-    store_rows<D>(p.g0, dk, p.scale, row0, lane, b, h, T_len, p.H);
-    store_rows<D>(p.g1, dv, 1.0f, row0, lane, b, h, T_len, p.H);
+    store_rows<T, D, NC>(static_cast<T*>(p.g0), dk, p.scale, row0, lane, b, h, T_len, p.H, c0);
+    store_rows<T, D, NC>(static_cast<T*>(p.g1), dv, 1.0f, row0, lane, b, h, T_len, p.H, c0);
   }
 }
 
@@ -830,12 +920,12 @@ __global__ void __launch_bounds__(THREADS90, 1)
 // launch
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <typename T, int D>
 int make_params90(Params90* q, const Params& p) {
-  int rc = encode_map<D>(&q->q, p.q, p.B, p.T, p.H, p.q_sb, p.q_st, p.q_sh);
-  if (rc == 0) rc = encode_map<D>(&q->k, p.k, p.B, p.T, p.H, p.k_sb, p.k_st, p.k_sh);
-  if (rc == 0) rc = encode_map<D>(&q->v, p.v, p.B, p.T, p.H, p.v_sb, p.v_st, p.v_sh);
-  if (rc == 0) rc = encode_map<D>(&q->o, p.dout, p.B, p.T, p.H, p.o_sb, p.o_st, p.o_sh);
+  int rc = encode_map<T, D>(&q->q, p.q, p.B, p.T, p.H, p.q_sb, p.q_st, p.q_sh);
+  if (rc == 0) rc = encode_map<T, D>(&q->k, p.k, p.B, p.T, p.H, p.k_sb, p.k_st, p.k_sh);
+  if (rc == 0) rc = encode_map<T, D>(&q->v, p.v, p.B, p.T, p.H, p.v_sb, p.v_st, p.v_sh);
+  if (rc == 0) rc = encode_map<T, D>(&q->o, p.dout, p.B, p.T, p.H, p.o_sb, p.o_st, p.o_sh);
   q->lse = p.lse;
   q->delta = p.delta;
   q->kmask = p.kmask;
@@ -871,39 +961,42 @@ struct F32 {
   }
 };
 
-template <int D>
-struct Bf16 {
+template <typename T, int D>
+struct Wgmma {
   static int dq(const Params& p, cudaStream_t stream) {
     using L = DqLayout<D>;
     Params90 q;
-    int rc = make_params90<D>(&q, p);
+    int rc = make_params90<T, D>(&q, p);
     if (rc != 0) return rc;
-    q.g0 = static_cast<bf16*>(p.dq);
+    q.g0 = p.dq;
     q.g1 = nullptr;
-    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<bf16, D>,
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L::bytes));
     if (e != cudaSuccess) return static_cast<int>(e);
-    const int blocks = (p.T + BLOCK_ROWS - 1) / BLOCK_ROWS * (p.B * p.H);
-    flash_bwd_dq_wgmma_kernel<bf16, D><<<blocks, THREADS90, L::bytes, stream>>>(q);
+    const int blocks = (p.T + Cfg<D>::OWN - 1) / Cfg<D>::OWN * (p.B * p.H);
+    flash_bwd_dq_wgmma_kernel<T, D><<<blocks, THREADS90, L::bytes, stream>>>(q);
     return static_cast<int>(cudaGetLastError());
   }
   static int dkv(const Params& p, cudaStream_t stream) {
     using L = DkvLayout<D>;
     Params90 q;
-    int rc = make_params90<D>(&q, p);
+    int rc = make_params90<T, D>(&q, p);
     if (rc != 0) return rc;
-    q.g0 = static_cast<bf16*>(p.dk);
-    q.g1 = static_cast<bf16*>(p.dv);
-    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<bf16, D>,
+    q.g0 = p.dk;
+    q.g1 = p.dv;
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L::bytes));
     if (e != cudaSuccess) return static_cast<int>(e);
-    const int blocks = (p.T + BLOCK_ROWS - 1) / BLOCK_ROWS * (p.B * p.H);
-    flash_bwd_dkv_wgmma_kernel<bf16, D><<<blocks, THREADS90, L::bytes, stream>>>(q);
+    const int blocks = (p.T + Cfg<D>::OWN - 1) / Cfg<D>::OWN * (p.B * p.H);
+    flash_bwd_dkv_wgmma_kernel<T, D><<<blocks, THREADS90, L::bytes, stream>>>(q);
     return static_cast<int>(cudaGetLastError());
   }
 };
+
+template <int D> struct Bf16 : Wgmma<bf16, D> {};
+template <int D> struct F16 : Wgmma<f16, D> {};
 
 template <template <int> class K>
 int dispatch(int which, const Params& p, int D, cudaStream_t s) {
@@ -911,6 +1004,7 @@ int dispatch(int which, const Params& p, int D, cudaStream_t s) {
     case 32: return which == 0 ? K<32>::dq(p, s) : K<32>::dkv(p, s);
     case 64: return which == 0 ? K<64>::dq(p, s) : K<64>::dkv(p, s);
     case 128: return which == 0 ? K<128>::dq(p, s) : K<128>::dkv(p, s);
+    case 256: return which == 0 ? K<256>::dq(p, s) : K<256>::dkv(p, s);
     default: return ERR_UNSUPPORTED;
   }
 }
@@ -920,15 +1014,17 @@ long long smem_f32(int which, int D) {
     case 32: return which == 0 ? DqSmem<float, 32>::bytes : DkvSmem<float, 32>::bytes;
     case 64: return which == 0 ? DqSmem<float, 64>::bytes : DkvSmem<float, 64>::bytes;
     case 128: return which == 0 ? DqSmem<float, 128>::bytes : DkvSmem<float, 128>::bytes;
+    case 256: return which == 0 ? DqSmem<float, 256>::bytes : DkvSmem<float, 256>::bytes;
     default: return -1;
   }
 }
 
-long long smem_bf16(int which, int D) {
+long long smem_16(int which, int D) {
   switch (D) {
     case 32: return which == 0 ? DqLayout<32>::bytes : DkvLayout<32>::bytes;
     case 64: return which == 0 ? DqLayout<64>::bytes : DkvLayout<64>::bytes;
     case 128: return which == 0 ? DqLayout<128>::bytes : DkvLayout<128>::bytes;
+    case 256: return which == 0 ? DqLayout<256>::bytes : DkvLayout<256>::bytes;
     default: return -1;
   }
 }
@@ -964,6 +1060,7 @@ int run(int which, Params& p, int D, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<F32>(which, p, D, s);
   if (dtype == 1) return dispatch<Bf16>(which, p, D, s);
+  if (dtype == 2) return dispatch<F16>(which, p, D, s);
   return ERR_UNSUPPORTED;
 }
 
@@ -971,7 +1068,7 @@ int run(int which, Params& p, int D, int dtype, void* stream) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. `strides` holds 12 element strides: the
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; D in 32, 64, 128, 256. `strides` holds 12 element strides: the
 // B, T, H strides of q, k, v and dout, in that order. Returns 0 on a clean
 // launch, a negative code of our own (flash_bwd_error_string) or the
 // cudaError_t code.
@@ -1000,7 +1097,7 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
 // takes, or -1 when unsupported.
 long long flash_bwd_smem_bytes(int which, int dtype, int D) {
   if (dtype == 0) return smem_f32(which, D);
-  if (dtype == 1) return smem_bf16(which, D);
+  if (dtype == 1 || dtype == 2) return smem_16(which, D);
   return -1;
 }
 

@@ -23,8 +23,9 @@
 //   p . v (flash_attention.py:108). Key tiles strictly above the causal
 //   diagonal are skipped.
 //
-// bf16: flash_fwd_wgmma_kernel, FlashAttention-3's forward shape without its
-// intra-warpgroup overlap. Each block is three warpgroups: two consumer
+// bf16 and f16: flash_fwd_wgmma_kernel<T, D>, FlashAttention-3's forward
+// shape without its intra-warpgroup overlap (f16 takes the same layouts and
+// another type in the wgmma instruction and the tensor maps). Each block is three warpgroups: two consumer
 // warpgroups of 64 query rows each (128 rows a block) and one producer
 // warpgroup whose first warp starts the copies (sm90_common.cuh holds the
 // pieces it shares with the backward kernels).
@@ -64,13 +65,16 @@
 // shared memory (FwdLayout; flash_fwd_smem_bytes reports it): Q 128 rows +
 // 3 x (K + V) 128-key tiles + validity + barriers + 1024 B of alignment,
 //   D=32 / 64 / 128: 59,976 / 117,320 / 232,008 B,
-// so one block of 12 warps per SM (232,448 B is the opt-in limit).
+// so one block of 12 warps per SM (232,448 B is the opt-in limit). At
+// D=256 (sm90_common.cuh Cfg) the key tiles are 64 and the ring has two
+// slots: S 32 + O 128 + P 16 f32 registers a consumer thread; Q 64 KB and
+// 2 x (K + V) of 32 KB, 198,200 B.
 // Not here yet: overlapping S_{j+1} with the softmax of tile j inside a
 // warpgroup, ping-pong of the two consumer warpgroups on named barriers, a
 // persistent grid, FP8.
 //
 // f32 keeps the first version's design: one block of four warps per 64-row
-// query tile, 64-key K/V tiles loaded synchronously into padded shared
+// query tile (at D = 256 the tiles hold D in chunks of 64, Chunk below), 64-key K/V tiles loaded synchronously into padded shared
 // memory, plain FMAs so that f32 keeps f32 accuracy (TF32 would not), the
 // accumulator in shared memory.
 //
@@ -113,9 +117,18 @@ constexpr int WROWS = BQ / WARPS;    // query rows per warp (16)
 
 static_assert(BQ == BK, "the causal tile count assumes square tiles");
 
+// The head-dim columns of a Q, K or V tile the f32 kernel holds at once:
+// all of D up to 128; at D = 256 chunks of 64, whose products are summed
+// chunk by chunk (the scores) or written chunk by chunk (the output), so
+// that the tiles and the [64, D] accumulator fit 227 KB.
+template <int D> struct Chunk {
+  static constexpr int DC = D <= 128 ? D : 64;
+  static constexpr int N = D / DC;
+};
+
 template <int D>
 struct Smem {
-  static constexpr int LD = D + 1;             // Q, K, V rows: off one bank
+  static constexpr int LD = Chunk<D>::DC + 1;  // Q, K, V rows: off one bank
   static constexpr int LDS = BK + 4;           // scores
   static constexpr int LDP = BK + 4;           // probabilities
   static constexpr int LDO = D + 4;            // output accumulator
@@ -131,14 +144,13 @@ struct Smem {
   static constexpr size_t bytes = align128(l + size_t(BQ) * sizeof(float));
 };
 
-// Copy rows [r0, r0 + 64) of one (batch, head) slice into shared memory in
-// 16-byte chunks; rows at or past T are zero-filled so masked keys never
-// multiply garbage.
-template <int D>
+// Copy W columns of rows [r0, r0 + 64) of one (batch, head) slice into
+// shared memory (row pitch LD) in 16-byte chunks; rows at or past T are
+// zero-filled so masked keys never multiply garbage.
+template <int W, int LD>
 __device__ void load_rows(float* dst, const float* base, long long stride_t, int r0,
                           int T_len, int tid) {
-  constexpr int CPR = D / 4;
-  constexpr int LD = Smem<D>::LD;
+  constexpr int CPR = W / 4;
   for (int i = tid; i < 64 * CPR; i += THREADS) {
     const int r = i / CPR;
     const int c = (i % CPR) * 4;
@@ -155,17 +167,21 @@ __device__ void load_rows(float* dst, const float* base, long long stride_t, int
   }
 }
 
-// S[warp rows, 0:BK] = Q[warp rows] . K[tile]^T   (unscaled)
-template <int D>
+// S[warp rows, 0:BK] (+)= Q[warp rows] . K[tile]^T over W head-dim columns
+// (unscaled; ACC adds to S, as the chunks of D = 256 do)
+template <int D, int W, bool ACC>
 __device__ void scores(const float* Q_warp, const float* Ks, float* S_warp, int lane) {
   using L = Smem<D>;
   float a0[WROWS], a1[WROWS];
 #pragma unroll
-  for (int r = 0; r < WROWS; ++r) a0[r] = a1[r] = 0.0f;
+  for (int r = 0; r < WROWS; ++r) {
+    a0[r] = ACC ? S_warp[r * L::LDS + lane] : 0.0f;
+    a1[r] = ACC ? S_warp[r * L::LDS + lane + 32] : 0.0f;
+  }
   const float* k0 = Ks + lane * L::LD;          // keys lane and lane + 32
   const float* k1 = Ks + (lane + 32) * L::LD;
 #pragma unroll 4
-  for (int d = 0; d < D; ++d) {
+  for (int d = 0; d < W; ++d) {
     const float x0 = k0[d], x1 = k1[d];
 #pragma unroll
     for (int r = 0; r < WROWS; ++r) {
@@ -181,11 +197,11 @@ __device__ void scores(const float* Q_warp, const float* Ks, float* S_warp, int 
   }
 }
 
-// O[warp rows] += P[warp rows, 0:BK] . V[tile]
-template <int D>
+// O[warp rows, W columns] += P[warp rows, 0:BK] . V[tile, W columns]
+template <int D, int W>
 __device__ void accumulate(const float* P_warp, const float* Vs, float* O_warp, int lane) {
   using L = Smem<D>;
-  constexpr int NC = D / 32;                    // columns lane + 32 * i
+  constexpr int NC = W / 32;                    // columns lane + 32 * i
   float acc[WROWS][NC];
 #pragma unroll
   for (int r = 0; r < WROWS; ++r)
@@ -238,7 +254,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
   const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
 
-  load_rows<D>(Qs, qb, p.q_st, q0, T_len, tid);
+  constexpr int DC = Chunk<D>::DC, NCH = Chunk<D>::N;
+  if constexpr (NCH == 1) load_rows<D, L::LD>(Qs, qb, p.q_st, q0, T_len, tid);
   for (int i = tid; i < BQ * L::LDO; i += THREADS) Os[i] = 0.0f;
   __syncthreads();
 
@@ -261,17 +278,27 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();   // every warp is done with the previous K/V tile
-    load_rows<D>(Ks, kb, p.k_st, k0, T_len, tid);
-    load_rows<D>(Vs, vb, p.v_st, k0, T_len, tid);
     for (int i = tid; i < BK; i += THREADS) {
       const int t = k0 + i;
       bool ok = t < T_len;
       if (ok && p.kmask != nullptr) ok = p.kmask[(long long)b * T_len + t] > 0.0f;
       kvalid[i] = ok ? 1.0f : 0.0f;
     }
-    __syncthreads();
-
-    scores<D>(Q_warp, Ks, S_warp, lane);
+    if constexpr (NCH == 1) {
+      load_rows<D, L::LD>(Ks, kb, p.k_st, k0, T_len, tid);
+      load_rows<D, L::LD>(Vs, vb, p.v_st, k0, T_len, tid);
+      __syncthreads();
+      scores<D, D, false>(Q_warp, Ks, S_warp, lane);
+    } else {   // the scores summed over the chunks of D
+      for (int c = 0; c < NCH; ++c) {
+        if (c > 0) __syncthreads();   // every warp is done with the previous chunk
+        load_rows<DC, L::LD>(Qs, qb + c * DC, p.q_st, q0, T_len, tid);
+        load_rows<DC, L::LD>(Ks, kb + c * DC, p.k_st, k0, T_len, tid);
+        __syncthreads();
+        if (c == 0) scores<D, DC, false>(Q_warp, Ks, S_warp, lane);
+        else scores<D, DC, true>(Q_warp, Ks, S_warp, lane);
+      }
+    }
     __syncwarp();
 
     // online softmax over this tile (f32), as in the TPU kernel: masked
@@ -311,7 +338,16 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
     }
     __syncwarp();
 
-    accumulate<D>(P_warp, Vs, O_warp, lane);
+    if constexpr (NCH == 1) {
+      accumulate<D, D>(P_warp, Vs, O_warp, lane);
+    } else {   // the output written chunk by chunk of D
+      for (int c = 0; c < NCH; ++c) {
+        __syncthreads();   // every warp is done with the previous V chunk
+        load_rows<DC, L::LD>(Vs, vb + c * DC, p.v_st, k0, T_len, tid);
+        __syncthreads();
+        accumulate<D, DC>(P_warp, Vs, O_warp + c * DC, lane);
+      }
+    }
   }
 
   __syncwarp();
@@ -336,10 +372,9 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
 }
 
 // ===========================================================================
-// bf16: wgmma kernel fed by TMA through an mbarrier ring
+// bf16 and f16: wgmma kernel fed by TMA through an mbarrier ring
 // ===========================================================================
 
-constexpr int BKW = 128;                        // keys of a streamed K/V tile
 // (batch, head) pairs whose blocks are numbered together: their K and V (1
 // MB a pair at T=2048, D=128 bf16) stay in L2 while their blocks run
 constexpr int HEAD_GROUP = 8;
@@ -349,7 +384,7 @@ constexpr float LN2 = 0.6931471805599453f;
 struct Params90 {
   CUtensorMap q, k, v;   // [B, T, H, D] views, boxes of 64 rows
   const float* kmask;
-  bf16* o;               // [B, T, H, D] contiguous
+  void* o;               // [B, T, H, D] contiguous, the operand type
   float* lse;            // [B, H, T] contiguous
   int B, T, H, causal;
   float scale;
@@ -358,6 +393,8 @@ struct Params90 {
 template <int D>
 struct FwdLayout {
   using G = Geo<D>;
+  static constexpr int BKW = Cfg<D>::FWD_KEYS;                    // keys of a K/V tile
+  static constexpr int STAGES = Cfg<D>::STAGES;
   static constexpr int TILE = (BKW / ROWS) * G::TILE64;           // one K or V tile
   static constexpr size_t q = 0;                                  // 128 rows, resident
   static constexpr size_t k = q + G::TILE128;                     // STAGES x BKW rows
@@ -399,14 +436,14 @@ __device__ __forceinline__ uint4 quad_transpose(const uint32_t (&in)[4], int lan
   return make_uint4(out[0], out[1], out[2], out[3]);
 }
 
-// Rows row0 and row0 + 8 of a [64, D] f32 accumulator times inv_l[j] as
-// bf16 into a contiguous [B, T, H, D] tensor, rows at or past T skipped.
+// Rows row0 and row0 + 8 of a [64, D] f32 accumulator times inv_l[j] in
+// the operand type T into a contiguous [B, T, H, D] tensor, rows at or past T skipped.
 // Entry 4 n + 2 j + e of a column box holds column 8 n + 2 (lane % 4) + e of
 // row j, so a quad holds 8-column group n of a row as one word a lane; the
 // quad transposes its words of groups 4 m .. 4 m + 3 so that lane q writes
 // group 4 m + q, 8 columns, with one 16-byte store.
-template <int D>
-__device__ __forceinline__ void store_out(bf16* out,
+template <typename T, int D>
+__device__ __forceinline__ void store_out(T* out,
                                           const float (&o)[Geo<D>::NCB][Geo<D>::CHUNK / 2],
                                           const float (&inv_l)[2], int row0, int lane, int b,
                                           int h, int T_len, int H) {
@@ -423,11 +460,11 @@ __device__ __forceinline__ void store_out(bf16* out,
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const int i = 4 * (4 * m + r) + 2 * j;
-          w[r] = pack_bf16(o[c][i] * inv_l[j], o[c][i + 1] * inv_l[j]);
+          w[r] = pack2<T>(o[c][i] * inv_l[j], o[c][i + 1] * inv_l[j]);
         }
         const uint4 v = quad_transpose(w, lane);   // every lane: the shuffles need the quad
         if (t < T_len) {
-          bf16* dst = out + (((long long)b * T_len + t) * H + h) * D + c * G::CHUNK + 32 * m +
+          T* dst = out + (((long long)b * T_len + t) * H + h) * D + c * G::CHUNK + 32 * m +
                       8 * (lane & 3);
           *reinterpret_cast<uint4*>(dst) = v;
         }
@@ -452,9 +489,11 @@ __device__ __forceinline__ void block_coords(int i, int BH, int n_qb, int causal
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS90, 1)
     flash_fwd_wgmma_kernel(__grid_constant__ const Params90 p) {
-  static_assert(sizeof(T) == 2, "T names the operand type in the symbol; bf16 only");
+  static_assert(sizeof(T) == 2, "bf16 or f16 operands");
   using G = Geo<D>;
   using L = FwdLayout<D>;
+  constexpr int BKW = L::BKW;
+  constexpr int STAGES = L::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   const uint32_t base = smem_u32(smem);
@@ -547,7 +586,7 @@ __global__ void __launch_bounds__(THREADS90, 1)
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)                              // S = Q.K^T
-          wgmma_ss(sc, desc_k<D, BLOCK_ROWS>(base + L::q, wg * ROWS, kk),
+          wgmma_ss<T>(sc, desc_k<D, BLOCK_ROWS>(base + L::q, wg * ROWS, kk),
                    desc_k<D, BKW>(k_tile, 0, kk), kk > 0);
         wg_commit();
         wg_wait<0>();
@@ -586,7 +625,7 @@ __global__ void __launch_bounds__(THREADS90, 1)
           const float p0 = exp2_approx(fmaf(sc[i], mul, -m2[j]));
           const float p1 = exp2_approx(fmaf(sc[i + 1], mul, -m2[j]));
           rs[j] += p0 + p1;
-          a[i >> 3][(i >> 1) & 3] = pack_bf16(p0, p1);
+          a[i >> 3][(i >> 1) & 3] = pack2<T>(p0, p1);
         }
 #pragma unroll
         for (int j = 0; j < 2; ++j) l[j] = l[j] * alpha[j] + rs[j];
@@ -595,7 +634,7 @@ __global__ void __launch_bounds__(THREADS90, 1)
 #pragma unroll
           for (int i = 0; i < G::CHUNK / 2; ++i) o[c][i] *= alpha[(i >> 1) & 1];
         wg_fence();
-        accumulate<D, BKW / 16, BKW>(o, a, base + L::v + s * L::TILE, 0);   // O += P.V
+        accumulate<T, D, BKW / 16, BKW>(o, a, base + L::v + s * L::TILE, 0);   // O += P.V
         wg_commit();
         wg_wait<0>();
 #pragma unroll
@@ -615,7 +654,7 @@ __global__ void __launch_bounds__(THREADS90, 1)
       const int t = row0 + 8 * j;
       if ((lane & 3) == 0 && t < T_len) p.lse[(long long)bh * T_len + t] = (m2[j] + log2f(lc)) * LN2;
     }
-    store_out<D>(p.o, o, inv_l, row0, lane, b, h, T_len, p.H);
+    store_out<T, D>(static_cast<T*>(p.o), o, inv_l, row0, lane, b, h, T_len, p.H);
   }
 }
 
@@ -635,49 +674,52 @@ int launch_f32(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_bf16(const Params& p, cudaStream_t stream) {
+template <typename T, int D>
+int launch16(const Params& p, cudaStream_t stream) {
   using L = FwdLayout<D>;
   Params90 q;
-  int rc = encode_map<D>(&q.q, p.q, p.B, p.T, p.H, p.q_sb, p.q_st, p.q_sh);
-  if (rc == 0) rc = encode_map<D>(&q.k, p.k, p.B, p.T, p.H, p.k_sb, p.k_st, p.k_sh);
-  if (rc == 0) rc = encode_map<D>(&q.v, p.v, p.B, p.T, p.H, p.v_sb, p.v_st, p.v_sh);
+  int rc = encode_map<T, D>(&q.q, p.q, p.B, p.T, p.H, p.q_sb, p.q_st, p.q_sh);
+  if (rc == 0) rc = encode_map<T, D>(&q.k, p.k, p.B, p.T, p.H, p.k_sb, p.k_st, p.k_sh);
+  if (rc == 0) rc = encode_map<T, D>(&q.v, p.v, p.B, p.T, p.H, p.v_sb, p.v_st, p.v_sh);
   if (rc != 0) return rc;
   q.kmask = p.kmask;
-  q.o = static_cast<bf16*>(p.o);
+  q.o = p.o;
   q.lse = p.lse;
   q.B = p.B;
   q.T = p.T;
   q.H = p.H;
   q.causal = p.causal;
   q.scale = p.scale;
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<bf16, D>,
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<T, D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(L::bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = (p.T + BLOCK_ROWS - 1) / BLOCK_ROWS * (p.B * p.H);
-  flash_fwd_wgmma_kernel<bf16, D><<<blocks, THREADS90, L::bytes, stream>>>(q);
+  flash_fwd_wgmma_kernel<T, D><<<blocks, THREADS90, L::bytes, stream>>>(q);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch(const Params& p, int dtype, cudaStream_t stream) {
-  return dtype == 0 ? launch_f32<D>(p, stream) : launch_bf16<D>(p, stream);
+  if (dtype == 0) return launch_f32<D>(p, stream);
+  if (dtype == 1) return launch16<bf16, D>(p, stream);
+  if (dtype == 2) return launch16<f16, D>(p, stream);
+  return ERR_UNSUPPORTED;
 }
 
 template <int D>
 long long smem_bytes(int dtype) {
-  return dtype == 0 ? static_cast<long long>(Smem<D>::bytes)
-                    : static_cast<long long>(FwdLayout<D>::bytes);
+  if (dtype == 0) return static_cast<long long>(Smem<D>::bytes);
+  if (dtype == 1 || dtype == 2) return static_cast<long long>(FwdLayout<D>::bytes);
+  return -1;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Returns 0 on a
-// clean launch, a negative code of our own (flash_fwd_error_string) or the
-// cudaError_t code.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; D in 32, 64, 128, 256. Strides are in elements. Returns 0 on a clean launch, a
+// negative code of our own (flash_fwd_error_string) or the cudaError_t code.
 int flash_fwd(const void* q, const void* k, const void* v, const float* kmask,
               void* out, float* lse, int B, int T, int H, int D, int dtype,
               int causal, float scale, long long q_sb, long long q_st,
@@ -699,22 +741,22 @@ int flash_fwd(const void* q, const void* k, const void* v, const float* kmask,
   p.causal = causal;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != 0 && dtype != 1) return ERR_UNSUPPORTED;
   switch (D) {
     case 32: return launch<32>(p, dtype, s);
     case 64: return launch<64>(p, dtype, s);
     case 128: return launch<128>(p, dtype, s);
+    case 256: return launch<256>(p, dtype, s);
     default: return ERR_UNSUPPORTED;
   }
 }
 
 // Dynamic shared memory one block takes, or -1 when unsupported.
 long long flash_fwd_smem_bytes(int dtype, int D) {
-  if (dtype != 0 && dtype != 1) return -1;
   switch (D) {
     case 32: return smem_bytes<32>(dtype);
     case 64: return smem_bytes<64>(dtype);
     case 128: return smem_bytes<128>(dtype);
+    case 256: return smem_bytes<256>(dtype);
     default: return -1;
   }
 }

@@ -10,52 +10,293 @@
 // the optional GravesLSTM peepholes [3H] (c_prev feeds i and f, c_new feeds
 // o). It writes hs (post-mask carries) and cs (post-mask cells) [B, T, H],
 // the pre-mask gates [B, T, 4H] and the final carries h_T, c_T [B, H], all in
-// zx's dtype.
+// zx's dtype (float32, bfloat16 or float16).
 //
-// Design (what differs from the TPU kernel, and why):
-// - The TPU grid walks time chunks in order on one core and keeps all of Wh
-//   (1 MB at H=256 f32) in VMEM. A Hopper block has at most 227 KB of shared
-//   memory, so Wh is sharded over hidden units: each block owns HB = 8 units
-//   and keeps their 4 gate columns, Wh[:, {i,f,g,o} x units] ([H, 32]), in
-//   shared memory for all T steps, laid out [k][unit][gate] so that one
-//   thread reads its unit's 4 gate weights with one vector load.
-// - Blocks also split the batch into tiles of BB = 32 rows (a block walks
-//   several tiles when the batch is larger than the grid allows), so one
-//   thread owns one (batch row, unit) pair: its 4 gate sums, its pointwise
-//   cell update and its c carry.
-// - Every step needs all of h_{t-1}. It is exchanged through a double-
-//   buffered f32 scratch [2, B, H] in device memory (read through L2 with
-//   ld.global.cg), and the step ends at one grid-wide barrier: the launch is
-//   cooperative (cudaLaunchCooperativeKernel), so all blocks are resident
-//   and cooperative_groups::this_grid().sync() cannot deadlock. The launch
-//   refuses a grid that cannot be co-resident.
-// - h is rounded to Wh's dtype before the recurrent product, as the TPU
-//   kernel casts it (`h.astype(wh.dtype)`); products accumulate in f32 with
-//   plain FMAs (no TF32), so f32 keeps f32 accuracy.
+// The TPU grid walks time chunks in order on one core and keeps all of Wh
+// (1 MB at H=256 f32) in VMEM. A Hopper block has at most 227 KB of shared
+// memory, so Wh is sharded over hidden units, and every step needs all of
+// h_{t-1}: the shards exchange h once a step. Two routes (lstm_common.cuh;
+// ops/fused_lstm.py `lstm_route` picks one from H and the dtype):
+//
+// cluster (fused_lstm_fwd_cluster_kernel; H <= 384 in f32 and <= 512 in
+// 16-bit types, the char-RNN's H=256 in every dtype): a cluster of C CTAs owns
+// R batch rows and walks all T steps with no grid-wide synchronisation, so
+// clusters never wait for each other and any B runs (extra clusters queue).
+// R is 8, or 9 when ceil(B / 8) clusters would not all run at once and
+// ceil(B / 9) would: an H100 runs 15 clusters of 8 CTAs at once, so B=128
+// takes 15 clusters of 9 rows instead of a second wave (lstm_common.cuh
+// cluster_rows). Every CTA
+// asks for at least half an SM's shared memory, so no two share an SM.
+// CTA k holds Wh[:, 4 gates x its U = H / C units] in shared memory (128 KB
+// at H=256 f32, C=8), laid out [column][k] with rows padded by 16 bytes so
+// that a warp's 16-byte loads of 32 columns fall in distinct banks. A step:
+// - the product h_{t-1} . Wh[:, its 4U columns]: each thread owns the 4
+//   gate columns of one unit and the R rows (4 R f32 sums), an eighth of
+//   the k range (the eighths added in a fixed order); h is read from shared
+//   memory as a broadcast, each 16-byte load feeding 16 FMAs (with one
+//   column a thread, 4 FMAs, the loads set most of a step's time);
+// - the gates and the cell update, one thread per (row, unit), with h and
+//   c carried in f32 registers; hs, cs, gates (and h_T, c_T) to memory;
+// - the new h slice, rounded to Wh's dtype, goes into every peer's
+//   double-buffered h buffer by 16-byte stores into distributed shared
+//   memory, then one split cluster barrier: zx[t+1] and the mask are
+//   loaded between its arrive and its wait.
+// cudaLaunchKernelEx with the cluster dimension; C = 16 needs
+// cudaFuncAttributeNonPortableClusterSizeAllowed.
+//
+// wide (fused_lstm_fwd_kernel; f32 H >= 512, 16-bit H >= 640, up to 1024):
+// the first design, whose Wh slice is small enough for any H: each block owns
+// HB = 8 units and their 4 gate columns, Wh[:, 32 columns], for all T steps;
+// one thread per (batch row, unit) of a 32-row tile; h_{t-1} goes through a
+// double-buffered f32 scratch in device memory, read through L2, and every
+// step ends at the grid barrier of a cooperative launch, which refuses a
+// grid that cannot be co-resident (H = 1024 f32: 128 blocks of 164 KB).
+//
+// Both: h is rounded to Wh's dtype before the recurrent product, as the TPU
+// kernel casts it (`h.astype(wh.dtype)`); products accumulate in f32 with
+// plain FMAs (no TF32), so f32 keeps f32 accuracy. Each launch's attributes
+// (and the wide route's occupancy answer) are set or asked once per kernel,
+// device and (dtype, H); a call repeats only the launch.
 //
 // Bound at the char-RNN shape (B=128, T=50, H=256, f32, one layer): the
 // recurrent products are 2*B*T*H*4H = 3.36 GFLOP, 0.050 ms at the H100
 // SXM's 67 TFLOP/s of f32 FMA; the kernel must read zx (26.2 MB) and Wh
 // and write gates, hs and cs (39.3 MB), ~67 MB, 0.020 ms at 3.35 TB/s: bound
-// by operations. In bf16 the bytes halve and the products would run on the
-// tensor cores, so it is bound by bytes (~0.010 ms). This first version does
-// its products on the FMA units from shared memory and ends every one of the
-// T dependent steps at a grid barrier, so the barriers and the per-step
-// latency set its time, far above that bound; a thread-block cluster
-// exchanging h through distributed shared memory, and wgmma for bf16, are
-// the later steps.
+// by operations. The cluster route's floor is set by the 50 dependent steps:
+// per step a CTA does 9 x 128 x 256 FMAs (~1.2 us on one SM's FMA units),
+// then the exchange and a cluster barrier, which take longer than the
+// product (tools/lstm_phase_profile.py splits a step).
 
 #include <algorithm>
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "lstm_common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+struct Params {
+  const void* zx;       // [B, T, 4H]
+  const void* wh;       // [H, 4H]
+  const float* mask;    // [B, T] or null
+  const float* peep;    // [3H] or null
+  float* hbuf;          // wide: [2, B, H] with slot 0 = h0; cluster: h0 [B, H]
+  float* cbuf;          // wide: [B, H] = c0, updated in place; cluster: c0 [B, H]
+  void* hs;             // [B, T, H]
+  void* gates;          // [B, T, 4H]
+  void* cs;             // [B, T, H]
+  void* hT;             // [B, H]
+  void* cT;             // [B, H]
+  int B, T, H;
+  int cluster;          // CTAs of a cluster (cluster route), 0 for the wide route
+};
+
+// ===========================================================================
+// cluster route
+// ===========================================================================
+
+// Shared memory of one CTA with U units and R rows: the Wh slice
+// [4U][H + PADW] and the double-buffered h [2][R][H] (both in T), the
+// product's partial sums [KS_FWD][R][4U] f32 and the CTA's new h slice
+// [R][U] in T.
+constexpr int KS_FWD = 8;                  // k parts of the product
+
+template <typename T>
+struct FwdCluster {
+  __host__ __device__ static size_t ldw(int H) { return size_t(H) + PADW; }
+  __host__ __device__ static size_t hb(int H, int U) {
+    return align16(size_t(4) * U * ldw(H) * sizeof(T));
+  }
+  __host__ __device__ static size_t zp(int H, int U, int R) {
+    return hb(H, U) + align16(size_t(2) * R * H * sizeof(T));
+  }
+  __host__ __device__ static size_t hst(int H, int U, int R) {
+    return zp(H, U, R) + size_t(KS_FWD) * R * 4 * U * sizeof(float);
+  }
+  __host__ __device__ static size_t bytes(int H, int U, int R) {
+    return hst(H, U, R) + align16(size_t(R) * U * sizeof(T));
+  }
+};
+
+constexpr int MAX_CLUSTER_THREADS = ROWS_C * 32;
+static_assert(KS_FWD == ROWS_C, "8U threads: one per (unit, k part)");
+
+// 8U threads: one per (unit u, k part kp) for the product, which sums the 4
+// gate columns of u over the cluster's rows (4 R f32 sums a thread), and
+// one per (row, unit u) for the cell update: rows tid / U and tid / U + 8
+// when the cluster owns more than 8.
+template <typename T, int R>
+__global__ void __launch_bounds__(MAX_CLUSTER_THREADS, 1)
+fused_lstm_fwd_cluster_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using L = FwdCluster<T>;
+  const int B = p.B, n_t = p.T, H = p.H, Z = 4 * H;
+  const int C = p.cluster, U = H / C, NCOL = 4 * U;
+  const int rank = int(cluster_rank());
+  const int row0 = int(cluster_id()) * R;
+  const int j0 = rank * U;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int LW = int(L::ldw(H));
+  T* whs = reinterpret_cast<T*>(smem);                              // [NCOL][LW]
+  T* hb = reinterpret_cast<T*>(smem + L::hb(H, U));                 // [2][R][H]
+  float* zp = reinterpret_cast<float*>(smem + L::zp(H, U, R));      // [KS_FWD][R][NCOL]
+  T* hst = reinterpret_cast<T*>(smem + L::hst(H, U, R));            // [R][U]
+
+  const T* wh = static_cast<const T*>(p.wh);
+#pragma unroll 4   // independent loads in flight: the slice is read once, from L2
+  for (int idx = tid; idx < H * NCOL; idx += nthr) {
+    const int k = idx / NCOL, c = idx % NCOL;
+    whs[c * LW + k] = wh[size_t(k) * Z + (c / U) * H + j0 + c % U];
+  }
+  for (int idx = tid; idx < R * H; idx += nthr) {
+    const int b = row0 + idx / H;
+    hb[idx] = from_f<T>(b < B ? p.hbuf[size_t(b) * H + idx % H] : 0.f);
+  }
+
+  const int u = tid % U, j = j0 + u;
+  const int kp = tid / U, kseg = H / KS_FWD, k0 = kp * kseg;
+  const bool peep = p.peep != nullptr;
+  const float p_i = peep ? p.peep[j] : 0.f;
+  const float p_f = peep ? p.peep[H + j] : 0.f;
+  const float p_o = peep ? p.peep[2 * H + j] : 0.f;
+  const T* zx = static_cast<const T*>(p.zx);
+  T* hs = static_cast<T*>(p.hs);
+  T* gates = static_cast<T*>(p.gates);
+  T* cs = static_cast<T*>(p.cs);
+
+  // the thread's rows r[e] = tid / U + 8 e: owned when below R, real when the
+  // batch row exists too; h and c carried in f32 registers, zx and the mask
+  // of the next step loaded ahead
+  int r[2];
+  bool own[2], real[2];
+  float h[2], c[2], zn[2][4], mn[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    r[e] = tid / U + ROWS_C * e;
+    own[e] = r[e] < R;
+    const int b = row0 + r[e];
+    real[e] = own[e] && b < B;
+    h[e] = real[e] ? p.hbuf[size_t(b) * H + j] : 0.f;
+    c[e] = real[e] ? p.cbuf[size_t(b) * H + j] : 0.f;
+    mn[e] = 1.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) zn[e][q] = 0.f;
+    if (real[e]) {
+      const size_t row = size_t(b) * n_t;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) zn[e][q] = to_f(zx[row * Z + q * H + j]);
+      if (p.mask != nullptr) mn[e] = p.mask[row];
+    }
+  }
+  cluster_sync();   // every CTA of the cluster runs and holds h0
+
+  for (int t = 0; t < n_t; ++t) {
+    // ---- the 4 gate sums of unit u over k part kp: h_{t-1} . Wh ----
+    LSTM_PHASE(t, 0);
+    const T* hcur = hb + (t & 1) * R * H + k0;
+    const T* w = whs + u * LW + k0;
+    float acc[R][4];
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[rr][q] = 0.f;
+#pragma unroll 2   // two steps of loads in flight
+    for (int k = 0; k < kseg; k += 4) {
+      float4 w4[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) w4[q] = load4(w + q * U * LW + k);
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) {
+        const float4 h4 = load4(hcur + rr * H + k);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[rr][q] = dot4(w4[q], h4, acc[rr][q]);
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) zp[(kp * R + rr) * NCOL + q * U + u] = acc[rr][q];
+    __syncthreads();
+    LSTM_PHASE(t, 1);   // the product
+
+    // ---- gates and cell update for (row r[e], unit u) ----
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (!own[e]) continue;
+      float z[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float sum = 0.f;   // the k parts in order
+#pragma unroll
+        for (int part = 0; part < KS_FWD; ++part) sum += zp[(part * R + r[e]) * NCOL + q * U + u];
+        z[q] = zn[e][q] + sum;
+      }
+      float i, f, g, o, c_new;
+      const float cc = c[e];
+      if (peep) {
+        i = sigmoid(z[0] + cc * p_i);
+        f = sigmoid(z[1] + cc * p_f);
+        g = tanhf(z[2]);
+        c_new = f * cc + i * g;
+        o = sigmoid(z[3] + c_new * p_o);
+      } else {
+        i = sigmoid(z[0]);
+        f = sigmoid(z[1]);
+        g = tanhf(z[2]);
+        o = sigmoid(z[3]);
+        c_new = f * cc + i * g;
+      }
+      const float h_new = o * tanhf(c_new);
+      const float m = mn[e];
+      h[e] = m * h_new + (1.f - m) * h[e];
+      c[e] = m * c_new + (1.f - m) * cc;
+      if (real[e]) {
+        const size_t row = size_t(row0 + r[e]) * n_t + t;
+        hs[row * H + j] = from_f<T>(h[e]);
+        cs[row * H + j] = from_f<T>(c[e]);
+        T* gr = gates + row * Z;
+        gr[j] = from_f<T>(i);
+        gr[H + j] = from_f<T>(f);
+        gr[2 * H + j] = from_f<T>(g);
+        gr[3 * H + j] = from_f<T>(o);
+      }
+      hst[r[e] * U + u] = from_f<T>(real[e] ? h[e] : 0.f);
+    }
+    if (t + 1 == n_t) break;
+    LSTM_PHASE(t, 2);   // the cell update
+
+    // ---- h_t into every CTA's buffer (t+1)&1, then one cluster barrier ----
+    __syncthreads();
+    push_rows(reinterpret_cast<const unsigned char*>(hst), size_t(U) * sizeof(T),
+              reinterpret_cast<unsigned char*>(hb + ((t + 1) & 1) * R * H + j0),
+              size_t(H) * sizeof(T), R, int(U * sizeof(T) / 16), C, tid, nthr);
+    LSTM_PHASE(t, 3);   // pushing h
+    cluster_arrive();
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {   // zx and the mask of step t+1
+      if (real[e]) {
+        const size_t row = size_t(row0 + r[e]) * n_t + t + 1;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) zn[e][q] = to_f(zx[row * Z + q * H + j]);
+        if (p.mask != nullptr) mn[e] = p.mask[row];
+      }
+    }
+    cluster_wait();
+    LSTM_PHASE(t, 4);   // the barrier, with the next step's zx loads
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+    if (real[e]) {
+      const size_t b = size_t(row0 + r[e]);
+      static_cast<T*>(p.hT)[b * H + j] = from_f<T>(h[e]);
+      static_cast<T*>(p.cT)[b * H + j] = from_f<T>(c[e]);
+    }
+}
+
+// ===========================================================================
+// wide route: the hidden-unit-sharded grid kernel
+// ===========================================================================
 
 constexpr int BB = 32;              // batch rows per tile
 constexpr int HB = 8;               // hidden units per block
@@ -63,48 +304,8 @@ constexpr int THREADS = BB * HB;    // one thread per (row, unit): 256
 constexpr int KC = 256;             // h columns staged per chunk
 constexpr int LDH = KC + 4;         // staged row stride (floats): rows 4 banks apart
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16(x);
-}
-// x rounded to T's precision, kept as a float
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
-// four consecutive elements as floats (16-byte / 8-byte aligned)
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const bf16* p) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
-
-struct Params {
-  const void* zx;       // [B, T, 4H]
-  const void* wh;       // [H, 4H]
-  const float* mask;    // [B, T] or null
-  const float* peep;    // [3H] or null
-  float* hbuf;          // [2, B, H]: h_{t-1} in slot t&1, slot 0 seeded with h0
-  float* cbuf;          // [B, H]: c, seeded with c0, read/written by its owner
-  void* hs;             // [B, T, H]
-  void* gates;          // [B, T, 4H]
-  void* cs;             // [B, T, H]
-  void* hT;             // [B, H]
-  void* cT;             // [B, H]
-  int B, T, H;
-};
-
 template <typename T>
-size_t smem_bytes(int H) {
+size_t wide_smem_bytes(int H) {
   return size_t(H) * HB * 4 * sizeof(T) + size_t(BB) * LDH * sizeof(float);
 }
 
@@ -225,63 +426,167 @@ fused_lstm_fwd_kernel(const Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+bool h_supported(int H) { return H >= 128 && H <= MAX_H && H % 128 == 0; }
+
 template <typename T>
-int launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(p.H);
+bool cluster_fits(int H, int C) {
+  if (C != 4 && C != 8 && C != 16) return false;
+  if (H % C) return false;
+  const int U = H / C;
+  return U <= 32 && U % 8 == 0 && FwdCluster<T>::bytes(H, U, ROWS_C) <= SMEM_LIMIT;
+}
+
+template <typename T, int R>
+LaunchCache& cluster_cache() {
+  static LaunchCache cache;
+  return cache;
+}
+
+template <typename T>
+int cluster_rows_for(int B, int H, int C, int dtype, int* rows) {
+  const int U = H / C;
+  return cluster_rows(cluster_cache<T, ROWS_C>(), fused_lstm_fwd_cluster_kernel<T, ROWS_C>,
+                      [=](int R) { return FwdCluster<T>::bytes(H, U, R); }, B, H, C, dtype,
+                      rows);
+}
+
+template <typename T, int R>
+int launch_rows(const Params& p, cudaStream_t stream) {
+  auto kernel = fused_lstm_fwd_cluster_kernel<T, R>;
+  int rc = prepare_cluster_kernel(cluster_cache<T, R>(), kernel);
+  if (rc != 0) return rc;
+  const int C = p.cluster, U = p.H / C;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(
+      attr, (p.B + R - 1) / R, C, ROWS_C * U, spread_smem(FwdCluster<T>::bytes(p.H, U, R)), stream);
+  return int(cudaLaunchKernelEx(&cfg, kernel, p));
+}
+
+template <typename T>
+int launch_cluster(const Params& p, int dtype, cudaStream_t stream) {
+  int rows = 0;
+  int rc = cluster_rows_for<T>(p.B, p.H, p.cluster, dtype, &rows);
+  if (rc != 0) return rc;
+  switch (rows) {
+    case 8: return launch_rows<T, 8>(p, stream);
+    case 9: return launch_rows<T, 9>(p, stream);
+    default: return -1;
+  }
+}
+
+template <typename T>
+int launch_wide(const Params& p, int dtype, cudaStream_t stream) {
+  static LaunchCache cache;
   auto kernel = fused_lstm_fwd_kernel<T>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return int(e);
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return int(e);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return -2;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
-  if (e != cudaSuccess) return int(e);
+  int dev = 0;
+  int rc = current_device(&dev);
+  if (rc != 0) return rc;
+  if (!cache.ready[dev]) {
+    int coop = 0;
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(SMEM_LIMIT));
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&cache.sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return int(e);
+    if (!coop) return -2;
+    cache.ready[dev] = true;
+  }
+  const size_t smem = wide_smem_bytes<T>(p.H);
+  int& per_sm = cache.answer[dev][dtype][p.H / 128];
+  if (per_sm == 0) {
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+    if (e != cudaSuccess) {
+      per_sm = 0;
+      return int(e);
+    }
+    if (per_sm == 0) per_sm = -1;
+  }
   const int n_slices = p.H / HB;
   const int n_tiles = (p.B + BB - 1) / BB;
-  const int groups = std::min(n_tiles, per_sm * sms / n_slices);
+  const int groups = per_sm < 0 ? 0 : std::min(n_tiles, per_sm * cache.sms[dev] / n_slices);
   if (groups < 1) return -2;
   Params args = p;
   void* kargs[] = {&args};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                  dim3(n_slices * groups), dim3(THREADS), kargs,
-                                  smem, stream);
-  return int(e);
+  return int(cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                         dim3(n_slices * groups), dim3(THREADS), kargs,
+                                         smem, stream));
 }
 
-bool supported(int H) { return H >= 128 && H <= 512 && H % 128 == 0; }
+template <typename T>
+int launch(const Params& p, int dtype, cudaStream_t stream) {
+  if (p.cluster == 0) return launch_wide<T>(p, dtype, stream);
+  if (!cluster_fits<T>(p.H, p.cluster)) return -1;
+  return launch_cluster<T>(p, dtype, stream);
+}
+
+// The cluster route's rows per cluster for B, or negative (-1 unsupported,
+// -(1000 + e) for a cudaError_t e).
+template <typename T>
+int rows_for(int B, int H, int cluster, int dtype) {
+  if (!cluster_fits<T>(H, cluster)) return -1;
+  int rows = 0;
+  const int rc = cluster_rows_for<T>(B, H, cluster, dtype, &rows);
+  return rc != 0 ? -(1000 + rc) : rows;
+}
+
+template <typename T>
+long long smem_bytes(int H, int cluster) {
+  if (cluster == 0) return (long long)wide_smem_bytes<T>(H);
+  if (!cluster_fits<T>(H, cluster)) return -1;
+  return (long long)FwdCluster<T>::bytes(H, H / cluster, ROWS_C);
+}
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (zx, Wh, and every output). Returns 0 on a
-// clean launch, -1 for an unsupported dtype or H, -2 when the grid cannot be
-// co-resident, else the cudaError_t code.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (zx, Wh, and every output).
+// cluster: the cluster route's CTAs per cluster (4, 8 or 16), or 0 for the
+// wide route. h0 and c0 are f32; the wide route needs hbuf [2, B, H] with h0
+// in slot 0 and cbuf = c0 [B, H] (updated in place), the cluster route reads
+// h0 and c0 [B, H] through the same two pointers. Returns 0 on a clean
+// launch, -1 for an unsupported dtype, H or cluster size, -2 when the wide
+// route's grid cannot be co-resident, else the cudaError_t code.
 int fused_lstm_fwd(const void* zx, const void* wh, const float* mask,
                    const float* peep, float* hbuf, float* cbuf, void* hs,
                    void* gates, void* cs, void* hT, void* cT, int B, int T,
-                   int H, int dtype, void* stream) {
-  if (!supported(H) || B < 1 || T < 1) return -1;
-  Params p{zx, wh, mask, peep, hbuf, cbuf, hs, gates, cs, hT, cT, B, T, H};
+                   int H, int dtype, int cluster, void* stream) {
+  if (!h_supported(H) || B < 1 || T < 1) return -1;
+  Params p{zx, wh, mask, peep, hbuf, cbuf, hs, gates, cs, hT, cT, B, T, H, cluster};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(p, s);
-  if (dtype == 1) return launch<bf16>(p, s);
+  if (dtype == 0) return launch<float>(p, dtype, s);
+  if (dtype == 1) return launch<bf16>(p, dtype, s);
+  if (dtype == 2) return launch<f16>(p, dtype, s);
   return -1;
 }
 
-// Dynamic shared memory one block takes, or -1 when unsupported.
-long long fused_lstm_fwd_smem_bytes(int dtype, int H) {
-  if (!supported(H)) return -1;
-  if (dtype == 0) return (long long)smem_bytes<float>(H);
-  if (dtype == 1) return (long long)smem_bytes<bf16>(H);
+// Dynamic shared memory one block of the route takes, or -1 when unsupported.
+long long fused_lstm_fwd_smem_bytes(int dtype, int H, int cluster) {
+  if (!h_supported(H)) return -1;
+  if (dtype == 0) return smem_bytes<float>(H, cluster);
+  if (dtype == 1) return smem_bytes<bf16>(H, cluster);
+  if (dtype == 2) return smem_bytes<f16>(H, cluster);
+  return -1;
+}
+
+// The cluster route's rows per cluster for a batch of B on the current
+// device (8, or more when ceil(B / 8) clusters would not all run at once),
+// or negative (-1 unsupported, -(1000 + e) for a cudaError_t e).
+int fused_lstm_fwd_cluster_rows(int dtype, int B, int H, int cluster) {
+  if (!h_supported(H) || B < 1) return -1;
+  if (dtype == 0) return rows_for<float>(B, H, cluster, 0);
+  if (dtype == 1) return rows_for<bf16>(B, H, cluster, 1);
+  if (dtype == 2) return rows_for<f16>(B, H, cluster, 2);
   return -1;
 }
 
 const char* fused_lstm_fwd_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return cudaGetErrorString(static_cast<cudaError_t>(code <= -1000 ? -code - 1000 : code));
 }
 
 }  // extern "C"

@@ -21,9 +21,12 @@ from deeplearning4j_tpu_torch.nn.input_type import InputType
 class EmbeddingSequence(FeedForwardLayerConfig):
     """Sequence embedding: int [batch, time] -> [batch, time, n_out].
 
-    Ids outside ``[0, n_in)`` raise a ValueError here, on the host, rather
-    than reaching the device gather (an out-of-range index there is a
-    device-side assert that poisons the CUDA context)."""
+    ``apply`` gathers as the reference's ``jnp.take(W, idx, axis=0)``
+    does, with no read back to the host: ids in ``[-V, 0)`` wrap and ids
+    outside ``[-V, V)`` give rows of NaN. Ids that arrive from the host
+    (numpy or CPU tensors) are checked before they are copied to the
+    device (:meth:`check_host_ids`, called by the model's input path) and
+    raise a ValueError outside ``[0, V)``."""
 
     has_bias: bool = False
 
@@ -37,13 +40,22 @@ class EmbeddingSequence(FeedForwardLayerConfig):
                                          n_in, self.n_out, dtype, device)
         }
 
+    @staticmethod
+    def check_host_ids(x: torch.Tensor, vocab: int) -> None:
+        """Raise a ValueError for a host tensor of ids outside ``[0, vocab)``."""
+        idx = x.to(torch.int64)
+        if idx.numel() and bool(((idx < 0) | (idx >= vocab)).any()):
+            raise ValueError(
+                f"embedding ids must lie in [0, {vocab}), got "
+                f"[{int(idx.min())}, {int(idx.max())}]")
+
     def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         idx = x.to(torch.int64)
         if idx.dim() == 3 and idx.shape[-1] == 1:
             idx = idx[..., 0]
         W = params["W"]
-        if idx.numel() and bool(((idx < 0) | (idx >= W.shape[0])).any()):
-            raise ValueError(
-                f"embedding ids must lie in [0, {W.shape[0]}), got "
-                f"[{int(idx.min())}, {int(idx.max())}]")
-        return W[idx], state
+        V = W.shape[0]
+        idx = torch.where(idx < 0, idx + V, idx)
+        valid = (idx >= 0) & (idx < V)
+        rows = W[idx.clamp(0, V - 1)]
+        return torch.where(valid[..., None], rows, rows.new_tensor(float("nan"))), state

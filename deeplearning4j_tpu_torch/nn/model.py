@@ -362,7 +362,7 @@ class MultiLayerNetwork:
         new_state = list(state)
         new_carries = list(carries) if carries is not None else None
         mask = fmask
-        a = _cast_input(x, self.dtype, self.device)
+        a = self._features(x)
         for i in range(n):
             layer = self.layers[i]
             ltrain = train and not (deterministic and layer.uses_rng())
@@ -384,11 +384,27 @@ class MultiLayerNetwork:
         return (a, tuple(new_state),
                 tuple(new_carries) if new_carries is not None else None, mask, acts)
 
-    def feed_forward(self, x):
-        """All layer activations (MultiLayerNetwork.feedForward)."""
+    def _features(self, x):
+        """A feature batch on the model's device (``_cast_input``). Ids from
+        the host for an embedding first layer are range-checked here, before
+        the copy, so that the layer's device gather never reads back."""
+        if x is None:
+            return None
+        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+        first = self.layers[0] if self.layers else None
+        if (t.device.type == "cpu" and self.params is not None
+                and hasattr(first, "check_host_ids")):
+            ids = t.to(self.dtype) if t.is_floating_point() and t.dtype != torch.float64 else t
+            first.check_host_ids(ids, self.params[0]["W"].shape[0])
+        return _cast_input(t, self.dtype, self.device)
+
+    def feed_forward(self, x, train: bool = False):
+        """All layer activations (MultiLayerNetwork.feedForward); with
+        ``train`` the layers run in train mode (dropout draws from the
+        model's generator), as the reference's ``feed_forward(x, train)``."""
         with torch.inference_mode():
-            return self._forward(self.params, self.state, x, train=False,
-                                 collect=True)[4]
+            return self._forward(self.params, self.state, x, train=train,
+                                 rng=self._gen if train else None, collect=True)[4]
 
     # -- loss and the training step ----------------------------------------
     def _loss(self, params, state, x, y, fmask, lmask, rng, carries=None,
@@ -521,7 +537,7 @@ class MultiLayerNetwork:
         """One step on a host or device batch; returns the loss as a device
         scalar. ``ew``: optional per-example validity weight."""
         return self._step(
-            _cast_input(x, self.dtype, self.device),
+            self._features(x),
             _cast_labels(y, self.dtype, self.device),
             _cast_mask(fm, self.dtype, self.device),
             _cast_mask(lm, self.dtype, self.device),
@@ -532,7 +548,7 @@ class MultiLayerNetwork:
         ``tbptt_fwd_length`` chunks and take one update per chunk, passing
         the RNN carries on detached. Returns the mean chunk loss as a device
         scalar; ``iteration`` advances once per chunk."""
-        x = _cast_input(x, self.dtype, self.device)
+        x = self._features(x)
         T, L = x.shape[1], self.conf.tbptt_fwd_length
         y = _cast_labels(y, self.dtype, self.device)
         # time-sliced labels: one-hot [B, T, C] and sparse integer [B, T];
@@ -557,9 +573,11 @@ class MultiLayerNetwork:
         return total / max(nchunks, 1)
 
     # -- inference ---------------------------------------------------------
-    def output(self, x, fmask=None) -> torch.Tensor:
+    def output(self, x, train: bool = False, fmask=None) -> torch.Tensor:
         """Final-layer post-activation output (MultiLayerNetwork.output),
-        a tensor on the model's device.
+        a tensor on the model's device. ``train`` is accepted for the
+        reference's signature and, as there, ignored: inference always runs
+        the layers in eval mode.
 
         Batch rows are padded up to the shared bucket ladder before the
         forward pass (and sliced back off), so mixed caller batch sizes run
@@ -569,7 +587,7 @@ class MultiLayerNetwork:
         if self.params is None:
             raise RuntimeError("call init() (or load params) before output()")
         with torch.inference_mode():
-            x = _cast_input(x, self.dtype, self.device)
+            x = self._features(x)
             fmask = _cast_mask(fmask, self.dtype, self.device)
             n = x.shape[0]
             with obs.span("mln.output"):
@@ -592,7 +610,7 @@ class MultiLayerNetwork:
         call with another batch size starts from zero carries. Runs under
         ``torch.inference_mode()``."""
         with torch.inference_mode():
-            x = _cast_input(x, self.dtype, self.device)
+            x = self._features(x)
             squeeze = x.ndim == 2
             if squeeze:
                 x = x[:, None, :]

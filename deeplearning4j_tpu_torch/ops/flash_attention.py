@@ -47,6 +47,7 @@ import torch
 from deeplearning4j_tpu_torch.ops import _build
 
 __all__ = [
+    "MAX_HEAD_DIM",
     "SUPPORTED_HEAD_DIMS",
     "flash_attention",
     "flash_attention_bwd_reference",
@@ -56,12 +57,17 @@ __all__ = [
     "flash_bwd_dkv_cuda",
     "flash_bwd_dq_cuda",
     "flash_fwd_cuda",
+    "kernel_head_dim",
     "local_attention",
+    "pad_head_dim",
 ]
 
 _NEG_BIG = -1e30
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# head dims the kernels are built for; a head dim between them runs
+# zero-padded up to the next (kernel_head_dim), up to MAX_HEAD_DIM
+SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
+MAX_HEAD_DIM = 256
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _lib = None
 _bwd_lib = None
 
@@ -102,6 +108,30 @@ def _bwd_kernel_lib() -> ctypes.CDLL:
     return _bwd_lib
 
 
+def kernel_head_dim(D: int, dtype: torch.dtype) -> int:
+    """The head dim the kernels run a D-wide head at: the smallest of
+    :data:`SUPPORTED_HEAD_DIMS` not below D. The wrappers zero-pad q, k, v
+    (and the backward's do) up to it and pass the real ``1/sqrt(D)``; the
+    padded columns add exact zeros to every product and are sliced off the
+    outputs, so the result is the D-wide attention's. Raises a ValueError
+    past :data:`MAX_HEAD_DIM` or for a dtype other than float32, bfloat16
+    and float16."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"flash attention kernels take float32, bfloat16 or float16, "
+                         f"got {dtype}")
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"flash attention kernels take head dims up to {MAX_HEAD_DIM}, "
+                         f"got {D}")
+    return next(d for d in SUPPORTED_HEAD_DIMS if d >= D)
+
+
+def pad_head_dim(x: torch.Tensor, d: int) -> torch.Tensor:
+    """``x`` [..., D] zero-padded to a contiguous [..., d] (``x`` itself
+    when D == d)."""
+    D = x.shape[-1]
+    return x if D == d else torch.nn.functional.pad(x, (0, d - D)).contiguous()
+
+
 def _check_operands(q, k, v, kmask, who="flash_fwd", **extra):
     """Raise on anything the kernels do not take. ``extra`` names further
     [B, T, H, D] operands (the backward's ``do``) held to q's rules."""
@@ -115,19 +145,17 @@ def _check_operands(q, k, v, kmask, who="flash_fwd", **extra):
             raise ValueError(f"{name} must lie on q's CUDA device, got {x.device}")
         if x.dtype != q.dtype:
             raise ValueError(f"{name} is {x.dtype}, q is {q.dtype}")
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"{who} takes bfloat16 or float32, got {q.dtype}")
     B, T, H, D = q.shape
-    if D not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"{who} takes head dim D in {SUPPORTED_HEAD_DIMS}, got {D}")
+    padded = kernel_head_dim(D, q.dtype) != D
     if T < 1 or B * H < 1 or B * H > 65535:
         raise ValueError(f"{who} needs T >= 1 and 1 <= B*H <= 65535, got {tuple(q.shape)}")
     esize = q.element_size()
     for name, x in named:
         # rows are read in 16-byte chunks through the B/T/H strides: the head
-        # dim must be contiguous and every row start 16-byte aligned
-        if x.stride(3) != 1 or x.data_ptr() % 16 or any(
-                (s * esize) % 16 for s in x.stride()[:3]):
+        # dim must be contiguous and every row start 16-byte aligned (padded
+        # operands are fresh contiguous copies, aligned whatever D is)
+        if not padded and (x.stride(3) != 1 or x.data_ptr() % 16 or any(
+                (s * esize) % 16 for s in x.stride()[:3])):
             raise ValueError(
                 f"{name} must have a contiguous head dim and 16-byte aligned "
                 f"rows (strides {x.stride()}, {x.dtype})")
@@ -138,23 +166,32 @@ def _check_operands(q, k, v, kmask, who="flash_fwd", **extra):
             raise ValueError(f"kmask must lie on {q.device}, got {kmask.device}")
 
 
+def _padded(D, dtype, *xs):
+    """The operands padded to the kernels' head dim, and that dim."""
+    d = kernel_head_dim(D, dtype)
+    return d, [pad_head_dim(x, d) for x in xs]
+
+
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    kmask: Optional[torch.Tensor] = None,
                    causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch kernel #1 (``csrc/flash_fwd.cu``: the wgmma/TMA kernel for
     bf16, the FMA kernel for f32) on PyTorch's current stream.
 
-    q/k/v [B, T, H, D] CUDA tensors (bf16 or f32, D in 32/64/128, head dim
-    contiguous; other strides are read as they are, so the fused-qkv split
-    views need no copy); ``kmask`` [B, T] key validity (>0 = real key).
+    q/k/v [B, T, H, D] CUDA tensors (f32, bf16 or f16, D up to 256; a D
+    outside :data:`SUPPORTED_HEAD_DIMS` runs zero-padded,
+    :func:`kernel_head_dim`; head dim contiguous; other strides are read as
+    they are, so the fused-qkv split views need no copy); ``kmask`` [B, T]
+    key validity (>0 = real key).
     Returns ``(out [B, T, H, D] in q's dtype, lse [B, H, T] f32)``. Raises
     on anything the kernel does not take, on a tensor map libcuda
     refuses and on a failed launch. Each launch adds one to
     ``flash_fwd_cuda.launches``."""
     _check_operands(q, k, v, kmask)
     B, T, H, D = q.shape
+    d, (q, k, v) = _padded(D, q.dtype, q, k, v)
     lib = _kernel_lib()
-    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, T, H, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     km = None
     if kmask is not None:
@@ -165,14 +202,14 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             km.data_ptr() if km is not None else None,
             out.data_ptr(), lse.data_ptr(),
-            B, T, H, D, _DTYPE_CODES[q.dtype], int(bool(causal)),
+            B, T, H, d, _DTYPE_CODES[q.dtype], int(bool(causal)),
             1.0 / math.sqrt(D),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream)
     if rc != 0:
         raise RuntimeError(f"flash_fwd launch failed ({rc}): "
                            f"{lib.flash_fwd_error_string(rc).decode()}")
     flash_fwd_cuda.launches += 1
-    return out, lse
+    return (out if d == D else out[..., :D].contiguous()), lse
 
 
 flash_fwd_cuda.launches = 0
@@ -195,8 +232,12 @@ def _bwd_operands(q, k, v, do, lse, delta, kmask, who):
     return do, km
 
 
-def _launch_bwd(fn, q, k, v, do, lse, delta, km, outs, causal):
+def _launch_bwd(fn, q, k, v, do, lse, delta, km, n_out, causal):
+    """Launch one backward kernel on the operands padded to the kernels'
+    head dim; returns its ``n_out`` gradients at the real D."""
     B, T, H, D = q.shape
+    d, (q, k, v, do) = _padded(D, q.dtype, q, k, v, do)
+    outs = [torch.empty((B, T, H, d), dtype=q.dtype, device=q.device) for _ in range(n_out)]
     lib = _bwd_kernel_lib()
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *do.stride()[:3])
@@ -207,11 +248,12 @@ def _launch_bwd(fn, q, k, v, do, lse, delta, km, outs, causal):
             lse.data_ptr(), delta.data_ptr(),
             km.data_ptr() if km is not None else None,
             *(o.data_ptr() for o in outs),
-            B, T, H, D, _DTYPE_CODES[q.dtype], int(bool(causal)),
+            B, T, H, d, _DTYPE_CODES[q.dtype], int(bool(causal)),
             1.0 / math.sqrt(D), strides, stream)
     if rc != 0:
         raise RuntimeError(f"{fn} launch failed ({rc}): "
                            f"{lib.flash_bwd_error_string(rc).decode()}")
+    return [o if d == D else o[..., :D].contiguous() for o in outs]
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, kmask=None, causal=False):
@@ -222,9 +264,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, kmask=None, causal=False):
     Raises on anything the kernel does not take and on a failed launch.
     Each launch adds one to ``flash_bwd_dq_cuda.launches``."""
     do, km = _bwd_operands(q, k, v, do, lse, delta, kmask, "flash_bwd_dq")
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd("flash_bwd_dq", q, k, v, do, lse, delta, km,
-                (dq,), causal)
+    (dq,) = _launch_bwd("flash_bwd_dq", q, k, v, do, lse, delta, km, 1, causal)
     flash_bwd_dq_cuda.launches += 1
     return dq
 
@@ -238,10 +278,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, kmask=None, causal=False):
     :func:`flash_bwd_dq_cuda`. Each launch adds one to
     ``flash_bwd_dkv_cuda.launches``."""
     do, km = _bwd_operands(q, k, v, do, lse, delta, kmask, "flash_bwd_dkv")
-    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, km,
-                (dk, dv), causal)
+    dk, dv = _launch_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, km, 2, causal)
     flash_bwd_dkv_cuda.launches += 1
     return dk, dv
 
@@ -265,9 +302,9 @@ def flash_bwd_cuda(q, k, v, out, lse, do, kmask=None, causal=False):
     return dq, dk, dv
 
 
-def _masked_scores(q, k, causal, kmask):
+def _masked_scores(q, k, causal, kmask, scale=None):
     """f32 scaled scores [B, H, Tq, Tk] with masked entries at -1e30."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if causal:
         T = q.shape[1]
@@ -279,28 +316,31 @@ def _masked_scores(q, k, causal, kmask):
 
 
 def flash_attention_reference(q, k, v, *, causal: bool = False, kmask=None,
-                              with_lse: bool = False):
+                              with_lse: bool = False, scale: Optional[float] = None):
     """The plain version of the kernel, on any device: f32 scores and
     softmax, masked scores clamped at -1e30, output in q's dtype (and, with
-    ``with_lse``, the f32 logsumexp [B, H, T]). Materialises [B,H,T,T]."""
-    s = _masked_scores(q, k, causal, kmask)
+    ``with_lse``, the f32 logsumexp [B, H, T]). Materialises [B,H,T,T].
+    ``scale`` defaults to ``1/sqrt(D)`` (a zero-padded head passes its real
+    D's)."""
+    s = _masked_scores(q, k, causal, kmask, scale)
     out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1),
                        v.float()).to(q.dtype)
     return (out, torch.logsumexp(s, dim=-1)) if with_lse else out
 
 
 def flash_attention_bwd_reference(q, k, v, out, lse, do, kmask=None,
-                                  causal: bool = False):
+                                  causal: bool = False, scale: Optional[float] = None):
     """The plain version of the backward kernels, on any device, with the
     TPU kernels' formulas over a materialised [B, H, T, T] in f32:
     p = exp(s - lse) where the pair is valid and exactly 0 elsewhere,
     delta = rowsum(do * out), ds = p * (do . v^T - delta);
     dv = p^T . do, dq = scale * ds . k, dk = scale * ds^T . q, with p and ds
     rounded to the operand dtype before their products as the kernels do.
-    Returns ``(dq, dk, dv)`` [B, T, H, D] in q's dtype."""
+    ``scale`` defaults to ``1/sqrt(D)``. Returns ``(dq, dk, dv)``
+    [B, T, H, D] in q's dtype."""
     dt = q.dtype
     T = q.shape[1]
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     valid = torch.ones((T, T), dtype=torch.bool, device=q.device)

@@ -6,10 +6,16 @@ runs the whole LSTM / GravesLSTM recurrence over precomputed input rows
 f32 h/c carries in scratch (``_fwd_kernel``), and the reverse-time sweep
 in a second one (``_bwd_kernel``) behind a custom VJP. Here they are
 ``csrc/fused_lstm_fwd.cu`` (kernel #4) and ``csrc/fused_lstm_bwd.cu``
-(kernel #5), CUDA C++ for Hopper (``sm_90a``), each one cooperative launch
-that walks all T steps with one grid-wide barrier per step, built at first
-use and bound through ctypes (``ops/_build.py``). Their design notes and
-bounds sit at the top of each source.
+(kernel #5), CUDA C++ for Hopper (``sm_90a``) in float32, bfloat16 and
+float16, built at first use and bound through ctypes (``ops/_build.py``).
+Each walks all T steps in one launch, by one of two routes that
+:func:`lstm_route` picks from the hidden width, the dtype and the kernel:
+``cluster`` (thread-block clusters that exchange h or dz through
+distributed shared memory, one cluster barrier a step, no grid-wide
+synchronisation) where a cluster's shared memory holds Wh, else ``wide``
+(one cooperative launch with a grid barrier a step). Kernel #5 computes
+dWh after its sweep, as one product in the same library. Their design
+notes and bounds sit at the top of each source.
 
 Dispatch follows one rule, with no fallback: a tensor on the CPU goes to
 the plain version, a CUDA tensor goes to the kernel or raises.
@@ -33,6 +39,7 @@ the CUDA kernels walk every step in one launch and need neither.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -42,17 +49,80 @@ from deeplearning4j_tpu_torch.ops import _build
 __all__ = [
     "MAX_HIDDEN",
     "bwd_operands",
+    "cluster_smem_bytes",
     "fused_lstm",
     "fused_lstm_bwd_cuda",
     "fused_lstm_bwd_reference",
     "fused_lstm_fwd_cuda",
     "fused_lstm_reference",
+    "lstm_route",
 ]
 
-MAX_HIDDEN = 512
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HIDDEN = 1024
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _fwd_lib = None
 _bwd_lib = None
+
+# The cluster route's geometry, as csrc/lstm_common.cuh and the kernels'
+# FwdCluster / BwdCluster layouts define it: a cluster owns at least _ROWS_C
+# batch rows (9 only when the launch finds that ceil(B / 8) clusters would
+# not all run at once and ceil(B / 9) would, and the layout still fits), its CTAs U = H / C hidden
+# units each (C in _CLUSTER_SIZES, U <= 32 and a multiple of 8), the
+# forward's product split in _KS k parts and the backward's in 2 _KS, and
+# one CTA's shared memory may hold _SMEM_LIMIT bytes (227 KB, the opt-in
+# maximum of a Hopper block).
+_ROWS_C = 8
+_KS = 8
+_PADW = 4
+_CLUSTER_SIZES = (4, 8, 16)
+_SMEM_LIMIT = 232448
+
+
+def _a16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def cluster_smem_bytes(kernel: str, H: int, U: int, elem_bytes: int,
+                       rows: int = _ROWS_C) -> int:
+    """Shared memory of one cluster-route CTA with U units and ``rows``
+    rows. Forward: the Wh slice [4U][H + 4] and the double-buffered h
+    [2][rows][H] in the operand type, the product's partial sums
+    [8][rows][4U] f32 and the CTA's h slice [rows][U]. Backward: the Wh rows
+    [U][4H + 4] and the double-buffered dz [2][rows][4H] in the operand
+    type, partial sums [16][rows][U] f32 and the dz slice [rows][4][U]."""
+    e, R = elem_bytes, rows
+    if kernel == "fwd":
+        return (_a16(4 * U * (H + _PADW) * e) + _a16(2 * R * H * e)
+                + _KS * R * 4 * U * 4 + _a16(R * U * e))
+    return (_a16(U * (4 * H + _PADW) * e) + _a16(2 * R * 4 * H * e)
+            + 2 * _KS * R * U * 4 + _a16(R * 4 * U * e))
+
+
+@functools.lru_cache(maxsize=None)
+def lstm_route(H: int, dtype: torch.dtype, kernel: str) -> Tuple[str, int]:
+    """The route kernel #4 (``kernel="fwd"``) or #5 (``"bwd"``) takes for a
+    hidden width and dtype: ``("cluster", C)`` with the smallest cluster
+    size C in (4, 8, 16) whose CTAs hold U = H / C <= 32 units (a multiple
+    of 8) within one block's shared memory, else ``("wide", 0)``. Raises a
+    ValueError for a width or dtype the kernels do not take (H a multiple of
+    128 up to :data:`MAX_HIDDEN`; float32, bfloat16 or float16). At the
+    char-RNN's H=256 both kernels take clusters of 8 in every dtype; f32
+    takes the wide route from H=512 (the backward from H=384), the 16-bit
+    types from H=640."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"fused LSTM kernels take float32, bfloat16 or float16, got {dtype}")
+    if H % 128 or not 128 <= H <= MAX_HIDDEN:
+        raise ValueError(f"fused LSTM kernels take H a multiple of 128 up to "
+                         f"{MAX_HIDDEN}, got {H}")
+    if kernel not in ("fwd", "bwd"):
+        raise ValueError(f"kernel is 'fwd' or 'bwd', got {kernel!r}")
+    es = torch.empty((), dtype=dtype).element_size()
+    for C in _CLUSTER_SIZES:
+        U = H // C
+        if (H % C == 0 and U <= 32 and U % 8 == 0
+                and cluster_smem_bytes(kernel, H, U, es) <= _SMEM_LIMIT):
+            return "cluster", C
+    return "wide", 0
 
 
 def _fwd_kernel_lib() -> ctypes.CDLL:
@@ -61,13 +131,15 @@ def _fwd_kernel_lib() -> ctypes.CDLL:
         lib = _build.load("fused_lstm_fwd")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         # zx, wh, mask, peephole, hbuf, cbuf, hs, gates, cs, hT, cT,
-        # B, T, H, dtype, stream
-        lib.fused_lstm_fwd.argtypes = [ptr] * 11 + [i32] * 4 + [ptr]
+        # B, T, H, dtype, cluster, stream
+        lib.fused_lstm_fwd.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]
         lib.fused_lstm_fwd.restype = i32
         lib.fused_lstm_fwd_error_string.argtypes = [i32]
         lib.fused_lstm_fwd_error_string.restype = ctypes.c_char_p
-        lib.fused_lstm_fwd_smem_bytes.argtypes = [i32, i32]
+        lib.fused_lstm_fwd_smem_bytes.argtypes = [i32, i32, i32]
         lib.fused_lstm_fwd_smem_bytes.restype = i64
+        lib.fused_lstm_fwd_cluster_rows.argtypes = [i32] * 4
+        lib.fused_lstm_fwd_cluster_rows.restype = i32
         _fwd_lib = lib
     return _fwd_lib
 
@@ -77,15 +149,15 @@ def _bwd_kernel_lib() -> ctypes.CDLL:
     if _bwd_lib is None:
         lib = _build.load("fused_lstm_bwd")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # gates, cs, cprev, hprev, wh, mask, dhs, peephole, dzx, dwh, dh, dc,
-        # dpeep, part, B, T, H, dtype, stream
-        lib.fused_lstm_bwd.argtypes = [ptr] * 14 + [i32] * 4 + [ptr]
+        # gates, cs, cprev, hprev, wh, mask, dhs, peephole, dzx, dzr, dwh, dh,
+        # dc, dpeep, work, B, T, H, dtype, cluster, stream
+        lib.fused_lstm_bwd.argtypes = [ptr] * 15 + [i32] * 5 + [ptr]
         lib.fused_lstm_bwd.restype = i32
-        lib.fused_lstm_bwd_groups.argtypes = [i32, i32, i32]
-        lib.fused_lstm_bwd_groups.restype = i32
+        lib.fused_lstm_bwd_workspace.argtypes = [i32] * 4
+        lib.fused_lstm_bwd_workspace.restype = i64
         lib.fused_lstm_bwd_error_string.argtypes = [i32]
         lib.fused_lstm_bwd_error_string.restype = ctypes.c_char_p
-        lib.fused_lstm_bwd_smem_bytes.argtypes = [i32, i32]
+        lib.fused_lstm_bwd_smem_bytes.argtypes = [i32, i32, i32]
         lib.fused_lstm_bwd_smem_bytes.restype = i64
         _bwd_lib = lib
     return _bwd_lib
@@ -102,7 +174,8 @@ def _check_shapes(zx, wh, who):
         raise ValueError(f"{who}: zx {tuple(zx.shape)} and wh {tuple(wh.shape)} "
                          "do not form [B, T, 4H] and [H, 4H]")
     if H % 128 or not 128 <= H <= MAX_HIDDEN:
-        raise ValueError(f"{who} takes H a multiple of 128 up to {MAX_HIDDEN}, got {H}")
+        raise ValueError(f"{who} takes H a multiple of 128 up to {MAX_HIDDEN} (the "
+                         f"wide route's limit), got {H}")
     if B < 1 or T < 1:
         raise ValueError(f"{who} needs B >= 1 and T >= 1, got {tuple(zx.shape)}")
     return B, T, H
@@ -112,7 +185,7 @@ def _check_cuda(who, dtype, device, **named):
     """Every named tensor on ``device`` (CUDA); those given a dtype of None
     may be any float type, the others must have ``dtype``."""
     if dtype not in _DTYPE_CODES:
-        raise ValueError(f"{who} takes bfloat16 or float32, got {dtype}")
+        raise ValueError(f"{who} takes float32, bfloat16 or float16, got {dtype}")
     if device.type != "cuda":
         raise ValueError(f"{who} takes CUDA tensors, got {device}")
     for name, (x, want) in named.items():
@@ -137,7 +210,8 @@ def fused_lstm_fwd_cuda(zx: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
                         peephole: Optional[torch.Tensor] = None):
     """Launch kernel #4 (``csrc/fused_lstm_fwd.cu``) on PyTorch's current
     stream: the recurrence over ``zx`` [B, T, 4H] with ``wh`` [H, 4H] (both
-    bf16 or both f32, H a multiple of 128 up to :data:`MAX_HIDDEN`), carries
+    of one dtype: f32, bf16 or f16; H a multiple of 128 up to
+    :data:`MAX_HIDDEN`; the route is :func:`lstm_route`'s), carries
     ``h0``/``c0`` [B, H], optional ``mask`` [B, T] and ``peephole`` [3H].
     Returns ``(hs, gates, cs, h_T, c_T)`` in zx's dtype: the post-mask
     carries [B, T, H], the pre-mask gates [B, T, 4H], the post-mask cells
@@ -157,13 +231,16 @@ def fused_lstm_fwd_cuda(zx: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
     if peephole is not None and tuple(peephole.shape) != (3 * H,):
         raise ValueError(f"fused_lstm_fwd: peephole must be [3H] = {(3 * H,)}, "
                          f"got {tuple(peephole.shape)}")
+    route, C = lstm_route(H, zx.dtype, "fwd")
     lib = _fwd_kernel_lib()
     dev, dt = zx.device, zx.dtype
     zx, wh = zx.contiguous(), wh.contiguous()
-    # f32 carries exchanged between blocks (h double-buffered), seeded here
-    hbuf = torch.empty((2, B, H), dtype=torch.float32, device=dev)
-    hbuf[0].copy_(h0)
-    cbuf = _f32(c0).clone()
+    if route == "cluster":      # h0, c0 read once, carried in registers
+        hbuf, cbuf = _f32(h0), _f32(c0)
+    else:                       # f32 carries exchanged between blocks, h double-buffered
+        hbuf = torch.empty((2, B, H), dtype=torch.float32, device=dev)
+        hbuf[0].copy_(h0)
+        cbuf = _f32(c0).clone()
     m, peep = _f32(mask), _f32(peephole)
     hs = torch.empty((B, T, H), dtype=dt, device=dev)
     gates = torch.empty((B, T, 4 * H), dtype=dt, device=dev)
@@ -175,10 +252,10 @@ def fused_lstm_fwd_cuda(zx: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
         rc = lib.fused_lstm_fwd(
             zx.data_ptr(), wh.data_ptr(), _ptr(m), _ptr(peep), hbuf.data_ptr(),
             cbuf.data_ptr(), hs.data_ptr(), gates.data_ptr(), cs.data_ptr(),
-            hT.data_ptr(), cT.data_ptr(), B, T, H, _DTYPE_CODES[dt], stream)
+            hT.data_ptr(), cT.data_ptr(), B, T, H, _DTYPE_CODES[dt], C, stream)
     if rc != 0:
         msg = _rc_message(rc, lib.fused_lstm_fwd_error_string)
-        raise RuntimeError(f"fused_lstm_fwd launch failed ({rc}): {msg}")
+        raise RuntimeError(f"fused_lstm_fwd launch failed ({rc}, {route} route): {msg}")
     fused_lstm_fwd_cuda.launches += 1
     return hs, gates, cs, hT, cT
 
@@ -190,8 +267,8 @@ def _rc_message(rc: int, error_string) -> str:
     if rc == -1:
         return "unsupported dtype or hidden width"
     if rc == -2:
-        return "the grid cannot be co-resident on this device (cooperative launch)"
-    return error_string(rc).decode()   # a cudaError_t (bwd_groups: -(1000 + e))
+        return "the wide route's grid cannot be co-resident on this device (cooperative launch)"
+    return error_string(rc).decode()   # a cudaError_t
 
 
 def fused_lstm_bwd_cuda(gates, cs, cprev, hprev, wh, m, dhs, dcT, peephole=None):
@@ -204,8 +281,10 @@ def fused_lstm_bwd_cuda(gates, cs, cprev, hprev, wh, m, dhs, dcT, peephole=None)
     cotangent ``dhs`` [B, T, H] (already times the mask, with dh_T folded
     into step T-1), the f32 ``dcT`` [B, H] and the optional ``peephole``.
     Returns f32 ``(dzx [B, T, 4H], dWh [H, 4H], dh0 [B, H], dc0 [B, H],
-    dpeep [3H] or None)``. dWh and dpeep are summed inside the kernel
-    without atomics, so a run repeats bit for bit. Each launch adds one to
+    dpeep [3H] or None)``. One call launches the sweep (:func:`lstm_route`'s
+    route), then the dWh product and the fixed-order sum of its partials and
+    of the peephole partials, all in the library; no atomics, so a run
+    repeats bit for bit. Each call adds one to
     ``fused_lstm_bwd_cuda.launches``."""
     B, T, H = _check_shapes(gates, wh, "fused_lstm_bwd")
     dt = gates.dtype
@@ -220,32 +299,32 @@ def fused_lstm_bwd_cuda(gates, cs, cprev, hprev, wh, m, dhs, dcT, peephole=None)
             raise ValueError(f"fused_lstm_bwd: {name} must be {shape}, got {tuple(x.shape)}")
     if peephole is not None and tuple(peephole.shape) != (3 * H,):
         raise ValueError(f"fused_lstm_bwd: peephole must be [3H], got {tuple(peephole.shape)}")
+    route, C = lstm_route(H, dt, "bwd")
     lib = _bwd_kernel_lib()
     dev = gates.device
     args = [x.contiguous() for x in (gates, cs, cprev, hprev, wh, m, dhs)]
     peep = _f32(peephole)
     dzx = torch.empty((B, T, 4 * H), dtype=f32, device=dev)
+    # 16-bit types: dz rounded to the operand type, the tensor cores' dWh operand
+    dzr = torch.empty((B, T, 4 * H), dtype=dt, device=dev) if dt != f32 else None
     dwh = torch.empty((H, 4 * H), dtype=f32, device=dev)
-    # the carry cotangents, updated in place by their owning threads
+    # the carry cotangents: dh0 out (the wide route reads zeros in), dc_T in
+    # and dc0 out, updated in place by their owning threads
     dh = torch.zeros((B, H), dtype=f32, device=dev)
     dc = dcT.to(f32).contiguous().clone()
     dpeep = torch.empty((3 * H,), dtype=f32, device=dev) if peep is not None else None
+    # dWh split partials and peephole partials, summed in a fixed order
+    work = torch.empty((lib.fused_lstm_bwd_workspace(B, T, H, _DTYPE_CODES[dt]),),
+                       dtype=f32, device=dev)
     with torch.cuda.device(dev):
-        groups = lib.fused_lstm_bwd_groups(B, H, _DTYPE_CODES[dt])
-        if groups < 1:
-            raise RuntimeError(f"fused_lstm_bwd launch failed ({groups}): "
-                               f"{_rc_message(groups, lib.fused_lstm_bwd_error_string)}")
-        # per-group partial dWh / dpeep, summed in a fixed order in the kernel
-        part = (torch.empty((groups, H * 4 * H + 3 * H), dtype=f32, device=dev)
-                if groups > 1 else None)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fused_lstm_bwd(
             *(x.data_ptr() for x in args[:6]), args[6].data_ptr(), _ptr(peep),
-            dzx.data_ptr(), dwh.data_ptr(), dh.data_ptr(), dc.data_ptr(),
-            _ptr(dpeep), _ptr(part), B, T, H, _DTYPE_CODES[dt], stream)
+            dzx.data_ptr(), _ptr(dzr), dwh.data_ptr(), dh.data_ptr(), dc.data_ptr(),
+            _ptr(dpeep), work.data_ptr(), B, T, H, _DTYPE_CODES[dt], C, stream)
     if rc != 0:
         msg = _rc_message(rc, lib.fused_lstm_bwd_error_string)
-        raise RuntimeError(f"fused_lstm_bwd launch failed ({rc}): {msg}")
+        raise RuntimeError(f"fused_lstm_bwd launch failed ({rc}, {route} route): {msg}")
     fused_lstm_bwd_cuda.launches += 1
     return dzx, dwh, dh, dc, dpeep
 
@@ -261,22 +340,24 @@ def _mask_f32(mask, B, T, zx):
     return mask.to(zx.dtype).to(torch.float32)
 
 
-def fused_lstm_reference(zx, wh, h0, c0, mask=None, peephole=None):
+def fused_lstm_reference(zx, wh, h0, c0, mask=None, peephole=None, round_to=None):
     """The plain version of kernel #4, on any device, step by step as
     ``_fwd_kernel`` computes: f32 carries, ``h`` rounded to wh's dtype
     before the recurrent product (accumulated in f32), the masked blend
     ``m * new + (1 - m) * old``. Returns ``(hs, gates, cs, h_T, c_T)`` in
-    zx's dtype, as the kernel does."""
+    zx's dtype, as the kernel does. ``round_to`` rounds ``h`` to another
+    dtype instead (a control for the 16-bit tolerances)."""
     B, T, Z = zx.shape
     H = Z // 4
     dt = zx.dtype
+    rdt = round_to or wh.dtype
     m = _mask_f32(mask, B, T, zx)
     whf = wh.float()
     peep = peephole.float() if peephole is not None else None
     h, c = h0.float(), c0.float()
     hs, gates, cs = [], [], []
     for t in range(T):
-        z = zx[:, t].float() + h.to(wh.dtype).float() @ whf
+        z = zx[:, t].float() + h.to(rdt).float() @ whf
         if peep is not None:
             i = torch.sigmoid(z[:, :H] + c * peep[:H])
             f = torch.sigmoid(z[:, H:2 * H] + c * peep[H:2 * H])
@@ -300,15 +381,18 @@ def fused_lstm_reference(zx, wh, h0, c0, mask=None, peephole=None):
             h.to(dt), c.to(dt))
 
 
-def fused_lstm_bwd_reference(gates, cs, cprev, hprev, wh, m, dhs, dcT, peephole=None):
+def fused_lstm_bwd_reference(gates, cs, cprev, hprev, wh, m, dhs, dcT, peephole=None,
+                             round_to=None):
     """The plain version of kernel #5, on any device, step by step as
     ``_bwd_kernel`` computes, from the same operands as
     :func:`fused_lstm_bwd_cuda`: dz is rounded to wh's dtype before
     ``hprevᵀ·dz`` and ``dz·Whᵀ``; everything is summed in f32. Returns f32
-    ``(dzx, dWh, dh0, dc0, dpeep or None)``."""
+    ``(dzx, dWh, dh0, dc0, dpeep or None)``. ``round_to`` rounds dz to
+    another dtype instead (a control for the 16-bit tolerances)."""
     B, T, Z = gates.shape
     H = Z // 4
     wdt = wh.dtype
+    rdt = round_to or wdt
     whf = wh.float()
     peep = peephole.float() if peephole is not None else None
     dh = torch.zeros((B, H), dtype=torch.float32, device=gates.device)
@@ -335,7 +419,7 @@ def fused_lstm_bwd_reference(gates, cs, cprev, hprev, wh, m, dhs, dcT, peephole=
         df = dcg * c_prev * f * (1.0 - f)
         dz = torch.cat([di, df, dg, do], dim=-1)
         dzx[t] = dz
-        dzw = dz.to(wdt).float()
+        dzw = dz.to(rdt).float()
         dwh = dwh + hprev[:, t].to(wdt).float().T @ dzw
         dh = dzw @ whf.T + A * (1.0 - mt)
         dc = dcg * f + C * (1.0 - mt)

@@ -76,13 +76,43 @@ def _trace_attrs(batch) -> Dict[str, str]:
     return {"traces": ",".join(ids)} if ids else {}
 
 
-def _to_host(out) -> np.ndarray:
-    """A model output as a host numpy array; bf16 comes back as float32
-    (exact), since numpy has no bfloat16."""
+class _HostBuffer:
+    """Host buffers for outputs' copies, one per thread: a dispatcher pool
+    shares one ``_HostBuffer``, and each thread copies into and widens from
+    its own (page-locked where a card is present), grown when a larger
+    output arrives."""
+
+    def __init__(self):
+        self._local = threading.local()
+
+    def int16(self, n: int) -> torch.Tensor:
+        buf = getattr(self._local, "buf", None)
+        if buf is None or buf.numel() < n:
+            buf = torch.empty(n, dtype=torch.int16,
+                              pin_memory=torch.cuda.is_available())
+            self._local.buf = buf
+        return buf[:n]
+
+
+def _to_host(out, pinned: Optional[_HostBuffer] = None) -> np.ndarray:
+    """A model output as a host numpy array. bf16 comes back as float32,
+    since numpy has no bfloat16: its bits, viewed as int16, are copied as
+    they are (into the calling thread's buffer of ``pinned`` when one is
+    given: half the bytes of a float32 copy from the card) and widened on
+    the host, where bf16 -> f32 is a 16-bit shift of the bits: exact, NaN
+    payloads and infinities included."""
     if isinstance(out, torch.Tensor):
+        out = out.detach()
         if out.dtype == torch.bfloat16:
-            out = out.float()
-        return out.detach().cpu().numpy()
+            bits = out.contiguous().view(torch.int16)
+            if pinned is not None:
+                host = pinned.int16(bits.numel()).view(bits.shape)
+                host.copy_(bits)
+            else:
+                host = bits.cpu()
+            # torch's CPU bf16 -> f32 conversion is that shift, on every core
+            return host.view(torch.bfloat16).float().numpy()
+        return out.cpu().numpy()
     return np.asarray(out)
 
 
@@ -126,6 +156,7 @@ class ModelWorker:
         self._q: List[_Req] = []
         self._stop = False
         self._shed_seen: set = set()
+        self._host = _HostBuffer()   # a copy buffer per dispatching thread
         self._batches = obs.counter(
             "dl4j_serve_batches_total",
             "coalesced dispatches by model", ("model",))
@@ -271,7 +302,7 @@ class ModelWorker:
                 # model.output pads up the shared ladder itself, so this
                 # dispatch runs the same shapes a direct caller would; the
                 # copy to the host waits for the device
-                out = _to_host(self.model.output(xs))
+                out = _to_host(self.model.output(xs), self._host)
                 dt = time.perf_counter() - t0
             self.latency.observe(self.name, bucket, dt)
             self._batches.inc(model=self.name)

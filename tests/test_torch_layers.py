@@ -59,8 +59,16 @@ def test_embedding_sequence():
     want = jl.apply(jp, {}, jnp.asarray(ids))[0]
     got = EmbeddingSequence(n_in=20, n_out=6).apply(tp, {}, torch.from_numpy(ids))[0]
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # ids from the host are range-checked before the copy (the model's input
+    # path calls this); apply itself gathers as jnp.take does, with no host
+    # read: an id past the vocab gives a row of NaN there, as in the reference
     with pytest.raises(ValueError, match=r"\[0, 20\)"):
-        EmbeddingSequence(n_in=20, n_out=6).apply(tp, {}, torch.tensor([[3, 20]]))
+        EmbeddingSequence.check_host_ids(torch.tensor([[3, 20]]), 20)
+    bad = torch.tensor([[3, 20]])
+    got = EmbeddingSequence(n_in=20, n_out=6).apply(tp, {}, bad)[0]
+    want = jl.apply(jp, {}, jnp.asarray(bad.numpy()))[0]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert np.isnan(got[0, 1].numpy()).all()
 
 
 def test_positional_embedding():
