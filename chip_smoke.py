@@ -10,14 +10,15 @@ non-zero (and without a result line when no CUDA device is present):
 
 1. device  — card name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 is switched off for matmuls and cuDNN.
-2. build   — nvcc builds csrc/flash_fwd.cu, flash_bwd.cu, fused_lstm_fwd.cu
-   and fused_lstm_bwd.cu (with the shared csrc/sm90_common.cuh and
-   csrc/lstm_common.cuh) for sm_90a from the checkout, all at once;
-   registers, shared memory and spills per kernel instantiation (57), and
-   the HGMMA (wgmma) count of each flash kernel from cuobjdump -sass. The 24
-   bf16 and f16 wgmma kernels (forward, dq, dk/dv at D = 32, 64, 128, 256)
-   must show HGMMA and no spills. The LSTM kernels' routes at the char-RNN
-   width and the clusters that run at once there.
+2. build   — nvcc builds csrc/flash_fwd.cu, flash_bwd.cu, flash_wide.cu,
+   fused_lstm_fwd.cu and fused_lstm_bwd.cu (with the shared
+   csrc/sm90_common.cuh and csrc/lstm_common.cuh) for sm_90a from the
+   checkout, all at once; registers, shared memory and spills per kernel
+   instantiation (72), and the HGMMA (wgmma) count of each flash kernel
+   from cuobjdump -sass. The 24 bf16 and f16 wgmma kernels (forward, dq,
+   dk/dv at D = 32, 64, 128, 256) must show HGMMA and no spills, the LSTM
+   kernels no spills. The LSTM kernels' routes by width (cluster, wide,
+   step) and the clusters that run at once at the char-RNN width.
 3. kernel  — each kernel against its plain PyTorch version on the card:
    the forward kernel and the backward pair (dq; dk/dv) at the flagship
    shape (B=16, T=2048, H=16, D=128, bf16, causal, fused-qkv strided
@@ -34,6 +35,11 @@ non-zero (and without a result line when no CUDA device is present):
    HTTP bucket, each backward kernel and the whole backward (delta and
    kernels #2/#3) at the flagship shape, the plain versions, and torch's
    scaled_dot_product_attention forward and backward as a yardstick only.
+   Then the wide-head route (D past 256, csrc/flash_wide.cu) through the
+   same wrappers: forward and backward at D = 320 and 512 in bf16 and f32
+   (causal; key masks), f16 at D = 300 and bf16 at D = 1024, each against
+   the plain versions and repeated bit for bit, and each kernel timed at
+   B=2, T=512, H=4 beside its bound, the plain versions and SDPA.
 4. small   — a tiny TransformerLM through the port on the CPU (plain
    versions) and on the GPU (the kernels) with the same weights: the
    output, then 3 SGD steps (loss per step, final params, 2 launches of
@@ -64,7 +70,9 @@ non-zero (and without a result line when no CUDA device is present):
    (cluster or wide) each kernel took: the char-RNN shape (B=128, T=50,
    H=256) in f32, bf16 and f16, with and without peepholes; B=1 and B=32
    at T=1 (rnn_time_step); T=37; H=128, 384, 512, 640 and 1024 in f32 and
-   bf16; variable-length masks with a row masked throughout; B=300 (38
+   bf16; H=1152 and 2048 (the step route, one launch a step) at B=32,
+   T=20 in f32 and bf16, f16 at H=1152; variable-length masks with a row
+   masked throughout; B=300 (38
    clusters, more than run at once); nonzero h0, c0, dh_T and dc_T; the
    backward repeated bit for bit; each f16 case also runs its control (the
    plain versions with h and dz rounded to bf16), which must fail the f16
@@ -72,7 +80,8 @@ non-zero (and without a result line when no CUDA device is present):
    too), kernel #4 at the sampling shape (B=32, T=1), each with its bound;
    the host time of one wrapper call (host clock over back-to-back calls);
    the plain versions, and cuDNN's torch.nn.LSTM forward and backward as the
-   nearest yardstick only.
+   nearest yardstick only; the step route timed the same way at H=1152 and
+   2048.
 8. lstm_small — a tiny TextGenerationLSTM (H=128) on the CPU (plain
    versions) and on the GPU (the kernels) from the same weights: the
    output, then 9 tBPTT updates of RMSProp (loss per batch, final params,
@@ -88,6 +97,24 @@ non-zero (and without a result line when no CUDA device is present):
    rnn_time_step calls of one step each (next character by argmax): 2
    launches of kernel #4 per call, the stepped outputs equal to output()
    over the whole sequence, the time per step.
+11. cnn_train — LeNet-5 at bench.py's bench_lenet5 shape (28x28x1, batch
+   256, f32, Adam 1e-3, random weights from seed 12345) through the
+   trainer CLI, in-process, on 2,048 synthetic images (numpy seed, pixels
+   in [0, 1)) with random one-hot labels: 2 epochs, --evaluate, the output
+   zip. Checks a finite loss that fell from epoch to epoch, no hand-written
+   kernel launched (cuDNN convolutions and pooling, cuBLAS dense layers),
+   the zip's restored output; samples/s over the last epoch (host clock
+   between the synchronised score reads), the evaluation's accuracy line,
+   one 256-row step by CUDA events and its forward / backward / update
+   split.
+12. cnn_serve — the zip restored into ModelRegistry behind InferenceServer:
+   HTTP :predict with 1x28x28x1 integer pixels 0-255, 8x28x28x1 floats,
+   and 4 concurrent 2-row requests that must coalesce; every response row
+   against output() on the same rows; each request's latency.
+13. simplecnn — SimpleCNN (48x48x3, BatchNorm, dropout) fitted 4 steps at
+   batch 64: BatchNorm's running statistics moved and finite, eval-mode
+   output repeated bit for bit and held to the same params and state on
+   the CPU (f32, TF32 off); the forward at batch 256.
 
 It ends with the kernels line, the card's name and power limit, and
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -95,8 +122,10 @@ It ends with the kernels line, the card's name and power limit, and
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import importlib.util
+import io
 import json
 import logging
 import re
@@ -112,7 +141,12 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import obs
-from deeplearning4j_tpu_torch.interop import params_from_numpy, params_to_numpy
+from deeplearning4j_tpu_torch.interop import (
+    params_from_numpy,
+    params_to_numpy,
+    state_from_numpy,
+    state_to_numpy,
+)
 from deeplearning4j_tpu_torch.models import zoo
 from deeplearning4j_tpu_torch.nn.model import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import _build
@@ -177,6 +211,17 @@ LSTM_F16_REL = 1.5e-3
 LSTM_F16_STEP_REL = 2e-4
 LSTM_LIMITS = {torch.bfloat16: (LSTM_BF16_REL, LSTM_BF16_STEP_REL),
                torch.float16: (LSTM_F16_REL, LSTM_F16_STEP_REL)}
+LSTM_ROUTE_WIDTHS = (128, 256, 384, 512, 640, 1024, 1152, 2048)
+# the part of the flash kernels past D = 256 (csrc/flash_wide.cu) and of the
+# LSTM kernels past H = 1024 (their step route), timed at these shapes
+WIDE_FLASH_SHAPE = dict(B=2, T=512, H=4)
+STEP_LSTM_SHAPE = dict(B=32, T=20)
+# LeNet-5 at bench.py's bench_lenet5 shape: batch 256 of 28 x 28 x 1, f32,
+# Adam 1e-3, random weights from seed 12345; synthetic images and labels
+CNN_ROWS, CNN_BATCH, CNN_EPOCHS = 2048, 256, 2
+# SimpleCNN on the card against the same params and state on the CPU (f32,
+# TF32 off): cuDNN and the CPU sum the 3 x 3 convolutions in other orders
+SIMPLECNN_TOL = dict(rtol=1e-4, atol_of_max=1e-5)
 
 
 def emit(obj) -> None:
@@ -221,9 +266,10 @@ def _ptxas_report(log: str, kernel: str, smem_bytes) -> list:
     return out
 
 
-def _ptxas_report_lstm(log: str, kernel: str, smem_bytes=None) -> list:
+def _ptxas_report_typed(log: str, kernel: str, smem_bytes=None) -> list:
     """Registers, spills and shared memory (at the char-RNN's H, for the
-    sweeps) of each dtype instantiation of an LSTM kernel."""
+    LSTM sweeps) of each dtype instantiation of a kernel templated on its
+    operand type (the LSTM kernels, the wide-head flash kernels)."""
     out = []
     for m in re.finditer(
             kernel + r"I(\w+?)E.*?(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
@@ -299,7 +345,8 @@ def build_report() -> dict:
             errors.append(e)
 
     threads = [threading.Thread(target=build, args=(n,))
-               for n in ("flash_fwd", "flash_bwd", "fused_lstm_fwd", "fused_lstm_bwd")]
+               for n in ("flash_fwd", "flash_bwd", "flash_wide", "fused_lstm_fwd",
+                         "fused_lstm_bwd")]
     for t in threads:
         t.start()
     for t in threads:
@@ -341,24 +388,38 @@ def build_report() -> dict:
         # the char-RNN width takes the cluster route in every dtype
         C = {code: fl.lstm_route(H, dt, kind)[1] for dt, code in
              ((torch.float32, 0), (torch.bfloat16, 1), (torch.float16, 2))}
-        kernels += _ptxas_report_lstm(log, name + "_cluster_kernel",
-                                      lambda code, smem=smem, C=C: smem(code, H, C[code]))
-        kernels += _ptxas_report_lstm(log, name + "_kernel", lambda code, smem=smem: smem(code, H, 0))
+        kernels += _ptxas_report_typed(log, name + "_cluster_kernel",
+                                       lambda code, smem=smem, C=C: smem(code, H, C[code]))
+        kernels += _ptxas_report_typed(log, name + "_kernel",
+                                       lambda code, smem=smem: smem(code, H, 0))
+        # the step route (H > 1024): static shared memory only
+        kernels += _ptxas_report_typed(log, name + "_step_kernel")
         routes[name] = {str(dt).split(".")[-1]: [list(fl.lstm_route(h, dt, kind))
-                                                  for h in (128, 256, 384, 512, 640, 1024)]
+                                                  for h in LSTM_ROUTE_WIDTHS]
                         for dt in (torch.float32, torch.bfloat16, torch.float16)}
-    kernels += _ptxas_report_lstm(blog, "dwh_gemm_kernel")      # f32
-    dwh_wgmma = _ptxas_report_lstm(blog, "dwh_wgmma_kernel")    # bf16, f16
+    kernels += _ptxas_report_typed(blog, "dwh_gemm_kernel")      # f32
+    dwh_wgmma = _ptxas_report_typed(blog, "dwh_wgmma_kernel")    # bf16, f16
     sass = _sass_counts(_build.build("fused_lstm_bwd"), r"dwh_wgmma_kernelI(\w+?)E")
     for k in dwh_wgmma:
         k["hgmma"] = sass.get(k["dtype"], 0)
     check(len(dwh_wgmma) == 2 and all(k["hgmma"] > 0 for k in dwh_wgmma),
           f"the 16-bit dWh product shows no HGMMA: {dwh_wgmma}")
     kernels += dwh_wgmma
+    # the wide-head flash route (D > 256): 3 kernels x 3 dtypes, D at run time
+    wide = fa._wide_kernel_lib()
+    wlog = _build.BUILD_LOG.get("flash_wide", "")
+    for which, name in enumerate(("flash_wide_fwd_kernel", "flash_wide_dq_kernel",
+                                  "flash_wide_dkv_kernel")):
+        rows = _ptxas_report_typed(wlog, name)
+        for r in rows:
+            r["smem_bytes_D320_D512"] = [wide.flash_wide_smem_bytes(which, D)
+                                         for D in (320, 512)]
+        kernels += rows
     seconds = time.perf_counter() - t0
-    check(len(kernels) == 57, f"expected 57 kernel instantiations (flash: 3 kernels x (4 f32 "
-                              f"+ 8 bf16/f16 head dims); LSTM: 3 dtypes x (2 cluster kernels "
-                              f"x 2 row counts + 2 wide kernels + the dWh product)) in the "
+    check(len(kernels) == 72, f"expected 72 kernel instantiations (flash: 3 kernels x (4 f32 "
+                              f"+ 8 bf16/f16 head dims), the wide-head route 3 kernels x 3 "
+                              f"dtypes; LSTM: 3 dtypes x (2 cluster kernels x 2 row counts "
+                              f"+ 2 wide kernels + 2 step kernels + the dWh product)) in the "
                               f"ptxas reports, parsed {len(kernels)}")
     lstm_spills = [k for k in kernels if k["kernel"].startswith(("fused_lstm", "dwh_"))
                    and (k["spill_stores"] or k["spill_loads"])]
@@ -369,7 +430,7 @@ def build_report() -> dict:
                 code, B, H, fl.lstm_route(H, dt, "fwd")[1]) for B in (32, 128, 300)}
             for dt, code in ((torch.float32, 0), (torch.bfloat16, 1), (torch.float16, 2))}
     return {"phase": "build", "seconds": round(seconds, 3), "kernels": kernels,
-            "lstm_routes_by_H_128_256_384_512_640_1024": routes,
+            "lstm_routes_by_H": {"H": list(LSTM_ROUTE_WIDTHS), **routes},
             "lstm_fwd_cluster_rows_H256": rows}
 
 
@@ -479,7 +540,7 @@ def attention_bound(B, T, H, D, causal, elem_bytes, peak_flops, kmask=False):
             flops, nbytes)
 
 
-def bwd_bound(B, T, H, D, causal, elem_bytes, kernel, kmask=False):
+def bwd_bound(B, T, H, D, causal, elem_bytes, kernel, kmask=False, peak=PEAK_BF16_FLOPS):
     """(bound_ms, bound_by, flops, bytes) of one backward kernel: its
     products over the kept (query, key) pairs — S, dP, dQ for dq; S, dP,
     dV, dK for dk/dv — and q, k, v, do, lse, delta read once and its
@@ -490,7 +551,7 @@ def bwd_bound(B, T, H, D, causal, elem_bytes, kernel, kmask=False):
     nbytes = (4 + outs) * B * T * H * D * elem_bytes + 2 * 4.0 * B * H * T
     if kmask:
         nbytes += 4.0 * B * T
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
             flops, nbytes)
 
@@ -727,7 +788,71 @@ def kernel_phase() -> dict:
     del q, k, v, out, lse, do, delta, qt, kt, vt
     torch.cuda.empty_cache()
     return {"phase": "kernel", "cases": results, "timing": timing,
-            "bwd_cases": bwd_results, "bwd_timing": bwd_timing, "head_dim_256": d256}
+            "bwd_cases": bwd_results, "bwd_timing": bwd_timing, "head_dim_256": d256,
+            "wide_head": wide_head_checks()}
+
+
+def wide_head_checks() -> dict:
+    """The wide-head route (head dims past 256, csrc/flash_wide.cu) through
+    the same wrappers: forward and backward cases against the plain
+    versions (D = 320 and 512 in bf16 and f32, causal and with a key mask;
+    f16 at D = 300, zero-padded to 320; bf16 D = 1024 with rows that see no
+    key), then each kernel timed at WIDE_FLASH_SHAPE beside its bound, the
+    plain versions and SDPA."""
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    specs = ((320, bf16, True, None), (320, bf16, False, "varlen"), (320, f32, True, "varlen"),
+             (320, f32, False, None), (512, bf16, True, "varlen"), (512, bf16, False, None),
+             (512, f32, True, None), (512, f32, False, "varlen"), (300, f16, True, None),
+             (1024, bf16, True, "leading"))
+    cases = [dict(B=2, T=300, H=3, D=D, dtype=dt, causal=c, kmask=m, seed=200 + i)
+             for i, (D, dt, c, m) in enumerate(specs)]
+    cases += [dict(B=1, T=65, H=1, D=320, dtype=bf16, causal=True, kmask=None, seed=220,
+                   same_as_contiguous=True)]
+    fwd = [compare(c) for c in cases]
+    bwd = [compare_bwd(c) for c in cases]
+    bad = [r for r in bwd if not r["ok"]]
+    check(not bad, f"the wide-head backward disagrees with its plain version: {bad}")
+    B, T, H = WIDE_FLASH_SHAPE["B"], WIDE_FLASH_SHAPE["T"], WIDE_FLASH_SHAPE["H"]
+    timing = []
+    for D in (320, 512):
+        for dt in (bf16, f32):
+            q, k, v = make_qkv(B, T, H, D, dt, 230 + D)
+            out, lse = fa.flash_fwd_cuda(q, k, v, causal=True)
+            do = torch.randn(B, T, H, D, generator=torch.Generator(device="cuda").manual_seed(7),
+                             device="cuda").to(dt)
+            delta = fa._delta(out, do)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+            o = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+            dot = do.transpose(1, 2).contiguous()
+            es = 2 if dt == bf16 else 4
+            peak = PEAK_BF16_FLOPS if dt == bf16 else PEAK_F32_FLOPS
+            row = {"shape": [B, T, H, D], "dtype": str(dt).split(".")[-1], "causal": True,
+                   "fwd_ms": time_cuda(lambda: fa.flash_fwd_cuda(q, k, v, causal=True), 10),
+                   "dq_ms": time_cuda(lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta,
+                                                                   None, True), 5),
+                   "dkv_ms": time_cuda(lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                                     None, True), 5),
+                   "plain_fwd_ms": time_cuda(lambda: fa.flash_attention_reference(
+                       q, k, v, causal=True), 3, warmup=1),
+                   "plain_bwd_ms": time_cuda(lambda: fa.flash_attention_bwd_reference(
+                       q, k, v, out, lse, do, None, True), 3, warmup=1),
+                   "library_fwd_ms": time_cuda(
+                       lambda: torch.nn.functional.scaled_dot_product_attention(
+                           qt, kt, vt, is_causal=True), 10),
+                   "library_bwd_ms": time_cuda(lambda: torch.autograd.grad(
+                       o, (qg, kg, vg), dot, retain_graph=True), 5),
+                   "library": "scaled_dot_product_attention forward / backward (dq, dk, dv)"}
+            row["fwd_bound_ms"], row["fwd_bound_by"] = attention_bound(
+                B, T, H, D, True, es, peak)[:2]
+            for name in ("dq", "dkv"):
+                row[f"{name}_bound_ms"], row[f"{name}_bound_by"] = bwd_bound(
+                    B, T, H, D, True, es, name, peak=peak)[:2]
+            timing.append(row)
+            del q, k, v, out, lse, do, delta, qt, kt, vt, qg, kg, vg, o, dot
+    torch.cuda.empty_cache()
+    return {"cases": fwd, "bwd_cases": bwd, "timing": timing,
+            "peak_flops": {"bfloat16": PEAK_BF16_FLOPS, "float32": PEAK_F32_FLOPS}}
 
 
 # -- phase 4 ----------------------------------------------------------------
@@ -957,16 +1082,19 @@ def serve_phase() -> dict:
 # -- phase 6 ----------------------------------------------------------------
 
 class _ScoreLog(logging.Handler):
-    """Collects the CLI's ScoreIterationListener lines."""
+    """Collects the CLI's ScoreIterationListener lines and the host time of
+    each (``time.perf_counter``)."""
 
     def __init__(self):
         super().__init__(logging.INFO)
         self.scores = []
+        self.stamps = []
 
     def emit(self, record):
         m = re.match(r"Score at iteration (\d+) is (\S+)", record.getMessage())
         if m:
             self.scores.append((int(m.group(1)), float(m.group(2))))
+            self.stamps.append(time.perf_counter())
 
 
 def _launch_counts():
@@ -1315,6 +1443,13 @@ def lstm_kernel_phase() -> dict:
         # 38 clusters of 8 rows: more than run at once, so clusters queue
         dict(B=300, T=6, H=256, dtype=f32, peep=False, mask="varlen", seed=66),
         dict(B=300, T=6, H=256, dtype=bf16, peep=True, mask=None, seed=67),
+        # past H = 1024: the step route, one launch a step
+        dict(B=32, T=20, H=1152, dtype=f32, peep=True, mask="varlen", seed=68),
+        dict(B=32, T=20, H=1152, dtype=bf16, peep=True, mask="varlen", seed=69),
+        dict(B=32, T=20, H=2048, dtype=f32, peep=True, mask="varlen", seed=70),
+        dict(B=32, T=20, H=2048, dtype=bf16, peep=True, mask="varlen", seed=71),
+        dict(B=9, T=5, H=1152, dtype=f16, peep=True, mask="varlen", seed=72),
+        dict(B=40, T=3, H=2048, dtype=f32, peep=False, mask=None, seed=73),
     ]
     results = [compare_lstm(c) for c in cases]
     bad = [r for r in results if not r["ok"]]
@@ -1384,11 +1519,57 @@ def lstm_kernel_phase() -> dict:
                         "flops": b_flops, "bytes": b_bytes,
                         "achieved_tflops": b_flops / ms / 1e9,
                         "roofline_share": b_ms / ms}
+    timing["step_route"] = lstm_step_timing()
     return {"phase": "lstm_kernel", "cases": results, "timing": timing,
             "tol": {"float32": TOL[f32], "step_atol_rms": BWD_TILE_ATOL, **{
                 str(dt).split(".")[-1]: {"max_abs_err_over_max_abs_ref": rel,
                                          "step_rel_err": step_rel}
                 for dt, (rel, step_rel) in LSTM_LIMITS.items()}}}
+
+
+def lstm_step_timing() -> list:
+    """Kernels #4 and #5 on the step route (H = 1152 and 2048, B = 32,
+    T = 20, peepholes, f32 and bf16), each beside its bound, its plain
+    version and cuDNN's LSTM (the nearest yardstick, not the same
+    function)."""
+    rows = []
+    B, T = STEP_LSTM_SHAPE["B"], STEP_LSTM_SHAPE["T"]
+    for H in (1152, 2048):
+        for dt in (torch.float32, torch.bfloat16):
+            ins = lstm_inputs(B, T, H, dt, 80 + H)
+            args = (ins["zx"], ins["wh"], ins["h0"], ins["c0"], None, ins["peephole"])
+            hs, gates, cs, _, _ = fl.fused_lstm_fwd_cuda(*args)
+            cprev, hprev, m, dhs = fl.bwd_operands(hs, cs, ins["h0"], ins["c0"], None,
+                                                   ins["dout"], ins["dhT"])
+            bargs = (gates, cs, cprev, hprev, ins["wh"], m, dhs, ins["dcT"], ins["peephole"])
+            es = 4 if dt == torch.float32 else 2
+            # the yardstick in f32 (cuDNN's LSTM takes no bf16)
+            lib = torch.nn.LSTM(H, H, batch_first=True).cuda()
+            x = torch.randn(B, T, H, device="cuda", requires_grad=True)
+            y, _ = lib(x)
+            dy = torch.randn_like(y)
+            row = {"shape": [B, T, H], "dtype": str(dt).split(".")[-1], "peephole": True,
+                   "route": {k: list(fl.lstm_route(H, dt, k)) for k in ("fwd", "bwd")},
+                   "fwd_ms": time_cuda(lambda: fl.fused_lstm_fwd_cuda(*args), 10),
+                   "bwd_ms": time_cuda(lambda: fl.fused_lstm_bwd_cuda(*bargs), 10),
+                   "plain_fwd_ms": time_cuda(lambda: fl.fused_lstm_reference(*args), 3,
+                                             warmup=1),
+                   "plain_bwd_ms": time_cuda(lambda: fl.fused_lstm_bwd_reference(*bargs), 3,
+                                             warmup=1),
+                   "library_fwd_ms": (time_cuda(lambda: lib(x), 10)
+                                      if dt == torch.float32 else None),
+                   "library_bwd_ms": (time_cuda(lambda: torch.autograd.grad(
+                       y, [x] + list(lib.parameters()), dy, retain_graph=True), 10)
+                                      if dt == torch.float32 else None),
+                   "library": "torch.nn.LSTM (cuDNN) H -> H in f32, its input "
+                              "projection included, no peepholes or mask"}
+            for name in ("fwd", "bwd"):
+                row[f"{name}_bound_ms"], row[f"{name}_bound_by"] = lstm_bound(
+                    B, T, H, es, name)[:2]
+            rows.append(row)
+            del ins, args, hs, gates, cs, cprev, hprev, m, dhs, bargs, lib, x, y, dy
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _lstm_launches():
@@ -1583,6 +1764,204 @@ def lstm_sample_phase(zip_path: str) -> dict:
             "step_wall_ms": step_s * 1e3, "step_ms_cuda_events": step_ms}
 
 
+# -- phases 11-13 -------------------------------------------------------------
+
+def _all_launches():
+    return {**_launch_counts(), **_lstm_launches()}
+
+
+def _lenet_images(n, seed, hw=28, channels=1):
+    rs = np.random.RandomState(seed)
+    x = rs.rand(n, hw, hw, channels).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rs.randint(0, 10, n)]
+    return x, y
+
+
+def cnn_train_phase(tmp: Path) -> dict:
+    """LeNet-5 at bench_lenet5's shape through the trainer CLI, in-process:
+    CNN_ROWS synthetic 28 x 28 x 1 images (pixels in [0, 1) from a numpy
+    seed) with random one-hot labels, batch 256, CNN_EPOCHS epochs,
+    ``--evaluate`` and the output zip. No hand-written kernel is on this
+    path: the convolutions and pooling run in cuDNN, the dense layers in
+    cuBLAS (TF32 off)."""
+    conf = zoo.LeNet5()   # f32, Adam 1e-3, seed 12345
+    (tmp / "lenet.json").write_text(conf.to_json())
+    x, y = _lenet_images(CNN_ROWS, 21)
+    np.savez(tmp / "images.npz", x=x, y=y)
+    out_zip = tmp / "lenet.zip"
+    log = logging.getLogger("deeplearning4j_tpu_torch")
+    handler = _ScoreLog()
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    torch.cuda.reset_peak_memory_stats()
+    printed = io.StringIO()
+    before = _all_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            model = train_cli.run([str(tmp / "lenet.json"), "--data", str(tmp / "images.npz"),
+                                   "--epochs", str(CNN_EPOCHS), "--batch-size", str(CNN_BATCH),
+                                   "--output", str(out_zip), "--listener-frequency", "1",
+                                   "--evaluate"])
+            torch.cuda.synchronize()
+    finally:
+        log.removeHandler(handler)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    per_epoch = CNN_ROWS // CNN_BATCH
+    scores = [sc for _, sc in handler.scores]
+    check([i for i, _ in handler.scores] == list(range(1, CNN_EPOCHS * per_epoch + 1)),
+          f"scores logged for iterations {[i for i, _ in handler.scores]}")
+    check(all(np.isfinite(scores)), f"non-finite loss: {scores}")
+    loss_per_epoch = [float(np.mean(scores[e * per_epoch:(e + 1) * per_epoch]))
+                      for e in range(CNN_EPOCHS)]
+    check(loss_per_epoch[-1] < loss_per_epoch[0], f"the loss did not fall: {loss_per_epoch}")
+    # each iteration's score is logged after the host read it back (a
+    # synchronisation), so the log times bound each epoch on the host clock
+    stamps = handler.stamps
+    last_epoch_s = stamps[-1] - stamps[-per_epoch - 1]
+    accuracy_line = next(line.strip() for line in printed.getvalue().splitlines()
+                         if "Accuracy:" in line)
+    check(_all_launches() == before, "a hand-written kernel ran on the LeNet-5 path")
+
+    restored = restore_network(str(out_zip))
+    x2 = torch.as_tensor(x[:8], device="cuda")
+    restore_diff = (model.output(x2) - restored.output(x2)).abs().max().item()
+    check(restore_diff == 0.0, f"restored output differs by {restore_diff}")
+    del restored
+
+    # one step at 256 rows (CUDA events over 10 after a warm one), then one
+    # step timed in phases (what _value_and_grad and _update_params run)
+    xt = torch.as_tensor(x[:CNN_BATCH], device="cuda")
+    yt = torch.as_tensor(y[:CNN_BATCH], device="cuda")
+    model._fit_batch(xt, yt, None, None)
+    torch.cuda.synchronize()
+    step_ms = time_cuda(lambda: model._fit_batch(xt, yt, None, None), iters=10, warmup=0)
+    ph = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    live = [p.detach().requires_grad_(True) for p in tree_leaves(model.params)]
+    ph[0].record()
+    loss, _ = model._loss(tree_unflatten_like(model.params, live), model.state, xt, yt,
+                          None, None, model._gen)
+    ph[1].record()
+    grads = torch.autograd.grad(loss, live)
+    ph[2].record()
+    model._update_params(tree_unflatten_like(model.params, list(grads)))
+    ph[3].record()
+    torch.cuda.synchronize()
+    fwd_ms, bwd_ms, upd_ms = (ph[i].elapsed_time(ph[i + 1]) for i in range(3))
+    return {
+        "phase": "cnn_train",
+        "model": {"name": "LeNet5", "input": [28, 28, 1], "dtype": "float32",
+                  "params": model.num_params()},
+        "entry": "python -m deeplearning4j_tpu_torch.train lenet.json --data images.npz "
+                 "--evaluate (in-process)",
+        "updater": conf.updater, "rows": CNN_ROWS, "batch": CNN_BATCH, "epochs": CNN_EPOCHS,
+        "loss": scores, "loss_per_epoch": loss_per_epoch, "run_s": run_s,
+        "last_epoch_s": last_epoch_s,
+        "samples_per_s_last_epoch": CNN_ROWS / last_epoch_s,
+        "evaluation": accuracy_line,
+        "restore_max_abs_diff": restore_diff,
+        "step_256": {"step_ms": step_ms,
+                     "split_ms": {"forward": fwd_ms, "backward": bwd_ms, "update": upd_ms},
+                     "samples_per_s": CNN_BATCH / (step_ms / 1e3)},
+        "max_memory_allocated_bytes": peak,
+        "zip": str(out_zip),
+    }
+
+
+def cnn_serve_phase(zip_path: str) -> dict:
+    """The trained LeNet-5 zip restored into ModelRegistry behind
+    InferenceServer: one request of 1 x 28 x 28 x 1 integer pixels 0-255,
+    one of 8 float images, then 4 concurrent requests of 2 images that
+    coalesce; every response row against ``output`` on the same rows."""
+    model = restore_network(zip_path)
+    registry = ModelRegistry(config=ServeConfig(
+        max_batch=16, queue_limit=64, max_wait_s=0.1, default_deadline_s=600.0))
+    registry.register("lenet", model)
+    server = InferenceServer(registry).start(port=0)
+    worker = registry.worker("lenet")
+    rs = np.random.RandomState(22)
+    pix = rs.randint(0, 256, (1, 28, 28, 1))
+    eight = rs.rand(8, 28, 28, 1).astype(np.float32)
+    pairs = [rs.rand(2, 28, 28, 1).astype(np.float32) for _ in range(4)]
+    errs = {}
+    try:
+        def served(x, what):
+            status, body, lat = post_predict(server.port, "lenet", x.tolist(), 600000.0)
+            check(status == 200, f"{what}: HTTP status {status}")
+            got = np.asarray(body["outputs"], np.float32)
+            want = model.output(np.asarray(x, np.float32)).float().cpu().numpy()
+            check(got.shape == want.shape, f"{what}: shape {got.shape} != {want.shape}")
+            err = float(np.abs(got - want).max())
+            check(bool(np.all(np.abs(got - want) <= 1e-5 + 1e-4 * np.abs(want))),
+                  f"{what}: served rows differ from output() by {err}")
+            errs[what] = err
+            return lat
+
+        lat_int = served(pix, "1x28x28x1 integer pixels")
+        lat_8 = served(eight, "8x28x28x1 floats")
+        before = worker.stats()["batches"]
+        lat_pairs = run_concurrently(lambda i: served(pairs[i], f"2 rows, request {i}"),
+                                     [(i,) for i in range(len(pairs))])
+        dispatches = worker.stats()["batches"] - before
+        check(dispatches < len(pairs),
+              f"{len(pairs)} concurrent requests took {dispatches} dispatches")
+    finally:
+        server.stop()
+    return {"phase": "cnn_serve", "model": "LeNet5 (the cnn_train zip)",
+            "latency_s": {"int_pixels_1x28x28x1": lat_int, "floats_8x28x28x1": lat_8,
+                          "concurrent_2x28x28x1": sorted(lat_pairs)},
+            "concurrent_dispatches": dispatches, "max_abs_err_vs_output": errs,
+            "tol": {"rtol": 1e-4, "atol": 1e-5}}
+
+
+def simplecnn_phase() -> dict:
+    """SimpleCNN (48 x 48 x 3, BatchNorm, dropout) fitted 4 steps at batch 64
+    on the card: BatchNorm's running statistics moved and are finite, eval
+    mode repeats bit for bit, and the card's eval output matches the same
+    params and state on the CPU (f32, TF32 off); then the forward at batch
+    256 (CUDA events)."""
+    conf = zoo.SimpleCNN()   # Adam 1e-3, seed 12345
+    model = MultiLayerNetwork(conf).init()
+    x, y = _lenet_images(256, 23, hw=48, channels=3)
+    listener = CollectScoresListener()
+    model.set_listeners(listener)
+    model.fit((x, y), epochs=1, batch_size=64)
+    torch.cuda.synchronize()
+    scores = [sc for _, sc in listener.scores]
+    check(model.iteration == 4 and len(scores) == 4 and all(np.isfinite(scores)),
+          f"{model.iteration} steps, scores {scores}")
+    bn = [s for s in model.state if s]
+    check(len(bn) == 4, f"{len(bn)} BatchNorm states")
+    moved = [{"mean_max_abs": s["mean"].abs().max().item(),
+              "var_max_abs_dev_from_1": (s["var"] - 1).abs().max().item()} for s in bn]
+    check(all(torch.isfinite(t).all() for s in bn for t in s.values()),
+          "non-finite BatchNorm statistics")
+    check(all(m["mean_max_abs"] > 0 and m["var_max_abs_dev_from_1"] > 0 for m in moved),
+          f"BatchNorm statistics did not move: {moved}")
+    xe = torch.as_tensor(x[:64], device="cuda")
+    out1, out2 = model.output(xe), model.output(xe)
+    check(torch.equal(out1, out2), "eval-mode output does not repeat bit for bit")
+    cpu = MultiLayerNetwork(conf, device="cpu").init()
+    params_from_numpy(cpu, params_to_numpy(model))
+    state_from_numpy(cpu, state_to_numpy(model))
+    ref = cpu.output(x[:64])
+    got = out1.cpu()
+    err = (got - ref).abs()
+    tol = SIMPLECNN_TOL["atol_of_max"] * ref.abs().max().item()
+    check(bool((err <= tol + SIMPLECNN_TOL["rtol"] * ref.abs()).all()),
+          f"SimpleCNN on the card differs from the CPU by {err.max().item()}")
+    x256 = torch.as_tensor(x, device="cuda")
+    fwd_ms = time_cuda(lambda: model.output(x256), iters=10)
+    return {"phase": "simplecnn",
+            "model": {"name": "SimpleCNN", "input": [48, 48, 3], "dtype": "float32",
+                      "params": model.num_params()},
+            "fit": {"batch": 64, "steps": model.iteration, "loss": scores},
+            "batch_norm_moved": moved, "eval_repeats_bitwise": True,
+            "card_vs_cpu_max_abs_err": err.max().item(), "tol": SIMPLECNN_TOL,
+            "forward_ms_batch256": fwd_ms}
+
+
 def _kernel_row(name, source, replaces, launches, by_path, max_abs_err, ms, plain_ms,
                 bound_ms, bound_by, library_ms, **extra):
     return dict({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1637,6 +2016,15 @@ def main() -> int:
         lsm = lstm_sample_phase(ltr.pop("zip"))
     emit(ltr)
     emit(lsm)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctr = cnn_train_phase(Path(tmp))
+        csv = cnn_serve_phase(ctr.pop("zip"))
+    emit(ctr)
+    emit(csv)
+    emit(simplecnn_phase())
 
     fwd_cases = kern["cases"]
     bwd_cases = kern["bwd_cases"]

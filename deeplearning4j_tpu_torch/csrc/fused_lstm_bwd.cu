@@ -12,10 +12,10 @@
 // [3H], all in f32. Masked steps route the carry cotangents around the gate
 // path, as `_bwd_kernel` does.
 //
-// One call is three launches on the stream: the sweep, the dWh product and
-// a fixed-order sum of the partials.
+// One call is three launches on the stream: the sweep (T + 1 on the step
+// route), the dWh product and a fixed-order sum of the partials.
 //
-// The sweep carries only dh and dc. Two routes, as for the forward kernel
+// The sweep carries only dh and dc. Three routes, as for the forward kernel
 // (lstm_common.cuh; ops/fused_lstm.py `lstm_route`):
 // - cluster (fused_lstm_bwd_cluster_kernel; H <= 256 in f32 and <= 512 in
 //   16-bit types, the char-RNN's H=256 in every dtype): a cluster of C CTAs
@@ -37,6 +37,14 @@
 //   1024): the grid kernel of the first design, each block owning HB = 8
 //   units of a 32-row batch tile, dz exchanged through dzx in device memory
 //   and a grid barrier of a cooperative launch per step.
+// - step (fused_lstm_bwd_step_kernel; H > 1024, where the wide route's grid
+//   cannot be co-resident): the wide route's blocks with one launch a
+//   reverse step in place of its grid barrier. Launch t (t = T .. 0) first
+//   adds dz_t . Wh[units, :]^T into dh for the block's (row, unit) pairs
+//   (phase B of step t, Wh rows streamed from device memory), then computes
+//   dz_{t-1} from that dh and dc (phase A of step t - 1): T + 1 launches.
+//   Its peephole partials accumulate per (row, unit) in the workspace over
+//   the reverse steps and are summed over the rows in order.
 // dWh is no longer summed inside the recurrence (the first design added
 // hprev_t^T . dz_t into an [H][32] f32 shared accumulator at every step: on
 // the critical path, and what capped H at 512). It is one product after the
@@ -83,7 +91,7 @@ struct Params {
   float* ppart;         // [parts, 3H]: the peephole partials (peep only)
   float* wpart;         // [splits, H, 4H]: the dWh partials (splits > 1 only)
   int B, T, H;
-  int cluster;          // CTAs of a cluster (cluster route), 0 for the wide route
+  int cluster;          // CTAs of a cluster (cluster route), 0 wide, -1 step
 };
 
 // unit j's 4 gate cotangents of one row, rounded to T, into a [4H] row
@@ -218,27 +226,17 @@ fused_lstm_bwd_cluster_kernel(const Params p) {
     for (int e = 0; e < 2; ++e) {
       carry[e] = 0.f;
       if (!own[e]) continue;
-      const float i = g4[e][0], f = g4[e][1], g = g4[e][2], o = g4[e][3];
-      const float A = dh[e] + dhs[e];
-      const float Cc = dc[e];
-      const float me = m[e];
-      const float tanh_c = tanhf(c_t[e]);
-      const float dh_g = A * me;
-      const float d_o = dh_g * tanh_c * o * (1.f - o);
-      float dcg = Cc * me + dh_g * o * (1.f - tanh_c * tanh_c);
-      if (peep) dcg = dcg + d_o * p_o;
-      const float d_i = dcg * g * i * (1.f - i);
-      const float d_g = dcg * i * (1.f - g * g);
-      const float d_f = dcg * c_prev[e] * f * (1.f - f);
-      carry[e] = A * (1.f - me);
-      float dc_new = dcg * f + Cc * (1.f - me);
+      const CellGrad cg = cell_backward(g4[e][0], g4[e][1], g4[e][2], g4[e][3], c_t[e],
+                                        c_prev[e], dh[e] + dhs[e], dc[e], m[e], peep, p_i,
+                                        p_f, p_o);
+      const float d_i = cg.d_i, d_f = cg.d_f, d_g = cg.d_g, d_o = cg.d_o;
+      carry[e] = cg.carry;
       if (peep) {
-        dc_new = dc_new + d_i * p_i + d_f * p_f;
         sp[e][0] += d_i * c_prev[e];
         sp[e][1] += d_f * c_prev[e];
         sp[e][2] += d_o * c_t[e];
       }
-      dc[e] = dc_new;
+      dc[e] = cg.dc;
       if (real[e]) {
         const size_t row = size_t(row0 + r[e]) * n_t + t;
         float* dr = p.dzx + row * Z;
@@ -390,37 +388,26 @@ fused_lstm_bwd_kernel(const Params p) {
       if (b < B) {
         const size_t row = size_t(b) * n_t + t;
         const T* gr = gates + row * Z;
-        const float i = to_f(gr[j]), f = to_f(gr[H + j]);
-        const float g = to_f(gr[2 * H + j]), o = to_f(gr[3 * H + j]);
         const float c_t = to_f(cs[row * H + j]);
         const float c_prev = p.cprev[row * H + j];
-        const float m = p.mask[row];
         const size_t bh = size_t(b) * H + j;
-        const float A = p.dh[bh] + p.dhs[row * H + j];
-        const float C = p.dc[bh];
-        const float tanh_c = tanhf(c_t);
-        const float dh_g = A * m;
-        const float d_o = dh_g * tanh_c * o * (1.f - o);
-        float dcg = C * m + dh_g * o * (1.f - tanh_c * tanh_c);
-        if (peep) dcg = dcg + d_o * p_o;
-        const float d_i = dcg * g * i * (1.f - i);
-        const float d_g = dcg * i * (1.f - g * g);
-        const float d_f = dcg * c_prev * f * (1.f - f);
+        const CellGrad cg = cell_backward(
+            to_f(gr[j]), to_f(gr[H + j]), to_f(gr[2 * H + j]), to_f(gr[3 * H + j]), c_t, c_prev,
+            p.dh[bh] + p.dhs[row * H + j], p.dc[bh], p.mask[row], peep, p_i, p_f, p_o);
         float* dr = p.dzx + row * Z;
-        dr[j] = d_i;
-        dr[H + j] = d_f;
-        dr[2 * H + j] = d_g;
-        dr[3 * H + j] = d_o;
-        if (p.dzr != nullptr) store_dz(static_cast<T*>(p.dzr) + row * Z, H, j, d_i, d_f, d_g, d_o);
-        p.dh[bh] = A * (1.f - m);           // phase B adds dz . Wh^T
-        float dc_new = dcg * f + C * (1.f - m);
+        dr[j] = cg.d_i;
+        dr[H + j] = cg.d_f;
+        dr[2 * H + j] = cg.d_g;
+        dr[3 * H + j] = cg.d_o;
+        if (p.dzr != nullptr)
+          store_dz(static_cast<T*>(p.dzr) + row * Z, H, j, cg.d_i, cg.d_f, cg.d_g, cg.d_o);
+        p.dh[bh] = cg.carry;           // phase B adds dz . Wh^T
         if (peep) {
-          dc_new = dc_new + d_i * p_i + d_f * p_f;
-          sp_i += d_i * c_prev;
-          sp_f += d_f * c_prev;
-          sp_o += d_o * c_t;
+          sp_i += cg.d_i * c_prev;
+          sp_f += cg.d_f * c_prev;
+          sp_o += cg.d_o * c_t;
         }
-        p.dc[bh] = dc_new;
+        p.dc[bh] = cg.dc;
       }
     }
     grid.sync();   // dz_t complete in dzx everywhere
@@ -463,6 +450,82 @@ fused_lstm_bwd_kernel(const Params p) {
       p.ppart[size_t(group) * 3 * H + q * H + j0 + uu] = s;
     }
   }
+}
+
+// ===========================================================================
+// step route: one launch a reverse step
+// ===========================================================================
+
+constexpr int SZC = 64;             // dz columns staged per chunk
+
+// Launch tb of the step route's sweep for the block's HB units of one
+// BB-row tile: phase B of step tb (dh += round_T(dz_tb) . Wh[units, :]^T,
+// when tb < T), then phase A of step tb - 1 (its dz into dzx, and dzr for
+// the 16-bit types, from dh and dc, which only this thread touches; when
+// tb >= 1). Peephole partials go to ppart [B, 3H], one row a batch row.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+fused_lstm_bwd_step_kernel(const Params p, int tb) {
+  __shared__ __align__(16) float dzs[BB][SZC + 4];      // dz chunk, rounded to T
+  __shared__ __align__(16) float whs[HB][SZC + 4];      // Wh rows of the units
+  const int B = p.B, n_t = p.T, H = p.H, Z = 4 * H;
+  const int j0 = blockIdx.x * HB, tile = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int r = tid / HB, u = tid % HB;
+  const int j = j0 + u, b = tile * BB + r;
+  const size_t bh = size_t(b) * H + j;
+  const T* wh = static_cast<const T*>(p.wh);
+
+  if (tb < n_t) {   // phase B of step tb
+    float s = 0.f;
+    for (int zc = 0; zc < Z; zc += SZC) {
+      __syncthreads();   // the previous chunk has been read
+      for (int idx = tid; idx < BB * SZC; idx += THREADS) {
+        const int rr = idx / SZC, zz = idx % SZC;
+        const int bb = tile * BB + rr;
+        dzs[rr][zz] = bb < B ? round_to<T>(p.dzx[(size_t(bb) * n_t + tb) * Z + zc + zz]) : 0.f;
+      }
+      for (int idx = tid; idx < HB * SZC; idx += THREADS) {
+        const int uu = idx / SZC, zz = idx % SZC;
+        whs[uu][zz] = to_f(wh[size_t(j0 + uu) * Z + zc + zz]);
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int z = 0; z < SZC; z += 4)
+        s = dot4(*reinterpret_cast<const float4*>(&dzs[r][z]),
+                 *reinterpret_cast<const float4*>(&whs[u][z]), s);
+    }
+    if (b < B) p.dh[bh] += s;
+  }
+  const int t = tb - 1;
+  if (t < 0 || b >= B) return;
+  // phase A of step t, as the wide route's
+  const bool peep = p.peep != nullptr;
+  const T* gates = static_cast<const T*>(p.gates);
+  const size_t row = size_t(b) * n_t + t;
+  const T* gr = gates + row * Z;
+  const float c_t = to_f(static_cast<const T*>(p.cs)[row * H + j]);
+  const float c_prev = p.cprev[row * H + j];
+  const CellGrad cg = cell_backward(
+      to_f(gr[j]), to_f(gr[H + j]), to_f(gr[2 * H + j]), to_f(gr[3 * H + j]), c_t, c_prev,
+      p.dh[bh] + p.dhs[row * H + j], p.dc[bh], p.mask[row], peep, peep ? p.peep[j] : 0.f,
+      peep ? p.peep[H + j] : 0.f, peep ? p.peep[2 * H + j] : 0.f);
+  float* dr = p.dzx + row * Z;
+  dr[j] = cg.d_i;
+  dr[H + j] = cg.d_f;
+  dr[2 * H + j] = cg.d_g;
+  dr[3 * H + j] = cg.d_o;
+  if (p.dzr != nullptr)
+    store_dz(static_cast<T*>(p.dzr) + row * Z, H, j, cg.d_i, cg.d_f, cg.d_g, cg.d_o);
+  p.dh[bh] = cg.carry;           // the next launch adds dz_t . Wh^T
+  if (peep) {
+    float* pp = p.ppart + size_t(b) * 3 * H;
+    const bool first = t == n_t - 1;
+    pp[j] = (first ? 0.f : pp[j]) + cg.d_i * c_prev;
+    pp[H + j] = (first ? 0.f : pp[H + j]) + cg.d_f * c_prev;
+    pp[2 * H + j] = (first ? 0.f : pp[2 * H + j]) + cg.d_o * c_t;
+  }
+  p.dc[bh] = cg.dc;
 }
 
 // ===========================================================================
@@ -705,7 +768,9 @@ int launch_dwh(const Params& p, int splits, cudaStream_t stream) {
 // launch
 // ---------------------------------------------------------------------------
 
-bool h_supported(int H) { return H >= 128 && H <= MAX_H && H % 128 == 0; }
+// Every route takes H a multiple of 128; the cluster and wide routes only up
+// to MAX_H (their launch caches are sized by it), the step route any.
+bool h_supported(int H) { return H >= 128 && H % 128 == 0; }
 
 template <typename T>
 bool cluster_fits(int H, int C) {
@@ -790,7 +855,17 @@ int wide_groups(int B, int H, int dtype, int* groups) {
 template <typename T>
 int launch(const Params& p, int dtype, cudaStream_t stream) {
   int parts = (p.B + ROWS_C - 1) / ROWS_C;
-  if (p.cluster == 0) {
+  if (p.cluster == -1) {   // T + 1 launches, then the dWh product as below
+    parts = p.B;
+    const dim3 grid(p.H / HB, (p.B + BB - 1) / BB);
+    for (int tb = p.T; tb >= 0; --tb) {
+      fused_lstm_bwd_step_kernel<T><<<grid, THREADS, 0, stream>>>(p, tb);
+      const cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return int(e);
+    }
+  } else if (p.H > MAX_H) {
+    return -1;
+  } else if (p.cluster == 0) {
     int groups = 0;
     int rc = wide_groups<T>(p.B, p.H, dtype, &groups);
     if (rc != 0) return rc;
@@ -823,6 +898,8 @@ int launch(const Params& p, int dtype, cudaStream_t stream) {
 
 template <typename T>
 long long smem_bytes(int H, int cluster) {
+  if (cluster == -1) return 0;   // static shared memory only
+  if (H > MAX_H) return -1;
   if (cluster == 0) return (long long)Wide<T>::bytes(H);
   if (!cluster_fits<T>(H, cluster)) return -1;
   return (long long)BwdCluster<T>::bytes(H, H / cluster, ROWS_C);
@@ -838,17 +915,19 @@ int splits_for(int dtype, int N, int H) {
 
 // Floats of the f32 workspace a call needs: the dWh split partials
 // [splits, H, 4H] when there is more than one split, then the peephole
-// partials [ceil(B / 8), 3H]. -1 when H is unsupported.
+// partials [parts, 3H], B parts at most (the step route's one a row; the
+// cluster route's one a cluster, the wide route's one a batch group). -1
+// when H is unsupported.
 long long fused_lstm_bwd_workspace(int B, int T, int H, int dtype) {
   if (!h_supported(H) || B < 1 || T < 1) return -1;
   const int splits = splits_for(dtype, B * T, H);
-  return (splits > 1 ? (long long)splits * H * 4 * H : 0) +
-         (long long)((B + ROWS_C - 1) / ROWS_C) * 3 * H;
+  return (splits > 1 ? (long long)splits * H * 4 * H : 0) + (long long)B * 3 * H;
 }
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (gates, cs, hprev, Wh).
-// cluster: the cluster route's CTAs per cluster (4, 8 or 16), or 0 for the
-// wide route. dzr: [B, T, 4H] in the operand type for 16-bit types (the
+// cluster: the cluster route's CTAs per cluster (4, 8 or 16), 0 for the
+// wide route, -1 for the step route (H a multiple of 128, at most 1024 on the
+// other two). dzr: [B, T, 4H] in the operand type for 16-bit types (the
 // dWh product's copy of dz), null for f32. dh: zeros in (the wide route
 // reads it), dh0 out; dc: dc_T in, dc0 out. work: fused_lstm_bwd_workspace
 // floats. Returns 0 on clean launches, -1 for an unsupported dtype, H or
@@ -873,7 +952,8 @@ int fused_lstm_bwd(const void* gates, const void* cs, const float* cprev,
   return -1;
 }
 
-// Dynamic shared memory one block of the route takes, or -1 when unsupported.
+// Dynamic shared memory one block of the route takes (0 for the step route,
+// whose arrays are static), or -1 when unsupported.
 long long fused_lstm_bwd_smem_bytes(int dtype, int H, int cluster) {
   if (!h_supported(H)) return -1;
   if (dtype == 0) return smem_bytes<float>(H, cluster);

@@ -15,7 +15,7 @@
 // The TPU grid walks time chunks in order on one core and keeps all of Wh
 // (1 MB at H=256 f32) in VMEM. A Hopper block has at most 227 KB of shared
 // memory, so Wh is sharded over hidden units, and every step needs all of
-// h_{t-1}: the shards exchange h once a step. Two routes (lstm_common.cuh;
+// h_{t-1}: the shards exchange h once a step. Three routes (lstm_common.cuh;
 // ops/fused_lstm.py `lstm_route` picks one from H and the dtype):
 //
 // cluster (fused_lstm_fwd_cluster_kernel; H <= 384 in f32 and <= 512 in
@@ -52,7 +52,18 @@
 // step ends at the grid barrier of a cooperative launch, which refuses a
 // grid that cannot be co-resident (H = 1024 f32: 128 blocks of 164 KB).
 //
-// Both: h is rounded to Wh's dtype before the recurrent product, as the TPU
+// step (fused_lstm_fwd_step_kernel; H > 1024, where the wide route's grid of
+// H / 8 blocks, each holding its Wh columns for all T steps, no longer fits
+// the card at once: at H = 2048 f32 Wh alone is 64 MB, more than the shared
+// memory of all 132 SMs): one launch a time step, the kernel boundary in
+// place of the grid barrier. A block owns HB = 8 units of a BB = 32-row
+// batch tile, as in the wide route, and streams h_{t-1} and its Wh columns
+// from device memory through shared memory in chunks of SKC = 64 k rows (Wh
+// is read from L2 or device memory every step); then the same gate math,
+// peepholes and mask, and h_t into the other half of the f32 double buffer.
+// Any H that is a multiple of 128 runs.
+//
+// All: h is rounded to Wh's dtype before the recurrent product, as the TPU
 // kernel casts it (`h.astype(wh.dtype)`); products accumulate in f32 with
 // plain FMAs (no TF32), so f32 keeps f32 accuracy. Each launch's attributes
 // (and the wide route's occupancy answer) are set or asked once per kernel,
@@ -89,7 +100,7 @@ struct Params {
   void* hT;             // [B, H]
   void* cT;             // [B, H]
   int B, T, H;
-  int cluster;          // CTAs of a cluster (cluster route), 0 for the wide route
+  int cluster;          // CTAs of a cluster (cluster route), 0 wide, -1 step
 };
 
 // ===========================================================================
@@ -232,34 +243,19 @@ fused_lstm_fwd_cluster_kernel(const Params p) {
         for (int part = 0; part < KS_FWD; ++part) sum += zp[(part * R + r[e]) * NCOL + q * U + u];
         z[q] = zn[e][q] + sum;
       }
-      float i, f, g, o, c_new;
-      const float cc = c[e];
-      if (peep) {
-        i = sigmoid(z[0] + cc * p_i);
-        f = sigmoid(z[1] + cc * p_f);
-        g = tanhf(z[2]);
-        c_new = f * cc + i * g;
-        o = sigmoid(z[3] + c_new * p_o);
-      } else {
-        i = sigmoid(z[0]);
-        f = sigmoid(z[1]);
-        g = tanhf(z[2]);
-        o = sigmoid(z[3]);
-        c_new = f * cc + i * g;
-      }
-      const float h_new = o * tanhf(c_new);
-      const float m = mn[e];
-      h[e] = m * h_new + (1.f - m) * h[e];
-      c[e] = m * c_new + (1.f - m) * cc;
+      const Cell cl = cell_forward(z[0], z[1], z[2], z[3], h[e], c[e], mn[e], peep, p_i, p_f,
+                                   p_o);
+      h[e] = cl.h;
+      c[e] = cl.c;
       if (real[e]) {
         const size_t row = size_t(row0 + r[e]) * n_t + t;
         hs[row * H + j] = from_f<T>(h[e]);
         cs[row * H + j] = from_f<T>(c[e]);
         T* gr = gates + row * Z;
-        gr[j] = from_f<T>(i);
-        gr[H + j] = from_f<T>(f);
-        gr[2 * H + j] = from_f<T>(g);
-        gr[3 * H + j] = from_f<T>(o);
+        gr[j] = from_f<T>(cl.i);
+        gr[H + j] = from_f<T>(cl.f);
+        gr[2 * H + j] = from_f<T>(cl.g);
+        gr[3 * H + j] = from_f<T>(cl.o);
       }
       hst[r[e] * U + u] = from_f<T>(real[e] ? h[e] : 0.f);
     }
@@ -386,39 +382,21 @@ fused_lstm_fwd_kernel(const Params p) {
         const float m = p.mask != nullptr ? p.mask[row] : 1.f;
         const float h = __ldcg(hin + size_t(b) * H + j);
         const float c = p.cbuf[size_t(b) * H + j];
-        const float zi = to_f(zr[j]) + a0;
-        const float zf = to_f(zr[H + j]) + a1;
-        const float zg = to_f(zr[2 * H + j]) + a2;
-        const float zo = to_f(zr[3 * H + j]) + a3;
-        float i, f, g, o, c_new;
-        if (p.peep != nullptr) {
-          i = sigmoid(zi + c * p_i);
-          f = sigmoid(zf + c * p_f);
-          g = tanhf(zg);
-          c_new = f * c + i * g;
-          o = sigmoid(zo + c_new * p_o);
-        } else {
-          i = sigmoid(zi);
-          f = sigmoid(zf);
-          g = tanhf(zg);
-          o = sigmoid(zo);
-          c_new = f * c + i * g;
-        }
-        const float h_new = o * tanhf(c_new);
-        const float h_out = m * h_new + (1.f - m) * h;
-        const float c_out = m * c_new + (1.f - m) * c;
-        hout[size_t(b) * H + j] = h_out;
-        p.cbuf[size_t(b) * H + j] = c_out;
-        hs[row * H + j] = from_f<T>(h_out);
-        cs[row * H + j] = from_f<T>(c_out);
+        const Cell cl = cell_forward(to_f(zr[j]) + a0, to_f(zr[H + j]) + a1,
+                                     to_f(zr[2 * H + j]) + a2, to_f(zr[3 * H + j]) + a3, h, c,
+                                     m, p.peep != nullptr, p_i, p_f, p_o);
+        hout[size_t(b) * H + j] = cl.h;
+        p.cbuf[size_t(b) * H + j] = cl.c;
+        hs[row * H + j] = from_f<T>(cl.h);
+        cs[row * H + j] = from_f<T>(cl.c);
         T* gr = gates + row * Z;
-        gr[j] = from_f<T>(i);
-        gr[H + j] = from_f<T>(f);
-        gr[2 * H + j] = from_f<T>(g);
-        gr[3 * H + j] = from_f<T>(o);
+        gr[j] = from_f<T>(cl.i);
+        gr[H + j] = from_f<T>(cl.f);
+        gr[2 * H + j] = from_f<T>(cl.g);
+        gr[3 * H + j] = from_f<T>(cl.o);
         if (t == n_t - 1) {
-          static_cast<T*>(p.hT)[size_t(b) * H + j] = from_f<T>(h_out);
-          static_cast<T*>(p.cT)[size_t(b) * H + j] = from_f<T>(c_out);
+          static_cast<T*>(p.hT)[size_t(b) * H + j] = from_f<T>(cl.h);
+          static_cast<T*>(p.cT)[size_t(b) * H + j] = from_f<T>(cl.c);
         }
       }
     }
@@ -426,11 +404,103 @@ fused_lstm_fwd_kernel(const Params p) {
   }
 }
 
+// ===========================================================================
+// step route: one launch a time step
+// ===========================================================================
+
+constexpr int SKC = 64;             // k rows staged per chunk
+
+// Step t of the recurrence for the block's HB units of one BB-row tile:
+// h_{t-1} from hbuf slot t & 1, h_t into slot (t + 1) & 1, c in place.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+fused_lstm_fwd_step_kernel(const Params p, int t) {
+  __shared__ __align__(16) float hst[BB][SKC + 4];      // h chunk, rounded to T
+  __shared__ __align__(16) float wst[SKC][HB * 4];      // Wh chunk [k][unit][gate]
+  const int B = p.B, n_t = p.T, H = p.H, Z = 4 * H;
+  const int j0 = blockIdx.x * HB, tile = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int r = tid / HB, u = tid % HB;
+  const int j = j0 + u, b = tile * BB + r;
+  const float* hin = p.hbuf + size_t(t & 1) * B * H;
+  float* hout = p.hbuf + size_t((t + 1) & 1) * B * H;
+  const T* wh = static_cast<const T*>(p.wh);
+
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+  for (int kc = 0; kc < H; kc += SKC) {
+    __syncthreads();   // the previous chunk has been read
+    for (int idx = tid; idx < BB * SKC; idx += THREADS) {
+      const int rr = idx / SKC, kk = idx % SKC;
+      const int bb = tile * BB + rr;
+      hst[rr][kk] = bb < B ? round_to<T>(hin[size_t(bb) * H + kc + kk]) : 0.f;
+    }
+    for (int idx = tid; idx < SKC * HB * 4; idx += THREADS) {
+      const int uu = idx % HB, q = (idx / HB) & 3, k = idx / (HB * 4);
+      wst[k][uu * 4 + q] = to_f(wh[size_t(kc + k) * Z + q * H + j0 + uu]);
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int k = 0; k < SKC; k += 4) {
+      const float4 h4 = *reinterpret_cast<const float4*>(&hst[r][k]);
+      const float4 w0 = *reinterpret_cast<const float4*>(&wst[k + 0][u * 4]);
+      const float4 w1 = *reinterpret_cast<const float4*>(&wst[k + 1][u * 4]);
+      const float4 w2 = *reinterpret_cast<const float4*>(&wst[k + 2][u * 4]);
+      const float4 w3 = *reinterpret_cast<const float4*>(&wst[k + 3][u * 4]);
+      a0 = fmaf(h4.x, w0.x, a0); a1 = fmaf(h4.x, w0.y, a1);
+      a2 = fmaf(h4.x, w0.z, a2); a3 = fmaf(h4.x, w0.w, a3);
+      a0 = fmaf(h4.y, w1.x, a0); a1 = fmaf(h4.y, w1.y, a1);
+      a2 = fmaf(h4.y, w1.z, a2); a3 = fmaf(h4.y, w1.w, a3);
+      a0 = fmaf(h4.z, w2.x, a0); a1 = fmaf(h4.z, w2.y, a1);
+      a2 = fmaf(h4.z, w2.z, a2); a3 = fmaf(h4.z, w2.w, a3);
+      a0 = fmaf(h4.w, w3.x, a0); a1 = fmaf(h4.w, w3.y, a1);
+      a2 = fmaf(h4.w, w3.z, a2); a3 = fmaf(h4.w, w3.w, a3);
+    }
+  }
+  if (b >= B) return;
+  const size_t row = size_t(b) * n_t + t;
+  const T* zr = static_cast<const T*>(p.zx) + row * Z;
+  const float m = p.mask != nullptr ? p.mask[row] : 1.f;
+  const float h = hin[size_t(b) * H + j];
+  const float c = p.cbuf[size_t(b) * H + j];
+  const bool peep = p.peep != nullptr;
+  const Cell cl = cell_forward(to_f(zr[j]) + a0, to_f(zr[H + j]) + a1,
+                               to_f(zr[2 * H + j]) + a2, to_f(zr[3 * H + j]) + a3, h, c, m,
+                               peep, peep ? p.peep[j] : 0.f, peep ? p.peep[H + j] : 0.f,
+                               peep ? p.peep[2 * H + j] : 0.f);
+  hout[size_t(b) * H + j] = cl.h;
+  p.cbuf[size_t(b) * H + j] = cl.c;
+  static_cast<T*>(p.hs)[row * H + j] = from_f<T>(cl.h);
+  static_cast<T*>(p.cs)[row * H + j] = from_f<T>(cl.c);
+  T* gr = static_cast<T*>(p.gates) + row * Z;
+  gr[j] = from_f<T>(cl.i);
+  gr[H + j] = from_f<T>(cl.f);
+  gr[2 * H + j] = from_f<T>(cl.g);
+  gr[3 * H + j] = from_f<T>(cl.o);
+  if (t == n_t - 1) {
+    static_cast<T*>(p.hT)[size_t(b) * H + j] = from_f<T>(cl.h);
+    static_cast<T*>(p.cT)[size_t(b) * H + j] = from_f<T>(cl.c);
+  }
+}
+
+// T launches on the stream, step after step.
+template <typename T>
+int launch_step(const Params& p, cudaStream_t stream) {
+  const dim3 grid(p.H / HB, (p.B + BB - 1) / BB);
+  for (int t = 0; t < p.T; ++t) {
+    fused_lstm_fwd_step_kernel<T><<<grid, THREADS, 0, stream>>>(p, t);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return int(e);
+  }
+  return 0;
+}
+
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
-bool h_supported(int H) { return H >= 128 && H <= MAX_H && H % 128 == 0; }
+// Every route takes H a multiple of 128; the cluster and wide routes only up
+// to MAX_H (their launch caches are sized by it), the step route any.
+bool h_supported(int H) { return H >= 128 && H % 128 == 0; }
 
 template <typename T>
 bool cluster_fits(int H, int C) {
@@ -519,6 +589,8 @@ int launch_wide(const Params& p, int dtype, cudaStream_t stream) {
 
 template <typename T>
 int launch(const Params& p, int dtype, cudaStream_t stream) {
+  if (p.cluster == -1) return launch_step<T>(p, stream);
+  if (p.H > MAX_H) return -1;
   if (p.cluster == 0) return launch_wide<T>(p, dtype, stream);
   if (!cluster_fits<T>(p.H, p.cluster)) return -1;
   return launch_cluster<T>(p, dtype, stream);
@@ -528,7 +600,7 @@ int launch(const Params& p, int dtype, cudaStream_t stream) {
 // -(1000 + e) for a cudaError_t e).
 template <typename T>
 int rows_for(int B, int H, int cluster, int dtype) {
-  if (!cluster_fits<T>(H, cluster)) return -1;
+  if (H > MAX_H || !cluster_fits<T>(H, cluster)) return -1;
   int rows = 0;
   const int rc = cluster_rows_for<T>(B, H, cluster, dtype, &rows);
   return rc != 0 ? -(1000 + rc) : rows;
@@ -536,6 +608,8 @@ int rows_for(int B, int H, int cluster, int dtype) {
 
 template <typename T>
 long long smem_bytes(int H, int cluster) {
+  if (cluster == -1) return 0;   // static shared memory only
+  if (H > MAX_H) return -1;
   if (cluster == 0) return (long long)wide_smem_bytes<T>(H);
   if (!cluster_fits<T>(H, cluster)) return -1;
   return (long long)FwdCluster<T>::bytes(H, H / cluster, ROWS_C);
@@ -546,12 +620,14 @@ long long smem_bytes(int H, int cluster) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (zx, Wh, and every output).
-// cluster: the cluster route's CTAs per cluster (4, 8 or 16), or 0 for the
-// wide route. h0 and c0 are f32; the wide route needs hbuf [2, B, H] with h0
-// in slot 0 and cbuf = c0 [B, H] (updated in place), the cluster route reads
-// h0 and c0 [B, H] through the same two pointers. Returns 0 on a clean
-// launch, -1 for an unsupported dtype, H or cluster size, -2 when the wide
-// route's grid cannot be co-resident, else the cudaError_t code.
+// cluster: the cluster route's CTAs per cluster (4, 8 or 16), 0 for the
+// wide route, -1 for the step route. h0 and c0 are f32; the wide and step
+// routes need hbuf [2, B, H] with h0 in slot 0 and cbuf = c0 [B, H] (updated
+// in place), the cluster route reads h0 and c0 [B, H] through the same two
+// pointers. H is a multiple of 128, at most 1024 on the cluster and wide
+// routes. Returns 0 on clean launches, -1 for an unsupported dtype, H or
+// cluster size, -2 when the wide route's grid cannot be co-resident, else
+// the cudaError_t code.
 int fused_lstm_fwd(const void* zx, const void* wh, const float* mask,
                    const float* peep, float* hbuf, float* cbuf, void* hs,
                    void* gates, void* cs, void* hT, void* cT, int B, int T,
@@ -565,7 +641,8 @@ int fused_lstm_fwd(const void* zx, const void* wh, const float* mask,
   return -1;
 }
 
-// Dynamic shared memory one block of the route takes, or -1 when unsupported.
+// Dynamic shared memory one block of the route takes (0 for the step route,
+// whose arrays are static), or -1 when unsupported.
 long long fused_lstm_fwd_smem_bytes(int dtype, int H, int cluster) {
   if (!h_supported(H)) return -1;
   if (dtype == 0) return smem_bytes<float>(H, cluster);

@@ -5,7 +5,7 @@
 // per-kernel launch attributes. ops/_build.py keys each library on its .cu
 // and every csrc/*.cuh, so an edit here rebuilds every kernel.
 //
-// The two routes (ops/fused_lstm.py `lstm_route` computes the same choice):
+// The three routes (ops/fused_lstm.py `lstm_route` computes the same choice):
 // - cluster: a thread-block cluster of C CTAs (C in 4, 8, 16) owns R batch
 //   rows and walks all T steps on its own; CTA k of the cluster owns
 //   U = H / C hidden units (U <= 32, a multiple of 8) and keeps its slice of
@@ -18,7 +18,10 @@
 //   rows rather than a second wave of clusters.
 // - wide: the hidden-unit-sharded grid kernels (one cooperative launch, a
 //   grid barrier per step) for the widths whose Wh slice does not fit a
-//   cluster, up to H = 1024.
+//   cluster, up to H = MAX_H = 1024.
+// - step: past MAX_H, the same blocks as the wide route with one launch a
+//   time step (the backward: a step's dh product fused with the previous
+//   step's gate cotangents), Wh streamed from device memory each step.
 
 #pragma once
 
@@ -35,7 +38,7 @@ using f16 = __half;
 constexpr int ROWS_C = 8;              // batch rows a cluster owns at least
 constexpr int PADW = 4;                // row padding (elements) of the Wh slices
 constexpr size_t SMEM_LIMIT = 232448;  // the opt-in shared memory of one block
-constexpr int MAX_H = 1024;
+constexpr int MAX_H = 1024;                // the cluster and wide routes' widest H
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -74,6 +77,71 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
 }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+
+// -- the per-unit math every route shares ----------------------------------------
+
+// One unit's gates and cell update at one step from its four pre-activations
+// z = zx + h_{t-1} . Wh: i, f, o sigmoid and g tanh, the GravesLSTM
+// peepholes (c_{t-1} feeds i and f, c_t feeds o) and the masked blend (a
+// masked step, m = 0, carries h and c through).
+struct Cell {
+  float i, f, g, o;   // the pre-mask gates
+  float h, c;         // the post-mask carries
+};
+
+__device__ __forceinline__ Cell cell_forward(float zi, float zf, float zg, float zo, float h,
+                                             float c, float m, bool peep, float p_i, float p_f,
+                                             float p_o) {
+  Cell r;
+  float c_new;
+  if (peep) {
+    r.i = sigmoid(zi + c * p_i);
+    r.f = sigmoid(zf + c * p_f);
+    r.g = tanhf(zg);
+    c_new = r.f * c + r.i * r.g;
+    r.o = sigmoid(zo + c_new * p_o);
+  } else {
+    r.i = sigmoid(zi);
+    r.f = sigmoid(zf);
+    r.g = tanhf(zg);
+    r.o = sigmoid(zo);
+    c_new = r.f * c + r.i * r.g;
+  }
+  const float h_new = r.o * tanhf(c_new);
+  r.h = m * h_new + (1.f - m) * h;
+  r.c = m * c_new + (1.f - m) * c;
+  return r;
+}
+
+// One unit's gate cotangents at one reverse step, from the step's gates,
+// c_t, c_{t-1} and mask, A = the carried dh plus the output cotangent and
+// C = the carried dc: dz = [d_i, d_f, d_g, d_o], dc_{t-1}, and the part of
+// dh_{t-1} that skips the gates, A (1 - m) (the caller adds dz . Wh^T).
+struct CellGrad {
+  float d_i, d_f, d_g, d_o;
+  float dc;      // dc_{t-1}
+  float carry;   // A (1 - m)
+};
+
+__device__ __forceinline__ CellGrad cell_backward(float i, float f, float g, float o,
+                                                  float c_t, float c_prev, float A, float C,
+                                                  float m, bool peep, float p_i, float p_f,
+                                                  float p_o) {
+  CellGrad r;
+  const float tanh_c = tanhf(c_t);
+  const float dh_g = A * m;
+  r.d_o = dh_g * tanh_c * o * (1.f - o);
+  float dcg = C * m + dh_g * o * (1.f - tanh_c * tanh_c);
+  if (peep) dcg = dcg + r.d_o * p_o;
+  r.d_i = dcg * g * i * (1.f - i);
+  r.d_g = dcg * i * (1.f - g * g);
+  r.d_f = dcg * c_prev * f * (1.f - f);
+  r.carry = A * (1.f - m);
+  float dc_new = dcg * f + C * (1.f - m);
+  if (peep) dc_new = dc_new + r.d_i * p_i + r.d_f * p_f;
+  r.dc = dc_new;
+  return r;
+}
 
 // Phase marks of the cluster kernels' steps, for tools/lstm_phase_profile.py:
 // built with -DLSTM_PHASE_PROFILE, thread 0 of block 0 stores %globaltimer

@@ -1,10 +1,13 @@
-"""Carry parameters between the JAX package and the port as numpy trees.
+"""Carry parameters and layer state between the JAX package and the port as
+numpy trees.
 
 The JAX package's params are a tuple of per-layer dicts (nested for
 TransformerBlock's ``attn``/``ln1``/``ln2``); the port keeps the same
 names, shapes and layouts. ``jax.tree_util.tree_map(np.asarray,
 jax_model.params)`` therefore loads here with :func:`params_from_numpy`,
-and :func:`params_to_numpy` gives it back.
+and :func:`params_to_numpy` gives it back. Layer state (BatchNorm's f32
+running ``mean`` and ``var``) goes the same way with
+:func:`state_from_numpy` and :func:`state_to_numpy`.
 
 bf16: JAX exports bfloat16 leaves as ``ml_dtypes.bfloat16`` numpy arrays,
 which ``torch.from_numpy`` rejects. They go through float32 — exact, since
@@ -20,7 +23,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-__all__ = ["params_from_numpy", "params_to_numpy"]
+__all__ = ["params_from_numpy", "params_to_numpy", "state_from_numpy", "state_to_numpy"]
 
 
 def _to_tensor(a, like: torch.Tensor, where: str) -> torch.Tensor:
@@ -41,19 +44,31 @@ def _load(tree, like, where: str):
     return _to_tensor(tree, like, where)
 
 
+def _load_layers(model, attr: str, tree: Sequence[dict]):
+    if model.params is None:
+        model.init()
+    have = getattr(model, attr)
+    if len(tree) != len(have):
+        raise ValueError(f"{len(tree)} layer {attr} dicts for a model of "
+                         f"{len(have)} layers")
+    setattr(model, attr, tuple(_load(t, p, f"layer {i} {attr}")
+                               for i, (t, p) in enumerate(zip(tree, have))))
+    return model
+
+
 def params_from_numpy(model, tree: Sequence[dict]):
     """Load a tuple of per-layer dicts of numpy arrays into ``model``'s
     params (keys and shapes must match the model's own layout; values are
     cast to the model dtype on its device). Initialises the model first if
     it has no params yet. Returns the model."""
-    if model.params is None:
-        model.init()
-    if len(tree) != len(model.params):
-        raise ValueError(f"{len(tree)} layer param dicts for a model of "
-                         f"{len(model.params)} layers")
-    model.params = tuple(_load(t, p, f"layer {i}")
-                         for i, (t, p) in enumerate(zip(tree, model.params)))
-    return model
+    return _load_layers(model, "params", tree)
+
+
+def state_from_numpy(model, tree: Sequence[dict]):
+    """Load a tuple of per-layer dicts of numpy arrays into ``model``'s
+    layer state (the same keys and shapes; each leaf keeps the dtype of
+    the model's own state, f32 for BatchNorm). Returns the model."""
+    return _load_layers(model, "state", tree)
 
 
 def _dump(p):
@@ -69,3 +84,9 @@ def params_to_numpy(model) -> tuple:
     """``model``'s params as a tuple of per-layer dicts of numpy arrays
     (bf16 as float32)."""
     return tuple(_dump(p) for p in model.params)
+
+
+def state_to_numpy(model) -> tuple:
+    """``model``'s layer state as a tuple of per-layer dicts of numpy
+    arrays."""
+    return tuple(_dump(s) for s in model.state)

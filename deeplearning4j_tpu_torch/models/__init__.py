@@ -1,5 +1,10 @@
 """Zoo architectures ported so far."""
 
-from deeplearning4j_tpu_torch.models.zoo import TextGenerationLSTM, TransformerLM
+from deeplearning4j_tpu_torch.models.zoo import (
+    LeNet5,
+    SimpleCNN,
+    TextGenerationLSTM,
+    TransformerLM,
+)
 
-__all__ = ["TextGenerationLSTM", "TransformerLM"]
+__all__ = ["LeNet5", "SimpleCNN", "TextGenerationLSTM", "TransformerLM"]

@@ -1,7 +1,14 @@
-"""Normalization layers (PyTorch port of ``nn/layers/normalization.py``).
+"""Normalization layers (PyTorch port of ``nn/layers/normalization.py``):
+BatchNorm, LocalResponseNormalization, the functional ``layer_norm`` and
+``LayerNorm``.
 
-Ported so far: the functional ``layer_norm`` and ``LayerNorm``. BatchNorm
-and LocalResponseNormalization arrive with their slice.
+BatchNorm keeps the JAX package's numbers, not ``F.batch_norm``'s: the
+batch statistics in f32 (the variance biased, taken two-pass around the
+mean), the running statistics ``decay * old + (1 - decay) * batch`` in the
+layer ``state`` (f32 ``mean`` and ``var``, not params), and the
+normalisation folded into a per-channel scale and shift applied in the
+input dtype. ``F.batch_norm`` would update the running variance with the
+unbiased estimate and weigh the batch by ``momentum``.
 """
 
 from __future__ import annotations
@@ -12,6 +19,97 @@ import torch
 
 from deeplearning4j_tpu_torch.nn.config import LayerConfig, register_layer
 from deeplearning4j_tpu_torch.nn.input_type import InputType
+
+
+@register_layer("batch_norm")
+@dataclass
+class BatchNorm(LayerConfig):
+    """Batch normalization over the channel / feature axis (the last, NHWC).
+
+    DL4J defaults (BatchNormalization.java): decay=0.9 (the running
+    statistics' EMA), eps=1e-5, lockGammaBeta=False. ``ex_weight`` [B]
+    (the fit loop's padded tail rows weighted 0) keeps rows out of the batch
+    statistics."""
+
+    CONSUMES_EXAMPLE_WEIGHT = True  # batch stats must exclude padded rows
+
+    decay: float = 0.9
+    eps: float = 1e-5
+    use_gamma_beta: bool = True   # lockGammaBeta=True in DL4J means fixed 1/0
+    gamma_init: float = 1.0
+    beta_init: float = 0.0
+
+    def _nfeat(self, input_type: InputType) -> int:
+        return input_type.channels if input_type.kind == "conv" else input_type.flat_size()
+
+    def init(self, gen, input_type, dtype=torch.float32, device=None):
+        if not self.use_gamma_beta:
+            return {}
+        n = self._nfeat(input_type)
+        return {"gamma": torch.full((n,), self.gamma_init, dtype=dtype, device=device),
+                "beta": torch.full((n,), self.beta_init, dtype=dtype, device=device)}
+
+    def init_state(self, input_type: InputType):
+        n = self._nfeat(input_type)
+        return {"mean": torch.zeros((n,), dtype=torch.float32),
+                "var": torch.ones((n,), dtype=torch.float32)}
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None, ex_weight=None):
+        dt = x.dtype
+        f32 = torch.float32 if dt in (torch.bfloat16, torch.float16) else dt
+        axes = tuple(range(x.dim() - 1))   # all but the channel / feature axis
+        if train:
+            # f32-accumulated mean of x, then the f32-accumulated mean of the
+            # squared residual in the model dtype (two-pass, biased)
+            if ex_weight is not None:
+                w = ex_weight.reshape((x.shape[0],) + (1,) * (x.dim() - 1)).to(dt)
+                spatial = 1
+                for d in x.shape[1:-1]:
+                    spatial *= d
+                denom = torch.clamp_min(torch.sum(w, dtype=f32) * spatial, 1.0)
+                mean = torch.sum(x * w, dim=axes, dtype=f32) / denom
+                xc = (x - mean.to(dt)) * w
+                var = torch.sum(xc * xc, dim=axes, dtype=f32) / denom
+            else:
+                mean = torch.mean(x, dim=axes, dtype=f32)
+                xc = x - mean.to(dt)
+                var = torch.mean(xc * xc, dim=axes, dtype=f32)
+            new_state = {
+                "mean": self.decay * state["mean"] + (1.0 - self.decay) * mean,
+                "var": self.decay * state["var"] + (1.0 - self.decay) * var,
+            }
+        else:
+            mean, var = state["mean"].to(f32), state["var"].to(f32)
+            new_state = state
+        inv = torch.rsqrt(var + self.eps)
+        if self.use_gamma_beta and params:
+            a = params["gamma"].to(f32) * inv
+            b = params["beta"].to(f32) - mean * a
+        else:
+            a = inv
+            b = -mean * inv
+        return x * a.to(dt) + b.to(dt), new_state
+
+
+@register_layer("lrn")
+@dataclass
+class LocalResponseNormalization(LayerConfig):
+    """Local response normalization across channels
+    (LocalResponseNormalization.java): x / (k + alpha * sum of x^2 over n
+    adjacent channels)^beta, the window padded with zeros as
+    ``reduce_window`` pads it. DL4J defaults: k=2, n=5, alpha=1e-4,
+    beta=0.75."""
+
+    k: float = 2.0
+    n: int = 5
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        half = self.n // 2
+        sq = torch.nn.functional.pad(x * x, (half, self.n - 1 - half))
+        ssum = sq.unfold(-1, self.n, 1).sum(-1)
+        return x / (self.k + self.alpha * ssum) ** self.beta, state
 
 
 def layer_norm(x, gamma=None, beta=None, eps: float = 1e-5):

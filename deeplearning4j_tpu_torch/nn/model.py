@@ -45,7 +45,7 @@ from deeplearning4j_tpu_torch import obs
 from deeplearning4j_tpu_torch.nn.config import LayerConfig, _encode_value, layer_from_dict
 from deeplearning4j_tpu_torch.nn.constraints import apply_constraints
 from deeplearning4j_tpu_torch.nn.input_type import InputType
-from deeplearning4j_tpu_torch.nn.layers import BaseRecurrent, EmbeddingSequence
+from deeplearning4j_tpu_torch.nn.layers import BaseRecurrent, Embedding, EmbeddingSequence
 from deeplearning4j_tpu_torch.nn.preprocessors import infer_preprocessor
 from deeplearning4j_tpu_torch.nn.step_program import (
     accum_applicable,
@@ -309,7 +309,7 @@ class MultiLayerNetwork:
             self.params = tuple(
                 l.init(gen, it, self.dtype, self.device)
                 for l, it in zip(self.layers, self.layer_input_types))
-            self.state = tuple(l.init_state(it)
+            self.state = tuple(tree_map(lambda t: t.to(self.device), l.init_state(it))
                                for l, it in zip(self.layers, self.layer_input_types))
         self._build_updaters()
         self.opt_state = None
@@ -335,6 +335,11 @@ class MultiLayerNetwork:
             with torch.no_grad():
                 self.opt_state = tuple(u.init(p) for u, p in zip(self._updaters, self.params))
         return self.opt_state
+
+    @property
+    def n_layers(self) -> int:
+        """Resolved layers, auto-inserted preprocessors included."""
+        return len(self.layers)
 
     def num_params(self) -> int:
         return sum(int(v.numel()) for v in tree_leaves(self.params))
@@ -433,6 +438,8 @@ class MultiLayerNetwork:
             ex_weight=ex_weight)
         grads = torch.autograd.grad(loss, live, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        # layer state (BatchNorm's running statistics) carries no graph
+        new_state = tree_map(lambda s: s.detach(), new_state)
         if new_carries is not None:
             new_carries = tree_map(lambda c: c.detach(), new_carries)
         return (loss.detach(), new_state, tree_unflatten_like(self.params, grads),
@@ -674,13 +681,50 @@ class MultiLayerNetwork:
             ev.eval(y, preds, mask=self._output_mask(fm, lm))
         return ev
 
+    @property
+    def takes_ids(self) -> bool:
+        """Does the first layer take integer ids (an embedding)?"""
+        return isinstance(self.layers[0], (Embedding, EmbeddingSequence))
+
     def dummy_input(self, batch: int) -> torch.Tensor:
         """A zero batch of ``batch`` rows shaped for this model's input: token
-        ids [batch, T] when the first layer embeds ids, else zeros of the
-        input type's shape in the model dtype."""
+        ids [batch, T] when the first layer embeds a sequence, ids [batch, 1]
+        for an Embedding, else zeros of the input type's shape in the model
+        dtype ([batch, H, W, C] images for a convolutional input, [batch,
+        H*W*C] for a flattened one)."""
         it = self.conf.input_type
         if isinstance(self.layers[0], EmbeddingSequence):
             return torch.zeros((batch, it.timesteps or 16), dtype=torch.int64,
                                device=self.device)
+        if isinstance(self.layers[0], Embedding):
+            return torch.zeros((batch, 1), dtype=torch.int64, device=self.device)
         return torch.zeros(it.batch_shape(batch), dtype=self.dtype,
                            device=self.device)
+
+    # -- copies and description ------------------------------------------------
+    def clone(self) -> "MultiLayerNetwork":
+        """A deep copy on the same device: params, layer state, optimizer
+        state and the step counters (MultiLayerNetwork.clone)."""
+        m = MultiLayerNetwork(self.conf, device=self.device)
+        if self.params is not None:
+            m.init()
+            with torch.no_grad():
+                copy = lambda t: tree_map(lambda x: x.detach().clone(), t)  # noqa: E731
+                m.params = copy(self.params)
+                m.state = copy(self.state)
+                m.opt_state = copy(self.opt_state)
+            m.iteration = self.iteration
+            m.epoch = self.epoch
+        return m
+
+    def summary(self) -> str:
+        """One line per resolved layer (index, type, output shape, params)
+        and the total, as the JAX package's ``summary`` prints them."""
+        lines = [f"{'idx':<4} {'type':<22} {'output':<24} {'params':<10}"]
+        for i, (l, it) in enumerate(zip(self.layers, self.layer_input_types)):
+            out = l.output_type(it)
+            n = (sum(int(p.numel()) for p in tree_leaves(self.params[i]))
+                 if self.params is not None else "?")
+            lines.append(f"{i:<4} {l._type_name:<22} {str(out.batch_shape())[0:24]:<24} {n:<10}")
+        lines.append(f"Total params: {self.num_params() if self.params is not None else '?'}")
+        return "\n".join(lines)

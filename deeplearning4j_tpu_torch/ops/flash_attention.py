@@ -6,8 +6,10 @@ package runs three Pallas kernels that compute attention blockwise so the
 and the backward pair ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` behind a
 custom VJP. Here they are ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``,
 CUDA C++ for Hopper (``sm_90a``) built at first use and bound through
-ctypes (``ops/_build.py``). Their design notes and their bounds at the
-flagship shape sit at the top of each source.
+ctypes (``ops/_build.py``), for head dims up to 256; past 256 the same
+wrappers launch the wide-head route of ``csrc/flash_wide.cu`` (the head
+dim a run-time loop over 64-column chunks, f32 accumulators in shared
+memory). Their design notes and bounds sit at the top of each source.
 
 Dispatch follows one rule, with no fallback: a tensor on the CPU goes to
 the plain version, a CUDA tensor goes to the kernel or raises.
@@ -49,6 +51,7 @@ from deeplearning4j_tpu_torch.ops import _build
 __all__ = [
     "MAX_HEAD_DIM",
     "SUPPORTED_HEAD_DIMS",
+    "WIDE_HEAD_DIM_STEP",
     "flash_attention",
     "flash_attention_bwd_reference",
     "flash_attention_reference",
@@ -63,13 +66,19 @@ __all__ = [
 ]
 
 _NEG_BIG = -1e30
-# head dims the kernels are built for; a head dim between them runs
-# zero-padded up to the next (kernel_head_dim), up to MAX_HEAD_DIM
+# head dims kernels #1-#3 are built for; a head dim between them runs
+# zero-padded up to the next (kernel_head_dim)
 SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
-MAX_HEAD_DIM = 256
+# past 256 the wide-head route (csrc/flash_wide.cu) takes multiples of
+# WIDE_HEAD_DIM_STEP, up to the widest whose f32 accumulators (16 query rows
+# x D for the forward and dq, 2 x 8 key rows x D for dk/dv) and 64-column
+# staging tiles fit one block's 227 KB: 2880 (dq's layout, 230,464 bytes)
+WIDE_HEAD_DIM_STEP = 64
+MAX_HEAD_DIM = 2880
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _lib = None
 _bwd_lib = None
+_wide_lib = None
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -108,21 +117,52 @@ def _bwd_kernel_lib() -> ctypes.CDLL:
     return _bwd_lib
 
 
+def _wide_kernel_lib() -> ctypes.CDLL:
+    global _wide_lib
+    if _wide_lib is None:
+        lib = _build.load("flash_wide")
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        # the same arguments as flash_fwd, flash_bwd_dq and flash_bwd_dkv
+        lib.flash_wide_fwd.argtypes = (
+            [ptr] * 6 + [i32] * 6 + [ctypes.c_float] + [i64] * 9 + [ptr])
+        lib.flash_wide_fwd.restype = i32
+        head = [ptr] * 7
+        dims = [i32] * 6 + [ctypes.c_float, ctypes.POINTER(i64), ptr]
+        lib.flash_wide_bwd_dq.argtypes = head + [ptr] + dims
+        lib.flash_wide_bwd_dq.restype = i32
+        lib.flash_wide_bwd_dkv.argtypes = head + [ptr, ptr] + dims
+        lib.flash_wide_bwd_dkv.restype = i32
+        lib.flash_wide_error_string.argtypes = [i32]
+        lib.flash_wide_error_string.restype = ctypes.c_char_p
+        lib.flash_wide_smem_bytes.argtypes = [i32, i32]
+        lib.flash_wide_smem_bytes.restype = i64
+        _wide_lib = lib
+    return _wide_lib
+
+
 def kernel_head_dim(D: int, dtype: torch.dtype) -> int:
-    """The head dim the kernels run a D-wide head at: the smallest of
-    :data:`SUPPORTED_HEAD_DIMS` not below D. The wrappers zero-pad q, k, v
-    (and the backward's do) up to it and pass the real ``1/sqrt(D)``; the
-    padded columns add exact zeros to every product and are sliced off the
-    outputs, so the result is the D-wide attention's. Raises a ValueError
-    past :data:`MAX_HEAD_DIM` or for a dtype other than float32, bfloat16
-    and float16."""
+    """The head dim the kernels run a D-wide head at: up to 256 the
+    smallest of :data:`SUPPORTED_HEAD_DIMS` not below D (kernels #1-#3);
+    past 256 the next multiple of :data:`WIDE_HEAD_DIM_STEP` (the wide-head
+    route). The wrappers zero-pad q, k, v (and the backward's do) up to it
+    and pass the real ``1/sqrt(D)``; the padded columns add exact zeros to
+    every product and are sliced off the outputs, so the result is the
+    D-wide attention's. Raises a ValueError past :data:`MAX_HEAD_DIM` or for
+    a dtype other than float32, bfloat16 and float16."""
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"flash attention kernels take float32, bfloat16 or float16, "
                          f"got {dtype}")
     if not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"flash attention kernels take head dims up to {MAX_HEAD_DIM}, "
                          f"got {D}")
-    return next(d for d in SUPPORTED_HEAD_DIMS if d >= D)
+    if D <= SUPPORTED_HEAD_DIMS[-1]:
+        return next(d for d in SUPPORTED_HEAD_DIMS if d >= D)
+    return -(-D // WIDE_HEAD_DIM_STEP) * WIDE_HEAD_DIM_STEP
+
+
+def _wide(d: int) -> bool:
+    """Does a kernel head dim take the wide-head route?"""
+    return d > SUPPORTED_HEAD_DIMS[-1]
 
 
 def pad_head_dim(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -176,13 +216,14 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    kmask: Optional[torch.Tensor] = None,
                    causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch kernel #1 (``csrc/flash_fwd.cu``: the wgmma/TMA kernel for
-    bf16, the FMA kernel for f32) on PyTorch's current stream.
+    bf16 and f16, the FMA kernel for f32), or past D = 256 the wide-head
+    forward (``csrc/flash_wide.cu``), on PyTorch's current stream.
 
-    q/k/v [B, T, H, D] CUDA tensors (f32, bf16 or f16, D up to 256; a D
-    outside :data:`SUPPORTED_HEAD_DIMS` runs zero-padded,
-    :func:`kernel_head_dim`; head dim contiguous; other strides are read as
-    they are, so the fused-qkv split views need no copy); ``kmask`` [B, T]
-    key validity (>0 = real key).
+    q/k/v [B, T, H, D] CUDA tensors (f32, bf16 or f16, D up to
+    :data:`MAX_HEAD_DIM`; a D the kernels are not built for runs
+    zero-padded, :func:`kernel_head_dim`; head dim contiguous; other strides
+    are read as they are, so the fused-qkv split views need no copy);
+    ``kmask`` [B, T] key validity (>0 = real key).
     Returns ``(out [B, T, H, D] in q's dtype, lse [B, H, T] f32)``. Raises
     on anything the kernel does not take, on a tensor map libcuda
     refuses and on a failed launch. Each launch adds one to
@@ -190,7 +231,12 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_operands(q, k, v, kmask)
     B, T, H, D = q.shape
     d, (q, k, v) = _padded(D, q.dtype, q, k, v)
-    lib = _kernel_lib()
+    if _wide(d):
+        lib = _wide_kernel_lib()
+        launch, error_string = lib.flash_wide_fwd, lib.flash_wide_error_string
+    else:
+        lib = _kernel_lib()
+        launch, error_string = lib.flash_fwd, lib.flash_fwd_error_string
     out = torch.empty((B, T, H, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     km = None
@@ -198,7 +244,7 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         km = kmask.to(torch.float32).contiguous()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_fwd(
+        rc = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             km.data_ptr() if km is not None else None,
             out.data_ptr(), lse.data_ptr(),
@@ -206,8 +252,8 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             1.0 / math.sqrt(D),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream)
     if rc != 0:
-        raise RuntimeError(f"flash_fwd launch failed ({rc}): "
-                           f"{lib.flash_fwd_error_string(rc).decode()}")
+        raise RuntimeError(f"flash_fwd launch failed ({rc}, head dim {d}): "
+                           f"{error_string(rc).decode()}")
     flash_fwd_cuda.launches += 1
     return (out if d == D else out[..., :D].contiguous()), lse
 
@@ -238,7 +284,12 @@ def _launch_bwd(fn, q, k, v, do, lse, delta, km, n_out, causal):
     B, T, H, D = q.shape
     d, (q, k, v, do) = _padded(D, q.dtype, q, k, v, do)
     outs = [torch.empty((B, T, H, d), dtype=q.dtype, device=q.device) for _ in range(n_out)]
-    lib = _bwd_kernel_lib()
+    if _wide(d):   # the wide-head route: flash_wide_bwd_dq / _dkv, the same arguments
+        lib = _wide_kernel_lib()
+        fn, error_string = fn.replace("flash_", "flash_wide_", 1), lib.flash_wide_error_string
+    else:
+        lib = _bwd_kernel_lib()
+        error_string = lib.flash_bwd_error_string
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *do.stride()[:3])
     with torch.cuda.device(q.device):
@@ -251,13 +302,13 @@ def _launch_bwd(fn, q, k, v, do, lse, delta, km, n_out, causal):
             B, T, H, d, _DTYPE_CODES[q.dtype], int(bool(causal)),
             1.0 / math.sqrt(D), strides, stream)
     if rc != 0:
-        raise RuntimeError(f"{fn} launch failed ({rc}): "
-                           f"{lib.flash_bwd_error_string(rc).decode()}")
+        raise RuntimeError(f"{fn} launch failed ({rc}): {error_string(rc).decode()}")
     return [o if d == D else o[..., :D].contiguous() for o in outs]
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, kmask=None, causal=False):
-    """Launch kernel #2 (``csrc/flash_bwd.cu`` ``flash_bwd_dq``): dq
+    """Launch kernel #2 (``csrc/flash_bwd.cu`` ``flash_bwd_dq``; past D =
+    256 ``csrc/flash_wide.cu`` ``flash_wide_bwd_dq``): dq
     [B, T, H, D] in q's dtype from q/k/v/do [B, T, H, D] (read through
     their strides), the forward's ``lse`` and ``delta = rowsum(do * out)``
     (both contiguous f32 [B, H, T]) and the optional [B, T] key mask.
@@ -273,7 +324,8 @@ flash_bwd_dq_cuda.launches = 0
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, kmask=None, causal=False):
-    """Launch kernel #3 (``csrc/flash_bwd.cu`` ``flash_bwd_dkv``): ``(dk,
+    """Launch kernel #3 (``csrc/flash_bwd.cu`` ``flash_bwd_dkv``; past D =
+    256 ``flash_wide_bwd_dkv``): ``(dk,
     dv)`` [B, T, H, D] in q's dtype, from the same operands as
     :func:`flash_bwd_dq_cuda`. Each launch adds one to
     ``flash_bwd_dkv_cuda.launches``."""

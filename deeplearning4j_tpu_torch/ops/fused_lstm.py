@@ -8,13 +8,16 @@ in a second one (``_bwd_kernel``) behind a custom VJP. Here they are
 ``csrc/fused_lstm_fwd.cu`` (kernel #4) and ``csrc/fused_lstm_bwd.cu``
 (kernel #5), CUDA C++ for Hopper (``sm_90a``) in float32, bfloat16 and
 float16, built at first use and bound through ctypes (``ops/_build.py``).
-Each walks all T steps in one launch, by one of two routes that
-:func:`lstm_route` picks from the hidden width, the dtype and the kernel:
-``cluster`` (thread-block clusters that exchange h or dz through
-distributed shared memory, one cluster barrier a step, no grid-wide
-synchronisation) where a cluster's shared memory holds Wh, else ``wide``
-(one cooperative launch with a grid barrier a step). Kernel #5 computes
-dWh after its sweep, as one product in the same library. Their design
+Each walks the T steps by one of three routes that :func:`lstm_route`
+picks from the hidden width, the dtype and the kernel: ``cluster``
+(thread-block clusters that exchange h or dz through distributed shared
+memory, one cluster barrier a step, no grid-wide synchronisation) where a
+cluster's shared memory holds Wh; else ``wide`` (one cooperative launch
+with a grid barrier a step) up to H = :data:`WIDE_MAX_HIDDEN`; else
+``step`` (one launch a time step, the kernel boundary in place of the grid
+barrier, Wh streamed from device memory every step), which takes any H.
+Kernel #5 computes dWh after its sweep, as one product in the same
+library. Their design
 notes and bounds sit at the top of each source.
 
 Dispatch follows one rule, with no fallback: a tensor on the CPU goes to
@@ -47,7 +50,7 @@ import torch
 from deeplearning4j_tpu_torch.ops import _build
 
 __all__ = [
-    "MAX_HIDDEN",
+    "WIDE_MAX_HIDDEN",
     "bwd_operands",
     "cluster_smem_bytes",
     "fused_lstm",
@@ -58,7 +61,12 @@ __all__ = [
     "lstm_route",
 ]
 
-MAX_HIDDEN = 1024
+# the widest H of the cluster and wide routes: the wide route's grid of
+# H / 8 blocks, each holding its Wh columns for all T steps, must be
+# co-resident (H = 1024 f32: 128 blocks of 164 KB); wider takes ``step``
+WIDE_MAX_HIDDEN = 1024
+# the C interface's ``cluster`` argument for the two routes without clusters
+_ROUTE_CODES = {"wide": 0, "step": -1}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _fwd_lib = None
 _bwd_lib = None
@@ -103,17 +111,17 @@ def lstm_route(H: int, dtype: torch.dtype, kernel: str) -> Tuple[str, int]:
     """The route kernel #4 (``kernel="fwd"``) or #5 (``"bwd"``) takes for a
     hidden width and dtype: ``("cluster", C)`` with the smallest cluster
     size C in (4, 8, 16) whose CTAs hold U = H / C <= 32 units (a multiple
-    of 8) within one block's shared memory, else ``("wide", 0)``. Raises a
-    ValueError for a width or dtype the kernels do not take (H a multiple of
-    128 up to :data:`MAX_HIDDEN`; float32, bfloat16 or float16). At the
-    char-RNN's H=256 both kernels take clusters of 8 in every dtype; f32
-    takes the wide route from H=512 (the backward from H=384), the 16-bit
-    types from H=640."""
+    of 8) within one block's shared memory, else ``("wide", 0)`` up to
+    :data:`WIDE_MAX_HIDDEN`, else ``("step", 0)``. Raises a ValueError for a
+    width or dtype the kernels do not take (H a multiple of 128; float32,
+    bfloat16 or float16). At the char-RNN's H=256 both kernels take clusters
+    of 8 in every dtype; f32 takes the wide route from H=512 (the backward
+    from H=384), the 16-bit types from H=640; every dtype takes the step
+    route from H=1152."""
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"fused LSTM kernels take float32, bfloat16 or float16, got {dtype}")
-    if H % 128 or not 128 <= H <= MAX_HIDDEN:
-        raise ValueError(f"fused LSTM kernels take H a multiple of 128 up to "
-                         f"{MAX_HIDDEN}, got {H}")
+    if H % 128 or H < 128:
+        raise ValueError(f"fused LSTM kernels take H a multiple of 128, got {H}")
     if kernel not in ("fwd", "bwd"):
         raise ValueError(f"kernel is 'fwd' or 'bwd', got {kernel!r}")
     es = torch.empty((), dtype=dtype).element_size()
@@ -122,7 +130,12 @@ def lstm_route(H: int, dtype: torch.dtype, kernel: str) -> Tuple[str, int]:
         if (H % C == 0 and U <= 32 and U % 8 == 0
                 and cluster_smem_bytes(kernel, H, U, es) <= _SMEM_LIMIT):
             return "cluster", C
-    return "wide", 0
+    return ("wide", 0) if H <= WIDE_MAX_HIDDEN else ("step", 0)
+
+
+def _route_code(route: str, C: int) -> int:
+    """The C interface's ``cluster`` argument: C, 0 (wide) or -1 (step)."""
+    return C if route == "cluster" else _ROUTE_CODES[route]
 
 
 def _fwd_kernel_lib() -> ctypes.CDLL:
@@ -131,7 +144,7 @@ def _fwd_kernel_lib() -> ctypes.CDLL:
         lib = _build.load("fused_lstm_fwd")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         # zx, wh, mask, peephole, hbuf, cbuf, hs, gates, cs, hT, cT,
-        # B, T, H, dtype, cluster, stream
+        # B, T, H, dtype, cluster (C, 0 wide, -1 step), stream
         lib.fused_lstm_fwd.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]
         lib.fused_lstm_fwd.restype = i32
         lib.fused_lstm_fwd_error_string.argtypes = [i32]
@@ -173,9 +186,8 @@ def _check_shapes(zx, wh, who):
     if tuple(wh.shape) != (H, 4 * H) or Z != 4 * H:
         raise ValueError(f"{who}: zx {tuple(zx.shape)} and wh {tuple(wh.shape)} "
                          "do not form [B, T, 4H] and [H, 4H]")
-    if H % 128 or not 128 <= H <= MAX_HIDDEN:
-        raise ValueError(f"{who} takes H a multiple of 128 up to {MAX_HIDDEN} (the "
-                         f"wide route's limit), got {H}")
+    if H % 128 or H < 128:
+        raise ValueError(f"{who} takes H a multiple of 128, got {H}")
     if B < 1 or T < 1:
         raise ValueError(f"{who} needs B >= 1 and T >= 1, got {tuple(zx.shape)}")
     return B, T, H
@@ -210,14 +222,15 @@ def fused_lstm_fwd_cuda(zx: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
                         peephole: Optional[torch.Tensor] = None):
     """Launch kernel #4 (``csrc/fused_lstm_fwd.cu``) on PyTorch's current
     stream: the recurrence over ``zx`` [B, T, 4H] with ``wh`` [H, 4H] (both
-    of one dtype: f32, bf16 or f16; H a multiple of 128 up to
-    :data:`MAX_HIDDEN`; the route is :func:`lstm_route`'s), carries
+    of one dtype: f32, bf16 or f16; H a multiple of 128; the route is
+    :func:`lstm_route`'s), carries
     ``h0``/``c0`` [B, H], optional ``mask`` [B, T] and ``peephole`` [3H].
     Returns ``(hs, gates, cs, h_T, c_T)`` in zx's dtype: the post-mask
     carries [B, T, H], the pre-mask gates [B, T, 4H], the post-mask cells
     [B, T, H] and the final carries [B, H]. Raises on anything the kernel
-    does not take and on a failed launch. Each launch adds one to
-    ``fused_lstm_fwd_cuda.launches``."""
+    does not take and on a failed launch. Each call adds one to
+    ``fused_lstm_fwd_cuda.launches`` (the step route's T launches of one
+    call count once, as the sweep of the other routes does)."""
     B, T, H = _check_shapes(zx, wh, "fused_lstm_fwd")
     _check_cuda("fused_lstm_fwd", zx.dtype, zx.device, wh=(wh, zx.dtype),
                 h0=(h0, None), c0=(c0, None), mask=(mask, None),
@@ -237,7 +250,7 @@ def fused_lstm_fwd_cuda(zx: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
     zx, wh = zx.contiguous(), wh.contiguous()
     if route == "cluster":      # h0, c0 read once, carried in registers
         hbuf, cbuf = _f32(h0), _f32(c0)
-    else:                       # f32 carries exchanged between blocks, h double-buffered
+    else:                       # wide, step: f32 carries exchanged between blocks, h double-buffered
         hbuf = torch.empty((2, B, H), dtype=torch.float32, device=dev)
         hbuf[0].copy_(h0)
         cbuf = _f32(c0).clone()
@@ -252,7 +265,8 @@ def fused_lstm_fwd_cuda(zx: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
         rc = lib.fused_lstm_fwd(
             zx.data_ptr(), wh.data_ptr(), _ptr(m), _ptr(peep), hbuf.data_ptr(),
             cbuf.data_ptr(), hs.data_ptr(), gates.data_ptr(), cs.data_ptr(),
-            hT.data_ptr(), cT.data_ptr(), B, T, H, _DTYPE_CODES[dt], C, stream)
+            hT.data_ptr(), cT.data_ptr(), B, T, H, _DTYPE_CODES[dt], _route_code(route, C),
+            stream)
     if rc != 0:
         msg = _rc_message(rc, lib.fused_lstm_fwd_error_string)
         raise RuntimeError(f"fused_lstm_fwd launch failed ({rc}, {route} route): {msg}")
@@ -282,9 +296,9 @@ def fused_lstm_bwd_cuda(gates, cs, cprev, hprev, wh, m, dhs, dcT, peephole=None)
     into step T-1), the f32 ``dcT`` [B, H] and the optional ``peephole``.
     Returns f32 ``(dzx [B, T, 4H], dWh [H, 4H], dh0 [B, H], dc0 [B, H],
     dpeep [3H] or None)``. One call launches the sweep (:func:`lstm_route`'s
-    route), then the dWh product and the fixed-order sum of its partials and
-    of the peephole partials, all in the library; no atomics, so a run
-    repeats bit for bit. Each call adds one to
+    route; T + 1 launches on the step route), then the dWh product and the
+    fixed-order sum of its partials and of the peephole partials, all in the
+    library; no atomics, so a run repeats bit for bit. Each call adds one to
     ``fused_lstm_bwd_cuda.launches``."""
     B, T, H = _check_shapes(gates, wh, "fused_lstm_bwd")
     dt = gates.dtype
@@ -308,7 +322,7 @@ def fused_lstm_bwd_cuda(gates, cs, cprev, hprev, wh, m, dhs, dcT, peephole=None)
     # 16-bit types: dz rounded to the operand type, the tensor cores' dWh operand
     dzr = torch.empty((B, T, 4 * H), dtype=dt, device=dev) if dt != f32 else None
     dwh = torch.empty((H, 4 * H), dtype=f32, device=dev)
-    # the carry cotangents: dh0 out (the wide route reads zeros in), dc_T in
+    # the carry cotangents: dh0 out (the wide and step routes read zeros in), dc_T in
     # and dc0 out, updated in place by their owning threads
     dh = torch.zeros((B, H), dtype=f32, device=dev)
     dc = dcT.to(f32).contiguous().clone()
@@ -321,7 +335,8 @@ def fused_lstm_bwd_cuda(gates, cs, cprev, hprev, wh, m, dhs, dcT, peephole=None)
         rc = lib.fused_lstm_bwd(
             *(x.data_ptr() for x in args[:6]), args[6].data_ptr(), _ptr(peep),
             dzx.data_ptr(), _ptr(dzr), dwh.data_ptr(), dh.data_ptr(), dc.data_ptr(),
-            _ptr(dpeep), work.data_ptr(), B, T, H, _DTYPE_CODES[dt], C, stream)
+            _ptr(dpeep), work.data_ptr(), B, T, H, _DTYPE_CODES[dt], _route_code(route, C),
+            stream)
     if rc != 0:
         msg = _rc_message(rc, lib.fused_lstm_bwd_error_string)
         raise RuntimeError(f"fused_lstm_bwd launch failed ({rc}, {route} route): {msg}")

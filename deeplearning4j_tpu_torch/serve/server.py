@@ -12,11 +12,13 @@ ThreadingHTTPServer — one OS thread per connection, so concurrent blocked
 - ``GET /v1/models`` → per-model pool stats;
 - ``GET /healthz``, ``GET /metrics`` — from serve/httpcommon.py.
 
-``inputs`` that are all JSON integers stay int64 on their way to the
-model, so token ids reach the embedding exactly. (The JAX package's
-route decodes every payload as float32 and the model then casts it to
-bf16, which moves ids above 256 — 1027 becomes 1024.) Any other numeric
-payload is float32, as there.
+``inputs`` that are all JSON integers stay int64 on their way to a model
+whose first layer takes ids (``MultiLayerNetwork.takes_ids``), so token
+ids reach the embedding exactly. (The JAX package's route decodes every
+payload as float32 and the model then casts it to bf16, which moves ids
+above 256 — 1027 becomes 1024.) For any other model, and for any other
+numeric payload, they are float32, as there: an image of integer pixels
+0-255 reaches a convolution in the model dtype.
 
 SLO route labels are collapsed to ``serve.<name>:http`` / ``/v1/models`` /
 ``/metrics`` so label cardinality stays bounded by the model count.
@@ -42,13 +44,15 @@ __all__ = ["InferenceServer", "decode_inputs"]
 _PREDICT_RE = re.compile(r"^/v1/models/([\w.\-]+):predict$")
 
 
-def decode_inputs(raw) -> np.ndarray:
+def decode_inputs(raw, ids: bool = True) -> np.ndarray:
     """A JSON ``inputs`` value as an array: int64 when every entry is an
-    integer (token ids), float32 otherwise. Raises ValueError for ragged
-    or non-numeric payloads."""
+    integer and ``ids`` (the model takes token ids), float32 otherwise.
+    Raises ValueError for ragged or non-numeric payloads."""
     x = np.asarray(raw)
-    if x.dtype.kind in "iu":
+    if x.dtype.kind in "iu" and ids:
         return x.astype(np.int64)
+    if x.dtype.kind in "iu":
+        return x.astype(np.float32)
     if x.dtype.kind in "fb":
         return x.astype(np.float32)
     raise ValueError(f"inputs must be a rectangular array of numbers, "
@@ -106,7 +110,8 @@ class InferenceServer:
                               "served": outer.registry.names()})
                 try:
                     payload = self.read_json()
-                    x = decode_inputs(payload["inputs"])
+                    x = decode_inputs(payload["inputs"],
+                                      getattr(worker.model, "takes_ids", True))
                     deadline_ms = payload.get("deadline_ms")
                     deadline_s = (None if deadline_ms is None
                                   else float(deadline_ms) / 1e3)

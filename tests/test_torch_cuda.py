@@ -1,11 +1,11 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on the
 GPU: flash attention (forward #1, its 16-bit wgmma kernel at ragged T, B*H
 = 1, on fused-qkv views, repeated and with rows without a valid key; every
-head dim up to 256 in bf16 and f16, zero-padded ones included; backward
-#2 dq and #3 dk/dv) with a tiny TransformerLM served and trained through
-them, and the fused LSTM (forward #4, backward #5; both routes, H up to
-1024, f32, bf16 and f16) with a tiny TextGenerationLSTM trained and
-sampled through them. Every test needs an
+head dim up to 256 in bf16 and f16, zero-padded ones included, and the
+wide-head route past 256; backward #2 dq and #3 dk/dv) with a tiny
+TransformerLM served and trained through them, and the fused LSTM (forward
+#4, backward #5; the cluster, wide and step routes, H up to 2048, f32, bf16
+and f16) with a tiny TextGenerationLSTM trained and sampled through them. Every test needs an
 NVIDIA card (marker ``cuda``) and skips without one; on a GPU host run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -94,9 +94,9 @@ def test_each_launch_counts_once(cuda):
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q, k, v = _qkv(cuda, 1, 32, 2, 64, torch.bfloat16, strided=False)
-    wide = torch.zeros(1, 32, 2, 264, dtype=torch.bfloat16, device=cuda)
+    wide = torch.zeros(1, 32, 2, fa.MAX_HEAD_DIM + 1, dtype=torch.bfloat16, device=cuda)
     bad = [
-        ((wide, wide, wide), {}),                                  # D=264 > 256
+        ((wide, wide, wide), {}),                                  # D > MAX_HEAD_DIM
         ((q.double(), k.double(), v.double()), {}),                # float64
         ((q[..., ::2], k[..., ::2], v[..., ::2]), {}),             # strided D
         ((q, k, v.float()), {}),                                   # mixed dtype
@@ -109,14 +109,16 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         with pytest.raises(ValueError):
             fa.flash_fwd_cuda(*args, **kw)
     assert fa.flash_fwd_cuda.launches == before
-    # D=16 (zero-padded to 32) and float16 run, held to the plain version
-    for args in ((q[..., :16], k[..., :16], v[..., :16]), (q.half(), k.half(), v.half())):
+    # D=16 (zero-padded to 32), float16 and D=264 (the wide-head route,
+    # zero-padded to 320) run, held to the plain version
+    w264 = tuple(torch.randn(1, 32, 2, 264, device=cuda).to(torch.bfloat16) for _ in range(3))
+    for args in ((q[..., :16], k[..., :16], v[..., :16]), (q.half(), k.half(), v.half()), w264):
         out, lse = fa.flash_fwd_cuda(*args, causal=True)
         ref, ref_lse = fa.flash_attention_reference(*args, causal=True, with_lse=True)
         assert out.shape == args[0].shape and out.dtype == args[0].dtype
         torch.testing.assert_close(out.float(), ref.float(), **BF16)
         torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
-    assert fa.flash_fwd_cuda.launches == before + 2
+    assert fa.flash_fwd_cuda.launches == before + 3
 
 
 # -- head dims the wrappers zero-pad, D = 256, float16 -------------------------
@@ -154,6 +156,68 @@ def test_every_head_dim_up_to_256_matches_plain_version(cuda, D, dtype, causal, 
             _close_per_tile(a, b, 1e-2)
     again = fa.flash_bwd_cuda(q, k, v, out, lse, do, km, causal)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# -- the wide-head route (csrc/flash_wide.cu): D past 256 ----------------------
+
+@pytest.mark.parametrize("D,dtype", [(320, torch.float32), (320, torch.bfloat16),
+                                     (512, torch.float32), (512, torch.bfloat16),
+                                     (300, torch.float16), (1024, torch.bfloat16)])
+@pytest.mark.parametrize("causal,masked", [(True, False), (False, True)])
+def test_wide_head_dims_match_plain_version(cuda, D, dtype, causal, masked):
+    """Forward (out, lse) and backward (dq, dk, dv) of the wide-head route
+    on fused-qkv views against the plain versions, each launch counted once
+    on its wrapper, the backward repeated bit for bit."""
+    B, T, H = 2, 200, 3
+    before = (fa.flash_fwd_cuda.launches, fa.flash_bwd_dq_cuda.launches,
+              fa.flash_bwd_dkv_cuda.launches)
+    q, k, v, out, lse, do, km = _bwd_case(cuda, B, T, H, D, dtype, causal, masked, D)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal, kmask=km,
+                                                with_lse=True)
+    w = km[:, :, None, None] if masked else 1.0
+    tol = {torch.float32: F32, torch.bfloat16: BF16, torch.float16: F16}[dtype]
+    assert out.shape == (B, T, H, D) and out.dtype == dtype
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(out.float() * w, ref.float() * w, **tol)
+    wl = km[:, None, :] if masked else 1.0
+    torch.testing.assert_close(lse * wl, ref_lse * wl, rtol=1e-5, atol=1e-4)
+    got = fa.flash_bwd_cuda(q, k, v, out, lse, do, km, causal)
+    assert (fa.flash_fwd_cuda.launches, fa.flash_bwd_dq_cuda.launches,
+            fa.flash_bwd_dkv_cuda.launches) == tuple(n + 1 for n in before)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, km, causal)
+    for a, b in zip(got, want):
+        assert a.shape == (B, T, H, D) and a.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+        else:
+            _close_rel(a, b, 2e-2)
+            _close_per_tile(a, b, 1e-2)
+    again = fa.flash_bwd_cuda(q, k, v, out, lse, do, km, causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_layer_at_head_dim_320_runs_on_the_card(cuda, dtype):
+    # MultiHeadAttention(n_heads=2) at d_model 640 (D = 320) through the
+    # layer a model builds, held to the same layer on the CPU (bf16: cuBLAS
+    # and the CPU round the two 640-wide projections at other places, ~1
+    # bf16 ulp of the largest output)
+    from deeplearning4j_tpu_torch.nn.layers.attention import MultiHeadAttention
+    from deeplearning4j_tpu_torch.nn.input_type import InputType
+
+    dt = getattr(torch, dtype)
+    layer = MultiHeadAttention(n_heads=2, causal=True)
+    it = InputType.recurrent(640, 24)
+    params = layer.init(torch.Generator().manual_seed(5), it, dt, torch.device("cpu"))
+    x = torch.randn(2, 24, 640, generator=torch.Generator().manual_seed(6)).to(dt)
+    before = fa.flash_fwd_cuda.launches
+    got, _ = layer.apply({k: p.to(cuda) for k, p in params.items()}, {}, x.to(cuda))
+    assert fa.flash_fwd_cuda.launches == before + 1
+    want, _ = layer.apply(params, {}, x)
+    if dtype == "float32":
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+    else:
+        _close_rel(got.cpu(), want, 2e-2)
 
 
 # -- kernel #1's bf16 wgmma kernel: 128-row query blocks, 128-key tiles ------
@@ -380,12 +444,12 @@ def test_bwd_wrapper_refuses_what_the_kernels_do_not_take(cuda):
     q, k, v, out, lse, do, _ = _bwd_case(cuda, 1, 32, 2, 64, torch.bfloat16,
                                          True, False, 9)
     delta = fa._delta(out, do)
-    wide = torch.zeros(1, 32, 2, 264, dtype=torch.bfloat16, device=cuda)
+    wide = torch.zeros(1, 32, 2, fa.MAX_HEAD_DIM + 1, dtype=torch.bfloat16, device=cuda)
     bad = [
         dict(do=do.float()),                     # do dtype
         dict(lse=lse[:, :, :31]),                # lse shape
         dict(delta=delta.to(torch.bfloat16)),    # delta dtype
-        dict(q=wide, k=wide, v=wide, do=wide),  # D=264 > 256
+        dict(q=wide, k=wide, v=wide, do=wide),  # D > MAX_HEAD_DIM
     ]
     before = fa.flash_bwd_dq_cuda.launches
     for kw in bad:
@@ -561,6 +625,35 @@ def test_lstm_kernels_float16(cuda, B, T, H, peep, masked):
         assert a is None or torch.equal(a, b)
 
 
+@pytest.mark.parametrize("H", [1152, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_lstm_step_route_matches_plain_versions(cuda, H, dtype):
+    """Widths past the wide route's 1024 take the step route (one launch a
+    step) in both kernels: B=32, T=20, peepholes and a mask with a row
+    masked throughout, against the plain recurrence; the backward repeated
+    bit for bit."""
+    assert fl.lstm_route(H, dtype, "fwd") == fl.lstm_route(H, dtype, "bwd") == ("step", 0)
+    c = _lstm_case(cuda, 32, 20, H, dtype, True, True, seed=H)
+    args = (c["zx"], c["wh"], c["h0"], c["c0"], c["mask"], c["peephole"])
+    before = (fl.fused_lstm_fwd_cuda.launches, fl.fused_lstm_bwd_cuda.launches)
+    got = fl.fused_lstm_fwd_cuda(*args)
+    for a, b in zip(got, fl.fused_lstm_reference(*args)):
+        assert a.dtype == dtype
+        _lstm_close(a, b, dtype)
+    hs, gates, cs = got[:3]
+    cprev, hprev, m, dhs = fl.bwd_operands(hs, cs, c["h0"], c["c0"], c["mask"],
+                                           c["dout"], c["dhT"])
+    bargs = (gates, cs, cprev, hprev, c["wh"], m, dhs, c["dcT"], c["peephole"])
+    bgot = fl.fused_lstm_bwd_cuda(*bargs)
+    assert (fl.fused_lstm_fwd_cuda.launches, fl.fused_lstm_bwd_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    for a, b in zip(bgot, fl.fused_lstm_bwd_reference(*bargs)):
+        assert a.dtype == torch.float32
+        _lstm_close(a, b, dtype)
+    for a, b in zip(bgot, fl.fused_lstm_bwd_cuda(*bargs)):
+        assert torch.equal(a, b)
+
+
 # bf16: cuBLAS and the CPU GEMMs round the input projection at other places
 @pytest.mark.parametrize("dtype,tol", [("float32", dict(rtol=1e-4, atol=1e-5)),
                                        ("bfloat16", dict(rtol=2 ** -5, atol=2 ** -10))])
@@ -604,8 +697,8 @@ def test_lstm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     z, w, h0, c0 = c["zx"], c["wh"], c["h0"], c["c0"]
     bad = [
         (z[..., :400], w[:100, :400], h0[:, :100], c0[:, :100]),   # H=100
-        (torch.zeros(2, 3, 4608, device=cuda), torch.zeros(1152, 4608, device=cuda),
-         torch.zeros(2, 1152, device=cuda), torch.zeros(2, 1152, device=cuda)),  # H=1152
+        (torch.zeros(2, 3, 4000, device=cuda), torch.zeros(1000, 4000, device=cuda),
+         torch.zeros(2, 1000, device=cuda), torch.zeros(2, 1000, device=cuda)),  # H=1000
         (z.double(), w.double(), h0, c0),                          # float64
         (z, w.to(torch.bfloat16), h0, c0),                         # mixed dtype
         (z.cpu(), w.cpu(), h0.cpu(), c0.cpu()),                    # CPU tensors
@@ -686,3 +779,31 @@ def test_rnn_time_step_on_gpu_matches_the_full_forward(cuda):
     assert fl.fused_lstm_fwd_cuda.launches == before + 2 * x.shape[1]
     assert m._rnn_carries[0][0].device.type == "cuda"
     torch.testing.assert_close(torch.stack(steps, 1), full, rtol=1e-4, atol=1e-5)
+
+
+# -- LeNet-5: cuDNN convolutions and pooling, no hand-written kernel ---------
+
+def test_lenet5_forward_and_step_on_the_card_match_the_cpu(cuda):
+    """LeNet-5 at 28 x 28 x 1 from the same weights on the card and on the
+    CPU (f32, TF32 off): the output, then one SGD step's loss and params
+    (cuDNN and the CPU sum the convolutions in other orders; SGD, because
+    Adam's first step moves an entry whose gradient is rounding noise by
+    +-lr whatever the noise)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.utils.tree import tree_leaves
+
+    conf = zoo.LeNet5(updater={"type": "sgd", "lr": 0.1})
+    cpu = MultiLayerNetwork(conf, device="cpu").init()
+    gpu = params_from_numpy(MultiLayerNetwork(conf), params_to_numpy(cpu))
+    rs = np.random.RandomState(3)
+    x = rs.rand(16, 28, 28, 1).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rs.randint(0, 10, 16)]
+    torch.testing.assert_close(gpu.output(x).cpu(), cpu.output(x), rtol=1e-4, atol=1e-5)
+    before = (fa.flash_fwd_cuda.launches, fl.fused_lstm_fwd_cuda.launches)
+    gpu.fit((x, y), epochs=1)
+    cpu.fit((x, y), epochs=1)
+    assert (fa.flash_fwd_cuda.launches, fl.fused_lstm_fwd_cuda.launches) == before
+    np.testing.assert_allclose(gpu.score((x, y)), cpu.score((x, y)), rtol=1e-4)
+    for a, b in zip(tree_leaves(gpu.params), tree_leaves(cpu.params)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)

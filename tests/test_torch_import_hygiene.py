@@ -44,6 +44,9 @@ def test_importing_every_port_module_leaves_jax_out():
     assert "deeplearning4j_tpu_torch.serve.server" in mods
     assert "deeplearning4j_tpu_torch.ops.fused_lstm" in mods
     assert "deeplearning4j_tpu_torch.nn.layers.recurrent" in mods
+    for m in ("nn.layers.convolution", "nn.layers.pooling", "nn.layers.normalization",
+              "nn.layers.core", "nn.preprocessors", "models.zoo", "interop"):
+        assert f"deeplearning4j_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

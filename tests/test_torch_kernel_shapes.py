@@ -1,8 +1,10 @@
 """What the CUDA kernels take, decided on the host and checked on the CPU:
 the head dim flash attention runs a head at (zero-padded up to the next
-built one, with the real 1/sqrt(D)), shown exact through the plain
-versions forward and backward; and the route the fused-LSTM kernels take
-for each hidden width and dtype, with the shared memory it needs."""
+built one, or past 256 to the wide-head route's next multiple of 64, with
+the real 1/sqrt(D)), shown exact through the plain versions forward and
+backward; and the route the fused-LSTM kernels take for each hidden width
+and dtype (cluster, wide, or past 1024 step), with the shared memory it
+needs."""
 
 import math
 
@@ -28,20 +30,21 @@ def _two_threads():
 
 @pytest.mark.parametrize("D,want", [(1, 32), (16, 32), (32, 32), (33, 64), (48, 64),
                                     (64, 64), (96, 128), (128, 128), (129, 256),
-                                    (200, 256), (256, 256)])
+                                    (200, 256), (256, 256), (257, 320), (300, 320),
+                                    (320, 320), (512, 512), (1000, 1024), (2880, 2880)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_kernel_head_dim_16bit(D, want, dtype):
     assert fa.kernel_head_dim(D, dtype) == want
 
 
 @pytest.mark.parametrize("D,want", [(16, 32), (48, 64), (96, 128), (128, 128), (129, 256),
-                                    (256, 256)])
+                                    (256, 256), (264, 320), (300, 320), (512, 512)])
 def test_kernel_head_dim_f32(D, want):
     assert fa.kernel_head_dim(D, torch.float32) == want
 
 
-@pytest.mark.parametrize("D,dtype", [(257, torch.bfloat16), (300, torch.float16),
-                                     (264, torch.float32), (0, torch.bfloat16),
+@pytest.mark.parametrize("D,dtype", [(2881, torch.bfloat16), (4096, torch.float16),
+                                     (2881, torch.float32), (0, torch.bfloat16),
                                      (64, torch.float64)])
 def test_kernel_head_dim_refuses_past_the_limit(D, dtype):
     with pytest.raises(ValueError, match="head dims up to|float32, bfloat16 or float16"):
@@ -59,7 +62,7 @@ def _kmask(B, T, seed):
     return torch.from_numpy((np.arange(T)[None] < lens[:, None]).astype(np.float32))
 
 
-@pytest.mark.parametrize("D", [16, 20, 48, 50, 96, 100, 200])
+@pytest.mark.parametrize("D", [16, 20, 48, 50, 96, 100, 200, 300, 320])
 @pytest.mark.parametrize("causal,masked", [(True, False), (False, True)])
 def test_padding_is_exact_forward(D, causal, masked):
     """pad -> plain version at the kernels' head dim with the real scale ->
@@ -80,7 +83,7 @@ def test_padding_is_exact_forward(D, causal, masked):
     assert torch.count_nonzero(out_p[..., D:]) == 0
 
 
-@pytest.mark.parametrize("D", [16, 20, 48, 50, 96, 100, 200])
+@pytest.mark.parametrize("D", [16, 20, 48, 50, 96, 100, 200, 300, 320])
 @pytest.mark.parametrize("causal,masked", [(True, False), (False, True)])
 def test_padding_is_exact_backward(D, causal, masked):
     """The backward's plain version on padded q, k, v, do (out and lse from
@@ -146,6 +149,11 @@ ROUTES = {
     (256, torch.float16): (("cluster", 8), ("cluster", 8)),
     (512, torch.float16): (("cluster", 16), ("cluster", 16)),
     (768, torch.float16): (("wide", 0), ("wide", 0)),
+    # past the wide route's 1024: one launch a step, in every dtype
+    (1152, torch.float32): (("step", 0), ("step", 0)),
+    (1152, torch.bfloat16): (("step", 0), ("step", 0)),
+    (2048, torch.float32): (("step", 0), ("step", 0)),
+    (2048, torch.float16): (("step", 0), ("step", 0)),
 }
 
 
@@ -156,13 +164,13 @@ def test_lstm_route(H, dtype):
     assert fl.lstm_route(H, dtype, "bwd") == bwd
 
 
-@pytest.mark.parametrize("H", list(range(128, fl.MAX_HIDDEN + 1, 128)))
+@pytest.mark.parametrize("H", list(range(128, 2 * fl.WIDE_MAX_HIDDEN + 1, 128)))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("kernel", ["fwd", "bwd"])
 def test_lstm_cluster_route_fits_a_block(H, dtype, kernel):
     """A cluster route's CTA holds U <= 32 units (a multiple of 8) within
-    227 KB; a width that takes the wide route has no cluster size that
-    would."""
+    227 KB; a width that takes the wide (up to 1024) or step route has no
+    cluster size that would."""
     route, C = fl.lstm_route(H, dtype, kernel)
     es = torch.empty((), dtype=dtype).element_size()
     fits = [c for c in (4, 8, 16) if H % c == 0 and H // c <= 32 and (H // c) % 8 == 0
@@ -171,7 +179,8 @@ def test_lstm_cluster_route_fits_a_block(H, dtype, kernel):
         assert C == fits[0]
         assert C * (H // C) == H
     else:
-        assert (route, C) == ("wide", 0) and not fits
+        want = "wide" if H <= fl.WIDE_MAX_HIDDEN else "step"
+        assert (route, C) == (want, 0) and not fits
 
 
 def test_lstm_char_rnn_width_takes_clusters_in_every_dtype():
@@ -180,11 +189,24 @@ def test_lstm_char_rnn_width_takes_clusters_in_every_dtype():
             assert fl.lstm_route(256, dtype, kernel) == ("cluster", 8)
 
 
-@pytest.mark.parametrize("H,dtype", [(100, torch.float32), (1152, torch.bfloat16),
+@pytest.mark.parametrize("H,dtype", [(100, torch.float32), (1000, torch.bfloat16),
                                      (64, torch.float16), (256, torch.float64)])
 def test_lstm_route_refuses(H, dtype):
-    with pytest.raises(ValueError, match="up to 1024|float32, bfloat16 or float16"):
+    with pytest.raises(ValueError, match="multiple of 128|float32, bfloat16 or float16"):
         fl.lstm_route(H, dtype, "fwd")
+
+
+@pytest.mark.parametrize("H", [1152, 2048, 4096])
+def test_lstm_widths_past_1024_route_to_the_step_kernels(H):
+    """H = 1152 and 2048 (and wider) take the step route in every dtype
+    and both kernels, where the wide route's grid would not be co-resident;
+    the wrappers' shape checks take them."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for kernel in ("fwd", "bwd"):
+            assert fl.lstm_route(H, dtype, kernel) == ("step", 0)
+    assert fl._check_shapes(torch.empty(2, 3, 4 * H), torch.empty(H, 4 * H), "t") == (2, 3, H)
+    assert fl._route_code("step", 0) == -1 and fl._route_code("wide", 0) == 0
+    assert fl._route_code("cluster", 8) == 8
 
 
 def test_lstm_rows_layouts():

@@ -102,6 +102,8 @@ def test_decode_inputs_keeps_integral_payloads_integral():
     assert decode_inputs([[1027, 2047]]).dtype == np.int64
     assert decode_inputs([[1.5, 2]]).dtype == np.float32
     assert decode_inputs([[1.0, 2.0]]).dtype == np.float32
+    # a model that takes no ids (an image model) gets integer pixels as floats
+    assert decode_inputs([[0, 255]], ids=False).dtype == np.float32
     for bad in ([[1, 2], [3]], [["a"]]):
         with pytest.raises(ValueError):
             decode_inputs(bad)
