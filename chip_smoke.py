@@ -37,9 +37,12 @@ non-zero (and without a result line when no CUDA device is present):
    scaled_dot_product_attention forward and backward as a yardstick only.
    Then the wide-head route (D past 256, csrc/flash_wide.cu) through the
    same wrappers: forward and backward at D = 320 and 512 in bf16 and f32
-   (causal; key masks), f16 at D = 300 and bf16 at D = 1024, each against
-   the plain versions and repeated bit for bit, and each kernel timed at
-   B=2, T=512, H=4 beside its bound, the plain versions and SDPA.
+   (causal; key masks), f16 at D = 300 and bf16 at D = 1024, and past what
+   one block holds, in column groups, D = 3072 (bf16, f32) and 4096 (bf16)
+   at B=1, T=256, H=2, each against the plain versions and repeated bit
+   for bit, and each kernel timed at B=2, T=512, H=4 (D = 320, 512) and at
+   B=1, T=256, H=2 (D = 3072, 4096) beside its bound, the plain versions
+   and SDPA.
 4. small   — a tiny TransformerLM through the port on the CPU (plain
    versions) and on the GPU (the kernels) with the same weights: the
    output, then 3 SGD steps (loss per step, final params, 2 launches of
@@ -115,6 +118,29 @@ non-zero (and without a result line when no CUDA device is present):
    batch 64: BatchNorm's running statistics moved and finite, eval-mode
    output repeated bit for bit and held to the same params and state on
    the CPU (f32, TF32 off); the forward at batch 256.
+14. resnet50_train — ResNet50 (ComputationGraph, conv7 stem) at bench.py's
+   bench_resnet50 shape, unreduced: 224 x 224 x 3, 1000 classes, batch 128,
+   bf16, Adam 1e-3, seed 12345, on bench.py's synthetic images (numpy seed
+   0): 4 fit_batch steps (finite loss, 53 finite BatchNorm states), one
+   step by CUDA events split into forward / backward / update, images/s,
+   MFU from the analytic forward count (3 x forward per image, dense bf16
+   peak), peak memory, and one profiled step (kernel time by name, the
+   convolutions' layout, copies); no hand-written kernel runs here.
+15. resnet50_serve — that model through save_network / restore_network
+   into ModelRegistry (max_batch 16, max_wait 0.1 s) behind
+   InferenceServer: HTTP :predict of 1 x 224 x 224 x 3 integer pixels and
+   4 concurrent 2-image requests through ModelWorker.submit that coalesce,
+   each against output(); then the same params and state as an f32 graph
+   in eval mode at batch 4 on the card against the CPU (TF32 off).
+16. graph_lstm — a seq2seq ComputationGraph at the char-RNN's widths
+   (one-hot vocab 77 on both inputs, GravesLSTM(256) encoder ->
+   last_time_step -> duplicate_to_time_series -> merge -> GravesLSTM(256)
+   decoder -> RnnOutputLayer(77), f32, RMSProp 1e-3, T = 50, tBPTT 50):
+   2 epochs of 256 rows at batch 128 through the trainer CLI, evaluate(),
+   2 standard-BPTT fit_batch steps, 100 one-step rnn_time_step calls on 32
+   rows held to the CPU; kernels #4/#5 counted per path (2 launches of each
+   per chunk or step, 2 of #4 per evaluate batch or rnn_time_step call),
+   with the plain LSTM scan made to fail if it runs.
 
 It ends with the kernels line, the card's name and power limit, and
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -147,7 +173,22 @@ from deeplearning4j_tpu_torch.interop import (
     state_from_numpy,
     state_to_numpy,
 )
-from deeplearning4j_tpu_torch.models import zoo
+from deeplearning4j_tpu_torch.models import ResNet50, zoo
+from deeplearning4j_tpu_torch.nn.graph import (
+    ComputationGraph,
+    ComputationGraphConfiguration,
+    DuplicateToTimeSeriesVertex,
+    LastTimeStepVertex,
+    MergeVertex,
+)
+from deeplearning4j_tpu_torch.nn.input_type import InputType
+from deeplearning4j_tpu_torch.nn.layers import (
+    Conv2D,
+    DepthwiseConv2D,
+    GravesLSTM,
+    RnnOutputLayer,
+    SeparableConv2D,
+)
 from deeplearning4j_tpu_torch.nn.model import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import _build
 from deeplearning4j_tpu_torch.ops import flash_attention as fa
@@ -156,7 +197,7 @@ from deeplearning4j_tpu_torch.serve import InferenceServer, ModelRegistry, Serve
 from deeplearning4j_tpu_torch.serve.scheduler import _HostBuffer, _to_host
 from deeplearning4j_tpu_torch.train import __main__ as train_cli
 from deeplearning4j_tpu_torch.train.listeners import CollectScoresListener
-from deeplearning4j_tpu_torch.utils.serialization import restore_network
+from deeplearning4j_tpu_torch.utils.serialization import restore_network, save_network
 from deeplearning4j_tpu_torch.utils.tree import tree_leaves, tree_unflatten_like
 
 # H100 SXM published dense peaks (NVIDIA data sheet) at a 700 W limit
@@ -215,6 +256,10 @@ LSTM_ROUTE_WIDTHS = (128, 256, 384, 512, 640, 1024, 1152, 2048)
 # the part of the flash kernels past D = 256 (csrc/flash_wide.cu) and of the
 # LSTM kernels past H = 1024 (their step route), timed at these shapes
 WIDE_FLASH_SHAPE = dict(B=2, T=512, H=4)
+# head dims past what one block of the wide-head route holds (dq's layout:
+# 2880) run in column groups; held and timed at B=1, T=256, H=2
+WIDEST_HEADS = (2880, 3072, 4096)
+WIDEST_FLASH_SHAPE = dict(B=1, T=256, H=2)
 STEP_LSTM_SHAPE = dict(B=32, T=20)
 # LeNet-5 at bench.py's bench_lenet5 shape: batch 256 of 28 x 28 x 1, f32,
 # Adam 1e-3, random weights from seed 12345; synthetic images and labels
@@ -222,6 +267,20 @@ CNN_ROWS, CNN_BATCH, CNN_EPOCHS = 2048, 256, 2
 # SimpleCNN on the card against the same params and state on the CPU (f32,
 # TF32 off): cuDNN and the CPU sum the 3 x 3 convolutions in other orders
 SIMPLECNN_TOL = dict(rtol=1e-4, atol_of_max=1e-5)
+# ResNet50 at bench.py's bench_resnet50 shape (224 x 224 x 3, 1000 classes,
+# batch 128, bf16, Adam 1e-3, seed 12345): RESNET_STEPS steps, then
+# RESNET_TIMED timed by CUDA events
+RESNET = dict(size=224, classes=1000, batch=128)
+RESNET_STEPS, RESNET_TIMED = 4, 5
+# ResNet50 in f32 (TF32 off), eval mode, on the card against the CPU at
+# batch 4: 53 convolutions summed in other orders by cuDNN and the CPU, on
+# softmax outputs of order 1e-3
+RESNET_CPU_TOL = dict(rtol=1e-3, atol=1e-6)
+# the seq2seq graph at the char-RNN's widths (BASELINE config #3): vocab 77
+# on both inputs, GravesLSTM(256) encoder and decoder, T = 50, tBPTT 50,
+# batch 128, f32, RMSProp 1e-3
+GRAPH_LSTM = dict(vocab=77, T=50, hidden=256, batch=128, rows=256, epochs=2, std_steps=2,
+                  sample_rows=32, sample_steps=100)
 
 
 def emit(obj) -> None:
@@ -414,6 +473,13 @@ def build_report() -> dict:
         for r in rows:
             r["smem_bytes_D320_D512"] = [wide.flash_wide_smem_bytes(which, D)
                                          for D in (320, 512)]
+            # past what one block holds, the grid's column groups
+            r["groups_D2880_D3072_D4096"] = [wide.flash_wide_groups(which, D)
+                                             for D in WIDEST_HEADS]
+            r["smem_bytes_D2880_D3072_D4096"] = [wide.flash_wide_smem_bytes(which, D)
+                                                 for D in WIDEST_HEADS]
+        check(all(r["groups_D2880_D3072_D4096"][0] == 1 for r in rows),
+              f"{name}: D = 2880 must keep one column group: {rows}")
         kernels += rows
     seconds = time.perf_counter() - t0
     check(len(kernels) == 72, f"expected 72 kernel instantiations (flash: 3 kernels x (4 f32 "
@@ -808,48 +874,59 @@ def wide_head_checks() -> dict:
              for i, (D, dt, c, m) in enumerate(specs)]
     cases += [dict(B=1, T=65, H=1, D=320, dtype=bf16, causal=True, kmask=None, seed=220,
                    same_as_contiguous=True)]
+    # past D = 2880: the outputs' columns in groups, the scores recomputed
+    # in every group
+    widest = ((3072, bf16, True, None), (3072, bf16, False, "varlen"),
+              (3072, f32, True, "varlen"), (3072, f32, False, None),
+              (4096, bf16, True, "varlen"), (4096, bf16, False, None))
+    cases += [dict(WIDEST_FLASH_SHAPE, D=D, dtype=dt, causal=c, kmask=m, seed=240 + i)
+              for i, (D, dt, c, m) in enumerate(widest)]
     fwd = [compare(c) for c in cases]
     bwd = [compare_bwd(c) for c in cases]
     bad = [r for r in bwd if not r["ok"]]
     check(not bad, f"the wide-head backward disagrees with its plain version: {bad}")
-    B, T, H = WIDE_FLASH_SHAPE["B"], WIDE_FLASH_SHAPE["T"], WIDE_FLASH_SHAPE["H"]
     timing = []
-    for D in (320, 512):
-        for dt in (bf16, f32):
-            q, k, v = make_qkv(B, T, H, D, dt, 230 + D)
-            out, lse = fa.flash_fwd_cuda(q, k, v, causal=True)
-            do = torch.randn(B, T, H, D, generator=torch.Generator(device="cuda").manual_seed(7),
-                             device="cuda").to(dt)
-            delta = fa._delta(out, do)
-            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
-            o = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-            dot = do.transpose(1, 2).contiguous()
-            es = 2 if dt == bf16 else 4
-            peak = PEAK_BF16_FLOPS if dt == bf16 else PEAK_F32_FLOPS
-            row = {"shape": [B, T, H, D], "dtype": str(dt).split(".")[-1], "causal": True,
-                   "fwd_ms": time_cuda(lambda: fa.flash_fwd_cuda(q, k, v, causal=True), 10),
-                   "dq_ms": time_cuda(lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta,
-                                                                   None, True), 5),
-                   "dkv_ms": time_cuda(lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
-                                                                     None, True), 5),
-                   "plain_fwd_ms": time_cuda(lambda: fa.flash_attention_reference(
-                       q, k, v, causal=True), 3, warmup=1),
-                   "plain_bwd_ms": time_cuda(lambda: fa.flash_attention_bwd_reference(
-                       q, k, v, out, lse, do, None, True), 3, warmup=1),
-                   "library_fwd_ms": time_cuda(
-                       lambda: torch.nn.functional.scaled_dot_product_attention(
-                           qt, kt, vt, is_causal=True), 10),
-                   "library_bwd_ms": time_cuda(lambda: torch.autograd.grad(
-                       o, (qg, kg, vg), dot, retain_graph=True), 5),
-                   "library": "scaled_dot_product_attention forward / backward (dq, dk, dv)"}
-            row["fwd_bound_ms"], row["fwd_bound_by"] = attention_bound(
-                B, T, H, D, True, es, peak)[:2]
-            for name in ("dq", "dkv"):
-                row[f"{name}_bound_ms"], row[f"{name}_bound_by"] = bwd_bound(
-                    B, T, H, D, True, es, name, peak=peak)[:2]
-            timing.append(row)
-            del q, k, v, out, lse, do, delta, qt, kt, vt, qg, kg, vg, o, dot
+    shapes = [(WIDE_FLASH_SHAPE, D, dt) for D in (320, 512) for dt in (bf16, f32)]
+    shapes += [(WIDEST_FLASH_SHAPE, 3072, bf16), (WIDEST_FLASH_SHAPE, 3072, f32),
+               (WIDEST_FLASH_SHAPE, 4096, bf16)]
+    for shape, D, dt in shapes:
+        B, T, H = shape["B"], shape["T"], shape["H"]
+        q, k, v = make_qkv(B, T, H, D, dt, 230 + D)
+        out, lse = fa.flash_fwd_cuda(q, k, v, causal=True)
+        do = torch.randn(B, T, H, D, generator=torch.Generator(device="cuda").manual_seed(7),
+                         device="cuda").to(dt)
+        delta = fa._delta(out, do)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+        o = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        dot = do.transpose(1, 2).contiguous()
+        es = 2 if dt == bf16 else 4
+        peak = PEAK_BF16_FLOPS if dt == bf16 else PEAK_F32_FLOPS
+        row = {"shape": [B, T, H, D], "dtype": str(dt).split(".")[-1], "causal": True,
+               "column_groups": [fa._wide_kernel_lib().flash_wide_groups(w, D)
+                                 for w in range(3)],
+               "fwd_ms": time_cuda(lambda: fa.flash_fwd_cuda(q, k, v, causal=True), 10),
+               "dq_ms": time_cuda(lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta,
+                                                               None, True), 5),
+               "dkv_ms": time_cuda(lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                                 None, True), 5),
+               "plain_fwd_ms": time_cuda(lambda: fa.flash_attention_reference(
+                   q, k, v, causal=True), 3, warmup=1),
+               "plain_bwd_ms": time_cuda(lambda: fa.flash_attention_bwd_reference(
+                   q, k, v, out, lse, do, None, True), 3, warmup=1),
+               "library_fwd_ms": time_cuda(
+                   lambda: torch.nn.functional.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=True), 10),
+               "library_bwd_ms": time_cuda(lambda: torch.autograd.grad(
+                   o, (qg, kg, vg), dot, retain_graph=True), 5),
+               "library": "scaled_dot_product_attention forward / backward (dq, dk, dv)"}
+        row["fwd_bound_ms"], row["fwd_bound_by"] = attention_bound(
+            B, T, H, D, True, es, peak)[:2]
+        for name in ("dq", "dkv"):
+            row[f"{name}_bound_ms"], row[f"{name}_bound_by"] = bwd_bound(
+                B, T, H, D, True, es, name, peak=peak)[:2]
+        timing.append(row)
+        del q, k, v, out, lse, do, delta, qt, kt, vt, qg, kg, vg, o, dot
     torch.cuda.empty_cache()
     return {"cases": fwd, "bwd_cases": bwd, "timing": timing,
             "peak_flops": {"bfloat16": PEAK_BF16_FLOPS, "float32": PEAK_F32_FLOPS}}
@@ -1962,6 +2039,373 @@ def simplecnn_phase() -> dict:
             "forward_ms_batch256": fwd_ms}
 
 
+# -- phases 14-16: ComputationGraph -------------------------------------------
+
+def _device_us(event) -> float:
+    """An averaged profiler event's device time in microseconds (the
+    attribute's name moved between torch releases)."""
+    t = getattr(event, "device_time_total", None)
+    return float(t if t is not None else getattr(event, "cuda_time_total", 0.0))
+
+
+def graph_fwd_flops_per_example(cg) -> float:
+    """2 * MACs of the convolutions and dense layers in one forward pass of
+    one example, walked from the resolved graph's shapes (the analytic
+    count bench.py's _graph_fwd_flops_per_example takes for ResNet50's
+    MFU)."""
+    total = 0.0
+    for name in cg.topo_order:
+        v = cg.rt[name]
+        if not v.spec.is_layer():
+            continue
+        cfg, it, ot = v.config, v.input_types[0], cg.vertex_types[name]
+        if isinstance(cfg, SeparableConv2D):
+            kh, kw = cfg.kernel
+            mid = it.channels * cfg.depth_multiplier
+            total += 2.0 * ot.height * ot.width * mid * kh * kw
+            total += 2.0 * ot.height * ot.width * ot.channels * mid
+        elif isinstance(cfg, DepthwiseConv2D):
+            kh, kw = cfg.kernel
+            total += 2.0 * ot.height * ot.width * ot.channels * kh * kw
+        elif type(cfg) is Conv2D:
+            kh, kw = cfg.kernel
+            total += 2.0 * ot.height * ot.width * ot.channels * kh * kw * it.channels
+        elif type(cfg).__name__ in ("Dense", "OutputLayer"):
+            total += 2.0 * it.flat_size() * cfg.n_out
+    return total
+
+
+def _resnet_images(n, seed):
+    """bench.py's synthetic batch: numpy seed, pixels in [0, 1), one-hot
+    labels over RESNET["classes"]."""
+    rs = np.random.RandomState(seed)
+    x = rs.rand(n, RESNET["size"], RESNET["size"], 3).astype(np.float32)
+    y = np.eye(RESNET["classes"], dtype=np.float32)[rs.randint(0, RESNET["classes"], n)]
+    return x, y
+
+
+def resnet50_train_phase(tmp: Path) -> dict:
+    """ResNet50 at bench.py's bench_resnet50 shape, unreduced: 224 x 224 x 3,
+    1000 classes, batch 128, bf16, Adam 1e-3, seed 12345, the conv7 stem,
+    on bench.py's synthetic images. RESNET_STEPS fit_batch steps through the
+    public entry point (finite loss), then one step timed by CUDA events and
+    split into forward / backward / update, images/s, MFU from the analytic
+    forward count (3 x forward per trained image, at the dense bf16 peak),
+    peak memory, and one profiled step: kernel time by name, the share in
+    channels_last (NHWC) convolution kernels and the copies between vertices.
+    Writes the trained zip for the serve phase."""
+    conf = ResNet50(dtype="bfloat16")
+    check(conf.seed == 12345 and conf.updater == {"type": "adam", "lr": 1e-3},
+          f"ResNet50's defaults: seed {conf.seed}, updater {conf.updater}")
+    torch.cuda.reset_peak_memory_stats()
+    model = ComputationGraph(conf).init()
+    x, y = _resnet_images(RESNET["batch"], 0)
+    xt = torch.as_tensor(x, device="cuda").to(torch.bfloat16)
+    yt = torch.as_tensor(y, device="cuda")
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(RESNET_STEPS):
+        losses.append(model.fit_batch((xt, yt)))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)), f"ResNet50 losses {losses}")
+    check(model.iteration == RESNET_STEPS, f"{model.iteration} steps")
+    bn = [s for s in model.state.values() if s]
+    check(len(bn) == 53 and all(torch.isfinite(t).all() for s in bn for t in s.values()),
+          f"{len(bn)} BatchNorm states, or one not finite")
+    peak = torch.cuda.max_memory_allocated()
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(RESNET_TIMED):
+        model.fit_batch((xt, yt))
+    ev[1].record()
+    torch.cuda.synchronize()
+    step_ms = ev[0].elapsed_time(ev[1]) / RESNET_TIMED
+    inputs, labels, _, _ = model._to_device((xt,), (yt,), None, None)
+    ph = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    live = {n: [t.detach().requires_grad_(True) for t in tree_leaves(p)]
+            for n, p in model.params.items() if tree_leaves(p)}
+    params = {n: tree_unflatten_like(p, live[n]) if n in live else p
+              for n, p in model.params.items()}
+    flat = [t for n in model.topo_order if n in live for t in live[n]]
+    ph[0].record()
+    loss, _ = model._loss(params, model.state, inputs, labels, None, None, model._gen)
+    ph[1].record()
+    grads_flat = torch.autograd.grad(loss, flat)
+    ph[2].record()
+    it = iter(grads_flat)
+    grads = {n: (tree_unflatten_like(p, [next(it) for _ in live[n]]) if n in live else {})
+             for n, p in model.params.items()}
+    model._update_params(grads)
+    ph[3].record()
+    torch.cuda.synchronize()
+    fwd_ms, bwd_ms, upd_ms = (ph[i].elapsed_time(ph[i + 1]) for i in range(3))
+    del live, params, flat, grads_flat, grads, loss
+
+    # one profiled step: where the device time goes, by kernel name
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model.fit_batch((xt, yt))
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    # the kernels themselves (operator and autograd rows repeat their time)
+    rows = [(e.key, _device_us(e) / 1e3, e.count) for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
+    check(rows, "the profiler saw no kernel in a ResNet50 step")
+    total = sum(r[1] for r in rows)
+    conv_rows = [r for r in rows if any(w in r[0].lower() for w in (
+        "conv", "gemm", "xmma", "cudnn", "fprop", "dgrad", "wgrad", "cutlass"))]
+    nhwc = [r for r in conv_rows if "nhwc" in r[0].lower()]
+    nchw = [r for r in conv_rows if "nchw" in r[0].lower()]
+    layout = [r for r in rows if "tonhwc" in r[0].lower() or "tonchw" in r[0].lower()]
+    ops = {e.key: (e.count, _device_us(e) / 1e3) for e in events
+           if e.key in ("aten::contiguous", "aten::copy_", "aten::clone",
+                        "aten::convolution", "aten::convolution_backward")}
+    top = sorted(rows, key=lambda r: -r[1])[:15]
+
+    fwd_flops = graph_fwd_flops_per_example(model)
+    ips = RESNET["batch"] / (step_ms / 1e3)
+    zip_path = tmp / "resnet50.zip"
+    save_network(model, str(zip_path))
+    return {
+        "phase": "resnet50_train",
+        "model": {"name": "ResNet50", "stem": "conv7", "input": [224, 224, 3],
+                  "classes": RESNET["classes"], "dtype": "bfloat16",
+                  "params": model.num_params(), "vertices": len(model.topo_order),
+                  "batch_norms": len(bn)},
+        "entry": "ComputationGraph.fit_batch", "updater": conf.updater,
+        "batch": RESNET["batch"], "steps": RESNET_STEPS, "loss": losses, "run_s": run_s,
+        "step_ms": step_ms, "timed_steps": RESNET_TIMED,
+        "split_ms": {"forward": fwd_ms, "backward": bwd_ms, "update": upd_ms},
+        "images_per_s": ips,
+        "analytic_fwd_gflops_per_image": fwd_flops / 1e9,
+        "mfu_bf16_dense": 3.0 * fwd_flops * ips / PEAK_BF16_FLOPS,
+        "max_memory_allocated_bytes": peak,
+        "profile_one_step": {
+            "kernel_ms_total": total,
+            "conv_and_gemm_kernels_ms": sum(r[1] for r in conv_rows),
+            "conv_kernels_nhwc_ms": sum(r[1] for r in nhwc),
+            "conv_kernels_nchw_ms": sum(r[1] for r in nchw),
+            "layout_conversion_kernels_ms": sum(r[1] for r in layout),
+            "ops": {k: {"calls": c, "device_ms": t} for k, (c, t) in ops.items()},
+            "top_kernels_ms": [{"name": n[:120], "ms": t, "calls": c} for n, t, c in top]},
+        "zip": str(zip_path),
+    }
+
+
+def resnet50_serve_phase(zip_path: str) -> dict:
+    """The trained ResNet50 zip through restore_network into ModelRegistry
+    (max_batch 16, max_wait 0.1 s) behind InferenceServer: one HTTP :predict
+    of 1 x 224 x 224 x 3 integer pixels, then 4 concurrent 2-image requests
+    through ModelWorker.submit that must coalesce; each response against
+    output() on the same rows. Then the same params and state as an f32
+    graph, eval mode at batch 4, on the card and on the CPU (TF32 off)."""
+    model = restore_network(zip_path)
+    check(isinstance(model, ComputationGraph) and model.dtype == torch.bfloat16,
+          f"restored {type(model).__name__} {model.dtype}")
+    registry = ModelRegistry(config=ServeConfig(
+        max_batch=16, queue_limit=64, max_wait_s=0.1, default_deadline_s=600.0))
+    t0 = time.perf_counter()
+    registry.register("resnet50", model)
+    warm_s = time.perf_counter() - t0
+    server = InferenceServer(registry).start(port=0)
+    worker = registry.worker("resnet50")
+    rs = np.random.RandomState(31)
+    pix = rs.randint(0, 256, (1, 224, 224, 3))
+    pairs = [rs.randint(0, 256, (2, 224, 224, 3)).astype(np.float32) for _ in range(4)]
+    errs = {}
+    tol = dict(rtol=0.0, atol=1e-6)   # the same rows, the same bucket: the same bits
+
+    def same_as_output(got, x, what):
+        want = model.output(np.asarray(x, np.float32)).float().cpu().numpy()
+        check(got.shape == want.shape, f"{what}: shape {got.shape} != {want.shape}")
+        check(bool(np.all(np.isfinite(got))) and np.allclose(got.sum(-1), 1.0, atol=1e-2),
+              f"{what}: rows not finite probabilities")
+        err = float(np.abs(got - want).max())
+        errs[what] = err
+        return err
+
+    try:
+        status, body, lat_int = post_predict(server.port, "resnet50", pix.tolist(), 600000.0)
+        check(status == 200, f"integer pixels: HTTP status {status}")
+        same_as_output(np.asarray(body["outputs"], np.float32), pix, "1x224x224x3 integers")
+        before = worker.stats()["batches"]
+        outs = run_concurrently(lambda i: worker.submit(pairs[i]), [(i,) for i in range(4)])
+        dispatches = worker.stats()["batches"] - before
+        check(dispatches < len(pairs),
+              f"{len(pairs)} concurrent requests took {dispatches} dispatches")
+        for i, o in enumerate(outs):
+            same_as_output(np.asarray(o, np.float32), pairs[i], f"2 rows, request {i}")
+    finally:
+        server.stop()
+        registry.shutdown()
+    # the card against the CPU: the same params and state as an f32 graph
+    x4 = _resnet_images(4, 32)[0]
+    conf32 = ComputationGraphConfiguration.from_dict(dict(model.conf.to_dict(), dtype="float32"))
+    card = ComputationGraph(conf32).init()
+    cpu = ComputationGraph(conf32, device="cpu").init()
+    for m in (card, cpu):
+        params_from_numpy(m, params_to_numpy(model))
+        state_from_numpy(m, state_to_numpy(model))
+    got = card.output(x4).cpu()
+    ref = cpu.output(x4)
+    err = (got - ref).abs()
+    check(bool(torch.isfinite(got).all()) and bool(
+        (err <= RESNET_CPU_TOL["atol"] + RESNET_CPU_TOL["rtol"] * ref.abs()).all()),
+        f"ResNet50 (f32) on the card differs from the CPU by {err.max().item()}")
+    del card, cpu
+    return {"phase": "resnet50_serve", "model": "ResNet50 (the resnet50_train zip, bf16)",
+            "warm_s": warm_s, "latency_s": {"int_pixels_1x224x224x3": lat_int},
+            "concurrent_dispatches": dispatches, "served_vs_output_max_abs_err": errs,
+            "served_tol": tol,
+            "card_vs_cpu_f32_batch4_max_abs_err": err.max().item(),
+            "card_vs_cpu_tol": RESNET_CPU_TOL}
+
+
+def seq2seq_conf(hidden, vocab, T, updater, seed=12345):
+    """The seq2seq graph (tests/test_graph.py's wiring) at the char-RNN's
+    widths: one-hot ``vocab`` on both inputs, encoder GravesLSTM(hidden) ->
+    last_time_step -> duplicate_to_time_series over the decoder input ->
+    merge -> decoder GravesLSTM(hidden) -> RnnOutputLayer(vocab), f32,
+    tBPTT over T."""
+    return (ComputationGraphConfiguration.builder()
+            .add_inputs("enc_in", "dec_in")
+            .set_input_types(InputType.recurrent(vocab, T), InputType.recurrent(vocab, T))
+            .add_layer("enc", GravesLSTM(n_out=hidden, activation="tanh"), "enc_in")
+            .add_vertex("last", LastTimeStepVertex(), "enc")
+            .add_vertex("dup", DuplicateToTimeSeriesVertex(), "last", "dec_in")
+            .add_vertex("merge", MergeVertex(), "dec_in", "dup")
+            .add_layer("dec", GravesLSTM(n_out=hidden, activation="tanh"), "merge")
+            .add_layer("out", RnnOutputLayer(n_out=vocab, activation="softmax", loss="mcxent"),
+                       "dec")
+            .set_outputs("out").updater(updater).seed(seed).tbptt(T).build())
+
+
+@contextlib.contextmanager
+def _no_plain_lstm_scan():
+    """Any step of the plain LSTM scan (the cell the non-fused route runs)
+    raises while this is active: on CUDA the graph must take kernels #4/#5."""
+    saved = GravesLSTM._cell_from_proj
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain LSTM scan ran on CUDA")
+
+    GravesLSTM._cell_from_proj = refuse
+    try:
+        yield
+    finally:
+        GravesLSTM._cell_from_proj = saved
+
+
+def graph_lstm_phase(tmp: Path) -> dict:
+    """The seq2seq graph at the char-RNN's widths (GRAPH_LSTM): trained
+    through the trainer CLI (tBPTT 50 over T = 50: one chunk a batch),
+    then evaluate(), then standard-BPTT fit_batch steps, then 100 one-step
+    rnn_time_step calls on 32 rows held to the same calls on the CPU. Each
+    path is run with the launch counts set to 0 just before it and read
+    just after, under a guard that fails on any plain LSTM scan."""
+    V, T, H, B = GRAPH_LSTM["vocab"], GRAPH_LSTM["T"], GRAPH_LSTM["hidden"], GRAPH_LSTM["batch"]
+    rows, epochs = GRAPH_LSTM["rows"], GRAPH_LSTM["epochs"]
+    conf = seq2seq_conf(H, V, T, {"type": "rmsprop", "lr": 1e-3})
+    (tmp / "seq2seq.json").write_text(conf.to_json())
+    rs = np.random.RandomState(41)
+    eye = np.eye(V, dtype=np.float32)
+    enc, dec = rs.randint(0, V, (rows, T)), rs.randint(0, V, (rows, T))
+    np.savez(tmp / "seq.npz", x0=eye[enc], x1=eye[dec], y=eye[np.roll(dec, -1, axis=1)])
+    out_zip = tmp / "seq2seq.zip"
+    launches = {}
+    log = logging.getLogger("deeplearning4j_tpu_torch")
+    handler = _ScoreLog()
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    with _no_plain_lstm_scan():
+        _zero_lstm_counts()
+        t0 = time.perf_counter()
+        try:
+            model = train_cli.run([str(tmp / "seq2seq.json"), "--data", str(tmp / "seq.npz"),
+                                   "--epochs", str(epochs), "--batch-size", str(B),
+                                   "--output", str(out_zip), "--listener-frequency", "1"])
+            torch.cuda.synchronize()
+        finally:
+            log.removeHandler(handler)
+        fit_s = time.perf_counter() - t0
+        launches["fit_tbptt"] = _lstm_launches()
+        chunks = epochs * (rows // B)
+        scores = [sc for _, sc in handler.scores]
+        check(isinstance(model, ComputationGraph) and model.iteration == chunks,
+              f"{type(model).__name__}: {model.iteration} updates, expected {chunks}")
+        check(len(scores) == chunks and all(np.isfinite(scores)) and scores[-1] < scores[0],
+              f"seq2seq scores {scores}")
+        check(launches["fit_tbptt"] == {"fused_lstm_fwd": 2 * chunks,
+                                        "fused_lstm_bwd": 2 * chunks},
+              f"tBPTT fit launches {launches['fit_tbptt']} over {chunks} chunks")
+
+        _zero_lstm_counts()
+        ev = model.evaluate(((eye[enc], eye[dec]), eye[np.roll(dec, -1, axis=1)]),
+                            batch_size=B)
+        launches["evaluate"] = _lstm_launches()
+        check(launches["evaluate"] == {"fused_lstm_fwd": 2 * (rows // B), "fused_lstm_bwd": 0},
+              f"evaluate launches {launches['evaluate']}")
+
+        std = ComputationGraph(ComputationGraphConfiguration.from_dict(
+            dict(conf.to_dict(), backprop_type="standard"))).init()
+        xb = tuple(torch.as_tensor(a[:B], device="cuda") for a in (eye[enc], eye[dec]))
+        yb = torch.as_tensor(eye[np.roll(dec, -1, axis=1)][:B], device="cuda")
+        _zero_lstm_counts()
+        std_losses = [float(std.fit_batch((xb, yb))) for _ in range(GRAPH_LSTM["std_steps"])]
+        launches["fit_batch"] = _lstm_launches()
+        n = GRAPH_LSTM["std_steps"]
+        check(launches["fit_batch"] == {"fused_lstm_fwd": 2 * n, "fused_lstm_bwd": 2 * n}
+              and all(np.isfinite(std_losses)), f"standard fit_batch launches "
+              f"{launches['fit_batch']}, losses {std_losses}")
+        # one step by CUDA events at the training shape
+        step_ms = time_cuda(lambda: std.fit_batch((xb, yb)), iters=5, warmup=1)
+        del std
+
+        restored = restore_network(str(out_zip))
+        cpu = restore_network(str(out_zip), device="cpu")
+        srows, nsteps = GRAPH_LSTM["sample_rows"], GRAPH_LSTM["sample_steps"]
+        se = eye[rs.randint(0, V, (srows, nsteps))]
+        sd = eye[rs.randint(0, V, (srows, nsteps))]
+        restored.rnn_clear_previous_state()
+        _zero_lstm_counts()
+        outs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(nsteps):
+            outs.append(restored.rnn_time_step(se[:, t], sd[:, t]))
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / nsteps
+        launches["rnn_time_step"] = _lstm_launches()
+    check(launches["rnn_time_step"] == {"fused_lstm_fwd": 2 * nsteps, "fused_lstm_bwd": 0},
+          f"rnn_time_step launches {launches['rnn_time_step']}")
+    cpu_outs = [cpu.rnn_time_step(se[:, t], sd[:, t]) for t in range(nsteps)]
+    got = torch.stack([o.cpu() for o in outs], 1)
+    want = torch.stack(cpu_outs, 1)
+    tol = TOL[torch.float32]
+    err = (got - want).abs().max().item()
+    check(tuple(got.shape) == (srows, nsteps, V) and bool(torch.isfinite(got).all())
+          and bool(torch.allclose(got, want, **tol)),
+          f"streamed seq2seq outputs differ from the CPU's by {err}")
+    return {"phase": "graph_lstm",
+            "model": {"graph": "seq2seq: GravesLSTM enc -> last_time_step -> "
+                               "duplicate_to_time_series -> merge -> GravesLSTM dec -> "
+                               "RnnOutputLayer", "vocab": V, "hidden": H, "T": T,
+                      "dtype": "float32", "params": model.num_params()},
+            "entry": "python -m deeplearning4j_tpu_torch.train (in-process), evaluate, "
+                     "fit_batch, rnn_time_step",
+            "updater": conf.updater, "rows": rows, "batch": B, "epochs": epochs,
+            "tbptt_chunks": chunks, "loss": scores, "fit_s": fit_s,
+            "evaluate_accuracy": ev.accuracy(), "std_fit_batch_losses": std_losses,
+            "std_step_ms_128x50": step_ms, "launches_by_path": launches,
+            "rnn_time_step": {"rows": srows, "steps": nsteps, "step_wall_ms": step_s * 1e3,
+                              "card_vs_cpu_max_abs_err": err, "tol": tol},
+            "plain_scan_calls_on_cuda": 0}
+
+
 def _kernel_row(name, source, replaces, launches, by_path, max_abs_err, ms, plain_ms,
                 bound_ms, bound_by, library_ms, **extra):
     return dict({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2025,6 +2469,21 @@ def main() -> int:
     emit(ctr)
     emit(csv)
     emit(simplecnn_phase())
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rtr = resnet50_train_phase(Path(tmp))
+        gc.collect()
+        torch.cuda.empty_cache()
+        rsv = resnet50_serve_phase(rtr.pop("zip"))
+    emit(rtr)
+    emit(rsv)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        glstm = graph_lstm_phase(Path(tmp))
+    emit(glstm)
 
     fwd_cases = kern["cases"]
     bwd_cases = kern["bwd_cases"]
@@ -2037,7 +2496,10 @@ def main() -> int:
         fwd_cases[0]["max_abs_err"], t["kernel_ms"], t["plain_ms"], t["bound_ms"],
         t["bound_by"], t["library_ms"],
         max_err=max(c["max_abs_err"] for c in fwd_cases),
-        roofline_share=t["roofline_share"], http_bucket_4x128=t["http_bucket"])]
+        roofline_share=t["roofline_share"], http_bucket_4x128=t["http_bucket"],
+        wide_head=[{k: r[k] for k in ("shape", "dtype", "column_groups", "fwd_ms",
+                                      "fwd_bound_ms", "library_fwd_ms")}
+                   for r in kern["wide_head"]["timing"]])]
     for name, key, line, errs in (("flash_bwd_dq", "dq", 224, ("dq",)),
                                   ("flash_bwd_dkv", "dkv", 275, ("dk", "dv"))):
         bk = bt[key]
@@ -2049,11 +2511,16 @@ def main() -> int:
             bt["plain_ms"], bk["bound_ms"], bk["bound_by"], bt["library_ms"],
             max_err=max(c[f"{e}_max_abs_err"] for c in bwd_cases for e in errs),
             plain_and_library_compute="dq, dk and dv together",
-            whole_backward_ms=bt["whole_ms"]))
+            whole_backward_ms=bt["whole_ms"],
+            wide_head=[{k: r[k] for k in ("shape", "dtype", "column_groups", f"{key}_ms",
+                                          f"{key}_bound_ms", "library_bwd_ms")}
+                       for r in kern["wide_head"]["timing"]]))
     lcases = lk["cases"]
     for name, key, line, errs in (("fused_lstm_fwd", "fwd", 60, ("hs", "gates", "cs")),
                                   ("fused_lstm_bwd", "bwd", 119, ("dzx", "dwh"))):
         by_path = {"lstm_train": ltr["launches"][name], "lstm_sample": lsm["launches"][name]}
+        by_path.update({f"graph_lstm_{path}": n[name]
+                        for path, n in glstm["launches_by_path"].items()})
         rows.append(_kernel_row(
             name, f"deeplearning4j_tpu_torch/csrc/{name}.cu",
             f"deeplearning4j_tpu/ops/fused_lstm.py:{line}",

@@ -14,11 +14,20 @@
 // D that is a multiple of 64 (the wrapper zero-pads the rest, which adds
 // exact zeros to every product). The only array that grows with D is the
 // block's f32 accumulator in shared memory: the forward's O and dq's dQ
-// [16 rows][D], dk/dv's dK and dV [8 rows][D]; at D = 2048 the largest
-// layout (dq) takes 177,216 bytes of the 232,448 a block may use
-// (flash_wide_smem_bytes reports each). Everything else streams through
-// shared memory in [rows][64] f32 chunks read with plain scalar loads through
-// the [B, T, H, D] strides, so no alignment is asked of the rows.
+// [16 rows][G], dk/dv's dK and dV [8 rows][G], for a column group of G
+// output columns. Where the whole of D fits one block (D up to 2880 for
+// dq's layout, 2944 for dk/dv's, 3200 for the forward's), G = D and the
+// grid has one group; past that the grid's z axis runs ceil(D / Gmax)
+// groups of G = D / groups columns (rounded up to 64; Gmax the widest
+// multiple of 64 that fits), and each block sums the scores (and dq's and
+// dk/dv's dp = do . v^T) over ALL of D again before accumulating its own
+// columns: recomputation, in the same order in every group, so every group
+// sees the same p bit for bit. The forward's lse is written by group 0
+// only. At D = 2048 the largest layout (dq) takes 177,216 bytes of the
+// 232,448 a block may use (flash_wide_smem_bytes reports each, grouped).
+// Everything else streams through shared memory in [rows][64] f32 chunks
+// read with plain scalar loads through the [B, T, H, D] strides, so no
+// alignment is asked of the rows.
 // - forward: a block owns 16 query rows of one (batch, head) and walks
 //   64-key tiles (tiles strictly above the causal diagonal skipped). Scores
 //   are summed over the D chunks in registers (a thread: one key, 8 rows),
@@ -97,21 +106,22 @@ struct Params {
   long long v_sb, v_st, v_sh;
   long long o_sb, o_st, o_sh;   // dout's
   int B, T, H, D;
+  int G;                 // columns of a group: the accumulators' row pitch
   int causal;
   float scale;
 };
 
-// The shared-memory floats of each kernel's layout at head dim D.
-__host__ __device__ constexpr size_t fwd_floats(int D) {
-  return size_t(QR) * D + size_t(QR) * LDC + size_t(KT) * LDC + size_t(QR) * (KT + 1) + KT +
+// The shared-memory floats of each kernel's layout for a group of G columns.
+__host__ __device__ constexpr size_t fwd_floats(int G) {
+  return size_t(QR) * G + size_t(QR) * LDC + size_t(KT) * LDC + size_t(QR) * (KT + 1) + KT +
          3 * QR;
 }
-__host__ __device__ constexpr size_t dq_floats(int D) {
-  return size_t(QR) * D + 2 * size_t(QR) * LDC + 2 * size_t(KT) * LDC + size_t(QR) * (KT + 1) +
+__host__ __device__ constexpr size_t dq_floats(int G) {
+  return size_t(QR) * G + 2 * size_t(QR) * LDC + 2 * size_t(KT) * LDC + size_t(QR) * (KT + 1) +
          KT + 2 * QR;
 }
-__host__ __device__ constexpr size_t dkv_floats(int D) {
-  return 2 * size_t(KR) * D + 2 * size_t(KR) * LDC + 2 * size_t(QT) * LDC +
+__host__ __device__ constexpr size_t dkv_floats(int G) {
+  return 2 * size_t(KR) * G + 2 * size_t(KR) * LDC + 2 * size_t(QT) * LDC +
          2 * size_t(KR) * (QT + 1) + 2 * QT + KR;
 }
 
@@ -149,9 +159,10 @@ __device__ __forceinline__ float warp_sum(float x) {
 template <typename T>
 __global__ void __launch_bounds__(THREADS) flash_wide_fwd_kernel(const Params p) {
   extern __shared__ __align__(16) float sm[];
-  const int D = p.D, T_len = p.T;
-  float* Os = sm;                          // [QR][D] output accumulator
-  float* Qc = Os + QR * D;                 // [QR][LDC]
+  const int D = p.D, T_len = p.T, G = p.G;
+  const int g0 = blockIdx.z * G, gw = min(G, D - g0);   // this block's columns
+  float* Os = sm;                          // [QR][G] output accumulator
+  float* Qc = Os + QR * G;                 // [QR][LDC]
   float* Kc = Qc + QR * LDC;               // [KT][LDC]: a K chunk, then a V chunk
   float* Ps = Kc + KT * LDC;               // [QR][KT + 1]: scores, then p
   float* kval = Ps + QR * (KT + 1);        // [KT]
@@ -166,7 +177,7 @@ __global__ void __launch_bounds__(THREADS) flash_wide_fwd_kernel(const Params p)
   const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
 
-  for (int i = tid; i < QR * D; i += THREADS) Os[i] = 0.f;
+  for (int i = tid; i < QR * G; i += THREADS) Os[i] = 0.f;
   if (tid < QR) {
     m_s[tid] = NEG_BIG;
     l_s[tid] = 0.f;
@@ -221,14 +232,15 @@ __global__ void __launch_bounds__(THREADS) flash_wide_fwd_kernel(const Params p)
         m_s[row] = m_new;
       }
     }
-    // O = O * alpha + p . v, chunk by chunk of D
-    for (int c0 = 0; c0 < D; c0 += DC) {
+    // O = O * alpha + p . v, chunk by chunk of the group's columns
+    for (int c0 = g0; c0 < g0 + gw; c0 += DC) {
       __syncthreads();   // p and alpha written; the previous V chunk read
       load_chunk(Kc, vb, p.v_st, k0, KT, T_len, c0, tid);
       __syncthreads();
+      float* orow = Os + c0 - g0 + cc;
       float o[RPT];
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) o[r] = Os[(ro0 + r) * D + c0 + cc] * alpha_s[ro0 + r];
+      for (int r = 0; r < RPT; ++r) o[r] = orow[(ro0 + r) * G] * alpha_s[ro0 + r];
 #pragma unroll 4
       for (int k = 0; k < KT; ++k) {
         const float vv = Kc[k * LDC + cc];
@@ -236,17 +248,18 @@ __global__ void __launch_bounds__(THREADS) flash_wide_fwd_kernel(const Params p)
         for (int r = 0; r < RPT; ++r) o[r] = fmaf(Ps[(ro0 + r) * (KT + 1) + k], vv, o[r]);
       }
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) Os[(ro0 + r) * D + c0 + cc] = o[r];
+      for (int r = 0; r < RPT; ++r) orow[(ro0 + r) * G] = o[r];
     }
   }
   __syncthreads();
   T* ob = static_cast<T*>(p.o);
-  for (int i = tid; i < QR * D; i += THREADS) {
-    const int r = i / D, c = i % D, t = q0 + r;
+  for (int i = tid; i < QR * gw; i += THREADS) {
+    const int r = i / gw, c = i % gw, t = q0 + r;
     if (t < T_len)
-      ob[(((long long)b * T_len + t) * p.H + h) * D + c] = from_f<T>(Os[i] / fmaxf(l_s[r], 1e-30f));
+      ob[(((long long)b * T_len + t) * p.H + h) * D + g0 + c] =
+          from_f<T>(Os[r * G + c] / fmaxf(l_s[r], 1e-30f));
   }
-  if (tid < QR && q0 + tid < T_len)
+  if (blockIdx.z == 0 && tid < QR && q0 + tid < T_len)
     p.lse_out[(long long)bh * T_len + q0 + tid] = m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
 }
 
@@ -257,9 +270,10 @@ __global__ void __launch_bounds__(THREADS) flash_wide_fwd_kernel(const Params p)
 template <typename T>
 __global__ void __launch_bounds__(THREADS) flash_wide_dq_kernel(const Params p) {
   extern __shared__ __align__(16) float sm[];
-  const int D = p.D, T_len = p.T;
-  float* dQ = sm;                          // [QR][D]
-  float* Qc = dQ + QR * D;                 // [QR][LDC]
+  const int D = p.D, T_len = p.T, G = p.G;
+  const int g0 = blockIdx.z * G, gw = min(G, D - g0);   // this block's columns
+  float* dQ = sm;                          // [QR][G]
+  float* Qc = dQ + QR * G;                 // [QR][LDC]
   float* Oc = Qc + QR * LDC;               // [QR][LDC] do
   float* Kc = Oc + QR * LDC;               // [KT][LDC]
   float* Vc = Kc + KT * LDC;               // [KT][LDC]
@@ -276,7 +290,7 @@ __global__ void __launch_bounds__(THREADS) flash_wide_dq_kernel(const Params p) 
   const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const T* ob = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
 
-  for (int i = tid; i < QR * D; i += THREADS) dQ[i] = 0.f;
+  for (int i = tid; i < QR * G; i += THREADS) dQ[i] = 0.f;
   if (tid < QR) {
     const int t = q0 + tid;
     lse_s[tid] = t < T_len ? p.lse[(long long)bh * T_len + t] : 0.f;
@@ -319,14 +333,15 @@ __global__ void __launch_bounds__(THREADS) flash_wide_dq_kernel(const Params p) 
       const float pv = ok ? expf(s[r] * p.scale - lse_s[row]) : 0.f;
       DS[row * (KT + 1) + kk] = round_to<T>(pv * (dp[r] - delta_s[row]));
     }
-    // dQ += ds . k, chunk by chunk of D
-    for (int c0 = 0; c0 < D; c0 += DC) {
+    // dQ += ds . k, chunk by chunk of the group's columns
+    for (int c0 = g0; c0 < g0 + gw; c0 += DC) {
       __syncthreads();   // ds written; the previous K chunk read
       load_chunk(Kc, kb, p.k_st, k0, KT, T_len, c0, tid);
       __syncthreads();
+      float* qrow = dQ + c0 - g0 + cc;
       float a[RPT];
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) a[r] = dQ[(ro0 + r) * D + c0 + cc];
+      for (int r = 0; r < RPT; ++r) a[r] = qrow[(ro0 + r) * G];
 #pragma unroll 4
       for (int k = 0; k < KT; ++k) {
         const float kv = Kc[k * LDC + cc];
@@ -334,14 +349,15 @@ __global__ void __launch_bounds__(THREADS) flash_wide_dq_kernel(const Params p) 
         for (int r = 0; r < RPT; ++r) a[r] = fmaf(DS[(ro0 + r) * (KT + 1) + k], kv, a[r]);
       }
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) dQ[(ro0 + r) * D + c0 + cc] = a[r];
+      for (int r = 0; r < RPT; ++r) qrow[(ro0 + r) * G] = a[r];
     }
   }
   __syncthreads();
   T* out = static_cast<T*>(p.o);
-  for (int i = tid; i < QR * D; i += THREADS) {
-    const int r = i / D, c = i % D, t = q0 + r;
-    if (t < T_len) out[(((long long)b * T_len + t) * p.H + h) * D + c] = from_f<T>(dQ[i] * p.scale);
+  for (int i = tid; i < QR * gw; i += THREADS) {
+    const int r = i / gw, c = i % gw, t = q0 + r;
+    if (t < T_len)
+      out[(((long long)b * T_len + t) * p.H + h) * D + g0 + c] = from_f<T>(dQ[r * G + c] * p.scale);
   }
 }
 
@@ -352,10 +368,11 @@ __global__ void __launch_bounds__(THREADS) flash_wide_dq_kernel(const Params p) 
 template <typename T>
 __global__ void __launch_bounds__(THREADS) flash_wide_dkv_kernel(const Params p) {
   extern __shared__ __align__(16) float sm[];
-  const int D = p.D, T_len = p.T;
-  float* dK = sm;                          // [KR][D]
-  float* dV = dK + KR * D;                 // [KR][D]
-  float* Kc = dV + KR * D;                 // [KR][LDC]
+  const int D = p.D, T_len = p.T, G = p.G;
+  const int g0 = blockIdx.z * G, gw = min(G, D - g0);   // this block's columns
+  float* dK = sm;                          // [KR][G]
+  float* dV = dK + KR * G;                 // [KR][G]
+  float* Kc = dV + KR * G;                 // [KR][LDC]
   float* Vc = Kc + KR * LDC;               // [KR][LDC]
   float* Qc = Vc + KR * LDC;               // [QT][LDC]
   float* Oc = Qc + QT * LDC;               // [QT][LDC] do
@@ -373,7 +390,7 @@ __global__ void __launch_bounds__(THREADS) flash_wide_dkv_kernel(const Params p)
   const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const T* ob = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
 
-  for (int i = tid; i < 2 * KR * D; i += THREADS) dK[i] = 0.f;   // dK and dV
+  for (int i = tid; i < 2 * KR * G; i += THREADS) dK[i] = 0.f;   // dK and dV
   if (tid < KR) kval[tid] = key_ok(p, b, k0 + tid) ? 1.f : 0.f;
   const int qq = tid % QT, ks0 = (tid / QT) * KPT;   // scores: one query, 4 keys
   const int cc = tid % DC, ko0 = (tid / DC) * KPT;   // sums: one column, 4 keys
@@ -417,17 +434,19 @@ __global__ void __launch_bounds__(THREADS) flash_wide_dkv_kernel(const Params p)
       PT[key * (QT + 1) + qq] = round_to<T>(pv);
       DST[key * (QT + 1) + qq] = round_to<T>(pv * (dp[r] - delta_s[qq]));
     }
-    // dV += p^T . do, dK += ds^T . q, chunk by chunk of D
-    for (int c0 = 0; c0 < D; c0 += DC) {
+    // dV += p^T . do, dK += ds^T . q, chunk by chunk of the group's columns
+    for (int c0 = g0; c0 < g0 + gw; c0 += DC) {
       __syncthreads();   // p^T and ds^T written; the previous chunks read
       load_chunk(Qc, qb, p.q_st, qs0, QT, T_len, c0, tid);
       load_chunk(Oc, ob, p.o_st, qs0, QT, T_len, c0, tid);
       __syncthreads();
+      float* vrow = dV + c0 - g0 + cc;
+      float* krow = dK + c0 - g0 + cc;
       float av[KPT], ak[KPT];
 #pragma unroll
       for (int r = 0; r < KPT; ++r) {
-        av[r] = dV[(ko0 + r) * D + c0 + cc];
-        ak[r] = dK[(ko0 + r) * D + c0 + cc];
+        av[r] = vrow[(ko0 + r) * G];
+        ak[r] = krow[(ko0 + r) * G];
       }
 #pragma unroll 4
       for (int q = 0; q < QT; ++q) {
@@ -440,20 +459,20 @@ __global__ void __launch_bounds__(THREADS) flash_wide_dkv_kernel(const Params p)
       }
 #pragma unroll
       for (int r = 0; r < KPT; ++r) {
-        dV[(ko0 + r) * D + c0 + cc] = av[r];
-        dK[(ko0 + r) * D + c0 + cc] = ak[r];
+        vrow[(ko0 + r) * G] = av[r];
+        krow[(ko0 + r) * G] = ak[r];
       }
     }
   }
   __syncthreads();
   T* dk = static_cast<T*>(p.o);
   T* dv = static_cast<T*>(p.o2);
-  for (int i = tid; i < KR * D; i += THREADS) {
-    const int r = i / D, c = i % D, t = k0 + r;
+  for (int i = tid; i < KR * gw; i += THREADS) {
+    const int r = i / gw, c = i % gw, t = k0 + r;
     if (t < T_len) {
-      const long long at = (((long long)b * T_len + t) * p.H + h) * D + c;
-      dk[at] = from_f<T>(dK[i] * p.scale);
-      dv[at] = from_f<T>(dV[i]);
+      const long long at = (((long long)b * T_len + t) * p.H + h) * D + g0 + c;
+      dk[at] = from_f<T>(dK[r * G + c] * p.scale);
+      dv[at] = from_f<T>(dV[r * G + c]);
     }
   }
 }
@@ -462,24 +481,40 @@ __global__ void __launch_bounds__(THREADS) flash_wide_dkv_kernel(const Params p)
 // launch
 // ---------------------------------------------------------------------------
 
-// which: 0 = forward, 1 = dq, 2 = dk/dv
-size_t smem_bytes(int which, int D) {
-  const size_t f = which == 0 ? fwd_floats(D) : which == 1 ? dq_floats(D) : dkv_floats(D);
+// which: 0 = forward, 1 = dq, 2 = dk/dv; G the accumulators' columns
+size_t smem_bytes(int which, int G) {
+  const size_t f = which == 0 ? fwd_floats(G) : which == 1 ? dq_floats(G) : dkv_floats(G);
   return f * sizeof(float);
 }
 
-bool supported(int which, int D) {
-  return D >= DC && D % DC == 0 && smem_bytes(which, D) <= SMEM_LIMIT;
+bool supported(int D) { return D >= DC && D % DC == 0; }
+
+// The columns of a group at head dim D: D itself where its layout fits one
+// block, else D split into the fewest groups whose layouts fit, as evenly as
+// 64-column chunks allow (the last group may be narrower).
+int group_width(int which, int D) {
+  if (smem_bytes(which, D) <= SMEM_LIMIT) return D;
+  int gmax = 0;   // the widest group that fits, in chunks
+  while (smem_bytes(which, (gmax + 1) * DC) <= SMEM_LIMIT) ++gmax;
+  const int chunks = D / DC, groups = (chunks + gmax - 1) / gmax;
+  return (chunks + groups - 1) / groups * DC;
+}
+
+int n_groups(int which, int D) {
+  const int G = group_width(which, D);
+  return (D + G - 1) / G;
 }
 
 template <typename K>
-int launch_kernel(K kernel, int which, const Params& p, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(which, p.D);
+int launch_kernel(K kernel, int which, Params p, cudaStream_t stream) {
+  p.G = group_width(which, p.D);
+  const size_t bytes = smem_bytes(which, p.G);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int rows = which == 2 ? KR : QR;
-  kernel<<<dim3((p.T + rows - 1) / rows, p.B * p.H), THREADS, bytes, stream>>>(p);
+  kernel<<<dim3((p.T + rows - 1) / rows, p.B * p.H, n_groups(which, p.D)), THREADS, bytes,
+           stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -491,7 +526,7 @@ int launch_typed(int which, const Params& p, cudaStream_t stream) {
 }
 
 int run(int which, const Params& p, int dtype, void* stream) {
-  if (!supported(which, p.D) || p.B < 1 || p.T < 1 || p.H < 1) return ERR_UNSUPPORTED;
+  if (!supported(p.D) || p.B < 1 || p.T < 1 || p.H < 1) return ERR_UNSUPPORTED;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_typed<float>(which, p, s);
   if (dtype == 1) return launch_typed<bf16>(which, p, s);
@@ -520,8 +555,8 @@ Params common(const void* q, const void* k, const void* v, const float* kmask, i
 extern "C" {
 
 // The forward, with flash_fwd's arguments: dtype 0 = float32, 1 = bfloat16,
-// 2 = float16; D a multiple of 64 whose layout fits a block
-// (flash_wide_smem_bytes); strides in elements; out [B, T, H, D] contiguous,
+// 2 = float16; D any multiple of 64 (past what one block holds, in column
+// groups: flash_wide_groups); strides in elements; out [B, T, H, D] contiguous,
 // lse [B, H, T]. Returns 0 on a clean launch, -1 for an unsupported dtype or
 // head dim, else the cudaError_t code.
 int flash_wide_fwd(const void* q, const void* k, const void* v, const float* kmask, void* out,
@@ -575,10 +610,18 @@ int flash_wide_bwd_dkv(const void* q, const void* k, const void* v, const void* 
 }
 
 // Dynamic shared memory one block of kernel `which` (0 = forward, 1 = dq,
-// 2 = dk/dv) takes at head dim D, or -1 when D is unsupported.
+// 2 = dk/dv) takes at head dim D (its column group's layout), or -1 when D
+// is unsupported.
 long long flash_wide_smem_bytes(int which, int D) {
-  if (which < 0 || which > 2 || !supported(which, D)) return -1;
-  return static_cast<long long>(smem_bytes(which, D));
+  if (which < 0 || which > 2 || !supported(D)) return -1;
+  return static_cast<long long>(smem_bytes(which, group_width(which, D)));
+}
+
+// The column groups (the grid's z extent) of kernel `which` at head dim D,
+// or -1 when D is unsupported.
+int flash_wide_groups(int which, int D) {
+  if (which < 0 || which > 2 || !supported(D)) return -1;
+  return n_groups(which, D);
 }
 
 const char* flash_wide_error_string(int code) {

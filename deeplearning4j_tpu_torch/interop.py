@@ -2,8 +2,9 @@
 numpy trees.
 
 The JAX package's params are a tuple of per-layer dicts (nested for
-TransformerBlock's ``attn``/``ln1``/``ln2``); the port keeps the same
-names, shapes and layouts. ``jax.tree_util.tree_map(np.asarray,
+TransformerBlock's ``attn``/``ln1``/``ln2``) for a MultiLayerNetwork and a
+dict ``{vertex_name: layer params}`` for a ComputationGraph; the port keeps
+the same names, shapes and layouts. ``jax.tree_util.tree_map(np.asarray,
 jax_model.params)`` therefore loads here with :func:`params_from_numpy`,
 and :func:`params_to_numpy` gives it back. Layer state (BatchNorm's f32
 running ``mean`` and ``var``) goes the same way with
@@ -17,8 +18,6 @@ for the same reason.
 """
 
 from __future__ import annotations
-
-from typing import Sequence
 
 import numpy as np
 import torch
@@ -41,13 +40,21 @@ def _load(tree, like, where: str):
             got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
             raise ValueError(f"{where}: keys {got} != expected {sorted(like)}")
         return {k: _load(tree[k], like[k], f"{where}.{k}") for k in like}
+    if isinstance(like, (tuple, list)):
+        if not isinstance(tree, (tuple, list)) or len(tree) != len(like):
+            raise ValueError(f"{where}: {len(like)} entries expected")
+        return type(like)(_load(t, x, f"{where}[{i}]")
+                          for i, (t, x) in enumerate(zip(tree, like)))
     return _to_tensor(tree, like, where)
 
 
-def _load_layers(model, attr: str, tree: Sequence[dict]):
+def _load_layers(model, attr: str, tree):
     if model.params is None:
         model.init()
     have = getattr(model, attr)
+    if isinstance(have, dict):   # a ComputationGraph: keyed by vertex name
+        setattr(model, attr, _load(dict(tree), have, f"graph {attr}"))
+        return model
     if len(tree) != len(have):
         raise ValueError(f"{len(tree)} layer {attr} dicts for a model of "
                          f"{len(have)} layers")
@@ -56,17 +63,19 @@ def _load_layers(model, attr: str, tree: Sequence[dict]):
     return model
 
 
-def params_from_numpy(model, tree: Sequence[dict]):
-    """Load a tuple of per-layer dicts of numpy arrays into ``model``'s
+def params_from_numpy(model, tree):
+    """Load a tuple of per-layer dicts of numpy arrays (a
+    MultiLayerNetwork's) or a dict of per-vertex dicts (a
+    ComputationGraph's) into ``model``'s
     params (keys and shapes must match the model's own layout; values are
     cast to the model dtype on its device). Initialises the model first if
     it has no params yet. Returns the model."""
     return _load_layers(model, "params", tree)
 
 
-def state_from_numpy(model, tree: Sequence[dict]):
-    """Load a tuple of per-layer dicts of numpy arrays into ``model``'s
-    layer state (the same keys and shapes; each leaf keeps the dtype of
+def state_from_numpy(model, tree):
+    """Load a tuple of per-layer dicts (or a graph's dict of per-vertex
+    dicts) of numpy arrays into ``model``'s layer state (the same keys and shapes; each leaf keeps the dtype of
     the model's own state, f32 for BatchNorm). Returns the model."""
     return _load_layers(model, "state", tree)
 
@@ -74,19 +83,23 @@ def state_from_numpy(model, tree: Sequence[dict]):
 def _dump(p):
     if isinstance(p, dict):
         return {k: _dump(v) for k, v in p.items()}
+    if isinstance(p, (tuple, list)):
+        return type(p)(_dump(v) for v in p)
     t = p.detach()
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.cpu().numpy()
 
 
-def params_to_numpy(model) -> tuple:
-    """``model``'s params as a tuple of per-layer dicts of numpy arrays
-    (bf16 as float32)."""
-    return tuple(_dump(p) for p in model.params)
+def params_to_numpy(model):
+    """``model``'s params as numpy arrays in its own tree (a tuple of
+    per-layer dicts, or a graph's dict of per-vertex dicts; bf16 as
+    float32)."""
+    return _dump(model.params) if isinstance(model.params, dict) else tuple(
+        _dump(p) for p in model.params)
 
 
-def state_to_numpy(model) -> tuple:
-    """``model``'s layer state as a tuple of per-layer dicts of numpy
-    arrays."""
-    return tuple(_dump(s) for s in model.state)
+def state_to_numpy(model):
+    """``model``'s layer state as numpy arrays in its own tree."""
+    return _dump(model.state) if isinstance(model.state, dict) else tuple(
+        _dump(s) for s in model.state)

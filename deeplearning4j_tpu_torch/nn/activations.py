@@ -1,8 +1,8 @@
 """Activation functions: a name -> function registry (PyTorch).
 
 Counterpart of ``deeplearning4j_tpu/nn/activations.py``, with the same
-DL4J-compatible lowercase names. Only the activations of the ported layers
-are here so far; an unported name raises with the list of known ones.
+DL4J-compatible lowercase names and the same formulas (an unknown name
+raises with the list of known ones).
 
 ``gelu`` is the tanh approximation: ``jax.nn.gelu`` defaults to
 ``approximate=True``, while ``torch.nn.functional.gelu`` defaults to the
@@ -77,3 +77,81 @@ def softmax(x):
 @register("gelu")
 def gelu(x):
     return F.gelu(x, approximate="tanh")
+
+
+@register("relu6")
+def relu6(x):
+    return torch.clamp(x, 0.0, 6.0)
+
+
+@register("leakyrelu")
+def leakyrelu(x):
+    return F.leaky_relu(x, negative_slope=0.01)
+
+
+@register("elu")
+def elu(x):
+    return F.elu(x)
+
+
+@register("selu")
+def selu(x):
+    return F.selu(x)
+
+
+@register("hardsigmoid")
+def hardsigmoid(x):
+    return torch.clamp(0.2 * x + 0.5, 0.0, 1.0)
+
+
+@register("hardtanh")
+def hardtanh(x):
+    return torch.clamp(x, -1.0, 1.0)
+
+
+@register("rationaltanh")
+def rationaltanh(x):
+    # DL4J's ActivationRationalTanh: 1.7159 * tanh(2x/3), rational form
+    a = torch.abs(2.0 * x / 3.0)
+    approx = 1.0 - 1.0 / (1.0 + a + a * a + 1.41645 * a ** 4)
+    return 1.7159 * torch.sign(x) * approx
+
+
+@register("rectifiedtanh")
+def rectifiedtanh(x):
+    return torch.clamp_min(torch.tanh(x), 0.0)
+
+
+@register("logsoftmax")
+def logsoftmax(x):
+    return torch.log_softmax(x, dim=-1)
+
+
+@register("softplus")
+def softplus(x):
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+@register("softsign")
+def softsign(x):
+    return x / (1.0 + torch.abs(x))
+
+
+@register("cube")
+def cube(x):
+    return x * x * x
+
+
+@register("swish")
+def swish(x):
+    return F.silu(x)
+
+
+@register("mish")
+def mish(x):
+    return x * torch.tanh(softplus(x))
+
+
+@register("thresholdedrelu")
+def thresholdedrelu(x):
+    return torch.where(x > 1.0, x, torch.zeros_like(x))

@@ -343,6 +343,11 @@ def _pool(xc, pooling: str, kernel, strides, pads, pnorm: int):
     """``reduce_window`` pooling of channels-first ``xc`` [B, C, *spatial]
     (1 or 2 spatial axes) over explicit (before, after) ``pads``."""
     nd = xc.dim() - 2
+    out = [(n + lo + hi - k) // st + 1 for n, (lo, hi), k, st in
+           zip(xc.shape[2:], pads, kernel, strides)]
+    if min(out) <= 0:   # a window wider than the padded input: an empty
+        # output, as reduce_window gives (torch's pooling refuses it)
+        return xc.new_empty(tuple(xc.shape[:2]) + tuple(max(o, 0) for o in out))
     area = 1
     for k in kernel:
         area *= k

@@ -9,7 +9,9 @@ CUDA C++ for Hopper (``sm_90a``) built at first use and bound through
 ctypes (``ops/_build.py``), for head dims up to 256; past 256 the same
 wrappers launch the wide-head route of ``csrc/flash_wide.cu`` (the head
 dim a run-time loop over 64-column chunks, f32 accumulators in shared
-memory). Their design notes and bounds sit at the top of each source.
+memory, and past what one block's accumulators hold a grid axis over
+column groups of the outputs), so every head dim runs on the card, bounded
+by device memory alone, as in the JAX package. Their design notes and bounds sit at the top of each source.
 
 Dispatch follows one rule, with no fallback: a tensor on the CPU goes to
 the plain version, a CUDA tensor goes to the kernel or raises.
@@ -49,7 +51,6 @@ import torch
 from deeplearning4j_tpu_torch.ops import _build
 
 __all__ = [
-    "MAX_HEAD_DIM",
     "SUPPORTED_HEAD_DIMS",
     "WIDE_HEAD_DIM_STEP",
     "flash_attention",
@@ -69,12 +70,11 @@ _NEG_BIG = -1e30
 # head dims kernels #1-#3 are built for; a head dim between them runs
 # zero-padded up to the next (kernel_head_dim)
 SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
-# past 256 the wide-head route (csrc/flash_wide.cu) takes multiples of
-# WIDE_HEAD_DIM_STEP, up to the widest whose f32 accumulators (16 query rows
-# x D for the forward and dq, 2 x 8 key rows x D for dk/dv) and 64-column
-# staging tiles fit one block's 227 KB: 2880 (dq's layout, 230,464 bytes)
+# past 256 the wide-head route (csrc/flash_wide.cu) takes any multiple of
+# WIDE_HEAD_DIM_STEP; a head whose f32 accumulators (16 query rows x D for
+# the forward and dq, 2 x 8 key rows x D for dk/dv) do not fit one block's
+# 227 KB beside the staging tiles (dq: past 2880) runs in column groups
 WIDE_HEAD_DIM_STEP = 64
-MAX_HEAD_DIM = 2880
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _lib = None
 _bwd_lib = None
@@ -136,6 +136,8 @@ def _wide_kernel_lib() -> ctypes.CDLL:
         lib.flash_wide_error_string.restype = ctypes.c_char_p
         lib.flash_wide_smem_bytes.argtypes = [i32, i32]
         lib.flash_wide_smem_bytes.restype = i64
+        lib.flash_wide_groups.argtypes = [i32, i32]
+        lib.flash_wide_groups.restype = i32
         _wide_lib = lib
     return _wide_lib
 
@@ -147,14 +149,15 @@ def kernel_head_dim(D: int, dtype: torch.dtype) -> int:
     route). The wrappers zero-pad q, k, v (and the backward's do) up to it
     and pass the real ``1/sqrt(D)``; the padded columns add exact zeros to
     every product and are sliced off the outputs, so the result is the
-    D-wide attention's. Raises a ValueError past :data:`MAX_HEAD_DIM` or for
-    a dtype other than float32, bfloat16 and float16."""
+    D-wide attention's. No head dim is too wide: past what one block holds
+    the wide-head route splits the outputs' columns into groups. Raises a
+    ValueError for D < 1 or a dtype other than float32, bfloat16 and
+    float16."""
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"flash attention kernels take float32, bfloat16 or float16, "
                          f"got {dtype}")
-    if not 1 <= D <= MAX_HEAD_DIM:
-        raise ValueError(f"flash attention kernels take head dims up to {MAX_HEAD_DIM}, "
-                         f"got {D}")
+    if D < 1:
+        raise ValueError(f"flash attention kernels take head dims from 1, got {D}")
     if D <= SUPPORTED_HEAD_DIMS[-1]:
         return next(d for d in SUPPORTED_HEAD_DIMS if d >= D)
     return -(-D // WIDE_HEAD_DIM_STEP) * WIDE_HEAD_DIM_STEP
@@ -219,8 +222,8 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bf16 and f16, the FMA kernel for f32), or past D = 256 the wide-head
     forward (``csrc/flash_wide.cu``), on PyTorch's current stream.
 
-    q/k/v [B, T, H, D] CUDA tensors (f32, bf16 or f16, D up to
-    :data:`MAX_HEAD_DIM`; a D the kernels are not built for runs
+    q/k/v [B, T, H, D] CUDA tensors (f32, bf16 or f16, any D; a D the
+    kernels are not built for runs
     zero-padded, :func:`kernel_head_dim`; head dim contiguous; other strides
     are read as they are, so the fused-qkv split views need no copy);
     ``kmask`` [B, T] key validity (>0 = real key).

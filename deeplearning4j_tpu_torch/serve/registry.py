@@ -3,8 +3,10 @@
 Counterpart of ``deeplearning4j_tpu/serve/registry.py`` (the predict path;
 ``load`` from a file, generate and search wait for their slices).
 ``ModelRegistry`` owns every :class:`~.scheduler.ModelWorker` in the
-process. ``register(name, model)`` puts an already-constructed model
-behind a continuous-batching worker after a warm pass: ``output`` runs
+process. ``register(name, model)`` puts an already-constructed model (a
+MultiLayerNetwork or a one-input ComputationGraph: anything with
+``output``, ``dummy_input``, ``takes_ids`` and ``device``) behind a
+continuous-batching worker after a warm pass: ``output`` runs
 once per bucket reachable by coalesced batches up to the worker's
 ``max_batch``, so the first requests do not pay for CUDA context set-up,
 cuBLAS heuristics or the kernel library's build.

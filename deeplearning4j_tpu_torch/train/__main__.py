@@ -2,9 +2,13 @@
 
 Counterpart of ``python -m deeplearning4j_tpu.train`` (the reference's
 ParallelWrapperMain): loads a model zip or a configuration JSON with
-ModelGuesser semantics, trains it on an ``.npz`` dataset (arrays ``x`` and
-``y``, optional ``fmask``/``lmask``) and writes a checkpoint zip in the
-format both packages read.
+ModelGuesser semantics (a MultiLayerNetwork or a ComputationGraph), trains
+it on an ``.npz`` dataset (arrays ``x`` and ``y``, optional
+``fmask``/``lmask``) and writes a checkpoint zip in the format both
+packages read. A graph with several inputs or outputs reads ``x0``,
+``x1``, ... and ``y0``, ``y1``, ... in the order of its ``inputs`` and
+``outputs`` instead (an extension of the JAX package's CLI, whose ``.npz``
+holds one ``x`` and one ``y``).
 
 Example::
 
@@ -25,6 +29,7 @@ import sys
 
 import numpy as np
 
+from deeplearning4j_tpu_torch.nn.graph import ComputationGraph, ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.model import MultiLayerConfiguration, MultiLayerNetwork
 from deeplearning4j_tpu_torch.train.listeners import ScoreIterationListener
 from deeplearning4j_tpu_torch.utils.guesser import load_any
@@ -35,7 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m deeplearning4j_tpu_torch.train",
         description="Train a model from a config JSON or a model zip.")
-    p.add_argument("model", help="configuration JSON or native model zip")
+    p.add_argument("model", help="configuration JSON (MultiLayerConfiguration or "
+                   "ComputationGraphConfiguration) or native model zip")
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--data", help=".npz file with arrays x and y "
                      "(optional fmask/lmask)")
@@ -59,20 +65,32 @@ def _load_model(path: str, device):
     obj = load_any(path, device=device)
     if isinstance(obj, MultiLayerConfiguration):
         return MultiLayerNetwork(obj, device=device).init()
+    if isinstance(obj, ComputationGraphConfiguration):
+        return ComputationGraph(obj, device=device).init()
     return obj  # already a model
+
+
+def _arrays(d, name: str, path: str):
+    """``name`` itself, or ``name0``, ``name1``, ... as a tuple."""
+    if name in d:
+        return d[name]
+    n = 0
+    while f"{name}{n}" in d:
+        n += 1
+    if n == 0:
+        raise SystemExit(f"{path}: expected arrays 'x' and 'y' (or x0, x1, ... and "
+                         f"y0, y1, ...), found {sorted(d.files)}")
+    return tuple(d[f"{name}{i}"] for i in range(n))
 
 
 def _load_data(path: str):
     with np.load(path) as d:
-        if "x" not in d or "y" not in d:
-            raise SystemExit(f"{path}: expected arrays 'x' and 'y', "
-                             f"found {sorted(d.files)}")
         fmask = d["fmask"] if "fmask" in d else None
         lmask = d["lmask"] if "lmask" in d else None
-        return (d["x"], d["y"], fmask, lmask)
+        return (_arrays(d, "x", path), _arrays(d, "y", path), fmask, lmask)
 
 
-def run(argv=None) -> MultiLayerNetwork:
+def run(argv=None):
     """Parse ``argv``, train, write the checkpoint (and evaluate with
     ``--evaluate``); returns the trained model."""
     args = build_parser().parse_args(argv)

@@ -47,6 +47,7 @@ __all__ = [
     "bucketing_enabled",
     "ladder_from_env",
     "pad_fit_batch",
+    "pad_fit_multi",
     "pad_rows_zero",
     "padded_label_mask",
     "reachable_buckets",
@@ -303,3 +304,31 @@ def pad_fit_batch(x, y, fm, lm, target: int, site: str = "fit"):
     ew = np.zeros(target, np.float32)
     ew[:n] = 1.0
     return x, y, fm, lm, ew
+
+
+def pad_fit_multi(f, l, fm, lm, target: int, site: str = "fit"):
+    """:func:`pad_fit_batch` for the tuples of a ComputationGraph batch:
+    every features, labels and masks member is padded, and every output head
+    gets its own pre-scaled validity label mask. Returns
+    ``(f, l, fm, lm, ew)``."""
+    n = len(f[0])
+    if n > target:
+        raise ValueError(f"batch of {n} rows exceeds pad target {target}")
+    pad = target - n
+    telemetry().record_hit(site, n, target)
+
+    def pad_t(t):
+        if t is None or not pad:
+            return t
+        return tuple(tile_pad(a, pad) if a is not None else None for a in t)
+
+    f, l, fm, lm = pad_t(f), pad_t(l), pad_t(fm), pad_t(lm)
+    if l is not None:
+        lms = lm if lm is not None else (None,) * len(l)
+        lm = tuple(padded_label_mask(yi, lmi, n) if yi is not None else lmi
+                   for yi, lmi in zip(l, lms))
+        if all(m is None for m in lm):
+            lm = None
+    ew = np.zeros(target, np.float32)
+    ew[:n] = 1.0
+    return f, l, fm, lm, ew

@@ -3,11 +3,12 @@
 
 Order of attempts:
   1. native zip (utils/serialization.restore_network);
-  2. config JSON (MultiLayerConfiguration — returns the CONFIG,
-     uninitialized, like ModelGuesser.loadConfigGuess).
+  2. config JSON (MultiLayerConfiguration or ComputationGraphConfiguration
+     — returns the CONFIG, uninitialized, like
+     ModelGuesser.loadConfigGuess).
 
 The JAX package also tries the reference DL4J zip dialect and Keras HDF5;
-those importers are not ported yet, and a ComputationGraph config raises.
+those importers are not ported yet.
 """
 
 from __future__ import annotations
@@ -47,6 +48,10 @@ def load_any(path: str, device=None):
             from deeplearning4j_tpu_torch.nn.model import MultiLayerConfiguration
 
             return MultiLayerConfiguration.from_dict(d)
+        if fmt.endswith("ComputationGraphConfiguration"):
+            from deeplearning4j_tpu_torch.nn.graph import ComputationGraphConfiguration
+
+            return ComputationGraphConfiguration.from_dict(d)
         errors.append(f"json: format tag {fmt!r} is not a ported configuration")
 
     raise ValueError(f"load_any({path!r}): no loader succeeded — " + "; ".join(errors))

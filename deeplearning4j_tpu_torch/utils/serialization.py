@@ -1,13 +1,16 @@
 """Model checkpointing: the JAX package's zip format (PyTorch port of
 ``utils/serialization.py``).
 
-One zip holds ``configuration.json`` (the MultiLayerConfiguration JSON),
-``coefficients.npz`` (params), ``state.npz`` (layer state),
+One zip holds ``configuration.json`` (the MultiLayerConfiguration or
+ComputationGraphConfiguration JSON), ``coefficients.npz`` (params),
+``state.npz`` (layer state),
 ``updaterState.npz`` (optimizer state) and ``meta.json`` (iteration,
 epoch), plus optional ``normalizer.json``. Each npz holds the tree's leaves
 as ``leaf_0``, ``leaf_1``, ... in JAX treedef order — dict keys sorted at
 every level (``utils/tree.py``) — so a zip written by either package
-restores in the other. Path targets are written atomically: a tmp file in
+restores in the other. A ComputationGraph's trees are dicts keyed by
+vertex name, so its leaves follow the sorted names (``s2b10_*`` before
+``s2b2_*``), never the insertion or topological order. Path targets are written atomically: a tmp file in
 the destination directory, fsync, ``os.replace``, directory fsync.
 
 bf16 leaves: the JAX package writes ``ml_dtypes.bfloat16`` arrays, which
@@ -121,8 +124,8 @@ def _atomic_write_zip(path, write_entries) -> None:
 
 def save_network(model, path, save_updater: bool = True,
                  normalizer: Optional[dict] = None):
-    """Write a MultiLayerNetwork to a zip (a path, written atomically, or a
-    writable file object). ``updaterState.npz`` is written once the model
+    """Write a MultiLayerNetwork or a ComputationGraph to a zip (a path,
+    written atomically, or a writable file object). ``updaterState.npz`` is written once the model
     has optimizer state; a reader of a zip without it starts from a fresh
     updater state, which is what an untrained model's would be."""
     meta = {
@@ -184,17 +187,22 @@ def apply_snapshot(model, snap: dict, load_updater: bool = True):
 
 
 def restore_network(path, load_updater: bool = True, device=None):
-    """Restore a MultiLayerNetwork saved by either package's
-    ``save_network`` onto ``device`` (the GPU unless named)."""
+    """Restore a model saved by either package's ``save_network`` onto
+    ``device`` (the GPU unless named): a ComputationGraph or a
+    MultiLayerNetwork, as the configuration's ``"format"`` tag says."""
+    from deeplearning4j_tpu_torch.nn.graph import (
+        ComputationGraph,
+        ComputationGraphConfiguration,
+    )
     from deeplearning4j_tpu_torch.nn.model import MultiLayerConfiguration, MultiLayerNetwork
 
     snap = read_snapshot(path, load_updater=load_updater)
-    fmt = snap["conf"].get("format", "")
-    if fmt.endswith("ComputationGraphConfiguration"):
-        raise NotImplementedError(
-            f"{path}: ComputationGraph is not ported to deeplearning4j_tpu_torch yet")
-    conf = MultiLayerConfiguration.from_dict(snap["conf"])
-    model = MultiLayerNetwork(conf, device=device).init()
+    if snap["conf"].get("format", "").endswith("ComputationGraphConfiguration"):
+        model = ComputationGraph(ComputationGraphConfiguration.from_dict(snap["conf"]),
+                                 device=device).init()
+    else:
+        model = MultiLayerNetwork(MultiLayerConfiguration.from_dict(snap["conf"]),
+                                  device=device).init()
     return apply_snapshot(model, snap, load_updater=load_updater)
 
 

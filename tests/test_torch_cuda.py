@@ -2,10 +2,12 @@
 GPU: flash attention (forward #1, its 16-bit wgmma kernel at ragged T, B*H
 = 1, on fused-qkv views, repeated and with rows without a valid key; every
 head dim up to 256 in bf16 and f16, zero-padded ones included, and the
-wide-head route past 256; backward #2 dq and #3 dk/dv) with a tiny
-TransformerLM served and trained through them, and the fused LSTM (forward
-#4, backward #5; the cluster, wide and step routes, H up to 2048, f32, bf16
-and f16) with a tiny TextGenerationLSTM trained and sampled through them. Every test needs an
+wide-head route past 256, in column groups past 2880; backward #2 dq and
+#3 dk/dv) with a tiny TransformerLM served and trained through them, the
+fused LSTM (forward #4, backward #5; the cluster, wide and step routes, H up
+to 2048, f32, bf16 and f16) with a tiny TextGenerationLSTM and a seq2seq
+ComputationGraph trained and sampled through them, and LeNet-5 and a
+ResNet50 step against the CPU. Every test needs an
 NVIDIA card (marker ``cuda``) and skips without one; on a GPU host run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -94,9 +96,7 @@ def test_each_launch_counts_once(cuda):
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q, k, v = _qkv(cuda, 1, 32, 2, 64, torch.bfloat16, strided=False)
-    wide = torch.zeros(1, 32, 2, fa.MAX_HEAD_DIM + 1, dtype=torch.bfloat16, device=cuda)
     bad = [
-        ((wide, wide, wide), {}),                                  # D > MAX_HEAD_DIM
         ((q.double(), k.double(), v.double()), {}),                # float64
         ((q[..., ::2], k[..., ::2], v[..., ::2]), {}),             # strided D
         ((q, k, v.float()), {}),                                   # mixed dtype
@@ -444,12 +444,10 @@ def test_bwd_wrapper_refuses_what_the_kernels_do_not_take(cuda):
     q, k, v, out, lse, do, _ = _bwd_case(cuda, 1, 32, 2, 64, torch.bfloat16,
                                          True, False, 9)
     delta = fa._delta(out, do)
-    wide = torch.zeros(1, 32, 2, fa.MAX_HEAD_DIM + 1, dtype=torch.bfloat16, device=cuda)
     bad = [
         dict(do=do.float()),                     # do dtype
         dict(lse=lse[:, :, :31]),                # lse shape
         dict(delta=delta.to(torch.bfloat16)),    # delta dtype
-        dict(q=wide, k=wide, v=wide, do=wide),  # D > MAX_HEAD_DIM
     ]
     before = fa.flash_bwd_dq_cuda.launches
     for kw in bad:
@@ -807,3 +805,136 @@ def test_lenet5_forward_and_step_on_the_card_match_the_cpu(cuda):
     np.testing.assert_allclose(gpu.score((x, y)), cpu.score((x, y)), rtol=1e-4)
     for a, b in zip(tree_leaves(gpu.params), tree_leaves(cpu.params)):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+# -- flash attention past D = 2880: column groups ----------------------------
+
+def _rel_close(got, want, rel):
+    got, want = got.float(), want.float()
+    assert (got - want).abs().max().item() <= rel * want.abs().max().item()
+
+
+@pytest.mark.parametrize("D,dtype", [(2881, torch.bfloat16), (3072, torch.bfloat16),
+                                     (3072, torch.float32), (4096, torch.bfloat16)])
+@pytest.mark.parametrize("causal,masked", [(True, False), (False, True)])
+def test_wide_head_past_2880_matches_plain_version(cuda, D, dtype, causal, masked):
+    """Heads too wide for one block's accumulators run in column groups
+    (flash_wide_groups > 1 for dq): out, lse, dq, dk and dv against the
+    plain versions, through the same wrappers, with no refusal."""
+    B, T, H = 1, 256, 2
+    lib = fa._wide_kernel_lib()
+    assert lib.flash_wide_groups(1, fa.kernel_head_dim(D, dtype)) >= 2
+    q, k, v = _qkv(cuda, B, T, H, D, dtype, strided=not masked, seed=D)
+    km = _varlen(cuda, B, T, seed=D) if masked else None
+    out, lse = fa.flash_fwd_cuda(q, k, v, kmask=km, causal=causal)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal, kmask=km,
+                                                with_lse=True)
+    tol = F32 if dtype == torch.float32 else BF16
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    do = torch.randn(B, T, H, D, generator=g, device=cuda).to(dtype)
+    got = fa.flash_bwd_cuda(q, k, v, out, lse, do, km, causal)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, km, causal)
+    for a, b in zip(got, want):
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, **F32)
+        else:
+            _rel_close(a, b, 2e-2)
+
+
+def test_wide_head_one_group_up_to_2880(cuda):
+    """Up to 2880 every kernel of the route keeps one column group (the
+    layout of the route before groups, so those head dims run as before)."""
+    lib = fa._wide_kernel_lib()
+    for D in (320, 512, 1024, 2048, 2880):
+        assert [lib.flash_wide_groups(w, D) for w in range(3)] == [1, 1, 1], D
+    assert lib.flash_wide_groups(1, 2944) == 2 and lib.flash_wide_smem_bytes(1, 4096) > 0
+
+
+# -- ComputationGraph ---------------------------------------------------------
+
+def _seq2seq(hidden, vocab=11, T=8):
+    from deeplearning4j_tpu_torch.nn.graph import (
+        ComputationGraphConfiguration,
+        DuplicateToTimeSeriesVertex,
+        LastTimeStepVertex,
+        MergeVertex,
+    )
+    from deeplearning4j_tpu_torch.nn.input_type import InputType
+    from deeplearning4j_tpu_torch.nn.layers import GravesLSTM, RnnOutputLayer
+
+    return (ComputationGraphConfiguration.builder()
+            .add_inputs("enc_in", "dec_in")
+            .set_input_types(InputType.recurrent(vocab), InputType.recurrent(vocab))
+            .add_layer("enc", GravesLSTM(n_out=hidden), "enc_in")
+            .add_vertex("last", LastTimeStepVertex(), "enc")
+            .add_vertex("dup", DuplicateToTimeSeriesVertex(), "last", "dec_in")
+            .add_vertex("merge", MergeVertex(), "dec_in", "dup")
+            .add_layer("dec", GravesLSTM(n_out=hidden), "merge")
+            .add_layer("out", RnnOutputLayer(n_out=vocab, activation="softmax"), "dec")
+            .set_outputs("out").updater({"type": "rmsprop", "lr": 1e-3}).tbptt(4).build())
+
+
+def test_graph_lstm_launches_the_fused_kernels_and_matches_the_cpu(cuda):
+    """A seq2seq graph with two GravesLSTM(256) vertices: on the card, a
+    tBPTT fit (T = 8 in chunks of 4) launches kernels #4 and #5 twice a
+    chunk, rnn_time_step kernel #4 twice a call, and the losses, params and
+    streamed outputs match the same graph on the CPU."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.utils.tree import tree_leaves
+
+    conf = _seq2seq(256)
+    cpu = ComputationGraph(conf, device="cpu").init()
+    gpu = params_from_numpy(ComputationGraph(conf), params_to_numpy(cpu))
+    rs = np.random.RandomState(0)
+    eye = np.eye(11, dtype=np.float32)
+    enc, dec = eye[rs.randint(0, 11, (6, 8))], eye[rs.randint(0, 11, (6, 8))]
+    y = eye[rs.randint(0, 11, (6, 8))]
+    before = (fl.fused_lstm_fwd_cuda.launches, fl.fused_lstm_bwd_cuda.launches)
+    gpu.fit(((enc, dec), y), epochs=2)
+    cpu.fit(((enc, dec), y), epochs=2)
+    assert (fl.fused_lstm_fwd_cuda.launches, fl.fused_lstm_bwd_cuda.launches) == (
+        before[0] + 8, before[1] + 8)
+    assert gpu.iteration == cpu.iteration == 4
+    for a, b in zip(tree_leaves(gpu.params), tree_leaves(cpu.params)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+    before = fl.fused_lstm_fwd_cuda.launches
+    steps = [gpu.rnn_time_step(enc[:, t], dec[:, t]) for t in range(8)]
+    assert fl.fused_lstm_fwd_cuda.launches == before + 16
+    want = [cpu.rnn_time_step(enc[:, t], dec[:, t]) for t in range(8)]
+    torch.testing.assert_close(torch.stack(steps, 1).cpu(), torch.stack(want, 1),
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_resnet50_step_on_the_card_matches_the_cpu(cuda):
+    """ResNet50 at 64 x 64 (5 classes, batch 4) from the same weights: the
+    f32 eval output (TF32 off), then one SGD step in float64 on both
+    devices (in f32 the step is chaotic: train-mode BatchNorm over few rows
+    magnifies regrouped sums until a ReLU near zero flips), its loss,
+    params and BatchNorm statistics."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models import ResNet50
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.utils.tree import tree_leaves
+
+    rs = np.random.RandomState(2)
+    x = rs.rand(4, 64, 64, 3)
+    y = np.eye(5)[rs.randint(0, 5, 4)]
+    conf = ResNet50(height=64, width=64, num_classes=5)
+    cpu = ComputationGraph(conf, device="cpu").init()
+    gpu = params_from_numpy(ComputationGraph(conf), params_to_numpy(cpu))
+    torch.testing.assert_close(gpu.output(x.astype(np.float32)).cpu(),
+                               cpu.output(x.astype(np.float32)), rtol=1e-3, atol=1e-6)
+    conf64 = ResNet50(height=64, width=64, num_classes=5, dtype="float64",
+                      updater={"type": "sgd", "lr": 0.05})
+    cpu = ComputationGraph(conf64, device="cpu").init()
+    gpu = params_from_numpy(ComputationGraph(conf64), params_to_numpy(cpu))
+    loss_gpu, loss_cpu = float(gpu.fit_batch((x, y))), float(cpu.fit_batch((x, y)))
+    np.testing.assert_allclose(loss_gpu, loss_cpu, rtol=1e-9)
+    for tree_g, tree_c in ((gpu.params, cpu.params), (gpu.state, cpu.state)):
+        for a, b in zip(tree_leaves(tree_g), tree_leaves(tree_c)):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-8, atol=1e-9 * b.abs().max().item())

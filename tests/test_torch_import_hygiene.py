@@ -45,7 +45,9 @@ def test_importing_every_port_module_leaves_jax_out():
     assert "deeplearning4j_tpu_torch.ops.fused_lstm" in mods
     assert "deeplearning4j_tpu_torch.nn.layers.recurrent" in mods
     for m in ("nn.layers.convolution", "nn.layers.pooling", "nn.layers.normalization",
-              "nn.layers.core", "nn.preprocessors", "models.zoo", "interop"):
+              "nn.layers.core", "nn.preprocessors", "models.zoo", "interop",
+              "nn.graph", "nn.transfer", "nn.layers.custom", "nn.layers.variational",
+              "nn.layers.objdetect", "models.zoo_graph"):
         assert f"deeplearning4j_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

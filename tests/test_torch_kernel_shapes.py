@@ -31,7 +31,8 @@ def _two_threads():
 @pytest.mark.parametrize("D,want", [(1, 32), (16, 32), (32, 32), (33, 64), (48, 64),
                                     (64, 64), (96, 128), (128, 128), (129, 256),
                                     (200, 256), (256, 256), (257, 320), (300, 320),
-                                    (320, 320), (512, 512), (1000, 1024), (2880, 2880)])
+                                    (320, 320), (512, 512), (1000, 1024), (2880, 2880),
+                                    (2881, 2944), (3072, 3072), (4000, 4032), (4096, 4096)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_kernel_head_dim_16bit(D, want, dtype):
     assert fa.kernel_head_dim(D, dtype) == want
@@ -47,7 +48,14 @@ def test_kernel_head_dim_f32(D, want):
                                      (2881, torch.float32), (0, torch.bfloat16),
                                      (64, torch.float64)])
 def test_kernel_head_dim_refuses_past_the_limit(D, dtype):
-    with pytest.raises(ValueError, match="head dims up to|float32, bfloat16 or float16"):
+    """The head-dim cap is gone (the wide-head route splits a head too wide
+    for one block into column groups): past 2880 a head routes to the next
+    multiple of 64; only D < 1 and a dtype outside f32/bf16/f16 are
+    refused."""
+    if D >= 1 and dtype in (torch.float32, torch.bfloat16, torch.float16):
+        assert fa.kernel_head_dim(D, dtype) == -(-D // 64) * 64
+        return
+    with pytest.raises(ValueError, match="head dims from 1|float32, bfloat16 or float16"):
         fa.kernel_head_dim(D, dtype)
 
 
@@ -62,7 +70,7 @@ def _kmask(B, T, seed):
     return torch.from_numpy((np.arange(T)[None] < lens[:, None]).astype(np.float32))
 
 
-@pytest.mark.parametrize("D", [16, 20, 48, 50, 96, 100, 200, 300, 320])
+@pytest.mark.parametrize("D", [16, 20, 48, 50, 96, 100, 200, 300, 320, 2900])
 @pytest.mark.parametrize("causal,masked", [(True, False), (False, True)])
 def test_padding_is_exact_forward(D, causal, masked):
     """pad -> plain version at the kernels' head dim with the real scale ->
@@ -83,7 +91,7 @@ def test_padding_is_exact_forward(D, causal, masked):
     assert torch.count_nonzero(out_p[..., D:]) == 0
 
 
-@pytest.mark.parametrize("D", [16, 20, 48, 50, 96, 100, 200, 300, 320])
+@pytest.mark.parametrize("D", [16, 20, 48, 50, 96, 100, 200, 300, 320, 2900])
 @pytest.mark.parametrize("causal,masked", [(True, False), (False, True)])
 def test_padding_is_exact_backward(D, causal, masked):
     """The backward's plain version on padded q, k, v, do (out and lse from
