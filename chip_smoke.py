@@ -141,8 +141,44 @@ non-zero (and without a result line when no CUDA device is present):
    rows held to the CPU; kernels #4/#5 counted per path (2 launches of each
    per chunk or step, 2 of #4 per evaluate batch or rnn_time_step call),
    with the plain LSTM scan made to fail if it runs.
+17. resilience_train — the TransformerLM of phase 5 (full width, bf16,
+   Adam 1e-4) through ``fit`` on 6 batches of 16 rows: (a) uninterrupted;
+   (b) with CheckpointListener(every 2 iterations, keep_last=1) and a chaos
+   preemption before iteration 4 (two full-state zips written); (c) a fresh
+   model resumed from that directory with the same budget, whose params must
+   equal (a)'s bit for bit; (d) a skip_batch guard with spike limit 0 over
+   2 steps, leaving params and updater state bit-equal. Each save's and the
+   restore's seconds and bytes (and, over the same bytes, the host copy of
+   every leaf, one CRC32 pass, a write with fsync and a read), the guard's
+   extra peak memory, 8 launches of each flash kernel a step in every run.
+18. remat_train — the same model with DL4J_TPU_REMAT_BLOCKS=1 beside the
+   plain step in one call: one batch's loss both ways (bf16 tolerance) and
+   its parameter gradients (bit for bit, else per tensor within
+   GRAD_CHECK_REL, the largest difference reported), a warm step and 3 timed steps each (CUDA events, tokens/s, peak memory,
+   which remat must lower), 16 launches of kernel #1 a remat step and 8 of
+   #2/#3; a ProfilerListener window over one remat step whose Chrome trace
+   must name the three flash kernels.
+19. lstm_resilience — the char-RNN of phase 9 (128 x 50, tBPTT 50, f32,
+   RMSProp) through ``fit`` on 6 batches: a NaN batch (chaos nan_grad)
+   under skip_batch leaves that update's params bit-equal and later ones
+   train; rollback (spike limit twice the first loss) on the same NaN batch
+   restores the last valid checkpoint, halves the rate and carries on; a
+   mid-epoch resume equals the uninterrupted run bit for bit; 2 + 2
+   launches of kernels #4/#5 a batch on every path.
+20. lenet_runtime — LeNet-5 at bench_lenet5's shape with no listener:
+   DL4J_TPU_CHAIN_STEPS=auto chains 8 steps (32 steps, 4 chains; unset,
+   the variable chains nothing) against
+   DL4J_TPU_CHAIN_STEPS=0 and against that with DL4J_TPU_DEVICE_PREFETCH=1
+   (ms a step each way, the three interleaved three times, and the params'
+   difference; then chained and per step again with cuDNN's deterministic
+   algorithms, which must agree bit for bit);
+   one step under DL4J_TPU_PHASE_SPANS=1 (the three phase spans);
+   LBFGS with 5 iterations on one batch on the card and the CPU (LBFGS_TOL);
+   an EarlyStoppingTrainer with MaxEpochs(3) and ScoreImprovement(patience=1);
+   evaluate_roc of a 2-class LeNet-5 on the card.
 
-It ends with the kernels line, the card's name and power limit, and
+It ends with the command time, the kernels line (launches of each kernel
+by path, the new phases' included), the card's name and power limit, and
 ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -154,6 +190,7 @@ import importlib.util
 import io
 import json
 import logging
+import os
 import re
 import subprocess
 import sys
@@ -161,6 +198,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -189,7 +227,8 @@ from deeplearning4j_tpu_torch.nn.layers import (
     RnnOutputLayer,
     SeparableConv2D,
 )
-from deeplearning4j_tpu_torch.nn.model import MultiLayerNetwork
+from deeplearning4j_tpu_torch.nn import step_program
+from deeplearning4j_tpu_torch.nn.model import MultiLayerConfiguration, MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import _build
 from deeplearning4j_tpu_torch.ops import flash_attention as fa
 from deeplearning4j_tpu_torch.ops import fused_lstm as fl
@@ -281,6 +320,23 @@ RESNET_CPU_TOL = dict(rtol=1e-3, atol=1e-6)
 # batch 128, f32, RMSProp 1e-3
 GRAPH_LSTM = dict(vocab=77, T=50, hidden=256, batch=128, rows=256, epochs=2, std_steps=2,
                   sample_rows=32, sample_steps=100)
+# the training runtime (phases 17-20): the full-width TransformerLM resumed
+# after a preemption before iteration RES_PREEMPT_AT of RES_BATCHES; remat
+# timed over REMAT_TIMED steps; the char-RNN over LSTM_RES_BATCHES batches
+RES_BATCHES, RES_PREEMPT_AT, REMAT_TIMED, LSTM_RES_BATCHES = 6, 4, 3, 6
+# LeNet-5 chained (K = 8) against per step, LENET_STEPS Adam steps, f32, TF32 off:
+# the same kernels in the same order. cuDNN's default backward algorithms
+# may sum with atomics, and Adam turns the last bits of a near-zero
+# gradient into a whole step of +-lr (on an H100 two runs read 6.2e-3 and
+# 3.2e-6 apart), so that difference is reported; with cuDNN's
+# deterministic algorithms the two must agree bit for bit
+LENET_CHAIN_TOL = 0.0
+# lenet_runtime: steps a fit (chains of 8) and interleaved repeats per loop
+LENET_STEPS, LENET_REPEATS = 32, 3
+# LBFGS, 5 iterations on one 256-image batch, card against CPU (f32, TF32
+# off): cuDNN and the CPU sum the convolutions in other orders, and the
+# line search's accept/reject can turn on the last bits of a loss
+LBFGS_TOL = dict(loss_rtol=1e-3, params_atol=1e-3)
 
 
 def emit(obj) -> None:
@@ -2406,6 +2462,545 @@ def graph_lstm_phase(tmp: Path) -> dict:
             "plain_scan_calls_on_cuda": 0}
 
 
+# -- phases 17-20: the training runtime around fit ------------------------------
+
+def _host_leaves(tree) -> list:
+    """A copy of every leaf on the host (params are updated in place)."""
+    return [t.detach().to("cpu", copy=True) for t in tree_leaves(tree)]
+
+
+def _max_diff(a: list, b: list) -> float:
+    return max(((x.float() - y.float()).abs().max().item() for x, y in zip(a, b)),
+               default=0.0)
+
+
+def _bits_equal(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _zero_flash_counts():
+    fa.flash_fwd_cuda.launches = 0
+    fa.flash_bwd_dq_cuda.launches = 0
+    fa.flash_bwd_dkv_cuda.launches = 0
+
+
+def _spans_since(t0: float, name: str) -> list:
+    """Wall seconds of the ``name`` spans begun at or after ``t0`` (host
+    ``time.perf_counter()``); the span ring is bounded, so a count of the
+    spans before would miss new ones once it is full."""
+    return [s["wall_s"] for s in obs.recent_spans() if s["span"] == name and s["t0_s"] >= t0]
+
+
+def _checkpoint_breakdown(model, ckdir: Path) -> dict:
+    """Host-clock seconds of the pieces a full-state save is made of, each
+    over the same bytes: every leaf of params and updater state copied to
+    the host through the writer's one pinned buffer, one CRC32 pass over
+    the zip's bytes (a save makes three: the npz entries, the outer entry,
+    the index), the zip's bytes written and fsynced, and read back."""
+    import zlib
+
+    from deeplearning4j_tpu_torch.utils.serialization import _HostStage
+
+    zip_path = next(ckdir.glob("*.zip"))
+    out = {}
+    stage = _HostStage()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in tree_leaves((model.params, model.opt_state)):
+        stage.bytes_of(t.detach().contiguous())
+    out["host_copy"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data = zip_path.read_bytes()
+    out["read"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zlib.crc32(data)
+    out["crc32_one_pass"] = time.perf_counter() - t0
+    probe = ckdir / "write_probe.bin"
+    t0 = time.perf_counter()
+    with open(probe, "wb") as f:
+        f.write(data)
+        f.flush()
+        os.fsync(f.fileno())
+    out["write_fsync"] = time.perf_counter() - t0
+    probe.unlink()
+    out["bytes"] = len(data)
+    return out
+
+
+def resilience_train_phase(tmp: Path) -> dict:
+    """The TransformerLM at full width (FLAGSHIP_CONF, Adam 1e-4) through
+    ``fit`` on RES_BATCHES batches of 16 rows, one epoch: (a) uninterrupted;
+    (b) with CheckpointListener(every 2 iterations, keep_last=1) and a chaos
+    preemption before iteration 4; (c) a fresh model resumed from (b)'s
+    directory with the same budget, whose params must equal (a)'s bit for
+    bit; (d) a skip_batch guard with spike limit 0 over 2 steps, which must
+    leave params and updater state bit-equal. Each run's launches counted."""
+    from deeplearning4j_tpu_torch.train.checkpoint import CheckpointListener
+    from deeplearning4j_tpu_torch.train.resilience import (
+        ChaosPreemption, DivergenceGuard, install_chaos)
+
+    rows, n = 16, RES_BATCHES
+    conf = zoo.TransformerLM(updater={"type": "adam", "lr": TRAIN_LR}, **FLAGSHIP_CONF)
+    V, T = FLAGSHIP_CONF["vocab_size"], FLAGSHIP_CONF["max_len"]
+    x = np.random.RandomState(31).randint(0, V, (rows * n, T)).astype(np.int64)
+    data = (x, np.roll(x, -1, axis=1))
+    launches = {}
+
+    def run(name, fn):
+        _zero_flash_counts()
+        fn()
+        torch.cuda.synchronize()
+        launches[name] = _launch_counts()
+
+    a = MultiLayerNetwork(conf).init()
+    run("a_uninterrupted", lambda: a.fit(data, epochs=1, batch_size=rows))
+    want = _host_leaves(a.params)
+    check(a.iteration == n, f"run (a) took {a.iteration} steps")
+    del a
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ckdir = tmp / "ckpt"
+    b = MultiLayerNetwork(conf).init()
+    lis = CheckpointListener(ckdir, save_every_n_iterations=2, keep_last=1)
+    b.set_listeners(lis)
+    install_chaos(f"preempt@iter:{RES_PREEMPT_AT}")
+    preempted = False
+    try:
+        run("b_preempted", lambda: b.fit(data, epochs=1, batch_size=rows))
+    except ChaosPreemption:
+        preempted = True
+        torch.cuda.synchronize()
+        launches["b_preempted"] = _launch_counts()
+    finally:
+        install_chaos(None)
+    check(preempted and b.iteration == RES_PREEMPT_AT,
+          f"run (b) was not preempted at iteration {RES_PREEMPT_AT} ({b.iteration})")
+    saves = [{"seconds": s["seconds"], "bytes": s["size"]} for s in lis.saves]
+    check(len(saves) == RES_PREEMPT_AT // 2 and sorted(os.listdir(ckdir)) == sorted(
+        [f"checkpoint_{len(saves) - 1}_iter_{RES_PREEMPT_AT}_epoch_0.zip",
+         "checkpointInfo.json"]), f"checkpoint directory {sorted(os.listdir(ckdir))}")
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    c = MultiLayerNetwork(conf).init()
+    t_mark = time.perf_counter()
+    run("c_resumed", lambda: c.fit(data, epochs=1, batch_size=rows, resume_from=str(ckdir)))
+    restore_s = _spans_since(t_mark, "checkpoint.restore")
+    breakdown = _checkpoint_breakdown(c, ckdir)
+    got = _host_leaves(c.params)
+    resume_equal = _bits_equal(got, want)
+    resume_diff = _max_diff(got, want)
+    check(c.iteration == n and resume_equal,
+          f"the resumed run differs from the uninterrupted one: iteration {c.iteration}, "
+          f"max |diff| {resume_diff}")
+
+    # (d) skip_batch with spike limit 0: every update is rejected on the card
+    xb = torch.as_tensor(x[:rows], device="cuda")
+    yb = torch.as_tensor(data[1][:rows], device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c._fit_batch(xb, yb, None, None)              # a plain step: the peak without the guard
+    torch.cuda.synchronize()
+    peak_plain = torch.cuda.max_memory_allocated()
+    before = _host_leaves((c.params, c.opt_state))
+    g = DivergenceGuard("skip_batch", spike_limit=0.0)
+    c.set_divergence_guard(g)
+    torch.cuda.reset_peak_memory_stats()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        run("d_skip_batch", lambda: c.fit((x[:rows * 2], data[1][:rows * 2]), epochs=1,
+                                          batch_size=rows))
+    peak_guard = torch.cuda.max_memory_allocated()
+    after = _host_leaves((c.params, c.opt_state))
+    skip_equal = _bits_equal(before, after)
+    check(skip_equal and g.trips == 1,
+          f"skip_batch changed params or updater state (trips {g.trips})")
+    c.set_divergence_guard(None)
+    for name, k in (("a_uninterrupted", n), ("b_preempted", RES_PREEMPT_AT),
+                    ("c_resumed", n - RES_PREEMPT_AT), ("d_skip_batch", 2)):
+        for kern, cnt in launches[name].items():
+            check(cnt == 8 * k, f"{name}: {kern} launched {cnt} times over {k} steps")
+    return {"phase": "resilience_train",
+            "model": {"vocab": V, "T": T, "d_model": FLAGSHIP_CONF["d_model"],
+                      "heads": FLAGSHIP_CONF["n_heads"], "blocks": FLAGSHIP_CONF["n_blocks"],
+                      "dtype": "bfloat16", "params": c.num_params()},
+            "entry": "MultiLayerNetwork.fit with CheckpointListener, install_chaos, "
+                     "resume_from, set_divergence_guard",
+            "rows": rows, "batches": n, "preempt_at": RES_PREEMPT_AT,
+            "checkpoint_saves": saves, "checkpoint_restore_s": restore_s,
+            "checkpoint_breakdown_s": breakdown,
+            "resume_bit_equal": resume_equal, "resume_max_abs_diff": resume_diff,
+            "skip_batch_bit_equal": skip_equal, "guard_trips": g.trips,
+            "peak_bytes_plain_step": peak_plain, "peak_bytes_skip_batch": peak_guard,
+            "guard_extra_peak_bytes": peak_guard - peak_plain,
+            "launches_by_run": launches, "model_obj": c}
+
+
+def remat_train_phase(model, tmp: Path) -> dict:
+    """The same full-width model with DL4J_TPU_REMAT_BLOCKS=1 beside the
+    plain step, in one call: the loss and every parameter gradient of one
+    batch both ways (bit for bit, or per tensor within GRAD_CHECK_REL and
+    the largest difference reported), then per mode
+    a warm step and REMAT_TIMED steps by CUDA events with the peak memory;
+    kernel #1 must launch 16 times a remat step, #2/#3 8 times; then a
+    ProfilerListener window over one remat step, whose trace must name the
+    three flash kernels."""
+    from deeplearning4j_tpu_torch.train.listeners import ProfilerListener
+
+    rows = 16
+    V, T = FLAGSHIP_CONF["vocab_size"], FLAGSHIP_CONF["max_len"]
+    x = np.random.RandomState(32).randint(0, V, (rows, T)).astype(np.int64)
+    xt = torch.as_tensor(x, device="cuda")
+    yt = torch.as_tensor(np.roll(x, -1, axis=1), device="cuda")
+    res = {"phase": "remat_train", "rows": rows, "timed_steps": REMAT_TIMED}
+    losses, grads = {}, {}
+    try:
+        # the same batch, init and generator state both ways: remat reruns
+        # each block's forward (kernel #1, the dropout draws) inside the
+        # backward, so its gradients must be the plain step's
+        gen_state = model._gen.get_state()
+        for mode in ("plain", "remat"):
+            os.environ["DL4J_TPU_REMAT_BLOCKS"] = "1" if mode == "remat" else "0"
+            model._gen.set_state(gen_state)
+            _zero_flash_counts()
+            loss, _, g, _ = model._value_and_grad(model.state, xt, yt, None, None, None)
+            torch.cuda.synchronize()
+            losses[mode] = float(loss)
+            grads[mode] = tree_leaves(g)
+            res[f"launches_one_{mode}_value_and_grad"] = _launch_counts()
+        tol = TOL[torch.bfloat16]
+        check(abs(losses["remat"] - losses["plain"]) <= tol["atol"] * max(
+            1.0, abs(losses["plain"])) and np.isfinite(losses["remat"]),
+              f"remat loss {losses['remat']} vs plain {losses['plain']}")
+        res["loss"] = losses
+        gbits = _bits_equal(grads["remat"], grads["plain"])
+        gdiff = _max_diff(grads["remat"], grads["plain"])
+        # the same kernels in the same order give the same bits; a library
+        # op that sums with atomics may not, and is then held to the bf16
+        # backward's limit, per tensor ||diff|| / ||ref||
+        grel = max(((r.float() - p.float()).norm() / p.float().norm().clamp_min(1e-30)).item()
+                   for r, p in zip(grads["remat"], grads["plain"]))
+        check(all(bool(torch.isfinite(r).all()) for r in grads["remat"])
+              and (gbits or grel <= GRAD_CHECK_REL),
+              f"remat gradients against plain: max |diff| {gdiff}, worst tensor "
+              f"||diff|| / ||ref|| {grel} (limit {GRAD_CHECK_REL})")
+        res["grads"] = {"tensors": len(grads["plain"]), "bit_equal": gbits,
+                        "max_abs_diff": gdiff, "max_rel_norm_diff": grel,
+                        "tol": GRAD_CHECK_REL}
+        del grads, g
+        for mode in ("plain", "remat"):
+            os.environ["DL4J_TPU_REMAT_BLOCKS"] = "1" if mode == "remat" else "0"
+            gc.collect()
+            torch.cuda.empty_cache()
+            model._fit_batch(xt, yt, None, None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_flash_counts()
+            ms = time_cuda(lambda: model._fit_batch(xt, yt, None, None), iters=REMAT_TIMED,
+                           warmup=0)
+            res[mode] = {"step_ms": ms, "tokens_per_s": rows * T / (ms / 1e3),
+                         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                         "launches": _launch_counts()}
+        for mode, per in (("plain", (8, 8, 8)), ("remat", (16, 8, 8))):
+            want = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                            (REMAT_TIMED * k for k in per)))
+            check(res[mode]["launches"] == want,
+                  f"{mode}: launches {res[mode]['launches']} over {REMAT_TIMED} steps, "
+                  f"expected {want}")
+        check(res["remat"]["max_memory_allocated_bytes"]
+              < res["plain"]["max_memory_allocated_bytes"],
+              f"remat did not lower the peak memory: {res['remat']} vs {res['plain']}")
+        # a profiler window over one remat step
+        os.environ["DL4J_TPU_REMAT_BLOCKS"] = "1"
+        it0 = model.iteration
+        lis = ProfilerListener(str(tmp / "trace"), start=it0 + 1, stop=it0 + 2)
+        model.set_listeners(lis)
+        model.fit((np.concatenate([x, x]), np.roll(np.concatenate([x, x]), -1, axis=1)),
+                  epochs=1, batch_size=rows)
+        model.set_listeners()
+        names = {e.get("name", "") for e in json.loads(Path(lis.trace_path).read_text())
+                 .get("traceEvents", []) if e.get("cat") == "kernel"}
+        found = {k: any(k in nm for nm in names)
+                 for k in ("flash_fwd_wgmma_kernel", "flash_bwd_dq", "flash_bwd_dkv")}
+        check(lis.captured and all(found.values()),
+              f"the profiler trace misses flash kernels: {found}")
+        res["profiler"] = {"trace_bytes": Path(lis.trace_path).stat().st_size,
+                           "kernel_names_found": found, "kernel_names": len(names)}
+    finally:
+        os.environ.pop("DL4J_TPU_REMAT_BLOCKS", None)
+    return res
+
+
+class _ParamsEachIteration:
+    """A listener keeping every iteration's params on the host."""
+
+    def __init__(self):
+        self.params = {}
+
+    def on_epoch_start(self, model, epoch):
+        pass
+
+    def on_epoch_end(self, model, epoch):
+        pass
+
+    def iteration_done(self, model, iteration, score, batch_size=0):
+        self.params[iteration] = _host_leaves(model.params)
+
+
+def lstm_resilience_phase(tmp: Path) -> dict:
+    """The char-RNN at the lstm_train configuration (LSTM_CONF: 128 x 50,
+    tBPTT 50, f32, RMSProp 1e-3) through ``fit`` on LSTM_RES_BATCHES batches:
+    a NaN batch (chaos nan_grad) under skip_batch leaves that update's
+    params bit-equal and later updates train; rollback on the same NaN batch
+    (spike limit twice the first loss) restores the last valid checkpoint,
+    halves the rate and carries on; a resume from the middle of an epoch
+    equals the uninterrupted run bit for bit. Kernels #4/#5 counted per
+    path."""
+    from deeplearning4j_tpu_torch.train.checkpoint import CheckpointListener
+    from deeplearning4j_tpu_torch.train.resilience import (
+        ChaosPreemption, DivergenceGuard, install_chaos)
+
+    V, T, B = LSTM_CONF["vocab_size"], LSTM_CONF["timesteps"], LSTM_SHAPE["B"]
+    n = LSTM_RES_BATCHES
+    conf = zoo.TextGenerationLSTM(**LSTM_CONF)
+    ids = np.random.RandomState(33).randint(0, V, (B * n, T))
+    eye = np.eye(V, dtype=np.float32)
+    data = (eye[ids], eye[np.roll(ids, -1, axis=1)])
+    launches, res = {}, {"phase": "lstm_resilience", "batches": n, "batch": B, "T": T}
+    k = 2
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        # NaN batch under skip_batch
+        m = MultiLayerNetwork(conf).init()
+        keep = _ParamsEachIteration()
+        g = DivergenceGuard("skip_batch")
+        m.set_listeners(keep).set_divergence_guard(g)
+        install_chaos(f"nan_grad@iter:{k}")
+        _zero_lstm_counts()
+        try:
+            m.fit(data, epochs=1, batch_size=B)
+        finally:
+            install_chaos(None)
+        torch.cuda.synchronize()
+        launches["nan_skip"] = _lstm_launches()
+        p = keep.params
+        skipped = _bits_equal(p[k + 1], p[k])
+        trained_after = not _bits_equal(p[k + 2], p[k + 1]) and all(
+            bool(torch.isfinite(t).all()) for t in p[n])
+        check(skipped and trained_after and g.trips == 1,
+              f"nan_grad under skip_batch: skipped {skipped}, trained after "
+              f"{trained_after}, trips {g.trips}")
+        res["nan_skip"] = {"nan_at_iteration": k, "update_bit_equal": skipped,
+                           "later_updates_train": trained_after, "trips": g.trips}
+        first_loss = None
+
+        # rollback
+        ck = tmp / "lstm_rollback"
+        m = MultiLayerNetwork(conf).init()
+        first = CollectScoresListener()
+        m.set_listeners(first).fit((data[0][:B], data[1][:B]), epochs=1)
+        first_loss = first.scores[0][1]
+        m = MultiLayerNetwork(conf).init()
+        g = DivergenceGuard("rollback", checkpoint_dir=str(ck), spike_limit=2 * first_loss)
+        m.set_listeners(CheckpointListener(ck, save_every_n_iterations=2, keep_last=2))
+        m.set_divergence_guard(g)
+        install_chaos(f"nan_grad@iter:{k + 1}")
+        _zero_lstm_counts()
+        try:
+            m.fit(data, epochs=1, batch_size=B)
+        finally:
+            install_chaos(None)
+        torch.cuda.synchronize()
+        launches["rollback"] = _lstm_launches()
+        lr = m._updaters[0].spec["lr"]
+        ok = (g.trips == 1 and g.retries == 1 and m._lr_scale == 0.5
+              and abs(lr - 0.5 * conf.updater["lr"]) < 1e-12
+              and m.iteration == n - 2
+              and all(bool(torch.isfinite(t).all()) for t in tree_leaves(m.params)))
+        check(ok, f"rollback: trips {g.trips}, retries {g.retries}, lr_scale {m._lr_scale}, "
+                  f"iteration {m.iteration}")
+        res["rollback"] = {"spike_limit": 2 * first_loss, "nan_at_iteration": k + 1,
+                           "trips": g.trips, "retries": g.retries, "lr_scale": m._lr_scale,
+                           "lr": lr, "final_iteration": m.iteration}
+
+    # mid-epoch resume against the uninterrupted run
+    m = MultiLayerNetwork(conf).init()
+    _zero_lstm_counts()
+    m.fit(data, epochs=1, batch_size=B)
+    torch.cuda.synchronize()
+    launches["uninterrupted"] = _lstm_launches()
+    want = _host_leaves(m.params)
+    ck = tmp / "lstm_resume"
+    m = MultiLayerNetwork(conf).init()
+    m.set_listeners(CheckpointListener(ck, save_every_n_iterations=2, keep_last=1))
+    install_chaos("preempt@iter:3")
+    _zero_lstm_counts()
+    try:
+        m.fit(data, epochs=1, batch_size=B)
+    except ChaosPreemption:
+        pass
+    finally:
+        install_chaos(None)
+    torch.cuda.synchronize()
+    launches["preempted"] = _lstm_launches()
+    r = MultiLayerNetwork(conf).init()
+    _zero_lstm_counts()
+    r.fit(data, epochs=1, batch_size=B, resume_from=str(ck))
+    torch.cuda.synchronize()
+    launches["resumed"] = _lstm_launches()
+    got = _host_leaves(r.params)
+    equal = _bits_equal(got, want)
+    check(r.iteration == n and equal,
+          f"the resumed char-RNN differs: iteration {r.iteration}, "
+          f"max |diff| {_max_diff(got, want)}")
+    res["resume"] = {"preempt_at": 3, "resumed_from_iteration": 2, "bit_equal": equal}
+    for name, steps in (("nan_skip", n), ("rollback", n), ("uninterrupted", n),
+                        ("preempted", 3), ("resumed", n - 2)):
+        check(launches[name] == {"fused_lstm_fwd": 2 * steps, "fused_lstm_bwd": 2 * steps},
+              f"{name}: launches {launches[name]} over {steps} tBPTT chunks")
+    res["launches_by_path"] = launches
+    return res
+
+
+def lenet_runtime_phase() -> dict:
+    """LeNet-5 at bench_lenet5's shape (28 x 28 x 1, batch 256, f32, Adam
+    1e-3), no listeners: ``auto`` chains 8 steps (LENET_STEPS steps)
+    against DL4J_TPU_CHAIN_STEPS=0, without and with the device prefetch
+    (step ms each way by CUDA events, interleaved LENET_REPEATS times; the
+    params' difference, with cuDNN's deterministic algorithms within
+    LENET_CHAIN_TOL); one step under DL4J_TPU_PHASE_SPANS=1; LBFGS
+    with 5 iterations on one batch on the card and on the CPU; an
+    EarlyStoppingTrainer with MaxEpochs(3) and ScoreImprovement(patience=1);
+    evaluate_roc of a 2-class LeNet-5 on the card."""
+    from deeplearning4j_tpu_torch.train import earlystopping as es
+    from deeplearning4j_tpu_torch.train.solvers import Solver
+
+    B = CNN_BATCH
+    x, y = _lenet_images(LENET_STEPS * B, 34)
+    conf = zoo.LeNet5()
+    res = {"phase": "lenet_runtime", "batch": B, "steps": LENET_STEPS}
+    warm = MultiLayerNetwork(conf).init()
+    warm.fit((x[:B], y[:B]), epochs=1)
+    del warm
+    chains = []
+    copy_chain = step_program._copy_chain
+
+    def fit_steps(chain, prefetch="0"):
+        """A fresh LeNet-5 through ``fit`` over LENET_STEPS batches; ms a
+        step by CUDA events around the call, and the chains it copied."""
+        os.environ["DL4J_TPU_CHAIN_STEPS"] = chain
+        os.environ["DL4J_TPU_DEVICE_PREFETCH"] = prefetch
+        m = MultiLayerNetwork(conf).init()
+        del chains[:]
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        m.fit((x, y), epochs=1, batch_size=B)
+        ev[1].record()
+        torch.cuda.synchronize()
+        return m, list(chains), ev[0].elapsed_time(ev[1]) / LENET_STEPS
+
+    modes = {"chained": ("auto", "0"), "per_step": ("0", "0"),
+             "per_step_prefetch": ("0", "1")}
+    step_ms = {k: [] for k in modes}
+    step_program._copy_chain = lambda group, device: (chains.append(len(group)),
+                                                      copy_chain(group, device))[1]
+    try:
+        # the three loops interleaved, LENET_REPEATS times: the host clock
+        # of a shared machine drifts more between runs than these differ
+        for _ in range(LENET_REPEATS):
+            for k, (chain, prefetch) in modes.items():
+                m, got, ms = fit_steps(chain, prefetch)
+                step_ms[k].append(ms)
+                if k == "chained":
+                    mc, mc_chains = m, got
+                elif k == "per_step":
+                    ms_, steps = m, got
+        # the same comparison with cuDNN held to its deterministic algorithms:
+        # chained and per-step must then agree bit for bit
+        torch.backends.cudnn.deterministic = True
+        (dc, dchains, dchain_ms), (ds, _, dstep_ms) = fit_steps("auto"), fit_steps("0")
+    finally:
+        step_program._copy_chain = copy_chain
+        torch.backends.cudnn.deterministic = False
+        os.environ.pop("DL4J_TPU_CHAIN_STEPS", None)
+        os.environ.pop("DL4J_TPU_DEVICE_PREFETCH", None)
+    diff = _max_diff(_host_leaves(mc.params), _host_leaves(ms_.params))
+    det_diff = _max_diff(_host_leaves(dc.params), _host_leaves(ds.params))
+    want_chains = [8] * (LENET_STEPS // 8)
+    # "auto" chained every 8 steps; unset, the variable chains nothing
+    check(mc._chain_k() == 0 and mc_chains == want_chains == dchains and not steps
+          and mc.iteration == LENET_STEPS and det_diff <= LENET_CHAIN_TOL,
+          f"chained LeNet-5: chains {mc_chains}, max |diff| {det_diff} with deterministic "
+          f"cuDNN (limit {LENET_CHAIN_TOL}), {diff} without")
+    res["chain"] = {"k": 8, "chains": mc_chains, "repeats": LENET_REPEATS,
+                    "ms_per_step": step_ms,
+                    "median_ms_per_step": {k: float(np.median(v)) for k, v in step_ms.items()},
+                    "params_max_abs_diff": diff,
+                    "deterministic_cudnn_ms_per_step": {"chained": dchain_ms,
+                                                        "per_step": dstep_ms},
+                    "params_max_abs_diff_deterministic_cudnn": det_diff,
+                    "tol_deterministic_cudnn": LENET_CHAIN_TOL}
+
+    os.environ["DL4J_TPU_PHASE_SPANS"] = "1"
+    try:
+        t_mark = time.perf_counter()
+        ms_.fit((x[:B], y[:B]), epochs=1)
+        spans = {k: [w * 1e3 for w in _spans_since(t_mark, k)]
+                 for k in ("phase.fwd", "phase.bwd", "phase.update", "mln.fit_batch")}
+    finally:
+        os.environ.pop("DL4J_TPU_PHASE_SPANS", None)
+    check(all(len(v) == 1 for v in spans.values()), f"phase spans {spans}")
+    res["phase_spans_ms"] = {k: v[0] for k, v in spans.items()}
+
+    lconf = MultiLayerConfiguration.from_dict(dict(conf.to_dict(), optimization_algo="lbfgs",
+                                                   solver_iterations=5))
+    gpu = MultiLayerNetwork(lconf).init()
+    cpu = params_from_numpy(MultiLayerNetwork(lconf, device="cpu").init(),
+                            params_to_numpy(gpu))
+    batch = (x[:B], y[:B])
+    before = gpu.score(batch)
+    t0 = time.perf_counter()
+    loss_gpu = Solver(gpu, "lbfgs").optimize(batch, iterations=5)
+    torch.cuda.synchronize()
+    lbfgs_s = time.perf_counter() - t0
+    loss_cpu = Solver(cpu, "lbfgs").optimize(batch, iterations=5)
+    pdiff = _max_diff(_host_leaves(gpu.params), tree_leaves(cpu.params))
+    check(loss_gpu < before and abs(loss_gpu - loss_cpu) <= LBFGS_TOL["loss_rtol"] * abs(
+        loss_cpu) and pdiff <= LBFGS_TOL["params_atol"],
+          f"LBFGS: {before} -> {loss_gpu} on the card, {loss_cpu} on the CPU, "
+          f"params max |diff| {pdiff}")
+    res["lbfgs"] = {"iterations": 5, "loss_before": before, "loss_gpu": loss_gpu,
+                    "loss_cpu": loss_cpu, "params_max_abs_diff": pdiff, "tol": LBFGS_TOL,
+                    "gpu_s": lbfgs_s}
+
+    xv, yv = _lenet_images(2 * B, 35)
+    cfg = es.EarlyStoppingConfiguration(
+        epoch_termination_conditions=[es.MaxEpochsTerminationCondition(3),
+                                      es.ScoreImprovementEpochTerminationCondition(patience=1)],
+        score_calculator=es.DataSetLossCalculator((xv, yv), batch_size=B))
+    r = es.EarlyStoppingTrainer(cfg, MultiLayerNetwork(conf).init(), (x[:8 * B], y[:8 * B]),
+                                batch_size=B).fit()
+    check(r.best_model is not None and 1 <= r.total_epochs <= 3
+          and all(np.isfinite(v) for v in r.score_vs_epoch.values()),
+          f"early stopping: {r}")
+    res["early_stopping"] = {"reason": r.termination_reason, "details": r.termination_details,
+                             "best_epoch": r.best_model_epoch, "total_epochs": r.total_epochs,
+                             "score_vs_epoch": r.score_vs_epoch}
+
+    bconf = zoo.LeNet5(num_classes=2)
+    yb2 = np.eye(2, dtype=np.float32)[(x[:4 * B].mean(axis=(1, 2, 3)) > 0.5).astype(int)]
+    bm = MultiLayerNetwork(bconf).init()
+    bm.fit((x[:4 * B], yb2), epochs=1, batch_size=B)
+    roc = bm.evaluate_roc((x[:4 * B], yb2), batch_size=B)
+    auc = roc.calculate_auc()
+    check(np.isfinite(auc) and 0.0 <= auc <= 1.0, f"evaluate_roc AUC {auc}")
+    res["evaluate_roc_auc"] = auc
+    return res
+
+
 def _kernel_row(name, source, replaces, launches, by_path, max_abs_err, ms, plain_ms,
                 bound_ms, bound_by, library_ms, **extra):
     return dict({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2420,6 +3015,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -2484,15 +3080,40 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         glstm = graph_lstm_phase(Path(tmp))
     emit(glstm)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rtrain = resilience_train_phase(Path(tmp))
+        model = rtrain.pop("model_obj")
+        emit(rtrain)
+        remat = remat_train_phase(model, Path(tmp))
+        del model
+    emit(remat)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        lres = lstm_resilience_phase(Path(tmp))
+    emit(lres)
+    emit(lenet_runtime_phase())
 
     fwd_cases = kern["cases"]
     bwd_cases = kern["bwd_cases"]
     tl = trn["launches"]
+
+    def flash_paths(name):
+        by = {f"resilience_train_{run}": n[name]
+              for run, n in rtrain["launches_by_run"].items()}
+        by.update({"remat_train_plain": remat["plain"]["launches"][name],
+                   "remat_train_remat": remat["remat"]["launches"][name]})
+        return by
+
+    fwd_by = dict({"serve": srv["launches"], "train": tl["flash_fwd"]},
+                  **flash_paths("flash_fwd"))
     rows = [_kernel_row(
         "flash_fwd", "deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
         "deeplearning4j_tpu/ops/flash_attention.py:57",
-        srv["launches"] + tl["flash_fwd"],
-        {"serve": srv["launches"], "train": tl["flash_fwd"]},
+        sum(fwd_by.values()), fwd_by,
         fwd_cases[0]["max_abs_err"], t["kernel_ms"], t["plain_ms"], t["bound_ms"],
         t["bound_by"], t["library_ms"],
         max_err=max(c["max_abs_err"] for c in fwd_cases),
@@ -2503,10 +3124,11 @@ def main() -> int:
     for name, key, line, errs in (("flash_bwd_dq", "dq", 224, ("dq",)),
                                   ("flash_bwd_dkv", "dkv", 275, ("dk", "dv"))):
         bk = bt[key]
+        bwd_by = dict({"serve": 0, "train": tl[name]}, **flash_paths(name))
         rows.append(_kernel_row(
             name, "deeplearning4j_tpu_torch/csrc/flash_bwd.cu",
             f"deeplearning4j_tpu/ops/flash_attention.py:{line}",
-            tl[name], {"serve": 0, "train": tl[name]},
+            sum(bwd_by.values()), bwd_by,
             max(bwd_cases[0][f"{e}_max_abs_err"] for e in errs), bk["kernel_ms"],
             bt["plain_ms"], bk["bound_ms"], bk["bound_by"], bt["library_ms"],
             max_err=max(c[f"{e}_max_abs_err"] for c in bwd_cases for e in errs),
@@ -2521,6 +3143,8 @@ def main() -> int:
         by_path = {"lstm_train": ltr["launches"][name], "lstm_sample": lsm["launches"][name]}
         by_path.update({f"graph_lstm_{path}": n[name]
                         for path, n in glstm["launches_by_path"].items()})
+        by_path.update({f"lstm_resilience_{path}": n[name]
+                        for path, n in lres["launches_by_path"].items()})
         rows.append(_kernel_row(
             name, f"deeplearning4j_tpu_torch/csrc/{name}.cu",
             f"deeplearning4j_tpu/ops/fused_lstm.py:{line}",
@@ -2534,6 +3158,7 @@ def main() -> int:
             **({"sampling_B32_T1": lt["sampling_B32_T1"]} if key == "fwd" else {}),
             library=f"torch.nn.LSTM (cuDNN) {key}: the nearest yardstick, not the same "
                     "function (its own input projection, no peepholes or mask)"))
+    emit({"smoke_seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

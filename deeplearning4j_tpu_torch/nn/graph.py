@@ -25,11 +25,14 @@ rows weighted out of the loss and out of BatchNorm's statistics, and runs
 truncated BPTT over the recurrent inputs when the configuration asks for
 it; ``rnn_time_step`` streams one or more steps at a time.
 
-Not ported (each raises or is absent, as for MultiLayerNetwork): chained
-K-step dispatch, the divergence guard and ``fit(resume_from=)`` (ROADMAP
-Queue 1 item 4, with the MultiLayerNetwork's), the data-parallel gradient
-exchange (Queue 1 item 7, the parallel slice) and AOT executable sites
-(Queue 1 item 9).
+The training runtime around ``fit`` is the MultiLayerNetwork's:
+``fit(resume_from=)`` with exact resume, ``set_divergence_guard`` (the
+skip_batch select on the device), the chaos hooks, chained K-step dispatch
+(``DL4J_TPU_CHAIN_STEPS``, off by default), device prefetch on a side stream
+(``DL4J_TPU_DEVICE_PREFETCH=1``, off by default) and ``DataSet`` /
+``MultiDataSet`` input. Not ported: the data-parallel
+gradient exchange (ROADMAP Queue 1 item 7, the parallel slice) and AOT
+executable sites (Queue 1 item 9).
 
 The network lives on one device, chosen at construction: ``device=None``
 means the GPU, and raises when there is none; ``device="cpu"`` must be
@@ -56,6 +59,8 @@ from deeplearning4j_tpu_torch.nn.model import (
     _cast_input,
     _cast_labels,
     _cast_mask,
+    _device_prefetch_enabled,
+    _select,
     resolve_device,
     torch_dtype,
 )
@@ -63,12 +68,15 @@ from deeplearning4j_tpu_torch.nn.preprocessors import infer_preprocessor
 from deeplearning4j_tpu_torch.nn.step_program import (
     accum_applicable,
     accum_value_and_grad,
+    chain_batches,
+    chain_k_from_env,
     grad_accum_from_env,
 )
 from deeplearning4j_tpu_torch.train.listeners import close_listeners
 from deeplearning4j_tpu_torch.train.updaters import (
     apply_gradient_normalization,
     make_updater,
+    scale_lr,
 )
 from deeplearning4j_tpu_torch.utils import bucketing
 from deeplearning4j_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like
@@ -691,6 +699,8 @@ class ComputationGraph:
         self._rnn_carries: Optional[dict] = None
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(conf.seed)
+        self.divergence_guard = None
+        self._lr_scale = 1.0
 
     # -- resolution --------------------------------------------------------
     def _resolve(self):
@@ -762,16 +772,24 @@ class ComputationGraph:
 
     def _build_updaters(self):
         """One updater per vertex: the vertex's own ``updater`` overrides
-        the network default; frozen vertices get ``noop``."""
+        the network default; frozen vertices get ``noop``. Every rate is
+        scaled by ``_lr_scale``, the divergence guard's rollback backoff."""
+        scale = float(getattr(self, "_lr_scale", 1.0))
+        default = scale_lr(self.conf.updater, scale)
         self._updaters = {}
         for name in self.topo_order:
             cfg = self.rt[name].config
             if not getattr(cfg, "trainable", True):
                 self._updaters[name] = make_updater("noop")
             elif getattr(cfg, "updater", None) is not None:
-                self._updaters[name] = make_updater(cfg.updater)
+                self._updaters[name] = make_updater(scale_lr(cfg.updater, scale))
             else:
-                self._updaters[name] = make_updater(self.conf.updater)
+                self._updaters[name] = make_updater(default)
+
+    def uses_rng(self) -> bool:
+        """Does a training step draw randomness (dropout, weight noise)?"""
+        return any(getattr(self.rt[n].config, "uses_rng", lambda: False)()
+                   for n in self.topo_order)
 
     def init_opt_state(self):
         """The per-vertex updater state, built from the params on first use."""
@@ -923,10 +941,13 @@ class ComputationGraph:
             new_carries = tree_map(lambda c: c.detach(), new_carries)
         return loss.detach(), new_state, grads, new_carries
 
-    def _update_params(self, grads):
+    def _update_params(self, grads, ok=None):
         """The per-vertex update (gradient normalization, updater,
         constraints), in place under ``torch.no_grad()``; a vertex without
-        params, or a frozen one, keeps its params and updater state."""
+        params, or a frozen one, keeps its params and updater state. With
+        ``ok`` (the skip_batch guard's device bool) the new values are
+        computed out of place and ``torch.where(ok, new, old)`` is written
+        back."""
         self.init_opt_state()
         new_opt = dict(self.opt_state)
         with torch.no_grad():
@@ -942,11 +963,33 @@ class ComputationGraph:
                 p = self.params[name]
                 upd, new_opt[name] = self._updaters[name].update(
                     g, self.opt_state[name], p, self.iteration)
-                for pi, d in zip(tree_leaves(p), tree_leaves(upd)):
-                    pi.sub_(d)
+                if ok is None:
+                    for pi, d in zip(tree_leaves(p), tree_leaves(upd)):
+                        pi.sub_(d)
+                    if getattr(cfg, "constraints", None):
+                        self.params[name] = apply_constraints(cfg, p)
+                    continue
+                cand = tree_map(lambda a, d: a - d, p, upd)
                 if getattr(cfg, "constraints", None):
-                    self.params[name] = apply_constraints(cfg, p)
+                    cand = apply_constraints(cfg, cand)
+                for pi, c in zip(tree_leaves(p), tree_leaves(cand)):
+                    pi.copy_(torch.where(ok, c, pi))
+                new_opt[name] = _select(ok, new_opt[name], self.opt_state[name])
         self.opt_state = new_opt
+
+    def _apply_step(self, loss, new_state, grads):
+        """Update params, updater state and vertex state from one batch's
+        gradients, under the skip_batch select when that guard is on."""
+        g = self.divergence_guard
+        if g is not None and g.policy == "skip_batch":
+            from deeplearning4j_tpu_torch.train.resilience import guard_ok
+
+            ok = guard_ok(loss, g.spike_limit)
+            self._update_params(grads, ok)
+            self.state = _select(ok, new_state, self.state)
+        else:
+            self._update_params(grads)
+            self.state = new_state
 
     def _step(self, inputs, labels, fmasks, lmasks, ex_weight):
         """One training step on tensors already on the device; returns the
@@ -974,8 +1017,7 @@ class ComputationGraph:
         else:
             loss, new_state, grads, _ = self._value_and_grad(
                 self.state, inputs, labels, fmasks, lmasks, ex_weight)
-        self._update_params(grads)
-        self.state = new_state
+        self._apply_step(loss, new_state, grads)
         self.iteration += 1
         return loss
 
@@ -1080,52 +1122,102 @@ class ComputationGraph:
         self.listeners = list(listeners)
         return self
 
-    def set_divergence_guard(self, guard):
-        raise NotImplementedError(
-            "the divergence guard is not ported to deeplearning4j_tpu_torch yet "
-            "(ROADMAP Queue 1 item 4, the training-resilience slice)")
+    def set_divergence_guard(self, guard) -> "ComputationGraph":
+        """Install a train/resilience.DivergenceGuard (None to remove)."""
+        self.divergence_guard = guard
+        return self
+
+    def _chain_k(self) -> int:
+        """Steps chained per group in fit()'s loop (0 = per step); the
+        MultiLayerNetwork's gate (nn/step_program.py chain_k_from_env)."""
+        return chain_k_from_env(self.uses_rng(), self.num_params())
 
     def fit(self, data, epochs: int = 1, batch_size: Optional[int] = None,
             resume_from=None):
-        """Train on one in-memory batch (minibatched by ``batch_size``; a
-        partial tail is padded to ``batch_size`` rows weighted out of the
-        loss and of BatchNorm's statistics, DL4J_TPU_BUCKETING=0 turns that
-        off), an iterable of batches, or a callable returning a fresh
-        iterable per epoch. Under tBPTT each batch is cut into time chunks
-        instead, one update per chunk."""
-        if resume_from is not None:
-            raise NotImplementedError(
-                "fit(resume_from=...) is not ported to deeplearning4j_tpu_torch yet "
-                "(ROADMAP Queue 1 item 4, the training-resilience slice)")
+        """Train on one in-memory batch or a DataSet / MultiDataSet
+        (minibatched by ``batch_size``; a partial tail is padded to
+        ``batch_size`` rows weighted out of the loss and of BatchNorm's
+        statistics, DL4J_TPU_BUCKETING=0 turns that off), an iterable of
+        batches, or a callable returning a fresh iterable per epoch. Under
+        tBPTT each batch is cut into time chunks instead, one update per
+        chunk.
+
+        ``resume_from``: a CheckpointListener directory; restores the newest
+        valid checkpoint and continues, ``epochs`` the TOTAL budget and the
+        interrupted epoch's used batches skipped (MultiLayerNetwork.fit's
+        contract)."""
+        from deeplearning4j_tpu_torch.train import resilience
+
         if self.params is None:
             self.init()
+        resume_skip = 0
+        if resume_from is not None:
+            if resilience.resume(self, resume_from) is not None:
+                resume_skip = int(self.batch_in_epoch)
+                epochs = max(epochs - self.epoch, 0)
+        guard = self.divergence_guard
         try:
             for _ in range(epochs):
-                self.batch_in_epoch = 0
+                skip_n, resume_skip = resume_skip, 0
+                self.batch_in_epoch = skip_n
                 for lis in self.listeners:
                     lis.on_epoch_start(self, self.epoch)
                 source = data() if callable(data) else data
                 tbptt = (self.conf.backprop_type == "tbptt"
                          and bool(self._time_distributed_inputs()))
+                chain_k = (self._chain_k()
+                           if not (self.listeners or tbptt) and guard is None else 0)
+                # chained batches go to the device in one stacked copy
+                prefetch = (chain_k <= 1 and self.device.type == "cuda"
+                            and _device_prefetch_enabled())
                 pad_target = (self._fit_pad_target_multi(source, batch_size)
-                              if not tbptt and bucketing.bucketing_enabled() else None)
-                for f, l, fm, lm in self._iter_multi(source, batch_size):
-                    n = len(f[0])
-                    ew = None
-                    if pad_target is not None:
-                        f, l, fm, lm, ew = bucketing.pad_fit_multi(
-                            f, l, fm, lm, pad_target, site="cg.fit")
+                              if chain_k <= 1 and not tbptt
+                              and bucketing.bucketing_enabled() else None)
+
+                def batches():
+                    it = self._iter_multi(source, batch_size)
+                    # resume: the interrupted epoch's used batches are
+                    # skipped here, without drawing from the generator
+                    for _ in range(skip_n):
+                        if next(it, None) is None:
+                            return
+                    for f, l, fm, lm in it:
+                        n = len(f[0])   # the real rows, before padding
+                        if pad_target is not None:
+                            yield bucketing.pad_fit_multi(
+                                f, l, fm, lm, pad_target, site="cg.fit") + (n,)
+                        else:
+                            yield (f, l, fm, lm, None, n)
+
+                stream = batches()
+                if chain_k > 1:
+                    stream = chain_batches(
+                        stream, chain_k, self.device,
+                        lambda b: (b[2] is None and b[3] is None and b[4] is None
+                                   and b[1] is not None
+                                   and all(y is not None for y in b[1])))
+                elif prefetch:   # the next batch copied on a side stream
+                    from deeplearning4j_tpu_torch.datasets.iterator import prefetch_to_device
+
+                    stream = prefetch_to_device(stream, device=self.device)
+                for f, l, fm, lm, ew, n_real in stream:
+                    batch = (f, l, fm, lm)
                     with obs.span("cg.fit_batch"):
                         if tbptt:
-                            score = self._fit_tbptt(f, l, fm, lm)
+                            score = self._fit_tbptt(*batch)
                         else:
-                            score = self.fit_batch((f, l, fm, lm), ew=ew)
+                            score = self.fit_batch(batch, ew=ew)
                     self.batch_in_epoch += 1
+                    if guard is not None:
+                        guard.observe(self, score)
                     # the loss stays on the device unless a listener reads it
                     if self.listeners:
                         score = float(score)
+                        resilience.note_score(score)
                         for lis in self.listeners:
-                            lis.iteration_done(self, self.iteration, score, n)
+                            lis.iteration_done(self, self.iteration, score, n_real)
+                if guard is not None:
+                    guard.flush(self)
                 for lis in self.listeners:
                     lis.on_epoch_end(self, self.epoch)
                 self.epoch += 1
@@ -1137,7 +1229,14 @@ class ComputationGraph:
         """One step on one batch (any form ``fit`` takes for a single batch);
         returns the loss as a device scalar. ``ew``: optional per-example
         validity weight."""
+        from deeplearning4j_tpu_torch.train import resilience
+
         f, l, fm, lm = self._as_multi_batch(batch)
+        chaos = resilience.active_chaos()
+        if chaos is not None:
+            chaos.maybe_preempt(self.iteration)
+            chaos.maybe_slow(self.iteration)
+            f = chaos.maybe_nan_batch(self.iteration, f)
         inputs, labels, fms, lms = self._to_device(f, l, fm, lm)
         return self._step(inputs, labels, fms, lms, _cast_mask(ew, self.dtype, self.device))
 
@@ -1147,7 +1246,15 @@ class ComputationGraph:
         into ``tbptt_fwd_length`` chunks, one update per chunk, the carries
         of the recurrent vertices passed on detached. Static inputs are fed
         whole to every chunk (the DuplicateToTimeSeriesVertex case).
-        Returns the mean chunk loss as a device scalar."""
+        Returns the mean chunk loss as a device scalar. The chaos hooks run
+        once per batch (``nan_grad`` poisons the whole batch)."""
+        from deeplearning4j_tpu_torch.train import resilience
+
+        chaos = resilience.active_chaos()
+        if chaos is not None:
+            chaos.maybe_preempt(self.iteration)
+            chaos.maybe_slow(self.iteration)
+            f = chaos.maybe_nan_batch(self.iteration, f)
         inputs, labels, fms, lms = self._to_device(f, l, fm, lm)
         td = set(self._time_distributed_inputs())
         T = max(x.shape[1] for n, x in inputs.items() if n in td)
@@ -1167,8 +1274,7 @@ class ComputationGraph:
                                                  for m in lms)
             loss, new_state, grads, carries = self._value_and_grad(
                 self.state, ic, lc, fmc, lmc, None, carries=carries)
-            self._update_params(grads)
-            self.state = new_state
+            self._apply_step(loss, new_state, grads)
             total = total + loss
             nchunks += 1
             self.iteration += 1

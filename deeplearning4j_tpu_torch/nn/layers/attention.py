@@ -15,19 +15,23 @@ hand-written CUDA kernels (forward, and the dq and dk/dv backward under
 autograd) for CUDA tensors, their plain versions for CPU tensors;
 ``False`` takes ``local_attention``. Attention dropout (``attn_dropout``)
 applies to the attention OUTPUT, as in the JAX package, so it never gates
-the kernels. Sequence parallelism, the
-decode path, block-size env knobs and per-block rematerialisation arrive
-with later slices; ``sequence_parallel`` is kept for serde parity and, as
-in the JAX package without a ``seq`` mesh axis, runs single-device
-attention.
+the kernels. ``DL4J_TPU_REMAT_BLOCKS=1`` (read at each call, as in the
+JAX package) recomputes each TransformerBlock's forward in the backward
+instead of keeping its activations (``torch.utils.checkpoint``,
+non-reentrant), so kernel #1 runs twice a block in a training step.
+Sequence parallelism, the decode path and block-size env knobs arrive with
+later slices; ``sequence_parallel`` is kept for serde parity and, as in the
+JAX package without a ``seq`` mesh axis, runs single-device attention.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from deeplearning4j_tpu_torch.nn import initializers
 from deeplearning4j_tpu_torch.nn.config import LayerConfig, dropout, register_layer
@@ -157,10 +161,36 @@ class TransformerBlock(LayerConfig):
         return layer_norm(x, p["gamma"], p["beta"], self.eps)
 
     def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        if os.environ.get("DL4J_TPU_REMAT_BLOCKS") == "1" and torch.is_grad_enabled():
+            return self._apply_remat(params, x, train, rng, mask), state
+        return self._apply_inner(params, x, train, rng, mask), state
+
+    def _apply_remat(self, params, x, train, rng, mask):
+        """Per-block rematerialisation: the backward recomputes the block's
+        forward from its input instead of keeping its activations. The
+        recompute must draw the same dropout masks, and the model's
+        generator must end where a plain step leaves it: the forward draws
+        from ``rng`` itself, and the recompute from a generator restored to
+        ``rng``'s state on entry. (``preserve_rng_state`` would save only
+        the default generators, not an explicit one.)"""
+        entry = rng.get_state() if rng is not None else None
+        calls = []
+
+        def body(xx):
+            r = rng
+            if calls and rng is not None:   # the recompute
+                r = torch.Generator(device=rng.device)
+                r.set_state(entry)
+            calls.append(1)
+            return self._apply_inner(params, xx, train, r, mask)
+
+        return checkpoint(body, x, use_reentrant=False, preserve_rng_state=False)
+
+    def _apply_inner(self, params, x, train, rng, mask):
         x = self.maybe_dropout_input(x, train, rng)
         h = self._ln(params["ln1"], x)
         a, _ = self._mha().apply(params["attn"], {}, h, train=train, rng=rng, mask=mask)
         x = x + a
         h = self._ln(params["ln2"], x)
         h = self.activation_fn()(h @ params["Wi"] + params["bi"])
-        return x + (h @ params["Wo"] + params["bo"]), state
+        return x + (h @ params["Wo"] + params["bo"])

@@ -378,11 +378,11 @@ class EmbeddingSequence(FeedForwardLayerConfig):
 @register_layer("autoencoder")
 @dataclass
 class AutoEncoder(FeedForwardLayerConfig):
-    """Denoising autoencoder layer (AutoEncoder.java), its supervised path:
-    a Dense encoder act(x @ W + b). ``vb`` [n_in] is the visible bias of the
-    decode path and ``corruption_level`` the input corruption of layer-wise
-    pretraining, which is not ported; both keep the JAX package's params
-    and JSON."""
+    """Denoising autoencoder layer (AutoEncoder.java). Its supervised path
+    is a Dense encoder act(x @ W + b); :meth:`reconstruct` is encode then
+    decode act(h @ W.T + vb) (``vb`` [n_in], the visible bias), on an input
+    whose entries are zeroed with probability ``corruption_level`` during
+    layer-wise pretraining (train/pretrain.py)."""
 
     corruption_level: float = 0.3
     activation: Any = "sigmoid"
@@ -398,3 +398,15 @@ class AutoEncoder(FeedForwardLayerConfig):
     def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         x = self.maybe_dropout_input(x, train, rng)
         return self.activation_fn()(x @ params["W"] + params["b"]), state
+
+    def encode(self, params, x):
+        return self.activation_fn()(x @ params["W"] + params["b"])
+
+    def decode(self, params, h):
+        return self.activation_fn()(h @ params["W"].T + params["vb"])
+
+    def reconstruct(self, params, x, *, rng=None, corrupt=False):
+        if corrupt and rng is not None and self.corruption_level > 0:
+            keep = _bernoulli(rng, 1.0 - self.corruption_level, x.shape, x.device)
+            x = torch.where(keep, x, torch.zeros_like(x))
+        return self.decode(params, self.encode(params, x))

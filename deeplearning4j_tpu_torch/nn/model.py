@@ -15,9 +15,18 @@ padded to the full row count, its padded rows weighted out of the loss),
 and each step is forward, ``torch.autograd.grad`` of the average score
 plus L1/L2 penalties, then per layer gradient normalization, the updater
 and the constraints. Where the JAX step donates its buffers, the port
-updates params in place under ``torch.no_grad()``. ``score`` and
-``evaluate`` are here too. Not ported yet: chained K-step dispatch, the
-non-SGD solvers, resume/divergence guard and phase spans.
+updates params in place under ``torch.no_grad()``. Around the step, as in
+the reference: ``fit(resume_from=)`` (train/resilience.py, exact resume
+from the newest valid checkpoint), ``set_divergence_guard`` (skip_batch
+selects old or new values on the device), the chaos hooks, chained K-step
+dispatch (``DL4J_TPU_CHAIN_STEPS``, off by default; ``auto`` chains small
+models that draw no randomness),
+three synchronised phases under spans (``DL4J_TPU_PHASE_SPANS=1``), device
+prefetch of the next batch on a side stream (``DL4J_TPU_DEVICE_PREFETCH=1``,
+off by default),
+``DataSet`` input, and the non-SGD solvers (train/solvers.py) when
+``optimization_algo`` names one. ``score``, ``evaluate``,
+``evaluate_regression`` and ``evaluate_roc`` are here too.
 
 Recurrent state: layers with a carry (``BaseRecurrent.SUPPORTS_CARRY``)
 take their carries through ``_forward``. With ``backprop_type="tbptt"``
@@ -35,6 +44,7 @@ seeded from ``conf.seed``.
 from __future__ import annotations
 
 import json
+import os
 from dataclasses import dataclass
 from typing import Any, List, Optional, Tuple
 
@@ -50,12 +60,15 @@ from deeplearning4j_tpu_torch.nn.preprocessors import infer_preprocessor
 from deeplearning4j_tpu_torch.nn.step_program import (
     accum_applicable,
     accum_value_and_grad,
+    chain_batches,
+    chain_k_from_env,
     grad_accum_from_env,
 )
 from deeplearning4j_tpu_torch.train.listeners import close_listeners
 from deeplearning4j_tpu_torch.train.updaters import (
     apply_gradient_normalization,
     make_updater,
+    scale_lr,
 )
 from deeplearning4j_tpu_torch.utils import bucketing
 from deeplearning4j_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like
@@ -196,8 +209,10 @@ def _cast_mask(m, dtype: torch.dtype, device: torch.device):
 
 def _as_batch(batch):
     """A batch as (features, labels, features_mask, labels_mask): from an
-    (x, y), (x, y, fmask) or (x, y, fmask, lmask) tuple, or a dict with
-    those keys."""
+    (x, y), (x, y, fmask) or (x, y, fmask, lmask) tuple, a dict with those
+    keys, or a DataSet object."""
+    if hasattr(batch, "as_tuple"):  # datasets.DataSet / MultiDataSet
+        batch = batch.as_tuple()
     if isinstance(batch, dict):
         return (batch["features"], batch.get("labels"),
                 batch.get("features_mask"), batch.get("labels_mask"))
@@ -213,13 +228,16 @@ def _as_batch(batch):
 def _is_arrays(data) -> bool:
     """(x, y[, masks]) arrays rather than an iterable of batches."""
     return (isinstance(data, (tuple, list)) and len(data) >= 2
-            and not isinstance(data[0], (tuple, list, dict)))
+            and not isinstance(data[0], (tuple, list, dict))
+            and not hasattr(data[0], "as_tuple"))   # a list of DataSets
 
 
 def _iter_batches(data, batch_size=None):
-    """Yield (x, y, fmask, lmask) batches from (x, y[, masks]) arrays
-    (minibatched when ``batch_size`` is given, the final partial batch
-    included) or from any iterable of batches."""
+    """Yield (x, y, fmask, lmask) batches from (x, y[, masks]) arrays or a
+    DataSet (minibatched when ``batch_size`` is given, the final partial
+    batch included) or from any iterable of batches."""
+    if hasattr(data, "as_tuple"):  # datasets.DataSet: unpack, then minibatch
+        data = data.as_tuple()
     if _is_arrays(data):
         x, y, fm, lm = _as_batch(data)
         n = len(x)
@@ -239,12 +257,39 @@ def _fit_pad_target(source, batch_size) -> Optional[int]:
     length is not a multiple of ``batch_size`` (the tail is padded up to
     it), else None. Streaming iterables return None: their batch shapes are
     not known up front."""
+    if hasattr(source, "as_tuple"):
+        source = source.as_tuple()
     if batch_size is None or not _is_arrays(source):
         return None
     n = len(source[0])
     if n > batch_size and n % batch_size != 0:
         return batch_size
     return None
+
+
+def _ndim(a) -> int:
+    return a.dim() if isinstance(a, torch.Tensor) else np.ndim(a)
+
+
+def _host(a) -> np.ndarray:
+    """Labels as a host array (a tensor comes back from its device, 16-bit
+    floats as float32)."""
+    if isinstance(a, torch.Tensor):
+        return (a.float() if a.is_floating_point() else a).cpu().numpy()
+    return np.asarray(a)
+
+
+def _device_prefetch_enabled() -> bool:
+    """DL4J_TPU_DEVICE_PREFETCH=1 turns the device prefetch on. Off by
+    default, unlike the JAX package: on the card its thread and page-locked
+    copies made a host-bound LeNet-5 step slower (PERF.md)."""
+    return os.environ.get("DL4J_TPU_DEVICE_PREFETCH", "0") == "1"
+
+
+def _select(ok, new, old):
+    """The skip_batch select over a tree: ``new`` where ``ok`` (a device
+    bool), else ``old``."""
+    return tree_map(lambda n, o: torch.where(ok, n, o), new, old)
 
 
 class MultiLayerNetwork:
@@ -273,6 +318,9 @@ class MultiLayerNetwork:
         self._rnn_carries = None
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(conf.seed)
+        self.divergence_guard = None
+        self._lr_scale = 1.0
+        self._solver = None
 
     # -- resolution: preprocessors + n_in inference + per-layer input types --
     def _resolve_layers(self):
@@ -319,15 +367,28 @@ class MultiLayerNetwork:
 
     def _build_updaters(self):
         """One updater per layer: the layer's own ``updater`` overrides the
-        network default; frozen layers get ``noop``."""
+        network default; frozen layers get ``noop``. Every rate is scaled by
+        ``_lr_scale``, the divergence guard's rollback backoff (1.0 unless
+        a rollback backed it off)."""
+        scale = float(getattr(self, "_lr_scale", 1.0))
+        default = scale_lr(self.conf.updater, scale)
         self._updaters = []
         for l in self.layers:
             if not getattr(l, "trainable", True):
                 self._updaters.append(make_updater("noop"))
             elif getattr(l, "updater", None) is not None:
-                self._updaters.append(make_updater(l.updater))
+                self._updaters.append(make_updater(scale_lr(l.updater, scale)))
             else:
-                self._updaters.append(make_updater(self.conf.updater))
+                self._updaters.append(make_updater(default))
+
+    def set_divergence_guard(self, guard) -> "MultiLayerNetwork":
+        """Install a train/resilience.DivergenceGuard (None to remove)."""
+        self.divergence_guard = guard
+        return self
+
+    def uses_rng(self) -> bool:
+        """Does a training step draw randomness (dropout, weight noise)?"""
+        return any(l.uses_rng() for l in self.layers)
 
     def init_opt_state(self):
         """The per-layer updater state, built from the params on first use."""
@@ -395,13 +456,20 @@ class MultiLayerNetwork:
         the copy, so that the layer's device gather never reads back."""
         if x is None:
             return None
+        t = self._check_host_ids(x)
+        return _cast_input(t, self.dtype, self.device)
+
+    def _check_host_ids(self, x) -> torch.Tensor:
+        """``x`` as a tensor, its ids range-checked when it lies on the host
+        and the first layer embeds ids (a ValueError for an id outside the
+        vocabulary). ``fit`` calls this before its prefetch copies a batch."""
         t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
         first = self.layers[0] if self.layers else None
         if (t.device.type == "cpu" and self.params is not None
                 and hasattr(first, "check_host_ids")):
             ids = t.to(self.dtype) if t.is_floating_point() and t.dtype != torch.float64 else t
             first.check_host_ids(ids, self.params[0]["W"].shape[0])
-        return _cast_input(t, self.dtype, self.device)
+        return t
 
     def feed_forward(self, x, train: bool = False):
         """All layer activations (MultiLayerNetwork.feedForward); with
@@ -445,9 +513,12 @@ class MultiLayerNetwork:
         return (loss.detach(), new_state, tree_unflatten_like(self.params, grads),
                 new_carries)
 
-    def _update_params(self, grads):
+    def _update_params(self, grads, ok=None):
         """The per-layer optimizer update (gradient normalization, updater,
-        constraints), in place under ``torch.no_grad()``."""
+        constraints), in place under ``torch.no_grad()``. With ``ok`` (the
+        skip_batch guard's device bool) each layer's new params and updater
+        state are computed out of place and ``torch.where(ok, new, old)``
+        is written back: a rejected update leaves both as they were."""
         self.init_opt_state()
         new_params, new_opt = [], []
         with torch.no_grad():
@@ -462,14 +533,36 @@ class MultiLayerNetwork:
                     g = apply_gradient_normalization(
                         gn, getattr(layer, "gradient_normalization_threshold", 1.0), g)
                 upd, new_s = u.update(g, self.opt_state[i], p, self.iteration)
-                for pi, d in zip(tree_leaves(p), tree_leaves(upd)):
-                    pi.sub_(d)
-                if getattr(layer, "constraints", None):
-                    p = apply_constraints(layer, p)
+                if ok is None:
+                    for pi, d in zip(tree_leaves(p), tree_leaves(upd)):
+                        pi.sub_(d)
+                    if getattr(layer, "constraints", None):
+                        p = apply_constraints(layer, p)
+                else:
+                    cand = tree_map(lambda a, d: a - d, p, upd)
+                    if getattr(layer, "constraints", None):
+                        cand = apply_constraints(layer, cand)
+                    for pi, c in zip(tree_leaves(p), tree_leaves(cand)):
+                        pi.copy_(torch.where(ok, c, pi))
+                    new_s = _select(ok, new_s, self.opt_state[i])
                 new_params.append(p)
                 new_opt.append(new_s)
         self.params = tuple(new_params)
         self.opt_state = tuple(new_opt)
+
+    def _apply_step(self, loss, new_state, grads):
+        """Update params, updater state and layer state from one batch's
+        gradients, under the skip_batch select when that guard is on."""
+        g = self.divergence_guard
+        if g is not None and g.policy == "skip_batch":
+            from deeplearning4j_tpu_torch.train.resilience import guard_ok
+
+            ok = guard_ok(loss, g.spike_limit)
+            self._update_params(grads, ok)
+            self.state = _select(ok, new_state, self.state)
+        else:
+            self._update_params(grads)
+            self.state = new_state
 
     def _step(self, x, y, fmask, lmask, ex_weight):
         """One training step on tensors already on the device; returns the
@@ -482,7 +575,34 @@ class MultiLayerNetwork:
                 lambda mb, st: self._value_and_grad(st, *mb)[:3])
         else:
             loss, new_state, grads, _ = self._value_and_grad(self.state, *batch)
-        self._update_params(grads)
+        self._apply_step(loss, new_state, grads)
+        self.iteration += 1
+        return loss
+
+    def _fit_batch_phases(self, x, y, fm, lm, ew):
+        """One training step as three synchronised phases under nested
+        ``phase.fwd`` / ``phase.bwd`` / ``phase.update`` spans (inside the
+        caller's ``mln.fit_batch`` span), each ending in
+        ``torch.cuda.synchronize()`` on the card: the forward alone, the
+        forward again with its backward (the price of splitting), then the
+        update. The generator is set back between the two forwards, so both
+        draw the same dropout masks, and the parameter math is the fused
+        step's. A profiling mode (``DL4J_TPU_PHASE_SPANS=1``): the
+        synchronisations forfeit overlap."""
+        sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda: None)
+        gen_state = self._gen.get_state()
+        with obs.span("phase.fwd"):
+            with torch.no_grad():
+                self._loss(self.params, self.state, x, y, fm, lm, self._gen,
+                           ex_weight=ew)
+            sync()
+        self._gen.set_state(gen_state)
+        with obs.span("phase.bwd"):
+            loss, new_state, grads, _ = self._value_and_grad(self.state, x, y, fm, lm, ew)
+            sync()
+        with obs.span("phase.update"):
+            self._update_params(grads)
+            sync()
         self.state = new_state
         self.iteration += 1
         return loss
@@ -492,69 +612,169 @@ class MultiLayerNetwork:
         self.listeners = list(listeners)
         return self
 
-    def fit(self, data, epochs: int = 1, batch_size: Optional[int] = None):
-        """Train. ``data``: (x, y[, fmask[, lmask]]) arrays (minibatched by
-        ``batch_size``), an iterable of such batches, or a callable returning
-        a fresh iterable per epoch. Over arrays whose length is not a
-        multiple of ``batch_size`` the tail batch is padded to
-        ``batch_size`` rows with tiled rows weighted out of the loss
+    def _chain_k(self) -> int:
+        """Steps chained per group in fit()'s loop (0 = per step, the
+        default). DL4J_TPU_CHAIN_STEPS forces a count; "auto" chains 8 only
+        for models that draw no randomness and hold fewer than
+        ``CHAIN_AUTO_PARAM_LIMIT`` params (nn/step_program.py)."""
+        return chain_k_from_env(self.uses_rng(), self.num_params())
+
+    def fit(self, data, epochs: int = 1, batch_size: Optional[int] = None,
+            resume_from=None):
+        """Train. ``data``: (x, y[, fmask[, lmask]]) arrays or a DataSet
+        (minibatched by ``batch_size``), an iterable of such batches, or a
+        callable returning a fresh iterable per epoch. Over arrays whose
+        length is not a multiple of ``batch_size`` the tail batch is padded
+        to ``batch_size`` rows with tiled rows weighted out of the loss
         (DL4J_TPU_BUCKETING=0 turns that off); under tBPTT a 3-D batch is
-        cut into time chunks instead, and its tail is not padded."""
-        if self.conf.optimization_algo not in _SGD_NAMES:
-            raise NotImplementedError(
-                f"optimization_algo={self.conf.optimization_algo!r}: the non-SGD "
-                "solvers are not ported to deeplearning4j_tpu_torch yet")
+        cut into time chunks instead, and its tail is not padded.
+
+        ``resume_from``: a CheckpointListener directory. The newest VALID
+        checkpoint is restored (params, updater and layer state, the
+        generator's state, iteration and epoch, the batch position, the LR
+        scale); ``epochs`` then counts the TOTAL budget (the epochs already
+        done are subtracted) and the interrupted epoch skips the batches it
+        already used, without drawing from the generator, so the resumed
+        run ends with an uninterrupted run's bits.
+
+        Chained steps (``_chain_k``, nn/step_program.py ``chain_batches``)
+        run when no listener and no guard is attached: K batches at a time
+        go to the device in one stacked copy and then through the same
+        per-step path. ``DL4J_TPU_DEVICE_PREFETCH=1`` copies unchained
+        batches on a side stream instead. The loss is read on the host only
+        for listeners and the guard."""
+        from deeplearning4j_tpu_torch.train import resilience
+
         if self.params is None:
             self.init()
+        resume_skip = 0
+        if resume_from is not None:
+            if resilience.resume(self, resume_from) is not None:
+                resume_skip = int(self.batch_in_epoch)
+                epochs = max(epochs - self.epoch, 0)
         tbptt = self.conf.backprop_type == "tbptt"
+        sgd = self.conf.optimization_algo in _SGD_NAMES
+        guard = self.divergence_guard
+        chain_k = self._chain_k() if sgd and not self.listeners and guard is None else 0
+        # chained batches go to the device in one stacked copy
+        prefetch = (sgd and chain_k <= 1 and self.device.type == "cuda"
+                    and _device_prefetch_enabled())
         try:
             for _ in range(epochs):
-                self.batch_in_epoch = 0
+                skip_n, resume_skip = resume_skip, 0
+                self.batch_in_epoch = skip_n
                 for l in self.listeners:
                     l.on_epoch_start(self, self.epoch)
                 source = data() if callable(data) else data
+                # one row count for every batch, the tail padded; the
+                # chained path takes bare (x, y) batches, so it opts out
                 pad_target = (_fit_pad_target(source, batch_size)
-                              if bucketing.bucketing_enabled() else None)
-                for x, y, fm, lm in _iter_batches(source, batch_size):
-                    n = len(x)
-                    chunked = tbptt and np.ndim(x) == 3
-                    ew = None
-                    if pad_target is not None and not chunked:
-                        x, y, fm, lm, ew = bucketing.pad_fit_batch(
-                            x, y, fm, lm, pad_target, site="mln.fit")
+                              if sgd and chain_k <= 1 and bucketing.bucketing_enabled()
+                              else None)
+
+                def batches():
+                    it = _iter_batches(source, batch_size)
+                    # resume: the interrupted epoch's used batches are
+                    # skipped here, before padding and any copy, without
+                    # drawing from the generator (its state is past them)
+                    for _ in range(skip_n):
+                        if next(it, None) is None:
+                            return
+                    for x, y, fm, lm in it:
+                        n = len(x)   # the real rows, before padding
+                        if prefetch or chain_k > 1:
+                            self._check_host_ids(x)
+                        if pad_target is not None and not (tbptt and _ndim(x) == 3):
+                            yield bucketing.pad_fit_batch(
+                                x, y, fm, lm, pad_target, site="mln.fit") + (n,)
+                        else:
+                            yield (x, y, fm, lm, None, n)
+
+                stream = batches()
+                if chain_k > 1:
+                    stream = chain_batches(
+                        stream, chain_k, self.device,
+                        lambda b: (b[2] is None and b[3] is None and b[4] is None
+                                   and not (tbptt and _ndim(b[0]) == 3)))
+                elif prefetch:   # the next batch copied on a side stream
+                    from deeplearning4j_tpu_torch.datasets.iterator import prefetch_to_device
+
+                    stream = prefetch_to_device(stream, device=self.device)
+                for x, y, fm, lm, ew, n_real in stream:
                     with obs.span("mln.fit_batch"):
-                        if chunked:
+                        if not sgd:
+                            score = self._fit_solver(x, y, fm, lm)
+                        elif tbptt and _ndim(x) == 3:
                             score = self._fit_tbptt(x, y, fm, lm)
                         else:
                             score = self._fit_batch(x, y, fm, lm, ew=ew)
                     self.batch_in_epoch += 1
+                    if guard is not None:
+                        guard.observe(self, score)
                     # the loss stays on the device unless a listener reads it
                     if self.listeners:
                         score = float(score)
+                        resilience.note_score(score)
                         for l in self.listeners:
-                            l.iteration_done(self, self.iteration, score, n)
+                            l.iteration_done(self, self.iteration, score, n_real)
+                if guard is not None:
+                    guard.flush(self)
                 for l in self.listeners:
                     l.on_epoch_end(self, self.epoch)
                 self.epoch += 1
         finally:
+            # a run ending inside a ProfilerListener window (normally, or by
+            # an exception or a chaos preemption) must not leak an open trace
             close_listeners(self.listeners)
         return self
 
     def _fit_batch(self, x, y, fm, lm, ew=None):
         """One step on a host or device batch; returns the loss as a device
         scalar. ``ew``: optional per-example validity weight."""
-        return self._step(
-            self._features(x),
-            _cast_labels(y, self.dtype, self.device),
-            _cast_mask(fm, self.dtype, self.device),
-            _cast_mask(lm, self.dtype, self.device),
-            _cast_mask(ew, self.dtype, self.device))
+        from deeplearning4j_tpu_torch.train import resilience
+
+        chaos = resilience.active_chaos()
+        if chaos is not None:
+            chaos.maybe_preempt(self.iteration)
+            chaos.maybe_slow(self.iteration)
+            x = chaos.maybe_nan_batch(self.iteration, x)
+        args = (self._features(x), _cast_labels(y, self.dtype, self.device),
+                _cast_mask(fm, self.dtype, self.device),
+                _cast_mask(lm, self.dtype, self.device),
+                _cast_mask(ew, self.dtype, self.device))
+        if obs.phase_spans_enabled() and self.divergence_guard is None:
+            return self._fit_batch_phases(*args)
+        return self._step(*args)
+
+    def _fit_solver(self, x, y, fm, lm):
+        """A non-SGD ``optimization_algo`` (Solver.java's dispatch):
+        ``conf.solver_iterations`` deterministic solver steps on this batch
+        (train/solvers.py); the Solver is kept on the model across batches.
+        ``iteration`` advances by one."""
+        from deeplearning4j_tpu_torch.train.solvers import Solver
+
+        solver = self._solver
+        if solver is None or solver.algorithm != self.conf.optimization_algo:
+            solver = Solver(self, self.conf.optimization_algo)
+            self._solver = solver
+        loss = solver.optimize((x, y, fm, lm), iterations=self.conf.solver_iterations)
+        self.iteration += 1
+        return loss
 
     def _fit_tbptt(self, x, y, fm, lm):
         """Truncated BPTT (doTruncatedBPTT): cut the time axis into
         ``tbptt_fwd_length`` chunks and take one update per chunk, passing
         the RNN carries on detached. Returns the mean chunk loss as a device
-        scalar; ``iteration`` advances once per chunk."""
+        scalar; ``iteration`` advances once per chunk. The chaos hooks run
+        once per batch; ``nan_grad`` poisons the whole batch here (the JAX
+        package's tBPTT path ignores it)."""
+        from deeplearning4j_tpu_torch.train import resilience
+
+        chaos = resilience.active_chaos()
+        if chaos is not None:
+            chaos.maybe_preempt(self.iteration)
+            chaos.maybe_slow(self.iteration)
+            x = chaos.maybe_nan_batch(self.iteration, x)
         x = self._features(x)
         T, L = x.shape[1], self.conf.tbptt_fwd_length
         y = _cast_labels(y, self.dtype, self.device)
@@ -572,8 +792,7 @@ class MultiLayerNetwork:
                 self.state, x[:, sl], y[:, sl] if y_sliced else y,
                 fm[:, sl] if fm is not None else None,
                 lm[:, sl] if lm is not None else None, None, carries=carries)
-            self._update_params(grads)
-            self.state = new_state
+            self._apply_step(loss, new_state, grads)
             total = total + loss
             nchunks += 1
             self.iteration += 1
@@ -677,9 +896,29 @@ class MultiLayerNetwork:
         ev = Evaluation(top_n=top_n)
         for x, y, fm, lm in _iter_batches(data, batch_size):
             preds = self.output(x, fmask=fm).float().cpu().numpy()
-            y = y.cpu().numpy() if isinstance(y, torch.Tensor) else np.asarray(y)
-            ev.eval(y, preds, mask=self._output_mask(fm, lm))
+            ev.eval(_host(y), preds, mask=self._output_mask(fm, lm))
         return ev
+
+    def evaluate_regression(self, data, batch_size: Optional[int] = None):
+        """Regression metrics (eval/RegressionEvaluation) over ``data``."""
+        from deeplearning4j_tpu_torch.eval import RegressionEvaluation
+
+        ev = RegressionEvaluation()
+        for x, y, fm, lm in _iter_batches(data, batch_size):
+            preds = self.output(x, fmask=fm).float().cpu().numpy()
+            ev.eval(_host(y), preds, mask=self._output_mask(fm, lm))
+        return ev
+
+    def evaluate_roc(self, data, batch_size: Optional[int] = None, num_bins: int = 200):
+        """A binary ROC (eval/ROC) over ``data`` with ``num_bins``
+        probability bins (0: exact)."""
+        from deeplearning4j_tpu_torch.eval import ROC
+
+        roc = ROC(num_bins)
+        for x, y, fm, lm in _iter_batches(data, batch_size):
+            preds = self.output(x, fmask=fm).float().cpu().numpy()
+            roc.eval(_host(y), preds)
+        return roc
 
     @property
     def takes_ids(self) -> bool:

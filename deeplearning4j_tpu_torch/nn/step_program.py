@@ -9,9 +9,18 @@ relevant part of ``nn/step_program.py``).
   step's ``zeros_like(params)`` carry) and are averaged once, so the one
   optimizer update sees the mean of the micro-batch gradients.
 
+- :func:`chain_k_from_env` — the chained-fit gate (``DL4J_TPU_CHAIN_STEPS``,
+  off unless set): how many steps ``fit`` issues back to back from one
+  stacked copy of their batches;
+- :func:`chain_batches` — the chain itself, as a batch source in front of
+  ``fit``'s one per-step loop.
+
 The JAX module's jit/donation wiring has no counterpart: PyTorch runs
 eagerly and the model updates its params in place under
-``torch.no_grad()``. Chained K-step dispatch is not ported yet.
+``torch.no_grad()``. A chain is K eager steps in a row, each drawing from
+the model's generator as the per-step path does, so chaining changes no
+bit of the result (the JAX package's scan folds a per-step key into the
+chain's and is reproducible only for models that draw no randomness).
 """
 
 from __future__ import annotations
@@ -19,11 +28,117 @@ from __future__ import annotations
 import os
 import warnings
 
+import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch import obs
 from deeplearning4j_tpu_torch.utils.tree import tree_leaves, tree_map
 
-__all__ = ["accum_applicable", "accum_value_and_grad", "grad_accum_from_env"]
+__all__ = ["CHAIN_AUTO_PARAM_LIMIT", "accum_applicable", "accum_value_and_grad",
+           "chain_batches", "chain_k_from_env", "grad_accum_from_env"]
+
+# Above this parameter count "auto" never chains: big models are
+# compute-bound, so issuing steps back to back buys nothing and the
+# stacked [K, B, ...] batch only costs memory.
+CHAIN_AUTO_PARAM_LIMIT = 2_000_000
+
+
+def chain_k_from_env(uses_rng: bool, n_params: int) -> int:
+    """The chained-fit gate shared by MultiLayerNetwork and
+    ComputationGraph: DL4J_TPU_CHAIN_STEPS forces a count (0 disables);
+    "auto" chains 8 only for models that draw no randomness and hold fewer
+    than ``CHAIN_AUTO_PARAM_LIMIT`` params, as the JAX package does. Phase
+    spans (DL4J_TPU_PHASE_SPANS=1) turn "auto" off: a chain would hide the
+    per-phase split; an explicit count still wins.
+
+    Unset, the variable means 0 in the port, where the JAX package reads
+    "auto": an eager chain issues the per-step path's kernels and saves
+    only the batch copies, and on an H100 it ran LeNet-5 no faster than
+    the per-step loop (PERF.md)."""
+    env = os.environ.get("DL4J_TPU_CHAIN_STEPS", "0")
+    if env == "auto":
+        if obs.phase_spans_enabled():
+            return 0
+        return 8 if (not uses_rng and n_params < CHAIN_AUTO_PARAM_LIMIT) else 0
+    try:
+        return max(int(env), 0)
+    except ValueError:
+        return 0
+
+
+def _batch_sig(batch):
+    """Shape and dtype of every array of a batch: batches that may share
+    one chain (same-shape batches of different dtypes must not stack)."""
+    if isinstance(batch, (tuple, list)):
+        return tuple(_batch_sig(a) for a in batch)
+    if isinstance(batch, (np.ndarray, torch.Tensor)):
+        return tuple(batch.shape), str(batch.dtype)
+    return None
+
+
+def _stacked(arrays, device: torch.device) -> torch.Tensor:
+    """K same-shape arrays as one [K, ...] tensor on ``device``: stacked
+    on the host into page-locked memory and copied without the host
+    waiting for the card (the caching host allocator keeps the buffer
+    until the copy is done)."""
+    ts = [a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+          for a in arrays]
+    if all(t.device == device for t in ts):
+        return torch.stack(ts)
+    ts = [t.cpu() for t in ts]
+    if device.type != "cuda":
+        return torch.stack(ts).to(device)
+    buf = torch.empty((len(ts),) + tuple(ts[0].shape), dtype=ts[0].dtype, pin_memory=True)
+    torch.stack(ts, out=buf)
+    return buf.to(device, non_blocking=True)
+
+
+def _unstack(group, device: torch.device) -> list:
+    """A group of same-structure batches as the same batches whose arrays
+    are views of one stacked copy each; other leaves pass through."""
+    first = group[0]
+    if isinstance(first, (tuple, list)):
+        cols = [_unstack([b[i] for b in group], device) for i in range(len(first))]
+        return [type(first)(c[j] for c in cols) for j in range(len(group))]
+    if isinstance(first, (np.ndarray, torch.Tensor)):
+        return list(_stacked(group, device).unbind(0))
+    return list(group)
+
+
+def _copy_chain(group, device: torch.device) -> list:
+    """One chain's batches on ``device`` from one copy per array, under a
+    ``fit.chain_copy`` span."""
+    with obs.span("fit.chain_copy", batches=len(group)):
+        return _unstack(group, device)
+
+
+def chain_batches(batches, k: int, device, chainable):
+    """Chained dispatch as a batch source: each run of ``k`` consecutive
+    batches that ``chainable`` accepts and whose arrays share shapes and
+    dtypes goes to ``device`` in one stacked copy per array, and comes out
+    one batch at a time as views of that copy. Any other batch, and a run
+    cut short (the tail), passes through as it came.
+
+    The fit loop runs its one per-step path over whatever this yields, so
+    a chain draws from the model's generator in the per-step order and
+    ends with the per-step path's bits, dropout included. What a chain
+    saves is K-1 of every K batch copies, and with them the host's wait
+    for the card that a copy from pageable memory makes: inside a chain
+    the host reads nothing back and issues the K steps back to back."""
+    device = torch.device(device)
+    group: list = []
+    for b in batches:
+        if chainable(b) and (not group or _batch_sig(b) == _batch_sig(group[0])):
+            group.append(b)
+            if len(group) == k:
+                yield from _copy_chain(group, device)
+                group = []
+            continue
+        yield from group
+        group = []
+        yield b
+    yield from group
+
 
 _GRAD_ACCUM_WARNED = False
 

@@ -39,6 +39,7 @@ __all__ = [
     "histogram",
     "observe_request",
     "observe_shed",
+    "phase_spans_enabled",
     "prometheus_text",
     "recent_spans",
     "registry",
@@ -53,6 +54,15 @@ __all__ = [
 def enabled() -> bool:
     """Master switch (default on). Read per call so tests can flip it."""
     return os.environ.get("DL4J_TPU_OBS", "1") != "0"
+
+
+def phase_spans_enabled() -> bool:
+    """Opt-in phase profiling (DL4J_TPU_PHASE_SPANS=1): the fit loops run a
+    step as forward, backward and update, each synchronised with the device
+    under its own span (``phase.fwd``, ``phase.bwd``, ``phase.update``), so
+    the spans carry real per-phase wall time. Costs overlap: a profiling
+    mode, never the default. Implies enabled()."""
+    return enabled() and os.environ.get("DL4J_TPU_PHASE_SPANS", "0") == "1"
 
 
 # -- metrics ----------------------------------------------------------------

@@ -4,14 +4,16 @@
 Parity: optimize/api/TrainingListener.java + the implementations under
 optimize/listeners/ (ScoreIterationListener, PerformanceListener,
 CollectScoresIterationListener, TimeIterationListener,
-EvaluativeListener). A listener fires on the host after each step with the
-step's loss as a Python float (``fit`` reads the loss from the device only
-when a listener is attached). ProfilerListener is not ported yet.
+EvaluativeListener), and ProfilerListener, a ``torch.profiler`` window. A
+listener fires on the host after each step with the step's loss as a
+Python float (``fit`` reads the loss from the device only when a listener
+is attached).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Callable, List, Optional
 
@@ -23,6 +25,7 @@ __all__ = [
     "ComposedListener",
     "EvaluativeListener",
     "PerformanceListener",
+    "ProfilerListener",
     "ScoreIterationListener",
     "TimeIterationListener",
     "TrainingListener",
@@ -97,6 +100,60 @@ class PerformanceListener(TrainingListener):
             self._last_time = now
             self._last_iter = iteration
             self._samples = 0
+
+
+class ProfilerListener(TrainingListener):
+    """Profile a window of training iterations with ``torch.profiler`` (CPU
+    activities, and CUDA kernels when a card is present) and write a Chrome
+    trace (``trace.json``, chrome://tracing or Perfetto) to ``log_dir``::
+
+        model.set_listeners(ProfilerListener("/tmp/trace", start=10, stop=20))
+
+    The window opens at the first iteration >= ``start`` and closes at the
+    first >= ``stop``; ``profile`` holds the profiler afterwards
+    (``key_averages()``), ``trace_path`` the file."""
+
+    def __init__(self, log_dir: str, start: int = 10, stop: int = 20):
+        if stop <= start:
+            raise ValueError("stop must be > start")
+        self.log_dir = str(log_dir)
+        self.start = start
+        self.stop = stop
+        self._active = False
+        self.captured = False
+        self.profile = None
+        self.trace_path: Optional[str] = None
+
+    def iteration_done(self, model, iteration, score, batch_size=0):
+        if not self._active and not self.captured and iteration >= self.start:
+            import torch
+
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.profile = torch.profiler.profile(activities=acts)
+            self.profile.__enter__()
+            self._active = True
+        elif self._active and iteration >= self.stop:
+            self._finish()
+
+    def _finish(self):
+        import torch
+
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self.profile.__exit__(None, None, None)
+        self._active = False
+        self.captured = True
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.trace_path = os.path.join(self.log_dir, "trace.json")
+        self.profile.export_chrome_trace(self.trace_path)
+
+    def close(self):
+        """Stop an open window (training ended inside it). Epoch ends do not
+        stop it: a window may span epochs."""
+        if self._active:
+            self._finish()
 
 
 class CollectScoresListener(TrainingListener):

@@ -158,16 +158,30 @@ class BucketTelemetry:
         self._real = reg.counter(
             "dl4j_bucketing_real_examples_total",
             "real rows dispatched through bucketed paths")
+        self._guard = reg.counter(
+            "dl4j_guard_events_total",
+            "divergence-guard events (invalid_score, warn/skip_batch/"
+            "rollback trips, rollback_restore)", ("event",))
 
     def reset(self):
         with self._lock:
-            for fam in (self._hits, self._padded, self._real):
+            for fam in (self._hits, self._padded, self._real, self._guard):
                 fam.clear()
 
     def record_hit(self, site: str, n: int, bucket: int):
         self._hits.inc(site=site, bucket=bucket)
         self._real.inc(n)
         self._padded.inc(max(bucket - n, 0))
+
+    def record_guard(self, event: str):
+        """Count one divergence-guard event (``invalid_score``, a policy trip
+        ``warn``/``skip_batch``/``rollback``, or ``rollback_restore``;
+        train/resilience.py)."""
+        self._guard.inc(event=event)
+
+    @property
+    def guard_events(self) -> Dict[str, int]:
+        return {k[0]: int(v) for k, v in self._guard.as_dict().items()}
 
     @property
     def bucket_hits(self) -> Dict[Tuple[str, int], int]:
@@ -193,6 +207,7 @@ class BucketTelemetry:
                             for (s, b), c in sorted(self.bucket_hits.items())},
             "padded_examples": self.padded_examples,
             "real_examples": self.real_examples,
+            "guard": self.guard_events,
         }
 
 

@@ -18,10 +18,19 @@ npz stores as raw 2-byte ``<V2`` records. The port reads any 2-byte void
 leaf as bf16 bits and writes its bf16 leaves in that same layout, header
 included, without needing ``ml_dtypes``.
 
-``trainState.json`` (a full-state checkpoint's RNG key, batch position and
-LR scale) and ``residuals.npz`` are read by the JAX package's resume path
-only: the RNG key is a JAX PRNG key, which a ``torch.Generator`` cannot
-take, so the port ignores both entries.
+Full-state checkpoints (train/resilience.py) add ``trainState.json``: the
+batch position in the epoch, the LR scale, a telemetry snapshot and the
+model generator's state. The port writes that state under
+``"torch_rng"`` (its bytes) and ``"torch_rng_device"``, never under
+``"rng"``, which the JAX package reads as its JAX PRNG key; each package
+restores the other's batch position and LR scale, and neither can take the
+other's random stream (the port warns once when a model that draws
+randomness loads a JAX key). ``residuals.npz`` (the JAX package's
+data-parallel residuals) is not read.
+
+Leaves on the card are copied to the host as raw bytes through one
+page-locked buffer, bf16 as its bits (``serve/scheduler.py`` ``_to_host``
+does the same for outputs), and every entry is stored, not deflated.
 
 No pickle anywhere: configs are JSON, tensors are npz.
 """
@@ -31,6 +40,7 @@ from __future__ import annotations
 import io
 import json
 import os
+import warnings
 import zipfile
 from typing import Optional
 
@@ -48,34 +58,56 @@ STATE_ENTRY = "state.npz"
 UPDATER_ENTRY = "updaterState.npz"
 META_ENTRY = "meta.json"
 NORMALIZER_ENTRY = "normalizer.json"
+TRAIN_STATE_ENTRY = "trainState.json"
 # npz entries are stored, not deflated: float leaves barely compress, and
 # deflating the gigabytes of a large model's params and Adam moments takes
 # minutes (either package reads both methods)
 _STORED = zipfile.ZIP_STORED
 
 
-def _npy_bytes(t: torch.Tensor) -> bytes:
-    """One leaf as .npy bytes; bf16 as raw 2-byte records under the
+class _HostStage:
+    """One host buffer that every leaf on the card passes through on its way
+    to the file, page-locked when a card is present and grown to the
+    largest leaf."""
+
+    def __init__(self):
+        self._buf: Optional[torch.Tensor] = None
+
+    def bytes_of(self, t: torch.Tensor) -> memoryview:
+        raw = t.reshape(-1).view(torch.uint8)
+        if t.device.type == "cpu":
+            return memoryview(raw.numpy())
+        n = raw.numel()
+        if self._buf is None or self._buf.numel() < n:
+            self._buf = torch.empty(n, dtype=torch.uint8,
+                                    pin_memory=torch.cuda.is_available())
+        host = self._buf[:n]
+        host.copy_(raw)
+        return memoryview(host.numpy())
+
+
+def _write_npy(f, t: torch.Tensor, stage: _HostStage) -> None:
+    """One leaf as .npy: the header, then the raw bytes; bf16 under the
     ``<V2`` descr that numpy gives ``ml_dtypes.bfloat16``."""
-    t = t.detach().cpu().contiguous()
-    buf = io.BytesIO()
-    if t.dtype == torch.bfloat16:
-        raw = t.view(torch.int16).numpy()
-        np.lib.format.write_array_header_1_0(
-            buf, {"descr": "<V2", "fortran_order": False, "shape": tuple(raw.shape)})
-        buf.write(raw.tobytes())
-    else:
-        np.lib.format.write_array(buf, t.numpy(), allow_pickle=False)
-    return buf.getvalue()
+    t = t.detach().contiguous()
+    descr = "<V2" if t.dtype == torch.bfloat16 else np.dtype(
+        str(t.dtype).replace("torch.", "")).str
+    hdr = io.BytesIO()
+    np.lib.format.write_array_header_1_0(
+        hdr, {"descr": descr, "fortran_order": False, "shape": tuple(t.shape)})
+    f.write(hdr.getvalue())
+    if t.numel():
+        f.write(stage.bytes_of(t))
 
 
-def _tree_to_npz_bytes(tree) -> bytes:
+def _tree_to_npz_bytes(tree, stage: Optional[_HostStage] = None) -> bytes:
     """``np.savez``'s layout (stored, not deflated) over the tree's leaves."""
+    stage = stage or _HostStage()
     buf = io.BytesIO()
     with zipfile.ZipFile(buf, "w", zipfile.ZIP_STORED, allowZip64=True) as zf:
         for i, leaf in enumerate(tree_leaves(tree)):
             with zf.open(f"leaf_{i}.npy", "w", force_zip64=True) as f:
-                f.write(_npy_bytes(leaf))
+                _write_npy(f, leaf, stage)
     return buf.getvalue()
 
 
@@ -110,7 +142,7 @@ def _atomic_write_zip(path, write_entries) -> None:
     directory = os.path.dirname(os.path.abspath(target))
     tmp = target + ".tmp"
     with open(tmp, "wb") as f:
-        with zipfile.ZipFile(f, "w", zipfile.ZIP_DEFLATED) as zf:
+        with zipfile.ZipFile(f, "w", _STORED, allowZip64=True) as zf:
             write_entries(zf)
         f.flush()
         os.fsync(f.fileno())
@@ -123,11 +155,13 @@ def _atomic_write_zip(path, write_entries) -> None:
 
 
 def save_network(model, path, save_updater: bool = True,
-                 normalizer: Optional[dict] = None):
+                 normalizer: Optional[dict] = None,
+                 train_state: Optional[dict] = None):
     """Write a MultiLayerNetwork or a ComputationGraph to a zip (a path,
     written atomically, or a writable file object). ``updaterState.npz`` is written once the model
     has optimizer state; a reader of a zip without it starts from a fresh
-    updater state, which is what an untrained model's would be."""
+    updater state, which is what an untrained model's would be.
+    ``train_state`` adds ``trainState.json`` (see train/resilience.py)."""
     meta = {
         "framework": "deeplearning4j_tpu_torch",
         "format_version": 1,
@@ -135,28 +169,31 @@ def save_network(model, path, save_updater: bool = True,
         "epoch": getattr(model, "epoch", 0),
         "model_class": type(model).__name__,
     }
+    stage = _HostStage()
 
     def write_entries(zf):
         zf.writestr(CONFIG_ENTRY, model.conf.to_json(indent=2))
-        zf.writestr(COEFFICIENTS_ENTRY, _tree_to_npz_bytes(model.params), _STORED)
-        zf.writestr(STATE_ENTRY, _tree_to_npz_bytes(model.state), _STORED)
+        zf.writestr(COEFFICIENTS_ENTRY, _tree_to_npz_bytes(model.params, stage))
+        zf.writestr(STATE_ENTRY, _tree_to_npz_bytes(model.state, stage))
         if save_updater and model.opt_state is not None:
-            zf.writestr(UPDATER_ENTRY, _tree_to_npz_bytes(model.opt_state), _STORED)
+            zf.writestr(UPDATER_ENTRY, _tree_to_npz_bytes(model.opt_state, stage))
         if normalizer is not None:
             zf.writestr(NORMALIZER_ENTRY, json.dumps(normalizer))
+        if train_state is not None:
+            zf.writestr(TRAIN_STATE_ENTRY, json.dumps(train_state))
         zf.writestr(META_ENTRY, json.dumps(meta))
 
     if isinstance(path, (str, os.PathLike)):
         _atomic_write_zip(path, write_entries)
     else:
-        with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
+        with zipfile.ZipFile(path, "w", _STORED, allowZip64=True) as zf:
             write_entries(zf)
     return path
 
 
 def read_snapshot(path, load_updater: bool = True) -> dict:
-    """Every entry the port reads, as plain host data: the config dict, meta
-    and the leaf lists."""
+    """Every entry the port reads, as plain host data: the config dict, meta,
+    the leaf lists and the train state (None when absent)."""
     with zipfile.ZipFile(path, "r") as zf:
         names = set(zf.namelist())
 
@@ -169,12 +206,15 @@ def read_snapshot(path, load_updater: bool = True) -> dict:
             "coeff": leaves(COEFFICIENTS_ENTRY),
             "state": leaves(STATE_ENTRY),
             "upd": leaves(UPDATER_ENTRY, load_updater),
+            "train_state": (json.loads(zf.read(TRAIN_STATE_ENTRY))
+                            if TRAIN_STATE_ENTRY in names else None),
         }
 
 
 def apply_snapshot(model, snap: dict, load_updater: bool = True):
     """Apply a :func:`read_snapshot` result onto an initialized model:
-    params, state, optimizer state, iteration and epoch."""
+    params, state, optimizer state, iteration and epoch, and the train
+    state when the zip holds one."""
     model.params = _restore_tree_like(model.params, snap["coeff"])
     if snap["state"] is not None:
         model.state = _restore_tree_like(model.state, snap["state"])
@@ -183,7 +223,42 @@ def apply_snapshot(model, snap: dict, load_updater: bool = True):
     meta = snap["meta"]
     model.iteration = meta.get("iteration", 0)
     model.epoch = meta.get("epoch", 0)
+    if snap.get("train_state"):
+        _apply_train_state(model, snap["train_state"])
     return model
+
+
+_JAX_KEY_WARNED = False
+
+
+def _apply_train_state(model, ts: dict) -> None:
+    """The batch position, the LR scale (the updaters are rebuilt when it
+    changes) and, from a port zip written on the same kind of device, the
+    generator's state."""
+    global _JAX_KEY_WARNED
+    gen = getattr(model, "_gen", None)
+    rng = ts.get("torch_rng")
+    if rng is not None and gen is not None:
+        if ts.get("torch_rng_device") == gen.device.type:
+            gen.set_state(torch.tensor(rng, dtype=torch.uint8))
+        else:
+            warnings.warn(
+                f"trainState.json holds a {ts.get('torch_rng_device')} generator "
+                f"state and the model's generator is on {gen.device.type}: the "
+                "random stream is not restored")
+    elif ts.get("rng") is not None and not _JAX_KEY_WARNED and getattr(
+            model, "uses_rng", lambda: False)():
+        _JAX_KEY_WARNED = True
+        warnings.warn(
+            "trainState.json holds a JAX PRNG key, which a torch.Generator "
+            "cannot take: the model's random stream (dropout, noise) is not "
+            "restored; everything else is")
+    model.batch_in_epoch = int(ts.get("batch_in_epoch", 0))
+    scale = float(ts.get("lr_scale", 1.0))
+    prev = float(getattr(model, "_lr_scale", 1.0))
+    model._lr_scale = scale
+    if scale != prev and hasattr(model, "_build_updaters"):
+        model._build_updaters()
 
 
 def restore_network(path, load_updater: bool = True, device=None):

@@ -938,3 +938,123 @@ def test_resnet50_step_on_the_card_matches_the_cpu(cuda):
     for tree_g, tree_c in ((gpu.params, cpu.params), (gpu.state, cpu.state)):
         for a, b in zip(tree_leaves(tree_g), tree_leaves(tree_c)):
             torch.testing.assert_close(a.cpu(), b, rtol=1e-8, atol=1e-9 * b.abs().max().item())
+
+
+# -- the training runtime on the card (remat, the guard, resume, prefetch) ----
+
+def _tiny_lm(dev, dropout, dtype="float32"):
+    import dataclasses
+
+    conf = zoo.TransformerLM(vocab_size=64, max_len=32, d_model=64, n_heads=2, n_blocks=2,
+                             dtype=dtype)
+    conf = dataclasses.replace(conf, layers=tuple(
+        dataclasses.replace(l, dropout=dropout) if type(l).__name__ == "TransformerBlock"
+        else l for l in conf.layers))
+    return MultiLayerNetwork(conf, device=dev).init()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_remat_gradients_equal_plain_ones_with_dropout_on_the_card(cuda, dtype, monkeypatch):
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.utils.tree import tree_leaves
+
+    ids = torch.as_tensor(np.random.RandomState(0).randint(0, 64, (4, 32)), device=cuda)
+    out = []
+    for remat in ("0", "1"):
+        monkeypatch.setenv("DL4J_TPU_REMAT_BLOCKS", remat)
+        m = _tiny_lm(cuda, 0.2, dtype)
+        n0 = fa.flash_fwd_cuda.launches
+        loss, _, grads, _ = m._value_and_grad(m.state, ids, ids.roll(-1, 1), None, None, None)
+        torch.cuda.synchronize()
+        out.append((loss, tree_leaves(grads), m._gen.get_state(),
+                    fa.flash_fwd_cuda.launches - n0))
+    assert torch.equal(out[0][0], out[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+    assert torch.equal(out[0][2], out[1][2])
+    assert (out[0][3], out[1][3]) == (2, 4)   # kernel #1 runs again in each block's recompute
+
+
+def test_skip_batch_leaves_params_bit_equal_on_the_card(cuda):
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.train.resilience import DivergenceGuard
+    from deeplearning4j_tpu_torch.utils.tree import tree_leaves
+
+    m = _tiny_lm(cuda, 0.0)
+    ids = np.random.RandomState(1).randint(0, 64, (4, 32))
+    m.fit((ids, np.roll(ids, -1, 1)), epochs=1)
+    before = [t.clone() for t in tree_leaves((m.params, m.opt_state))]
+    m.set_divergence_guard(DivergenceGuard("skip_batch", spike_limit=0.0))
+    n0 = fa.flash_bwd_dq_cuda.launches
+    m.fit((ids, np.roll(ids, -1, 1)), epochs=2)
+    assert fa.flash_bwd_dq_cuda.launches - n0 == 4
+    assert all(torch.equal(a, b) for a, b in zip(before, tree_leaves((m.params, m.opt_state))))
+
+
+def test_small_resume_is_bit_exact_on_the_card(cuda, tmp_path):
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.train.checkpoint import CheckpointListener
+    from deeplearning4j_tpu_torch.train.resilience import ChaosPreemption, install_chaos
+    from deeplearning4j_tpu_torch.utils.tree import tree_leaves
+
+    ids = np.random.RandomState(2).randint(0, 64, (24, 32))
+    data = (ids, np.roll(ids, -1, 1))
+    cont = _tiny_lm(cuda, 0.1)
+    cont.fit(data, epochs=2, batch_size=4)            # 12 steps, dropout drawn on the card
+    m = _tiny_lm(cuda, 0.1)
+    m.set_listeners(CheckpointListener(tmp_path, save_every_n_iterations=3, keep_last=1))
+    install_chaos("preempt@iter:8")
+    try:
+        with pytest.raises(ChaosPreemption):
+            m.fit(data, epochs=2, batch_size=4)
+    finally:
+        install_chaos(None)
+    r = _tiny_lm(cuda, 0.1)
+    r.fit(data, epochs=2, batch_size=4, resume_from=tmp_path)
+    assert r.iteration == 12
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves((cont.params, cont.opt_state)),
+                                                 tree_leaves((r.params, r.opt_state))))
+    assert torch.equal(cont._gen.get_state(), r._gen.get_state())
+
+
+def test_prefetch_on_a_side_stream_gives_the_batches_unchanged(cuda):
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets import prefetch_to_device
+
+    rs = np.random.RandomState(3)
+    batches = [(rs.randn(64, 128).astype(np.float32), rs.randint(0, 9, 64), None)
+               for _ in range(12)]
+    seen = []
+    for x, y, none in prefetch_to_device(iter(batches), depth=2, device=cuda):
+        assert x.device.type == "cuda" and none is None
+        # compute on the consumer's stream while later copies are in flight
+        seen.append(((x * 2).sum().item(), x.cpu().numpy(), y.cpu().numpy()))
+    assert len(seen) == 12
+    for (s, x, y), (hx, hy, _) in zip(seen, batches):
+        np.testing.assert_array_equal(x, hx)
+        np.testing.assert_array_equal(y, hy)
+
+
+def test_chained_batches_reach_the_card_unchanged(cuda):
+    """A chain's stacked copy from page-locked memory, not waited for: the
+    batches that come out equal the host's, in order."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.nn.step_program import chain_batches
+
+    rs = np.random.RandomState(4)
+    batches = [(rs.randn(64, 128).astype(np.float32), rs.randint(0, 9, 64), None, 64)
+               for _ in range(11)]
+    got = list(chain_batches(iter(batches), 4, cuda, lambda b: True))
+    assert len(got) == 11
+    for (x, y, none, n), (hx, hy, _, hn) in zip(got, batches):
+        assert none is None and n == hn
+        if isinstance(x, torch.Tensor):
+            assert x.device.type == "cuda"
+            x, y = x.cpu().numpy(), y.cpu().numpy()
+        np.testing.assert_array_equal(x, hx)
+        np.testing.assert_array_equal(y, hy)
+    assert all(isinstance(b[0], torch.Tensor) for b in got[:8])   # two chains, a tail of 3

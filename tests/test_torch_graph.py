@@ -557,10 +557,18 @@ def test_wrapped_rnn_refuses_streaming():
 def test_unported_training_options_raise_naming_their_slice():
     m = ComputationGraph(ComputationGraphConfiguration.from_json(_residual().to_json()),
                          device="cpu").init()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    # resume and the divergence guard are ported (the training-runtime
+    # slice): an empty directory warns and trains from the current state
+    from deeplearning4j_tpu_torch.train import resilience
+
+    with pytest.warns(UserWarning, match="no valid checkpoint"):
         m.fit(_batch("residual", 4, 0), resume_from="somewhere")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        m.set_divergence_guard(object())
+    assert m.iteration == 1
+    guard = resilience.DivergenceGuard("warn")
+    assert m.set_divergence_guard(guard).divergence_guard is guard
+    # the distributed chaos faults still wait for the parallel slice
+    with pytest.raises(ValueError, match="parallel slice"):
+        resilience.ChaosInjector.parse("host_kill@iter:1")
 
 
 # -- zips, clone, summary -------------------------------------------------------
