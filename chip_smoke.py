@@ -177,6 +177,31 @@ non-zero (and without a result line when no CUDA device is present):
    an EarlyStoppingTrainer with MaxEpochs(3) and ScoreImprovement(patience=1);
    evaluate_roc of a 2-class LeNet-5 on the card.
 
+21. chunk_kernel — the chunk entries flash_attention_block(_grad)
+   (kernels #1-#3 with Tq != Tk, absolute offsets and an lse cotangent)
+   against their plain versions: the ring's diagonal block (B16 H16 D128,
+   512 x 512, causal) in bf16, f32 and f16, its off-diagonal block, a
+   shifted diagonal (512 queries at 1536 over 1536 keys at 512, bf16 and
+   f32), a chunk wholly in the future (lse <= -1e29, gradients exactly 0),
+   a kmask of zeros, varlen kmasks, D = 64, the wide-head route (D = 320;
+   D = 3072 in column groups); every case repeated bit for bit; then the
+   diagonal and off-diagonal blocks timed, forward and forward + backward,
+   beside their bounds, the plain versions and
+   aten._scaled_dot_product_flash_attention.
+22. ring_attention — the flash ring (parallel/ring.py _ring_flash_shard)
+   at B16 T2048 H16 D128 bf16 causal in 4 shards of 512, run once per
+   shard in one process: 16 launches of each chunk kernel (the slice's
+   main path on one card), output and dq/dk/dv against flash_attention
+   over the whole sequence, the plain reference (per tensor and per 64-row
+   tile) and the einsum ring, with and without a varlen kmask; the ring's
+   time beside the whole-sequence kernels'.
+23. ring_train — ShardedTrainer on a world-size-1 NCCL group over the card
+   (init_distributed, make_mesh): the phase 5 TransformerLM with
+   sequence_parallel=True, 3 Adam steps on 16 x 2048 tokens against
+   MultiLayerNetwork._fit_batch from the same params (bit for bit, else
+   within GRAD_CHECK_REL), 8 launches of each of kernels #1-#3 a step, the
+   step time beside the plain step's.
+
 It ends with the command time, the kernels line (launches of each kernel
 by path, the new phases' included), the card's name and power limit, and
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -3001,6 +3026,420 @@ def lenet_runtime_phase() -> dict:
     return res
 
 
+# -- phases 21-23: the chunk entries, the ring, the sharded trainer -----------
+
+# the ring's blocks at the TransformerLM's attention shape: B16 H16 D128,
+# T 2048 cut into RING_SHARDS shards of 512
+RING = dict(B=16, T=2048, H=16, D=128, shards=4)
+# the einsum ring (use_flash=False) computes its scores in the operand
+# dtype, as the JAX package's does: in bf16 its 64-row tiles sit ~1e-2 from
+# the f32 plain version (the kernels: ~5e-3), so the flash ring is held to
+# it, and it to the plain version, per tile within twice the kernels' limit
+RING_EINSUM_TILE_REL = 2 * BWD_BF16_TILE_REL
+
+
+def chunk_pairs(Tq, Tk, q_offset, k_offset, causal) -> int:
+    """The (query, key) pairs a chunk's causal mask keeps (all Tq * Tk
+    without one): query q sees keys k <= q + q_offset - k_offset."""
+    if not causal:
+        return Tq * Tk
+    seen = np.clip(np.arange(Tq) + q_offset - k_offset + 1, 0, Tk)
+    return int(seen.sum())
+
+
+def chunk_bound(B, Tq, Tk, H, D, pairs, elem_bytes, peak, with_bwd):
+    """(bound_ms, bound_by) of a chunk entry: its products over the kept
+    pairs (the forward's two; with the backward, its five more: S and dP
+    again, dQ, dK, dV) and its inputs read once and outputs written once
+    (q, k, v in, out and lse out; with the backward also do and dlse in,
+    dq, dk and dv out)."""
+    flops = (2 + 2 + (10 if with_bwd else 0)) * B * H * pairs * D
+    q_side, k_side = B * Tq * H * D * elem_bytes, B * Tk * H * D * elem_bytes
+    nbytes = 2 * q_side + 2 * k_side + 4.0 * B * H * Tq
+    if with_bwd:
+        nbytes += 2 * q_side + 2 * k_side + 4.0 * B * H * Tq
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _chunk_operands(case):
+    B, Tq, Tk, H, D, dt = (case[k] for k in ("B", "Tq", "Tk", "H", "D", "dtype"))
+    g = torch.Generator(device="cuda").manual_seed(case["seed"])
+    q = torch.randn(B, Tq, H, D, generator=g, device="cuda").to(dt)
+    k, v = (torch.randn(B, Tk, H, D, generator=g, device="cuda").to(dt) for _ in range(2))
+    do = torch.randn(B, Tq, H, D, generator=g, device="cuda").to(dt)
+    dlse = torch.randn(B, H, Tq, generator=g, device="cuda")
+    km = None
+    if case.get("kmask") == "varlen":
+        km = varlen_mask(B, Tk, case["seed"])
+    elif case.get("kmask") == "zeros":
+        km = torch.zeros(B, Tk, device="cuda")
+    return q, k, v, km, do, dlse
+
+
+def _chunk_rows(case, km):
+    """[B, Tq] bool: the query rows of a chunk with at least one valid key."""
+    B, Tq, Tk = case["B"], case["Tq"], case["Tk"]
+    ok = torch.ones(Tq, Tk, dtype=torch.bool, device="cuda")
+    if case["causal"]:
+        ok = ((case["k_offset"] + torch.arange(Tk, device="cuda"))[None]
+              <= (case["q_offset"] + torch.arange(Tq, device="cuda"))[:, None])
+    ok = ok[None].expand(B, Tq, Tk)
+    if km is not None:
+        ok = ok & (km[:, None, :] > 0)
+    return ok.any(-1)
+
+
+def compare_chunk(case: dict) -> dict:
+    """flash_attention_block and flash_attention_block_grad (kernels #1-#3
+    with Tq, Tk and the offsets) against their plain versions on the card,
+    with the tolerances of ``compare`` and ``compare_bwd``: the forward on
+    the rows with a valid key (the others: lse <= -1e29, finite output),
+    then the gradients of both outputs under random cotangents (do, dlse),
+    dq of a row without a valid key exactly 0; forward and backward each
+    run twice and held bit for bit."""
+    dt, causal = case["dtype"], case["causal"]
+    off = dict(q_offset=case["q_offset"], k_offset=case["k_offset"], causal=causal)
+    q, k, v, km, do, dlse = _chunk_operands(case)
+    out, lse = fa.flash_attention_block(q, k, v, kmask=km, **off)
+    out2, lse2 = fa.flash_attention_block(q, k, v, kmask=km, **off)
+
+    def grads():
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        o, l = fa.flash_attention_block_grad(qg, kg, vg, kmask=km, **off)
+        torch.autograd.backward((o, l), (do, dlse))
+        return [x.grad for x in (qg, kg, vg)]
+
+    got, again = grads(), grads()
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, kmask=km, with_lse=True, **off)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, km, dlse=dlse, **off)
+    rows = _chunk_rows(case, km)
+    w = rows[:, :, None, None].float()
+    diff = (out.float() - ref.float()).abs() * w
+    tol = TOL[dt]
+    worst = (diff - tol["rtol"] * ref.float().abs() * w).max().item()
+    lse_err = ((lse - ref_lse).abs() * rows[:, None, :].float()).max().item()
+    dead = ~rows[:, None, :].expand_as(lse)
+    res = {k: case[k] for k in ("B", "Tq", "Tk", "H", "D", "q_offset", "k_offset", "causal")}
+    res.update({"dtype": str(dt).split(".")[-1], "kmask": case.get("kmask"),
+                "route": "wide" if fa._wide(fa.kernel_head_dim(case["D"], dt)) else
+                ("fma" if dt == torch.float32 else "wgmma"),
+                "rows_without_a_key": int((~rows).sum().item()),
+                "max_abs_err": diff.max().item(), "lse_max_abs_err": lse_err,
+                "dead_rows_lse_max": lse[dead].max().item() if bool(dead.any()) else None,
+                "finite": bool(torch.isfinite(out.float()).all() and torch.isfinite(lse).all()),
+                "repeat_bit_identical": (torch.equal(out, out2) and torch.equal(lse, lse2)
+                                         and all(torch.equal(a, b) for a, b in zip(got, again))),
+                "dq_dead_rows_nonzero": int(torch.count_nonzero(got[0][~rows]))})
+    ok = (worst <= tol["atol"] and lse_err <= LSE_ATOL and res["finite"]
+          and res["repeat_bit_identical"] and res["dq_dead_rows_nonzero"] == 0
+          and (res["dead_rows_lse_max"] is None or res["dead_rows_lse_max"] <= -1e29))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        a, b = a.float(), b.float()
+        res[f"{name}_max_abs_err"] = (a - b).abs().max().item()
+        if not bool(rows.any()):                   # every row dead: all exactly 0
+            res[f"{name}_nonzero"] = int(torch.count_nonzero(a))
+            ok &= res[f"{name}_nonzero"] == 0
+        elif dt == torch.float32:
+            t32 = TOL[torch.float32]
+            ok &= bool(((a - b).abs() <= t32["atol"] + t32["rtol"] * b.abs()).all())
+        else:
+            res[f"{name}_tile_rel_err"] = tile_rel_err(a, b)
+            ok &= (res[f"{name}_max_abs_err"] <= BWD_BF16_REL * b.abs().max().item()
+                   and res[f"{name}_tile_rel_err"] <= BWD_BF16_TILE_REL)
+    res["ok"] = bool(ok)
+    check(res["ok"], f"a chunk entry disagrees with its plain version: {res}")
+    return res
+
+
+def _time_chunk(case: dict) -> dict:
+    """The chunk entry at one block shape: forward, and forward + backward
+    (both cotangents), beside the plain versions, the bound and
+    aten._scaled_dot_product_flash_attention on the same block (forward:
+    out and logsumexp; forward + backward: through autograd with the out
+    cotangent alone, the library's backward taking no lse cotangent)."""
+    dt, causal = case["dtype"], case["causal"]
+    off = dict(q_offset=case["q_offset"], k_offset=case["k_offset"], causal=causal)
+    q, k, v, km, do, dlse = _chunk_operands(case)
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+
+    def fwd_bwd():
+        o, l = fa.flash_attention_block_grad(qg, kg, vg, **off)
+        return torch.autograd.grad((o, l), (qg, kg, vg), (do, dlse))
+
+    def plain_fwd_bwd():
+        o, l = fa.flash_attention_reference(q, k, v, with_lse=True, **off)
+        return fa.flash_attention_bwd_reference(q, k, v, o, l, do, dlse=dlse, **off)
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    qtg, ktg, vtg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+    dot = do.transpose(1, 2).contiguous()
+    sdpa_causal = causal and case["q_offset"] == case["k_offset"]
+
+    def lib_fwd_bwd():
+        o = torch.nn.functional.scaled_dot_product_attention(qtg, ktg, vtg, is_causal=sdpa_causal)
+        return torch.autograd.grad(o, (qtg, ktg, vtg), dot)
+
+    B, Tq, Tk, H, D = (case[k] for k in ("B", "Tq", "Tk", "H", "D"))
+    pairs = chunk_pairs(Tq, Tk, case["q_offset"], case["k_offset"], causal)
+    es = torch.finfo(dt).bits // 8
+    peak = PEAK_F32_FLOPS if dt == torch.float32 else PEAK_BF16_FLOPS
+    row = {"shape": [B, Tq, Tk, H, D], "dtype": str(dt).split(".")[-1], **off, "pairs": pairs,
+           "fwd_ms": time_cuda(lambda: fa.flash_attention_block(q, k, v, **off), iters=20),
+           "fwd_bwd_ms": time_cuda(fwd_bwd, iters=10),
+           "plain_fwd_ms": time_cuda(lambda: fa.flash_attention_reference(
+               q, k, v, with_lse=True, **off), iters=3, warmup=1),
+           "plain_fwd_bwd_ms": time_cuda(plain_fwd_bwd, iters=2, warmup=1),
+           "library_fwd_ms": time_cuda(
+               lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                   qt, kt, vt, 0.0, sdpa_causal), iters=20),
+           "library_fwd_bwd_ms": time_cuda(lib_fwd_bwd, iters=10),
+           "library": "aten._scaled_dot_product_flash_attention (out, logsumexp); "
+                      "fwd+bwd: SDPA autograd with the out cotangent only",
+           "library_same_function": not causal or sdpa_causal}
+    row["fwd_bound_ms"], row["fwd_bound_by"] = chunk_bound(B, Tq, Tk, H, D, pairs, es, peak,
+                                                           False)
+    row["fwd_bwd_bound_ms"], row["fwd_bwd_bound_by"] = chunk_bound(B, Tq, Tk, H, D, pairs,
+                                                                   es, peak, True)
+    return row
+
+
+def chunk_kernel_phase() -> dict:
+    """Phase 21: flash_attention_block(_grad) on the card against their
+    plain versions: the ring's diagonal block (B16 H16 D128, 512 x 512,
+    causal) in bf16, f32 and f16, its off-diagonal block (not causal), Tq
+    != Tk with a shifted diagonal (512 queries at 1536 over 1536 keys at
+    512), a chunk wholly in the future, a chunk whose kmask is all 0, D =
+    64, and the wide-head route (D = 320; D = 3072 in column groups); then
+    the diagonal and off-diagonal blocks timed."""
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    blk = dict(B=RING["B"], Tq=512, Tk=512, H=RING["H"], D=RING["D"])
+    cases = [dict(blk, dtype=dt, causal=True, q_offset=0, k_offset=0, seed=300 + i)
+             for i, dt in enumerate((bf16, f32, f16))]
+    cases += [
+        dict(blk, dtype=bf16, causal=False, q_offset=0, k_offset=512, seed=303),
+        dict(blk, Tk=1536, dtype=bf16, causal=True, q_offset=1536, k_offset=512, seed=304),
+        dict(blk, Tk=1536, dtype=f32, causal=True, q_offset=1536, k_offset=512, seed=305),
+        dict(blk, dtype=bf16, causal=True, q_offset=0, k_offset=512, seed=306),
+        dict(blk, dtype=bf16, causal=False, q_offset=0, k_offset=0, kmask="zeros", seed=307),
+        dict(blk, dtype=bf16, causal=True, q_offset=512, k_offset=0, kmask="varlen", seed=308),
+        dict(blk, D=64, Tk=700, dtype=bf16, causal=True, q_offset=900, k_offset=300, seed=309),
+        dict(blk, D=64, Tq=300, dtype=f16, causal=True, q_offset=200, k_offset=100,
+             kmask="varlen", seed=310),
+        dict(B=2, Tq=300, Tk=500, H=4, D=320, dtype=bf16, causal=True, q_offset=400,
+             k_offset=100, kmask="varlen", seed=311),
+        dict(B=2, Tq=300, Tk=500, H=4, D=320, dtype=f32, causal=True, q_offset=0,
+             k_offset=100, seed=312),
+        dict(B=1, Tq=256, Tk=384, H=2, D=3072, dtype=bf16, causal=True, q_offset=384,
+             k_offset=128, seed=313),
+    ]
+    results = [compare_chunk(c) for c in cases]
+    torch.cuda.empty_cache()
+    timing = {"diagonal": _time_chunk(dict(blk, dtype=bf16, causal=True, q_offset=0,
+                                           k_offset=0, seed=320)),
+              "off_diagonal": _time_chunk(dict(blk, dtype=bf16, causal=False, q_offset=0,
+                                               k_offset=512, seed=321))}
+    torch.cuda.empty_cache()
+    return {"phase": "chunk_kernel", "cases": results, "timing": timing,
+            "tol": {"forward": {str(k).split(".")[-1]: v for k, v in TOL.items()},
+                    "lse_atol": LSE_ATOL, "bwd_16bit_rel": BWD_BF16_REL,
+                    "bwd_16bit_tile_rel": BWD_BF16_TILE_REL}}
+
+
+def _zero_chunk_counts():
+    for name in fa.CHUNK_LAUNCHES:
+        fa.CHUNK_LAUNCHES[name] = 0
+
+
+def _rel_checks(got, want, what, tile_rel=BWD_BF16_TILE_REL) -> dict:
+    """Per tensor max |err| / max |ref| and the worst 64-row tile's
+    relative error, held to the 16-bit backward's limits (``tile_rel`` per
+    tile)."""
+    res = {}
+    for name, a, b in zip(what, got, want):
+        err = (a.float() - b.float()).abs().max().item()
+        res[name] = {"max_abs_err": err, "ref_max_abs": b.float().abs().max().item(),
+                     "tile_rel_err": tile_rel_err(a, b), "tile_rel_limit": tile_rel}
+        check(err <= BWD_BF16_REL * res[name]["ref_max_abs"]
+              and res[name]["tile_rel_err"] <= tile_rel,
+              f"ring {name} disagrees: {res[name]}")
+    return res
+
+
+def ring_attention_phase() -> dict:
+    """Phase 22: the flash ring (``parallel/ring.py`` ``_ring_flash_shard``)
+    at the full-width TransformerLM's attention shape, B16 T2048 H16 D128,
+    bf16, causal, cut into 4 shards of 512: the routine runs once per shard
+    in one process (``ring_in_one_process``), each shard receiving the
+    blocks in its ring order, forward and backward; its launches of the
+    chunk entries are this slice's main path on one card. The joined output
+    and dq/dk/dv are held to flash_attention over the whole sequence
+    (kernels #1-#3), to the plain reference (per tensor and per 64-row
+    tile) and to the einsum ring, with and without a varlen kmask; then the
+    ring's time beside the whole-sequence kernels'."""
+    from deeplearning4j_tpu_torch.parallel import ring
+
+    B, T, H, D, s = (RING[k] for k in ("B", "T", "H", "D", "shards"))
+    res = {"phase": "ring_attention", "shape": [B, T, H, D], "shards": s, "dtype": "bfloat16",
+           "causal": True, "runs": {}}
+    for masked in (False, True):
+        q0, k0, v0 = make_qkv(B, T, H, D, torch.bfloat16, 400 + int(masked))
+        q, k, v = (x.detach().requires_grad_(True) for x in (q0, k0, v0))
+        km = varlen_mask(B, T, 400) if masked else None
+        g = torch.Generator(device="cuda").manual_seed(401)
+        do = torch.randn(B, T, H, D, generator=g, device="cuda").to(torch.bfloat16)
+        if masked:
+            do = do * km[:, :, None, None].to(do.dtype)   # rows past a length carry no loss
+
+        def run(fn):
+            parts = ring.ring_in_one_process(
+                fn, q.chunk(s, 1), k.chunk(s, 1), v.chunk(s, 1),
+                km.chunk(s, 1) if masked else None, causal=True)
+            out = torch.cat(parts, 1)
+            return [out.detach()] + list(torch.autograd.grad(out, (q, k, v), do))
+
+        # the main path of this slice on one card: every launch below is counted
+        _zero_flash_counts()
+        _zero_chunk_counts()
+        got = run(ring._ring_flash_shard)
+        torch.cuda.synchronize()
+        run_res = {"chunk_launches": dict(fa.CHUNK_LAUNCHES), "kernel_launches": _launch_counts()}
+        for name in fa.CHUNK_LAUNCHES:
+            check(run_res["chunk_launches"][name] == s * s,
+                  f"{name}: {run_res['chunk_launches'][name]} chunk launches, not {s * s}")
+
+        names = ("out", "dq", "dk", "dv")
+        w = km[:, :, None, None] if masked else 1.0
+
+        def weigh(xs):   # the output on the rows a key mask keeps
+            return [xs[0] * w] + list(xs[1:])
+
+        out = fa.flash_attention(q, k, v, kmask=km, causal=True)
+        whole = [out.detach()] + list(torch.autograd.grad(out, (q, k, v), do))
+        run_res["vs_flash_attention"] = _rel_checks(weigh(got), weigh(whole), names)
+        del whole, out
+        einsum = run(ring._ring_attention_shard)
+        run_res["vs_einsum_ring"] = _rel_checks(weigh(got), weigh(einsum), names,
+                                                RING_EINSUM_TILE_REL)
+        torch.cuda.empty_cache()
+        ref, ref_lse = fa.flash_attention_reference(q0, k0, v0, causal=True, kmask=km,
+                                                    with_lse=True)
+        ref = [ref] + list(fa.flash_attention_bwd_reference(q0, k0, v0, ref, ref_lse, do,
+                                                            km, True))
+        run_res["vs_plain_reference"] = _rel_checks(weigh(got), weigh(ref), names)
+        run_res["einsum_ring_vs_plain_reference"] = _rel_checks(
+            weigh(einsum), weigh(ref), names, RING_EINSUM_TILE_REL)
+        del ref, ref_lse, einsum
+        torch.cuda.empty_cache()
+        res["runs"]["varlen_kmask" if masked else "no_kmask"] = run_res
+        if not masked:
+            def ring_fwd():
+                with torch.no_grad():
+                    return torch.cat(ring.ring_in_one_process(
+                        ring._ring_flash_shard, q.chunk(s, 1), k.chunk(s, 1), v.chunk(s, 1),
+                        causal=True), 1)
+
+            res["timing"] = {
+                "ring_fwd_ms": time_cuda(ring_fwd, iters=5),
+                "ring_fwd_bwd_ms": time_cuda(lambda: run(ring._ring_flash_shard), iters=3),
+                "whole_fwd_ms": time_cuda(lambda: fa.flash_fwd_cuda(q0, k0, v0, causal=True),
+                                          iters=10),
+                "whole_fwd_bwd_ms": time_cuda(lambda: torch.autograd.grad(
+                    fa.flash_attention(q, k, v, causal=True), (q, k, v), do), iters=5),
+                "ring": "4 shards x 4 blocks of 512 x 512 through the chunk entries, merged; "
+                        "future blocks launched and weighted out",
+                "whole": "flash_attention over T 2048 (kernels #1-#3)"}
+        del q, k, v, q0, k0, v0, got, do
+        torch.cuda.empty_cache()
+    return res
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def ring_train_phase() -> dict:
+    """Phase 23: ShardedTrainer (``parallel/tp.py``) on a world-size-1 NCCL
+    group over the card (``init_distributed``, ``make_mesh``), driving the
+    serve/train TransformerLM with sequence_parallel=True (full width,
+    bf16, Adam 1e-4) for 3 steps on 16 x 2048 tokens; the losses and params
+    against MultiLayerNetwork._fit_batch from the same params (bit for bit,
+    else the largest difference against GRAD_CHECK_REL), the launches of
+    kernels #1-#3 per step, and the step time beside the plain step's."""
+    from deeplearning4j_tpu_torch.parallel import (
+        ShardedTrainer, init_distributed, make_mesh, shutdown_distributed)
+
+    steps, rows = 3, 16
+    conf = zoo.TransformerLM(updater={"type": "adam", "lr": TRAIN_LR}, sequence_parallel=True,
+                             **FLAGSHIP_CONF)
+    V, T = FLAGSHIP_CONF["vocab_size"], FLAGSHIP_CONF["max_len"]
+    x = np.random.RandomState(41).randint(0, V, (rows, T)).astype(np.int64)
+    y = np.roll(x, -1, axis=1)
+    init_distributed(f"tcp://localhost:{_free_port()}", 1, 0, timeout_s=120)
+    try:
+        mesh = make_mesh()
+        model = MultiLayerNetwork(conf).init()
+        trainer = ShardedTrainer(model, mesh)
+        _zero_flash_counts()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+        ev[0].record()
+        losses = []
+        for i in range(steps):
+            losses.append(trainer.fit_batch(x, y))
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        sharded_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
+        sharded_losses = [float(l) for l in losses]
+        sharded_params = _host_leaves(model.params)
+        backend = torch.distributed.get_backend()
+        del trainer, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutdown_distributed()
+    plain = MultiLayerNetwork(conf).init()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    ev[0].record()
+    plain_losses = []
+    for i in range(steps):
+        plain_losses.append(plain._fit_batch(x, y, None, None))
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    plain_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
+    plain_losses = [float(l) for l in plain_losses]
+    plain_params = _host_leaves(plain.params)
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    bit_equal = sharded_losses == plain_losses and _bits_equal(sharded_params, plain_params)
+    rel = max(((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+              for a, b in zip(sharded_params, plain_params))
+    res = {"phase": "ring_train", "backend": backend, "world_size": 1,
+           "mesh": {"data": 1, "model": 1, "seq": 1, "pipe": 1},
+           "model": {"vocab": V, "T": T, "d_model": FLAGSHIP_CONF["d_model"],
+                     "blocks": FLAGSHIP_CONF["n_blocks"], "dtype": "bfloat16",
+                     "sequence_parallel": True},
+           "updater": {"type": "adam", "lr": TRAIN_LR}, "rows": rows, "steps": steps,
+           "losses": sharded_losses, "plain_losses": plain_losses,
+           "bit_equal": bit_equal,
+           "params_max_abs_diff": _max_diff(sharded_params, plain_params),
+           "params_max_rel_diff": rel, "tol_if_not_bit_equal": GRAD_CHECK_REL,
+           "launches": launches, "step_ms": sharded_ms, "plain_step_ms": plain_ms}
+    check(all(np.isfinite(sharded_losses)), f"non-finite loss: {sharded_losses}")
+    check(bit_equal or (rel <= GRAD_CHECK_REL and np.allclose(
+        sharded_losses, plain_losses, rtol=GRAD_CHECK_REL)),
+          f"ShardedTrainer disagrees with _fit_batch: {res}")
+    for name, n in launches.items():
+        check(n == 8 * steps, f"{name}: {n} launches over {steps} sharded steps")
+    return res
+
+
 def _kernel_row(name, source, replaces, launches, by_path, max_abs_err, ms, plain_ms,
                 bound_ms, bound_by, library_ms, **extra):
     return dict({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3096,6 +3535,14 @@ def main() -> int:
         lres = lstm_resilience_phase(Path(tmp))
     emit(lres)
     emit(lenet_runtime_phase())
+    gc.collect()
+    torch.cuda.empty_cache()
+    chunk = chunk_kernel_phase()
+    emit(chunk)
+    rattn = ring_attention_phase()
+    emit(rattn)
+    ring_tr = ring_train_phase()
+    emit(ring_tr)
 
     fwd_cases = kern["cases"]
     bwd_cases = kern["bwd_cases"]
@@ -3105,7 +3552,10 @@ def main() -> int:
         by = {f"resilience_train_{run}": n[name]
               for run, n in rtrain["launches_by_run"].items()}
         by.update({"remat_train_plain": remat["plain"]["launches"][name],
-                   "remat_train_remat": remat["remat"]["launches"][name]})
+                   "remat_train_remat": remat["remat"]["launches"][name],
+                   "ring_train": ring_tr["launches"][name]})
+        by.update({f"ring_attention_{run}": r["kernel_launches"][name]
+                   for run, r in rattn["runs"].items()})
         return by
 
     fwd_by = dict({"serve": srv["launches"], "train": tl["flash_fwd"]},
@@ -3137,6 +3587,32 @@ def main() -> int:
             wide_head=[{k: r[k] for k in ("shape", "dtype", "column_groups", f"{key}_ms",
                                           f"{key}_bound_ms", "library_bwd_ms")}
                        for r in kern["wide_head"]["timing"]]))
+    ct, ccases = chunk["timing"], chunk["cases"]
+    chunk_by = {name: {f"ring_attention_{run}": r["chunk_launches"][name]
+                       for run, r in rattn["runs"].items()} for name in fa.CHUNK_LAUNCHES}
+    d = ct["diagonal"]
+    rows.append(_kernel_row(
+        "flash_attention_block", "deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
+        "deeplearning4j_tpu/ops/flash_attention.py:563",
+        sum(chunk_by["flash_fwd"].values()), chunk_by["flash_fwd"],
+        ccases[0]["max_abs_err"], d["fwd_ms"], d["plain_fwd_ms"], d["fwd_bound_ms"],
+        d["fwd_bound_by"], d["library_fwd_ms"],
+        max_err=max(c["max_abs_err"] for c in ccases),
+        shape="B16 Tq512 Tk512 H16 D128 bf16, causal, offsets 0 (the ring's diagonal block)",
+        kernels="kernel #1 with Tq, Tk and the offsets (flash_fwd.cu; flash_wide.cu past D 256)",
+        off_diagonal=ct["off_diagonal"], library=d["library"]))
+    rows.append(_kernel_row(
+        "flash_attention_block_grad", "deeplearning4j_tpu_torch/csrc/flash_bwd.cu",
+        "deeplearning4j_tpu/ops/flash_attention.py:648",
+        sum(chunk_by["flash_bwd_dq"].values()) + sum(chunk_by["flash_bwd_dkv"].values()),
+        {"dq": chunk_by["flash_bwd_dq"], "dkv": chunk_by["flash_bwd_dkv"]},
+        max(ccases[0][f"{e}_max_abs_err"] for e in ("dq", "dk", "dv")), d["fwd_bwd_ms"],
+        d["plain_fwd_bwd_ms"], d["fwd_bwd_bound_ms"], d["fwd_bwd_bound_by"],
+        d["library_fwd_bwd_ms"],
+        max_err=max(c[f"{e}_max_abs_err"] for c in ccases for e in ("dq", "dk", "dv")),
+        timed="forward + backward with both cotangents (do, dlse) at the diagonal block",
+        kernels="kernels #1-#3 with the offsets; delta_eff = rowsum(do * out) - dlse",
+        ring_ms=rattn["timing"], library=d["library"]))
     lcases = lk["cases"]
     for name, key, line, errs in (("fused_lstm_fwd", "fwd", 60, ("hs", "gates", "cs")),
                                   ("fused_lstm_bwd", "bwd", 119, ("dzx", "dwh"))):

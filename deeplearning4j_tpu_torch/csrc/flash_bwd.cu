@@ -7,8 +7,17 @@
 // - `_bwd_dkv_kernel` -> flash_bwd_dkv_wgmma_kernel (bf16), flash_bwd_dkv_kernel (f32):
 //     dv = sum_q p^T . do ;  dk = scale * sum_q [p * (do . v^T - delta)]^T . q
 // with p = exp(q . k^T * scale - lse) where the (query, key) pair is valid
-// (key < T, query < T, causal, key mask) and exactly 0 elsewhere; lse is the
+// (key < Tk, query < Tq, causal, key mask) and exactly 0 elsewhere; lse is the
 // forward kernel's row logsumexp and delta = rowsum(do * out), both f32.
+// Queries and keys may differ in length and sit at absolute offsets (the
+// chunk entries flash_attention_block_grad, ring attention's blocks): the
+// causal rule is k_off + k <= q_off + q, a key k allowed for a query q when
+// k <= q + shift (shift = q_off - k_off), and the early exits (dq's last key
+// tile, dk/dv's first query tile, a warpgroup's skipped tile) are taken
+// against that shifted diagonal, as flash_fwd.cu does. The chunk entries'
+// lse cotangent dlse reaches these kernels folded into delta
+// (delta = rowsum(do * out) - dlse, flash_attention.py:617-619), so they
+// need no other change for it.
 // FlashAttention-2's backward: scores are rebuilt per tile and no [T, T]
 // tensor reaches device memory.
 //
@@ -99,18 +108,19 @@ struct Params {
   const void* k;
   const void* v;
   const void* dout;
-  const float* lse;     // [B, H, T] contiguous
-  const float* delta;   // [B, H, T] contiguous
-  const float* kmask;   // [B, T] key validity (>0 = real key) or nullptr
-  void* dq;             // [B, T, H, D] contiguous, input dtype
-  void* dk;
+  const float* lse;     // [B, H, Tq] contiguous
+  const float* delta;   // [B, H, Tq] contiguous
+  const float* kmask;   // [B, Tk] key validity (>0 = real key) or nullptr
+  void* dq;             // [B, Tq, H, D] contiguous, input dtype
+  void* dk;             // [B, Tk, H, D]
   void* dv;
   long long q_sb, q_st, q_sh;   // element strides over B, T, H
   long long k_sb, k_st, k_sh;
   long long v_sb, v_st, v_sh;
   long long o_sb, o_st, o_sh;   // of dout
-  int B, T, H;
+  int B, Tq, Tk, H;     // q, dout [B, Tq, H, D]; k, v [B, Tk, H, D]
   int causal;
+  int q_off, k_off;     // absolute positions of query 0 and key 0 (causal rule)
   float scale;
 };
 
@@ -212,7 +222,7 @@ __device__ void mm_ab_acc(const float* A, const float* B, float* C, int lane) {
     for (int i = 0; i < NC; ++i) C[r * LDC + lane + 32 * i] = acc[r][i];
 }
 
-// Key validity of one 64-key tile: inside T and, with a key mask, real.
+// Key validity of one 64-key tile: inside Tk and, with a key mask, real.
 __device__ void load_kvalid(float* kvalid, const float* kmask, int b, int k0,
                             int T_len, int tid) {
   for (int i = tid; i < TILE; i += THREADS) {
@@ -223,12 +233,12 @@ __device__ void load_kvalid(float* kvalid, const float* kmask, int b, int k0,
   }
 }
 
-// Per-row lse and delta of `rows` query rows from q0 (0 past T).
+// Per-row lse and delta of `rows` query rows from q0 (0 past Tq).
 __device__ void load_rowstats(float* lse_s, float* delta_s, const Params& p,
                               long long bh_off, int q0, int rows, int tid) {
   for (int i = tid; i < rows; i += THREADS) {
     const int t = q0 + i;
-    const bool in = t < p.T;
+    const bool in = t < p.Tq;
     lse_s[i] = in ? p.lse[bh_off + t] : 0.0f;
     delta_s[i] = in ? p.delta[bh_off + t] : 0.0f;
   }
@@ -279,8 +289,9 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int q0 = qt * TILE;
-  const int T_len = p.T;
-  const long long bh_off = ((long long)b * p.H + h) * T_len;
+  const int Tq = p.Tq, Tk = p.Tk;
+  const int shift = p.q_off - p.k_off;   // key k is allowed for query q iff k <= q + shift
+  const long long bh_off = ((long long)b * p.H + h) * Tq;
 
   const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
@@ -289,8 +300,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
 
   constexpr int DC = Chunk<D>::DC, NCH = Chunk<D>::N;
   if constexpr (NCH == 1) {
-    load_rows<D, L::LD>(Qs, qb, p.q_st, q0, TILE, T_len, tid);
-    load_rows<D, L::LD>(Os, ob, p.o_st, q0, TILE, T_len, tid);
+    load_rows<D, L::LD>(Qs, qb, p.q_st, q0, TILE, Tq, tid);
+    load_rows<D, L::LD>(Os, ob, p.o_st, q0, TILE, Tq, tid);
   }
   load_rowstats(lse_s, delta_s, p, bh_off, q0, TILE, tid);
   for (int i = tid; i < TILE * L::LDO; i += THREADS) Acc[i] = 0.0f;
@@ -304,26 +315,29 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
   T* DS_w = DSs + wr0 * L::LDP;
   float* Acc_w = Acc + wr0 * L::LDO;
 
-  int n_kt = (T_len + TILE - 1) / TILE;
-  if (p.causal) n_kt = min(n_kt, qt + 1);   // no key tile above the diagonal
+  int n_kt = (Tk + TILE - 1) / TILE;
+  if (p.causal) {   // no key tile above the (shifted) diagonal
+    const int last = q0 + TILE - 1 + shift;   // the last key a row of the tile may see
+    n_kt = last < 0 ? 0 : min(n_kt, last / TILE + 1);
+  }
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * TILE;
     __syncthreads();   // every warp is done with the previous K/V tile
-    load_kvalid(kvalid, p.kmask, b, k0, T_len, tid);
+    load_kvalid(kvalid, p.kmask, b, k0, Tk, tid);
     if constexpr (NCH == 1) {
-      load_rows<D, L::LD>(Ks, kb, p.k_st, k0, TILE, T_len, tid);
-      load_rows<D, L::LD>(Vs, vb, p.v_st, k0, TILE, T_len, tid);
+      load_rows<D, L::LD>(Ks, kb, p.k_st, k0, TILE, Tk, tid);
+      load_rows<D, L::LD>(Vs, vb, p.v_st, k0, TILE, Tk, tid);
       __syncthreads();
       mm_abt<D, L::LD, TILE, L::LDS>(Q_w, Ks, S_w, lane);    // S  = Q . K^T
       mm_abt<D, L::LD, TILE, L::LDS>(O_w, Vs, DP_w, lane);   // dP = dO . V^T
     } else {   // S and dP summed over the chunks of D
       for (int c = 0; c < NCH; ++c) {
         if (c > 0) __syncthreads();   // every warp is done with the previous chunk
-        load_rows<DC, L::LD>(Qs, qb + c * DC, p.q_st, q0, TILE, T_len, tid);
-        load_rows<DC, L::LD>(Os, ob + c * DC, p.o_st, q0, TILE, T_len, tid);
-        load_rows<DC, L::LD>(Ks, kb + c * DC, p.k_st, k0, TILE, T_len, tid);
-        load_rows<DC, L::LD>(Vs, vb + c * DC, p.v_st, k0, TILE, T_len, tid);
+        load_rows<DC, L::LD>(Qs, qb + c * DC, p.q_st, q0, TILE, Tq, tid);
+        load_rows<DC, L::LD>(Os, ob + c * DC, p.o_st, q0, TILE, Tq, tid);
+        load_rows<DC, L::LD>(Ks, kb + c * DC, p.k_st, k0, TILE, Tk, tid);
+        load_rows<DC, L::LD>(Vs, vb + c * DC, p.v_st, k0, TILE, Tk, tid);
         __syncthreads();
         if (c == 0) {
           mm_abt<DC, L::LD, TILE, L::LDS>(Q_w, Ks, S_w, lane);
@@ -341,7 +355,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
       const int c = i % TILE;
       const int qpos = q0 + wr0 + r;
       const int kpos = k0 + c;
-      const bool ok = kvalid[c] > 0.0f && qpos < T_len && (!p.causal || kpos <= qpos);
+      const bool ok = kvalid[c] > 0.0f && qpos < Tq && (!p.causal || kpos <= qpos + shift);
       const float pr = ok ? expf(S_w[r * L::LDS + c] * p.scale - lse_s[wr0 + r]) : 0.0f;
       DS_w[r * L::LDP + c] = pr * (DP_w[r * L::LDS + c] - delta_s[wr0 + r]);
     }
@@ -352,7 +366,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
     } else {   // dQ written chunk by chunk of D
       for (int c = 0; c < NCH; ++c) {
         __syncthreads();   // every warp is done with the previous K chunk
-        load_rows<DC, L::LD>(Ks, kb + c * DC, p.k_st, k0, TILE, T_len, tid);
+        load_rows<DC, L::LD>(Ks, kb + c * DC, p.k_st, k0, TILE, Tk, tid);
         __syncthreads();
         mm_ab_acc<DC, TILE, L::LDP, L::LD, L::LDO>(DS_w, Ks, Acc_w + c * DC, lane);
       }
@@ -365,8 +379,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
     const int r = i / D;
     const int c = i % D;
     const int t = q0 + wr0 + r;
-    if (t < T_len) {
-      out[(((long long)b * T_len + t) * p.H + h) * D + c] = Acc_w[r * L::LDO + c] * p.scale;
+    if (t < Tq) {
+      out[(((long long)b * Tq + t) * p.H + h) * D + c] = Acc_w[r * L::LDO + c] * p.scale;
     }
   }
 }
@@ -422,8 +436,9 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int k0 = kt * TILE;
-  const int T_len = p.T;
-  const long long bh_off = ((long long)b * p.H + h) * T_len;
+  const int Tq = p.Tq, Tk = p.Tk;
+  const int shift = p.q_off - p.k_off;   // key k is allowed for query q iff k <= q + shift
+  const long long bh_off = ((long long)b * p.H + h) * Tq;
 
   const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
@@ -432,10 +447,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
 
   constexpr int DC = Chunk<D>::DC, NCH = Chunk<D>::N;
   if constexpr (NCH == 1) {
-    load_rows<D, L::LD>(Ks, kb, p.k_st, k0, TILE, T_len, tid);
-    load_rows<D, L::LD>(Vs, vb, p.v_st, k0, TILE, T_len, tid);
+    load_rows<D, L::LD>(Ks, kb, p.k_st, k0, TILE, Tk, tid);
+    load_rows<D, L::LD>(Vs, vb, p.v_st, k0, TILE, Tk, tid);
   }
-  load_kvalid(kvalid, p.kmask, b, k0, T_len, tid);
+  load_kvalid(kvalid, p.kmask, b, k0, Tk, tid);
   for (int i = tid; i < TILE * L::LDO; i += THREADS) {
     dK[i] = 0.0f;
     dV[i] = 0.0f;
@@ -452,27 +467,28 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
   float* dK_w = dK + wr0 * L::LDO;
   float* dV_w = dV + wr0 * L::LDO;
 
-  const int n_qt = (T_len + BQ - 1) / BQ;
-  // query tiles wholly above this key tile's first key see none of it
-  const int qt0 = p.causal ? k0 / BQ : 0;
+  const int n_qt = (Tq + BQ - 1) / BQ;
+  // query tiles wholly above this key tile's first key see none of it: the
+  // first query that may see key k0 is k0 - shift
+  const int qt0 = p.causal && k0 - shift > 0 ? (k0 - shift) / BQ : 0;
 
   for (int qt = qt0; qt < n_qt; ++qt) {
     const int q0 = qt * BQ;
     __syncthreads();   // every warp is done with the previous Q/dO tile
     load_rowstats(lse_s, delta_s, p, bh_off, q0, BQ, tid);
     if constexpr (NCH == 1) {
-      load_rows<D, L::LD>(Qs, qb, p.q_st, q0, BQ, T_len, tid);
-      load_rows<D, L::LD>(Os, ob, p.o_st, q0, BQ, T_len, tid);
+      load_rows<D, L::LD>(Qs, qb, p.q_st, q0, BQ, Tq, tid);
+      load_rows<D, L::LD>(Os, ob, p.o_st, q0, BQ, Tq, tid);
       __syncthreads();
       mm_abt<D, L::LD, BQ, L::LDS>(K_w, Qs, S_w, lane);    // S^T  = K . Q^T
       mm_abt<D, L::LD, BQ, L::LDS>(V_w, Os, DP_w, lane);   // dP^T = V . dO^T
     } else {   // S^T and dP^T summed over the chunks of D
       for (int c = 0; c < NCH; ++c) {
         if (c > 0) __syncthreads();   // every warp is done with the previous chunk
-        load_rows<DC, L::LD>(Ks, kb + c * DC, p.k_st, k0, TILE, T_len, tid);
-        load_rows<DC, L::LD>(Vs, vb + c * DC, p.v_st, k0, TILE, T_len, tid);
-        load_rows<DC, L::LD>(Qs, qb + c * DC, p.q_st, q0, BQ, T_len, tid);
-        load_rows<DC, L::LD>(Os, ob + c * DC, p.o_st, q0, BQ, T_len, tid);
+        load_rows<DC, L::LD>(Ks, kb + c * DC, p.k_st, k0, TILE, Tk, tid);
+        load_rows<DC, L::LD>(Vs, vb + c * DC, p.v_st, k0, TILE, Tk, tid);
+        load_rows<DC, L::LD>(Qs, qb + c * DC, p.q_st, q0, BQ, Tq, tid);
+        load_rows<DC, L::LD>(Os, ob + c * DC, p.o_st, q0, BQ, Tq, tid);
         __syncthreads();
         if (c == 0) {
           mm_abt<DC, L::LD, BQ, L::LDS>(K_w, Qs, S_w, lane);
@@ -490,8 +506,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
       const int c = i % BQ;              // query column
       const int kpos = k0 + wr0 + r;
       const int qpos = q0 + c;
-      const bool ok = kvalid[wr0 + r] > 0.0f && qpos < T_len &&
-                      (!p.causal || kpos <= qpos);
+      const bool ok = kvalid[wr0 + r] > 0.0f && qpos < Tq &&
+                      (!p.causal || kpos <= qpos + shift);
       const float pr = ok ? expf(S_w[r * L::LDS + c] * p.scale - lse_s[c]) : 0.0f;
       P_w[r * L::LDP + c] = pr;
       DS_w[r * L::LDP + c] = pr * (DP_w[r * L::LDS + c] - delta_s[c]);
@@ -504,8 +520,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
     } else {   // dV and dK written chunk by chunk of D
       for (int c = 0; c < NCH; ++c) {
         __syncthreads();   // every warp is done with the previous Q/dO chunk
-        load_rows<DC, L::LD>(Qs, qb + c * DC, p.q_st, q0, BQ, T_len, tid);
-        load_rows<DC, L::LD>(Os, ob + c * DC, p.o_st, q0, BQ, T_len, tid);
+        load_rows<DC, L::LD>(Qs, qb + c * DC, p.q_st, q0, BQ, Tq, tid);
+        load_rows<DC, L::LD>(Os, ob + c * DC, p.o_st, q0, BQ, Tq, tid);
         __syncthreads();
         mm_ab_acc<DC, BQ, L::LDP, L::LD, L::LDO>(P_w, Os, dV_w + c * DC, lane);
         mm_ab_acc<DC, BQ, L::LDP, L::LD, L::LDO>(DS_w, Qs, dK_w + c * DC, lane);
@@ -520,8 +536,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
     const int r = i / D;
     const int c = i % D;
     const int t = k0 + wr0 + r;
-    if (t < T_len) {
-      const long long off = (((long long)b * T_len + t) * p.H + h) * D + c;
+    if (t < Tk) {
+      const long long off = (((long long)b * Tk + t) * p.H + h) * D + c;
       dk_out[off] = dK_w[r * L::LDO + c] * p.scale;
       dv_out[off] = dV_w[r * L::LDO + c];
     }
@@ -533,13 +549,14 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
 // ===========================================================================
 
 struct Params90 {
-  CUtensorMap q, k, v, o;   // [B, T, H, D] views, boxes of 64 rows
-  const float* lse;
+  CUtensorMap q, k, v, o;   // q, do [B, Tq, H, D]; k, v [B, Tk, H, D]; boxes of 64 rows
+  const float* lse;         // [B, H, Tq]
   const float* delta;
-  const float* kmask;
+  const float* kmask;       // [B, Tk]
   void* g0;                 // dq, or dk (the operand type)
   void* g1;                 // dv
-  int B, T, H, causal;
+  int B, Tq, Tk, H, causal;
+  int shift;                // q_off - k_off: key k is allowed for query q iff k <= q + shift
   float scale;
 };
 
@@ -629,16 +646,19 @@ __global__ void __launch_bounds__(THREADS90, 1)
   uint64_t* empty = bars + 1 + STAGES;
   float* kval = reinterpret_cast<float*>(smem + L::kv);
 
-  const int T_len = p.T;
+  const int Tq = p.Tq, Tk = p.Tk, shift = p.shift;
   const int BH = p.B * p.H;
-  const int n_qb = (T_len + OWN - 1) / OWN;
+  const int n_qb = (Tq + OWN - 1) / OWN;
   const int bh = blockIdx.x % BH;
   const int qb = p.causal ? n_qb - 1 - int(blockIdx.x / BH) : int(blockIdx.x / BH);
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int q0 = qb * OWN;
-  const int n_k = (T_len + ROWS - 1) / ROWS;
-  const int n_kt = p.causal ? min(n_k, (q0 + OWN) / ROWS) : n_k;
+  const int n_k = (Tk + ROWS - 1) / ROWS;
+  // under a causal mask the block's last query ends its key tiles at key
+  // q0 + OWN - 1 + shift (none when that lies before key 0)
+  const int last = q0 + OWN - 1 + shift;
+  const int n_kt = p.causal ? (last < 0 ? 0 : min(n_k, last / ROWS + 1)) : n_k;
 
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -669,8 +689,8 @@ __global__ void __launch_bounds__(THREADS90, 1)
         const int k0 = kt * ROWS;
         for (int i = lane; i < ROWS; i += 32) {
           const int t = k0 + i;
-          bool ok = t < T_len;
-          if (ok && p.kmask != nullptr) ok = p.kmask[(long long)b * T_len + t] > 0.0f;
+          bool ok = t < Tk;
+          if (ok && p.kmask != nullptr) ok = p.kmask[(long long)b * Tk + t] > 0.0f;
           kval[s * ROWS + i] = ok ? 1.0f : 0.0f;
         }
         if (lane == 0) {
@@ -688,13 +708,13 @@ __global__ void __launch_bounds__(THREADS90, 1)
     const int c0 = SPLIT ? wg * NC : 0;        // and its first output column box
     const int wq0 = q0 + wr;                   // the warpgroup's first query
     const int row0 = wq0 + warp * 16 + lane / 4;   // the thread's rows: row0, row0 + 8
-    const long long bh_off = (long long)bh * T_len;
+    const long long bh_off = (long long)bh * Tq;
     float lse2[2], dlt[2];
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int t = row0 + 8 * j;
-      lse2[j] = t < T_len ? p.lse[bh_off + t] * LOG2E : 0.0f;
-      dlt[j] = t < T_len ? p.delta[bh_off + t] : 0.0f;
+      lse2[j] = t < Tq ? p.lse[bh_off + t] * LOG2E : 0.0f;
+      dlt[j] = t < Tq ? p.delta[bh_off + t] : 0.0f;
     }
     const float sl2 = p.scale * LOG2E;
     float acc[NC][G::CHUNK / 2];
@@ -711,7 +731,7 @@ __global__ void __launch_bounds__(THREADS90, 1)
       bar_wait(&full[s], (kt / STAGES) & 1);
       // under a causal mask the last key tile of the block lies wholly above
       // the first warpgroup's rows
-      if (!(p.causal && k0 > wq0 + ROWS - 1)) {
+      if (!(p.causal && k0 > wq0 + ROWS - 1 + shift)) {
         float sc[32], dp[32];
         wg_fence();
         scores<T, D, OWN, ROWS>(sc, base + L::q, wr, kt_tile, 0);   // S = Q.K^T
@@ -733,7 +753,7 @@ __global__ void __launch_bounds__(THREADS90, 1)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int key = k0 + col + e;
-            const bool ok = kv[col + e] > 0.0f && t < T_len && (!p.causal || key <= t);
+            const bool ok = kv[col + e] > 0.0f && t < Tq && (!p.causal || key <= t + shift);
             const float pr = ok ? exp2f(fmaf(sc[i + e], sl2, -lse2[j])) : 0.0f;
             ds[e] = pr * (dp[i + e] - dlt[j]);
           }
@@ -749,7 +769,7 @@ __global__ void __launch_bounds__(THREADS90, 1)
       __syncwarp();
       if (lane == 0) bar_arrive(&empty[s]);
     }
-    store_rows<T, D, NC>(static_cast<T*>(p.g0), acc, p.scale, row0, lane, b, h, T_len, p.H,
+    store_rows<T, D, NC>(static_cast<T*>(p.g0), acc, p.scale, row0, lane, b, h, Tq, p.H,
                          c0);
   }
 }
@@ -777,15 +797,17 @@ __global__ void __launch_bounds__(THREADS90, 1)
   float* lse_s = reinterpret_cast<float*>(smem + L::lse);
   float* dlt_s = reinterpret_cast<float*>(smem + L::delta);
 
-  const int T_len = p.T;
+  const int Tq = p.Tq, Tk = p.Tk, shift = p.shift;
   const int BH = p.B * p.H;
   const int bh = blockIdx.x % BH;
   const int kb = blockIdx.x / BH;   // under a causal mask the first key rows have the most queries
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int k0 = kb * OWN;
-  const int n_q = (T_len + ROWS - 1) / ROWS;
-  const int qt0 = p.causal ? k0 / ROWS : 0;   // query tiles wholly above k0 see no key here
+  const int n_q = (Tq + ROWS - 1) / ROWS;
+  // query tiles wholly above k0 - shift (the first query that may see key k0)
+  // see no key here
+  const int qt0 = p.causal && k0 - shift > 0 ? (k0 - shift) / ROWS : 0;
 
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -801,7 +823,7 @@ __global__ void __launch_bounds__(THREADS90, 1)
   const int wg = warpgroup();
   const int warp = (tid % WG) / 32;
   const int lane = tid % 32;
-  const long long bh_off = (long long)bh * T_len;
+  const long long bh_off = (long long)bh * Tq;
   if (wg == CONSUMERS) {
     // producer: K and V once, then Q, dO, lse and delta per slot
     setmaxnreg_dec<PRODUCER_REGS>();
@@ -818,7 +840,7 @@ __global__ void __launch_bounds__(THREADS90, 1)
         const int q0 = qt * ROWS;
         for (int i = lane; i < ROWS; i += 32) {
           const int t = q0 + i;
-          const bool in = t < T_len;
+          const bool in = t < Tq;
           lse_s[s * ROWS + i] = in ? p.lse[bh_off + t] * LOG2E : 0.0f;
           dlt_s[s * ROWS + i] = in ? p.delta[bh_off + t] : 0.0f;
         }
@@ -841,7 +863,7 @@ __global__ void __launch_bounds__(THREADS90, 1)
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int t = row0 + 8 * j;
-      kok[j] = t < T_len && (p.kmask == nullptr || p.kmask[(long long)b * T_len + t] > 0.0f);
+      kok[j] = t < Tk && (p.kmask == nullptr || p.kmask[(long long)b * Tk + t] > 0.0f);
     }
     const float sl2 = p.scale * LOG2E;
     float dk[NC][G::CHUNK / 2], dv[NC][G::CHUNK / 2];
@@ -863,7 +885,7 @@ __global__ void __launch_bounds__(THREADS90, 1)
       bar_wait(&full[s], (it / STAGES) & 1);
       // under a causal mask the first query tile lies wholly above the
       // second warpgroup's keys
-      if (!(p.causal && q0 + ROWS - 1 < wk0)) {
+      if (!(p.causal && q0 + ROWS - 1 + shift < wk0)) {
         const float* ls = lse_s + s * ROWS;
         const float* dl = dlt_s + s * ROWS;
         // two halves of 32 queries, one after the other, so that S^T, dP^T
@@ -889,7 +911,7 @@ __global__ void __launch_bounds__(THREADS90, 1)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const int t = q0 + col + e;
-              const bool ok = kok[j] && t < T_len && (!p.causal || key <= t);
+              const bool ok = kok[j] && t < Tq && (!p.causal || key <= t + shift);
               pr[e] = ok ? exp2f(fmaf(sc[i + e], sl2, -ls[col + e])) : 0.0f;
               ds[e] = pr[e] * (dp[i + e] - dl[col + e]);
             }
@@ -911,8 +933,8 @@ __global__ void __launch_bounds__(THREADS90, 1)
       __syncwarp();
       if (lane == 0) bar_arrive(&empty[s]);
     }
-    store_rows<T, D, NC>(static_cast<T*>(p.g0), dk, p.scale, row0, lane, b, h, T_len, p.H, c0);
-    store_rows<T, D, NC>(static_cast<T*>(p.g1), dv, 1.0f, row0, lane, b, h, T_len, p.H, c0);
+    store_rows<T, D, NC>(static_cast<T*>(p.g0), dk, p.scale, row0, lane, b, h, Tk, p.H, c0);
+    store_rows<T, D, NC>(static_cast<T*>(p.g1), dv, 1.0f, row0, lane, b, h, Tk, p.H, c0);
   }
 }
 
@@ -922,17 +944,19 @@ __global__ void __launch_bounds__(THREADS90, 1)
 
 template <typename T, int D>
 int make_params90(Params90* q, const Params& p) {
-  int rc = encode_map<T, D>(&q->q, p.q, p.B, p.T, p.H, p.q_sb, p.q_st, p.q_sh);
-  if (rc == 0) rc = encode_map<T, D>(&q->k, p.k, p.B, p.T, p.H, p.k_sb, p.k_st, p.k_sh);
-  if (rc == 0) rc = encode_map<T, D>(&q->v, p.v, p.B, p.T, p.H, p.v_sb, p.v_st, p.v_sh);
-  if (rc == 0) rc = encode_map<T, D>(&q->o, p.dout, p.B, p.T, p.H, p.o_sb, p.o_st, p.o_sh);
+  int rc = encode_map<T, D>(&q->q, p.q, p.B, p.Tq, p.H, p.q_sb, p.q_st, p.q_sh);
+  if (rc == 0) rc = encode_map<T, D>(&q->k, p.k, p.B, p.Tk, p.H, p.k_sb, p.k_st, p.k_sh);
+  if (rc == 0) rc = encode_map<T, D>(&q->v, p.v, p.B, p.Tk, p.H, p.v_sb, p.v_st, p.v_sh);
+  if (rc == 0) rc = encode_map<T, D>(&q->o, p.dout, p.B, p.Tq, p.H, p.o_sb, p.o_st, p.o_sh);
   q->lse = p.lse;
   q->delta = p.delta;
   q->kmask = p.kmask;
   q->B = p.B;
-  q->T = p.T;
+  q->Tq = p.Tq;
+  q->Tk = p.Tk;
   q->H = p.H;
   q->causal = p.causal;
+  q->shift = p.q_off - p.k_off;
   q->scale = p.scale;
   return rc;
 }
@@ -945,7 +969,7 @@ struct F32 {
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L::bytes));
     if (e != cudaSuccess) return static_cast<int>(e);
-    const dim3 grid((p.T + TILE - 1) / TILE, p.B * p.H);
+    const dim3 grid((p.Tq + TILE - 1) / TILE, p.B * p.H);
     flash_bwd_dq_kernel<float, D><<<grid, THREADS, L::bytes, stream>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
@@ -955,7 +979,7 @@ struct F32 {
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L::bytes));
     if (e != cudaSuccess) return static_cast<int>(e);
-    const dim3 grid((p.T + TILE - 1) / TILE, p.B * p.H);
+    const dim3 grid((p.Tk + TILE - 1) / TILE, p.B * p.H);
     flash_bwd_dkv_kernel<float, D><<<grid, THREADS, L::bytes, stream>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
@@ -974,7 +998,7 @@ struct Wgmma {
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L::bytes));
     if (e != cudaSuccess) return static_cast<int>(e);
-    const int blocks = (p.T + Cfg<D>::OWN - 1) / Cfg<D>::OWN * (p.B * p.H);
+    const int blocks = (p.Tq + Cfg<D>::OWN - 1) / Cfg<D>::OWN * (p.B * p.H);
     flash_bwd_dq_wgmma_kernel<T, D><<<blocks, THREADS90, L::bytes, stream>>>(q);
     return static_cast<int>(cudaGetLastError());
   }
@@ -989,7 +1013,7 @@ struct Wgmma {
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L::bytes));
     if (e != cudaSuccess) return static_cast<int>(e);
-    const int blocks = (p.T + Cfg<D>::OWN - 1) / Cfg<D>::OWN * (p.B * p.H);
+    const int blocks = (p.Tk + Cfg<D>::OWN - 1) / Cfg<D>::OWN * (p.B * p.H);
     flash_bwd_dkv_wgmma_kernel<T, D><<<blocks, THREADS90, L::bytes, stream>>>(q);
     return static_cast<int>(cudaGetLastError());
   }
@@ -1031,8 +1055,8 @@ long long smem_16(int which, int D) {
 
 Params make_params(const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* delta, const float* kmask,
-                   int B, int T, int H, int causal, float scale,
-                   const long long* strides) {
+                   int B, int Tq, int Tk, int H, int causal, int q_off, int k_off,
+                   float scale, const long long* strides) {
   Params p;
   p.q = q;
   p.k = k;
@@ -1049,9 +1073,12 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
   p.v_sb = strides[6]; p.v_st = strides[7]; p.v_sh = strides[8];
   p.o_sb = strides[9]; p.o_st = strides[10]; p.o_sh = strides[11];
   p.B = B;
-  p.T = T;
+  p.Tq = Tq;
+  p.Tk = Tk;
   p.H = H;
   p.causal = causal;
+  p.q_off = q_off;
+  p.k_off = k_off;
   p.scale = scale;
   return p;
 }
@@ -1068,26 +1095,31 @@ int run(int which, Params& p, int D, int dtype, void* stream) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16; D in 32, 64, 128, 256. `strides` holds 12 element strides: the
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; D in 32, 64, 128, 256. q, dout
+// and dq [B, Tq, H, D], k, v, dk and dv [B, Tk, H, D], lse and delta [B, H, Tq],
+// kmask [B, Tk]; q_off and k_off the absolute positions of query 0 and key 0.
+// `strides` holds 12 element strides: the
 // B, T, H strides of q, k, v and dout, in that order. Returns 0 on a clean
 // launch, a negative code of our own (flash_bwd_error_string) or the
 // cudaError_t code.
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                  const float* lse, const float* delta, const float* kmask,
-                 void* dq, int B, int T, int H, int D, int dtype, int causal,
-                 float scale, const long long* strides, void* stream) {
-  Params p = make_params(q, k, v, dout, lse, delta, kmask, B, T, H, causal, scale,
-                         strides);
+                 void* dq, int B, int Tq, int Tk, int H, int D, int dtype, int causal,
+                 int q_off, int k_off, float scale, const long long* strides,
+                 void* stream) {
+  Params p = make_params(q, k, v, dout, lse, delta, kmask, B, Tq, Tk, H, causal, q_off,
+                         k_off, scale, strides);
   p.dq = dq;
   return run(0, p, D, dtype, stream);
 }
 
 int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                   const float* lse, const float* delta, const float* kmask,
-                  void* dk, void* dv, int B, int T, int H, int D, int dtype,
-                  int causal, float scale, const long long* strides, void* stream) {
-  Params p = make_params(q, k, v, dout, lse, delta, kmask, B, T, H, causal, scale,
-                         strides);
+                  void* dk, void* dv, int B, int Tq, int Tk, int H, int D, int dtype,
+                  int causal, int q_off, int k_off, float scale, const long long* strides,
+                  void* stream) {
+  Params p = make_params(q, k, v, dout, lse, delta, kmask, B, Tq, Tk, H, causal, q_off,
+                         k_off, scale, strides);
   p.dk = dk;
   p.dv = dv;
   return run(1, p, D, dtype, stream);

@@ -22,6 +22,21 @@
 //   by validity, flash_bwd.cu). p is rounded to the operand type before
 //   p . v (flash_attention.py:108). Key tiles strictly above the causal
 //   diagonal are skipped.
+// - Queries and keys may differ in length (Tq, Tk) and sit at absolute
+//   offsets (q_off, k_off): the chunk entries flash_attention_block(_grad)
+//   attend one query chunk over one key chunk of a longer sequence (the
+//   TPU kernel's t_real_q / t_real_k and q_off / k_off). The causal rule
+//   compares absolute positions, k_off + k <= q_off + q, so in local
+//   indices a key k is allowed for a query q when k <= q + shift, shift =
+//   q_off - k_off; flash_attention passes Tq = Tk and offsets 0. Key
+//   validity is k < Tk (and the [B, Tk] key mask); rows q >= Tq are never
+//   written. A row with no valid key (a chunk wholly in its future, or a
+//   kmask of zeros) gets lse <= -1e29 and a finite output, so its merge
+//   weight exp(lse - logsumexp) is exactly 0. Every early exit (the key
+//   loop's end, a warpgroup's skipped tile, the validity test) is taken
+//   against the shifted diagonal, which the causal mask makes monotone:
+//   once a tile lies wholly above it for a row range, so does every later
+//   tile, and the longest-first block order stays the longest first.
 //
 // bf16 and f16: flash_fwd_wgmma_kernel<T, D>, FlashAttention-3's forward
 // shape without its intra-warpgroup overlap (f16 takes the same layouts and
@@ -96,12 +111,13 @@ struct Params {
   const void* v;
   const float* kmask;   // [B, T] key validity (>0 = real key) or nullptr
   void* o;              // [B, T, H, D] contiguous, input dtype
-  float* lse;           // [B, H, T] contiguous
+  float* lse;           // [B, H, Tq] contiguous
   long long q_sb, q_st, q_sh;   // element strides of q over B, T, H
   long long k_sb, k_st, k_sh;
   long long v_sb, v_st, v_sh;
-  int B, T, H;
+  int B, Tq, Tk, H;     // q and out [B, Tq, H, D]; k, v [B, Tk, H, D]; kmask [B, Tk]
   int causal;
+  int q_off, k_off;     // absolute positions of query 0 and key 0 (causal rule)
   float scale;
 };
 
@@ -248,14 +264,15 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int q0 = qt * BQ;
-  const int T_len = p.T;
+  const int Tq = p.Tq, Tk = p.Tk;
+  const int shift = p.q_off - p.k_off;   // key k is allowed for query q iff k <= q + shift
 
   const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
 
   constexpr int DC = Chunk<D>::DC, NCH = Chunk<D>::N;
-  if constexpr (NCH == 1) load_rows<D, L::LD>(Qs, qb, p.q_st, q0, T_len, tid);
+  if constexpr (NCH == 1) load_rows<D, L::LD>(Qs, qb, p.q_st, q0, Tq, tid);
   for (int i = tid; i < BQ * L::LDO; i += THREADS) Os[i] = 0.0f;
   __syncthreads();
 
@@ -272,28 +289,31 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
   float m_run = NEG_BIG;
   float l_run = 0.0f;
 
-  int n_kt = (T_len + BK - 1) / BK;
-  if (p.causal) n_kt = min(n_kt, qt + 1);   // skip tiles above the diagonal
+  int n_kt = (Tk + BK - 1) / BK;
+  if (p.causal) {   // skip tiles above the (shifted) diagonal
+    const int last = q0 + BQ - 1 + shift;   // the last key a row of the block may see
+    n_kt = last < 0 ? 0 : min(n_kt, last / BK + 1);
+  }
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();   // every warp is done with the previous K/V tile
     for (int i = tid; i < BK; i += THREADS) {
       const int t = k0 + i;
-      bool ok = t < T_len;
-      if (ok && p.kmask != nullptr) ok = p.kmask[(long long)b * T_len + t] > 0.0f;
+      bool ok = t < Tk;
+      if (ok && p.kmask != nullptr) ok = p.kmask[(long long)b * Tk + t] > 0.0f;
       kvalid[i] = ok ? 1.0f : 0.0f;
     }
     if constexpr (NCH == 1) {
-      load_rows<D, L::LD>(Ks, kb, p.k_st, k0, T_len, tid);
-      load_rows<D, L::LD>(Vs, vb, p.v_st, k0, T_len, tid);
+      load_rows<D, L::LD>(Ks, kb, p.k_st, k0, Tk, tid);
+      load_rows<D, L::LD>(Vs, vb, p.v_st, k0, Tk, tid);
       __syncthreads();
       scores<D, D, false>(Q_warp, Ks, S_warp, lane);
     } else {   // the scores summed over the chunks of D
       for (int c = 0; c < NCH; ++c) {
         if (c > 0) __syncthreads();   // every warp is done with the previous chunk
-        load_rows<DC, L::LD>(Qs, qb + c * DC, p.q_st, q0, T_len, tid);
-        load_rows<DC, L::LD>(Ks, kb + c * DC, p.k_st, k0, T_len, tid);
+        load_rows<DC, L::LD>(Qs, qb + c * DC, p.q_st, q0, Tq, tid);
+        load_rows<DC, L::LD>(Ks, kb + c * DC, p.k_st, k0, Tk, tid);
         __syncthreads();
         if (c == 0) scores<D, DC, false>(Q_warp, Ks, S_warp, lane);
         else scores<D, DC, true>(Q_warp, Ks, S_warp, lane);
@@ -310,7 +330,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
     for (int j = 0; j < 32; ++j) {
       const int c = half * 32 + j;
       float s = srow[j] * p.scale;
-      const bool ok = kvalid[c] > 0.0f && (!p.causal || k0 + c <= qpos);
+      const bool ok = kvalid[c] > 0.0f && (!p.causal || k0 + c <= qpos + shift);
       s = ok ? s : NEG_BIG;
       sv[j] = s;
       mx = fmaxf(mx, s);
@@ -343,7 +363,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
     } else {   // the output written chunk by chunk of D
       for (int c = 0; c < NCH; ++c) {
         __syncthreads();   // every warp is done with the previous V chunk
-        load_rows<DC, L::LD>(Vs, vb + c * DC, p.v_st, k0, T_len, tid);
+        load_rows<DC, L::LD>(Vs, vb + c * DC, p.v_st, k0, Tk, tid);
         __syncthreads();
         accumulate<D, DC>(P_warp, Vs, O_warp + c * DC, lane);
       }
@@ -353,8 +373,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
   __syncwarp();
   if (half == 0) {
     l_s[row] = l_run;
-    if (qpos < T_len) {
-      p.lse[((long long)b * p.H + h) * T_len + qpos] = m_run + logf(fmaxf(l_run, 1e-30f));
+    if (qpos < Tq) {
+      p.lse[((long long)b * p.H + h) * Tq + qpos] = m_run + logf(fmaxf(l_run, 1e-30f));
     }
   }
   __syncwarp();
@@ -364,8 +384,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
     const int c = i % D;
     const int rw = warp * WROWS + rr;
     const int t = q0 + rw;
-    if (t < T_len) {
-      ob[(((long long)b * T_len + t) * p.H + h) * D + c] =
+    if (t < Tq) {
+      ob[(((long long)b * Tq + t) * p.H + h) * D + c] =
           O_warp[rr * L::LDO + c] / fmaxf(l_s[rw], 1e-30f);
     }
   }
@@ -382,11 +402,12 @@ constexpr float NEG_BIG2 = NEG_BIG * LOG2E;     // NEG_BIG in the log2 units of 
 constexpr float LN2 = 0.6931471805599453f;
 
 struct Params90 {
-  CUtensorMap q, k, v;   // [B, T, H, D] views, boxes of 64 rows
-  const float* kmask;
-  void* o;               // [B, T, H, D] contiguous, the operand type
-  float* lse;            // [B, H, T] contiguous
-  int B, T, H, causal;
+  CUtensorMap q, k, v;   // [B, Tq, H, D] and [B, Tk, H, D] views, boxes of 64 rows
+  const float* kmask;    // [B, Tk]
+  void* o;               // [B, Tq, H, D] contiguous, the operand type
+  float* lse;            // [B, H, Tq] contiguous
+  int B, Tq, Tk, H, causal;
+  int shift;             // q_off - k_off: key k is allowed for query q iff k <= q + shift
   float scale;
 };
 
@@ -504,17 +525,19 @@ __global__ void __launch_bounds__(THREADS90, 1)
   float* kval = reinterpret_cast<float*>(smem + L::kv);
   int* kflag = reinterpret_cast<int*>(smem + L::flag);
 
-  const int T_len = p.T;
+  const int Tq = p.Tq, Tk = p.Tk, shift = p.shift;
   const int BH = p.B * p.H;
-  const int n_qb = (T_len + BLOCK_ROWS - 1) / BLOCK_ROWS;
+  const int n_qb = (Tq + BLOCK_ROWS - 1) / BLOCK_ROWS;
   int bh, qb;
   block_coords(blockIdx.x, BH, n_qb, p.causal, bh, qb);
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int q0 = qb * BLOCK_ROWS;
-  const int n_k = (T_len + BKW - 1) / BKW;
+  const int n_k = (Tk + BKW - 1) / BKW;
   // under a causal mask the block's last query, q0 + 127, ends its key tiles
-  const int n_kt = p.causal ? min(n_k, (q0 + BLOCK_ROWS - 1) / BKW + 1) : n_k;
+  // at key q0 + 127 + shift (none when that lies before key 0)
+  const int last = q0 + BLOCK_ROWS - 1 + shift;
+  const int n_kt = p.causal ? (last < 0 ? 0 : min(n_k, last / BKW + 1)) : n_k;
 
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -545,8 +568,8 @@ __global__ void __launch_bounds__(THREADS90, 1)
         bool all_ok = true;
         for (int i = lane; i < BKW; i += 32) {
           const int t = k0 + i;
-          bool ok = t < T_len;
-          if (ok && p.kmask != nullptr) ok = p.kmask[(long long)b * T_len + t] > 0.0f;
+          bool ok = t < Tk;
+          if (ok && p.kmask != nullptr) ok = p.kmask[(long long)b * Tk + t] > 0.0f;
           kval[s * BKW + i] = ok ? 1.0f : 0.0f;
           all_ok = all_ok && ok;
         }
@@ -581,7 +604,7 @@ __global__ void __launch_bounds__(THREADS90, 1)
       const uint32_t k_tile = base + L::k + s * L::TILE;
       bar_wait(&full[s], (kt / STAGES) & 1);
       // under a causal mask a key tile may lie wholly above this warpgroup's rows
-      if (!(p.causal && k0 > wq0 + ROWS - 1)) {
+      if (!(p.causal && k0 > wq0 + ROWS - 1 + shift)) {
         float sc[BKW / 2];
         wg_fence();
 #pragma unroll
@@ -594,13 +617,13 @@ __global__ void __launch_bounds__(THREADS90, 1)
         // x = s * scale * log2(e), or NEG_BIG2 where the pair is masked; only
         // a tile that crosses the diagonal, T or a masked key tests validity
         float mul = sl2;
-        if (kflag[s] || (p.causal && k0 + BKW - 1 > wq0)) {
+        if (kflag[s] || (p.causal && k0 + BKW - 1 > wq0 + shift)) {
           const float* kv = kval + s * BKW;
 #pragma unroll
           for (int i = 0; i < BKW / 2; ++i) {
             const int col = frag_col(i, lane);
             const int t = row0 + 8 * ((i >> 1) & 1);
-            const bool ok = kv[col] > 0.0f && (!p.causal || k0 + col <= t);
+            const bool ok = kv[col] > 0.0f && (!p.causal || k0 + col <= t + shift);
             sc[i] = ok ? sc[i] * sl2 : NEG_BIG2;
           }
           mul = 1.0f;
@@ -652,9 +675,9 @@ __global__ void __launch_bounds__(THREADS90, 1)
       const float lc = fmaxf(l[j], 1e-30f);
       inv_l[j] = 1.0f / lc;
       const int t = row0 + 8 * j;
-      if ((lane & 3) == 0 && t < T_len) p.lse[(long long)bh * T_len + t] = (m2[j] + log2f(lc)) * LN2;
+      if ((lane & 3) == 0 && t < Tq) p.lse[(long long)bh * Tq + t] = (m2[j] + log2f(lc)) * LN2;
     }
-    store_out<T, D>(static_cast<T*>(p.o), o, inv_l, row0, lane, b, h, T_len, p.H);
+    store_out<T, D>(static_cast<T*>(p.o), o, inv_l, row0, lane, b, h, Tq, p.H);
   }
 }
 
@@ -669,7 +692,7 @@ int launch_f32(const Params& p, cudaStream_t stream) {
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(L::bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((p.T + BQ - 1) / BQ, p.B * p.H);
+  const dim3 grid((p.Tq + BQ - 1) / BQ, p.B * p.H);
   flash_fwd_kernel<float, D><<<grid, THREADS, L::bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -678,23 +701,25 @@ template <typename T, int D>
 int launch16(const Params& p, cudaStream_t stream) {
   using L = FwdLayout<D>;
   Params90 q;
-  int rc = encode_map<T, D>(&q.q, p.q, p.B, p.T, p.H, p.q_sb, p.q_st, p.q_sh);
-  if (rc == 0) rc = encode_map<T, D>(&q.k, p.k, p.B, p.T, p.H, p.k_sb, p.k_st, p.k_sh);
-  if (rc == 0) rc = encode_map<T, D>(&q.v, p.v, p.B, p.T, p.H, p.v_sb, p.v_st, p.v_sh);
+  int rc = encode_map<T, D>(&q.q, p.q, p.B, p.Tq, p.H, p.q_sb, p.q_st, p.q_sh);
+  if (rc == 0) rc = encode_map<T, D>(&q.k, p.k, p.B, p.Tk, p.H, p.k_sb, p.k_st, p.k_sh);
+  if (rc == 0) rc = encode_map<T, D>(&q.v, p.v, p.B, p.Tk, p.H, p.v_sb, p.v_st, p.v_sh);
   if (rc != 0) return rc;
   q.kmask = p.kmask;
   q.o = p.o;
   q.lse = p.lse;
   q.B = p.B;
-  q.T = p.T;
+  q.Tq = p.Tq;
+  q.Tk = p.Tk;
   q.H = p.H;
   q.causal = p.causal;
+  q.shift = p.q_off - p.k_off;
   q.scale = p.scale;
   cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<T, D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(L::bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int blocks = (p.T + BLOCK_ROWS - 1) / BLOCK_ROWS * (p.B * p.H);
+  const int blocks = (p.Tq + BLOCK_ROWS - 1) / BLOCK_ROWS * (p.B * p.H);
   flash_fwd_wgmma_kernel<T, D><<<blocks, THREADS90, L::bytes, stream>>>(q);
   return static_cast<int>(cudaGetLastError());
 }
@@ -718,11 +743,14 @@ long long smem_bytes(int dtype) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16; D in 32, 64, 128, 256. Strides are in elements. Returns 0 on a clean launch, a
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; D in 32, 64, 128, 256. q and out
+// [B, Tq, H, D], k and v [B, Tk, H, D], kmask [B, Tk], lse [B, H, Tq]; q_off and
+// k_off the absolute positions of query 0 and key 0 (the causal rule compares
+// k_off + k <= q_off + q). Strides are in elements. Returns 0 on a clean launch, a
 // negative code of our own (flash_fwd_error_string) or the cudaError_t code.
 int flash_fwd(const void* q, const void* k, const void* v, const float* kmask,
-              void* out, float* lse, int B, int T, int H, int D, int dtype,
-              int causal, float scale, long long q_sb, long long q_st,
+              void* out, float* lse, int B, int Tq, int Tk, int H, int D, int dtype,
+              int causal, int q_off, int k_off, float scale, long long q_sb, long long q_st,
               long long q_sh, long long k_sb, long long k_st, long long k_sh,
               long long v_sb, long long v_st, long long v_sh, void* stream) {
   Params p;
@@ -736,9 +764,12 @@ int flash_fwd(const void* q, const void* k, const void* v, const float* kmask,
   p.k_sb = k_sb; p.k_st = k_st; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_st = v_st; p.v_sh = v_sh;
   p.B = B;
-  p.T = T;
+  p.Tq = Tq;
+  p.Tk = Tk;
   p.H = H;
   p.causal = causal;
+  p.q_off = q_off;
+  p.k_off = k_off;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {

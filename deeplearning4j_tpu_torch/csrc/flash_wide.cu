@@ -45,6 +45,11 @@
 //   the operand type, then dV += p^T . do and dK += ds^T . q chunk by chunk.
 // Every product is plain f32 FMAs (no TF32) in a fixed order and no
 // atomics are used, so a run repeats bit for bit.
+// Queries and keys may differ in length (Tq, Tk) and sit at absolute
+// offsets, as in flash_fwd.cu and flash_bwd.cu: the causal rule is
+// k_off + k <= q_off + q, a key k allowed for a query q when k <= q + shift
+// (shift = q_off - k_off), and the skipped tiles are those wholly above the
+// shifted diagonal.
 //
 // Bound (B=2, T=512, H=4, D=512, bf16, causal, one of the smoke's cases):
 // the forward's two products are 2 * 2 * B*H*T*T*D / 2 = 2.1 GFLOP, 2.2 us
@@ -95,19 +100,20 @@ struct Params {
   const void* k;
   const void* v;
   const void* dout;      // backward only
-  const float* lse;      // backward: [B, H, T]
-  const float* delta;    // backward: [B, H, T]
-  const float* kmask;    // [B, T] key validity (>0 = real key) or nullptr
-  void* o;               // forward: out; dq: dq; dk/dv: dk ([B, T, H, D] contiguous)
+  const float* lse;      // backward: [B, H, Tq]
+  const float* delta;    // backward: [B, H, Tq]
+  const float* kmask;    // [B, Tk] key validity (>0 = real key) or nullptr
+  void* o;               // forward: out; dq: dq ([B, Tq, H, D]); dk/dv: dk ([B, Tk, H, D])
   void* o2;              // dk/dv: dv
-  float* lse_out;        // forward: [B, H, T]
+  float* lse_out;        // forward: [B, H, Tq]
   long long q_sb, q_st, q_sh;   // element strides over B, T, H
   long long k_sb, k_st, k_sh;
   long long v_sb, v_st, v_sh;
   long long o_sb, o_st, o_sh;   // dout's
-  int B, T, H, D;
+  int B, Tq, Tk, H, D;   // q, dout [B, Tq, H, D]; k, v [B, Tk, H, D]
   int G;                 // columns of a group: the accumulators' row pitch
   int causal;
+  int shift;             // q_off - k_off: key k is allowed for query q iff k <= q + shift
   float scale;
 };
 
@@ -138,7 +144,17 @@ __device__ __forceinline__ void load_chunk(float* dst, const T* base, long long 
 }
 
 __device__ __forceinline__ bool key_ok(const Params& p, int b, int t) {
-  return t < p.T && (p.kmask == nullptr || p.kmask[(long long)b * p.T + t] > 0.f);
+  return t < p.Tk && (p.kmask == nullptr || p.kmask[(long long)b * p.Tk + t] > 0.f);
+}
+
+// Key tiles of KT keys a block of query rows [q0, q0 + rows) walks: all of
+// Tk's, or under a causal mask those up to its last row's last allowed key
+// (none when that lies before key 0).
+__device__ __forceinline__ int key_tiles(const Params& p, int q0, int rows) {
+  const int n = (p.Tk + KT - 1) / KT;
+  if (!p.causal) return n;
+  const int last = min(q0 + rows, p.Tq) - 1 + p.shift;
+  return last < 0 ? 0 : min(n, last / KT + 1);
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -159,7 +175,7 @@ __device__ __forceinline__ float warp_sum(float x) {
 template <typename T>
 __global__ void __launch_bounds__(THREADS) flash_wide_fwd_kernel(const Params p) {
   extern __shared__ __align__(16) float sm[];
-  const int D = p.D, T_len = p.T, G = p.G;
+  const int D = p.D, Tq = p.Tq, Tk = p.Tk, G = p.G;
   const int g0 = blockIdx.z * G, gw = min(G, D - g0);   // this block's columns
   float* Os = sm;                          // [QR][G] output accumulator
   float* Qc = Os + QR * G;                 // [QR][LDC]
@@ -184,8 +200,7 @@ __global__ void __launch_bounds__(THREADS) flash_wide_fwd_kernel(const Params p)
   }
   const int kk = tid % KT, rs0 = (tid / KT) * RPT;   // scores: one key, 8 rows
   const int cc = tid % DC, ro0 = (tid / DC) * RPT;   // output: one column, 8 rows
-  int n_kt = (T_len + KT - 1) / KT;
-  if (p.causal) n_kt = min(n_kt, (min(q0 + QR, T_len) - 1) / KT + 1);
+  const int n_kt = key_tiles(p, q0, QR);
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * KT;
@@ -194,8 +209,8 @@ __global__ void __launch_bounds__(THREADS) flash_wide_fwd_kernel(const Params p)
     for (int r = 0; r < RPT; ++r) acc[r] = 0.f;
     for (int c0 = 0; c0 < D; c0 += DC) {
       __syncthreads();   // every thread is done with the previous chunks
-      load_chunk(Qc, qb, p.q_st, q0, QR, T_len, c0, tid);
-      load_chunk(Kc, kb, p.k_st, k0, KT, T_len, c0, tid);
+      load_chunk(Qc, qb, p.q_st, q0, QR, Tq, c0, tid);
+      load_chunk(Kc, kb, p.k_st, k0, KT, Tk, c0, tid);
       if (c0 == 0 && tid < KT) kval[tid] = key_ok(p, b, k0 + tid) ? 1.f : 0.f;
       __syncthreads();
       const float* kr = Kc + kk * LDC;
@@ -209,7 +224,7 @@ __global__ void __launch_bounds__(THREADS) flash_wide_fwd_kernel(const Params p)
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
       const int row = rs0 + r;
-      const bool ok = kval[kk] > 0.f && (!p.causal || k0 + kk <= q0 + row);
+      const bool ok = kval[kk] > 0.f && (!p.causal || k0 + kk <= q0 + row + p.shift);
       Ps[row * (KT + 1) + kk] = ok ? acc[r] * p.scale : NEG_BIG;
     }
     __syncthreads();
@@ -235,7 +250,7 @@ __global__ void __launch_bounds__(THREADS) flash_wide_fwd_kernel(const Params p)
     // O = O * alpha + p . v, chunk by chunk of the group's columns
     for (int c0 = g0; c0 < g0 + gw; c0 += DC) {
       __syncthreads();   // p and alpha written; the previous V chunk read
-      load_chunk(Kc, vb, p.v_st, k0, KT, T_len, c0, tid);
+      load_chunk(Kc, vb, p.v_st, k0, KT, Tk, c0, tid);
       __syncthreads();
       float* orow = Os + c0 - g0 + cc;
       float o[RPT];
@@ -255,12 +270,12 @@ __global__ void __launch_bounds__(THREADS) flash_wide_fwd_kernel(const Params p)
   T* ob = static_cast<T*>(p.o);
   for (int i = tid; i < QR * gw; i += THREADS) {
     const int r = i / gw, c = i % gw, t = q0 + r;
-    if (t < T_len)
-      ob[(((long long)b * T_len + t) * p.H + h) * D + g0 + c] =
+    if (t < Tq)
+      ob[(((long long)b * Tq + t) * p.H + h) * D + g0 + c] =
           from_f<T>(Os[r * G + c] / fmaxf(l_s[r], 1e-30f));
   }
-  if (blockIdx.z == 0 && tid < QR && q0 + tid < T_len)
-    p.lse_out[(long long)bh * T_len + q0 + tid] = m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
+  if (blockIdx.z == 0 && tid < QR && q0 + tid < Tq)
+    p.lse_out[(long long)bh * Tq + q0 + tid] = m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
 }
 
 // ===========================================================================
@@ -270,7 +285,7 @@ __global__ void __launch_bounds__(THREADS) flash_wide_fwd_kernel(const Params p)
 template <typename T>
 __global__ void __launch_bounds__(THREADS) flash_wide_dq_kernel(const Params p) {
   extern __shared__ __align__(16) float sm[];
-  const int D = p.D, T_len = p.T, G = p.G;
+  const int D = p.D, Tq = p.Tq, Tk = p.Tk, G = p.G;
   const int g0 = blockIdx.z * G, gw = min(G, D - g0);   // this block's columns
   float* dQ = sm;                          // [QR][G]
   float* Qc = dQ + QR * G;                 // [QR][LDC]
@@ -293,13 +308,12 @@ __global__ void __launch_bounds__(THREADS) flash_wide_dq_kernel(const Params p) 
   for (int i = tid; i < QR * G; i += THREADS) dQ[i] = 0.f;
   if (tid < QR) {
     const int t = q0 + tid;
-    lse_s[tid] = t < T_len ? p.lse[(long long)bh * T_len + t] : 0.f;
-    delta_s[tid] = t < T_len ? p.delta[(long long)bh * T_len + t] : 0.f;
+    lse_s[tid] = t < Tq ? p.lse[(long long)bh * Tq + t] : 0.f;
+    delta_s[tid] = t < Tq ? p.delta[(long long)bh * Tq + t] : 0.f;
   }
   const int kk = tid % KT, rs0 = (tid / KT) * RPT;
   const int cc = tid % DC, ro0 = (tid / DC) * RPT;
-  int n_kt = (T_len + KT - 1) / KT;
-  if (p.causal) n_kt = min(n_kt, (min(q0 + QR, T_len) - 1) / KT + 1);
+  const int n_kt = key_tiles(p, q0, QR);
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * KT;
@@ -308,10 +322,10 @@ __global__ void __launch_bounds__(THREADS) flash_wide_dq_kernel(const Params p) 
     for (int r = 0; r < RPT; ++r) s[r] = dp[r] = 0.f;
     for (int c0 = 0; c0 < D; c0 += DC) {
       __syncthreads();
-      load_chunk(Qc, qb, p.q_st, q0, QR, T_len, c0, tid);
-      load_chunk(Oc, ob, p.o_st, q0, QR, T_len, c0, tid);
-      load_chunk(Kc, kb, p.k_st, k0, KT, T_len, c0, tid);
-      load_chunk(Vc, vb, p.v_st, k0, KT, T_len, c0, tid);
+      load_chunk(Qc, qb, p.q_st, q0, QR, Tq, c0, tid);
+      load_chunk(Oc, ob, p.o_st, q0, QR, Tq, c0, tid);
+      load_chunk(Kc, kb, p.k_st, k0, KT, Tk, c0, tid);
+      load_chunk(Vc, vb, p.v_st, k0, KT, Tk, c0, tid);
       if (c0 == 0 && tid < KT) kval[tid] = key_ok(p, b, k0 + tid) ? 1.f : 0.f;
       __syncthreads();
       const float* kr = Kc + kk * LDC;
@@ -329,14 +343,14 @@ __global__ void __launch_bounds__(THREADS) flash_wide_dq_kernel(const Params p) 
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
       const int row = rs0 + r, qpos = q0 + row;
-      const bool ok = qpos < T_len && kval[kk] > 0.f && (!p.causal || k0 + kk <= qpos);
+      const bool ok = qpos < Tq && kval[kk] > 0.f && (!p.causal || k0 + kk <= qpos + p.shift);
       const float pv = ok ? expf(s[r] * p.scale - lse_s[row]) : 0.f;
       DS[row * (KT + 1) + kk] = round_to<T>(pv * (dp[r] - delta_s[row]));
     }
     // dQ += ds . k, chunk by chunk of the group's columns
     for (int c0 = g0; c0 < g0 + gw; c0 += DC) {
       __syncthreads();   // ds written; the previous K chunk read
-      load_chunk(Kc, kb, p.k_st, k0, KT, T_len, c0, tid);
+      load_chunk(Kc, kb, p.k_st, k0, KT, Tk, c0, tid);
       __syncthreads();
       float* qrow = dQ + c0 - g0 + cc;
       float a[RPT];
@@ -356,8 +370,8 @@ __global__ void __launch_bounds__(THREADS) flash_wide_dq_kernel(const Params p) 
   T* out = static_cast<T*>(p.o);
   for (int i = tid; i < QR * gw; i += THREADS) {
     const int r = i / gw, c = i % gw, t = q0 + r;
-    if (t < T_len)
-      out[(((long long)b * T_len + t) * p.H + h) * D + g0 + c] = from_f<T>(dQ[r * G + c] * p.scale);
+    if (t < Tq)
+      out[(((long long)b * Tq + t) * p.H + h) * D + g0 + c] = from_f<T>(dQ[r * G + c] * p.scale);
   }
 }
 
@@ -368,7 +382,7 @@ __global__ void __launch_bounds__(THREADS) flash_wide_dq_kernel(const Params p) 
 template <typename T>
 __global__ void __launch_bounds__(THREADS) flash_wide_dkv_kernel(const Params p) {
   extern __shared__ __align__(16) float sm[];
-  const int D = p.D, T_len = p.T, G = p.G;
+  const int D = p.D, Tq = p.Tq, Tk = p.Tk, G = p.G;
   const int g0 = blockIdx.z * G, gw = min(G, D - g0);   // this block's columns
   float* dK = sm;                          // [KR][G]
   float* dV = dK + KR * G;                 // [KR][G]
@@ -394,8 +408,10 @@ __global__ void __launch_bounds__(THREADS) flash_wide_dkv_kernel(const Params p)
   if (tid < KR) kval[tid] = key_ok(p, b, k0 + tid) ? 1.f : 0.f;
   const int qq = tid % QT, ks0 = (tid / QT) * KPT;   // scores: one query, 4 keys
   const int cc = tid % DC, ko0 = (tid / DC) * KPT;   // sums: one column, 4 keys
-  const int n_qt = (T_len + QT - 1) / QT;
-  const int qt0 = p.causal ? k0 / QT : 0;   // query tiles wholly before the keys see none
+  const int n_qt = (Tq + QT - 1) / QT;
+  // query tiles wholly before k0 - shift (the first query that may see key
+  // k0) see none of the keys
+  const int qt0 = p.causal && k0 - p.shift > 0 ? (k0 - p.shift) / QT : 0;
 
   for (int qt = qt0; qt < n_qt; ++qt) {
     const int qs0 = qt * QT;
@@ -404,14 +420,14 @@ __global__ void __launch_bounds__(THREADS) flash_wide_dkv_kernel(const Params p)
     for (int r = 0; r < KPT; ++r) s[r] = dp[r] = 0.f;
     for (int c0 = 0; c0 < D; c0 += DC) {
       __syncthreads();
-      load_chunk(Qc, qb, p.q_st, qs0, QT, T_len, c0, tid);
-      load_chunk(Oc, ob, p.o_st, qs0, QT, T_len, c0, tid);
-      load_chunk(Kc, kb, p.k_st, k0, KR, T_len, c0, tid);
-      load_chunk(Vc, vb, p.v_st, k0, KR, T_len, c0, tid);
+      load_chunk(Qc, qb, p.q_st, qs0, QT, Tq, c0, tid);
+      load_chunk(Oc, ob, p.o_st, qs0, QT, Tq, c0, tid);
+      load_chunk(Kc, kb, p.k_st, k0, KR, Tk, c0, tid);
+      load_chunk(Vc, vb, p.v_st, k0, KR, Tk, c0, tid);
       if (c0 == 0 && tid < QT) {
         const int t = qs0 + tid;
-        lse_s[tid] = t < T_len ? p.lse[(long long)bh * T_len + t] : 0.f;
-        delta_s[tid] = t < T_len ? p.delta[(long long)bh * T_len + t] : 0.f;
+        lse_s[tid] = t < Tq ? p.lse[(long long)bh * Tq + t] : 0.f;
+        delta_s[tid] = t < Tq ? p.delta[(long long)bh * Tq + t] : 0.f;
       }
       __syncthreads();
       const float* qr = Qc + qq * LDC;
@@ -429,7 +445,7 @@ __global__ void __launch_bounds__(THREADS) flash_wide_dkv_kernel(const Params p)
 #pragma unroll
     for (int r = 0; r < KPT; ++r) {
       const int key = ks0 + r, qpos = qs0 + qq;
-      const bool ok = qpos < T_len && kval[key] > 0.f && (!p.causal || k0 + key <= qpos);
+      const bool ok = qpos < Tq && kval[key] > 0.f && (!p.causal || k0 + key <= qpos + p.shift);
       const float pv = ok ? expf(s[r] * p.scale - lse_s[qq]) : 0.f;
       PT[key * (QT + 1) + qq] = round_to<T>(pv);
       DST[key * (QT + 1) + qq] = round_to<T>(pv * (dp[r] - delta_s[qq]));
@@ -437,8 +453,8 @@ __global__ void __launch_bounds__(THREADS) flash_wide_dkv_kernel(const Params p)
     // dV += p^T . do, dK += ds^T . q, chunk by chunk of the group's columns
     for (int c0 = g0; c0 < g0 + gw; c0 += DC) {
       __syncthreads();   // p^T and ds^T written; the previous chunks read
-      load_chunk(Qc, qb, p.q_st, qs0, QT, T_len, c0, tid);
-      load_chunk(Oc, ob, p.o_st, qs0, QT, T_len, c0, tid);
+      load_chunk(Qc, qb, p.q_st, qs0, QT, Tq, c0, tid);
+      load_chunk(Oc, ob, p.o_st, qs0, QT, Tq, c0, tid);
       __syncthreads();
       float* vrow = dV + c0 - g0 + cc;
       float* krow = dK + c0 - g0 + cc;
@@ -469,8 +485,8 @@ __global__ void __launch_bounds__(THREADS) flash_wide_dkv_kernel(const Params p)
   T* dv = static_cast<T*>(p.o2);
   for (int i = tid; i < KR * gw; i += THREADS) {
     const int r = i / gw, c = i % gw, t = k0 + r;
-    if (t < T_len) {
-      const long long at = (((long long)b * T_len + t) * p.H + h) * D + g0 + c;
+    if (t < Tk) {
+      const long long at = (((long long)b * Tk + t) * p.H + h) * D + g0 + c;
       dk[at] = from_f<T>(dK[r * G + c] * p.scale);
       dv[at] = from_f<T>(dV[r * G + c]);
     }
@@ -513,7 +529,8 @@ int launch_kernel(K kernel, int which, Params p, cudaStream_t stream) {
                                        static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int rows = which == 2 ? KR : QR;
-  kernel<<<dim3((p.T + rows - 1) / rows, p.B * p.H, n_groups(which, p.D)), THREADS, bytes,
+  const int T_own = which == 2 ? p.Tk : p.Tq;   // the rows blocks own: keys or queries
+  kernel<<<dim3((T_own + rows - 1) / rows, p.B * p.H, n_groups(which, p.D)), THREADS, bytes,
            stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -526,7 +543,7 @@ int launch_typed(int which, const Params& p, cudaStream_t stream) {
 }
 
 int run(int which, const Params& p, int dtype, void* stream) {
-  if (!supported(p.D) || p.B < 1 || p.T < 1 || p.H < 1) return ERR_UNSUPPORTED;
+  if (!supported(p.D) || p.B < 1 || p.Tq < 1 || p.Tk < 1 || p.H < 1) return ERR_UNSUPPORTED;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_typed<float>(which, p, s);
   if (dtype == 1) return launch_typed<bf16>(which, p, s);
@@ -534,18 +551,20 @@ int run(int which, const Params& p, int dtype, void* stream) {
   return ERR_UNSUPPORTED;
 }
 
-Params common(const void* q, const void* k, const void* v, const float* kmask, int B, int T,
-              int H, int D, int causal, float scale) {
+Params common(const void* q, const void* k, const void* v, const float* kmask, int B, int Tq,
+              int Tk, int H, int D, int causal, int q_off, int k_off, float scale) {
   Params p = {};
   p.q = q;
   p.k = k;
   p.v = v;
   p.kmask = kmask;
   p.B = B;
-  p.T = T;
+  p.Tq = Tq;
+  p.Tk = Tk;
   p.H = H;
   p.D = D;
   p.causal = causal;
+  p.shift = q_off - k_off;
   p.scale = scale;
   return p;
 }
@@ -556,15 +575,15 @@ extern "C" {
 
 // The forward, with flash_fwd's arguments: dtype 0 = float32, 1 = bfloat16,
 // 2 = float16; D any multiple of 64 (past what one block holds, in column
-// groups: flash_wide_groups); strides in elements; out [B, T, H, D] contiguous,
-// lse [B, H, T]. Returns 0 on a clean launch, -1 for an unsupported dtype or
+// groups: flash_wide_groups); strides in elements; out [B, Tq, H, D] contiguous,
+// lse [B, H, Tq]. Returns 0 on a clean launch, -1 for an unsupported dtype or
 // head dim, else the cudaError_t code.
 int flash_wide_fwd(const void* q, const void* k, const void* v, const float* kmask, void* out,
-                   float* lse, int B, int T, int H, int D, int dtype, int causal, float scale,
-                   long long q_sb, long long q_st, long long q_sh, long long k_sb,
-                   long long k_st, long long k_sh, long long v_sb, long long v_st,
-                   long long v_sh, void* stream) {
-  Params p = common(q, k, v, kmask, B, T, H, D, causal, scale);
+                   float* lse, int B, int Tq, int Tk, int H, int D, int dtype, int causal,
+                   int q_off, int k_off, float scale, long long q_sb, long long q_st,
+                   long long q_sh, long long k_sb, long long k_st, long long k_sh,
+                   long long v_sb, long long v_st, long long v_sh, void* stream) {
+  Params p = common(q, k, v, kmask, B, Tq, Tk, H, D, causal, q_off, k_off, scale);
   p.o = out;
   p.lse_out = lse;
   p.q_sb = q_sb; p.q_st = q_st; p.q_sh = q_sh;
@@ -575,12 +594,12 @@ int flash_wide_fwd(const void* q, const void* k, const void* v, const float* kma
 
 // The backward kernels, with flash_bwd_dq's and flash_bwd_dkv's arguments:
 // `strides` holds 12 element strides, the B, T, H strides of q, k, v and
-// dout in that order; lse and delta are contiguous f32 [B, H, T].
+// dout in that order; lse and delta are contiguous f32 [B, H, Tq].
 int flash_wide_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, const float* kmask, void* dq,
-                      int B, int T, int H, int D, int dtype, int causal, float scale,
-                      const long long* strides, void* stream) {
-  Params p = common(q, k, v, kmask, B, T, H, D, causal, scale);
+                      int B, int Tq, int Tk, int H, int D, int dtype, int causal, int q_off,
+                      int k_off, float scale, const long long* strides, void* stream) {
+  Params p = common(q, k, v, kmask, B, Tq, Tk, H, D, causal, q_off, k_off, scale);
   p.dout = dout;
   p.lse = lse;
   p.delta = delta;
@@ -594,9 +613,10 @@ int flash_wide_bwd_dq(const void* q, const void* k, const void* v, const void* d
 
 int flash_wide_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, const float* kmask, void* dk,
-                       void* dv, int B, int T, int H, int D, int dtype, int causal,
-                       float scale, const long long* strides, void* stream) {
-  Params p = common(q, k, v, kmask, B, T, H, D, causal, scale);
+                       void* dv, int B, int Tq, int Tk, int H, int D, int dtype, int causal,
+                       int q_off, int k_off, float scale, const long long* strides,
+                       void* stream) {
+  Params p = common(q, k, v, kmask, B, Tq, Tk, H, D, causal, q_off, k_off, scale);
   p.dout = dout;
   p.lse = lse;
   p.delta = delta;

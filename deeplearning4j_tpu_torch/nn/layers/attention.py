@@ -1,9 +1,16 @@
 """Attention / transformer layers (PyTorch port of ``nn/layers/attention.py``).
 
 - ``MultiHeadAttention``: fused qkv projection ([C, 3C], one matmul),
-  optional causal masking, attention core in ``_attend``.
+  optional causal masking, attention core in ``_attend``, and sequence
+  parallelism: with ``sequence_parallel=True`` under a mesh whose ``seq``
+  axis is larger than 1 (``parallel/context.py``), the core is ring
+  attention over that axis (``parallel/ring.py``), each rank holding one
+  time chunk.
 - ``TransformerBlock``: pre-LN block (LN→MHA→residual, LN→MLP→residual).
-- ``PositionalEmbedding``: learned positions added to token embeddings.
+- ``PositionalEmbedding``: learned positions added to token embeddings;
+  under a ``seq`` axis a rank's chunk takes positions ``[r T, (r + 1) T)``
+  of the table (GSPMD does that for the JAX package's global arrays; the
+  port's SPMD ranks hold their chunk alone).
 
 Parameters keep the JAX package's names and layouts (``Wqkv`` [C, 3C],
 ``Wo`` [C, C], ``Wi`` [C, F], ...; x @ W, not ``nn.Linear``'s [out, in]),
@@ -19,9 +26,12 @@ the kernels. ``DL4J_TPU_REMAT_BLOCKS=1`` (read at each call, as in the
 JAX package) recomputes each TransformerBlock's forward in the backward
 instead of keeping its activations (``torch.utils.checkpoint``,
 non-reentrant), so kernel #1 runs twice a block in a training step.
-Sequence parallelism, the decode path and block-size env knobs arrive with
-later slices; ``sequence_parallel`` is kept for serde parity and, as in the
-JAX package without a ``seq`` mesh axis, runs single-device attention.
+The ring takes the flash route (the chunk kernels) under
+``use_flash=True`` or under ``"auto"`` with CUDA tensors (the port's
+counterpart of "on TPU"), else the einsum ring; without a ``seq`` axis a
+``sequence_parallel`` layer runs single-device attention, as in the JAX
+package. The decode path and block-size env knobs arrive with later
+slices.
 """
 
 from __future__ import annotations
@@ -38,6 +48,14 @@ from deeplearning4j_tpu_torch.nn.config import LayerConfig, dropout, register_la
 from deeplearning4j_tpu_torch.nn.input_type import InputType
 from deeplearning4j_tpu_torch.nn.layers.normalization import layer_norm
 from deeplearning4j_tpu_torch.ops.flash_attention import flash_attention, local_attention
+from deeplearning4j_tpu_torch.parallel.context import current_mesh, mesh_axis_size
+from deeplearning4j_tpu_torch.parallel.ring import ring_self_attention
+
+
+def _seq_rank() -> int:
+    """This rank's coordinate on the active mesh's ``seq`` axis (0 without
+    one): the index of the time chunk it holds."""
+    return current_mesh().axis_index("seq") if mesh_axis_size("seq") > 1 else 0
 
 
 @register_layer("positional_embedding")
@@ -54,7 +72,8 @@ class PositionalEmbedding(LayerConfig):
 
     def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         T = x.shape[1]
-        return x + params["pos"][:T][None, :, :], state
+        off = _seq_rank() * T   # this rank's time chunk under a seq axis
+        return x + params["pos"][off:off + T][None, :, :], state
 
 
 @register_layer("multi_head_attention")
@@ -89,6 +108,10 @@ class MultiHeadAttention(LayerConfig):
         }
 
     def _attend(self, q, k, v, kmask=None):
+        if self.sequence_parallel and mesh_axis_size("seq") > 1:
+            flash = self.use_flash is True or (self.use_flash == "auto" and q.is_cuda)
+            return ring_self_attention(q, k, v, current_mesh(), causal=self.causal,
+                                       kmask=kmask, use_flash=flash)
         if self.use_flash in ("auto", True):
             return flash_attention(q, k, v, kmask=kmask, causal=self.causal)
         return local_attention(q, k, v, causal=self.causal, kmask=kmask)

@@ -3,7 +3,9 @@ GPU: flash attention (forward #1, its 16-bit wgmma kernel at ragged T, B*H
 = 1, on fused-qkv views, repeated and with rows without a valid key; every
 head dim up to 256 in bf16 and f16, zero-padded ones included, and the
 wide-head route past 256, in column groups past 2880; backward #2 dq and
-#3 dk/dv) with a tiny TransformerLM served and trained through them, the
+#3 dk/dv; the chunk entries with Tq != Tk, offsets and an lse cotangent,
+and the flash ring shard by shard) with a tiny TransformerLM served and
+trained through them, the
 fused LSTM (forward #4, backward #5; the cluster, wide and step routes, H up
 to 2048, f32, bf16 and f16) with a tiny TextGenerationLSTM and a seq2seq
 ComputationGraph trained and sampled through them, and LeNet-5 and a
@@ -1058,3 +1060,118 @@ def test_chained_batches_reach_the_card_unchanged(cuda):
         np.testing.assert_array_equal(x, hx)
         np.testing.assert_array_equal(y, hy)
     assert all(isinstance(b[0], torch.Tensor) for b in got[:8])   # two chains, a tail of 3
+
+
+# -- the chunk entries (row 6): kernels #1-#3 with Tq != Tk, offsets and an
+# lse cotangent, the cases of tests/test_torch_flash_block.py at kernel shapes
+
+CHUNK_CASES = [
+    # (B, Tq, Tk, H, D, q_offset, k_offset, causal, masked)
+    (2, 256, 256, 2, 64, 0, 0, True, False),      # the ring's diagonal block
+    (2, 256, 256, 2, 128, 256, 0, True, False),   # a past block under causal
+    (2, 192, 192, 3, 64, 0, 0, False, True),      # an off-diagonal block, kmask
+    (2, 200, 328, 2, 128, 328, 64, True, False),  # Tq != Tk, both offsets nonzero
+    (1, 300, 130, 2, 32, 40, 100, True, True),    # Tq > Tk, shifted diagonal, kmask
+    (2, 128, 256, 2, 64, 0, 256, True, False),    # a chunk wholly in the future
+    (1, 96, 160, 2, 320, 160, 0, True, False),    # the wide-head route
+]
+
+
+def _chunk_case(dev, case, dtype, seed=21):
+    B, Tq, Tk, H, D, qo, ko, causal, masked = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, Tq, H, D, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(B, Tk, H, D, generator=g, device=dev).to(dtype) for _ in range(2))
+    km = _varlen(dev, B, Tk, seed) if masked else None
+    do = torch.randn(B, Tq, H, D, generator=g, device=dev).to(dtype)
+    dlse = torch.randn(B, H, Tq, generator=g, device=dev)
+    return q, k, v, km, do, dlse, dict(q_offset=qo, k_offset=ko, causal=causal)
+
+
+def _rows_with_a_key(case, km, dev):
+    """[B, Tq] bool: query rows with at least one valid key."""
+    B, Tq, Tk, H, D, qo, ko, causal, _ = case
+    ok = torch.ones(Tq, Tk, dtype=torch.bool, device=dev)
+    if causal:
+        ok = (ko + torch.arange(Tk, device=dev))[None] <= (qo + torch.arange(Tq, device=dev))[:, None]
+    ok = ok[None].expand(B, Tq, Tk)
+    if km is not None:
+        ok = ok & (km[:, None, :] > 0)
+    return ok.any(-1)
+
+
+@pytest.mark.parametrize("case", CHUNK_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunk_forward_kernel_matches_plain_version(cuda, case, dtype):
+    q, k, v, km, _, _, kw = _chunk_case(cuda, case, dtype)
+    before = (fa.flash_fwd_cuda.launches, fa.CHUNK_LAUNCHES["flash_fwd"])
+    out, lse = fa.flash_attention_block(q, k, v, kmask=km, **kw)
+    assert (fa.flash_fwd_cuda.launches, fa.CHUNK_LAUNCHES["flash_fwd"]) == (
+        before[0] + 1, before[1] + 1)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, kmask=km, with_lse=True, **kw)
+    rows = _rows_with_a_key(case, km, cuda)
+    w = rows[:, :, None, None].float()
+    tol = F32 if dtype == torch.float32 else BF16
+    torch.testing.assert_close(out.float() * w, ref.float() * w, **tol)
+    wl = rows[:, None, :].float()
+    torch.testing.assert_close(lse * wl, ref_lse * wl, rtol=1e-5, atol=1e-4)
+    dead = ~rows[:, None, :].expand_as(lse)
+    assert bool((lse[dead] <= -1e29).all()) and bool(torch.isfinite(out.float()).all())
+    again = fa.flash_attention_block(q, k, v, kmask=km, **kw)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.parametrize("case", CHUNK_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunk_backward_kernels_match_plain_version(cuda, case, dtype):
+    q, k, v, km, do, dlse, kw = _chunk_case(cuda, case, dtype, seed=22)
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+    before = dict(fa.CHUNK_LAUNCHES)
+    out, lse = fa.flash_attention_block_grad(qg, kg, vg, kmask=km, **kw)
+    torch.autograd.backward((out, lse), (do, dlse))
+    assert fa.CHUNK_LAUNCHES == {n: c + 1 for n, c in before.items()}
+    want = fa.flash_attention_bwd_reference(q, k, v, out.detach(), lse.detach(), do, km,
+                                            dlse=dlse, **kw)
+    rows = _rows_with_a_key(case, km, cuda)
+    assert torch.count_nonzero(qg.grad[~rows]) == 0      # no valid key: dq exactly 0
+    for got, ref in zip((qg.grad, kg.grad, vg.grad), want):
+        assert got.shape == ref.shape and got.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+        else:
+            _close_rel(got, ref, 2e-2)
+            _close_per_tile(got, ref, 1e-2)
+
+
+def test_chunk_kmask_of_zeros_gets_weight_zero(cuda):
+    q, k, v, _, do, dlse, kw = _chunk_case(cuda, CHUNK_CASES[2], torch.bfloat16, seed=23)
+    km = torch.zeros(q.shape[0], k.shape[1], device=cuda)
+    out, lse = fa.flash_attention_block(q, k, v, kmask=km, **kw)
+    assert bool((lse <= -1e29).all()) and bool(torch.isfinite(out.float()).all())
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+    o, l = fa.flash_attention_block_grad(qg, kg, vg, kmask=km, **kw)
+    torch.autograd.backward((o, l), (do, dlse))
+    for x in (qg, kg, vg):
+        assert torch.count_nonzero(x.grad) == 0
+
+
+@pytest.mark.parametrize("causal,masked", [(True, False), (True, True), (False, True)])
+def test_flash_ring_on_the_card_matches_flash_attention(cuda, causal, masked):
+    from deeplearning4j_tpu_torch.parallel import ring
+
+    B, T, H, D, s = 2, 512, 2, 64, 4
+    q, k, v = (x.detach().requires_grad_(True) for x in
+               _qkv(cuda, B, T, H, D, torch.bfloat16, strided=False, seed=24))
+    km = _varlen(cuda, B, T, 24) if masked else None
+    parts = ring.ring_in_one_process(
+        ring._ring_flash_shard, q.chunk(s, 1), k.chunk(s, 1), v.chunk(s, 1),
+        km.chunk(s, 1) if masked else None, causal=causal)
+    out = torch.cat(parts, 1)
+    ref = fa.flash_attention(q, k, v, kmask=km, causal=causal)
+    w = km[:, :, None, None] if masked else 1.0
+    torch.testing.assert_close(out.float() * w, ref.float() * w, **BF16)
+    do = torch.randn_like(out) * (w if masked else 1.0)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    want = torch.autograd.grad(ref, (q, k, v), do)
+    for a, b in zip(got, want):
+        _close_rel(a, b, 2e-2)

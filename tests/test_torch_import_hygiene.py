@@ -47,7 +47,8 @@ def test_importing_every_port_module_leaves_jax_out():
     for m in ("nn.layers.convolution", "nn.layers.pooling", "nn.layers.normalization",
               "nn.layers.core", "nn.preprocessors", "models.zoo", "interop",
               "nn.graph", "nn.transfer", "nn.layers.custom", "nn.layers.variational",
-              "nn.layers.objdetect", "models.zoo_graph"):
+              "nn.layers.objdetect", "models.zoo_graph", "parallel", "parallel.context",
+              "parallel.mesh", "parallel.distributed", "parallel.ring", "parallel.tp"):
         assert f"deeplearning4j_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
