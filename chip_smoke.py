@@ -202,6 +202,41 @@ non-zero (and without a result line when no CUDA device is present):
    within GRAD_CHECK_REL), 8 launches of each of kernels #1-#3 a step, the
    step time beside the plain step's.
 
+24. generate — the decode path at the serve phase's full width (bf16,
+   random weights from the seed) through ModelRegistry.register_generate
+   with GenerateConfig's defaults (paged, 8 streams, 64-token pages and
+   prefill chunks, capacity 2048; every point of the signature grid warmed):
+   prompts of 7, 64, 130 and 500 tokens and 4 more (33, 250, 1000, 1),
+   each streamed alone, then all 8 at once through GenerateWorker, 32 new
+   tokens each: every stream's tokens equal its solo tokens, the contiguous
+   layout's tokens equal the paged ones, one stream over HTTP :generate, no
+   request-path dispatch shape outside the warmed grid, no flash kernel
+   launched (decode_attention is plain torch). Then open-loop arrivals
+   through HTTP :generate (prompts of 16, 128, 512 and 1024 tokens, seed
+   11, 64 new tokens) at three rates, 5 s each: TTFT and ITL p50/p99 from
+   dl4j_ttft_seconds / dl4j_itl_seconds, tokens/s from
+   dl4j_tokens_generated_total, the largest occupancy; an overload arm
+   (2 streams, queue of 2, 1 ms deadline) that must shed. Outside the
+   counted path: the same 8 streams driven through a DecodeProgram by hand,
+   alone and batched (whether the logits are bit-equal, the largest
+   difference), one stream's logits per step against the full forward with
+   use_flash=False and with the flash kernels (GEN_VS_FULL_ATOL), the KV
+   pool's bytes and the peak memory, and one decode dispatch at B=8, NP=32
+   timed (CUDA events) beside its page gathers, attention and GEMMs timed
+   alone, and profiled once (device time by kernel class).
+25. moe_train / moe_serve — TransformerLM(moe_experts=8) at the same width
+   (a MixtureOfExperts after every second block: 4 layers, 1.49e9
+   params), Adam 1e-4: a warm step and 3 timed steps on 16 x 2048 tokens
+   (8 x 2048 if the peak passes 70 GB), finite losses, 8 launches of each
+   of kernels #1-#3 a step; the tokens dropped by capacity per MoE layer;
+   one step (4 rows) against use_flash=False: its loss in bf16 (the
+   gradients and the tokens routed to another expert reported), and its
+   loss and gradients in an f32 replica of the same weights (MOE_LOSS_REL,
+   MOE_GRAD_REL); step time, tokens/s, peak memory; then
+   its zip (params only) restored into ModelRegistry behind
+   InferenceServer and 2 HTTP :predict requests, one after the other,
+   held to output().
+
 It ends with the command time, the kernels line (launches of each kernel
 by path, the new phases' included), the card's name and power limit, and
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -3440,6 +3475,585 @@ def ring_train_phase() -> dict:
     return res
 
 
+# -- phase 24: token-level generation ------------------------------------------
+
+GEN_PROMPTS = (7, 64, 130, 500)      # the parity prompts' lengths
+GEN_EXTRA = (33, 250, 1000, 1)       # the 4 more streams of the concurrent run
+GEN_MAX_NEW = 32
+LOAD_PROMPTS = (16, 128, 512, 1024)  # bench_generate-shaped load, seed 11
+LOAD_MAX_NEW = 64
+LOAD_WINDOW_S = 5.0
+# open-loop arrival rates (streams/s): a sweep of 1, 3, 6, 12 and 24/s
+# (tools/decode_invariance_probe.py --rates, PERF.md §6) filled the
+# 8-stream decode batch from 6/s on; 8/s holds it full with a queue, 1.5
+# and 3 leave it part-empty
+LOAD_RATES = (1.5, 3.0, 8.0)
+# a decode step's logits against the full forward's at the same position,
+# bf16 end to end through 8 blocks: the two paths round the attention and
+# the residual stream at different places. Logits stay below 4 in size,
+# where a bf16 ulp is 2^-5: 4 ulps (the largest difference measured on the
+# card: 0.035, PERF.md §6)
+GEN_VS_FULL_ATOL = 0.125
+
+
+def _gen_prompts(lengths, seed):
+    rs = np.random.RandomState(seed)
+    return [rs.randint(0, FLAGSHIP_CONF["vocab_size"], size=n).tolist() for n in lengths]
+
+
+def _stream_all(worker, prompts, max_new, **kw):
+    """Submit every prompt at once and read every stream (bounded waits)."""
+    streams = [worker.submit(p, max_new=max_new, timeout_s=600.0, **kw) for p in prompts]
+    return [list(s) for s in streams], [s.finish_reason for s in streams]
+
+
+def _solo(worker, prompts, max_new):
+    out = []
+    for p in prompts:
+        toks, reasons = _stream_all(worker, [p], max_new)
+        check(reasons == ["length"], f"solo stream ended with {reasons}")
+        out.append(toks[0])
+    return out
+
+
+def _drive_program(prog, prompts, n_gen, together: bool, force=None):
+    """Hand-driven DecodeProgram: each prompt prefilled alone (batch 1, as
+    the worker does), then ``n_gen - 1`` decode steps with all the streams
+    in one batch (``together``) or each alone, each step fed the stream's
+    last greedy id, or its id in ``force`` (the same inputs both ways).
+    Returns per stream the logits [n_gen, V] (f32, on the host) and the
+    greedy ids."""
+    pg, ladder = prog.page_tokens, prog.ladder
+    npb = ladder.bucket(prog.max_pages)
+    tables = []
+    for i in range(len(prompts)):
+        t = np.zeros((1, npb), np.int64)
+        t[0, :prog.max_pages] = 1 + i * prog.max_pages + np.arange(prog.max_pages)
+        tables.append(t)
+    logits = [[] for _ in prompts]
+    ids = [[] for _ in prompts]
+    cached = [0] * len(prompts)
+    for i, p in enumerate(prompts):
+        for s in range(0, len(p), prog.prefill_chunk):
+            chunk = p[s:s + prog.prefill_chunk]
+            tc = ladder.bucket(len(chunk)) if len(chunk) > 1 else 1
+            toks = np.zeros((1, tc), np.int64)
+            toks[0, :len(chunk)] = chunk
+            lg, nxt = prog.dispatch(tables[i], [cached[i]], toks, [len(chunk)])
+            cached[i] += len(chunk)
+        logits[i].append(lg[0].cpu())
+        ids[i].append(int(nxt[0]))
+    groups = [list(range(len(prompts)))] if together else [[i] for i in range(len(prompts))]
+    for step in range(1, n_gen):
+        for g in groups:
+            bb = ladder.bucket(len(g))
+            table = np.zeros((bb, npb), np.int64)
+            lengths = np.zeros(bb, np.int64)
+            toks = np.zeros((bb, 1), np.int64)
+            n_new = np.zeros(bb, np.int64)
+            for r, i in enumerate(g):
+                table[r] = tables[i][0]
+                fed = ids[i][-1] if force is None else force[i][step - 1]
+                lengths[r], toks[r, 0], n_new[r] = cached[i], fed, 1
+            lg, nxt = prog.dispatch(table, lengths, toks, n_new)
+            lg, nxt = lg.cpu(), nxt.cpu()
+            for r, i in enumerate(g):
+                cached[i] += 1
+                logits[i].append(lg[r])
+                ids[i].append(int(nxt[r]))
+    return [torch.stack(l) for l in logits], ids
+
+
+def _full_logits(model, toks):
+    """The full forward's logits (the head's preactivation, f32) at every
+    position of ``toks``."""
+    with torch.inference_mode():
+        a = model._forward(model.params, model.state, np.asarray(toks)[None], train=False,
+                           upto=len(model.layers) - 1)[0]
+        return model.layers[-1].preactivation(model.params[-1], a)[0].float().cpu()
+
+
+def _post_generate(port, name, payload, timeout=600):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", f"/v1/models/{name}:generate", json.dumps(payload).encode(),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        body = resp.read().decode()
+        lines = [json.loads(l) for l in body.strip().splitlines()] if resp.status == 200 else []
+        return resp.status, lines, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def _open_loop(port, name, prompts, rate, window_s, max_new, deadline_ms=None):
+    """Open-loop arrivals through HTTP :generate: request i fires at
+    t0 + i / rate whatever the earlier ones are doing; each runs on its own
+    thread, which reads the chunked stream to its end."""
+    results = []
+    lock = threading.Lock()
+
+    def one(i):
+        payload = {"prompt": prompts[i % len(prompts)], "max_tokens": max_new}
+        if deadline_ms is not None:
+            payload["deadline_ms"] = deadline_ms
+        try:
+            r = _post_generate(port, name, payload)
+        except Exception as e:   # counted below, never silently
+            r = ("error", repr(e), 0.0)
+        with lock:
+            results.append(r)
+
+    threads = []
+    t0 = time.perf_counter()
+    for i in range(int(rate * window_s)):
+        wait = t0 + i / rate - time.perf_counter()
+        if wait > 0:
+            time.sleep(wait)
+        t = threading.Thread(target=one, args=(i,), daemon=True)
+        t.start()
+        threads.append(t)
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "a :generate request hung")
+    return results, time.perf_counter() - t0
+
+
+def _gen_summary(results, dt, tracker, route, worker) -> dict:
+    ttft = tracker._ttft.summary(route=route) or {}
+    itl = tracker._itl.summary(route=route) or {}
+    statuses = {}
+    reasons = {}
+    for status, lines, _ in results:
+        statuses[str(status)] = statuses.get(str(status), 0) + 1
+        if lines:
+            reasons[lines[-1]["reason"]] = reasons.get(lines[-1]["reason"], 0) + 1
+    return {"requests": len(results), "statuses": statuses, "finish_reasons": reasons,
+            "seconds": dt,
+            "tokens": int(tracker._tokens.value(route=route) or 0),
+            "tokens_per_s": int(tracker._tokens.value(route=route) or 0) / dt,
+            "ttft_ms": {q: ttft.get(q, 0.0) * 1e3 for q in ("p50", "p99")},
+            "itl_ms": {q: itl.get(q, 0.0) * 1e3 for q in ("p50", "p99")},
+            "max_occupancy": worker.stats_counters["max_occupancy"]}
+
+
+def _decode_split(prog) -> dict:
+    """One decode dispatch at B=8, NP=32 (every stream 2,000 tokens deep):
+    its time by CUDA events, its host wall time, and its parts timed
+    alone at the same shapes: the page gathers (k and v of every block),
+    the attention (decode_attention at every block) and the GEMMs (qkv,
+    out, the two MLP products per block and the head at 8 rows); then one
+    profiled dispatch's device time by kernel class."""
+    from deeplearning4j_tpu_torch.nn.decode import _PagedView
+
+    B, NP, pg = 8, 32, prog.page_tokens
+    table = (1 + np.arange(B * NP).reshape(B, NP)).astype(np.int64)
+    lengths = np.full(B, NP * pg - 48, np.int64)
+    toks = np.ones((B, 1), np.int64)
+    n_new = np.ones(B, np.int64)
+    for _ in range(3):
+        prog.dispatch(table, lengths, toks, n_new)
+    torch.cuda.synchronize()
+    dispatch_ms = time_cuda(lambda: prog.dispatch(table, lengths, toks, n_new), iters=20)
+    walls = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        prog.dispatch(table, lengths, toks, n_new)[1].cpu()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    dev = prog.device
+    tab = torch.as_tensor(table, device=dev)
+    pos = torch.as_tensor(lengths, device=dev)[:, None]
+    valid = torch.ones(B, 1, dtype=torch.bool, device=dev)
+    views = [_PagedView(p, tab, pos, valid, pg) for p in prog.pools]
+    with torch.inference_mode():
+        gather_ms = time_cuda(lambda: [v.gathered() for v in views], iters=20)
+        k_all, v_all = views[0].gathered()
+        H, D = k_all.shape[2], k_all.shape[3]
+        q = torch.randn(B, 1, H, D, device=dev, dtype=k_all.dtype)
+        attn_ms = len(views) * time_cuda(
+            lambda: fa.decode_attention(q, k_all, v_all, pos), iters=20)
+        m = prog.model
+        C = H * D
+        x = torch.randn(B, C, device=dev, dtype=m.dtype)
+        blocks = [p for p in m.params if "attn" in p]
+
+        def gemms():
+            for p in blocks:
+                x @ p["attn"]["Wqkv"]
+                x @ p["attn"]["Wo"]
+                (x @ p["Wi"]) @ p["Wo"]
+            x @ m.params[-1]["W"]
+
+        gemm_ms = time_cuda(gemms, iters=20)
+    parts = gather_ms + attn_ms + gemm_ms
+    split = {"dispatch_ms": dispatch_ms, "dispatch_host_wall_ms_median": float(np.median(walls)),
+             "page_gather_ms": gather_ms, "attention_ms": attn_ms, "gemm_ms": gemm_ms,
+             "rest_ms": dispatch_ms - parts,
+             "gathered_bytes": 2 * len(views) * k_all.numel() * k_all.element_size()}
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prog.dispatch(table, lengths, toks, n_new)
+            torch.cuda.synchronize()
+        classes = {"gemm": 0.0, "gather_index": 0.0, "softmax": 0.0, "other": 0.0}
+        kernels = []
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = getattr(e, "cuda_time_total", 0.0)
+            if not us or e.key.startswith("aten::") or e.key.startswith("cuda"):
+                continue
+            k = e.key.lower()
+            cls = ("gemm" if any(s in k for s in ("gemm", "sm90", "cutlass", "xmma", "gemv",
+                                                   "nvjet"))
+                   else "gather_index" if any(s in k for s in ("index", "gather"))
+                   else "softmax" if "softmax" in k else "other")
+            classes[cls] += us / 1e3
+            kernels.append((us / 1e3, e.key[:80], e.count))
+        kernels.sort(reverse=True)
+        busy = sum(classes.values())
+        split["profile"] = {"device_ms_by_class": classes, "device_busy_ms": busy,
+                            "kernel_launches": sum(c for _, _, c in kernels),
+                            "top_kernels": kernels[:8]}
+        if busy > 0:
+            split["profile"]["host_gap_ms"] = split["dispatch_host_wall_ms_median"] - busy
+    except Exception as e:   # the profiler is a report, not a check
+        split["profile"] = {"error": repr(e)}
+    return split
+
+
+def generate_phase() -> dict:
+    """The decode path at full width: parity, load through HTTP :generate,
+    the overload arm, memory and the decode step's split."""
+    from deeplearning4j_tpu_torch.nn.decode import DecodeProgram
+    from deeplearning4j_tpu_torch.obs import slo
+    from deeplearning4j_tpu_torch.serve import GenerateConfig
+
+    conf = zoo.TransformerLM(**FLAGSHIP_CONF)
+    prompts = _gen_prompts(GEN_PROMPTS, seed=21)
+    extra = _gen_prompts(GEN_EXTRA, seed=22)
+    cfg = GenerateConfig()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: every launch below is counted (decode runs no
+    # hand-written kernel: decode_attention is plain torch)
+    _zero_flash_counts()
+    model = MultiLayerNetwork(conf).init()
+    registry = ModelRegistry(config=ServeConfig(default_deadline_s=600.0))
+    t0 = time.perf_counter()
+    worker = registry.register_generate("lm", model, config=cfg)
+    warm_s = time.perf_counter() - t0
+    contig = registry.register_generate("lm_contig", model,
+                                        config=GenerateConfig(paged=False))
+    server = InferenceServer(registry).start(port=0)
+    prog = worker.program
+    try:
+        solo = _solo(worker, prompts + extra, GEN_MAX_NEW)
+        together, reasons = _stream_all(worker, prompts + extra, GEN_MAX_NEW)
+        check(all(r == "length" for r in reasons), f"concurrent streams ended {reasons}")
+        check(worker.stats_counters["max_occupancy"] == 8,
+              f"8 streams shared the batch {worker.stats_counters['max_occupancy']} wide")
+        same = [a == b for a, b in zip(together, solo)]
+        first_diff = [next((j for j, (u, w) in enumerate(zip(a, b)) if u != w), None)
+                      for a, b in zip(together, solo)]
+        check(all(same), f"concurrent tokens differ from solo ones at {first_diff}")
+        contig_solo = _solo(contig, prompts + extra, GEN_MAX_NEW)
+        contig_first_diff = [next((j for j, (u, w) in enumerate(zip(a, b)) if u != w), None)
+                             for a, b in zip(contig_solo, solo)]
+        check(contig_solo == solo,
+              f"contiguous tokens differ from paged ones at {contig_first_diff}")
+        # HTTP round trip of one stream
+        status, lines, _ = _post_generate(server.port, "lm",
+                                          {"prompt": prompts[0], "max_tokens": GEN_MAX_NEW})
+        check(status == 200 and [l["token"] for l in lines[:-1]] == solo[0],
+              f"HTTP :generate gave {status}, tokens unlike the solo stream's")
+
+        # load: three open-loop arrival rates, metrics per rate
+        load_prompts = _gen_prompts(LOAD_PROMPTS, seed=11)
+        load = []
+        for rate in LOAD_RATES:
+            obs.reset()
+            worker.stats_counters["max_occupancy"] = 0
+            res, dt = _open_loop(server.port, "lm", load_prompts, rate, LOAD_WINDOW_S,
+                                 LOAD_MAX_NEW)
+            row = dict(_gen_summary(res, dt, slo.slo_tracker(), "generate.lm", worker),
+                       arrival_rate=rate)
+            check(row["statuses"].get("200", 0) > 0, f"no stream served at {rate}/s: {row}")
+            load.append(row)
+        launches = _launch_counts()
+        off_grid = {"paged": prog.off_grid_dispatches,
+                    "contiguous": contig.program.off_grid_dispatches}
+        check(off_grid == {"paged": 0, "contiguous": 0},
+              f"request-path dispatch shapes outside the warmed grid: {off_grid}")
+        check(prog.shapes_seen <= prog.warmed, "a dispatch shape was not warmed")
+        check(launches == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+              f"the decode path launched a flash kernel: {launches}")
+
+        # overload: a starved engine, a 1 ms deadline and a blast of arrivals
+        obs.reset()
+        over = registry.register_generate(
+            "lm_over", model, config=GenerateConfig(decode_batch_max=2, queue_limit=2))
+        res, dt = _open_loop(server.port, "lm_over", load_prompts, 4 * LOAD_RATES[-1], 1.0,
+                             LOAD_MAX_NEW, deadline_ms=1.0)
+        tracker = slo.slo_tracker()
+        shed = {reason: int(tracker._shed.value(route="generate.lm_over", reason=reason) or 0)
+                for reason in ("deadline", "backpressure")}
+        statuses = {}
+        for status, _, _ in res:
+            statuses[str(status)] = statuses.get(str(status), 0) + 1
+        overload = {"requests": len(res), "statuses": statuses, "shed": shed,
+                    "burn_rate": tracker.burn_rate("generate.lm_over")}
+        check(sum(shed.values()) > 0, f"the overload arm shed nothing: {overload}")
+    finally:
+        server.stop()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+
+    # outside the counted path: logits of solo and batched decode, and of
+    # the decode step against the full forward
+    program = DecodeProgram(model, page_tokens=cfg.kv_page_tokens, max_batch=8,
+                            prefill_chunk=cfg.prefill_chunk)
+    alone, ids_alone = _drive_program(program, prompts + extra, GEN_MAX_NEW, together=False)
+    program.reset()
+    batched, ids_batched = _drive_program(program, prompts + extra, GEN_MAX_NEW,
+                                          together=True, force=ids_alone)
+    bits = all(torch.equal(a, b) for a, b in zip(alone, batched))
+    logits_diff = max((a - b).abs().max().item() for a, b in zip(alone, batched))
+    ids_agree = {"alone_vs_worker_solo": ids_alone == solo,
+                 "batched_vs_alone": ids_batched == ids_alone}
+    vs_full = {}
+    p = prompts[2]
+    seq = p + ids_alone[2][:-1]
+    step_logits = alone[2]
+    for key, flash in (("use_flash_false", False), ("flash", "auto")):
+        m = model
+        if not flash:
+            m = MultiLayerNetwork(MultiLayerConfiguration.from_dict(dict(
+                conf.to_dict(), layers=[dict(l, use_flash=False)
+                                        if l["@type"] == "transformer_block" else l
+                                        for l in conf.to_dict()["layers"]])))
+            m.params, m.state = model.params, model.state
+        full = _full_logits(m, seq)[len(p) - 1:]
+        diff = (full - step_logits).abs().max().item()
+        agree = float((full.argmax(-1) == step_logits.argmax(-1)).float().mean())
+        vs_full[key] = {"max_abs_diff": diff, "argmax_agreement": agree,
+                        "tol": GEN_VS_FULL_ATOL,
+                        "logit_abs_max": full.abs().max().item()}
+        check(diff <= GEN_VS_FULL_ATOL,
+              f"decode logits vs the full forward ({key}): {vs_full[key]}")
+    split = _decode_split(program)
+    out = {
+        "phase": "generate",
+        "model": {"params": model.num_params(), **FLAGSHIP_CONF},
+        "config": {k: getattr(cfg, k) for k in ("decode_batch_max", "kv_page_tokens",
+                                                "prefill_chunk", "paged")},
+        "capacity": prog.capacity,
+        "warm": {"shapes": len(prog.warmed), "seconds": warm_s},
+        "parity": {"prompts": list(GEN_PROMPTS), "extra": list(GEN_EXTRA),
+                   "max_new": GEN_MAX_NEW, "concurrent_equals_solo": all(same),
+                   "paged_equals_contiguous": contig_solo == solo,
+                   "logits_bit_equal_batched_vs_alone": bits,
+                   "logits_max_abs_diff_batched_vs_alone": logits_diff,
+                   "hand_driven_ids_agree": ids_agree,
+                   "decode_vs_full_forward": vs_full},
+        "load": load,
+        "load_prompts": list(LOAD_PROMPTS), "load_max_new": LOAD_MAX_NEW,
+        "overload": overload,
+        "off_grid_dispatches": off_grid,
+        "dispatch_shapes_seen": len(prog.shapes_seen),
+        "kv_pool_bytes": prog.pool_bytes(),
+        "max_memory_allocated_bytes": peak,
+        "decode_step_B8_NP32": split,
+        "launches": launches,
+    }
+    registry.shutdown()
+    return out
+
+
+# -- phase 25: the mixture-of-experts TransformerLM ----------------------------
+
+MOE_EXPERTS = 8
+MOE_ROWS = 16            # 8 if the peak passes MOE_PEAK_LIMIT
+MOE_PEAK_LIMIT = 70e9
+# one step's loss and parameter gradients (4 rows) with kernels #1-#3
+# against use_flash=False. In bf16 the two attention paths round apart and
+# ~1% of tokens route to another expert (their experts' gradients move by
+# 10-30%), so bf16 is held on its loss and reported per tensor; the
+# gradients are held in an f32 replica of the same weights, where the two
+# paths route alike (PERF.md §6)
+MOE_LOSS_REL = 1e-2
+MOE_GRAD_REL = 5e-2
+
+
+def _moe_vs_use_flash_false(model, x, y) -> dict:
+    """One step's loss and parameter gradients with kernels #1-#3 against
+    the same weights with use_flash=False, and the tokens each MoE layer
+    routes to another expert between the two."""
+    from deeplearning4j_tpu_torch.nn.layers import MixtureOfExperts
+
+    d = model.conf.to_dict()
+    plain = MultiLayerNetwork(MultiLayerConfiguration.from_dict(dict(
+        d, layers=[dict(l, use_flash=False) if l["@type"] == "transformer_block" else l
+                   for l in d["layers"]])))
+    plain.params, plain.state = model.params, model.state
+
+    def experts(m):
+        with torch.inference_mode():
+            acts = m._forward(m.params, m.state, x, train=False, collect=True)[4]
+            return {i: l.route(m.params[i], acts[i - 1].reshape(-1, acts[i - 1].shape[-1]))[0]
+                    for i, l in enumerate(m.layers) if isinstance(l, MixtureOfExperts)}
+
+    ea, eb = experts(model), experts(plain)
+    flips = {i: int((ea[i] != eb[i]).sum()) for i in ea}
+    losses = []
+    grads = []
+    for m in (model, plain):
+        rng = m._gen.get_state()
+        grads.append(_param_grads(m, x, y))
+        losses.append(float(m._loss(m.params, m.state, x, y, None, None, m._gen)[0]))
+        m._gen.set_state(rng)
+    rel = [((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+           for a, b in zip(*grads)]
+    moe_leaf = [isinstance(l, MixtureOfExperts) for l, p in zip(model.layers, model.params)
+                for _ in tree_leaves(p)]
+    return {"rows": int(x.shape[0]), "dtype": str(model.dtype).replace("torch.", ""),
+            "loss_kernels": losses[0], "loss_use_flash_false": losses[1],
+            "loss_rel_diff": abs(losses[0] - losses[1]) / abs(losses[1]),
+            "routing_flips_by_layer": flips, "tokens_routed": int(x.numel()),
+            "max_rel_norm_diff": max(rel), "median_rel_norm_diff": float(np.median(rel)),
+            "max_rel_norm_diff_outside_moe": max(r for r, f in zip(rel, moe_leaf) if not f),
+            "tol": {"loss_rel": MOE_LOSS_REL, "grad_rel_norm": MOE_GRAD_REL}}
+
+
+def moe_train_phase(tmp: Path) -> dict:
+    from deeplearning4j_tpu_torch.nn.layers import MixtureOfExperts
+
+    conf = zoo.TransformerLM(moe_experts=MOE_EXPERTS,
+                             updater={"type": "adam", "lr": TRAIN_LR}, **FLAGSHIP_CONF)
+    V, T = FLAGSHIP_CONF["vocab_size"], FLAGSHIP_CONF["max_len"]
+    x = np.random.RandomState(51).randint(0, V, (MOE_ROWS, T)).astype(np.int64)
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: every launch below is counted
+    _zero_flash_counts()
+    model = MultiLayerNetwork(conf).init()
+    xt = torch.as_tensor(x, device=model.device)
+    yt = torch.roll(xt, -1, dims=1)
+    rows, cut = MOE_ROWS, None
+    losses = [float(model._fit_batch(xt, yt, None, None))]
+    torch.cuda.synchronize()
+    if torch.cuda.max_memory_allocated() > MOE_PEAK_LIMIT:
+        rows = MOE_ROWS // 2
+        cut = f"{MOE_ROWS} x {T} peaked above {MOE_PEAK_LIMIT / 1e9:.0f} GB: {rows} x {T}"
+        xt, yt = xt[:rows], yt[:rows]
+    timed = 3
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(timed):
+        losses.append(model._fit_batch(xt, yt, None, None))
+    ev[1].record()
+    torch.cuda.synchronize()
+    step_ms = ev[0].elapsed_time(ev[1]) / timed
+    losses = [float(l) for l in losses]
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = 1 + timed
+    check(all(np.isfinite(losses)), f"non-finite MoE loss: {losses}")
+    for name, n in launches.items():
+        check(n == 8 * steps, f"{name}: {n} launches over {steps} MoE steps, not 8 a step")
+
+    # outside the counted path: tokens dropped per MoE layer on this batch,
+    # and one step's loss and gradients against use_flash=False
+    with torch.inference_mode():
+        acts = model._forward(model.params, model.state, xt, train=False, collect=True)[4]
+    dropped = {i: l.dropped_tokens(model.params[i], acts[i - 1])
+               for i, l in enumerate(model.layers) if isinstance(l, MixtureOfExperts)}
+    del acts
+    xs, ys = xt[:GRAD_CHECK_ROWS], yt[:GRAD_CHECK_ROWS]
+    grad_check = {"bfloat16": _moe_vs_use_flash_false(model, xs, ys)}
+    check(grad_check["bfloat16"]["loss_rel_diff"] <= MOE_LOSS_REL,
+          f"the MoE loss with kernels #1-#3 vs use_flash=False: {grad_check['bfloat16']}")
+    f32 = MultiLayerNetwork(zoo.TransformerLM(moe_experts=MOE_EXPERTS,
+                                              **dict(FLAGSHIP_CONF, dtype="float32")))
+    f32.params = tree_unflatten_like(model.params, [t.float() for t in tree_leaves(model.params)])
+    f32.state = model.state
+    grad_check["float32"] = _moe_vs_use_flash_false(f32, xs, ys)
+    del f32
+    g32 = grad_check["float32"]
+    check(g32["loss_rel_diff"] <= MOE_LOSS_REL and g32["max_rel_norm_diff"] <= MOE_GRAD_REL,
+          f"the f32 MoE step with kernels #1-#3 vs use_flash=False: {g32}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    path = tmp / "moe.zip"
+    save_network(model, str(path), save_updater=False)
+    n_params = model.num_params()
+    tokens = rows * T
+    out = {
+        "phase": "moe_train",
+        "model": {"params": n_params, "moe_experts": MOE_EXPERTS,
+                  "moe_layers": len(dropped), **FLAGSHIP_CONF},
+        "rows": rows, "cut": cut, "updater": {"type": "adam", "lr": TRAIN_LR},
+        "loss": losses, "launches": launches, "launches_per_step": {
+            k: v / steps for k, v in launches.items()},
+        "step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
+        "capacity_per_expert": MixtureOfExperts(n_experts=MOE_EXPERTS)._capacity(tokens),
+        "dropped_tokens_by_layer": dropped,
+        "max_memory_allocated_bytes": peak,
+        "kernels_vs_use_flash_false": grad_check,
+        "zip_bytes": path.stat().st_size, "zip": str(path),
+    }
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_serve_phase(zip_path: str) -> dict:
+    V = FLAGSHIP_CONF["vocab_size"]
+    g = torch.Generator().manual_seed(52)
+    ids = [torch.randint(0, V, (1, 128), generator=g) for _ in range(2)]
+    torch.cuda.reset_peak_memory_stats()
+    _zero_flash_counts()
+    t0 = time.perf_counter()
+    model = restore_network(zip_path)
+    registry = ModelRegistry(config=ServeConfig(max_batch=16, max_wait_s=0.1,
+                                                default_deadline_s=600.0))
+    registry.register("moe", model)
+    server = InferenceServer(registry).start(port=0)
+    setup_s = time.perf_counter() - t0
+    try:
+        # one after the other: an MoE layer's capacity counts the dispatch's
+        # tokens, so a row coalesced with another may drop other tokens
+        # than the same row alone
+        http = [post_predict(server.port, "moe", i.tolist(), 600000.0) for i in ids]
+    finally:
+        server.stop()
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    for (status, payload, _), i in zip(http, ids):
+        check(status == 200, f"MoE :predict status {status}")
+        out = torch.tensor(payload["outputs"])
+        check_rows(out, (1, 128, V), "MoE :predict")
+        want = model.output(i.numpy()).float().cpu()
+        d = (out - want).abs().max().item()
+        check(d <= 1e-3, f"MoE :predict differs from output() by {d}")
+    check(launches["flash_fwd"] > 0, "serving the MoE model never launched kernel #1")
+    check(launches["flash_bwd_dq"] == 0 and launches["flash_bwd_dkv"] == 0,
+          "serving launched a backward kernel")
+    out = {"phase": "moe_serve", "setup_s": setup_s,
+           "latency_s": sorted(lat for _, _, lat in http), "launches": launches,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _kernel_row(name, source, replaces, launches, by_path, max_abs_err, ms, plain_ms,
                 bound_ms, bound_by, library_ms, **extra):
     return dict({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3543,6 +4157,18 @@ def main() -> int:
     emit(rattn)
     ring_tr = ring_train_phase()
     emit(ring_tr)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = generate_phase()
+    emit(gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        moe = moe_train_phase(Path(tmp))
+        moe_zip = moe.pop("zip")
+        emit(moe)
+        moe_sv = moe_serve_phase(moe_zip)
+    emit(moe_sv)
 
     fwd_cases = kern["cases"]
     bwd_cases = kern["bwd_cases"]
@@ -3553,7 +4179,10 @@ def main() -> int:
               for run, n in rtrain["launches_by_run"].items()}
         by.update({"remat_train_plain": remat["plain"]["launches"][name],
                    "remat_train_remat": remat["remat"]["launches"][name],
-                   "ring_train": ring_tr["launches"][name]})
+                   "ring_train": ring_tr["launches"][name],
+                   "generate": gen["launches"][name],
+                   "moe_train": moe["launches"][name],
+                   "moe_serve": moe_sv["launches"][name]})
         by.update({f"ring_attention_{run}": r["kernel_launches"][name]
                    for run, r in rattn["runs"].items()})
         return by

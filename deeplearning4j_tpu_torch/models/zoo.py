@@ -2,7 +2,7 @@
 
 Ported so far: ``LeNet5`` and ``SimpleCNN`` (the classic convolutional
 MultiLayerNetworks), ``TransformerLM``, the framework's flagship
-decoder-only language model, without its mixture-of-experts option, and
+decoder-only language model (with its mixture-of-experts option), and
 ``TextGenerationLSTM``, the GravesLSTM char-RNN. Each builds the same
 configuration (and JSON) as the JAX package's.
 """
@@ -18,6 +18,7 @@ from deeplearning4j_tpu_torch.nn.layers import (
     EmbeddingSequence,
     GravesLSTM,
     LayerNorm,
+    MixtureOfExperts,
     OutputLayer,
     PositionalEmbedding,
     RnnOutputLayer,
@@ -103,22 +104,26 @@ def TextGenerationLSTM(vocab_size: int = 77, timesteps: int = 50,
 
 def TransformerLM(vocab_size: int = 256, max_len: int = 512, d_model: int = 256,
                   n_heads: int = 8, n_blocks: int = 4, ffn_mult: int = 4,
-                  sequence_parallel: bool = False, updater=None, seed: int = 12345,
+                  sequence_parallel: bool = False, moe_experts: int = 0,
+                  updater=None, seed: int = 12345,
                   dtype: str = "bfloat16") -> MultiLayerConfiguration:
     """Decoder-only transformer language model: token + learned positional
-    embedding, ``n_blocks`` causal pre-LN transformer blocks, a final
-    LayerNorm and a time-distributed softmax over the vocabulary. The same
-    configuration (and JSON) as the JAX package's ``TransformerLM`` with
-    ``moe_experts=0``."""
+    embedding, ``n_blocks`` causal pre-LN transformer blocks (with
+    ``moe_experts > 0``, a switch MixtureOfExperts after every second
+    block), a final LayerNorm and a time-distributed softmax over the
+    vocabulary. The same configuration (and JSON) as the JAX package's
+    ``TransformerLM``."""
     layers = [
         EmbeddingSequence(n_in=vocab_size, n_out=d_model),
         PositionalEmbedding(max_len=max_len),
     ]
-    for _ in range(n_blocks):
+    for i in range(n_blocks):
         layers.append(TransformerBlock(
             n_heads=n_heads, ffn_mult=ffn_mult, causal=True,
             sequence_parallel=sequence_parallel,
         ))
+        if moe_experts and i % 2 == 1:  # MoE every second block, switch-style
+            layers.append(MixtureOfExperts(n_experts=moe_experts, ffn_mult=ffn_mult))
     layers += [
         LayerNorm(),
         RnnOutputLayer(n_out=vocab_size, activation="softmax", loss="mcxent"),

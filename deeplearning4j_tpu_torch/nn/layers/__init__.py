@@ -2,7 +2,7 @@
 
 Importing this package registers every ported ``@type`` tag for config
 serde: the core, convolution, pooling, normalization, attention and
-recurrent layers, the custom-layer API and its heads, the variational
+recurrent layers, the mixture of experts, the custom-layer API and its heads, the variational
 autoencoder and the YOLOv2 output layer (the preprocessors' tags register with
 ``nn/preprocessors.py``, which the model imports).
 """
@@ -56,6 +56,7 @@ from deeplearning4j_tpu_torch.nn.layers.custom import (
     FrozenLayer,
     LambdaLayer,
 )
+from deeplearning4j_tpu_torch.nn.layers.moe import MixtureOfExperts
 from deeplearning4j_tpu_torch.nn.layers.normalization import (
     BatchNorm,
     LayerNorm,
@@ -115,6 +116,7 @@ __all__ = [
     "LocalResponseNormalization",
     "LossLayer",
     "MaskZero",
+    "MixtureOfExperts",
     "MultiHeadAttention",
     "OutputLayer",
     "PReLU",

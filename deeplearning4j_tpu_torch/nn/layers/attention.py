@@ -30,8 +30,13 @@ The ring takes the flash route (the chunk kernels) under
 ``use_flash=True`` or under ``"auto"`` with CUDA tensors (the port's
 counterpart of "on TPU"), else the einsum ring; without a ``seq`` axis a
 ``sequence_parallel`` layer runs single-device attention, as in the JAX
-package. The decode path and block-size env knobs arrive with later
-slices.
+package. The block-size env knobs have no counterpart here (the CUDA
+kernels fix their tiles).
+
+Each layer also has ``decode_apply``, its eval-mode forward for a
+new-token chunk on the decode path (``nn/decode.py``): positions are
+per-row absolute indices, and attention runs against a KV-cache view
+through ``ops.flash_attention.decode_attention`` (plain torch ops).
 """
 
 from __future__ import annotations
@@ -47,7 +52,8 @@ from deeplearning4j_tpu_torch.nn import initializers
 from deeplearning4j_tpu_torch.nn.config import LayerConfig, dropout, register_layer
 from deeplearning4j_tpu_torch.nn.input_type import InputType
 from deeplearning4j_tpu_torch.nn.layers.normalization import layer_norm
-from deeplearning4j_tpu_torch.ops.flash_attention import flash_attention, local_attention
+from deeplearning4j_tpu_torch.ops.flash_attention import (
+    decode_attention, flash_attention, local_attention)
 from deeplearning4j_tpu_torch.parallel.context import current_mesh, mesh_axis_size
 from deeplearning4j_tpu_torch.parallel.ring import ring_self_attention
 
@@ -74,6 +80,14 @@ class PositionalEmbedding(LayerConfig):
         T = x.shape[1]
         off = _seq_rank() * T   # this rank's time chunk under a seq axis
         return x + params["pos"][off:off + T][None, :, :], state
+
+    def decode_apply(self, params, x, positions):
+        """Decode mode: ``positions`` [B, Tc] are per-row absolute indices
+        (a chunk mid-stream starts where the row's cache ends). Clipped,
+        not wrapped: padded chunk slots may carry positions past the table,
+        and their activations are dead either way."""
+        idx = positions.clamp(0, params["pos"].shape[0] - 1)
+        return x + params["pos"][idx]
 
 
 @register_layer("multi_head_attention")
@@ -129,6 +143,22 @@ class MultiHeadAttention(LayerConfig):
         out = self._attend(q, k, v, kmask).reshape(B, T, C)
         out = dropout(out, self.attn_dropout, train, rng, "attention dropout")
         return out @ params["Wo"] + params["bo"], state
+
+    def decode_apply(self, params, x, *, cache, positions):
+        """Attention of a new-token chunk ``x`` [B, Tc, C] against a KV
+        cache (``nn/decode.py``); eval mode, no dropout. ``cache`` is a
+        view (``append`` and ``gathered``; the layer never sees the
+        paging), ``positions`` [B, Tc] the chunk's absolute positions. The
+        chunk's own k/v are appended BEFORE the gather, so attention within
+        the chunk and over the history is one masked span."""
+        B, Tc, C = x.shape
+        H = self.n_heads
+        qkv = x @ params["Wqkv"] + params["bqkv"]
+        q, k, v = qkv.view(B, Tc, 3 * H, C // H).split(H, dim=2)
+        cache.append(k, v)
+        k_all, v_all = cache.gathered()
+        out = decode_attention(q, k_all, v_all, positions).reshape(B, Tc, C)
+        return out @ params["Wo"] + params["bo"]
 
 
 @register_layer("transformer_block")
@@ -213,6 +243,18 @@ class TransformerBlock(LayerConfig):
         x = self.maybe_dropout_input(x, train, rng)
         h = self._ln(params["ln1"], x)
         a, _ = self._mha().apply(params["attn"], {}, h, train=train, rng=rng, mask=mask)
+        x = x + a
+        h = self._ln(params["ln2"], x)
+        h = self.activation_fn()(h @ params["Wi"] + params["bi"])
+        return x + (h @ params["Wo"] + params["bo"])
+
+    def decode_apply(self, params, x, *, cache, positions):
+        """The block's eval-mode forward for a new-token chunk against a KV
+        cache: the composition of :meth:`_apply_inner` with the attention
+        swapped for :meth:`MultiHeadAttention.decode_apply`."""
+        h = self._ln(params["ln1"], x)
+        a = self._mha().decode_apply(params["attn"], h, cache=cache,
+                                     positions=positions)
         x = x + a
         h = self._ln(params["ln2"], x)
         h = self.activation_fn()(h @ params["Wi"] + params["bi"])

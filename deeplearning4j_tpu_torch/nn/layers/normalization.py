@@ -117,12 +117,14 @@ def layer_norm(x, gamma=None, beta=None, eps: float = 1e-5):
     statistics in f32 for bf16 input, the normalised value cast back to the
     input dtype BEFORE the affine, which then runs in the input dtype.
     (``torch.nn.functional.layer_norm`` applies the affine in f32, a
-    different function for bf16.)"""
+    different function for bf16, so it runs here without one.) Its kernel
+    reduces each row on its own, whatever the count of rows; a ``mean`` over
+    the last axis does not on the card, where a row's statistics then
+    depend on the batch it rides in (a decode step batched would round
+    otherwise than the same rows alone)."""
     dt = x.dtype
     xs = x.float() if dt == torch.bfloat16 else x
-    mean = xs.mean(dim=-1, keepdim=True)
-    var = ((xs - mean) ** 2).mean(dim=-1, keepdim=True)
-    y = ((xs - mean) * torch.rsqrt(var + eps)).to(dt)
+    y = torch.nn.functional.layer_norm(xs, (xs.shape[-1],), eps=eps).to(dt)
     if gamma is not None:
         y = y * gamma + beta
     return y

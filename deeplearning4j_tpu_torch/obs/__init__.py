@@ -37,13 +37,16 @@ __all__ = [
     "event_log",
     "gauge",
     "histogram",
+    "observe_itl",
     "observe_request",
     "observe_shed",
+    "observe_ttft",
     "phase_spans_enabled",
     "prometheus_text",
     "recent_spans",
     "registry",
     "reset",
+    "set_decode_occupancy",
     "snapshot",
     "span",
     "trace_scope",
@@ -119,6 +122,30 @@ def observe_shed(route: str, reason: str = "backpressure"):
     from deeplearning4j_tpu_torch.obs import slo as _slo
 
     _slo.observe_shed(route, reason=reason)
+
+
+def observe_ttft(route: str, latency_s: float):
+    """Record one stream's time-to-first-token (see obs/slo.py).
+    No-op when DL4J_TPU_OBS=0; never raises."""
+    from deeplearning4j_tpu_torch.obs import slo as _slo
+
+    _slo.observe_ttft(route, latency_s)
+
+
+def observe_itl(route: str, latency_s: float):
+    """Record one inter-token latency gap (see obs/slo.py).
+    No-op when DL4J_TPU_OBS=0; never raises."""
+    from deeplearning4j_tpu_torch.obs import slo as _slo
+
+    _slo.observe_itl(route, latency_s)
+
+
+def set_decode_occupancy(model: str, streams: int):
+    """Set the decode-batch occupancy gauge (see obs/slo.py).
+    No-op when DL4J_TPU_OBS=0; never raises."""
+    from deeplearning4j_tpu_torch.obs import slo as _slo
+
+    _slo.set_decode_occupancy(model, streams)
 
 
 # -- fleet (trace context) --------------------------------------------------

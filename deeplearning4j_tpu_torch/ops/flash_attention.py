@@ -43,6 +43,11 @@ the plain version, a CUDA tensor goes to the kernel or raises.
 - :func:`local_attention` — the non-flash path (``use_flash=False``),
   scores in the operand dtype (the JAX package's
   ``parallel/ring.py local_attention``).
+- :func:`decode_attention` — a short query chunk against a gathered KV
+  cache (the decode path, ``nn/decode.py``). Plain torch ops by design, as
+  the JAX package's is plain XLA: its score tensor is [B, H, Tc, K] with
+  Tc at most one prefill chunk, so there is no [T, T] matrix to keep out
+  of device memory and no kernel to port.
 
 Query rows whose keys are all masked get an unspecified but finite
 forward value from the kernel, as from the TPU kernel (masked scores are
@@ -76,6 +81,7 @@ __all__ = [
     "flash_bwd_dkv_cuda",
     "flash_bwd_dq_cuda",
     "flash_fwd_cuda",
+    "decode_attention",
     "kernel_head_dim",
     "local_attention",
     "merge_attention_blocks",
@@ -613,3 +619,30 @@ def local_attention(q, k, v, *, causal: bool = False, kmask=None):
     s = torch.clamp_min(s, _NEG_BIG)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def decode_attention(q, k, v, q_positions):
+    """Attention of a new-token chunk against a gathered KV cache.
+
+    ``q`` [B, Tc, H, D] is the chunk being decoded or prefilled; ``k`` and
+    ``v`` [B, K, H, D] are the cache span gathered for each row, laid out
+    so that index g along K IS absolute position g (the chunk's own k/v are
+    written to the cache before the gather); ``q_positions`` [B, Tc] holds
+    each query's absolute position. Key g is valid iff ``g <=
+    q_positions[b, t]``: that is the causal mask and hides every cache slot
+    past the row's written length at once.
+
+    Numerics mirror :func:`local_attention`: scores in the operand dtype,
+    masked entries -inf clamped at -1e30. A masked slot's softmax weight is
+    exp(-1e30 - m) = 0 exactly, so padded rows and unwritten slots leave
+    every real row's sums bit for bit unchanged, provided the slot holds a
+    finite value (0 * NaN is NaN: the decode pools are zero-filled)."""
+    K = k.shape[1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale          # [B, H, Tc, K]
+    keys = torch.arange(K, device=q.device)
+    valid = keys[None, None, None, :] <= q_positions[:, None, :, None]
+    s = s.masked_fill(~valid, float("-inf"))
+    s = torch.clamp_min(s, _NEG_BIG)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)               # [B, Tc, H, D]

@@ -17,26 +17,37 @@ Quick start::
     registry.register("lm", model)                          # warm + serve
     srv = serve.InferenceServer(registry).start(port=8000)
     # POST /v1/models/lm:predict {"inputs": [[ids...]], "deadline_ms": 500}
+    registry.register_generate("lm", model)                 # token streams
+    # POST /v1/models/lm:generate {"prompt": [ids...], "max_tokens": 32}
 
 Knobs (the JAX package's names): ``DL4J_TPU_SERVE_MAX_BATCH``,
 ``DL4J_TPU_SERVE_QUEUE``, ``DL4J_TPU_SERVE_MARGIN_MS``,
 ``DL4J_TPU_SERVE_WAIT_MS``, ``DL4J_TPU_SERVE_WAIT_QUANTUM_MS``,
 ``DL4J_TPU_SERVE_DEFAULT_DEADLINE_MS``, ``DL4J_TPU_SERVE_MIN_SAMPLES``,
-``DL4J_TPU_SERVE_WORKERS``.
+``DL4J_TPU_SERVE_WORKERS``; for generation ``DL4J_TPU_DECODE_BATCH_MAX``,
+``DL4J_TPU_KV_PAGE_TOKENS``, ``DL4J_TPU_KV_PAGED``,
+``DL4J_TPU_PREFILL_CHUNK``, ``DL4J_TPU_GEN_MAX_NEW``,
+``DL4J_TPU_GEN_QUEUE``, ``DL4J_TPU_GEN_DEADLINE_MS``.
 """
 
 from deeplearning4j_tpu_torch.serve.admission import (
-    AdmissionController, LatencyModel, ServeConfig)
+    AdmissionController, GenerateConfig, LatencyModel, ServeConfig,
+    TokenAdmission)
 from deeplearning4j_tpu_torch.serve.registry import ModelRegistry
-from deeplearning4j_tpu_torch.serve.scheduler import ModelWorker, ShedError
+from deeplearning4j_tpu_torch.serve.scheduler import (
+    GenerateStream, GenerateWorker, ModelWorker, ShedError)
 from deeplearning4j_tpu_torch.serve.server import InferenceServer
 
 __all__ = [
     "AdmissionController",
+    "GenerateConfig",
+    "GenerateStream",
+    "GenerateWorker",
     "InferenceServer",
     "LatencyModel",
     "ModelRegistry",
     "ModelWorker",
     "ServeConfig",
     "ShedError",
+    "TokenAdmission",
 ]

@@ -8,8 +8,8 @@ admitted DEADLINE using measured per-bucket execution latency, not by a
 fixed drain tick or a fixed batch size.
 
 Host-only copy of ``deeplearning4j_tpu/serve/admission.py`` (the
-generate-route pieces wait for the decode slice). Three separable pieces
-live here, all host-side float arithmetic (no device sync — the scheduler
+tuner's ``tune.maybe_apply`` is not ported, ROADMAP Queue 1 item 9, so
+the decode knobs come from the environment alone). The pieces live here, all host-side float arithmetic (no device sync — the scheduler
 calls these while holding its admission lock, so nothing here may stall
 it):
 
@@ -35,6 +35,11 @@ it):
   goodput within the tightest admitted deadline", since every admitted
   request adds real rows and the loop stops at the last bucket whose
   estimate is feasible.
+- :class:`GenerateConfig` — the generate route's knob surface
+  (``DL4J_TPU_GEN_*``, ``DL4J_TPU_KV_PAGE_TOKENS``,
+  ``DL4J_TPU_DECODE_BATCH_MAX``, ...).
+- :class:`TokenAdmission` — the same deadline decisions repriced per
+  remaining TOKEN budget for a token stream.
 """
 
 from __future__ import annotations
@@ -46,7 +51,8 @@ from typing import Dict, Optional, Tuple
 
 from deeplearning4j_tpu_torch.utils import bucketing
 
-__all__ = ["AdmissionController", "LatencyModel", "ServeConfig"]
+__all__ = ["AdmissionController", "GenerateConfig", "LatencyModel",
+           "ServeConfig", "TokenAdmission"]
 
 
 @dataclass(frozen=True)
@@ -208,3 +214,105 @@ class AdmissionController:
         after_wait = now + self.config.wait_quantum_s
         eta = self.eta(model, rows, after_wait)
         return eta is None or eta + self.config.margin_s <= tightest
+
+
+@dataclass(frozen=True)
+class GenerateConfig:
+    """The generative-serving knob surface (``DL4J_TPU_GEN_*`` plus the two
+    decode knobs ``DL4J_TPU_KV_PAGE_TOKENS`` and
+    ``DL4J_TPU_DECODE_BATCH_MAX``), read from the environment per
+    construction."""
+
+    decode_batch_max: int = 8    # token-level continuous-batch width cap
+    kv_page_tokens: int = 64     # KV-cache page size (tokens per page)
+    prefill_chunk: int = 64      # max prompt tokens per prefill dispatch
+    max_new_default: int = 64    # max_tokens for requests that carry none
+    queue_limit: int = 64        # waiting-stream bound; beyond it -> 429
+    margin_s: float = 0.005      # deadline safety margin (shared with serve)
+    default_deadline_s: float = 30.0  # generous: streams run many tokens
+    min_samples: int = 3         # measurements before an estimate can shed
+    paged: bool = True           # paged pool vs contiguous strips
+
+    @staticmethod
+    def from_env() -> "GenerateConfig":
+        env = os.environ.get
+        return GenerateConfig(
+            decode_batch_max=int(env("DL4J_TPU_DECODE_BATCH_MAX", "8")),
+            kv_page_tokens=int(env("DL4J_TPU_KV_PAGE_TOKENS", "64")),
+            prefill_chunk=int(env("DL4J_TPU_PREFILL_CHUNK", "64")),
+            max_new_default=int(env("DL4J_TPU_GEN_MAX_NEW", "64")),
+            queue_limit=int(env("DL4J_TPU_GEN_QUEUE", "64")),
+            margin_s=float(env("DL4J_TPU_SERVE_MARGIN_MS", "5")) / 1e3,
+            default_deadline_s=float(env("DL4J_TPU_GEN_DEADLINE_MS",
+                                         "30000")) / 1e3,
+            min_samples=int(env("DL4J_TPU_SERVE_MIN_SAMPLES", "3")),
+            paged=env("DL4J_TPU_KV_PAGED", "1") != "0",
+        )
+
+
+class TokenAdmission:
+    """Deadline decisions repriced per remaining TOKEN budget.
+
+    A fixed-shape request has one dispatch between admission and response;
+    a token stream has ``prefill + max_new`` of them, so its feasibility
+    is repriced as the budget drains: a stream that was feasible at
+    admission is shed mid-flight the moment ``now + remaining_tokens x
+    measured_ITL`` overruns its deadline, since every further step it runs
+    takes decode-batch slots from streams that can still finish.
+
+    Latency ledger keys (one :class:`LatencyModel`, two logical sites):
+    ``{model}:decode`` bucketed by batch rows (the per-token step) and
+    ``{model}:prefill`` bucketed by chunk width. Both unmeasured: admit
+    optimistically, never shed on a guess.
+    """
+
+    def __init__(self, latency: LatencyModel, config: GenerateConfig,
+                 ladder: Optional[bucketing.BucketLadder] = None):
+        self.latency = latency
+        self.config = config
+        self.ladder = ladder or bucketing.ladder_from_env()
+
+    def _bucket(self, n: int) -> int:
+        return self.ladder.bucket(n) if bucketing.bucketing_enabled() else n
+
+    def itl(self, model: str, batch_rows: int) -> Optional[float]:
+        """Measured per-token step latency at the given batch width."""
+        return self.latency.estimate(f"{model}:decode",
+                                     self._bucket(max(1, batch_rows)))
+
+    def prefill_eta(self, model: str, prompt_len: int) -> Optional[float]:
+        """Measured time to prefill a prompt, summed over chunk dispatches."""
+        chunk = self.config.prefill_chunk
+        total, n = 0.0, 0
+        while n < prompt_len:
+            c = min(chunk, prompt_len - n)
+            est = self.latency.estimate(f"{model}:prefill", self._bucket(c))
+            if est is None:
+                return None
+            total += est
+            n += c
+        return total
+
+    def infeasible(self, model: str, prompt_len: int, max_new: int,
+                   deadline: float, now: float) -> bool:
+        """Shed-on-arrival: even admitted IMMEDIATELY, the stream's full
+        token budget (prefill + max_new decode steps at measured ITL)
+        overruns its deadline. Unmeasured components price as zero."""
+        pre = self.prefill_eta(model, prompt_len) or 0.0
+        itl = self.itl(model, 1) or 0.0
+        if pre == 0.0 and itl == 0.0:
+            return False
+        eta = now + pre + max_new * itl
+        return eta + self.config.margin_s > deadline
+
+    def should_shed(self, model: str, remaining: int, deadline: float,
+                    now: float, batch_rows: int = 1) -> bool:
+        """Mid-stream repricing at a token boundary: shed when the
+        REMAINING budget at the currently measured ITL can no longer make
+        the deadline."""
+        if remaining <= 0:
+            return now > deadline
+        itl = self.itl(model, batch_rows)
+        if itl is None:
+            return now + self.config.margin_s > deadline
+        return now + remaining * itl + self.config.margin_s > deadline

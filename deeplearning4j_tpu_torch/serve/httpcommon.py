@@ -84,7 +84,7 @@ class ObservedHandler(BaseHTTPRequestHandler):
         self.trace = inbound.child() if inbound else fleet.TraceContext.mint()
         if self.inflight is not None:
             self.inflight.note(1)
-        t0 = time.perf_counter()
+        self._pending = (route, time.perf_counter())
         status = 500
         try:
             with fleet.trace_scope(self.trace), \
@@ -94,6 +94,15 @@ class ObservedHandler(BaseHTTPRequestHandler):
         finally:
             if self.inflight is not None:
                 self.inflight.note(-1)
+            self._record(status)   # a streamed reply, or a handler that raised
+
+    def _record(self, status: int) -> None:
+        """Record this request in the SLO envelope, once. ``send_body``
+        records before it writes the body, so a client that has read its
+        reply finds the request in ``/metrics``."""
+        pending, self._pending = getattr(self, "_pending", None), None
+        if pending is not None:
+            route, t0 = pending
             obs.observe_request(route, time.perf_counter() - t0,
                                 status=str(status), error=status >= 500)
 
@@ -136,6 +145,7 @@ class ObservedHandler(BaseHTTPRequestHandler):
         for k, v in headers:
             self.send_header(k, v)
         self.end_headers()
+        self._record(status)
         self.wfile.write(body)
         return status
 

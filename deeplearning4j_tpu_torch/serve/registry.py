@@ -1,7 +1,8 @@
 """Model registry: the register → warm → serve pipeline, per model pool.
 
-Counterpart of ``deeplearning4j_tpu/serve/registry.py`` (the predict path;
-``load`` from a file, generate and search wait for their slices).
+Counterpart of ``deeplearning4j_tpu/serve/registry.py`` (the predict and
+generate paths; ``load`` from a file, AOT bundles and search wait for
+their slices).
 ``ModelRegistry`` owns every :class:`~.scheduler.ModelWorker` in the
 process. ``register(name, model)`` puts an already-constructed model (a
 MultiLayerNetwork or a one-input ComputationGraph: anything with
@@ -10,6 +11,11 @@ continuous-batching worker after a warm pass: ``output`` runs
 once per bucket reachable by coalesced batches up to the worker's
 ``max_batch``, so the first requests do not pay for CUDA context set-up,
 cuBLAS heuristics or the kernel library's build.
+
+``register_generate(name, model)`` puts an autoregressive LM behind a
+token-level :class:`~.scheduler.GenerateWorker` over a
+:class:`~deeplearning4j_tpu_torch.nn.decode.DecodeProgram`, warmed over
+its whole dispatch-shape grid first.
 
 The registry lives on one device (``device=None`` → the GPU, raising when
 there is none); a model registered on another device is refused.
@@ -28,8 +34,9 @@ import torch
 
 from deeplearning4j_tpu_torch import obs
 from deeplearning4j_tpu_torch.nn.model import resolve_device
-from deeplearning4j_tpu_torch.serve.admission import LatencyModel, ServeConfig
-from deeplearning4j_tpu_torch.serve.scheduler import ModelWorker
+from deeplearning4j_tpu_torch.serve.admission import (
+    GenerateConfig, LatencyModel, ServeConfig)
+from deeplearning4j_tpu_torch.serve.scheduler import GenerateWorker, ModelWorker
 from deeplearning4j_tpu_torch.utils import bucketing
 
 __all__ = ["ModelRegistry"]
@@ -42,16 +49,20 @@ class ModelRegistry:
         self.latency = LatencyModel(min_samples=self.config.min_samples)
         self._lock = threading.Lock()
         self._workers: Dict[str, ModelWorker] = {}
+        self._generators: Dict[str, GenerateWorker] = {}
         self._meta: Dict[str, Dict[str, object]] = {}
 
     # -- intake ------------------------------------------------------------
 
-    def register(self, name: str, model, warm: bool = True) -> ModelWorker:
-        """Put ``model`` behind a continuous-batching worker under ``name``.
-        Replaces (and shuts down) any worker already bound to the name."""
+    def _check_device(self, name: str, model):
         if torch.device(model.device).type != self.device.type:
             raise ValueError(f"model {name!r} lives on {model.device}, the "
                              f"registry serves {self.device}")
+
+    def register(self, name: str, model, warm: bool = True) -> ModelWorker:
+        """Put ``model`` behind a continuous-batching worker under ``name``.
+        Replaces (and shuts down) any worker already bound to the name."""
+        self._check_device(name, model)
         meta = self._warm_pipeline(model, warm=warm)
         worker = ModelWorker(name, model, config=self.config,
                              latency=self.latency)
@@ -62,6 +73,59 @@ class ModelRegistry:
         if old is not None:
             old.shutdown()
         obs.event("serve_model_loaded", model=name, **{
+            k: meta[k] for k in ("source", "model_class", "warmed",
+                                 "warm_seconds")})
+        return worker
+
+    def register_generate(self, name: str, model, warm: bool = True,
+                          bundle: Optional[str] = None,
+                          config: Optional[GenerateConfig] = None,
+                          capacity: Optional[int] = None) -> GenerateWorker:
+        """Put an autoregressive LM behind a token-level continuous-batching
+        decode engine under ``name`` (``:generate``). Builds the
+        :class:`~deeplearning4j_tpu_torch.nn.decode.DecodeProgram` (its
+        pools on the registry's device), runs every point of its
+        signature grid once (``warm``), then starts the engine. Replaces
+        (and shuts down) any generator already bound to the name.
+        ``bundle`` (the JAX package's AOT sidecar) is not ported."""
+        from deeplearning4j_tpu_torch.nn.decode import DecodeProgram
+
+        if bundle is not None:
+            raise NotImplementedError(
+                "register_generate(bundle=...): AOT bundles are not ported "
+                "yet, ROADMAP Queue 1 item 9")
+        self._check_device(name, model)
+        if getattr(model, "params", None) is None:
+            model.init()
+        cfg = config or GenerateConfig.from_env()
+        program = DecodeProgram(
+            model, page_tokens=cfg.kv_page_tokens,
+            max_batch=cfg.decode_batch_max, prefill_chunk=cfg.prefill_chunk,
+            paged=cfg.paged, capacity=capacity)
+        warmed = 0
+        warm_dt = 0.0
+        if warm:
+            t0 = time.perf_counter()
+            warmed = program.warm()
+            warm_dt = time.perf_counter() - t0
+        worker = GenerateWorker(name, model, program, config=cfg,
+                                latency=self.latency)
+        meta = {
+            "source": "object",
+            "model_class": type(model).__name__,
+            "warmed": int(warmed),
+            "warm_seconds": round(warm_dt, 4),
+            "kv_pool_bytes": program.pool_bytes(),
+            "device": str(model.device),
+            "generate": True,
+        }
+        with self._lock:
+            old = self._generators.pop(name, None)
+            self._generators[name] = worker
+            self._meta[f"generate:{name}"] = meta
+        if old is not None:
+            old.shutdown()
+        obs.event("serve_model_loaded", model=name, mode="generate", **{
             k: meta[k] for k in ("source", "model_class", "warmed",
                                  "warm_seconds")})
         return worker
@@ -96,15 +160,22 @@ class ModelRegistry:
         with self._lock:
             return self._workers.get(name)
 
+    def generator(self, name: str) -> Optional[GenerateWorker]:
+        with self._lock:
+            return self._generators.get(name)
+
     def names(self) -> List[str]:
         with self._lock:
-            return sorted(self._workers)
+            return sorted(set(self._workers) | set(self._generators))
 
     def describe(self) -> List[Dict[str, object]]:
         """One JSON-friendly row per served model (GET /v1/models)."""
         with self._lock:
             pairs = [(self._workers[n], dict(self._meta.get(n, {})))
                      for n in sorted(self._workers)]
+            pairs += [(self._generators[n],
+                       dict(self._meta.get(f"generate:{n}", {})))
+                      for n in sorted(self._generators)]
         rows = []
         for worker, meta in pairs:
             row = worker.stats()
@@ -114,8 +185,10 @@ class ModelRegistry:
 
     def shutdown(self):
         with self._lock:
-            workers = list(self._workers.values())
+            workers = (list(self._workers.values())
+                       + list(self._generators.values()))
             self._workers.clear()
+            self._generators.clear()
             self._meta.clear()
         for w in workers:
             w.shutdown()

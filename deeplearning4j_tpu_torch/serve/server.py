@@ -9,6 +9,15 @@ ThreadingHTTPServer — one OS thread per connection, so concurrent blocked
   ...}``. 200 served, 400 malformed payload, 404 unknown model, **429**
   shed by queue backpressure (with ``Retry-After``), **503** shed because
   the deadline is infeasible or already expired (or the worker shut down);
+- ``POST /v1/models/<name>:generate`` with ``{"prompt": [token ids],
+  "max_tokens": 32, "deadline_ms": 30000, "eos": 2}`` → a chunked
+  (HTTP/1.1 ``Transfer-Encoding: chunked``) ``application/x-ndjson``
+  stream: one ``{"token": id, "i": n}`` line per generated token, flushed
+  as the decode engine emits it, then a terminal ``{"done": true,
+  "reason": ..., "tokens": n, "ttft_ms": ..., "request_id": ...}`` line.
+  Arrival sheds keep the predict route's 429/503, since no byte has been
+  sent; a mid-stream shed (the deadline repriced per remaining token)
+  shows as the terminal line's ``reason == "shed:deadline"``;
 - ``GET /v1/models`` → per-model pool stats;
 - ``GET /healthz``, ``GET /metrics`` — from serve/httpcommon.py.
 
@@ -26,6 +35,7 @@ SLO route labels are collapsed to ``serve.<name>:http`` / ``/v1/models`` /
 
 from __future__ import annotations
 
+import json
 import re
 from typing import Optional
 from urllib.parse import urlparse
@@ -42,6 +52,11 @@ from deeplearning4j_tpu_torch.serve.scheduler import ShedError
 __all__ = ["InferenceServer", "decode_inputs"]
 
 _PREDICT_RE = re.compile(r"^/v1/models/([\w.\-]+):predict$")
+_GENERATE_RE = re.compile(r"^/v1/models/([\w.\-]+):generate$")
+
+# a generate stream's wait for its next token: a bound on a stalled engine,
+# far above any step time
+_STREAM_WAIT_S = 600.0
 
 
 def decode_inputs(raw, ids: bool = True) -> np.ndarray:
@@ -90,6 +105,9 @@ class InferenceServer:
                 m = _PREDICT_RE.match(path)
                 if m:
                     return f"serve.{m.group(1)}:http"
+                m = _GENERATE_RE.match(path)
+                if m:
+                    return f"generate.{m.group(1)}:http"
                 return path
 
             def handle_get(self) -> int:
@@ -99,7 +117,86 @@ class InferenceServer:
                                           {"models": outer.registry.describe()})
                 return self.send_json(404, {"error": "no such route"})
 
+            def _send_shed(self, e: ShedError) -> int:
+                body = {"error": str(e), "shed": e.reason}
+                if e.http_status == 429:
+                    # closed-loop clients back off for one deadline's
+                    # worth of queue drain rather than hammering
+                    return self.send_json(429, body,
+                                          headers=(("Retry-After", "1"),))
+                return self.send_json(503, body)
+
+            # -- streaming generate ----------------------------------------
+
+            def _chunk(self, data: bytes) -> None:
+                self.wfile.write(f"{len(data):x}\r\n".encode())
+                self.wfile.write(data)
+                self.wfile.write(b"\r\n")
+
+            def handle_generate(self, name: str) -> int:
+                gen = outer.registry.generator(name)
+                if gen is None:
+                    return self.send_json(
+                        404, {"error": f"model {name!r} not served for "
+                              f"generation", "served": outer.registry.names()})
+                try:
+                    payload = self.read_json()
+                    prompt = [int(t) for t in payload["prompt"]]
+                    max_new = payload.get("max_tokens")
+                    eos = payload.get("eos")
+                    eos = None if eos is None else int(eos)
+                    deadline_ms = payload.get("deadline_ms")
+                    deadline_s = (None if deadline_ms is None
+                                  else float(deadline_ms) / 1e3)
+                    if deadline_s is not None and deadline_s <= 0:
+                        raise ValueError("deadline_ms must be > 0")
+                except Exception as e:
+                    return self.send_json(400, {"error": str(e)})
+                try:
+                    stream = gen.submit(prompt, max_new=max_new, eos=eos,
+                                        deadline_s=deadline_s,
+                                        timeout_s=_STREAM_WAIT_S)
+                except ShedError as e:
+                    return self._send_shed(e)
+                except ValueError as e:
+                    return self.send_json(400, {"error": str(e)})
+                self.send_response(200)
+                self.send_header("Content-Type", "application/x-ndjson")
+                self.send_header("Transfer-Encoding", "chunked")
+                if self.trace is not None:
+                    self.send_header("traceparent", self.trace.header())
+                self.end_headers()
+                try:
+                    for i, tok in enumerate(stream):
+                        self._chunk(json.dumps(
+                            {"token": int(tok), "i": i}).encode() + b"\n")
+                        self.wfile.flush()
+                    tail = {"done": True, "reason": stream.finish_reason,
+                            "tokens": len(stream.tokens)}
+                    if stream.ttft_s is not None:
+                        tail["ttft_ms"] = round(stream.ttft_s * 1e3, 3)
+                except (BrokenPipeError, ConnectionResetError):
+                    return 200  # the client went away mid-stream
+                except Exception as e:
+                    tail = {"done": True, "reason": "error", "error": str(e)}
+                if self.trace is not None:
+                    # the terminal line names the trace, so a client can
+                    # find its request in the merged timeline
+                    tail["request_id"] = self.trace.trace_id
+                try:
+                    self._chunk(json.dumps(tail).encode() + b"\n")
+                    # counted before the stream's end reaches the client
+                    self._record(200)
+                    self.wfile.write(b"0\r\n\r\n")
+                    self.wfile.flush()
+                except (BrokenPipeError, ConnectionResetError):
+                    pass  # client went away at the end; engine already done
+                return 200
+
             def handle_post(self) -> int:
+                g = _GENERATE_RE.match(urlparse(self.path).path)
+                if g:
+                    return self.handle_generate(g.group(1))
                 m = _PREDICT_RE.match(urlparse(self.path).path)
                 if not m:
                     return self.send_json(404, {"error": "no such route"})
@@ -122,13 +219,7 @@ class InferenceServer:
                 try:
                     out = worker.submit(x, deadline_s=deadline_s)
                 except ShedError as e:
-                    body = {"error": str(e), "shed": e.reason}
-                    if e.http_status == 429:
-                        # closed-loop clients back off for one deadline's
-                        # worth of queue drain rather than hammering
-                        return self.send_json(
-                            429, body, headers=(("Retry-After", "1"),))
-                    return self.send_json(503, body)
+                    return self._send_shed(e)
                 except ValueError as e:
                     return self.send_json(400, {"error": str(e)})
                 except Exception as e:

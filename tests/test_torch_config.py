@@ -62,11 +62,35 @@ def test_layer_round_trips_across_packages(layer):
 
 
 def test_unported_layer_type_raises_naming_it():
-    # TransformerLM with mixture-of-experts blocks: MoE is not ported yet
-    s = jzoo.TransformerLM(vocab_size=31, d_model=16, n_heads=2, n_blocks=2,
-                           moe_experts=2).to_json()
-    with pytest.raises(ValueError, match="mixture_of_experts.*not ported"):
-        MultiLayerConfiguration.from_json(s)
+    # a tag that no package registers: the refusal names it
+    d = json.loads(jzoo.TransformerLM(vocab_size=31, d_model=16, n_heads=2,
+                                      n_blocks=2).to_json())
+    d["layers"][2] = dict(d["layers"][2], **{"@type": "no_such_layer"})
+    with pytest.raises(ValueError, match="no_such_layer.*not ported"):
+        MultiLayerConfiguration.from_dict(d)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(vocab_size=31, d_model=16, n_heads=2, n_blocks=2, moe_experts=2),
+    dict(vocab_size=2048, max_len=2048, d_model=2048, n_heads=16, n_blocks=8,
+         moe_experts=8),
+])
+def test_jax_moe_json_loads_and_round_trips(kw):
+    jconf = jzoo.TransformerLM(**kw)
+    d = json.loads(jconf.to_json())
+    conf = MultiLayerConfiguration.from_json(jconf.to_json())
+    assert sum(l["@type"] == "mixture_of_experts" for l in d["layers"]) == kw["n_blocks"] // 2
+    assert json.loads(conf.to_json()) == d
+    assert conf == zoo.TransformerLM(**kw)
+    assert JConf.from_json(conf.to_json()).to_dict() == d
+
+
+def test_every_jax_layer_type_is_registered():
+    import deeplearning4j_tpu.nn.layers  # noqa: F401  (registers every tag)
+    from deeplearning4j_tpu.nn.config import layer_registry as jreg
+    from deeplearning4j_tpu_torch.nn.config import layer_registry
+
+    assert set(jreg) <= set(layer_registry)
 
 
 @pytest.mark.parametrize("make,kw", [

@@ -1175,3 +1175,120 @@ def test_flash_ring_on_the_card_matches_flash_attention(cuda, causal, masked):
     want = torch.autograd.grad(ref, (q, k, v), do)
     for a, b in zip(got, want):
         _close_rel(a, b, 2e-2)
+
+
+# -- the decode path and the mixture of experts (slice 11) -------------------
+
+def _tiny_gen_lm(dev, dtype="float32", moe=0):
+    conf = zoo.TransformerLM(vocab_size=29, max_len=64, d_model=32, n_heads=4,
+                             n_blocks=2, moe_experts=moe, dtype=dtype, seed=5)
+    cpu = MultiLayerNetwork(conf, device="cpu").init()
+    gpu = MultiLayerNetwork(conf, device=dev).init()
+    params_from_numpy(gpu, params_to_numpy(cpu))
+    return cpu, gpu
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_on_the_card_matches_the_cpu(cuda, dtype):
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(3, n, 4, 32, generator=g).to(dtype) for n in (5, 40, 40))
+    pos = torch.tensor([[0, 1, 2, 3, 4], [9, 10, 11, 12, 13], [35, 36, 37, 38, 39]])
+    want = fa.decode_attention(q, k, v, pos).float()
+    got = fa.decode_attention(q.to(cuda), k.to(cuda), v.to(cuda), pos.to(cuda)).float().cpu()
+    torch.testing.assert_close(got, want, **(F32 if dtype == torch.float32 else BF16))
+
+
+def _drive(prog, prompt, n_gen):
+    import numpy as np
+
+    npb = prog.ladder.bucket(prog.max_pages) if prog.paged else None
+    table = (np.arange(npb)[None] + 1 if prog.paged else np.zeros(1, np.int64))
+    if prog.paged:
+        table[:, prog.max_pages:] = 0
+    cached, out, logits = 0, [], []
+    for i in range(0, len(prompt), prog.prefill_chunk):
+        chunk = prompt[i:i + prog.prefill_chunk]
+        tc = prog.ladder.bucket(len(chunk)) if len(chunk) > 1 else 1
+        toks = np.zeros((1, tc), np.int64)
+        toks[0, :len(chunk)] = chunk
+        lg, ids = prog.dispatch(table, [cached], toks, [len(chunk)])
+        cached += len(chunk)
+    for j in range(n_gen):
+        if j:
+            lg, ids = prog.dispatch(table, [cached], [[out[-1]]], [1])
+            cached += 1
+        out.append(int(ids[0]))
+        logits.append(lg.float().cpu())
+    return out, torch.cat(logits)
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_decode_program_on_the_card_matches_the_cpu(cuda, paged):
+    from deeplearning4j_tpu_torch.nn.decode import DecodeProgram
+
+    cpu, gpu = _tiny_gen_lm(cuda)
+    kw = dict(page_tokens=8, max_batch=4, prefill_chunk=8, paged=paged)
+    prompt = [int(t) for t in torch.randint(0, 29, (19,), generator=torch.Generator().manual_seed(4))]
+    gp = DecodeProgram(gpu, **kw)
+    assert gp.pools[0]["k"].device.type == cuda.type
+    want_ids, want = _drive(DecodeProgram(cpu, **kw), prompt, 6)
+    got_ids, got = _drive(gp, prompt, 6)
+    assert got_ids == want_ids
+    torch.testing.assert_close(got, want, **F32)
+
+
+def test_generate_worker_on_the_card_matches_the_cpu(cuda):
+    from deeplearning4j_tpu_torch.serve import GenerateConfig, ModelRegistry
+
+    cpu, gpu = _tiny_gen_lm(cuda)
+    cfg = GenerateConfig(decode_batch_max=4, kv_page_tokens=8, prefill_chunk=16)
+    prompts = [[int(t) for t in torch.randint(0, 29, (n,), generator=torch.Generator().manual_seed(n))]
+               for n in (4, 11, 19, 26)]
+    got = []
+    for model in (cpu, gpu):
+        reg = ModelRegistry(device=model.device)
+        try:
+            gw = reg.register_generate("lm", model, config=cfg)
+            streams = [gw.submit(p, max_new=6, timeout_s=120) for p in prompts]
+            got.append([list(s) for s in streams])
+            assert gw.program.off_grid_dispatches == 0
+        finally:
+            reg.shutdown()
+    assert got[1] == got[0]
+
+
+def test_moe_forward_and_backward_on_the_card_match_the_cpu(cuda):
+    import numpy as np
+
+    cpu, gpu = _tiny_gen_lm(cuda, moe=2)
+    x = np.random.RandomState(6).randint(0, 29, (3, 64))
+    y = np.roll(x, -1, axis=1)
+    torch.testing.assert_close(gpu.output(x).cpu(), cpu.output(x), **F32)
+    grads = []
+    for m in (cpu, gpu):
+        loss, _, g, _ = m._value_and_grad(m.state, torch.as_tensor(x, device=m.device),
+                                          torch.as_tensor(y, device=m.device), None, None,
+                                          None)
+        grads.append((float(loss), [t.cpu() for t in _leaves(g)]))
+    assert math.isclose(grads[0][0], grads[1][0], rel_tol=1e-4)
+    for a, b in zip(grads[0][1], grads[1][1]):
+        torch.testing.assert_close(b, a, **F32)
+
+
+def _leaves(tree):
+    from deeplearning4j_tpu_torch.utils.tree import tree_leaves
+
+    return tree_leaves(tree)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_of_a_row_does_not_depend_on_the_batch(cuda, dtype):
+    from deeplearning4j_tpu_torch.nn.layers.normalization import layer_norm
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = (torch.randn(8, 1, 2048, generator=g, device=cuda) * 3 + 1).to(dtype)
+    gam, bet = (torch.randn(2048, generator=g, device=cuda).to(dtype) for _ in range(2))
+    full = layer_norm(x, gam, bet)
+    for b in (1, 2, 4):
+        for r in range(0, 8, b):
+            assert torch.equal(layer_norm(x[r:r + b], gam, bet), full[r:r + b])

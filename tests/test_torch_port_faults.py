@@ -1,7 +1,8 @@
 """Repairs of the port's faults against the reference, on the CPU: the
 reference's ``output(x, train, fmask)`` and ``feed_forward(x, train)``
-signatures, the bit-exact bf16 copy of a served output to the host, and
-the embedding's ``jnp.take`` semantics without a read back to the host."""
+signatures, the bit-exact bf16 copy of a served output to the host, the
+embedding's ``jnp.take`` semantics without a read back to the host, and a
+layer norm whose rows do not depend on the batch they ride in."""
 
 import threading
 
@@ -182,3 +183,33 @@ def test_host_ids_outside_the_vocab_raise_before_the_copy(bad):
         m.output(torch.from_numpy(x))
     with pytest.raises(ValueError, match="embedding ids"):
         m.feed_forward(x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_rows_do_not_depend_on_the_batch(dtype):
+    from deeplearning4j_tpu_torch.nn.layers.normalization import layer_norm
+
+    g = torch.Generator().manual_seed(8)
+    x = (torch.randn(8, 3, 256, generator=g) * 3 + 1).to(dtype)
+    gam, bet = (torch.randn(256, generator=g).to(dtype) for _ in range(2))
+    full = layer_norm(x, gam, bet)
+    for b in (1, 3):
+        for r in range(0, 8 - b + 1, b):
+            assert torch.equal(layer_norm(x[r:r + b], gam, bet), full[r:r + b])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_matches_the_jax_package(dtype):
+    from deeplearning4j_tpu.nn.layers.normalization import layer_norm as jlayer_norm
+    from deeplearning4j_tpu_torch.nn.layers.normalization import layer_norm
+
+    rs = np.random.RandomState(9)
+    x, gam, bet = (rs.randn(*s).astype(np.float32) for s in ((4, 5, 64), (64,), (64,)))
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    want = np.asarray(jlayer_norm(*(jnp.asarray(a, jdt) for a in (x, gam, bet))).astype(jnp.float32))
+    tdt = getattr(torch, dtype)
+    got = layer_norm(*(torch.from_numpy(a).to(tdt) for a in (x, gam, bet))).float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, **F32)
+    else:   # one bf16 ulp where the normalised value rounds the other way
+        assert np.abs(got - want).max() <= 2 ** -7 * (np.abs(want).max() + 1)

@@ -219,6 +219,25 @@ def test_models_health_metrics_endpoints(server):
     assert 'dl4j_requests_total{route="serve.lm:http",status="200"}' in text
 
 
+def test_request_is_in_metrics_before_its_reply_is_read(server, monkeypatch):
+    # the handler's exit (in-flight gauge, span close) held back 0.3 s: a
+    # client that has read its reply must still find the request counted
+    from deeplearning4j_tpu_torch.serve import httpcommon
+
+    note = httpcommon.InFlight.note
+
+    def slow_exit(self, delta):
+        if delta < 0:
+            time.sleep(0.3)
+        note(self, delta)
+
+    monkeypatch.setattr(httpcommon.InFlight, "note", slow_exit)
+    _post(server.port, "lm", {"inputs": _ids(1).tolist(), "deadline_ms": 60000})
+    text = urllib.request.urlopen(
+        f"http://127.0.0.1:{server.port}/metrics", timeout=60).read().decode()
+    assert 'dl4j_requests_total{route="serve.lm:http",status="200"} 1' in text
+
+
 def test_infeasible_deadline_503(server):
     w = server.registry.worker("lm")
     for _ in range(3):
