@@ -237,6 +237,41 @@ non-zero (and without a result line when no CUDA device is present):
    InferenceServer and 2 HTTP :predict requests, one after the other,
    held to output().
 
+26. word2vec — Word2Vec skip-gram at bench.py:416 bench_word2vec's full
+   width, unreduced (vocab 100,000, dim 100, 65,536 pairs a batch, 5
+   negatives, numpy seed 0): (a) _sg_ns_step on the card against the same
+   step on the CPU from the same tables and batch (per table the update's
+   difference in norm, W2V_UPDATE_REL; the loss, W2V_LOSS_REL), then 50
+   steps after 5 warm ones by CUDA events (pairs/s, beside the least time
+   the rows it touches allow); (b) _cbow_ns_step, _dm_ns_step,
+   _cbow_hs_step, _sg_hs_step (Huffman tables of a 100,000-word Zipf
+   vocabulary) and GloVe's _glove_step once each at B = 65,536, card
+   against CPU; (c) one scan chunk (64 x 65,536 pairs, negatives drawn on
+   the card) against the loop of steps fed the negatives the same
+   generator seed draws (W2V_CHUNK_REL), and those 21M negatives' counts
+   against the f32 cumulative unigram table (largest |z| below W2V_NEG_Z);
+   (d) the end-to-end run as bench.py:473-497 computes it: 2,000,000
+   tokens from zipf(1.3) below 50,000 in sentences of 1,000,
+   Word2Vec(layer_size=100, window=5, negative=5, min_word_frequency=1,
+   epochs=1, seed=1, batch_size=65536, pair_backend="numpy") (scan chunks
+   and the tail): vocabulary build, cold fit, a warm epoch, host pair
+   generation alone, tokens/s, and the device's idle share over a profiled
+   warm epoch (torch.profiler's device time).
+27. embeddings — on the card: Word2Vec skip-gram NS and HS, CBOW NS and HS
+   and ParagraphVectors DBOW and DM on a planted-topic corpus (4 topics of
+   25 words, 2,000 sentences of 20): mean within-topic similarity above
+   across-topic (words; document labels), infer_vector of a topic-0 text
+   nearest topic 0's labels; GloVe on the first 200,000 tokens of
+   the word2vec corpus (its weighted cost over every co-occurrence must
+   fall); DeepWalk and Node2Vec on a chain of 20 cliques of 10 vertices
+   (within-clique similarity above across, fit seconds); the serializer's
+   text, binary and zip files of the card-trained model read back;
+   DistributedWord2Vec on a world-size-1 NCCL group (its all_gather_object
+   and all_reduce run) against plain Word2Vec.fit (W2V_FIT_REL).
+   Neither phase launches a hand-written kernel (no Pallas kernel lies on
+   the JAX package's embedding path): every kernel count is set to 0
+   before each and must read 0 after.
+
 It ends with the command time, the kernels line (launches of each kernel
 by path, the new phases' included), the card's name and power limit, and
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -4054,6 +4089,559 @@ def moe_serve_phase(zip_path: str) -> dict:
     return out
 
 
+# -- phases 26-27: Word2Vec and the embedding libraries ------------------------
+
+# bench.py:416 bench_word2vec, unreduced: the step at vocab 100,000, dim 100,
+# 65,536 pairs a batch, 5 negatives (numpy seed 0), then 2,000,000 tokens
+# drawn from zipf(1.3) below 50,000 in sentences of 1,000 (the same
+# RandomState, after the step's arrays)
+W2V = dict(vocab=100_000, dim=100, batch=65536, negative=5, seed=0, lr=0.025)
+W2V_CORPUS = dict(tokens=2_000_000, v_eff=50_000, sent_len=1000)
+W2V_WARM, W2V_TIMED, W2V_SCAN_BATCHES = 5, 50, 64
+# one step on the card against the same step on the CPU from the same tables
+# and batch: index_add_ on the card adds a repeated row's updates with
+# atomics in no fixed order, and the reductions sum in other orders, so per
+# table the update (after - before) on the card is held to the CPU's in norm
+# (f32 rounding of sums of a few terms: ~1e-7 of the update), the loss too
+W2V_UPDATE_REL = 1e-4
+W2V_LOSS_REL = 1e-5
+# the scan over 64 batches against the loop of steps with the same
+# negatives, both on the card: the same operations, atomics in another
+# order, and 64 steps to carry the differences; per table, relative to the
+# chunk's whole update
+W2V_CHUNK_REL = 1e-3
+# the device negatives' counts against the probabilities of the f32
+# cumulative table (what inverse CDF over it draws): the largest |z| over
+# 100,000 words (about 4.5 expected of as many normals)
+W2V_NEG_Z = 6.0
+# two fits on the card that differ only in atomics order (the world-size-1
+# group against plain fit): the tables' difference in norm
+W2V_FIT_REL = 1e-4
+# the planted-topic corpus of the embeddings phase, GloVe's slice of the
+# word2vec corpus, and the clique graph of DeepWalk and Node2Vec
+EMB_TOPICS = dict(topics=4, words=25, sentences=2000, length=20, seed=21)
+# (512 pairs a batch: each of the 100 words comes ~5 times a batch, whose
+# summed updates at a larger batch overshoot)
+EMB_CONF = dict(layer_size=64, window=5, negative=5, min_word_frequency=1, epochs=3,
+                seed=3, batch_size=512, learning_rate=0.025)
+# ParagraphVectors: a document's 20 words give its label 20 pairs an epoch,
+# so the labels take more epochs at a higher rate
+PV_CONF = dict(EMB_CONF, epochs=10, learning_rate=0.05)
+GLOVE_TOKENS, GLOVE_EPOCHS = 200_000, 5
+CLIQUES = dict(size=10, count=20)
+_CUDA = torch.device("cuda")
+
+
+def _w2v_bench_inputs():
+    """bench_word2vec's arrays in its draw order: the step's tables and
+    batch, then the corpus."""
+    V, D, B, K = W2V["vocab"], W2V["dim"], W2V["batch"], W2V["negative"]
+    rs = np.random.RandomState(W2V["seed"])
+    syn0 = (rs.rand(V, D).astype(np.float32) - 0.5) / D
+    batch = [rs.randint(0, V, B, dtype=np.int32), rs.randint(0, V, B, dtype=np.int32),
+             rs.randint(0, V, (B, K), dtype=np.int32)]
+    n, v_eff, L = W2V_CORPUS["tokens"], W2V_CORPUS["v_eff"], W2V_CORPUS["sent_len"]
+    zipf = rs.zipf(1.3, n * 2)
+    toks = zipf[zipf <= v_eff][:n].astype(np.int64)
+    corpus = [[f"w{t}" for t in toks[i:i + L]] for i in range(0, len(toks), L)]
+    return syn0, batch, corpus
+
+
+def _zipf_vocab(V: int):
+    """A V-word vocabulary with counts 1e7 / rank (Zipf), for the Huffman
+    tables and the unigram table at the step's width."""
+    from deeplearning4j_tpu_torch.nlp.vocab import VocabCache, VocabWord
+
+    counts = np.maximum((1e7 / np.arange(1, V + 1)).astype(np.int64), 1)
+    cache = VocabCache()
+    for i, c in enumerate(counts):
+        cache.add(VocabWord(f"w{i}", int(c)))
+    cache.total_word_count = int(counts.sum())
+    return cache
+
+
+def _sg_ns_bound_ms(centers, contexts, negs, D) -> dict:
+    """The least time of one SG-NS step on this batch: every table row the
+    step touches read once and written once (the rows this batch's ids
+    name), every index read once; against ~6 D operations a (pair, row) in
+    f32 FMA."""
+    rows = (np.unique(centers).size + np.unique(np.concatenate(
+        [contexts.ravel(), negs.ravel()])).size)
+    nbytes = 2 * 4 * D * rows + 8 * (centers.size + contexts.size + negs.size)
+    ops = 6 * D * (centers.size + contexts.size + negs.size)
+    by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_bytes": nbytes, "bound_operations": ops, "rows_touched": int(rows)}
+
+
+def _step_vs_cpu(name, fn, params, args, lr, **kw) -> dict:
+    """One step on the card and on the CPU from the same tables (``params``,
+    on the CPU) and batch: per table the update's difference in norm, the
+    largest entry difference, and the loss."""
+    gp, gl = fn({k: v.to(_CUDA, copy=True) for k, v in params.items()},
+                *(a.to(_CUDA) for a in args), lr, **kw)
+    torch.cuda.synchronize()
+    cp, cl = fn({k: v.clone() for k, v in params.items()}, *args, lr, **kw)
+    res = {"step": name, "batch": int(args[0].shape[0]), "loss": float(gl),
+           "cpu_loss": float(cl), "tables": {}}
+    for k, want in cp.items():
+        got = gp[k].cpu()
+        du = want - params[k]
+        rel = float((got - want).norm() / du.norm().clamp_min(1e-30))
+        res["tables"][k] = {"update_rel": rel, "max_abs_err": float((got - want).abs().max()),
+                            "update_norm": float(du.norm())}
+        check(rel <= W2V_UPDATE_REL, f"{name}: {k} update off by {rel} (card vs CPU)")
+    check(abs(res["loss"] - res["cpu_loss"]) <= W2V_LOSS_REL * abs(res["cpu_loss"]),
+          f"{name}: loss {res['loss']} on the card, {res['cpu_loss']} on the CPU")
+    res["max_abs_err"] = max(t["max_abs_err"] for t in res["tables"].values())
+    del gp, cp
+    return res
+
+
+def _kernel_launches() -> dict:
+    return {**_all_launches(), **{f"chunk_{k}": v for k, v in fa.CHUNK_LAUNCHES.items()}}
+
+
+def _zero_all_kernel_counts():
+    _zero_flash_counts()
+    _zero_lstm_counts()
+    _zero_chunk_counts()
+
+
+def _check_no_kernel(launches: dict, phase: str):
+    check(not any(launches.values()),
+          f"{phase}: a hand-written kernel launched on a path without one: {launches}")
+
+
+def _device_busy_ms(prof) -> float:
+    """Device time of every kernel and copy the profiler saw (one stream,
+    so they do not overlap)."""
+    return sum(_device_us(e) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def word2vec_phase() -> dict:
+    """Phase 26: Word2Vec skip-gram at bench_word2vec's full width: (a) the
+    step, card against CPU, then timed; (b) the other steps and GloVe's once
+    each at B = 65,536, card against CPU; (c) one scan chunk (64 x 65,536
+    pairs) against the loop of steps with the same negatives, and those
+    negatives against the unigram table; (d) the end-to-end run and the
+    device's idle share over a warm epoch."""
+    from deeplearning4j_tpu_torch.nlp import embeddings as E
+    from deeplearning4j_tpu_torch.nlp.embeddings import Word2Vec, _fast_pairs
+    from deeplearning4j_tpu_torch.nlp.glove import _glove_step
+    from deeplearning4j_tpu_torch.nlp.vocab import huffman_tables, subsample_probs, unigram_table
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off for the f32 steps")
+    V, D, B, K = W2V["vocab"], W2V["dim"], W2V["batch"], W2V["negative"]
+    lr = float(np.float32(W2V["lr"]))
+    dev = _CUDA
+    syn0, (c_np, t_np, n_np), corpus = _w2v_bench_inputs()
+    c, t, n = (torch.from_numpy(a.astype(np.int64)).to(dev) for a in (c_np, t_np, n_np))
+
+    stage = {"start": time.perf_counter()}
+    # (a) the step: warm steps from bench's tables (syn1neg zero), then one
+    # step from that state on the card against the CPU, then timed steps
+    params = {"syn0": torch.from_numpy(syn0).to(dev), "syn1neg": torch.zeros(V, D, device=dev)}
+    for _ in range(W2V_WARM):
+        params, loss = E._sg_ns_step(params, c, t, n, lr)
+    torch.cuda.synchronize()
+    state = {k: v.cpu() for k, v in params.items()}
+    fused = _step_vs_cpu("_sg_ns_step", E._sg_ns_step, state,
+                         [torch.from_numpy(a.astype(np.int64)) for a in (c_np, t_np, n_np)], lr)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(W2V_TIMED):
+        params, loss = E._sg_ns_step(params, c, t, n, lr)
+    ev[1].record()
+    torch.cuda.synchronize()
+    step_ms = ev[0].elapsed_time(ev[1]) / W2V_TIMED
+    check(np.isfinite(float(loss)), f"non-finite SG-NS loss {float(loss)}")
+    fused.update(step_ms=step_ms, pairs_per_s=B / (step_ms / 1e3), warm_steps=W2V_WARM,
+                 timed_steps=W2V_TIMED, final_loss=float(loss),
+                 **_sg_ns_bound_ms(c_np, t_np, n_np, D))
+    fused["roofline_share"] = fused["bound_ms"] / step_ms
+
+    stage["step"] = time.perf_counter()
+    # (b) the other steps, once each at B = 65,536 on the trained state
+    rs = np.random.RandomState(1)
+    cache = _zipf_vocab(V)
+    codes, points, hmask = huffman_tables(cache)
+    Wn = 2 * 5
+    win = torch.from_numpy(rs.randint(0, V, (B, Wn)))
+    wmask = torch.from_numpy((np.arange(Wn)[None, :] < rs.randint(1, Wn + 1, B)[:, None])
+                             .astype(np.float32))
+    tgt, docs = torch.from_numpy(rs.randint(0, V, B)), torch.from_numpy(rs.randint(0, V, B))
+    hs_rows = rs.randint(0, V, B)
+    hs = [torch.from_numpy(codes[hs_rows]), torch.from_numpy(points[hs_rows].astype(np.int64)),
+          torch.from_numpy(hmask[hs_rows])]
+    hs_state = {"syn0": state["syn0"],
+                "syn1": torch.from_numpy(((rs.rand(V - 1, D) - 0.5) / D).astype(np.float32))}
+    negs = torch.from_numpy(n_np.astype(np.int64))
+    others = [
+        _step_vs_cpu("_cbow_ns_step", E._cbow_ns_step, state, [win, wmask, tgt, negs], lr),
+        _step_vs_cpu("_dm_ns_step", E._dm_ns_step, state, [docs, win, wmask, tgt, negs], lr),
+        _step_vs_cpu("_cbow_hs_step", E._cbow_hs_step, hs_state, [win, wmask] + hs, lr),
+        _step_vs_cpu("_sg_hs_step", E._sg_hs_step, hs_state, [tgt] + hs, lr)]
+    grs = np.random.RandomState(12345)
+    glove = {"W": (grs.rand(V, D).astype(np.float32) - 0.5) / D,
+             "Wc": (grs.rand(V, D).astype(np.float32) - 0.5) / D,
+             "b": np.zeros(V, np.float32), "bc": np.zeros(V, np.float32),
+             "hW": np.full((V, D), 1e-8, np.float32), "hWc": np.full((V, D), 1e-8, np.float32),
+             "hb": np.full(V, 1e-8, np.float32), "hbc": np.full(V, 1e-8, np.float32)}
+    others.append(_step_vs_cpu(
+        "_glove_step", _glove_step, {k: torch.from_numpy(v) for k, v in glove.items()},
+        [tgt, docs, torch.from_numpy((rs.rand(B) * 100 + 1).astype(np.float32))], 0.05,
+        x_max=100.0, alpha=0.75))
+    others[-1]["huffman_code_length_max"] = int(codes.shape[1])
+
+    stage["other_steps"] = time.perf_counter()
+    # (c) one scan chunk against the loop with the same negatives
+    table = unigram_table(cache)
+    cum64 = np.cumsum(table)
+    cum = torch.from_numpy(cum64.astype(np.float32)).to(dev)
+    crs = np.random.RandomState(5)
+    c2 = torch.from_numpy(crs.randint(0, V, (W2V_SCAN_BATCHES, B))).to(dev)
+    t2 = torch.from_numpy(crs.randint(0, V, (W2V_SCAN_BATCHES, B))).to(dev)
+    total = float(10 * W2V_SCAN_BATCHES * B)
+    start = {k: v.clone() for k, v in params.items()}
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    scan_p, scan_losses = E._sg_ns_epoch_scan({k: v.clone() for k, v in start.items()}, c2, t2,
+                                              cum, gen, lr, 1e-4, 0.0, total, negative=K)
+    ev[1].record()
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    loop_p = {k: v.clone() for k, v in start.items()}
+    seen = torch.zeros((), device=dev)
+    counts = torch.zeros(V, dtype=torch.int64, device=dev)
+    loop_losses = []
+    ev[2].record()
+    for i in range(W2V_SCAN_BATCHES):
+        negs_d = E._device_negatives(cum, gen, B, K)
+        counts += torch.bincount(negs_d.view(-1), minlength=V)
+        rate = torch.clamp(lr * (1.0 - torch.clamp(seen / total, max=1.0)), min=1e-4)
+        loop_p, l_i = E._sg_ns_step(loop_p, c2[i], t2[i], negs_d, rate)
+        loop_losses.append(l_i)
+        seen = seen + B
+    ev[3].record()
+    torch.cuda.synchronize()
+    chunk = {"batches": W2V_SCAN_BATCHES, "batch": B, "scan_ms": ev[0].elapsed_time(ev[1]),
+             "loop_with_bincount_ms": ev[2].elapsed_time(ev[3]), "tables": {}}
+    chunk["scan_pairs_per_s"] = W2V_SCAN_BATCHES * B / (chunk["scan_ms"] / 1e3)
+    for k in start:
+        du = (loop_p[k] - start[k]).norm()
+        rel = float((scan_p[k] - loop_p[k]).norm() / du.clamp_min(1e-30))
+        chunk["tables"][k] = {"rel_to_update": rel,
+                              "max_abs_err": float((scan_p[k] - loop_p[k]).abs().max())}
+        check(rel <= W2V_CHUNK_REL, f"scan chunk {k} off the loop by {rel}")
+    ll = torch.stack(loop_losses)
+    chunk["loss_max_rel"] = float(((scan_losses - ll).abs() / ll.abs()).max())
+    check(chunk["loss_max_rel"] <= W2V_CHUNK_REL, f"scan losses off the loop: {chunk}")
+    cnt = counts.cpu().numpy().astype(np.float64)
+    ndraw = cnt.sum()
+    check(ndraw == W2V_SCAN_BATCHES * B * K, "negatives drawn != batches x B x K")
+    p32 = np.diff(np.concatenate([[0.0], cum64.astype(np.float32).astype(np.float64)[:-1], [1.0]]))
+    pos = p32 > 0
+    z = np.abs(cnt[pos] - ndraw * p32[pos]) / np.sqrt(ndraw * p32[pos] * (1 - p32[pos]))
+    dev64 = np.abs(cnt / ndraw - table)
+    chunk["negatives"] = {"draws": int(ndraw), "max_z_vs_f32_table": float(z.max()),
+                          "max_abs_dev_vs_unigram": float(dev64.max()),
+                          "at_rank": int(dev64.argmax()), "z_limit": W2V_NEG_Z,
+                          "draws_where_f32_table_is_zero": int(cnt[~pos].sum())}
+    check(z.max() < W2V_NEG_Z and cnt[~pos].sum() == 0,
+          f"device negatives off the unigram table: {chunk['negatives']}")
+    del scan_p, loop_p, start, params, state, hs_state, c2, t2
+
+    stage["scan_chunk"] = time.perf_counter()
+    # (d) end to end, as bench.py:473-497 computes it
+    m = Word2Vec(layer_size=D, window=5, negative=K, min_word_frequency=1, epochs=1, seed=1,
+                 batch_size=B, pair_backend="numpy")
+    t0 = time.perf_counter()
+    m.build_vocab(corpus)
+    t_vocab = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m.fit(corpus)
+    torch.cuda.synchronize()
+    t_fit_cold = time.perf_counter() - t0
+    idx_seqs = m._index_sequences(corpus)
+    # every pair of the warm epoch must reach a step (scan chunks and the
+    # tail): the steps count their batches' pairs, and the epoch's host
+    # stream is replayed from its state for the pair generation alone
+    rs_state = m._rs.get_state()
+    stepped = [0]
+    real_step = E._sg_ns_step
+
+    def counted_step(prm, centers, *a):
+        stepped[0] += centers.numel()
+        return real_step(prm, centers, *a)
+
+    E._sg_ns_step = counted_step
+    try:
+        t0 = time.perf_counter()
+        m._run_epochs(idx_seqs, 1)
+        torch.cuda.synchronize()
+        t_epoch_warm = time.perf_counter() - t0
+    finally:
+        E._sg_ns_step = real_step
+    keep = subsample_probs(m.vocab, m.sample)
+    replay = np.random.RandomState()
+    replay.set_state(rs_state)
+    replay.randint(2 ** 31)   # the epoch's seed of the chunk generators
+    t0 = time.perf_counter()
+    n_pairs = sum(len(cc) for cc, _ in _fast_pairs(idx_seqs, m.window, keep, replay))
+    t_host = time.perf_counter() - t0
+    check(stepped[0] == n_pairs, f"warm epoch stepped {stepped[0]} pairs of {n_pairs}")
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        m._run_epochs(idx_seqs, 1)
+        torch.cuda.synchronize()
+    t_profiled = time.perf_counter() - t0
+    busy_ms = _device_busy_ms(prof)
+    check(busy_ms > 0, "the profiler saw no device time in a warm epoch")
+    # where the host's part of a warm epoch goes: one more epoch under
+    # cProfile (its overhead inflates Python-heavy functions; read the
+    # shares, not the seconds)
+    import cProfile
+    import pstats
+
+    cprof = cProfile.Profile()
+    t0 = time.perf_counter()
+    cprof.enable()
+    m._run_epochs(idx_seqs, 1)
+    torch.cuda.synchronize()
+    cprof.disable()
+    t_cprofiled = time.perf_counter() - t0
+    stats = pstats.Stats(cprof).stats
+    host_top = sorted(((v[2], f"{Path(k[0]).name}:{k[1]} {k[2]}", v[1])
+                       for k, v in stats.items()), reverse=True)[:10]
+    # bench_word2vec's rate and batch overshoot: a frequent word's hundreds
+    # of summed updates a batch grow its rows without bound, in the JAX
+    # package alike (tests/test_torch_word2vec.py holds the two packages
+    # together there); reported, not checked
+    finite = torch.isfinite(m.params["syn0"])
+    table_state = {"syn0_finite_share": float(finite.float().mean()),
+                   "syn0_max_abs_finite": (float(m.params["syn0"][finite].abs().max())
+                                           if bool(finite.any()) else None)}
+    n_tok = W2V_CORPUS["tokens"]
+    e2e = {"corpus_tokens": n_tok, "vocab": len(m.vocab), "pairs_per_epoch": n_pairs,
+           "batches_per_epoch": -(-n_pairs // B),
+           "scan_chunks_per_epoch": n_pairs // (B * W2V_SCAN_BATCHES),
+           "split_s": {"vocab_build": t_vocab, "first_epoch_cold": t_fit_cold,
+                       "warm_epoch": t_epoch_warm, "host_pair_generation": t_host},
+           "pairs_stepped_warm_epoch": stepped[0], "tables_after_3_epochs": table_state,
+           "tokens_per_s": n_tok / (t_vocab / 2 + t_epoch_warm),
+           "tokens_per_s_cold": n_tok / (t_vocab + t_fit_cold),
+           "warm_epoch_profiled_s": t_profiled, "device_busy_ms": busy_ms,
+           "idle_share_profiled": 1.0 - busy_ms / (t_profiled * 1e3),
+           "idle_share_vs_unprofiled_epoch": 1.0 - busy_ms / (t_epoch_warm * 1e3),
+           "host_cprofile": {"epoch_s": t_cprofiled,
+                             "top_by_own_time": [{"s": t_, "fn": f, "calls": n_}
+                                                 for t_, f, n_ in host_top]}}
+    stage["end_to_end"] = time.perf_counter()
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"phase": "word2vec", "config": dict(W2V, **W2V_CORPUS), "step": fused,
+            "other_steps": others, "scan_chunk": chunk, "end_to_end": e2e,
+            "stage_s": {k: stage[k] - stage[p] for p, k in zip(list(stage)[:-1],
+                                                                list(stage)[1:])},
+            "tolerances": {"update_rel": W2V_UPDATE_REL, "loss_rel": W2V_LOSS_REL,
+                           "chunk_rel": W2V_CHUNK_REL, "negatives_z": W2V_NEG_Z},
+            "launches": _kernel_launches(),
+            "glove_slice": corpus[:GLOVE_TOKENS // W2V_CORPUS["sent_len"]]}
+
+
+def _topic_corpus():
+    """Sentences drawn each from one of EMB_TOPICS' disjoint word sets."""
+    T_ = EMB_TOPICS
+    rs = np.random.RandomState(T_["seed"])
+    words = [[f"t{k}w{i}" for i in range(T_["words"])] for k in range(T_["topics"])]
+    sents = [" ".join(rs.choice(words[s % T_["topics"]], T_["length"]))
+             for s in range(T_["sentences"])]
+    return words, sents
+
+
+def _within_across(vec, groups) -> dict:
+    """Mean cosine similarity within the groups and across them."""
+    unit = {}
+    for g in groups:
+        for w in g:
+            v = np.asarray(vec(w), np.float64)
+            unit[w] = v / max(np.linalg.norm(v), 1e-12)
+    within, across = [], []
+    for a, ga in enumerate(groups):
+        for b, gb in enumerate(groups):
+            for i, x in enumerate(ga):
+                for y in gb[(i + 1 if a == b else 0):]:
+                    (within if a == b else across).append(unit[x] @ unit[y])
+    return {"within": float(np.mean(within)), "across": float(np.mean(across))}
+
+
+def _clique_graph(Graph):
+    k, m = CLIQUES["size"], CLIQUES["count"]
+    g = Graph(k * m)
+    for b in range(m):
+        for i in range(k):
+            for j in range(i + 1, k):
+                g.add_edge(b * k + i, b * k + j)
+    for b in range(m - 1):
+        g.add_edge(b * k + k - 1, (b + 1) * k)
+    return g, [list(range(b * k, (b + 1) * k)) for b in range(m)]
+
+
+def embeddings_phase(corpus_slice) -> dict:
+    """Phase 27: the embedding libraries on the card: Word2Vec (SG NS, SG HS,
+    CBOW NS / HS) and ParagraphVectors (DBOW, DM; infer_vector) on a
+    planted-topic corpus, GloVe on a 200,000-token slice of the word2vec
+    corpus, DeepWalk and Node2Vec on a chain of cliques, the serializer's
+    three formats round trip, and DistributedWord2Vec on a world-size-1 NCCL
+    group against plain Word2Vec.fit."""
+    from deeplearning4j_tpu_torch.graph import DeepWalk, Graph, Node2Vec
+    from deeplearning4j_tpu_torch.nlp.distributed import DistributedWord2Vec
+    from deeplearning4j_tpu_torch.nlp.embeddings import ParagraphVectors, Word2Vec
+    from deeplearning4j_tpu_torch.nlp.glove import Glove
+    from deeplearning4j_tpu_torch.nlp.serializer import WordVectorSerializer as Ser
+    from deeplearning4j_tpu_torch.parallel import init_distributed, shutdown_distributed
+
+    words, sents = _topic_corpus()
+    out = {"phase": "embeddings", "topic_corpus": EMB_TOPICS, "conf": EMB_CONF,
+           "pv_conf": PV_CONF, "word2vec": {}}
+    modes = {"sg_ns": {}, "sg_hs": {"use_hierarchic_softmax": True},
+             "cbow_ns": {"elements_learning": "cbow"},
+             "cbow_hs": {"elements_learning": "cbow", "use_hierarchic_softmax": True}}
+    sg = None
+    for name, kw in modes.items():
+        t0 = time.perf_counter()
+        m = Word2Vec(**EMB_CONF, **kw).fit(sents)
+        torch.cuda.synchronize()
+        r = _within_across(m.get_word_vector, words)
+        r["fit_s"] = time.perf_counter() - t0
+        check(m.params["syn0"].device.type == _CUDA.type, f"{name} did not train on the card")
+        check(r["within"] > r["across"], f"{name}: topics not separated: {r}")
+        out["word2vec"][name] = r
+        if name == "sg_ns":
+            sg = m
+    labels = [[f"t{k}d{s}" for s in range(k, len(sents) // 4, EMB_TOPICS["topics"])]
+              for k in range(EMB_TOPICS["topics"])]
+    docs = [(sents[s], f"t{s % EMB_TOPICS['topics']}d{s}") for s in range(len(sents) // 4)]
+    out["paragraph_vectors"] = {}
+    for mode in ("dbow", "dm"):
+        t0 = time.perf_counter()
+        pv = ParagraphVectors(sequence_learning=mode, **PV_CONF)
+        pv.fit_documents(docs)
+        torch.cuda.synchronize()
+        r = _within_across(pv.get_label_vector, labels)
+        r["fit_s"] = time.perf_counter() - t0
+        check(r["within"] > r["across"], f"PV-{mode}: documents not separated by topic: {r}")
+        text = " ".join(np.random.RandomState(99).choice(words[0], EMB_TOPICS["length"]))
+        inferred = pv.infer_vector(text)
+        sims = [float(np.mean([pv.similarity_to_label(text, l) for l in labels[k][:5]]))
+                for k in range(EMB_TOPICS["topics"])]
+        r["infer_vector"] = {"finite": bool(np.isfinite(inferred).all()),
+                             "similarity_to_topic_labels": sims}
+        check(np.isfinite(inferred).all(), f"PV-{mode}: infer_vector not finite")
+        check(int(np.argmax(sims)) == 0, f"PV-{mode}: inferred topic-0 text nearest {sims}")
+        out["paragraph_vectors"][mode] = r
+
+    # GloVe on a 200,000-token slice: the weighted cost over every
+    # co-occurrence before and after
+    t0 = time.perf_counter()
+    g = Glove(layer_size=W2V["dim"], window=5, epochs=GLOVE_EPOCHS, batch_size=W2V["batch"],
+              seed=12345).fit(corpus_slice)
+    torch.cuda.synchronize()
+    glove_s = time.perf_counter() - t0
+    ii, jj, xx = g._cooccurrences(corpus_slice)
+    ii, jj, xx = (torch.from_numpy(a.astype(np.int64) if a.dtype != np.float32 else a)
+                  .to(_CUDA) for a in (ii, jj, xx))
+    f = torch.clamp((xx / g.x_max) ** g.alpha, max=1.0)
+
+    def cost(W, Wc, b, bc):
+        diff = (W[ii] * Wc[jj]).sum(-1) + b[ii] + bc[jj] - torch.log(xx)
+        return float(0.5 * torch.mean(f * diff * diff))
+
+    rs = np.random.RandomState(12345)
+    V, D = len(g.vocab), W2V["dim"]
+    init = [torch.from_numpy((rs.rand(V, D).astype(np.float32) - 0.5) / D).to(_CUDA)
+            for _ in range(2)] + [torch.zeros(V, device=_CUDA)] * 2
+    out["glove"] = {"tokens": sum(len(s) for s in corpus_slice), "vocab": V,
+                    "cooccurrences": int(ii.numel()), "epochs": GLOVE_EPOCHS,
+                    "batch": W2V["batch"], "fit_s": glove_s, "cost_init": cost(*init),
+                    "cost_trained": cost(*(g.params[k] for k in ("W", "Wc", "b", "bc")))}
+    check(np.isfinite(g.syn0).all(), "GloVe tables not finite")
+    check(out["glove"]["cost_trained"] < out["glove"]["cost_init"],
+          f"GloVe did not lower its cost: {out['glove']}")
+    del g, ii, jj, xx, f, init
+
+    # DeepWalk and Node2Vec on a chain of cliques
+    graph, cliques = _clique_graph(Graph)
+    t0 = time.perf_counter()
+    dw = DeepWalk(vector_size=64, window_size=4, batch_size=4096, seed=7).fit(
+        graph, walk_length=20, epochs=3)
+    torch.cuda.synchronize()
+    r = _within_across(dw.get_vertex_vector, cliques)
+    r["fit_s"] = time.perf_counter() - t0
+    r["nearest_of_0"] = dw.vertices_nearest(0, CLIQUES["size"] - 1)
+    check(r["within"] > r["across"], f"DeepWalk: vertices not clustered by clique: {r}")
+    out["deepwalk"] = r
+    t0 = time.perf_counter()
+    n2v = Node2Vec(vector_size=64, window=4, walk_length=20, walks_per_vertex=10, p=1.0,
+                   q=2.0, epochs=2, batch_size=4096, learning_rate=0.05, seed=7).fit(graph)
+    torch.cuda.synchronize()
+    r = _within_across(n2v.get_vertex_vector, cliques)
+    r["fit_s"] = time.perf_counter() - t0
+    check(r["within"] > r["across"], f"Node2Vec: vertices not clustered by clique: {r}")
+    out["node2vec"] = r
+    out["graph"] = {"vertices": graph.num_vertices(), **CLIQUES}
+
+    # the serializer's three formats, written from the card-trained model
+    want = sg.syn0
+    ser = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for write, read, ext in (("write_word_vectors", "load_txt_vectors", "txt"),
+                                 ("write_binary", "read_binary", "bin"),
+                                 ("write_word2vec_model", "read_word2vec_model", "zip")):
+            path = os.path.join(tmp, f"w2v.{ext}")
+            getattr(Ser, write)(sg, path)
+            back = getattr(Ser, read)(path)
+            same_words = [w.word for w in back.vocab.words] == [w.word for w in sg.vocab.words]
+            err = float(np.abs(back.syn0 - want).max())
+            ser[ext] = {"bytes": os.path.getsize(path), "max_abs_err": err,
+                        "vocab_equal": same_words}
+            # the text format keeps 6 significant digits
+            check(same_words and (err <= 1e-5 * np.abs(want).max() if ext == "txt"
+                                  else err == 0.0), f"serializer {ext} round trip: {ser[ext]}")
+    out["serializer"] = ser
+
+    # DistributedWord2Vec on a world-size-1 NCCL group against plain fit
+    conf = {k: v for k, v in EMB_CONF.items() if k != "epochs"}
+    init_distributed(f"tcp://localhost:{_free_port()}", 1, 0, timeout_s=120)
+    try:
+        backend = torch.distributed.get_backend()
+        d = DistributedWord2Vec(rounds=1, epochs_per_round=2, **conf).fit(sents)
+        dist_syn0 = d.params["syn0"].clone()
+        dist_vocab = [w.word for w in d.vocab.words]
+    finally:
+        shutdown_distributed()
+    p = Word2Vec(epochs=2, **conf).fit(sents)
+    rel = float((dist_syn0 - p.params["syn0"]).norm() / p.params["syn0"].norm())
+    out["distributed"] = {"backend": backend, "world_size": 1, "rounds": 1,
+                          "epochs_per_round": 2, "vocab_equal": dist_vocab == [
+                              w.word for w in p.vocab.words],
+                          "bit_equal": bool(torch.equal(dist_syn0, p.params["syn0"])),
+                          "syn0_rel_diff": rel, "tol": W2V_FIT_REL}
+    check(out["distributed"]["vocab_equal"] and rel <= W2V_FIT_REL,
+          f"DistributedWord2Vec off plain fit: {out['distributed']}")
+    out["launches"] = _kernel_launches()
+    del sg, d, p, dw, n2v
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _kernel_row(name, source, replaces, launches, by_path, max_abs_err, ms, plain_ms,
                 bound_ms, bound_by, library_ms, **extra):
     return dict({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4169,6 +4757,19 @@ def main() -> int:
         emit(moe)
         moe_sv = moe_serve_phase(moe_zip)
     emit(moe_sv)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phases 26-27 run no hand-written kernel: every count must stay 0
+    _zero_all_kernel_counts()
+    w2v = word2vec_phase()
+    glove_slice = w2v.pop("glove_slice")
+    _check_no_kernel(w2v["launches"], "word2vec")
+    emit(w2v)
+    _zero_all_kernel_counts()
+    emb = embeddings_phase(glove_slice)
+    _check_no_kernel(emb["launches"], "embeddings")
+    emit(emb)
+    del glove_slice
 
     fwd_cases = kern["cases"]
     bwd_cases = kern["bwd_cases"]
@@ -4185,6 +4786,7 @@ def main() -> int:
                    "moe_serve": moe_sv["launches"][name]})
         by.update({f"ring_attention_{run}": r["kernel_launches"][name]
                    for run, r in rattn["runs"].items()})
+        by.update({"word2vec": w2v["launches"][name], "embeddings": emb["launches"][name]})
         return by
 
     fwd_by = dict({"serve": srv["launches"], "train": tl["flash_fwd"]},
@@ -4217,8 +4819,11 @@ def main() -> int:
                                           f"{key}_bound_ms", "library_bwd_ms")}
                        for r in kern["wide_head"]["timing"]]))
     ct, ccases = chunk["timing"], chunk["cases"]
-    chunk_by = {name: {f"ring_attention_{run}": r["chunk_launches"][name]
-                       for run, r in rattn["runs"].items()} for name in fa.CHUNK_LAUNCHES}
+    chunk_by = {name: dict({f"ring_attention_{run}": r["chunk_launches"][name]
+                            for run, r in rattn["runs"].items()},
+                           word2vec=w2v["launches"][f"chunk_{name}"],
+                           embeddings=emb["launches"][f"chunk_{name}"])
+                for name in fa.CHUNK_LAUNCHES}
     d = ct["diagonal"]
     rows.append(_kernel_row(
         "flash_attention_block", "deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
@@ -4250,6 +4855,7 @@ def main() -> int:
                         for path, n in glstm["launches_by_path"].items()})
         by_path.update({f"lstm_resilience_{path}": n[name]
                         for path, n in lres["launches_by_path"].items()})
+        by_path.update({"word2vec": w2v["launches"][name], "embeddings": emb["launches"][name]})
         rows.append(_kernel_row(
             name, f"deeplearning4j_tpu_torch/csrc/{name}.cu",
             f"deeplearning4j_tpu/ops/fused_lstm.py:{line}",

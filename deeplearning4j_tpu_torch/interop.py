@@ -15,6 +15,15 @@ which ``torch.from_numpy`` rejects. They go through float32 — exact, since
 every bf16 value is a float32 value — and are cast to the model dtype on
 the device. :func:`params_to_numpy` returns bf16 leaves as float32 arrays
 for the same reason.
+
+The embedding models (``nlp/embeddings.py`` SequenceVectors and its
+subclasses, ``graph/deepwalk.py`` DeepWalk, ``nlp/glove.py`` Glove) keep a
+flat dict of tables: ``syn0``, ``syn1neg`` (and ``syn1`` with hierarchical
+softmax) for SequenceVectors, ``syn0`` and ``syn1`` for DeepWalk, ``W``,
+``Wc``, ``b``, ``bc`` and the AdaGrad accumulators ``hW``, ``hWc``, ``hb``,
+``hbc`` for Glove — the JAX package's names and shapes.
+:func:`embeddings_from_numpy` loads such a dict into a port model and
+:func:`embeddings_to_numpy` gives it back.
 """
 
 from __future__ import annotations
@@ -22,7 +31,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_numpy", "params_to_numpy", "state_from_numpy", "state_to_numpy"]
+__all__ = ["embeddings_from_numpy", "embeddings_to_numpy", "params_from_numpy",
+           "params_to_numpy", "state_from_numpy", "state_to_numpy"]
 
 
 def _to_tensor(a, like: torch.Tensor, where: str) -> torch.Tensor:
@@ -103,3 +113,23 @@ def state_to_numpy(model):
     """``model``'s layer state as numpy arrays in its own tree."""
     return _dump(model.state) if isinstance(model.state, dict) else tuple(
         _dump(s) for s in model.state)
+
+
+def embeddings_from_numpy(model, tables):
+    """Load a dict of numpy tables (``{"syn0": ..., "syn1neg": ...}``, a
+    DeepWalk's ``syn0``/``syn1``, a Glove's eight arrays) into an embedding
+    model's params: the keys and shapes must be the model's own, each table
+    keeps the model's dtype and device. The model must have its params
+    already (``build_vocab`` and ``_init_params``, ``initialize(graph)`` or
+    a ``fit``). Returns the model."""
+    if model.params is None:
+        raise ValueError("the model has no params yet: build its vocab and "
+                         "initialise it (or fit it) first")
+    model.params = _load(dict(tables), model.params, "embeddings")
+    return model
+
+
+def embeddings_to_numpy(model) -> dict:
+    """An embedding model's tables as a dict of numpy arrays (the inverse
+    of :func:`embeddings_from_numpy`)."""
+    return _dump(model.params)

@@ -1,1 +1,1 @@
-"""Host-side utilities (the bucket ladder)."""
+"""Host-side utilities (the bucket ladder, the misc reference utilities)."""

@@ -9,7 +9,10 @@ trained through them, the
 fused LSTM (forward #4, backward #5; the cluster, wide and step routes, H up
 to 2048, f32, bf16 and f16) with a tiny TextGenerationLSTM and a seq2seq
 ComputationGraph trained and sampled through them, and LeNet-5 and a
-ResNet50 step against the CPU. Every test needs an
+ResNet50 step against the CPU; and the embedding steps (Word2Vec's five,
+GloVe's, the epoch scan against its loop, plain torch) on the card
+against the CPU, Word2Vec's default device, and the raise of every
+embedding entry point without a device. Every test needs an
 NVIDIA card (marker ``cuda``) and skips without one; on a GPU host run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -1292,3 +1295,117 @@ def test_layer_norm_of_a_row_does_not_depend_on_the_batch(cuda, dtype):
     for b in (1, 2, 4):
         for r in range(0, 8, b):
             assert torch.equal(layer_norm(x[r:r + b], gam, bet), full[r:r + b])
+
+
+# -- the embedding steps (nlp/embeddings.py, nlp/glove.py): plain PyTorch on
+# the card against the same on the CPU. index_add_ on the card adds repeated
+# ids with atomics in no fixed order, so the tables agree to f32 rounding:
+# EMB_TOL on entries of order 1
+
+EMB_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _emb_case(kind, seed, V=50, B=256, D=16, K=5, W=6, L=7):
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    hs = kind in ("sg_hs", "cbow_hs")
+    params = {"syn0": rs.rand(V, D) - 0.5,
+              ("syn1" if hs else "syn1neg"): rs.rand(V - 1 if hs else V, D) - 0.5}
+    win = rs.randint(0, V, (B, W))
+    wmask = (np.arange(W)[None, :] < rs.randint(0, W + 1, B)[:, None]).astype(np.float32)
+    ids, ids2, negs = rs.randint(0, V, B), rs.randint(0, V, B), rs.randint(0, V, (B, K))
+    hmask = (np.arange(L)[None, :] < rs.randint(1, L + 1, B)[:, None]).astype(np.float32)
+    codes = (rs.rand(B, L) < 0.5).astype(np.float32) * hmask
+    points = rs.randint(0, V - 1, (B, L)) * hmask.astype(np.int64)
+    args = {"sg_ns": (ids, ids2, negs), "cbow_ns": (win, wmask, ids, negs),
+            "dm_ns": (ids2, win, wmask, ids, negs),
+            "cbow_hs": (win, wmask, codes, points, hmask),
+            "sg_hs": (ids, codes, points, hmask)}[kind]
+    return ({k: torch.from_numpy(v.astype(np.float32)) for k, v in params.items()},
+            [torch.from_numpy(a) if a.dtype == np.float32 else torch.from_numpy(a.astype(np.int64))
+             for a in args])
+
+
+@pytest.mark.parametrize("kind", ["sg_ns", "cbow_ns", "dm_ns", "cbow_hs", "sg_hs"])
+def test_embedding_step_on_the_card_matches_the_cpu(cuda, kind):
+    from deeplearning4j_tpu_torch.nlp import embeddings as E
+
+    params, args = _emb_case(kind, 0)
+    step = getattr(E, f"_{kind}_step")
+    gp, gl = step({k: v.to(cuda, copy=True) for k, v in params.items()},
+                  *(a.to(cuda) for a in args), 0.05)
+    cp, cl = step({k: v.clone() for k, v in params.items()}, *args, 0.05)
+    assert math.isclose(float(gl), float(cl), rel_tol=1e-5)
+    for k in cp:
+        torch.testing.assert_close(gp[k].cpu(), cp[k], **EMB_TOL)
+
+
+def test_glove_step_on_the_card_matches_the_cpu(cuda):
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.nlp.glove import _glove_step
+
+    rs = np.random.RandomState(1)
+    V, B, D = 40, 512, 16
+    params = {k: torch.from_numpy((rs.rand(*s) - (0.5 if k in ("W", "Wc", "b", "bc") else 0))
+                                  .astype(np.float32))
+              for k, s in (("W", (V, D)), ("Wc", (V, D)), ("b", (V,)), ("bc", (V,)),
+                           ("hW", (V, D)), ("hWc", (V, D)), ("hb", (V,)), ("hbc", (V,)))}
+    wi, wj = (torch.from_numpy(rs.randint(0, V, B)) for _ in range(2))
+    x = torch.from_numpy((rs.rand(B) * 150 + 0.1).astype(np.float32))
+    gp, gl = _glove_step({k: v.to(cuda, copy=True) for k, v in params.items()}, wi.to(cuda), wj.to(cuda),
+                         x.to(cuda), 0.05, x_max=100.0, alpha=0.75)
+    cp, cl = _glove_step({k: v.clone() for k, v in params.items()}, wi, wj, x, 0.05,
+                         x_max=100.0, alpha=0.75)
+    assert math.isclose(float(gl), float(cl), rel_tol=1e-5)
+    for k in cp:
+        torch.testing.assert_close(gp[k].cpu(), cp[k], **EMB_TOL)
+
+
+def test_embedding_scan_on_the_card_matches_the_loop(cuda):
+    from deeplearning4j_tpu_torch.nlp import embeddings as E
+
+    params, (c, t, _) = _emb_case("sg_ns", 2, B=4 * 256)
+    cum = torch.cumsum(torch.rand(50, generator=torch.Generator().manual_seed(3)), 0)
+    cum = (cum / cum[-1]).to(cuda)
+    c2, t2 = c.view(4, 256).to(cuda), t.view(4, 256).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    sp, sl = E._sg_ns_epoch_scan({k: v.to(cuda, copy=True) for k, v in params.items()}, c2, t2, cum, gen,
+                                 0.025, 1e-4, 0.0, 4096.0, negative=5)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    lp, seen = {k: v.to(cuda, copy=True) for k, v in params.items()}, torch.zeros((), device=cuda)
+    for i in range(4):
+        negs = E._device_negatives(cum, gen, 256, 5)
+        assert int(negs.max()) < 50
+        lr = torch.clamp(0.025 * (1.0 - torch.clamp(seen / 4096.0, max=1.0)), min=1e-4)
+        lp, loss = E._sg_ns_step(lp, c2[i], t2[i], negs, lr)
+        torch.testing.assert_close(sl[i], loss, rtol=1e-5, atol=0)
+        seen = seen + 256
+    for k in lp:
+        torch.testing.assert_close(sp[k], lp[k], **EMB_TOL)
+
+
+def test_word2vec_trains_on_the_card_by_default_and_matches_the_cpu(cuda):
+    from deeplearning4j_tpu_torch.nlp.embeddings import Word2Vec
+
+    corpus = ["the quick brown fox jumps over the lazy dog"] * 20 + ["a cat sat on the mat"] * 10
+    kw = dict(layer_size=8, min_word_frequency=1, epochs=2, seed=3, batch_size=64)
+    g = Word2Vec(**kw).fit(corpus)
+    assert g.params["syn0"].device.type == "cuda"
+    c = Word2Vec(device="cpu", **kw).fit(corpus)
+    torch.testing.assert_close(torch.from_numpy(g.syn0), torch.from_numpy(c.syn0), **EMB_TOL)
+    s = Word2Vec(pair_backend="numpy", scan_batches=2, **kw).fit(corpus)
+    assert torch.isfinite(s.params["syn0"]).all()
+
+
+def test_embedding_entry_points_raise_without_a_device(cuda, monkeypatch):
+    from deeplearning4j_tpu_torch.graph import DeepWalk, Node2Vec
+    from deeplearning4j_tpu_torch.nlp.distributed import DistributedWord2Vec
+    from deeplearning4j_tpu_torch.nlp.embeddings import ParagraphVectors, Word2Vec
+    from deeplearning4j_tpu_torch.nlp.glove import Glove
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (Word2Vec, ParagraphVectors, Glove, DeepWalk, Node2Vec, DistributedWord2Vec):
+        with pytest.raises(RuntimeError):
+            make()

@@ -48,7 +48,11 @@ def test_importing_every_port_module_leaves_jax_out():
               "nn.layers.core", "nn.preprocessors", "models.zoo", "interop",
               "nn.graph", "nn.transfer", "nn.layers.custom", "nn.layers.variational",
               "nn.layers.objdetect", "models.zoo_graph", "parallel", "parallel.context",
-              "parallel.mesh", "parallel.distributed", "parallel.ring", "parallel.tp"):
+              "parallel.mesh", "parallel.distributed", "parallel.ring", "parallel.tp",
+              "nlp", "nlp.tokenization", "nlp.vocab", "nlp.cjk", "nlp.vectorizers",
+              "nlp.embeddings", "nlp.serializer", "nlp.glove", "nlp.distributed", "graph",
+              "graph.api", "graph.loader", "graph.walks", "graph.deepwalk",
+              "graph.node2vec", "utils.misc"):
         assert f"deeplearning4j_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
