@@ -272,6 +272,43 @@ non-zero (and without a result line when no CUDA device is present):
    the JAX package's embedding path): every kernel count is set to 0
    before each and must read 0 after.
 
+28. search — vector search (search/, serve/ SearchWorker and routes).
+   (A) bench.py:1591 bench_vector_search's configuration uncut: 100,000 x
+   64 f32 around 256 centres (RandomState(42)), IndexConfig(nlist 256,
+   nprobe 8, max_k 16, batch_max 1, k_choices (16,), train_sample 20000,
+   kmeans_iters 8, pending_cap 0): build and warm seconds, 200 single
+   queries per tier at k = 10 (p50/p99, host clock), recall@10 of IVF
+   against exact (>= SEARCH_RECALL_MIN, the benchmark's gate), whether IVF
+   p99 < exact p99 (reported, not checked); the exact tier's ids against
+   the CPU port's (rows that differ must be ties under f32 rounding,
+   counted); one search with TF32 on process-wide, bit-equal to the run
+   without. (B) 1,000,000 x 128 f32 (SIFT1M's shape; clustered synthetic
+   data from a seed, 1024 centres), IndexConfig(nlist 1024, nprobe 16, pq_m
+   16, batch_max 32, pending_cap 1024) through register_index and
+   InferenceServer: build seconds, recall@10 of IVF and IVF-PQ against
+   exact, the device ms of one coalesced 32-query dispatch per tier (CUDA
+   events) beside the exact scan's bytes bound, coalesced answers bit-equal
+   to each query alone at the same bucket (and the largest difference
+   alone at bucket 1), single queries over HTTP /v1/search from 8
+   concurrent clients per tier (p50/p99), /status, /knn and /knnnew, add
+   of 1,000 rows found by every tier before and after merge_pending, a
+   save/load round trip answering bit for bit (bytes, seconds), peak
+   memory.
+29. clustering — KMeansClustering(256, 20) on (A)'s corpus (seconds; card
+   against the CPU port: largest centre difference, share of equal
+   assignments); knn_search on (B)'s corpus chunked (262,144 rows) against
+   unchunked (ids equal but for ties); RandomProjectionLSH(16, 8, 64) on
+   (A) (recall@10 against exact cosine); exact Tsne on 2,500 x 50 points
+   in 10 planted clusters, 1000 steps (seconds, KL, 10-NN accuracy >=
+   TSNE_KNN_MIN, peak memory; its first 10 steps card against CPU, within
+   TSNE_PARITY_REL at learning rate 10, reported at 200); BarnesHutTsne(method="barnes_hut") on 500 of them
+   (host trees, 40 steps); NearestNeighborsServer over (A)'s points
+   (/status, /knn, /knnnew; the manhattan fallback too); the CLI
+   (python -m deeplearning4j_tpu_torch.clustering) as a subprocess, asked
+   once and stopped. Neither phase launches a hand-written kernel (no
+   Pallas kernel lies on the JAX package's search path): every count is 0
+   before each and must read 0 after.
+
 It ends with the command time, the kernels line (launches of each kernel
 by path, the new phases' included), the card's name and power limit, and
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -4642,6 +4679,452 @@ def embeddings_phase(corpus_slice) -> dict:
     return out
 
 
+# -- phases 28-29 ------------------------------------------------------------
+
+# (A): bench.py:1591-1650 bench_vector_search, uncut
+SEARCH_A = dict(n=100_000, dim=64, centers=256, seed=42, queries=200, k=10)
+SEARCH_A_CONF = dict(dim=64, nlist=256, nprobe=8, max_k=16, batch_max=1, k_choices=(16,),
+                     train_sample=20000, kmeans_iters=8, pending_cap=0)
+# (B): SIFT1M's shape (1,000,000 x 128 f32), clustered synthetic data from a seed
+SEARCH_B = dict(n=1_000_000, dim=128, centers=1024, seed=7, queries=256, k=10,
+                clients=8, per_client=16, add=1000)
+SEARCH_B_CONF = dict(dim=128, nlist=1024, nprobe=16, pq_m=16, batch_max=32, pending_cap=1024)
+SEARCH_RECALL_MIN = 0.9     # bench_vector_search's own gate: IVF against exact at (A)
+# two runs' distances this close are one tie under f32 rounding (the
+# ||q||^2 - 2q.x + ||x||^2 expansion at ||x||^2 ~ 1e3 rounds ~1e-6 of d^2)
+SEARCH_TIE_RTOL = 1e-5
+TSNE = dict(n=2500, dim=50, clusters=10, seed=5, n_iter=1000, parity_iter=10, parity_lr=10.0)
+TSNE_KNN_MIN = 0.9          # 10-NN accuracy of the embedding's planted labels
+# 10 steps card vs CPU at learning rate 10, of the embedding's scale (the
+# JAX package and the port on one CPU part by 2.2e-5 there; at the default
+# rate 200 by 3.7e-3: t-SNE amplifies rounding, so that one is reported)
+TSNE_PARITY_REL = 1e-3
+BH_TSNE = dict(n=500, n_iter=40)
+CLI_WAIT_S = 180            # the CLI subprocess: import, index build, bind
+
+
+def _bench_vectors(n, dim, n_centers, n_q, seed):
+    """bench_vector_search's data: centres 4 N(0, 1), points and queries a
+    centre + N(0, 1), from RandomState(seed)."""
+    rs = np.random.RandomState(seed)
+    centers = (4.0 * rs.randn(n_centers, dim)).astype(np.float32)
+    corpus = (centers[rs.randint(0, n_centers, n)] + rs.randn(n, dim)).astype(np.float32)
+    queries = (centers[rs.randint(0, n_centers, n_q)] + rs.randn(n_q, dim)).astype(np.float32)
+    return corpus, queries
+
+
+def _sift_shaped(n, dim, n_centers, n_q, seed):
+    """(B)'s data, as (A)'s but drawn in float32 from a Generator (bulk)."""
+    g = np.random.default_rng(seed)
+    centers = 4.0 * g.standard_normal((n_centers, dim), dtype=np.float32)
+    corpus = centers[g.integers(0, n_centers, n)]
+    corpus += g.standard_normal((n, dim), dtype=np.float32)
+    queries = centers[g.integers(0, n_centers, n_q)]
+    queries += g.standard_normal((n_q, dim), dtype=np.float32)
+    return corpus, queries
+
+
+def _recall(got, want) -> float:
+    k = want.shape[1]
+    return float(np.mean([np.intersect1d(a[a >= 0], b).size / k for a, b in zip(got, want)]))
+
+
+def _ids_vs(ids_a, d_a, ids_b, d_b) -> dict:
+    """Rows whose ids differ, and how many of them are ties under f32
+    rounding (their distance lists agree within SEARCH_TIE_RTOL)."""
+    rows = np.nonzero((ids_a != ids_b).any(axis=1))[0]
+    tie = [int(r) for r in rows
+           if np.allclose(d_a[r], d_b[r], rtol=SEARCH_TIE_RTOL, atol=0)]
+    return {"rows": int(ids_a.shape[0]), "rows_differing": int(rows.size),
+            "rows_tie": len(tie), "rows_not_tie": [int(r) for r in rows if r not in tie][:8]}
+
+
+def _pctl(a) -> dict:
+    a = np.asarray(a)
+    return {"p50_ms": float(np.percentile(a, 50)), "p99_ms": float(np.percentile(a, 99)),
+            "n": int(a.size)}
+
+
+def _http_json(port, path, payload=None):
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data)
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+def search_phase() -> dict:
+    """Phase 28: vector search on the card. (A) bench_vector_search's
+    configuration uncut: build, warm, 200 single queries per tier (host
+    clock), recall@10 of IVF against exact (>= 0.9), the exact tier's ids
+    against the CPU port's; then TF32 switched on process-wide, which the
+    library's products must not take. (B) a 1,000,000 x 128 corpus served
+    through register_index and InferenceServer: build, recall of IVF and
+    IVF-PQ, one coalesced 32-query dispatch per tier by CUDA events beside
+    the bytes bound of an exact scan, coalesced against solo at the same
+    bucket (bit for bit) and at bucket 1 (the largest difference), single
+    queries over HTTP from 8 concurrent clients, add of 1,000 rows visible
+    before and after merge_pending, a save/load round trip, /knn, /knnnew
+    and /status, peak memory."""
+    from deeplearning4j_tpu_torch.search import IndexConfig, VectorIndex
+    from deeplearning4j_tpu_torch.search import program as sp
+
+    torch.cuda.reset_peak_memory_stats()
+    out = {"phase": "search", "a": {"conf": dict(SEARCH_A, index=SEARCH_A_CONF)},
+           "b": {"conf": dict(SEARCH_B, index=SEARCH_B_CONF)}}
+
+    # -- (A) --------------------------------------------------------------
+    A, ra = SEARCH_A, out["a"]
+    corpus, queries = _bench_vectors(A["n"], A["dim"], A["centers"], A["queries"], A["seed"])
+    t0 = time.perf_counter()
+    ix = VectorIndex.build(corpus, IndexConfig(**SEARCH_A_CONF))
+    torch.cuda.synchronize()
+    ra["build_s"] = time.perf_counter() - t0
+    check(ix._corpus.device.type == "cuda", "(A): the index is not on the card")
+    t0 = time.perf_counter()
+    ra["warmed_signatures"] = ix.warm()
+    ra["warm_s"] = time.perf_counter() - t0
+    lat, ids, dist = {}, {}, {}
+    for tier in ("exact", "ivf"):
+        lat[tier], got = [], []
+        for i in range(A["queries"]):
+            t0 = time.perf_counter()
+            got.append(ix.search(queries[i:i + 1], k=A["k"], tier=tier))
+            lat[tier].append((time.perf_counter() - t0) * 1e3)
+        ids[tier] = np.concatenate([g[0] for g in got])
+        dist[tier] = np.concatenate([g[1] for g in got])
+        ra[tier] = _pctl(lat[tier])
+    ra["recall_at_10_ivf"] = _recall(ids["ivf"], ids["exact"])
+    ra["ivf_p99_below_exact_p99"] = bool(ra["ivf"]["p99_ms"] < ra["exact"]["p99_ms"])
+    ra["build_stats"] = dict(ix.stats)
+    check(ra["recall_at_10_ivf"] >= SEARCH_RECALL_MIN,
+          f"(A): IVF recall@10 {ra['recall_at_10_ivf']} < {SEARCH_RECALL_MIN}")
+    cpu = VectorIndex.build(corpus, IndexConfig(**dict(SEARCH_A_CONF, ivf=False,
+                                                       batch_max=32)), device="cpu")
+    ci, cd = cpu.search(queries, k=A["k"], tier="exact")
+    ra["exact_card_vs_cpu"] = _ids_vs(ids["exact"], dist["exact"], ci, cd)
+    check(not ra["exact_card_vs_cpu"]["rows_not_tie"],
+          f"(A): exact ids differ card vs CPU beyond ties: {ra['exact_card_vs_cpu']}")
+    del cpu
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ti, td = ix.search(queries[:1], k=A["k"], tier="exact")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ra["tf32_on_bit_equal"] = bool(np.array_equal(ti, ids["exact"][:1])
+                                   and np.array_equal(td, dist["exact"][:1]))
+    check(ra["tf32_on_bit_equal"], "(A): a search under process-wide TF32 changed its answer")
+    out["a_corpus"], out["a_queries"] = corpus, queries   # the clustering phase's input
+    del ix
+
+    # -- (B) --------------------------------------------------------------
+    B, rb = SEARCH_B, out["b"]
+    t0 = time.perf_counter()
+    corpus, queries = _sift_shaped(B["n"], B["dim"], B["centers"], B["queries"], B["seed"])
+    rb["data_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ix = VectorIndex.build(corpus, IndexConfig(**SEARCH_B_CONF))
+    torch.cuda.synchronize()
+    rb["build_s"] = time.perf_counter() - t0
+    rb["layout"] = {"capacity": int(ix._corpus.shape[0]), "list_width": int(ix._postings.shape[1]),
+                    "nlist": int(ix._centroids.shape[0]), "corpus_bytes": int(corpus.nbytes)}
+    reg = ModelRegistry()
+    t0 = time.perf_counter()
+    reg.register_index("sift", ix)
+    rb["register_warm_s"] = time.perf_counter() - t0
+    srv = InferenceServer(reg).start(port=0)
+    try:
+        res = {t: ix.search(queries, k=B["k"], tier=t) for t in ix.available_tiers()}
+        rb["recall_at_10"] = {t: _recall(res[t][0], res["exact"][0]) for t in ("ivf", "ivf_pq")}
+        rb["build_stats"] = dict(ix.stats)
+
+        # one coalesced 32-query dispatch per tier, device time
+        q32 = torch.as_tensor(queries[:32], device=ix.device)
+        kb, p = 16, ix.nprobe_choices[0]
+        calls = {
+            "exact": lambda: sp.exact_topk(q32, ix._corpus, ix._cnorms, ix.n, 0, kb),
+            "ivf": lambda: sp.ivf_topk(q32, ix._centroids, ix._postings, ix._sizes,
+                                       ix._corpus, ix._cnorms, p, kb),
+            "ivf_pq": lambda: sp.pq_topk(q32, ix._centroids, ix._postings, ix._sizes,
+                                         ix._codes, ix._codebooks, ix._corpus, ix._cnorms,
+                                         p, kb, ix.rerank_width(kb)),
+        }
+        with torch.inference_mode():
+            rb["dispatch_32_ms"] = {t: time_device(fn, 10) for t, fn in calls.items()}
+        rb["exact_scan_bound_ms"] = ix.n * B["dim"] * 4 / PEAK_BYTES * 1e3
+        rb["dispatch_32_bound"] = "bytes: the corpus read once (exact)"
+
+        # coalesced against solo: at the same bucket (32) bit for bit; alone at bucket 1
+        rb["coalesced_vs_solo"] = {}
+        pad = np.zeros((31, B["dim"]), np.float32)
+        for t in ix.available_tiers():
+            bi, bd = ix.search(queries[:32], k=B["k"], tier=t)
+            same = [ix.search(np.concatenate([queries[i:i + 1], pad]), k=B["k"], tier=t)
+                    for i in range(32)]
+            alone = [ix.search(queries[i:i + 1], k=B["k"], tier=t) for i in range(32)]
+            eq = all(np.array_equal(s[0][0], bi[i]) and np.array_equal(s[1][0], bd[i])
+                     for i, s in enumerate(same))
+            ai = np.concatenate([a[0] for a in alone])
+            ad = np.concatenate([a[1] for a in alone])
+            rb["coalesced_vs_solo"][t] = {
+                "same_bucket_bit_equal": bool(eq),
+                "bucket1_max_abs_diff": float(np.abs(ad - bd).max()),
+                "bucket1_ids": _ids_vs(ai, ad, bi, bd)}
+            check(eq, f"(B) {t}: a coalesced answer differs from the same query alone "
+                      "at the same bucket")
+
+        # single queries over HTTP, 8 concurrent clients, per tier
+        rb["http"] = {}
+        for t in ix.available_tiers():
+            lats = []
+            lock = threading.Lock()
+
+            def client(c, t=t):
+                for j in range(B["per_client"]):
+                    q = queries[(c * B["per_client"] + j) % B["queries"]]
+                    t0 = time.perf_counter()
+                    body = _http_json(srv.port, "/v1/search",
+                                      {"index": "sift", "queries": [q.tolist()],
+                                       "k": B["k"], "tier": t})
+                    ms = (time.perf_counter() - t0) * 1e3
+                    check(body["tier"] == t and len(body["ids"][0]) == B["k"],
+                          f"(B) HTTP {t}: {body}")
+                    with lock:
+                        lats.append(ms)
+
+            threads = [threading.Thread(target=client, args=(c,)) for c in range(B["clients"])]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=300)
+            wall = time.perf_counter() - t0
+            check(len(lats) == B["clients"] * B["per_client"], f"(B) HTTP {t}: lost requests")
+            rb["http"][t] = dict(_pctl(lats), qps=len(lats) / wall)
+        rb["http"]["batches"] = reg.searcher("sift").stats()["batches"]
+
+        # the legacy routes on the same server
+        st = _http_json(srv.port, "/status")
+        check(st == {"ok": True, "points": ix.n + ix._pending_n, "dim": B["dim"]},
+              f"(B) /status: {st}")
+        knn = _http_json(srv.port, "/knn", {"ndarray": 5, "k": 4})["results"]
+        check(len(knn) == 4 and all(r["index"] != 5 for r in knn), f"(B) /knn: {knn}")
+        new = _http_json(srv.port, "/knnnew", {"ndarray": corpus[11].tolist(), "k": 3})["results"]
+        # a row's distance to itself is the square root of the expansion's
+        # rounding: ~0.03 at ||x||^2 ~ 2e3
+        check(new[0]["index"] == 11 and new[0]["distance"] < 0.1 and len(new) == 3,
+              f"(B) /knnnew: {new}")
+        rb["legacy_routes"] = {"status": st, "knn": knn, "knnnew": new}
+
+        # add 1,000 rows: visible before and after merge_pending
+        g = np.random.default_rng(B["seed"] + 1)
+        added = (6.0 * g.standard_normal((B["add"], B["dim"]), dtype=np.float32))
+        t0 = time.perf_counter()
+        new_ids = ix.add(added)
+        rb["add_s"] = time.perf_counter() - t0
+        check(list(new_ids) == list(range(B["n"], B["n"] + B["add"])), "(B) add: ids")
+        probe = added[::10] + np.float32(0.01)
+        want = new_ids[::10]
+        rb["add_visible"] = {}
+        for stage in ("pending", "merged"):
+            if stage == "merged":
+                t0 = time.perf_counter()
+                moved = ix.merge_pending()
+                rb["merge_s"] = time.perf_counter() - t0
+                check(moved == B["add"] and ix._pending_n == 0, "(B) merge_pending")
+            for t in ix.available_tiers():
+                top = ix.search(probe, k=1, tier=t)[0][:, 0]
+                rb["add_visible"][f"{stage}_{t}"] = float(np.mean(top == want))
+                check(np.array_equal(top, want), f"(B) added rows not found ({stage}, {t})")
+
+        # save / load round trip
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "sift.zip")
+            t0 = time.perf_counter()
+            ix.save(path)
+            rb["save_s"] = time.perf_counter() - t0
+            rb["save_bytes"] = os.path.getsize(path)
+            t0 = time.perf_counter()
+            ix2 = VectorIndex.load(path)
+            torch.cuda.synchronize()
+            rb["load_s"] = time.perf_counter() - t0
+            for t in ix.available_tiers():
+                a, b = ix.search(queries[:64], k=B["k"], tier=t), ix2.search(queries[:64], k=B["k"], tier=t)
+                check(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]),
+                      f"(B) {t}: the loaded index answers otherwise")
+            del ix2
+    finally:
+        srv.stop()
+    rb["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["b_corpus"] = corpus
+    del ix
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tsne_kl(x, y, perplexity) -> float:
+    """KL(P || Q) of an embedding, from the module's own P (on the card)."""
+    from deeplearning4j_tpu_torch.clustering import knn, tsne
+
+    n = x.shape[0]
+    p = tsne._binary_search_perplexity(knn.pairwise_distance(x, x, "sqeuclidean"), perplexity)
+    p = ((p + p.T) / (2.0 * n)).clamp_min(1e-12)
+    yt = torch.as_tensor(y, device=p.device, dtype=torch.float64)
+    num = 1.0 / (1.0 + torch.cdist(yt, yt) ** 2)
+    num.fill_diagonal_(0.0)
+    q = (num / num.sum()).clamp_min(1e-12)
+    p = p.double()
+    return float((p * torch.log(p / q)).sum())
+
+
+def _knn_label_accuracy(y, labels, k=10) -> float:
+    yt = torch.as_tensor(y, device=_CUDA)
+    d = torch.cdist(yt, yt)
+    d.fill_diagonal_(float("inf"))
+    nn = d.topk(k, largest=False).indices.cpu().numpy()
+    return float((labels[nn] == labels[:, None]).mean())
+
+
+def clustering_phase(a_corpus, a_queries, b_corpus) -> dict:
+    """Phase 29: the clustering library on the card: KMeansClustering(256,
+    20) on (A)'s corpus against the CPU port; knn_search on (B)'s corpus
+    chunked against unchunked; RandomProjectionLSH(16, 8, 64) on (A),
+    recall@10 against exact cosine; exact Tsne on 2,500 x 50 points in 10
+    planted clusters, 1000 steps (seconds, KL, 10-NN accuracy, its first 10
+    steps against the CPU port, peak memory); BarnesHutTsne(method=
+    "barnes_hut") on 500 points; NearestNeighborsServer over (A)'s points
+    (/knn, /knnnew, /status, the manhattan fallback); the CLI as a
+    subprocess, asked once and stopped."""
+    from deeplearning4j_tpu_torch.clustering import (
+        BarnesHutTsne, KMeansClustering, NearestNeighborsServer, RandomProjectionLSH, Tsne,
+        knn_search)
+
+    out = {"phase": "clustering"}
+    # k-means, card against the CPU port
+    t0 = time.perf_counter()
+    km = KMeansClustering(256, 20).apply_to(a_corpus)
+    out["kmeans_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kc = KMeansClustering(256, 20, device="cpu").apply_to(a_corpus)
+    out["kmeans_cpu_s"] = time.perf_counter() - t0
+    out["kmeans_card_vs_cpu"] = {
+        "max_center_diff": float(np.abs(km.centers - kc.centers).max()),
+        "equal_assignments": float(np.mean(km.assignments == kc.assignments))}
+    check(np.isfinite(km.centers).all() and km.centers.shape == (256, a_corpus.shape[1]),
+          "k-means centres")
+
+    # knn_search on (B): chunked against unchunked
+    q = b_corpus[:256] + np.float32(0.5)
+    t0 = time.perf_counter()
+    ui, ud = knn_search(b_corpus, q, 10)
+    out["knn_unchunked_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ci, cd = knn_search(b_corpus, q, 10, chunk_size=262144)
+    out["knn_chunked_s"] = time.perf_counter() - t0
+    out["knn_chunked_vs_unchunked"] = _ids_vs(ci, cd, ui, ud)
+    check(not out["knn_chunked_vs_unchunked"]["rows_not_tie"],
+          f"knn_search chunked != unchunked: {out['knn_chunked_vs_unchunked']}")
+
+    # LSH on (A): recall@10 against exact cosine
+    t0 = time.perf_counter()
+    lsh = RandomProjectionLSH(16, 8, a_corpus.shape[1])
+    lsh.make_index(a_corpus)
+    want, _ = knn_search(a_corpus, a_queries, 10, metric="cosinedistance")
+    hits = []
+    for i, qv in enumerate(a_queries):
+        rows = lsh.search(qv, k=10)
+        got = {r.tobytes() for r in rows}
+        hits.append(sum(a_corpus[j].tobytes() in got for j in want[i]) / 10.0)
+    out["lsh"] = {"s": time.perf_counter() - t0, "recall_at_10_vs_exact_cosine": float(np.mean(hits))}
+
+    # exact t-SNE on 2,500 x 50 in 10 planted clusters
+    T = TSNE
+    rs = np.random.RandomState(T["seed"])
+    centers = (4.0 * rs.randn(T["clusters"], T["dim"])).astype(np.float32)
+    labels = rs.randint(0, T["clusters"], T["n"])
+    x = (centers[labels] + rs.randn(T["n"], T["dim"])).astype(np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    y = Tsne(n_iter=T["n_iter"]).fit_transform(x)
+    torch.cuda.synchronize()
+    out["tsne"] = {"s": time.perf_counter() - t0, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                   "kl": _tsne_kl(x, y, 30.0), "knn10_accuracy": _knn_label_accuracy(y, labels)}
+    out["tsne"]["peak_bytes_per_n2"] = out["tsne"]["peak_memory_bytes"] / T["n"] ** 2
+    check(np.isfinite(y).all(), "t-SNE: non-finite embedding")
+    check(out["tsne"]["knn10_accuracy"] >= TSNE_KNN_MIN, f"t-SNE: {out['tsne']}")
+    rel = {}
+    for lr in (T["parity_lr"], 200.0):
+        yg = Tsne(n_iter=T["parity_iter"], learning_rate=lr).fit_transform(x)
+        yc = Tsne(n_iter=T["parity_iter"], learning_rate=lr, device="cpu").fit_transform(x)
+        rel[f"lr{lr:g}"] = float(np.abs(yg - yc).max() / np.abs(yc).max())
+    out["tsne"]["first_steps_card_vs_cpu_rel"] = rel
+    check(rel[f"lr{T['parity_lr']:g}"] <= TSNE_PARITY_REL,
+          f"t-SNE: {T['parity_iter']} steps card vs CPU {rel}")
+
+    # Barnes-Hut t-SNE on 500 points (host trees)
+    xb, lb = x[:BH_TSNE["n"]], labels[:BH_TSNE["n"]]
+    t0 = time.perf_counter()
+    yb = BarnesHutTsne(method="barnes_hut", n_iter=BH_TSNE["n_iter"]).fit_transform(xb)
+    out["bh_tsne"] = {"s": time.perf_counter() - t0, "n_iter": BH_TSNE["n_iter"],
+                      "knn10_accuracy": _knn_label_accuracy(yb, lb)}
+    check(np.isfinite(yb).all() and yb.shape == (BH_TSNE["n"], 2), "Barnes-Hut t-SNE")
+
+    # NearestNeighborsServer over (A)'s points, index route and legacy fallback
+    out["nn_server"] = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        for sim in ("euclidean", "manhattan"):
+            t0 = time.perf_counter()
+            srv = NearestNeighborsServer(a_corpus, similarity_function=sim).start(0)
+            try:
+                st = _http_json(srv.port, "/status")
+                knn = _http_json(srv.port, "/knn", {"ndarray": 3, "k": 5})["results"]
+                new = _http_json(srv.port, "/knnnew", {"ndarray": a_corpus[9].tolist(),
+                                                       "k": 2})["results"]
+            finally:
+                srv.stop()
+            check(st == {"ok": True, "points": a_corpus.shape[0], "dim": a_corpus.shape[1]},
+                  f"NN server {sim} /status: {st}")
+            check(len(knn) == 5 and all(r["index"] != 3 for r in knn), f"NN {sim} /knn: {knn}")
+            check(new[0]["index"] == 9 and new[0]["distance"] < 0.1, f"NN {sim} /knnnew: {new}")
+            out["nn_server"][sim] = {"s": time.perf_counter() - t0, "knn": knn, "knnnew": new,
+                                     "legacy": sim != "euclidean"}
+
+    # the CLI, as a user starts it
+    with tempfile.TemporaryDirectory() as tmp:
+        pts = os.path.join(tmp, "points.npy")
+        np.save(pts, a_corpus)
+        port = _free_port()
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "deeplearning4j_tpu_torch.clustering",
+                                 "--points", pts, "--port", str(port)],
+                                cwd=os.path.dirname(os.path.abspath(__file__)),
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        st = None
+        try:
+            while st is None and proc.poll() is None and time.perf_counter() - t0 < CLI_WAIT_S:
+                try:
+                    st = _http_json(port, "/status")
+                except OSError:
+                    time.sleep(0.5)
+            ready = time.perf_counter() - t0
+            check(st is not None, f"CLI: no answer in {ready:.0f} s (exit {proc.poll()})")
+            new = _http_json(port, "/knnnew", {"ndarray": a_corpus[7].tolist(), "k": 3})["results"]
+            check(new[0]["index"] == 7, f"CLI /knnnew: {new}")
+        finally:
+            proc.terminate()
+            try:
+                text = proc.communicate(timeout=30)[0]
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                text = proc.communicate(timeout=30)[0]
+        out["cli"] = {"ready_s": ready, "status": st, "knnnew": new,
+                      "stdout": text.strip().splitlines()[:2]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _kernel_row(name, source, replaces, launches, by_path, max_abs_err, ms, plain_ms,
                 bound_ms, bound_by, library_ms, **extra):
     return dict({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4770,6 +5253,19 @@ def main() -> int:
     _check_no_kernel(emb["launches"], "embeddings")
     emit(emb)
     del glove_slice
+    # phases 28-29 run no hand-written kernel either
+    _zero_all_kernel_counts()
+    srch = search_phase()
+    a_corpus, a_queries, b_corpus = (srch.pop(k) for k in ("a_corpus", "a_queries", "b_corpus"))
+    srch["launches"] = _kernel_launches()
+    _check_no_kernel(srch["launches"], "search")
+    emit(srch)
+    _zero_all_kernel_counts()
+    clus = clustering_phase(a_corpus, a_queries, b_corpus)
+    clus["launches"] = _kernel_launches()
+    _check_no_kernel(clus["launches"], "clustering")
+    emit(clus)
+    del a_corpus, a_queries, b_corpus
 
     fwd_cases = kern["cases"]
     bwd_cases = kern["bwd_cases"]
@@ -4786,7 +5282,8 @@ def main() -> int:
                    "moe_serve": moe_sv["launches"][name]})
         by.update({f"ring_attention_{run}": r["kernel_launches"][name]
                    for run, r in rattn["runs"].items()})
-        by.update({"word2vec": w2v["launches"][name], "embeddings": emb["launches"][name]})
+        by.update({"word2vec": w2v["launches"][name], "embeddings": emb["launches"][name],
+                   "search": srch["launches"][name], "clustering": clus["launches"][name]})
         return by
 
     fwd_by = dict({"serve": srv["launches"], "train": tl["flash_fwd"]},
@@ -4822,7 +5319,9 @@ def main() -> int:
     chunk_by = {name: dict({f"ring_attention_{run}": r["chunk_launches"][name]
                             for run, r in rattn["runs"].items()},
                            word2vec=w2v["launches"][f"chunk_{name}"],
-                           embeddings=emb["launches"][f"chunk_{name}"])
+                           embeddings=emb["launches"][f"chunk_{name}"],
+                           search=srch["launches"][f"chunk_{name}"],
+                           clustering=clus["launches"][f"chunk_{name}"])
                 for name in fa.CHUNK_LAUNCHES}
     d = ct["diagonal"]
     rows.append(_kernel_row(
@@ -4855,7 +5354,8 @@ def main() -> int:
                         for path, n in glstm["launches_by_path"].items()})
         by_path.update({f"lstm_resilience_{path}": n[name]
                         for path, n in lres["launches_by_path"].items()})
-        by_path.update({"word2vec": w2v["launches"][name], "embeddings": emb["launches"][name]})
+        by_path.update({"word2vec": w2v["launches"][name], "embeddings": emb["launches"][name],
+                        "search": srch["launches"][name], "clustering": clus["launches"][name]})
         rows.append(_kernel_row(
             name, f"deeplearning4j_tpu_torch/csrc/{name}.cu",
             f"deeplearning4j_tpu/ops/fused_lstm.py:{line}",

@@ -20,6 +20,13 @@ Quick start::
     registry.register_generate("lm", model)                 # token streams
     # POST /v1/models/lm:generate {"prompt": [ids...], "max_tokens": 32}
 
+Vector search rides the same tier: ``registry.register_index(name,
+index)`` puts a device-resident ANN index (``search/``) behind a
+signature-coalescing :class:`~.scheduler.SearchWorker`, served as
+``POST /v1/search`` plus the legacy ``/knn`` / ``/knnnew`` / ``/status``
+contract; search adds ``DL4J_TPU_SEARCH_BATCH_MAX``,
+``DL4J_TPU_IVF_NLIST``, ``DL4J_TPU_IVF_NPROBE`` (build-time knobs).
+
 Knobs (the JAX package's names): ``DL4J_TPU_SERVE_MAX_BATCH``,
 ``DL4J_TPU_SERVE_QUEUE``, ``DL4J_TPU_SERVE_MARGIN_MS``,
 ``DL4J_TPU_SERVE_WAIT_MS``, ``DL4J_TPU_SERVE_WAIT_QUANTUM_MS``,
@@ -35,7 +42,7 @@ from deeplearning4j_tpu_torch.serve.admission import (
     TokenAdmission)
 from deeplearning4j_tpu_torch.serve.registry import ModelRegistry
 from deeplearning4j_tpu_torch.serve.scheduler import (
-    GenerateStream, GenerateWorker, ModelWorker, ShedError)
+    GenerateStream, GenerateWorker, ModelWorker, SearchWorker, ShedError)
 from deeplearning4j_tpu_torch.serve.server import InferenceServer
 
 __all__ = [
@@ -47,6 +54,7 @@ __all__ = [
     "LatencyModel",
     "ModelRegistry",
     "ModelWorker",
+    "SearchWorker",
     "ServeConfig",
     "ShedError",
     "TokenAdmission",

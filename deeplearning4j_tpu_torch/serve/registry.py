@@ -1,8 +1,8 @@
 """Model registry: the register → warm → serve pipeline, per model pool.
 
-Counterpart of ``deeplearning4j_tpu/serve/registry.py`` (the predict and
-generate paths; ``load`` from a file, AOT bundles and search wait for
-their slices).
+Counterpart of ``deeplearning4j_tpu/serve/registry.py`` (the predict,
+generate and search paths; ``load`` from a file and AOT bundles wait for
+ROADMAP Queue 1 item 9).
 ``ModelRegistry`` owns every :class:`~.scheduler.ModelWorker` in the
 process. ``register(name, model)`` puts an already-constructed model (a
 MultiLayerNetwork or a one-input ComputationGraph: anything with
@@ -16,6 +16,12 @@ cuBLAS heuristics or the kernel library's build.
 token-level :class:`~.scheduler.GenerateWorker` over a
 :class:`~deeplearning4j_tpu_torch.nn.decode.DecodeProgram`, warmed over
 its whole dispatch-shape grid first.
+
+``register_index(name, index)`` puts a
+:class:`~deeplearning4j_tpu_torch.search.index.VectorIndex` behind a
+signature-coalescing :class:`~.scheduler.SearchWorker` (``/v1/search`` and
+the legacy ``/knn`` / ``/knnnew`` / ``/status`` routes) after running its
+(B, k, nprobe) signature grid once.
 
 The registry lives on one device (``device=None`` → the GPU, raising when
 there is none); a model registered on another device is refused.
@@ -36,7 +42,8 @@ from deeplearning4j_tpu_torch import obs
 from deeplearning4j_tpu_torch.nn.model import resolve_device
 from deeplearning4j_tpu_torch.serve.admission import (
     GenerateConfig, LatencyModel, ServeConfig)
-from deeplearning4j_tpu_torch.serve.scheduler import GenerateWorker, ModelWorker
+from deeplearning4j_tpu_torch.serve.scheduler import (
+    GenerateWorker, ModelWorker, SearchWorker)
 from deeplearning4j_tpu_torch.utils import bucketing
 
 __all__ = ["ModelRegistry"]
@@ -50,6 +57,7 @@ class ModelRegistry:
         self._lock = threading.Lock()
         self._workers: Dict[str, ModelWorker] = {}
         self._generators: Dict[str, GenerateWorker] = {}
+        self._searchers: Dict[str, SearchWorker] = {}
         self._meta: Dict[str, Dict[str, object]] = {}
 
     # -- intake ------------------------------------------------------------
@@ -130,6 +138,49 @@ class ModelRegistry:
                                  "warm_seconds")})
         return worker
 
+    def register_index(self, name: str, index, warm: bool = True,
+                       bundle: Optional[str] = None) -> SearchWorker:
+        """Put a :class:`~deeplearning4j_tpu_torch.search.index.VectorIndex`
+        behind a signature-coalescing worker under ``name``
+        (``/v1/search``). With ``warm`` the index runs its (B, k, nprobe)
+        signature grid once first. The tier knobs (``DL4J_TPU_IVF_NLIST`` /
+        ``DL4J_TPU_IVF_NPROBE`` / ``DL4J_TPU_SEARCH_BATCH_MAX``) act at index
+        BUILD time. Replaces (and shuts down) any index already bound to the
+        name. ``bundle`` (the JAX package's AOT sidecar) is not ported."""
+        if bundle is not None:
+            raise NotImplementedError(
+                "register_index(bundle=...): AOT bundles are not ported "
+                "yet, ROADMAP Queue 1 item 9")
+        if index.device.type != self.device.type:
+            raise ValueError(f"index {name!r} lives on {index.device}, the "
+                             f"registry serves {self.device}")
+        warmed = 0
+        warm_dt = 0.0
+        if warm:
+            t0 = time.perf_counter()
+            warmed = index.warm()
+            warm_dt = time.perf_counter() - t0
+        worker = SearchWorker(name, index, config=self.config,
+                              latency=self.latency)
+        meta = {
+            "source": "object",
+            "model_class": type(index).__name__,
+            "warmed": int(warmed),
+            "warm_seconds": round(warm_dt, 4),
+            "device": str(index.device),
+            "search": True,
+        }
+        with self._lock:
+            old = self._searchers.pop(name, None)
+            self._searchers[name] = worker
+            self._meta[f"search:{name}"] = meta
+        if old is not None:
+            old.shutdown()
+        obs.event("serve_model_loaded", model=name, mode="search", **{
+            k: meta[k] for k in ("source", "model_class", "warmed",
+                                 "warm_seconds")})
+        return worker
+
     def _warm_pipeline(self, model, warm: bool) -> Dict[str, object]:
         if getattr(model, "params", None) is None:
             model.init()
@@ -164,9 +215,21 @@ class ModelRegistry:
         with self._lock:
             return self._generators.get(name)
 
+    def searcher(self, name: Optional[str] = None) -> Optional[SearchWorker]:
+        """Search worker by name; with ``name=None`` (or "default") and
+        exactly one index registered, that index — the legacy /knn routes
+        carry no index name."""
+        with self._lock:
+            if name in (None, "default") and name not in self._searchers:
+                if len(self._searchers) == 1:
+                    return next(iter(self._searchers.values()))
+                return None
+            return self._searchers.get(name)
+
     def names(self) -> List[str]:
         with self._lock:
-            return sorted(set(self._workers) | set(self._generators))
+            return sorted(set(self._workers) | set(self._generators)
+                          | set(self._searchers))
 
     def describe(self) -> List[Dict[str, object]]:
         """One JSON-friendly row per served model (GET /v1/models)."""
@@ -176,6 +239,9 @@ class ModelRegistry:
             pairs += [(self._generators[n],
                        dict(self._meta.get(f"generate:{n}", {})))
                       for n in sorted(self._generators)]
+            pairs += [(self._searchers[n],
+                       dict(self._meta.get(f"search:{n}", {})))
+                      for n in sorted(self._searchers)]
         rows = []
         for worker, meta in pairs:
             row = worker.stats()
@@ -186,9 +252,11 @@ class ModelRegistry:
     def shutdown(self):
         with self._lock:
             workers = (list(self._workers.values())
-                       + list(self._generators.values()))
+                       + list(self._generators.values())
+                       + list(self._searchers.values()))
             self._workers.clear()
             self._generators.clear()
+            self._searchers.clear()
             self._meta.clear()
         for w in workers:
             w.shutdown()

@@ -1,8 +1,8 @@
 """Continuous-batching scheduler: per-model queues, coalescing dispatchers.
 
-Counterpart of ``deeplearning4j_tpu/serve/scheduler.py`` (the predict
-path and the token-level generate path; the search worker waits for its
-slice). One :class:`ModelWorker` per served model owns a bounded request queue and a
+Counterpart of ``deeplearning4j_tpu/serve/scheduler.py``: the predict
+path, the token-level generate path and vector search. One
+:class:`ModelWorker` per served model owns a bounded request queue and a
 small pool of dispatcher threads. Each dispatcher runs the continuous-
 batching loop:
 
@@ -36,6 +36,12 @@ fan-out all happen with the lock released.
 generative model over a :class:`~deeplearning4j_tpu_torch.nn.decode.DecodeProgram`:
 its engine thread schedules single decode STEPS, not requests (see the
 class docstring).
+
+:class:`SearchWorker` is the same loop for one
+:class:`~deeplearning4j_tpu_torch.search.index.VectorIndex`, coalescing
+only requests that dispatch the same (tier, k bucket, nprobe) signature,
+so a coalesced answer equals the same request served alone at the same
+padded batch size.
 """
 
 from __future__ import annotations
@@ -57,8 +63,8 @@ from deeplearning4j_tpu_torch.serve.admission import (
     TokenAdmission)
 from deeplearning4j_tpu_torch.utils import bucketing
 
-__all__ = ["GenerateStream", "GenerateWorker", "ModelWorker", "ServeConfig",
-           "ShedError"]
+__all__ = ["GenerateStream", "GenerateWorker", "ModelWorker", "SearchWorker",
+           "ServeConfig", "ShedError"]
 
 
 class ShedError(RuntimeError):
@@ -346,6 +352,295 @@ class ModelWorker:
             "batches": int(self._batches.value(model=self.name)),
             "workers": len(self._threads),
         }
+
+    def shutdown(self, timeout_s: float = 5.0):
+        with self._cond:
+            self._stop = True
+            stranded = list(self._q)
+            self._q.clear()
+            self._cond.notify_all()
+        for r in stranded:
+            r.error = ShedError("shutdown", f"{self.name}: worker shut down")
+            r.event.set()
+        for t in self._threads:
+            t.join(timeout=timeout_s)
+
+
+# ---------------------------------------------------------------------------
+# Vector search: signature-compatible query coalescing
+# ---------------------------------------------------------------------------
+
+
+class _SearchReq:
+    __slots__ = ("q", "rows", "k", "kb", "nprobe", "tier", "deadline",
+                 "arrival", "event", "result", "error", "trace")
+
+    def __init__(self, q, k: int, kb: int, nprobe: int, tier: str,
+                 deadline: float, arrival: float):
+        self.q = q
+        self.rows = len(q)
+        self.k = k
+        self.kb = kb
+        self.nprobe = nprobe
+        self.tier = tier
+        self.deadline = deadline
+        self.arrival = arrival
+        self.event = threading.Event()
+        self.result = None
+        self.error: Optional[Exception] = None
+        self.trace: Optional[fleet.TraceContext] = None
+
+    @property
+    def key(self):
+        """Coalescing compatibility: only requests that would dispatch the
+        SAME signature (tier, padded k, nprobe) may share a
+        batch — so a coalesced response is bit-exact vs serving alone."""
+        return (self.tier, self.kb, self.nprobe)
+
+
+class SearchWorker:
+    """Deadline-aware continuous batching for ONE
+    :class:`~deeplearning4j_tpu_torch.search.index.VectorIndex`.
+
+    Same shape as :class:`ModelWorker` with one twist: the admit loop only
+    coalesces *signature-compatible* requests (same tier / k-bucket /
+    nprobe — see :meth:`_SearchReq.key`); incompatible requests stay queued
+    for the next batch rather than forcing a second signature into this
+    dispatch. Latency estimates key per ``{index}:{tier}`` because the
+    tiers sit at very different points on the latency/recall curve.
+    """
+
+    def __init__(self, name: str, index,
+                 config: Optional[ServeConfig] = None,
+                 latency: Optional[LatencyModel] = None,
+                 ladder: Optional[bucketing.BucketLadder] = None):
+        import dataclasses
+
+        self.name = name
+        self.index = index
+        base = config or ServeConfig.from_env()
+        # the index's own coalescing cap (search_batch_max knob) bounds the
+        # batch — it is what the signature grid was warmed for
+        self.config = dataclasses.replace(
+            base, max_batch=int(index.config.batch_max))
+        self.route = f"search.{name}"
+        self.latency = latency or LatencyModel(
+            min_samples=self.config.min_samples)
+        self.admission = AdmissionController(self.latency, self.config,
+                                             ladder=ladder)
+        self._cond = threading.Condition()
+        self._q: List[_SearchReq] = []
+        self._stop = False
+        self._shed_seen: set = set()
+        self._batches = obs.counter(
+            "dl4j_serve_batches_total",
+            "coalesced dispatches by model", ("model",))
+        self._batch_rows = obs.histogram(
+            "dl4j_serve_batch_rows",
+            "real rows per coalesced dispatch (fill, before bucket padding)",
+            ("model",))
+        self._depth = obs.gauge(
+            "dl4j_serve_queue_depth",
+            "requests waiting in the per-model serving queue", ("model",))
+        self._threads = [
+            threading.Thread(target=self._worker_loop, daemon=True,
+                             name=f"search-{name}-{i}")
+            for i in range(max(1, self.config.workers))]
+        for t in self._threads:
+            t.start()
+
+    # -- producer side -----------------------------------------------------
+
+    def submit(self, queries, k: int = 10, nprobe: Optional[int] = None,
+               tier: Optional[str] = None,
+               deadline_s: Optional[float] = None):
+        """Top-k search for ``queries`` ([B, dim]); blocks until served.
+        Returns ``(ids, distances, tier)``. Raises ``ValueError`` on a
+        malformed request (HTTP 400) or :class:`ShedError` (429/503)."""
+        ix = self.index
+        q = np.atleast_2d(np.asarray(queries, np.float32))
+        if q.ndim != 2 or q.shape[1] != ix.config.dim:
+            raise ValueError(
+                f"queries must be [B, {ix.config.dim}], got "
+                f"{np.asarray(queries).shape}")
+        if q.shape[0] == 0:
+            raise ValueError("request must carry at least one query")
+        if q.shape[0] > self.config.max_batch:
+            raise ValueError(
+                f"request of {q.shape[0]} queries exceeds search_batch_max "
+                f"{self.config.max_batch}; split the batch client-side")
+        if not 1 <= int(k) <= ix.config.max_k:
+            raise ValueError(
+                f"k must be in [1, {ix.config.max_k}], got {k}")
+        tier = tier or ix.default_tier
+        if tier not in ix.available_tiers():
+            raise ValueError(f"tier {tier!r} not available; index has "
+                             f"{ix.available_tiers()}")
+        kb = min((c for c in ix.k_choices if c >= int(k)),
+                 default=ix.k_choices[-1])
+        p = ix._resolve_nprobe(nprobe) if tier != "exact" else 0
+        now = time.perf_counter()
+        if deadline_s is None:
+            deadline_s = self.config.default_deadline_s
+        r = _SearchReq(q, int(k), kb, p, tier, now + deadline_s, now)
+        r.trace = fleet.current_trace()
+        lkey = f"{self.name}:{tier}"
+        if self.admission.infeasible(lkey, r.rows, r.deadline, now):
+            self._shed(r, "deadline")
+            raise ShedError("deadline",
+                            f"{self.name}: measured {tier} latency cannot "
+                            f"meet deadline {deadline_s * 1e3:.1f}ms")
+        with self._cond:
+            if self._stop:
+                raise ShedError("shutdown", f"{self.name}: worker shut down")
+            if len(self._q) >= self.config.queue_limit:
+                depth = len(self._q)
+                shed = True
+            else:
+                shed = False
+                self._q.append(r)
+                depth = len(self._q)
+                self._cond.notify()
+        self._depth.set(depth, model=self.name)
+        if shed:
+            self._shed(r, "backpressure")
+            raise ShedError("backpressure",
+                            f"{self.name}: queue full ({depth} waiting)")
+        r.event.wait()
+        if r.error is not None:
+            raise r.error
+        return r.result
+
+    def _shed(self, r: _SearchReq, reason: str):
+        obs.observe_shed(self.route, reason=reason)
+        if reason not in self._shed_seen:
+            self._shed_seen.add(reason)
+            obs.event("search_shed", index=self.name, reason=reason,
+                      rows=int(r.rows))
+
+    # -- dispatcher side ---------------------------------------------------
+
+    def _worker_loop(self):
+        while True:
+            with self._cond:
+                while not self._q and not self._stop:
+                    self._cond.wait()
+                if self._stop and not self._q:
+                    return
+                first = self._q.pop(0)
+                depth = len(self._q)
+            self._depth.set(depth, model=self.name)
+            batch = self._assemble(first)
+            if batch:
+                self._dispatch(batch)
+
+    def _pop_compatible(self, key) -> Optional[_SearchReq]:
+        """Pop the oldest queued request sharing ``key`` (tier/k/nprobe);
+        incompatible requests keep their queue position for the next
+        batch seed."""
+        with self._cond:
+            for i, r in enumerate(self._q):
+                if r.key == key:
+                    return self._q.pop(i)
+        return None
+
+    def _assemble(self, first: _SearchReq) -> List[_SearchReq]:
+        cfg = self.config
+        lkey = f"{self.name}:{first.tier}"
+        batch: List[_SearchReq] = []
+        rows = 0
+        tightest = float("inf")
+        opened = time.perf_counter()
+        candidate: Optional[_SearchReq] = first
+        while True:
+            now = time.perf_counter()
+            if candidate is not None:
+                merged = min(tightest, candidate.deadline)
+                if now + cfg.margin_s > candidate.deadline:
+                    self._shed(candidate, "deadline")
+                    candidate.error = ShedError(
+                        "deadline", f"{self.name}: deadline expired in queue")
+                    candidate.event.set()
+                elif (not batch
+                      or (rows + candidate.rows <= cfg.max_batch
+                          and self.admission.admit_more(
+                              lkey, rows, candidate.rows, merged, now))):
+                    batch.append(candidate)
+                    rows += candidate.rows
+                    tightest = merged
+                else:
+                    with self._cond:
+                        self._q.insert(0, candidate)
+                    break
+                candidate = None
+                continue
+            if rows >= cfg.max_batch:
+                break
+            candidate = self._pop_compatible(first.key)
+            if candidate is not None:
+                continue
+            if self._stop or now - opened >= cfg.max_wait_s:
+                break
+            if batch and not self.admission.can_wait(
+                    lkey, rows, tightest, now):
+                break
+            time.sleep(cfg.wait_quantum_s)
+        return batch
+
+    def _dispatch(self, batch: List[_SearchReq]):
+        total = sum(r.rows for r in batch)
+        bucket = (bucketing.bucket_size(total)
+                  if bucketing.bucketing_enabled() else total)
+        lkey = f"{self.name}:{batch[0].tier}"
+        try:
+            with obs.span("search.dispatch", index=self.name,
+                          tier=batch[0].tier, rows=int(total),
+                          **_trace_attrs(batch)):
+                qs = (batch[0].q if len(batch) == 1
+                      else np.concatenate([r.q for r in batch], axis=0))
+                t0 = time.perf_counter()
+                # dispatch at the shared kb so every member's slice equals
+                # its solo response bit-for-bit (row-independent kernels,
+                # stable column prefix of one top-kb result)
+                ids, dists = self.index.search(
+                    qs, k=batch[0].kb, nprobe=batch[0].nprobe or None,
+                    tier=batch[0].tier)
+                dt = time.perf_counter() - t0
+            self.latency.observe(lkey, bucket, dt)
+            self._batches.inc(model=self.name)
+            self._batch_rows.observe(total, model=self.name)
+            done = time.perf_counter()
+            ofs = 0
+            for r in batch:
+                r.result = (ids[ofs:ofs + r.rows, :r.k],
+                            dists[ofs:ofs + r.rows, :r.k], r.tier)
+                ofs += r.rows
+                r.event.set()
+                obs.observe_request(self.route, done - r.arrival,
+                                    status="ok")
+        except Exception as e:
+            done = time.perf_counter()
+            for r in batch:
+                r.error = e
+                r.event.set()
+                obs.observe_request(self.route, done - r.arrival,
+                                    status="error", error=True)
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def stats(self) -> Dict[str, object]:
+        with self._cond:
+            depth = len(self._q)
+        out = {
+            "model": self.name,
+            "queue_depth": depth,
+            "queue_limit": self.config.queue_limit,
+            "max_batch": self.config.max_batch,
+            "batches": int(self._batches.value(model=self.name)),
+            "workers": len(self._threads),
+        }
+        out.update(self.index.stats)
+        return out
 
     def shutdown(self, timeout_s: float = 5.0):
         with self._cond:

@@ -18,6 +18,15 @@ ThreadingHTTPServer — one OS thread per connection, so concurrent blocked
   Arrival sheds keep the predict route's 429/503, since no byte has been
   sent; a mid-stream shed (the deadline repriced per remaining token)
   shows as the terminal line's ``reason == "shed:deadline"``;
+- ``POST /v1/search`` with ``{"index": name?, "queries": [[...], ...],
+  "k": 10, "nprobe": 8?, "tier": "ivf"?, "deadline_ms": 50?}`` →
+  ``{"ids": [...], "distances": [...], "tier": ..., "rows": n,
+  "request_id": ...}`` — the device-resident ANN tier (``search/``) behind
+  the same deadline admission and a signature-coalescing scheduler, the
+  same status codes;
+- ``POST /knn`` / ``POST /knnnew`` / ``GET /status`` — the legacy
+  NearestNeighborsServer wire contract (``clustering/server.py`` is a shim
+  over this stack), resolved against the sole registered index;
 - ``GET /v1/models`` → per-model pool stats;
 - ``GET /healthz``, ``GET /metrics`` — from serve/httpcommon.py.
 
@@ -29,8 +38,10 @@ above 256 — 1027 becomes 1024.) For any other model, and for any other
 numeric payload, they are float32, as there: an image of integer pixels
 0-255 reaches a convolution in the model dtype.
 
-SLO route labels are collapsed to ``serve.<name>:http`` / ``/v1/models`` /
-``/metrics`` so label cardinality stays bounded by the model count.
+SLO route labels are collapsed to ``serve.<name>:http`` /
+``generate.<name>:http`` / ``search:http`` (all three search routes: the
+index name lives in the body) / ``/v1/models`` / ``/metrics`` so label
+cardinality stays bounded by the model count.
 """
 
 from __future__ import annotations
@@ -108,6 +119,8 @@ class InferenceServer:
                 m = _GENERATE_RE.match(path)
                 if m:
                     return f"generate.{m.group(1)}:http"
+                if path in ("/v1/search", "/knn", "/knnnew"):
+                    return "search:http"
                 return path
 
             def handle_get(self) -> int:
@@ -115,6 +128,16 @@ class InferenceServer:
                 if path == "/v1/models":
                     return self.send_json(200,
                                           {"models": outer.registry.describe()})
+                if path == "/status":
+                    worker = outer.registry.searcher(None)
+                    if worker is None:
+                        return self.send_json(
+                            404, {"error": "no index served"})
+                    ix = worker.index
+                    return self.send_json(200, {
+                        "ok": True,
+                        "points": int(ix.n + ix._pending_n),
+                        "dim": int(ix.config.dim)})
                 return self.send_json(404, {"error": "no such route"})
 
             def _send_shed(self, e: ShedError) -> int:
@@ -193,11 +216,101 @@ class InferenceServer:
                     pass  # client went away at the end; engine already done
                 return 200
 
+            # -- vector search ---------------------------------------------
+
+            def handle_search(self) -> int:
+                try:
+                    payload = self.read_json()
+                    name = payload.get("index")
+                    queries = np.asarray(payload["queries"], np.float32)
+                    k = int(payload.get("k", 10))
+                    nprobe = payload.get("nprobe")
+                    nprobe = None if nprobe is None else int(nprobe)
+                    tier = payload.get("tier")
+                    deadline_ms = payload.get("deadline_ms")
+                    deadline_s = (None if deadline_ms is None
+                                  else float(deadline_ms) / 1e3)
+                    if deadline_s is not None and deadline_s <= 0:
+                        raise ValueError("deadline_ms must be > 0")
+                except Exception as e:
+                    return self.send_json(400, {"error": str(e)})
+                worker = outer.registry.searcher(name)
+                if worker is None:
+                    return self.send_json(
+                        404, {"error": f"index {name!r} not served",
+                              "served": outer.registry.names()})
+                try:
+                    ids, dists, tier_used = worker.submit(
+                        queries, k=k, nprobe=nprobe, tier=tier,
+                        deadline_s=deadline_s)
+                except ShedError as e:
+                    return self._send_shed(e)
+                except ValueError as e:
+                    return self.send_json(400, {"error": str(e)})
+                except Exception as e:
+                    return self.send_json(500, {"error": str(e)})
+                body = {
+                    "ids": ids.tolist(),
+                    "distances": dists.tolist(),
+                    "tier": tier_used,
+                    "rows": int(len(ids)),
+                }
+                if self.trace is not None:
+                    body["request_id"] = self.trace.trace_id
+                return self.send_json(200, body)
+
+            def handle_knn(self, by_vector: bool) -> int:
+                """Legacy NearestNeighborsServer contract: /knn looks up an
+                indexed row (excluding itself), /knnnew a raw vector; both
+                answer ``{"results": [{"index", "distance"}, ...]}`` and map
+                malformed requests to the legacy 400 ``{"error"}`` shape.
+                Sheds keep the 429/503 semantics."""
+                worker = outer.registry.searcher(None)
+                if worker is None:
+                    return self.send_json(404, {"error": "no index served"})
+                ix = worker.index
+                try:
+                    payload = self.read_json()
+                    k = int(payload.get("k", 5))
+                    if k < 1:
+                        raise ValueError(f"k must be >= 1, got {k}")
+                    if by_vector:
+                        vec = np.asarray(
+                            payload["ndarray"], np.float32).reshape(1, -1)
+                        exclude = -1
+                        want = min(k, ix.config.max_k)
+                    else:
+                        row = int(np.asarray(payload["ndarray"]).reshape(()))
+                        if not 0 <= row < ix.n:
+                            raise ValueError(f"index {row} out of range")
+                        vec = ix._vectors[row][None]
+                        exclude = row
+                        # one extra so dropping the query row still fills k
+                        want = min(k + 1, ix.config.max_k)
+                except Exception as e:
+                    return self.send_json(400, {"error": str(e)})
+                try:
+                    ids, dists, _ = worker.submit(vec, k=want)
+                except ShedError as e:
+                    return self._send_shed(e)
+                except Exception as e:
+                    return self.send_json(400, {"error": str(e)})
+                results = [
+                    {"index": int(i), "distance": float(d)}
+                    for i, d in zip(ids[0], dists[0])
+                    if i >= 0 and i != exclude][:k]
+                return self.send_json(200, {"results": results})
+
             def handle_post(self) -> int:
-                g = _GENERATE_RE.match(urlparse(self.path).path)
+                path = urlparse(self.path).path
+                if path == "/v1/search":
+                    return self.handle_search()
+                if path in ("/knn", "/knnnew"):
+                    return self.handle_knn(by_vector=(path == "/knnnew"))
+                g = _GENERATE_RE.match(path)
                 if g:
                     return self.handle_generate(g.group(1))
-                m = _PREDICT_RE.match(urlparse(self.path).path)
+                m = _PREDICT_RE.match(path)
                 if not m:
                     return self.send_json(404, {"error": "no such route"})
                 worker = outer.registry.worker(m.group(1))

@@ -10,6 +10,7 @@ with weights or windows; BatchNorm's train mode compares outputs and new
 state, with and without example weights."""
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -28,6 +29,15 @@ from deeplearning4j_tpu_torch.nn.config import LayerConfig
 from deeplearning4j_tpu_torch.nn.input_type import InputType
 
 F32 = dict(rtol=1e-4, atol=1e-5)   # one layer's f32 forward, sums regrouped
+
+
+@pytest.fixture(autouse=True)
+def _clean_env(monkeypatch):
+    # another test module may leave tuning knobs (DL4J_TPU_GRAD_ACCUM, ...)
+    # in os.environ; both packages' fit paths read them
+    for k in list(os.environ):
+        if k.startswith("DL4J_TPU_"):
+            monkeypatch.delenv(k)
 
 
 @pytest.fixture(autouse=True, scope="module")

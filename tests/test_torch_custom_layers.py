@@ -6,6 +6,7 @@ generation with the same eps fed to both; the YOLO host helpers), and
 their JSON. f32 within 1e-5 relative (F32); gradients within 1e-4."""
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -33,6 +34,15 @@ from deeplearning4j_tpu_torch.nn.model import MultiLayerConfiguration, MultiLaye
 
 F32 = dict(rtol=1e-5, atol=1e-6)
 GRAD = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture(autouse=True)
+def _clean_env(monkeypatch):
+    # another test module may leave tuning knobs (DL4J_TPU_GRAD_ACCUM, ...)
+    # in os.environ; both packages' fit paths read them
+    for k in list(os.environ):
+        if k.startswith("DL4J_TPU_"):
+            monkeypatch.delenv(k)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -42,6 +42,15 @@ SHARDS = [
 ]
 
 
+@pytest.fixture(autouse=True)
+def _clean_env(monkeypatch):
+    # another test module may leave tuning knobs (DL4J_TPU_GRAD_ACCUM, ...)
+    # in os.environ; both packages' fit paths read them
+    for k in list(os.environ):
+        if k.startswith("DL4J_TPU_"):
+            monkeypatch.delenv(k)
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _two_threads():
     old = torch.get_num_threads()

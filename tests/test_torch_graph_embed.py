@@ -6,6 +6,8 @@ host numpy in both packages and must be equal; the trained tables are f32
 sums in other orders (XLA against PyTorch) and are held to ``FIT_TOL``.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,15 @@ from deeplearning4j_tpu_torch.graph import walks as twalks
 from deeplearning4j_tpu_torch.interop import embeddings_from_numpy, embeddings_to_numpy
 
 FIT_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+@pytest.fixture(autouse=True)
+def _clean_env(monkeypatch):
+    # another test module may leave tuning knobs (DL4J_TPU_GRAD_ACCUM, ...)
+    # in os.environ; both packages' fit paths read them
+    for k in list(os.environ):
+        if k.startswith("DL4J_TPU_"):
+            monkeypatch.delenv(k)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -52,7 +52,10 @@ def test_importing_every_port_module_leaves_jax_out():
               "nlp", "nlp.tokenization", "nlp.vocab", "nlp.cjk", "nlp.vectorizers",
               "nlp.embeddings", "nlp.serializer", "nlp.glove", "nlp.distributed", "graph",
               "graph.api", "graph.loader", "graph.walks", "graph.deepwalk",
-              "graph.node2vec", "utils.misc"):
+              "graph.node2vec", "utils.misc", "clustering", "clustering.knn",
+              "clustering.kmeans", "clustering.lsh", "clustering.sptree",
+              "clustering.trees", "clustering.tsne", "clustering.server",
+              "clustering.__main__", "search", "search.index", "search.program"):
         assert f"deeplearning4j_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

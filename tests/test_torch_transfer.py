@@ -7,6 +7,8 @@ everything upstream of a vertex, ``FineTuneConfiguration``, and
 surgery on the same weights must give the same network, params and
 outputs in both packages (f32 within 1e-5)."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +29,15 @@ from deeplearning4j_tpu_torch.nn.layers import Dense, OutputLayer
 from deeplearning4j_tpu_torch.nn.model import MultiLayerConfiguration, MultiLayerNetwork
 
 F32 = dict(rtol=1e-5, atol=1e-6)
+
+
+@pytest.fixture(autouse=True)
+def _clean_env(monkeypatch):
+    # another test module may leave tuning knobs (DL4J_TPU_GRAD_ACCUM, ...)
+    # in os.environ; both packages' fit paths read them
+    for k in list(os.environ):
+        if k.startswith("DL4J_TPU_"):
+            monkeypatch.delenv(k)
 
 
 @pytest.fixture(autouse=True, scope="module")

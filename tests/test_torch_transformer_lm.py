@@ -4,6 +4,8 @@ bf16, unpadded and bucket-padded, plus the entry points' device rule."""
 
 import dataclasses
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,15 @@ from deeplearning4j_tpu_torch.utils import bucketing
 
 SMALL = dict(vocab_size=64, max_len=16, d_model=32, n_heads=4, n_blocks=2)
 F32 = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture(autouse=True)
+def _clean_env(monkeypatch):
+    # another test module may leave tuning knobs (DL4J_TPU_GRAD_ACCUM, ...)
+    # in os.environ; both packages' fit paths read them
+    for k in list(os.environ):
+        if k.startswith("DL4J_TPU_"):
+            monkeypatch.delenv(k)
 
 
 @pytest.fixture(autouse=True, scope="module")

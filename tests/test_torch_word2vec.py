@@ -20,6 +20,8 @@ equality is exact.
 
 import time
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -42,6 +44,15 @@ from deeplearning4j_tpu_torch.nlp.vocab import (
 
 STEP_TOL = dict(rtol=1e-5, atol=1e-6)
 FIT_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+@pytest.fixture(autouse=True)
+def _clean_env(monkeypatch):
+    # another test module may leave tuning knobs (DL4J_TPU_GRAD_ACCUM, ...)
+    # in os.environ; both packages' fit paths read them
+    for k in list(os.environ):
+        if k.startswith("DL4J_TPU_"):
+            monkeypatch.delenv(k)
 
 
 @pytest.fixture(autouse=True, scope="module")

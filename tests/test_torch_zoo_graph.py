@@ -9,6 +9,7 @@ Tolerances: the eval forward within 1e-4 relative of the largest output
 its test."""
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -29,6 +30,15 @@ from deeplearning4j_tpu_torch.interop import (
 )
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph, ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.model import MultiLayerConfiguration, MultiLayerNetwork
+
+
+@pytest.fixture(autouse=True)
+def _clean_env(monkeypatch):
+    # another test module may leave tuning knobs (DL4J_TPU_GRAD_ACCUM, ...)
+    # in os.environ; both packages' fit paths read them
+    for k in list(os.environ):
+        if k.startswith("DL4J_TPU_"):
+            monkeypatch.delenv(k)
 
 
 @pytest.fixture(autouse=True, scope="module")
