@@ -13,7 +13,8 @@ non-zero (and without a result line when no CUDA device is present):
 2. build   — nvcc builds csrc/flash_fwd.cu, flash_bwd.cu, flash_wide.cu,
    fused_lstm_fwd.cu and fused_lstm_bwd.cu (with the shared
    csrc/sm90_common.cuh and csrc/lstm_common.cuh) for sm_90a from the
-   checkout, all at once; registers, shared memory and spills per kernel
+   checkout, all at once, and g++ the C++ data parsers
+   (native/fastload.cpp) into build/ beside them; registers, shared memory and spills per kernel
    instantiation (72), and the HGMMA (wgmma) count of each flash kernel
    from cuobjdump -sass. The 24 bf16 and f16 wgmma kernels (forward, dq,
    dk/dv at D = 32, 64, 128, 256) must show HGMMA and no spills, the LSTM
@@ -309,6 +310,46 @@ non-zero (and without a result line when no CUDA device is present):
    Pallas kernel lies on the JAX package's search path): every count is 0
    before each and must read 0 after.
 
+30. model_import — a model trained elsewhere onto the card: (a) the
+   char-RNN at full width (TextGenerationLSTM: 2 x GravesLSTM(256) with
+   peepholes, vocab 77, T 50, f32, Adam 1e-3) fitted 2 tBPTT steps from the
+   seed, written by export_dl4j_zip (bytes, seconds); loaded in process by
+   ModelRegistry.load and served (launches of kernel #4 counted, > 0);
+   served by ``python -m deeplearning4j_tpu_torch.serve charrnn=<zip> --port
+   0`` as a subprocess to 4 concurrent :predict clients of 2 rows each,
+   every reply held to the exporting model's output (IMPORT_SERVE_TOL; the
+   CLI's seconds from start to the first reply); imported by
+   import_dl4j_zip (params and Adam moments held to the original), sampled
+   10 one-step calls (2 launches of #4 each) and fine-tuned 2 tBPTT steps
+   beside the original (params and moments within IMPORT_TUNE_REL, bit for
+   bit expected; kernels #4/#5 counted); (b) ResNet50 at 224 x 224 x 3,
+   1000 classes, f32, Adam, after one fit_batch of 32 images: export and
+   import with input_type (zip bytes, seconds), params, BatchNorm state and
+   moments held, the outputs on 32 images, then 2 fit_batch steps on both
+   (cuDNN's deterministic algorithms); (c) a Keras Sequential config of the
+   char-RNN's shape (LSTM(256, return_sequences, sigmoid gates) x 2, a
+   per-step softmax Dense(77)) with weights from the seed in Keras layouts,
+   through the config + weight-dict route (model_from_config, no HDF5): the
+   card's output (kernel #4) against the same import on the CPU; the route
+   each imported LSTM layer took; (d) where the host has h5py, every
+   committed tests/fixtures/keras_*.h5 through import_model on the card
+   against its golden; where it has none, the line says that the HDF5
+   container is covered by the CPU tests alone. No flash kernel runs.
+31. data_path — (a) 60,000 x 28 x 28 uint8 MNIST-sized IDX files with
+   labels written from the seed into a temporary DL4J_TPU_DATA; ``python -m
+   deeplearning4j_tpu_torch.train lenet.json --dataset mnist --epochs 1`` as
+   a subprocess: the fetcher read the local files (synthetic=False) through
+   the C++ parser built from native/fastload.cpp into build/, and the
+   trained zip's loss on 2,048 of the images is below the initial model's;
+   then in process the fetch (parse and dataset build) and one epoch timed
+   (images/s); (b) a 1,000,000-row numeric CSV (10 features and an integer
+   label, from the seed) through CSVRecordReader inside
+   RecordReaderDataSetIterator (rows/s of the parse, by the C++ parser), a
+   TransformProcess, NormalizerStandardize as the iterator's pre-processor,
+   an MLP fitted 20 steps (loss falls), saved with the normalizer in the
+   checkpoint zip and both restored. No hand-written kernel runs: every
+   count is 0 before and must read 0 after.
+
 It ends with the command time, the kernels line (launches of each kernel
 by path, the new phases' included), the card's name and power limit, and
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -324,6 +365,7 @@ import json
 import logging
 import os
 import re
+import struct
 import subprocess
 import sys
 import tempfile
@@ -331,6 +373,7 @@ import threading
 import time
 import urllib.request
 import warnings
+import zipfile
 from pathlib import Path
 
 import numpy as np
@@ -591,9 +634,19 @@ def build_report() -> dict:
         except Exception as e:   # re-raised below, on the main thread
             errors.append(e)
 
+    native_s = []
+
+    def build_native():
+        # the C++ CSV / IDX parsers (native/fastload.cpp -> build/), beside nvcc
+        from deeplearning4j_tpu_torch import native
+
+        n0 = time.perf_counter()
+        native.get_lib()
+        native_s.append(time.perf_counter() - n0)
+
     threads = [threading.Thread(target=build, args=(n,))
                for n in ("flash_fwd", "flash_bwd", "flash_wide", "fused_lstm_fwd",
-                         "fused_lstm_bwd")]
+                         "fused_lstm_bwd")] + [threading.Thread(target=build_native)]
     for t in threads:
         t.start()
     for t in threads:
@@ -601,6 +654,9 @@ def build_report() -> dict:
     check(not any(t.is_alive() for t in threads), "an nvcc build hung")
     if errors:
         raise errors[0]
+    from deeplearning4j_tpu_torch import native
+
+    check(native.available(), f"g++ did not build native/fastload.cpp: {native.BUILD_ERROR}")
     fwd, bwd = fa._kernel_lib(), fa._bwd_kernel_lib()
     # each flash kernel: the wgmma kernel (bf16) and the FMA kernel (f32)
     fwd_log = _build.BUILD_LOG.get("flash_fwd", "")
@@ -685,7 +741,8 @@ def build_report() -> dict:
             for dt, code in ((torch.float32, 0), (torch.bfloat16, 1), (torch.float16, 2))}
     return {"phase": "build", "seconds": round(seconds, 3), "kernels": kernels,
             "lstm_routes_by_H": {"H": list(LSTM_ROUTE_WIDTHS), **routes},
-            "lstm_fwd_cluster_rows_H256": rows}
+            "lstm_fwd_cluster_rows_H256": rows,
+            "native": {"library": str(native.lib_path()), "build_s": native_s[0]}}
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -5125,6 +5182,527 @@ def clustering_phase(a_corpus, a_queries, b_corpus) -> dict:
     return out
 
 
+# -- phases 30-31 -------------------------------------------------------------
+
+# model_import: the char-RNN at full width (Adam 1e-3 so that the zip carries
+# moments), fitted IMPORT_FIT_STEPS tBPTT steps of IMPORT_ROWS rows, exported,
+# served by the CLI to IMPORT_CLIENTS concurrent clients of IMPORT_CLIENT_ROWS
+# rows each, sampled IMPORT_SAMPLE_STEPS one-step calls and fine-tuned
+# IMPORT_TUNE_STEPS steps beside the original
+IMPORT_ROWS, IMPORT_FIT_STEPS, IMPORT_TUNE_STEPS = 128, 2, 2
+IMPORT_CLIENTS, IMPORT_CLIENT_ROWS, IMPORT_SAMPLE_STEPS = 4, 2, 10
+IMPORT_CLI_WAIT_S = 300      # the serving CLI: import, warm over its buckets, bind
+# the CLI's replies against the exporting model's output on the card: f32,
+# the same kernels, rows coalesced into another batch than the reference's
+IMPORT_SERVE_TOL = dict(rtol=1e-4, atol=1e-5)
+# the fine-tuned import against the original, and ResNet50's fit steps on
+# both: the same kernels (cuDNN's deterministic algorithms for ResNet50) on
+# bit-equal params and moments, so bit for bit is expected; each tensor is
+# held within this share of its norm, and the largest difference reported
+IMPORT_TUNE_REL = 1e-6
+IMPORT_RESNET_BATCH, IMPORT_RESNET_STEPS = 32, 2
+HAVE_H5PY = importlib.util.find_spec("h5py") is not None
+# data_path: MNIST-sized IDX files (uncompressed) and a numeric CSV table
+MNIST_ROWS, MNIST_BATCH, MNIST_SCORE_ROWS = 60_000, 128, 2048
+CSV_ROWS, CSV_FEATURES, CSV_CLASSES, CSV_BATCH, CSV_STEPS = 1_000_000, 10, 5, 4096, 20
+
+
+def _charrnn_data(rows, T, V, seed):
+    ids = np.random.RandomState(seed).randint(0, V, (rows, T + 1))
+    eye = np.eye(V, dtype=np.float32)
+    return eye[ids[:, :-1]], eye[ids[:, 1:]]
+
+
+def _tree_rel(a: list, b: list) -> float:
+    """Largest per-tensor ||a - b|| / ||b|| over two leaf lists."""
+    check(len(a) == len(b), f"{len(a)} leaves against {len(b)}")
+    worst = 0.0
+    for x, y in zip(a, b):
+        den = y.float().norm().item()
+        worst = max(worst, (x.float() - y.float()).norm().item() / (den if den > 0 else 1.0))
+    return worst
+
+
+def _held(a_tree, b_tree, what: str) -> dict:
+    a, b = _host_leaves(a_tree), _host_leaves(b_tree)
+    res = {"bits_equal": _bits_equal(a, b), "max_abs_diff": _max_diff(a, b),
+           "max_rel_diff": _tree_rel(a, b)}
+    check(res["bits_equal"] or res["max_rel_diff"] <= IMPORT_TUNE_REL,
+          f"{what}: {res}")
+    return res
+
+
+def _lstm_routes(model) -> list:
+    """The recurrence each LSTM layer of ``model`` takes on the card."""
+    from deeplearning4j_tpu_torch.nn.layers import LSTM
+
+    out = []
+    for i, layer in enumerate(model.layers):
+        if isinstance(layer, LSTM):
+            if layer._fused_eligible():
+                route = "kernels #4/#5, %s route" % fl.lstm_route(layer.n_out, model.dtype,
+                                                                  "fwd")[0]
+            else:
+                route = "the plain step loop (not fused-eligible)"
+            out.append({"layer": i, "type": type(layer).__name__, "hidden": layer.n_out,
+                        "gate_activation": layer.gate_activation, "route": route})
+    return out
+
+
+def _serve_cli(zip_path: str, tmp: Path, probe: np.ndarray, want: torch.Tensor) -> dict:
+    """``python -m deeplearning4j_tpu_torch.serve charrnn=<zip> --port 0`` as a
+    subprocess; IMPORT_CLIENTS concurrent :predict clients, each reply held
+    to the exporting model's rows; the time from start to the first reply."""
+    log = tmp / "serve_cli.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as sink:
+        proc = subprocess.Popen([sys.executable, "-m", "deeplearning4j_tpu_torch.serve",
+                                 f"charrnn={zip_path}", "--port", "0"],
+                                cwd=os.path.dirname(os.path.abspath(__file__)),
+                                stdout=sink, stderr=subprocess.STDOUT, text=True)
+    try:
+        port = None
+        while port is None and proc.poll() is None and \
+                time.perf_counter() - t0 < IMPORT_CLI_WAIT_S:
+            for line in log.read_text().splitlines():
+                if line.startswith("serving "):
+                    port = int(line.rsplit(":", 1)[1])
+            if port is None:
+                time.sleep(0.2)
+        bound_s = time.perf_counter() - t0
+        check(port is not None, f"serving CLI: no port in {bound_s:.0f} s (exit "
+                                f"{proc.poll()}): {log.read_text()[-2000:]}")
+        done = [None] * IMPORT_CLIENTS
+
+        def client(i):
+            rows = probe[i * IMPORT_CLIENT_ROWS:(i + 1) * IMPORT_CLIENT_ROWS]
+            status, payload, dt = post_predict(port, "charrnn", rows.tolist(), 600_000)
+            done[i] = time.perf_counter()
+            return status, payload, dt
+
+        results = run_concurrently(client, [(i,) for i in range(IMPORT_CLIENTS)])
+        errs = []
+        for i, (status, payload, _) in enumerate(results):
+            check(status == 200, f"serving CLI client {i}: HTTP {status}")
+            got = torch.as_tensor(np.asarray(payload["outputs"], np.float32))
+            ref = want[i * IMPORT_CLIENT_ROWS:(i + 1) * IMPORT_CLIENT_ROWS]
+            errs.append((got - ref).abs().max().item())
+            check(tuple(got.shape) == tuple(ref.shape)
+                  and bool(torch.allclose(got, ref, **IMPORT_SERVE_TOL)),
+                  f"serving CLI client {i}: reply differs from the exporting model by "
+                  f"{errs[-1]}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    return {"clients": IMPORT_CLIENTS, "rows_per_client": IMPORT_CLIENT_ROWS,
+            "start_to_bound_s": bound_s, "start_to_first_reply_s": min(done) - t0,
+            "latency_s": [r[2] for r in results], "max_abs_err": max(errs),
+            "tol": IMPORT_SERVE_TOL, "log_head": log.read_text().splitlines()[:3]}
+
+
+def _charrnn_import(tmp: Path, launches: dict) -> dict:
+    from deeplearning4j_tpu_torch.modelimport import export_dl4j_zip, import_dl4j_zip
+
+    V, T = LSTM_CONF["vocab_size"], LSTM_CONF["timesteps"]
+    conf = zoo.TextGenerationLSTM(**LSTM_CONF, updater={"type": "adam", "lr": 1e-3})
+    src = MultiLayerNetwork(conf).init()
+    x, y = _charrnn_data(IMPORT_ROWS * IMPORT_FIT_STEPS, T, V, 21)
+    src.fit((x, y), epochs=1, batch_size=IMPORT_ROWS)
+    check(src.iteration == IMPORT_FIT_STEPS, f"char-RNN fit: iteration {src.iteration}")
+    zpath = str(tmp / "charrnn_dl4j.zip")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    export_dl4j_zip(src, zpath)
+    export_s = time.perf_counter() - t0
+    with zipfile.ZipFile(zpath) as zf:
+        entries = sorted(zf.namelist())
+    check(entries == ["coefficients.bin", "configuration.json", "updaterState.bin"],
+          f"char-RNN zip entries {entries}")
+    probe = x[:IMPORT_CLIENTS * IMPORT_CLIENT_ROWS]
+    want = src.output(probe).cpu()
+    res = {"model": "TextGenerationLSTM", "vocab": V, "T": T, "hidden": LSTM_CONF["hidden"],
+           "updater": conf.updater, "fit_steps": IMPORT_FIT_STEPS,
+           "zip_bytes": os.path.getsize(zpath), "export_s": export_s}
+
+    # serving in process through ModelRegistry.load: every launch is counted
+    _zero_all_kernel_counts()
+    reg = ModelRegistry()
+    try:
+        t0 = time.perf_counter()
+        reg.load("charrnn", zpath)
+        load_s = time.perf_counter() - t0
+        got = torch.as_tensor(np.asarray(reg.worker("charrnn").submit(probe), np.float32))
+        launches["serve_registry"] = _kernel_launches()
+        err = (got - want).abs().max().item()
+        check(bool(torch.allclose(got, want, **IMPORT_SERVE_TOL)),
+              f"ModelRegistry.load: output differs from the exporting model by {err}")
+    finally:
+        reg.shutdown()
+    check(launches["serve_registry"]["fused_lstm_fwd"] > 0,
+          f"ModelRegistry.load served the imported char-RNN without kernel #4: "
+          f"{launches['serve_registry']}")
+    res["registry"] = {"load_and_warm_s": load_s, "max_abs_err": err,
+                       "tol": IMPORT_SERVE_TOL}
+    res["serve_cli"] = _serve_cli(zpath, tmp, probe, want)
+
+    t0 = time.perf_counter()
+    imp = import_dl4j_zip(zpath)
+    torch.cuda.synchronize()
+    res["import_s"] = time.perf_counter() - t0
+    check(imp.iteration == src.iteration, f"imported iteration {imp.iteration}")
+    res["imported_vs_original"] = {
+        "params": _held(imp.params, src.params, "imported char-RNN params"),
+        "opt_state": _held(imp.opt_state, src.opt_state, "imported char-RNN Adam moments")}
+    res["routes"] = _lstm_routes(imp)
+
+    # sampling from the import: one-step calls, 2 launches of kernel #4 each
+    eye = torch.eye(V, device="cuda")
+    _zero_all_kernel_counts()
+    imp.rnn_clear_previous_state()
+    out = imp.rnn_time_step(torch.as_tensor(probe, device="cuda"))
+    for _ in range(IMPORT_SAMPLE_STEPS):
+        out = imp.rnn_time_step(eye[(out[:, -1] if out.dim() == 3 else out).argmax(-1)])
+    torch.cuda.synchronize()
+    launches["sample"] = _kernel_launches()
+    check(launches["sample"]["fused_lstm_fwd"] == 2 * (IMPORT_SAMPLE_STEPS + 1),
+          f"sampling the import: {launches['sample']}")
+    imp.rnn_clear_previous_state()
+
+    # fine-tuning the import beside the original: kernel #5 on the import's path
+    x2, y2 = _charrnn_data(IMPORT_ROWS * IMPORT_TUNE_STEPS, T, V, 22)
+    _zero_all_kernel_counts()
+    imp.fit((x2, y2), epochs=1, batch_size=IMPORT_ROWS)
+    torch.cuda.synchronize()
+    launches["finetune"] = _kernel_launches()
+    src.fit((x2, y2), epochs=1, batch_size=IMPORT_ROWS)
+    check(launches["finetune"]["fused_lstm_bwd"] > 0 and launches["finetune"]["fused_lstm_fwd"] > 0,
+          f"fine-tuning the import without kernels #4/#5: {launches['finetune']}")
+    res["finetune"] = {"steps": IMPORT_TUNE_STEPS, "iteration": imp.iteration,
+                       "params": _held(imp.params, src.params, "fine-tuned params"),
+                       "opt_state": _held(imp.opt_state, src.opt_state, "fine-tuned moments"),
+                       "tol_rel": IMPORT_TUNE_REL}
+    del src, imp
+    return res
+
+
+def _resnet_import(tmp: Path, launches: dict) -> dict:
+    from deeplearning4j_tpu_torch.modelimport import export_dl4j_zip, import_dl4j_zip
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        src = ComputationGraph(ResNet50(height=RESNET["size"], width=RESNET["size"],
+                                        num_classes=RESNET["classes"])).init()
+        check(src.dtype == torch.float32 and src.conf.updater["type"] == "adam",
+              f"ResNet50 import: {src.dtype}, {src.conf.updater}")
+        x, y = _resnet_images(IMPORT_RESNET_BATCH, 5)
+        xt, yt = torch.as_tensor(x, device="cuda"), torch.as_tensor(y, device="cuda")
+        src.fit_batch((xt, yt))          # non-zero Adam moments in the zip
+        zpath = str(tmp / "resnet50_dl4j.zip")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        export_dl4j_zip(src, zpath)
+        export_s = time.perf_counter() - t0
+        _zero_all_kernel_counts()
+        t0 = time.perf_counter()
+        imp = import_dl4j_zip(zpath, input_type=[InputType.convolutional(
+            RESNET["size"], RESNET["size"], 3)])
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+        res = {"model": "ResNet50", "input": [RESNET["size"], RESNET["size"], 3],
+               "classes": RESNET["classes"], "dtype": "float32", "batch": IMPORT_RESNET_BATCH,
+               "zip_bytes": os.path.getsize(zpath), "export_s": export_s,
+               "import_s": import_s,
+               "imported_vs_original": {
+                   "params": _held(imp.params, src.params, "ResNet50 params"),
+                   "state": _held(imp.state, src.state, "ResNet50 BatchNorm state"),
+                   "opt_state": _held(imp.opt_state, src.opt_state, "ResNet50 moments")}}
+        got, want = imp.output(xt), src.output(xt)
+        res["output"] = _held([got], [want], "ResNet50 output")
+        check(tuple(got.shape) == (IMPORT_RESNET_BATCH, RESNET["classes"])
+              and bool(torch.isfinite(got).all()), f"ResNet50 output {tuple(got.shape)}")
+        losses = {"import": [], "original": []}
+        for _ in range(IMPORT_RESNET_STEPS):
+            losses["import"].append(float(imp.fit_batch((xt, yt))))
+            losses["original"].append(float(src.fit_batch((xt, yt))))
+        torch.cuda.synchronize()
+        launches["resnet50"] = _kernel_launches()
+        res["fit"] = {"steps": IMPORT_RESNET_STEPS, "losses": losses,
+                      "params": _held(imp.params, src.params, "ResNet50 params after fit"),
+                      "opt_state": _held(imp.opt_state, src.opt_state,
+                                         "ResNet50 moments after fit"),
+                      "cudnn_deterministic": True}
+        del src, imp, xt, yt
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return res
+
+
+def _keras_charrnn(launches: dict) -> dict:
+    """A Keras Sequential config of the char-RNN's shape (LSTM x2 with
+    return_sequences, sigmoid gates, then a per-step softmax Dense: what
+    TimeDistributed(Dense) computes, written as Keras 2 applies a Dense to
+    3-D input; the importer has no TimeDistributed converter), weights from
+    the seed in Keras layouts, through the config + weight-dict route."""
+    from deeplearning4j_tpu_torch.modelimport import model_from_config
+
+    V, T, H = LSTM_CONF["vocab_size"], LSTM_CONF["timesteps"], LSTM_CONF["hidden"]
+    lstm = dict(units=H, return_sequences=True, activation="tanh",
+                recurrent_activation="sigmoid")
+    cfg = {"class_name": "Sequential", "config": {"name": "charrnn", "layers": [
+        {"class_name": "InputLayer", "config": {"batch_input_shape": [None, T, V],
+                                                "name": "chars"}},
+        {"class_name": "LSTM", "config": dict(lstm, name="lstm_1")},
+        {"class_name": "LSTM", "config": dict(lstm, name="lstm_2")},
+        {"class_name": "Dense", "config": {"name": "probs", "units": V,
+                                           "activation": "softmax"}}]}}
+    rs = np.random.RandomState(31)
+
+    def glorot(n_in, n_out):
+        lim = np.sqrt(6.0 / (n_in + n_out))
+        return rs.uniform(-lim, lim, (n_in, n_out)).astype(np.float32)
+
+    weights = {"lstm_1": [glorot(V, 4 * H), glorot(H, 4 * H), np.zeros(4 * H, np.float32)],
+               "lstm_2": [glorot(H, 4 * H), glorot(H, 4 * H), np.zeros(4 * H, np.float32)],
+               "probs": [glorot(H, V), np.zeros(V, np.float32)]}
+    for name in ("lstm_1", "lstm_2"):
+        weights[name][2][H:2 * H] = 1.0           # Keras' unit_forget_bias
+    x, _ = _charrnn_data(IMPORT_ROWS, T, V, 23)
+    t0 = time.perf_counter()
+    gpu = model_from_config(json.dumps(cfg), weights)
+    import_s = time.perf_counter() - t0
+    cpu = model_from_config(cfg, weights, device="cpu")
+    _zero_all_kernel_counts()
+    got = gpu.output(x)
+    torch.cuda.synchronize()
+    launches["keras"] = _kernel_launches()
+    got = got.cpu()
+    want = cpu.output(x)
+    tol = TOL[torch.float32]
+    err = (got - want).abs().max().item()
+    check(launches["keras"]["fused_lstm_fwd"] == 2,
+          f"the Keras char-RNN's output: {launches['keras']}")
+    check(tuple(got.shape) == (IMPORT_ROWS, T, V) and bool(torch.allclose(got, want, **tol)),
+          f"the Keras char-RNN on the card differs from the CPU by {err}")
+    return {"layers": "LSTM(256, return_sequences) x2, Dense(77, softmax) per step",
+            "import_s": import_s, "rows": IMPORT_ROWS, "max_abs_err": err, "tol": tol,
+            "routes": _lstm_routes(gpu), "params": gpu.num_params()}
+
+
+def _keras_h5_fixtures(launches: dict) -> dict:
+    """Every committed tests/fixtures/keras_*.h5 through import_model on the
+    card, held to its golden (tests/test_modelimport_r3.py's tolerance)."""
+    from deeplearning4j_tpu_torch.modelimport import import_model
+
+    fix = Path(__file__).resolve().parent / "tests" / "fixtures"
+    tol = dict(rtol=1e-4, atol=1e-5)
+    out = {}
+    _zero_all_kernel_counts()
+    for path in sorted(fix.glob("keras_*.h5")):
+        io_ = np.load(str(path)[:-3] + "_io.npz")
+        got = import_model(str(path)).output(io_["x"]).float().cpu().numpy()
+        err = float(np.abs(got - io_["y"]).max())
+        check(np.allclose(got, io_["y"], **tol), f"{path.name} on the card: max err {err}")
+        out[path.stem] = err
+    launches["keras_h5"] = _kernel_launches()
+    check(len(out) == 17, f"{len(out)} Keras fixtures")
+    return {"fixtures": len(out), "max_abs_err": out, "tol": tol}
+
+
+def model_import_phase(tmp: Path) -> dict:
+    """Phase 30: a DL4J zip and a Keras model onto the card, served and
+    fine-tuned (module docstring, phase 30)."""
+    launches = {}
+    res = {"phase": "model_import", "charrnn": _charrnn_import(tmp, launches)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["resnet50"] = _resnet_import(tmp, launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["keras_charrnn"] = _keras_charrnn(launches)
+    if HAVE_H5PY:
+        res["keras_h5"] = _keras_h5_fixtures(launches)
+    else:
+        res["keras_h5"] = ("h5py is not installed on this host: the HDF5 container "
+                           "is covered by the CPU tests alone "
+                           "(tests/test_torch_keras_import.py)")
+    for path, n in launches.items():
+        flash = {k: v for k, v in n.items() if "lstm" not in k}
+        _check_no_kernel(flash, f"model_import {path}")
+    res["launches_by_path"] = launches
+    return res
+
+
+def _write_idx(data_dir: Path, n: int, seed: int):
+    """MNIST-sized uncompressed IDX files from the seed: a template per class
+    plus pixel noise, so that the classes can be learnt."""
+    rs = np.random.RandomState(seed)
+    templates = rs.rand(10, 28, 28).astype(np.float32)
+    labels = rs.randint(0, 10, n).astype(np.uint8)
+    imgs = np.empty((n, 28, 28), np.uint8)
+    for i in range(0, n, 10_000):
+        s = slice(i, min(i + 10_000, n))
+        noise = rs.rand(s.stop - s.start, 28, 28).astype(np.float32)
+        imgs[s] = ((0.6 * templates[labels[s]] + 0.4 * noise) * 255).astype(np.uint8)
+    (data_dir / "train-images-idx3-ubyte").write_bytes(
+        struct.pack(">IIII", 2051, n, 28, 28) + imgs.tobytes())
+    (data_dir / "train-labels-idx1-ubyte").write_bytes(
+        struct.pack(">II", 2049, n) + labels.tobytes())
+    return imgs, labels
+
+
+def _mnist_dataset_cli(tmp: Path) -> dict:
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+
+    data_dir = tmp / "data"
+    data_dir.mkdir()
+    t0 = time.perf_counter()
+    imgs, labels = _write_idx(data_dir, MNIST_ROWS, 51)
+    write_s = time.perf_counter() - t0
+    conf = zoo.LeNet5()
+    (tmp / "lenet.json").write_text(conf.to_json())
+    out_zip = tmp / "lenet_mnist.zip"
+    log = tmp / "train_cli.log"
+    env = dict(os.environ, DL4J_TPU_DATA=str(data_dir))
+    t0 = time.perf_counter()
+    with open(log, "w") as sink:
+        rc = subprocess.run([sys.executable, "-m", "deeplearning4j_tpu_torch.train",
+                             str(tmp / "lenet.json"), "--dataset", "mnist", "--epochs", "1",
+                             "--batch-size", str(MNIST_BATCH), "--output", str(out_zip)],
+                            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                            stdout=sink, stderr=subprocess.STDOUT, timeout=600).returncode
+    cli_s = time.perf_counter() - t0
+    text = log.read_text()
+    check(rc == 0, f"train CLI --dataset mnist: exit {rc}: {text[-2000:]}")
+    line = next((l for l in text.splitlines() if l.startswith("dataset mnist:")), "")
+    m = re.match(r"dataset mnist: (\d+) examples, synthetic=(\w+), native parses (\{.*\})",
+                 line)
+    check(m is not None, f"train CLI: no dataset line in {text[-2000:]}")
+    parses = json.loads(m.group(3).replace("'", '"'))
+    check(int(m.group(1)) == MNIST_ROWS and m.group(2) == "False"
+          and parses["parse_idx_images"] >= 1,
+          f"train CLI read {line!r}: not the local IDX files through the C++ parser")
+    n = MNIST_SCORE_ROWS
+    xs = (imgs[:n].astype(np.float32) / 255.0)[..., None]
+    ys = np.eye(10, dtype=np.float32)[labels[:n]]
+    before = MultiLayerNetwork(conf).init().score((xs, ys))
+    after = restore_network(str(out_zip)).score((xs, ys))
+    check(np.isfinite(after) and after < before,
+          f"LeNet-5 trained on MNIST by the CLI: loss {before} -> {after}")
+
+    # the fetch and one epoch in process, timed (the launches are counted)
+    calls = dict(native.CALLS)
+    old = os.environ.get("DL4J_TPU_DATA")
+    os.environ["DL4J_TPU_DATA"] = str(data_dir)
+    try:
+        t0 = time.perf_counter()
+        it = MnistDataSetIterator(MNIST_BATCH, train=True)
+        fetch_s = time.perf_counter() - t0
+    finally:
+        if old is None:
+            os.environ.pop("DL4J_TPU_DATA")
+        else:
+            os.environ["DL4J_TPU_DATA"] = old
+    check(not it.synthetic and native.CALLS["parse_idx_images"] == calls["parse_idx_images"] + 1,
+          f"MnistDataSetIterator: synthetic={it.synthetic}, native calls {native.CALLS}")
+    model = MultiLayerNetwork(conf).init()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit(it, epochs=1)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    return {"images": MNIST_ROWS, "idx_bytes": imgs.nbytes + 16, "write_s": write_s,
+            "cli": {"seconds": cli_s, "dataset_line": line, "loss_before": before,
+                    "loss_after": after, "score_rows": n},
+            "fetch_s": fetch_s, "fetch_images_per_s": MNIST_ROWS / fetch_s,
+            "epoch_s": epoch_s, "epoch_images_per_s": MNIST_ROWS / epoch_s,
+            "batch": MNIST_BATCH, "iterations": model.iteration}
+
+
+def _csv_table(tmp: Path) -> dict:
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.datasets import (
+        CSVRecordReader, EarlyTerminationDataSetIterator, Normalizer,
+        NormalizerStandardize, RecordReaderDataSetIterator, Schema, TransformProcess)
+    from deeplearning4j_tpu_torch.nn.layers import Dense, OutputLayer
+    from deeplearning4j_tpu_torch.utils.serialization import restore_normalizer
+
+    N, F, K = CSV_ROWS, CSV_FEATURES, CSV_CLASSES
+    rs = np.random.RandomState(61)
+    feats = (rs.randn(N, F) * 3 + 5).astype(np.float32)
+    labels = np.argmax(feats @ rs.randn(F, K) + rs.randn(N, K), axis=1)
+    path = tmp / "table.csv"
+    t0 = time.perf_counter()
+    np.savetxt(path, np.column_stack([feats, labels]), delimiter=",",
+               fmt=["%.6g"] * F + ["%d"])
+    write_s = time.perf_counter() - t0
+    calls = native.CALLS["parse_csv"]
+    t0 = time.perf_counter()
+    it = RecordReaderDataSetIterator(str(path), CSV_BATCH, label_index=F, num_classes=K,
+                                     reader=CSVRecordReader())
+    parse_s = time.perf_counter() - t0
+    check(native.CALLS["parse_csv"] == calls + 1 and it.rows.shape == (N, F + 1),
+          f"CSV parse: native calls {native.CALLS}, rows {it.rows.shape}")
+    names = [f"f{i}" for i in range(F)]
+    schema = Schema.builder().add_double(*names).add_integer("label").build()
+    tp = (TransformProcess.builder(schema).replace_invalid("f0", 0.0)
+          .double_math_op("f1", "multiply", 0.5).build())
+    t0 = time.perf_counter()
+    raw_f1 = it.rows[:, 1].copy()
+    it.rows = tp.execute_to_matrix(
+        {n: it.rows[:, i] for i, n in enumerate(schema.names())}).astype(np.float32)
+    transform_s = time.perf_counter() - t0
+    check(np.allclose(it.rows[:, 1], raw_f1 * 0.5) and it.rows.shape == (N, F + 1),
+          "TransformProcess output")
+    t0 = time.perf_counter()
+    norm = NormalizerStandardize().fit(it)
+    normalize_fit_s = time.perf_counter() - t0
+    it.set_pre_processor(norm)
+    conf = MultiLayerConfiguration(
+        layers=(Dense(n_out=64, activation="relu"),
+                OutputLayer(n_out=K, activation="softmax", loss="mcxent")),
+        input_type=InputType.feed_forward(F), updater={"type": "adam", "lr": 1e-2})
+    model = MultiLayerNetwork(conf).init()
+    first = next(iter(it))
+    before = model.score((first.features, first.labels))
+    t0 = time.perf_counter()
+    model.fit(EarlyTerminationDataSetIterator(it, CSV_STEPS), epochs=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    after = model.score((first.features, first.labels))
+    check(model.iteration == CSV_STEPS and after < before,
+          f"MLP on the CSV table: {model.iteration} steps, loss {before} -> {after}")
+    zpath = str(tmp / "mlp_with_normalizer.zip")
+    save_network(model, zpath, normalizer=norm.to_dict())
+    back = restore_network(zpath)
+    bnorm = Normalizer.from_dict(restore_normalizer(zpath))
+    check(bnorm.to_dict() == norm.to_dict(), "the normalizer restored from the zip")
+    xb = bnorm.transform_features(it.rows[:CSV_BATCH, :F])
+    check(torch.equal(back.output(xb), model.output(xb)), "the model restored from the zip")
+    return {"rows": N, "features": F, "classes": K, "csv_bytes": path.stat().st_size,
+            "write_s": write_s, "parse_s": parse_s, "parse_rows_per_s": N / parse_s,
+            "transform_s": transform_s, "normalizer_fit_s": normalize_fit_s,
+            "fit_steps": CSV_STEPS, "fit_s": fit_s, "loss_before": before,
+            "loss_after": after, "batch": CSV_BATCH}
+
+
+def data_path_phase(tmp: Path) -> dict:
+    """Phase 31: the data path on the card (module docstring, phase 31)."""
+    from deeplearning4j_tpu_torch import native
+
+    check(native.available(), f"the C++ parsers did not build: {native.BUILD_ERROR}")
+    res = {"phase": "data_path", "native_lib": str(native.lib_path()),
+           "mnist": _mnist_dataset_cli(tmp)}
+    res["csv"] = _csv_table(tmp)
+    res["native_calls"] = dict(native.CALLS)
+    return res
+
+
 def _kernel_row(name, source, replaces, launches, by_path, max_abs_err, ms, plain_ms,
                 bound_ms, bound_by, library_ms, **extra):
     return dict({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -5266,6 +5844,21 @@ def main() -> int:
     _check_no_kernel(clus["launches"], "clustering")
     emit(clus)
     del a_corpus, a_queries, b_corpus
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 30 counts its launches path by path; phase 31 runs no hand-written kernel
+    with tempfile.TemporaryDirectory() as tmp:
+        imp = model_import_phase(Path(tmp))
+    emit(imp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _zero_all_kernel_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        dpath = data_path_phase(Path(tmp))
+    dpath["launches"] = _kernel_launches()
+    _check_no_kernel(dpath["launches"], "data_path")
+    emit(dpath)
+    imp_by = imp["launches_by_path"]
 
     fwd_cases = kern["cases"]
     bwd_cases = kern["bwd_cases"]
@@ -5284,6 +5877,8 @@ def main() -> int:
                    for run, r in rattn["runs"].items()})
         by.update({"word2vec": w2v["launches"][name], "embeddings": emb["launches"][name],
                    "search": srch["launches"][name], "clustering": clus["launches"][name]})
+        by.update({f"model_import_{path}": n[name] for path, n in imp_by.items()})
+        by["data_path"] = dpath["launches"][name]
         return by
 
     fwd_by = dict({"serve": srv["launches"], "train": tl["flash_fwd"]},
@@ -5321,7 +5916,10 @@ def main() -> int:
                            word2vec=w2v["launches"][f"chunk_{name}"],
                            embeddings=emb["launches"][f"chunk_{name}"],
                            search=srch["launches"][f"chunk_{name}"],
-                           clustering=clus["launches"][f"chunk_{name}"])
+                           clustering=clus["launches"][f"chunk_{name}"],
+                           data_path=dpath["launches"][f"chunk_{name}"],
+                           **{f"model_import_{path}": n[f"chunk_{name}"]
+                              for path, n in imp_by.items()})
                 for name in fa.CHUNK_LAUNCHES}
     d = ct["diagonal"]
     rows.append(_kernel_row(
@@ -5356,6 +5954,8 @@ def main() -> int:
                         for path, n in lres["launches_by_path"].items()})
         by_path.update({"word2vec": w2v["launches"][name], "embeddings": emb["launches"][name],
                         "search": srch["launches"][name], "clustering": clus["launches"][name]})
+        by_path.update({f"model_import_{path}": n[name] for path, n in imp_by.items()})
+        by_path["data_path"] = dpath["launches"][name]
         rows.append(_kernel_row(
             name, f"deeplearning4j_tpu_torch/csrc/{name}.cu",
             f"deeplearning4j_tpu/ops/fused_lstm.py:{line}",

@@ -15,8 +15,12 @@ listeners and evaluation, the checkpoint zip shared with the JAX package
 (``utils/serialization.py``), the trainer CLI
 (``python -m deeplearning4j_tpu_torch.train``), the bucket ladder
 (``utils/bucketing.py``), observability (``obs/``) and the HTTP
-``:predict`` tier (``serve/``). Entry points run on the GPU unless the
-caller passes ``device="cpu"``.
+``:predict`` tier (``serve/``); since then the char-RNN, the image and
+graph models, the training runtime, sequence parallelism, generation and
+MoE, the embedding libraries, search and clustering, and model import
+(``modelimport/``: DL4J zips and Keras files) with the data path
+(``datasets/``, the C++ parsers of ``native/``). Entry points run on the
+GPU unless the caller passes ``device="cpu"``.
 
 Importing this package imports neither ``jax`` nor ``deeplearning4j_tpu``.
 """

@@ -8,22 +8,255 @@ the consumer's stream waits on the copy's event before it touches the
 batch, and every copied tensor is ``record_stream``-ed on the consumer's
 stream, so the caching allocator does not hand its memory to another
 tensor while the step still reads it. On the CPU the batches become
-tensors and nothing is copied. The iterator combinators of the reference
-module wait for the data-path slice.
+tensors and nothing is copied.
+
+The DataSetIterator family above it (the base, ListDataSetIterator, the
+async, early-termination, multi-epoch, splitter, benchmark, file and joint
+iterators) is a copy of the JAX package's: host numpy batches that ``fit``
+takes as an iterable or, being callable, a fresh iterable per epoch.
+``ShardedDataSetIterator`` (one shard per process) waits for the parallel
+slice (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
-from typing import List
+from typing import Callable, Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 
-__all__ = ["prefetch_to_device"]
+__all__ = ["AsyncDataSetIterator", "AsyncMultiDataSetIterator", "BenchmarkDataSetIterator",
+           "DataSetIterator", "DataSetIteratorSplitter", "EarlyTerminationDataSetIterator",
+           "FileDataSetIterator", "JointParallelDataSetIterator", "ListDataSetIterator",
+           "MultipleEpochsIterator", "prefetch_to_device"]
+
+
+class DataSetIterator:
+    """Base: iterable over DataSet batches, re-iterable via reset().
+
+    Subclasses implement ``_produce()`` yielding DataSets. A
+    ``pre_processor`` (normalizer or callable) is applied to every batch.
+    """
+
+    def __init__(self, batch_size: int = 32):
+        self.batch_size = batch_size
+        self.pre_processor: Optional[Callable] = None
+
+    def set_pre_processor(self, pp):
+        self.pre_processor = pp
+        return self
+
+    def _produce(self) -> Iterator[DataSet]:
+        raise NotImplementedError
+
+    def __iter__(self):
+        for ds in self._produce():
+            if self.pre_processor is not None:
+                ds = _apply_pp(self.pre_processor, ds)
+            yield ds
+
+    def reset(self):
+        """Iterators are re-iterable by default; stateful subclasses override."""
+
+    def __call__(self):
+        """model.fit accepts callables returning a fresh iterable per epoch."""
+        return iter(self)
+
+
+def _apply_pp(pp, ds: DataSet) -> DataSet:
+    if hasattr(pp, "transform"):
+        return pp.transform(ds)
+    return pp(ds)
+
+
+class ListDataSetIterator(DataSetIterator):
+    """Batches over an in-memory DataSet (reference ListDataSetIterator)."""
+
+    def __init__(self, data: DataSet, batch_size: int = 32):
+        super().__init__(batch_size)
+        self.data = data
+
+    def _produce(self):
+        yield from self.data.batch_by(self.batch_size)
+
+    def total_examples(self) -> int:
+        return self.data.num_examples()
+
+
+class AsyncDataSetIterator(DataSetIterator):
+    """Background-thread prefetch with a bounded buffer
+    (AsyncDataSetIterator.java; queue_size = bufferSize)."""
+
+    _SENTINEL = object()
+
+    def __init__(self, base: Iterable, queue_size: int = 8):
+        super().__init__(getattr(base, "batch_size", 32))
+        self.base = base
+        self.queue_size = queue_size
+
+    def __iter__(self):
+        q: "queue.Queue" = queue.Queue(maxsize=self.queue_size)
+        err: List[BaseException] = []
+
+        def worker():
+            try:
+                src = self.base() if callable(self.base) and not hasattr(self.base, "__iter__") else self.base
+                for item in src:
+                    q.put(item)
+            except BaseException as e:  # surface producer errors to consumer
+                err.append(e)
+            finally:
+                q.put(self._SENTINEL)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        while True:
+            item = q.get()
+            if item is self._SENTINEL:
+                break
+            if self.pre_processor is not None and isinstance(item, DataSet):
+                item = _apply_pp(self.pre_processor, item)
+            yield item
+        t.join()
+        if err:
+            raise err[0]
+
+
+# MultiDataSet prefetch is the same machinery (reference has a separate
+# AsyncMultiDataSetIterator class only because of Java generics).
+AsyncMultiDataSetIterator = AsyncDataSetIterator
+
+
+class EarlyTerminationDataSetIterator(DataSetIterator):
+    """Cap the number of minibatches per epoch (EarlyTerminationDataSetIterator.java)."""
+
+    def __init__(self, base: Iterable, max_batches: int):
+        super().__init__(getattr(base, "batch_size", 32))
+        self.base = base
+        self.max_batches = max_batches
+
+    def _produce(self):
+        for i, ds in enumerate(self.base):
+            if i >= self.max_batches:
+                break
+            yield ds
+
+
+class MultipleEpochsIterator(DataSetIterator):
+    """Replay the base iterator N times as one epoch (MultipleEpochsIterator.java)."""
+
+    def __init__(self, base: Iterable, n_epochs: int):
+        super().__init__(getattr(base, "batch_size", 32))
+        self.base = base
+        self.n_epochs = n_epochs
+
+    def _produce(self):
+        for _ in range(self.n_epochs):
+            if hasattr(self.base, "reset"):
+                self.base.reset()
+            yield from self.base
+
+
+class DataSetIteratorSplitter:
+    """Split one iterator into train/test partitions by a ratio of batches
+    (DataSetIteratorSplitter.java)."""
+
+    def __init__(self, base: Iterable, total_batches: int, ratio: float):
+        self.base = base
+        self.n_train = int(total_batches * ratio)
+        self.total = total_batches
+
+    @property
+    def train(self) -> DataSetIterator:
+        outer = self
+
+        class _Train(DataSetIterator):
+            def _produce(self):
+                for i, ds in enumerate(outer.base):
+                    if i >= outer.n_train:
+                        break
+                    yield ds
+
+        return _Train(getattr(self.base, "batch_size", 32))
+
+    @property
+    def test(self) -> DataSetIterator:
+        outer = self
+
+        class _Test(DataSetIterator):
+            def _produce(self):
+                for i, ds in enumerate(outer.base):
+                    if i < outer.n_train:
+                        continue
+                    if i >= outer.total:
+                        break
+                    yield ds
+
+        return _Test(getattr(self.base, "batch_size", 32))
+
+
+class BenchmarkDataSetIterator(DataSetIterator):
+    """Synthetic fixed-shape batches for perf tests
+    (impl/BenchmarkDataSetIterator.java): one batch generated once, yielded
+    N times — measures the training loop, not the ETL."""
+
+    def __init__(self, feature_shape: Sequence[int], n_classes: int,
+                 n_batches: int, seed: int = 12345):
+        super().__init__(feature_shape[0])
+        rs = np.random.RandomState(seed)
+        x = rs.rand(*feature_shape).astype(np.float32)
+        y = np.eye(n_classes, dtype=np.float32)[rs.randint(0, n_classes, feature_shape[0])]
+        self.ds = DataSet(x, y)
+        self.n_batches = n_batches
+
+    def _produce(self):
+        for _ in range(self.n_batches):
+            yield self.ds
+
+
+class FileDataSetIterator(DataSetIterator):
+    """Stream DataSets saved with DataSet.save() from a directory
+    (file/FileDataSetIterator.java)."""
+
+    def __init__(self, path: str, batch_size: int = 32, shuffle: bool = False,
+                 seed: int = 12345):
+        super().__init__(batch_size)
+        self.path = path
+        self.shuffle = shuffle
+        self.seed = seed
+
+    def _produce(self):
+        files = sorted(f for f in os.listdir(self.path) if f.endswith(".npz"))
+        if self.shuffle:
+            np.random.RandomState(self.seed).shuffle(files)
+        for f in files:
+            yield DataSet.load(os.path.join(self.path, f))
+
+
+class JointParallelDataSetIterator(DataSetIterator):
+    """Round-robin over several iterators (parallel/JointParallelDataSetIterator.java,
+    used to feed multiple DP workers distinct streams)."""
+
+    def __init__(self, *iterators: Iterable):
+        super().__init__(getattr(iterators[0], "batch_size", 32))
+        self.iterators = iterators
+
+    def _produce(self):
+        actives = [iter(it) for it in self.iterators]
+        while actives:
+            nxt = []
+            for it in actives:
+                try:
+                    yield next(it)
+                    nxt.append(it)
+                except StopIteration:
+                    pass
+            actives = nxt
 
 
 def _is_array(a) -> bool:

@@ -1,5 +1,13 @@
-"""Zoo architectures ported so far."""
+"""Zoo architectures, pretrained-weight loading and class labels (PyTorch
+port of ``deeplearning4j_tpu/models``)."""
 
+from deeplearning4j_tpu_torch.models.labels import (
+    BaseLabels,
+    DarknetLabels,
+    ImageNetLabels,
+    VOCLabels,
+)
+from deeplearning4j_tpu_torch.models.pretrained import init_pretrained, pretrained_path
 from deeplearning4j_tpu_torch.models.zoo import (
     LeNet5,
     SimpleCNN,
@@ -20,4 +28,5 @@ from deeplearning4j_tpu_torch.models.zoo_graph import (
 
 __all__ = ["AlexNet", "Darknet19", "FaceNetNN4Small2", "GoogLeNet", "InceptionResNetV1",
            "LeNet5", "ResNet50", "SimpleCNN", "TextGenerationLSTM", "TinyYOLO",
-           "TransformerLM", "VGG16", "VGG19"]
+           "TransformerLM", "VGG16", "VGG19", "init_pretrained", "pretrained_path",
+           "BaseLabels", "ImageNetLabels", "DarknetLabels", "VOCLabels"]

@@ -20,6 +20,12 @@ Quick start::
     registry.register_generate("lm", model)                 # token streams
     # POST /v1/models/lm:generate {"prompt": [ids...], "max_tokens": 32}
 
+A model trained elsewhere is served from its file:
+``registry.load(name, "model.zip" or "model.h5")`` imports it
+(``modelimport.import_model``) onto the registry's device and registers it;
+``python -m deeplearning4j_tpu_torch.serve name=path [...] --port N``
+does the same from the command line.
+
 Vector search rides the same tier: ``registry.register_index(name,
 index)`` puts a device-resident ANN index (``search/``) behind a
 signature-coalescing :class:`~.scheduler.SearchWorker`, served as

@@ -1,7 +1,7 @@
 """Model registry: the register → warm → serve pipeline, per model pool.
 
 Counterpart of ``deeplearning4j_tpu/serve/registry.py`` (the predict,
-generate and search paths; ``load`` from a file and AOT bundles wait for
+generate and search paths and ``load`` from a file; AOT bundles wait for
 ROADMAP Queue 1 item 9).
 ``ModelRegistry`` owns every :class:`~.scheduler.ModelWorker` in the
 process. ``register(name, model)`` puts an already-constructed model (a
@@ -83,6 +83,24 @@ class ModelRegistry:
         obs.event("serve_model_loaded", model=name, **{
             k: meta[k] for k in ("source", "model_class", "warmed",
                                  "warm_seconds")})
+        return worker
+
+    def load(self, name: str, path: str, warm: bool = True,
+             bundle: Optional[str] = None) -> ModelWorker:
+        """Import the model at ``path`` (Keras ``.h5`` or DL4J ``.zip``,
+        format auto-detected by ``modelimport.import_model``) onto the
+        registry's device and register it. ``bundle`` (the JAX package's AOT
+        sidecar, ``<path>.aotbundle`` by default there) is not ported."""
+        from deeplearning4j_tpu_torch import modelimport
+
+        if bundle is not None:
+            raise NotImplementedError(
+                "load(bundle=...): AOT bundles are not ported yet, ROADMAP "
+                "Queue 1 item 9")
+        model = modelimport.import_model(path, device=self.device)
+        worker = self.register(name, model, warm=warm)
+        with self._lock:
+            self._meta[name]["source"] = str(path)
         return worker
 
     def register_generate(self, name: str, model, warm: bool = True,

@@ -1,10 +1,12 @@
 """Trainer CLI: ``python -m deeplearning4j_tpu_torch.train``.
 
 Counterpart of ``python -m deeplearning4j_tpu.train`` (the reference's
-ParallelWrapperMain): loads a model zip or a configuration JSON with
-ModelGuesser semantics (a MultiLayerNetwork or a ComputationGraph), trains
-it on an ``.npz`` dataset (arrays ``x`` and ``y``, optional
-``fmask``/``lmask``) and writes a checkpoint zip in the format both
+ParallelWrapperMain): loads a model zip (native or DL4J), a Keras HDF5
+file or a configuration JSON with ModelGuesser semantics (a
+MultiLayerNetwork or a ComputationGraph), trains it on an ``.npz`` dataset
+(arrays ``x`` and ``y``, optional ``fmask``/``lmask``) or a built-in
+fetcher (``--dataset``: local archives under ``$DL4J_TPU_DATA``, else the
+seeded synthetic surrogate) and writes a checkpoint zip in the format both
 packages read. A graph with several inputs or outputs reads ``x0``,
 ``x1``, ... and ``y0``, ``y1``, ... in the order of its ``inputs`` and
 ``outputs`` instead (an extension of the JAX package's CLI, whose ``.npz``
@@ -14,12 +16,12 @@ Example::
 
     python -m deeplearning4j_tpu_torch.train conf.json \\
         --data train.npz --epochs 3 --batch-size 16 --output trained.zip
+    python -m deeplearning4j_tpu_torch.train lenet.json --dataset mnist --epochs 1
 
 Training runs on the GPU unless ``--device`` names another device
 (``--device cpu`` runs the plain PyTorch path); with no GPU and no
-``--device`` it raises. ``--dataset`` (built-in fetchers) and
-``--data-parallel`` are not ported yet and exit with a message naming the
-slice that brings them.
+``--device`` it raises. ``--data-parallel`` is not ported yet and exits
+with a message naming the slice that brings it.
 """
 
 from __future__ import annotations
@@ -41,12 +43,12 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m deeplearning4j_tpu_torch.train",
         description="Train a model from a config JSON or a model zip.")
     p.add_argument("model", help="configuration JSON (MultiLayerConfiguration or "
-                   "ComputationGraphConfiguration) or native model zip")
+                   "ComputationGraphConfiguration), native or DL4J zip, or Keras h5")
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--data", help=".npz file with arrays x and y "
                      "(optional fmask/lmask)")
     src.add_argument("--dataset", choices=["mnist", "emnist", "iris", "cifar10"],
-                     help="built-in dataset fetcher (not ported yet)")
+                     help="built-in dataset fetcher")
     p.add_argument("--epochs", type=int, default=1)
     p.add_argument("--batch-size", type=int, default=128)
     p.add_argument("--output", default="model.zip", help="checkpoint zip path")
@@ -83,20 +85,36 @@ def _arrays(d, name: str, path: str):
     return tuple(d[f"{name}{i}"] for i in range(n))
 
 
-def _load_data(path: str):
+def _load_npz(path: str):
     with np.load(path) as d:
         fmask = d["fmask"] if "fmask" in d else None
         lmask = d["lmask"] if "lmask" in d else None
         return (_arrays(d, "x", path), _arrays(d, "y", path), fmask, lmask)
 
 
+def _load_data(args):
+    """The ``.npz`` arrays, or the built-in fetcher's iterator (the JAX
+    CLI's ``_load_data``)."""
+    if args.data:
+        return _load_npz(args.data)
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.datasets.fetchers import (
+        CifarDataSetIterator, EmnistDataSetIterator, IrisDataSetIterator,
+        MnistDataSetIterator)
+
+    it = {"mnist": MnistDataSetIterator, "emnist": EmnistDataSetIterator,
+          "iris": IrisDataSetIterator, "cifar10": CifarDataSetIterator}[
+              args.dataset](batch_size=args.batch_size)
+    print(f"dataset {args.dataset}: {it.total_examples()} examples, synthetic="
+          f"{getattr(it, 'synthetic', False)}, native parses {dict(native.CALLS)}",
+          flush=True)
+    return it
+
+
 def run(argv=None):
     """Parse ``argv``, train, write the checkpoint (and evaluate with
     ``--evaluate``); returns the trained model."""
     args = build_parser().parse_args(argv)
-    if args.dataset:
-        raise SystemExit("--dataset: the dataset fetchers are not ported to "
-                         "deeplearning4j_tpu_torch yet (the data slice); use --data")
     if args.data_parallel:
         raise SystemExit("--data-parallel: data-parallel training is not ported to "
                          "deeplearning4j_tpu_torch yet (the parallel slice)")
@@ -104,7 +122,7 @@ def run(argv=None):
     if not hasattr(model, "fit"):
         raise SystemExit(f"{args.model} does not contain a trainable model")
     model.set_listeners(ScoreIterationListener(args.listener_frequency))
-    data = _load_data(args.data)
+    data = _load_data(args)
     model.fit(data, epochs=args.epochs, batch_size=args.batch_size)
     save_network(model, args.output)
     print(f"saved {args.output}")

@@ -55,7 +55,11 @@ def test_importing_every_port_module_leaves_jax_out():
               "graph.node2vec", "utils.misc", "clustering", "clustering.knn",
               "clustering.kmeans", "clustering.lsh", "clustering.sptree",
               "clustering.trees", "clustering.tsne", "clustering.server",
-              "clustering.__main__", "search", "search.index", "search.program"):
+              "clustering.__main__", "search", "search.index", "search.program",
+              "modelimport", "modelimport.dl4j", "modelimport.keras", "native",
+              "datasets.normalizers", "datasets.records", "datasets.transform",
+              "datasets.fetchers", "models.pretrained", "models.labels", "serve.__main__",
+              "train.__main__", "utils.guesser"):
         assert f"deeplearning4j_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -91,3 +95,16 @@ def test_no_source_names_jax_or_the_jax_package():
             if root in ("jax", "jaxlib", "deeplearning4j_tpu"):
                 offenders.append(f"{path.relative_to(REPO)}: {name}")
     assert offenders == []
+
+
+def test_native_library_builds_under_build_not_next_to_its_source():
+    """The C++ parsers build into build/ at the repository root (git-ignored),
+    never beside deeplearning4j_tpu_torch/native/fastload.cpp."""
+    from deeplearning4j_tpu_torch import native
+
+    assert native.available(), native.BUILD_ERROR
+    assert native.lib_path().parent == REPO / "build"
+    assert native.lib_path().name.startswith("libfastload-")
+    src_dir = PORT / "native"
+    assert sorted(p.name for p in src_dir.iterdir() if p.suffix != ".pyc"
+                  and p.name != "__pycache__") == ["__init__.py", "fastload.cpp"]

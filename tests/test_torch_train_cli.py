@@ -85,13 +85,11 @@ def test_a_config_json_trains_and_evaluates(inputs, tmp_path, capsys):
     assert "Accuracy:" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag,slice_name", [(["--dataset", "mnist"], "data slice"),
-                                             (["--data-parallel"], "parallel slice")])
+@pytest.mark.parametrize("flag,slice_name", [(["--data-parallel"], "parallel slice")])
 def test_unported_flags_exit_naming_their_slice(inputs, flag, slice_name):
     init, data, _ = inputs
-    extra = [] if flag[0] == "--dataset" else ["--data", str(data)]
     with pytest.raises(SystemExit, match=slice_name):
-        cli.main([str(init), *flag, *extra, "--device", "cpu"])
+        cli.main([str(init), *flag, "--data", str(data), "--device", "cpu"])
 
 
 def test_a_dataset_without_x_and_y_exits(inputs, tmp_path):
