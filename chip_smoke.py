@@ -350,6 +350,38 @@ non-zero (and without a result line when no CUDA device is present):
    checkpoint zip and both restored. No hand-written kernel runs: every
    count is 0 before and must read 0 after.
 
+32. tp_train — ShardedTrainer over MeshSpec(model=2): two rank processes on
+   the card in one gloo group (NCCL refuses two ranks on one device; the
+   collectives carry CUDA tensors, staged through host memory where gloo
+   takes none), the full-width TransformerLM of phase 5 (bf16, Adam 1e-4),
+   3 steps on 8 x 2048 tokens against MultiLayerNetwork._fit_batch from the
+   same params in this process (run first and freed): the first step's
+   gathered gradients per tensor within GRAD_CHECK_REL (the key bias,
+   whose exact gradient is 0, reported apart), the losses and the gathered
+   params as one vector bit for bit, else within GRAD_CHECK_REL; the output()
+   gathered from the ranks against the single-process output
+   (TP_OUTPUT_REL); 8 launches of each of kernels #1-#3 per rank a step at
+   H = 8 local heads; step times beside the single-process step's, peak
+   memory per rank.
+33. dp_train — ParallelWrapper on two gloo ranks, the char-RNN at full width
+   (B 128, T 50, H 256, f32): (a) 64/64 and (b) 70/58 rows, 3 steps each
+   against the single-process fit on the 128 rows (DP_PARAM_REL); (c) the
+   sharded update against (a); (d) the compressed exchange: every step's
+   decoded sum plus the new residuals against the dense gradient sum plus
+   the old residuals (DP_CONSERVE_REL), comm_stats' bytes against dense;
+   launches of kernels #4/#5 per rank; the exchange's share of a step.
+34. gpipe_train — GPipeTrainer over pipe=2 on the same char-RNN, n_micro=4,
+   3 steps against the port's single-device run that micro-batches the same
+   way; launches of #4/#5 per stage (4 a step) and the step time.
+35. parallel_inference — ParallelInference(mode="batched") over the
+   char-RNN in this process: 8 threads of 10 requests of 1-20 rows, each
+   answer against model.output on its rows (bit for bit, else TOL[f32]), a
+   1 ms deadline shed, p50/p99 latency on the host clock.
+36. dp_cli — the trainer CLI with --data-parallel (a world of one over
+   NCCL) on LeNet-5 from phase 31's IDX files, batch 64, against the same
+   command without the flag: every iteration's loss and the zip's params
+   bit for bit.
+
 It ends with the command time, the kernels line (launches of each kernel
 by path, the new phases' included), the card's name and power limit, and
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -5703,6 +5735,532 @@ def data_path_phase(tmp: Path) -> dict:
     return res
 
 
+# -- phases 32-36: the parallel slice ------------------------------------------
+# Two rank processes share the one card over a gloo group (NCCL refuses two
+# ranks on one device); the collectives carry CUDA tensors, staged through
+# host memory where gloo takes none (parallel/comm.py). This measures that
+# the parallel paths are right and run the kernels at their sharded shapes,
+# not the speed of NCCL between cards.
+PAR_RANKS = 2
+PAR_TIMEOUT_S = 300        # the ranks of one phase together, start-up included
+TP_ROWS, TP_STEPS, TP_OUT_ROWS = 8, 3, 2
+# the output of the tensor-parallel model against the single-process model
+# from the same params, bf16: each rank's row-parallel product is rounded to
+# bf16 before the all-reduce, so a logit can land one bf16 ulp away (2^-5
+# in [4, 8): a probability 3.2% off; 2^-4 in [8, 16): 6.5%); max |err|
+# within 7e-2 of max |ref|
+TP_OUTPUT_REL = 7e-2
+DP_STEPS = 3
+DP_SPLITS = {"even": (64, 64), "uneven": (70, 58)}
+# ParallelWrapper against the single-process fit on the same 128 rows, f32:
+# the mean of two 64-row gradients (or of two padded 128-row ones) against
+# one 128-row gradient, the LSTM kernels' f32 sums in another order; per
+# tensor ||diff|| / ||ref|| of the params after 3 RMSProp steps
+DP_PARAM_REL = 1e-4
+# the compressed exchange's conservation, per step: decoded sum + new
+# residuals against the dense sum + old residuals, f32 rounding of sums of
+# two ranks' values, relative to the largest |dense sum + old residual|
+DP_CONSERVE_REL = 1e-6
+DP_THRESHOLD = 1e-3
+GP_MICRO = 4
+# 60,000 = 937 x 64 + 32: the tail batch is a rung of the bucket ladder, so
+# neither run pads a batch and the two must agree bit for bit
+DP_CLI_BATCH = 64
+PI_THREADS, PI_REQUESTS, PI_MAX_ROWS = 8, 10, 20
+
+
+def _rank_main(argv) -> int:
+    """A rank of one parallel phase: ``chip_smoke.py _rank <phase> <rank>
+    <world> <root>`` (parallel/launch.py spawn_ranks). Joins a gloo group
+    over the card, runs its part and writes ``<root>/rank<r>.json``."""
+    from deeplearning4j_tpu_torch.parallel import init_distributed, shutdown_distributed
+
+    phase, rank, world, root = argv[0], int(argv[1]), int(argv[2]), Path(argv[3])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    init_distributed(f"file://{root}/store", world, rank, backend="gloo", timeout_s=240)
+    try:
+        res = {"tp": _tp_rank, "dp": _dp_rank, "gpipe": _gpipe_rank}[phase](rank, root)
+    finally:
+        shutdown_distributed()
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    (root / f"rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def _spawn(phase: str, root: Path) -> list:
+    from deeplearning4j_tpu_torch.parallel.launch import spawn_ranks
+
+    here = os.path.abspath(__file__)
+    secs = spawn_ranks([sys.executable, here, "_rank", phase], PAR_RANKS, root, PAR_TIMEOUT_S,
+                       cwd=os.path.dirname(here))
+    out = [json.loads((root / f"rank{r}.json").read_text()) for r in range(PAR_RANKS)]
+    for r in out:
+        r["ranks_seconds"] = secs
+    return out
+
+
+def _events(n):
+    return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+
+
+def _tp_inputs():
+    conf = zoo.TransformerLM(updater={"type": "adam", "lr": TRAIN_LR}, **FLAGSHIP_CONF)
+    V, T = FLAGSHIP_CONF["vocab_size"], FLAGSHIP_CONF["max_len"]
+    x = np.random.RandomState(51).randint(0, V, (TP_ROWS, T)).astype(np.int64)
+    return conf, x, np.roll(x, -1, axis=1)
+
+
+def _tp_rank(rank: int, root: Path) -> dict:
+    from deeplearning4j_tpu_torch.parallel import MeshSpec, ShardedTrainer, make_mesh
+
+    conf, x, y = _tp_inputs()
+    model = MultiLayerNetwork(conf).init()          # the parent's params: one seed
+    trainer = ShardedTrainer(model, make_mesh(MeshSpec(model=PAR_RANKS)))
+    want_out = torch.load(root / "ref_out.pt")
+    out = trainer.output(x[:TP_OUT_ROWS]).float().cpu()
+    out_rel = ((out - want_out).abs().max() / want_out.abs().max()).item()
+    attn = model.params[2]["attn"]["Wqkv"]
+    C, H = FLAGSHIP_CONF["d_model"], FLAGSHIP_CONF["n_heads"]
+    local_heads = attn.shape[1] // (3 * (C // H))
+    # the first step's gradients, gathered, against the one-process ones
+    from deeplearning4j_tpu_torch.nn.model import _cast_labels
+
+    _, _, g = trainer.value_and_grad(model._features(x), _cast_labels(y, model.dtype, model.device),
+                                     None, None, None, TP_ROWS)
+    grads = _host_leaves(tuple(trainer._gather_tree(gi, lay)
+                               for gi, lay in zip(g, trainer.layouts)))
+    del g
+    grad_cmp = _tp_compare(grads, torch.load(root / "ref_grads.pt"), C)
+    del grads
+    _zero_all_kernel_counts()
+    ev = _events(TP_STEPS + 1)
+    ev[0].record()
+    losses = []
+    for i in range(TP_STEPS):
+        losses.append(trainer.fit_batch(x, y))
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    launches = _kernel_launches()
+    whole = _host_leaves(trainer.gathered_params())
+    want = torch.load(root / "ref_params.pt")
+    return {"losses": [float(l) for l in losses], "launches": launches,
+            "local_heads": local_heads, "step_ms": [ev[i].elapsed_time(ev[i + 1])
+                                                    for i in range(TP_STEPS)],
+            "bit_equal": _bits_equal(whole, want), "params": _tp_compare(whole, want, C),
+            "grads": grad_cmp, "output_rel": out_rel,
+            "param_sums": [float(t.double().sum()) for t in whole]}
+
+
+def _tp_compare(got: list, want: list, C: int) -> dict:
+    """Per-tensor ||got - want|| / ||want|| of two leaf lists, the worst five
+    named by index and shape. The key bias (the middle third of every bqkv
+    [3C]) has a zero gradient in exact arithmetic (softmax ignores a shift
+    shared by all keys): its gradient is rounding noise and Adam moves it by
+    that noise, so it is reported apart and left out of the rest."""
+    key_bias, sq_diff, sq_ref = 0.0, 0.0, 0.0
+    rels = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        sq_diff += (a.float() - b.float()).norm().item() ** 2
+        sq_ref += b.float().norm().item() ** 2
+        a, b = a.float(), b.float()
+        if a.shape == (3 * C,):
+            key_bias = max(key_bias, (a[C:2 * C] - b[C:2 * C]).abs().max().item())
+            a, b = torch.cat([a[:C], a[2 * C:]]), torch.cat([b[:C], b[2 * C:]])
+        den = b.norm().item()
+        rels.append(((a - b).norm().item() / (den if den > 0 else 1.0), i,
+                     list(a.shape), den, (a - b).abs().max().item()))
+    rels.sort(reverse=True)
+    return {"max_rel": rels[0][0], "all_rel": (sq_diff / max(sq_ref, 1e-30)) ** 0.5,
+            "key_bias_max_abs_diff": key_bias,
+            "worst": [dict(zip(("rel", "leaf", "shape", "norm", "max_abs_diff"), r))
+                      for r in rels[:5]]}
+
+
+def tp_train_phase(tmp: Path) -> dict:
+    """Phase 32: ShardedTrainer over model=2 (tensor parallelism), two gloo
+    ranks on the card, the full-width TransformerLM (bf16, Adam 1e-4) for 3
+    steps on 8 x 2048 tokens, against MultiLayerNetwork._fit_batch from the
+    same params in this process (run first and freed)."""
+    t0 = time.perf_counter()
+    conf, x, y = _tp_inputs()
+    torch.cuda.reset_peak_memory_stats()
+    ref = MultiLayerNetwork(conf).init()
+    torch.save(ref.output(x[:TP_OUT_ROWS]).float().cpu(), tmp / "ref_out.pt")
+    _, _, g, _ = ref._value_and_grad(ref.state, ref._features(x),
+                                     torch.from_numpy(y).to(ref.device), None, None, None)
+    torch.save(_host_leaves(g), tmp / "ref_grads.pt")
+    del g
+    ev = _events(TP_STEPS + 1)
+    ev[0].record()
+    ref_losses = []
+    for i in range(TP_STEPS):
+        ref_losses.append(ref._fit_batch(x, y, None, None))
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    ref_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(TP_STEPS)]
+    ref_losses = [float(l) for l in ref_losses]
+    ref_peak = torch.cuda.max_memory_allocated()
+    torch.save(_host_leaves(ref.params), tmp / "ref_params.pt")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = _spawn("tp", tmp)
+    res = {"phase": "tp_train", "backend": "gloo", "ranks": PAR_RANKS,
+           "mesh": {"data": 1, "model": PAR_RANKS, "seq": 1, "pipe": 1},
+           "model": {k: FLAGSHIP_CONF[k] for k in ("vocab_size", "max_len", "d_model",
+                                                   "n_heads", "n_blocks", "dtype")},
+           "rows": TP_ROWS, "steps": TP_STEPS, "ref_losses": ref_losses,
+           "ref_step_ms": ref_ms, "ref_peak_memory_bytes": ref_peak,
+           "ranks_detail": [{k: r[k] for k in r if k != "param_sums"} for r in ranks],
+           "seconds": time.perf_counter() - t0}
+    H = FLAGSHIP_CONF["n_heads"] // PAR_RANKS
+    for r, rk in enumerate(ranks):
+        check(all(np.isfinite(rk["losses"])), f"tp rank {r}: non-finite loss {rk['losses']}")
+        check(rk["grads"]["max_rel"] <= GRAD_CHECK_REL,
+              f"tp rank {r}: first-step gradients against _fit_batch's: {rk['grads']}")
+        # after 3 Adam steps a zero-initialized bias is its updates alone, and
+        # Adam moves an element by about lr whatever its gradient's size, so
+        # such biases differ by tens of percent where the gradients (held per
+        # tensor above) differ by under 1%: the params are held as one vector
+        check(rk["bit_equal"] or (rk["params"]["all_rel"] <= GRAD_CHECK_REL and np.allclose(
+            rk["losses"], ref_losses, rtol=GRAD_CHECK_REL)), f"tp rank {r} against _fit_batch: "
+            f"{rk['losses']} vs {ref_losses}, params {rk['params']}")
+        check(rk["output_rel"] <= TP_OUTPUT_REL, f"tp rank {r} output rel {rk['output_rel']}")
+        check(rk["local_heads"] == H, f"tp rank {r}: {rk['local_heads']} local heads, not {H}")
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            n = rk["launches"][name]
+            check(n == FLAGSHIP_CONF["n_blocks"] * TP_STEPS,
+                  f"tp rank {r}: {n} launches of {name} over {TP_STEPS} steps")
+    check(ranks[0]["param_sums"] == ranks[1]["param_sums"] and
+          ranks[0]["losses"] == ranks[1]["losses"], "tp ranks disagree")
+    return res
+
+
+def _dp_inputs():
+    conf = zoo.TextGenerationLSTM(**LSTM_CONF)
+    x, y = _charrnn_data(LSTM_SHAPE["B"], LSTM_SHAPE["T"], LSTM_CONF["vocab_size"], 61)
+    return conf, x, y
+
+
+def _dp_rank(rank: int, root: Path) -> dict:
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper, comm, grads
+
+    conf, x, y = _dp_inputs()
+    want = torch.load(root / "ref_params.pt")
+    out = {}
+
+    def rows(split):
+        lo = sum(split[:rank])
+        return slice(lo, lo + split[rank])
+
+    def run(name, split, **kw):
+        sl = rows(split)
+        model = MultiLayerNetwork(conf).init()
+        pw = ParallelWrapper(model, **kw)
+        runner = pw._exchange_runner()
+        ex_ms, step_ms = [], []
+        real = runner.exchange.update
+
+        def timed_update(*a):
+            e = _events(2)
+            e[0].record()
+            r = real(*a)
+            e[1].record()
+            ex_ms.append(e)
+            return r
+
+        runner.exchange.update = timed_update
+        _zero_all_kernel_counts()
+        for _ in range(DP_STEPS):
+            e = _events(2)
+            e[0].record()
+            pw.fit((x[sl], y[sl]), epochs=1)
+            e[1].record()
+            step_ms.append(e)
+        torch.cuda.synchronize()
+        leaves = _host_leaves(model.params)
+        out[name] = {"rows": split[rank], "launches": _lstm_launches(),
+                     "step_ms": [a.elapsed_time(b) for a, b in step_ms],
+                     "exchange_ms": [a.elapsed_time(b) for a, b in ex_ms],
+                     "params_max_rel_diff_vs_single": _tree_rel(leaves, want),
+                     "bit_equal_vs_single": _bits_equal(leaves, want),
+                     "comm_stats": runner.comm_stats(),
+                     "param_sums": [float(t.double().sum()) for t in leaves]}
+        return leaves
+
+    even = run("even", DP_SPLITS["even"])
+    run("uneven", DP_SPLITS["uneven"])
+    sharded = run("sharded", DP_SPLITS["even"], sharded_update=True)
+    out["sharded"]["params_max_rel_diff_vs_even"] = _tree_rel(sharded, even)
+
+    # compressed: every step's decoded sum + new residuals against the
+    # dense sum + old residuals
+    sl = rows(DP_SPLITS["even"])
+    model = MultiLayerNetwork(conf).init()
+    pw = ParallelWrapper(model, grad_compress=True, compress_threshold=DP_THRESHOLD)
+    run_c = pw._exchange_runner()
+    run_c.begin()
+    decoded = []
+    real = grads.compression.decode_gathered
+    grads.compression.decode_gathered = lambda *a: decoded.append(real(*a)) or decoded[-1]
+    gaps = []
+    _zero_all_kernel_counts()
+    try:
+        xs, ys = x[sl], y[sl]
+        for _ in range(DP_STEPS):
+            old = {k: v.clone() for k, v in run_c._residual.items()}
+            _, _, g, _ = model._value_and_grad(model.state, model._features(xs),
+                                               torch.from_numpy(ys).cuda(), None, None, None)
+            decoded.clear()
+            run_c.fit_batch(xs, ys, None, None)
+            for i, key in enumerate(run_c._entries):
+                e = run_c._entries[key]
+                flat = grads._pad_flat(grads._flat(g[key]).float(), e.n_pad)
+                lhs = decoded[i] + comm.all_reduce(run_c._residual[key].clone(), run_c.sub)
+                rhs = comm.all_reduce(flat + old[key], run_c.sub)
+                gaps.append(((lhs - rhs).abs().max() / rhs.abs().max().clamp_min(1e-30)).item())
+        run_c.finish()
+    finally:
+        grads.compression.decode_gathered = real
+    torch.cuda.synchronize()
+    out["compressed"] = {"conservation_rel": gaps, "comm_stats": run_c.comm_stats(),
+                         "launches": _lstm_launches()}
+    return out
+
+
+def dp_train_phase(tmp: Path) -> dict:
+    """Phase 33: ParallelWrapper on two gloo ranks over the card, the
+    char-RNN at full width (B 128, T 50, H 256, f32, RMSProp): (a) 64/64
+    rows, (b) 70/58 rows, each 3 steps against the single-process fit on the
+    128 rows (DP_PARAM_REL); (c) the sharded update against (a); (d) the
+    compressed exchange's conservation per step and its bytes against
+    dense; the launches of kernels #4/#5 per rank, the exchange's share of a
+    step."""
+    t0 = time.perf_counter()
+    conf, x, y = _dp_inputs()
+    ref = MultiLayerNetwork(conf).init()
+    for _ in range(DP_STEPS):
+        ref._fit_batch(x, y, None, None)
+    torch.save(_host_leaves(ref.params), tmp / "ref_params.pt")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = _spawn("dp", tmp)
+    res = {"phase": "dp_train", "backend": "gloo", "ranks": PAR_RANKS, "splits": DP_SPLITS,
+           "steps": DP_STEPS, "tol": DP_PARAM_REL, "compress_threshold": DP_THRESHOLD,
+           "ranks_detail": [{c: {k: v for k, v in r[c].items() if k != "param_sums"}
+                             for c in r if isinstance(r[c], dict)} for r in ranks],
+           "seconds": time.perf_counter() - t0}
+    for r, rk in enumerate(ranks):
+        for case in ("even", "uneven"):
+            c = rk[case]
+            check(c["bit_equal_vs_single"] or c["params_max_rel_diff_vs_single"] <= DP_PARAM_REL,
+                  f"dp rank {r} {case}: params rel {c['params_max_rel_diff_vs_single']}")
+        check(rk["sharded"]["params_max_rel_diff_vs_even"] <= DP_PARAM_REL,
+              f"dp rank {r}: sharded update against the replicated one: "
+              f"{rk['sharded']['params_max_rel_diff_vs_even']}")
+        check(max(rk["compressed"]["conservation_rel"]) <= DP_CONSERVE_REL,
+              f"dp rank {r}: compressed conservation {rk['compressed']['conservation_rel']}")
+        cs = rk["compressed"]["comm_stats"]
+        check(cs["compressed_entries"] == cs["n_entries"] and
+              cs["dense_bytes"] >= 4 * cs["wire_bytes"], f"dp rank {r} comm_stats {cs}")
+        for case in ("even", "uneven", "sharded", "compressed"):
+            # 2 LSTM layers a step; the compressed check runs each step's
+            # forward and backward once more for its dense gradient
+            per = 4 if case == "compressed" else 2
+            for name, n in rk[case]["launches"].items():
+                check(n == per * DP_STEPS, f"dp rank {r} {case}: {n} launches of {name}")
+    for case in ("even", "uneven", "sharded"):
+        check(ranks[0][case]["param_sums"] == ranks[1][case]["param_sums"],
+              f"dp ranks disagree ({case})")
+    ex = [e / s for rk in ranks for e, s in zip(rk["even"]["exchange_ms"][1:],
+                                                  rk["even"]["step_ms"][1:])]
+    res["exchange_share_even"] = {"mean": float(np.mean(ex)), "values": ex}
+    return res
+
+
+def _gpipe_rank(rank: int, root: Path) -> dict:
+    from deeplearning4j_tpu_torch.parallel import GPipeTrainer, MeshSpec, make_mesh
+
+    conf, x, y = _dp_inputs()
+    tr = GPipeTrainer(conf, make_mesh(MeshSpec(pipe=PAR_RANKS)), n_micro=GP_MICRO)
+    _zero_all_kernel_counts()
+    ev = _events(DP_STEPS + 1)
+    ev[0].record()
+    losses = []
+    for i in range(DP_STEPS):
+        losses.append(tr.fit_batch(x, y))
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    launches = _lstm_launches()
+    whole = _host_leaves(tr.to_model().params)
+    want = torch.load(root / "ref_params.pt")
+    return {"stage": tr.stage, "stage_layers": tr.stage_ranges[tr.stage],
+            "losses": [float(l) for l in losses], "launches": launches,
+            "step_ms": [ev[i].elapsed_time(ev[i + 1]) for i in range(DP_STEPS)],
+            "bit_equal": _bits_equal(whole, want), "params_max_rel_diff": _tree_rel(whole, want)}
+
+
+def gpipe_train_phase(tmp: Path) -> dict:
+    """Phase 34: GPipeTrainer over pipe=2 (two gloo ranks on the card) on
+    the char-RNN, n_micro=4, 3 steps, against the port's single-device run
+    that micro-batches the same way (microbatched_reference)."""
+    from deeplearning4j_tpu_torch.parallel.gpipe import microbatched_reference
+
+    t0 = time.perf_counter()
+    conf, x, y = _dp_inputs()
+    ref = microbatched_reference(conf, GP_MICRO)
+    ev = _events(DP_STEPS + 1)
+    ev[0].record()
+    ref_losses = []
+    for i in range(DP_STEPS):
+        ref_losses.append(ref.fit_batch(x, y))
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    torch.save(_host_leaves(ref.to_model().params), tmp / "ref_params.pt")
+    ref_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(DP_STEPS)]
+    ref_losses = [float(l) for l in ref_losses]
+    del ref
+    ranks = _spawn("gpipe", tmp)
+    res = {"phase": "gpipe_train", "backend": "gloo", "stages": PAR_RANKS,
+           "n_micro": GP_MICRO, "steps": DP_STEPS, "ref_losses": ref_losses,
+           "ref_step_ms": ref_ms, "ranks_detail": ranks, "seconds": time.perf_counter() - t0}
+    for r, rk in enumerate(ranks):
+        check(rk["bit_equal"] or rk["params_max_rel_diff"] <= DP_PARAM_REL,
+              f"gpipe stage {r}: params rel {rk['params_max_rel_diff']}")
+        check(np.allclose(rk["losses"], ref_losses, rtol=DP_PARAM_REL),
+              f"gpipe stage {r}: {rk['losses']} vs {ref_losses}")
+        for name, n in rk["launches"].items():
+            check(n == GP_MICRO * DP_STEPS,
+                  f"gpipe stage {r}: {n} launches of {name} over {DP_STEPS} steps")
+    return res
+
+
+def parallel_inference_phase() -> dict:
+    """Phase 35: ParallelInference(mode="batched") over the char-RNN in this
+    process: 8 threads send requests of 1-20 rows; each answer against
+    model.output on its rows (bit for bit, else within TOL[f32]); a 1 ms
+    deadline shed; p50/p99 on the host clock; launches of kernel #4."""
+    import concurrent.futures as cf
+
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+    from deeplearning4j_tpu_torch.serve.scheduler import ShedError
+
+    t0 = time.perf_counter()
+    conf, x, _ = _dp_inputs()
+    model = MultiLayerNetwork(conf).init()
+    pi = ParallelInference(model, mode="batched", max_batch_size=32, warmup=True)
+    rs = np.random.RandomState(71)
+    jobs = [(rs.randint(0, len(x) - PI_MAX_ROWS), rs.randint(1, PI_MAX_ROWS + 1))
+            for _ in range(PI_THREADS * PI_REQUESTS)]
+    _zero_all_kernel_counts()
+
+    def ask(job):
+        lo, n = job
+        s = time.perf_counter()
+        out = pi.output(x[lo:lo + n])
+        return out, time.perf_counter() - s
+
+    try:
+        with cf.ThreadPoolExecutor(PI_THREADS) as ex:
+            answers = list(ex.map(ask, jobs))
+    finally:
+        pi.shutdown()
+    launches = _lstm_launches()
+    bits, worst = 0, 0.0
+    for (lo, n), (out, _) in zip(jobs, answers):
+        want = model.output(x[lo:lo + n]).cpu().numpy()
+        bits += int(np.array_equal(out, want))
+        worst = max(worst, float(np.abs(out - want).max()))
+        check(np.allclose(out, want, **TOL[torch.float32]),
+              f"ParallelInference rows {lo}:{lo + n}: max diff {np.abs(out - want).max()}")
+    lat = np.array([s for _, s in answers]) * 1e3
+    # the shed: a request queued with a 1 ms deadline, drained 5 ms later
+    shed_pi = ParallelInference(model, mode="batched", worker=False)
+    shed_pi._thread = threading.current_thread()   # requests queue; drained here
+    with cf.ThreadPoolExecutor(1) as ex:
+        fut = ex.submit(shed_pi.output, x[:1], 1.0)
+        while shed_pi._queue.empty():
+            time.sleep(1e-4)
+        time.sleep(5e-3)
+        drained = shed_pi._drain()
+        try:
+            fut.result(timeout=30)
+            shed = False
+        except ShedError:
+            shed = True
+    shed_pi._thread = None
+    check(shed and not drained, "a request past its 1 ms deadline was not shed")
+    check(launches["fused_lstm_fwd"] > 0 and launches["fused_lstm_bwd"] == 0,
+          f"ParallelInference launches {launches}")
+    return {"phase": "parallel_inference", "threads": PI_THREADS, "requests": len(jobs),
+            "rows": [1, PI_MAX_ROWS], "max_batch_size": 32, "warmed_buckets": pi.warmed,
+            "bit_equal_answers": bits, "max_abs_diff": worst, "tol": TOL[torch.float32],
+            "latency_ms": {"p50": float(np.percentile(lat, 50)),
+                           "p99": float(np.percentile(lat, 99))},
+            "shed_1ms_deadline": shed, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
+def dp_cli_phase(tmp: Path) -> dict:
+    """Phase 36: the trainer CLI in process, ``lenet.json --dataset mnist
+    --data-parallel`` (a world of one, NCCL) from the data path phase's IDX
+    files, against the same command without the flag: every iteration's
+    logged loss and the zips' params bit for bit."""
+    t0 = time.perf_counter()
+    lines: list = []
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    log = logging.getLogger("deeplearning4j_tpu_torch")   # train/listeners.py logs here
+    grab, level = Grab(), log.level
+    log.addHandler(grab)
+    log.setLevel(logging.INFO)
+    old = os.environ.get("DL4J_TPU_DATA")
+    os.environ["DL4J_TPU_DATA"] = str(tmp / "data")
+    # cuDNN's default convolution algorithms may sum in another order from
+    # one run to the next: both runs take the deterministic ones
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for name, extra in (("plain", []), ("data_parallel", ["--data-parallel"])):
+            out_zip = tmp / f"dp_cli_{name}.zip"
+            lines.clear()
+            s = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                train_cli.run([str(tmp / "lenet.json"), "--dataset", "mnist", "--epochs", "1",
+                               "--batch-size", str(DP_CLI_BATCH), "--listener-frequency", "1",
+                               "--output", str(out_zip), *extra])
+            torch.cuda.synchronize()
+            runs[name] = {"seconds": time.perf_counter() - s,
+                          "scores": [l for l in lines if l.startswith("Score at iteration")],
+                          "params": _host_leaves(restore_network(str(out_zip)).params)}
+    finally:
+        torch.backends.cudnn.deterministic = False
+        log.removeHandler(grab)
+        log.setLevel(level)
+        if old is None:
+            os.environ.pop("DL4J_TPU_DATA")
+        else:
+            os.environ["DL4J_TPU_DATA"] = old
+    a, b = runs["plain"], runs["data_parallel"]
+    check(torch.distributed.is_available() and not torch.distributed.is_initialized(),
+          "the CLI left its process group behind")
+    check(len(a["scores"]) == -(-MNIST_ROWS // DP_CLI_BATCH) and a["scores"] == b["scores"],
+          f"--data-parallel losses differ: {a['scores'][:2]} vs {b['scores'][:2]}")
+    check(_bits_equal(a["params"], b["params"]), "--data-parallel params differ")
+    return {"phase": "dp_cli", "model": "LeNet5", "dataset": "mnist (local IDX files)",
+            "batch": DP_CLI_BATCH, "backend": "nccl", "world_size": 1,
+            "iterations": len(a["scores"]), "losses_bit_equal": True,
+            "params_bit_equal": True, "last_score": a["scores"][-1],
+            "cli_seconds": {k: v["seconds"] for k, v in runs.items()},
+            "seconds": time.perf_counter() - t0}
+
+
 def _kernel_row(name, source, replaces, launches, by_path, max_abs_err, ms, plain_ms,
                 bound_ms, bound_by, library_ms, **extra):
     return dict({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -5855,10 +6413,32 @@ def main() -> int:
     _zero_all_kernel_counts()
     with tempfile.TemporaryDirectory() as tmp:
         dpath = data_path_phase(Path(tmp))
-    dpath["launches"] = _kernel_launches()
-    _check_no_kernel(dpath["launches"], "data_path")
-    emit(dpath)
+        dpath["launches"] = _kernel_launches()
+        _check_no_kernel(dpath["launches"], "data_path")
+        emit(dpath)
+        dcli = dp_cli_phase(Path(tmp))
+    emit(dcli)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phases 32-34 run two gloo ranks on the card; each rank counts its launches
+    par = {}
+    for name, fn in (("tp_train", tp_train_phase), ("dp_train", dp_train_phase),
+                     ("gpipe_train", gpipe_train_phase)):
+        with tempfile.TemporaryDirectory() as tmp:
+            par[name] = fn(Path(tmp))
+        emit(par[name])
+        gc.collect()
+        torch.cuda.empty_cache()
+    pinf = parallel_inference_phase()
+    emit(pinf)
     imp_by = imp["launches_by_path"]
+    par_flash = {f"tp_train_rank{r}": rk["launches"]
+                 for r, rk in enumerate(par["tp_train"]["ranks_detail"])}
+    par_lstm = {f"dp_train_{case}_rank{r}": rk[case]["launches"]
+                for r, rk in enumerate(par["dp_train"]["ranks_detail"]) for case in rk}
+    par_lstm.update({f"gpipe_train_stage{rk['stage']}": rk["launches"]
+                     for rk in par["gpipe_train"]["ranks_detail"]})
+    par_lstm["parallel_inference"] = pinf["launches"]
 
     fwd_cases = kern["cases"]
     bwd_cases = kern["bwd_cases"]
@@ -5879,6 +6459,7 @@ def main() -> int:
                    "search": srch["launches"][name], "clustering": clus["launches"][name]})
         by.update({f"model_import_{path}": n[name] for path, n in imp_by.items()})
         by["data_path"] = dpath["launches"][name]
+        by.update({path: n[name] for path, n in par_flash.items()})
         return by
 
     fwd_by = dict({"serve": srv["launches"], "train": tl["flash_fwd"]},
@@ -5919,7 +6500,8 @@ def main() -> int:
                            clustering=clus["launches"][f"chunk_{name}"],
                            data_path=dpath["launches"][f"chunk_{name}"],
                            **{f"model_import_{path}": n[f"chunk_{name}"]
-                              for path, n in imp_by.items()})
+                              for path, n in imp_by.items()},
+                           **{path: n[f"chunk_{name}"] for path, n in par_flash.items()})
                 for name in fa.CHUNK_LAUNCHES}
     d = ct["diagonal"]
     rows.append(_kernel_row(
@@ -5956,6 +6538,7 @@ def main() -> int:
                         "search": srch["launches"][name], "clustering": clus["launches"][name]})
         by_path.update({f"model_import_{path}": n[name] for path, n in imp_by.items()})
         by_path["data_path"] = dpath["launches"][name]
+        by_path.update({path: n[name] for path, n in par_lstm.items()})
         rows.append(_kernel_row(
             name, f"deeplearning4j_tpu_torch/csrc/{name}.cu",
             f"deeplearning4j_tpu/ops/fused_lstm.py:{line}",
@@ -5979,4 +6562,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["_rank"]:     # a rank of a parallel phase (parallel/launch.py)
+        sys.exit(_rank_main(sys.argv[2:]))
     sys.exit(main())

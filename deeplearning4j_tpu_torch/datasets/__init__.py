@@ -11,8 +11,8 @@ record readers and ``TransformProcess``; and ``prefetch_to_device``, which
 copies batches to the card on a side stream ahead of the step that uses
 them. Everything but ``prefetch_to_device`` is host numpy, a copy of the
 JAX package's; the numeric parsers go through ``deeplearning4j_tpu_torch/
-native`` when ``g++`` is present. ``ShardedDataSetIterator`` waits for the
-parallel slice (ROADMAP Queue 1 item 7).
+native`` when ``g++`` is present. ``ShardedDataSetIterator`` deals the
+batches of a shared stream out to the ranks of a process group.
 """
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
@@ -27,6 +27,7 @@ from deeplearning4j_tpu_torch.datasets.iterator import (
     JointParallelDataSetIterator,
     ListDataSetIterator,
     MultipleEpochsIterator,
+    ShardedDataSetIterator,
     prefetch_to_device,
 )
 from deeplearning4j_tpu_torch.datasets.fetchers import (
@@ -61,7 +62,7 @@ __all__ = [
     "DataSet", "MultiDataSet",
     "DataSetIterator", "ListDataSetIterator", "AsyncDataSetIterator",
     "AsyncMultiDataSetIterator", "EarlyTerminationDataSetIterator",
-    "MultipleEpochsIterator", "DataSetIteratorSplitter",
+    "MultipleEpochsIterator", "ShardedDataSetIterator", "DataSetIteratorSplitter",
     "BenchmarkDataSetIterator", "FileDataSetIterator",
     "JointParallelDataSetIterator", "prefetch_to_device",
     "MnistDataSetIterator", "EmnistDataSetIterator", "IrisDataSetIterator",

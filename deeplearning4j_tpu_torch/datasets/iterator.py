@@ -14,8 +14,8 @@ The DataSetIterator family above it (the base, ListDataSetIterator, the
 async, early-termination, multi-epoch, splitter, benchmark, file and joint
 iterators) is a copy of the JAX package's: host numpy batches that ``fit``
 takes as an iterable or, being callable, a fresh iterable per epoch.
-``ShardedDataSetIterator`` (one shard per process) waits for the parallel
-slice (ROADMAP Queue 1 item 7).
+``ShardedDataSetIterator`` deals one batch of every group of N to each of
+N processes, its process index and count from ``torch.distributed``.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 __all__ = ["AsyncDataSetIterator", "AsyncMultiDataSetIterator", "BenchmarkDataSetIterator",
            "DataSetIterator", "DataSetIteratorSplitter", "EarlyTerminationDataSetIterator",
            "FileDataSetIterator", "JointParallelDataSetIterator", "ListDataSetIterator",
-           "MultipleEpochsIterator", "prefetch_to_device"]
+           "MultipleEpochsIterator", "ShardedDataSetIterator", "prefetch_to_device"]
 
 
 class DataSetIterator:
@@ -292,6 +292,58 @@ def _tensors(item) -> List[torch.Tensor]:
 
     _map_item(item, visit)
     return out
+
+
+class ShardedDataSetIterator(DataSetIterator):
+    """One process's shard of a base iterator for a multi-process input
+    pipeline (SPMD). Every process runs the same global stream; batches
+    are taken in groups of N consecutive batches and process p takes the
+    p-th of each group, so every step exists on every process. Groups that
+    are incomplete (the stream's tail) or whose batches differ in size (a
+    short remainder) are dropped on every process alike, which keeps
+    ParallelWrapper's equal-local-batch steps.
+
+    ``process_index`` / ``process_count`` default to the default process
+    group's rank and world size (0 and 1 without one); pass both for
+    tests or custom layouts."""
+
+    def __init__(self, base, process_index: Optional[int] = None,
+                 process_count: Optional[int] = None):
+        super().__init__(getattr(base, "batch_size", 32))
+        if (process_index is None) != (process_count is None):
+            raise ValueError("pass both process_index and process_count, or neither")
+        self.base = base
+        self._idx = process_index
+        self._cnt = process_count
+
+    def _coords(self):
+        if self._idx is not None:
+            return self._idx, self._cnt
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            return dist.get_rank(), dist.get_world_size()
+        return 0, 1
+
+    def _produce(self):
+        p, n = self._coords()
+        if not 0 <= p < n:
+            raise ValueError(f"process_index {p} out of range for {n} processes")
+        src = self.base() if callable(self.base) else self.base
+        group: list = []
+        for ds in src:
+            group.append(ds)
+            if len(group) == n:
+                sizes = {len(b.features) if hasattr(b, "features") else len(b[0])
+                         for b in group}
+                if len(sizes) == 1:   # an equal-size group: safe on every process
+                    yield group[p]
+                group = []
+        # a trailing incomplete group is dropped, on every process alike
+
+    def reset(self):
+        if hasattr(self.base, "reset"):
+            self.base.reset()
 
 
 def prefetch_to_device(iterable, depth: int = 2, device=None):

@@ -247,6 +247,13 @@ class LayerConfig:
 
         return visit(params)
 
+    def nested_param_layers(self) -> dict:
+        """Sub-layer configs owning nested param-dict subtrees, keyed by the
+        subtree name (TransformerBlock's ``attn`` params belong to its
+        MultiHeadAttention). The tensor-parallel rules resolve nested
+        params through this hook (``parallel/tp.py``)."""
+        return {}
+
     def regularization_penalty(self, params: Dict[str, torch.Tensor]) -> torch.Tensor:
         """L1/L2 penalty (f32 scalar) over this layer's weight-class params,
         recursing into nested param dicts."""

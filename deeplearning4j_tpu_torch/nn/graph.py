@@ -30,8 +30,10 @@ The training runtime around ``fit`` is the MultiLayerNetwork's:
 skip_batch select on the device), the chaos hooks, chained K-step dispatch
 (``DL4J_TPU_CHAIN_STEPS``, off by default), device prefetch on a side stream
 (``DL4J_TPU_DEVICE_PREFETCH=1``, off by default) and ``DataSet`` /
-``MultiDataSet`` input. Not ported: the data-parallel
-gradient exchange (ROADMAP Queue 1 item 7, the parallel slice) and AOT
+``MultiDataSet`` input. The data-parallel gradient exchange
+(``parallel/grads.py``, driven by ``parallel/wrapper.py`` ParallelWrapper)
+runs a graph through ``_as_multi_batch``, ``_to_device`` and
+``_value_and_grad`` and updates its vertices itself. Not ported: AOT
 executable sites (Queue 1 item 9).
 
 The network lives on one device, chosen at construction: ``device=None``

@@ -33,6 +33,14 @@ counterpart of "on TPU"), else the einsum ring; without a ``seq`` axis a
 package. The block-size env knobs have no counterpart here (the CUDA
 kernels fix their tiles).
 
+Tensor parallelism (``parallel/tp.py``): under a mesh whose ``model``
+axis is larger than 1, a layer whose params hold this rank's shard (a
+``Wqkv`` narrower than ``3C``, a ``Wi`` narrower than ``ffn_mult * C``)
+runs its local heads (``n_heads / model``; ``Wqkv`` holds their columns of
+q, k and v) and its slice of the FFN, with Megatron's pair of collectives
+(``parallel/comm.py``) around each column- then row-parallel product; the
+output biases are added once, after the all-reduce.
+
 Each layer also has ``decode_apply``, its eval-mode forward for a
 new-token chunk on the decode path (``nn/decode.py``): positions are
 per-row absolute indices, and attention runs against a KV-cache view
@@ -54,7 +62,8 @@ from deeplearning4j_tpu_torch.nn.input_type import InputType
 from deeplearning4j_tpu_torch.nn.layers.normalization import layer_norm
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     decode_attention, flash_attention, local_attention)
-from deeplearning4j_tpu_torch.parallel.context import current_mesh, mesh_axis_size
+from deeplearning4j_tpu_torch.parallel import comm
+from deeplearning4j_tpu_torch.parallel.context import current_mesh, mesh_axis_size, mesh_sub
 from deeplearning4j_tpu_torch.parallel.ring import ring_self_attention
 
 
@@ -121,11 +130,11 @@ class MultiHeadAttention(LayerConfig):
             "bo": torch.zeros((C,), dtype=dtype, device=device),
         }
 
-    def _attend(self, q, k, v, kmask=None):
+    def _attend(self, q, k, v, kmask=None, head_axis=None):
         if self.sequence_parallel and mesh_axis_size("seq") > 1:
             flash = self.use_flash is True or (self.use_flash == "auto" and q.is_cuda)
             return ring_self_attention(q, k, v, current_mesh(), causal=self.causal,
-                                       kmask=kmask, use_flash=flash)
+                                       kmask=kmask, use_flash=flash, head_axis=head_axis)
         if self.use_flash in ("auto", True):
             return flash_attention(q, k, v, kmask=kmask, causal=self.causal)
         return local_attention(q, k, v, causal=self.causal, kmask=kmask)
@@ -133,15 +142,23 @@ class MultiHeadAttention(LayerConfig):
     def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         x = self.maybe_dropout_input(x, train, rng)
         B, T, C = x.shape
-        H = self.n_heads
+        D = C // self.n_heads
+        # a head-sharded Wqkv: this rank's heads (tensor parallelism)
+        tp = mesh_sub("model") if params["Wqkv"].shape[1] != 3 * C else None
+        H = params["Wqkv"].shape[1] // (3 * D)
+        if tp is not None:
+            x = comm.copy_to(x, tp)
         qkv = x @ params["Wqkv"] + params["bqkv"]
         # views into qkv: the kernel reads them through their strides
-        q, k, v = qkv.view(B, T, 3 * H, C // H).split(H, dim=2)
+        q, k, v = qkv.view(B, T, 3 * H, D).split(H, dim=2)
         kmask = None
         if mask is not None and mask.dim() >= 2:
             kmask = mask.reshape(B, T)  # [B,T] key validity from feature mask
-        out = self._attend(q, k, v, kmask).reshape(B, T, C)
-        out = dropout(out, self.attn_dropout, train, rng, "attention dropout")
+        out = self._attend(q, k, v, kmask, head_axis="model" if tp is not None else None)
+        out = dropout(out.reshape(B, T, H * D), self.attn_dropout, train, rng,
+                      "attention dropout")
+        if tp is not None:
+            return comm.reduce_from(out @ params["Wo"], tp) + params["bo"], state
         return out @ params["Wo"] + params["bo"], state
 
     def decode_apply(self, params, x, *, cache, positions):
@@ -189,6 +206,9 @@ class TransformerBlock(LayerConfig):
             weight_init=self.weight_init,
             use_flash=self.use_flash,
         )
+
+    def nested_param_layers(self) -> dict:
+        return {"attn": self._mha()}
 
     def init(self, gen, input_type, dtype=torch.float32, device=None):
         C = input_type.size
@@ -245,7 +265,13 @@ class TransformerBlock(LayerConfig):
         a, _ = self._mha().apply(params["attn"], {}, h, train=train, rng=rng, mask=mask)
         x = x + a
         h = self._ln(params["ln2"], x)
+        # a column-sharded Wi: this rank's slice of the FFN (tensor parallelism)
+        tp = mesh_sub("model") if params["Wi"].shape[1] != self.ffn_mult * x.shape[-1] else None
+        if tp is not None:
+            h = comm.copy_to(h, tp)
         h = self.activation_fn()(h @ params["Wi"] + params["bi"])
+        if tp is not None:
+            return x + (comm.reduce_from(h @ params["Wo"], tp) + params["bo"])
         return x + (h @ params["Wo"] + params["bo"])
 
     def decode_apply(self, params, x, *, cache, positions):

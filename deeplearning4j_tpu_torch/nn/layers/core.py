@@ -7,6 +7,12 @@ layer-wise pretraining is not ported). The same JSON tags, fields,
 defaults and parameter trees as the JAX package's: ``W`` [n_in, n_out]
 with ``x @ W`` (never ``nn.Linear``'s [out, in]) and ``b`` [n_out].
 
+Tensor parallelism (``parallel/tp.py``): a ``W`` that holds this rank's
+columns (narrower than ``n_out``) makes Dense / Output a column-parallel
+product whose outputs are all-gathered before the bias, the activation and
+the loss, and makes Embedding / EmbeddingSequence gather their rows'
+features back (``parallel/comm.py``).
+
 Randomness (dropout, noise) draws from the ``torch.Generator`` the model
 passes as ``rng``; the JAX package draws from threefry keys, so the two
 agree on what a layer does in train mode, not on its bits. Eval mode is
@@ -27,6 +33,8 @@ from deeplearning4j_tpu_torch.nn.config import (
     register_layer,
 )
 from deeplearning4j_tpu_torch.nn.input_type import InputType
+from deeplearning4j_tpu_torch.parallel import comm
+from deeplearning4j_tpu_torch.parallel.context import mesh_sub
 
 
 def _dense_params(layer, gen, input_type, dtype, device, bias: bool):
@@ -60,6 +68,14 @@ def _take_rows(W: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(valid[..., None], rows, rows.new_tensor(float("nan")))
 
 
+def _gather_features(rows: torch.Tensor, n_out: int) -> torch.Tensor:
+    """Embedding rows of a feature-sharded table (tensor parallelism: this
+    rank holds ``n_out / model`` columns) gathered back to ``n_out``."""
+    if rows.shape[-1] == n_out:
+        return rows
+    return comm.gather_dim(rows, rows.dim() - 1, mesh_sub("model"))
+
+
 def _bernoulli(rng, p_keep: float, shape, device) -> torch.Tensor:
     return torch.rand(shape, generator=rng, device=device) < p_keep
 
@@ -81,7 +97,12 @@ class Dense(FeedForwardLayerConfig):
         return _dense_params(self, gen, input_type, dtype, device, self.has_bias)
 
     def preactivation(self, params, x):
-        y = x @ params["W"]
+        W = params["W"]
+        if W.shape[-1] != self.n_out:   # column-sharded (tensor parallelism)
+            tp = mesh_sub("model")
+            y = comm.gather_dim(comm.copy_to(x, tp) @ W, x.dim() - 1, tp)
+        else:
+            y = x @ W
         if self.has_bias:
             y = y + params["b"]
         return y
@@ -340,7 +361,7 @@ class Embedding(FeedForwardLayerConfig):
         idx = x.to(torch.int64)
         if idx.dim() == 2 and idx.shape[-1] == 1:
             idx = idx[:, 0]
-        y = _take_rows(params["W"], idx)
+        y = _gather_features(_take_rows(params["W"], idx), self.n_out)
         if self.has_bias:
             y = y + params["b"]
         return self.activation_fn()(y), state
@@ -372,7 +393,7 @@ class EmbeddingSequence(FeedForwardLayerConfig):
         idx = x.to(torch.int64)
         if idx.dim() == 3 and idx.shape[-1] == 1:
             idx = idx[..., 0]
-        return _take_rows(params["W"], idx), state
+        return _gather_features(_take_rows(params["W"], idx), self.n_out), state
 
 
 @register_layer("autoencoder")

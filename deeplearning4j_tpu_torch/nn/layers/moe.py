@@ -16,6 +16,13 @@ scratch row that is cut off), and the combine a gather of each token's
 row times its gate (the scratch row is zeros). At the full TransformerLM
 width (N = 32768 tokens, capacity 5120) the dense tensors would hold
 1.34e9 elements each.
+
+Expert parallelism (``parallel/tp.py``): under a mesh whose ``model`` axis
+is larger than 1, params holding this rank's ``E / model`` experts route
+every token as before (the router is replicated), run the tokens of the
+local experts only, and a SUM all-reduce over ``model`` combines the
+ranks' outputs (``parallel/comm.py``); the tokens and the router's weight
+enter through ``copy_to``, so their gradients are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ import torch
 from deeplearning4j_tpu_torch.nn import initializers
 from deeplearning4j_tpu_torch.nn.config import LayerConfig, register_layer
 from deeplearning4j_tpu_torch.nn.input_type import InputType
+from deeplearning4j_tpu_torch.parallel import comm
+from deeplearning4j_tpu_torch.parallel.context import mesh_sub
 
 
 @register_layer("mixture_of_experts")
@@ -90,14 +99,23 @@ class MixtureOfExperts(LayerConfig):
     def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         x = self.maybe_dropout_input(x, train, rng)
         B, T, C = x.shape
-        E = self.n_experts
+        E = params["Wi"].shape[0]        # this rank's experts
         N = B * T
         cap = self._capacity(N)
         xt = x.reshape(N, C)
-        expert, gate, slot, keep = self.route(params, xt, mask)
+        tp = mesh_sub("model") if E != self.n_experts else None
+        router = params
+        if tp is not None:
+            xt = comm.copy_to(xt, tp)
+            router = {"Wg": comm.copy_to(params["Wg"], tp)}
+        expert, gate, slot, keep = self.route(router, xt, mask)
+        if tp is not None:       # the local experts are [lo, lo + E)
+            expert = expert - tp.index * E
+            keep = keep & (expert >= 0) & (expert < E)
         # each token's row of the [E * cap] buffer; dropped and padded
-        # tokens all point at one scratch row past the end, which is cut
-        # off before the experts run (so no host sync on the kept count)
+        # tokens (and, sharded, the other ranks' tokens) all point at one
+        # scratch row past the end, which is cut off before the experts run
+        # (so no host sync on the kept count)
         where = torch.where(keep, expert * cap + slot, E * cap)
         xe = xt.new_zeros((E * cap + 1, C)).index_copy(0, where, xt)
         xe = xe[:E * cap].view(E, cap, C)
@@ -105,6 +123,8 @@ class MixtureOfExperts(LayerConfig):
         ye = torch.bmm(he, params["Wo"]) + params["bo"][:, None]     # [E, cap, C]
         ye = torch.cat([ye.reshape(E * cap, C), ye.new_zeros((1, C))])
         yt = ye[where] * gate[:, None]                  # scratch row: exact 0
+        if tp is not None:
+            yt = comm.reduce_from(yt, tp)
         return x + yt.reshape(B, T, C), state
 
     def dropped_tokens(self, params, x, mask=None) -> int:

@@ -9,6 +9,12 @@ layer ``state`` (f32 ``mean`` and ``var``, not params), and the
 normalisation folded into a per-channel scale and shift applied in the
 input dtype. ``F.batch_norm`` would update the running variance with the
 unbiased estimate and weigh the batch by ``momentum``.
+
+Under a mesh whose ``data`` or ``seq`` axis is larger than 1 (the parallel
+trainers), the batch statistics are those of the global batch: the
+per-rank weighted counts and sums are SUM-all-reduced, then the squared
+residuals around the global mean (the same two passes, no E[x^2] - mean^2
+cancellation), through collectives autograd sees (``parallel/comm.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ import torch
 
 from deeplearning4j_tpu_torch.nn.config import LayerConfig, register_layer
 from deeplearning4j_tpu_torch.nn.input_type import InputType
+from deeplearning4j_tpu_torch.parallel import comm
+from deeplearning4j_tpu_torch.parallel.context import mesh_sub
 
 
 @register_layer("batch_norm")
@@ -58,10 +66,13 @@ class BatchNorm(LayerConfig):
         dt = x.dtype
         f32 = torch.float32 if dt in (torch.bfloat16, torch.float16) else dt
         axes = tuple(range(x.dim() - 1))   # all but the channel / feature axis
+        sync = mesh_sub(("data", "seq")) if train else None
         if train:
             # f32-accumulated mean of x, then the f32-accumulated mean of the
             # squared residual in the model dtype (two-pass, biased)
-            if ex_weight is not None:
+            if sync is not None:
+                mean, var = self._global_stats(x, ex_weight, f32, axes, sync)
+            elif ex_weight is not None:
                 w = ex_weight.reshape((x.shape[0],) + (1,) * (x.dim() - 1)).to(dt)
                 spatial = 1
                 for d in x.shape[1:-1]:
@@ -89,6 +100,32 @@ class BatchNorm(LayerConfig):
             a = inv
             b = -mean * inv
         return x * a.to(dt) + b.to(dt), new_state
+
+    @staticmethod
+    def _global_stats(x, ex_weight, f32, axes, sub):
+        """Mean and biased variance over every rank's rows of ``sub``: the
+        weighted count and sum all-reduced, then the squared residuals
+        around the global mean."""
+        dt = x.dtype
+        w = None
+        if ex_weight is not None:
+            w = ex_weight.reshape((x.shape[0],) + (1,) * (x.dim() - 1)).to(dt)
+            spatial = 1
+            for d in x.shape[1:-1]:
+                spatial *= d
+            n = torch.sum(w, dtype=f32) * spatial
+            s1 = torch.sum(x * w, dim=axes, dtype=f32)
+        else:
+            n = torch.tensor(float(x.numel() // x.shape[-1]), dtype=f32, device=x.device)
+            s1 = torch.sum(x, dim=axes, dtype=f32)
+        tot = comm.all_reduce_sum(torch.cat([n.reshape(1), s1]), sub)
+        denom = torch.clamp_min(tot[0], 1.0)
+        mean = tot[1:] / denom
+        xc = x - mean.to(dt)
+        if w is not None:
+            xc = xc * w
+        var = comm.all_reduce_sum(torch.sum(xc * xc, dim=axes, dtype=f32), sub) / denom
+        return mean, var
 
 
 @register_layer("lrn")

@@ -37,6 +37,8 @@ from deeplearning4j_tpu_torch.nn.config import (
 )
 from deeplearning4j_tpu_torch.nn.input_type import InputType
 from deeplearning4j_tpu_torch.ops.fused_lstm import fused_lstm
+from deeplearning4j_tpu_torch.parallel import comm
+from deeplearning4j_tpu_torch.parallel.context import mesh_sub
 from deeplearning4j_tpu_torch.utils.tree import tree_map
 
 
@@ -316,6 +318,9 @@ class Bidirectional(LayerConfig):
         return {"fwd": self.rnn.init(gen, input_type, dtype, device),
                 "bwd": self.rnn.init(gen, input_type, dtype, device)}
 
+    def nested_param_layers(self) -> dict:
+        return {"fwd": self.rnn, "bwd": self.rnn}
+
     def regularization_penalty(self, params):
         pen = super().regularization_penalty(params)
         return (pen + self.rnn.regularization_penalty(params["fwd"])
@@ -458,7 +463,12 @@ class RnnOutputLayer(BaseRecurrent):
         return params
 
     def preactivation(self, params, x):
-        y = x @ params["W"]
+        W = params["W"]
+        if W.shape[-1] != self.n_out:   # column-sharded (GPipe's head under tp_axis)
+            tp = mesh_sub("model")
+            y = comm.gather_dim(comm.copy_to(x, tp) @ W, x.dim() - 1, tp)
+        else:
+            y = x @ W
         if self.has_bias:
             y = y + params["b"]
         return y

@@ -13,7 +13,10 @@ relevant part of ``nn/step_program.py``).
   off unless set): how many steps ``fit`` issues back to back from one
   stacked copy of their batches;
 - :func:`chain_batches` — the chain itself, as a batch source in front of
-  ``fit``'s one per-step loop.
+  ``fit``'s one per-step loop;
+- :func:`mesh_shape_from_env` — the named-mesh trainer's ``(data, model,
+  pipe)`` shape from the ``DL4J_TPU_MESH_*`` knobs
+  (``parallel/mesh_step.py``).
 
 The JAX module's jit/donation wiring has no counterpart: PyTorch runs
 eagerly and the model updates its params in place under
@@ -35,7 +38,8 @@ from deeplearning4j_tpu_torch import obs
 from deeplearning4j_tpu_torch.utils.tree import tree_leaves, tree_map
 
 __all__ = ["CHAIN_AUTO_PARAM_LIMIT", "accum_applicable", "accum_value_and_grad",
-           "chain_batches", "chain_k_from_env", "grad_accum_from_env"]
+           "chain_batches", "chain_k_from_env", "grad_accum_from_env",
+           "mesh_shape_from_env"]
 
 # Above this parameter count "auto" never chains: big models are
 # compute-bound, so issuing steps back to back buys nothing and the
@@ -196,3 +200,32 @@ def accum_value_and_grad(accum: int, params, state, batch, value_and_grad):
         loss_acc = loss_i if loss_acc is None else loss_acc + loss_i
     inv = 1.0 / accum
     return loss_acc * inv, state, tree_map(lambda g: g * inv, g_acc)
+
+
+def _axis_env(name: str) -> int:
+    raw = os.environ.get(name, "0")
+    try:
+        return max(int(raw), 0)
+    except ValueError:
+        return 0
+
+
+def mesh_shape_from_env(n_devices: int):
+    """The named-mesh step's ``(data, model, pipe)`` shape from
+    ``DL4J_TPU_MESH_DATA`` / ``DL4J_TPU_MESH_MODEL`` / ``DL4J_TPU_MESH_PIPE``
+    (0 or unset: auto). Unset model and pipe axes are 1 and an unset data
+    axis takes every remaining rank, so with no knob set this is pure data
+    parallelism over all ``n_devices`` ranks. A shape that does not cover
+    ``n_devices`` raises."""
+    t = _axis_env("DL4J_TPU_MESH_MODEL") or 1
+    s = _axis_env("DL4J_TPU_MESH_PIPE") or 1
+    d = _axis_env("DL4J_TPU_MESH_DATA")
+    if d == 0:
+        if n_devices % (t * s):
+            raise ValueError(
+                f"mesh axes model={t} x pipe={s} do not divide {n_devices} devices")
+        d = n_devices // (t * s)
+    if d * t * s != n_devices:
+        raise ValueError(
+            f"mesh shape (d={d}, t={t}, s={s}) does not cover {n_devices} devices")
+    return d, t, s

@@ -1,11 +1,24 @@
 """Parallelism on torch.distributed (the PyTorch port of the JAX package's
-``parallel/``): the process mesh, the active-mesh context, process-group
-setup, ring attention over the ``seq`` axis and the sharded trainer over
-``data x seq``. One process per card (SPMD): NCCL on CUDA devices, gloo on
-the CPU. What is still to port (tensor and pipeline parallelism,
-ParallelWrapper, gradient compression, elastic training) is ROADMAP
-Queue 1 item 7."""
+``parallel/``): the process mesh and its sub-groups, the active-mesh
+context, process-group setup, the collectives every parallel path goes
+through (``comm``), tensor and expert parallelism and the sharded trainer
+over ``data x model x seq`` (``tp``), ring attention over ``seq``, the
+compressed and sharded gradient exchange (``compress``, ``grads``),
+ParallelWrapper, the named-mesh trainer, GPipe and the pipeline runner,
+and ParallelInference. One process per rank (SPMD): NCCL on CUDA devices,
+gloo on the CPU (or, asked for, between ranks that share a card). The
+elastic runtime (membership, the network store, the elastic trainer) is
+the next slice, ROADMAP Queue 1 item 7."""
 
+from deeplearning4j_tpu_torch.parallel.compress import (
+    decode_gathered,
+    encode_packed,
+    pack_ternary,
+    packed_nbytes,
+    threshold_decode,
+    threshold_encode,
+    unpack_ternary,
+)
 from deeplearning4j_tpu_torch.parallel.context import current_mesh, use_mesh
 from deeplearning4j_tpu_torch.parallel.distributed import (
     global_array,
@@ -15,13 +28,24 @@ from deeplearning4j_tpu_torch.parallel.distributed import (
     replicate_global,
     shutdown_distributed,
 )
+from deeplearning4j_tpu_torch.parallel.gpipe import GPipeTrainer
+from deeplearning4j_tpu_torch.parallel.grads import DataParallelStep, GradExchange
+from deeplearning4j_tpu_torch.parallel.inference import ParallelInference
 from deeplearning4j_tpu_torch.parallel.mesh import MeshSpec, data_axis_size, make_mesh
+from deeplearning4j_tpu_torch.parallel.mesh_step import MeshTrainer, shard_update_spec
+from deeplearning4j_tpu_torch.parallel.pipeline import PipelineParallel, stack_stage_params
 from deeplearning4j_tpu_torch.parallel.ring import local_attention, ring_self_attention
-from deeplearning4j_tpu_torch.parallel.tp import ShardedTrainer
+from deeplearning4j_tpu_torch.parallel.tp import ShardedTrainer, tp_param_shardings
+from deeplearning4j_tpu_torch.parallel.wrapper import ParallelWrapper
 
 __all__ = [
-    "MeshSpec", "make_mesh", "data_axis_size", "use_mesh", "current_mesh",
-    "ring_self_attention", "local_attention", "ShardedTrainer", "init_distributed",
-    "shutdown_distributed", "process_count", "is_multihost", "global_array",
-    "replicate_global",
+    "MeshSpec", "make_mesh", "ParallelWrapper", "ParallelInference",
+    "current_mesh", "use_mesh", "local_attention", "ring_self_attention",
+    "GPipeTrainer", "PipelineParallel", "stack_stage_params", "ShardedTrainer",
+    "tp_param_shardings", "init_distributed", "shutdown_distributed",
+    "is_multihost", "global_array", "replicate_global", "process_count",
+    "DataParallelStep", "GradExchange", "data_axis_size",
+    "MeshTrainer", "shard_update_spec",
+    "threshold_encode", "threshold_decode", "pack_ternary", "unpack_ternary",
+    "encode_packed", "decode_gathered", "packed_nbytes",
 ]

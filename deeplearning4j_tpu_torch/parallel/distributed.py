@@ -30,19 +30,23 @@ _DEVICE: Optional[torch.device] = None
 
 def init_distributed(init_method: str = "env://", world_size: Optional[int] = None,
                      rank: Optional[int] = None, *, device=None,
-                     timeout_s: float = 300.0) -> torch.device:
+                     timeout_s: float = 300.0, backend: Optional[str] = None) -> torch.device:
     """Join (or form) the default process group and return this rank's
     device. ``device``: None means the GPU (``cuda:<current>``; it raises
-    with no GPU), ``"cpu"`` must be asked for. The backend follows it:
-    NCCL for a CUDA device, gloo for the CPU. ``timeout_s`` bounds every
-    collective, the rendezvous included."""
+    with no GPU), ``"cpu"`` must be asked for. ``backend``: None follows
+    the device, NCCL for a CUDA device and gloo for the CPU; ``"gloo"`` on
+    a CUDA device puts several ranks on one card (NCCL refuses that), the
+    collectives then staging through host memory where gloo takes no CUDA
+    tensors (``parallel/comm.py``). ``timeout_s`` bounds every collective,
+    the rendezvous included."""
     global _DEVICE
     from deeplearning4j_tpu_torch.nn.model import resolve_device
 
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
     kw = {}
     if world_size is not None:
         kw["world_size"] = world_size
@@ -55,9 +59,13 @@ def init_distributed(init_method: str = "env://", world_size: Optional[int] = No
 
 
 def shutdown_distributed() -> None:
-    """Leave the default process group (a no-op when there is none)."""
+    """Leave the default process group (a no-op when there is none). The
+    ranks meet at a barrier first: a gloo rank that tears its connections
+    down while a peer still uses them can abort the peer's process."""
     global _DEVICE
     if dist.is_available() and dist.is_initialized():
+        if dist.get_world_size() > 1:
+            dist.barrier()
         dist.destroy_process_group()
     _DEVICE = None
 

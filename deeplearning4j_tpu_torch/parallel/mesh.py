@@ -8,8 +8,10 @@ grid, in ``np.reshape`` order as the JAX package reshapes
 ``jax.devices()``, and gives each axis the sub-group of the ranks that
 share this rank's other coordinates, for the collectives along it.
 
-Tensor parallelism (a ``model`` axis larger than 1) is not in this slice
-of the port (ROADMAP Queue 1 item 7): :func:`make_mesh` raises for it.
+:meth:`Mesh.sub` gives the sub-group over one axis or several (``("data",
+"seq")`` for the gradient all-reduce under tensor parallelism, ``("data",
+"pipe")`` for the sharded weight update), created together with the
+single-axis ones because ``dist.new_group`` is a collective call.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["AXES", "Mesh", "MeshSpec", "data_axis_size", "make_mesh"]
+__all__ = ["AXES", "Mesh", "MeshSpec", "SubGroup", "data_axis_size", "make_mesh"]
 
 AXES = ("data", "model", "seq", "pipe")
 
@@ -31,8 +33,8 @@ AXES = ("data", "model", "seq", "pipe")
 class MeshSpec:
     """Logical mesh shape. -1 on ``data`` means 'all remaining ranks'.
 
-    Axes: ``data`` (dp), ``model`` (tp; not in the port yet), ``seq`` (sp,
-    ring attention), ``pipe`` (pp)."""
+    Axes: ``data`` (dp), ``model`` (tp, and ep: expert weights shard their
+    expert axis here), ``seq`` (sp, ring attention), ``pipe`` (pp)."""
 
     data: int = -1
     model: int = 1
@@ -85,10 +87,41 @@ class Mesh:
         return [int(r) for r in self.devices[tuple(idx)]]
 
     def group(self, axis: str):
-        return self._groups.get(axis)
+        return self._groups.get((axis,))
+
+    def sub(self, axes) -> "SubGroup":
+        """The ranks that share this rank's coordinates on every axis but
+        ``axes`` (one axis name or a tuple of them), in grid order, with
+        their process group (None when they are this rank alone)."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        idx = [slice(None) if a in axes else self.coords[a] for a in AXES]
+        ranks = [int(r) for r in np.ravel(self.devices[tuple(idx)])]
+        key = tuple(a for a in AXES if a in axes and self.shape[a] > 1)
+        group = self._groups.get(key) if len(ranks) > 1 else None
+        return SubGroup(group, ranks, ranks.index(self.rank))
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank}, device={self.device})"
+
+
+@dataclass(frozen=True)
+class SubGroup:
+    """A set of ranks for a collective (``Mesh.sub``): the process group
+    (None for a set of one), the global ranks in order and this rank's
+    index among them."""
+
+    group: object
+    ranks: Tuple[int, ...]
+    index: int
+
+    def __init__(self, group, ranks, index):
+        object.__setattr__(self, "group", group)
+        object.__setattr__(self, "ranks", tuple(ranks))
+        object.__setattr__(self, "index", int(index))
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
 
 
 def make_mesh(spec: Optional[MeshSpec] = None, device=None) -> Mesh:
@@ -98,34 +131,33 @@ def make_mesh(spec: Optional[MeshSpec] = None, device=None) -> Mesh:
     default the device :func:`~deeplearning4j_tpu_torch.parallel.distributed.init_distributed`
     chose, else the GPU (raising when there is none). Every rank must call
     this with the same spec: it creates the axes' sub-groups, which is a
-    collective call. Raises NotImplementedError for ``model > 1``."""
+    collective call."""
     from deeplearning4j_tpu_torch.parallel import distributed
 
     spec = spec or MeshSpec()
-    if spec.model > 1:
-        raise NotImplementedError(
-            "a mesh with model > 1 (tensor parallelism: tp_param_shardings and "
-            "head-sharded ring attention) is not ported yet, ROADMAP Queue 1 item 7")
     initialised = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if initialised else 1
     rank = dist.get_rank() if initialised else 0
     d, m, s, p = spec.resolve(world)
     grid = np.arange(world).reshape(d, m, s, p)
-    groups: Dict[str, object] = {}
+    groups: Dict[Tuple[str, ...], object] = {}
     if initialised:
-        # every rank creates every sub-group, in one order (new_group is collective)
-        for ax, size in zip(AXES, grid.shape):
-            if size == 1:
-                continue
-            a = AXES.index(ax)
-            others = [range(n) for i, n in enumerate(grid.shape) if i != a]
-            for rest in itertools.product(*others):
-                idx = list(rest)
-                idx.insert(a, slice(None))
-                ranks = [int(r) for r in grid[tuple(idx)]]
-                g = dist.new_group(ranks)
-                if rank in ranks:
-                    groups[ax] = g
+        # every rank creates every sub-group, in one order (new_group is
+        # collective): one per non-empty set of axes longer than 1
+        live = [a for a, n in zip(AXES, grid.shape) if n > 1]
+        for k in range(1, len(live) + 1):
+            for axes in itertools.combinations(live, k):
+                if len(axes) == len(live):
+                    groups[axes] = dist.group.WORLD
+                    continue
+                cut = [AXES.index(a) for a in axes]
+                others = [range(n) if i not in cut else [slice(None)]
+                          for i, n in enumerate(grid.shape)]
+                for idx in itertools.product(*others):
+                    ranks = [int(r) for r in np.ravel(grid[tuple(idx)])]
+                    g = dist.new_group(ranks)
+                    if rank in ranks:
+                        groups[axes] = g
     return Mesh(grid, rank, distributed.default_device(device), groups)
 
 

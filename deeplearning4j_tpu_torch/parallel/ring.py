@@ -200,13 +200,12 @@ def ring_self_attention(q, k, v, mesh, *, causal: bool = False, kmask=None,
     or None. Returns this rank's [B/d, T/s, H, D] of the attention over the
     whole sequence. Every rank of the seq axis must call it.
     ``use_flash=True`` takes the flash ring (the chunk kernels on CUDA
-    tensors), else the einsum ring. ``head_axis`` (head-sharded tensor
-    parallelism) raises NotImplementedError: ROADMAP Queue 1 item 7."""
-    if head_axis is not None:
-        raise NotImplementedError(
-            "head_axis (ring attention over head-sharded q/k/v, tensor "
-            "parallelism) is not ported yet, ROADMAP Queue 1 item 7")
-    for name, axis in (("data_axis", data_axis), ("seq_axis", seq_axis)):
+    tensors), else the einsum ring. ``head_axis`` (``"model"`` under tensor
+    parallelism) names the axis the heads are sharded over: q, k and v then
+    hold this rank's ``H / model`` heads, and the ring runs on them along
+    ``seq_axis`` as it is, with no gather over ``head_axis``."""
+    for name, axis in (("data_axis", data_axis), ("seq_axis", seq_axis),
+                       ("head_axis", head_axis)):
         if axis is not None and axis not in mesh.shape:
             raise ValueError(f"{name}={axis!r} is not an axis of the mesh {mesh.shape}")
     fn = _ring_flash_shard if use_flash else _ring_attention_shard

@@ -20,8 +20,13 @@ Example::
 
 Training runs on the GPU unless ``--device`` names another device
 (``--device cpu`` runs the plain PyTorch path); with no GPU and no
-``--device`` it raises. ``--data-parallel`` is not ported yet and exits
-with a message naming the slice that brings it.
+``--device`` it raises. ``--data-parallel`` trains through
+``ParallelWrapper`` over the default process group: a world of one without
+``torchrun``'s environment, else ``RANK`` / ``WORLD_SIZE`` (and
+``MASTER_ADDR`` / ``MASTER_PORT``) from it, NCCL on cards and gloo with
+``--device cpu``; each rank passes its share of every batch (the rows
+``rank::world`` of the batch), so the run equals the single-process fit,
+and rank 0 writes the zip.
 """
 
 from __future__ import annotations
@@ -53,7 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=128)
     p.add_argument("--output", default="model.zip", help="checkpoint zip path")
     p.add_argument("--data-parallel", action="store_true",
-                   help="shard batches over all local devices (not ported yet)")
+                   help="data-parallel training over the default process group "
+                        "(torchrun's RANK/WORLD_SIZE, else a world of one)")
     p.add_argument("--listener-frequency", type=int, default=10,
                    help="score print frequency (iterations)")
     p.add_argument("--evaluate", action="store_true",
@@ -111,21 +117,80 @@ def _load_data(args):
     return it
 
 
+def _join_group(device) -> bool:
+    """Form the default process group for ``--data-parallel`` unless one
+    exists: torchrun's environment when it is set, else a world of one over
+    a private store. Returns whether it formed one (and so must leave it)."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel import init_distributed
+
+    if dist.is_available() and dist.is_initialized():
+        return False
+    if "WORLD_SIZE" in os.environ and "RANK" in os.environ:
+        init_distributed("env://", device=device)
+    else:
+        store = tempfile.mkdtemp(prefix="dl4j-dp-")
+        init_distributed(f"file://{store}/store", 1, 0, device=device)
+    return True
+
+
+def _rank_rows(data, batch_size):
+    """This rank's share of every batch: a callable giving, per epoch, the
+    rows ``rank::world`` of each batch of ``batch_size`` rows (a world of
+    one takes every row)."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.nn.model import _iter_batches
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+
+    def epoch():
+        source = data() if callable(data) else data
+        for batch in _iter_batches(source, batch_size):
+            yield tuple(a[rank::world] if a is not None else None for a in batch)
+
+    return epoch
+
+
 def run(argv=None):
     """Parse ``argv``, train, write the checkpoint (and evaluate with
     ``--evaluate``); returns the trained model."""
     args = build_parser().parse_args(argv)
-    if args.data_parallel:
-        raise SystemExit("--data-parallel: data-parallel training is not ported to "
-                         "deeplearning4j_tpu_torch yet (the parallel slice)")
+    if not args.data_parallel:
+        return _train(args)
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel import shutdown_distributed
+
+    owned = _join_group(args.device)
+    try:
+        return _train(args, rank=dist.get_rank())
+    finally:
+        if owned:
+            shutdown_distributed()
+
+
+def _train(args, rank=None):
+    """Load, train (data-parallel when ``rank`` is given) and write the zip
+    (rank 0)."""
     model = _load_model(args.model, args.device)
     if not hasattr(model, "fit"):
         raise SystemExit(f"{args.model} does not contain a trainable model")
     model.set_listeners(ScoreIterationListener(args.listener_frequency))
     data = _load_data(args)
-    model.fit(data, epochs=args.epochs, batch_size=args.batch_size)
-    save_network(model, args.output)
-    print(f"saved {args.output}")
+    if rank is not None:
+        from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+
+        ParallelWrapper(model).fit(_rank_rows(data, args.batch_size), epochs=args.epochs)
+    else:
+        model.fit(data, epochs=args.epochs, batch_size=args.batch_size)
+    if not rank:
+        save_network(model, args.output)
+        print(f"saved {args.output}")
     if args.evaluate:
         print(model.evaluate(data, batch_size=args.batch_size).stats())
     return model

@@ -25,9 +25,15 @@ resume, the divergence guard and the chaos harness.
   (grammar in ``ChaosInjector``) for the faults ``preempt``, ``nan_grad``,
   ``slow_iter`` and ``corrupt_ckpt``, deterministic and one-shot.
 
-Not here: the distributed checkpoint layout (``load_distributed_checkpoint``)
-and the host-kill, slice-kill and partition faults, which belong to the
-parallel slice (ROADMAP Queue 1 item 7), and the compiled-executable
+While a data-parallel exchange is active (``parallel/grads.py``
+``DataParallelStep``, ``model._dp_runner``), a checkpoint takes its
+optimizer state out of the exchange's layout and stores the compression
+residuals of every rank (a collective: every rank saves, each into its own
+directory in a multi-process run). Not here: the distributed checkpoint
+layout (``load_distributed_checkpoint``) and the host-kill, slice-kill and
+partition faults, which belong to the elastic runtime (ROADMAP Queue 1
+item 7, the elastic runtime that follows the parallel slice), and the
+compiled-executable
 bundles that the JAX package saves beside a checkpoint (``nn/aot.py``,
 Queue 1 item 9).
 """
@@ -208,9 +214,16 @@ def save_checkpoint(model, path, normalizer: Optional[dict] = None) -> dict:
 
     t0 = time.perf_counter()
     with obs.span("checkpoint.save"):
+        opt_state = residuals = None
+        runner = getattr(model, "_dp_runner", None)
+        if runner is not None:
+            if runner.active:
+                opt_state = runner.snapshot_opt_state()
+            residuals = runner.export_residuals() or None
         io_with_retries(
             lambda: S.save_network(model, path, normalizer=normalizer,
-                                   train_state=capture_train_state(model)),
+                                   train_state=capture_train_state(model),
+                                   residuals=residuals, opt_state=opt_state),
             what=f"save_network:{os.path.basename(str(path))}")
         info = {"path": path, "crc": crc32_file(path),
                 "size": os.path.getsize(path)}
@@ -388,6 +401,9 @@ class DivergenceGuard:
         # compounding backoff on top of whatever scale the checkpoint carried
         model._lr_scale = getattr(model, "_lr_scale", 1.0) * self.lr_backoff
         model._build_updaters()
+        runner = getattr(model, "_dp_runner", None)
+        if runner is not None and runner.active:
+            runner.reload()   # the exchange's layout around the restored state
         bucketing.telemetry().record_guard("rollback_restore")
         obs.event("rollback_restore", retries=self.retries,
                   lr_scale=float(model._lr_scale))

@@ -162,10 +162,16 @@ class BucketTelemetry:
             "dl4j_guard_events_total",
             "divergence-guard events (invalid_score, warn/skip_batch/"
             "rollback trips, rollback_restore)", ("event",))
+        self._comm = reg.gauge(
+            "dl4j_comm_bytes",
+            "per-step collective bytes by exchange site (dense = hypothetical "
+            "dense all-reduce, wire = configured exchange, param = sharded-"
+            "update all-gather); describes a configuration, latest wins",
+            ("site", "kind"))
 
     def reset(self):
         with self._lock:
-            for fam in (self._hits, self._padded, self._real, self._guard):
+            for fam in (self._hits, self._padded, self._real, self._guard, self._comm):
                 fam.clear()
 
     def record_hit(self, site: str, n: int, bucket: int):
@@ -178,6 +184,25 @@ class BucketTelemetry:
         ``warn``/``skip_batch``/``rollback``, or ``rollback_restore``;
         train/resilience.py)."""
         self._guard.inc(event=event)
+
+    def record_comm(self, site: str, dense_bytes: int, wire_bytes: int,
+                    param_bytes: int = 0):
+        """A site's per-step collective bytes (``parallel/grads.py``
+        ``DataParallelStep.comm_stats``): what a dense all-reduce of the
+        exchanged gradients would move, what the configured exchange moves,
+        and the sharded update's all-gather of updated params. Latest wins:
+        the numbers describe a configuration, not a running total."""
+        self._comm.set(int(dense_bytes), site=site, kind="dense_bytes")
+        self._comm.set(int(wire_bytes), site=site, kind="wire_bytes")
+        self._comm.set(int(param_bytes), site=site, kind="param_bytes")
+
+    @property
+    def comm(self) -> Dict[str, Dict[str, int]]:
+        """{site: {dense_bytes, wire_bytes, param_bytes}}."""
+        out: Dict[str, Dict[str, int]] = {}
+        for (site, kind), v in self._comm.as_dict().items():
+            out.setdefault(site, {})[kind] = int(v)
+        return out
 
     @property
     def guard_events(self) -> Dict[str, int]:
@@ -208,6 +233,7 @@ class BucketTelemetry:
             "padded_examples": self.padded_examples,
             "real_examples": self.real_examples,
             "guard": self.guard_events,
+            "comm": self.comm,
         }
 
 
@@ -271,7 +297,7 @@ def tile_pad(a, pad: int):
     return np.concatenate([a, reps])
 
 
-def padded_label_mask(y, lm, n: int):
+def padded_label_mask(y, lm, n: int, scale: Optional[float] = None):
     """Label mask that zero-weights padded rows [n:] so the loss averages
     over the n REAL examples only (exactly the unpadded fit's loss).
 
@@ -284,10 +310,12 @@ def padded_label_mask(y, lm, n: int):
     would switch ``average_score`` to its per-timestep branch) and rank-4
     labels a per-pixel [B, H, W] mask. An unpadded batch (``n == len(y)``)
     gets the all-ones mask, so full and padded batches share one calling
-    convention. Returns a float32 numpy array."""
+    convention. ``scale`` replaces the B_pad/n weight of a real row (the
+    data-parallel wrapper's gB/n_tot across ranks with uneven rows,
+    ``parallel/wrapper.py``). Returns a float32 numpy array."""
     total = len(y)
     valid = np.zeros(total, np.float32)
-    valid[:n] = float(total) / float(n)
+    valid[:n] = float(total) / float(n) if scale is None else float(scale)
     if lm is not None:
         lm = (lm.detach().cpu().float().numpy() if isinstance(lm, torch.Tensor)
               else np.asarray(lm, np.float32))

@@ -25,8 +25,11 @@ model generator's state. The port writes that state under
 ``"rng"``, which the JAX package reads as its JAX PRNG key; each package
 restores the other's batch position and LR scale, and neither can take the
 other's random stream (the port warns once when a model that draws
-randomness loads a JAX key). ``residuals.npz`` (the JAX package's
-data-parallel residuals) is not read.
+randomness loads a JAX key). ``residuals.npz`` holds the compressed
+data-parallel exchange's error-feedback residuals (``parallel/grads.py``),
+one ``[R, n_pad]`` float32 array per exchanged layer keyed by its index or
+vertex name, in both packages; a restore parks them on the model for the
+exchange to take up.
 
 Leaves on the card are copied to the host as raw bytes through one
 page-locked buffer, bf16 as its bits (``serve/scheduler.py`` ``_to_host``
@@ -58,6 +61,7 @@ STATE_ENTRY = "state.npz"
 UPDATER_ENTRY = "updaterState.npz"
 META_ENTRY = "meta.json"
 NORMALIZER_ENTRY = "normalizer.json"
+RESIDUALS_ENTRY = "residuals.npz"
 TRAIN_STATE_ENTRY = "trainState.json"
 # npz entries are stored, not deflated: float leaves barely compress, and
 # deflating the gigabytes of a large model's params and Adam moments takes
@@ -156,12 +160,15 @@ def _atomic_write_zip(path, write_entries) -> None:
 
 def save_network(model, path, save_updater: bool = True,
                  normalizer: Optional[dict] = None,
-                 train_state: Optional[dict] = None):
+                 train_state: Optional[dict] = None,
+                 residuals: Optional[dict] = None, opt_state=None):
     """Write a MultiLayerNetwork or a ComputationGraph to a zip (a path,
     written atomically, or a writable file object). ``updaterState.npz`` is written once the model
     has optimizer state; a reader of a zip without it starts from a fresh
     updater state, which is what an untrained model's would be.
-    ``train_state`` adds ``trainState.json`` (see train/resilience.py)."""
+    ``train_state`` adds ``trainState.json`` (see train/resilience.py),
+    ``residuals`` the exchange's ``residuals.npz``; ``opt_state`` replaces
+    the model's optimizer state (the exchange's snapshot mid-fit)."""
     meta = {
         "framework": "deeplearning4j_tpu_torch",
         "format_version": 1,
@@ -175,8 +182,13 @@ def save_network(model, path, save_updater: bool = True,
         zf.writestr(CONFIG_ENTRY, model.conf.to_json(indent=2))
         zf.writestr(COEFFICIENTS_ENTRY, _tree_to_npz_bytes(model.params, stage))
         zf.writestr(STATE_ENTRY, _tree_to_npz_bytes(model.state, stage))
-        if save_updater and model.opt_state is not None:
-            zf.writestr(UPDATER_ENTRY, _tree_to_npz_bytes(model.opt_state, stage))
+        opt = opt_state if opt_state is not None else model.opt_state
+        if save_updater and opt is not None:
+            zf.writestr(UPDATER_ENTRY, _tree_to_npz_bytes(opt, stage))
+        if residuals is not None:
+            buf = io.BytesIO()
+            np.savez(buf, **{k: np.asarray(v) for k, v in residuals.items()})
+            zf.writestr(RESIDUALS_ENTRY, buf.getvalue())
         if normalizer is not None:
             zf.writestr(NORMALIZER_ENTRY, json.dumps(normalizer))
         if train_state is not None:
@@ -208,7 +220,14 @@ def read_snapshot(path, load_updater: bool = True) -> dict:
             "upd": leaves(UPDATER_ENTRY, load_updater),
             "train_state": (json.loads(zf.read(TRAIN_STATE_ENTRY))
                             if TRAIN_STATE_ENTRY in names else None),
+            "residuals": (_npz_dict(zf.read(RESIDUALS_ENTRY))
+                          if RESIDUALS_ENTRY in names else None),
         }
+
+
+def _npz_dict(raw: bytes) -> dict:
+    with np.load(io.BytesIO(raw)) as z:
+        return {k: z[k] for k in z.files}
 
 
 def apply_snapshot(model, snap: dict, load_updater: bool = True):
@@ -225,6 +244,8 @@ def apply_snapshot(model, snap: dict, load_updater: bool = True):
     model.epoch = meta.get("epoch", 0)
     if snap.get("train_state"):
         _apply_train_state(model, snap["train_state"])
+    # the data-parallel exchange takes these up when it (re)starts
+    model._pending_residuals = snap.get("residuals")
     return model
 
 

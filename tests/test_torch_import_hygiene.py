@@ -59,7 +59,10 @@ def test_importing_every_port_module_leaves_jax_out():
               "modelimport", "modelimport.dl4j", "modelimport.keras", "native",
               "datasets.normalizers", "datasets.records", "datasets.transform",
               "datasets.fetchers", "models.pretrained", "models.labels", "serve.__main__",
-              "train.__main__", "utils.guesser"):
+              "train.__main__", "utils.guesser", "parallel.comm", "parallel.compress",
+              "parallel.grads", "parallel.wrapper", "parallel.inference",
+              "parallel.mesh_step", "parallel.pipeline", "parallel.gpipe",
+              "parallel.launch"):
         assert f"deeplearning4j_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

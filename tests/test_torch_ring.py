@@ -200,15 +200,16 @@ def test_world_of_one_mesh_without_a_process_group():
 
 
 def test_make_mesh_and_trainer_refuse_tensor_parallelism():
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # tensor parallelism is ported (test_torch_tp.py): what stays refused is
+    # a mesh the ranks do not cover and a head axis the mesh does not have;
+    # head_axis="model" runs the ring on the local heads as they are
+    with pytest.raises(ValueError, match="does not cover"):
         make_mesh(MeshSpec(model=2), device="cpu")
-    tp_mesh = Mesh(np.arange(2).reshape(1, 2, 1, 1), 0, torch.device("cpu"), {})
-    m = MultiLayerNetwork(zoo.TransformerLM(**LM), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ShardedTrainer(m, tp_mesh)
-    q = torch.zeros(1, 4, 2, 4)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ring_self_attention(q, q, q, make_mesh(device="cpu"), head_axis="model")
+    q = torch.randn(1, 4, 2, 4, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="head_axis"):
+        ring_self_attention(q, q, q, make_mesh(device="cpu"), head_axis="heads")
+    out = ring_self_attention(q, q, q, make_mesh(device="cpu"), head_axis="model")
+    torch.testing.assert_close(out, ring.local_attention(q, q, q, causal=False))
 
 
 def test_trainer_refuses_layers_that_mix_time_steps():
