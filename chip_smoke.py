@@ -362,7 +362,13 @@ non-zero (and without a result line when no CUDA device is present):
    gathered from the ranks against the single-process output
    (TP_OUTPUT_REL); 8 launches of each of kernels #1-#3 per rank a step at
    H = 8 local heads; step times beside the single-process step's, peak
-   memory per rank.
+   memory per rank. Then the same model with clip_l2_per_layer on its 8
+   TransformerBlocks and its output layer (threshold: half the smallest
+   first-step norm among them, so each clips; the norm of a sharded layer
+   spans both ranks' shards), 3 steps on the same ranks against
+   _fit_batch with the same normalization: losses and gathered params
+   within GRAD_CHECK_REL, the ranks bit-equal, kernels #1-#3 launched 8
+   times a step on each rank.
 33. dp_train — ParallelWrapper on two gloo ranks, the char-RNN at full width
    (B 128, T 50, H 256, f32): (a) 64/64 and (b) 70/58 rows, 3 steps each
    against the single-process fit on the 128 rows (DP_PARAM_REL); (c) the
@@ -381,6 +387,22 @@ non-zero (and without a result line when no CUDA device is present):
    NCCL) on LeNet-5 from phase 31's IDX files, batch 64, against the same
    command without the flag: every iteration's loss and the zip's params
    bit for bit.
+37. elastic_train — ElasticTrainer (train/elastic.py) through its launcher,
+   each worker a process on the card (``python3 chip_smoke.py _elastic``
+   around the port's worker entry, run_worker): the char-RNN of phase 33
+   on 1,024 rows, global batch 128 in 4 vshards, 8 steps, a FileStore with
+   a 2 s lease TTL. (a) 1 worker, the reference; (b) 2 workers,
+   checkpointing every 4 steps; then side by side (c) host_kill of rank 1
+   at iteration 3, relaunched, the survivor stalled 20 s after the shrink
+   so that the view grows back, (d) (b) over an in-process NetStoreServer
+   (tcp://), (e) a full restart from (b)'s checkpoints with the newest
+   params file and rank 1's older shard corrupted (the manifest falls
+   back, the shard is dropped, its segments come from the mirror). Every
+   worker's params and losses against (a): bit for bit, else within
+   DP_PARAM_REL. Each worker reports its launches of kernels #4/#5 (2 of
+   each per vshard it computes), its step walls and store bytes; the
+   seconds from the kill to the shrink view, to the relaunched worker's
+   start and to the grow view.
 
 It ends with the command time, the kernels line (launches of each kernel
 by path, the new phases' included), the card's name and power limit, and
@@ -5750,6 +5772,9 @@ TP_ROWS, TP_STEPS, TP_OUT_ROWS = 8, 3, 2
 # in [4, 8): a probability 3.2% off; 2^-4 in [8, 16): 6.5%); max |err|
 # within 7e-2 of max |ref|
 TP_OUTPUT_REL = 7e-2
+# the gradient-normalized TP case (its threshold: half the smallest
+# first-step norm of the normalized layers)
+TP_GN_MODE = "clip_l2_per_layer"
 DP_STEPS = 3
 DP_SPLITS = {"even": (64, 64), "uneven": (70, 58)}
 # ParallelWrapper against the single-process fit on the same 128 rows, f32:
@@ -5845,11 +5870,57 @@ def _tp_rank(rank: int, root: Path) -> dict:
     launches = _kernel_launches()
     whole = _host_leaves(trainer.gathered_params())
     want = torch.load(root / "ref_params.pt")
+    out = {"losses": [float(l) for l in losses], "launches": launches,
+           "local_heads": local_heads, "step_ms": [ev[i].elapsed_time(ev[i + 1])
+                                                   for i in range(TP_STEPS)],
+           "bit_equal": _bits_equal(whole, want), "params": _tp_compare(whole, want, C),
+           "grads": grad_cmp, "output_rel": out_rel,
+           "param_sums": [float(t.double().sum()) for t in whole]}
+    mesh = trainer.mesh
+    del trainer, model, whole, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["gn"] = _tp_gn_rank(root, mesh, C)
+    return out
+
+
+def _tp_gn_conf(threshold: float):
+    """The phase's TransformerLM with clip_l2_per_layer on every
+    TransformerBlock (attention and FFN) and on the output layer."""
+    import dataclasses
+
+    conf, _, _ = _tp_inputs()
+    layers = tuple(dataclasses.replace(l, gradient_normalization=TP_GN_MODE,
+                                       gradient_normalization_threshold=threshold)
+                   if type(l).__name__ in ("TransformerBlock", "RnnOutputLayer") else l
+                   for l in conf.layers)
+    return dataclasses.replace(conf, layers=layers)
+
+
+def _tp_gn_rank(root: Path, mesh, C: int) -> dict:
+    """The gradient-normalized case on this rank: a new model from the seed
+    with ``_tp_gn_conf``, TP_STEPS steps, the kernels' launches, the
+    gathered params against the one-process run's."""
+    from deeplearning4j_tpu_torch.parallel import ShardedTrainer
+
+    _, x, y = _tp_inputs()
+    gn = json.loads((root / "gn.json").read_text())
+    model = MultiLayerNetwork(_tp_gn_conf(gn["threshold"])).init()
+    trainer = ShardedTrainer(model, mesh)
+    _zero_all_kernel_counts()
+    ev = _events(TP_STEPS + 1)
+    ev[0].record()
+    losses = []
+    for i in range(TP_STEPS):
+        losses.append(trainer.fit_batch(x, y))
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    launches = _kernel_launches()
+    whole = _host_leaves(trainer.gathered_params())
+    want = torch.load(root / "ref_gn_params.pt")
     return {"losses": [float(l) for l in losses], "launches": launches,
-            "local_heads": local_heads, "step_ms": [ev[i].elapsed_time(ev[i + 1])
-                                                    for i in range(TP_STEPS)],
+            "step_ms": [ev[i].elapsed_time(ev[i + 1]) for i in range(TP_STEPS)],
             "bit_equal": _bits_equal(whole, want), "params": _tp_compare(whole, want, C),
-            "grads": grad_cmp, "output_rel": out_rel,
             "param_sums": [float(t.double().sum()) for t in whole]}
 
 
@@ -5891,6 +5962,12 @@ def tp_train_phase(tmp: Path) -> dict:
     _, _, g, _ = ref._value_and_grad(ref.state, ref._features(x),
                                      torch.from_numpy(y).to(ref.device), None, None, None)
     torch.save(_host_leaves(g), tmp / "ref_grads.pt")
+    # the gradient-normalized case clips at half the smallest first-step
+    # norm of the layers it normalizes, so every one of them clips
+    gn_norms = [float(torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tree_leaves(g[i]))))
+                for i, l in enumerate(ref.layers)
+                if type(l).__name__ in ("TransformerBlock", "RnnOutputLayer")]
+    gn_threshold = 0.5 * min(gn_norms)
     del g
     ev = _events(TP_STEPS + 1)
     ev[0].record()
@@ -5906,6 +5983,13 @@ def tp_train_phase(tmp: Path) -> dict:
     del ref
     gc.collect()
     torch.cuda.empty_cache()
+    gref = MultiLayerNetwork(_tp_gn_conf(gn_threshold)).init()
+    gn_ref_losses = [float(gref._fit_batch(x, y, None, None)) for _ in range(TP_STEPS)]
+    torch.save(_host_leaves(gref.params), tmp / "ref_gn_params.pt")
+    (tmp / "gn.json").write_text(json.dumps({"threshold": gn_threshold}))
+    del gref
+    gc.collect()
+    torch.cuda.empty_cache()
     ranks = _spawn("tp", tmp)
     res = {"phase": "tp_train", "backend": "gloo", "ranks": PAR_RANKS,
            "mesh": {"data": 1, "model": PAR_RANKS, "seq": 1, "pipe": 1},
@@ -5913,7 +5997,14 @@ def tp_train_phase(tmp: Path) -> dict:
                                                    "n_heads", "n_blocks", "dtype")},
            "rows": TP_ROWS, "steps": TP_STEPS, "ref_losses": ref_losses,
            "ref_step_ms": ref_ms, "ref_peak_memory_bytes": ref_peak,
-           "ranks_detail": [{k: r[k] for k in r if k != "param_sums"} for r in ranks],
+           "ranks_detail": [{k: r[k] for k in r if k not in ("param_sums", "gn")}
+                            for r in ranks],
+           "gradient_normalization": {
+               "mode": TP_GN_MODE, "layers": "TransformerBlock x 8, RnnOutputLayer",
+               "threshold": gn_threshold, "first_step_norms": gn_norms,
+               "ref_losses": gn_ref_losses,
+               "ranks": [{k: v for k, v in r["gn"].items() if k != "param_sums"}
+                         for r in ranks]},
            "seconds": time.perf_counter() - t0}
     H = FLAGSHIP_CONF["n_heads"] // PAR_RANKS
     for r, rk in enumerate(ranks):
@@ -5935,6 +6026,18 @@ def tp_train_phase(tmp: Path) -> dict:
                   f"tp rank {r}: {n} launches of {name} over {TP_STEPS} steps")
     check(ranks[0]["param_sums"] == ranks[1]["param_sums"] and
           ranks[0]["losses"] == ranks[1]["losses"], "tp ranks disagree")
+    for r, rk in enumerate(ranks):
+        gn = rk["gn"]
+        check(all(np.isfinite(gn["losses"])), f"tp gn rank {r}: non-finite loss")
+        check(gn["bit_equal"] or (gn["params"]["all_rel"] <= GRAD_CHECK_REL and np.allclose(
+            gn["losses"], gn_ref_losses, rtol=GRAD_CHECK_REL)), f"tp gn rank {r} against "
+            f"_fit_batch: {gn['losses']} vs {gn_ref_losses}, params {gn['params']}")
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            n = gn["launches"][name]
+            check(n == FLAGSHIP_CONF["n_blocks"] * TP_STEPS,
+                  f"tp gn rank {r}: {n} launches of {name} over {TP_STEPS} steps")
+    check(ranks[0]["gn"]["param_sums"] == ranks[1]["gn"]["param_sums"] and
+          ranks[0]["gn"]["losses"] == ranks[1]["gn"]["losses"], "tp gn ranks disagree")
     return res
 
 
@@ -6261,6 +6364,252 @@ def dp_cli_phase(tmp: Path) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# Phase 37: elastic training (train/elastic.py) on the char-RNN at dp_train's
+# width: worker processes on the card exchanging through a store. 8 steps
+# of 128 rows, 4 vshards; the relaunched worker of (c) starts (python, torch,
+# the port, the card) inside the survivor's stall after the shrink
+ELASTIC = dict(rows=1024, batch=128, vshards=4, seed=71, ttl=2.0, poll=0.02, ckpt_every=4)
+ELASTIC_STEPS = 8
+ELASTIC_REJOIN_STALL_S = 20
+ELASTIC_TIMEOUT_S = 240
+
+
+def _elastic_main(argv) -> int:
+    """A worker of the elastic phase: ``chip_smoke.py _elastic <worker
+    flags>`` (the launcher's worker command). The port's worker entry
+    (train/elastic.py run_worker) on the full-width char-RNN; the kernels'
+    launches, the step walls and the time it was ready go to
+    ``<outdir>/report_<id>.json``."""
+    from deeplearning4j_tpu_torch.train import elastic
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    from deeplearning4j_tpu_torch.parallel import elastic as membership
+
+    args = elastic.parse_args(["worker", *argv])
+    model = MultiLayerNetwork(zoo.TextGenerationLSTM(**LSTM_CONF)).init()
+    data = _charrnn_data(args.n, LSTM_CONF["timesteps"], LSTM_CONF["vocab_size"], args.seed)
+    # where a step's host time goes: the seconds inside each of these calls
+    # on the training thread (the heartbeat and prefetch threads excluded;
+    # _vshard_payload includes the vshard's forward and backward)
+    split = {}
+    main_thread = threading.main_thread()
+
+    def timed(owner, name, label):
+        fn = getattr(owner, name)
+
+        def wrapper(*a, **kw):
+            if threading.current_thread() is not main_thread:
+                return fn(*a, **kw)
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                split[label] = split.get(label, 0.0) + time.perf_counter() - t
+        setattr(owner, name, wrapper)
+
+    for name in ("_vshard_payload", "_combine", "_segment_update", "_dense_update",
+                 "_assemble_params", "_await_vshards", "_await_psegs"):
+        timed(elastic.ElasticTrainer, name, name.lstrip("_"))
+    timed(membership.FileStore, "set", "store_set")
+    timed(membership.FileStore, "get", "store_get")
+    ready = time.time()
+    _zero_all_kernel_counts()
+    res = elastic.run_worker(args, model=model, data=data)
+    torch.cuda.synchronize()
+    report = {"ready_ts": ready, "pid": os.getpid(), "launches": _kernel_launches(),
+              "step_wall_s": [sp["wall_s"] for sp in obs.recent_spans()   # finished steps
+                              if sp["span"] == "elastic.step" and not sp.get("error")],
+              "host_split_s": split,
+              "iterations": res["iteration"], "device": torch.cuda.get_device_name(0)}
+    path = Path(args.outdir) / f"report_{args.id}.json"
+    tmp = path.with_suffix(f".tmp{os.getpid()}")
+    tmp.write_text(json.dumps(report))
+    os.replace(tmp, path)
+    return 0
+
+
+def _elastic_run(tmp: Path, name: str, workers: int, *, chaos=None, relaunch=0,
+                 allow_failures=0, ckpt=None, ckpt_every=0, store=None) -> dict:
+    """One launcher run (train/elastic.py _cmd_launch, in this process) of
+    ``workers`` worker processes through ``_elastic_main``; returns every
+    worker's result, params, report and events."""
+    from deeplearning4j_tpu_torch.train import elastic
+
+    out = tmp / name
+    E = ELASTIC
+    argv = ["launch", "--store", store or str(out / "store"), "--outdir", str(out),
+            "--workers", str(workers), "--world", str(workers), "--epochs", "1",
+            "--batch", str(E["batch"]), "--n", str(E["rows"]), "--seed", str(E["seed"]),
+            "--vshards", str(E["vshards"]), "--ttl", str(E["ttl"]), "--poll", str(E["poll"]),
+            "--relaunch", str(relaunch), "--allow-failures", str(allow_failures),
+            "--timeout", str(ELASTIC_TIMEOUT_S)]
+    if ckpt:
+        argv += ["--ckpt-dir", str(ckpt), "--ckpt-every", str(ckpt_every)]
+    env = {k: v for k, v in os.environ.items() if k != "DL4J_TPU_CHAOS"}
+    if chaos:
+        env["DL4J_TPU_CHAOS"] = chaos
+    t0 = time.perf_counter()
+    rc = elastic._cmd_launch(elastic.parse_args(argv),
+                             worker_cmd=[sys.executable, os.path.abspath(__file__), "_elastic"],
+                             env=env)
+    secs = time.perf_counter() - t0
+    check(rc == 0, f"elastic {name}: the launcher returned {rc}")
+    got = {"seconds": secs, "workers": {}}
+    for i in range(workers):
+        wid = f"w{i}"
+        res_path = out / f"result_{wid}.json"
+        if not res_path.exists():      # an allowed failure
+            continue
+        with np.load(out / f"params_{wid}.npz") as z:
+            params = [torch.from_numpy(z[k].copy()) for k in sorted(z.files)]
+        events_path = out / f"events_{wid}.jsonl"
+        got["workers"][wid] = {
+            "result": json.loads(res_path.read_text()), "params": params,
+            "report": json.loads((out / f"report_{wid}.json").read_text()),
+            "events": ([json.loads(l) for l in events_path.read_text().splitlines()]
+                       if events_path.exists() else [])}
+    return got
+
+
+def elastic_train_phase(tmp: Path) -> dict:
+    """Phase 37: ElasticTrainer through its launcher, each worker a process
+    on the card running the full-width char-RNN (TextGenerationLSTM, vocab
+    77, T 50, H 256, f32, RMSProp) on 1,024 rows, a global batch of 128 in
+    4 vshards, 8 steps, FileStore under the phase's tmp dir, TTL 2 s: (a) 1
+    worker (the reference); (b) 2 workers, checkpointing every 4 steps;
+    then together (c) host_kill of rank 1 at iteration 3 with one relaunch
+    (the survivor stalls ELASTIC_REJOIN_STALL_S after the shrink, so the
+    relaunched worker rejoins), (d) (b) over a NetStoreServer (tcp://) and
+    (e) a full restart from (b)'s checkpoints with the newest params file
+    and rank 1's shard of the one before corrupted. Every run's params and
+    losses against (a): bit for bit, else within DP_PARAM_REL (the finding
+    is which). Kernels #4/#5 launched in every worker's vshard backward
+    (2 of each per vshard: two LSTM layers)."""
+    from deeplearning4j_tpu_torch.parallel.netstore import NetStoreServer
+
+    t0 = time.perf_counter()
+    steps, v = ELASTIC_STEPS, ELASTIC["vshards"]
+    a = _elastic_run(tmp, "a_world1", 1)
+    ckpt = tmp / "b_ckpt"
+    b = _elastic_run(tmp, "b_world2", 2, ckpt=ckpt, ckpt_every=ELASTIC["ckpt_every"])
+    # (e) restarts from the checkpoint at step 4: the newest params file and
+    # rank 1's shard at step 4 fail their CRCs
+    tags = sorted(f.name[len("manifest_"):-len(".json")] for f in ckpt.glob("manifest_*.json"))
+    check(len(tags) == steps // ELASTIC["ckpt_every"], f"elastic (b) checkpoints: {tags}")
+    from deeplearning4j_tpu_torch.train.resilience import corrupt_file
+
+    corrupt_file(ckpt / f"ckpt_{tags[-1]}_params.npz")
+    corrupt_file(ckpt / f"shard_{tags[-2]}_r1.npz")
+    server = NetStoreServer()
+    host, port = server.start()
+    runs = {"a_world1": a, "b_world2": b}
+    errors = []
+
+    def run(name, *args, **kw):
+        try:
+            runs[name] = _elastic_run(tmp, name, *args, **kw)
+        except BaseException as e:        # noqa: BLE001 (re-raised below)
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(name, 2), kwargs=kw) for name, kw in (
+        ("c_kill_rejoin", dict(relaunch=1, chaos=f"host_kill@iter:3:rank1,slow_iter@iter:4:"
+                                                 f"rank0:{ELASTIC_REJOIN_STALL_S}")),
+        ("d_tcp", dict(store=f"tcp://{host}:{port}")),
+        ("e_restart", dict(ckpt=ckpt, ckpt_every=0)))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    server.stop()
+    if errors:
+        raise errors[0]
+
+    ref = a["workers"]["w0"]
+    want, want_losses = ref["params"], ref["result"]["losses"]
+    check(ref["result"]["iteration"] == steps and ref["result"]["world"] == 1,
+          f"elastic (a): {ref['result']}")
+    check(all(np.isfinite(want_losses)), f"elastic (a) losses {want_losses}")
+    res = {"phase": "elastic_train", "model": dict(LSTM_CONF), "rows": ELASTIC["rows"],
+           "global_batch": ELASTIC["batch"], "vshards": v, "steps": steps,
+           "ttl_s": ELASTIC["ttl"], "rejoin_stall_s": ELASTIC_REJOIN_STALL_S,
+           "tol": DP_PARAM_REL, "losses": want_losses, "runs": {}}
+    by_path = {}
+    for name, r in runs.items():
+        entry = {"seconds": r["seconds"], "workers": {}}
+        for wid, w in r["workers"].items():
+            rel = _tree_rel(w["params"], want)
+            bits = _bits_equal(w["params"], want)
+            walls = w["report"]["step_wall_s"]
+            result = w["result"]
+            entry["workers"][wid] = {
+                "world": result["world"], "gen": result["gen"],
+                "iteration": result["iteration"], "bit_equal_vs_world1": bits,
+                "losses_equal_vs_world1": result["losses"] == want_losses,
+                "params_max_rel_diff_vs_world1": rel,
+                "launches": w["report"]["launches"], "step_wall_s": walls,
+                "stall_s": result["stall_s"],
+                "stall_share": result["stall_s"] / max(sum(walls), 1e-12),
+                "store_bytes_per_step": result["payload_bytes"] / max(len(walls), 1),
+                "store_backend": result["store_backend"],
+                "host_split_s": w["report"]["host_split_s"],
+                "membership": [e["reason"] for e in w["events"]
+                               if e["kind"] == "membership_change"]}
+            check(bits or rel <= DP_PARAM_REL,
+                  f"elastic {name} {wid}: params rel {rel} against the world-1 run")
+            check(bits or np.allclose(result["losses"], want_losses, rtol=DP_PARAM_REL),
+                  f"elastic {name} {wid}: losses {result['losses']} vs {want_losses}")
+            lau = w["report"]["launches"]
+            check(lau["fused_lstm_fwd"] > 0 and lau["fused_lstm_fwd"] == lau["fused_lstm_bwd"],
+                  f"elastic {name} {wid}: kernels #4/#5 launched {lau}")
+            by_path[f"elastic_train_{name}_{wid}"] = lau
+        res["runs"][name] = entry
+    # (a) computes every vshard, (b) half of them each: 2 launches of #4
+    # and of #5 per vshard (two LSTM layers)
+    check(a["workers"]["w0"]["report"]["launches"]["fused_lstm_fwd"] == 2 * v * steps,
+          "elastic (a): launches of kernel #4")
+    for wid, w in b["workers"].items():
+        check(w["report"]["launches"]["fused_lstm_bwd"] == v * steps,
+              f"elastic (b) {wid}: launches of kernel #5 {w['report']['launches']}")
+        check(w["result"]["world"] == 2, f"elastic (b) {wid} ended at world {w['result']}")
+    c = runs["c_kill_rejoin"]["workers"]
+    check(set(c) == {"w0", "w1"} and all(w["result"]["world"] == 2 for w in c.values()),
+          "elastic (c): both workers must end at world 2 (the rejoin)")
+    reasons = res["runs"]["c_kill_rejoin"]["workers"]["w0"]["membership"]
+    check("shrink" in reasons and "grow" in reasons, f"elastic (c) membership {reasons}")
+    ts = {e.get("reason"): e["ts"] for e in c["w0"]["events"] if e["kind"] == "membership_change"}
+    kill_ts = [e["ts"] for e in c["w1"]["events"]
+               if e["kind"] == "chaos" and e.get("fault") == "host_kill"]
+    check(len(kill_ts) == 1, f"elastic (c): host_kill events {kill_ts}")
+    res["rejoin"] = {"kill_to_shrink_view_s": ts["shrink"] - kill_ts[0],
+                     "kill_to_relaunched_ready_s": c["w1"]["report"]["ready_ts"] - kill_ts[0],
+                     "relaunched_ready_to_grow_view_s": ts["grow"] - c["w1"]["report"]["ready_ts"],
+                     "kill_to_grow_view_s": ts["grow"] - kill_ts[0]}
+    check(runs["d_tcp"]["workers"]["w0"]["result"]["store_backend"] == "tcp", "elastic (d)")
+    ev = [e["kind"] for w in runs["e_restart"]["workers"].values() for e in w["events"]]
+    check("checkpoint_shard_dropped" in ev and "checkpoint_corrupt_fallback" in ev
+          and "elastic_restart_restore" in ev, "elastic (e): the fallbacks did not run")
+    for wid, w in runs["e_restart"]["workers"].items():
+        check(w["report"]["launches"]["fused_lstm_fwd"] == v * (steps - ELASTIC["ckpt_every"]),
+              f"elastic (e) {wid}: the restart ran {w['report']['launches']}")
+    walls = {W: [s for w in r["workers"].values() for s in w["report"]["step_wall_s"]]
+             for W, r in ((1, a), (2, b))}
+    res["step_wall_ms"] = {f"world{W}": {"median": 1e3 * float(np.median(x)),
+                                         "min": 1e3 * min(x), "max": 1e3 * max(x)}
+                           for W, x in walls.items()}
+    res["store_bytes_per_step"] = {
+        f"world{W}": sum(w["result"]["payload_bytes"] for w in r["workers"].values()) / steps
+        for W, r in ((1, a), (2, b))}
+    res["host_split_ms_per_step"] = {
+        f"world{W}_w0": {k: 1e3 * v / steps for k, v in
+                         r["workers"]["w0"]["report"]["host_split_s"].items()}
+        for W, r in ((1, a), (2, b))}
+    res["launches_by_path"] = by_path
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def _kernel_row(name, source, replaces, launches, by_path, max_abs_err, ms, plain_ms,
                 bound_ms, bound_by, library_ms, **extra):
     return dict({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -6431,14 +6780,23 @@ def main() -> int:
         torch.cuda.empty_cache()
     pinf = parallel_inference_phase()
     emit(pinf)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 37 runs worker processes on the card; each reports its launches
+    with tempfile.TemporaryDirectory() as tmp:
+        elas = elastic_train_phase(Path(tmp))
+    emit(elas)
     imp_by = imp["launches_by_path"]
     par_flash = {f"tp_train_rank{r}": rk["launches"]
                  for r, rk in enumerate(par["tp_train"]["ranks_detail"])}
+    par_flash.update({f"tp_train_gn_rank{r}": rk["launches"] for r, rk in
+                      enumerate(par["tp_train"]["gradient_normalization"]["ranks"])})
     par_lstm = {f"dp_train_{case}_rank{r}": rk[case]["launches"]
                 for r, rk in enumerate(par["dp_train"]["ranks_detail"]) for case in rk}
     par_lstm.update({f"gpipe_train_stage{rk['stage']}": rk["launches"]
                      for rk in par["gpipe_train"]["ranks_detail"]})
     par_lstm["parallel_inference"] = pinf["launches"]
+    par_lstm.update(elas["launches_by_path"])
 
     fwd_cases = kern["cases"]
     bwd_cases = kern["bwd_cases"]
@@ -6564,4 +6922,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["_rank"]:     # a rank of a parallel phase (parallel/launch.py)
         sys.exit(_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["_elastic"]:  # a worker of the elastic phase (train/elastic.py)
+        sys.exit(_elastic_main(sys.argv[2:]))
     sys.exit(main())

@@ -10,7 +10,7 @@ defaults and parameter tree (``enc``/``dec`` lists of ``{W, b}``, the
 Randomness (the reparameterization's eps) draws from a ``torch.Generator``
 passed as ``rng``, or is given as ``eps`` [num_samples, B, n_out] so a test
 can feed both packages the same noise. The layer-wise pretraining loop is
-not ported (ROADMAP Queue 1 item 4, ``train/pretrain.py``).
+``train/pretrain.py``.
 """
 
 from __future__ import annotations

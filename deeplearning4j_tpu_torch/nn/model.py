@@ -513,12 +513,15 @@ class MultiLayerNetwork:
         return (loss.detach(), new_state, tree_unflatten_like(self.params, grads),
                 new_carries)
 
-    def _update_params(self, grads, ok=None):
+    def _update_params(self, grads, ok=None, norm_sumsq=None):
         """The per-layer optimizer update (gradient normalization, updater,
         constraints), in place under ``torch.no_grad()``. With ``ok`` (the
         skip_batch guard's device bool) each layer's new params and updater
         state are computed out of place and ``torch.where(ok, new, old)``
-        is written back: a rejected update leaves both as they were."""
+        is written back: a rejected update leaves both as they were.
+        ``norm_sumsq(i)`` gives layer ``i``'s ``sumsq`` for gradient
+        normalization (``apply_gradient_normalization``; the tensor-parallel
+        trainer's norm spans the shards)."""
         self.init_opt_state()
         new_params, new_opt = [], []
         with torch.no_grad():
@@ -531,7 +534,8 @@ class MultiLayerNetwork:
                 gn = getattr(layer, "gradient_normalization", None)
                 if gn:
                     g = apply_gradient_normalization(
-                        gn, getattr(layer, "gradient_normalization_threshold", 1.0), g)
+                        gn, getattr(layer, "gradient_normalization_threshold", 1.0), g,
+                        sumsq=norm_sumsq(i) if norm_sumsq is not None else None)
                 upd, new_s = u.update(g, self.opt_state[i], p, self.iteration)
                 if ok is None:
                     for pi, d in zip(tree_leaves(p), tree_leaves(upd)):
@@ -550,7 +554,7 @@ class MultiLayerNetwork:
         self.params = tuple(new_params)
         self.opt_state = tuple(new_opt)
 
-    def _apply_step(self, loss, new_state, grads):
+    def _apply_step(self, loss, new_state, grads, norm_sumsq=None):
         """Update params, updater state and layer state from one batch's
         gradients, under the skip_batch select when that guard is on."""
         g = self.divergence_guard
@@ -558,10 +562,10 @@ class MultiLayerNetwork:
             from deeplearning4j_tpu_torch.train.resilience import guard_ok
 
             ok = guard_ok(loss, g.spike_limit)
-            self._update_params(grads, ok)
+            self._update_params(grads, ok, norm_sumsq)
             self.state = _select(ok, new_state, self.state)
         else:
-            self._update_params(grads)
+            self._update_params(grads, norm_sumsq=norm_sumsq)
             self.state = new_state
 
     def _step(self, x, y, fmask, lmask, ex_weight):

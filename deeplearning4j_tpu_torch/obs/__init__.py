@@ -47,6 +47,7 @@ __all__ = [
     "registry",
     "reset",
     "set_decode_occupancy",
+    "set_process_context",
     "snapshot",
     "span",
     "trace_scope",
@@ -148,7 +149,7 @@ def set_decode_occupancy(model: str, streams: int):
     _slo.set_decode_occupancy(model, streams)
 
 
-# -- fleet (trace context) --------------------------------------------------
+# -- fleet (trace and process context) ---------------------------------------
 
 def current_trace():
     """The thread's active W3C trace context, or None (see obs/fleet.py)."""
@@ -163,6 +164,14 @@ def trace_scope(ctx):
     from deeplearning4j_tpu_torch.obs import fleet as _fleet
 
     return _fleet.trace_scope(ctx)
+
+
+def set_process_context(**fields):
+    """Tag this process's spans/events with rank/wid/incarnation/slice
+    (see obs/fleet.py)."""
+    from deeplearning4j_tpu_torch.obs import fleet as _fleet
+
+    _fleet.set_process_context(**fields)
 
 
 # -- events -----------------------------------------------------------------

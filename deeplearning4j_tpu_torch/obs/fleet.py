@@ -39,17 +39,20 @@ from traced or per-batch dispatch code (enforced by the
 hot path and they are dict updates that never raise.
 
 Host-only copy of ``deeplearning4j_tpu/obs/fleet.py`` with imports
-re-pointed at this package. The collector CLI stays behind: it opens the
-elastic store (``parallel/netstore.py``), which the port has not carried
-over yet.
+re-pointed at this package. CLI::
+
+    python -m deeplearning4j_tpu_torch.obs.fleet serve  --store DIR|tcp://… --port 0
+    python -m deeplearning4j_tpu_torch.obs.fleet render --store DIR|tcp://…
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import re
 import socket
+import sys
 import threading
 import time
 from typing import Dict, List, Optional
@@ -538,3 +541,36 @@ def serve_collector(store, port: int = 0):
             return 404
 
     return httpcommon.start_server(FleetHandler, port)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m deeplearning4j_tpu_torch.obs.fleet",
+        description="Fleet metrics collector over an elastic store "
+                    "(FileStore dir or tcp://host:port netstore)")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    srv = sub.add_parser("serve", help="HTTP collector: /fleet/metrics + "
+                                       "/fleet/snapshots")
+    srv.add_argument("--store", required=True)
+    srv.add_argument("--port", type=int, default=0)
+    rnd = sub.add_parser("render", help="print the merged exposition once")
+    rnd.add_argument("--store", required=True)
+    args = ap.parse_args(argv)
+
+    from deeplearning4j_tpu_torch.parallel.netstore import open_store
+
+    store = open_store(args.store)
+    if args.cmd == "render":
+        sys.stdout.write(FleetCollector(store).prometheus_text())
+        return 0
+    httpd, thread, bound = serve_collector(store, port=args.port)
+    print(json.dumps({"port": bound}), flush=True)
+    try:
+        thread.join()
+    except KeyboardInterrupt:  # pragma: no cover - interactive stop
+        httpd.shutdown()
+    return 0
+
+
+if __name__ == "__main__":  # pragma: no cover - CLI shim
+    raise SystemExit(main())

@@ -5,10 +5,11 @@ through (``comm``), tensor and expert parallelism and the sharded trainer
 over ``data x model x seq`` (``tp``), ring attention over ``seq``, the
 compressed and sharded gradient exchange (``compress``, ``grads``),
 ParallelWrapper, the named-mesh trainer, GPipe and the pipeline runner,
-and ParallelInference. One process per rank (SPMD): NCCL on CUDA devices,
-gloo on the CPU (or, asked for, between ranks that share a card). The
-elastic runtime (membership, the network store, the elastic trainer) is
-the next slice, ROADMAP Queue 1 item 7."""
+ParallelInference, and the elastic runtime's membership (``elastic``:
+leases, views, the FileStore) and its TCP store (``netstore``); the
+elastic trainer is ``train/elastic.py``. One process per rank (SPMD):
+NCCL on CUDA devices, gloo on the CPU (or, asked for, between ranks that
+share a card); elastic workers exchange through the store instead."""
 
 from deeplearning4j_tpu_torch.parallel.compress import (
     decode_gathered,
@@ -27,6 +28,13 @@ from deeplearning4j_tpu_torch.parallel.distributed import (
     process_count,
     replicate_global,
     shutdown_distributed,
+)
+from deeplearning4j_tpu_torch.parallel.elastic import (
+    ElasticRuntime,
+    FileStore,
+    Membership,
+    MembershipChanged,
+    View,
 )
 from deeplearning4j_tpu_torch.parallel.gpipe import GPipeTrainer
 from deeplearning4j_tpu_torch.parallel.grads import DataParallelStep, GradExchange
@@ -48,4 +56,5 @@ __all__ = [
     "MeshTrainer", "shard_update_spec",
     "threshold_encode", "threshold_decode", "pack_ternary", "unpack_ternary",
     "encode_packed", "decode_gathered", "packed_nbytes",
+    "ElasticRuntime", "FileStore", "Membership", "MembershipChanged", "View",
 ]

@@ -23,6 +23,8 @@ would make (SPMD over ``torch.distributed``, one process per rank):
   experts combined by a SUM all-reduce, large dense / output weights
   column-sharded with their outputs gathered before the loss, embeddings
   feature-sharded and gathered. Updater state is sharded like its params;
+  gradient normalization of a layer takes its norm over every shard (each
+  sharded leaf's sum of squares all-reduced over ``model``);
   layer state (BatchNorm's statistics) is replicated and its batch
   statistics are those of the global batch (``nn/layers/normalization.py``);
 - every rank is given the global batch in :meth:`ShardedTrainer.fit_batch`
@@ -244,12 +246,6 @@ class ShardedTrainer:
     def _place(self):
         m = self.model
         n, r = self._tp.size, self._tp.index
-        for layer, lay in zip(m.layers, self.layouts):
-            if _has_shards(lay) and getattr(layer, "gradient_normalization", None):
-                raise NotImplementedError(
-                    f"gradient normalization of a tensor-sharded layer "
-                    f"({type(layer).__name__}) needs the norm over every shard; "
-                    f"not in the port (ROADMAP Queue 1)")
         shard = lambda v, lay: _shard(v, lay, n, r)
         with torch.no_grad():
             m.params = tuple(_map_layouts(shard, p, lay)
@@ -381,9 +377,26 @@ class ShardedTrainer:
             m._features(xs), _cast_labels(ys, m.dtype, m.device),
             _cast_mask(fms, m.dtype, m.device), _cast_mask(lms, m.dtype, m.device),
             None, b_global)
-        m._apply_step(loss, new_state, grads)
+        m._apply_step(loss, new_state, grads,
+                      norm_sumsq=self._norm_sumsq if self._tp.size > 1 else None)
         m.iteration += 1
         return loss
+
+    def _norm_sumsq(self, i: int):
+        """Layer ``i``'s per-leaf sums of squares for gradient normalization
+        (``train/updaters.py`` ``apply_gradient_normalization``): a sharded
+        leaf's local sum all-reduced over ``model``, a replicated leaf's
+        counted once. The JAX package gets the same global norm from
+        GSPMD."""
+        tp = self._tp
+
+        def sq(g, lay):
+            # f32 partial sums, rounded to the grads' dtype once after the
+            # all-reduce, as the one-process sum is rounded once
+            s = torch.sum(g * g, dtype=torch.float32)
+            return (s if lay is None else comm.all_reduce(s, tp)).to(g.dtype)
+
+        return lambda grads: _map_layouts(sq, grads, self.layouts[i])
 
     def fit(self, data, epochs: int = 1, batch_size: Optional[int] = None):
         """Train over ``data`` (as ``MultiLayerNetwork.fit`` takes it, no tail

@@ -23,23 +23,27 @@ resume, the divergence guard and the chaos harness.
   checkpoint and backs the LR off.
 - Chaos harness: ``DL4J_TPU_CHAOS=preempt@iter:8,corrupt_ckpt@ckpt:1:bitflip``
   (grammar in ``ChaosInjector``) for the faults ``preempt``, ``nan_grad``,
-  ``slow_iter`` and ``corrupt_ckpt``, deterministic and one-shot.
+  ``slow_iter`` and ``corrupt_ckpt``, and the distributed ones that the
+  elastic trainer (``train/elastic.py``) consults at its step boundary:
+  ``host_kill``, ``net_partition``, ``slice_kill`` and ``rack_partition``.
+  Deterministic and one-shot.
+- ``load_distributed_checkpoint``: the elastic trainer's layout (per-rank
+  shard files, a replicated params file and a CRC'd manifest written last,
+  the commit point); the same files as the JAX package's, read by either.
 
 While a data-parallel exchange is active (``parallel/grads.py``
 ``DataParallelStep``, ``model._dp_runner``), a checkpoint takes its
 optimizer state out of the exchange's layout and stores the compression
 residuals of every rank (a collective: every rank saves, each into its own
-directory in a multi-process run). Not here: the distributed checkpoint
-layout (``load_distributed_checkpoint``) and the host-kill, slice-kill and
-partition faults, which belong to the elastic runtime (ROADMAP Queue 1
-item 7, the elastic runtime that follows the parallel slice), and the
-compiled-executable
+directory in a multi-process run). Not here: the compiled-executable
 bundles that the JAX package saves beside a checkpoint (``nn/aot.py``,
-Queue 1 item 9).
+ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
 
+import glob
+import io
 import json
 import math
 import os
@@ -69,6 +73,7 @@ __all__ = [
     "guard_ok",
     "install_chaos",
     "io_with_retries",
+    "load_distributed_checkpoint",
     "load_state_into",
     "note_score",
     "resume",
@@ -280,6 +285,71 @@ def resume(model, directory):
 
 
 # ---------------------------------------------------------------------------
+# Distributed checkpoints (the elastic trainer's layout)
+# ---------------------------------------------------------------------------
+
+
+def _read_npz(path, what: str) -> Dict[str, np.ndarray]:
+    def read():
+        with open(path, "rb") as f:
+            return f.read()
+
+    with np.load(io.BytesIO(io_with_retries(read, what=what)), allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def load_distributed_checkpoint(directory) -> Optional[dict]:
+    """Load the newest VALID distributed checkpoint from ``directory``.
+
+    The elastic trainer's layout: per-rank shard files
+    ``shard_<tag>_r<rank>.npz`` (each rank's optimizer segments — its
+    primary 1/W slice AND the mirrors it carries — plus compression
+    residuals), a replicated ``ckpt_<tag>_params.npz`` (params, dense
+    updater state, layer state, meta), and a ``manifest_<tag>.json`` with
+    per-file CRC32 + size written LAST by rank 0 — the commit point.
+
+    Validation is per file: a manifest whose params file fails its CRC falls
+    back to the next-older manifest; a corrupt *shard* file is dropped on
+    its own, because every segment it held also lives in a mirror's shard —
+    only the trainer can judge whether the surviving set covers every
+    segment. Returns ``{"manifest", "params", "shards": {rank: arrays},
+    "path"}`` or None.
+    """
+    directory = os.fspath(directory)
+    manifests = sorted(glob.glob(os.path.join(directory, "manifest_*.json")),
+                       reverse=True)
+    for mpath in manifests:
+        try:
+            with open(mpath, "r") as f:
+                man = json.load(f)
+        except (OSError, ValueError):
+            obs.event("checkpoint_corrupt_fallback", path=mpath,
+                      reason="manifest unreadable")
+            continue
+        ppath = os.path.join(directory, man["params"]["file"])
+        if not validate_checkpoint(ppath, crc=man["params"]["crc"],
+                                   size=man["params"]["size"]):
+            obs.event("checkpoint_corrupt_fallback", path=ppath,
+                      reason="params file failed CRC/size")
+            continue
+        params = _read_npz(ppath, "read:params")
+        shards: Dict[int, Dict[str, np.ndarray]] = {}
+        for rank_s, meta in man.get("shards", {}).items():
+            spath = os.path.join(directory, meta["file"])
+            if not validate_checkpoint(spath, crc=meta["crc"], size=meta["size"]):
+                obs.event("checkpoint_shard_dropped", path=spath,
+                          rank=int(rank_s), reason="failed CRC/size")
+                continue
+            shards[int(rank_s)] = _read_npz(spath, f"read:shard{rank_s}")
+        obs.event("distributed_checkpoint_loaded", path=mpath,
+                  world=man.get("world"), shards=sorted(shards),
+                  iteration=man.get("iteration"))
+        return {"manifest": man, "params": params, "shards": shards,
+                "path": mpath}
+    return None
+
+
+# ---------------------------------------------------------------------------
 # Divergence guard
 # ---------------------------------------------------------------------------
 
@@ -450,9 +520,8 @@ class _Fault:
     fired: bool = False
 
 
-_FAULT_KINDS = ("preempt", "corrupt_ckpt", "nan_grad", "slow_iter")
-# the distributed faults of the JAX package, which the parallel slice ports
-_DISTRIBUTED_KINDS = ("host_kill", "net_partition", "slice_kill", "rack_partition")
+_FAULT_KINDS = ("preempt", "corrupt_ckpt", "nan_grad", "slow_iter",
+                "host_kill", "net_partition", "slice_kill", "rack_partition")
 
 
 def _parse_fault(token: str) -> _Fault:
@@ -475,10 +544,6 @@ def _parse_fault(token: str) -> _Fault:
                 "(use @iter:K or @ckpt:K)")
     elif ":" in token:
         name, arg = token.split(":", 1)
-    if name in _DISTRIBUTED_KINDS:
-        raise ValueError(
-            f"chaos fault {token!r}: {name!r} is a distributed fault, not "
-            "ported to deeplearning4j_tpu_torch yet (the parallel slice)")
     if name not in _FAULT_KINDS:
         raise ValueError(
             f"chaos fault {token!r}: unknown kind {name!r} "
@@ -529,11 +594,29 @@ class ChaosInjector:
       a real SIGKILL (``:kill``). Fires once per process.
     - ``nan_grad[@iter:K]`` — NaN-poison the batch features of iteration K
       (every float activation and gradient downstream goes NaN). Fires once.
-    - ``slow_iter[@iter:K][:seconds]`` — sleep before the step (default
-      0.05 s); without an anchor, every step (a stalled iterator).
+    - ``slow_iter[@iter:K][:rankN][:seconds]`` — sleep before the step
+      (default 0.05 s); without an anchor, every step (a stalled iterator).
+      A ``rankN`` target limits the stall to one data-parallel rank — the
+      deterministic straggler the fleet skew detector must flag.
     - ``corrupt_ckpt[@ckpt:K][:truncate|bitflip]`` — damage checkpoint
       number K (or the first one written) AFTER its CRC is recorded, so
       validation must catch it. Fires once.
+    - ``host_kill@iter:K[:rankN]`` — SIGKILL the process before the step
+      whose iteration is >= K, only when this worker's elastic rank matches
+      ``rankN`` (no target: every rank that consults the hook). Fires once;
+      drives the elastic shrink path.
+    - ``net_partition@iter:K[:rankN][:seconds]`` — this worker lands on the
+      wrong side of a switch: the elastic runtime suspends its lease
+      heartbeat and stalls for ``seconds`` (default 5.0). A stall longer
+      than the lease TTL gets the worker expelled; on waking it renews its
+      lease and rejoins through the membership handoff.
+    - ``slice_kill@iter:K[:sliceN]`` — SIGKILL the member whose slice index
+      (= elastic rank) matches ``sliceN``: one whole-slice preemption, one
+      membership event.
+    - ``rack_partition@iter:K[:LABEL][:seconds]`` — ``net_partition`` for a
+      whole rack: every worker whose ``DL4J_TPU_RACK`` label equals
+      ``LABEL`` (no label: all workers) suspends its heartbeat and stalls
+      for ``seconds`` (default 5.0).
 
     Faults are host-side and one-shot: a resumed run that re-executes the
     target iteration is not hit again (``install_chaos(None)`` or clearing
@@ -562,15 +645,21 @@ class ChaosInjector:
                 raise ChaosPreemption(
                     f"chaos: preempted at iteration {iteration}")
 
-    def maybe_slow(self, iteration: int) -> None:
+    def maybe_slow(self, iteration: int, *, rank: Optional[int] = None) -> None:
         for f in self.faults:
             if f.kind != "slow_iter":
+                continue
+            # rank-targeted straggler injection (``slow_iter:rank1:0.5``):
+            # only the targeted data-parallel rank stalls
+            target, rest = self._rank_arg(f.arg)
+            if target is not None and (rank is None or rank != target):
                 continue
             if f.at_iter is None or (iteration == f.at_iter and not f.fired):
                 if f.at_iter is not None:
                     f.fired = True
-                    obs.event("chaos", fault="slow_iter", iteration=iteration)
-                time.sleep(float(f.arg) if f.arg else 0.05)
+                    obs.event("chaos", fault="slow_iter", iteration=iteration,
+                              rank=rank)
+                time.sleep(float(rest) if rest else 0.05)
 
     def maybe_nan_batch(self, iteration: int, x):
         for f in self.faults:
@@ -581,6 +670,96 @@ class ChaosInjector:
                 obs.event("chaos", fault="nan_grad", iteration=iteration)
                 return _nan_like(x)
         return x
+
+    # -- distributed hooks (ElasticTrainer step boundary) -------------------
+    @staticmethod
+    def _prefixed_arg(arg: Optional[str], prefix: str):
+        """Split a fault arg into (target_index, rest) for a ``<prefix>N``
+        head: ``rank1:4.0`` -> (1, "4.0"), ``slice2`` -> (2, None), a
+        non-matching head -> (None, arg)."""
+        if not arg:
+            return None, None
+        head, _, rest = arg.partition(":")
+        if head.startswith(prefix) and head[len(prefix):].isdigit():
+            return int(head[len(prefix):]), (rest or None)
+        return None, arg
+
+    @staticmethod
+    def _rank_arg(arg: Optional[str]):
+        """Split a fault arg into (target_rank, rest): ``rank1:4.0`` ->
+        (1, "4.0"), ``rank2`` -> (2, None), ``3.5`` -> (None, "3.5")."""
+        return ChaosInjector._prefixed_arg(arg, "rank")
+
+    def maybe_host_kill(self, iteration: int, *, rank: int) -> None:
+        for f in self.faults:
+            if (f.kind != "host_kill" or f.fired or f.at_iter is None
+                    or iteration < f.at_iter):
+                continue
+            target, _ = self._rank_arg(f.arg)
+            if target is not None and target != rank:
+                continue
+            f.fired = True
+            obs.event("chaos", fault="host_kill", iteration=iteration, rank=rank)
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    def maybe_slice_kill(self, iteration: int, *, slice_index: int) -> None:
+        """SIGKILL this member process when a ``slice_kill`` fault targets
+        its slice index — one whole-slice preemption, one membership
+        event."""
+        for f in self.faults:
+            if (f.kind != "slice_kill" or f.fired or f.at_iter is None
+                    or iteration < f.at_iter):
+                continue
+            target, _ = self._prefixed_arg(f.arg, "slice")
+            if target is not None and target != slice_index:
+                continue
+            f.fired = True
+            obs.event("slice_kill", iteration=iteration, slice=slice_index)
+            obs.event("chaos", fault="slice_kill", iteration=iteration,
+                      slice=slice_index)
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    def rack_partition_seconds(self, iteration: int, *, rack: str) -> float:
+        """Non-zero when a ``rack_partition`` fault hits this worker's rack
+        label at this iteration; the caller owns the mechanics (suspend
+        heartbeat + stall), same as :meth:`partition_seconds`."""
+        for f in self.faults:
+            if (f.kind != "rack_partition" or f.fired or f.at_iter is None
+                    or iteration < f.at_iter):
+                continue
+            label: Optional[str] = None
+            secs = 5.0
+            if f.arg:
+                head, _, rest = f.arg.partition(":")
+                try:
+                    secs = float(head)   # bare seconds: every rack
+                except ValueError:
+                    label = head
+                    if rest:
+                        secs = float(rest)
+            if label is not None and label != rack:
+                continue
+            f.fired = True
+            obs.event("chaos", fault="rack_partition", iteration=iteration,
+                      rack=rack, seconds=secs)
+            return secs
+        return 0.0
+
+    def partition_seconds(self, iteration: int, *, rank: int) -> float:
+        """Non-zero when a ``net_partition`` fault targets this (iteration,
+        rank); the caller owns the mechanics (suspend heartbeat + stall)."""
+        for f in self.faults:
+            if (f.kind != "net_partition" or f.fired or f.at_iter is None
+                    or iteration < f.at_iter):
+                continue
+            target, rest = self._rank_arg(f.arg)
+            if target is not None and target != rank:
+                continue
+            f.fired = True
+            obs.event("chaos", fault="net_partition", iteration=iteration,
+                      rank=rank, seconds=rest)
+            return float(rest) if rest else 5.0
+        return 0.0
 
     # -- checkpoint hook (CheckpointListener._save) -------------------------
     def maybe_corrupt(self, path, ckpt_number: int) -> None:

@@ -316,30 +316,34 @@ def _sumsq(g):
     return torch.sum(g * g)
 
 
-def apply_gradient_normalization(mode: Optional[str], threshold: float, layer_grads):
+def apply_gradient_normalization(mode: Optional[str], threshold: float, layer_grads,
+                                 sumsq=None):
     """Apply one of DL4J's per-layer gradient normalization modes to a
-    layer's grad dict (possibly nested); returns the transformed grads."""
+    layer's grad dict (possibly nested); returns the transformed grads.
+    ``sumsq`` maps the grads to a tree of per-leaf sums of squares (the
+    default sums each leaf itself; the tensor-parallel trainer all-reduces
+    the sums of its sharded leaves, ``parallel/tp.py``)."""
     if not mode or mode == "none":
         return layer_grads
     mode = str(mode).lower()
     eps = 1e-8
-    leaves = tree_leaves(layer_grads)
+
+    def squares():
+        return tree_map(_sumsq, layer_grads) if sumsq is None else sumsq(layer_grads)
 
     if mode in ("renormalizel2perlayer", "renormalize_l2_per_layer"):
-        norm = torch.sqrt(sum(_sumsq(g) for g in leaves) + eps)
+        norm = torch.sqrt(sum(tree_leaves(squares())) + eps)
         return tree_map(lambda g: g / norm, layer_grads)
     if mode in ("renormalizel2perparamtype", "renormalize_l2_per_param_type"):
-        return tree_map(lambda g: g / torch.sqrt(_sumsq(g) + eps), layer_grads)
+        return tree_map(lambda g, s: g / torch.sqrt(s + eps), layer_grads, squares())
     if mode in ("clipelementwiseabsolutevalue", "clip_elementwise_absolute_value"):
         thr = float(threshold)
         return tree_map(lambda g: torch.clamp(g, -thr, thr), layer_grads)
     if mode in ("clipl2perlayer", "clip_l2_per_layer"):
-        norm = torch.sqrt(sum(_sumsq(g) for g in leaves) + eps)
+        norm = torch.sqrt(sum(tree_leaves(squares())) + eps)
         scale = torch.clamp_max(threshold / norm, 1.0)
         return tree_map(lambda g: g * scale, layer_grads)
     if mode in ("clipl2perparamtype", "clip_l2_per_param_type"):
-        def clip(g):
-            return g * torch.clamp_max(threshold / torch.sqrt(_sumsq(g) + eps), 1.0)
-
-        return tree_map(clip, layer_grads)
+        return tree_map(lambda g, s: g * torch.clamp_max(threshold / torch.sqrt(s + eps), 1.0),
+                        layer_grads, squares())
     raise ValueError(f"Unknown gradient normalization mode '{mode}'")

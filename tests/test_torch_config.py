@@ -90,7 +90,12 @@ def test_every_jax_layer_type_is_registered():
     from deeplearning4j_tpu.nn.config import layer_registry as jreg
     from deeplearning4j_tpu_torch.nn.config import layer_registry
 
-    assert set(jreg) <= set(layer_registry)
+    # the tags the JAX package's own modules register; a test module that
+    # registers a custom layer in the same process is not the package's
+    builtin = {tag for tag, cls in jreg.items()
+               if cls.__module__.startswith("deeplearning4j_tpu.")}
+    assert len(builtin) >= 56
+    assert builtin <= set(layer_registry)
 
 
 @pytest.mark.parametrize("make,kw", [

@@ -566,9 +566,13 @@ def test_unported_training_options_raise_naming_their_slice():
     assert m.iteration == 1
     guard = resilience.DivergenceGuard("warn")
     assert m.set_divergence_guard(guard).divergence_guard is guard
-    # the distributed chaos faults still wait for the parallel slice
-    with pytest.raises(ValueError, match="parallel slice"):
-        resilience.ChaosInjector.parse("host_kill@iter:1")
+    # the distributed chaos faults parse as they do in the JAX package
+    from deeplearning4j_tpu.train.resilience import ChaosInjector as JChaos
+
+    spec = "host_kill@iter:1:rank1,net_partition@iter:2:rank0:1.5"
+    got, want = resilience.ChaosInjector.parse(spec), JChaos.parse(spec)
+    assert [(f.kind, f.at_iter, f.arg) for f in got.faults] == \
+        [(f.kind, f.at_iter, f.arg) for f in want.faults]
 
 
 # -- zips, clone, summary -------------------------------------------------------

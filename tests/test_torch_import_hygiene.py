@@ -62,7 +62,8 @@ def test_importing_every_port_module_leaves_jax_out():
               "train.__main__", "utils.guesser", "parallel.comm", "parallel.compress",
               "parallel.grads", "parallel.wrapper", "parallel.inference",
               "parallel.mesh_step", "parallel.pipeline", "parallel.gpipe",
-              "parallel.launch"):
+              "parallel.launch", "parallel.elastic", "parallel.netstore",
+              "train.elastic", "obs.fleet"):
         assert f"deeplearning4j_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

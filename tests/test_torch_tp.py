@@ -13,12 +13,16 @@ Across processes: 4 gloo ranks (a FileStore under pytest's tmp dir,
 data=2 x model=2 (TransformerLM; the MoE TransformerLM; a net whose dense
 weight is column-sharded), model=2 x seq=2 (sequence-parallel attention on
 the local heads, ``head_axis``), BatchNorm over data=4, and an LSTM under
-data=2 x seq=2 (the time axis gathered around it); then ranks 0 and 1 form
-a world of two for model=2 alone. Losses and gathered params are held to
+data=2 x seq=2 (the time axis gathered around it), and the TransformerLM
+with each of the five gradient normalization modes on every layer with
+params (thresholds that clip; the norm of a tensor-sharded layer spans its
+shards) on data=2 x model=2; then ranks 0 and 1 form a world of two for
+model=2 alone. Losses and gathered params are held to
 the JAX package's ``ShardedTrainer`` on as many CPU devices at rtol 2e-4,
 and the ranks to each other bit for bit.
 """
 
+import dataclasses
 import os
 import pickle
 import sys
@@ -50,6 +54,21 @@ RTOL = dict(rtol=2e-4, atol=2e-5)
 SGD = {"type": "sgd", "lr": 0.1}
 LM = dict(vocab_size=16, max_len=8, d_model=16, n_heads=2, n_blocks=1, dtype="float32",
           updater=SGD)
+# gradient normalization (mode, threshold): thresholds below the layers'
+# gradient norms and entries, so the clip modes clip
+GN = {"gn_renorm_layer_d2m2": ("renormalize_l2_per_layer", 1.0),
+      "gn_renorm_ptype_d2m2": ("renormalize_l2_per_param_type", 1.0),
+      "gn_clip_elem_d2m2": ("clip_elementwise_absolute_value", 0.01),
+      "gn_clip_layer_d2m2": ("clip_l2_per_layer", 0.05),
+      "gn_clip_ptype_d2m2": ("clip_l2_per_param_type", 0.02)}
+
+
+def _gn_lm(mode, threshold):
+    conf = jzoo.TransformerLM(**LM)
+    layers = tuple(dataclasses.replace(l, gradient_normalization=mode,
+                                       gradient_normalization_threshold=threshold)
+                   for l in conf.layers)
+    return dataclasses.replace(conf, layers=layers)
 
 
 def _drop_knobs(mp):
@@ -103,6 +122,7 @@ def _confs():
         "bn_d4": (bn, (4, 1, 1), (xb, yb)),
         "lstm_d2s2": (lstm, (2, 1, 2), lstm_batch),
         "lm_m2": (jzoo.TransformerLM(**LM), (1, 2, 1), lm_batch),
+        **{name: (_gn_lm(*gn), (2, 2, 1), lm_batch) for name, gn in GN.items()},
     }
 
 
@@ -239,7 +259,7 @@ def gloo_run(tmp_path_factory):
         return ranks, jref
 
 
-CASES = ["lm_d2m2", "lm_m2s2", "moe_d2m2", "dense_d2m2", "bn_d4", "lstm_d2s2", "lm_m2"]
+CASES = ["lm_d2m2", "lm_m2s2", "moe_d2m2", "dense_d2m2", "bn_d4", "lstm_d2s2", "lm_m2", *GN]
 
 
 def _ranks_of(ranks, name):
