@@ -5,6 +5,9 @@ Run from the repository root on a host with a CUDA card:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py _runtime_layer`` builds the kernels and runs
+phase 38 alone, with a few extra readings of the runtime layer.)
+
 Phases, one JSON line each; any failure raises and the script exits
 non-zero (and without a result line when no CUDA device is present):
 
@@ -404,6 +407,40 @@ non-zero (and without a result line when no CUDA device is present):
    seconds from the kill to the shrink view, to the relaunched worker's
    start and to the grow view.
 
+38. runtime_layer — the runtime layer (slice 17), one line per step:
+   (a) serve: the phase 5 TransformerLM (full width, bf16) registered with
+   ``bundle=`` in a fresh directory: restored 0, buckets 1-16 warmed, each
+   priced by a counting pass, the bundle saved (bytes, entries); then a
+   fresh process (``python3 chip_smoke.py _bundle_child``) with
+   DL4J_TPU_COMPILE_CACHE set to this run's build directory registers the
+   same configuration from the bundle: restored = the saved entries, no
+   nvcc run (``_build.NVCC_RUNS``), the ledger's keys from the bundle; a
+   second fresh process registers it without a bundle (the control); every
+   process's seconds from ``register`` to the first 1 x 128 :predict
+   reply, each child's start split (context, library load, init, the
+   self-test, every warm dispatch), and kernels #1-#3's launches in each
+   (#2/#3 must stay 0); (b) the cost ledger: ``mln.output`` at every warmed bucket, its
+   b16 flops within RT_FLOPS_REL of 2 x tokens x the product weights plus
+   kernel #1's causal count, the MFU and bandwidth share from CUDA-event
+   device time of 4 sampled b16 dispatches (none above 1.0); (c)
+   ``memory_report(model, 16)``: params 2 bytes and Adam's f32 moments 8
+   bytes a parameter, inference and training footprints, the model
+   (params, updater state, generator, iteration) unchanged; (d) the
+   char-RNN (LSTM_CONF, 256 rows x 100 steps, batch 128, 2 epochs)
+   uninterrupted, then with a CheckpointListener (an ``.aotbundle``
+   sidecar beside each checkpoint) preempted before its third batch, then
+   resumed in a fresh model: the sidecar restored, losses and params bit
+   for bit, 2 + 2 launches a chunk; ``tune.tune_model`` on LeNet-5 (batch
+   256) over grad_accum {1, 2} x chain_steps {0, 8}, eta 2, 128 timed
+   steps a trial in the first round, every trial a subprocess on the card
+   and ``ok``, then ``fit`` under
+   DL4J_TPU_TUNE=auto applying the winner (``tune_applied``); (e) a
+   StatsListener on 4 char-RNN updates into a FileStatsStorage, UIServer's
+   /train/overview, /train/system (naming the card) and /debug/trace
+   answering 200, the live trace and the trace CLI's rendering of a span
+   dump both valid, ConvolutionalIterationListener's PNGs for one LeNet-5
+   epoch.
+
 It ends with the command time, the kernels line (launches of each kernel
 by path, the new phases' included), the card's name and power limit, and
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -434,6 +471,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import obs
+from deeplearning4j_tpu_torch.obs import profile
 from deeplearning4j_tpu_torch.interop import (
     params_from_numpy,
     params_to_numpy,
@@ -894,31 +932,19 @@ def time_cuda(fn, iters: int, warmup: int = 2) -> float:
 def attention_bound(B, T, H, D, causal, elem_bytes, peak_flops, kmask=False):
     """(bound_ms, bound_by, flops, bytes): the least time for the work these
     inputs need — the two products over the (query, key) pairs the mask
-    keeps, and q/k/v/out read or written once plus the f32 lse."""
-    pairs = T * (T + 1) // 2 if causal else T * T
-    flops = 4.0 * B * H * pairs * D
-    nbytes = 4.0 * B * T * H * D * elem_bytes + 4.0 * B * H * T
-    if kmask:
-        nbytes += 4.0 * B * T
-    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
-            flops, nbytes)
+    keeps, and q/k/v/out read or written once plus the f32 lse (the cost
+    ledger's own count, obs/profile.py attention_fwd_cost)."""
+    flops, nbytes = profile.attention_fwd_cost(B, T, T, H, D, causal, elem_bytes, kmask)
+    return (*profile.bound(flops, nbytes, peak_flops, PEAK_BYTES), flops, nbytes)
 
 
 def bwd_bound(B, T, H, D, causal, elem_bytes, kernel, kmask=False, peak=PEAK_BF16_FLOPS):
     """(bound_ms, bound_by, flops, bytes) of one backward kernel: its
     products over the kept (query, key) pairs — S, dP, dQ for dq; S, dP,
     dV, dK for dk/dv — and q, k, v, do, lse, delta read once and its
-    gradients written once."""
-    pairs = T * (T + 1) // 2 if causal else T * T
-    products, outs = (3, 1) if kernel == "dq" else (4, 2)
-    flops = 2.0 * products * B * H * pairs * D
-    nbytes = (4 + outs) * B * T * H * D * elem_bytes + 2 * 4.0 * B * H * T
-    if kmask:
-        nbytes += 4.0 * B * T
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
-            flops, nbytes)
+    gradients written once (obs/profile.py attention_bwd_cost)."""
+    flops, nbytes = profile.attention_bwd_cost(B, T, T, H, D, causal, elem_bytes, kernel, kmask)
+    return (*profile.bound(flops, nbytes, peak, PEAK_BYTES), flops, nbytes)
 
 
 def tile_rel_err(got, want, rows: int = 64) -> float:
@@ -1740,25 +1766,11 @@ def compare_lstm(case: dict) -> dict:
 def lstm_bound(B, T, H, elem_bytes, kernel, peep=True):
     """(bound_ms, bound_by, flops, bytes) of one launch at these shapes: the
     recurrent products (one forward, two backward) at the f32 FMA or bf16
-    tensor-core peak, and every input read once and output written once."""
+    tensor-core peak, and every input read once and output written once
+    (obs/profile.py lstm_cost)."""
     peak = PEAK_F32_FLOPS if elem_bytes == 4 else PEAK_BF16_FLOPS
-    e, f4 = float(elem_bytes), 4.0
-    btH, bH = B * T * H, B * H
-    if kernel == "fwd":
-        flops = 2.0 * B * T * H * 4 * H
-        # zx, Wh, h0, c0 (and peepholes) in; hs, gates, cs, h_T, c_T out
-        nbytes = e * (4 * btH + 4 * H * H + 2 * bH) + e * (6 * btH + 2 * bH)
-    else:
-        flops = 2 * 2.0 * B * T * H * 4 * H
-        # gates, cs, hprev (zx's dtype), cprev, dhs, mask (f32), Wh, dc_T in;
-        # dzx, dWh, dh0, dc0 (f32) out
-        nbytes = (e * (4 * btH + 2 * btH + 4 * H * H) + f4 * (2 * btH + B * T + bH)
-                  + f4 * (4 * btH + 4 * H * H + 2 * bH))
-    if peep:
-        nbytes += e * 3 * H + (f4 * 3 * H if kernel == "bwd" else 0.0)
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
-            flops, nbytes)
+    flops, nbytes = profile.lstm_cost(B, T, H, elem_bytes, kernel, peep)
+    return (*profile.bound(flops, nbytes, peak, PEAK_BYTES), flops, nbytes)
 
 
 def time_device(fn, iters: int) -> float:
@@ -2820,9 +2832,10 @@ def resilience_train_phase(tmp: Path) -> dict:
     check(preempted and b.iteration == RES_PREEMPT_AT,
           f"run (b) was not preempted at iteration {RES_PREEMPT_AT} ({b.iteration})")
     saves = [{"seconds": s["seconds"], "bytes": s["size"]} for s in lis.saves]
+    kept = f"checkpoint_{len(saves) - 1}_iter_{RES_PREEMPT_AT}_epoch_0.zip"
     check(len(saves) == RES_PREEMPT_AT // 2 and sorted(os.listdir(ckdir)) == sorted(
-        [f"checkpoint_{len(saves) - 1}_iter_{RES_PREEMPT_AT}_epoch_0.zip",
-         "checkpointInfo.json"]), f"checkpoint directory {sorted(os.listdir(ckdir))}")
+        [kept, kept + ".aotbundle", "checkpointInfo.json"]),   # the zip and its sidecar
+          f"checkpoint directory {sorted(os.listdir(ckdir))}")
     del b
     gc.collect()
     torch.cuda.empty_cache()
@@ -3259,25 +3272,15 @@ RING_EINSUM_TILE_REL = 2 * BWD_BF16_TILE_REL
 def chunk_pairs(Tq, Tk, q_offset, k_offset, causal) -> int:
     """The (query, key) pairs a chunk's causal mask keeps (all Tq * Tk
     without one): query q sees keys k <= q + q_offset - k_offset."""
-    if not causal:
-        return Tq * Tk
-    seen = np.clip(np.arange(Tq) + q_offset - k_offset + 1, 0, Tk)
-    return int(seen.sum())
+    return profile.attention_pairs(Tq, Tk, causal, q_offset, k_offset)
 
 
 def chunk_bound(B, Tq, Tk, H, D, pairs, elem_bytes, peak, with_bwd):
     """(bound_ms, bound_by) of a chunk entry: its products over the kept
-    pairs (the forward's two; with the backward, its five more: S and dP
-    again, dQ, dK, dV) and its inputs read once and outputs written once
-    (q, k, v in, out and lse out; with the backward also do and dlse in,
-    dq, dk and dv out)."""
-    flops = (2 + 2 + (10 if with_bwd else 0)) * B * H * pairs * D
-    q_side, k_side = B * Tq * H * D * elem_bytes, B * Tk * H * D * elem_bytes
-    nbytes = 2 * q_side + 2 * k_side + 4.0 * B * H * Tq
-    if with_bwd:
-        nbytes += 2 * q_side + 2 * k_side + 4.0 * B * H * Tq
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    pairs and its inputs read once and outputs written once
+    (obs/profile.py chunk_cost)."""
+    flops, nbytes = profile.chunk_cost(B, Tq, Tk, H, D, pairs, elem_bytes, with_bwd)
+    return profile.bound(flops, nbytes, peak, PEAK_BYTES)
 
 
 def _chunk_operands(case):
@@ -6610,6 +6613,452 @@ def elastic_train_phase(tmp: Path) -> dict:
     return res
 
 
+# -- phase 38 ----------------------------------------------------------------
+
+RT_TUNE_GRID = {"grad_accum": [1, 2], "chain_steps": ["0", "8"]}
+RT_TUNE = dict(batch=256, base_steps=128, warmup_steps=1, eta=2, timeout_s=300)
+RT_CHARRNN = dict(rows=256, T=100, seed=38)   # 2 batches of 128 x 2 tBPTT chunks
+RT_FLOPS_REL = 2e-2        # counted vs analytic forward flops at b16
+RT_CHILD_TIMEOUT_S = 600
+
+
+def _charrnn_rows(rows, T, seed):
+    V = LSTM_CONF["vocab_size"]
+    return _charrnn_data(rows, T, V, seed)
+
+
+def _bundle_child_main(argv) -> int:
+    """The fresh process of phase 38 (a): ``python3 chip_smoke.py
+    _bundle_child <bundle or -> <report.json>``, with DL4J_TPU_COMPILE_CACHE
+    set to the parent's build directory. Registers the full-width
+    TransformerLM from the bundle (``-``: without one, the control), serves
+    one :predict and reports where the time went: the CUDA context, the
+    kernel library load and the model's init, each before ``register``;
+    then every warm dispatch of the register (its ``compile`` spans) and
+    the reply."""
+    bundle, out = argv
+    bundle = None if bundle == "-" else bundle
+    split = {"main_wall": time.time()}
+    t = time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        now = time.perf_counter()
+        split[name] = now - t
+        t = now
+
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    lap("context_s")
+    _build.load("flash_fwd")
+    lap("library_load_s")
+    model = MultiLayerNetwork(zoo.TransformerLM(**FLAGSHIP_CONF)).init()
+    torch.cuda.synchronize()
+    lap("model_init_s")
+    _zero_flash_counts()
+    registry = ModelRegistry(config=ServeConfig(
+        max_batch=16, queue_limit=64, max_wait_s=0.01, default_deadline_s=600.0))
+    t1 = time.perf_counter()
+    registry.register("lm", model, bundle=bundle)
+    torch.cuda.synchronize()
+    lap("register_s")
+    server = InferenceServer(registry).start(port=0)
+    ids = torch.randint(0, FLAGSHIP_CONF["vocab_size"], (1, 128),
+                        generator=torch.Generator().manual_seed(5))
+    try:
+        status, payload, _ = post_predict(server.port, "lm", ids.tolist(), 600000.0)
+        first_reply_s = time.perf_counter() - t1
+        lap("first_predict_s")
+    finally:
+        server.stop(shutdown_registry=False)
+    warms = [{"mode": r["attrs"].get("mode"), "wall_s": r["wall_s"]}
+             for r in obs.recent_spans() if r["span"] == "compile"
+             and r.get("attrs", {}).get("site") == "mln.output"]
+    meta = registry.describe()[0]
+    rep = {"bundle": bundle is not None, "split": split, "warm_dispatches": warms,
+           "register_to_first_reply_s": first_reply_s,
+           "status": status, "restored": meta["restored"], "warmed": meta["warmed"],
+           "warm_seconds": meta["warm_seconds"], "nvcc_runs": list(_build.NVCC_RUNS),
+           "libraries_loaded": sorted(_build.BUILD_LOG), "build_dir": str(_build.BUILD_DIR),
+           "launches": _launch_counts(),
+           "cost_keys": sorted(obs.cost_report()["sites"].get("mln.output", {})),
+           "rejected": obs.event_log().counts().get("aot_bundle_rejected", 0),
+           "finite": bool(np.isfinite(np.asarray(payload["outputs"])).all())}
+    Path(out).write_text(json.dumps(rep))
+    registry.shutdown()
+    return 0
+
+
+def _lm_analytic_fwd_flops(model, rows, T) -> float:
+    """2 x tokens x the weights of the products (embedding tables are
+    lookups) plus kernel #1's causal count in every block."""
+    weights, blocks = 0, 0
+    for layer, p in zip(model.layers, model.params):
+        kind = type(layer).__name__
+        if kind in ("EmbeddingSequence", "PositionalEmbedding"):
+            continue
+        blocks += kind == "TransformerBlock"
+        weights += sum(t.numel() for t in tree_leaves(p) if t.dim() == 2)
+    H = FLAGSHIP_CONF["n_heads"]
+    attn, _ = profile.attention_fwd_cost(rows, T, T, H, FLAGSHIP_CONF["d_model"] // H,
+                                         True, 2)
+    return 2.0 * rows * T * weights + blocks * attn
+
+
+def _rt_serve(tmp: Path) -> dict:
+    """(a) cold register with a bundle, then a fresh process from it; (b)
+    the cost ledger; (c) the memory report of the same model."""
+    from deeplearning4j_tpu_torch.nn.memory import memory_report
+
+    vocab, T = FLAGSHIP_CONF["vocab_size"], FLAGSHIP_CONF["max_len"]
+    bundle = tmp / "lm.aotbundle"
+    obs.reset()
+    ids = torch.randint(0, vocab, (1, 128), generator=torch.Generator().manual_seed(5))
+    model = MultiLayerNetwork(zoo.TransformerLM(**FLAGSHIP_CONF)).init()
+    torch.cuda.synchronize()
+    registry = ModelRegistry(config=ServeConfig(
+        max_batch=16, queue_limit=64, max_wait_s=0.01, default_deadline_s=600.0))
+    _zero_flash_counts()
+    t0 = time.perf_counter()
+    registry.register("lm", model, bundle=str(bundle))
+    server = InferenceServer(registry).start(port=0)
+    try:
+        status, payload, _ = post_predict(server.port, "lm", ids.tolist(), 600000.0)
+        first_reply_s = time.perf_counter() - t0
+    finally:
+        server.stop(shutdown_registry=False)
+    check(status == 200, f"cold :predict status {status}")
+    check_rows(torch.tensor(payload["outputs"]), (1, 128, vocab), "cold :predict")
+    meta = registry.describe()[0]
+    buckets = [1, 2, 4, 8, 16]
+    check(meta["restored"] == 0 and meta["warm_buckets"] == buckets
+          and meta["warmed"] == len(buckets),
+          f"cold register: restored {meta['restored']}, buckets {meta['warm_buckets']}")
+    check(bundle.exists(), "the cold register wrote no bundle")
+    with zipfile.ZipFile(bundle) as zf:
+        manifest = json.loads(zf.read("manifest.json"))
+    entries = len(manifest["entries"])
+    cold_launches = _launch_counts()
+    check(cold_launches["flash_fwd"] > 0 and cold_launches["flash_bwd_dq"] == 0
+          and cold_launches["flash_bwd_dkv"] == 0, f"cold register launches {cold_launches}")
+    cold = {"register_to_first_reply_s": first_reply_s, "warm_seconds": meta["warm_seconds"],
+            "launches": cold_launches,
+            "bundle_bytes": bundle.stat().st_size, "bundle_entries": entries,
+            "fingerprint": {k: manifest[k] for k in ("torch_version", "cuda_version",
+                                                     "device_name", "backend")}}
+    check(entries >= len(buckets), f"the bundle holds {entries} entries")
+
+    # fresh processes, from the bundle and without one, loading the kernel
+    # libraries this process built (DL4J_TPU_COMPILE_CACHE)
+    env = dict(os.environ, DL4J_TPU_COMPILE_CACHE=str(_build.BUILD_DIR))
+    children = {}
+    for name, arg in (("from_bundle", str(bundle)), ("no_bundle", "-")):
+        report = tmp / f"{name}.json"
+        t1, w1 = time.perf_counter(), time.time()
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "_bundle_child",
+                               arg, str(report)], env=env, capture_output=True,
+                              text=True, timeout=RT_CHILD_TIMEOUT_S)
+        check(proc.returncode == 0,
+              f"{name} child exited {proc.returncode}: {proc.stderr[-2000:]}")
+        child = json.loads(report.read_text())
+        child["process_s"] = time.perf_counter() - t1
+        child["split"]["start_to_main_s"] = child["split"].pop("main_wall") - w1
+        check(child["status"] == 200 and child["finite"], f"{name} :predict {child['status']}")
+        check(child["nvcc_runs"] == [], f"the {name} child ran nvcc for {child['nvcc_runs']}")
+        check(child["cost_keys"] == sorted(f"b{b}" for b in buckets),
+              f"{name} child ledger keys {child['cost_keys']}")
+        cl = child["launches"]
+        check(cl["flash_fwd"] > 0 and cl["flash_bwd_dq"] == 0 and cl["flash_bwd_dkv"] == 0,
+              f"{name} child launches {cl}")
+        children[name] = child
+    child = children["from_bundle"]
+    check(child["restored"] == entries and child["rejected"] == 0,
+          f"child restored {child['restored']} of {entries} entries "
+          f"({child['rejected']} rejections)")
+    check(children["no_bundle"]["restored"] == 0
+          and children["no_bundle"]["warmed"] == len(buckets),
+          f"the control restored {children['no_bundle']['restored']}")
+
+    # (b) the ledger: every warmed bucket, the b16 count against the analytic
+    every, profile.SAMPLE_EVERY = profile.SAMPLE_EVERY, 1   # sample every dispatch
+    try:
+        x16 = torch.randint(0, vocab, (16, T), generator=torch.Generator().manual_seed(6))
+        for _ in range(4):
+            model.output(x16)
+        torch.cuda.synchronize()
+        rep = obs.cost_report()
+    finally:
+        profile.SAMPLE_EVERY = every
+    sites = rep["sites"].get("mln.output", {})
+    check(sorted(sites) == sorted(f"b{b}" for b in buckets), f"ledger keys {sorted(sites)}")
+    e16 = sites["b16"]
+    want = _lm_analytic_fwd_flops(model, 16, T)
+    rel = abs(e16["flops"] - want) / want
+    check(rel <= RT_FLOPS_REL, f"b16 counted flops {e16['flops']:.4e} vs analytic "
+                               f"{want:.4e} ({rel:.2%})")
+    check(e16["kernels"].get("flash_fwd", {}).get("launches") == 8,
+          f"the counting pass saw {e16['kernels']} kernel launches")
+    u = rep["utilization"].get("mln.output")
+    check(u is not None and u["timebase"] == "device" and "error" not in u
+          and u["mfu"] <= 1.0 and u["membw_util"] <= 1.0,
+          f"mln.output's device-time utilization: {u}")
+    ledger = {"b16": {k: e16[k] for k in ("flops", "bytes_accessed", "peak_hbm_bytes",
+                                          "kernels")},
+              "analytic_flops": want, "rel_err": rel, "utilization": u,
+              "flops_by_bucket": {k: v["flops"] for k, v in sites.items()},
+              "roofline": rep["roofline"]}
+
+    # (c) the memory report of the same model, which must not train it
+    before = [t.detach().clone() for t in tree_leaves(model.params)]
+    had_opt = model.opt_state is not None
+    gen_state = model._gen.get_state()
+    _zero_flash_counts()
+    t2 = time.perf_counter()
+    mr = memory_report(model, 16)
+    torch.cuda.synchronize()
+    mem_s = time.perf_counter() - t2
+    mem_launches = _launch_counts()
+    same = (all(torch.equal(a, b) for a, b in zip(before, tree_leaves(model.params)))
+            and (model.opt_state is not None) == had_opt
+            and torch.equal(model._gen.get_state(), gen_state) and model.iteration == 0)
+    check(same, "memory_report changed the model")
+    n = model.num_params()
+    check(mr.params_bytes == 2 * n, f"params {mr.params_bytes} bytes for {n} bf16 params")
+    check(mr.opt_state_bytes == 2 * 4 * n, f"Adam state {mr.opt_state_bytes} bytes")
+    memory = {"params_bytes": mr.params_bytes, "opt_state_bytes": mr.opt_state_bytes,
+              "inference": mr.inference, "training": mr.training, "seconds": mem_s,
+              "launches": mem_launches, "model_unchanged": same}
+    del before
+    registry.shutdown()
+    del model
+    return {"cold": cold, **children, "ledger": ledger, "memory": memory,
+            "launches": {"cold_serve": cold_launches,
+                         "bundle_child": children["from_bundle"]["launches"],
+                         "no_bundle_child": children["no_bundle"]["launches"],
+                         "memory_report": mem_launches}}
+
+
+def _rt_charrnn(tmp: Path) -> dict:
+    """(d, first half) the char-RNN with a checkpoint sidecar, resumed in a
+    fresh model: bit-equal losses and params."""
+    from deeplearning4j_tpu_torch.nn import aot
+    from deeplearning4j_tpu_torch.train.checkpoint import CheckpointListener
+    from deeplearning4j_tpu_torch.train.resilience import ChaosPreemption, install_chaos
+
+    conf = zoo.TextGenerationLSTM(**LSTM_CONF)
+    x, y = _charrnn_rows(**RT_CHARRNN)
+    B = LSTM_SHAPE["B"]
+    _zero_lstm_counts()
+    a = MultiLayerNetwork(conf).init()
+    sa = CollectScoresListener()
+    a.set_listeners(sa).fit((x, y), epochs=2, batch_size=B)
+    want = _host_leaves(a.params)
+    launches = {"uninterrupted": _lstm_launches()}
+    ck = tmp / "charrnn_ck"
+    m = MultiLayerNetwork(conf).init()
+    sm = CollectScoresListener()
+    m.set_listeners(sm, CheckpointListener(ck, save_every_n_iterations=2, keep_last=1))
+    install_chaos("preempt@iter:4")   # before the third batch (2 chunks a batch)
+    _zero_lstm_counts()
+    try:
+        m.fit((x, y), epochs=2, batch_size=B)
+    except ChaosPreemption:
+        pass
+    finally:
+        install_chaos(None)
+    launches["preempted"] = _lstm_launches()
+    sidecars = sorted(p.name for p in ck.glob("*.aotbundle"))
+    check(sidecars, "the checkpoint wrote no .aotbundle sidecar")
+    r = MultiLayerNetwork(conf).init()
+    sr = CollectScoresListener()
+    restored0 = obs.event_log().counts().get("aot_bundle_restored", 0)
+    _zero_lstm_counts()
+    r.set_listeners(sr).fit((x, y), epochs=2, batch_size=B, resume_from=str(ck))
+    torch.cuda.synchronize()
+    launches["resumed"] = _lstm_launches()
+    restored = obs.event_log().counts().get("aot_bundle_restored", 0) - restored0
+    check(restored == 1, f"resume restored {restored} bundles")
+    got = _host_leaves(r.params)
+    equal_losses = bool(sr.scores) and sr.scores == sa.scores[-len(sr.scores):]
+    check(_bits_equal(got, want) and equal_losses,
+          f"the resumed char-RNN differs: params max |diff| {_max_diff(got, want)}, "
+          f"losses {sr.scores} vs {sa.scores}")
+    check(launches["uninterrupted"] == {"fused_lstm_fwd": 16, "fused_lstm_bwd": 16}
+          and launches["resumed"] == {"fused_lstm_fwd": 8, "fused_lstm_bwd": 8},
+          f"char-RNN launches {launches} (2 + 2 a tBPTT chunk)")
+    return {"sidecars": sidecars, "bundle_restored": restored,
+            "restored_signatures": len(r._get_tbptt_fn().signatures()),
+            "losses_uninterrupted": sa.scores, "losses_resumed": sr.scores,
+            "bit_equal": True, "launches": launches}
+
+
+def _rt_tune(tmp: Path) -> dict:
+    """(d, second half) tune_model on LeNet-5 in subprocess trials on the
+    card, then fit under DL4J_TPU_TUNE=auto applies the winner."""
+    from deeplearning4j_tpu_torch import tune
+
+    db_path = tmp / "tunedb.zip"
+    saved = {k: os.environ.get(k) for k in ("DL4J_TPU_TUNE", "DL4J_TPU_TUNE_DB",
+                                            "DL4J_TPU_GRAD_ACCUM", "DL4J_TPU_CHAIN_STEPS")}
+    for k in ("DL4J_TPU_TUNE", "DL4J_TPU_GRAD_ACCUM", "DL4J_TPU_CHAIN_STEPS"):
+        os.environ.pop(k, None)
+    os.environ["DL4J_TPU_TUNE_DB"] = str(db_path)
+    try:
+        model = MultiLayerNetwork(zoo.LeNet5()).init()
+        x, y = _lenet_images(RT_TUNE["batch"], 38)
+        t0 = time.perf_counter()
+        entry = tune.tune_model(model, x, y, overrides=RT_TUNE_GRID, db=tune.TuningDB(db_path),
+                                base_steps=RT_TUNE["base_steps"],
+                                warmup_steps=RT_TUNE["warmup_steps"], eta=RT_TUNE["eta"],
+                                timeout_s=RT_TUNE["timeout_s"])
+        search_s = time.perf_counter() - t0
+        hist = entry["history"]
+        check(all(h["ok"] for h in hist),
+              f"a tuning trial failed: {[h for h in hist if not h['ok']]}")
+        check(len(hist) == 6, f"{len(hist)} trials for a 4-config grid at eta 2")
+        applied0 = obs.event_log().counts().get("tune_applied", 0)
+        os.environ["DL4J_TPU_TUNE"] = "auto"
+        fresh = MultiLayerNetwork(zoo.LeNet5()).init()
+        fresh.fit((x, y), epochs=1, batch_size=RT_TUNE["batch"])
+        applied = obs.event_log().counts().get("tune_applied", 0) - applied0
+        env = {k: os.environ.get(k) for k in ("DL4J_TPU_GRAD_ACCUM", "DL4J_TPU_CHAIN_STEPS")}
+        check(applied == 1 and env["DL4J_TPU_GRAD_ACCUM"] == str(entry["knobs"]["grad_accum"])
+              and env["DL4J_TPU_CHAIN_STEPS"] == str(entry["knobs"]["chain_steps"]),
+              f"fit under DL4J_TPU_TUNE=auto: {applied} tune_applied events, env {env}, "
+              f"winner {entry['knobs']}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return {"grid": RT_TUNE_GRID, "batch": RT_TUNE["batch"], "eta": RT_TUNE["eta"],
+            "trials": [{"knobs": h["knobs"], "steps_per_sec": h["steps_per_sec"], "ok": h["ok"]}
+                       for h in hist],
+            "winner": entry["knobs"], "objective": entry["objective"],
+            "search_s": search_s, "applied_env": env}
+
+
+def _rt_dashboard(tmp: Path) -> dict:
+    """(e) StatsListener into a FileStatsStorage, UIServer routes, the live
+    trace and the trace CLI, ConvolutionalIterationListener PNGs."""
+    from deeplearning4j_tpu_torch.obs import trace_export
+    from deeplearning4j_tpu_torch.ui import (ConvolutionalIterationListener, FileStatsStorage,
+                                             StatsListener, UIServer)
+
+    storage = FileStatsStorage(str(tmp / "stats.jsonl"))
+    x, y = _charrnn_rows(**RT_CHARRNN)
+    _zero_lstm_counts()
+    m = MultiLayerNetwork(zoo.TextGenerationLSTM(**LSTM_CONF)).init()
+    m.set_listeners(StatsListener(storage)).fit((x, y), epochs=1, batch_size=LSTM_SHAPE["B"])
+    launches = _lstm_launches()
+    check(m.iteration == 4, f"the char-RNN took {m.iteration} updates")
+    sessions = storage.list_session_ids()
+    check(len(sessions) == 1 and storage.get_all_updates(sessions[0]),
+          f"stats storage holds {sessions}")
+    ui = UIServer()
+    ui.attach(storage)
+    ui.serve(0)
+    routes = {}
+    try:
+        for route in ("/train/overview", "/train/system", "/debug/trace"):
+            with urllib.request.urlopen(f"http://127.0.0.1:{ui.port}{route}", timeout=60) as r:
+                routes[route] = (r.status, r.read())
+    finally:
+        ui.stop()
+    check(all(s == 200 for s, _ in routes.values()),
+          f"UI routes: {({k: s for k, (s, _) in routes.items()})}")
+    name = torch.cuda.get_device_name(0)
+    check(name in routes["/train/system"][1].decode(), "/train/system does not name the card")
+    live = json.loads(routes["/debug/trace"][1])
+    live_problems = trace_export.validate(live)
+    dump = tmp / "spans.json"
+    n_spans = obs.save_spans(str(dump))
+    out = tmp / "trace.json"
+    proc = subprocess.run([sys.executable, "-m", "deeplearning4j_tpu_torch.obs.trace_export",
+                           "--spans", str(dump), "--out", str(out), "--validate"],
+                          capture_output=True, text=True, timeout=120)
+    cli_problems = trace_export.validate(json.loads(out.read_text())) if out.exists() else ["no output"]
+    check(not live_problems and proc.returncode == 0 and not cli_problems,
+          f"trace invalid: live {live_problems[:3]}, cli rc {proc.returncode} "
+          f"{cli_problems[:3]} {proc.stderr[-500:]}")
+    # one LeNet-5 epoch with the activation-grid listener
+    lx, ly = _lenet_images(512, 39)
+    net = MultiLayerNetwork(zoo.LeNet5()).init()
+    cl = ConvolutionalIterationListener(lx[:1], str(tmp / "conv"), frequency=1)
+    net.set_listeners(cl).fit((lx, ly), epochs=1, batch_size=256)
+    pngs = sorted(Path(tmp / "conv").glob("*.png"))
+    check(len(pngs) >= 2 and all(p.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n" for p in pngs),
+          f"ConvolutionalIterationListener wrote {len(pngs)} PNGs")
+    return {"stats_updates": len(storage.get_all_updates(sessions[0])),
+            "routes": {k: {"status": s, "bytes": len(b)} for k, (s, b) in routes.items()},
+            "spans": n_spans, "live_trace_events": len(live["traceEvents"]),
+            "cli_trace_events": len(json.loads(out.read_text())["traceEvents"]),
+            "pngs": len(pngs), "launches": launches}
+
+
+def runtime_layer_phase(tmp: Path) -> dict:
+    """Phase 38: the runtime layer (trace export, the cost ledger, bundles
+    and the kernel-library cache, the memory report, the tuner, the
+    dashboard) around the full-width TransformerLM and the char-RNN."""
+    t0 = time.perf_counter()
+    res = {"phase": "runtime_layer"}
+    steps = (("serve", _rt_serve), ("charrnn", _rt_charrnn), ("tune", _rt_tune),
+             ("dashboard", _rt_dashboard))
+    for key, fn in steps:
+        t1 = time.perf_counter()
+        res[key] = fn(tmp)
+        res[key]["step_s"] = time.perf_counter() - t1
+        emit({"phase": f"runtime_layer.{key}", **res[key]})
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def _runtime_layer_main(argv) -> int:
+    """``python3 chip_smoke.py _runtime_layer``: phase 38 alone, for work on
+    the runtime layer. Builds the kernels and runs the phase (its step
+    lines), then times the flagship's five warm dispatches priced and
+    unpriced in this warm process (what a counting pass adds to each),
+    twice each, and tunes LeNet-5 a second time (is the winner the same?).
+    Prints one JSON line of those extras."""
+    from deeplearning4j_tpu_torch.nn import aot
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    emit(build_report())
+    with tempfile.TemporaryDirectory() as tmp:
+        rt = runtime_layer_phase(Path(tmp))
+    walls = {"priced": [], "unpriced": []}
+    for price in (True, False, True, False):
+        model = MultiLayerNetwork(zoo.TransformerLM(**FLAGSHIP_CONF)).init()
+        fn = model._get_output_fn()
+        run = []
+        for b in (1, 2, 4, 8, 16):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn.warm(aot._dummy_features(model, b), None, cost_key=f"b{b}", price=price)
+            torch.cuda.synchronize()
+            run.append(time.perf_counter() - t0)
+        walls["priced" if price else "unpriced"].append(run)
+        del model, fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        again = _rt_tune(Path(tmp))
+    emit({"phase": "runtime_layer.extras", "nvidia_smi": card, "seconds": rt["seconds"],
+          "warm_dispatch_s": walls,
+          "tune": [{"trials": [(h["knobs"], h["steps_per_sec"]) for h in r["trials"]],
+                    "winner": r["winner"]} for r in (rt["tune"], again)]})
+    return 0
+
+
 def _kernel_row(name, source, replaces, launches, by_path, max_abs_err, ms, plain_ms,
                 bound_ms, bound_by, library_ms, **extra):
     return dict({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -6786,6 +7235,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         elas = elastic_train_phase(Path(tmp))
     emit(elas)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 38 counts its launches step by step
+    with tempfile.TemporaryDirectory() as tmp:
+        rt = runtime_layer_phase(Path(tmp))
+    emit({"phase": "runtime_layer", "seconds": rt["seconds"],
+          "steps_s": {k: rt[k]["step_s"] for k in ("serve", "charrnn", "tune", "dashboard")}})
     imp_by = imp["launches_by_path"]
     par_flash = {f"tp_train_rank{r}": rk["launches"]
                  for r, rk in enumerate(par["tp_train"]["ranks_detail"])}
@@ -6818,6 +7274,8 @@ def main() -> int:
         by.update({f"model_import_{path}": n[name] for path, n in imp_by.items()})
         by["data_path"] = dpath["launches"][name]
         by.update({path: n[name] for path, n in par_flash.items()})
+        rl = rt["serve"]["launches"]
+        by.update({f"runtime_layer_{path}": n[name] for path, n in rl.items()})
         return by
 
     fwd_by = dict({"serve": srv["launches"], "train": tl["flash_fwd"]},
@@ -6897,6 +7355,9 @@ def main() -> int:
         by_path.update({f"model_import_{path}": n[name] for path, n in imp_by.items()})
         by_path["data_path"] = dpath["launches"][name]
         by_path.update({path: n[name] for path, n in par_lstm.items()})
+        by_path.update({f"runtime_layer_charrnn_{run}": n[name]
+                        for run, n in rt["charrnn"]["launches"].items()})
+        by_path["runtime_layer_dashboard"] = rt["dashboard"]["launches"][name]
         rows.append(_kernel_row(
             name, f"deeplearning4j_tpu_torch/csrc/{name}.cu",
             f"deeplearning4j_tpu/ops/fused_lstm.py:{line}",
@@ -6924,4 +7385,8 @@ if __name__ == "__main__":
         sys.exit(_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["_elastic"]:  # a worker of the elastic phase (train/elastic.py)
         sys.exit(_elastic_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["_bundle_child"]:  # the fresh process of phase 38 (a)
+        sys.exit(_bundle_child_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["_runtime_layer"]:  # phase 38 alone
+        sys.exit(_runtime_layer_main(sys.argv[2:]))
     sys.exit(main())

@@ -20,11 +20,12 @@ in device-resident pools and runs the step on the model's device:
   rows, chunk width, table width) lies on the shared bucket ladder
   (``utils/bucketing.py``), so the set of dispatch shapes is finite:
   :meth:`DecodeProgram.signature_grid` lists it and :meth:`DecodeProgram.warm`
-  runs each point once. The port has no AOT layer (ROADMAP Queue 1 item
-  9): warming pays for CUDA and cuBLAS set-up, and the program records every
-  shape it dispatches, so ``off_grid_dispatches`` counts request-path
-  dispatches whose shape the warm pass did not run (the port's counterpart
-  of the JAX package's zero-compile gate). Page 0 is a scratch page:
+  runs each point once. Warming pays for CUDA and cuBLAS set-up; the grid
+  is registered on the model's ``decode.step`` site (``nn/aot.py``
+  ``grid_site``), so it rides in the model's warm-set bundle. The program
+  records every shape it dispatches, so ``off_grid_dispatches`` counts
+  request-path dispatches whose shape the warm pass did not run (the
+  port's counterpart of the JAX package's zero-compile gate). Page 0 is a scratch page:
   padded batch rows and padded chunk slots write there, so padding never
   touches a real stream's history.
 
@@ -61,6 +62,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import obs
+from deeplearning4j_tpu_torch.nn import aot
 from deeplearning4j_tpu_torch.utils import bucketing
 
 __all__ = ["DecodeProgram"]
@@ -227,6 +229,7 @@ class DecodeProgram:
         # dispatch shapes: those the warm pass ran, those seen since, and
         # the request-path dispatches whose shape the warm pass never ran
         self.warmed: set = set()
+        self._site = aot.grid_site(model, SITE)
         self.shapes_seen: set = set()
         self.off_grid_dispatches = 0
 
@@ -314,7 +317,10 @@ class DecodeProgram:
                int(table.shape[1]) if self.paged else None)
         if _warm:
             self.warmed.add(key)
+            self._site.mark_warm(*key)
         else:
+            if key not in self.shapes_seen:
+                self._site.note_seen(*key)
             self.shapes_seen.add(key)
             if self.warmed and key not in self.warmed:
                 self.off_grid_dispatches += 1

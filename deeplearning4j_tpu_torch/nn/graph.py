@@ -33,8 +33,10 @@ skip_batch select on the device), the chaos hooks, chained K-step dispatch
 ``MultiDataSet`` input. The data-parallel gradient exchange
 (``parallel/grads.py``, driven by ``parallel/wrapper.py`` ParallelWrapper)
 runs a graph through ``_as_multi_batch``, ``_to_device`` and
-``_value_and_grad`` and updates its vertices itself. Not ported: AOT
-executable sites (Queue 1 item 9).
+``_value_and_grad`` and updates its vertices itself. The dispatch sites
+``cg.output``, ``cg.step`` and ``cg.step.tbptt`` record their signatures
+for the warm layer (``nn/aot.py``); ``DL4J_TPU_AOT=1`` warms the first
+step and ``DL4J_TPU_TUNE=auto`` applies the tuning DB's winner in ``fit``.
 
 The network lives on one device, chosen at construction: ``device=None``
 means the GPU, and raises when there is none; ``device="cpu"`` must be
@@ -46,6 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -53,6 +56,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import obs
+from deeplearning4j_tpu_torch.nn import aot
 from deeplearning4j_tpu_torch.nn.config import LayerConfig, _encode_value, layer_from_dict
 from deeplearning4j_tpu_torch.nn.constraints import apply_constraints
 from deeplearning4j_tpu_torch.nn.input_type import InputType
@@ -1157,7 +1161,22 @@ class ComputationGraph:
             if resilience.resume(self, resume_from) is not None:
                 resume_skip = int(self.batch_in_epoch)
                 epochs = max(epochs - self.epoch, 0)
+        if os.environ.get("DL4J_TPU_TUNE"):
+            # the tuning DB's winner, before chain_k / the warm / the step
+            # read their knobs (MultiLayerNetwork.fit's hook)
+            from deeplearning4j_tpu_torch import tune
+
+            tune.maybe_apply(self, "fit")
         guard = self.divergence_guard
+        if aot.enabled():
+            # epoch 0's first step runs once on a snapshot (nn/aot.py), under
+            # the per-epoch tbptt / chain gating below
+            tbptt0 = (self.conf.backprop_type == "tbptt"
+                      and bool(self._time_distributed_inputs()))
+            chain0 = (self._chain_k()
+                      if not (self.listeners or tbptt0) and guard is None else 0)
+            if not tbptt0 and chain0 <= 1:
+                aot.warm_fit(self, data, batch_size)
         try:
             for _ in range(epochs):
                 skip_n, resume_skip = resume_skip, 0
@@ -1240,7 +1259,8 @@ class ComputationGraph:
             chaos.maybe_slow(self.iteration)
             f = chaos.maybe_nan_batch(self.iteration, f)
         inputs, labels, fms, lms = self._to_device(f, l, fm, lm)
-        return self._step(inputs, labels, fms, lms, _cast_mask(ew, self.dtype, self.device))
+        return self._get_step_fn()(inputs, labels, fms, lms,
+                                   _cast_mask(ew, self.dtype, self.device))
 
     def _fit_tbptt(self, f, l, fm, lm):
         """Truncated BPTT over the DAG (doTruncatedBPTT): the time axis of
@@ -1263,6 +1283,7 @@ class ComputationGraph:
         L = self.conf.tbptt_fwd_length
         B = next(iter(inputs.values())).shape[0]
         carries = self._initial_carries(B)
+        step = self._get_tbptt_fn()
         total, nchunks = 0.0, 0
         for t0 in range(0, T, L):
             sl = slice(t0, min(t0 + L, T))
@@ -1274,13 +1295,38 @@ class ComputationGraph:
                                             for n, m in fms.items()}
             lmc = None if lms is None else tuple(_tbptt_slice_t(m, sl, T, "mask")
                                                  for m in lms)
-            loss, new_state, grads, carries = self._value_and_grad(
-                self.state, ic, lc, fmc, lmc, None, carries=carries)
-            self._apply_step(loss, new_state, grads)
+            loss, carries = step(ic, lc, fmc, lmc, carries)
             total = total + loss
             nchunks += 1
-            self.iteration += 1
         return total / max(nchunks, 1)
+
+    def _tbptt_chunk(self, inputs, labels, fmasks, lmasks, carries):
+        """One tBPTT update on one time chunk; returns (loss, the final
+        carries, detached)."""
+        loss, new_state, grads, carries = self._value_and_grad(
+            self.state, inputs, labels, fmasks, lmasks, None, carries=carries)
+        self._apply_step(loss, new_state, grads)
+        self.iteration += 1
+        return loss, carries
+
+    # -- dispatch sites (nn/aot.py) ------------------------------------------
+    def _get_output_fn(self):
+        """The ``cg.output`` site: one forward at a bucketed batch."""
+        return aot.site(self, "cg.output", self._infer_site, stateful=False)
+
+    def _get_step_fn(self, tbptt: bool = False):
+        """The ``cg.step`` site: one training step on device tensors."""
+        if tbptt:
+            return self._get_tbptt_fn()
+        return aot.site(self, "cg.step", self._step, stateful=True)
+
+    def _get_tbptt_fn(self):
+        """The ``cg.step.tbptt`` site: one tBPTT chunk update."""
+        return aot.site(self, "cg.step.tbptt", self._tbptt_chunk, stateful=True)
+
+    def _infer_site(self, feats, fm):
+        with torch.inference_mode():
+            return self._infer(feats, fm)
 
     # -- inference ---------------------------------------------------------
     def output(self, *xs, fmasks=None):
@@ -1308,9 +1354,10 @@ class ComputationGraph:
                         feats = tuple(bucketing.pad_rows_zero(x, target) for x in feats)
                         if fm is not None:
                             fm = tuple(bucketing.pad_rows_zero(m, target) for m in fm)
-                        outs = tuple(bucketing.unpad(o, n) for o in self._infer(feats, fm))
+                        outs = tuple(bucketing.unpad(o, n)
+                                     for o in self._get_output_fn()(feats, fm))
                         return outs[0] if len(outs) == 1 else outs
-                outs = self._infer(feats, fm)
+                outs = self._get_output_fn()(feats, fm)
         return outs[0] if len(outs) == 1 else outs
 
     def _infer(self, feats, fm):

@@ -23,7 +23,10 @@ dispatch (``DL4J_TPU_CHAIN_STEPS``, off by default; ``auto`` chains small
 models that draw no randomness),
 three synchronised phases under spans (``DL4J_TPU_PHASE_SPANS=1``), device
 prefetch of the next batch on a side stream (``DL4J_TPU_DEVICE_PREFETCH=1``,
-off by default),
+off by default), the tuning DB's winner (``DL4J_TPU_TUNE=auto``,
+``tune.maybe_apply``), the first step warmed on a snapshot
+(``DL4J_TPU_AOT=1``, ``nn/aot.py``; the dispatch sites ``mln.output``,
+``mln.step`` and ``mln.step.tbptt`` record their signatures for it),
 ``DataSet`` input, and the non-SGD solvers (train/solvers.py) when
 ``optimization_algo`` names one. ``score``, ``evaluate``,
 ``evaluate_regression`` and ``evaluate_roc`` are here too.
@@ -52,6 +55,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import obs
+from deeplearning4j_tpu_torch.nn import aot
 from deeplearning4j_tpu_torch.nn.config import LayerConfig, _encode_value, layer_from_dict
 from deeplearning4j_tpu_torch.nn.constraints import apply_constraints
 from deeplearning4j_tpu_torch.nn.input_type import InputType
@@ -656,10 +660,19 @@ class MultiLayerNetwork:
             if resilience.resume(self, resume_from) is not None:
                 resume_skip = int(self.batch_in_epoch)
                 epochs = max(epochs - self.epoch, 0)
+        if os.environ.get("DL4J_TPU_TUNE"):
+            # the tuning DB's winner lands before chain_k, the warm and the
+            # step read their knobs (tune/__init__.py)
+            from deeplearning4j_tpu_torch import tune
+
+            tune.maybe_apply(self, "fit")
         tbptt = self.conf.backprop_type == "tbptt"
         sgd = self.conf.optimization_algo in _SGD_NAMES
         guard = self.divergence_guard
         chain_k = self._chain_k() if sgd and not self.listeners and guard is None else 0
+        if aot.enabled() and sgd and not tbptt and chain_k <= 1:
+            # the first batch's step runs once on a snapshot (nn/aot.py)
+            aot.warm_fit(self, data, batch_size)
         # chained batches go to the device in one stacked copy
         prefetch = (sgd and chain_k <= 1 and self.device.type == "cuda"
                     and _device_prefetch_enabled())
@@ -748,7 +761,7 @@ class MultiLayerNetwork:
                 _cast_mask(ew, self.dtype, self.device))
         if obs.phase_spans_enabled() and self.divergence_guard is None:
             return self._fit_batch_phases(*args)
-        return self._step(*args)
+        return self._get_step_fn()(*args)
 
     def _fit_solver(self, x, y, fm, lm):
         """A non-SGD ``optimization_algo`` (Solver.java's dispatch):
@@ -789,18 +802,44 @@ class MultiLayerNetwork:
         fm = _cast_mask(fm, self.dtype, self.device)
         lm = _cast_mask(lm, self.dtype, self.device)
         carries = self._initial_carries(x.shape[0])
+        step = self._get_tbptt_fn()
         total, nchunks = 0.0, 0
         for t0 in range(0, T, L):
             sl = slice(t0, min(t0 + L, T))
-            loss, new_state, grads, carries = self._value_and_grad(
-                self.state, x[:, sl], y[:, sl] if y_sliced else y,
-                fm[:, sl] if fm is not None else None,
-                lm[:, sl] if lm is not None else None, None, carries=carries)
-            self._apply_step(loss, new_state, grads)
+            loss, carries = step(x[:, sl], y[:, sl] if y_sliced else y,
+                                 fm[:, sl] if fm is not None else None,
+                                 lm[:, sl] if lm is not None else None, carries)
             total = total + loss
             nchunks += 1
-            self.iteration += 1
         return total / max(nchunks, 1)
+
+    def _tbptt_chunk(self, x, y, fm, lm, carries):
+        """One tBPTT update on one time chunk; returns (loss, the final
+        carries, detached)."""
+        loss, new_state, grads, carries = self._value_and_grad(
+            self.state, x, y, fm, lm, None, carries=carries)
+        self._apply_step(loss, new_state, grads)
+        self.iteration += 1
+        return loss, carries
+
+    # -- dispatch sites (nn/aot.py) ------------------------------------------
+    def _get_output_fn(self):
+        """The ``mln.output`` site: one forward at a bucketed batch."""
+        return aot.site(self, "mln.output", self._infer_site, stateful=False)
+
+    def _get_step_fn(self, tbptt: bool = False):
+        """The ``mln.step`` site: one training step on device tensors."""
+        if tbptt:
+            return self._get_tbptt_fn()
+        return aot.site(self, "mln.step", self._step, stateful=True)
+
+    def _get_tbptt_fn(self):
+        """The ``mln.step.tbptt`` site: one tBPTT chunk update."""
+        return aot.site(self, "mln.step.tbptt", self._tbptt_chunk, stateful=True)
+
+    def _infer_site(self, x, fmask):
+        with torch.inference_mode():
+            return self._infer(x, fmask)
 
     # -- inference ---------------------------------------------------------
     def output(self, x, train: bool = False, fmask=None) -> torch.Tensor:
@@ -827,8 +866,8 @@ class MultiLayerNetwork:
                     if target > n:
                         x = bucketing.pad_rows_zero(x, target)
                         fmask = bucketing.pad_rows_zero(fmask, target)
-                        return bucketing.unpad(self._infer(x, fmask), n)
-                return self._infer(x, fmask)
+                        return bucketing.unpad(self._get_output_fn()(x, fmask), n)
+                return self._get_output_fn()(x, fmask)
 
     def _infer(self, x, fmask):
         return self._forward(self.params, self.state, x, train=False, fmask=fmask)[0]

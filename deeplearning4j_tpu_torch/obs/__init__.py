@@ -3,8 +3,11 @@
 Host-only copy of ``deeplearning4j_tpu/obs`` (metrics, spans, events, slo,
 fleet) with imports re-pointed at this package: the serving tier's
 counters, histograms, SLO burn rate and trace context are the same families
-under the same names, so a dashboard reads either package alike. The XLA
-cost model (``obs/profile.py``) and trace export are not carried over.
+under the same names, so a dashboard reads either package alike. The cost
+ledger (``obs/profile.py``: counting passes in place of XLA's cost model,
+utilization over device time on a card) rides in ``snapshot()`` and
+``cost_report()``; ``obs/trace_export.py`` renders the span ring as a
+Chrome/Perfetto timeline.
 
 Public surface::
 
@@ -12,7 +15,7 @@ Public surface::
     with obs.span("mln.output"): ...                      # wall+cpu windows
     obs.event("serve_started", port=...)                  # JSONL + counter
     obs.configure_event_log(path)                         # or DL4J_TPU_EVENT_LOG
-    obs.snapshot(); obs.prometheus_text(); obs.reset()
+    obs.snapshot(); obs.cost_report(); obs.prometheus_text(); obs.reset()
 
 Recording is host-side dict updates under locks; nothing here synchronises
 with the device. ``DL4J_TPU_OBS=0`` disables span recording and event
@@ -29,7 +32,9 @@ from deeplearning4j_tpu_torch.obs import metrics as _metrics
 from deeplearning4j_tpu_torch.obs import spans as _spans
 
 __all__ = [
+    "compile_span",
     "configure_event_log",
+    "cost_report",
     "counter",
     "current_trace",
     "enabled",
@@ -46,6 +51,7 @@ __all__ = [
     "recent_spans",
     "registry",
     "reset",
+    "save_spans",
     "set_decode_occupancy",
     "set_process_context",
     "snapshot",
@@ -102,8 +108,30 @@ def span(name: str, **attrs):
     return _spans.tracer().span(name, **attrs)
 
 
+def compile_span(site: str, **attrs):
+    """``with obs.compile_span("mln.output"): ...`` — the ``compile`` span
+    kind of the warm passes (see obs/spans.py)."""
+    return _spans.compile_span(site, **attrs)
+
+
 def recent_spans(n: Optional[int] = None):
     return _spans.tracer().recent(n)
+
+
+def save_spans(path: str) -> int:
+    """Dump the span ring + timeline anchor as JSON for offline trace
+    export (also available via DL4J_TPU_SPAN_DUMP at exit)."""
+    return _spans.tracer().dump(path)
+
+
+# -- profiling --------------------------------------------------------------
+
+def cost_report(resolve: bool = True) -> dict:
+    """Counted costs + roofline utilization (see obs/profile.py).
+    Report-time only."""
+    from deeplearning4j_tpu_torch.obs import profile as _profile
+
+    return _profile.cost_report(resolve=resolve)
 
 
 # -- SLOs -------------------------------------------------------------------
@@ -195,7 +223,9 @@ def configure_event_log(path: Optional[str], max_bytes: int = 4 * 1024 * 1024):
 def snapshot() -> dict:
     """JSON-friendly aggregate of everything the registry knows: metric
     families (counters/gauges plain, histograms summarized), per-span
-    aggregates, event counts and the bucketing telemetry."""
+    aggregates, event counts, the bucketing telemetry and the cost ledger
+    (obs/profile.py)."""
+    from deeplearning4j_tpu_torch.obs import profile as _profile
     from deeplearning4j_tpu_torch.utils import bucketing
 
     return {
@@ -203,14 +233,17 @@ def snapshot() -> dict:
         "spans": _spans.tracer().summary(),
         "events": _events.event_log().counts(),
         "bucketing": bucketing.telemetry().snapshot(),
+        "profile": _profile.snapshot(),
     }
 
 
 def reset():
-    """Zero every metric series and drop recent spans, keeping
-    configuration (event-log path, family registrations)."""
+    """Zero every metric series, drop recent spans and the cost ledger,
+    keeping configuration (event-log path, family registrations)."""
+    from deeplearning4j_tpu_torch.obs import profile as _profile
     from deeplearning4j_tpu_torch.obs import slo as _slo
 
     _metrics.registry().reset()
     _spans.tracer().clear()
+    _profile.reset()
     _slo._reset_tracker()

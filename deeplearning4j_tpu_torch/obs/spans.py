@@ -224,7 +224,7 @@ class SpanTracer:
 
     def dump(self, path: str) -> int:
         """Write the ring + anchor as JSON for offline trace export
-        (the reference package's ``obs/trace_export.py`` reads it).
+        (``python -m deeplearning4j_tpu_torch.obs.trace_export --spans <path>``).
         Returns the number of spans written."""
         spans = self.recent()
         doc = {"anchor": self.anchor(), "spans": spans,
@@ -258,3 +258,12 @@ def _dump_at_exit():
 
 
 atexit.register(_dump_at_exit)
+
+
+def compile_span(site: str, **attrs):
+    """The ``compile`` span kind: one span family for the warm passes of
+    ``nn/aot.py`` (a site's first dispatch per signature, its counting pass,
+    a bundle's replay). The site rides as an attribute, so every warm
+    aggregates under the single ``compile`` series: its ``wall_sum_s`` in
+    ``obs.snapshot()`` is the process's whole cold-start cost."""
+    return tracer().span("compile", site=site, **attrs)

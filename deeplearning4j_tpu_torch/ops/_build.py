@@ -10,6 +10,12 @@ library already there. ``nvcc -Xptxas -v`` reports each kernel's registers,
 shared memory and spills; :func:`load` keeps that report in
 :data:`BUILD_LOG` and echoes it to stderr.
 
+Each build writes a stamp beside its library (``<lib>.stamp``: the
+source digest and the library's sha256). ``utils/compile_cache.py`` points
+``BUILD_DIR`` at a cache shared between processes or checkouts; a library
+found there is loaded only when its stamp matches (:data:`VERIFY_STAMPS`),
+else it is rebuilt. ``DL4J_TPU_COMPILE_CACHE`` is read at the first build.
+
 There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
 
@@ -17,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -33,6 +40,11 @@ BUILD_DIR = PACKAGE_DIR.parent / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 BUILD_LOG: Dict[str, str] = {}
+# set by utils/compile_cache.py: load a library only when its stamp matches
+VERIFY_STAMPS = False
+# the names of the libraries this process ran nvcc for
+NVCC_RUNS: list = []
+_ENV_READ = False
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
@@ -65,14 +77,35 @@ def source_digest(name: str, source_dir: Optional[Path] = None) -> str:
     return h.hexdigest()[:12]
 
 
+def _file_sha256(path: Path) -> str:
+    return hashlib.sha256(path.read_bytes()).hexdigest()
+
+
+def stamp_ok(lib: Path, digest: str) -> bool:
+    """Does the stamp beside ``lib`` name ``digest`` and the library's own
+    sha256?"""
+    try:
+        st = json.loads(lib.with_suffix(".stamp").read_text())
+        return st.get("digest") == digest and st.get("sha256") == _file_sha256(lib)
+    except (OSError, ValueError):
+        return False
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` (if its library for the current
     :func:`source_digest` is not built yet) and return the library path."""
+    global _ENV_READ
+    if not _ENV_READ:
+        _ENV_READ = True
+        from deeplearning4j_tpu_torch.utils.compile_cache import (
+            enable_compilation_cache_from_env)
+
+        enable_compilation_cache_from_env()
     src = SOURCE_DIR / f"{name}.cu"
     digest = source_digest(name)
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     log = out.with_suffix(".log")
-    if out.exists():
+    if out.exists() and (not VERIFY_STAMPS or stamp_ok(out, digest)):
         if log.exists():
             BUILD_LOG[name] = log.read_text()
         return out
@@ -80,6 +113,7 @@ def build(name: str) -> Path:
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
     cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(src)]
+    NVCC_RUNS.append(name)
     proc = subprocess.run(cmd, capture_output=True, text=True)
     report = (proc.stdout + proc.stderr).strip()
     BUILD_LOG[name] = report
@@ -89,7 +123,10 @@ def build(name: str) -> Path:
                            f"(exit {proc.returncode}):\n{report}")
     print(f"[build {name}] {' '.join(cmd)}\n{report}", file=sys.stderr)
     log.write_text(report)
+    stamp = out.with_suffix(f".stamp.tmp{os.getpid()}")
+    stamp.write_text(json.dumps({"digest": digest, "sha256": _file_sha256(tmp)}))
     os.replace(tmp, out)
+    os.replace(stamp, out.with_suffix(".stamp"))
     return out
 
 

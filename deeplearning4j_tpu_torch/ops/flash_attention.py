@@ -65,6 +65,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from deeplearning4j_tpu_torch.obs import profile as _profile
 from deeplearning4j_tpu_torch.ops import _build
 
 __all__ = [
@@ -302,6 +303,11 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_fwd launch failed ({rc}, head dim {d}): "
                            f"{error_string(rc).decode()}")
     flash_fwd_cuda.launches += 1
+    counter = _profile.active_counter()
+    if counter is not None:   # a counting pass (obs/profile.py) is running
+        counter.kernel("flash_fwd", *_profile.attention_fwd_cost(
+            B, Tq, Tk, H, D, causal, q.element_size(), kmask is not None,
+            q_offset, k_offset))
     return (out if d == D else out[..., :D].contiguous()), lse
 
 
@@ -353,6 +359,12 @@ def _launch_bwd(fn, q, k, v, do, lse, delta, km, causal, q_offset, k_offset):
             q_offset, k_offset, 1.0 / math.sqrt(D), strides, stream)
     if rc != 0:
         raise RuntimeError(f"{fn} launch failed ({rc}): {error_string(rc).decode()}")
+    counter = _profile.active_counter()
+    if counter is not None:   # a counting pass (obs/profile.py) is running
+        name = "flash_bwd_dq" if len(outs) == 1 else "flash_bwd_dkv"
+        counter.kernel(name, *_profile.attention_bwd_cost(
+            B, Tq, Tk, H, D, causal, q.element_size(), name[10:], km is not None,
+            q_offset, k_offset))
     return [o if d == D else o[..., :D].contiguous() for o in outs]
 
 

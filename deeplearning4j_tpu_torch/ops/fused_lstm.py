@@ -47,6 +47,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from deeplearning4j_tpu_torch.obs import profile as _profile
 from deeplearning4j_tpu_torch.ops import _build
 
 __all__ = [
@@ -271,6 +272,10 @@ def fused_lstm_fwd_cuda(zx: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor,
         msg = _rc_message(rc, lib.fused_lstm_fwd_error_string)
         raise RuntimeError(f"fused_lstm_fwd launch failed ({rc}, {route} route): {msg}")
     fused_lstm_fwd_cuda.launches += 1
+    counter = _profile.active_counter()
+    if counter is not None:   # a counting pass (obs/profile.py) is running
+        counter.kernel("fused_lstm_fwd", *_profile.lstm_cost(
+            B, T, H, zx.element_size(), "fwd", peep is not None))
     return hs, gates, cs, hT, cT
 
 
@@ -341,6 +346,10 @@ def fused_lstm_bwd_cuda(gates, cs, cprev, hprev, wh, m, dhs, dcT, peephole=None)
         msg = _rc_message(rc, lib.fused_lstm_bwd_error_string)
         raise RuntimeError(f"fused_lstm_bwd launch failed ({rc}, {route} route): {msg}")
     fused_lstm_bwd_cuda.launches += 1
+    counter = _profile.active_counter()
+    if counter is not None:   # a counting pass (obs/profile.py) is running
+        counter.kernel("fused_lstm_bwd", *_profile.lstm_cost(
+            B, T, H, gates.element_size(), "bwd", peep is not None))
     return dzx, dwh, dh, dc, dpeep
 
 

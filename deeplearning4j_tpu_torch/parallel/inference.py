@@ -8,10 +8,11 @@ coalesces them into one ``model.output`` call of at most
 up the bucket ladder with zero rows that are cut off before the answers
 fan back out. A request still queued when its deadline passes is shed with
 ``serve.scheduler.ShedError`` instead of answered late. ``warmup`` runs
-the model's forward once at every bucket a coalesced batch can reach
-before the first request (the port compiles nothing ahead of time: this
-is the warm pass of ``serve/registry.py``). ``DL4J_TPU_TUNE`` (the JAX
-package's tuning DB) is not ported: ROADMAP Queue 1 item 9.
+the model's ``mln.output`` / ``cg.output`` site once at every bucket a
+coalesced batch can reach before the first request, each priced by a
+counting pass (``nn/aot.py``; ``DL4J_TPU_AOT=1`` turns it on by default).
+With ``DL4J_TPU_TUNE=auto`` the tuning DB's winner for the model is
+applied first (``tune.maybe_apply(model, "serve")``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import obs
+from deeplearning4j_tpu_torch.nn import aot
 from deeplearning4j_tpu_torch.utils import bucketing
 
 __all__ = ["ParallelInference"]
@@ -57,9 +59,10 @@ class ParallelInference:
                  queue_limit: int = 64, worker: bool = True,
                  bucket: Optional[bool] = None, warmup: Optional[bool] = None):
         if os.environ.get("DL4J_TPU_TUNE"):
-            raise NotImplementedError(
-                "DL4J_TPU_TUNE: the tuning database (tune.maybe_apply) is not ported, "
-                "ROADMAP Queue 1 item 9 (the runtime layer)")
+            # the DB's serve-scope winner, before the warm reads its knobs
+            from deeplearning4j_tpu_torch import tune
+
+            tune.maybe_apply(model, "serve")
         if mode not in ("batched", "inplace", "sequential"):
             raise ValueError(f"mode={mode!r}: want 'batched', 'inplace' or 'sequential'")
         self.model = model
@@ -67,7 +70,7 @@ class ParallelInference:
         self.max_batch_size = max_batch_size
         self.bucket = bucketing.bucketing_enabled() if bucket is None else bucket
         if warmup is None:
-            warmup = os.environ.get("DL4J_TPU_AOT", "0") not in ("", "0")
+            warmup = aot.enabled()
         self.warmed: List[int] = []
         if warmup:
             self._warm()
@@ -81,14 +84,17 @@ class ParallelInference:
             self._thread.start()
 
     def _warm(self):
-        """The forward at every bucket a coalesced batch can hit."""
+        """The output site at every bucket a coalesced batch can hit
+        (``nn/aot.py``, as ``aot.warm_serving``)."""
         m = self.model
         if m.params is None:
             m.init()
         sizes = (bucketing.reachable_buckets(self.max_batch_size) if self.bucket
                  else [self.max_batch_size])
+        fn = m._get_output_fn()
         for b in sizes:
-            m.output(m.dummy_input(b))
+            if fn.warm(aot._dummy_features(m, b), None, cost_key=f"b{b}"):
+                bucketing.telemetry().record_hit(fn.site, b, b)
         if m.device.type == "cuda":
             torch.cuda.synchronize(m.device)
         self.warmed = list(sizes)

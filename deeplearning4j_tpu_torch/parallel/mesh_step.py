@@ -14,9 +14,10 @@ training on a ``data x model x pipe`` mesh.
   compute is ``parallel/gpipe.py``.
 
 With no spec the shape comes from the ``DL4J_TPU_MESH_*`` knobs
-(``nn/step_program.py`` ``mesh_shape_from_env``); the tuning database
-(``DL4J_TPU_TUNE``, ``tune.maybe_apply``) is not ported, ROADMAP Queue 1
-item 9. ``compress=True`` takes the compressed exchange, on a pure data
+(``nn/step_program.py`` ``mesh_shape_from_env``), after the tuning DB's
+winner for the model is applied when ``DL4J_TPU_TUNE`` is set
+(``tune.maybe_apply(model, "fit")``, as in the JAX package).
+``compress=True`` takes the compressed exchange, on a pure data
 mesh only, as in the JAX package. :meth:`MeshTrainer.finish` leaves the
 layout: the model's params and updater state are whole again.
 
@@ -119,9 +120,10 @@ class MeshTrainer:
         self.model = model
         if spec is None:
             if os.environ.get("DL4J_TPU_TUNE"):
-                raise NotImplementedError(
-                    "DL4J_TPU_TUNE: the tuning database (tune.maybe_apply) is not "
-                    "ported, ROADMAP Queue 1 item 9 (the runtime layer)")
+                # the DB's winner lands before the mesh knobs are read
+                from deeplearning4j_tpu_torch import tune
+
+                tune.maybe_apply(model, "fit")
             d, t, s = mesh_shape_from_env(process_count())
             spec = MeshSpec(data=d, model=t, pipe=s)
         self.spec = spec

@@ -25,7 +25,9 @@ the host-side lifecycle around it:
   main structure off the hot path.
 - **persist/restore**: real-shaped arrays in a CRC'd zip with a JSON
   manifest, the JAX package's format: each package reads the other's
-  files. The padded device layout is re-derived identically on load.
+  files. The padded device layout is re-derived identically on load, and
+  ``conf`` / ``dtype`` give ``nn/aot.py`` the model-shaped surface its
+  bundles key on (``register_index(bundle=)``).
 
 The index lives on one device (``device=None``: the GPU, raising without
 one). Its products are IEEE float32 (``clustering/knn.f32_products``).
@@ -107,9 +109,24 @@ class IndexConfig:
             raise ValueError("pq_ksub > 256 does not fit uint8 codes")
 
 
+class _Conf:
+    """Minimal ``model.conf`` stand-in: ``aot.model_signature`` hashes
+    ``conf.to_json()``, so the JSON carries the config plus every derived
+    device shape — two indexes with different layouts never share a
+    bundle (the JAX package's ``_Conf``)."""
+
+    def __init__(self, d: Dict):
+        self._d = d
+
+    def to_json(self) -> str:
+        return json.dumps(self._d, sort_keys=True)
+
+
 class VectorIndex:
     """Build with :meth:`build`, restore with :meth:`load`; then
     :meth:`search` / :meth:`add` / :meth:`save`."""
+
+    dtype = "float32"
 
     def __init__(self, config: IndexConfig, device=None):
         from deeplearning4j_tpu_torch.nn.model import resolve_device
@@ -246,6 +263,23 @@ class VectorIndex:
             "nlist": 0 if centroids is None else int(centroids.shape[0]),
             "tier": self.default_tier, "metric": cfg.metric,
         })
+
+    # -- the model-shaped surface nn/aot.py expects -----------------------
+
+    @property
+    def conf(self) -> _Conf:
+        cfg = asdict(self.config)
+        cfg["k_choices"] = list(self.k_choices)
+        cfg["nprobe_choices"] = list(self.nprobe_choices)
+        derived = {
+            "capacity": 0 if self._corpus is None else int(self._corpus.shape[0]),
+            "list_width": 0 if self._postings is None else int(self._postings.shape[1]),
+            "nlist": 0 if self._centroids is None else int(self._centroids.shape[0]),
+            "pq": None if self._codebooks is None else list(self._codebooks.shape),
+            "pending": 0 if self._pending_corpus is None else int(
+                self._pending_corpus.shape[0]),
+        }
+        return _Conf({"index": cfg, "derived": derived})
 
     # ------------------------------------------------------------------
     # grids

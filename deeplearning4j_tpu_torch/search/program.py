@@ -45,6 +45,7 @@ from typing import List, Tuple
 import torch
 
 from deeplearning4j_tpu_torch import obs
+from deeplearning4j_tpu_torch.nn import aot
 from deeplearning4j_tpu_torch.clustering.knn import f32_products, topk_stable
 from deeplearning4j_tpu_torch.utils import bucketing
 
@@ -211,6 +212,9 @@ class SearchProgram:
                             p, k, ix.rerank_width(k))
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
+        # the grid rides in the index's warm-set bundle (nn/aot.py)
+        for sig in sorted(ran, key=repr):
+            aot.grid_site(ix, sig[0]).mark_warm(*sig[1:])
         obs.event("search_warm", index=ix.config.name, grid=len(grid),
                   executables=len(ran))
         return len(ran)

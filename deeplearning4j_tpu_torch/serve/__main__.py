@@ -5,8 +5,9 @@ The port of the JAX package's ``serve/__main__.py``: import each model
 ``ModelRegistry.load``), warm it over every batch bucket its worker can
 coalesce, and serve them all from one port. The socket binds only after
 every model is warm, so the first request pays no CUDA context set-up or
-kernel build. The JAX package's ``<path>.aotbundle`` sidecars are not
-ported (ROADMAP Queue 1 item 9).
+kernel build. A ``<path>.aotbundle`` sidecar beside a model file (written
+on the card by the first run, ``nn/aot.py``) replays its recorded grid
+with its costs, and the warm set is saved back to it.
 
 Options: ``--port N`` (default 8000; 0 = OS-assigned, printed on stdout);
 ``--device`` (default: the GPU, raising without one; ``cpu`` serves there),

@@ -7,9 +7,11 @@ the shape-ladder bucket it dispatches on — is chosen against the tightest
 admitted DEADLINE using measured per-bucket execution latency, not by a
 fixed drain tick or a fixed batch size.
 
-Host-only copy of ``deeplearning4j_tpu/serve/admission.py`` (the
-tuner's ``tune.maybe_apply`` is not ported, ROADMAP Queue 1 item 9, so
-the decode knobs come from the environment alone). The pieces live here, all host-side float arithmetic (no device sync — the scheduler
+Host-only copy of ``deeplearning4j_tpu/serve/admission.py``: the decode
+knobs come from the environment, which ``tune.maybe_apply(model,
+"serve")`` fills with the tuning DB's winner under ``DL4J_TPU_TUNE=auto``
+before ``GenerateConfig.from_env`` reads it (``serve/registry.py``). The
+pieces live here, all host-side float arithmetic (no device sync — the scheduler
 calls these while holding its admission lock, so nothing here may stall
 it):
 

@@ -36,6 +36,16 @@ class Checkpoint:
     size: Optional[int] = None
 
 
+
+def _remove_with_sidecar(path: str) -> None:
+    """Remove a checkpoint and the warm-set bundle written beside it
+    (``nn/aot.py`` ``bundle_path_for``)."""
+    for p in (path, path + ".aotbundle"):
+        try:
+            os.remove(p)
+        except OSError:
+            pass
+
 class CheckpointListener(TrainingListener):
     """Save the model every N epochs / iterations / seconds; retention via
     keep_all / keep_last=k / keep_last_and_every=(k, n)."""
@@ -61,10 +71,7 @@ class CheckpointListener(TrainingListener):
         os.makedirs(self.directory, exist_ok=True)
         if delete_existing:
             for c in self.checkpoints(self.directory):
-                try:
-                    os.remove(os.path.join(self.directory, c.filename))
-                except OSError:
-                    pass
+                _remove_with_sidecar(os.path.join(self.directory, c.filename))
             idx = os.path.join(self.directory, self.INDEX)
             if os.path.exists(idx):
                 os.remove(idx)
@@ -162,10 +169,7 @@ class CheckpointListener(TrainingListener):
             if e["number"] in keep:
                 remaining.append(e)
             else:
-                try:
-                    os.remove(os.path.join(self.directory, e["filename"]))
-                except OSError:
-                    pass
+                _remove_with_sidecar(os.path.join(self.directory, e["filename"]))
         self._write_index(remaining)
 
     def _write_index(self, entries: List[dict]) -> None:

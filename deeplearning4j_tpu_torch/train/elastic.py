@@ -41,8 +41,9 @@ The payloads, handoff blobs and checkpoint files are the JAX package's npz
 layout under the same keys. The port cannot hold the JAX package's
 threefry key, so its ``meta`` records ``base_seed``. Not ported: the
 elastic-of-slices composition (a member that is a mesh of several ranks,
-``slice_spec``), ROADMAP Queue 1 item 7's remnant; the compiled-executable
-bundle the JAX package writes beside a checkpoint (Queue 1 item 9.2).
+``slice_spec``), ROADMAP Queue 1 item 7's remnant. Each rank writes its
+warm-set bundle beside its checkpoint shard
+(``aot.save_distributed_bundle``, ``ckpt_<tag>_r<rank>.aotbundle``).
 
 The CLI (``python -m deeplearning4j_tpu_torch.train.elastic worker|launch
 [--device cpu]``) drives the synthetic MLP workload; ``launch`` supervises
@@ -66,6 +67,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import obs
+from deeplearning4j_tpu_torch.nn import aot
 from deeplearning4j_tpu_torch.obs import fleet
 from deeplearning4j_tpu_torch.parallel import compress as compression
 from deeplearning4j_tpu_torch.parallel.elastic import (
@@ -739,10 +741,12 @@ class ElasticTrainer:
         dt, dev = model.dtype, model.device
         self._vgen.manual_seed(_vshard_seed(self._base_seed, it * self.vshards + j))
         gen, model._gen = model._gen, self._vgen
+        args = (model._features(x_j), _cast_labels(y_j, dt, dev), _cast_mask(fm, dt, dev),
+                _cast_mask(lm, dt, dev), _cast_mask(ew, dt, dev))
+        # the vshard shape rides in the rank's warm-set bundle (nn/aot.py)
+        aot.grid_site(model, "elastic.vshard").note_seen(*args)
         try:
-            loss, new_state, grads, _ = model._value_and_grad(
-                model.state, model._features(x_j), _cast_labels(y_j, dt, dev),
-                _cast_mask(fm, dt, dev), _cast_mask(lm, dt, dev), _cast_mask(ew, dt, dev))
+            loss, new_state, grads, _ = model._value_and_grad(model.state, *args)
         finally:
             model._gen = gen
         arrays: Dict[str, np.ndarray] = {
@@ -1104,6 +1108,7 @@ class ElasticTrainer:
         self.store.set_json(f"ckmeta/{view.gen}/{tag}/{r}", {
             "file": shard_name, "crc": resilience.crc32_file(shard_path),
             "size": os.path.getsize(shard_path), "rank": r, "wid": self.wid})
+        aot.save_distributed_bundle(self.model, os.path.join(self.ckpt_dir, f"ckpt_{tag}"), r)
         if r != 0:
             return
         # rank 0 writes the replicated arrays + the CRC'd manifest (the

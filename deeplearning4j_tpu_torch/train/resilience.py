@@ -35,9 +35,10 @@ While a data-parallel exchange is active (``parallel/grads.py``
 ``DataParallelStep``, ``model._dp_runner``), a checkpoint takes its
 optimizer state out of the exchange's layout and stores the compression
 residuals of every rank (a collective: every rank saves, each into its own
-directory in a multi-process run). Not here: the compiled-executable
-bundles that the JAX package saves beside a checkpoint (``nn/aot.py``,
-ROADMAP Queue 1 item 9).
+directory in a multi-process run). Beside each checkpoint ``save_checkpoint``
+writes the model's warm-set bundle (``nn/aot.py``, ``<path>.aotbundle``:
+the signatures its sites ran and their costs) and ``resume`` restores it,
+so the first step after a resume meets no cold shape.
 """
 
 from __future__ import annotations
@@ -213,8 +214,9 @@ def capture_train_state(model) -> dict:
 def save_checkpoint(model, path, normalizer: Optional[dict] = None) -> dict:
     """Durable full-state checkpoint: an atomic zip write and the CRC of
     the final bytes. Returns ``{"path", "crc", "size", "seconds"}`` for the
-    checkpoint index. (The JAX package also saves its compiled executables
-    beside the zip; the port compiles nothing ahead of time.)"""
+    checkpoint index, with ``"aot_bundle"`` when the warm-set sidecar was
+    written (``nn/aot.py``: gated by ``DL4J_TPU_AOT_BUNDLE``, never
+    raising — the checkpoint above is durable whatever happens to it)."""
     from deeplearning4j_tpu_torch.utils import serialization as S
 
     t0 = time.perf_counter()
@@ -240,6 +242,11 @@ def save_checkpoint(model, path, normalizer: Optional[dict] = None) -> dict:
                   "Wall time of durable checkpoint writes").observe(dur)
     obs.event("checkpoint_saved", path=str(path), crc=info["crc"],
               size=info["size"], duration_s=round(dur, 6))
+    from deeplearning4j_tpu_torch.nn import aot
+
+    bundle = aot.save_bundle(model, aot.bundle_path_for(path))
+    if bundle is not None:
+        info["aot_bundle"] = bundle
     return info
 
 
@@ -268,8 +275,8 @@ def resume(model, directory):
     (corrupt or truncated files fall back to older valid ones). Returns the
     Checkpoint record, or None (with a warning) when the directory holds no
     valid checkpoint: training then starts from the model's current state.
-    (The JAX package restores its compiled executables here too; the port
-    has none to restore.)"""
+    The checkpoint's warm-set sidecar is restored too (a missing one is a
+    no-op; a corrupt or mismatched one is rejected, never raised)."""
     from deeplearning4j_tpu_torch.train.checkpoint import CheckpointListener
 
     cp = CheckpointListener.last_valid_checkpoint(directory)
@@ -280,7 +287,11 @@ def resume(model, directory):
             f"resume_from={str(directory)!r}: no valid checkpoint found; "
             "training from the model's current state")
         return None
-    load_state_into(model, os.path.join(str(directory), cp.filename))
+    path = os.path.join(str(directory), cp.filename)
+    load_state_into(model, path)
+    from deeplearning4j_tpu_torch.nn import aot
+
+    aot.restore_bundle(model, aot.bundle_path_for(path))
     return cp
 
 

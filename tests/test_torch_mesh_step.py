@@ -100,11 +100,14 @@ def test_mesh_slice_spec_arithmetic():
     assert s.round_rows(5) == 5 and s.mesh.shape["data"] == 1
 
 
-def test_the_tuning_db_is_refused(monkeypatch):
-    monkeypatch.setenv("DL4J_TPU_TUNE", "1")
+def test_the_tuning_db_is_refused(monkeypatch, tmp_path):
+    # DL4J_TPU_TUNE is honoured now (tune.maybe_apply): an empty DB applies
+    # nothing and the trainer builds its mesh from the env knobs
+    monkeypatch.setenv("DL4J_TPU_TUNE", "auto")
+    monkeypatch.setenv("DL4J_TPU_TUNE_DB", str(tmp_path / "tunedb.zip"))
     m = MultiLayerNetwork(MultiLayerConfiguration.from_json(_conf(3).to_json()), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        MeshTrainer(m)
+    tr = MeshTrainer(m)
+    assert tr.shape[0] * tr.shape[1] * tr.shape[3] == 1
 
 
 # -- gloo ranks ------------------------------------------------------------------

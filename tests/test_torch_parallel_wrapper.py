@@ -364,7 +364,7 @@ def test_inference_batched_coalesces_threads():
         pi.output(x[:1])
 
 
-def test_inference_sheds_an_expired_deadline_and_refuses_the_tuner(monkeypatch):
+def test_inference_sheds_an_expired_deadline_and_refuses_the_tuner(monkeypatch, tmp_path):
     _, m = _served()
     x, _ = _data(4)
     pi = ParallelInference(m, mode="batched", worker=False)
@@ -381,6 +381,9 @@ def test_inference_sheds_an_expired_deadline_and_refuses_the_tuner(monkeypatch):
                 fut.result(timeout=10)
     finally:
         pi._thread = None
-    monkeypatch.setenv("DL4J_TPU_TUNE", "1")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ParallelInference(m)
+    # DL4J_TPU_TUNE is honoured now (tune.maybe_apply): an empty DB applies
+    # nothing
+    monkeypatch.setenv("DL4J_TPU_TUNE", "auto")
+    monkeypatch.setenv("DL4J_TPU_TUNE_DB", str(tmp_path / "tunedb.zip"))
+    pi2 = ParallelInference(m, worker=False)
+    assert pi2.model is m

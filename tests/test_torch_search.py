@@ -519,11 +519,17 @@ def test_per_route_slo_threshold(monkeypatch):
     assert t.burn_rate("serve.toy:http") == 0
 
 
-def test_registry_refuses_bundle_and_other_device(pair):
+def test_registry_refuses_bundle_and_other_device(pair, tmp_path):
     _, _, t = pair
+    # bundle= is taken (nn/aot.py): gated off on the CPU, nothing written
+    other = serve.ModelRegistry(device=CPU)
+    try:
+        other.register_index("vecs", t, warm=False, bundle=str(tmp_path / "ix.aotbundle"))
+        assert other.searcher("vecs") is not None
+        assert not (tmp_path / "ix.aotbundle").exists()
+    finally:
+        other.shutdown()
     reg = serve.ModelRegistry(device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        reg.register_index("vecs", t, bundle="ix.aotbundle")
 
     class _OnCard:
         device = torch.device("cuda")
