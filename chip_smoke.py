@@ -298,8 +298,11 @@ non-zero (and without a result line when no CUDA device is present):
    of 1,000 rows found by every tier before and after merge_pending, a
    save/load round trip answering bit for bit (bytes, seconds), peak
    memory.
-29. clustering — KMeansClustering(256, 20) on (A)'s corpus (seconds; card
-   against the CPU port: largest centre difference, share of equal
+29. clustering — KMeansClustering(256, 20) on (A)'s corpus (seconds), that
+   result held on the host (each centre the float64 mean of its points; the
+   whole corpus assigned to those centres by the card and by the CPU port,
+   equal but for near-ties), and card against the CPU port on its first
+   KMEANS_CPU_ROWS rows (largest centre difference, share of equal
    assignments); knn_search on (B)'s corpus chunked (262,144 rows) against
    unchunked (ids equal but for ties); RandomProjectionLSH(16, 8, 64) on
    (A) (recall@10 against exact cosine); exact Tsne on 2,500 x 50 points
@@ -431,15 +434,36 @@ non-zero (and without a result line when no CUDA device is present):
    sidecar beside each checkpoint) preempted before its third batch, then
    resumed in a fresh model: the sidecar restored, losses and params bit
    for bit, 2 + 2 launches a chunk; ``tune.tune_model`` on LeNet-5 (batch
-   256) over grad_accum {1, 2} x chain_steps {0, 8}, eta 2, 128 timed
+   256) over grad_accum {1, 2} x chain_steps {0}, eta 2, 128 timed
    steps a trial in the first round, every trial a subprocess on the card
-   and ``ok``, then ``fit`` under
+   and ``ok``; one SGD step under DL4J_TPU_GRAD_ACCUM=2 against the full
+   batch's (relative difference of the updates), then ``fit`` under
    DL4J_TPU_TUNE=auto applying the winner (``tune_applied``); (e) a
    StatsListener on 4 char-RNN updates into a FileStatsStorage, UIServer's
    /train/overview, /train/system (naming the card) and /debug/trace
    answering 200, the live trace and the trace CLI's rendering of a span
    dump both valid, ConvolutionalIterationListener's PNGs for one LeNet-5
    epoch.
+39. analysis: the runtime guards of ``analysis/`` on the card, set through
+   ``os.environ`` inside the phase and restored after it, with the process's
+   compile and bucket counters reset at its start. (a) Serving under
+   DL4J_TPU_STRICT_RETRACE=1 and DL4J_TPU_DONATION_GUARD=1: the full-width
+   TransformerLM registered with its warm (``warm_serving`` registers the
+   buckets 1-16 at T 2048), then requests of 1, 3, 4, 9 and 16 rows x 2048
+   through the scheduler: the new signatures at ``mln.output`` equal
+   ``predicted_compiles`` and nothing raises, kernel #1 launches 8 a
+   dispatch and #2/#3 never; then, under the warning guard, one 1 x 128
+   request (the serving path pads rows, not sequence length): one signature
+   beyond the bound, caught. (b) A ``RetraceGuard`` around kernel #1 fed
+   three sequence lengths in one row bucket raises ``RetraceError``. (c) The
+   full-width char-RNN fits 4 tBPTT chunks under both guards: no trip, the
+   step's leaves all kept, 2 + 2 launches of #4/#5 a chunk; a step that
+   rebinds a param leaf trips once and its old tensor reads NaN on the card.
+   (d) The guards' cost: b1 and b16 ``mln.output`` dispatches of the serve
+   model with the guards off, on, on, off, by CUDA events and the host
+   clock. (e) The port's lint as a subprocess (standard library only): its
+   exit code (must be 0), seconds, and the baselined host-sync findings per
+   module.
 
 It ends with the command time, the kernels line (launches of each kernel
 by path, the new phases' included), the card's name and power limit, and
@@ -4809,6 +4833,13 @@ SEARCH_RECALL_MIN = 0.9     # bench_vector_search's own gate: IVF against exact 
 SEARCH_TIE_RTOL = 1e-5
 TSNE = dict(n=2500, dim=50, clusters=10, seed=5, n_iter=1000, parity_iter=10, parity_lr=10.0)
 TSNE_KNN_MIN = 0.9          # 10-NN accuracy of the embedding's planted labels
+KMEANS_CPU_ROWS = 20000     # the k-means card-vs-CPU comparison's rows
+# the card's centres against float64 means of their points on the host:
+# f32 sums of up to the whole corpus on the card, relative to max |centre|
+KMEANS_MEAN_RTOL = 1e-4
+# a point the card and the CPU assign differently must be a near-tie: its
+# distances to the two centres agree within this (relative to the distance)
+KMEANS_TIE_RTOL = 1e-4
 # 10 steps card vs CPU at learning rate 10, of the embedding's scale (the
 # JAX package and the port on one CPU part by 2.2e-5 there; at the default
 # rate 200 by 3.7e-3: t-SNE amplifies rounding, so that one is reported)
@@ -5099,6 +5130,40 @@ def _knn_label_accuracy(y, labels, k=10) -> float:
     return float((labels[nn] == labels[:, None]).mean())
 
 
+def _kmeans_on_host(km, corpus) -> dict:
+    """The card's full-corpus k-means result held on the host: every
+    centre with points is their mean (float64 sums of its assignments), and
+    one more assignment of the whole corpus to those centres agrees between
+    the card and the CPU port (``assign_points``)."""
+    from deeplearning4j_tpu_torch.clustering.kmeans import assign_points
+
+    k = km.centers.shape[0]
+    counts = np.bincount(km.assignments, minlength=k)
+    sums = np.zeros((k, corpus.shape[1]))
+    np.add.at(sums, km.assignments, corpus.astype(np.float64))
+    live = counts > 0
+    means = sums[live] / counts[live][:, None]
+    scale = max(1.0, float(np.abs(km.centers).max()))
+    mean_diff = float(np.abs(km.centers[live] - means).max())
+    t0 = time.perf_counter()
+    card_a, card_d = assign_points(corpus, km.centers)
+    cpu_a, cpu_d = assign_points(corpus, km.centers, device="cpu")
+    seconds = time.perf_counter() - t0
+    differ = card_a != cpu_a
+    # a differing assignment must be a near-tie: both centres as close
+    tie = np.abs(card_d[differ] - cpu_d[differ]) <= KMEANS_TIE_RTOL * np.maximum(
+        1.0, np.abs(cpu_d[differ]))
+    res = {"rows": int(len(corpus)), "live_centres": int(live.sum()),
+           "centre_vs_mean_max_abs_diff": mean_diff, "tol": KMEANS_MEAN_RTOL * scale,
+           "assign_seconds": seconds, "assignments_differ": int(differ.sum()),
+           "differ_not_tie": int((~tie).sum())}
+    check(mean_diff <= KMEANS_MEAN_RTOL * scale,
+          f"k-means centres are not their points' means on the host: {res}")
+    check(res["differ_not_tie"] == 0,
+          f"card and CPU assign the corpus differently beyond ties: {res}")
+    return res
+
+
 def clustering_phase(a_corpus, a_queries, b_corpus) -> dict:
     """Phase 29: the clustering library on the card: KMeansClustering(256,
     20) on (A)'s corpus against the CPU port; knn_search on (B)'s corpus
@@ -5114,16 +5179,21 @@ def clustering_phase(a_corpus, a_queries, b_corpus) -> dict:
         knn_search)
 
     out = {"phase": "clustering"}
-    # k-means, card against the CPU port
+    # k-means on the card, then card against the CPU port on the first
+    # KMEANS_CPU_ROWS rows (the whole corpus took the card's host 31 s)
     t0 = time.perf_counter()
     km = KMeansClustering(256, 20).apply_to(a_corpus)
     out["kmeans_s"] = time.perf_counter() - t0
+    out["kmeans_full_corpus_on_host"] = _kmeans_on_host(km, a_corpus)
+    part = a_corpus[:KMEANS_CPU_ROWS]
+    kg = KMeansClustering(256, 20).apply_to(part)
     t0 = time.perf_counter()
-    kc = KMeansClustering(256, 20, device="cpu").apply_to(a_corpus)
+    kc = KMeansClustering(256, 20, device="cpu").apply_to(part)
     out["kmeans_cpu_s"] = time.perf_counter() - t0
     out["kmeans_card_vs_cpu"] = {
-        "max_center_diff": float(np.abs(km.centers - kc.centers).max()),
-        "equal_assignments": float(np.mean(km.assignments == kc.assignments))}
+        "rows": int(len(part)),
+        "max_center_diff": float(np.abs(kg.centers - kc.centers).max()),
+        "equal_assignments": float(np.mean(kg.assignments == kc.assignments))}
     check(np.isfinite(km.centers).all() and km.centers.shape == (256, a_corpus.shape[1]),
           "k-means centres")
 
@@ -6615,7 +6685,16 @@ def elastic_train_phase(tmp: Path) -> dict:
 
 # -- phase 38 ----------------------------------------------------------------
 
-RT_TUNE_GRID = {"grad_accum": [1, 2], "chain_steps": ["0", "8"]}
+# two configurations, one round of two subprocess trials (grad_accum {1, 2}
+# x chain_steps {0, 8} ran six in two rounds, ~113 s, mostly process
+# start-up): gradient accumulation still runs on the card in a trial, the
+# chain in lenet_runtime; a knob left out of the grid searches its whole
+# registered domain
+RT_TUNE_GRID = {"grad_accum": [1, 2], "chain_steps": ["0"]}
+# one SGD step of LeNet-5 under DL4J_TPU_GRAD_ACCUM=2 against the full
+# batch's, f32 with TF32 off: the two 128-row gradients' mean against one
+# 256-row gradient, sums in another order; ||delta diff|| / ||delta||
+RT_ACCUM_REL = 1e-4
 RT_TUNE = dict(batch=256, base_steps=128, warmup_steps=1, eta=2, timeout_s=300)
 RT_CHARRNN = dict(rows=256, T=100, seed=38)   # 2 batches of 128 x 2 tBPTT chunks
 RT_FLOPS_REL = 2e-2        # counted vs analytic forward flops at b16
@@ -6915,7 +6994,8 @@ def _rt_tune(tmp: Path) -> dict:
         hist = entry["history"]
         check(all(h["ok"] for h in hist),
               f"a tuning trial failed: {[h for h in hist if not h['ok']]}")
-        check(len(hist) == 6, f"{len(hist)} trials for a 4-config grid at eta 2")
+        check(len(hist) == 2 and {h["knobs"]["grad_accum"] for h in hist} == {1, 2},
+              f"{len(hist)} trials for a 2-config grid at eta 2: {hist}")
         applied0 = obs.event_log().counts().get("tune_applied", 0)
         os.environ["DL4J_TPU_TUNE"] = "auto"
         fresh = MultiLayerNetwork(zoo.LeNet5()).init()
@@ -6936,7 +7016,37 @@ def _rt_tune(tmp: Path) -> dict:
             "trials": [{"knobs": h["knobs"], "steps_per_sec": h["steps_per_sec"], "ok": h["ok"]}
                        for h in hist],
             "winner": entry["knobs"], "objective": entry["objective"],
-            "search_s": search_s, "applied_env": env}
+            "search_s": search_s, "applied_env": env, "accum": _rt_accum()}
+
+
+def _rt_accum() -> dict:
+    """One ``fit`` step of LeNet-5 (SGD) at batch 256 under
+    DL4J_TPU_GRAD_ACCUM=2 against the same step without it, from one seed:
+    the accumulated update equals the full batch's."""
+    x, y = _lenet_images(RT_TUNE["batch"], 381)
+    saved = (os.environ.get("DL4J_TPU_GRAD_ACCUM"), torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    deltas = []
+    try:
+        for accum in ("1", "2"):
+            os.environ["DL4J_TPU_GRAD_ACCUM"] = accum
+            m = MultiLayerNetwork(zoo.LeNet5(updater={"type": "sgd", "lr": 0.1})).init()
+            before = [t.clone() for t in tree_leaves(m.params)]
+            m.fit((x, y), epochs=1, batch_size=RT_TUNE["batch"])
+            check(m.iteration == 1, f"grad_accum {accum}: {m.iteration} updates")
+            deltas.append(torch.cat([(a - b).double().flatten()
+                                     for a, b in zip(tree_leaves(m.params), before)]))
+    finally:
+        if saved[0] is None:
+            os.environ.pop("DL4J_TPU_GRAD_ACCUM", None)
+        else:
+            os.environ["DL4J_TPU_GRAD_ACCUM"] = saved[0]
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved[1:]
+    rel = float((deltas[1] - deltas[0]).norm() / deltas[0].norm())
+    check(rel <= RT_ACCUM_REL, f"grad_accum 2 against the full batch: rel {rel}")
+    return {"batch": RT_TUNE["batch"], "micro_batches": 2, "updater": "sgd 0.1",
+            "delta_rel_diff": rel, "tol": RT_ACCUM_REL}
 
 
 def _rt_dashboard(tmp: Path) -> dict:
@@ -7057,6 +7167,303 @@ def _runtime_layer_main(argv) -> int:
           "tune": [{"trials": [(h["knobs"], h["steps_per_sec"]) for h in r["trials"]],
                     "winner": r["winner"]} for r in (rt["tune"], again)]})
     return 0
+
+
+# -- phase 39 ----------------------------------------------------------------
+
+AN_ROWS = (1, 3, 4, 9, 16)          # (a)'s requests, rows x 2048 tokens
+AN_OFF_GRID_T = 128                 # (a)'s last request, 1 row, off the warmed T
+AN_UNPADDED = dict(rows=4, T=(128, 256, 384), H=16, D=128)   # (b): one row bucket
+AN_CHARRNN = dict(rows=128, T=200, seed=39)   # (c): one batch of 4 tBPTT chunks
+AN_TIMED = {1: 20, 16: 5}           # (d): dispatches a block, b1 and b16
+AN_ROUNDS = 3                       # (d): rounds of off, on, on, off blocks
+AN_CHECKS = 20000                   # (d): guard checks timed alone, off and on
+AN_GUARDS = ("DL4J_TPU_RETRACE_GUARD", "DL4J_TPU_STRICT_RETRACE", "DL4J_TPU_DONATION_GUARD")
+AN_LINT_TIMEOUT_S = 300
+
+
+@contextlib.contextmanager
+def _guards(**env):
+    """The guard knobs set as given (None: unset) and restored afterwards."""
+    saved = {k: os.environ.get(k) for k in AN_GUARDS}
+    for k in AN_GUARDS:
+        os.environ.pop(k, None)
+    os.environ.update({k: v for k, v in env.items() if v is not None})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _reset_guard_state():
+    from deeplearning4j_tpu_torch.analysis import donation_guard, retrace_guard
+    from deeplearning4j_tpu_torch.utils import bucketing
+
+    bucketing.telemetry().reset()
+    retrace_guard.reset_aot_warmed()
+    retrace_guard.reset_warnings()
+    donation_guard.reset_warnings()
+
+
+def _an_serve() -> tuple:
+    """(a): strict serving of the full-width TransformerLM; returns the
+    result and the model, which (d) times."""
+    from deeplearning4j_tpu_torch.analysis import retrace_guard
+    from deeplearning4j_tpu_torch.utils import bucketing
+
+    vocab, T = FLAGSHIP_CONF["vocab_size"], FLAGSHIP_CONF["max_len"]
+    tel = bucketing.telemetry()
+    g = torch.Generator().manual_seed(39)
+    out = {}
+    with _guards(DL4J_TPU_STRICT_RETRACE="1", DL4J_TPU_DONATION_GUARD="1"):
+        _zero_flash_counts()
+        model = MultiLayerNetwork(zoo.TransformerLM(**FLAGSHIP_CONF)).init()
+        registry = ModelRegistry(config=ServeConfig(
+            max_batch=16, queue_limit=64, max_wait_s=0.01, default_deadline_s=600.0))
+        registry.register("lm", model)
+        worker = registry.worker("lm")
+        warm = {"compiles": tel.compiles("mln.output"),
+                "warmed_buckets": sorted(retrace_guard.aot_warmed_buckets("mln.output")),
+                "launches": _launch_counts()}
+        check(warm["warmed_buckets"] == [1, 2, 4, 8, 16] and warm["compiles"] == 5,
+              f"the warm registered {warm}")
+        requests = []
+        for rows in AN_ROWS:
+            before_b, before = worker.stats()["batches"], _launch_counts()
+            ids = torch.randint(0, vocab, (rows, T), generator=g)
+            res = worker.submit(ids.numpy(), deadline_s=600.0)
+            check_rows(torch.from_numpy(res), (rows, T, vocab), f"strict {rows} x {T}")
+            batches = worker.stats()["batches"] - before_b
+            now = _launch_counts()
+            fwd = now["flash_fwd"] - before["flash_fwd"]
+            check(fwd == 8 * batches, f"{fwd} launches of #1 for {batches} dispatches")
+            requests.append({"rows": rows, "T": T, "bucket": bucketing.bucket_size(rows),
+                             "dispatches": batches, "flash_fwd": fwd})
+            del res
+        compiles = tel.compiles("mln.output")
+        predicted = retrace_guard.predicted_compiles("mln.output")
+        rep = retrace_guard.check("mln.output")
+        launches = _launch_counts()
+        check(rep.ok and compiles == predicted == 5,
+              f"strict serving: {compiles} new signatures against {predicted} predicted")
+        check(launches["flash_bwd_dq"] == 0 and launches["flash_bwd_dkv"] == 0,
+              f"serving launched the backward kernels: {launches}")
+        out.update(warm=warm, requests=requests, compiles=compiles, predicted=predicted,
+                   buckets_used=list(tel.buckets_used("mln.output")), launches=launches)
+    # the serving path pads rows up the ladder, not the sequence: a 1 x 128
+    # request after the T 2048 warm is one signature beyond the bound
+    with _guards(DL4J_TPU_RETRACE_GUARD="1"):
+        events0 = obs.event_log().counts().get("retrace_guard", 0)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", retrace_guard.RetraceWarning)
+            ids = torch.randint(0, vocab, (1, AN_OFF_GRID_T), generator=g)
+            res = worker.submit(ids.numpy(), deadline_s=600.0)
+        check_rows(torch.from_numpy(res), (1, AN_OFF_GRID_T, vocab), "1 x 128 after the warm")
+        rep = retrace_guard.check("mln.output")
+        events = obs.event_log().counts().get("retrace_guard", 0) - events0
+        check(not rep.ok and rep.compiles == 6 and rep.predicted == 5 and events >= 1,
+              f"the 1 x 128 request: {rep}, {events} retrace_guard events")
+        out["off_grid_1x128"] = {"compiles": rep.compiles, "predicted": rep.predicted,
+                                 "events": events}
+    out["launches"] = _launch_counts()
+    registry.shutdown()
+    return out, model
+
+
+def _an_unpadded() -> dict:
+    """(b): kernel #1 behind a RetraceGuard, three sequence lengths in one
+    row bucket: the second raises."""
+    from deeplearning4j_tpu_torch.analysis import retrace_guard
+
+    B, H, D = AN_UNPADDED["rows"], AN_UNPADDED["H"], AN_UNPADDED["D"]
+    guard = retrace_guard.RetraceGuard(
+        lambda q, k, v: fa.flash_attention(q, k, v, causal=True), "analysis.unpadded")
+    g = torch.Generator(device="cuda").manual_seed(39)
+    seen, raised = [], None
+    _zero_flash_counts()
+    with _guards(DL4J_TPU_STRICT_RETRACE="1"):
+        for T in AN_UNPADDED["T"]:
+            q, k, v = (torch.randn(B, T, H, D, generator=g, device="cuda",
+                                   dtype=torch.bfloat16) for _ in range(3))
+            try:
+                o = guard(q, k, v)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(o).all()), f"kernel #1 at T {T}")
+                seen.append(T)
+            except retrace_guard.RetraceError as e:
+                raised = {"T": T, "error": str(e)[:200]}
+                break
+    launches = _launch_counts()
+    check(raised is not None and seen == [AN_UNPADDED["T"][0]],
+          f"the unpadded site did not raise: ran {seen}")
+    check(launches["flash_fwd"] == 2, f"kernel #1 launched {launches['flash_fwd']} times")
+    return {"ran": seen, "raised": raised, "report": guard.report.__dict__,
+            "launches": launches}
+
+
+def _an_charrnn() -> dict:
+    """(c): 4 tBPTT chunks of the full-width char-RNN under both guards,
+    then a step that rebinds a param leaf."""
+    from deeplearning4j_tpu_torch.analysis import donation_guard, retrace_guard
+    from deeplearning4j_tpu_torch.utils import bucketing
+
+    x, y = _charrnn_rows(**AN_CHARRNN)
+    B = LSTM_SHAPE["B"]
+    out = {}
+    with _guards(DL4J_TPU_STRICT_RETRACE="1", DL4J_TPU_DONATION_GUARD="1"):
+        m = MultiLayerNetwork(zoo.TextGenerationLSTM(**LSTM_CONF)).init()
+        m.fit((x[:, :LSTM_CONF["timesteps"]], y[:, :LSTM_CONF["timesteps"]]),
+              epochs=1, batch_size=B)       # one chunk: the updater state exists now
+        trips0 = donation_guard._trips.value()
+        _zero_lstm_counts()
+        snap = donation_guard.snapshot(m, "analysis.charrnn")
+        m.fit((x, y), epochs=1, batch_size=B)
+        rep = donation_guard.check_after_step(snap, m)
+        torch.cuda.synchronize()
+        launches = _lstm_launches()
+        n_leaves = sum(len(tree_leaves(getattr(m, k))) for k in donation_guard.KINDS)
+        trips = donation_guard._trips.value() - trips0
+        check(trips == 0 and rep.trips == () and rep.advanced == n_leaves,
+              f"char-RNN under the guard: {trips} trips, {rep}")
+        check(launches == {"fused_lstm_fwd": 8, "fused_lstm_bwd": 8},
+              f"char-RNN launches {launches} (2 + 2 a tBPTT chunk, 4 chunks)")
+        check(retrace_guard.check("mln.step.tbptt", hits_site="mln.fit").ok,
+              "the tBPTT site broke its bound")
+        out.update(chunks=m.iteration - 1, trips=trips, leaves=n_leaves,
+                   advanced=rep.advanced, launches=launches,
+                   compiles=bucketing.telemetry().compiles("mln.step.tbptt"))
+        # a step that rebinds one param leaf: one trip, its old tensor NaN
+        layer0 = m.params[0]
+        name = sorted(layer0)[0]
+        old = layer0[name]
+        update = m._update_params
+
+        def rebinding_update(grads, *a, **kw):
+            update(grads, *a, **kw)
+            layer0[name] = layer0[name].clone()
+
+        m._update_params = rebinding_update
+        events0 = obs.event_log().counts().get("donation_guard", 0)
+        _zero_lstm_counts()
+        m.fit((x[:, :LSTM_CONF["timesteps"]], y[:, :LSTM_CONF["timesteps"]]),
+              epochs=1, batch_size=B)
+        torch.cuda.synchronize()
+        trips = donation_guard._trips.value() - trips0
+        events = obs.event_log().counts().get("donation_guard", 0) - events0
+        nan = bool(torch.isnan(old).all())
+        check(trips == 1 and events == 1 and nan and old.device.type == "cuda"
+              and bool(torch.isfinite(layer0[name]).all()),
+              f"the rebinding step: {trips} trips, {events} events, old NaN {nan}")
+        out["rebind"] = {"leaf": f"params[0][{name!r}]", "shape": list(old.shape),
+                         "trips": trips, "events": events, "old_is_nan_on_card": nan,
+                         "launches": _lstm_launches()}
+    return out
+
+
+def _an_cost(model) -> dict:
+    """(d): b1 and b16 ``mln.output`` dispatches with the guards off, on,
+    on, off (AN_ROUNDS times); per dispatch by CUDA events and by the host
+    clock. Then the site's post-dispatch check alone, off and on, on the
+    host clock: what the guards add to a dispatch without the dispatch's
+    own spread."""
+    vocab, T = FLAGSHIP_CONF["vocab_size"], FLAGSHIP_CONF["max_len"]
+    g = torch.Generator(device="cuda").manual_seed(40)
+    out = {"nvidia_smi": card_line()}
+    _reset_guard_state()    # (a)'s off-grid signature is not this window's
+    on = dict(DL4J_TPU_STRICT_RETRACE="1", DL4J_TPU_DONATION_GUARD="1")
+    for rows, n in AN_TIMED.items():
+        x = torch.randint(0, vocab, (rows, T), generator=g, device="cuda")
+        runs = {"off": [], "on": []}
+        for mode in ("off", "on", "on", "off") * AN_ROUNDS:
+            with _guards(**(on if mode == "on" else {})):
+                model.output(x)
+                torch.cuda.synchronize()
+                start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                t0 = time.perf_counter()
+                start.record()
+                for _ in range(n):
+                    model.output(x)
+                stop.record()
+                torch.cuda.synchronize()
+                host = (time.perf_counter() - t0) * 1e3 / n
+                runs[mode].append({"cuda_ms": start.elapsed_time(stop) / n, "host_ms": host})
+        med = {m: {k: float(np.median([r[k] for r in rs])) for k in ("cuda_ms", "host_ms")}
+               for m, rs in runs.items()}
+        out[f"b{rows}"] = {"dispatches_per_block": n, "runs": runs, "median": med,
+                           "overhead_host_ms": med["on"]["host_ms"] - med["off"]["host_ms"],
+                           "overhead_cuda_ms": med["on"]["cuda_ms"] - med["off"]["cuda_ms"]}
+    site = model._get_output_fn()
+    check_us = {}
+    for mode in ("off", "on"):
+        with _guards(**(on if mode == "on" else {})):
+            t0 = time.perf_counter()
+            for _ in range(AN_CHECKS):
+                site.guard()
+            check_us[mode] = (time.perf_counter() - t0) * 1e6 / AN_CHECKS
+    out["guard_check_us"] = check_us
+    return out
+
+
+def _an_lint() -> dict:
+    """(e): ``python -m deeplearning4j_tpu_torch.analysis.lint
+    deeplearning4j_tpu_torch`` on this host, as a subprocess."""
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "deeplearning4j_tpu_torch.analysis.lint",
+                           "deeplearning4j_tpu_torch", "--json"], cwd=str(root),
+                          capture_output=True, text=True, timeout=AN_LINT_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the lint exited {proc.returncode}: {proc.stderr[-1000:]}")
+    findings, end = json.JSONDecoder().raw_decode(proc.stdout)
+    check(not any(f["new"] for f in findings), "the lint found new findings")
+    per_module = {}
+    for f in findings:
+        if f["rule"] == "host-sync":
+            per_module[f["path"]] = per_module.get(f["path"], 0) + 1
+    return {"rc": proc.returncode, "seconds": seconds, "findings": len(findings),
+            "host_sync_per_module": dict(sorted(per_module.items())),
+            "summary": proc.stdout[end:].strip()[-200:]}
+
+
+def _analysis_main(argv) -> int:
+    """``python3 chip_smoke.py _analysis``: phase 39 alone, for work on the
+    guards. Builds the kernels, runs the phase and prints its line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit({"phase": "device", "nvidia_smi": card_line()})
+    emit(build_report())
+    emit(analysis_phase())
+    return 0
+
+
+def analysis_phase() -> dict:
+    """Phase 39: the guards of ``analysis/`` on the card, and the lint."""
+    t0 = time.perf_counter()
+    _reset_guard_state()
+    res = {"phase": "analysis"}
+    steps_s = {}
+    t1 = time.perf_counter()
+    res["serve"], model = _an_serve()
+    steps_s["serve"] = time.perf_counter() - t1
+    for key, fn in (("unpadded", _an_unpadded), ("charrnn", _an_charrnn),
+                    ("cost", lambda: _an_cost(model)), ("lint", _an_lint)):
+        t1 = time.perf_counter()
+        res[key] = fn()
+        steps_s[key] = time.perf_counter() - t1
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["steps_s"] = steps_s
+    res["seconds"] = time.perf_counter() - t0
+    return res
 
 
 def _kernel_row(name, source, replaces, launches, by_path, max_abs_err, ms, plain_ms,
@@ -7242,6 +7649,11 @@ def main() -> int:
         rt = runtime_layer_phase(Path(tmp))
     emit({"phase": "runtime_layer", "seconds": rt["seconds"],
           "steps_s": {k: rt[k]["step_s"] for k in ("serve", "charrnn", "tune", "dashboard")}})
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 39 counts its launches step by step
+    an = analysis_phase()
+    emit(an)
     imp_by = imp["launches_by_path"]
     par_flash = {f"tp_train_rank{r}": rk["launches"]
                  for r, rk in enumerate(par["tp_train"]["ranks_detail"])}
@@ -7276,6 +7688,8 @@ def main() -> int:
         by.update({path: n[name] for path, n in par_flash.items()})
         rl = rt["serve"]["launches"]
         by.update({f"runtime_layer_{path}": n[name] for path, n in rl.items()})
+        by.update({"analysis_serve": an["serve"]["launches"][name],
+                   "analysis_unpadded": an["unpadded"]["launches"][name]})
         return by
 
     fwd_by = dict({"serve": srv["launches"], "train": tl["flash_fwd"]},
@@ -7358,6 +7772,8 @@ def main() -> int:
         by_path.update({f"runtime_layer_charrnn_{run}": n[name]
                         for run, n in rt["charrnn"]["launches"].items()})
         by_path["runtime_layer_dashboard"] = rt["dashboard"]["launches"][name]
+        by_path["analysis_charrnn"] = an["charrnn"]["launches"][name]
+        by_path["analysis_rebind"] = an["charrnn"]["rebind"]["launches"][name]
         rows.append(_kernel_row(
             name, f"deeplearning4j_tpu_torch/csrc/{name}.cu",
             f"deeplearning4j_tpu/ops/fused_lstm.py:{line}",
@@ -7389,4 +7805,6 @@ if __name__ == "__main__":
         sys.exit(_bundle_child_main(sys.argv[2:]))
     if sys.argv[1:2] == ["_runtime_layer"]:  # phase 38 alone
         sys.exit(_runtime_layer_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["_analysis"]:  # phase 39 alone
+        sys.exit(_analysis_main(sys.argv[2:]))
     sys.exit(main())

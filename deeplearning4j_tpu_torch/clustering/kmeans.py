@@ -13,7 +13,9 @@ changes from run to run, so k-means would not repeat itself. ``argmin``
 returns the first minimum, as ``jnp.argmin`` does. Point counts are
 padded up the shared bucket ladder (``utils/bucketing``) and padded rows
 are masked out of the sums, so the padded update equals the unpadded one;
-the ``kmeans.lloyd`` / ``kmeans.assign`` bucket hits are recorded. The
+the ``kmeans.lloyd`` / ``kmeans.assign`` bucket hits are recorded, and
+each new signature as a compile there (the retrace guard bounds the two
+against the hits, ``analysis/retrace_guard.py``). The
 seeding (k-means++ or random rows) draws from the host's
 ``np.random.RandomState`` in the JAX package's order. Products are IEEE
 float32 (``knn.f32_products``).
@@ -28,9 +30,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.analysis import retrace_guard
 from deeplearning4j_tpu_torch.clustering.knn import (
     _device_of, _tensor, f32_products, pairwise_distance)
 from deeplearning4j_tpu_torch.utils import bucketing
+
+# the signatures of the two module-level steps, process-wide as the JAX
+# package's module-level jit caches are
+_SIGS = retrace_guard.Signatures()
+_sig = retrace_guard.signature_of
 
 
 @dataclass
@@ -121,7 +129,9 @@ def assign_points(points, centers, metric: str = "euclidean",
         target = ladder.bucket(rows) if bucketing.bucketing_enabled() else rows
         tel.record_hit("kmeans.assign", rows, target)
         padded = bucketing.pad_rows_zero(_tensor(chunk, dev), target)
+        _SIGS.note("kmeans.assign", _sig(padded, centers, metric), tuple(padded.shape))
         a, d = _assign_step(padded, centers, metric)
+        retrace_guard.check_if_enabled("kmeans.assign")
         assigns.append(a[:rows].to(torch.int32))
         dists.append(d[:rows])
     if not assigns:
@@ -201,9 +211,12 @@ class KMeansClustering:
         bucketing.telemetry().record_hit("kmeans.lloyd", n, target)
         pts = bucketing.pad_rows_zero(pts, target)
         assign = mind = None
+        _SIGS.note("kmeans.lloyd", _sig(pts, centers, self.distance_function),
+                   tuple(pts.shape))
         for _ in range(self.max_iterations):
             centers, assign, mind, shift = _lloyd_step(
                 pts, centers, n, self.distance_function)
+            retrace_guard.check_if_enabled("kmeans.lloyd")
             if float(shift) < self.tolerance:
                 break
         return ClusterSet(

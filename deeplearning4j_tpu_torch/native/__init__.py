@@ -87,6 +87,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
         if path is None:
             return None
         try:
+            # graftlint: disable=retrace-hazard; the C++ parsers (no kernel), loaded once into _lib
             lib = ctypes.CDLL(str(path))
         except OSError as e:
             BUILD_ERROR = f"load {path}: {e}"

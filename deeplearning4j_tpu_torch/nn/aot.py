@@ -48,8 +48,13 @@ Env knobs (read per call):
                             (default) on for CUDA models and off on the
                             CPU.
 
-Not here yet: the cross-registration of warmed buckets with the JAX
-package's retrace guard (``analysis/``), ROADMAP Queue 1 item 9.5.
+4. **Guards.** A site's first dispatch of a signature (a warm's or a
+   lazy one) counts one compile (``bucketing.record_trace``); after every
+   dispatch the site runs ``retrace_guard.check_if_enabled`` against its
+   bucket traffic (``hits_site``), and a training site runs its step under
+   the donation guard (``nn/step_program.py`` ``guarded_step``). The
+   warmers register the buckets they warm with the retrace guard
+   (``register_aot_warmed``), as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -70,9 +75,11 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import obs
+from deeplearning4j_tpu_torch.analysis import retrace_guard
+from deeplearning4j_tpu_torch.nn.step_program import guarded_step
 from deeplearning4j_tpu_torch.obs import profile as _profile
 from deeplearning4j_tpu_torch.utils import bucketing
-from deeplearning4j_tpu_torch.utils.tree import tree_leaves, tree_map
+from deeplearning4j_tpu_torch.utils.tree import assign_leaves, tree_leaves, tree_map
 
 __all__ = [
     "AotFunction",
@@ -174,6 +181,15 @@ def _args_of(key, device):
     return tuple(args), dict(kwargs)
 
 
+def _trace_shape(args) -> Tuple[int, ...]:
+    """The shape a compile is recorded with: the first tensor or array
+    argument's, else the leading plain ints (a grid site's key)."""
+    for leaf in tree_leaves(args):
+        if isinstance(leaf, (torch.Tensor, np.ndarray)):
+            return tuple(int(s) for s in leaf.shape)
+    return tuple(a for a in args if isinstance(a, int) and not isinstance(a, bool))
+
+
 # ---------------------------------------------------------------------------
 # Model snapshots: a warm of a training site never trains
 # ---------------------------------------------------------------------------
@@ -183,7 +199,7 @@ def _clone(tree):
 
 
 class _ModelSnapshot:
-    """Params (restored in place), updater and layer state, the step
+    """Params, updater and layer state (all restored in place), the step
     counters and the generator of ``model``."""
 
     _COUNTERS = ("iteration", "epoch", "batch_in_epoch")
@@ -201,9 +217,12 @@ class _ModelSnapshot:
         m = self.model
         with torch.no_grad():
             for p, s in zip(tree_leaves(m.params), self.params):
+                # graftlint: disable=step-wiring; restores a warm's snapshot: not a step
                 p.copy_(s)
-        m.state = self.state
-        m.opt_state = self.opt_state
+        assign_leaves(m.state, self.state)
+        # updater state the warm's step created (there was none) goes again
+        m.opt_state = (None if self.opt_state is None
+                       else assign_leaves(m.opt_state, self.opt_state))
         if self.gen is not None:
             m._gen.set_state(self.gen)
         for k, v in self.counters.items():
@@ -229,14 +248,20 @@ class AotFunction:
 
     ``fn`` is the site's callable (None for a site whose grid a program
     runs itself, :func:`grid_site`). ``stateful`` sites (training steps)
-    are warmed on a snapshot that is restored afterwards. ``replay`` says
-    whether a signature restored from a bundle is replayed here with zero
-    arguments of its recorded shapes (a program-run grid is not)."""
+    are warmed on a snapshot that is restored afterwards, and dispatch
+    under the donation guard. ``replay`` says whether a signature restored
+    from a bundle is replayed here with zero arguments of its recorded
+    shapes (a program-run grid is not). The first dispatch of a signature
+    counts a compile at ``site``; after each dispatch the retrace guard
+    checks it against the bucket hits recorded at ``hits_site`` (default
+    ``site``)."""
 
     def __init__(self, fn: Optional[Callable], site: str, model=None,
-                 stateful: bool = False, replay: bool = True):
+                 stateful: bool = False, replay: bool = True,
+                 hits_site: Optional[str] = None):
         self._fn = fn
         self.site = site
+        self.hits_site = hits_site
         self._model = model
         self.stateful = stateful
         self.replay = replay and fn is not None
@@ -249,29 +274,49 @@ class AotFunction:
         self._lock = threading.Lock()
 
     # -- dispatch ----------------------------------------------------------
+    def _note_new(self, key, args) -> None:
+        """Record ``key`` as seen; its first sighting counts a compile."""
+        with self._lock:
+            new = key not in self._warmed and key not in self._seen
+            if new:
+                self._seen[key] = None
+        if new:
+            bucketing.telemetry().record_trace(self.site, _trace_shape(args))
+
+    def _dispatch(self, args, kwargs):
+        if self.stateful:
+            return guarded_step(self.site, self._model, self._fn, *args, **kwargs)
+        return self._fn(*args, **kwargs)
+
+    def guard(self) -> None:
+        """The post-dispatch retrace-guard check (no-op unless enabled)."""
+        retrace_guard.check_if_enabled(self.site, hits_site=self.hits_site)
+
     def __call__(self, *args, **kwargs):
         key = signature_key(args, kwargs)
         label = self._warmed.get(key)
         if label is None:
             if key not in self._seen:
-                with self._lock:
-                    self._seen.setdefault(key, None)
-            return self._fn(*args, **kwargs)
+                self._note_new(key, args)
+            out = self._dispatch(args, kwargs)
+            self.guard()
+            return out
         obs.counter("dl4j_aot_warm_hits_total",
                     "dispatches of a warmed (or bundle-restored) signature",
                     ("site",)).inc(site=self.site)
         start = _profile.sample_start(self.site, label) if self._cuda else None
-        out = self._fn(*args, **kwargs)
+        out = self._dispatch(args, kwargs)
         if start is not None:
             _profile.sample_stop(self.site, label, start)
+        self.guard()
         return out
 
     def note_seen(self, *args, **kwargs) -> None:
-        """Record a dispatch a program ran itself (a grid site)."""
+        """Record a dispatch a program ran itself (a grid site); the
+        program runs :meth:`guard` after its dispatch."""
         key = signature_key(args, kwargs)
         if key not in self._warmed and key not in self._seen:
-            with self._lock:
-                self._seen.setdefault(key, None)
+            self._note_new(key, args)
 
     # -- warm --------------------------------------------------------------
     def _run(self, args, kwargs):
@@ -289,6 +334,7 @@ class AotFunction:
         key = signature_key(args, kwargs)
         if key in self._warmed:
             return False
+        self._note_new(key, args)
         with self._lock:
             pend = self._pending.pop(key, _MISSING)
         label = cost_key or (pend[0] if pend is not _MISSING else _sig_label(key))
@@ -312,6 +358,7 @@ class AotFunction:
         """Record a signature that a program's own warm pass ran (a grid
         site: decode steps, search tiers)."""
         key = signature_key(args, kwargs)
+        self._note_new(key, args)
         with self._lock:
             pend = self._pending.pop(key, None)
             self._warmed.setdefault(key, cost_key or (pend[0] if pend else _sig_label(key)))
@@ -366,11 +413,12 @@ class AotFunction:
 
 
 def wrap(fn: Optional[Callable], site: str, model=None, stateful: bool = False,
-         replay: bool = True) -> AotFunction:
+         replay: bool = True, hits_site: Optional[str] = None) -> AotFunction:
     """Wrap a dispatch site and register it on ``model``'s site table
     (``model._aot_fns``). Signatures restored from a bundle before the site
     existed wait in ``model._aot_pending`` and are adopted here."""
-    fn_ = AotFunction(fn, site, model=model, stateful=stateful, replay=replay)
+    fn_ = AotFunction(fn, site, model=model, stateful=stateful, replay=replay,
+                      hits_site=hits_site)
     if model is not None:
         model.__dict__.setdefault("_aot_fns", {})[site] = fn_
         pending = model.__dict__.get("_aot_pending")
@@ -381,13 +429,13 @@ def wrap(fn: Optional[Callable], site: str, model=None, stateful: bool = False,
 
 
 def site(model, name: str, fn: Optional[Callable] = None, *, stateful: bool = False,
-         replay: bool = True) -> AotFunction:
+         replay: bool = True, hits_site: Optional[str] = None) -> AotFunction:
     """``model``'s site ``name``, wrapping ``fn`` on first use."""
     fns = model.__dict__.get("_aot_fns")
     existing = fns.get(name) if fns else None
     if existing is not None:
         return existing
-    return wrap(fn, name, model, stateful=stateful, replay=replay)
+    return wrap(fn, name, model, stateful=stateful, replay=replay, hits_site=hits_site)
 
 
 def grid_site(model, name: str) -> AotFunction:
@@ -445,6 +493,7 @@ def warm_serving(model, max_batch: int,
         if fn.warm(_dummy_features(model, b), None, cost_key=f"b{b}"):
             # a warm dispatch is a full bucket, as ``output`` records it
             bucketing.telemetry().record_hit(fn.site, b, b)
+    retrace_guard.register_aot_warmed(fn.site, buckets)
     _sync(model)
     obs.event("aot_warmup", site=fn.site, buckets=list(buckets),
               executables=fn.compiled_count,
@@ -512,6 +561,7 @@ def warm_fit(model, data, batch_size: Optional[int] = None) -> int:
     bucket = pad_target if pad_target is not None else len(x)
     step.warm(model._features(x), _cast_labels(y, dt, dev), _cast_mask(fm, dt, dev),
               _cast_mask(lm, dt, dev), _cast_mask(ew, dt, dev), cost_key=f"b{bucket}")
+    retrace_guard.register_aot_warmed("mln.step", [bucket])
     _sync(model)
     obs.event("aot_warmup", site="mln.step", buckets=[int(bucket)],
               executables=step.compiled_count,
@@ -546,6 +596,7 @@ def _warm_fit_graph(model, data, batch_size: Optional[int]) -> int:
     inputs, labels, fms, lms = model._to_device(f, l, fm, lm)
     step.warm(inputs, labels, fms, lms, _cast_mask(ew, model.dtype, model.device),
               cost_key=f"b{bucket}")
+    retrace_guard.register_aot_warmed("cg.step", [bucket])
     _sync(model)
     obs.event("aot_warmup", site="cg.step", buckets=[int(bucket)],
               executables=step.compiled_count,
@@ -562,21 +613,16 @@ def warm_dp(runner, x, y, fm=None, lm=None, ew=None) -> int:
     if not runner.active:
         runner.begin()
     model = runner.model
-    if runner.is_graph:
-        call = lambda f, l, fm_, lm_, ew_: runner.fit_batch_graph((f, l, fm_, lm_), ew=ew_)  # noqa: E731
-    else:
-        call = runner.fit_batch
-    site_fn = runner.__dict__.get("_aot_site")
-    if site_fn is None:   # the site is the runner's: another runner, another step
-        site_fn = runner._aot_site = wrap(call, "dp.step", model, stateful=True, replay=False)
+    site_fn = runner.aot_site
     before = site_fn.compiled_count
     t0 = time.perf_counter()
     saved = (_clone(runner._opt_flat), _clone(runner._residual))
+    bucket = len(x[0] if runner.is_graph else x)
     try:
-        site_fn.warm(x, y, fm, lm, ew,
-                     cost_key=f"b{len(x[0] if runner.is_graph else x)}")
+        site_fn.warm(x, y, fm, lm, ew, cost_key=f"b{bucket}")
     finally:
         runner._opt_flat, runner._residual = saved
+    retrace_guard.register_aot_warmed("dp.step", [bucket])
     _sync(model)
     obs.event("aot_warmup", site="dp.step", executables=site_fn.compiled_count,
               duration_s=round(time.perf_counter() - t0, 6))
@@ -683,6 +729,7 @@ def validate_persistence(backend: Optional[str] = None, timeout_s: float = 120.0
     try:
         with obs.compile_span("aot.validate", backend=backend):
             detail = _selftest(backend)
+        # graftlint: disable=host-sync; the self-test's report is a host dict
         ok = bool(detail.get("ok"))
     except Exception as e:
         detail, ok = {"error": repr(e)}, False

@@ -325,7 +325,10 @@ class DecodeProgram:
             if self.warmed and key not in self.warmed:
                 self.off_grid_dispatches += 1
         with torch.inference_mode(), self._device_scope():
-            return self._step(table, lengths, tokens, n_new)
+            out = self._step(table, lengths, tokens, n_new)
+        if not _warm:
+            self._site.guard()
+        return out
 
     # -- warm ----------------------------------------------------------------
 

@@ -66,7 +66,8 @@ from deeplearning4j_tpu_torch.nn.model import (
     _cast_labels,
     _cast_mask,
     _device_prefetch_enabled,
-    _select,
+    _select_into,
+    _write_state,
     resolve_device,
     torch_dtype,
 )
@@ -85,7 +86,12 @@ from deeplearning4j_tpu_torch.train.updaters import (
     scale_lr,
 )
 from deeplearning4j_tpu_torch.utils import bucketing
-from deeplearning4j_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like
+from deeplearning4j_tpu_torch.utils.tree import (
+    assign_leaves,
+    tree_leaves,
+    tree_map,
+    tree_unflatten_like,
+)
 
 __all__ = [
     "ComputationGraph", "ComputationGraphConfiguration", "DuplicateToTimeSeriesVertex",
@@ -707,6 +713,7 @@ class ComputationGraph:
         self._gen.manual_seed(conf.seed)
         self.divergence_guard = None
         self._lr_scale = 1.0
+        # the chain's signatures (not an nn/aot.py site): its compiles
 
     # -- resolution --------------------------------------------------------
     def _resolve(self):
@@ -953,9 +960,8 @@ class ComputationGraph:
         params, or a frozen one, keeps its params and updater state. With
         ``ok`` (the skip_batch guard's device bool) the new values are
         computed out of place and ``torch.where(ok, new, old)`` is written
-        back."""
+        back. Params and updater state keep their tensors."""
         self.init_opt_state()
-        new_opt = dict(self.opt_state)
         with torch.no_grad():
             for name in self.topo_order:
                 g = grads[name]
@@ -967,21 +973,19 @@ class ComputationGraph:
                     g = apply_gradient_normalization(
                         gn, getattr(cfg, "gradient_normalization_threshold", 1.0), g)
                 p = self.params[name]
-                upd, new_opt[name] = self._updaters[name].update(
-                    g, self.opt_state[name], p, self.iteration)
+                upd, new_s = self._updaters[name].update(
+                    g, self.opt_state[name], p, self.iteration, inplace=ok is None)
                 if ok is None:
                     for pi, d in zip(tree_leaves(p), tree_leaves(upd)):
                         pi.sub_(d)
                     if getattr(cfg, "constraints", None):
-                        self.params[name] = apply_constraints(cfg, p)
+                        assign_leaves(p, apply_constraints(cfg, p))
                     continue
                 cand = tree_map(lambda a, d: a - d, p, upd)
                 if getattr(cfg, "constraints", None):
                     cand = apply_constraints(cfg, cand)
-                for pi, c in zip(tree_leaves(p), tree_leaves(cand)):
-                    pi.copy_(torch.where(ok, c, pi))
-                new_opt[name] = _select(ok, new_opt[name], self.opt_state[name])
-        self.opt_state = new_opt
+                _select_into(ok, cand, p)
+                _select_into(ok, new_s, self.opt_state[name])
 
     def _apply_step(self, loss, new_state, grads):
         """Update params, updater state and vertex state from one batch's
@@ -992,10 +996,10 @@ class ComputationGraph:
 
             ok = guard_ok(loss, g.spike_limit)
             self._update_params(grads, ok)
-            self.state = _select(ok, new_state, self.state)
         else:
+            ok = None
             self._update_params(grads)
-            self.state = new_state
+        self.state = _write_state(self.state, new_state, ok)
 
     def _step(self, inputs, labels, fmasks, lmasks, ex_weight):
         """One training step on tensors already on the device; returns the
@@ -1216,7 +1220,8 @@ class ComputationGraph:
                         stream, chain_k, self.device,
                         lambda b: (b[2] is None and b[3] is None and b[4] is None
                                    and b[1] is not None
-                                   and all(y is not None for y in b[1])))
+                                   and all(y is not None for y in b[1])),
+                        note=aot.grid_site(self, "cg.chain").note_seen)
                 elif prefetch:   # the next batch copied on a side stream
                     from deeplearning4j_tpu_torch.datasets.iterator import prefetch_to_device
 
@@ -1318,11 +1323,12 @@ class ComputationGraph:
         """The ``cg.step`` site: one training step on device tensors."""
         if tbptt:
             return self._get_tbptt_fn()
-        return aot.site(self, "cg.step", self._step, stateful=True)
+        return aot.site(self, "cg.step", self._step, stateful=True, hits_site="cg.fit")
 
     def _get_tbptt_fn(self):
         """The ``cg.step.tbptt`` site: one tBPTT chunk update."""
-        return aot.site(self, "cg.step.tbptt", self._tbptt_chunk, stateful=True)
+        return aot.site(self, "cg.step.tbptt", self._tbptt_chunk, stateful=True,
+                        hits_site="cg.fit")
 
     def _infer_site(self, feats, fm):
         with torch.inference_mode():

@@ -75,7 +75,12 @@ from deeplearning4j_tpu_torch.train.updaters import (
     scale_lr,
 )
 from deeplearning4j_tpu_torch.utils import bucketing
-from deeplearning4j_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like
+from deeplearning4j_tpu_torch.utils.tree import (
+    assign_leaves,
+    tree_leaves,
+    tree_map,
+    tree_unflatten_like,
+)
 
 __all__ = ["MultiLayerConfiguration", "MultiLayerNetwork", "resolve_device",
            "torch_dtype"]
@@ -290,10 +295,30 @@ def _device_prefetch_enabled() -> bool:
     return os.environ.get("DL4J_TPU_DEVICE_PREFETCH", "0") == "1"
 
 
-def _select(ok, new, old):
-    """The skip_batch select over a tree: ``new`` where ``ok`` (a device
-    bool), else ``old``."""
-    return tree_map(lambda n, o: torch.where(ok, n, o), new, old)
+def _write_state(old, new, ok=None):
+    """Layer state after a step (under ``ok``, the skip_batch select:
+    ``new`` where ``ok``, else ``old``), written into ``old``'s tensors;
+    returns the state tree. A leaf whose dtype the step widened (the f32
+    running statistics of a float64 model's first step, which the JAX
+    package's step widens as well) is rebound: that step creates it at its
+    dtype."""
+    old_leaves, new_leaves = tree_leaves(old), tree_leaves(new)
+    if not old_leaves and not new_leaves:   # stateless layers: nothing to keep
+        return old
+    if ok is not None:
+        new = tree_map(lambda n, o: torch.where(ok, n, o), new, old)
+        new_leaves = tree_leaves(new)
+    if all(o.dtype == n.dtype for o, n in zip(old_leaves, new_leaves)):
+        return assign_leaves(old, new)
+    return tree_map(lambda o, n: assign_leaves(o, n) if o.dtype == n.dtype else n, old, new)
+
+
+def _select_into(ok, new, old):
+    """The skip_batch select over a tree, written into ``old``'s tensors:
+    ``new`` where ``ok`` (a device bool), else ``old``; returns ``old``."""
+    for n, o in zip(tree_leaves(new), tree_leaves(old)):
+        torch.where(ok, n, o, out=o)
+    return old
 
 
 class MultiLayerNetwork:
@@ -519,44 +544,38 @@ class MultiLayerNetwork:
 
     def _update_params(self, grads, ok=None, norm_sumsq=None):
         """The per-layer optimizer update (gradient normalization, updater,
-        constraints), in place under ``torch.no_grad()``. With ``ok`` (the
-        skip_batch guard's device bool) each layer's new params and updater
-        state are computed out of place and ``torch.where(ok, new, old)``
-        is written back: a rejected update leaves both as they were.
+        constraints), in place under ``torch.no_grad()``: params and updater
+        state keep their tensors. With ``ok`` (the skip_batch guard's device
+        bool) each layer's new params and updater state are computed out of
+        place and ``torch.where(ok, new, old)`` is written back: a rejected
+        update leaves both as they were.
         ``norm_sumsq(i)`` gives layer ``i``'s ``sumsq`` for gradient
         normalization (``apply_gradient_normalization``; the tensor-parallel
         trainer's norm spans the shards)."""
         self.init_opt_state()
-        new_params, new_opt = [], []
         with torch.no_grad():
             for i, (u, layer) in enumerate(zip(self._updaters, self.layers)):
                 p, g = self.params[i], grads[i]
                 if not g:  # param-free layer
-                    new_params.append(p)
-                    new_opt.append(self.opt_state[i])
                     continue
                 gn = getattr(layer, "gradient_normalization", None)
                 if gn:
                     g = apply_gradient_normalization(
                         gn, getattr(layer, "gradient_normalization_threshold", 1.0), g,
                         sumsq=norm_sumsq(i) if norm_sumsq is not None else None)
-                upd, new_s = u.update(g, self.opt_state[i], p, self.iteration)
+                upd, new_s = u.update(g, self.opt_state[i], p, self.iteration,
+                                      inplace=ok is None)
                 if ok is None:
                     for pi, d in zip(tree_leaves(p), tree_leaves(upd)):
                         pi.sub_(d)
                     if getattr(layer, "constraints", None):
-                        p = apply_constraints(layer, p)
+                        assign_leaves(p, apply_constraints(layer, p))
                 else:
                     cand = tree_map(lambda a, d: a - d, p, upd)
                     if getattr(layer, "constraints", None):
                         cand = apply_constraints(layer, cand)
-                    for pi, c in zip(tree_leaves(p), tree_leaves(cand)):
-                        pi.copy_(torch.where(ok, c, pi))
-                    new_s = _select(ok, new_s, self.opt_state[i])
-                new_params.append(p)
-                new_opt.append(new_s)
-        self.params = tuple(new_params)
-        self.opt_state = tuple(new_opt)
+                    _select_into(ok, cand, p)
+                    _select_into(ok, new_s, self.opt_state[i])
 
     def _apply_step(self, loss, new_state, grads, norm_sumsq=None):
         """Update params, updater state and layer state from one batch's
@@ -567,10 +586,10 @@ class MultiLayerNetwork:
 
             ok = guard_ok(loss, g.spike_limit)
             self._update_params(grads, ok, norm_sumsq)
-            self.state = _select(ok, new_state, self.state)
         else:
+            ok = None
             self._update_params(grads, norm_sumsq=norm_sumsq)
-            self.state = new_state
+        self.state = _write_state(self.state, new_state, ok)
 
     def _step(self, x, y, fmask, lmask, ex_weight):
         """One training step on tensors already on the device; returns the
@@ -598,6 +617,10 @@ class MultiLayerNetwork:
         step's. A profiling mode (``DL4J_TPU_PHASE_SPANS=1``): the
         synchronisations forfeit overlap."""
         sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda: None)
+        sites = [aot.grid_site(self, s)
+                 for s in ("mln.phase.fwd", "mln.phase.bwd", "mln.phase.update")]
+        for s in sites:
+            s.note_seen(x, y, fm, lm, ew)
         gen_state = self._gen.get_state()
         with obs.span("phase.fwd"):
             with torch.no_grad():
@@ -611,8 +634,10 @@ class MultiLayerNetwork:
         with obs.span("phase.update"):
             self._update_params(grads)
             sync()
-        self.state = new_state
+        self.state = _write_state(self.state, new_state)
         self.iteration += 1
+        for s in sites:
+            s.guard()
         return loss
 
     # -- training ----------------------------------------------------------
@@ -712,7 +737,8 @@ class MultiLayerNetwork:
                     stream = chain_batches(
                         stream, chain_k, self.device,
                         lambda b: (b[2] is None and b[3] is None and b[4] is None
-                                   and not (tbptt and _ndim(b[0]) == 3)))
+                                   and not (tbptt and _ndim(b[0]) == 3)),
+                        note=aot.grid_site(self, "mln.chain").note_seen)
                 elif prefetch:   # the next batch copied on a side stream
                     from deeplearning4j_tpu_torch.datasets.iterator import prefetch_to_device
 
@@ -828,14 +854,16 @@ class MultiLayerNetwork:
         return aot.site(self, "mln.output", self._infer_site, stateful=False)
 
     def _get_step_fn(self, tbptt: bool = False):
-        """The ``mln.step`` site: one training step on device tensors."""
+        """The ``mln.step`` site: one training step on device tensors. Its
+        bucket traffic is recorded at ``mln.fit`` (``pad_fit_batch``)."""
         if tbptt:
             return self._get_tbptt_fn()
-        return aot.site(self, "mln.step", self._step, stateful=True)
+        return aot.site(self, "mln.step", self._step, stateful=True, hits_site="mln.fit")
 
     def _get_tbptt_fn(self):
         """The ``mln.step.tbptt`` site: one tBPTT chunk update."""
-        return aot.site(self, "mln.step.tbptt", self._tbptt_chunk, stateful=True)
+        return aot.site(self, "mln.step.tbptt", self._tbptt_chunk, stateful=True,
+                        hits_site="mln.fit")
 
     def _infer_site(self, x, fmask):
         with torch.inference_mode():

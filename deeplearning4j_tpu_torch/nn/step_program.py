@@ -16,11 +16,16 @@ relevant part of ``nn/step_program.py``).
   ``fit``'s one per-step loop;
 - :func:`mesh_shape_from_env` — the named-mesh trainer's ``(data, model,
   pipe)`` shape from the ``DL4J_TPU_MESH_*`` knobs
-  (``parallel/mesh_step.py``).
+  (``parallel/mesh_step.py``);
+- :func:`guarded_step` — one in-place step under the donation guard
+  (``analysis/donation_guard.py``), the counterpart of the JAX
+  ``StepProgram.__call__``'s donation check: ``nn/aot.py``'s training
+  sites and the data-parallel step run through it.
 
-The JAX module's jit/donation wiring has no counterpart: PyTorch runs
-eagerly and the model updates its params in place under
-``torch.no_grad()``. A chain is K eager steps in a row, each drawing from
+The JAX module's jit wiring has no counterpart: PyTorch runs eagerly and
+the model updates its params, updater state and layer state in place
+under ``torch.no_grad()`` (where the JAX step donates them); the sites
+that record signatures and run the retrace guard are ``nn/aot.py``'s. A chain is K eager steps in a row, each drawing from
 the model's generator as the per-step path does, so chaining changes no
 bit of the result (the JAX package's scan folds a per-step key into the
 chain's and is reproducible only for models that draw no randomness).
@@ -35,11 +40,12 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import obs
+from deeplearning4j_tpu_torch.analysis import donation_guard
 from deeplearning4j_tpu_torch.utils.tree import tree_leaves, tree_map
 
 __all__ = ["CHAIN_AUTO_PARAM_LIMIT", "accum_applicable", "accum_value_and_grad",
            "chain_batches", "chain_k_from_env", "grad_accum_from_env",
-           "mesh_shape_from_env"]
+           "guarded_step", "mesh_shape_from_env"]
 
 # Above this parameter count "auto" never chains: big models are
 # compute-bound, so issuing steps back to back buys nothing and the
@@ -116,7 +122,7 @@ def _copy_chain(group, device: torch.device) -> list:
         return _unstack(group, device)
 
 
-def chain_batches(batches, k: int, device, chainable):
+def chain_batches(batches, k: int, device, chainable, note=None):
     """Chained dispatch as a batch source: each run of ``k`` consecutive
     batches that ``chainable`` accepts and whose arrays share shapes and
     dtypes goes to ``device`` in one stacked copy per array, and comes out
@@ -128,13 +134,17 @@ def chain_batches(batches, k: int, device, chainable):
     ends with the per-step path's bits, dropout included. What a chain
     saves is K-1 of every K batch copies, and with them the host's wait
     for the card that a copy from pageable memory makes: inside a chain
-    the host reads nothing back and issues the K steps back to back."""
+    the host reads nothing back and issues the K steps back to back.
+    ``note(k, batch_signature)`` (the ``note_seen`` of the model's
+    ``mln.chain`` / ``cg.chain`` site) sees every chain's signature."""
     device = torch.device(device)
     group: list = []
     for b in batches:
         if chainable(b) and (not group or _batch_sig(b) == _batch_sig(group[0])):
             group.append(b)
             if len(group) == k:
+                if note is not None:
+                    note(len(group), _batch_sig(group[0]))
                 yield from _copy_chain(group, device)
                 group = []
             continue
@@ -200,6 +210,17 @@ def accum_value_and_grad(accum: int, params, state, batch, value_and_grad):
         loss_acc = loss_i if loss_acc is None else loss_acc + loss_i
     inv = 1.0 / accum
     return loss_acc * inv, state, tree_map(lambda g: g * inv, g_acc)
+
+
+def guarded_step(site: str, model, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, one in-place step of ``model``; under
+    ``DL4J_TPU_DONATION_GUARD=1`` every param, updater-state and
+    layer-state leaf it took must still be in place afterwards (a rebound
+    one trips, its old tensor NaN)."""
+    snap = donation_guard.snapshot(model, site)
+    out = fn(*args, **kwargs)
+    donation_guard.check_after_step(snap, model)
+    return out
 
 
 def _axis_env(name: str) -> int:

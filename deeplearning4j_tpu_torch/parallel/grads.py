@@ -43,6 +43,9 @@ from deeplearning4j_tpu_torch import obs
 from deeplearning4j_tpu_torch.parallel import comm
 from deeplearning4j_tpu_torch.parallel import compress as compression
 from deeplearning4j_tpu_torch.parallel.context import use_mesh
+from deeplearning4j_tpu_torch.nn import aot
+from deeplearning4j_tpu_torch.nn.step_program import guarded_step
+from deeplearning4j_tpu_torch.utils.tree import assign_leaves
 
 __all__ = ["DataParallelStep", "GradExchange"]
 
@@ -92,7 +95,7 @@ def _constrain(cfg, p):
     if getattr(cfg, "constraints", None):
         from deeplearning4j_tpu_torch.nn.constraints import apply_constraints
 
-        return apply_constraints(cfg, p)
+        return assign_leaves(p, apply_constraints(cfg, p))
     return p
 
 
@@ -342,7 +345,7 @@ class DataParallelStep:
         again (a collective); the residuals stay on the runner."""
         if not self.active:
             return
-        self.model.opt_state = self._structured()
+        self.model.opt_state = assign_leaves(self.model.opt_state, self._structured())
         self._opt_flat = None
         self.active = False
 
@@ -384,7 +387,31 @@ class DataParallelStep:
         self.begin()
 
     # -- the step -----------------------------------------------------------
+    @property
+    def aot_site(self) -> "aot.AotFunction":
+        """This runner's ``dp.step`` site (``nn/aot.py``): the signatures its
+        step took (``fit_batch``'s arguments; ``aot.warm_dp`` warms them),
+        counted against ``dp.fit``'s bucket traffic. Another runner, another
+        step: the site is the runner's."""
+        site = self.__dict__.get("_aot_site")
+        if site is None:
+            if self.is_graph:
+                call = lambda f, l, fm, lm, ew: self.fit_batch_graph((f, l, fm, lm), ew=ew)  # noqa: E731
+            else:
+                call = self.fit_batch
+            site = self._aot_site = aot.wrap(call, "dp.step", self.model, stateful=True,
+                                             replay=False, hits_site="dp.fit")
+        return site
+
     def _run(self, value_and_grad):
+        """One step under the donation guard, then the retrace-guard check."""
+        loss = guarded_step("dp.step", self.model, self._step, value_and_grad)
+        self.aot_site.guard()
+        return loss
+
+    def _step(self, value_and_grad):
+        from deeplearning4j_tpu_torch.nn.model import _write_state
+
         model = self.model
         if not self.active:
             self.begin()
@@ -399,7 +426,7 @@ class DataParallelStep:
             model.params = dict(model.params, **new_p)
         else:
             model.params = tuple(new_p.get(i, p) for i, p in enumerate(model.params))
-        model.state = new_state
+        model.state = _write_state(model.state, new_state)
         model.iteration += 1
         return self.exchange.mean_loss(loss)
 
@@ -409,6 +436,7 @@ class DataParallelStep:
         from deeplearning4j_tpu_torch.train import resilience
 
         model = self.model
+        self.aot_site.note_seen(x, y, fm, lm, ew)
         chaos = resilience.active_chaos()
         if chaos is not None:
             chaos.maybe_preempt(model.iteration)
@@ -426,6 +454,7 @@ class DataParallelStep:
         from deeplearning4j_tpu_torch.train import resilience
 
         model = self.model
+        self.aot_site.note_seen(*batch, ew)
         f, l, fm, lm = model._as_multi_batch(batch)
         chaos = resilience.active_chaos()
         if chaos is not None:

@@ -49,8 +49,9 @@ import torch
 from deeplearning4j_tpu_torch import obs
 from deeplearning4j_tpu_torch.clustering.kmeans import KMeansClustering, assign_points
 from deeplearning4j_tpu_torch.clustering.knn import f32_products
+from deeplearning4j_tpu_torch.nn import aot
 from deeplearning4j_tpu_torch.search.program import (
-    SITE_EXACT, SITE_IVF, SITE_PQ, SearchProgram, exact_topk, ivf_topk,
+    SITE_EXACT, SITE_IVF, SITE_MERGE, SITE_PQ, SearchProgram, exact_topk, ivf_topk,
     merge_topk, pq_topk)
 from deeplearning4j_tpu_torch.utils import bucketing
 from deeplearning4j_tpu_torch.utils.serialization import _atomic_write_zip
@@ -383,25 +384,36 @@ class VectorIndex:
         tel = bucketing.telemetry()
         qd = self._to_dev(bucketing.pad_rows_zero(q, b))
         scanned = None
+
+        def dispatch(site, key, fn, *args):
+            # the tier's grid site (the warm's signatures): a new one counts
+            # a compile; the retrace guard runs after the dispatch
+            grid = aot.grid_site(self, site)
+            grid.note_seen(*key)
+            out = fn(*args)
+            grid.guard()
+            return out
+
         if tier == "exact":
             tel.record_hit(SITE_EXACT, rows, b)
-            scores, ids = exact_topk(qd, self._corpus, self._cnorms, self.n, 0, kb)
+            scores, ids = dispatch(SITE_EXACT, (b, kb), exact_topk, qd, self._corpus,
+                                   self._cnorms, self.n, 0, kb)
         elif tier == "ivf":
             tel.record_hit(SITE_IVF, rows, b)
-            scores, ids, scanned = ivf_topk(
-                qd, self._centroids, self._postings, self._sizes,
-                self._corpus, self._cnorms, p, kb)
+            scores, ids, scanned = dispatch(
+                SITE_IVF, (b, kb, p), ivf_topk, qd, self._centroids, self._postings,
+                self._sizes, self._corpus, self._cnorms, p, kb)
         else:
             tel.record_hit(SITE_PQ, rows, b)
-            scores, ids, scanned = pq_topk(
-                qd, self._centroids, self._postings, self._sizes,
-                self._codes, self._codebooks, self._corpus, self._cnorms,
+            scores, ids, scanned = dispatch(
+                SITE_PQ, (b, kb, p), pq_topk, qd, self._centroids, self._postings,
+                self._sizes, self._codes, self._codebooks, self._corpus, self._cnorms,
                 p, kb, self.rerank_width(kb))
         if self._pending_n > 0:
             tel.record_hit(SITE_EXACT, rows, b)
-            ps, pi = exact_topk(qd, self._pending_corpus, self._pending_cnorms,
-                                self._pending_n, self.n, kb)
-            scores, ids = merge_topk(scores, ids, ps, pi, kb)
+            ps, pi = dispatch(SITE_EXACT, (b, kb), exact_topk, qd, self._pending_corpus,
+                              self._pending_cnorms, self._pending_n, self.n, kb)
+            scores, ids = dispatch(SITE_MERGE, (b, kb), merge_topk, scores, ids, ps, pi, kb)
         s = scores[:rows].cpu().numpy()
         i = ids[:rows].cpu().numpy()
         scanned = (np.full(rows, self.n, np.int64) if scanned is None
@@ -412,6 +424,7 @@ class VectorIndex:
             "candidates exactly/ADC-scored per query by tier",
             ("index", "tier"))
         for c in scanned:
+            # graftlint: disable=host-sync; scanned is a host array by now
             hist.observe(float(c), index=self.config.name, tier=tier)
         dead = ~np.isfinite(s)
         i = np.where(dead, -1, i)
@@ -502,6 +515,7 @@ class VectorIndex:
         rs = np.random.RandomState(self.config.seed + 1)
         m = min(probes, self.n)
         base = self._vectors[rs.choice(self.n, size=m, replace=False)]
+        # graftlint: disable=host-sync; base holds host vectors
         scale = float(np.std(base)) or 1.0
         queries = base + rs.normal(0, 0.05 * scale, base.shape).astype(np.float32)
         exact_ids, _ = self.search(queries, k=k, tier="exact")
@@ -514,6 +528,7 @@ class VectorIndex:
             ids, _ = self.search(queries, k=k, tier=tier)
             hits = sum(len(np.intersect1d(a[a >= 0], b[b >= 0]))
                        for a, b in zip(exact_ids, ids))
+            # graftlint: disable=host-sync; host id arrays
             recall = hits / float(exact_ids.shape[0] * k)
             gauge.set(recall, index=self.config.name, tier=tier)
             self.stats[f"recall_at_{k}_{tier}"] = round(recall, 4)

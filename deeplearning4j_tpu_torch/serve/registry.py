@@ -154,6 +154,7 @@ class ModelRegistry:
             "source": "object",
             "model_class": type(model).__name__,
             "warmed": int(warmed),
+            # graftlint: disable=host-sync; warm and restore counts are host ints
             "restored": int(restored),
             "warm_seconds": round(warm_dt, 4),
             "bundle": bundle,
@@ -200,6 +201,7 @@ class ModelRegistry:
             "source": "object",
             "model_class": type(index).__name__,
             "warmed": int(warmed),
+            # graftlint: disable=host-sync; warm and restore counts are host ints
             "restored": int(restored),
             "warm_seconds": round(warm_dt, 4),
             "bundle": bundle,
@@ -242,7 +244,9 @@ class ModelRegistry:
         return {
             "source": "object",
             "model_class": type(model).__name__,
+            # graftlint: disable=host-sync; warm and restore counts are host ints
             "warmed": int(warmed),
+            # graftlint: disable=host-sync; warm and restore counts are host ints
             "restored": int(restored),
             "warm_buckets": buckets,
             "warm_seconds": round(warm_dt, 4),

@@ -311,6 +311,7 @@ class ModelWorker:
         bucketing.telemetry().record_hit(self.route, total, bucket)
         try:
             with obs.span("serve.dispatch", model=self.name,
+                          # graftlint: disable=host-sync; total is the host's row count
                           rows=int(total), **_trace_attrs(batch)):
                 xs = (batch[0].x if len(batch) == 1
                       else np.concatenate([r.x for r in batch], axis=0))

@@ -16,7 +16,11 @@ B, A) in one session of one card to compare them. Prints one JSON line:
   CUDA events around ``fit``;
 - ``char_rnn_listener``: the GravesLSTM char-RNN (77 symbols, 256 units,
   f32, RMSProp, tBPTT 50) on 256 sequences of 200, batch 128, 2 epochs,
-  with the score-reading listener: ms a tBPTT chunk over the last epoch.
+  with the score-reading listener: ms a tBPTT chunk over the last epoch;
+- ``transformer_lm``: the full-width TransformerLM (vocab 2048, T 2048,
+  d_model 2048, 16 heads, 8 blocks, bf16, Adam 1e-4: 3.3 GB of updater
+  state), one model fitting 4 batches of 16 x 2048 tokens a call, no
+  listener: ms a step by CUDA events around ``fit``.
 
 Each is run once to warm up (kernel builds, cuDNN's autotuning) and then
 timed; the card's name and power limit go with the line.
@@ -87,11 +91,13 @@ def main(argv=None) -> int:
     def lenet_no_listener():
         xs, ys = np.concatenate([x] * 4), np.concatenate([y] * 4)
         m = MultiLayerNetwork(zoo.LeNet5()).init()
+        # graftlint: disable=host-sync; a timing harness: the sync ends the timed region
         torch.cuda.synchronize()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
         m.fit((xs, ys), epochs=1, batch_size=256)
         ev[1].record()
+        # graftlint: disable=host-sync; a timing harness: the sync ends the timed region
         torch.cuda.synchronize()
         return ev[0].elapsed_time(ev[1]) / (len(xs) // 256)
 
@@ -108,9 +114,28 @@ def main(argv=None) -> int:
         per_epoch = 256 // 128   # one listener call a batch of 4 chunks
         return (lis.t[-1] - lis.t[-per_epoch - 1]) * 1e3 / (per_epoch * 200 // 50)
 
+    lm_ids = np.random.RandomState(4).randint(0, 2048, (64, 2048)).astype(np.int64)
+    lm = []
+
+    def transformer_lm():
+        if not lm:
+            lm.append(MultiLayerNetwork(zoo.TransformerLM(
+                vocab_size=2048, max_len=2048, d_model=2048, n_heads=16, n_blocks=8,
+                dtype="bfloat16", seed=12345, updater={"type": "adam", "lr": 1e-4})).init())
+        # graftlint: disable=host-sync; a timing harness: the sync ends the timed region
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        lm[0].fit((lm_ids, np.roll(lm_ids, -1, axis=1)), epochs=1, batch_size=16)
+        ev[1].record()
+        # graftlint: disable=host-sync; a timing harness: the sync ends the timed region
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / (len(lm_ids) // 16)
+
     for name, fn in (("lenet_listener_samples_per_s", lenet_listener),
                      ("lenet_no_listener_ms_per_step", lenet_no_listener),
-                     ("char_rnn_listener_ms_per_chunk", char_rnn_listener)):
+                     ("char_rnn_listener_ms_per_chunk", char_rnn_listener),
+                     ("transformer_lm_ms_per_step", transformer_lm)):
         fn()   # warm: builds, autotuning, allocator
         out[name] = [fn() for _ in range(3)]
     print(json.dumps(out), flush=True)

@@ -12,7 +12,10 @@ the same vectors in both packages. The loss and its gradient over the flat
 vector come from autograd (the leaves are views of the vector); the
 two-loop recursion and the CG direction are vector ops on the model's
 device, and the host reads only the scalars the reference reads (the loss,
-dot products, the line search's comparisons).
+dot products, the line search's comparisons). Each new batch signature
+counts a compile at the ``solver`` site, which the retrace guard bounds by
+its bucket hits, and the optimized params are written into the model's
+tensors in place.
 """
 
 from __future__ import annotations
@@ -22,8 +25,9 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
+from deeplearning4j_tpu_torch.nn import aot
 from deeplearning4j_tpu_torch.utils import bucketing
-from deeplearning4j_tpu_torch.utils.tree import tree_leaves, tree_unflatten_like
+from deeplearning4j_tpu_torch.utils.tree import assign_leaves, tree_leaves, tree_unflatten_like
 
 __all__ = ["BackTrackLineSearch", "Solver"]
 
@@ -136,6 +140,8 @@ class Solver:
         y = _cast_labels(y, model.dtype, model.device)
         fm = _cast_mask(fm, model.dtype, model.device)
         lm = _cast_mask(lm, model.dtype, model.device)
+        site = aot.grid_site(model, "solver")
+        site.note_seen(x, y, fm, lm)
         flat = self._build(x, y, fm, lm)
 
         f0, g = self._vg(flat)
@@ -146,7 +152,8 @@ class Solver:
             flat, f0 = self._cg(flat, f0, g, iterations, tolerance)
         else:
             flat, f0 = self._gd(flat, f0, g, iterations, tolerance)
-        model.params = self._unravel(flat.detach().clone())
+        model.params = assign_leaves(model.params, self._unravel(flat.detach()))
+        site.guard()
         return f0
 
     # -- algorithms --------------------------------------------------------

@@ -8,8 +8,10 @@ defaults and formulas.
 
 An updater is a pair of plain functions over a param tree (nested dicts of
 tensors): ``init(params) -> state`` and ``update(grads, state, params,
-step) -> (updates, new_state)``, applied by the model as
-``params - updates`` (in place). The model builds one per layer (DL4J's
+step, inplace=False) -> (updates, new_state)``, applied by the model as
+``params - updates`` (in place). With ``inplace`` the new state is written
+into ``state``'s own tensors (``out=``; same bits), as the model's step
+keeps every leaf it took (``analysis/donation_guard.py``). The model builds one per layer (DL4J's
 per-layer updater override). Every updater is wrapped for mixed precision:
 bf16/fp16 params keep f32 moments, the update is computed in f32 and only
 the returned delta is cast to the param dtype. Schedules are evaluated in
@@ -151,12 +153,18 @@ class Updater(NamedTuple):
     """A plain optimizer transform over a param tree."""
 
     init: Callable[[Any], Any]
-    update: Callable[..., Tuple[Any, Any]]  # (grads, state, params, step) -> (updates, new_state)
+    update: Callable[..., Tuple[Any, Any]]  # (grads, state, params, step, inplace) -> (updates, new_state)
     spec: dict
 
 
 def _zeros_like_tree(params):
     return tree_map(torch.zeros_like, params)
+
+
+def _into(old, inplace: bool):
+    """The ``out=`` of a state leaf's new value: the old tensor itself when
+    the update is in place, else a new tensor."""
+    return old if inplace else None
 
 
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
@@ -173,8 +181,8 @@ def _mixed_precision(raw: Updater) -> Updater:
     def init(params):
         return raw.init(tree_map(up32, params))
 
-    def update(g, s, params, step):
-        upd, ns = raw.update(tree_map(up32, g), s, tree_map(up32, params), step)
+    def update(g, s, params, step, inplace=False):
+        upd, ns = raw.update(tree_map(up32, g), s, tree_map(up32, params), step, inplace)
         return tree_map(lambda u, p: u.to(p.dtype), upd, params), ns
 
     return Updater(init, update, raw.spec)
@@ -196,10 +204,11 @@ def _make_raw_updater(spec: Any) -> Updater:
 
     if t == "noop":
         return Updater(lambda params: (),
-                       lambda g, s, params, step: (tree_map(torch.zeros_like, g), s), cfg)
+                       lambda g, s, params, step, inplace=False:
+                       (tree_map(torch.zeros_like, g), s), cfg)
 
     if t == "sgd":
-        def sgd_update(g, s, params, step):
+        def sgd_update(g, s, params, step, inplace=False):
             lr = lr_at(step)
             return tree_map(lambda gi: lr * gi, g), s
 
@@ -212,11 +221,12 @@ def _make_raw_updater(spec: Any) -> Updater:
         def init(params):
             return {"v": _zeros_like_tree(params)}
 
-        def update(g, s, params, step):
+        def update(g, s, params, step, inplace=False):
             lr = lr_at(step)
             m = schedule_value(mu_sched, mu, step) if mu_sched else mu
             # DL4J NesterovsUpdater: v' = mu*v - lr*g ; update = -(mu*v' - lr*g)
-            v_new = tree_map(lambda vi, gi: m * vi - lr * gi, s["v"], g)
+            v_new = tree_map(lambda vi, gi: torch.sub(m * vi, lr * gi, out=_into(vi, inplace)),
+                             s["v"], g)
             upd = tree_map(lambda vn, gi: -(m * vn - lr * gi), v_new, g)
             return upd, {"v": v_new}
 
@@ -228,9 +238,10 @@ def _make_raw_updater(spec: Any) -> Updater:
         def init(params):
             return {"h": _zeros_like_tree(params)}
 
-        def update(g, s, params, step):
+        def update(g, s, params, step, inplace=False):
             lr = lr_at(step)
-            h_new = tree_map(lambda hi, gi: hi + gi * gi, s["h"], g)
+            h_new = tree_map(lambda hi, gi: torch.add(hi, gi * gi, out=_into(hi, inplace)),
+                             s["h"], g)
             upd = tree_map(lambda hi, gi: lr * gi / (torch.sqrt(hi) + eps), h_new, g)
             return upd, {"h": h_new}
 
@@ -242,9 +253,10 @@ def _make_raw_updater(spec: Any) -> Updater:
         def init(params):
             return {"c": _zeros_like_tree(params)}
 
-        def update(g, s, params, step):
+        def update(g, s, params, step, inplace=False):
             lr = lr_at(step)
-            c_new = tree_map(lambda ci, gi: d * ci + (1 - d) * gi * gi, s["c"], g)
+            c_new = tree_map(lambda ci, gi: torch.add(d * ci, (1 - d) * gi * gi,
+                                                      out=_into(ci, inplace)), s["c"], g)
             upd = tree_map(lambda ci, gi: lr * gi / torch.sqrt(ci + eps), c_new, g)
             return upd, {"c": c_new}
 
@@ -256,11 +268,13 @@ def _make_raw_updater(spec: Any) -> Updater:
         def init(params):
             return {"eg": _zeros_like_tree(params), "edx": _zeros_like_tree(params)}
 
-        def update(g, s, params, step):
-            eg_new = tree_map(lambda e, gi: rho * e + (1 - rho) * gi * gi, s["eg"], g)
+        def update(g, s, params, step, inplace=False):
+            eg_new = tree_map(lambda e, gi: torch.add(rho * e, (1 - rho) * gi * gi,
+                                                      out=_into(e, inplace)), s["eg"], g)
             upd = tree_map(lambda e, dx, gi: gi * torch.sqrt(dx + eps) / torch.sqrt(e + eps),
                            eg_new, s["edx"], g)
-            edx_new = tree_map(lambda dx, u: rho * dx + (1 - rho) * u * u, s["edx"], upd)
+            edx_new = tree_map(lambda dx, u: torch.add(rho * dx, (1 - rho) * u * u,
+                                                       out=_into(dx, inplace)), s["edx"], upd)
             return upd, {"eg": eg_new, "edx": edx_new}
 
         return Updater(init, update, cfg)
@@ -274,20 +288,24 @@ def _make_raw_updater(spec: Any) -> Updater:
                 s["vmax"] = _zeros_like_tree(params)
             return s
 
-        def update(g, s, params, step):
+        def update(g, s, params, step, inplace=False):
             lr = lr_at(step)
             tt = _f32(step) + 1.0
             bc1 = 1.0 - _f32(b1) ** tt
             bc2 = 1.0 - _f32(b2) ** tt
-            m_new = tree_map(lambda mi, gi: b1 * mi + (1 - b1) * gi, s["m"], g)
+            m_new = tree_map(lambda mi, gi: torch.add(b1 * mi, (1 - b1) * gi,
+                                                      out=_into(mi, inplace)), s["m"], g)
             if t == "adamax":
-                v_new = tree_map(lambda vi, gi: torch.maximum(b2 * vi, torch.abs(gi)),
+                v_new = tree_map(lambda vi, gi: torch.maximum(b2 * vi, torch.abs(gi),
+                                                              out=_into(vi, inplace)),
                                  s["v"], g)
                 upd = tree_map(lambda mi, vi: lr / bc1 * mi / (vi + eps), m_new, v_new)
                 return upd, {"m": m_new, "v": v_new}
-            v_new = tree_map(lambda vi, gi: b2 * vi + (1 - b2) * gi * gi, s["v"], g)
+            v_new = tree_map(lambda vi, gi: torch.add(b2 * vi, (1 - b2) * gi * gi,
+                                                      out=_into(vi, inplace)), s["v"], g)
             if t == "amsgrad":
-                vmax = tree_map(torch.maximum, s["vmax"], v_new)
+                vmax = tree_map(lambda mx, vi: torch.maximum(mx, vi, out=_into(mx, inplace)),
+                                s["vmax"], v_new)
                 upd = tree_map(lambda mi, vi: lr * (mi / bc1) / (torch.sqrt(vi / bc2) + eps),
                                m_new, vmax)
                 return upd, {"m": m_new, "v": v_new, "vmax": vmax}

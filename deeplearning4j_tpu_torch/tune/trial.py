@@ -160,6 +160,7 @@ def run_trial(spec: Dict[str, Any]) -> Dict[str, Any]:
     warmup = max(int(spec.get("warmup_steps", 2)), 1)
     batch = (x, y)
     cuda = torch.device(model.device).type == "cuda"
+    # graftlint: disable=host-sync; a trial times its steps
     sync = (lambda: torch.cuda.synchronize(model.device)) if cuda else (lambda: None)
     aot.warm_fit(model, batch)   # the step's counted costs (on a snapshot)
     # warmup mirrors the measured round exactly (same batch list length, so

@@ -16,8 +16,15 @@ per-bucket latency estimates are keyed by the same rungs).
 - ``tile_pad`` / ``padded_label_mask`` / ``pad_fit_batch`` — the fit
   loop's padding of a partial tail batch up to the full row count, with a
   pre-scaled label mask so the loss stays the mean over the real rows;
-- ``telemetry()`` — process-wide bucket-hit and padding counters, kept in
-  the obs metrics registry (``dl4j_bucketing_*``) so /metrics shows them.
+- ``telemetry()`` — process-wide bucket-hit, padding and compile counters,
+  kept in the obs metrics registry (``dl4j_bucketing_*``,
+  ``dl4j_compiles_total``) so /metrics shows them. PyTorch compiles no
+  executable; a "compile" here is the first dispatch of a new signature
+  at a site (``record_trace``, called by ``nn/aot.py``'s sites): the
+  cold-shape cost a new shape pays on the card (cuBLAS heuristics,
+  allocator growth, template selection), and what a CUDA-graph capture
+  would have to capture. The retrace guard (``analysis/retrace_guard.py``)
+  bounds it by the buckets a site's traffic used.
 
 Env knobs (read per call; the same names as the JAX package):
 
@@ -35,7 +42,7 @@ import math
 import os
 import threading
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -138,17 +145,29 @@ def reachable_buckets(max_n: int,
 
 
 class BucketTelemetry:
-    """Process-wide bucket-hit counters (thread-safe: serving dispatchers
-    record concurrently), stored in obs registry families so they are
-    scrapeable at /metrics. ``record_hit`` counts one padded dispatch. The
-    process singleton (``telemetry()``) shares the process registry;
-    ad-hoc instances get a private registry so tests can't cross-talk."""
+    """Process-wide compile and bucket-hit counters (thread-safe: serving
+    dispatchers record concurrently), stored in obs registry families so
+    they are scrapeable at /metrics. ``record_trace`` counts one compile
+    (a site's first dispatch of a new signature); ``record_hit`` counts one
+    padded dispatch. The process singleton (``telemetry()``) shares the
+    process registry; ad-hoc instances get a private registry so tests
+    can't cross-talk."""
 
     def __init__(self, registry=None):
         from deeplearning4j_tpu_torch.obs import metrics as _obs_metrics
 
         reg = registry if registry is not None else _obs_metrics.MetricsRegistry()
         self._lock = threading.Lock()
+        self._traces = reg.counter(
+            "dl4j_bucketing_traces_total",
+            "compiles by site: first dispatches of a new signature", ("site",))
+        # the JAX package's public compile counter, same increment
+        self._compiles = reg.counter(
+            "dl4j_compiles_total",
+            "compiles by site (a site's first dispatch of a new signature, "
+            "warm or lazy; see dl4j_aot_warm_hits_total for warm hits)",
+            ("site",))
+        self.trace_shapes: Dict[str, set] = {}
         self._hits = reg.counter(
             "dl4j_bucketing_hits_total",
             "padded dispatches by site and bucket rung", ("site", "bucket"))
@@ -171,8 +190,27 @@ class BucketTelemetry:
 
     def reset(self):
         with self._lock:
-            for fam in (self._hits, self._padded, self._real, self._guard, self._comm):
+            for fam in (self._traces, self._compiles, self._hits, self._padded,
+                        self._real, self._guard, self._comm):
                 fam.clear()
+            self.trace_shapes = {}
+
+    def record_trace(self, site: str, shape: Sequence[int]):
+        """Count one compile at ``site``: the first dispatch of a new
+        signature there, whose leading shape is ``shape``."""
+        with self._lock:
+            self.trace_shapes.setdefault(site, set()).add(tuple(shape))
+        self._compiles.inc(site=site)
+        self._traces.inc(site=site)
+
+    @property
+    def traces(self) -> Dict[str, int]:
+        return {k[0]: int(v) for k, v in self._traces.as_dict().items()}
+
+    def compiles(self, site: Optional[str] = None) -> int:
+        if site is not None:
+            return int(self._traces.value(site=site))
+        return sum(self.traces.values())
 
     def record_hit(self, site: str, n: int, bucket: int):
         self._hits.inc(site=site, bucket=bucket)
@@ -228,6 +266,7 @@ class BucketTelemetry:
     def snapshot(self) -> dict:
         """JSON-friendly view."""
         return {
+            "traces": self.traces,
             "bucket_hits": {f"{s}:{b}": c
                             for (s, b), c in sorted(self.bucket_hits.items())},
             "padded_examples": self.padded_examples,

@@ -198,6 +198,7 @@ def save_network(model, path, save_updater: bool = True,
     if isinstance(path, (str, os.PathLike)):
         _atomic_write_zip(path, write_entries)
     else:
+        # graftlint: disable=durable-store-protocol; a caller's stream; paths take _atomic_write_zip
         with zipfile.ZipFile(path, "w", _STORED, allowZip64=True) as zf:
             write_entries(zf)
     return path

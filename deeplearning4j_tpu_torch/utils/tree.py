@@ -12,7 +12,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, List
 
-__all__ = ["tree_leaves", "tree_map", "tree_unflatten_like"]
+__all__ = ["assign_leaves", "tree_leaves", "tree_map", "tree_unflatten_like"]
 
 
 def tree_leaves(tree) -> List[Any]:
@@ -64,3 +64,40 @@ def tree_unflatten_like(template, leaves: List[Any]):
         return next(it)
 
     return build(template)
+
+
+def _same_structure(a, b) -> bool:
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _same_structure(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return isinstance(b, (tuple, list)) and len(a) == len(b) and all(
+            _same_structure(x, y) for x, y in zip(a, b))
+    return (a is None) == (b is None)
+
+
+def assign_leaves(dst, src):
+    """Write ``src``'s values into ``dst``'s tensors in place and return
+    ``dst``; both trees must have one structure and every leaf pair one
+    shape, dtype and device (a ``ValueError`` otherwise: a caller that
+    creates the tree rebinds it itself). The port's step keeps the tensors
+    it updates (the donation guard, ``analysis/donation_guard.py``):
+    whoever else holds a leaf reads the new values."""
+    import torch
+
+    if dst is src:
+        return dst
+    if not _same_structure(dst, src):
+        raise ValueError("assign_leaves: the trees differ in structure")
+    with torch.no_grad():
+        for a, b in zip(tree_leaves(dst), tree_leaves(src)):
+            if not (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                    and a.shape == b.shape and a.dtype == b.dtype
+                    and a.device == b.device):
+                raise ValueError(
+                    f"assign_leaves: a leaf {getattr(a, 'shape', a)} "
+                    f"{getattr(a, 'dtype', '')} cannot take "
+                    f"{getattr(b, 'shape', b)} {getattr(b, 'dtype', '')}")
+            if a.data_ptr() != b.data_ptr() or a.stride() != b.stride():
+                a.copy_(b)
+    return dst

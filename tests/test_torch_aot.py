@@ -297,6 +297,19 @@ def test_warm_dp_never_trains():
     assert aot.warm_dp(runner, x, y) == 0
     runner.fit_batch(x, y, None, None)
     assert m.iteration == 1 and not _equal(_leaves(m.params), before)
+    # the warmed signature is the step's: one compile at the runner's site
+    assert bucketing.telemetry().compiles("dp.step") == 1
+
+
+def test_a_warm_restores_the_updater_state_into_its_own_tensors():
+    m = _dense()
+    x, y = _data(16)
+    m.fit((x, y), epochs=1, batch_size=8)            # the updater state exists now
+    held = tree_leaves(m.opt_state)
+    values = _leaves(held)
+    assert held and aot.warm_fit(m, (x[:4], y[:4]), 4) == 1
+    assert all(a is b for a, b in zip(tree_leaves(m.opt_state), held))
+    assert _equal(held, values)
 
 
 # -- bundles ----------------------------------------------------------------------------

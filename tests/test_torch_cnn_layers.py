@@ -345,7 +345,7 @@ def _grads_both(jl, tl, p, s, x, m, train=False, ex_weight=None):
     def jf(pp, xx):
         return jnp.sum(jl.apply(pp, _j(s), xx, train=train, mask=jm, **kw_j)[0] * r)
 
-    jgp, jgx = jax.grad(jf, argnums=(0, 1))(_j(p), jnp.asarray(x))
+    jgp, jgx = jax.jit(jax.grad(jf, argnums=(0, 1)))(_j(p), jnp.asarray(x))
     tp = {k: v.requires_grad_(True) for k, v in _t(p).items()}
     tx = torch.from_numpy(np.array(x)).requires_grad_(True)
     y = tl.apply(tp, _t(s), tx, train=train,
@@ -369,7 +369,7 @@ def test_gradients_match_jax(case):
     jl, tl, _, _, p, s, x, m = _setup(case, seed=2)
     if case[0] == "output":   # the loss head: the score's gradient too
         y = np.eye(4, dtype=np.float32)[np.random.RandomState(3).randint(0, 4, len(x))]
-        jg = jax.grad(lambda pp, xx: jl.score(pp, xx, jnp.asarray(y)), argnums=(0, 1))(
+        jg = jax.jit(jax.grad(lambda pp, xx: jl.score(pp, xx, jnp.asarray(y)), argnums=(0, 1)))(
             _j(p), jnp.asarray(x))
         tp = {k: v.requires_grad_(True) for k, v in _t(p).items()}
         tx = torch.from_numpy(x).requires_grad_(True)

@@ -149,7 +149,7 @@ def test_center_loss_output_matches_jax(sparse):
     jy, ty = jnp.asarray(y), (_t(y).long() if sparse else _t(y))
     np.testing.assert_allclose(tl_.apply(tp, {}, _t(x))[0].detach().numpy(),
                                np.asarray(jl.apply(jp, {}, jnp.asarray(x))[0]), **F32)
-    jloss, jg = jax.value_and_grad(lambda p: jl.score(p, jnp.asarray(x), jy))(jp)
+    jloss, jg = jax.jit(jax.value_and_grad(lambda p: jl.score(p, jnp.asarray(x), jy)))(jp)
     loss = tl_.score(tp, _t(x), ty)
     np.testing.assert_allclose(loss.item(), float(jloss), **F32)
     _grads_close(loss, tp, jg)
@@ -165,8 +165,8 @@ def test_cnn_loss_matches_jax():
     m = (rs.rand(2, 3, 4) > 0.3).astype(np.float32)
     xt = _t(x).requires_grad_(True)
     for mask in (None, m):
-        jloss, jg = jax.value_and_grad(lambda a: jl.score(
-            {}, a, jnp.asarray(y), None if mask is None else jnp.asarray(mask)))(jnp.asarray(x))
+        jloss, jg = jax.jit(jax.value_and_grad(lambda a: jl.score(
+            {}, a, jnp.asarray(y), None if mask is None else jnp.asarray(mask))))(jnp.asarray(x))
         loss = tl_.score({}, xt, _t(y), None if mask is None else _t(mask))
         np.testing.assert_allclose(loss.item(), float(jloss), **F32)
         _grads_close(loss, [xt], [jg])
@@ -195,7 +195,7 @@ def test_vae_matches_jax_with_the_same_noise(recon):
     key = jax.random.PRNGKey(5)
     eps = np.stack([np.asarray(jax.random.normal(k, (4, 3))) for k in
                     jax.random.split(key, 2)])
-    jloss, jg = jax.value_and_grad(lambda p: jl.elbo_loss(p, jnp.asarray(x), key))(jp)
+    jloss, jg = jax.jit(jax.value_and_grad(lambda p: jl.elbo_loss(p, jnp.asarray(x), key)))(jp)
     loss = tl_.elbo_loss(tp, _t(x), eps=_t(eps))
     np.testing.assert_allclose(loss.item(), float(jloss), **F32)
     _grads_close(loss, tp, jg)
@@ -237,8 +237,8 @@ def test_yolo2_output_score_and_activate_match_jax():
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **F32)
     xt = _t(x).requires_grad_(True)
     for average in (True, False):
-        jloss, jg = jax.value_and_grad(
-            lambda a: jl.score({}, a, jnp.asarray(y), average=average))(jnp.asarray(x))
+        jloss, jg = jax.jit(jax.value_and_grad(
+            lambda a: jl.score({}, a, jnp.asarray(y), average=average)))(jnp.asarray(x))
         loss = tl_.score({}, xt, _t(y), average=average)
         np.testing.assert_allclose(loss.item(), float(jloss), **F32)
         _grads_close(loss, [xt], [jg])
@@ -301,7 +301,7 @@ def test_every_activation_matches_jax(name):
     # 40 points off the kinks (0, +-1, +-6), where the two frameworks'
     # subgradient conventions differ
     x = (np.linspace(-7.0, 7.0, 40) + 0.0123).astype(np.float32)[None]
-    jy, jg = jax.value_and_grad(lambda a: jnp.sum(jact.get(name)(a) * jnp.arange(40.0)))(
+    jy, jg = jax.jit(jax.value_and_grad(lambda a: jnp.sum(jact.get(name)(a) * jnp.arange(40.0))))(
         jnp.asarray(x))
     xt = _t(x).requires_grad_(True)
     y = torch.sum(act.get(name)(xt) * torch.arange(40.0))

@@ -245,8 +245,8 @@ def test_merged_chunk_grads_equal_full(causal, T):
     def loss_full(q, k, v):
         return jnp.sum(jfa._reference(q, k, v, causal) ** 2)
 
-    chunked = jax.grad(loss_chunked, argnums=(0, 1, 2))(*_j(q, k, v))
-    full = jax.grad(loss_full, argnums=(0, 1, 2))(*_j(q, k, v))
+    chunked = jax.jit(jax.grad(loss_chunked, argnums=(0, 1, 2)))(*_j(q, k, v))
+    full = jax.jit(jax.grad(loss_full, argnums=(0, 1, 2)))(*_j(q, k, v))
     for x, a, b in zip((qt, kt, vt), chunked, full):
         np.testing.assert_allclose(_np(x.grad), _np(a), **F32_GRAD)
         np.testing.assert_allclose(_np(x.grad), _np(b), rtol=2e-4, atol=5e-4)

@@ -78,7 +78,7 @@ def _jax_run(d, mask=None):
 
     args = [jnp.asarray(d[k]) for k in names]
     out, (hT, cT) = run(*args)
-    grads = jax.grad(loss, argnums=tuple(range(len(names))))(*args)
+    grads = jax.jit(jax.grad(loss, argnums=tuple(range(len(names)))))(*args)
     return ([np.asarray(out), np.asarray(hT), np.asarray(cT)],
             {k: np.asarray(g) for k, g in zip(names, grads)})
 

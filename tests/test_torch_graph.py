@@ -349,9 +349,9 @@ def test_loss_gradients_and_new_state_match_jax(name):
     f, l = _batch(name, 6, 2)
     l = l if isinstance(l, tuple) else (l,)
     jin = {k: jnp.asarray(v) for k, v in _inputs(jm.conf, f).items()}
-    (jloss, (jstate, _)), jgrads = jax.value_and_grad(
+    (jloss, (jstate, _)), jgrads = jax.jit(jax.value_and_grad(
         lambda p: jm._loss(p, jm.state, jin, tuple(jnp.asarray(y) for y in l), None, None,
-                           None), has_aux=True)(jm.params)
+                           None), has_aux=True))(jm.params)
     inputs, labels, _, _ = m._to_device(f if isinstance(f, tuple) else (f,), l, None, None)
     loss, new_state, grads, _ = m._value_and_grad(m.state, inputs, labels, None, None, None)
     np.testing.assert_allclose(float(loss), float(jloss), **F32)
@@ -444,8 +444,8 @@ def test_seq2seq_output_gradients_and_fit_match_jax():
     (enc, dec), y = _seq_batch(4, 5, 6, seed=1)
     np.testing.assert_allclose(_np(m.output(enc, dec)), np.asarray(jm.output(enc, dec)), **F32)
     jin = {"enc_in": jnp.asarray(enc), "dec_in": jnp.asarray(dec)}
-    jgrads = jax.grad(lambda p: jm._loss(p, jm.state, jin, (jnp.asarray(y),), None, None,
-                                         None)[0])(jm.params)
+    jgrads = jax.jit(jax.grad(lambda p: jm._loss(p, jm.state, jin, (jnp.asarray(y),), None, None,
+                                         None)[0]))(jm.params)
     inputs, labels, _, _ = m._to_device((enc, dec), (y,), None, None)
     _, _, grads, _ = m._value_and_grad(m.state, inputs, labels, None, None, None)
     _assert_trees_close(grads, jgrads)

@@ -147,8 +147,8 @@ def test_output_and_feed_forward_match_jax(name):
 def test_loss_gradients_and_new_state_match_jax(name):
     jm, m = _pair(name)
     x, y = _data(4, seed=2, channels=_channels(name))
-    (jloss, (jstate, _)), jgrads = jax.value_and_grad(
-        lambda p: jm._loss(p, jm.state, x, y, None, None, None), has_aux=True)(jm.params)
+    (jloss, (jstate, _)), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jm._loss(p, jm.state, x, y, None, None, None), has_aux=True))(jm.params)
     loss, new_state, grads, _ = m._value_and_grad(
         m.state, torch.from_numpy(x), torch.from_numpy(y), None, None, None)
     np.testing.assert_allclose(float(loss), float(jloss), **F32)
@@ -164,7 +164,7 @@ def _noise_entries(jm, x, y):
     their tensor's largest: rounding noise, whose sign Adam turns into a
     step of +-lr either way. (Exact zeros, the weights of units whose ReLU
     is off for every row, are zero in both packages and stay compared.)"""
-    g = jax.grad(lambda p: jm._loss(p, jm.state, x, y, None, None, None)[0])(jm.params)
+    g = jax.jit(jax.grad(lambda p: jm._loss(p, jm.state, x, y, None, None, None)[0]))(jm.params)
     g = _flat(jax.tree_util.tree_map(np.asarray, g))
     return {k: (v != 0) & (np.abs(v) < 1e-7 * np.abs(v).max()) for k, v in g.items()}
 

@@ -120,7 +120,7 @@ def test_layer_gradients_match_jax_grad(capacity_factor, masked):
     def jloss(p, xx):
         return jnp.sum(jl.apply(p, {}, xx, mask=mask)[0] * w)
 
-    jgp, jgx = jax.grad(jloss, argnums=(0, 1))(npp, x)
+    jgp, jgx = jax.jit(jax.grad(jloss, argnums=(0, 1)))(npp, x)
     tp = {k: v.requires_grad_(True) for k, v in tp.items()}
     xt = torch.from_numpy(x).requires_grad_(True)
     out, _ = tl.apply(tp, {}, xt, mask=None if mask is None else torch.from_numpy(mask))
@@ -193,8 +193,8 @@ def test_moe_lm_layout_and_forward_match_jax():
 def test_moe_lm_loss_and_gradients_match_jax():
     jm, m = _lm_pair(seed=4)
     x, y = _data(3, seed=1)
-    jloss, jgrads = jax.value_and_grad(
-        lambda p: jm._loss(p, jm.state, x, y, None, None, None)[0])(jm.params)
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jm._loss(p, jm.state, x, y, None, None, None)[0]))(jm.params)
     loss, _, grads, _ = m._value_and_grad(m.state, torch.from_numpy(x),
                                           torch.from_numpy(y), None, None, None)
     np.testing.assert_allclose(float(loss), float(jloss), **F32)

@@ -108,10 +108,13 @@ def _port_ring(q, k, v, data, seq, causal, kmask=None, flash=False, dtype=torch.
 
 
 def _jax_ring(q, k, v, data, seq, causal, kmask=None, flash=False, dtype=jnp.float32):
+    """The JAX package's ring under ``jax.jit``, as its callers run it (one
+    compile instead of an eager shard_map and Pallas interpreter pass)."""
     mesh = jmake_mesh(JMeshSpec(data=data, seq=seq), jax.devices()[:data * seq])
     km = jnp.asarray(kmask) if kmask is not None else None
-    return jring(*(jnp.asarray(x, dtype) for x in (q, k, v)), mesh, causal=causal,
-                 kmask=km, use_flash=flash)
+    ring_fn = jax.jit(lambda a, b, c: jring(a, b, c, mesh, causal=causal, kmask=km,
+                                            use_flash=flash))
+    return ring_fn(*(jnp.asarray(x, dtype) for x in (q, k, v)))
 
 
 RING_CASES = [
@@ -154,8 +157,8 @@ def _ring_grad_case(flash, data, seq, lens):
                      torch.from_numpy(km) if km is not None else None, flash)
     (out * torch.from_numpy(w)).square().sum().backward()
     kmj = jnp.asarray(km) if km is not None else None
-    g_loc = jax.grad(lambda x: jnp.sum((jlocal(x, x, x, causal=True, kmask=kmj) * w) ** 2))(
-        jnp.asarray(q))
+    g_loc = jax.jit(jax.grad(
+        lambda x: jnp.sum((jlocal(x, x, x, causal=True, kmask=kmj) * w) ** 2)))(jnp.asarray(q))
     np.testing.assert_allclose(qt.grad.numpy(), np.asarray(g_loc), **GRAD)
     return q, kmj, w, qt.grad.numpy()
 
@@ -167,8 +170,8 @@ def test_ring_grads_match_the_jax_ring(flash, lens):
     the JAX package's local attention."""
     q, kmj, w, got = _ring_grad_case(flash, 2, 4, lens)
     mesh = jmake_mesh(JMeshSpec(data=2, seq=4), jax.devices()[:8])
-    g = jax.grad(lambda x: jnp.sum((jring(x, x, x, mesh, causal=True, kmask=kmj,
-                                          use_flash=flash) * w) ** 2))(jnp.asarray(q))
+    g = jax.jit(jax.grad(lambda x: jnp.sum((jring(x, x, x, mesh, causal=True, kmask=kmj,
+                                          use_flash=flash) * w) ** 2)))(jnp.asarray(q))
     np.testing.assert_allclose(got, np.asarray(g), **GRAD)
 
 

@@ -117,8 +117,8 @@ def test_loss_and_grads_match_jax_value_and_grad(lmask):
     if lmask:
         lm = np.ones((3, SMALL["max_len"]), np.float32)
         lm[1, 7:] = 0.0
-    jloss, jgrads = jax.value_and_grad(
-        lambda p: jm._loss(p, jm.state, x, y, None, lm, None)[0])(jm.params)
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jm._loss(p, jm.state, x, y, None, lm, None)[0]))(jm.params)
     loss, _, grads, _ = m._value_and_grad(
         m.state, torch.from_numpy(x), torch.from_numpy(y), None,
         torch.from_numpy(lm) if lmask else None, None)

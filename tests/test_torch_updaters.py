@@ -77,6 +77,25 @@ def _run(spec, dtype=torch.float32, jdtype=jnp.float32, steps=3, seed=0):
 
 
 @pytest.mark.parametrize("name", UPDATERS)
+def test_inplace_update_writes_the_same_bits_into_its_own_state(name):
+    """``inplace=True`` (the model's step) gives the functional update's
+    bits and keeps every state tensor it took."""
+    rs = np.random.RandomState(1)
+    p = _torch(_tree(rs))
+    u = up.make_updater(name)
+    s_fun, s_in = u.init(p), u.init(p)
+    ptrs = [t.data_ptr() for t in tree_leaves(s_in)]
+    for i in range(3):
+        g = _torch(_tree(rs, 0.5))
+        d_fun, s_fun = u.update(g, s_fun, p, i)
+        d_in, s_in = u.update(g, s_in, p, i, inplace=True)
+        assert [t.data_ptr() for t in tree_leaves(s_in)] == ptrs
+        for a, b in zip(tree_leaves(d_fun) + tree_leaves(s_fun),
+                        tree_leaves(d_in) + tree_leaves(s_in)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", UPDATERS)
 def test_three_steps_match(name):
     got, want, _, _ = _run({"type": name})
     assert len(got) == len(want)
