@@ -403,12 +403,21 @@ non-zero (and without a result line when no CUDA device is present):
    so that the view grows back, (d) (b) over an in-process NetStoreServer
    (tcp://), (e) a full restart from (b)'s checkpoints with the newest
    params file and rank 1's older shard corrupted (the manifest falls
-   back, the shard is dropped, its segments come from the mirror). Every
-   worker's params and losses against (a): bit for bit, else within
-   DP_PARAM_REL. Each worker reports its launches of kernels #4/#5 (2 of
-   each per vshard it computes), its step walls and store bytes; the
-   seconds from the kill to the shrink view, to the relaunched worker's
-   start and to the grow view.
+   back, the shard is dropped, its segments come from the mirror), (f1) 1
+   member that is a slice of 2 gloo ranks sharing the card (16 rows of a
+   32-row vshard a rank), (f2) 2 such slices with slice 1 killed at
+   iteration 3 (its process group). Every worker's params and losses
+   against (a): bit for bit, else within DP_PARAM_REL; (f2)'s survivor
+   against (f1) bit for bit. Each worker (each slice rank) reports its
+   launches of kernels #4/#5 (2 of each per vshard, or vshard part, it
+   computes), its step walls and store bytes; the seconds from the kill
+   to the shrink view, to the relaunched worker's start and to the grow
+   view; the shares of (f1)'s step that its leader spends waiting for the
+   follower at a barrier before each gather (this worker's own), in the
+   gather, in the host sum, packing the part and sending the plan; how
+   (f2)'s killed slice's ranks ended (both by the kill, none left to the
+   launcher); #4/#5 against their plain versions at a slice rank's shape
+   (B 16).
 
 38. runtime_layer — the runtime layer (slice 17), one line per step:
    (a) serve: the phase 5 TransformerLM (full width, bf16) registered with
@@ -6440,8 +6449,11 @@ def dp_cli_phase(tmp: Path) -> dict:
 # Phase 37: elastic training (train/elastic.py) on the char-RNN at dp_train's
 # width: worker processes on the card exchanging through a store. 8 steps
 # of 128 rows, 4 vshards; the relaunched worker of (c) starts (python, torch,
-# the port, the card) inside the survivor's stall after the shrink
+# the port, the card) inside the survivor's stall after the shrink. (f1) and
+# (f2): members that are slices of ELASTIC_SLICE gloo ranks sharing the card
+# (elastic-of-slices), 16 rows of a 32-row vshard a rank
 ELASTIC = dict(rows=1024, batch=128, vshards=4, seed=71, ttl=2.0, poll=0.02, ckpt_every=4)
+ELASTIC_SLICE = "2"
 ELASTIC_STEPS = 8
 ELASTIC_REJOIN_STALL_S = 20
 ELASTIC_TIMEOUT_S = 240
@@ -6452,7 +6464,10 @@ def _elastic_main(argv) -> int:
     flags>`` (the launcher's worker command). The port's worker entry
     (train/elastic.py run_worker) on the full-width char-RNN; the kernels'
     launches, the step walls and the time it was ready go to
-    ``<outdir>/report_<id>.json``."""
+    ``<outdir>/report_<id>.json`` (a slice's follower:
+    ``report_<id>_r<rank>.json``)."""
+    from deeplearning4j_tpu_torch.parallel import comm
+    from deeplearning4j_tpu_torch.parallel.mesh_step import MeshSlice
     from deeplearning4j_tpu_torch.train import elastic
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6482,11 +6497,28 @@ def _elastic_main(argv) -> int:
                 split[label] = split.get(label, 0.0) + time.perf_counter() - t
         setattr(owner, name, wrapper)
 
+    # _vshard_payload includes _slice_sum (the part's packing and, in a
+    # slice, sum_to_leader: its gather to the leader and the host sum), and
+    # _send_plan the plan and params broadcast
     for name in ("_vshard_payload", "_combine", "_segment_update", "_dense_update",
-                 "_assemble_params", "_await_vshards", "_await_psegs"):
+                 "_assemble_params", "_await_vshards", "_await_psegs", "_slice_sum",
+                 "_send_plan"):
         timed(elastic.ElasticTrainer, name, name.lstrip("_"))
     timed(membership.FileStore, "set", "store_set")
     timed(membership.FileStore, "get", "store_get")
+    timed(MeshSlice, "sum_to_leader", "sum_to_leader")
+    timed(comm, "gather", "gather")
+    # the gather apart from the ranks' skew: this worker (not the trainer)
+    # puts a barrier of the slice before it, timed as slice_wait
+    sum_to_leader = MeshSlice.sum_to_leader
+
+    def after_barrier(self, part):
+        if self.size > 1 and threading.current_thread() is main_thread:
+            t = time.perf_counter()
+            torch.distributed.barrier(group=self.group.group)
+            split["slice_wait"] = split.get("slice_wait", 0.0) + time.perf_counter() - t
+        return sum_to_leader(self, part)
+    MeshSlice.sum_to_leader = after_barrier
     ready = time.time()
     _zero_all_kernel_counts()
     res = elastic.run_worker(args, model=model, data=data)
@@ -6494,9 +6526,12 @@ def _elastic_main(argv) -> int:
     report = {"ready_ts": ready, "pid": os.getpid(), "launches": _kernel_launches(),
               "step_wall_s": [sp["wall_s"] for sp in obs.recent_spans()   # finished steps
                               if sp["span"] == "elastic.step" and not sp.get("error")],
-              "host_split_s": split,
-              "iterations": res["iteration"], "device": torch.cuda.get_device_name(0)}
-    path = Path(args.outdir) / f"report_{args.id}.json"
+              "host_split_s": split, "slice_rank": args.slice_rank,
+              "vshard_parts": res.get("vshard_parts"),
+              "iterations": res.get("iteration"), "device": torch.cuda.get_device_name(0)}
+    name = f"report_{args.id}.json" if args.slice_rank == 0 else \
+        f"report_{args.id}_r{args.slice_rank}.json"
+    path = Path(args.outdir) / name
     tmp = path.with_suffix(f".tmp{os.getpid()}")
     tmp.write_text(json.dumps(report))
     os.replace(tmp, path)
@@ -6504,10 +6539,12 @@ def _elastic_main(argv) -> int:
 
 
 def _elastic_run(tmp: Path, name: str, workers: int, *, chaos=None, relaunch=0,
-                 allow_failures=0, ckpt=None, ckpt_every=0, store=None) -> dict:
+                 allow_failures=0, ckpt=None, ckpt_every=0, store=None, mesh=None) -> dict:
     """One launcher run (train/elastic.py _cmd_launch, in this process) of
-    ``workers`` worker processes through ``_elastic_main``; returns every
-    worker's result, params, report and events."""
+    ``workers`` worker processes through ``_elastic_main`` (with ``mesh``
+    each worker a slice of that many rank processes); returns every
+    worker's result, params, report (its followers' under
+    ``follower_reports``) and events."""
     from deeplearning4j_tpu_torch.train import elastic
 
     out = tmp / name
@@ -6520,6 +6557,8 @@ def _elastic_run(tmp: Path, name: str, workers: int, *, chaos=None, relaunch=0,
             "--timeout", str(ELASTIC_TIMEOUT_S)]
     if ckpt:
         argv += ["--ckpt-dir", str(ckpt), "--ckpt-every", str(ckpt_every)]
+    if mesh:
+        argv += ["--mesh", mesh, "--slice-devices", str(elastic.MeshSlice.ranks_of(mesh))]
     env = {k: v for k, v in os.environ.items() if k != "DL4J_TPU_CHAOS"}
     if chaos:
         env["DL4J_TPU_CHAOS"] = chaos
@@ -6541,8 +6580,18 @@ def _elastic_run(tmp: Path, name: str, workers: int, *, chaos=None, relaunch=0,
         got["workers"][wid] = {
             "result": json.loads(res_path.read_text()), "params": params,
             "report": json.loads((out / f"report_{wid}.json").read_text()),
+            "follower_reports": [json.loads(f.read_text()) for f in
+                                 sorted(out.glob(f"report_{wid}_r*.json"))],
             "events": ([json.loads(l) for l in events_path.read_text().splitlines()]
                        if events_path.exists() else [])}
+    for i in range(workers):        # a killed slice's leader logged its kill
+        events_path = out / f"events_w{i}.jsonl"
+        if f"w{i}" not in got["workers"] and events_path.exists():
+            got.setdefault("failed_events", {})[f"w{i}"] = [
+                json.loads(l) for l in events_path.read_text().splitlines()]
+    # how each slice incarnation's ranks ended (the launcher's record)
+    got["slice_exits"] = {f.parent.name: json.loads(f.read_text())
+                          for f in sorted(out.glob("slice_w*_*/exits.json"))}
     return got
 
 
@@ -6556,10 +6605,17 @@ def elastic_train_phase(tmp: Path) -> dict:
     (the survivor stalls ELASTIC_REJOIN_STALL_S after the shrink, so the
     relaunched worker rejoins), (d) (b) over a NetStoreServer (tcp://) and
     (e) a full restart from (b)'s checkpoints with the newest params file
-    and rank 1's shard of the one before corrupted. Every run's params and
-    losses against (a): bit for bit, else within DP_PARAM_REL (the finding
-    is which). Kernels #4/#5 launched in every worker's vshard backward
-    (2 of each per vshard: two LSTM layers)."""
+    and rank 1's shard of the one before corrupted, (f1) 1 member that is
+    a slice of 2 gloo ranks sharing the card (spec ELASTIC_SLICE: each rank
+    16 rows of a 32-row vshard) and (f2) 2 such slices with slice_kill of
+    slice 1 at iteration 3 (its process group: leader and follower). Every
+    run's params and losses against (a): bit for bit, else within
+    DP_PARAM_REL (the finding is which); (f2)'s survivor against (f1) bit
+    for bit (exact across member count at a fixed spec). Kernels #4/#5
+    launched in every worker's vshard backward (2 of each per vshard: two
+    LSTM layers), on a slice's every rank 2 per vshard part it computed;
+    both held against their plain versions at a slice rank's shape (B 16,
+    T 50, H 256, f32)."""
     from deeplearning4j_tpu_torch.parallel.netstore import NetStoreServer
 
     t0 = time.perf_counter()
@@ -6586,11 +6642,14 @@ def elastic_train_phase(tmp: Path) -> dict:
         except BaseException as e:        # noqa: BLE001 (re-raised below)
             errors.append(e)
 
-    threads = [threading.Thread(target=run, args=(name, 2), kwargs=kw) for name, kw in (
-        ("c_kill_rejoin", dict(relaunch=1, chaos=f"host_kill@iter:3:rank1,slow_iter@iter:4:"
-                                                 f"rank0:{ELASTIC_REJOIN_STALL_S}")),
-        ("d_tcp", dict(store=f"tcp://{host}:{port}")),
-        ("e_restart", dict(ckpt=ckpt, ckpt_every=0)))]
+    threads = [threading.Thread(target=run, args=(name, n), kwargs=kw) for name, n, kw in (
+        ("c_kill_rejoin", 2, dict(relaunch=1, chaos=f"host_kill@iter:3:rank1,slow_iter@iter:"
+                                                    f"4:rank0:{ELASTIC_REJOIN_STALL_S}")),
+        ("d_tcp", 2, dict(store=f"tcp://{host}:{port}")),
+        ("e_restart", 2, dict(ckpt=ckpt, ckpt_every=0)),
+        ("f1_slice", 1, dict(mesh=ELASTIC_SLICE)),
+        ("f2_slice_kill", 2, dict(mesh=ELASTIC_SLICE, chaos="slice_kill@iter:3:slice1",
+                                  allow_failures=1)))]
     for th in threads:
         th.start()
     for th in threads:
@@ -6678,9 +6737,82 @@ def elastic_train_phase(tmp: Path) -> dict:
         f"world{W}_w0": {k: 1e3 * v / steps for k, v in
                          r["workers"]["w0"]["report"]["host_split_s"].items()}
         for W, r in ((1, a), (2, b))}
+    res["slices"] = _elastic_slices_check(runs, by_path, steps, v)
     res["launches_by_path"] = by_path
     res["seconds"] = time.perf_counter() - t0
     return res
+
+
+def _elastic_slices_check(runs: dict, by_path: dict, steps: int, v: int) -> dict:
+    """Phase 37 (f1), (f2): the slices' launches per rank (2 of #4 and of #5
+    per vshard part a rank computed), (f2)'s survivor bit for bit against
+    (f1), the in-slice gather's share of a step, the seconds from the kill
+    to the shrink view; kernels #4/#5 against their plain versions at a
+    slice rank's shape."""
+    from deeplearning4j_tpu_torch.parallel.mesh_step import MeshSlice
+
+    f1, f2 = runs["f1_slice"]["workers"], runs["f2_slice_kill"]["workers"]
+    check(set(f1) == {"w0"} and set(f2) == {"w0"}, f"elastic (f): workers {set(f1)}, {set(f2)}")
+    ref, got = f1["w0"], f2["w0"]
+    check(ref["result"]["slice_ranks"] == 2 and ref["result"]["world"] == 1,
+          f"elastic (f1): {ref['result']}")
+    check(got["result"]["world"] == 1, f"elastic (f2) ended at world {got['result']['world']}")
+    bits = _bits_equal(got["params"], ref["params"])
+    check(bits and got["result"]["losses"] == ref["result"]["losses"],
+          "elastic (f2): the survivor is not bit-equal to the one-slice run (f1)")
+    ranks = {}
+    for name, ws in (("f1_slice", f1), ("f2_slice_kill", f2)):
+        w = ws["w0"]
+        reports = [w["report"]] + w["follower_reports"]
+        check(len(reports) == 2, f"elastic {name}: {len(reports)} rank reports")
+        for rep in reports:
+            lau, parts = rep["launches"], rep["vshard_parts"]
+            key = f"elastic_train_{name}_w0_r{rep['slice_rank']}"
+            ranks[key] = {"launches": lau, "vshard_parts": parts,
+                          "fwd_per_part": lau["fused_lstm_fwd"] / max(parts, 1)}
+            check(parts > 0 and lau["fused_lstm_fwd"] == 2 * parts == lau["fused_lstm_bwd"],
+                  f"elastic {name} rank {rep['slice_rank']}: {lau} over {parts} parts")
+            if rep["slice_rank"] > 0:      # the leader's are in by_path already
+                by_path[key] = lau
+    # (f1) computes every vshard on both ranks
+    check(all(r["vshard_parts"] == v * steps for k, r in ranks.items() if "f1_" in k),
+          f"elastic (f1): parts {ranks}")
+    split = ref["report"]["host_split_s"]
+    walls = ref["report"]["step_wall_s"]
+    total = max(sum(walls), 1e-12)
+    kill = [e["ts"] for e in runs["f2_slice_kill"].get("failed_events", {}).get("w1", [])
+            if e["kind"] == "slice_kill"]
+    shrink = [e["ts"] for e in got["events"] if e["kind"] == "membership_change"
+              and e.get("reason") == "shrink"]
+    check(len(kill) == 1 and shrink, f"elastic (f2): kill {kill}, shrink {shrink}")
+    # slice_kill took both of slice 1's ranks: neither was left for the
+    # launcher to kill
+    exits = runs["f2_slice_kill"]["slice_exits"]
+    check(exits.get("slice_w1_0") == {"rcs": [-9, -9], "killed": []}
+          and exits.get("slice_w0_0", {}).get("rcs") == [0, 0],
+          f"elastic (f2): slice exits {exits}")
+    rows = ELASTIC["batch"] // v // MeshSlice.parse_spec(ELASTIC_SLICE)[0]
+    cases = [compare_lstm(dict(B=rows, T=LSTM_CONF["timesteps"], H=LSTM_CONF["hidden"],
+                               dtype=torch.float32, peep=peep, mask=None, seed=74 + i))
+             for i, peep in enumerate((True, False))]
+    check(all(c["ok"] for c in cases), f"elastic (f): #4/#5 at B 16 against plain: {cases}")
+    return {"spec": ELASTIC_SLICE, "rows_per_rank": rows,
+            "f2_bit_equal_vs_f1": bits, "ranks": ranks,
+            # of (f1)'s leader's step walls: the wait at the barrier before
+            # each gather (the ranks' skew), the gather, the host sum and
+            # the part's packing
+            "rank_wait_share_of_step": split.get("slice_wait", 0.0) / total,
+            "gather_share_of_step": split.get("gather", 0.0) / total,
+            "host_sum_share_of_step": (split.get("sum_to_leader", 0.0)
+                                       - split.get("gather", 0.0)) / total,
+            "pack_share_of_step": (split.get("slice_sum", 0.0) - split.get("sum_to_leader", 0.0)
+                                   - split.get("slice_wait", 0.0)) / total,
+            "plan_share_of_step": split.get("send_plan", 0.0) / total,
+            "slice_exits_f2": exits,
+            "step_wall_ms_f1": {"median": 1e3 * float(np.median(walls)),
+                                "min": 1e3 * min(walls), "max": 1e3 * max(walls)},
+            "kill_to_shrink_view_s": shrink[0] - kill[0],
+            "kernel_vs_plain_B16": cases}
 
 
 # -- phase 38 ----------------------------------------------------------------

@@ -22,6 +22,8 @@ with another ``@type`` raises, naming the type.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import json
 from dataclasses import dataclass
@@ -279,6 +281,46 @@ class LayerConfig:
         return pen
 
 
+_ROW_CUT: contextvars.ContextVar = contextvars.ContextVar("row_cut", default=None)
+
+
+@contextlib.contextmanager
+def row_cut(rows: int, lo: int, hi: int):
+    """Inside this block the layers compute rows ``[lo, hi)`` of a
+    ``rows``-row batch (one rank of an elastic slice, ``train/elastic.py``):
+    :func:`batch_draw` draws at the whole batch's shape and keeps those
+    rows, so the randomness matches the whole batch's, whatever the cut.
+    The whole batch (``lo == 0``, ``hi == rows``) is no cut."""
+    whole = int(lo) == 0 and int(hi) == int(rows)
+    token = _ROW_CUT.set(None if whole else (int(rows), int(lo), int(hi)))
+    try:
+        yield
+    finally:
+        _ROW_CUT.reset(token)
+
+
+def batch_draw(fn, shape, **kw) -> torch.Tensor:
+    """``fn(shape, **kw)`` (``torch.rand`` or ``torch.randn`` with a
+    ``generator``) for a draw whose leading axis is the batch's rows.
+
+    Under :func:`row_cut` the leading axis must be ``k`` times the cut's
+    rows (``k`` = 1, or the time steps of a ``[b, t, f] -> [b*t, f]``
+    flatten, which is row-major): the draw is made at ``k`` times the whole
+    batch's rows and rows ``[lo*k, hi*k)`` are kept. Any other shape
+    raises, since its cut is not known."""
+    cut = _ROW_CUT.get()
+    shape = tuple(int(n) for n in shape)
+    if cut is None:
+        return fn(shape, **kw)
+    rows, lo, hi = cut
+    if not shape or shape[0] % (hi - lo):
+        raise ValueError(
+            f"a draw of shape {shape} under a row cut [{lo}, {hi}) of {rows} rows: its "
+            f"leading axis is not a multiple of the cut's {hi - lo} rows")
+    k = shape[0] // (hi - lo)
+    return fn((rows * k,) + shape[1:], **kw)[lo * k:hi * k]
+
+
 def dropout(x: torch.Tensor, rate: float, train: bool,
             rng: Optional[torch.Generator], who: str = "dropout") -> torch.Tensor:
     """Inverted dropout with drop probability ``rate``; identity unless
@@ -289,7 +331,7 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     if rng is None:
         raise ValueError(f"{who}: dropout requires an rng generator")
     keep = 1.0 - rate
-    m = torch.rand(x.shape, generator=rng, device=x.device) < keep
+    m = batch_draw(torch.rand, x.shape, generator=rng, device=x.device) < keep
     return torch.where(m, x / keep, torch.zeros_like(x))
 
 

@@ -30,6 +30,7 @@ from deeplearning4j_tpu_torch.nn import initializers, losses
 from deeplearning4j_tpu_torch.nn.config import (
     FeedForwardLayerConfig,
     LayerConfig,
+    batch_draw,
     register_layer,
 )
 from deeplearning4j_tpu_torch.nn.input_type import InputType
@@ -77,7 +78,7 @@ def _gather_features(rows: torch.Tensor, n_out: int) -> torch.Tensor:
 
 
 def _bernoulli(rng, p_keep: float, shape, device) -> torch.Tensor:
-    return torch.rand(shape, generator=rng, device=device) < p_keep
+    return batch_draw(torch.rand, shape, generator=rng, device=device) < p_keep
 
 
 @register_layer("dense")
@@ -291,7 +292,8 @@ class GaussianNoise(LayerConfig):
             return x, state
         if rng is None:
             raise ValueError("GaussianNoise requires an rng generator in training mode")
-        noise = torch.randn(x.shape, generator=rng, device=x.device, dtype=x.dtype)
+        noise = batch_draw(torch.randn, x.shape, generator=rng, device=x.device,
+                           dtype=x.dtype)
         return x + self.stddev * noise, state
 
 
@@ -312,7 +314,8 @@ class GaussianDropout(LayerConfig):
         if rng is None:
             raise ValueError("GaussianDropout requires an rng generator in training mode")
         std = (self.rate / (1.0 - self.rate)) ** 0.5
-        noise = torch.randn(x.shape, generator=rng, device=x.device, dtype=x.dtype)
+        noise = batch_draw(torch.randn, x.shape, generator=rng, device=x.device,
+                           dtype=x.dtype)
         return x * (1.0 + std * noise), state
 
 

@@ -22,7 +22,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from deeplearning4j_tpu_torch.nn import activations, initializers
-from deeplearning4j_tpu_torch.nn.config import FeedForwardLayerConfig, register_layer
+from deeplearning4j_tpu_torch.nn.config import FeedForwardLayerConfig, batch_draw, register_layer
 from deeplearning4j_tpu_torch.nn.input_type import InputType
 
 _HALF_LOG_2PI = 0.5 * math.log(2 * math.pi)
@@ -104,8 +104,8 @@ class VariationalAutoencoder(FeedForwardLayerConfig):
     def _eps(n, mean, rng, eps):
         if eps is not None:
             return [e.to(mean.dtype) for e in eps]
-        return [torch.randn(mean.shape, generator=rng, device=mean.device, dtype=mean.dtype)
-                for _ in range(n)]
+        return [batch_draw(torch.randn, mean.shape, generator=rng, device=mean.device,
+                           dtype=mean.dtype) for _ in range(n)]
 
     def elbo_loss(self, params, x, rng=None, eps=None):
         """The negative ELBO averaged over the batch (the pretraining

@@ -2,7 +2,8 @@
 
 Every collective that the port's parallel code runs goes through this
 module: the plain ones (:func:`all_reduce`, :func:`all_gather`,
-:func:`reduce_scatter`, :func:`broadcast`, :func:`send`, :func:`recv`)
+:func:`gather`, :func:`reduce_scatter`, :func:`broadcast`, :func:`send`,
+:func:`recv`)
 and the ones autograd must see through:
 
 - :func:`copy_to` and :func:`reduce_from` — Megatron's pair around a
@@ -27,13 +28,14 @@ each rank keeps its slice.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["all_gather", "all_reduce", "all_reduce_sum", "backend", "broadcast",
-           "copy_to", "gather_dim", "recv", "reduce_from", "reduce_scatter", "send"]
+           "copy_to", "gather", "gather_dim", "recv", "reduce_from", "reduce_scatter",
+           "send"]
 
 # what gloo takes on CUDA tensors (torch.distributed's backend table)
 _GLOO_CUDA_OPS = frozenset({"all_reduce", "broadcast"})
@@ -77,6 +79,23 @@ def all_gather(t: torch.Tensor, sub) -> List[torch.Tensor]:
     parts = [torch.empty_like(t) for _ in range(sub.size)]
     dist.all_gather(parts, t, group=sub.group)
     return parts
+
+
+def gather(t: torch.Tensor, dst_index: int, sub) -> Optional[List[torch.Tensor]]:
+    """Every rank's ``t`` (same shape on all), in the group's rank order, on
+    the rank at ``dst_index`` of ``sub``; None on the others."""
+    if sub.size == 1:
+        return [t]
+    t = t.contiguous()
+    dst = sub.ranks[dst_index]
+    staged = _staged(sub, t, "gather")
+    src = t.cpu() if staged else t
+    parts = ([torch.empty_like(src) for _ in range(sub.size)]
+             if sub.index == dst_index else None)
+    dist.gather(src, parts, dst=dst, group=sub.group)
+    if parts is None:
+        return None
+    return [p.to(t.device) for p in parts] if staged else parts
 
 
 def reduce_scatter(flat: torch.Tensor, sub) -> torch.Tensor:

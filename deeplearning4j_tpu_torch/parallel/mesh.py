@@ -16,6 +16,7 @@ single-axis ones because ``dist.new_group`` is a collective call.
 
 from __future__ import annotations
 
+import datetime
 import itertools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -24,7 +25,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["AXES", "Mesh", "MeshSpec", "SubGroup", "data_axis_size", "make_mesh"]
+__all__ = ["AXES", "Mesh", "MeshSpec", "SubGroup", "data_axis_size", "make_mesh",
+           "timed_group"]
 
 AXES = ("data", "model", "seq", "pipe")
 
@@ -164,3 +166,16 @@ def make_mesh(spec: Optional[MeshSpec] = None, device=None) -> Mesh:
 def data_axis_size(mesh: Mesh) -> int:
     """Replica count of the data-parallel exchange (the ``data`` axis)."""
     return mesh.shape["data"]
+
+
+def timed_group(timeout_s: float, backend: str = "gloo") -> SubGroup:
+    """Every rank of the default process group on a group of its own whose
+    collectives time out after ``timeout_s`` (an elastic slice's, whose
+    rendezvous waited longer); the whole group alone without one. A
+    collective call: every rank makes it."""
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+        return SubGroup(None, [0], 0)
+    world = dist.get_world_size()
+    group = dist.new_group(list(range(world)), backend=backend,
+                           timeout=datetime.timedelta(seconds=float(timeout_s)))
+    return SubGroup(group, range(world), dist.get_rank())

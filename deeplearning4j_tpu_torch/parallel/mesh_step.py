@@ -21,9 +21,9 @@ winner for the model is applied when ``DL4J_TPU_TUNE`` is set
 mesh only, as in the JAX package. :meth:`MeshTrainer.finish` leaves the
 layout: the model's params and updater state are whole again.
 
-:class:`MeshSlice` (one elastic member's mesh in the JAX package) and
-:func:`shard_update_spec` (the JAX package's spec arithmetic for the
-sharded update, on tuples) come along.
+:class:`MeshSlice` (one elastic member of several ranks, the
+elastic-of-slices composition) and :func:`shard_update_spec` (the JAX
+package's spec arithmetic for the sharded update, on tuples) come along.
 """
 
 from __future__ import annotations
@@ -32,25 +32,66 @@ import os
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from deeplearning4j_tpu_torch import obs
 from deeplearning4j_tpu_torch.parallel.context import use_mesh
 from deeplearning4j_tpu_torch.parallel.distributed import global_array, process_count
-from deeplearning4j_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+from deeplearning4j_tpu_torch.parallel.mesh import MeshSpec, make_mesh, timed_group
 
 __all__ = ["MeshSlice", "MeshTrainer", "shard_update_spec"]
 
 
 class MeshSlice:
-    """A ``(d, t, s)`` mesh over the default group's ranks (``spec``:
-    ``"d[,t[,s]]"``), with the batch helpers of the JAX package's elastic
-    member slice: rows cut over ``data``, the rest replicated."""
+    """One elastic member of ``d·t·s`` ranks (the elastic-of-slices
+    composition of ``train/elastic.py``; ``spec``: ``"d[,t[,s]]"``).
 
-    def __init__(self, spec, device=None):
+    In the JAX package a member is one process whose vshard backward runs
+    GSPMD-sharded over a ``(d, t, s)`` device mesh. The port runs one
+    process per rank, so a member is a group of processes: the default
+    process group holds exactly the member's ``d·t·s`` ranks (the elastic
+    launcher forms it through ``file://<outdir>/slice_<wid>_<incarnation>/
+    store``, one store per incarnation), laid out as a ``data x model x
+    pipe`` mesh. Rank 0 is the member's leader. The helpers keep the JAX
+    semantics: rows are cut over ``data`` (:meth:`round_rows`,
+    :meth:`rows`, :meth:`shard_batch`), params and state are replicated
+    (:meth:`replicate`), and ``t`` and ``s`` replicate the compute.
+
+    The member's own collectives (:meth:`broadcast`,
+    :meth:`sum_to_leader`) run over gloo, on the CPU and on the card (NCCL
+    refuses two ranks on one device; CUDA tensors go through host memory
+    where gloo takes none, ``parallel/comm.py``), on a group whose timeout
+    is ``timeout_s``, so that a rank that hangs ends its member instead of
+    stalling it. A broadcast with ``wait=True`` runs on a second group
+    whose timeout is ``wait_s``: a follower's wait for its leader's next
+    word, which may follow a long wait of the leader's on the other
+    members. A spec of one rank needs no process group.
+
+    Bit-exactness of elastic runs holds across member COUNT at a fixed
+    spec: the ranks' parts are summed in ``data``-coordinate order.
+    """
+
+    def __init__(self, spec, device=None, *, timeout_s: float = 300.0,
+                 wait_s: Optional[float] = None):
         d, t, s = self.parse_spec(spec)
         self.spec = MeshSpec(data=d, model=t, pipe=s)
+        self.size = d * t * s
+        if self.size > 1 and process_count() != self.size:
+            raise ValueError(
+                f"slice spec {spec!r} is a member of {self.size} ranks: it needs a "
+                f"process group of exactly those ranks (this process is in one of "
+                f"{process_count()}); start the member through the elastic launcher "
+                f"(--mesh {spec} --slice-devices {self.size}) or join its ranks with "
+                f"parallel.init_distributed(..., backend='gloo') first")
         self.mesh = make_mesh(self.spec, device=device)
         self.data = int(self.mesh.shape["data"])
+        self.rank = int(self.mesh.rank)
+        self.leader = self.rank == 0
+        # the ranks whose rows differ, one per data coordinate, in order
+        self.data_ranks = [int(r) for r in self.mesh.devices[:, 0, 0, 0]]
+        self.group = timed_group(timeout_s, backend="gloo")
+        self.wait_group = timed_group(timeout_s if wait_s is None else wait_s,
+                                      backend="gloo")
 
     @staticmethod
     def parse_spec(spec) -> Tuple[int, int, int]:
@@ -62,19 +103,69 @@ class MeshSlice:
             raise ValueError(f"slice spec {spec!r}: want 1-3 positive ints 'd[,t[,s]]'")
         return tuple(parts + [1] * (3 - len(parts)))  # type: ignore
 
+    @classmethod
+    def ranks_of(cls, spec) -> int:
+        """The rank count ``d·t·s`` of a spec (1 for None or empty)."""
+        if not spec:
+            return 1
+        return int(np.prod(cls.parse_spec(spec)))
+
     def round_rows(self, rows: int) -> int:
         """The smallest multiple of the data axis at or above ``rows``."""
         return -(-int(rows) // self.data) * self.data
 
+    def rows(self, rows: int) -> Tuple[int, int]:
+        """This rank's contiguous rows ``[lo, hi)`` of a ``rows``-row batch
+        (a multiple of the data axis), as GSPMD cuts a batch over ``data``."""
+        rows = int(rows)
+        if rows % self.data:
+            raise ValueError(f"{rows} rows do not divide over the data axis ({self.data})")
+        part = rows // self.data
+        i = self.mesh.coords["data"]
+        return i * part, (i + 1) * part
+
     def shard_batch(self, arr):
         """This rank's rows of a batch (cut over ``data``)."""
-        return None if arr is None else global_array(self.mesh, arr, ("data",))
+        if arr is None:
+            return None
+        lo, hi = self.rows(arr.shape[0])
+        return arr[lo:hi]
 
     def replicate(self, tree):
-        """``tree`` with rank 0's values on every rank."""
-        from deeplearning4j_tpu_torch.parallel.distributed import replicate_global
+        """Every tensor leaf of ``tree`` set to the leader's values, in place
+        (a collective of the member). Returns ``tree``."""
+        from deeplearning4j_tpu_torch.parallel import comm
+        from deeplearning4j_tpu_torch.utils.tree import tree_leaves
 
-        return replicate_global(self.mesh, tree)
+        if self.size > 1:
+            with torch.no_grad():
+                for t in tree_leaves(tree):
+                    if isinstance(t, torch.Tensor):
+                        comm.broadcast(t, 0, self.group)
+        return tree
+
+    def broadcast(self, t: torch.Tensor, wait: bool = False) -> torch.Tensor:
+        """``t`` from the leader, in place; with ``wait`` over the group
+        whose timeout is ``wait_s``."""
+        from deeplearning4j_tpu_torch.parallel import comm
+
+        return comm.broadcast(t, 0, self.wait_group if wait else self.group)
+
+    def sum_to_leader(self, part: torch.Tensor) -> Optional[np.ndarray]:
+        """The ranks' 1-D f32 ``part`` s gathered to the leader and summed
+        there in f32 on the host, in ``data``-coordinate order (the ``t``
+        and ``s`` replicas' parts are the same rows' and are left out).
+        Returns the sum on the leader, None on the other ranks."""
+        from deeplearning4j_tpu_torch.parallel import comm
+
+        host = part.detach().to(device="cpu", dtype=torch.float32)
+        parts = comm.gather(host, 0, self.group)
+        if parts is None:
+            return None
+        total = parts[self.data_ranks[0]].numpy().copy()
+        for r in self.data_ranks[1:]:
+            total += parts[r].numpy()
+        return total
 
     def run(self, fn, *args, **kwargs):
         """Call ``fn`` under this slice's mesh."""

@@ -39,15 +39,40 @@ tolerant (the tests assert equality, not closeness):
 
 The payloads, handoff blobs and checkpoint files are the JAX package's npz
 layout under the same keys. The port cannot hold the JAX package's
-threefry key, so its ``meta`` records ``base_seed``. Not ported: the
-elastic-of-slices composition (a member that is a mesh of several ranks,
-``slice_spec``), ROADMAP Queue 1 item 7's remnant. Each rank writes its
+threefry key, so its ``meta`` records ``base_seed``. Each rank writes its
 warm-set bundle beside its checkpoint shard
 (``aot.save_distributed_bundle``, ``ckpt_<tag>_r<rank>.aotbundle``).
 
+**Elastic-of-slices.** A member may be a ``d[,t[,s]]`` slice
+(``slice_spec``, :class:`~deeplearning4j_tpu_torch.parallel.mesh_step.MeshSlice`):
+a group of ``d·t·s`` rank processes on one gloo process group of their
+own. Slice rank 0, the **leader**, is the member: it alone holds the
+lease, runs the membership runtime, reads and writes the store, updates
+the optimizer segments, checkpoints and hands off; its elastic rank is the
+slice's index. The other ranks, the **followers**, write nothing: each
+step the leader broadcasts a plan (iteration, batch rows, the vshards the
+member computes, or stop) and the params whenever they changed, each rank
+computes its ``data`` coordinate's contiguous rows of each vshard (a
+vshard's rows rounded up to a multiple of ``d``, as in the JAX package;
+loss, gradients and layer state normalised over the whole vshard's real
+rows; randomness drawn at the whole vshard's shape and cut,
+``nn/config.py`` ``row_cut``), and the parts are summed on the leader in
+``data``-coordinate order in f32 before the payload is weighted and
+framed, as an unsliced member's one part is. A run is bit-exact across
+member COUNT at a fixed spec. The collectives of a step time out after a
+few lease TTLs; a follower's wait for the next plan, which may follow the
+leader's wait on the other members, after the runtime's wait timeout (a
+dead leader's sockets close at once). Any rank's death ends its slice: a
+follower whose collective fails exits non-zero, a leader whose
+collective fails drops its lease and exits non-zero before it publishes
+that step's payloads, and the other members shrink at the step boundary.
+``slice_kill`` kills the slice's process group.
+
 The CLI (``python -m deeplearning4j_tpu_torch.train.elastic worker|launch
 [--device cpu]``) drives the synthetic MLP workload; ``launch`` supervises
-N local worker processes and can relaunch killed ones (the rejoin path).
+N local workers (each a process, or with ``--mesh`` a slice of
+``--slice-devices`` processes) and can relaunch killed ones (the rejoin
+path).
 """
 
 from __future__ import annotations
@@ -68,22 +93,34 @@ import torch
 
 from deeplearning4j_tpu_torch import obs
 from deeplearning4j_tpu_torch.nn import aot
+from deeplearning4j_tpu_torch.nn.config import row_cut
 from deeplearning4j_tpu_torch.obs import fleet
 from deeplearning4j_tpu_torch.parallel import compress as compression
 from deeplearning4j_tpu_torch.parallel.elastic import (
     ElasticRuntime,
     MembershipChanged,
     View,
+    elastic_knobs,
 )
+from deeplearning4j_tpu_torch.parallel.mesh_step import MeshSlice
 from deeplearning4j_tpu_torch.parallel.netstore import open_store
 from deeplearning4j_tpu_torch.train import resilience
 from deeplearning4j_tpu_torch.train.updaters import apply_gradient_normalization
 from deeplearning4j_tpu_torch.utils import bucketing
 from deeplearning4j_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like
 
-__all__ = ["ElasticTrainer", "mirror_ranks"]
+__all__ = ["ElasticTrainer", "SliceFailed", "mirror_ranks"]
 
-SLICES_ITEM = "ROADMAP Queue 1 item 7 (elastic-of-slices)"
+# the collectives of a slice's step time out after this many lease TTLs
+SLICE_TIMEOUT_TTLS = 5
+# the launcher kills a slice's ranks still running this long after one of
+# them failed (the others fail at their next collective on their own: a
+# dead rank's sockets close)
+SLICE_EXIT_GRACE_S = 2.0
+# the leader's plan: op, iteration, first row of the global batch, its rows,
+# vshards, padded rows a vshard, base seed, vshard count, params follow
+_PLAN_LEN = 9
+_STEP, _STOP = 1, 2
 
 
 def mirror_ranks(t: int, W: int, R: int,
@@ -105,17 +142,6 @@ def mirror_ranks(t: int, W: int, R: int,
         (r for r in range(W) if r != t),
         key=lambda r: ((racks[r] if r < len(racks) else "") == owner_rack,
                        (t - r) % W))[:R - 1]
-
-
-def _slice_ranks(slice_spec) -> int:
-    """The rank count of a ``d[,t[,s]]`` slice spec (1 for None/empty)."""
-    if not slice_spec:
-        return 1
-    n = 1
-    for part in str(slice_spec).split(","):
-        if part.strip():
-            n *= int(part)
-    return n
 
 
 def _vshard_seed(base: int, index: int) -> int:
@@ -182,6 +208,12 @@ class _Entry:
 class _JobDone(Exception):
     """Internal: the job completed while this worker was expelled; the final
     state was adopted from the ``done`` blob rank 0 leaves in the store."""
+
+
+class SliceFailed(RuntimeError):
+    """A rank of this elastic slice died, hung or could not be reached: a
+    collective of the slice failed. The slice ends (its leader has dropped
+    the lease); the other members shrink."""
 
 
 class _Prefetcher:
@@ -252,16 +284,28 @@ class ElasticTrainer:
             raise NotImplementedError(
                 "ElasticTrainer drives MultiLayerNetwork models; wrap CG "
                 "training in the single-host paths meanwhile")
-        if _slice_ranks(slice_spec) != 1:
-            raise NotImplementedError(
-                f"slice_spec={slice_spec!r}: an elastic member of more than one rank "
-                f"(elastic-of-slices) is not ported; see {SLICES_ITEM}")
         if model.params is None:
             model.init()
         model.init_opt_state()
         self.model = model
-        self.store = open_store(store_dir)
         self.wid = str(worker_id)
+        knobs = elastic_knobs()
+        # elastic-of-slices: this process is one rank of a member of d·t·s
+        # ranks; the leader (slice rank 0) is the member, the rest follow
+        self.slice: Optional[MeshSlice] = None
+        if slice_spec:
+            self.slice = MeshSlice(
+                slice_spec, device=model.device,
+                timeout_s=SLICE_TIMEOUT_TTLS * float(knobs["ttl_s"] if ttl is None else ttl),
+                wait_s=max(knobs["wait_timeout_s"], knobs["boot_timeout_s"]))
+            obs.set_process_context(slice=str(slice_spec))
+        self.slice_spec = slice_spec
+        self._sliced = self.slice is not None and self.slice.size > 1
+        self.leader = self.slice is None or self.slice.leader
+        self._slice_dead = False
+        self._sent: Tuple[Any, Any] = (None, None)   # params, state last broadcast
+        self.slice_parts = 0       # vshard parts (or whole vshards) this rank computed
+        self.store = open_store(store_dir) if self.leader else None
         self.world = int(world)
         self.vshards = None if vshards is None else int(vshards)
         self.compress = bool(compress)
@@ -274,8 +318,8 @@ class ElasticTrainer:
         self.async_exchange = bool(
             os.environ.get("DL4J_TPU_ELASTIC_ASYNC", "1") != "0"
             if async_exchange is None else async_exchange)
-        self.rt = ElasticRuntime(self.store, self.wid, ttl=ttl, poll=poll,
-                                 rack=rack)
+        self.rt = (ElasticRuntime(self.store, self.wid, ttl=ttl, poll=poll, rack=rack)
+                   if self.leader else None)
         obs.gauge("dl4j_mirror_replication_factor",
                   "Configured optimizer-segment replication factor R "
                   "(owner + R-1 mirrors, capped at world size)").set(
@@ -290,6 +334,7 @@ class ElasticTrainer:
         self._build_plan()
         self._base_seed = int(model.conf.seed)
         self._vgen = torch.Generator(device=model.device)
+        self._vshard_rows = 0
         # formed state: segment stats per flat entry {key: {rank: [S, m]}},
         # dense structured opt per dense entry, residuals per owned vshard
         self._segs: Dict[int, Dict[int, np.ndarray]] = {}
@@ -689,6 +734,129 @@ class ElasticTrainer:
         full = got.pop("__full__")
         return full, got
 
+    # -- the slice: leader and followers -------------------------------------
+    def _slice_call(self, fn, *args):
+        """A collective of the slice. When it fails (a rank died, hung past
+        the timeout or cannot be reached) the slice is over: the leader
+        drops its lease at once, so the other members shrink, and the
+        caller's step publishes nothing; :class:`SliceFailed` ends the
+        process non-zero."""
+        if self._slice_dead:
+            raise SliceFailed(f"elastic slice of {self.wid}: a rank is gone")
+        try:
+            return fn(*args)
+        except RuntimeError as e:
+            self._slice_dead = True
+            obs.event("elastic_slice_failed", wid=self.wid, slice_rank=self.slice.rank,
+                      error=str(e)[:200])
+            if self.rt is not None:
+                self.rt.leave()
+            raise SliceFailed(f"elastic slice of {self.wid}, rank {self.slice.rank}: "
+                              f"a collective failed ({e})") from e
+
+    def _send_plan(self, op: int, *, it: int = 0, lo: int = 0, rows: int = 0,
+                   js: Sequence[int] = ()) -> None:
+        """Leader: what the followers do next, over the slice's wait group
+        (a follower waits for it as long as the leader may wait on the
+        other members); with a step, the params and layer state when they
+        changed since the last broadcast."""
+        model = self.model
+        fresh = op == _STEP and (model.params is not self._sent[0]
+                                 or model.state is not self._sent[1])
+        head = torch.tensor([op, it, lo, rows, self.vshards or 0, self._vshard_rows,
+                             self._base_seed, len(js), int(fresh)], dtype=torch.int64)
+        self._slice_call(lambda: self.slice.broadcast(head, wait=True))
+        if js:
+            self._slice_call(self.slice.broadcast, torch.tensor(list(js), dtype=torch.int64))
+        if fresh:
+            self._slice_call(self.slice.replicate, (model.params, model.state))
+            self._sent = (model.params, model.state)
+
+    def _recv_plan(self):
+        """Follower: the leader's next plan ``(op, it, lo, rows, js)``."""
+        head = torch.zeros(_PLAN_LEN, dtype=torch.int64)
+        self._slice_call(lambda: self.slice.broadcast(head, wait=True))
+        op, it, lo, rows, v, c, seed, n_js, fresh = (int(a) for a in head.tolist())
+        js: List[int] = []
+        if n_js:
+            t = torch.zeros(n_js, dtype=torch.int64)
+            self._slice_call(self.slice.broadcast, t)
+            js = [int(j) for j in t.tolist()]
+        if fresh:
+            self._slice_call(self.slice.replicate, (self.model.params, self.model.state))
+        self.vshards, self._vshard_rows, self._base_seed = v, c, seed
+        return op, it, lo, rows, js
+
+    def _follow(self, x, y) -> dict:
+        """A follower's fit: compute this rank's part of every vshard the
+        leader's plans name, until it says stop."""
+        steps = 0
+        while True:
+            op, it, lo, rows, js = self._recv_plan()
+            if op == _STOP:
+                break
+            xb, yb = x[lo:lo + rows], y[lo:lo + rows]
+            for j in js:
+                self._vshard_payload(j, xb, yb, it)
+            steps += 1
+        return {"wid": self.wid, "slice_rank": self.slice.rank, "steps": steps,
+                "vshard_parts": self.slice_parts}
+
+    def _part_layout(self):
+        """The leaves a vshard part carries after its loss, in order: every
+        entry's gradient leaves (flat entries, then dense), then the float
+        layer-state leaves."""
+        grads = [(k, li, l) for keys in (self._flat_keys, self._dense_keys) for k in keys
+                 for li, l in enumerate(tree_leaves(self.model.params[k]))]
+        state = [(li, l) for li, l in enumerate(tree_leaves(self.model.state))
+                 if l.is_floating_point()]
+        return grads, state
+
+    def _slice_sum(self, result, weight: float):
+        """This rank's part of a vshard (``result``: ``(loss, new_state,
+        grads)`` of its rows, None when it has no real rows) packed into one
+        flat f32 tensor, its layer state times ``weight``; in a slice of
+        several ranks gathered to the leader and summed there. Returns
+        ``(loss, gflat, dense, state)`` as host f32 on the leader
+        (``state``: the layer-state leaves, integer ones the leader's own),
+        None on a follower."""
+        grads_l, state_l = self._part_layout()
+        if result is None:
+            n = 1 + sum(int(l.numel()) for _, _, l in grads_l) + sum(
+                int(l.numel()) for _, l in state_l)
+            part = torch.zeros(n, dtype=torch.float32)
+        else:
+            loss, new_state, grads = result
+            g = {k: tree_leaves(grads[k]) for k in self._flat_keys + self._dense_keys}
+            st = tree_leaves(new_state)
+            w = torch.tensor(weight, dtype=torch.float32, device=loss.device)
+            part = torch.cat([loss.reshape(1).float()]
+                             + [g[k][li].reshape(-1).float() for k, li, _ in grads_l]
+                             + [st[li].reshape(-1).float() * w for li, _ in state_l])
+        if not self._sliced:
+            total = part.detach().to(device="cpu", dtype=torch.float32).numpy()
+        else:
+            total = self._slice_call(self.slice.sum_to_leader, part)
+            if total is None:
+                return None
+        loss_h = np.float32(total[0])
+        off = 1
+        gflat = total[off:off + self._total_n]
+        dense: Dict[str, np.ndarray] = {}
+        for k, li, leaf in grads_l:
+            n = int(leaf.numel())
+            if k in self._dense_keys:
+                dense[f"d{k}_{li}"] = total[off:off + n].reshape(tuple(leaf.shape))
+            off += n
+        summed = {}
+        for li, leaf in state_l:
+            n = int(leaf.numel())
+            summed[li] = total[off:off + n].reshape(tuple(leaf.shape))
+            off += n
+        state = [summed[li] if li in summed else _np(leaf)
+                 for li, leaf in enumerate(tree_leaves(result[1]))]
+        return loss_h, gflat, dense, state
+
     # -- the step ------------------------------------------------------------
     def _partition(self, secs: float, event: str, **fields):
         """The mechanics of net_partition / rack_partition: stop
@@ -705,10 +873,12 @@ class ElasticTrainer:
         chaos = resilience.active_chaos()
         if chaos is None:
             return
+        # host_kill and slice_kill target the member's leader (elastic rank
+        # == slice index); a slice leader that leads its process group, as
+        # the launcher starts it, takes every rank of its slice with it
         chaos.maybe_host_kill(it, rank=rank)
-        # a member process IS its slice (one rank), so a slice preemption
-        # is one SIGKILL here (elastic rank == slice index)
-        chaos.maybe_slice_kill(it, slice_index=rank)
+        chaos.maybe_slice_kill(it, slice_index=rank, process_group=(
+            self._sliced and os.getpgrp() == os.getpid()))
         secs = chaos.partition_seconds(it, rank=rank)
         if secs > 0:
             self._partition(secs, "elastic_partition", wid=self.wid, rank=rank,
@@ -722,11 +892,13 @@ class ElasticTrainer:
         chaos.maybe_preempt(it)
         chaos.maybe_slow(it, rank=rank)
 
-    def _vshard_payload(self, j: int, xb, yb, it: int) -> bytes:
+    def _vshard_payload(self, j: int, xb, yb, it: int) -> Optional[bytes]:
         """Compute vshard ``j``'s weighted contribution and frame it for the
         store. Weights (``n_j / N``) and the generator's seed depend only on
         (step, j) — the membership invariance that makes elastic runs
-        bit-exact."""
+        bit-exact. In a slice of several ranks every rank computes its
+        ``data`` coordinate's rows and the parts are summed on the leader
+        (:meth:`_slice_sum`); a follower gets None."""
         from deeplearning4j_tpu_torch.nn.model import _cast_labels, _cast_mask
 
         model = self.model
@@ -734,10 +906,24 @@ class ElasticTrainer:
         lo, hi = j * c, min((j + 1) * c, len(xb))
         n_j = max(hi - lo, 0)
         if n_j <= 0:
-            return _pack_arrays({"n": np.asarray(0, np.int64)})
+            return _pack_arrays({"n": np.asarray(0, np.int64)}) if self.leader else None
         w = np.float32(n_j) / np.float32(len(xb))
         x_j, y_j, fm, lm, ew = bucketing.pad_fit_batch(
             xb[lo:hi], yb[lo:hi], None, None, c, site="elastic.fit")
+        a, b, weight = 0, c, 1.0
+        if self._sliced:
+            # this rank's rows of the padded vshard; the label mask, pre-scaled
+            # by c / n_j, is scaled by 1/d more: a part's loss is its rows'
+            # share of the whole vshard's mean over its real rows
+            a, b = self.slice.rows(c)
+            n_local = min(max(n_j - a, 0), b - a)
+            weight = np.float32(n_local) / np.float32(n_j)
+            x_j, y_j = x_j[a:b], y_j[a:b]
+            fm = None if fm is None else fm[a:b]
+            lm = None if lm is None else lm[a:b] / np.float32(self.slice.data)
+            ew = ew[a:b]
+            if n_local == 0:
+                return self._frame(j, w, n_j, self._slice_sum(None, 0.0))
         dt, dev = model.dtype, model.device
         self._vgen.manual_seed(_vshard_seed(self._base_seed, it * self.vshards + j))
         gen, model._gen = model._gen, self._vgen
@@ -746,17 +932,27 @@ class ElasticTrainer:
         # the vshard shape rides in the rank's warm-set bundle (nn/aot.py)
         aot.grid_site(model, "elastic.vshard").note_seen(*args)
         try:
-            loss, new_state, grads, _ = model._value_and_grad(model.state, *args)
+            with row_cut(c, a, b):
+                loss, new_state, grads, _ = model._value_and_grad(model.state, *args)
         finally:
             model._gen = gen
+        self.slice_parts += 1
+        return self._frame(j, w, n_j, self._slice_sum((loss, new_state, grads), weight))
+
+    def _frame(self, j: int, w, n_j: int, summed) -> Optional[bytes]:
+        """Vshard ``j``'s payload from its unweighted host sums ``(loss,
+        gflat, dense, state)`` (None on a slice's follower): each times
+        ``w``, the gradient compressed with the vshard's residual when
+        ``compress``."""
+        if summed is None:
+            return None
+        loss, gflat, dense, state = summed
         arrays: Dict[str, np.ndarray] = {
             "n": np.asarray(n_j, np.int64),
-            "loss": np.float32(_np(loss)) * w,
+            "loss": loss * w,
         }
         if self._flat_keys:
-            gflat = _np(torch.cat([torch.cat([g.reshape(-1).float() for g in
-                                              tree_leaves(grads[k])])
-                                   for k in self._flat_keys])) * w
+            gflat = gflat * w
             if self.compress:
                 packed, new_res = compression.encode_packed(
                     torch.from_numpy(gflat), torch.from_numpy(self._residuals[j]),
@@ -765,11 +961,9 @@ class ElasticTrainer:
                 arrays["q"] = packed.numpy()
             else:
                 arrays["g"] = gflat
-        for key in self._dense_keys:
-            for li, leaf in enumerate(tree_leaves(grads[key])):
-                arrays[f"d{key}_{li}"] = _np(leaf.float()) * w
-        for li, leaf in enumerate(tree_leaves(new_state)):
-            a = _np(leaf)
+        for k, a in dense.items():
+            arrays[k] = a * w
+        for li, a in enumerate(state):
             if np.issubdtype(a.dtype, np.floating):
                 a = a.astype(np.float32) * w
             arrays[f"s{li}"] = a
@@ -998,7 +1192,7 @@ class ElasticTrainer:
         self.store.set(key, data)
         self.payload_bytes += len(data)
 
-    def _run_step(self, xb, yb):
+    def _run_step(self, xb, yb, lo: int = 0):
         view = self.rt.view
         it = int(self.model.iteration)
         sync = (self.epoch, self.step_in_epoch, it)
@@ -1023,8 +1217,14 @@ class ElasticTrainer:
                         self.store, {j: f"grad/{g}/{it}/{j}"
                                      for j in range(self.vshards) if j not in mine},
                         self.rt.poll))
-                for j in self._my_vshards():
-                    self._put(f"grad/{g}/{it}/{j}", self._vshard_payload(j, xb, yb, it))
+                mine_sorted = self._my_vshards()
+                if self._sliced:
+                    self._send_plan(_STEP, it=it, lo=lo, rows=len(xb), js=mine_sorted)
+                # every payload is computed (in a slice: every gather has
+                # succeeded) before the first is published
+                framed = [(j, self._vshard_payload(j, xb, yb, it)) for j in mine_sorted]
+                for j, data in framed:
+                    self._put(f"grad/{g}/{it}/{j}", data)
                 t0 = time.monotonic()
                 payloads = self._await_vshards(
                     g, it, view, sync, prefetch=fetchers[0] if fetchers else None)
@@ -1229,21 +1429,23 @@ class ElasticTrainer:
         global batch of step ``s`` is rows ``[s*bs, (s+1)*bs)``."""
         x = np.asarray(x)
         y = np.asarray(y)
+        if not self.leader:
+            return self._follow(x, y)
         bs = int(batch_size)
         self._steps_per_epoch = max(-(-len(x) // bs), 1)
         view = self.rt.bootstrap(self.world)
         epochs = int(epochs)
         try:
             self._reform(view)
-            self._vshard_rows = -(-bs // self.vshards)
+            self._vshard_rows = self._rows_per_vshard(bs)
             while self.epoch < epochs:
                 lo = self.step_in_epoch * bs
                 xb, yb = x[lo:lo + bs], y[lo:lo + bs]
                 try:
-                    self._run_step(xb, yb)
+                    self._run_step(xb, yb, lo)
                 except MembershipChanged as mc:
                     self._reform(mc.view)
-                    self._vshard_rows = -(-bs // self.vshards)
+                    self._vshard_rows = self._rows_per_vshard(bs)
                     continue
                 self.step_in_epoch += 1
                 if self.step_in_epoch >= self._steps_per_epoch:
@@ -1262,6 +1464,8 @@ class ElasticTrainer:
         except _JobDone:
             pass
         self._maybe_publish_snapshot(force=True)
+        if self._sliced:
+            self._send_plan(_STOP)
         view = self.rt.view
         return {
             "wid": self.wid,
@@ -1278,7 +1482,18 @@ class ElasticTrainer:
             "store_backend": getattr(self.store, "backend", "file"),
             "async_exchange": bool(self.async_exchange),
             "stragglers": sorted(self._stragglers),
+            "slice": None if self.slice is None else str(self.slice_spec),
+            "slice_ranks": 1 if self.slice is None else self.slice.size,
+            "vshard_parts": self.slice_parts,
         }
+
+    def _rows_per_vshard(self, bs: int) -> int:
+        """Rows per vshard, rounded up to a multiple of the slice's data
+        axis so that its ranks' rows divide evenly (the JAX package's
+        ``_rows_per_vshard``: where ``ceil(bs / vshards)`` is no multiple of
+        ``d`` the vshards hold other rows than an unsliced run's)."""
+        rows = -(-int(bs) // self.vshards)
+        return self.slice.round_rows(rows) if self.slice is not None else rows
 
     def _maybe_publish_snapshot(self, force: bool = False) -> None:
         """Publish this worker's metrics snapshot for the fleet collector —
@@ -1293,7 +1508,8 @@ class ElasticTrainer:
             pass  # observability must never fail training
 
     def close(self):
-        self.rt.leave()
+        if self.rt is not None:
+            self.rt.leave()
 
 
 # ---------------------------------------------------------------------------
@@ -1335,11 +1551,26 @@ def _write_atomic(path: str, write) -> None:
 def run_worker(args, model=None, data=None) -> dict:
     """One elastic worker: train ``model`` (default: the CLI's MLP) on
     ``data`` (default: the CLI's synthetic rows) and publish
-    ``params_<id>.npz`` and ``result_<id>.json`` into ``--outdir``
-    atomically (a relaunch supervisor may read them while a preemption
-    kills this process). Returns the result dict."""
+    ``params_<id>.npz``, ``result_<id>.json`` and ``events_<id>.jsonl``
+    into ``--outdir`` atomically (a relaunch supervisor may read them while
+    a preemption kills this process). With ``--mesh`` of more than one rank
+    this process is rank ``--slice-rank`` of the member, which first forms
+    its process group through ``--slice-store``; only the leader (rank 0)
+    writes. Returns the result dict."""
+    ranks = MeshSlice.ranks_of(args.mesh)
+    leader = args.slice_rank == 0
+    if ranks > 1:
+        from deeplearning4j_tpu_torch.parallel.distributed import init_distributed
+
+        if not args.slice_store:
+            raise ValueError(f"--mesh {args.mesh}: a member of {ranks} rank processes "
+                             "needs --slice-store and --slice-rank (the launcher's "
+                             "--slice-devices passes them)")
+        init_distributed(args.slice_store, ranks, int(args.slice_rank), device=args.device,
+                         backend="gloo", timeout_s=elastic_knobs()["boot_timeout_s"])
     os.makedirs(args.outdir, exist_ok=True)
-    obs.configure_event_log(os.path.join(args.outdir, f"events_{args.id}.jsonl"))
+    if leader:
+        obs.configure_event_log(os.path.join(args.outdir, f"events_{args.id}.jsonl"))
     if model is None:
         model = _build_model(args)
     trainer = ElasticTrainer(
@@ -1354,6 +1585,12 @@ def run_worker(args, model=None, data=None) -> dict:
         result = trainer.fit(x, y, epochs=args.epochs, batch_size=args.batch)
     finally:
         trainer.close()
+    if ranks > 1:
+        from deeplearning4j_tpu_torch.parallel.distributed import shutdown_distributed
+
+        shutdown_distributed()
+    if not leader:
+        return result
     params = {f"p{key}_{li}": _np(leaf) for key, p in enumerate(model.params)
               for li, leaf in enumerate(tree_leaves(p))}
     _write_atomic(os.path.join(args.outdir, f"params_{args.id}.npz"),
@@ -1378,14 +1615,31 @@ def _cmd_launch(args, worker_cmd: Optional[List[str]] = None,
     env stripped — the one-shot fault already fired in the dead process and
     must not re-fire at the (now higher) resume iteration. ``worker_cmd``
     replaces the worker entry (``WORKER_CMD``; the worker's flags follow
-    it) and ``env`` the workers' environment (``os.environ``)."""
-    procs: Dict[str, subprocess.Popen] = {}
+    it) and ``env`` the workers' environment (``os.environ``).
+
+    With ``--mesh`` of ``n = d·t·s > 1`` ranks (``--slice-devices n``) a
+    worker is a slice of ``n`` processes, its ranks in one process group
+    (the leader's) and its process group formed through
+    ``file://<outdir>/slice_<id>_<incarnation>/store``. The slice is
+    supervised as one worker: when any of its ranks exits non-zero the
+    rest are killed (those still running ``SLICE_EXIT_GRACE_S`` later), and
+    ``--allow-failures`` and ``--relaunch`` count and restart whole slices.
+    How each incarnation's ranks ended goes to its directory's
+    ``exits.json``: their exit codes and the ranks the launcher killed."""
+    n = MeshSlice.ranks_of(args.mesh)
+    if int(args.slice_devices) not in ((0, 1, n) if n == 1 else (n,)):
+        raise ValueError(f"--mesh {args.mesh or '(none)'} is a member of {n} rank "
+                         f"process(es): --slice-devices must be {n}, not "
+                         f"{args.slice_devices}")
+    slices: Dict[str, List[subprocess.Popen]] = {}
+    incarnations: Dict[str, int] = {}
+    roots: Dict[str, str] = {}
     relaunches = int(args.relaunch)
     allowed_failures = int(args.allow_failures)
     failures: List[str] = []
     racks = [r.strip() for r in args.racks.split(",")] if args.racks else []
 
-    def spawn(wid: str, chaos: bool) -> subprocess.Popen:
+    def spawn(wid: str, chaos: bool) -> List[subprocess.Popen]:
         worker_env = dict(os.environ if env is None else env)
         if not chaos:
             worker_env.pop("DL4J_TPU_CHAOS", None)
@@ -1414,11 +1668,37 @@ def _cmd_launch(args, worker_cmd: Optional[List[str]] = None,
             cmd += ["--compress"]
         if args.ckpt_dir:
             cmd += ["--ckpt-dir", args.ckpt_dir, "--ckpt-every", str(args.ckpt_every)]
-        return subprocess.Popen(cmd, env=worker_env)
+        if n == 1:
+            return [subprocess.Popen(cmd, env=worker_env)]
+        # a new store per incarnation: a relaunched slice never meets its
+        # dead incarnation's ranks
+        inc = incarnations[wid] = incarnations.get(wid, -1) + 1
+        root = roots[wid] = os.path.abspath(os.path.join(args.outdir, f"slice_{wid}_{inc}"))
+        os.makedirs(root, exist_ok=True)
+        worker_env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        procs: List[subprocess.Popen] = []
+        for r in range(n):
+            procs.append(subprocess.Popen(
+                cmd + ["--slice-rank", str(r), "--slice-store", f"file://{root}/store"],
+                env=worker_env, process_group=procs[0].pid if procs else 0))
+        return procs
+
+    def stop(procs: List[subprocess.Popen], grace: float = 0.0) -> List[int]:
+        """Ends a slice's ranks, killing those still running after
+        ``grace`` seconds; returns the ranks killed."""
+        end, killed = time.monotonic() + grace, []
+        for r, q in enumerate(procs):
+            try:
+                q.wait(timeout=max(end - time.monotonic(), 0.0))
+            except subprocess.TimeoutExpired:
+                q.kill()
+                q.wait()
+                killed.append(r)
+        return killed
 
     wids = [f"w{i}" for i in range(int(args.workers))]
     for wid in wids:
-        procs[wid] = spawn(wid, chaos=True)
+        slices[wid] = spawn(wid, chaos=True)
     httpd = None
     if args.fleet_port >= 0:
         # fleet metrics federation: serve the merged exposition of every
@@ -1429,17 +1709,25 @@ def _cmd_launch(args, worker_cmd: Optional[List[str]] = None,
     done: Dict[str, int] = {}
     try:
         while len(done) < len(wids):
-            for wid, p in list(procs.items()):
-                rc = p.poll()
-                if rc is None:
+            for wid, procs in list(slices.items()):
+                codes = [p.poll() for p in procs]
+                bad = [c for c in codes if c not in (None, 0)]
+                if not bad and None in codes:
                     continue
-                del procs[wid]
+                del slices[wid]
+                # any rank's death ends its slice
+                killed = stop(procs, SLICE_EXIT_GRACE_S if bad else 0.0)
+                if n > 1:
+                    exits = {"rcs": [q.returncode for q in procs], "killed": killed}
+                    _write_atomic(os.path.join(roots[wid], "exits.json"),
+                                  lambda f: f.write(json.dumps(exits).encode()))
+                rc = bad[0] if bad else 0
                 if rc == 0:
                     done[wid] = 0
                 elif relaunches > 0:
                     relaunches -= 1
                     print(f"[launch] worker {wid} exited rc={rc}; relaunching", flush=True)
-                    procs[wid] = spawn(wid, chaos=False)
+                    slices[wid] = spawn(wid, chaos=False)
                 elif len(failures) < allowed_failures:
                     failures.append(wid)
                     done[wid] = rc
@@ -1453,9 +1741,8 @@ def _cmd_launch(args, worker_cmd: Optional[List[str]] = None,
                 return 1
             time.sleep(0.05)
     finally:
-        for q in procs.values():
-            q.kill()
-            q.wait()
+        for procs in slices.values():
+            stop(procs)
         if httpd is not None:
             httpd.shutdown()
     survivors = [w for w in wids if done[w] == 0]
@@ -1498,8 +1785,14 @@ def _parser() -> argparse.ArgumentParser:
         p.add_argument("--replication", type=int, default=0,
                        help="R-way mirror replication factor (0 = env/default)")
         p.add_argument("--mesh", default="",
-                       help="per-member slice spec 'd[,t[,s]]'; only a slice of "
-                            f"one rank is ported ({SLICES_ITEM})")
+                       help="per-member slice spec 'd[,t[,s]]': each member is d·t·s "
+                            "rank processes on a gloo group of their own, rows cut "
+                            "over d (launch with --slice-devices d·t·s)")
+        p.add_argument("--slice-rank", dest="slice_rank", type=int, default=0,
+                       help="this process's rank in its slice (0 = the leader)")
+        p.add_argument("--slice-store", dest="slice_store", default="",
+                       help="the slice's rendezvous (file:///DIR/store); the "
+                            "launcher passes one per slice incarnation")
         p.add_argument("--async-exchange", dest="async_exchange", type=int, default=-1,
                        help="1/0 force async payload prefetch on/off (-1 = env/default)")
         p.add_argument("--device", default=None,
@@ -1518,8 +1811,8 @@ def _parser() -> argparse.ArgumentParser:
                    help="comma-separated rack label per worker "
                         "(w0,w1,... ; cycled if shorter than --workers)")
     l.add_argument("--slice-devices", dest="slice_devices", type=int, default=0,
-                   help="devices per elastic-of-slices member (with --mesh; "
-                        f"{SLICES_ITEM})")
+                   help="rank processes per member with --mesh (d·t·s); they "
+                        "share the device (the card, or the CPU with --device cpu)")
     l.add_argument("--relaunch", type=int, default=0,
                    help="relaunch budget for killed workers (rejoin path)")
     l.add_argument("--fleet-port", dest="fleet_port", type=int, default=-1,

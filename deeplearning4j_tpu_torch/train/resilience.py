@@ -713,10 +713,14 @@ class ChaosInjector:
             obs.event("chaos", fault="host_kill", iteration=iteration, rank=rank)
             os.kill(os.getpid(), signal.SIGKILL)
 
-    def maybe_slice_kill(self, iteration: int, *, slice_index: int) -> None:
-        """SIGKILL this member process when a ``slice_kill`` fault targets
-        its slice index — one whole-slice preemption, one membership
-        event."""
+    def maybe_slice_kill(self, iteration: int, *, slice_index: int,
+                         process_group: bool = False) -> None:
+        """SIGKILL this member when a ``slice_kill`` fault targets its slice
+        index — one whole-slice preemption, one membership event. With
+        ``process_group`` (the leader of a member of several rank processes,
+        which the elastic launcher starts in a process group of its own) the
+        whole process group goes, every rank of the member; else this
+        process."""
         for f in self.faults:
             if (f.kind != "slice_kill" or f.fired or f.at_iter is None
                     or iteration < f.at_iter):
@@ -728,6 +732,8 @@ class ChaosInjector:
             obs.event("slice_kill", iteration=iteration, slice=slice_index)
             obs.event("chaos", fault="slice_kill", iteration=iteration,
                       slice=slice_index)
+            if process_group:
+                os.killpg(os.getpgrp(), signal.SIGKILL)
             os.kill(os.getpid(), signal.SIGKILL)
 
     def rack_partition_seconds(self, iteration: int, *, rack: str) -> float:

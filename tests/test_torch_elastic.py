@@ -350,9 +350,12 @@ def _mlp_conf():
         input_type=InputType.feed_forward(4), updater={"type": "adam", "lr": 5e-3}, seed=7)
 
 
-def test_slice_spec_of_more_than_one_rank_names_the_roadmap_item(tmp_path):
+def test_slice_spec_of_two_ranks_outside_its_slice_group_raises(tmp_path):
+    """A member of 2 ranks needs a process group of exactly its 2 ranks (the
+    launcher's ``--slice-devices 2`` forms one); a spec of one rank needs
+    none (elastic-of-slices: tests/test_torch_elastic_slices.py)."""
     model = MultiLayerNetwork(_mlp_conf(), device="cpu").init()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+    with pytest.raises(ValueError, match="needs a process group of exactly those ranks"):
         telastic.ElasticTrainer(model, str(tmp_path), "w0", slice_spec="2")
     tr = telastic.ElasticTrainer(model, str(tmp_path), "w0", slice_spec="1,1")
     tr.close()
