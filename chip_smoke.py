@@ -20,9 +20,14 @@ non-zero (and without a result line when no CUDA device is present):
    (native/fastload.cpp) into build/ beside them; registers, shared memory and spills per kernel
    instantiation (72), and the HGMMA (wgmma) count of each flash kernel
    from cuobjdump -sass. The 24 bf16 and f16 wgmma kernels (forward, dq,
-   dk/dv at D = 32, 64, 128, 256) must show HGMMA and no spills, the LSTM
-   kernels no spills. The LSTM kernels' routes by width (cluster, wide,
-   step) and the clusters that run at once at the char-RNN width.
+   dk/dv at D = 32, 64, 128, 256) and the 4 of the wide-head route (bf16
+   and f16 forward and dk/dv past D = 256) must show HGMMA and no spills,
+   ptxas must not serialize the wide-head wgmmas (C7514), and the shared
+   memory and column groups the library reports for ops/flash_attention.py
+   wide_plan's plans (D = 320, 512, 2880, 3072, 4096, every dtype), from
+   the kernels' own layouts, must equal the plans'; the LSTM kernels no
+   spills. The LSTM kernels' routes by width (cluster, wide, step) and the
+   clusters that run at once at the char-RNN width.
 3. kernel  — each kernel against its plain PyTorch version on the card:
    the forward kernel and the backward pair (dq; dk/dv) at the flagship
    shape (B=16, T=2048, H=16, D=128, bf16, causal, fused-qkv strided
@@ -39,14 +44,16 @@ non-zero (and without a result line when no CUDA device is present):
    HTTP bucket, each backward kernel and the whole backward (delta and
    kernels #2/#3) at the flagship shape, the plain versions, and torch's
    scaled_dot_product_attention forward and backward as a yardstick only.
-   Then the wide-head route (D past 256, csrc/flash_wide.cu) through the
-   same wrappers: forward and backward at D = 320 and 512 in bf16 and f32
-   (causal; key masks), f16 at D = 300 and bf16 at D = 1024, and past what
-   one block holds, in column groups, D = 3072 (bf16, f32) and 4096 (bf16)
-   at B=1, T=256, H=2, each against the plain versions and repeated bit
-   for bit, and each kernel timed at B=2, T=512, H=4 (D = 320, 512) and at
-   B=1, T=256, H=2 (D = 3072, 4096) beside its bound, the plain versions
-   and SDPA.
+   Then the wide-head route (D past 256, csrc/flash_wide.cu: the bf16/f16
+   forward and dk/dv on wgmma and TMA, the f32 ones and dq on FMAs) through
+   the same wrappers: forward and backward at D = 320 and 512 in bf16 and
+   f32 (causal; key masks), f16 at D = 300 and 512, bf16 at D = 576 and
+   1024, at B16 T2048 H4 D512 (the flagship's products at 4 heads), and
+   in column groups D = 3072 (bf16, f32) and 4096 (bf16) at B=1, T=256,
+   H=2, each against the plain versions and repeated bit for bit, and each
+   kernel timed at B16 T2048 H4 D512, at B=2, T=512, H=4 (D = 320, 512)
+   and at B=1, T=256, H=2 (D = 3072, 4096) beside its bound, the plain
+   versions and SDPA.
 4. small   — a tiny TransformerLM through the port on the CPU (plain
    versions) and on the GPU (the kernels) with the same weights: the
    output, then 3 SGD steps (loss per step, final params, 2 launches of
@@ -474,8 +481,18 @@ non-zero (and without a result line when no CUDA device is present):
    exit code (must be 0), seconds, and the baselined host-sync findings per
    module.
 
+40. wide_lm — the TransformerLM of phase 5 with 4 heads (D = 512, the
+   wide-head route; the same 415,455,232 params), random weights from the
+   seed: registered with ServeConfig(max_batch=16), one 1 x 128 request
+   and one 16 x 2048 dispatch (8 launches of the wide forward each, no
+   other route, no backward), the dispatch's forward by CUDA events; then a
+   warm Adam step (1e-4) and 3 timed ones on 16 x 2048 tokens (CUDA
+   events; 8 launches of the wide forward, dq and dk/dv a step; the loss
+   falls), one step split into forward / backward / update, peak memory.
+
 It ends with the command time, the kernels line (launches of each kernel
-by path, the new phases' included), the card's name and power limit, and
+by path, the new phases' included; the wide-head wgmma forward and dk/dv
+as rows of their own, launched on phase 40's paths), the card's name and power limit, and
 ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -599,6 +616,11 @@ WIDE_FLASH_SHAPE = dict(B=2, T=512, H=4)
 # 2880) run in column groups; held and timed at B=1, T=256, H=2
 WIDEST_HEADS = (2880, 3072, 4096)
 WIDEST_FLASH_SHAPE = dict(B=1, T=256, H=2)
+# the wide-head wgmma kernels where they have work: the products of the
+# flagship shape (B16 T2048 H16 D128) at 4 heads of 512
+WIDE_FLAGSHIP = dict(B=16, T=2048, H=4, D=512)
+# phase 40: the flagship TransformerLM with 4 heads (D = 512, the wide route)
+WIDE_LM_CONF = dict(FLAGSHIP_CONF, n_heads=4)
 STEP_LSTM_SHAPE = dict(B=32, T=20)
 # LeNet-5 at bench.py's bench_lenet5 shape: batch 256 of 28 x 28 x 1, f32,
 # Adam 1e-3, random weights from seed 12345; synthetic images and labels
@@ -833,27 +855,54 @@ def build_report() -> dict:
     check(len(dwh_wgmma) == 2 and all(k["hgmma"] > 0 for k in dwh_wgmma),
           f"the 16-bit dWh product shows no HGMMA: {dwh_wgmma}")
     kernels += dwh_wgmma
-    # the wide-head flash route (D > 256): 3 kernels x 3 dtypes, D at run time
+    # the wide-head flash route (D > 256), D at run time: the FMA kernels
+    # (f32 forward and dk/dv, dq in every dtype; 3 kernels x 3 dtypes) and the
+    # bf16/f16 wgmma forward and dk/dv (2 kernels x 2 dtypes), each with
+    # wide_plan's plan at the timed head dims, whose bytes and groups the
+    # library reports from the kernels' own layouts
     wide = fa._wide_kernel_lib()
-    wlog = _build.BUILD_LOG.get("flash_wide", "")
-    for which, name in enumerate(("flash_wide_fwd_kernel", "flash_wide_dq_kernel",
-                                  "flash_wide_dkv_kernel")):
-        rows = _ptxas_report_typed(wlog, name)
-        for r in rows:
-            r["smem_bytes_D320_D512"] = [wide.flash_wide_smem_bytes(which, D)
-                                         for D in (320, 512)]
-            # past what one block holds, the grid's column groups
-            r["groups_D2880_D3072_D4096"] = [wide.flash_wide_groups(which, D)
-                                             for D in WIDEST_HEADS]
-            r["smem_bytes_D2880_D3072_D4096"] = [wide.flash_wide_smem_bytes(which, D)
-                                                 for D in WIDEST_HEADS]
-        check(all(r["groups_D2880_D3072_D4096"][0] == 1 for r in rows),
-              f"{name}: D = 2880 must keep one column group: {rows}")
-        kernels += rows
+    # ptxas's notes (C75xx) name a kernel outside its own report: drop them
+    wlog = "\n".join(line for line in _build.BUILD_LOG.get("flash_wide", "").splitlines()
+                     if "(C75" not in line)
+    wide_lib = _build.build("flash_wide")
+    wide_wgmma = []
+    for which, kern in enumerate(fa.WIDE_KERNELS):
+        for name in (f"flash_wide_{kern}_kernel", f"flash_wide_{kern}_wgmma_kernel"):
+            rows = _ptxas_report_typed(wlog, name)
+            for r in rows:
+                code = _DTYPE_CODE[r["dtype"]]
+                dt = getattr(torch, r["dtype"])
+                r["plans"] = {}
+                for D in (320, 512) + WIDEST_HEADS:
+                    plan = fa.wide_plan(kern, D, dt)
+                    lib_plan = [wide.flash_wide_smem_bytes(which, code, D, plan.c_plan()),
+                                wide.flash_wide_groups(which, code, D, plan.c_plan())]
+                    check(lib_plan == [plan.smem_bytes, len(plan.groups)],
+                          f"{name} {r['dtype']} D={D}: the library's layout under "
+                          f"{plan} is {lib_plan}")
+                    r["plans"][D] = {"route": plan.route, "rows": plan.rows,
+                                     "groups": list(plan.groups), "slots": plan.slots,
+                                     "resident": plan.resident, "smem_bytes": plan.smem_bytes}
+            if "_wgmma_" in name:
+                counts = _sass_counts(wide_lib, name + r"I(\w+?)E")
+                for r in rows:
+                    r["hgmma"] = counts.get(r["dtype"], 0)
+                wide_wgmma += rows
+            kernels += rows
+    check(len(wide_wgmma) == 4 and {k["dtype"] for k in wide_wgmma} == {"bfloat16", "float16"},
+          f"expected the 4 bf16/f16 wide-head wgmma instantiations (forward, dk/dv), "
+          f"parsed {wide_wgmma}")
+    check(all(k["hgmma"] > 0 for k in wide_wgmma),
+          f"a wide-head wgmma kernel has no HGMMA: {wide_wgmma}")
+    check(all(k["spill_stores"] == 0 and k["spill_loads"] == 0 for k in wide_wgmma),
+          f"a wide-head wgmma kernel spills: {wide_wgmma}")
+    check("C7514" not in _build.BUILD_LOG.get("flash_wide", ""),
+          "ptxas serializes a wide-head kernel's wgmmas (C7514)")
     seconds = time.perf_counter() - t0
     check(len(kernels) == 72, f"expected 72 kernel instantiations (flash: 3 kernels x (4 f32 "
-                              f"+ 8 bf16/f16 head dims), the wide-head route 3 kernels x 3 "
-                              f"dtypes; LSTM: 3 dtypes x (2 cluster kernels x 2 row counts "
+                              f"+ 8 bf16/f16 head dims), the wide-head route's FMA forward and "
+                              f"dk/dv (f32) and dq (3 dtypes) and its wgmma forward and dk/dv "
+                              f"(bf16, f16); LSTM: 3 dtypes x (2 cluster kernels x 2 row counts "
                               f"+ 2 wide kernels + 2 step kernels + the dWh product)) in the "
                               f"ptxas reports, parsed {len(kernels)}")
     lstm_spills = [k for k in kernels if k["kernel"].startswith(("fused_lstm", "dwh_"))
@@ -1217,19 +1266,23 @@ def kernel_phase() -> dict:
 
 
 def wide_head_checks() -> dict:
-    """The wide-head route (head dims past 256, csrc/flash_wide.cu) through
-    the same wrappers: forward and backward cases against the plain
-    versions (D = 320 and 512 in bf16 and f32, causal and with a key mask;
-    f16 at D = 300, zero-padded to 320; bf16 D = 1024 with rows that see no
-    key), then each kernel timed at WIDE_FLASH_SHAPE beside its bound, the
-    plain versions and SDPA."""
+    """The wide-head route (head dims past 256, csrc/flash_wide.cu: the
+    16-bit forward and dk/dv on wgmma, the rest on FMAs) through the same
+    wrappers: forward and backward cases against the plain versions (D =
+    320 and 512 in bf16 and f32, causal and with a key mask; f16 at D = 300,
+    zero-padded to 320, and 512; bf16 D = 576 (three column groups) and
+    1024 with rows that see no key; WIDE_FLAGSHIP), then each kernel timed
+    at WIDE_FLAGSHIP, WIDE_FLASH_SHAPE and WIDEST_FLASH_SHAPE beside its
+    bound, the plain versions and SDPA."""
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     specs = ((320, bf16, True, None), (320, bf16, False, "varlen"), (320, f32, True, "varlen"),
              (320, f32, False, None), (512, bf16, True, "varlen"), (512, bf16, False, None),
              (512, f32, True, None), (512, f32, False, "varlen"), (300, f16, True, None),
-             (1024, bf16, True, "leading"))
+             (1024, bf16, True, "leading"), (576, bf16, True, "varlen"),
+             (512, f16, False, "leading"))
     cases = [dict(B=2, T=300, H=3, D=D, dtype=dt, causal=c, kmask=m, seed=200 + i)
              for i, (D, dt, c, m) in enumerate(specs)]
+    cases += [dict(WIDE_FLAGSHIP, dtype=bf16, causal=True, kmask=None, seed=250)]
     cases += [dict(B=1, T=65, H=1, D=320, dtype=bf16, causal=True, kmask=None, seed=220,
                    same_as_contiguous=True)]
     # past D = 2880: the outputs' columns in groups, the scores recomputed
@@ -1244,7 +1297,8 @@ def wide_head_checks() -> dict:
     bad = [r for r in bwd if not r["ok"]]
     check(not bad, f"the wide-head backward disagrees with its plain version: {bad}")
     timing = []
-    shapes = [(WIDE_FLASH_SHAPE, D, dt) for D in (320, 512) for dt in (bf16, f32)]
+    shapes = [(dict(B=16, T=2048, H=4), 512, bf16)]
+    shapes += [(WIDE_FLASH_SHAPE, D, dt) for D in (320, 512) for dt in (bf16, f32)]
     shapes += [(WIDEST_FLASH_SHAPE, 3072, bf16), (WIDEST_FLASH_SHAPE, 3072, f32),
                (WIDEST_FLASH_SHAPE, 4096, bf16)]
     for shape, D, dt in shapes:
@@ -1261,8 +1315,9 @@ def wide_head_checks() -> dict:
         es = 2 if dt == bf16 else 4
         peak = PEAK_BF16_FLOPS if dt == bf16 else PEAK_F32_FLOPS
         row = {"shape": [B, T, H, D], "dtype": str(dt).split(".")[-1], "causal": True,
-               "column_groups": [fa._wide_kernel_lib().flash_wide_groups(w, D)
-                                 for w in range(3)],
+               "column_groups": [len(fa.wide_plan(kern, D, dt).groups)
+                                 for kern in fa.WIDE_KERNELS],
+               "routes": [fa.wide_plan(kern, D, dt).route for kern in fa.WIDE_KERNELS],
                "fwd_ms": time_cuda(lambda: fa.flash_fwd_cuda(q, k, v, causal=True), 10),
                "dq_ms": time_cuda(lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta,
                                                                None, True), 5),
@@ -1283,9 +1338,11 @@ def wide_head_checks() -> dict:
         for name in ("dq", "dkv"):
             row[f"{name}_bound_ms"], row[f"{name}_bound_by"] = bwd_bound(
                 B, T, H, D, True, es, name, peak=peak)[:2]
+        row["fwd_flops"] = attention_bound(B, T, H, D, True, es, peak)[2]
+        row["achieved_fwd_tflops"] = row["fwd_flops"] / row["fwd_ms"] / 1e9
         timing.append(row)
         del q, k, v, out, lse, do, delta, qt, kt, vt, qg, kg, vg, o, dot
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return {"cases": fwd, "bwd_cases": bwd, "timing": timing,
             "peak_flops": {"bfloat16": PEAK_BF16_FLOPS, "float32": PEAK_F32_FLOPS}}
 
@@ -4384,13 +4441,20 @@ def _step_vs_cpu(name, fn, params, args, lr, **kw) -> dict:
 
 
 def _kernel_launches() -> dict:
-    return {**_all_launches(), **{f"chunk_{k}": v for k, v in fa.CHUNK_LAUNCHES.items()}}
+    return {**_all_launches(), **{f"chunk_{k}": v for k, v in fa.CHUNK_LAUNCHES.items()},
+            **dict(fa.WIDE_LAUNCHES)}
+
+
+def _zero_wide_counts():
+    for name in fa.WIDE_LAUNCHES:
+        fa.WIDE_LAUNCHES[name] = 0
 
 
 def _zero_all_kernel_counts():
     _zero_flash_counts()
     _zero_lstm_counts()
     _zero_chunk_counts()
+    _zero_wide_counts()
 
 
 def _check_no_kernel(launches: dict, phase: str):
@@ -7598,6 +7662,128 @@ def analysis_phase() -> dict:
     return res
 
 
+def wide_lm_phase() -> dict:
+    """Phase 40: the flagship TransformerLM with 4 heads (WIDE_LM_CONF: D =
+    512, so every attention runs the wide-head route) served and trained.
+    Counts go to 0 just before each path and are read just after: the model
+    registered with ServeConfig(max_batch=16) (its warm dispatches), one 1 x
+    128 request and one 16 x 2048 dispatch (8 launches of the wide forward
+    each, none of kernel #1 or of a backward kernel); then a warm Adam step
+    and 3 timed ones at 16 x 2048 (CUDA events; 8 launches of the wide
+    forward, dq and dk/dv a step), a falling loss, one more step split into
+    forward / backward / update, and the peak memory."""
+    t0 = time.perf_counter()
+    conf = zoo.TransformerLM(updater={"type": "adam", "lr": TRAIN_LR}, **WIDE_LM_CONF)
+    V, T = WIDE_LM_CONF["vocab_size"], WIDE_LM_CONF["max_len"]
+    L, C, H = WIDE_LM_CONF["n_blocks"], WIDE_LM_CONF["d_model"], WIDE_LM_CONF["n_heads"]
+    rng = np.random.RandomState(40)
+    ids1 = rng.randint(0, V, (1, 128)).astype(np.int64)
+    ids16 = rng.randint(0, V, (16, T)).astype(np.int64)
+    torch.cuda.reset_peak_memory_stats()
+
+    def counts():
+        return {**_launch_counts(), **dict(fa.WIDE_LAUNCHES)}
+
+    def since(before):
+        return {k: v - before[k] for k, v in counts().items()}
+
+    # the serving path: every launch below is counted
+    _zero_flash_counts()
+    _zero_wide_counts()
+    model = MultiLayerNetwork(conf).init()
+    registry = ModelRegistry(config=ServeConfig(
+        max_batch=16, queue_limit=64, max_wait_s=0.1, default_deadline_s=600.0))
+    registry.register("wide_lm", model)
+    warm = counts()
+    worker = registry.worker("wide_lm")
+    try:
+        runs = {}
+        for label, ids in (("1x128", ids1), ("16x2048", ids16)):
+            before, b0 = counts(), worker.stats()["batches"]
+            n_spans = len(obs.recent_spans())
+            out = worker.submit(ids, deadline_s=600.0)
+            dispatches = [sp for sp in obs.recent_spans()[n_spans:]
+                          if sp["span"] == "serve.dispatch"]
+            runs[label] = {"dispatches": worker.stats()["batches"] - b0,
+                           "dispatch_s": [sp["wall_s"] for sp in dispatches],
+                           "launches": since(before),
+                           "max_row_sum_dev": check_rows(torch.from_numpy(out), ids.shape + (V,),
+                                                         f"wide_lm {label}")}
+            del out
+    finally:
+        registry.shutdown()
+    torch.cuda.synchronize()
+    serve_launches = counts()
+    for label, r in runs.items():
+        n = r["dispatches"]
+        check(r["launches"]["flash_wide_fwd"] == 8 * n == r["launches"]["flash_fwd"],
+              f"wide_lm {label}: {r['launches']} over {n} dispatches, not 8 wide forward "
+              f"launches each")
+    check(serve_launches["flash_wide_fwd"] == serve_launches["flash_fwd"] > 0
+          and serve_launches["flash_bwd_dq"] == serve_launches["flash_bwd_dkv"] == 0,
+          f"wide_lm serving launched another route or a backward kernel: {serve_launches}")
+    # the 16-row dispatch's forward by CUDA events, outside the counted run
+    forward_ms = time_cuda(lambda: model.output(ids16), iters=3, warmup=1)
+
+    # the training path: a warm step, then 3 timed, every launch counted
+    xt = torch.as_tensor(ids16, device="cuda")
+    yt = torch.as_tensor(np.roll(ids16, -1, axis=1), device="cuda")
+    _zero_flash_counts()
+    _zero_wide_counts()
+    losses = [model._fit_batch(xt, yt, None, None)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    ev[0].record()
+    for _ in range(3):
+        losses.append(model._fit_batch(xt, yt, None, None))
+    ev[1].record()
+    torch.cuda.synchronize()
+    train_launches = counts()
+    step_ms = ev[0].elapsed_time(ev[1]) / 3
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"wide_lm: the loss did not fall over 3 steps: {losses}")
+    for name in ("flash_wide_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv"):
+        check(train_launches[name] == 8 * 4,
+              f"wide_lm: {name} launched {train_launches[name]} times in 4 steps, not 8 a step")
+    check(train_launches["flash_fwd"] == train_launches["flash_wide_fwd"]
+          and train_launches["flash_bwd_dkv"] == train_launches["flash_wide_bwd_dkv"],
+          f"wide_lm: a training launch took another route: {train_launches}")
+    peak = torch.cuda.max_memory_allocated()
+    leaves = tree_leaves(model.params)
+    live = [t.detach().requires_grad_(True) for t in leaves]
+    ev[2].record()
+    loss, _ = model._loss(tree_unflatten_like(model.params, live), model.state, xt, yt,
+                          None, None, model._gen)
+    ev[3].record()
+    grads = torch.autograd.grad(loss, live)
+    ev[4].record()
+    model._update_params(tree_unflatten_like(model.params, list(grads)))
+    ev[5].record()
+    torch.cuda.synchronize()
+    n_params = model.num_params()
+    check(n_params == 415_455_232, f"wide_lm has {n_params} params, not the flagship's")
+    del model, grads, live, leaves, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"phase": "wide_lm",
+            "model": {"vocab": V, "T": T, "d_model": C, "heads": H, "head_dim": C // H,
+                      "blocks": L, "dtype": "bfloat16", "params": n_params},
+            "routes": {kern: fa.wide_plan(kern, C // H, torch.bfloat16).route
+                       for kern in fa.WIDE_KERNELS},
+            "serve": {"config": {"max_batch": 16}, "warm_launches": warm, "runs": runs,
+                      "launches": serve_launches, "forward_16x2048_ms": forward_ms},
+            "train": {"rows": 16, "steps_timed": 3, "loss": losses, "launches": train_launches,
+                      "step_ms": step_ms,
+                      "split_ms": {"forward": ev[2].elapsed_time(ev[3]),
+                                   "backward": ev[3].elapsed_time(ev[4]),
+                                   "update": ev[4].elapsed_time(ev[5])},
+                      "tokens_per_s": 16 * T / (step_ms / 1e3),
+                      "max_memory_allocated_bytes": peak},
+            "seconds": time.perf_counter() - t0}
+
+
 def _kernel_row(name, source, replaces, launches, by_path, max_abs_err, ms, plain_ms,
                 bound_ms, bound_by, library_ms, **extra):
     return dict({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -7786,6 +7972,11 @@ def main() -> int:
     # phase 39 counts its launches step by step
     an = analysis_phase()
     emit(an)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 40: the wide-head kernels on a model's path
+    wlm = wide_lm_phase()
+    emit(wlm)
     imp_by = imp["launches_by_path"]
     par_flash = {f"tp_train_rank{r}": rk["launches"]
                  for r, rk in enumerate(par["tp_train"]["ranks_detail"])}
@@ -7853,6 +8044,45 @@ def main() -> int:
             wide_head=[{k: r[k] for k in ("shape", "dtype", "column_groups", f"{key}_ms",
                                           f"{key}_bound_ms", "library_bwd_ms")}
                        for r in kern["wide_head"]["timing"]]))
+    # the wide-head kernels on phase 40's path (the 16-bit forward and dk/dv
+    # on wgmma, dq on FMAs in every dtype): launches from phase 40, timed at
+    # WIDE_FLAGSHIP (the first timing row)
+    wh = kern["wide_head"]
+    wt = wh["timing"][0]
+    check(wt["shape"] == [WIDE_FLAGSHIP[k] for k in ("B", "T", "H", "D")], wt["shape"])
+    wf = [c for c in wh["cases"] if [c["B"], c["T"], c["H"], c["D"]] == wt["shape"]][0]
+    wb = [c for c in wh["bwd_cases"] if [c["B"], c["T"], c["H"], c["D"]] == wt["shape"]][0]
+    w16 = [c for c in wh["cases"] if c["dtype"] != "float32"]
+    w16b = [c for c in wh["bwd_cases"] if c["dtype"] != "float32"]
+    for name, key, line, launch_key, errs, kernels in (
+            ("flash_wide_fwd_wgmma", "fwd", 57, "flash_wide_fwd", None,
+             "flash_wide_fwd_wgmma_kernel (bf16, f16; head dims past 256)"),
+            ("flash_wide_dq", "dq", 224, "flash_wide_bwd_dq", ("dq",),
+             "flash_wide_dq_kernel (FMA, every dtype; head dims past 256)"),
+            ("flash_wide_dkv_wgmma", "dkv", 275, "flash_wide_bwd_dkv", ("dk", "dv"),
+             "flash_wide_dkv_wgmma_kernel (bf16, f16; head dims past 256)")):
+        by = {"wide_lm_serve": wlm["serve"]["launches"][launch_key],
+              "wide_lm_train": wlm["train"]["launches"][launch_key]}
+        if errs is None:
+            err = wf["max_abs_err"]
+            max_err = max(c["max_abs_err"] for c in w16)
+            plain, library = wt["plain_fwd_ms"], wt["library_fwd_ms"]
+        else:
+            # dq runs the FMA kernel in every dtype: its error over every case
+            cases = wh["bwd_cases"] if key == "dq" else w16b
+            err = max(wb[f"{e}_max_abs_err"] for e in errs)
+            max_err = max(c[f"{e}_max_abs_err"] for c in cases for e in errs)
+            plain, library = wt["plain_bwd_ms"], wt["library_bwd_ms"]
+        rows.append(_kernel_row(
+            name, "deeplearning4j_tpu_torch/csrc/flash_wide.cu",
+            f"deeplearning4j_tpu/ops/flash_attention.py:{line}",
+            sum(by.values()), by, err, wt[f"{key}_ms"], plain, wt[f"{key}_bound_ms"],
+            wt[f"{key}_bound_by"], library, max_err=max_err,
+            shape="B16 T2048 H4 D512 bf16, causal (the flagship's products at 4 heads)",
+            kernels=kernels,
+            plain_and_library_compute=("out" if errs is None else "dq, dk and dv together"),
+            wide_head=[{k: r[k] for k in ("shape", "dtype", "routes", f"{key}_ms",
+                                          f"{key}_bound_ms")} for r in wh["timing"]]))
     ct, ccases = chunk["timing"], chunk["cases"]
     chunk_by = {name: dict({f"ring_attention_{run}": r["chunk_launches"][name]
                             for run, r in rattn["runs"].items()},

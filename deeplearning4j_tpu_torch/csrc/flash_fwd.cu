@@ -395,9 +395,6 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
 // bf16 and f16: wgmma kernel fed by TMA through an mbarrier ring
 // ===========================================================================
 
-// (batch, head) pairs whose blocks are numbered together: their K and V (1
-// MB a pair at T=2048, D=128 bf16) stay in L2 while their blocks run
-constexpr int HEAD_GROUP = 8;
 constexpr float NEG_BIG2 = NEG_BIG * LOG2E;     // NEG_BIG in the log2 units of the softmax
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -427,35 +424,6 @@ struct FwdLayout {
   static_assert(STAGES * sizeof(int) <= 16, "slot flags overrun the barriers");
   static_assert(bytes <= 232448, "over the 227 KB a block may use");
 };
-
-// 2^x on the MUFU.EX2 unit alone (ex2.approx.ftz: ~2 ulp, results below
-// 2^-126 flush to 0); exp2f wraps it in range handling for subnormal
-// results, three more instructions an element of the softmax.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// A 4x4 transpose of 32-bit words inside a quad of lanes, by shuffles: lane
-// q holds in[r] = M[q][r] and gets back M[0..3][q]. In round i, lane s sends
-// in[(s - i) & 3] and lane q takes it from lane (q + i) & 3.
-__device__ __forceinline__ uint4 quad_transpose(const uint32_t (&in)[4], int lane) {
-  const int q = lane & 3;
-  uint32_t out[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int send = (q - i) & 3;
-    uint32_t v = in[0];
-#pragma unroll
-    for (int r = 1; r < 4; ++r) v = send == r ? in[r] : v;
-    const int src = (q + i) & 3;
-    const uint32_t got = __shfl_sync(0xffffffffu, v, src, 4);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) out[r] = src == r ? got : out[r];
-  }
-  return make_uint4(out[0], out[1], out[2], out[3]);
-}
 
 // Rows row0 and row0 + 8 of a [64, D] f32 accumulator times inv_l[j] in
 // the operand type T into a contiguous [B, T, H, D] tensor, rows at or past T skipped.
@@ -491,19 +459,6 @@ __device__ __forceinline__ void store_out(T* out,
         }
       }
   }
-}
-
-// The (batch*head, 128-row query block) of block i: groups of HEAD_GROUP
-// (batch, head) pairs one after the other, inside a group the query block
-// outermost (under a causal mask the last, longest, first).
-__device__ __forceinline__ void block_coords(int i, int BH, int n_qb, int causal, int& bh,
-                                             int& qb) {
-  const int group = i / (HEAD_GROUP * n_qb);
-  const int bh0 = group * HEAD_GROUP;
-  const int size = min(HEAD_GROUP, BH - bh0);   // the last group may be short
-  const int r = i - bh0 * n_qb;
-  bh = bh0 + r % size;
-  qb = causal ? n_qb - 1 - r / size : r / size;
 }
 
 // One block per (batch*head, 128 query rows)

@@ -8,32 +8,99 @@
 // `_bwd_dkv_kernel` (:385). The TPU kernels take any head dim; kernels
 // #1-#3 of this port hold D <= 256 in registers (wgmma) or in one shared
 // tile (f32), so a wider head needs another layout, not a larger constant.
+// One instantiation per operand type takes every D that is a multiple of
+// 64 (the wrapper zero-pads the rest, which adds exact zeros to every
+// product). The launch plan (rows a block, column groups, ring slots,
+// what stays resident, shared-memory bytes) is computed in Python
+// (ops/flash_attention.py `wide_plan`) and passed to each launch, which
+// checks it; flash_wide_smem_bytes and flash_wide_groups report the
+// shared memory and column groups the launch takes under a plan, from the
+// layouts the kernels use, and chip_smoke.py holds them to wide_plan's.
 //
-// Design: D is a run-time loop over chunks of DC = 64 columns, so one
-// instantiation per operand type (float32, bfloat16, float16) takes every
-// D that is a multiple of 64 (the wrapper zero-pads the rest, which adds
-// exact zeros to every product). The only array that grows with D is the
-// block's f32 accumulator in shared memory: the forward's O and dq's dQ
-// [16 rows][G], dk/dv's dK and dV [8 rows][G], for a column group of G
-// output columns. Where the whole of D fits one block (D up to 2880 for
-// dq's layout, 2944 for dk/dv's, 3200 for the forward's), G = D and the
-// grid has one group; past that the grid's z axis runs ceil(D / Gmax)
-// groups of G = D / groups columns (rounded up to 64; Gmax the widest
-// multiple of 64 that fits), and each block sums the scores (and dq's and
-// dk/dv's dp = do . v^T) over ALL of D again before accumulating its own
-// columns: recomputation, in the same order in every group, so every group
-// sees the same p bit for bit. The forward's lse is written by group 0
-// only. At D = 2048 the largest layout (dq) takes 177,216 bytes of the
-// 232,448 a block may use (flash_wide_smem_bytes reports each, grouped).
-// Everything else streams through shared memory in [rows][64] f32 chunks
-// read with plain scalar loads through the [B, T, H, D] strides, so no
-// alignment is asked of the rows.
+// bf16 and f16, forward and dk/dv: wgmma kernels fed by TMA (the design of
+// kernels #1 and #3 carried past 256 columns; sm90_common.cuh holds the
+// shared pieces). Each block is three warpgroups: two consumers and a
+// producer whose one thread keeps a ring of 8 KB slots full, one slot a
+// 64-row x 64-column box of a [B, T, H, D] view through a 4-D tensor map,
+// in the 128-byte swizzle wgmma reads (rows past T arrive as zeros). A
+// slot is filled again once both consumer warpgroups have released it.
+// A consumer finds a step's box addresses first (ring positions kept by
+// increments, Pos: a division by the run-time slot count costs a few
+// dozen instructions an address) and then issues the step's products
+// straight-line: a branch between two wgmmas splits a batch in the SASS
+// (WARPGROUP.ARRIVE ... gsb0 around every chunk), and at D = 512 that alone
+// took the forward from 0.97 to 1.72 ms. A branch around code that reads
+// the scores while the previous step's batch is in flight made ptxas
+// serialize every wgmma (C7514), so the mask is applied without one.
+// - forward (flash_wide_fwd_wgmma_kernel): kernel #1's shape. A block owns
+//   128 query rows of one (batch, head), 64 a consumer warpgroup, and one
+//   column group of up to 256 output columns, which each warpgroup sums
+//   for its own rows (4 boxes, 128 f32 registers a thread). Both read the
+//   same K and V boxes. S = Q.K^T (m64n64k16, both operands K-major in
+//   shared memory) is summed over all of D, FWD_CHUNKS 64-column chunks a
+//   step with one step's batch in flight behind the next; the online
+//   softmax runs on that fragment in registers (kernel #1's: the -1e30
+//   masking of the causal rule, of keys past Tk and of the key mask,
+//   scale * log2(e) folded into the exponent, p rounded to the operand
+//   type as the register A operand of P.V); O += P.V over the group's V
+//   boxes (MN-major) is one batch. Q stays resident (loaded once) up to
+//   D = 512, else it streams beside K: at B16 T2048 H4 D512 resident
+//   0.97 ms, streamed 1.25. Past 256 columns the grid runs ceil(D / 256)
+//   column groups side by side, each recomputing the scores in the same
+//   order, so every group sees the same p bit for bit: at D = 512 the
+//   scores twice and P.V once, 1.5x the forward's two products. A
+//   warpgroup skips (and releases) the key tiles wholly above its rows;
+//   the block loads none wholly above its last row. (A first design gave
+//   a block 64 rows and both warpgroups the same scores, each summing half
+//   of 512 columns: 1.75 ms, bound by its duplicated products.)
+// - dk/dv (flash_wide_dkv_wgmma_kernel): a block owns 64 key rows and one
+//   column group of up to 256 columns of dk and dv. Per 64-query tile each
+//   consumer warpgroup computes S^T = K.Q^T and dP^T = V.dO^T over all of D
+//   for its 32 queries (m64n32k16, DKV_CHUNKS chunks a step), builds p^T
+//   (exactly 0 where the pair is masked) and ds^T = p^T (dp^T - delta)
+//   rounded to the operand type as A fragments, and the two warpgroups
+//   swap those fragments through 16 KB of shared memory (two named
+//   barriers a tile); each then sums dV += P^T.dO and dK += dS^T.Q over
+//   the tile's 64 queries for its own up to 128 columns (2 x 2 boxes, 128
+//   f32 registers a thread) as one batch, with dO and Q MN-major from the
+//   ring. K and V stay resident up to D = 512 (3.53 ms against 4.05
+//   streamed), else they stream beside Q and dO. Past 256 columns the
+//   grid runs ceil(D / 256) groups that each recompute S^T and dP^T: at
+//   D = 512, 2 x (S + dP) + dV + dK, 1.5x the four products. Query tiles
+//   wholly before the shifted diagonal are not loaded. It streams 192 KB
+//   of boxes from L2 a (64 keys, 64 queries, group) at D = 512: Q and dO
+//   over all of D for the scores, then the group's columns of both again;
+//   ~13 GB at B16 T2048 H4. That stream does not bound it: built with the
+//   producer skipping the score steps' boxes it takes 3.27-3.34 ms against
+//   3.49-3.51 on an H100 (tools/wide_flash_bench.py --variants); the
+//   consumers' work does. Keeping the group's boxes from the score steps
+//   needs 4 more slots than fit beside resident K and V.
+// Blocks are numbered head group by head group (HEAD_GROUP (batch, head)
+// pairs a group) with the column groups of one row block side by side, so
+// that blocks in flight share their K/V (Q/dO) in L2. Fixed order, no
+// atomics: a run repeats bit for bit. setmaxnreg gives a consumer thread
+// 232 registers and the producer's 40.
+//
+// float32 forward and dk/dv, and dq in every dtype: plain f32 FMAs from
+// shared memory in a fixed order (no TF32: f32 keeps f32 accuracy), the
+// first design of this route. D is a run-time loop over chunks of DC = 64
+// columns; the only array that grows with D is the block's f32 accumulator
+// in shared memory: the forward's O and dq's dQ [16 rows][G], dk/dv's dK
+// and dV [8 rows][G], for a column group of G output columns. Where the
+// whole of D fits one block (D up to 2880 for dq's layout, 2944 for
+// dk/dv's, 3200 for the forward's), G = D and the grid has one group; past
+// that the grid's z axis runs ceil(D / Gmax) groups of G = D / groups
+// columns (rounded up to 64; Gmax the widest multiple of 64 that fits), and
+// each block sums the scores (and dq's and dk/dv's dp = do . v^T) over ALL
+// of D again before accumulating its own columns, in the same order in
+// every group. The forward's lse is written by group 0 only. Everything
+// else streams through shared memory in [rows][64] f32 chunks read with
+// plain scalar loads through the [B, T, H, D] strides.
 // - forward: a block owns 16 query rows of one (batch, head) and walks
 //   64-key tiles (tiles strictly above the causal diagonal skipped). Scores
 //   are summed over the D chunks in registers (a thread: one key, 8 rows),
 //   masked to -1e30 (causal, keys past T, the key mask) as the TPU kernel
-//   does, then one warp's online softmax per row; p is rounded to the
-//   operand type before p . v, as kernel #1 does; O is rescaled and summed
+//   does, then one warp's online softmax per row; O is rescaled and summed
 //   chunk by chunk (a thread: one column, 8 rows). out = O / l in the
 //   operand type, lse = m + log l in f32.
 // - dq: a block owns 16 query rows; per 64-key tile the scores and
@@ -41,34 +108,28 @@
 //   where the pair is valid and exactly 0 elsewhere, ds = p (dp - delta)
 //   rounded to the operand type, then dQ += ds . k chunk by chunk.
 // - dk/dv: a block owns 8 key rows and walks 64-query tiles (those strictly
-//   below the causal diagonal skipped): p^T and ds^T as above, rounded to
-//   the operand type, then dV += p^T . do and dK += ds^T . q chunk by chunk.
-// Every product is plain f32 FMAs (no TF32) in a fixed order and no
-// atomics are used, so a run repeats bit for bit.
+//   below the causal diagonal skipped): p^T and ds^T as above, then
+//   dV += p^T . do and dK += ds^T . q chunk by chunk.
 // Queries and keys may differ in length (Tq, Tk) and sit at absolute
 // offsets, as in flash_fwd.cu and flash_bwd.cu: the causal rule is
 // k_off + k <= q_off + q, a key k allowed for a query q when k <= q + shift
 // (shift = q_off - k_off), and the skipped tiles are those wholly above the
 // shifted diagonal.
 //
-// Bound (B=2, T=512, H=4, D=512, bf16, causal, one of the smoke's cases):
-// the forward's two products are 2 * 2 * B*H*T*T*D / 2 = 2.1 GFLOP, 2.2 us
-// at 989 TFLOP/s, against 16.8 MB of q, k, v and out, 5.0 us at 3.35 TB/s:
-// bound by bytes. The kernel runs its FMAs on the f32 units (67 TFLOP/s)
-// and reads each K/V tile once per 16 query rows: a simple, correct route,
-// whose speed is a later PR's work.
+// Bound (B=16, T=2048, H=4, D=512, bf16, causal: the products of kernel
+// #1's flagship shape): the forward's two products are 2 * 2 * B*H*pairs*D
+// = 275 GFLOP, 0.278 ms at 989 TFLOP/s, against 0.54 GB of q, k, v and
+// out, 0.16 ms at 3.35 TB/s; dk/dv's four products 0.556 ms: both bound by
+// operations. The wgmma kernels' own costs on top: the recomputed products
+// above (1.5x at D = 512), and each K/V (Q/dO) box read from L2 once per
+// block of own rows.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
+#include "sm90_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-using f16 = __half;
-
 constexpr float NEG_BIG = -1e30f;      // the TPU kernel's masked-score value
-constexpr int THREADS = 128;           // four warps
+constexpr int THREADS = 128;           // FMA kernels: four warps
 constexpr int DC = 64;                 // head-dim columns of a chunk
 constexpr int LDC = DC + 1;            // chunk row pitch (floats): rows one bank apart
 constexpr int QR = 16;                 // forward, dq: query rows a block owns
@@ -78,7 +139,7 @@ constexpr int QT = 64;                 // dk/dv: queries of a tile
 constexpr int RPT = 8;                 // forward, dq: rows a thread sums (QR / 2)
 constexpr int KPT = 4;                 // dk/dv: key rows a thread sums (KR / 2)
 constexpr size_t SMEM_LIMIT = 232448;  // the opt-in shared memory of one block
-constexpr int ERR_UNSUPPORTED = -1;
+constexpr int ERR_PLAN = -4;           // a launch plan the kernel cannot run
 
 static_assert(THREADS == 2 * KT && THREADS == 2 * DC && THREADS == 2 * QT,
               "a thread owns one key (or query, or column) of half the rows");
@@ -117,7 +178,7 @@ struct Params {
   float scale;
 };
 
-// The shared-memory floats of each kernel's layout for a group of G columns.
+// The shared-memory floats of each FMA kernel's layout for a group of G columns.
 __host__ __device__ constexpr size_t fwd_floats(int G) {
   return size_t(QR) * G + size_t(QR) * LDC + size_t(KT) * LDC + size_t(QR) * (KT + 1) + KT +
          3 * QR;
@@ -169,8 +230,10 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // ===========================================================================
-// forward
+// FMA kernels: the forward and dk/dv in float32, dq in every dtype
 // ===========================================================================
+
+// forward (float32)
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS) flash_wide_fwd_kernel(const Params p) {
@@ -278,9 +341,7 @@ __global__ void __launch_bounds__(THREADS) flash_wide_fwd_kernel(const Params p)
     p.lse_out[(long long)bh * Tq + q0 + tid] = m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
 }
 
-// ===========================================================================
-// backward: dq
-// ===========================================================================
+// dq (every dtype)
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS) flash_wide_dq_kernel(const Params p) {
@@ -375,9 +436,7 @@ __global__ void __launch_bounds__(THREADS) flash_wide_dq_kernel(const Params p) 
   }
 }
 
-// ===========================================================================
-// backward: dk, dv
-// ===========================================================================
+// dk/dv (float32)
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS) flash_wide_dkv_kernel(const Params p) {
@@ -493,11 +552,732 @@ __global__ void __launch_bounds__(THREADS) flash_wide_dkv_kernel(const Params p)
   }
 }
 
+// ===========================================================================
+// bf16 and f16, forward and dk/dv: wgmma kernels fed by TMA
+// ===========================================================================
+
+constexpr int BOX = 64;                         // rows and head-dim columns of a TMA box
+constexpr int BOX_BYTES = BOX * BOX * 2;        // 8 KB: one 128-byte-swizzled 64 x 64 tile
+constexpr int FWD_WG_BOXES = 4;                 // output boxes a forward warpgroup sums (256 columns)
+constexpr int DKV_WG_BOXES = 2;                 // dk and dv boxes a dk/dv warpgroup sums (128 columns)
+constexpr int FWD_CHUNKS = 4;                   // 64-column chunks of D a forward score step sums
+constexpr int DKV_CHUNKS = 2;                   // and a dk/dv score step
+constexpr int MAX_SLOTS = 32;
+constexpr int XCH_BYTES = CONSUMERS * WG * 16 * 4;   // dk/dv: 16 fragment words a consumer thread
+constexpr float NEG_BIG2 = NEG_BIG * LOG2E;     // NEG_BIG in the log2 units of the softmax
+constexpr float LN2 = 0.6931471805599453f;
+
+struct Wide90 {
+  CUtensorMap q, k, v, o;   // q, do [B, Tq, H, D]; k, v [B, Tk, H, D]; boxes of 64 x 64
+  const float* kmask;       // [B, Tk] or nullptr
+  const float* lse;         // dk/dv: [B, H, Tq]
+  const float* delta;       // dk/dv: [B, H, Tq]
+  float* lse_out;           // forward: [B, H, Tq]
+  void* g0;                 // forward: out; dk/dv: dk ([B, T, H, D] contiguous)
+  void* g1;                 // dk/dv: dv
+  int B, Tq, Tk, H, D, causal;
+  int shift;                // q_off - k_off: key k is allowed for query q iff k <= q + shift
+  int G;                    // columns of a column group (a multiple of 64)
+  int slots;                // 8 KB slots of the ring
+  int resident;             // forward: Q resident; dk/dv: K and V resident
+  float scale;
+};
+
+// Shared-memory layout of a plan: the resident boxes, dk/dv's fragment
+// exchange, the ring, the barriers (own_full, full[slots], empty[slots]),
+// and 1024 bytes to align the 128-byte swizzle.
+struct WideLayout {
+  size_t res, xch, ring, bars, bytes;
+};
+
+__host__ __device__ inline WideLayout wide_layout(int which, int D, int slots, int resident) {
+  WideLayout L;
+  const size_t nb = size_t(D / BOX);
+  L.res = 0;   // forward: Q's boxes (both row halves); dk/dv: K's, then V's
+  L.xch = resident ? 2 * nb * BOX_BYTES : 0;
+  L.ring = L.xch + (which == 2 ? XCH_BYTES : 0);
+  L.bars = L.ring + size_t(slots) * BOX_BYTES;
+  L.bytes = L.bars + size_t(1 + 2 * slots) * 8 + 1024;
+  return L;
+}
+
+__device__ __forceinline__ void consumers_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(CONSUMERS * WG) : "memory");
+}
+
+// A place in the ring: item n's slot (n % slots) and the parity of that
+// slot's use ((n / slots) % 2), kept by increments: a division by the run-
+// time slot count in every address costs a few dozen instructions.
+struct Pos {
+  int slot;
+  uint32_t phase;
+};
+
+// The ring as producer and consumers walk it, item by item.
+struct Ring {
+  uint32_t base;   // the first slot's shared address
+  uint64_t* full;
+  uint64_t* empty;
+  int slots;
+  // the place e items on (e <= slots)
+  __device__ __forceinline__ Pos plus(Pos p, int e) const {
+    p.slot += e;
+    if (p.slot >= slots) {
+      p.slot -= slots;
+      p.phase ^= 1u;
+    }
+    return p;
+  }
+  __device__ __forceinline__ uint32_t at(Pos p, int e) const {
+    return base + plus(p, e).slot * BOX_BYTES;
+  }
+  // producer: load one box into item p's slot once both consumer warpgroups
+  // have released its last use, and step on
+  __device__ __forceinline__ void put(Pos& p, const CUtensorMap* map, int col, int h, int row,
+                                      int b) const {
+    bar_wait(&empty[p.slot], p.phase ^ 1u);
+    bar_arrive_tx(&full[p.slot], BOX_BYTES);
+    tma_box(base + p.slot * BOX_BYTES, map, &full[p.slot], col, h, row, b);
+    p = plus(p, 1);
+  }
+  __device__ __forceinline__ void wait(Pos p, int count) const {
+    for (int e = 0; e < count; ++e) {
+      bar_wait(&full[p.slot], p.phase);
+      p = plus(p, 1);
+    }
+  }
+  // consumer warp: the count items from p are read (one arrival a warp)
+  __device__ __forceinline__ void release(Pos p, int count, int lane) const {
+    __syncwarp();
+    if (lane == 0)
+      for (int e = 0; e < count; ++e) {
+        bar_arrive(&empty[p.slot]);
+        p = plus(p, 1);
+      }
+  }
+};
+
+// One forward score step: NC chunks of D from item `pos` (a chunk: the Q
+// boxes of both row halves unless Q is resident, then K), the box
+// addresses found first and the products issued straight-line, so that
+// they stay one wgmma batch (a branch between them splits it).
+template <typename T, int NC>
+__device__ __forceinline__ void fwd_score_step(float (&sc)[32], const Ring& ring, Pos pos,
+                                               int per_chunk, int resident, uint32_t res_q,
+                                               int c0, int wg) {
+  uint32_t qa[NC], kb[NC];
+#pragma unroll
+  for (int cc = 0; cc < NC; ++cc) {
+    qa[cc] = resident ? res_q + (2 * (c0 + cc) + wg) * BOX_BYTES
+                      : ring.at(pos, cc * per_chunk + wg);
+    kb[cc] = ring.at(pos, cc * per_chunk + per_chunk - 1);
+  }
+  ring.wait(pos, NC * per_chunk);
+  wg_fence();
+#pragma unroll
+  for (int cc = 0; cc < NC; ++cc)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<T>(sc, desc_k<64, 64>(qa[cc], 0, kk), desc_k<64, 64>(kb[cc], 0, kk),
+                  c0 + cc > 0 || kk > 0);
+  wg_commit();
+}
+
+// O += P.V over NB boxes of V, straight-line.
+template <typename T, int NB>
+__device__ __forceinline__ void fwd_pv(float (&o)[FWD_WG_BOXES][32], const uint32_t (&a)[4][4],
+                                       const uint32_t (&vb)[FWD_WG_BOXES]) {
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<T>(o[c], a[kk], desc_mn<64, 64>(vb[c], 0, kk));
+}
+
+// dV += P^T.dO and dK += dS^T.Q over NB boxes of dO and Q, straight-line.
+template <typename T, int NB>
+__device__ __forceinline__ void dkv_accumulate(float (&dk)[DKV_WG_BOXES][32],
+                                               float (&dv)[DKV_WG_BOXES][32],
+                                               const uint32_t (&pf)[4][4],
+                                               const uint32_t (&sf)[4][4],
+                                               const uint32_t (&qb)[DKV_WG_BOXES],
+                                               const uint32_t (&ob)[DKV_WG_BOXES]) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<T>(dv[j], pf[kk], desc_mn<64, 64>(ob[j], 0, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<T>(dk[j], sf[kk], desc_mn<64, 64>(qb[j], 0, kk));
+  }
+}
+
+// One dk/dv score step: NC chunks of D from item `pos` (a chunk: K and V
+// unless resident, then Q and dO), S^T and dP^T for the warpgroup's 32
+// queries (rows `half` of the Q and dO boxes) as one wgmma batch.
+template <typename T, int NC>
+__device__ __forceinline__ void dkv_score_step(float (&sc)[16], float (&dp)[16], const Ring& ring,
+                                               Pos pos, int per_chunk, int resident,
+                                               uint32_t res_k, uint32_t res_v, int c0,
+                                               int half) {
+  uint32_t ka[NC], va[NC], qb[NC], ob[NC];
+#pragma unroll
+  for (int cc = 0; cc < NC; ++cc) {
+    const int m = cc * per_chunk;
+    ka[cc] = resident ? res_k + (c0 + cc) * BOX_BYTES : ring.at(pos, m);
+    va[cc] = resident ? res_v + (c0 + cc) * BOX_BYTES : ring.at(pos, m + 1);
+    qb[cc] = ring.at(pos, m + per_chunk - 2);
+    ob[cc] = ring.at(pos, m + per_chunk - 1);
+  }
+  ring.wait(pos, NC * per_chunk);
+  wg_fence();
+#pragma unroll
+  for (int cc = 0; cc < NC; ++cc) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<T>(sc, desc_k<64, 64>(ka[cc], 0, kk), desc_k<64, 64>(qb[cc], half, kk),
+                  c0 + cc > 0 || kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<T>(dp, desc_k<64, 64>(va[cc], 0, kk), desc_k<64, 64>(ob[cc], half, kk),
+                  c0 + cc > 0 || kk > 0);
+  }
+  wg_commit();
+}
+
+// A 4-D map over a 16-bit [B, T, H, D] view (D a multiple of 64, contiguous)
+// with element strides (sb, st, sh): boxes of 64 columns x 64 rows of one
+// (b, h) in the 128-byte swizzle wgmma reads; reads past T fill zeros.
+template <typename E>
+int encode_boxes(CUtensorMap* map, const void* ptr, int B, int T, int H, int D, long long sb,
+                 long long st, long long sh) {
+  EncodeTiledFn enc = encoder();
+  if (enc == nullptr) return ERR_NO_ENCODER;
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(H), cuuint64_t(T), cuuint64_t(B)};
+  long long el[4] = {1, sh, st, sb};
+  for (int i = 1; i < 4; ++i)   // a dim of size 1 is never stepped over
+    if (dims[i] == 1) el[i] = el[i - 1] * (long long)dims[i - 1];
+  const cuuint64_t strides[3] = {cuuint64_t(el[1] * 2), cuuint64_t(el[2] * 2),
+                                 cuuint64_t(el[3] * 2)};
+  const cuuint32_t box[4] = {cuuint32_t(BOX), 1, cuuint32_t(BOX), 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUtensorMapDataType type = std::is_same<E, bf16>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  const CUresult r = enc(map, type, 4, const_cast<void*>(ptr), dims, strides, box, estr,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP;
+}
+
+// The warpgroups' share of a column group of nbg boxes: the first takes
+// ceil(nbg / 2) boxes from the group's first, the second the rest.
+__device__ __forceinline__ void wg_boxes(int wg, int gb, int nbg, int& first, int& count) {
+  const int nb0 = (nbg + 1) / 2;
+  first = wg == 0 ? gb : gb + nb0;
+  count = wg == 0 ? nb0 : nbg - nb0;
+}
+
+// Rows row0 and row0 + 8 of a [64, 64] f32 accumulator box times inv_l[j]
+// in the operand type T into columns [col0, col0 + 64) of a contiguous
+// [B, T, H, D] tensor, rows at or past T skipped: the quad transposes its
+// 32-bit pairs so that each lane writes 8 consecutive columns at once
+// (flash_fwd.cu store_out, one box).
+template <typename T>
+__device__ __forceinline__ void store_box16(T* out, const float (&o)[32], const float (&inv_l)[2],
+                                            int row0, int lane, int b, int h, int T_len, int H,
+                                            int D, int col0) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int t = row0 + 8 * j;
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      uint32_t w[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 4 * (4 * m + r) + 2 * j;
+        w[r] = pack2<T>(o[i] * inv_l[j], o[i + 1] * inv_l[j]);
+      }
+      const uint4 v = quad_transpose(w, lane);   // every lane: the shuffles need the quad
+      if (t < T_len) {
+        T* dst = out + (((long long)b * T_len + t) * H + h) * D + col0 + 32 * m + 8 * (lane & 3);
+        *reinterpret_cast<uint4*>(dst) = v;
+      }
+    }
+  }
+}
+
+// Rows row0 and row0 + 8 of a [64, 64] f32 accumulator box times `mul` in
+// T into columns [col0, col0 + 64) of a contiguous [B, T, H, D] tensor, one
+// 32-bit pair at a time, rows at or past T skipped.
+template <typename T>
+__device__ __forceinline__ void store_pairs(T* out, const float (&acc)[32], float mul, int row0,
+                                            int lane, int b, int h, int T_len, int H, int D,
+                                            int col0) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int t = row0 + 8 * j;
+    if (t >= T_len) continue;
+    T* rowp = out + (((long long)b * T_len + t) * H + h) * D + col0;
+#pragma unroll
+    for (int i = 2 * j; i < 32; i += 4)
+      *reinterpret_cast<uint32_t*>(rowp + frag_col(i, lane)) =
+          pack2<T>(acc[i] * mul, acc[i + 1] * mul);
+  }
+}
+
 // ---------------------------------------------------------------------------
-// launch
+// forward: a block owns 128 query rows of one (batch, head), 64 a consumer
+// warpgroup, and one column group of up to 256 output columns; both
+// warpgroups read the same K and V boxes, each computes the scores of its
+// own rows over all of D and sums its rows' P.V over the group's columns
 // ---------------------------------------------------------------------------
 
-// which: 0 = forward, 1 = dq, 2 = dk/dv; G the accumulators' columns
+template <typename T>
+__global__ void __launch_bounds__(THREADS90, 1)
+    flash_wide_fwd_wgmma_kernel(__grid_constant__ const Wide90 p) {
+  static_assert(sizeof(T) == 2, "bf16 or f16 operands");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const WideLayout L = wide_layout(0, p.D, p.slots, p.resident);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* own_full = bars;
+  const Ring ring{base + uint32_t(L.ring), bars + 1, bars + 1 + p.slots, p.slots};
+  const uint32_t res_q = base + uint32_t(L.res);   // Q box (chunk c, rows 64 w): 2 c + w
+
+  const int Tq = p.Tq, Tk = p.Tk, shift = p.shift, D = p.D, nbd = D / BOX;
+  const int BH = p.B * p.H;
+  const int n_qb = (Tq + BLOCK_ROWS - 1) / BLOCK_ROWS;
+  const int n_groups = (D + p.G - 1) / p.G;
+  const int z = blockIdx.x % n_groups;   // column groups of one row block run side by side
+  int bh, qb;
+  block_coords(blockIdx.x / n_groups, BH, n_qb, p.causal, bh, qb);
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int q0 = qb * BLOCK_ROWS;
+  const int gb = z * p.G / BOX;                        // the group's first box
+  const int nbg = (min(p.G, D - z * p.G)) / BOX;       // and its boxes
+  const int n_k = (Tk + BOX - 1) / BOX;
+  // under a causal mask the block's last query ends its key tiles at key
+  // q0 + 127 + shift (none when that lies before key 0)
+  const int last = q0 + BLOCK_ROWS - 1 + shift;
+  const int n_kt = p.causal ? (last < 0 ? 0 : min(n_k, last / BOX + 1)) : n_k;
+  // ring items of one key tile: (Q of both row halves and) K per chunk, then V
+  const int per_chunk = p.resident ? 1 : 3;
+  const int per_tile = nbd * per_chunk + nbg;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    bar_init(own_full, 1);
+    for (int s = 0; s < p.slots; ++s) {
+      bar_init(&ring.full[s], 1);                // the producer's arrival with the bytes
+      bar_init(&ring.empty[s], CONSUMERS * 4);   // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = warpgroup();
+  const int warp = (tid % WG) / 32;
+  const int lane = tid % 32;
+  if (wg == CONSUMERS) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == 0 && lane == 0) {
+      // resident Q once; then per key tile the score steps ((Q of both row
+      // halves and) K box by box over all of D), then the group's V boxes
+      if (p.resident) {
+        bar_arrive_tx(own_full, 2 * nbd * BOX_BYTES);
+        for (int c = 0; c < nbd; ++c)
+          for (int w = 0; w < CONSUMERS; ++w)
+            tma_box(res_q + (2 * c + w) * BOX_BYTES, &p.q, own_full, c * BOX, h, q0 + w * BOX, b);
+      }
+      Pos pos{0, 0u};
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int k0 = kt * BOX;
+        for (int c = 0; c < nbd; ++c) {
+          if (!p.resident) {
+            ring.put(pos, &p.q, c * BOX, h, q0, b);
+            ring.put(pos, &p.q, c * BOX, h, q0 + BOX, b);
+          }
+          ring.put(pos, &p.k, c * BOX, h, k0, b);
+        }
+        for (int j = 0; j < nbg; ++j) ring.put(pos, &p.v, (gb + j) * BOX, h, k0, b);
+      }
+    }
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wq0 = q0 + wg * BOX;                 // the warpgroup's first query
+    const int row0 = wq0 + warp * 16 + lane / 4;   // the thread's rows: row0, row0 + 8
+    const float sl2 = p.scale * LOG2E;
+    const float* kmask = p.kmask != nullptr ? p.kmask + (long long)b * Tk : nullptr;
+    float o[FWD_WG_BOXES][32];
+#pragma unroll
+    for (int c = 0; c < FWD_WG_BOXES; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[c][i] = 0.0f;
+    float m2[2] = {NEG_BIG2, NEG_BIG2};   // running row max, log2 units
+    float l[2] = {0.0f, 0.0f};            // the thread's share of the row sum
+
+    if (p.resident) bar_wait(own_full, 0);
+    Pos pos{0, 0u};
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int k0 = kt * BOX;
+      if (p.causal && k0 > wq0 + BOX - 1 + shift) {
+        // the tile lies wholly above this warpgroup's rows: release its
+        // boxes one by one as they arrive (a tile may hold more boxes than
+        // the ring has slots)
+        for (int e = 0; e < per_tile; ++e) {
+          ring.wait(pos, 1);
+          ring.release(pos, 1, lane);
+          pos = ring.plus(pos, 1);
+        }
+        continue;
+      }
+      // the validity of the thread's 16 key columns (8 (i >> 2) + 2 (lane % 4)
+      // + (i & 1)) against Tk and the key mask, read before the score steps
+      // where the tile reaches past Tk or a key mask is given
+      uint32_t kbits = 0xffffu;
+      if (kmask != nullptr || k0 + BOX > Tk) {
+        kbits = 0;
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          const int t = k0 + 8 * (e >> 1) + 2 * (lane & 3) + (e & 1);
+          const bool ok = t < Tk && (kmask == nullptr || kmask[t] > 0.0f);
+          kbits |= uint32_t(ok) << e;
+        }
+      }
+      // S = Q.K^T over all of D, FWD_CHUNKS 64-column chunks a step (the
+      // chunks left over one a step); a step's slots are released once the
+      // next step's products are issued and its own have retired
+      float sc[32];
+      Pos prev = pos;
+      int prev_count = 0, c0 = 0;
+      for (; c0 < nbd; ) {
+        const int nc = nbd - c0 >= FWD_CHUNKS ? FWD_CHUNKS : 1;
+        if (nc == FWD_CHUNKS)
+          fwd_score_step<T, FWD_CHUNKS>(sc, ring, pos, per_chunk, p.resident, res_q, c0, wg);
+        else
+          fwd_score_step<T, 1>(sc, ring, pos, per_chunk, p.resident, res_q, c0, wg);
+        wg_wait<1>();
+        ring.release(prev, prev_count, lane);
+        prev = pos;
+        prev_count = nc * per_chunk;
+        pos = ring.plus(pos, prev_count);
+        c0 += nc;
+      }
+      wg_wait<0>();
+      ring.release(prev, prev_count, lane);
+      pin(sc);
+      // x = s * scale * log2(e), or NEG_BIG2 where the pair is masked, on
+      // every tile: a branch around the test for tiles that need none made
+      // ptxas serialize the wgmmas (C7514)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = frag_col(i, lane);
+        const int t = row0 + 8 * ((i >> 1) & 1);
+        const bool ok = ((kbits >> (2 * (i >> 2) + (i & 1))) & 1u) &&
+                        (!p.causal || k0 + col <= t + shift);
+        sc[i] = ok ? sc[i] * sl2 : NEG_BIG2;
+      }
+      float alpha[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float mx = sc[2 * j];
+#pragma unroll
+        for (int i = 0; i < 32; i += 4) mx = fmaxf(mx, fmaxf(sc[i + 2 * j], sc[i + 2 * j + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m2[j], mx);
+        alpha[j] = exp2_approx(m2[j] - m_new);
+        m2[j] = m_new;
+      }
+      float rs[2] = {0.0f, 0.0f};
+      uint32_t a[4][4];   // P rounded to T: the A fragments of the 4 key k-steps
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int j = (i >> 1) & 1;
+        const float p0 = exp2_approx(sc[i] - m2[j]);
+        const float p1 = exp2_approx(sc[i + 1] - m2[j]);
+        rs[j] += p0 + p1;
+        a[i >> 3][(i >> 1) & 3] = pack2<T>(p0, p1);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) l[j] = l[j] * alpha[j] + rs[j];
+#pragma unroll
+      for (int c = 0; c < FWD_WG_BOXES; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[c][i] *= alpha[(i >> 1) & 1];
+      // O += P.V over the group's V boxes, one commit group as in kernel #1
+      uint32_t vb[FWD_WG_BOXES];
+#pragma unroll
+      for (int c = 0; c < FWD_WG_BOXES; ++c) vb[c] = ring.at(pos, c);
+      ring.wait(pos, nbg);
+      wg_fence();
+      if (nbg == 4) {
+        fwd_pv<T, 4>(o, a, vb);
+      } else if (nbg == 3) {
+        fwd_pv<T, 3>(o, a, vb);
+      } else if (nbg == 2) {
+        fwd_pv<T, 2>(o, a, vb);
+      } else {
+        fwd_pv<T, 1>(o, a, vb);
+      }
+      wg_commit();
+      wg_wait<0>();
+#pragma unroll
+      for (int c = 0; c < FWD_WG_BOXES; ++c) pin(o[c]);
+      ring.release(pos, nbg, lane);
+      pos = ring.plus(pos, nbg);
+    }
+
+    float inv_l[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      l[j] += __shfl_xor_sync(0xffffffffu, l[j], 1);
+      l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
+      const float lc = fmaxf(l[j], 1e-30f);
+      inv_l[j] = 1.0f / lc;
+      const int t = row0 + 8 * j;
+      // every column group holds the same row statistics
+      if (z == 0 && (lane & 3) == 0 && t < Tq)
+        p.lse_out[(long long)bh * Tq + t] = (m2[j] + log2f(lc)) * LN2;
+    }
+#pragma unroll
+    for (int c = 0; c < FWD_WG_BOXES; ++c)
+      if (c < nbg)
+        store_box16<T>(static_cast<T*>(p.g0), o[c], inv_l, row0, lane, b, h, Tq, p.H, D,
+                       (gb + c) * BOX);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dk/dv: a block owns 64 key rows of one (batch, head) and one column group
+// of up to 256 columns of dk and dv. Per 64-query tile each consumer
+// warpgroup computes S^T and dP^T over all of D for its half of the
+// queries (m64n32), builds p^T and ds^T for them, and the two swap those
+// A fragments through shared memory; each then sums its own up to 128
+// columns of dV += P^T.dO and dK += dS^T.Q over all 64 queries.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS90, 1)
+    flash_wide_dkv_wgmma_kernel(__grid_constant__ const Wide90 p) {
+  static_assert(sizeof(T) == 2, "bf16 or f16 operands");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const WideLayout L = wide_layout(2, p.D, p.slots, p.resident);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* own_full = bars;
+  const Ring ring{base + uint32_t(L.ring), bars + 1, bars + 1 + p.slots, p.slots};
+  uint32_t* xch = reinterpret_cast<uint32_t*>(smem + L.xch);
+
+  const int Tq = p.Tq, Tk = p.Tk, shift = p.shift, D = p.D, nbd = D / BOX;
+  const int BH = p.B * p.H;
+  const int n_kb = (Tk + BOX - 1) / BOX;
+  const int n_groups = (D + p.G - 1) / p.G;
+  const int z = blockIdx.x % n_groups;
+  int bh, kb;   // key block 0 first: under a causal mask it sees the most queries
+  block_coords(blockIdx.x / n_groups, BH, n_kb, 0, bh, kb);
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int k0 = kb * BOX;
+  const int gb = z * p.G / BOX;
+  const int nbg = (min(p.G, D - z * p.G)) / BOX;
+  const int n_q = (Tq + BOX - 1) / BOX;
+  // query tiles wholly above k0 - shift (the first query that may see key
+  // k0) see no key here
+  const int qt0 = p.causal && k0 - shift > 0 ? (k0 - shift) / BOX : 0;
+  const uint32_t res_k = base + uint32_t(L.res);
+  const uint32_t res_v = res_k + nbd * BOX_BYTES;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    bar_init(own_full, 1);
+    for (int s = 0; s < p.slots; ++s) {
+      bar_init(&ring.full[s], 1);
+      bar_init(&ring.empty[s], CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = warpgroup();
+  const int warp = (tid % WG) / 32;
+  const int lane = tid % 32;
+  const int per_chunk = p.resident ? 2 : 4;   // boxes of a score step: Q, dO (K, V first if streamed)
+  if (wg == CONSUMERS) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == 0 && lane == 0) {
+      if (p.resident) {
+        bar_arrive_tx(own_full, 2 * nbd * BOX_BYTES);
+        for (int c = 0; c < nbd; ++c) {
+          tma_box(res_k + c * BOX_BYTES, &p.k, own_full, c * BOX, h, k0, b);
+          tma_box(res_v + c * BOX_BYTES, &p.v, own_full, c * BOX, h, k0, b);
+        }
+      }
+      Pos pos{0, 0u};
+      for (int qt = qt0; qt < n_q; ++qt) {
+        const int q0 = qt * BOX;
+        for (int c = 0; c < nbd; ++c) {
+          if (!p.resident) {
+            ring.put(pos, &p.k, c * BOX, h, k0, b);
+            ring.put(pos, &p.v, c * BOX, h, k0, b);
+          }
+          ring.put(pos, &p.q, c * BOX, h, q0, b);
+          ring.put(pos, &p.o, c * BOX, h, q0, b);
+        }
+        for (int j = 0; j < nbg; ++j) {   // the first warpgroup's boxes, then the second's
+          ring.put(pos, &p.q, (gb + j) * BOX, h, q0, b);
+          ring.put(pos, &p.o, (gb + j) * BOX, h, q0, b);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    int cb, ncb;   // this warpgroup's dk/dv boxes
+    wg_boxes(wg, gb, nbg, cb, ncb);
+    const int row0 = k0 + warp * 16 + lane / 4;   // the thread's keys: row0, row0 + 8
+    const int half = 32 * wg;                     // this warpgroup's queries of a tile
+    bool kok[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int t = row0 + 8 * j;
+      kok[j] = t < Tk && (p.kmask == nullptr || p.kmask[(long long)b * Tk + t] > 0.0f);
+    }
+    const float sl2 = p.scale * LOG2E;
+    const long long bh_off = (long long)bh * Tq;
+    float dk[DKV_WG_BOXES][32], dv[DKV_WG_BOXES][32];
+#pragma unroll
+    for (int c = 0; c < DKV_WG_BOXES; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        dk[c][i] = 0.0f;
+        dv[c][i] = 0.0f;
+      }
+
+    if (p.resident) bar_wait(own_full, 0);
+    Pos pos{0, 0u};
+    for (int qt = qt0; qt < n_q; ++qt) {
+      const int q0 = qt * BOX;
+      // lse (log2 units) and delta of the thread's 8 query columns of the
+      // half: 8 (e >> 1) + 2 (lane % 4) + (e & 1)
+      float lse2[8], dl[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int t = q0 + half + 8 * (e >> 1) + 2 * (lane & 3) + (e & 1);
+        lse2[e] = t < Tq ? p.lse[bh_off + t] * LOG2E : 0.0f;
+        dl[e] = t < Tq ? p.delta[bh_off + t] : 0.0f;
+      }
+      // S^T = K.Q^T and dP^T = V.dO^T over all of D for the half's 32 queries
+      float sc[16], dp[16];
+      Pos prev = pos;
+      int prev_count = 0, c0 = 0;
+      for (; c0 < nbd; ) {
+        const int nc = nbd - c0 >= DKV_CHUNKS ? DKV_CHUNKS : 1;
+        if (nc == DKV_CHUNKS)
+          dkv_score_step<T, DKV_CHUNKS>(sc, dp, ring, pos, per_chunk, p.resident, res_k, res_v,
+                                        c0, half);
+        else
+          dkv_score_step<T, 1>(sc, dp, ring, pos, per_chunk, p.resident, res_k, res_v, c0,
+                               half);
+        wg_wait<1>();
+        ring.release(prev, prev_count, lane);
+        prev = pos;
+        prev_count = nc * per_chunk;
+        pos = ring.plus(pos, prev_count);
+        c0 += nc;
+      }
+      wg_wait<0>();
+      ring.release(prev, prev_count, lane);
+      pin(sc);
+      pin(dp);
+      // p^T where the pair is valid, else exactly 0; ds^T = p^T (dp^T - delta);
+      // both rounded to T: the A fragments of the half's two query k-steps
+      uint32_t own_p[2][4], own_s[2][4];
+#pragma unroll
+      for (int i = 0; i < 16; i += 2) {
+        const int j = (i >> 1) & 1;
+        const int key = row0 + 8 * j;
+        float pr[2], ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = frag_col(i + e, lane);   // the query column in the half
+          const int ci = 2 * ((i + e) >> 2) + ((i + e) & 1);   // its lse2 / dl entry
+          const int t = q0 + half + col;
+          const bool ok = kok[j] && t < Tq && (!p.causal || key <= t + shift);
+          pr[e] = ok ? exp2f(fmaf(sc[i + e], sl2, -lse2[ci])) : 0.0f;
+          ds[e] = pr[e] * (dp[i + e] - dl[ci]);
+        }
+        own_p[i >> 3][(i >> 1) & 3] = pack2<T>(pr[0], pr[1]);
+        own_s[i >> 3][(i >> 1) & 3] = pack2<T>(ds[0], ds[1]);
+      }
+      // swap the fragments with the other warpgroup: word w of thread t at
+      // xch[(wg * 16 + w) * 128 + t]; the first barrier keeps this tile's
+      // writes after the other warpgroup's reads of the last tile
+      const int t_in = tid % WG;
+      consumers_sync(2);
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        xch[(wg * 16 + w) * WG + t_in] = own_p[w >> 2][w & 3];
+        xch[(wg * 16 + 8 + w) * WG + t_in] = own_s[w >> 2][w & 3];
+      }
+      consumers_sync(1);
+      uint32_t pf[4][4], sf[4][4];   // k-steps 0, 1: queries 0-31; 2, 3: queries 32-63
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        const uint32_t op = xch[((1 - wg) * 16 + w) * WG + t_in];
+        const uint32_t os = xch[((1 - wg) * 16 + 8 + w) * WG + t_in];
+        const int kk = w >> 2, r = w & 3;
+        pf[kk][r] = wg == 0 ? own_p[kk][r] : op;
+        sf[kk][r] = wg == 0 ? own_s[kk][r] : os;
+        pf[2 + kk][r] = wg == 0 ? op : own_p[kk][r];
+        sf[2 + kk][r] = wg == 0 ? os : own_s[kk][r];
+      }
+      // dV += P^T.dO and dK += dS^T.Q over the group's Q and dO boxes (the
+      // first warpgroup's, then the second's), one commit group
+      uint32_t qb[DKV_WG_BOXES], ob[DKV_WG_BOXES];
+#pragma unroll
+      for (int j = 0; j < DKV_WG_BOXES; ++j) {
+        qb[j] = ring.at(pos, 2 * (cb - gb + j));
+        ob[j] = ring.at(pos, 2 * (cb - gb + j) + 1);
+      }
+      ring.wait(pos, 2 * nbg);
+      wg_fence();
+      if (ncb == 2) {
+        dkv_accumulate<T, 2>(dk, dv, pf, sf, qb, ob);
+      } else if (ncb == 1) {
+        dkv_accumulate<T, 1>(dk, dv, pf, sf, qb, ob);
+      }
+      wg_commit();
+      wg_wait<0>();
+      ring.release(pos, 2 * nbg, lane);
+      pos = ring.plus(pos, 2 * nbg);
+#pragma unroll
+      for (int c = 0; c < DKV_WG_BOXES; ++c) {
+        pin(dv[c]);
+        pin(dk[c]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < DKV_WG_BOXES; ++c)
+      if (c < ncb) {
+        store_pairs<T>(static_cast<T*>(p.g0), dk[c], p.scale, row0, lane, b, h, Tk, p.H, D,
+                       (cb + c) * BOX);
+        store_pairs<T>(static_cast<T*>(p.g1), dv[c], 1.0f, row0, lane, b, h, Tk, p.H, D,
+                       (cb + c) * BOX);
+      }
+  }
+}
+// ---------------------------------------------------------------------------
+// launch plans
+// ---------------------------------------------------------------------------
+
+// which: 0 = forward, 1 = dq, 2 = dk/dv. The FMA kernels run the float32
+// forward and dk/dv and dq in every dtype; the wgmma kernels the 16-bit
+// forward and dk/dv.
+bool wgmma_route(int which, int dtype) { return dtype != 0 && which != 1; }
+
+// FMA: shared memory of kernel `which`'s layout for a group of G columns
 size_t smem_bytes(int which, int G) {
   const size_t f = which == 0 ? fwd_floats(G) : which == 1 ? dq_floats(G) : dkv_floats(G);
   return f * sizeof(float);
@@ -505,50 +1285,116 @@ size_t smem_bytes(int which, int G) {
 
 bool supported(int D) { return D >= DC && D % DC == 0; }
 
-// The columns of a group at head dim D: D itself where its layout fits one
-// block, else D split into the fewest groups whose layouts fit, as evenly as
-// 64-column chunks allow (the last group may be narrower).
-int group_width(int which, int D) {
-  if (smem_bytes(which, D) <= SMEM_LIMIT) return D;
-  int gmax = 0;   // the widest group that fits, in chunks
-  while (smem_bytes(which, (gmax + 1) * DC) <= SMEM_LIMIT) ++gmax;
-  const int chunks = D / DC, groups = (chunks + gmax - 1) / gmax;
-  return (chunks + groups - 1) / groups * DC;
+// wgmma: the widest column group (the forward's warpgroups each sum all of
+// its boxes, dk/dv's split them)
+int wide_max_group(int which) { return BOX * (which == 0 ? FWD_WG_BOXES : 2 * DKV_WG_BOXES); }
+// The fewest ring slots: the most items a consumer holds at once, a score
+// step's and the previous step's (a forward step: FWD_CHUNKS x (Q of both
+// row halves and) K; dk/dv: DKV_CHUNKS x (K, V and) Q, dO), the forward's
+// P.V: the group's V boxes, an accumulation step of dk/dv and the previous
+// one: 8.
+int wide_min_slots(int which, int D, int resident) {
+  const int chunks = which == 0 ? FWD_CHUNKS : DKV_CHUNKS;
+  const int per_chunk = which == 0 ? (resident ? 1 : 3) : (resident ? 2 : 4);
+  const int step = min(chunks, D / BOX) * per_chunk;
+  return max(D / BOX > chunks ? 2 * step : step, which == 0 ? FWD_WG_BOXES : 8);
 }
 
-int n_groups(int which, int D) {
-  const int G = group_width(which, D);
-  return (D + G - 1) / G;
+struct Plan {
+  int G, slots, resident;
+};
+
+size_t plan_bytes(int which, int dtype, int D, const Plan& pl) {
+  return wgmma_route(which, dtype) ? wide_layout(which, D, pl.slots, pl.resident).bytes
+                                   : smem_bytes(which, pl.G);
 }
+
+// Can kernel `which` run D with this plan?
+bool plan_ok(int which, int dtype, int D, const Plan& pl) {
+  if (pl.G < BOX || pl.G % BOX != 0 || pl.G > D) return false;
+  if (plan_bytes(which, dtype, D, pl) > SMEM_LIMIT) return false;
+  if (!wgmma_route(which, dtype)) return true;
+  return pl.G <= wide_max_group(which) && pl.slots >= wide_min_slots(which, D, pl.resident) &&
+         pl.slots <= MAX_SLOTS && (pl.resident == 0 || pl.resident == 1);
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
 
 template <typename K>
 int launch_kernel(K kernel, int which, Params p, cudaStream_t stream) {
-  p.G = group_width(which, p.D);
   const size_t bytes = smem_bytes(which, p.G);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int rows = which == 2 ? KR : QR;
   const int T_own = which == 2 ? p.Tk : p.Tq;   // the rows blocks own: keys or queries
-  kernel<<<dim3((T_own + rows - 1) / rows, p.B * p.H, n_groups(which, p.D)), THREADS, bytes,
+  kernel<<<dim3((T_own + rows - 1) / rows, p.B * p.H, (p.D + p.G - 1) / p.G), THREADS, bytes,
            stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_typed(int which, const Params& p, cudaStream_t stream) {
-  if (which == 0) return launch_kernel(flash_wide_fwd_kernel<T>, 0, p, stream);
-  if (which == 1) return launch_kernel(flash_wide_dq_kernel<T>, 1, p, stream);
-  return launch_kernel(flash_wide_dkv_kernel<T>, 2, p, stream);
+// the FMA kernels: the forward and dk/dv in float32, dq in every dtype
+int launch_fma(int which, const Params& p, int dtype, cudaStream_t stream) {
+  if (which == 0) return launch_kernel(flash_wide_fwd_kernel<float>, 0, p, stream);
+  if (which == 2) return launch_kernel(flash_wide_dkv_kernel<float>, 2, p, stream);
+  if (dtype == 1) return launch_kernel(flash_wide_dq_kernel<bf16>, 1, p, stream);
+  if (dtype == 2) return launch_kernel(flash_wide_dq_kernel<f16>, 1, p, stream);
+  return launch_kernel(flash_wide_dq_kernel<float>, 1, p, stream);
 }
 
-int run(int which, const Params& p, int dtype, void* stream) {
-  if (!supported(p.D) || p.B < 1 || p.Tq < 1 || p.Tk < 1 || p.H < 1) return ERR_UNSUPPORTED;
+template <typename T>
+int launch_wgmma(int which, const Params& p, const Plan& pl, cudaStream_t stream) {
+  Wide90 w;
+  int rc = encode_boxes<T>(&w.q, p.q, p.B, p.Tq, p.H, p.D, p.q_sb, p.q_st, p.q_sh);
+  if (rc == 0) rc = encode_boxes<T>(&w.k, p.k, p.B, p.Tk, p.H, p.D, p.k_sb, p.k_st, p.k_sh);
+  if (rc == 0) rc = encode_boxes<T>(&w.v, p.v, p.B, p.Tk, p.H, p.D, p.v_sb, p.v_st, p.v_sh);
+  if (rc == 0 && which == 2)
+    rc = encode_boxes<T>(&w.o, p.dout, p.B, p.Tq, p.H, p.D, p.o_sb, p.o_st, p.o_sh);
+  else
+    w.o = w.q;   // the forward reads no dout
+  if (rc != 0) return rc;
+  w.kmask = p.kmask;
+  w.lse = p.lse;
+  w.delta = p.delta;
+  w.lse_out = p.lse_out;
+  w.g0 = p.o;
+  w.g1 = p.o2;
+  w.B = p.B;
+  w.Tq = p.Tq;
+  w.Tk = p.Tk;
+  w.H = p.H;
+  w.D = p.D;
+  w.causal = p.causal;
+  w.shift = p.shift;
+  w.G = pl.G;
+  w.slots = pl.slots;
+  w.resident = pl.resident;
+  w.scale = p.scale;
+  const size_t bytes = wide_layout(which, p.D, pl.slots, pl.resident).bytes;
+  auto kernel = which == 0 ? flash_wide_fwd_wgmma_kernel<T> : flash_wide_dkv_wgmma_kernel<T>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // 128 query rows a forward block, 64 key rows a dk/dv block
+  const int rows = which == 0 ? BLOCK_ROWS : BOX;
+  const int T_own = which == 0 ? p.Tq : p.Tk;
+  const int blocks = (T_own + rows - 1) / rows * (p.B * p.H) * ((p.D + pl.G - 1) / pl.G);
+  kernel<<<blocks, THREADS90, bytes, stream>>>(w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// plan: {G, slots, resident} (wide_plan in ops/flash_attention.py)
+int run(int which, Params p, int dtype, const int* plan, void* stream) {
+  if (!supported(p.D) || p.B < 1 || p.Tq < 1 || p.Tk < 1 || p.H < 1 || dtype < 0 || dtype > 2)
+    return ERR_UNSUPPORTED;
+  const Plan pl{plan[0], plan[1], plan[2]};
+  if (!plan_ok(which, dtype, p.D, pl)) return ERR_PLAN;
+  p.G = pl.G;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_typed<float>(which, p, s);
-  if (dtype == 1) return launch_typed<bf16>(which, p, s);
-  if (dtype == 2) return launch_typed<f16>(which, p, s);
-  return ERR_UNSUPPORTED;
+  if (!wgmma_route(which, dtype)) return launch_fma(which, p, dtype, s);
+  return dtype == 1 ? launch_wgmma<bf16>(which, p, pl, s) : launch_wgmma<f16>(which, p, pl, s);
 }
 
 Params common(const void* q, const void* k, const void* v, const float* kmask, int B, int Tq,
@@ -573,32 +1419,35 @@ Params common(const void* q, const void* k, const void* v, const float* kmask, i
 
 extern "C" {
 
-// The forward, with flash_fwd's arguments: dtype 0 = float32, 1 = bfloat16,
-// 2 = float16; D any multiple of 64 (past what one block holds, in column
-// groups: flash_wide_groups); strides in elements; out [B, Tq, H, D] contiguous,
-// lse [B, H, Tq]. Returns 0 on a clean launch, -1 for an unsupported dtype or
-// head dim, else the cudaError_t code.
+// The forward, with flash_fwd's arguments and the launch plan: dtype 0 =
+// float32, 1 = bfloat16, 2 = float16; D any multiple of 64; strides in
+// elements; out [B, Tq, H, D] contiguous, lse [B, H, Tq]; plan {G, slots,
+// resident}. Returns 0 on a clean launch, a negative code of our own
+// (flash_wide_error_string) or the cudaError_t code.
 int flash_wide_fwd(const void* q, const void* k, const void* v, const float* kmask, void* out,
                    float* lse, int B, int Tq, int Tk, int H, int D, int dtype, int causal,
                    int q_off, int k_off, float scale, long long q_sb, long long q_st,
                    long long q_sh, long long k_sb, long long k_st, long long k_sh,
-                   long long v_sb, long long v_st, long long v_sh, void* stream) {
+                   long long v_sb, long long v_st, long long v_sh, const int* plan,
+                   void* stream) {
   Params p = common(q, k, v, kmask, B, Tq, Tk, H, D, causal, q_off, k_off, scale);
   p.o = out;
   p.lse_out = lse;
   p.q_sb = q_sb; p.q_st = q_st; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_st = k_st; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_st = v_st; p.v_sh = v_sh;
-  return run(0, p, dtype, stream);
+  return run(0, p, dtype, plan, stream);
 }
 
-// The backward kernels, with flash_bwd_dq's and flash_bwd_dkv's arguments:
-// `strides` holds 12 element strides, the B, T, H strides of q, k, v and
-// dout in that order; lse and delta are contiguous f32 [B, H, Tq].
+// The backward kernels, with flash_bwd_dq's and flash_bwd_dkv's arguments
+// and the launch plan: `strides` holds 12 element strides, the B, T, H
+// strides of q, k, v and dout in that order; lse and delta are contiguous
+// f32 [B, H, Tq].
 int flash_wide_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, const float* kmask, void* dq,
                       int B, int Tq, int Tk, int H, int D, int dtype, int causal, int q_off,
-                      int k_off, float scale, const long long* strides, void* stream) {
+                      int k_off, float scale, const long long* strides, const int* plan,
+                      void* stream) {
   Params p = common(q, k, v, kmask, B, Tq, Tk, H, D, causal, q_off, k_off, scale);
   p.dout = dout;
   p.lse = lse;
@@ -608,14 +1457,14 @@ int flash_wide_bwd_dq(const void* q, const void* k, const void* v, const void* d
   p.k_sb = strides[3]; p.k_st = strides[4]; p.k_sh = strides[5];
   p.v_sb = strides[6]; p.v_st = strides[7]; p.v_sh = strides[8];
   p.o_sb = strides[9]; p.o_st = strides[10]; p.o_sh = strides[11];
-  return run(1, p, dtype, stream);
+  return run(1, p, dtype, plan, stream);
 }
 
 int flash_wide_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, const float* kmask, void* dk,
                        void* dv, int B, int Tq, int Tk, int H, int D, int dtype, int causal,
                        int q_off, int k_off, float scale, const long long* strides,
-                       void* stream) {
+                       const int* plan, void* stream) {
   Params p = common(q, k, v, kmask, B, Tq, Tk, H, D, causal, q_off, k_off, scale);
   p.dout = dout;
   p.lse = lse;
@@ -626,27 +1475,35 @@ int flash_wide_bwd_dkv(const void* q, const void* k, const void* v, const void* 
   p.k_sb = strides[3]; p.k_st = strides[4]; p.k_sh = strides[5];
   p.v_sb = strides[6]; p.v_st = strides[7]; p.v_sh = strides[8];
   p.o_sb = strides[9]; p.o_st = strides[10]; p.o_sh = strides[11];
-  return run(2, p, dtype, stream);
+  return run(2, p, dtype, plan, stream);
 }
 
 // Dynamic shared memory one block of kernel `which` (0 = forward, 1 = dq,
-// 2 = dk/dv) takes at head dim D (its column group's layout), or -1 when D
-// is unsupported.
-long long flash_wide_smem_bytes(int which, int D) {
-  if (which < 0 || which > 2 || !supported(D)) return -1;
-  return static_cast<long long>(smem_bytes(which, group_width(which, D)));
+// 2 = dk/dv) takes in dtype `dtype` at head dim D under `plan` ({G, slots,
+// resident}, as the launch takes it), or -1 when the launch would refuse
+// them (ERR_UNSUPPORTED, ERR_PLAN).
+long long flash_wide_smem_bytes(int which, int dtype, int D, const int* plan) {
+  if (which < 0 || which > 2 || dtype < 0 || dtype > 2 || !supported(D)) return -1;
+  const Plan pl{plan[0], plan[1], plan[2]};
+  if (!plan_ok(which, dtype, D, pl)) return -1;
+  return static_cast<long long>(plan_bytes(which, dtype, D, pl));
 }
 
-// The column groups (the grid's z extent) of kernel `which` at head dim D,
-// or -1 when D is unsupported.
-int flash_wide_groups(int which, int D) {
-  if (which < 0 || which > 2 || !supported(D)) return -1;
-  return n_groups(which, D);
+// The column groups the launch runs under that plan (the grid's z extent
+// for the FMA kernels, a factor of the wgmma kernels' grid), or -1.
+int flash_wide_groups(int which, int dtype, int D, const int* plan) {
+  if (flash_wide_smem_bytes(which, dtype, D, plan) < 0) return -1;
+  return (D + plan[0] - 1) / plan[0];
 }
 
 const char* flash_wide_error_string(int code) {
-  if (code == ERR_UNSUPPORTED) return "unsupported dtype/head dim";
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  switch (code) {
+    case ERR_UNSUPPORTED: return "unsupported dtype/head dim";
+    case ERR_NO_ENCODER: return "cuTensorMapEncodeTiled not found in libcuda.so.1";
+    case ERR_TENSOR_MAP: return "cuTensorMapEncodeTiled refused a [B, T, H, D] view";
+    case ERR_PLAN: return "the launch plan does not fit the kernel (wide_plan)";
+    default: return cudaGetErrorString(static_cast<cudaError_t>(code));
+  }
 }
 
 }  // extern "C"

@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels of
-// flash_fwd.cu and flash_bwd.cu: the block shape of their 16-bit kernels
-// (two consumer warpgroups and a producer warpgroup) and its tiling per
-// head dim, the swizzled tile geometry that TMA writes and wgmma reads,
-// mbarrier and TMA helpers, the 4-D tensor-map encoder over strided
+// flash_fwd.cu, flash_bwd.cu and flash_wide.cu: the block shape of their
+// 16-bit kernels (two consumer warpgroups and a producer warpgroup) and its
+// tiling per head dim, the swizzled tile geometry that TMA writes and wgmma
+// reads, mbarrier and TMA helpers, the 4-D tensor-map encoder over strided
 // [B, T, H, D] views (taken from libcuda at run time), wgmma descriptors and
 // instructions for bf16 and f16 operands (one layout, another type in the
-// instruction), setmaxnreg and the accumulator fragment layout.
+// instruction), setmaxnreg, the accumulator fragment layout, the softmax's
+// exp2, the quad transpose of the 16-byte output stores, and the block order
+// that keeps a few heads' K/V in L2.
 // ops/_build.py keys each library on its .cu and on every csrc/*.cuh, so an
 // edit here rebuilds every kernel.
 
@@ -428,6 +430,51 @@ __device__ __forceinline__ void accumulate(float (&acc)[NC][Geo<D>::CHUNK / 2],
 // k-step kk of the next product.
 __device__ __forceinline__ int frag_col(int i, int lane) {
   return 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+}
+
+// 2^x on the MUFU.EX2 unit alone (ex2.approx.ftz: ~2 ulp, results below
+// 2^-126 flush to 0); exp2f wraps it in range handling for subnormal
+// results, three more instructions an element of the softmax.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A 4x4 transpose of 32-bit words inside a quad of lanes, by shuffles: lane
+// q holds in[r] = M[q][r] and gets back M[0..3][q]. In round i, lane s sends
+// in[(s - i) & 3] and lane q takes it from lane (q + i) & 3.
+__device__ __forceinline__ uint4 quad_transpose(const uint32_t (&in)[4], int lane) {
+  const int q = lane & 3;
+  uint32_t out[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int send = (q - i) & 3;
+    uint32_t v = in[0];
+#pragma unroll
+    for (int r = 1; r < 4; ++r) v = send == r ? in[r] : v;
+    const int src = (q + i) & 3;
+    const uint32_t got = __shfl_sync(0xffffffffu, v, src, 4);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) out[r] = src == r ? got : out[r];
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+// (batch, head) pairs whose blocks are numbered together: their K and V (1
+// MB a pair at T=2048, D=128 bf16) stay in L2 while their blocks run
+constexpr int HEAD_GROUP = 8;
+// The (batch*head, query block) of block i: groups of HEAD_GROUP
+// (batch, head) pairs one after the other, inside a group the query block
+// outermost (under a causal mask the last, longest, first).
+__device__ __forceinline__ void block_coords(int i, int BH, int n_qb, int causal, int& bh,
+                                             int& qb) {
+  const int group = i / (HEAD_GROUP * n_qb);
+  const int bh0 = group * HEAD_GROUP;
+  const int size = min(HEAD_GROUP, BH - bh0);   // the last group may be short
+  const int r = i - bh0 * n_qb;
+  bh = bh0 + r % size;
+  qb = causal ? n_qb - 1 - r / size : r / size;
 }
 
 // Dynamic shared memory rounded up to the 1024-byte alignment the 128-byte

@@ -7,11 +7,14 @@ and the backward pair ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` behind a
 custom VJP. Here they are ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``,
 CUDA C++ for Hopper (``sm_90a``) built at first use and bound through
 ctypes (``ops/_build.py``), for head dims up to 256; past 256 the same
-wrappers launch the wide-head route of ``csrc/flash_wide.cu`` (the head
-dim a run-time loop over 64-column chunks, f32 accumulators in shared
-memory, and past what one block's accumulators hold a grid axis over
-column groups of the outputs), so every head dim runs on the card, bounded
-by device memory alone, as in the JAX package. Their design notes and bounds sit at the top of each source.
+wrappers launch the wide-head route of ``csrc/flash_wide.cu``: the 16-bit
+forward and dk/dv on wgmma and TMA (the head dim a run-time loop over
+64-column boxes, the outputs' columns in groups of at most 256 that each
+recompute the scores), the f32 forward and dk/dv and dq in every dtype on
+f32 FMAs, so every head dim runs on the card, bounded by device memory
+alone, as in the JAX package. :func:`wide_plan` computes each wide launch's plan (rows a
+block, column groups, ring slots, shared memory) on the host; the kernel
+checks it. Their design notes and bounds sit at the top of each source.
 
 Dispatch follows one rule, with no fallback: a tensor on the CPU goes to
 the plain version, a CUDA tensor goes to the kernel or raises.
@@ -30,9 +33,12 @@ the plain version, a CUDA tensor goes to the kernel or raises.
   :class:`_FlashBlock`, whose backward takes the lse cotangent too
   (``delta_eff = rowsum(do * out) - dlse``). On CUDA tensors they launch
   kernels #1-#3 with the offsets and count each launch in
-  :data:`CHUNK_LAUNCHES` as well as on the kernel's own wrapper.
+  :data:`CHUNK_LAUNCHES` as well as on the kernel's own wrapper (a launch
+  of the wide-head route counts in :data:`WIDE_LAUNCHES` too).
 - :func:`merge_attention_blocks` — the partial attentions over disjoint key
   chunks merged by their lse weights (plain torch ops, as in JAX).
+- :func:`wide_plan` — the launch plan of a wide-head kernel at a head dim
+  and dtype (:class:`WidePlan`), pure Python.
 - :func:`flash_fwd_cuda`, :func:`flash_bwd_cuda` (with
   :func:`flash_bwd_dq_cuda` and :func:`flash_bwd_dkv_cuda`, one kernel
   each) — the kernel wrappers, each counting its launches.
@@ -60,7 +66,9 @@ versions: p is masked by validity, never through the scores.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -71,7 +79,9 @@ from deeplearning4j_tpu_torch.ops import _build
 __all__ = [
     "SUPPORTED_HEAD_DIMS",
     "WIDE_HEAD_DIM_STEP",
+    "WidePlan",
     "CHUNK_LAUNCHES",
+    "WIDE_LAUNCHES",
     "flash_attention",
     "flash_attention_block",
     "flash_attention_block_grad",
@@ -87,6 +97,7 @@ __all__ = [
     "local_attention",
     "merge_attention_blocks",
     "pad_head_dim",
+    "wide_plan",
 ]
 
 _NEG_BIG = -1e30
@@ -94,9 +105,8 @@ _NEG_BIG = -1e30
 # zero-padded up to the next (kernel_head_dim)
 SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
 # past 256 the wide-head route (csrc/flash_wide.cu) takes any multiple of
-# WIDE_HEAD_DIM_STEP; a head whose f32 accumulators (16 query rows x D for
-# the forward and dq, 2 x 8 key rows x D for dk/dv) do not fit one block's
-# 227 KB beside the staging tiles (dq: past 2880) runs in column groups
+# WIDE_HEAD_DIM_STEP, in column groups where one block cannot hold all of
+# the outputs' columns (wide_plan)
 WIDE_HEAD_DIM_STEP = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the kernels take positions and offsets as 32-bit ints
@@ -105,6 +115,9 @@ _MAX_OFFSET = 2 ** 30
 # flash_attention_block_grad), by kernel; each also counts on the kernel's
 # own wrapper (flash_fwd_cuda.launches, ...)
 CHUNK_LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+# launches of the wide-head route (csrc/flash_wide.cu, head dims past 256),
+# by kernel; each also counts on the wrapper (flash_fwd_cuda.launches, ...)
+WIDE_LAUNCHES = {"flash_wide_fwd": 0, "flash_wide_bwd_dq": 0, "flash_wide_bwd_dkv": 0}
 _lib = None
 _bwd_lib = None
 _wide_lib = None
@@ -157,21 +170,24 @@ def _wide_kernel_lib() -> ctypes.CDLL:
     if _wide_lib is None:
         lib = _build.load("flash_wide")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # the same arguments as flash_fwd, flash_bwd_dq and flash_bwd_dkv
+        # flash_fwd's, flash_bwd_dq's and flash_bwd_dkv's arguments, then
+        # the launch plan (3 ints: wide_plan's WidePlan.c_plan) before the stream
+        plan = ctypes.POINTER(i32)
         lib.flash_wide_fwd.argtypes = (
-            [ptr] * 6 + [i32] * 9 + [ctypes.c_float] + [i64] * 9 + [ptr])
+            [ptr] * 6 + [i32] * 9 + [ctypes.c_float] + [i64] * 9 + [plan, ptr])
         lib.flash_wide_fwd.restype = i32
         head = [ptr] * 7
-        dims = [i32] * 9 + [ctypes.c_float, ctypes.POINTER(i64), ptr]
+        dims = [i32] * 9 + [ctypes.c_float, ctypes.POINTER(i64), plan, ptr]
         lib.flash_wide_bwd_dq.argtypes = head + [ptr] + dims
         lib.flash_wide_bwd_dq.restype = i32
         lib.flash_wide_bwd_dkv.argtypes = head + [ptr, ptr] + dims
         lib.flash_wide_bwd_dkv.restype = i32
         lib.flash_wide_error_string.argtypes = [i32]
         lib.flash_wide_error_string.restype = ctypes.c_char_p
-        lib.flash_wide_smem_bytes.argtypes = [i32, i32]
+        # (which, dtype code, D, plan): what the launch takes under a plan
+        lib.flash_wide_smem_bytes.argtypes = [i32, i32, i32, plan]
         lib.flash_wide_smem_bytes.restype = i64
-        lib.flash_wide_groups.argtypes = [i32, i32]
+        lib.flash_wide_groups.argtypes = [i32, i32, i32, plan]
         lib.flash_wide_groups.restype = i32
         _wide_lib = lib
     return _wide_lib
@@ -201,6 +217,139 @@ def kernel_head_dim(D: int, dtype: torch.dtype) -> int:
 def _wide(d: int) -> bool:
     """Does a kernel head dim take the wide-head route?"""
     return d > SUPPORTED_HEAD_DIMS[-1]
+
+
+# -- the wide-head route's launch plan (csrc/flash_wide.cu checks it) ----------
+
+WIDE_KERNELS = ("fwd", "dq", "dkv")   # `which` 0, 1, 2 of the C interface
+_SMEM_LIMIT = 232448                  # the opt-in shared memory of one block
+_BOX = 64                             # rows and columns of a TMA box
+_BOX_BYTES = _BOX * _BOX * 2
+# wgmma kernels: rows a block owns (the forward: 64 a consumer warpgroup;
+# dk/dv: 64 shared by both), the widest column group (the forward's
+# warpgroups each sum all of its columns for their own rows: 4 boxes of
+# O, 4 x 32 f32 registers a thread; dk/dv's split its columns: 2 boxes of
+# dK and dV each, 2 x 2 x 32), the f32 accumulator registers a thread may
+# hold, the head dims up to which the forward's Q (dk/dv's K and V) stays
+# resident in shared memory, the 64-column chunks of D a score step sums,
+# the most ring slots, and dk/dv's fragment exchange
+_WGMMA_ROWS = {"fwd": 128, "dkv": 64}
+_MAX_GROUP = 256
+WIDE_ACC_REGISTERS = 128
+_RESIDENT_MAX_D = 512
+_CHUNKS = {"fwd": 4, "dkv": 2}
+_MAX_SLOTS = 32
+_XCH_BYTES = 2 * 128 * 16 * 4
+# FMA kernels: rows a block owns, and the f32 floats of their shared layout
+# for a group of G columns (a 64-column chunk's rows padded to 65)
+_FMA_ROWS = {"fwd": 16, "dq": 16, "dkv": 8}
+_LDC = 65
+_FMA_FLOATS = {
+    "fwd": lambda G: 16 * G + 16 * _LDC + 64 * _LDC + 16 * 65 + 64 + 3 * 16,
+    "dq": lambda G: 16 * G + 2 * 16 * _LDC + 2 * 64 * _LDC + 16 * 65 + 64 + 2 * 16,
+    "dkv": lambda G: 2 * 8 * G + 2 * 8 * _LDC + 2 * 64 * _LDC + 2 * 8 * 65 + 2 * 64 + 8,
+}
+
+
+@dataclass(frozen=True)
+class WidePlan:
+    """How one wide-head kernel runs a head dim: ``route`` "wgmma" (the
+    16-bit forward and dk/dv) or "fma"; ``rows`` a block owns (queries, or
+    keys for dk/dv); ``groups`` the widths of the column groups, which sum
+    to D (``group_width`` the first); for the wgmma kernels the ring's 8 KB
+    ``slots`` and whether Q (dk/dv: K and V) is ``resident``;
+    ``smem_bytes`` of dynamic shared memory a block takes; and
+    ``acc_registers``, the f32 accumulator registers a consumer thread
+    holds (0 for the FMA kernels, whose accumulators live in shared
+    memory)."""
+
+    kernel: str
+    route: str
+    rows: int
+    groups: Tuple[int, ...]
+    slots: int
+    resident: bool
+    smem_bytes: int
+    acc_registers: int
+
+    @property
+    def group_width(self) -> int:
+        return self.groups[0]
+
+    def c_plan(self):
+        """The plan as the launch takes it: int[3] {G, slots, resident}."""
+        return (ctypes.c_int * 3)(self.group_width, self.slots, int(self.resident))
+
+
+def _even_groups(chunks: int, max_chunks: int) -> Tuple[int, ...]:
+    """``chunks`` 64-column chunks in the fewest groups of at most
+    ``max_chunks``, as even as whole chunks allow (the last may be
+    narrower), as column widths."""
+    n = -(-chunks // max_chunks)
+    w = -(-chunks // n)
+    return tuple(_BOX * min(w, chunks - i) for i in range(0, chunks, w))
+
+
+def _min_slots(kernel: str, D: int, resident: bool) -> int:
+    """The most ring items a consumer holds at once: a score step's and the
+    previous step's (_CHUNKS chunks of (Q of both row halves and) K, or of
+    (K, V and) Q, dO), the forward's P.V its group's (at most 4) V boxes,
+    an accumulation step of dk/dv and the previous one 8."""
+    per_chunk = (1 if resident else 3) if kernel == "fwd" else (2 if resident else 4)
+    step = min(_CHUNKS[kernel], D // _BOX) * per_chunk
+    score = 2 * step if D // _BOX > _CHUNKS[kernel] else step
+    return max(score, 4 if kernel == "fwd" else 8)
+
+
+def _wgmma_bytes(kernel: str, D: int, slots: int, resident: bool) -> int:
+    # resident: the forward's Q (128 rows: two boxes a chunk), dk/dv's K and V
+    res = 2 * (D // _BOX) * _BOX_BYTES if resident else 0
+    xch = _XCH_BYTES if kernel == "dkv" else 0
+    return res + xch + slots * _BOX_BYTES + (1 + 2 * slots) * 8 + 1024
+
+
+@functools.lru_cache(maxsize=None)
+def wide_plan(kernel: str, D: int, dtype: torch.dtype) -> WidePlan:
+    """The launch plan of wide-head kernel ``kernel`` ("fwd", "dq" or
+    "dkv") at head dim ``D`` (a multiple of 64 past 256: the kernels' head
+    dim, :func:`kernel_head_dim`) in ``dtype``. The 16-bit forward and
+    dk/dv take the wgmma route: column groups of at most 256 columns (the
+    forward: 128 own query rows a block, each consumer warpgroup its own 64
+    over all of the group's columns; dk/dv: 64 own key rows, the group's
+    columns split over the two warpgroups), Q (K and V) resident up to
+    D = 512, as many 8 KB ring slots as fit. The rest take the FMA route: 16 own rows (dk/dv: 8), all of D in
+    one group where its f32 accumulators fit one block, else the fewest
+    even groups that fit. Pure Python, so the CPU checks every plan;
+    ``flash_wide_smem_bytes`` and ``flash_wide_groups`` of the library
+    report the shared memory and groups a launch takes under a plan, from
+    the kernels' own layouts."""
+    if kernel not in WIDE_KERNELS:
+        raise ValueError(f"wide-head kernels are {WIDE_KERNELS}, got {kernel!r}")
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"wide-head kernels take float32, bfloat16 or float16, got {dtype}")
+    if D <= SUPPORTED_HEAD_DIMS[-1] or D % WIDE_HEAD_DIM_STEP:
+        raise ValueError(f"the wide-head route takes multiples of {WIDE_HEAD_DIM_STEP} "
+                         f"past {SUPPORTED_HEAD_DIMS[-1]}, got {D}")
+    chunks = D // _BOX
+    if dtype != torch.float32 and kernel != "dq":
+        groups = _even_groups(chunks, _MAX_GROUP // _BOX)
+        resident = D <= _RESIDENT_MAX_D
+        slots = next(s for s in range(_MAX_SLOTS, _min_slots(kernel, D, resident) - 1, -1)
+                     if _wgmma_bytes(kernel, D, s, resident) <= _SMEM_LIMIT)
+        # a thread's accumulators: the forward's O over the group's boxes,
+        # dk/dv's dK and dV over the busier warpgroup's half of them
+        boxes = groups[0] // _BOX
+        regs = boxes * 32 if kernel == "fwd" else -(-boxes // 2) * 64
+        return WidePlan(kernel, "wgmma", _WGMMA_ROWS[kernel], groups, slots, resident,
+                        _wgmma_bytes(kernel, D, slots, resident), regs)
+    floats = _FMA_FLOATS[kernel]
+    if 4 * floats(D) <= _SMEM_LIMIT:
+        groups = (D,)
+    else:
+        gmax = max(c for c in range(1, chunks + 1) if 4 * floats(c * _BOX) <= _SMEM_LIMIT)
+        groups = _even_groups(chunks, gmax)
+    return WidePlan(kernel, "fma", _FMA_ROWS[kernel], groups, 0, False,
+                    4 * floats(groups[0]), 0)
 
 
 def pad_head_dim(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -266,7 +415,8 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    q_offset: int = 0, k_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch kernel #1 (``csrc/flash_fwd.cu``: the wgmma/TMA kernel for
     bf16 and f16, the FMA kernel for f32), or past D = 256 the wide-head
-    forward (``csrc/flash_wide.cu``), on PyTorch's current stream.
+    forward (``csrc/flash_wide.cu``: wgmma for bf16 and f16, FMA for f32,
+    under :func:`wide_plan`), on PyTorch's current stream.
 
     q [B, Tq, H, D] and k/v [B, Tk, H, D] CUDA tensors (f32, bf16 or f16,
     any D; a D the kernels are not built for runs zero-padded,
@@ -282,9 +432,11 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     d, (q, k, v) = _padded(D, q.dtype, q, k, v)
+    plan = ()
     if _wide(d):
         lib = _wide_kernel_lib()
         launch, error_string = lib.flash_wide_fwd, lib.flash_wide_error_string
+        plan = (wide_plan("fwd", d, q.dtype).c_plan(),)
     else:
         lib = _kernel_lib()
         launch, error_string = lib.flash_fwd, lib.flash_fwd_error_string
@@ -301,11 +453,14 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out.data_ptr(), lse.data_ptr(),
             B, Tq, Tk, H, d, _DTYPE_CODES[q.dtype], int(bool(causal)),
             q_offset, k_offset, 1.0 / math.sqrt(D),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream)
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *plan, stream)
     if rc != 0:
         raise RuntimeError(f"flash_fwd launch failed ({rc}, head dim {d}): "
                            f"{error_string(rc).decode()}")
     flash_fwd_cuda.launches += 1
+    if plan:
+        # graftlint: disable=jit-purity,retrace-hazard; a launch count: a rerun launches again
+        WIDE_LAUNCHES["flash_wide_fwd"] += 1
     counter = _profile.active_counter()
     if counter is not None:   # a counting pass (obs/profile.py) is running
         counter.kernel("flash_fwd", *_profile.attention_fwd_cost(
@@ -343,8 +498,10 @@ def _launch_bwd(fn, q, k, v, do, lse, delta, km, causal, q_offset, k_offset):
     d, (q, k, v, do) = _padded(D, q.dtype, q, k, v, do)
     rows = [Tq] if fn == "flash_bwd_dq" else [Tk, Tk]
     outs = [torch.empty((B, t, H, d), dtype=q.dtype, device=q.device) for t in rows]
-    if _wide(d):   # the wide-head route: flash_wide_bwd_dq / _dkv, the same arguments
+    plan = ()
+    if _wide(d):   # the wide-head route: flash_wide_bwd_dq / _dkv, the same arguments and a plan
         lib = _wide_kernel_lib()
+        plan = (wide_plan(fn[10:], d, q.dtype).c_plan(),)
         fn, error_string = fn.replace("flash_", "flash_wide_", 1), lib.flash_wide_error_string
     else:
         lib = _bwd_kernel_lib()
@@ -359,9 +516,12 @@ def _launch_bwd(fn, q, k, v, do, lse, delta, km, causal, q_offset, k_offset):
             km.data_ptr() if km is not None else None,
             *(o.data_ptr() for o in outs),
             B, Tq, Tk, H, d, _DTYPE_CODES[q.dtype], int(bool(causal)),
-            q_offset, k_offset, 1.0 / math.sqrt(D), strides, stream)
+            q_offset, k_offset, 1.0 / math.sqrt(D), strides, *plan, stream)
     if rc != 0:
         raise RuntimeError(f"{fn} launch failed ({rc}): {error_string(rc).decode()}")
+    if plan:
+        # graftlint: disable=jit-purity,retrace-hazard; a launch count: a rerun launches again
+        WIDE_LAUNCHES[fn] += 1
     counter = _profile.active_counter()
     if counter is not None:   # a counting pass (obs/profile.py) is running
         name = "flash_bwd_dq" if len(outs) == 1 else "flash_bwd_dkv"

@@ -21,6 +21,7 @@ NVIDIA card (marker ``cuda``) and skips without one; on a GPU host run
 serving the port need not have). This file imports no JAX.
 """
 
+import ctypes
 import math
 
 import pytest
@@ -828,7 +829,9 @@ def test_wide_head_past_2880_matches_plain_version(cuda, D, dtype, causal, maske
     plain versions, through the same wrappers, with no refusal."""
     B, T, H = 1, 256, 2
     lib = fa._wide_kernel_lib()
-    assert lib.flash_wide_groups(1, fa.kernel_head_dim(D, dtype)) >= 2
+    code = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}[dtype]
+    d = fa.kernel_head_dim(D, dtype)
+    assert lib.flash_wide_groups(1, code, d, fa.wide_plan("dq", d, dtype).c_plan()) >= 2
     q, k, v = _qkv(cuda, B, T, H, D, dtype, strided=not masked, seed=D)
     km = _varlen(cuda, B, T, seed=D) if masked else None
     out, lse = fa.flash_fwd_cuda(q, k, v, kmask=km, causal=causal)
@@ -841,20 +844,170 @@ def test_wide_head_past_2880_matches_plain_version(cuda, D, dtype, causal, maske
     do = torch.randn(B, T, H, D, generator=g, device=cuda).to(dtype)
     got = fa.flash_bwd_cuda(q, k, v, out, lse, do, km, causal)
     want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, km, causal)
-    for a, b in zip(got, want):
+    # a mask with one valid key (seed 3072): p = 1 and dp - delta = 0, so dk is
+    # 0 in exact arithmetic and both versions return the f32 rounding noise of
+    # dp - delta (sums of magnitude ~55 over D = 3072 columns, whose f32 ulp is
+    # 4e-6), times scale * q summed over the 256 queries: the wgmma dk/dv's
+    # tensor-core sums read 2.3e-4 on the card, the reference's 3e-5. dk is
+    # held to 5e-4, about 2x that; dq (the FMA kernel) keeps the relative check.
+    one_key = km is not None and bool((km.sum(1) == 1).all())
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
         if dtype == torch.float32:
             torch.testing.assert_close(a, b, **F32)
+        elif one_key and name == "dk":
+            assert a.float().abs().max().item() <= 5e-4, name
         else:
             _rel_close(a, b, 2e-2)
 
 
 def test_wide_head_one_group_up_to_2880(cuda):
-    """Up to 2880 every kernel of the route keeps one column group (the
-    layout of the route before groups, so those head dims run as before)."""
+    """Up to 2880 every FMA kernel of the route (f32 forward and dk/dv, dq
+    in every dtype) keeps one column group (the layout of the route before
+    groups, so those head dims run as before); under each of the wrapper's
+    plans (wide_plan) the library's layouts take the shared memory and
+    groups the plan says, and it refuses a plan that does not fit."""
     lib = fa._wide_kernel_lib()
+
+    def groups(w, code, D):
+        dtype = (torch.float32, torch.bfloat16, torch.float16)[code]
+        return lib.flash_wide_groups(w, code, D, fa.wide_plan(fa.WIDE_KERNELS[w], D,
+                                                              dtype).c_plan())
+
     for D in (320, 512, 1024, 2048, 2880):
-        assert [lib.flash_wide_groups(w, D) for w in range(3)] == [1, 1, 1], D
-    assert lib.flash_wide_groups(1, 2944) == 2 and lib.flash_wide_smem_bytes(1, 4096) > 0
+        assert [groups(w, 0, D) for w in range(3)] == [1, 1, 1], D
+        assert groups(1, 1, D) == 1, D
+    assert groups(1, 1, 2944) == 2
+    for w, kernel in enumerate(fa.WIDE_KERNELS):
+        for code, dtype in enumerate((torch.float32, torch.bfloat16, torch.float16)):
+            for D in (320, 512, 576, 1024, 1088, 2880, 3072, 4096, 8192):
+                plan = fa.wide_plan(kernel, D, dtype)
+                assert (lib.flash_wide_smem_bytes(w, code, D, plan.c_plan()),
+                        lib.flash_wide_groups(w, code, D, plan.c_plan())
+                        ) == (plan.smem_bytes, len(plan.groups)), (kernel, dtype, D)
+    # the whole of D = 4096 in one FMA dq group does not fit a block
+    assert lib.flash_wide_smem_bytes(1, 1, 4096, (ctypes.c_int * 3)(4096, 0, 0)) == -1
+
+
+# -- the wide-head wgmma kernels (16-bit forward and dk/dv past D = 256) ---------
+
+WIDE16_CHUNKS = [
+    # (B, Tq, Tk, H, D, q_offset, k_offset, causal, masked), as the chunk entries pass them
+    (2, 200, 328, 2, 512, 328, 64, True, False),   # Tq != Tk, both offsets, ragged T
+    (1, 300, 130, 2, 320, 40, 100, True, True),    # Tq > Tk, shifted diagonal, kmask
+    (2, 128, 256, 2, 512, 0, 256, True, False),    # wholly in the future: no row sees a key
+    (1, 96, 160, 2, 300, 160, 0, False, True),     # D zero-padded to 320, off-diagonal, kmask
+]
+
+
+@pytest.mark.parametrize("case", WIDE16_CHUNKS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_wide_wgmma_chunk_entries_match_plain_version(cuda, case, dtype):
+    """The chunk entries through the wgmma kernels: out and lse against the
+    plain version (rows without a valid key: lse <= -1e29, finite out),
+    then dq, dk and dv under both cotangents (do and the lse's) against the
+    plain backward; masked keys get exactly 0 in dk and dv, rows without a
+    key exactly 0 in dq; both runs repeat bit for bit."""
+    q, k, v, km, do, dlse, kw = _chunk_case(cuda, case, dtype, seed=31)
+    out, lse = fa.flash_attention_block(q, k, v, kmask=km, **kw)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, kmask=km, with_lse=True, **kw)
+    rows = _rows_with_a_key(case, km, cuda)
+    w = rows[:, :, None, None].float()
+    tol = BF16 if dtype == torch.bfloat16 else F16
+    torch.testing.assert_close(out.float() * w, ref.float() * w, **tol)
+    wl = rows[:, None, :].float()
+    torch.testing.assert_close(lse * wl, ref_lse * wl, rtol=1e-5, atol=1e-4)
+    assert bool((lse[~rows[:, None, :].expand_as(lse)] <= -1e29).all())
+    assert bool(torch.isfinite(out.float()).all())
+    again = fa.flash_attention_block(q, k, v, kmask=km, **kw)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+    grads = []
+    for _ in range(2):
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        o, l = fa.flash_attention_block_grad(qg, kg, vg, kmask=km, **kw)
+        torch.autograd.backward((o, l), (do, dlse))
+        grads.append((qg.grad, kg.grad, vg.grad))
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, km, dlse=dlse, **kw)
+    assert torch.count_nonzero(grads[0][0][~rows]) == 0
+    if km is not None:
+        dead = km <= 0
+        assert torch.count_nonzero(grads[0][1][dead]) == 0
+        assert torch.count_nonzero(grads[0][2][dead]) == 0
+    for got, ref_g in zip(grads[0], want):
+        assert got.shape == ref_g.shape and got.dtype == dtype
+        _close_rel(got, ref_g, 2e-2)
+        _close_per_tile(got, ref_g, 1e-2)
+
+
+@pytest.mark.parametrize("T", [1, 65, 129, 300])
+@pytest.mark.parametrize("D,dtype,kmask", [(512, torch.bfloat16, None),
+                                           (320, torch.float16, "varlen"),
+                                           (576, torch.bfloat16, "leading")])
+def test_wide_wgmma_ragged_T_and_masks(cuda, T, D, dtype, kmask):
+    """T not a multiple of the 64-row blocks, the key mask, rows that see
+    no key (the first 37 keys of batch 0 masked, causal): forward and
+    backward against the plain versions, repeated bit for bit."""
+    B, H = 2, 2
+    q, k, v = _qkv(cuda, B, T, H, D, dtype, strided=True, seed=T + D)
+    km = None
+    if kmask == "varlen":
+        km = _varlen(cuda, B, T, seed=T)
+    elif kmask == "leading":
+        km = torch.ones(B, T, device=cuda)
+        km[0, :37] = 0.0
+    out, lse = fa.flash_fwd_cuda(q, k, v, kmask=km, causal=True)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=True, kmask=km, with_lse=True)
+    seen = torch.ones(B, T, device=cuda) if km is None else (km > 0).cummax(1).values.float()
+    tol = BF16 if dtype == torch.bfloat16 else F16
+    torch.testing.assert_close(out.float() * seen[:, :, None, None],
+                               ref.float() * seen[:, :, None, None], **tol)
+    torch.testing.assert_close(lse * seen[:, None], ref_lse * seen[:, None], rtol=1e-5, atol=1e-4)
+    assert bool(torch.isfinite(out.float()).all() and torch.isfinite(lse).all())
+    g = torch.Generator(device=cuda).manual_seed(T)
+    do = torch.randn(B, T, H, D, generator=g, device=cuda).to(dtype)
+    got = fa.flash_bwd_cuda(q, k, v, out, lse, do, km, True)
+    again = fa.flash_bwd_cuda(q, k, v, out, lse, do, km, True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(out, fa.flash_fwd_cuda(q, k, v, kmask=km, causal=True)[0])
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, km, True)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        if T == 1 and name != "dv":
+            # one key: p = 1 and dp - delta = 0, so dq and dk are 0 up to f32
+            # rounding noise (~1e-6), held 3 orders below a bf16 ulp of O(1)
+            assert a.float().abs().max().item() <= 1e-5, name
+            continue
+        _close_rel(a, b, 2e-2)
+        _close_per_tile(a, b, 1e-2)
+
+
+@pytest.mark.parametrize("D", [3072, 4096])
+def test_wide_wgmma_column_groups_see_the_same_p(cuda, D):
+    """Past 512 columns (dk/dv: 256) the grid runs column groups that each
+    recompute the scores, and inside a group two warpgroups sum their own
+    columns: with v (and do, and q) repeating every 128 columns, every
+    128-column slice of out, dv and dk must be bit-equal to the first, which
+    holds only if every group and warpgroup used the same p and ds."""
+    B, T, H, dtype = 1, 256, 2, torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(D)
+
+    def periodic():
+        return torch.randn(B, T, H, 128, generator=g, device=cuda).to(dtype).repeat(
+            1, 1, 1, D // 128)
+
+    q, v, do = periodic(), periodic(), periodic()
+    k = torch.randn(B, T, H, D, generator=g, device=cuda).to(dtype)
+    out, lse = fa.flash_fwd_cuda(q, k, v, causal=True)
+    ref = fa.flash_attention_reference(q, k, v, causal=True)
+    torch.testing.assert_close(out.float(), ref.float(), **BF16)
+    delta = fa._delta(out, do)
+    dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, None, True)
+    for name, x in (("out", out), ("dk", dk), ("dv", dv)):
+        slices = x.view(B, T, H, D // 128, 128)
+        assert torch.equal(slices, slices[:, :, :, :1].expand_as(slices)), name
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, None, True)
+    _close_rel(dk, want[1], 2e-2)
+    _close_rel(dv, want[2], 2e-2)
 
 
 # -- ComputationGraph ---------------------------------------------------------
