@@ -20,9 +20,10 @@ non-zero (and without a result line when no CUDA device is present):
    (native/fastload.cpp) into build/ beside them; registers, shared memory and spills per kernel
    instantiation (72), and the HGMMA (wgmma) count of each flash kernel
    from cuobjdump -sass. The 24 bf16 and f16 wgmma kernels (forward, dq,
-   dk/dv at D = 32, 64, 128, 256) and the 4 of the wide-head route (bf16
-   and f16 forward and dk/dv past D = 256) must show HGMMA and no spills,
-   ptxas must not serialize the wide-head wgmmas (C7514), and the shared
+   dk/dv at D = 32, 64, 128, 256) and the 6 of the wide-head route (bf16
+   and f16 forward, dq and dk/dv past D = 256) must show HGMMA and no
+   spills, the wide f32 forward on register tiles no spills, ptxas must
+   not serialize the wide-head wgmmas (C7514), and the shared
    memory and column groups the library reports for ops/flash_attention.py
    wide_plan's plans (D = 320, 512, 2880, 3072, 4096, every dtype), from
    the kernels' own layouts, must equal the plans'; the LSTM kernels no
@@ -45,15 +46,16 @@ non-zero (and without a result line when no CUDA device is present):
    kernels #2/#3) at the flagship shape, the plain versions, and torch's
    scaled_dot_product_attention forward and backward as a yardstick only.
    Then the wide-head route (D past 256, csrc/flash_wide.cu: the bf16/f16
-   forward and dk/dv on wgmma and TMA, the f32 ones and dq on FMAs) through
-   the same wrappers: forward and backward at D = 320 and 512 in bf16 and
+   forward, dq and dk/dv on wgmma and TMA, the f32 forward on register
+   tiles, the f32 dq and dk/dv on FMAs) through the same wrappers: forward
+   and backward at D = 320 and 512 in bf16 and
    f32 (causal; key masks), f16 at D = 300 and 512, bf16 at D = 576 and
    1024, at B16 T2048 H4 D512 (the flagship's products at 4 heads), and
    in column groups D = 3072 (bf16, f32) and 4096 (bf16) at B=1, T=256,
    H=2, each against the plain versions and repeated bit for bit, and each
-   kernel timed at B16 T2048 H4 D512, at B=2, T=512, H=4 (D = 320, 512)
-   and at B=1, T=256, H=2 (D = 3072, 4096) beside its bound, the plain
-   versions and SDPA.
+   kernel timed at B16 T2048 H4 D512 (bf16 and f32), at B=2, T=512, H=4
+   (D = 320, 512) and at B=1, T=256, H=2 (D = 3072, 4096) beside its bound,
+   the plain versions and SDPA (with the SDPA backend that ran).
 4. small   — a tiny TransformerLM through the port on the CPU (plain
    versions) and on the GPU (the kernels) with the same weights: the
    output, then 3 SGD steps (loss per step, final params, 2 launches of
@@ -487,12 +489,16 @@ non-zero (and without a result line when no CUDA device is present):
    and one 16 x 2048 dispatch (8 launches of the wide forward each, no
    other route, no backward), the dispatch's forward by CUDA events; then a
    warm Adam step (1e-4) and 3 timed ones on 16 x 2048 tokens (CUDA
-   events; 8 launches of the wide forward, dq and dk/dv a step; the loss
-   falls), one step split into forward / backward / update, peak memory.
+   events; 8 launches of the wide forward, dq and dk/dv a step, the dq on
+   wgmma; the loss falls), one step split into forward / backward /
+   update, peak memory. Then the same model in float32 served the same way
+   (the wide f32 forward on register tiles: 8 launches a dispatch, no
+   backward), its 16 x 2048 forward by CUDA events and its peak memory.
 
 It ends with the command time, the kernels line (launches of each kernel
-by path, the new phases' included; the wide-head wgmma forward and dk/dv
-as rows of their own, launched on phase 40's paths), the card's name and power limit, and
+by path, the new phases' included; the wide-head kernels as rows of their
+own: the wgmma forward, dq and dk/dv and the f32 forward on register
+tiles, launched on phase 40's paths), the card's name and power limit, and
 ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -855,19 +861,20 @@ def build_report() -> dict:
     check(len(dwh_wgmma) == 2 and all(k["hgmma"] > 0 for k in dwh_wgmma),
           f"the 16-bit dWh product shows no HGMMA: {dwh_wgmma}")
     kernels += dwh_wgmma
-    # the wide-head flash route (D > 256), D at run time: the FMA kernels
-    # (f32 forward and dk/dv, dq in every dtype; 3 kernels x 3 dtypes) and the
-    # bf16/f16 wgmma forward and dk/dv (2 kernels x 2 dtypes), each with
-    # wide_plan's plan at the timed head dims, whose bytes and groups the
-    # library reports from the kernels' own layouts
+    # the wide-head flash route (D > 256), D at run time: the f32 forward on
+    # register tiles, the f32 dq and dk/dv on FMAs, and the bf16/f16 wgmma
+    # forward, dq and dk/dv (3 kernels x 2 dtypes), each with wide_plan's
+    # plan at the timed head dims, whose bytes and groups the library
+    # reports from the kernels' own layouts
     wide = fa._wide_kernel_lib()
     # ptxas's notes (C75xx) name a kernel outside its own report: drop them
     wlog = "\n".join(line for line in _build.BUILD_LOG.get("flash_wide", "").splitlines()
                      if "(C75" not in line)
     wide_lib = _build.build("flash_wide")
-    wide_wgmma = []
+    wide_wgmma, wide_tiles = [], []
     for which, kern in enumerate(fa.WIDE_KERNELS):
-        for name in (f"flash_wide_{kern}_kernel", f"flash_wide_{kern}_wgmma_kernel"):
+        for name in (f"flash_wide_{kern}_kernel", f"flash_wide_{kern}_tiles_kernel",
+                     f"flash_wide_{kern}_wgmma_kernel"):
             rows = _ptxas_report_typed(wlog, name)
             for r in rows:
                 code = _DTYPE_CODE[r["dtype"]]
@@ -888,21 +895,28 @@ def build_report() -> dict:
                 for r in rows:
                     r["hgmma"] = counts.get(r["dtype"], 0)
                 wide_wgmma += rows
+            if "_tiles_" in name:
+                wide_tiles += rows
             kernels += rows
-    check(len(wide_wgmma) == 4 and {k["dtype"] for k in wide_wgmma} == {"bfloat16", "float16"},
-          f"expected the 4 bf16/f16 wide-head wgmma instantiations (forward, dk/dv), "
+    check(len(wide_wgmma) == 6 and {k["dtype"] for k in wide_wgmma} == {"bfloat16", "float16"}
+          and {k["kernel"] for k in wide_wgmma} == {f"flash_wide_{k}_wgmma_kernel"
+                                                     for k in fa.WIDE_KERNELS},
+          f"expected the 6 bf16/f16 wide-head wgmma instantiations (forward, dq, dk/dv), "
           f"parsed {wide_wgmma}")
     check(all(k["hgmma"] > 0 for k in wide_wgmma),
           f"a wide-head wgmma kernel has no HGMMA: {wide_wgmma}")
     check(all(k["spill_stores"] == 0 and k["spill_loads"] == 0 for k in wide_wgmma),
           f"a wide-head wgmma kernel spills: {wide_wgmma}")
+    check(len(wide_tiles) == 1 and wide_tiles[0]["dtype"] == "float32"
+          and wide_tiles[0]["spill_stores"] == 0 and wide_tiles[0]["spill_loads"] == 0,
+          f"the wide f32 forward on register tiles is missing or spills: {wide_tiles}")
     check("C7514" not in _build.BUILD_LOG.get("flash_wide", ""),
           "ptxas serializes a wide-head kernel's wgmmas (C7514)")
     seconds = time.perf_counter() - t0
     check(len(kernels) == 72, f"expected 72 kernel instantiations (flash: 3 kernels x (4 f32 "
-                              f"+ 8 bf16/f16 head dims), the wide-head route's FMA forward and "
-                              f"dk/dv (f32) and dq (3 dtypes) and its wgmma forward and dk/dv "
-                              f"(bf16, f16); LSTM: 3 dtypes x (2 cluster kernels x 2 row counts "
+                              f"+ 8 bf16/f16 head dims), the wide-head route's f32 forward on "
+                              f"register tiles, FMA dq and dk/dv (f32) and its wgmma forward, dq "
+                              f"and dk/dv (bf16, f16); LSTM: 3 dtypes x (2 cluster kernels x 2 row counts "
                               f"+ 2 wide kernels + 2 step kernels + the dWh product)) in the "
                               f"ptxas reports, parsed {len(kernels)}")
     lstm_spills = [k for k in kernels if k["kernel"].startswith(("fused_lstm", "dwh_"))
@@ -1265,24 +1279,36 @@ def kernel_phase() -> dict:
             "wide_head": wide_head_checks()}
 
 
+def sdpa_backend(q, k, v, causal) -> str:
+    """The backend scaled_dot_product_attention picks for these inputs (as
+    its dispatcher does, requires_grad included)."""
+    from torch.nn.attention import SDPBackend
+
+    code = int(torch._fused_sdp_choice(q, k, v, is_causal=causal))
+    return {m.value: n for n, m in SDPBackend.__members__.items()}.get(code, str(code))
+
+
 def wide_head_checks() -> dict:
     """The wide-head route (head dims past 256, csrc/flash_wide.cu: the
-    16-bit forward and dk/dv on wgmma, the rest on FMAs) through the same
-    wrappers: forward and backward cases against the plain versions (D =
-    320 and 512 in bf16 and f32, causal and with a key mask; f16 at D = 300,
-    zero-padded to 320, and 512; bf16 D = 576 (three column groups) and
-    1024 with rows that see no key; WIDE_FLAGSHIP), then each kernel timed
-    at WIDE_FLAGSHIP, WIDE_FLASH_SHAPE and WIDEST_FLASH_SHAPE beside its
-    bound, the plain versions and SDPA."""
+    16-bit forward, dq and dk/dv on wgmma, the f32 forward on register
+    tiles, the f32 dq and dk/dv on FMAs) through the same wrappers: forward
+    and backward cases against the plain versions (D = 320 and 512 in bf16
+    and f32, causal and with a key mask; f16 at D = 300, zero-padded to
+    320, and 512; f32 at D = 300 with rows that see no key; bf16 D = 576
+    (three column groups) and 1024 with rows that see no key; WIDE_FLAGSHIP
+    in bf16 and f32), then each kernel timed at WIDE_FLAGSHIP (bf16 and
+    f32), WIDE_FLASH_SHAPE and WIDEST_FLASH_SHAPE beside its bound, the
+    plain versions and SDPA (naming the backend SDPA ran)."""
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     specs = ((320, bf16, True, None), (320, bf16, False, "varlen"), (320, f32, True, "varlen"),
              (320, f32, False, None), (512, bf16, True, "varlen"), (512, bf16, False, None),
              (512, f32, True, None), (512, f32, False, "varlen"), (300, f16, True, None),
              (1024, bf16, True, "leading"), (576, bf16, True, "varlen"),
-             (512, f16, False, "leading"))
+             (512, f16, False, "leading"), (300, f32, True, "leading"))
     cases = [dict(B=2, T=300, H=3, D=D, dtype=dt, causal=c, kmask=m, seed=200 + i)
              for i, (D, dt, c, m) in enumerate(specs)]
-    cases += [dict(WIDE_FLAGSHIP, dtype=bf16, causal=True, kmask=None, seed=250)]
+    cases += [dict(WIDE_FLAGSHIP, dtype=dt, causal=True, kmask=None, seed=250)
+              for dt in (bf16, f32)]
     cases += [dict(B=1, T=65, H=1, D=320, dtype=bf16, causal=True, kmask=None, seed=220,
                    same_as_contiguous=True)]
     # past D = 2880: the outputs' columns in groups, the scores recomputed
@@ -1297,7 +1323,7 @@ def wide_head_checks() -> dict:
     bad = [r for r in bwd if not r["ok"]]
     check(not bad, f"the wide-head backward disagrees with its plain version: {bad}")
     timing = []
-    shapes = [(dict(B=16, T=2048, H=4), 512, bf16)]
+    shapes = [(dict(B=16, T=2048, H=4), 512, bf16), (dict(B=16, T=2048, H=4), 512, f32)]
     shapes += [(WIDE_FLASH_SHAPE, D, dt) for D in (320, 512) for dt in (bf16, f32)]
     shapes += [(WIDEST_FLASH_SHAPE, 3072, bf16), (WIDEST_FLASH_SHAPE, 3072, f32),
                (WIDEST_FLASH_SHAPE, 4096, bf16)]
@@ -1332,7 +1358,9 @@ def wide_head_checks() -> dict:
                        qt, kt, vt, is_causal=True), 10),
                "library_bwd_ms": time_cuda(lambda: torch.autograd.grad(
                    o, (qg, kg, vg), dot, retain_graph=True), 5),
-               "library": "scaled_dot_product_attention forward / backward (dq, dk, dv)"}
+               "library": "scaled_dot_product_attention forward / backward (dq, dk, dv)",
+               "library_backend": {"fwd": sdpa_backend(qt, kt, vt, True),
+                                   "fwd_bwd": sdpa_backend(qg, kg, vg, True)}}
         row["fwd_bound_ms"], row["fwd_bound_by"] = attention_bound(
             B, T, H, D, True, es, peak)[:2]
         for name in ("dq", "dkv"):
@@ -7662,16 +7690,69 @@ def analysis_phase() -> dict:
     return res
 
 
+def _wide_lm_counts():
+    return {**_launch_counts(), **dict(fa.WIDE_LAUNCHES)}
+
+
+def _wide_lm_serve(model, name: str, ids1, ids16, V: int) -> dict:
+    """Phase 40's serving path for one model: every count goes to 0, then
+    the model registered with ServeConfig(max_batch=16) (its warm
+    dispatches), one 1 x 128 request and one 16 x 2048 dispatch, each with
+    8 launches of the wide forward and none of kernel #1 or of a backward
+    kernel; then the 16-row dispatch's forward by CUDA events, outside the
+    counted run."""
+    def since(before):
+        return {k: v - before[k] for k, v in _wide_lm_counts().items()}
+
+    _zero_flash_counts()
+    _zero_wide_counts()
+    registry = ModelRegistry(config=ServeConfig(
+        max_batch=16, queue_limit=64, max_wait_s=0.1, default_deadline_s=600.0))
+    registry.register(name, model)
+    warm = _wide_lm_counts()
+    worker = registry.worker(name)
+    try:
+        runs = {}
+        for label, ids in (("1x128", ids1), ("16x2048", ids16)):
+            before, b0 = _wide_lm_counts(), worker.stats()["batches"]
+            n_spans = len(obs.recent_spans())
+            out = worker.submit(ids, deadline_s=600.0)
+            dispatches = [sp for sp in obs.recent_spans()[n_spans:]
+                          if sp["span"] == "serve.dispatch"]
+            runs[label] = {"dispatches": worker.stats()["batches"] - b0,
+                           "dispatch_s": [sp["wall_s"] for sp in dispatches],
+                           "launches": since(before),
+                           "max_row_sum_dev": check_rows(torch.from_numpy(out), ids.shape + (V,),
+                                                         f"{name} {label}")}
+            del out
+    finally:
+        registry.shutdown()
+    torch.cuda.synchronize()
+    serve_launches = _wide_lm_counts()
+    for label, r in runs.items():
+        n = r["dispatches"]
+        check(r["launches"]["flash_wide_fwd"] == 8 * n == r["launches"]["flash_fwd"],
+              f"{name} {label}: {r['launches']} over {n} dispatches, not 8 wide forward "
+              f"launches each")
+    check(serve_launches["flash_wide_fwd"] == serve_launches["flash_fwd"] > 0
+          and serve_launches["flash_bwd_dq"] == serve_launches["flash_bwd_dkv"] == 0
+          and serve_launches["flash_wide_bwd_dq"] == serve_launches["flash_wide_bwd_dkv"] == 0,
+          f"{name} serving launched another route or a backward kernel: {serve_launches}")
+    forward_ms = time_cuda(lambda: model.output(ids16), iters=3, warmup=1)
+    return {"config": {"max_batch": 16}, "warm_launches": warm, "runs": runs,
+            "launches": serve_launches, "forward_16x2048_ms": forward_ms}
+
+
 def wide_lm_phase() -> dict:
     """Phase 40: the flagship TransformerLM with 4 heads (WIDE_LM_CONF: D =
-    512, so every attention runs the wide-head route) served and trained.
-    Counts go to 0 just before each path and are read just after: the model
-    registered with ServeConfig(max_batch=16) (its warm dispatches), one 1 x
-    128 request and one 16 x 2048 dispatch (8 launches of the wide forward
-    each, none of kernel #1 or of a backward kernel); then a warm Adam step
-    and 3 timed ones at 16 x 2048 (CUDA events; 8 launches of the wide
-    forward, dq and dk/dv a step), a falling loss, one more step split into
-    forward / backward / update, and the peak memory."""
+    512, so every attention runs the wide-head route) served and trained,
+    then served in float32. Counts go to 0 just before each path and are
+    read just after: the bf16 model served (_wide_lm_serve); then a warm
+    Adam step and 3 timed ones at 16 x 2048 (CUDA events; 8 launches of the
+    wide forward, dq and dk/dv a step), a falling loss, one more step split
+    into forward / backward / update, and the peak memory; then the same
+    configuration with dtype float32 (the wide f32 forward on register
+    tiles) served the same way, with its peak memory."""
     t0 = time.perf_counter()
     conf = zoo.TransformerLM(updater={"type": "adam", "lr": TRAIN_LR}, **WIDE_LM_CONF)
     V, T = WIDE_LM_CONF["vocab_size"], WIDE_LM_CONF["max_len"]
@@ -7681,49 +7762,9 @@ def wide_lm_phase() -> dict:
     ids16 = rng.randint(0, V, (16, T)).astype(np.int64)
     torch.cuda.reset_peak_memory_stats()
 
-    def counts():
-        return {**_launch_counts(), **dict(fa.WIDE_LAUNCHES)}
-
-    def since(before):
-        return {k: v - before[k] for k, v in counts().items()}
-
     # the serving path: every launch below is counted
-    _zero_flash_counts()
-    _zero_wide_counts()
     model = MultiLayerNetwork(conf).init()
-    registry = ModelRegistry(config=ServeConfig(
-        max_batch=16, queue_limit=64, max_wait_s=0.1, default_deadline_s=600.0))
-    registry.register("wide_lm", model)
-    warm = counts()
-    worker = registry.worker("wide_lm")
-    try:
-        runs = {}
-        for label, ids in (("1x128", ids1), ("16x2048", ids16)):
-            before, b0 = counts(), worker.stats()["batches"]
-            n_spans = len(obs.recent_spans())
-            out = worker.submit(ids, deadline_s=600.0)
-            dispatches = [sp for sp in obs.recent_spans()[n_spans:]
-                          if sp["span"] == "serve.dispatch"]
-            runs[label] = {"dispatches": worker.stats()["batches"] - b0,
-                           "dispatch_s": [sp["wall_s"] for sp in dispatches],
-                           "launches": since(before),
-                           "max_row_sum_dev": check_rows(torch.from_numpy(out), ids.shape + (V,),
-                                                         f"wide_lm {label}")}
-            del out
-    finally:
-        registry.shutdown()
-    torch.cuda.synchronize()
-    serve_launches = counts()
-    for label, r in runs.items():
-        n = r["dispatches"]
-        check(r["launches"]["flash_wide_fwd"] == 8 * n == r["launches"]["flash_fwd"],
-              f"wide_lm {label}: {r['launches']} over {n} dispatches, not 8 wide forward "
-              f"launches each")
-    check(serve_launches["flash_wide_fwd"] == serve_launches["flash_fwd"] > 0
-          and serve_launches["flash_bwd_dq"] == serve_launches["flash_bwd_dkv"] == 0,
-          f"wide_lm serving launched another route or a backward kernel: {serve_launches}")
-    # the 16-row dispatch's forward by CUDA events, outside the counted run
-    forward_ms = time_cuda(lambda: model.output(ids16), iters=3, warmup=1)
+    serve = _wide_lm_serve(model, "wide_lm", ids1, ids16, V)
 
     # the training path: a warm step, then 3 timed, every launch counted
     xt = torch.as_tensor(ids16, device="cuda")
@@ -7739,7 +7780,7 @@ def wide_lm_phase() -> dict:
         losses.append(model._fit_batch(xt, yt, None, None))
     ev[1].record()
     torch.cuda.synchronize()
-    train_launches = counts()
+    train_launches = _wide_lm_counts()
     step_ms = ev[0].elapsed_time(ev[1]) / 3
     losses = [float(v) for v in losses]
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
@@ -7748,6 +7789,7 @@ def wide_lm_phase() -> dict:
         check(train_launches[name] == 8 * 4,
               f"wide_lm: {name} launched {train_launches[name]} times in 4 steps, not 8 a step")
     check(train_launches["flash_fwd"] == train_launches["flash_wide_fwd"]
+          and train_launches["flash_bwd_dq"] == train_launches["flash_wide_bwd_dq"]
           and train_launches["flash_bwd_dkv"] == train_launches["flash_wide_bwd_dkv"],
           f"wide_lm: a training launch took another route: {train_launches}")
     peak = torch.cuda.max_memory_allocated()
@@ -7767,13 +7809,24 @@ def wide_lm_phase() -> dict:
     del model, grads, live, leaves, loss
     gc.collect()
     torch.cuda.empty_cache()
+
+    # the f32 serving path: the same configuration in float32
+    torch.cuda.reset_peak_memory_stats()
+    model = MultiLayerNetwork(zoo.TransformerLM(**dict(WIDE_LM_CONF, dtype="float32"))).init()
+    check(model.num_params() == n_params, "wide_lm_f32 has other params than wide_lm")
+    serve32 = _wide_lm_serve(model, "wide_lm_f32", ids1, ids16, V)
+    serve32["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     return {"phase": "wide_lm",
             "model": {"vocab": V, "T": T, "d_model": C, "heads": H, "head_dim": C // H,
                       "blocks": L, "dtype": "bfloat16", "params": n_params},
-            "routes": {kern: fa.wide_plan(kern, C // H, torch.bfloat16).route
-                       for kern in fa.WIDE_KERNELS},
-            "serve": {"config": {"max_batch": 16}, "warm_launches": warm, "runs": runs,
-                      "launches": serve_launches, "forward_16x2048_ms": forward_ms},
+            "routes": {str(dt).split(".")[-1]: {kern: fa.wide_plan(kern, C // H, dt).route
+                                                for kern in fa.WIDE_KERNELS}
+                       for dt in (torch.bfloat16, torch.float32)},
+            "serve": serve,
+            "serve_f32": serve32,
             "train": {"rows": 16, "steps_timed": 3, "loss": losses, "launches": train_launches,
                       "step_ms": step_ms,
                       "split_ms": {"forward": ev[2].elapsed_time(ev[3]),
@@ -8044,45 +8097,57 @@ def main() -> int:
             wide_head=[{k: r[k] for k in ("shape", "dtype", "column_groups", f"{key}_ms",
                                           f"{key}_bound_ms", "library_bwd_ms")}
                        for r in kern["wide_head"]["timing"]]))
-    # the wide-head kernels on phase 40's path (the 16-bit forward and dk/dv
-    # on wgmma, dq on FMAs in every dtype): launches from phase 40, timed at
-    # WIDE_FLAGSHIP (the first timing row)
+    # the wide-head kernels on phase 40's paths (the 16-bit forward, dq and
+    # dk/dv on wgmma, the f32 forward on register tiles): launches from
+    # phase 40 (the f32 forward: its f32 serving path), timed at
+    # WIDE_FLAGSHIP (the first two timing rows: bf16, f32)
     wh = kern["wide_head"]
-    wt = wh["timing"][0]
-    check(wt["shape"] == [WIDE_FLAGSHIP[k] for k in ("B", "T", "H", "D")], wt["shape"])
-    wf = [c for c in wh["cases"] if [c["B"], c["T"], c["H"], c["D"]] == wt["shape"]][0]
-    wb = [c for c in wh["bwd_cases"] if [c["B"], c["T"], c["H"], c["D"]] == wt["shape"]][0]
-    w16 = [c for c in wh["cases"] if c["dtype"] != "float32"]
-    w16b = [c for c in wh["bwd_cases"] if c["dtype"] != "float32"]
-    for name, key, line, launch_key, errs, kernels in (
-            ("flash_wide_fwd_wgmma", "fwd", 57, "flash_wide_fwd", None,
+    flagship = [WIDE_FLAGSHIP[k] for k in ("B", "T", "H", "D")]
+    wt, wt32 = wh["timing"][:2]
+    check(wt["shape"] == wt32["shape"] == flagship and wt["dtype"] == "bfloat16"
+          and wt32["dtype"] == "float32", (wt["shape"], wt32["shape"]))
+
+    def flagship_case(cases, dtype):
+        return [c for c in cases if [c["B"], c["T"], c["H"], c["D"]] == flagship
+                and c["dtype"] == dtype][0]
+
+    for name, key, line, launch_key, errs, dtype, kernels in (
+            ("flash_wide_fwd_wgmma", "fwd", 57, "flash_wide_fwd", None, "bfloat16",
              "flash_wide_fwd_wgmma_kernel (bf16, f16; head dims past 256)"),
-            ("flash_wide_dq", "dq", 224, "flash_wide_bwd_dq", ("dq",),
-             "flash_wide_dq_kernel (FMA, every dtype; head dims past 256)"),
-            ("flash_wide_dkv_wgmma", "dkv", 275, "flash_wide_bwd_dkv", ("dk", "dv"),
+            ("flash_wide_fwd_tiles", "fwd", 57, "flash_wide_fwd", None, "float32",
+             "flash_wide_fwd_tiles_kernel (f32 register tiles; head dims past 256)"),
+            ("flash_wide_dq_wgmma", "dq", 224, "flash_wide_bwd_dq", ("dq",), "bfloat16",
+             "flash_wide_dq_wgmma_kernel (bf16, f16; head dims past 256)"),
+            ("flash_wide_dkv_wgmma", "dkv", 275, "flash_wide_bwd_dkv", ("dk", "dv"), "bfloat16",
              "flash_wide_dkv_wgmma_kernel (bf16, f16; head dims past 256)")):
-        by = {"wide_lm_serve": wlm["serve"]["launches"][launch_key],
-              "wide_lm_train": wlm["train"]["launches"][launch_key]}
+        f32 = dtype == "float32"
+        tr = wt32 if f32 else wt
+        by = ({"wide_lm_serve_f32": wlm["serve_f32"]["launches"][launch_key]} if f32 else
+              {"wide_lm_serve": wlm["serve"]["launches"][launch_key],
+               "wide_lm_train": wlm["train"]["launches"][launch_key]})
+        same = [c for c in (wh["cases"] if errs is None else wh["bwd_cases"])
+                if (c["dtype"] == "float32") == f32]
         if errs is None:
-            err = wf["max_abs_err"]
-            max_err = max(c["max_abs_err"] for c in w16)
-            plain, library = wt["plain_fwd_ms"], wt["library_fwd_ms"]
+            err = flagship_case(wh["cases"], dtype)["max_abs_err"]
+            max_err = max(c["max_abs_err"] for c in same)
+            plain, library = tr["plain_fwd_ms"], tr["library_fwd_ms"]
         else:
-            # dq runs the FMA kernel in every dtype: its error over every case
-            cases = wh["bwd_cases"] if key == "dq" else w16b
+            wb = flagship_case(wh["bwd_cases"], dtype)
             err = max(wb[f"{e}_max_abs_err"] for e in errs)
-            max_err = max(c[f"{e}_max_abs_err"] for c in cases for e in errs)
-            plain, library = wt["plain_bwd_ms"], wt["library_bwd_ms"]
+            max_err = max(c[f"{e}_max_abs_err"] for c in same for e in errs)
+            plain, library = tr["plain_bwd_ms"], tr["library_bwd_ms"]
         rows.append(_kernel_row(
             name, "deeplearning4j_tpu_torch/csrc/flash_wide.cu",
             f"deeplearning4j_tpu/ops/flash_attention.py:{line}",
-            sum(by.values()), by, err, wt[f"{key}_ms"], plain, wt[f"{key}_bound_ms"],
-            wt[f"{key}_bound_by"], library, max_err=max_err,
-            shape="B16 T2048 H4 D512 bf16, causal (the flagship's products at 4 heads)",
-            kernels=kernels,
+            sum(by.values()), by, err, tr[f"{key}_ms"], plain, tr[f"{key}_bound_ms"],
+            tr[f"{key}_bound_by"], library, max_err=max_err,
+            shape=f"B16 T2048 H4 D512 {'f32' if f32 else 'bf16'}, causal (the flagship's "
+                  f"products at 4 heads)",
+            kernels=kernels, library_backend=tr["library_backend"],
             plain_and_library_compute=("out" if errs is None else "dq, dk and dv together"),
             wide_head=[{k: r[k] for k in ("shape", "dtype", "routes", f"{key}_ms",
-                                          f"{key}_bound_ms")} for r in wh["timing"]]))
+                                          f"{key}_bound_ms")} for r in wh["timing"]
+                       if (r["dtype"] == "float32") == f32]))
     ct, ccases = chunk["timing"], chunk["cases"]
     chunk_by = {name: dict({f"ring_attention_{run}": r["chunk_launches"][name]
                             for run, r in rattn["runs"].items()},

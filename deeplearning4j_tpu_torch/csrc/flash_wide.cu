@@ -17,9 +17,9 @@
 // shared memory and column groups the launch takes under a plan, from the
 // layouts the kernels use, and chip_smoke.py holds them to wide_plan's.
 //
-// bf16 and f16, forward and dk/dv: wgmma kernels fed by TMA (the design of
-// kernels #1 and #3 carried past 256 columns; sm90_common.cuh holds the
-// shared pieces). Each block is three warpgroups: two consumers and a
+// bf16 and f16, forward, dq and dk/dv: wgmma kernels fed by TMA (the
+// design of kernels #1-#3 carried past 256 columns; sm90_common.cuh holds
+// the shared pieces). Each block is three warpgroups: two consumers and a
 // producer whose one thread keeps a ring of 8 KB slots full, one slot a
 // 64-row x 64-column box of a [B, T, H, D] view through a 4-D tensor map,
 // in the 128-byte swizzle wgmma reads (rows past T arrive as zeros). A
@@ -53,6 +53,32 @@
 //   the block loads none wholly above its last row. (A first design gave
 //   a block 64 rows and both warpgroups the same scores, each summing half
 //   of 512 columns: 1.75 ms, bound by its duplicated products.)
+// - dq (flash_wide_dq_wgmma_kernel): kernel #2's products in the forward's
+//   shape. A block owns 128 query rows, 64 a consumer warpgroup, and one
+//   column group of up to 256 dq columns (4 boxes, 128 f32 registers a
+//   thread). Per 64-key tile each warpgroup sums S = Q.K^T over all of D
+//   (m64n64k16, both K-major in shared memory, DQ_S_CHUNKS chunks a step,
+//   the previous step's batch in flight behind it), builds p = exp2(s
+//   scale log2(e) - lse log2(e)) where the pair is valid and exactly 0
+//   elsewhere and parks it in f32 in the thread's own words of shared
+//   memory, then sums dP = dO.V^T over all of D (one chunk a step) and
+//   builds ds = p (dp - delta) rounded to the operand type as the register
+//   A operand of dQ += dS.K, with the group's K boxes as the MN-major B
+//   operand (one batch); parking p costs 32 KB and no rounding. With dQ's
+//   128 accumulators a consumer needs more than 232 registers: at 232 (and
+//   the producer's 40) ptxas spilled and serialized the wgmmas (C7512),
+//   with S and dP side by side and in these two passes alike; at 240 (the
+//   producer 24), with the key mask read through the parameters, this one
+//   compiles clean (a one-pass kernel at 240 is untried). delta carries
+//   the chunk entries' lse cotangent (the wrapper folds it in). Q and dO
+//   of 128 rows stream, Q beside K and dO beside V: both resident would not
+//   fit at D = 512 (256 KB), and Q resident with dO streamed left 8 ring
+//   slots and took 2.54-2.67 ms at B16 T2048 H4 D512 against 2.18 streamed
+//   with 24 slots (on an H100, tools/wide_flash_bench.py --variants on
+//   this kernel before its resident path went). The group's K boxes come
+//   through the ring again for dQ. Past 256 columns the column groups
+//   recompute S and dP in the same order: at D = 512, 2 (S + dP) + dQ,
+//   1.67x the three products.
 // - dk/dv (flash_wide_dkv_wgmma_kernel): a block owns 64 key rows and one
 //   column group of up to 256 columns of dk and dv. Per 64-query tile each
 //   consumer warpgroup computes S^T = K.Q^T and dP^T = V.dO^T over all of D
@@ -79,34 +105,56 @@
 // pairs a group) with the column groups of one row block side by side, so
 // that blocks in flight share their K/V (Q/dO) in L2. Fixed order, no
 // atomics: a run repeats bit for bit. setmaxnreg gives a consumer thread
-// 232 registers and the producer's 40.
+// 232 registers and the producer's 40 (dq's: 240 and 24).
 //
-// float32 forward and dk/dv, and dq in every dtype: plain f32 FMAs from
-// shared memory in a fixed order (no TF32: f32 keeps f32 accuracy), the
-// first design of this route. D is a run-time loop over chunks of DC = 64
-// columns; the only array that grows with D is the block's f32 accumulator
-// in shared memory: the forward's O and dq's dQ [16 rows][G], dk/dv's dK
-// and dV [8 rows][G], for a column group of G output columns. Where the
-// whole of D fits one block (D up to 2880 for dq's layout, 2944 for
-// dk/dv's, 3200 for the forward's), G = D and the grid has one group; past
-// that the grid's z axis runs ceil(D / Gmax) groups of G = D / groups
-// columns (rounded up to 64; Gmax the widest multiple of 64 that fits), and
-// each block sums the scores (and dq's and dk/dv's dp = do . v^T) over ALL
-// of D again before accumulating its own columns, in the same order in
-// every group. The forward's lse is written by group 0 only. Everything
-// else streams through shared memory in [rows][64] f32 chunks read with
-// plain scalar loads through the [B, T, H, D] strides.
-// - forward: a block owns 16 query rows of one (batch, head) and walks
-//   64-key tiles (tiles strictly above the causal diagonal skipped). Scores
-//   are summed over the D chunks in registers (a thread: one key, 8 rows),
-//   masked to -1e30 (causal, keys past T, the key mask) as the TPU kernel
-//   does, then one warp's online softmax per row; O is rescaled and summed
-//   chunk by chunk (a thread: one column, 8 rows). out = O / l in the
-//   operand type, lse = m + log l in f32.
+// float32 forward (flash_wide_fwd_tiles_kernel): f32 FMAs on register
+// tiles (no TF32: f32 keeps f32 accuracy). A block of 256 threads owns 64
+// query rows and one column group of up to 512 output columns, and walks
+// 64-key tiles. An SM loads 32 words from shared memory a cycle and issues
+// 128 FMAs, so a product keeps its FMAs busy only where a thread does 4 or
+// more FMAs for each word it loads: an r x c register tile does r c FMAs
+// a step for r + c words, and only 8 x 8 reaches 4. 64 x 64 scores over
+// 256 threads are 4 x 4 a thread, so the threads split the columns
+// instead: four groups of 64 each sum 16 columns of every 64-column chunk
+// into an 8 x 8 tile (rows sy + 8 r, keys sx + 8 j), and the four
+// partials meet in shared memory, summed in group order. For the softmax
+// and P.V warp w holds rows w + 8 r and lane l keys l + 32 j, so a row's
+// max and sum are warp shuffles, and O over columns 4 l + 128 c of the
+// group (8 x 16 a thread, 128 f32 registers at 512 columns) stays in
+// registers; the rows' running max and sum sit in shared memory. Operands
+// stay f32 in shared memory in their natural layout, rows 4 banks apart
+// (float2 score loads, float4 P.V loads, free of bank conflicts within
+// each phase of a warp's access); K and Q chunks and V slabs (16 keys x
+// the group's columns) come through a ring of RT_SLOTS slots filled by
+// cp.async two items ahead of the products, so loads overlap the math. Q
+// streams with K (a resident 64 x 512 f32 Q would not fit beside the
+// partials). Column groups (past 512 columns) recompute the scores in the
+// same order, so every group sees the same p bit for bit; group 0 writes
+// lse. Blocks are numbered head group by head group, as the wgmma kernels'.
+// Design steps that did not hold: 4 x 4 score tiles (2 FMAs a word
+// loaded), a per-lane column test inside P.V (now only where the group is
+// narrower than 512), and 256-column groups (the scores twice at D = 512;
+// tools/wide_flash_bench.py --variants times them against one group). O's
+// 128 registers fit beside the 8 x 8 scores only with float2 score loads
+// and the row statistics out of registers.
+//
+// float32 dq and dk/dv: plain f32 FMAs from shared memory in a fixed order,
+// the first design of this route. D is a run-time loop over chunks of DC =
+// 64 columns; the only array that grows with D is the block's f32
+// accumulator in shared memory: dq's dQ [16 rows][G], dk/dv's dK and dV [8
+// rows][G], for a column group of G output columns. Where the whole of D
+// fits one block (D up to 2880 for dq's layout, 2944 for dk/dv's), G = D
+// and the grid has one group; past that the grid's z axis runs
+// ceil(D / Gmax) groups of G = D / groups columns (rounded up to 64; Gmax
+// the widest multiple of 64 that fits), and each block sums the scores and
+// dp = do . v^T over ALL of D again before accumulating its own columns, in
+// the same order in every group. Everything else streams through shared
+// memory in [rows][64] f32 chunks read with plain scalar loads through the
+// [B, T, H, D] strides.
 // - dq: a block owns 16 query rows; per 64-key tile the scores and
 //   dp = do . v^T are summed over the D chunks together, p = exp(s - lse)
-//   where the pair is valid and exactly 0 elsewhere, ds = p (dp - delta)
-//   rounded to the operand type, then dQ += ds . k chunk by chunk.
+//   where the pair is valid and exactly 0 elsewhere, ds = p (dp - delta),
+//   then dQ += ds . k chunk by chunk.
 // - dk/dv: a block owns 8 key rows and walks 64-query tiles (those strictly
 //   below the causal diagonal skipped): p^T and ds^T as above, then
 //   dV += p^T . do and dK += ds^T . q chunk by chunk.
@@ -119,10 +167,12 @@
 // Bound (B=16, T=2048, H=4, D=512, bf16, causal: the products of kernel
 // #1's flagship shape): the forward's two products are 2 * 2 * B*H*pairs*D
 // = 275 GFLOP, 0.278 ms at 989 TFLOP/s, against 0.54 GB of q, k, v and
-// out, 0.16 ms at 3.35 TB/s; dk/dv's four products 0.556 ms: both bound by
-// operations. The wgmma kernels' own costs on top: the recomputed products
-// above (1.5x at D = 512), and each K/V (Q/dO) box read from L2 once per
-// block of own rows.
+// out, 0.16 ms at 3.35 TB/s; dq's three products 0.417 ms, dk/dv's four
+// 0.556 ms: all bound by operations. In f32 the forward's 275 GFLOP take
+// 4.11 ms at 67 TFLOP/s of FMA. The kernels' own costs on top: the
+// products the column groups recompute (the 16-bit kernels' at D = 512,
+// the f32 forward's past 512), and each K/V (Q/dO) box read from L2 once
+// per block of own rows.
 
 #include "sm90_common.cuh"
 
@@ -132,11 +182,11 @@ constexpr float NEG_BIG = -1e30f;      // the TPU kernel's masked-score value
 constexpr int THREADS = 128;           // FMA kernels: four warps
 constexpr int DC = 64;                 // head-dim columns of a chunk
 constexpr int LDC = DC + 1;            // chunk row pitch (floats): rows one bank apart
-constexpr int QR = 16;                 // forward, dq: query rows a block owns
+constexpr int QR = 16;                 // dq: query rows a block owns
 constexpr int KT = 64;                 // forward, dq: keys of a tile
 constexpr int KR = 8;                  // dk/dv: key rows a block owns
 constexpr int QT = 64;                 // dk/dv: queries of a tile
-constexpr int RPT = 8;                 // forward, dq: rows a thread sums (QR / 2)
+constexpr int RPT = 8;                 // dq: rows a thread sums (QR / 2)
 constexpr int KPT = 4;                 // dk/dv: key rows a thread sums (KR / 2)
 constexpr size_t SMEM_LIMIT = 232448;  // the opt-in shared memory of one block
 constexpr int ERR_PLAN = -4;           // a launch plan the kernel cannot run
@@ -145,16 +195,6 @@ static_assert(THREADS == 2 * KT && THREADS == 2 * DC && THREADS == 2 * QT,
               "a thread owns one key (or query, or column) of half the rows");
 static_assert(QR == 2 * RPT && KR == 2 * KPT, "two row halves");
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(f16 x) { return __half2float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
-template <> __device__ __forceinline__ f16 from_f<f16>(float x) { return __float2half_rn(x); }
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
 
 struct Params {
   const void* q;
@@ -179,10 +219,6 @@ struct Params {
 };
 
 // The shared-memory floats of each FMA kernel's layout for a group of G columns.
-__host__ __device__ constexpr size_t fwd_floats(int G) {
-  return size_t(QR) * G + size_t(QR) * LDC + size_t(KT) * LDC + size_t(QR) * (KT + 1) + KT +
-         3 * QR;
-}
 __host__ __device__ constexpr size_t dq_floats(int G) {
   return size_t(QR) * G + 2 * size_t(QR) * LDC + 2 * size_t(KT) * LDC + size_t(QR) * (KT + 1) +
          KT + 2 * QR;
@@ -200,7 +236,7 @@ __device__ __forceinline__ void load_chunk(float* dst, const T* base, long long 
                                            int R, int T_len, int c0, int tid) {
   for (int i = tid; i < R * DC; i += THREADS) {
     const int r = i / DC, c = i % DC, t = t0 + r;
-    dst[r * LDC + c] = t < T_len ? to_f(base[(long long)t * st + c0 + c]) : 0.f;
+    dst[r * LDC + c] = t < T_len ? base[(long long)t * st + c0 + c] : 0.f;
   }
 }
 
@@ -218,6 +254,66 @@ __device__ __forceinline__ int key_tiles(const Params& p, int q0, int rows) {
   return last < 0 ? 0 : min(n, last / KT + 1);
 }
 
+// ===========================================================================
+// float32 forward: register tiles
+// ===========================================================================
+
+constexpr int RT_THREADS = 256;               // 8 warps
+constexpr int RT_ROWS = 64;                   // query rows a block owns
+constexpr int RT_LD = DC + 4;                 // 68 floats: a chunk row's pitch, 16-byte rows 4 banks apart
+constexpr int RT_CHUNK = RT_ROWS * RT_LD * 4; // 17,408 bytes: a 64 x 64 chunk
+constexpr int RT_SLOT = 2 * RT_CHUNK;         // a slot: a K chunk and a Q chunk, or a V slab
+constexpr int RT_CSL = 4;                     // 128-column slices of O a thread holds
+constexpr int RT_BOXES = 2 * RT_CSL;          // 64-column chunks of a group (G <= 512)
+constexpr int RT_VKEYS = 16;                  // keys of a V slab
+constexpr int RT_VLD = RT_BOXES * DC + 4;     // 260 floats: a V slab row's pitch
+constexpr int RT_SPLIT = 4;                   // 64-thread groups that split a chunk's columns
+constexpr int RT_PLD = KT + 8;                // 72 floats: the partial scores' and p's pitch
+constexpr int RT_PART = RT_ROWS * RT_PLD * 4; // 18,432 bytes: one group's partial scores, or p
+constexpr int RT_SLOTS = 3;                   // ring slots: two items in flight behind the products
+static_assert(RT_VKEYS * RT_VLD * 4 <= RT_SLOT, "a V slab fits a slot");
+static_assert(RT_THREADS == RT_SPLIT * 64 && RT_ROWS == 64 && KT == 64 && DC == RT_SPLIT * 16,
+              "8 x 8 score tiles of 64 threads, 16 columns of a chunk a group");
+
+// Shared memory of the f32 forward's layout: the ring, the four groups'
+// partial scores, p, the rows' running max and sum.
+__host__ __device__ constexpr size_t tiles_bytes() {
+  return size_t(RT_SLOTS) * RT_SLOT + size_t(RT_SPLIT) * RT_PART + RT_PART + 2 * RT_ROWS * 4;
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  // src-size 0: the 16 bytes are zeros and nothing is read
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [t0, t0 + 64) x columns [c0, c0 + 64) of one (batch, head) slice
+// into the chunk at dst (pitch RT_LD), one 16-byte copy at a time; rows at
+// or past T are zeros. Sixteen neighbouring threads copy one row.
+__device__ __forceinline__ void tiles_chunk(uint32_t dst, const float* base, long long st,
+                                            int t0, int T_len, int c0, int tid) {
+#pragma unroll
+  for (int i = 0; i < RT_ROWS * DC / 4 / RT_THREADS; ++i) {
+    const int idx = tid + RT_THREADS * i;
+    const int r = idx >> 4, c4 = (idx & 15) * 4, t = t0 + r;
+    const bool ok = t < T_len;
+    cp_async16(dst + (r * RT_LD + c4) * 4, base + (long long)(ok ? t : t0) * st + c0 + c4, ok);
+  }
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// max and sum over the 32 lanes of a warp (a row's 64 keys)
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -229,122 +325,246 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// ===========================================================================
-// FMA kernels: the forward and dk/dv in float32, dq in every dtype
-// ===========================================================================
+// O += P.V over one slab of RT_VKEYS keys from k_in: rows w + 8 r, columns
+// 4 lane + 128 c of the group (FULL: all 256 of them, no per-lane test).
+template <bool FULL>
+__device__ __forceinline__ void tiles_pv(float (&o)[8][RT_CSL][4], const float* Ps,
+                                         const float* sl, int k_in, int w, int lane, int gw) {
+#pragma unroll 2
+  for (int kk = 0; kk < RT_VKEYS; kk += 4) {
+    float4 pv[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      pv[r] = *reinterpret_cast<const float4*>(Ps + (w + 8 * r) * RT_PLD + k_in + kk);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float* vrow = sl + (kk + e) * RT_VLD + 4 * lane;
+#pragma unroll
+      for (int c = 0; c < RT_CSL; ++c) {
+        if (FULL || 4 * lane + 128 * c < gw) {
+          const float4 v = *reinterpret_cast<const float4*>(vrow + 128 * c);
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            const float pe = lane_of(pv[r], e);
+            o[r][c][0] = fmaf(pe, v.x, o[r][c][0]);
+            o[r][c][1] = fmaf(pe, v.y, o[r][c][1]);
+            o[r][c][2] = fmaf(pe, v.z, o[r][c][2]);
+            o[r][c][3] = fmaf(pe, v.w, o[r][c][3]);
+          }
+        }
+      }
+    }
+  }
+}
 
-// forward (float32)
-
+// A block owns 64 query rows of one (batch, head) and one column group.
+// Its item stream, per 64-key tile: the score chunks of all of D (a K and
+// a Q chunk), then the group's V in 2 slabs of 32 keys; item n is computed
+// from slot n % RT_SLOTS while items n + 1 and n + 2 are in flight.
+// Scores: group g (threads 64 g ..) sums columns [16 g, 16 g + 16) of each
+// chunk into an 8 x 8 tile a thread (rows sy + 8 r, keys sx + 8 j), the
+// groups' partials summed in shared memory in group order. The softmax and
+// P.V: warp w holds rows w + 8 r, lane l keys l + 32 j and the columns
+// 4 l + 128 c of O (8 x 8 a thread).
 template <typename T>
-__global__ void __launch_bounds__(THREADS) flash_wide_fwd_kernel(const Params p) {
+__global__ void __launch_bounds__(RT_THREADS, 1) flash_wide_fwd_tiles_kernel(const Params p) {
+  static_assert(std::is_same<T, float>::value, "float32 operands");
   extern __shared__ __align__(16) float sm[];
-  const int D = p.D, Tq = p.Tq, Tk = p.Tk, G = p.G;
-  const int g0 = blockIdx.z * G, gw = min(G, D - g0);   // this block's columns
-  float* Os = sm;                          // [QR][G] output accumulator
-  float* Qc = Os + QR * G;                 // [QR][LDC]
-  float* Kc = Qc + QR * LDC;               // [KT][LDC]: a K chunk, then a V chunk
-  float* Ps = Kc + KT * LDC;               // [QR][KT + 1]: scores, then p
-  float* kval = Ps + QR * (KT + 1);        // [KT]
-  float* alpha_s = kval + KT;              // [QR]
-  float* m_s = alpha_s + QR;               // [QR] running max
-  float* l_s = m_s + QR;                   // [QR] running normaliser
+  const int D = p.D, Tq = p.Tq, Tk = p.Tk, G = p.G, nbd = D / DC;
+  const int n_qb = (Tq + RT_ROWS - 1) / RT_ROWS;
+  const int n_groups = (D + G - 1) / G;
+  const int z = blockIdx.x % n_groups;   // column groups of one row block run side by side
+  int bh, qblk;
+  block_coords(blockIdx.x / n_groups, p.B * p.H, n_qb, p.causal, bh, qblk);
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = qblk * RT_ROWS;
+  const int g0 = z * G, gw = min(G, D - g0);   // this block's columns
+  float* ring = sm;                                        // RT_SLOTS slots
+  float* part = ring + RT_SLOTS * (RT_SLOT / 4);           // [RT_SPLIT][64][RT_PLD]
+  float* Ps = part + RT_SPLIT * (RT_PART / 4);             // p [64][RT_PLD]
+  float* m_s = Ps + RT_PART / 4;                           // [64] running max of each row
+  float* l_s = m_s + RT_ROWS;                              // [64] running sum
+  const uint32_t ring_s = smem_u32(ring);
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * QR;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int g = tid >> 6, sy = (tid & 63) >> 3, sx = tid & 7;   // the score split
+  const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* kmask = p.kmask != nullptr ? p.kmask + (long long)b * Tk : nullptr;
+  const int n_kt = key_tiles(p, q0, RT_ROWS);
+  const int per_tile = nbd + KT / RT_VKEYS;
+  const int n_items = n_kt * per_tile;
 
-  for (int i = tid; i < QR * G; i += THREADS) Os[i] = 0.f;
-  if (tid < QR) {
+  // the next item to load: tile it_kt, entry it_e, into slot it_slot
+  int it_kt = 0, it_e = 0, it_slot = 0;
+  auto load_next = [&]() {
+    if (it_kt < n_kt) {
+      const int k0 = it_kt * KT;
+      const uint32_t dst = ring_s + it_slot * RT_SLOT;
+      if (it_e < nbd) {
+        tiles_chunk(dst, kb, p.k_st, k0, Tk, it_e * DC, tid);
+        tiles_chunk(dst + RT_CHUNK, qb, p.q_st, q0, Tq, it_e * DC, tid);
+      } else {
+        const int t0 = k0 + (it_e - nbd) * RT_VKEYS, n4 = gw / 4;
+        for (int idx = tid; idx < RT_VKEYS * n4; idx += RT_THREADS) {
+          const int r = idx / n4, c4 = (idx - r * n4) * 4, t = t0 + r;
+          const bool ok = t < Tk;
+          cp_async16(dst + (r * RT_VLD + c4) * 4,
+                     vb + (long long)(ok ? t : t0) * p.v_st + g0 + c4, ok);
+        }
+      }
+      if (++it_e == per_tile) {
+        it_e = 0;
+        ++it_kt;
+      }
+      if (++it_slot == RT_SLOTS) it_slot = 0;
+    }
+    cp_commit();   // an empty group past the last item keeps the count
+  };
+#pragma unroll
+  for (int i = 0; i < RT_SLOTS - 1; ++i) load_next();
+
+  // O: rows w + 8 r, columns 4 lane + 128 c + e of the group; the rows'
+  // running max and sum sit in shared memory (every lane of the row's warp
+  // reads them, a tile at a time), so as not to take registers beside O
+  float o[8][RT_CSL][4];
+  if (tid < RT_ROWS) {
     m_s[tid] = NEG_BIG;
     l_s[tid] = 0.f;
   }
-  const int kk = tid % KT, rs0 = (tid / KT) * RPT;   // scores: one key, 8 rows
-  const int cc = tid % DC, ro0 = (tid / DC) * RPT;   // output: one column, 8 rows
-  const int n_kt = key_tiles(p, q0, QR);
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int c = 0; c < RT_CSL; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[r][c][e] = 0.f;
+  }
+  float s[8][8];      // the group's partial scores: rows sy + 8 r, keys sx + 8 j
+  int kt = 0, e_i = 0, slot = 0;   // the item being computed
+  for (int n = 0; n < n_items; ++n) {
+    cp_wait<RT_SLOTS - 2>();   // item n has landed (this thread's copies)
+    __syncthreads();           // ... everyone's; and slot (n - 1) % RT_SLOTS is read
+    load_next();
+    const float* sl = ring + slot * (RT_SLOT / 4);
+    if (e_i < nbd) {
+      // the group's 16 columns of the chunk, 2 at a time (float2 loads: a
+      // float4's operands would not fit beside O)
+      const float* Kc = sl;
+      const float* Qc = sl + RT_CHUNK / 4;
+      if (e_i == 0) {
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) s[r][j] = 0.f;
+      }
+#pragma unroll 1
+      for (int d = 16 * g; d < 16 * g + 16; d += 2) {
+        float2 kv[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          kv[j] = *reinterpret_cast<const float2*>(Kc + (sx + 8 * j) * RT_LD + d);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float2 qv = *reinterpret_cast<const float2*>(Qc + (sy + 8 * r) * RT_LD + d);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            s[r][j] = fmaf(qv.x, kv[j].x, s[r][j]);
+            s[r][j] = fmaf(qv.y, kv[j].y, s[r][j]);
+          }
+        }
+      }
+      if (e_i == nbd - 1) {
+        // the tile's scores: the groups' partials summed in group order,
+        // masked to -1e30 (causal, keys past Tk, the key mask) as the TPU
+        // kernel does, then the online softmax of the warp's rows; p goes
+        // to shared memory for P.V
+        float* mine = part + g * (RT_PART / 4);
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) mine[(sy + 8 * r) * RT_PLD + sx + 8 * j] = s[r][j];
+        __syncthreads();
+        const int k0 = kt * KT;
+        bool kok[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int key = k0 + lane + 32 * j;
+          kok[j] = key < Tk && (kmask == nullptr || kmask[key] > 0.f);
+        }
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const int row = w + 8 * r, qrow = q0 + row;
+          float x[2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int at = row * RT_PLD + lane + 32 * j;
+            float sum = part[at];
+#pragma unroll
+            for (int q = 1; q < RT_SPLIT; ++q) sum += part[q * (RT_PART / 4) + at];
+            const bool ok = kok[j] && (!p.causal || k0 + lane + 32 * j <= qrow + p.shift);
+            x[j] = ok ? sum * p.scale : NEG_BIG;
+          }
+          const float m_old = m_s[row];
+          const float m_new = fmaxf(m_old, warp_max(fmaxf(x[0], x[1])));
+          const float alpha = expf(m_old - m_new);
+          const float e0 = expf(x[0] - m_new), e1 = expf(x[1] - m_new);
+          Ps[row * RT_PLD + lane] = e0;
+          Ps[row * RT_PLD + lane + 32] = e1;
+          const float l_new = l_s[row] * alpha + warp_sum(e0 + e1);
+          __syncwarp();   // every lane has read the row's m and l
+          if (lane == 0) {
+            m_s[row] = m_new;
+            l_s[row] = l_new;
+          }
+#pragma unroll
+          for (int c = 0; c < RT_CSL; ++c)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[r][c][e] *= alpha;
+        }
+      }
+    } else {
+      // O += P.V over one slab of keys and the group's columns
+      const int k_in = (e_i - nbd) * RT_VKEYS;   // the slab's first key in the tile
+      if (gw == RT_BOXES * DC)
+        tiles_pv<true>(o, Ps, sl, k_in, w, lane, gw);
+      else
+        tiles_pv<false>(o, Ps, sl, k_in, w, lane, gw);
+    }
+    if (++e_i == per_tile) {
+      e_i = 0;
+      ++kt;
+    }
+    if (++slot == RT_SLOTS) slot = 0;
+  }
+  cp_wait<0>();
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * KT;
-    float acc[RPT];
+  __syncthreads();   // the rows' last m and l (with no key tile, their first) are visible
+  float* out = static_cast<float*>(p.o);
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) acc[r] = 0.f;
-    for (int c0 = 0; c0 < D; c0 += DC) {
-      __syncthreads();   // every thread is done with the previous chunks
-      load_chunk(Qc, qb, p.q_st, q0, QR, Tq, c0, tid);
-      load_chunk(Kc, kb, p.k_st, k0, KT, Tk, c0, tid);
-      if (c0 == 0 && tid < KT) kval[tid] = key_ok(p, b, k0 + tid) ? 1.f : 0.f;
-      __syncthreads();
-      const float* kr = Kc + kk * LDC;
-#pragma unroll 8
-      for (int d = 0; d < DC; ++d) {
-        const float kv = kr[d];
+  for (int r = 0; r < 8; ++r) {
+    const int t = q0 + w + 8 * r;
+    if (t >= Tq) continue;
+    const float lc = fmaxf(l_s[w + 8 * r], 1e-30f);
+    float* orow = out + (((long long)b * Tq + t) * p.H + h) * D + g0 + 4 * lane;
 #pragma unroll
-        for (int r = 0; r < RPT; ++r) acc[r] = fmaf(Qc[(rs0 + r) * LDC + d], kv, acc[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int row = rs0 + r;
-      const bool ok = kval[kk] > 0.f && (!p.causal || k0 + kk <= q0 + row + p.shift);
-      Ps[row * (KT + 1) + kk] = ok ? acc[r] * p.scale : NEG_BIG;
-    }
-    __syncthreads();
-    // online softmax, one warp per row (QR / 4 rows a warp), f32 as on the TPU
-    for (int rr = 0; rr < QR / 4; ++rr) {
-      const int row = warp * (QR / 4) + rr;
-      float* pr = Ps + row * (KT + 1);
-      const float s0 = pr[lane], s1 = pr[lane + 32];
-      const float m_old = m_s[row];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float e0 = expf(s0 - m_new), e1 = expf(s1 - m_new);
-      const float sum = warp_sum(e0 + e1);
-      pr[lane] = round_to<T>(e0);   // p in the operand type before p . v
-      pr[lane + 32] = round_to<T>(e1);
-      __syncwarp();
-      if (lane == 0) {
-        const float a = expf(m_old - m_new);
-        alpha_s[row] = a;
-        l_s[row] = l_s[row] * a + sum;
-        m_s[row] = m_new;
-      }
-    }
-    // O = O * alpha + p . v, chunk by chunk of the group's columns
-    for (int c0 = g0; c0 < g0 + gw; c0 += DC) {
-      __syncthreads();   // p and alpha written; the previous V chunk read
-      load_chunk(Kc, vb, p.v_st, k0, KT, Tk, c0, tid);
-      __syncthreads();
-      float* orow = Os + c0 - g0 + cc;
-      float o[RPT];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) o[r] = orow[(ro0 + r) * G] * alpha_s[ro0 + r];
-#pragma unroll 4
-      for (int k = 0; k < KT; ++k) {
-        const float vv = Kc[k * LDC + cc];
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) o[r] = fmaf(Ps[(ro0 + r) * (KT + 1) + k], vv, o[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) orow[(ro0 + r) * G] = o[r];
-    }
+    for (int c = 0; c < RT_CSL; ++c)
+      if (4 * lane + 128 * c < gw)
+        *reinterpret_cast<float4*>(orow + 128 * c) =
+            make_float4(o[r][c][0] / lc, o[r][c][1] / lc, o[r][c][2] / lc, o[r][c][3] / lc);
+    if (z == 0 && lane == 0) p.lse_out[(long long)bh * Tq + t] = m_s[w + 8 * r] + logf(lc);
   }
-  __syncthreads();
-  T* ob = static_cast<T*>(p.o);
-  for (int i = tid; i < QR * gw; i += THREADS) {
-    const int r = i / gw, c = i % gw, t = q0 + r;
-    if (t < Tq)
-      ob[(((long long)b * Tq + t) * p.H + h) * D + g0 + c] =
-          from_f<T>(Os[r * G + c] / fmaxf(l_s[r], 1e-30f));
-  }
-  if (blockIdx.z == 0 && tid < QR && q0 + tid < Tq)
-    p.lse_out[(long long)bh * Tq + q0 + tid] = m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
 }
 
-// dq (every dtype)
+// ===========================================================================
+// FMA kernels: dq and dk/dv in float32
+// ===========================================================================
+
+// dq (float32)
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS) flash_wide_dq_kernel(const Params p) {
+  static_assert(std::is_same<T, float>::value, "float32 operands");
   extern __shared__ __align__(16) float sm[];
   const int D = p.D, Tq = p.Tq, Tk = p.Tk, G = p.G;
   const int g0 = blockIdx.z * G, gw = min(G, D - g0);   // this block's columns
@@ -406,7 +626,7 @@ __global__ void __launch_bounds__(THREADS) flash_wide_dq_kernel(const Params p) 
       const int row = rs0 + r, qpos = q0 + row;
       const bool ok = qpos < Tq && kval[kk] > 0.f && (!p.causal || k0 + kk <= qpos + p.shift);
       const float pv = ok ? expf(s[r] * p.scale - lse_s[row]) : 0.f;
-      DS[row * (KT + 1) + kk] = round_to<T>(pv * (dp[r] - delta_s[row]));
+      DS[row * (KT + 1) + kk] = pv * (dp[r] - delta_s[row]);
     }
     // dQ += ds . k, chunk by chunk of the group's columns
     for (int c0 = g0; c0 < g0 + gw; c0 += DC) {
@@ -432,7 +652,7 @@ __global__ void __launch_bounds__(THREADS) flash_wide_dq_kernel(const Params p) 
   for (int i = tid; i < QR * gw; i += THREADS) {
     const int r = i / gw, c = i % gw, t = q0 + r;
     if (t < Tq)
-      out[(((long long)b * Tq + t) * p.H + h) * D + g0 + c] = from_f<T>(dQ[r * G + c] * p.scale);
+      out[(((long long)b * Tq + t) * p.H + h) * D + g0 + c] = dQ[r * G + c] * p.scale;
   }
 }
 
@@ -440,6 +660,7 @@ __global__ void __launch_bounds__(THREADS) flash_wide_dq_kernel(const Params p) 
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS) flash_wide_dkv_kernel(const Params p) {
+  static_assert(std::is_same<T, float>::value, "float32 operands");
   extern __shared__ __align__(16) float sm[];
   const int D = p.D, Tq = p.Tq, Tk = p.Tk, G = p.G;
   const int g0 = blockIdx.z * G, gw = min(G, D - g0);   // this block's columns
@@ -506,8 +727,8 @@ __global__ void __launch_bounds__(THREADS) flash_wide_dkv_kernel(const Params p)
       const int key = ks0 + r, qpos = qs0 + qq;
       const bool ok = qpos < Tq && kval[key] > 0.f && (!p.causal || k0 + key <= qpos + p.shift);
       const float pv = ok ? expf(s[r] * p.scale - lse_s[qq]) : 0.f;
-      PT[key * (QT + 1) + qq] = round_to<T>(pv);
-      DST[key * (QT + 1) + qq] = round_to<T>(pv * (dp[r] - delta_s[qq]));
+      PT[key * (QT + 1) + qq] = pv;
+      DST[key * (QT + 1) + qq] = pv * (dp[r] - delta_s[qq]);
     }
     // dV += p^T . do, dK += ds^T . q, chunk by chunk of the group's columns
     for (int c0 = g0; c0 < g0 + gw; c0 += DC) {
@@ -546,8 +767,8 @@ __global__ void __launch_bounds__(THREADS) flash_wide_dkv_kernel(const Params p)
     const int r = i / gw, c = i % gw, t = k0 + r;
     if (t < Tk) {
       const long long at = (((long long)b * Tk + t) * p.H + h) * D + g0 + c;
-      dk[at] = from_f<T>(dK[r * G + c] * p.scale);
-      dv[at] = from_f<T>(dV[r * G + c]);
+      dk[at] = dK[r * G + c] * p.scale;
+      dv[at] = dV[r * G + c];
     }
   }
 }
@@ -559,9 +780,18 @@ __global__ void __launch_bounds__(THREADS) flash_wide_dkv_kernel(const Params p)
 constexpr int BOX = 64;                         // rows and head-dim columns of a TMA box
 constexpr int BOX_BYTES = BOX * BOX * 2;        // 8 KB: one 128-byte-swizzled 64 x 64 tile
 constexpr int FWD_WG_BOXES = 4;                 // output boxes a forward warpgroup sums (256 columns)
+constexpr int DQ_WG_BOXES = 4;                  // dq boxes a dq warpgroup sums (256 columns)
 constexpr int DKV_WG_BOXES = 2;                 // dk and dv boxes a dk/dv warpgroup sums (128 columns)
 constexpr int FWD_CHUNKS = 4;                   // 64-column chunks of D a forward score step sums
 constexpr int DKV_CHUNKS = 2;                   // and a dk/dv score step
+constexpr int DQ_S_CHUNKS = 2;                  // and a dq S step (a dP step: one)
+constexpr int DQ_P_BYTES = CONSUMERS * WG * 32 * 4;   // dq: a tile's p, 32 f32 a consumer thread
+// dq's consumers hold dQ (128 f32) beside S or dP (32): they take 240
+// registers a thread and leave the producer 24 (at 232 and 40 they spilled)
+constexpr int DQ_PRODUCER_REGS = 24;
+constexpr int DQ_CONSUMER_REGS = 240;
+static_assert(LAUNCH_REGS - DQ_PRODUCER_REGS == CONSUMERS * (DQ_CONSUMER_REGS - LAUNCH_REGS),
+              "setmaxnreg must balance");
 constexpr int MAX_SLOTS = 32;
 constexpr int XCH_BYTES = CONSUMERS * WG * 16 * 4;   // dk/dv: 16 fragment words a consumer thread
 constexpr float NEG_BIG2 = NEG_BIG * LOG2E;     // NEG_BIG in the log2 units of the softmax
@@ -570,10 +800,10 @@ constexpr float LN2 = 0.6931471805599453f;
 struct Wide90 {
   CUtensorMap q, k, v, o;   // q, do [B, Tq, H, D]; k, v [B, Tk, H, D]; boxes of 64 x 64
   const float* kmask;       // [B, Tk] or nullptr
-  const float* lse;         // dk/dv: [B, H, Tq]
-  const float* delta;       // dk/dv: [B, H, Tq]
+  const float* lse;         // dq, dk/dv: [B, H, Tq]
+  const float* delta;       // dq, dk/dv: [B, H, Tq]
   float* lse_out;           // forward: [B, H, Tq]
-  void* g0;                 // forward: out; dk/dv: dk ([B, T, H, D] contiguous)
+  void* g0;                 // forward: out; dq: dq; dk/dv: dk ([B, T, H, D] contiguous)
   void* g1;                 // dk/dv: dv
   int B, Tq, Tk, H, D, causal;
   int shift;                // q_off - k_off: key k is allowed for query q iff k <= q + shift
@@ -584,8 +814,8 @@ struct Wide90 {
 };
 
 // Shared-memory layout of a plan: the resident boxes, dk/dv's fragment
-// exchange, the ring, the barriers (own_full, full[slots], empty[slots]),
-// and 1024 bytes to align the 128-byte swizzle.
+// exchange or dq's p, the ring, the barriers (own_full, full[slots],
+// empty[slots]), and 1024 bytes to align the 128-byte swizzle.
 struct WideLayout {
   size_t res, xch, ring, bars, bytes;
 };
@@ -595,7 +825,7 @@ __host__ __device__ inline WideLayout wide_layout(int which, int D, int slots, i
   const size_t nb = size_t(D / BOX);
   L.res = 0;   // forward: Q's boxes (both row halves); dk/dv: K's, then V's
   L.xch = resident ? 2 * nb * BOX_BYTES : 0;
-  L.ring = L.xch + (which == 2 ? XCH_BYTES : 0);
+  L.ring = L.xch + (which == 2 ? XCH_BYTES : which == 1 ? DQ_P_BYTES : 0);
   L.bars = L.ring + size_t(slots) * BOX_BYTES;
   L.bytes = L.bars + size_t(1 + 2 * slots) * 8 + 1024;
   return L;
@@ -741,6 +971,55 @@ __device__ __forceinline__ void dkv_score_step(float (&sc)[16], float (&dp)[16],
                   c0 + cc > 0 || kk > 0);
   }
   wg_commit();
+}
+
+// One dq S step: NC chunks of D from item `pos` (a chunk: Q of both row
+// halves, K), S = Q.K^T for the warpgroup's 64 rows as one wgmma batch,
+// straight-line.
+template <typename T, int NC>
+__device__ __forceinline__ void dq_s_step(float (&sc)[32], const Ring& ring, Pos pos, int c0,
+                                          int wg) {
+  uint32_t qa[NC], kb[NC];
+#pragma unroll
+  for (int cc = 0; cc < NC; ++cc) {
+    qa[cc] = ring.at(pos, 3 * cc + wg);
+    kb[cc] = ring.at(pos, 3 * cc + 2);
+  }
+  ring.wait(pos, 3 * NC);
+  wg_fence();
+#pragma unroll
+  for (int cc = 0; cc < NC; ++cc)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<T>(sc, desc_k<64, 64>(qa[cc], 0, kk), desc_k<64, 64>(kb[cc], 0, kk),
+                  c0 + cc > 0 || kk > 0);
+  wg_commit();
+}
+
+// One dq dP step: one chunk of D from item `pos` (dO of both row halves, V),
+// dP = dO.V^T for the warpgroup's 64 rows as one wgmma batch.
+template <typename T>
+__device__ __forceinline__ void dq_dp_step(float (&dp)[32], const Ring& ring, Pos pos, int c,
+                                           int wg) {
+  const uint32_t oa = ring.at(pos, wg);
+  const uint32_t vb = ring.at(pos, 2);
+  ring.wait(pos, 3);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss<T>(dp, desc_k<64, 64>(oa, 0, kk), desc_k<64, 64>(vb, 0, kk), c > 0 || kk > 0);
+  wg_commit();
+}
+
+// dQ += dS.K over NB boxes of K, straight-line.
+template <typename T, int NB>
+__device__ __forceinline__ void dq_accumulate(float (&acc)[DQ_WG_BOXES][32],
+                                              const uint32_t (&a)[4][4],
+                                              const uint32_t (&kb)[DQ_WG_BOXES]) {
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<T>(acc[c], a[kk], desc_mn<64, 64>(kb[c], 0, kk));
 }
 
 // A 4-D map over a 16-bit [B, T, H, D] view (D a multiple of 64, contiguous)
@@ -1269,35 +1548,247 @@ __global__ void __launch_bounds__(THREADS90, 1)
   }
 }
 // ---------------------------------------------------------------------------
+// dq: a block owns 128 query rows of one (batch, head), 64 a consumer
+// warpgroup, and one column group of up to 256 dq columns; both warpgroups
+// read the same K and V boxes. Per key tile each computes S of its own rows
+// over all of D, parks p in shared memory (f32), computes dP over all of D,
+// and sums its rows' dS.K over the group's columns
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS90, 1)
+    flash_wide_dq_wgmma_kernel(__grid_constant__ const Wide90 p) {
+  static_assert(sizeof(T) == 2, "bf16 or f16 operands");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const WideLayout L = wide_layout(1, p.D, p.slots, 0);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* own_full = bars;
+  const Ring ring{base + uint32_t(L.ring), bars + 1, bars + 1 + p.slots, p.slots};
+
+  const int Tq = p.Tq, Tk = p.Tk, shift = p.shift, D = p.D, nbd = D / BOX;
+  const int BH = p.B * p.H;
+  const int n_qb = (Tq + BLOCK_ROWS - 1) / BLOCK_ROWS;
+  const int n_groups = (D + p.G - 1) / p.G;
+  const int z = blockIdx.x % n_groups;   // column groups of one row block run side by side
+  int bh, qb;
+  block_coords(blockIdx.x / n_groups, BH, n_qb, p.causal, bh, qb);
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int q0 = qb * BLOCK_ROWS;
+  const int gb = z * p.G / BOX;                        // the group's first box
+  const int nbg = (min(p.G, D - z * p.G)) / BOX;       // and its boxes
+  const int n_k = (Tk + BOX - 1) / BOX;
+  // under a causal mask the block's last query ends its key tiles at key
+  // q0 + 127 + shift (none when that lies before key 0)
+  const int last = q0 + BLOCK_ROWS - 1 + shift;
+  const int n_kt = p.causal ? (last < 0 ? 0 : min(n_k, last / BOX + 1)) : n_k;
+  // ring items of one key tile: the S pass's chunks (Q of both row halves
+  // and K), the dP pass's chunks (dO of both row halves and V), then the
+  // group's K boxes
+  const int per_tile = nbd * 6 + nbg;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    bar_init(own_full, 1);
+    for (int s = 0; s < p.slots; ++s) {
+      bar_init(&ring.full[s], 1);                // the producer's arrival with the bytes
+      bar_init(&ring.empty[s], CONSUMERS * 4);   // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = warpgroup();
+  const int warp = (tid % WG) / 32;
+  const int lane = tid % 32;
+  if (wg == CONSUMERS) {
+    setmaxnreg_dec<DQ_PRODUCER_REGS>();
+    if (warp == 0 && lane == 0) {
+      Pos pos{0, 0u};
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int k0 = kt * BOX;
+        for (int c = 0; c < nbd; ++c) {
+          ring.put(pos, &p.q, c * BOX, h, q0, b);
+          ring.put(pos, &p.q, c * BOX, h, q0 + BOX, b);
+          ring.put(pos, &p.k, c * BOX, h, k0, b);
+        }
+        for (int c = 0; c < nbd; ++c) {
+          ring.put(pos, &p.o, c * BOX, h, q0, b);
+          ring.put(pos, &p.o, c * BOX, h, q0 + BOX, b);
+          ring.put(pos, &p.v, c * BOX, h, k0, b);
+        }
+        for (int j = 0; j < nbg; ++j) ring.put(pos, &p.k, (gb + j) * BOX, h, k0, b);
+      }
+    }
+  } else {
+    setmaxnreg_inc<DQ_CONSUMER_REGS>();
+    const int wq0 = q0 + wg * BOX;                 // the warpgroup's first query
+    const int row0 = wq0 + warp * 16 + lane / 4;   // the thread's rows: row0, row0 + 8
+    const float sl2 = p.scale * LOG2E;
+    const long long bh_off = (long long)bh * Tq;
+    // the thread's 32 words of p: word i at pbuf[i * WG]
+    float* pbuf = reinterpret_cast<float*>(smem + L.xch) + wg * 32 * WG + tid % WG;
+    float lse2[2], dlt[2];   // the rows' lse (log2 units) and delta
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int t = row0 + 8 * j;
+      lse2[j] = t < Tq ? p.lse[bh_off + t] * LOG2E : 0.0f;
+      dlt[j] = t < Tq ? p.delta[bh_off + t] : 0.0f;
+    }
+    float acc[DQ_WG_BOXES][32];
+#pragma unroll
+    for (int c = 0; c < DQ_WG_BOXES; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[c][i] = 0.0f;
+
+    Pos pos{0, 0u};
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int k0 = kt * BOX;
+      if (p.causal && k0 > wq0 + BOX - 1 + shift) {
+        // the tile lies wholly above this warpgroup's rows: release its
+        // boxes one by one as they arrive
+        for (int e = 0; e < per_tile; ++e) {
+          ring.wait(pos, 1);
+          ring.release(pos, 1, lane);
+          pos = ring.plus(pos, 1);
+        }
+        continue;
+      }
+      // the validity of the thread's 16 key columns against Tk and the key
+      // mask, read before the score steps (as the forward's)
+      uint32_t kbits = 0xffffu;
+      if (p.kmask != nullptr || k0 + BOX > Tk) {
+        kbits = 0;
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          const int t = k0 + 8 * (e >> 1) + 2 * (lane & 3) + (e & 1);
+          const bool ok = t < Tk && (p.kmask == nullptr || p.kmask[(long long)b * Tk + t] > 0.0f);
+          kbits |= uint32_t(ok) << e;
+        }
+      }
+      // S = Q.K^T over all of D, DQ_S_CHUNKS chunks a step (the chunks
+      // left over one a step); a step's slots are released once the next
+      // step's products are issued and its own have retired
+      float sc[32];
+      Pos prev = pos;
+      int prev_count = 0;
+      for (int c = 0; c < nbd;) {
+        const int nc = nbd - c >= DQ_S_CHUNKS ? DQ_S_CHUNKS : 1;
+        if (nc == DQ_S_CHUNKS)
+          dq_s_step<T, DQ_S_CHUNKS>(sc, ring, pos, c, wg);
+        else
+          dq_s_step<T, 1>(sc, ring, pos, c, wg);
+        wg_wait<1>();
+        ring.release(prev, prev_count, lane);
+        prev = pos;
+        prev_count = 3 * nc;
+        pos = ring.plus(pos, prev_count);
+        c += nc;
+      }
+      wg_wait<0>();
+      ring.release(prev, prev_count, lane);
+      pin(sc);
+      // p where the pair is valid, else exactly 0, in f32 into the thread's
+      // own words of shared memory (S and dP together beside dQ's 128
+      // accumulators would not fit a thread's registers); no branch
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int t = row0 + 8 * ((i >> 1) & 1);
+        const bool ok = ((kbits >> (2 * (i >> 2) + (i & 1))) & 1u) && t < Tq &&
+                        (!p.causal || k0 + frag_col(i, lane) <= t + shift);
+        pbuf[i * WG] = ok ? exp2f(fmaf(sc[i], sl2, -lse2[(i >> 1) & 1])) : 0.0f;
+      }
+      // dP = dO.V^T over all of D, one chunk a step
+      float dp[32];
+      prev = pos;
+      prev_count = 0;
+      for (int c = 0; c < nbd; ++c) {
+        dq_dp_step<T>(dp, ring, pos, c, wg);
+        wg_wait<1>();
+        ring.release(prev, prev_count, lane);
+        prev = pos;
+        prev_count = 3;
+        pos = ring.plus(pos, 3);
+      }
+      wg_wait<0>();
+      ring.release(prev, prev_count, lane);
+      pin(dp);
+      // ds = p (dp - delta) rounded to T: the A fragments of the tile's 4
+      // key k-steps
+      uint32_t a[4][4];
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int j = (i >> 1) & 1;
+        a[i >> 3][(i >> 1) & 3] = pack2<T>(pbuf[i * WG] * (dp[i] - dlt[j]),
+                                           pbuf[(i + 1) * WG] * (dp[i + 1] - dlt[j]));
+      }
+      // dQ += dS.K over the group's K boxes, one commit group
+      uint32_t kb[DQ_WG_BOXES];
+#pragma unroll
+      for (int c = 0; c < DQ_WG_BOXES; ++c) kb[c] = ring.at(pos, c);
+      ring.wait(pos, nbg);
+      wg_fence();
+      if (nbg == 4) {
+        dq_accumulate<T, 4>(acc, a, kb);
+      } else if (nbg == 3) {
+        dq_accumulate<T, 3>(acc, a, kb);
+      } else if (nbg == 2) {
+        dq_accumulate<T, 2>(acc, a, kb);
+      } else {
+        dq_accumulate<T, 1>(acc, a, kb);
+      }
+      wg_commit();
+      wg_wait<0>();
+#pragma unroll
+      for (int c = 0; c < DQ_WG_BOXES; ++c) pin(acc[c]);
+      ring.release(pos, nbg, lane);
+      pos = ring.plus(pos, nbg);
+    }
+    const float mul[2] = {p.scale, p.scale};   // dq = scale * dS.K, in f32
+#pragma unroll
+    for (int c = 0; c < DQ_WG_BOXES; ++c)
+      if (c < nbg)
+        store_box16<T>(static_cast<T*>(p.g0), acc[c], mul, row0, lane, b, h, Tq, p.H, D,
+                       (gb + c) * BOX);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch plans
 // ---------------------------------------------------------------------------
 
-// which: 0 = forward, 1 = dq, 2 = dk/dv. The FMA kernels run the float32
-// forward and dk/dv and dq in every dtype; the wgmma kernels the 16-bit
-// forward and dk/dv.
-bool wgmma_route(int which, int dtype) { return dtype != 0 && which != 1; }
+// which: 0 = forward, 1 = dq, 2 = dk/dv. The wgmma kernels run bf16 and
+// f16; in float32 the forward runs on register tiles, dq and dk/dv on FMAs.
+enum Route { FMA, WGMMA, TILES };
+Route route(int which, int dtype) { return dtype != 0 ? WGMMA : which == 0 ? TILES : FMA; }
 
 // FMA: shared memory of kernel `which`'s layout for a group of G columns
 size_t smem_bytes(int which, int G) {
-  const size_t f = which == 0 ? fwd_floats(G) : which == 1 ? dq_floats(G) : dkv_floats(G);
-  return f * sizeof(float);
+  return (which == 1 ? dq_floats(G) : dkv_floats(G)) * sizeof(float);
 }
 
 bool supported(int D) { return D >= DC && D % DC == 0; }
 
-// wgmma: the widest column group (the forward's warpgroups each sum all of
-// its boxes, dk/dv's split them)
-int wide_max_group(int which) { return BOX * (which == 0 ? FWD_WG_BOXES : 2 * DKV_WG_BOXES); }
+// wgmma: the widest column group (the forward's and dq's warpgroups each
+// sum all of its boxes, dk/dv's split them)
+int wide_max_group(int which) {
+  return BOX * (which == 0 ? FWD_WG_BOXES : which == 1 ? DQ_WG_BOXES : 2 * DKV_WG_BOXES);
+}
 // The fewest ring slots: the most items a consumer holds at once, a score
 // step's and the previous step's (a forward step: FWD_CHUNKS x (Q of both
-// row halves and) K; dk/dv: DKV_CHUNKS x (K, V and) Q, dO), the forward's
-// P.V: the group's V boxes, an accumulation step of dk/dv and the previous
-// one: 8.
+// row halves and) K; dq's S step: DQ_S_CHUNKS x Q of both row halves and
+// K, its dP step: dO of both row halves and V; dk/dv: DKV_CHUNKS x (K, V
+// and) Q, dO), the forward's P.V and dq's dS.K: the group's V (K) boxes, an
+// accumulation step of dk/dv and the previous one: 8.
 int wide_min_slots(int which, int D, int resident) {
-  const int chunks = which == 0 ? FWD_CHUNKS : DKV_CHUNKS;
-  const int per_chunk = which == 0 ? (resident ? 1 : 3) : (resident ? 2 : 4);
+  const int chunks = which == 0 ? FWD_CHUNKS : which == 1 ? DQ_S_CHUNKS : DKV_CHUNKS;
+  const int per_chunk = which == 0 ? (resident ? 1 : 3) : which == 1 ? 3 : (resident ? 2 : 4);
   const int step = min(chunks, D / BOX) * per_chunk;
-  return max(D / BOX > chunks ? 2 * step : step, which == 0 ? FWD_WG_BOXES : 8);
+  const int score = D / BOX > chunks ? 2 * step : step;
+  if (which == 1) return max(max(score, 2 * 3), DQ_WG_BOXES);
+  return max(score, which == 0 ? FWD_WG_BOXES : 8);
 }
 
 struct Plan {
@@ -1305,17 +1796,25 @@ struct Plan {
 };
 
 size_t plan_bytes(int which, int dtype, int D, const Plan& pl) {
-  return wgmma_route(which, dtype) ? wide_layout(which, D, pl.slots, pl.resident).bytes
-                                   : smem_bytes(which, pl.G);
+  switch (route(which, dtype)) {
+    case WGMMA: return wide_layout(which, D, pl.slots, pl.resident).bytes;
+    case TILES: return tiles_bytes();
+    default: return smem_bytes(which, pl.G);
+  }
 }
 
 // Can kernel `which` run D with this plan?
 bool plan_ok(int which, int dtype, int D, const Plan& pl) {
   if (pl.G < BOX || pl.G % BOX != 0 || pl.G > D) return false;
   if (plan_bytes(which, dtype, D, pl) > SMEM_LIMIT) return false;
-  if (!wgmma_route(which, dtype)) return true;
-  return pl.G <= wide_max_group(which) && pl.slots >= wide_min_slots(which, D, pl.resident) &&
-         pl.slots <= MAX_SLOTS && (pl.resident == 0 || pl.resident == 1);
+  if (pl.resident != 0 && pl.resident != 1) return false;
+  switch (route(which, dtype)) {
+    case WGMMA:   // dq streams Q
+      return pl.G <= wide_max_group(which) && pl.slots >= wide_min_slots(which, D, pl.resident) &&
+             pl.slots <= MAX_SLOTS && (which != 1 || pl.resident == 0);
+    case TILES: return pl.G <= RT_BOXES * DC && pl.slots == RT_SLOTS && pl.resident == 0;
+    default: return pl.slots == 0 && pl.resident == 0;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1335,12 +1834,22 @@ int launch_kernel(K kernel, int which, Params p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// the FMA kernels: the forward and dk/dv in float32, dq in every dtype
-int launch_fma(int which, const Params& p, int dtype, cudaStream_t stream) {
-  if (which == 0) return launch_kernel(flash_wide_fwd_kernel<float>, 0, p, stream);
+// the f32 forward on register tiles: 64 query rows a block, the column
+// groups of a row block side by side
+int launch_tiles(const Params& p, cudaStream_t stream) {
+  const size_t bytes = tiles_bytes();
+  cudaError_t e = cudaFuncSetAttribute(flash_wide_fwd_tiles_kernel<float>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = (p.Tq + RT_ROWS - 1) / RT_ROWS * (p.B * p.H) * ((p.D + p.G - 1) / p.G);
+  flash_wide_fwd_tiles_kernel<float><<<blocks, RT_THREADS, bytes, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the FMA kernels: dq and dk/dv in float32
+int launch_fma(int which, const Params& p, cudaStream_t stream) {
   if (which == 2) return launch_kernel(flash_wide_dkv_kernel<float>, 2, p, stream);
-  if (dtype == 1) return launch_kernel(flash_wide_dq_kernel<bf16>, 1, p, stream);
-  if (dtype == 2) return launch_kernel(flash_wide_dq_kernel<f16>, 1, p, stream);
   return launch_kernel(flash_wide_dq_kernel<float>, 1, p, stream);
 }
 
@@ -1350,7 +1859,7 @@ int launch_wgmma(int which, const Params& p, const Plan& pl, cudaStream_t stream
   int rc = encode_boxes<T>(&w.q, p.q, p.B, p.Tq, p.H, p.D, p.q_sb, p.q_st, p.q_sh);
   if (rc == 0) rc = encode_boxes<T>(&w.k, p.k, p.B, p.Tk, p.H, p.D, p.k_sb, p.k_st, p.k_sh);
   if (rc == 0) rc = encode_boxes<T>(&w.v, p.v, p.B, p.Tk, p.H, p.D, p.v_sb, p.v_st, p.v_sh);
-  if (rc == 0 && which == 2)
+  if (rc == 0 && which != 0)
     rc = encode_boxes<T>(&w.o, p.dout, p.B, p.Tq, p.H, p.D, p.o_sb, p.o_st, p.o_sh);
   else
     w.o = w.q;   // the forward reads no dout
@@ -1373,13 +1882,15 @@ int launch_wgmma(int which, const Params& p, const Plan& pl, cudaStream_t stream
   w.resident = pl.resident;
   w.scale = p.scale;
   const size_t bytes = wide_layout(which, p.D, pl.slots, pl.resident).bytes;
-  auto kernel = which == 0 ? flash_wide_fwd_wgmma_kernel<T> : flash_wide_dkv_wgmma_kernel<T>;
+  auto kernel = which == 0   ? flash_wide_fwd_wgmma_kernel<T>
+                : which == 1 ? flash_wide_dq_wgmma_kernel<T>
+                             : flash_wide_dkv_wgmma_kernel<T>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
-  // 128 query rows a forward block, 64 key rows a dk/dv block
-  const int rows = which == 0 ? BLOCK_ROWS : BOX;
-  const int T_own = which == 0 ? p.Tq : p.Tk;
+  // 128 query rows a forward or dq block, 64 key rows a dk/dv block
+  const int rows = which == 2 ? BOX : BLOCK_ROWS;
+  const int T_own = which == 2 ? p.Tk : p.Tq;
   const int blocks = (T_own + rows - 1) / rows * (p.B * p.H) * ((p.D + pl.G - 1) / pl.G);
   kernel<<<blocks, THREADS90, bytes, stream>>>(w);
   return static_cast<int>(cudaGetLastError());
@@ -1393,8 +1904,12 @@ int run(int which, Params p, int dtype, const int* plan, void* stream) {
   if (!plan_ok(which, dtype, p.D, pl)) return ERR_PLAN;
   p.G = pl.G;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!wgmma_route(which, dtype)) return launch_fma(which, p, dtype, s);
-  return dtype == 1 ? launch_wgmma<bf16>(which, p, pl, s) : launch_wgmma<f16>(which, p, pl, s);
+  switch (route(which, dtype)) {
+    case TILES: return launch_tiles(p, s);
+    case FMA: return launch_fma(which, p, s);
+    default:
+      return dtype == 1 ? launch_wgmma<bf16>(which, p, pl, s) : launch_wgmma<f16>(which, p, pl, s);
+  }
 }
 
 Params common(const void* q, const void* k, const void* v, const float* kmask, int B, int Tq,
@@ -1490,7 +2005,7 @@ long long flash_wide_smem_bytes(int which, int dtype, int D, const int* plan) {
 }
 
 // The column groups the launch runs under that plan (the grid's z extent
-// for the FMA kernels, a factor of the wgmma kernels' grid), or -1.
+// for the FMA kernels, a factor of the other kernels' grid), or -1.
 int flash_wide_groups(int which, int dtype, int D, const int* plan) {
   if (flash_wide_smem_bytes(which, dtype, D, plan) < 0) return -1;
   return (D + plan[0] - 1) / plan[0];

@@ -8,13 +8,14 @@ custom VJP. Here they are ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``,
 CUDA C++ for Hopper (``sm_90a``) built at first use and bound through
 ctypes (``ops/_build.py``), for head dims up to 256; past 256 the same
 wrappers launch the wide-head route of ``csrc/flash_wide.cu``: the 16-bit
-forward and dk/dv on wgmma and TMA (the head dim a run-time loop over
+forward, dq and dk/dv on wgmma and TMA (the head dim a run-time loop over
 64-column boxes, the outputs' columns in groups of at most 256 that each
-recompute the scores), the f32 forward and dk/dv and dq in every dtype on
-f32 FMAs, so every head dim runs on the card, bounded by device memory
-alone, as in the JAX package. :func:`wide_plan` computes each wide launch's plan (rows a
-block, column groups, ring slots, shared memory) on the host; the kernel
-checks it. Their design notes and bounds sit at the top of each source.
+recompute the scores), the f32 forward on f32 register tiles, the f32 dq
+and dk/dv on f32 FMAs, so every head dim runs on the card, bounded by
+device memory alone, as in the JAX package. :func:`wide_plan` computes
+each wide launch's plan (rows a block, column groups, ring slots, shared
+memory) on the host; the kernel checks it. Their design notes and bounds
+sit at the top of each source.
 
 Dispatch follows one rule, with no fallback: a tensor on the CPU goes to
 the plain version, a CUDA tensor goes to the kernel or raises.
@@ -225,27 +226,41 @@ WIDE_KERNELS = ("fwd", "dq", "dkv")   # `which` 0, 1, 2 of the C interface
 _SMEM_LIMIT = 232448                  # the opt-in shared memory of one block
 _BOX = 64                             # rows and columns of a TMA box
 _BOX_BYTES = _BOX * _BOX * 2
-# wgmma kernels: rows a block owns (the forward: 64 a consumer warpgroup;
-# dk/dv: 64 shared by both), the widest column group (the forward's
-# warpgroups each sum all of its columns for their own rows: 4 boxes of
-# O, 4 x 32 f32 registers a thread; dk/dv's split its columns: 2 boxes of
-# dK and dV each, 2 x 2 x 32), the f32 accumulator registers a thread may
-# hold, the head dims up to which the forward's Q (dk/dv's K and V) stays
-# resident in shared memory, the 64-column chunks of D a score step sums,
-# the most ring slots, and dk/dv's fragment exchange
-_WGMMA_ROWS = {"fwd": 128, "dkv": 64}
+# wgmma kernels: rows a block owns (the forward and dq: 64 a consumer
+# warpgroup; dk/dv: 64 shared by both), the widest column group (the
+# forward's and dq's warpgroups each sum all of its columns for their own
+# rows: 4 boxes of O or dQ, 4 x 32 f32 registers a thread; dk/dv's split
+# its columns: 2 boxes of dK and dV each, 2 x 2 x 32), the f32 accumulator
+# registers a thread may hold, the head dims up to which the forward's Q
+# (dk/dv's K and V) stays resident in shared memory (dq streams Q: with it
+# resident 8 ring slots were left, and dq ran slower), the 64-column chunks
+# of D a score step sums, the most ring slots, and dk/dv's fragment
+# exchange
+_WGMMA_ROWS = {"fwd": 128, "dq": 128, "dkv": 64}
 _MAX_GROUP = 256
 WIDE_ACC_REGISTERS = 128
 _RESIDENT_MAX_D = 512
-_CHUNKS = {"fwd": 4, "dkv": 2}
+_CHUNKS = {"fwd": 4, "dq": 2, "dkv": 2}
+# dq parks a tile's p in shared memory: 32 f32 a consumer thread
+_DQ_P_BYTES = 2 * 128 * 32 * 4
 _MAX_SLOTS = 32
 _XCH_BYTES = 2 * 128 * 16 * 4
-# FMA kernels: rows a block owns, and the f32 floats of their shared layout
-# for a group of G columns (a 64-column chunk's rows padded to 65)
-_FMA_ROWS = {"fwd": 16, "dq": 16, "dkv": 8}
+# the f32 forward's register tiles: 64 query rows a block of 256 threads,
+# O in registers (64 rows x at most 512 columns over the threads), a ring
+# of 3 slots of a K and a Q chunk (64 x 64 f32, rows padded to 68 floats),
+# the four thread groups' partial scores and p (64 x 64 f32, rows padded to
+# 72 floats), the rows' running max and sum
+_TILE_ROWS = 64
+_TILE_THREADS = 256
+_TILE_MAX_GROUP = 512
+_TILE_SLOTS = 3
+_TILE_BYTES = _TILE_SLOTS * 2 * 64 * 68 * 4 + 5 * 64 * 72 * 4 + 2 * 64 * 4
+# FMA kernels (f32 dq and dk/dv): rows a block owns, and the f32 floats of
+# their shared layout for a group of G columns (a 64-column chunk's rows
+# padded to 65)
+_FMA_ROWS = {"dq": 16, "dkv": 8}
 _LDC = 65
 _FMA_FLOATS = {
-    "fwd": lambda G: 16 * G + 16 * _LDC + 64 * _LDC + 16 * 65 + 64 + 3 * 16,
     "dq": lambda G: 16 * G + 2 * 16 * _LDC + 2 * 64 * _LDC + 16 * 65 + 64 + 2 * 16,
     "dkv": lambda G: 2 * 8 * G + 2 * 8 * _LDC + 2 * 64 * _LDC + 2 * 8 * 65 + 2 * 64 + 8,
 }
@@ -254,12 +269,13 @@ _FMA_FLOATS = {
 @dataclass(frozen=True)
 class WidePlan:
     """How one wide-head kernel runs a head dim: ``route`` "wgmma" (the
-    16-bit forward and dk/dv) or "fma"; ``rows`` a block owns (queries, or
-    keys for dk/dv); ``groups`` the widths of the column groups, which sum
-    to D (``group_width`` the first); for the wgmma kernels the ring's 8 KB
-    ``slots`` and whether Q (dk/dv: K and V) is ``resident``;
-    ``smem_bytes`` of dynamic shared memory a block takes; and
-    ``acc_registers``, the f32 accumulator registers a consumer thread
+    16-bit forward, dq and dk/dv), "tiles" (the f32 forward on register
+    tiles) or "fma" (the f32 dq and dk/dv); ``rows`` a block owns (queries,
+    or keys for dk/dv); ``groups`` the widths of the column groups, which
+    sum to D (``group_width`` the first); the ring's ``slots`` (8 KB boxes
+    for wgmma, 64 x 64 f32 chunks for tiles) and whether Q (dk/dv: K and V)
+    is ``resident``; ``smem_bytes`` of dynamic shared memory a block takes;
+    and ``acc_registers``, the f32 output accumulator registers a thread
     holds (0 for the FMA kernels, whose accumulators live in shared
     memory)."""
 
@@ -293,18 +309,22 @@ def _even_groups(chunks: int, max_chunks: int) -> Tuple[int, ...]:
 def _min_slots(kernel: str, D: int, resident: bool) -> int:
     """The most ring items a consumer holds at once: a score step's and the
     previous step's (_CHUNKS chunks of (Q of both row halves and) K, or of
-    (K, V and) Q, dO), the forward's P.V its group's (at most 4) V boxes,
-    an accumulation step of dk/dv and the previous one 8."""
-    per_chunk = (1 if resident else 3) if kernel == "fwd" else (2 if resident else 4)
+    (K, V and) Q, dO; dq's dP steps one chunk of dO of both row halves and
+    V, 3 items), the forward's P.V and dq's dS.K its group's (at most 4) V
+    or K boxes, an accumulation step of dk/dv and the previous one 8."""
+    per_chunk = {"fwd": (1, 3), "dq": (3, 3), "dkv": (2, 4)}[kernel][0 if resident else 1]
     step = min(_CHUNKS[kernel], D // _BOX) * per_chunk
     score = 2 * step if D // _BOX > _CHUNKS[kernel] else step
-    return max(score, 4 if kernel == "fwd" else 8)
+    if kernel == "dq":   # a dP step's 3 items and the previous step's
+        score = max(score, 6)
+    return max(score, 8 if kernel == "dkv" else 4)
 
 
 def _wgmma_bytes(kernel: str, D: int, slots: int, resident: bool) -> int:
-    # resident: the forward's Q (128 rows: two boxes a chunk), dk/dv's K and V
+    # resident: the forward's Q (128 rows: two boxes a chunk), dk/dv's K
+    # and V
     res = 2 * (D // _BOX) * _BOX_BYTES if resident else 0
-    xch = _XCH_BYTES if kernel == "dkv" else 0
+    xch = {"dkv": _XCH_BYTES, "dq": _DQ_P_BYTES}.get(kernel, 0)
     return res + xch + slots * _BOX_BYTES + (1 + 2 * slots) * 8 + 1024
 
 
@@ -312,14 +332,16 @@ def _wgmma_bytes(kernel: str, D: int, slots: int, resident: bool) -> int:
 def wide_plan(kernel: str, D: int, dtype: torch.dtype) -> WidePlan:
     """The launch plan of wide-head kernel ``kernel`` ("fwd", "dq" or
     "dkv") at head dim ``D`` (a multiple of 64 past 256: the kernels' head
-    dim, :func:`kernel_head_dim`) in ``dtype``. The 16-bit forward and
-    dk/dv take the wgmma route: column groups of at most 256 columns (the
-    forward: 128 own query rows a block, each consumer warpgroup its own 64
-    over all of the group's columns; dk/dv: 64 own key rows, the group's
-    columns split over the two warpgroups), Q (K and V) resident up to
-    D = 512, as many 8 KB ring slots as fit. The rest take the FMA route: 16 own rows (dk/dv: 8), all of D in
-    one group where its f32 accumulators fit one block, else the fewest
-    even groups that fit. Pure Python, so the CPU checks every plan;
+    dim, :func:`kernel_head_dim`) in ``dtype``. The 16-bit kernels take
+    the wgmma route: column groups of at most 256 columns (the forward and
+    dq: 128 own query rows a block, each consumer warpgroup its own 64 over
+    all of the group's columns; dk/dv: 64 own key rows, the group's columns
+    split over the two warpgroups), the forward's Q (dk/dv's K and V)
+    resident up to D = 512, dq's streamed, as many 8 KB ring slots as fit. The f32 forward takes the tiles route: 64
+    own query rows, groups of at most 512 columns, Q streamed beside K.
+    The f32 dq and dk/dv take the FMA route: 16 own rows (dk/dv: 8), all
+    of D in one group where its f32 accumulators fit one block, else the
+    fewest even groups that fit. Pure Python, so the CPU checks every plan;
     ``flash_wide_smem_bytes`` and ``flash_wide_groups`` of the library
     report the shared memory and groups a launch takes under a plan, from
     the kernels' own layouts."""
@@ -331,17 +353,22 @@ def wide_plan(kernel: str, D: int, dtype: torch.dtype) -> WidePlan:
         raise ValueError(f"the wide-head route takes multiples of {WIDE_HEAD_DIM_STEP} "
                          f"past {SUPPORTED_HEAD_DIMS[-1]}, got {D}")
     chunks = D // _BOX
-    if dtype != torch.float32 and kernel != "dq":
+    if dtype != torch.float32:
         groups = _even_groups(chunks, _MAX_GROUP // _BOX)
-        resident = D <= _RESIDENT_MAX_D
+        resident = D <= _RESIDENT_MAX_D and kernel != "dq"
         slots = next(s for s in range(_MAX_SLOTS, _min_slots(kernel, D, resident) - 1, -1)
                      if _wgmma_bytes(kernel, D, s, resident) <= _SMEM_LIMIT)
-        # a thread's accumulators: the forward's O over the group's boxes,
-        # dk/dv's dK and dV over the busier warpgroup's half of them
+        # a thread's accumulators: the forward's O and dq's dQ over the
+        # group's boxes, dk/dv's dK and dV over the busier warpgroup's half
         boxes = groups[0] // _BOX
-        regs = boxes * 32 if kernel == "fwd" else -(-boxes // 2) * 64
+        regs = -(-boxes // 2) * 64 if kernel == "dkv" else boxes * 32
         return WidePlan(kernel, "wgmma", _WGMMA_ROWS[kernel], groups, slots, resident,
                         _wgmma_bytes(kernel, D, slots, resident), regs)
+    if kernel == "fwd":
+        groups = _even_groups(chunks, _TILE_MAX_GROUP // _BOX)
+        # O: 64 rows x the group's columns over 256 threads
+        return WidePlan(kernel, "tiles", _TILE_ROWS, groups, _TILE_SLOTS, False, _TILE_BYTES,
+                        _TILE_ROWS * groups[0] // _TILE_THREADS)
     floats = _FMA_FLOATS[kernel]
     if 4 * floats(D) <= _SMEM_LIMIT:
         groups = (D,)

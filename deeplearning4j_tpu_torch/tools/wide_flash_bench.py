@@ -9,24 +9,30 @@ times two checkouts, each in its own process; run them interleaved (A, B,
 B, A) in one call on one card to compare them. Prints one JSON line:
 
 - ``kernels``: the forward, dq and dk/dv through the port's wrappers
-  (``flash_fwd_cuda``, ``flash_bwd_dq_cuda``, ``flash_bwd_dkv_cuda``), bf16,
+  (``flash_fwd_cuda``, ``flash_bwd_dq_cuda``, ``flash_bwd_dkv_cuda``),
   causal, by CUDA events, at B16 T2048 H4 D512 (the products of kernel
-  #1's flagship shape, B16 T2048 H16 D128), B2 T512 H4 at D 320 and 512,
-  and B1 T256 H2 at D 3072 (column groups), each beside its bound and
-  ``scaled_dot_product_attention``'s forward and backward;
-- with ``--variants`` (a checkout with ``wide_plan``): the forward with Q
-  streamed beside Q resident, and dk/dv with K and V streamed beside
-  resident, at B16 T2048 H4 D512 (the streamed plans are built here from
-  ``wide_plan``'s), and dk/dv built with its producer skipping the score
-  steps' Q and dO boxes, or every Q and dO box (``_LOAD_VARIANTS``: what
-  the box stream costs it);
+  #1's flagship shape, B16 T2048 H16 D128) in bf16 and f32, B2 T512 H4 at
+  D 320 and 512 in bf16 and f32, and B1 T256 H2 at D 3072 (column groups)
+  in bf16, each beside its bounds (bf16 at 989 TFLOP/s, f32 at 67 of FMA)
+  and ``scaled_dot_product_attention``'s forward and backward, with the
+  backend SDPA picked;
+- with ``--variants`` (a checkout with ``wide_plan``), at B16 T2048 H4
+  D512: the 16-bit forward with Q streamed and dk/dv with K and V
+  streamed beside resident (the streamed plans are built here from
+  ``wide_plan``'s), the f32 forward in 256-column groups beside its
+  512-column one, and builds of patched copies of the source
+  (``_SOURCE_VARIANTS``): dk/dv with its producer skipping the score
+  steps' Q and dO boxes, or every Q and dO box (what the box stream costs
+  it), and the f32 forward without its copies, its score FMAs or its P.V
+  (what each part costs);
 - with ``--lm``: the flagship TransformerLM of ``bench.py:546`` with 4
   heads (D = 512: vocab 2048, T 2048, d_model 2048, 8 blocks, bf16, seed
   12345, Adam 1e-4): one 16 x 2048 ``output`` dispatch (ms, CUDA events,
   after a warm one), then a warm training step and 3 timed ones
   (``_fit_batch``, CUDA events) with one step split into forward /
   backward / update, the loss of each, and the launches of each flash
-  kernel a dispatch and a step.
+  kernel a dispatch and a step; then the same configuration in float32:
+  one 16 x 2048 ``output`` dispatch and its launches.
 
 The card's name and power limit go with the line.
 """
@@ -42,7 +48,7 @@ import shutil
 import subprocess
 import sys
 
-PEAK_BF16 = 989e12
+PEAK = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 
 
@@ -55,15 +61,27 @@ def _card() -> str:
         return "not read"
 
 
-def _bounds(B, T, H, D):
-    """Forward and dk/dv bounds (ms) at a causal bf16 shape: their products
-    over the kept pairs (2 and 4 of 2 B H pairs D flops) at the bf16 peak,
-    against q, k, v, out (and do, lse, delta, dk, dv) moved once."""
+def _bounds(B, T, H, D, dtype):
+    """Forward, dq and dk/dv bounds (ms) at a causal shape: their products
+    over the kept pairs (2, 3 and 4 of 2 B H pairs D flops) at the dtype's
+    peak, against q, k, v, out (and do, lse, delta and the gradients) moved
+    once."""
     pairs = T * (T + 1) // 2
     prod = 2.0 * B * H * pairs * D
-    fwd = max(2 * prod / PEAK_BF16, (4 * B * T * H * D * 2 + 4 * B * H * T) / PEAK_BYTES)
-    dkv = max(4 * prod / PEAK_BF16, (6 * B * T * H * D * 2 + 8 * B * H * T) / PEAK_BYTES)
-    return fwd * 1e3, dkv * 1e3
+    es = 4 if dtype == "float32" else 2
+    peak = PEAK[dtype]
+    fwd = max(2 * prod / peak, (4 * B * T * H * D * es + 4 * B * H * T) / PEAK_BYTES)
+    dq = max(3 * prod / peak, (5 * B * T * H * D * es + 8 * B * H * T) / PEAK_BYTES)
+    dkv = max(4 * prod / peak, (6 * B * T * H * D * es + 8 * B * H * T) / PEAK_BYTES)
+    return fwd * 1e3, dq * 1e3, dkv * 1e3
+
+
+def _sdpa_backend(torch, q, k, v) -> str:
+    """The backend scaled_dot_product_attention picks for these inputs."""
+    from torch.nn.attention import SDPBackend
+
+    code = int(torch._fused_sdp_choice(q, k, v, is_causal=True))
+    return {m.value: n for n, m in SDPBackend.__members__.items()}.get(code, str(code))
 
 
 def _kernels(torch, fa, variants: bool) -> dict:
@@ -80,22 +98,26 @@ def _kernels(torch, fa, variants: bool) -> dict:
         return a.elapsed_time(b) / iters
 
     out = []
-    shapes = ((16, 2048, 4, 512, 5), (2, 512, 4, 320, 20), (2, 512, 4, 512, 20),
-              (1, 256, 2, 3072, 10))
-    for B, T, H, D, iters in shapes:
+    bf16, f32 = "bfloat16", "float32"
+    shapes = ((16, 2048, 4, 512, bf16, 5), (16, 2048, 4, 512, f32, 3),
+              (2, 512, 4, 320, bf16, 20), (2, 512, 4, 512, bf16, 20),
+              (2, 512, 4, 320, f32, 20), (2, 512, 4, 512, f32, 20),
+              (1, 256, 2, 3072, bf16, 10))
+    for B, T, H, D, dtype, iters in shapes:
+        dt = getattr(torch, dtype)
         g = torch.Generator(device="cuda").manual_seed(D)
-        qkv = torch.randn(B, T, 3 * H, D, generator=g, device="cuda").to(torch.bfloat16)
+        qkv = torch.randn(B, T, 3 * H, D, generator=g, device="cuda").to(dt)
         q, k, v = qkv.split(H, dim=2)   # the fused-qkv views the attention layer passes
         o, lse = fa.flash_fwd_cuda(q, k, v, causal=True)
-        do = torch.randn(B, T, H, D, generator=g, device="cuda").to(torch.bfloat16)
+        do = torch.randn(B, T, H, D, generator=g, device="cuda").to(dt)
         delta = fa._delta(o, do)
-        row = {"shape": [B, T, H, D], "dtype": "bfloat16", "causal": True,
+        row = {"shape": [B, T, H, D], "dtype": dtype, "causal": True,
                "fwd_ms": time_ms(lambda: fa.flash_fwd_cuda(q, k, v, causal=True), iters),
                "dkv_ms": time_ms(lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, None,
                                                                True), iters),
                "dq_ms": time_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, None,
                                                              True), max(1, iters // 4), 1)}
-        row["fwd_bound_ms"], row["dkv_bound_ms"] = _bounds(B, T, H, D)
+        row["fwd_bound_ms"], row["dq_bound_ms"], row["dkv_bound_ms"] = _bounds(B, T, H, D, dtype)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         row["sdpa_fwd_ms"] = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), iters)
@@ -104,40 +126,65 @@ def _kernels(torch, fa, variants: bool) -> dict:
         dot = do.transpose(1, 2).contiguous()
         row["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(og, (qg, kg, vg), dot,
                                                                  retain_graph=True), iters)
+        row["sdpa_backend"] = {"fwd": _sdpa_backend(torch, qt, kt, vt),
+                               "fwd_bwd": _sdpa_backend(torch, qg, kg, vg)}
+        if hasattr(fa, "wide_plan"):
+            row["routes"] = {kern: fa.wide_plan(kern, D, dt).route for kern in fa.WIDE_KERNELS}
         if variants and (B, T, H, D) == (16, 2048, 4, 512) and hasattr(fa, "wide_plan"):
+            run = {"fwd": lambda: fa.flash_fwd_cuda(q, k, v, causal=True),
+                   "dq": lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, None, True),
+                   "dkv": lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, None, True)}
             plan = fa.wide_plan
             try:
-                fa.wide_plan = lambda kern, d, dt: _streamed(fa, plan(kern, d, dt))
-                row["fwd_q_streamed_ms"] = time_ms(
-                    lambda: fa.flash_fwd_cuda(q, k, v, causal=True), iters)
-                row["dkv_kv_streamed_ms"] = time_ms(
-                    lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, None, True), iters)
-                row["streamed_plans"] = {kern: str(fa.wide_plan(kern, D, torch.bfloat16))
-                                         for kern in ("fwd", "dkv")}
+                if dtype == bf16:
+                    fa.wide_plan = lambda kern, d, t: _streamed(fa, plan(kern, d, t))
+                    for kern, what in (("fwd", "q"), ("dkv", "kv")):
+                        row[f"{kern}_{what}_streamed_ms"] = time_ms(run[kern], iters)
+                    row["streamed_plans"] = {kern: str(fa.wide_plan(kern, D, dt))
+                                             for kern in ("fwd", "dkv")}
+                else:   # the f32 forward in 256-column groups (the scores twice)
+                    fa.wide_plan = lambda kern, d, t: _halved(plan(kern, d, t))
+                    row["fwd_256_column_groups_ms"] = time_ms(run["fwd"], iters)
             finally:
                 fa.wide_plan = plan
-            for label, puts in _LOAD_VARIANTS.items():
-                with _variant_source(fa, label, puts):
-                    row[f"dkv_{label}_ms"] = time_ms(
-                        lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, None, True),
-                        iters)
+            for label, (kern, kdtype, _, _) in _SOURCE_VARIANTS.items():
+                if kdtype == dtype:
+                    with _variant_source(fa, label):
+                        row[f"{label}_ms"] = time_ms(run[kern], iters)
         out.append(row)
         del q, k, v, qkv, o, lse, do, delta, qt, kt, vt, qg, kg, vg, og, dot
         torch.cuda.empty_cache()
     return out
 
 
-# dk/dv variants that load fewer of the boxes the producer streams through
-# the ring (timing only: their results are not attention). The producer
-# arrives on a skipped box's barrier without loading it, so the consumers
-# run the same products and exchanges on whatever the slot held:
-# "no_score_loads" skips the score steps' Q and dO boxes (all of D), and
-# "no_loads" also the group's boxes of the accumulation steps.
+# Variants built from a patched copy of flash_wide.cu (timing only: their
+# results are not attention), each edit made inside one function: the
+# kernel to time, its dtype, the function's first line and the edits.
+# dk/dv loading fewer of the boxes the producer streams through the ring
+# (the producer arrives on a skipped box's barrier without loading it, so
+# the consumers run the same products and exchanges on whatever the slot
+# held): "no_score_loads" skips the score steps' Q and dO boxes (all of D),
+# "no_loads" also the group's boxes of the accumulation steps. The f32
+# forward without its cp.async copies, without the score FMAs, or without
+# P.V: what each part of it costs.
 _SCORE_PUTS = ("ring.put(pos, &p.q, c * BOX, h, q0, b);",
                "ring.put(pos, &p.o, c * BOX, h, q0, b);")
 _GROUP_PUTS = ("ring.put(pos, &p.q, (gb + j) * BOX, h, q0, b);",
                "ring.put(pos, &p.o, (gb + j) * BOX, h, q0, b);")
-_LOAD_VARIANTS = {"no_score_loads": _SCORE_PUTS, "no_loads": _SCORE_PUTS + _GROUP_PUTS}
+_DKV = "flash_wide_dkv_wgmma_kernel(__grid_constant__"
+_TILES = "flash_wide_fwd_tiles_kernel(const Params p)"
+_SOURCE_VARIANTS = {
+    "dkv_no_score_loads": ("dkv", "bfloat16", _DKV,
+                           [(put, "ring.skip(pos);") for put in _SCORE_PUTS]),
+    "dkv_no_loads": ("dkv", "bfloat16", _DKV,
+                     [(put, "ring.skip(pos);") for put in _SCORE_PUTS + _GROUP_PUTS]),
+    "fwd_f32_no_loads": ("fwd", "float32", _TILES,
+                         [("if (it_kt < n_kt) {", "if (false && it_kt < n_kt) {")]),
+    "fwd_f32_no_score_fmas": ("fwd", "float32", _TILES,
+                              [("d < 16 * g + 16; d += 2", "d < 16 * g; d += 2")]),
+    "fwd_f32_no_pv": ("fwd", "float32", "void tiles_pv(",
+                      [("kk < RT_VKEYS; kk += 4", "kk < 0; kk += 4")]),
+}
 _WAIT = "  __device__ __forceinline__ void wait(Pos p, int count) const {"
 _SKIP = """  __device__ __forceinline__ void skip(Pos& p) const {
     bar_wait(&empty[p.slot], p.phase ^ 1u);
@@ -148,24 +195,25 @@ _SKIP = """  __device__ __forceinline__ void skip(Pos& p) const {
 
 
 @contextlib.contextmanager
-def _variant_source(fa, label, puts):
-    """Build and load ``flash_wide.cu`` with the dk/dv kernel's producer
-    skipping ``puts`` (each must occur once in that kernel) from
-    ``build/variants/<label>/``; the checkout's library again after."""
+def _variant_source(fa, label):
+    """Build and load ``flash_wide.cu`` with variant ``label``'s edits (each
+    must occur once in its function) from ``build/variants/<label>/``; the
+    checkout's library again after."""
     from deeplearning4j_tpu_torch.ops import _build
 
-    src = _build.SOURCE_DIR / "flash_wide.cu"
-    text = src.read_text()
-    cut = text.index("flash_wide_dkv_wgmma_kernel(__grid_constant__")
-    head, dkv = text[:cut], text[cut:]
-    assert head.count(_WAIT) == 1, "Ring::wait not found"
-    head = head.replace(_WAIT, _SKIP + _WAIT)
-    for put in puts:
-        assert dkv.count(put) == 1, put
-        dkv = dkv.replace(put, "ring.skip(pos);")
+    _, _, first, edits = _SOURCE_VARIANTS[label]
+    text = (_build.SOURCE_DIR / "flash_wide.cu").read_text()
+    assert text.count(_WAIT) == 1, "Ring::wait not found"
+    text = text.replace(_WAIT, _SKIP + _WAIT)
+    start = text.index(first)
+    end = text.index("\n}\n", start)   # the function's closing brace
+    body = text[start:end]
+    for old, new in edits:
+        assert body.count(old) == 1, (label, old)
+        body = body.replace(old, new)
     out = _build.BUILD_DIR / "variants" / label
     out.mkdir(parents=True, exist_ok=True)
-    (out / "flash_wide.cu").write_text(head + dkv)
+    (out / "flash_wide.cu").write_text(text[:start] + body + text[end:])
     for h in _build.SOURCE_DIR.glob("*.cuh"):
         shutil.copy(h, out / h.name)
 
@@ -180,6 +228,16 @@ def _variant_source(fa, label, puts):
         yield
     finally:
         swap(original)
+
+
+def _halved(plan):
+    """The f32 forward's ``plan`` in column groups of 256 (the scores
+    computed once a group)."""
+    if plan.kernel != "fwd" or plan.route != "tiles":
+        return plan
+    D = sum(plan.groups)
+    return dataclasses.replace(plan, groups=(256,) * (D // 256) + ((D % 256,) if D % 256 else ()),
+                               acc_registers=64)
 
 
 def _streamed(fa, plan):
@@ -251,15 +309,35 @@ def _lm(torch, fa) -> dict:
     ev[5].record()
     # graftlint: disable=host-sync; a timing harness: the sync ends the timed region
     torch.cuda.synchronize()
+    params, peak = model.num_params(), torch.cuda.max_memory_allocated()
+    del model, grads, live, loss
+    # graftlint: disable=host-sync; a timing harness: the sync ends the timed region
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    conf32 = zoo.TransformerLM(vocab_size=2048, max_len=2048, d_model=2048, n_heads=4,
+                               n_blocks=8, dtype="float32", seed=12345)
+    model = MultiLayerNetwork(conf32).init()
+    model.output(xt)
+    # graftlint: disable=host-sync; a timing harness: the sync ends the timed region
+    torch.cuda.synchronize()
+    c0 = counts()
+    ev[0].record()
+    model.output(xt)
+    ev[1].record()
+    # graftlint: disable=host-sync; a timing harness: the sync ends the timed region
+    torch.cuda.synchronize()
+    f32 = {"dispatch_16x2048_ms": ev[0].elapsed_time(ev[1]),
+           "dispatch_launches_fwd_dq_dkv": [b - a for a, b in zip(c0, counts())]}
     return {"model": {"vocab": 2048, "T": 2048, "d_model": 2048, "heads": 4, "head_dim": 512,
-                      "blocks": 8, "dtype": "bfloat16", "params": model.num_params()},
+                      "blocks": 8, "dtype": "bfloat16", "params": params},
+            "float32": f32,
             "dispatch_16x2048_ms": dispatch_ms,
             "dispatch_launches_fwd_dq_dkv": dispatch_launches,
             "step_16x2048_ms": step_ms, "step_launches_fwd_dq_dkv": step_launches,
             "split_ms": {"forward": ev[2].elapsed_time(ev[3]),
                          "backward": ev[3].elapsed_time(ev[4]),
                          "update": ev[4].elapsed_time(ev[5])},
-            "loss_sum": losses, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+            "loss_sum": losses, "max_memory_allocated_bytes": peak}
 
 
 def main(argv=None) -> int:

@@ -2,7 +2,8 @@
 GPU: flash attention (forward #1, its 16-bit wgmma kernel at ragged T, B*H
 = 1, on fused-qkv views, repeated and with rows without a valid key; every
 head dim up to 256 in bf16 and f16, zero-padded ones included, and the
-wide-head route past 256, in column groups past 2880; backward #2 dq and
+wide-head route past 256 (its f32 forward on register tiles and 16-bit
+dq on wgmma included), in column groups past 2880; backward #2 dq and
 #3 dk/dv; the chunk entries with Tq != Tk, offsets and an lse cotangent,
 and the flash ring shard by shard) with a tiny TransformerLM served and
 trained through them, the
@@ -849,23 +850,35 @@ def test_wide_head_past_2880_matches_plain_version(cuda, D, dtype, causal, maske
     # dp - delta (sums of magnitude ~55 over D = 3072 columns, whose f32 ulp is
     # 4e-6), times scale * q summed over the 256 queries: the wgmma dk/dv's
     # tensor-core sums read 2.3e-4 on the card, the reference's 3e-5. dk is
-    # held to 5e-4, about 2x that; dq (the FMA kernel) keeps the relative check.
+    # held to 5e-4, about 2x that. dq is 0 in exact arithmetic too: each row
+    # gets scale * (dp - delta) * k of its one key, one term, no sum over
+    # queries. The noise of dp - delta is that of two f32 sums of the same
+    # 3072 products in other orders, ~sqrt(D) * 2^-24 * sum |do v| ~ 6e-3 at
+    # most (sum |do v| ~ 2000), times scale (0.018) and |k| (< 4.5): under
+    # 5e-4. The wgmma dq's tensor-core sums read 4.6e-5 on the card, the
+    # reference's 1.1e-5 (the FMA dq it replaced read 0.0, so the relative
+    # check held): dq is held to 1e-4, about 2x what it read.
     one_key = km is not None and bool((km.sum(1) == 1).all())
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         if dtype == torch.float32:
             torch.testing.assert_close(a, b, **F32)
         elif one_key and name == "dk":
             assert a.float().abs().max().item() <= 5e-4, name
+        elif one_key and name == "dq":
+            assert a.float().abs().max().item() <= 1e-4, name
         else:
             _rel_close(a, b, 2e-2)
 
 
 def test_wide_head_one_group_up_to_2880(cuda):
-    """Up to 2880 every FMA kernel of the route (f32 forward and dk/dv, dq
-    in every dtype) keeps one column group (the layout of the route before
-    groups, so those head dims run as before); under each of the wrapper's
-    plans (wide_plan) the library's layouts take the shared memory and
-    groups the plan says, and it refuses a plan that does not fit."""
+    """Up to 2880 the FMA kernels of the route (the f32 dq and dk/dv) keep
+    one column group (the layout of the route before groups, so those head
+    dims run as before), while the f32 forward on register tiles takes
+    groups of at most 512 columns and the 16-bit kernels on wgmma of at
+    most 256; under each
+    of the wrapper's plans (wide_plan) the library's layouts take the
+    shared memory and groups the plan says, and it refuses a plan that
+    does not fit."""
     lib = fa._wide_kernel_lib()
 
     def groups(w, code, D):
@@ -874,9 +887,10 @@ def test_wide_head_one_group_up_to_2880(cuda):
                                                               dtype).c_plan())
 
     for D in (320, 512, 1024, 2048, 2880):
-        assert [groups(w, 0, D) for w in range(3)] == [1, 1, 1], D
-        assert groups(1, 1, D) == 1, D
-    assert groups(1, 1, 2944) == 2
+        assert [groups(w, 0, D) for w in (1, 2)] == [1, 1], D
+        assert groups(0, 0, D) == -(-D // 512), D
+        assert [groups(w, c, D) for w in range(3) for c in (1, 2)] == [-(-D // 256)] * 6, D
+    assert groups(1, 0, 2944) == 2
     for w, kernel in enumerate(fa.WIDE_KERNELS):
         for code, dtype in enumerate((torch.float32, torch.bfloat16, torch.float16)):
             for D in (320, 512, 576, 1024, 1088, 2880, 3072, 4096, 8192):
@@ -884,8 +898,12 @@ def test_wide_head_one_group_up_to_2880(cuda):
                 assert (lib.flash_wide_smem_bytes(w, code, D, plan.c_plan()),
                         lib.flash_wide_groups(w, code, D, plan.c_plan())
                         ) == (plan.smem_bytes, len(plan.groups)), (kernel, dtype, D)
-    # the whole of D = 4096 in one FMA dq group does not fit a block
-    assert lib.flash_wide_smem_bytes(1, 1, 4096, (ctypes.c_int * 3)(4096, 0, 0)) == -1
+    # the whole of D = 4096 in one FMA dq group does not fit a block, nor
+    # 320 columns in one group of the wgmma dq, nor 576 in one of the f32
+    # forward's tiles
+    assert lib.flash_wide_smem_bytes(1, 0, 4096, (ctypes.c_int * 3)(4096, 0, 0)) == -1
+    assert lib.flash_wide_smem_bytes(1, 1, 320, (ctypes.c_int * 3)(320, 18, 1)) == -1
+    assert lib.flash_wide_smem_bytes(0, 0, 576, (ctypes.c_int * 3)(576, 3, 0)) == -1
 
 
 # -- the wide-head wgmma kernels (16-bit forward and dk/dv past D = 256) ---------
@@ -1008,6 +1026,113 @@ def test_wide_wgmma_column_groups_see_the_same_p(cuda, D):
     want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, None, True)
     _close_rel(dk, want[1], 2e-2)
     _close_rel(dv, want[2], 2e-2)
+
+
+# -- the wide-head f32 forward on register tiles, the 16-bit dq on wgmma -------
+
+@pytest.mark.parametrize("T", [1, 65, 129, 300])
+@pytest.mark.parametrize("D,kmask", [(512, None), (320, "varlen"), (300, "leading")])
+def test_wide_f32_tiles_forward_ragged_T_and_masks(cuda, T, D, kmask):
+    """The f32 forward on register tiles (wide_plan route "tiles"): T not a
+    multiple of its 64 rows, the key mask, rows that see no key (the first
+    37 keys of batch 0 masked, causal), D = 300 zero-padded to 320: out and
+    lse against the plain version, rows without a key finite with lse at or
+    below -1e29, a second run bit-equal; the f32 backward on top."""
+    B, H, dtype = 2, 2, torch.float32
+    assert fa.wide_plan("fwd", fa.kernel_head_dim(D, dtype), dtype).route == "tiles"
+    q, k, v = _qkv(cuda, B, T, H, D, dtype, strided=True, seed=T + D)
+    km = None
+    if kmask == "varlen":
+        km = _varlen(cuda, B, T, seed=T)
+    elif kmask == "leading":
+        km = torch.ones(B, T, device=cuda)
+        km[0, :37] = 0.0
+    before = fa.WIDE_LAUNCHES["flash_wide_fwd"]
+    out, lse = fa.flash_fwd_cuda(q, k, v, kmask=km, causal=True)
+    assert fa.WIDE_LAUNCHES["flash_wide_fwd"] == before + 1
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=True, kmask=km, with_lse=True)
+    seen = torch.ones(B, T, device=cuda) if km is None else (km > 0).cummax(1).values.float()
+    torch.testing.assert_close(out * seen[:, :, None, None], ref * seen[:, :, None, None], **F32)
+    torch.testing.assert_close(lse * seen[:, None], ref_lse * seen[:, None], rtol=1e-5, atol=1e-4)
+    assert bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
+    assert bool((lse[(seen == 0)[:, None].expand_as(lse)] <= -1e29).all())
+    again = fa.flash_fwd_cuda(q, k, v, kmask=km, causal=True)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    g = torch.Generator(device=cuda).manual_seed(T)
+    do = torch.randn(B, T, H, D, generator=g, device=cuda)
+    got = fa.flash_bwd_cuda(q, k, v, out, lse, do, km, True)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, km, True)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **F32)
+
+
+@pytest.mark.parametrize("case", WIDE16_CHUNKS)
+def test_wide_f32_chunk_entries_match_plain_version(cuda, case):
+    """The chunk entries in f32 (the forward on register tiles, the
+    backward on FMAs) with Tq != Tk, offsets, the key mask and D = 300:
+    out and lse against the plain version, then dq, dk and dv under both
+    cotangents (do and the lse's) against the plain backward; rows without
+    a key get exactly 0 in dq; both runs repeat bit for bit."""
+    dtype = torch.float32
+    q, k, v, km, do, dlse, kw = _chunk_case(cuda, case, dtype, seed=37)
+    out, lse = fa.flash_attention_block(q, k, v, kmask=km, **kw)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, kmask=km, with_lse=True, **kw)
+    rows = _rows_with_a_key(case, km, cuda)
+    w = rows[:, :, None, None].float()
+    torch.testing.assert_close(out * w, ref * w, **F32)
+    wl = rows[:, None, :].float()
+    torch.testing.assert_close(lse * wl, ref_lse * wl, rtol=1e-5, atol=1e-4)
+    assert bool((lse[~rows[:, None, :].expand_as(lse)] <= -1e29).all())
+    assert bool(torch.isfinite(out).all())
+    again = fa.flash_attention_block(q, k, v, kmask=km, **kw)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    grads = []
+    for _ in range(2):
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        o, l = fa.flash_attention_block_grad(qg, kg, vg, kmask=km, **kw)
+        torch.autograd.backward((o, l), (do, dlse))
+        grads.append((qg.grad, kg.grad, vg.grad))
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    assert torch.count_nonzero(grads[0][0][~rows]) == 0
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, km, dlse=dlse, **kw)
+    for got, ref_g in zip(grads[0], want):
+        torch.testing.assert_close(got, ref_g, **F32)
+
+
+@pytest.mark.parametrize("D", [3072, 4096])
+def test_wide_dq_and_f32_forward_column_groups_see_the_same_p(cuda, D):
+    """The wgmma dq's column groups each recompute S and dP over all of D,
+    the f32 forward's groups the scores: with q, k, v and do repeating
+    every 128 columns, every 128-column slice of dq (bf16) and of out (f32)
+    must be bit-equal to the first, which holds only if every group used
+    the same ds (p); each against its plain version."""
+    B, T, H = 1, 256, 2
+    g = torch.Generator(device=cuda).manual_seed(D)
+
+    def periodic(dtype, scale=1.0):
+        return (scale * torch.randn(B, T, H, 128, generator=g, device=cuda)).to(dtype).repeat(
+            1, 1, 1, D // 128)
+
+    # q and k scaled by (128 / D) ** 0.25 give the scaled scores of
+    # periodic inputs the spread of random ones (about 1)
+    a = (128 / D) ** 0.25
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = periodic(dtype, a), periodic(dtype, a), periodic(dtype), periodic(dtype)
+        out, lse = fa.flash_fwd_cuda(q, k, v, causal=True)
+        ref = fa.flash_attention_reference(q, k, v, causal=True)
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   **(F32 if dtype == torch.float32 else BF16))
+        checks = [("out", out)]
+        if dtype == torch.bfloat16:
+            assert fa.wide_plan("dq", D, dtype).route == "wgmma"
+            dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, fa._delta(out, do), None, True)
+            want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, None, True)[0]
+            _close_rel(dq, want, 2e-2)
+            _close_per_tile(dq, want, 1e-2)
+            checks.append(("dq", dq))
+        for name, x in checks:
+            slices = x.view(B, T, H, D // 128, 128)
+            assert torch.equal(slices, slices[:, :, :, :1].expand_as(slices)), (name, dtype)
 
 
 # -- ComputationGraph ---------------------------------------------------------

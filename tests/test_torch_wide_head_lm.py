@@ -136,27 +136,39 @@ DTYPES = [torch.bfloat16, torch.float16, torch.float32]
 @pytest.mark.parametrize("kernel", fa.WIDE_KERNELS)
 @pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f16", "f32"])
 def test_wide_plan_covers_fits_and_keeps_the_register_budget(kernel, dtype):
-    wgmma = dtype != torch.float32 and kernel != "dq"
+    route = ("wgmma" if dtype != torch.float32 else "tiles" if kernel == "fwd" else "fma")
     for D in WIDE_DIMS:
         plan = fa.wide_plan(kernel, D, dtype)
-        assert plan.kernel == kernel and plan.route == ("wgmma" if wgmma else "fma"), D
+        assert plan.kernel == kernel and plan.route == route, D
         assert sum(plan.groups) == D, (D, plan)
         assert all(g > 0 and g % 64 == 0 for g in plan.groups), (D, plan)
         # as even as 64-column boxes allow: all but the last equal, the last no wider
         assert all(g == plan.group_width for g in plan.groups[:-1]), (D, plan)
         assert plan.groups[-1] <= plan.group_width, (D, plan)
         assert plan.smem_bytes <= SMEM_LIMIT, (D, plan)
-        if wgmma:
-            # a forward warpgroup sums at most 256 output columns for its own
-            # 64 rows (64 x 256 f32: 128 registers a thread, 128 rows a
-            # block); a dk/dv warpgroup 128 columns of dK and of dV for the
-            # block's 64 key rows (2 x 64 x 128 f32: 128 registers)
-            assert plan.rows == (128 if kernel == "fwd" else 64)
+        if route == "wgmma":
+            # a forward or dq warpgroup sums at most 256 output columns for
+            # its own 64 rows (64 x 256 f32: 128 registers a thread, 128
+            # rows a block); a dk/dv warpgroup 128 columns of dK and of dV
+            # for the block's 64 key rows (2 x 64 x 128 f32: 128 registers)
+            assert plan.rows == (64 if kernel == "dkv" else 128)
             assert plan.group_width <= 256, (D, plan)
             assert 0 < plan.acc_registers <= fa.WIDE_ACC_REGISTERS, (D, plan)
-            # a score step's boxes and the previous step's
-            assert plan.slots >= (4 if kernel == "fwd" else 8), (D, plan)
-            assert plan.resident == (D <= 512), (D, plan)
+            assert plan.acc_registers == (128 if kernel == "dkv" else plan.group_width // 2)
+            # a score step's boxes and the previous step's: the forward's 4
+            # resident chunks of K; dq's 2 chunks of Q (both row halves) and
+            # K; dk/dv's 8
+            assert plan.slots >= {"fwd": 4, "dq": 12, "dkv": 8}[kernel], (D, plan)
+            # dq streams Q (resident it left 8 slots and ran slower)
+            assert plan.resident == (D <= 512 and kernel != "dq"), (D, plan)
+        elif route == "tiles":
+            # 64 query rows over 256 threads, O in registers: 64 x G / 256
+            # f32 a thread (128 at G = 512); Q streams beside K through the
+            # 3-slot ring
+            assert plan.rows == 64 and plan.slots == 3, (D, plan)
+            assert plan.group_width <= 512, (D, plan)
+            assert plan.acc_registers == plan.group_width // 4 <= 128, (D, plan)
+            assert not plan.resident, (D, plan)
         else:
             assert plan.rows == (8 if kernel == "dkv" else 16)
             assert plan.acc_registers == 0 and plan.slots == 0 and not plan.resident
@@ -166,17 +178,30 @@ def test_wide_plan_covers_fits_and_keeps_the_register_budget(kernel, dtype):
 
 
 def test_wide_plan_at_the_flagship_widths():
-    """D = 512 (the 4-head flagship): the forward and dk/dv each in two
-    groups of 256 columns that recompute the scores (1.5x the products),
-    the forward's Q (128 rows) and dk/dv's K and V resident; the bytes the
-    layouts take."""
+    """D = 512 (the 4-head flagship): the 16-bit forward, dq and dk/dv each
+    in two groups of 256 columns that recompute the scores (the forward
+    1.5x its products, dq 1.67x), the forward's Q (128 rows) and dk/dv's K
+    and V resident, dq's Q streamed; the bytes the layouts take; the f32
+    forward on register tiles in one group of 512 columns."""
     fwd = fa.wide_plan("fwd", 512, torch.bfloat16)
     assert (fwd.rows, fwd.groups, fwd.resident, fwd.slots) == (128, (256, 256), True, 12)
     assert fwd.smem_bytes == 131072 + 12 * 8192 + 25 * 8 + 1024
     dkv = fa.wide_plan("dkv", 512, torch.bfloat16)
     assert (dkv.rows, dkv.groups, dkv.resident, dkv.slots) == (64, (256, 256), True, 10)
     assert dkv.smem_bytes == 131072 + 16384 + 10 * 8192 + 21 * 8 + 1024
-    assert fa.wide_plan("dq", 512, torch.bfloat16).route == "fma"
+    dq = fa.wide_plan("dq", 512, torch.bfloat16)
+    assert (dq.route, dq.rows, dq.groups, dq.resident, dq.slots) == ("wgmma", 128, (256, 256),
+                                                                     False, 24)
+    # each consumer thread's 32 f32 of p, the ring, the barriers
+    assert dq.smem_bytes == 32768 + 24 * 8192 + 49 * 8 + 1024
+    assert dq.acc_registers == 128
+    assert fa.wide_plan("dq", 512, torch.float16) == dq
+    f32 = fa.wide_plan("fwd", 512, torch.float32)
+    assert (f32.route, f32.rows, f32.groups, f32.resident, f32.slots) == ("tiles", 64,
+                                                                          (512,), False, 3)
+    # 3 slots of a K and a Q chunk, four partial score tiles, p, m and l
+    assert f32.smem_bytes == 3 * 2 * 17408 + 5 * 18432 + 512 and f32.acc_registers == 128
+    assert fa.wide_plan("dq", 512, torch.float32).route == "fma"
     assert fa.wide_plan("dkv", 320, torch.float16).groups == (192, 128)
 
 
