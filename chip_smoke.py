@@ -22,8 +22,8 @@ non-zero (and without a result line when no CUDA device is present):
    from cuobjdump -sass. The 24 bf16 and f16 wgmma kernels (forward, dq,
    dk/dv at D = 32, 64, 128, 256) and the 6 of the wide-head route (bf16
    and f16 forward, dq and dk/dv past D = 256) must show HGMMA and no
-   spills, the wide f32 forward on register tiles no spills, ptxas must
-   not serialize the wide-head wgmmas (C7514), and the shared
+   spills, the wide f32 forward, dq and dk/dv on register tiles no
+   spills, ptxas must not serialize the wide-head wgmmas (C7514), and the shared
    memory and column groups the library reports for ops/flash_attention.py
    wide_plan's plans (D = 320, 512, 2880, 3072, 4096, every dtype), from
    the kernels' own layouts, must equal the plans'; the LSTM kernels no
@@ -46,14 +46,14 @@ non-zero (and without a result line when no CUDA device is present):
    kernels #2/#3) at the flagship shape, the plain versions, and torch's
    scaled_dot_product_attention forward and backward as a yardstick only.
    Then the wide-head route (D past 256, csrc/flash_wide.cu: the bf16/f16
-   forward, dq and dk/dv on wgmma and TMA, the f32 forward on register
-   tiles, the f32 dq and dk/dv on FMAs) through the same wrappers: forward
-   and backward at D = 320 and 512 in bf16 and
-   f32 (causal; key masks), f16 at D = 300 and 512, bf16 at D = 576 and
-   1024, at B16 T2048 H4 D512 (the flagship's products at 4 heads), and
-   in column groups D = 3072 (bf16, f32) and 4096 (bf16) at B=1, T=256,
-   H=2, each against the plain versions and repeated bit for bit, and each
-   kernel timed at B16 T2048 H4 D512 (bf16 and f32), at B=2, T=512, H=4
+   forward, dq and dk/dv on wgmma and TMA, the f32 forward, dq and dk/dv on
+   register tiles) through the same wrappers: forward and backward at D =
+   320 and 512 in bf16 and f32 (causal; key masks), f16 at D = 300 and
+   512, bf16 at D = 576 and 1024, f32 at D = 576, at B16 T2048 H4 D512
+   (the flagship's products at 4 heads), f32 at B=2, T=512, H=4 (D = 320,
+   512), and in column groups D = 3072 (bf16, f32) and 4096 (bf16) at
+   B=1, T=256, H=2, each against the plain versions and repeated bit for
+   bit, and each kernel timed at B16 T2048 H4 D512 (bf16 and f32), at B=2, T=512, H=4
    (D = 320, 512) and at B=1, T=256, H=2 (D = 3072, 4096) beside its bound,
    the plain versions and SDPA (with the SDPA backend that ran).
 4. small   — a tiny TransformerLM through the port on the CPU (plain
@@ -493,13 +493,18 @@ non-zero (and without a result line when no CUDA device is present):
    wgmma; the loss falls), one step split into forward / backward /
    update, peak memory. Then the same model in float32 served the same way
    (the wide f32 forward on register tiles: 8 launches a dispatch, no
-   backward), its 16 x 2048 forward by CUDA events and its peak memory.
+   backward), its 16 x 2048 forward by CUDA events and its peak memory,
+   and trained the same way (Adam 1e-4, a warm step and 3 timed ones on 16
+   x 2048 tokens, 8 launches a step of the f32 forward, dq and dk/dv on
+   register tiles and of no other route, a falling loss, one step split,
+   peak memory), its parameter gradients on one 2 x 2048 batch within
+   GRAD_CHECK_REL_F32 of the plain backward's.
 
 It ends with the command time, the kernels line (launches of each kernel
 by path, the new phases' included; the wide-head kernels as rows of their
-own: the wgmma forward, dq and dk/dv and the f32 forward on register
-tiles, launched on phase 40's paths), the card's name and power limit, and
-``{"ok": true, "device": {...}}`` as the last line.
+own: the wgmma forward, dq and dk/dv and the f32 forward, dq and dk/dv on
+register tiles, launched on phase 40's paths), the card's name and power
+limit, and ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
@@ -592,6 +597,9 @@ TRAIN_LR = 1e-4        # bench.py's Adam rate
 # rest of the bf16 backward (~2-4 bf16 ulps in norm). 4 rows keep the plain
 # backward's [B, H, T, T] f32 tensors to ~1 GB each
 GRAD_CHECK_REL = 1e-2
+# the same in float32 (phase 40's f32 flagship: the wide f32 dq and dk/dv
+# against the plain backward, both f32 all through; 1.5e-6 read on an H100)
+GRAD_CHECK_REL_F32 = 1e-4
 GRAD_CHECK_ROWS = 4
 FLAGSHIP_CONF = dict(vocab_size=2048, max_len=2048, d_model=2048, n_heads=16,
                      n_blocks=8, dtype="bfloat16", seed=12345)
@@ -861,11 +869,11 @@ def build_report() -> dict:
     check(len(dwh_wgmma) == 2 and all(k["hgmma"] > 0 for k in dwh_wgmma),
           f"the 16-bit dWh product shows no HGMMA: {dwh_wgmma}")
     kernels += dwh_wgmma
-    # the wide-head flash route (D > 256), D at run time: the f32 forward on
-    # register tiles, the f32 dq and dk/dv on FMAs, and the bf16/f16 wgmma
-    # forward, dq and dk/dv (3 kernels x 2 dtypes), each with wide_plan's
-    # plan at the timed head dims, whose bytes and groups the library
-    # reports from the kernels' own layouts
+    # the wide-head flash route (D > 256), D at run time: the f32 forward,
+    # dq and dk/dv on register tiles and the bf16/f16 wgmma forward, dq and
+    # dk/dv (3 kernels x 2 dtypes), each with wide_plan's plan at the timed
+    # head dims, whose bytes and groups the library reports from the
+    # kernels' own layouts
     wide = fa._wide_kernel_lib()
     # ptxas's notes (C75xx) name a kernel outside its own report: drop them
     wlog = "\n".join(line for line in _build.BUILD_LOG.get("flash_wide", "").splitlines()
@@ -873,8 +881,7 @@ def build_report() -> dict:
     wide_lib = _build.build("flash_wide")
     wide_wgmma, wide_tiles = [], []
     for which, kern in enumerate(fa.WIDE_KERNELS):
-        for name in (f"flash_wide_{kern}_kernel", f"flash_wide_{kern}_tiles_kernel",
-                     f"flash_wide_{kern}_wgmma_kernel"):
+        for name in (f"flash_wide_{kern}_tiles_kernel", f"flash_wide_{kern}_wgmma_kernel"):
             rows = _ptxas_report_typed(wlog, name)
             for r in rows:
                 code = _DTYPE_CODE[r["dtype"]]
@@ -907,16 +914,17 @@ def build_report() -> dict:
           f"a wide-head wgmma kernel has no HGMMA: {wide_wgmma}")
     check(all(k["spill_stores"] == 0 and k["spill_loads"] == 0 for k in wide_wgmma),
           f"a wide-head wgmma kernel spills: {wide_wgmma}")
-    check(len(wide_tiles) == 1 and wide_tiles[0]["dtype"] == "float32"
-          and wide_tiles[0]["spill_stores"] == 0 and wide_tiles[0]["spill_loads"] == 0,
-          f"the wide f32 forward on register tiles is missing or spills: {wide_tiles}")
+    check(len(wide_tiles) == 3 and {k["dtype"] for k in wide_tiles} == {"float32"}
+          and all(k["spill_stores"] == 0 and k["spill_loads"] == 0 for k in wide_tiles),
+          f"expected the f32 forward, dq and dk/dv on register tiles, none spilling: "
+          f"{wide_tiles}")
     check("C7514" not in _build.BUILD_LOG.get("flash_wide", ""),
           "ptxas serializes a wide-head kernel's wgmmas (C7514)")
     seconds = time.perf_counter() - t0
     check(len(kernels) == 72, f"expected 72 kernel instantiations (flash: 3 kernels x (4 f32 "
-                              f"+ 8 bf16/f16 head dims), the wide-head route's f32 forward on "
-                              f"register tiles, FMA dq and dk/dv (f32) and its wgmma forward, dq "
-                              f"and dk/dv (bf16, f16); LSTM: 3 dtypes x (2 cluster kernels x 2 row counts "
+                              f"+ 8 bf16/f16 head dims), the wide-head route's f32 forward, dq "
+                              f"and dk/dv on register tiles and its wgmma "
+                              f"forward, dq and dk/dv (bf16, f16); LSTM: 3 dtypes x (2 cluster kernels x 2 row counts "
                               f"+ 2 wide kernels + 2 step kernels + the dWh product)) in the "
                               f"ptxas reports, parsed {len(kernels)}")
     lstm_spills = [k for k in kernels if k["kernel"].startswith(("fused_lstm", "dwh_"))
@@ -1290,25 +1298,30 @@ def sdpa_backend(q, k, v, causal) -> str:
 
 def wide_head_checks() -> dict:
     """The wide-head route (head dims past 256, csrc/flash_wide.cu: the
-    16-bit forward, dq and dk/dv on wgmma, the f32 forward on register
-    tiles, the f32 dq and dk/dv on FMAs) through the same wrappers: forward
-    and backward cases against the plain versions (D = 320 and 512 in bf16
-    and f32, causal and with a key mask; f16 at D = 300, zero-padded to
-    320, and 512; f32 at D = 300 with rows that see no key; bf16 D = 576
-    (three column groups) and 1024 with rows that see no key; WIDE_FLAGSHIP
-    in bf16 and f32), then each kernel timed at WIDE_FLAGSHIP (bf16 and
-    f32), WIDE_FLASH_SHAPE and WIDEST_FLASH_SHAPE beside its bound, the
-    plain versions and SDPA (naming the backend SDPA ran)."""
+    16-bit forward, dq and dk/dv on wgmma, the f32 forward, dq and dk/dv on
+    register tiles) through the same wrappers: forward and backward cases
+    against the plain versions (D = 320 and 512 in bf16 and f32, causal and
+    with a key mask; f16 at D = 300, zero-padded to 320, and 512; f32 at D
+    = 300 with rows that see no key; bf16 D = 576 (three column groups) and
+    1024 with rows that see no key, f32 D = 576 (two groups) with a key
+    mask; WIDE_FLAGSHIP in bf16 and f32; WIDE_FLASH_SHAPE at D = 320 and
+    512 in f32; D = 3072 (bf16, f32) and 4096 (bf16) in groups), then each
+    kernel timed at WIDE_FLAGSHIP (bf16 and f32), WIDE_FLASH_SHAPE and
+    WIDEST_FLASH_SHAPE beside its bound, the plain versions and SDPA (naming
+    the backend SDPA ran)."""
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     specs = ((320, bf16, True, None), (320, bf16, False, "varlen"), (320, f32, True, "varlen"),
              (320, f32, False, None), (512, bf16, True, "varlen"), (512, bf16, False, None),
              (512, f32, True, None), (512, f32, False, "varlen"), (300, f16, True, None),
              (1024, bf16, True, "leading"), (576, bf16, True, "varlen"),
-             (512, f16, False, "leading"), (300, f32, True, "leading"))
+             (512, f16, False, "leading"), (300, f32, True, "leading"),
+             (576, f32, True, "varlen"))
     cases = [dict(B=2, T=300, H=3, D=D, dtype=dt, causal=c, kmask=m, seed=200 + i)
              for i, (D, dt, c, m) in enumerate(specs)]
     cases += [dict(WIDE_FLAGSHIP, dtype=dt, causal=True, kmask=None, seed=250)
               for dt in (bf16, f32)]
+    cases += [dict(WIDE_FLASH_SHAPE, D=D, dtype=f32, causal=True, kmask=None, seed=260 + i)
+              for i, D in enumerate((320, 512))]
     cases += [dict(B=1, T=65, H=1, D=320, dtype=bf16, causal=True, kmask=None, seed=220,
                    same_as_contiguous=True)]
     # past D = 2880: the outputs' columns in groups, the scores recomputed
@@ -1748,11 +1761,11 @@ def _param_grads(model, x, y) -> list:
     return list(torch.autograd.grad(loss, live))
 
 
-def grads_vs_plain_backward(model, x, y) -> dict:
+def grads_vs_plain_backward(model, x, y, tol: float = GRAD_CHECK_REL) -> dict:
     """The model's parameter gradients on one batch with kernels #2/#3 as the
     attention backward, and again with flash_attention_bwd_reference in
-    their place (same weights, same batch): per tensor ||diff|| / ||ref||.
-    Outside the counted main path."""
+    their place (same weights, same batch): per tensor ||diff|| / ||ref||,
+    held to ``tol``. Outside the counted main path."""
     got = _param_grads(model, x, y)
     kernels = fa.flash_bwd_cuda
     fa.flash_bwd_cuda = (lambda q, k, v, out, lse, do, kmask=None, causal=False:
@@ -1765,8 +1778,8 @@ def grads_vs_plain_backward(model, x, y) -> dict:
            for a, b in zip(got, want)]
     res = {"rows": int(x.shape[0]), "tensors": len(rel), "max_rel_norm_diff": max(rel),
            "median_rel_norm_diff": float(np.median(rel)), "rel_norm_diff": rel,
-           "tol": GRAD_CHECK_REL}
-    check(max(rel) <= GRAD_CHECK_REL,
+           "tol": tol}
+    check(max(rel) <= tol,
           f"parameter gradients with kernels #2/#3 differ from the plain backward's: {res}")
     torch.cuda.empty_cache()
     return res
@@ -7743,16 +7756,69 @@ def _wide_lm_serve(model, name: str, ids1, ids16, V: int) -> dict:
             "launches": serve_launches, "forward_16x2048_ms": forward_ms}
 
 
+def _wide_lm_train(model, xt, yt, name: str) -> dict:
+    """Phase 40's training path for one model: every count goes to 0, then
+    a warm Adam step and 3 timed ones (CUDA events) on xt, with 8 launches
+    of the wide forward, dq and dk/dv a step and none of another route, and
+    a falling loss; the peak memory of the timed steps; then one more step
+    split into forward / backward / update by CUDA events."""
+    _zero_flash_counts()
+    _zero_wide_counts()
+    losses = [model._fit_batch(xt, yt, None, None)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    ev[0].record()
+    for _ in range(3):
+        losses.append(model._fit_batch(xt, yt, None, None))
+    ev[1].record()
+    torch.cuda.synchronize()
+    launches = _wide_lm_counts()
+    step_ms = ev[0].elapsed_time(ev[1]) / 3
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{name}: the loss did not fall over 3 steps: {losses}")
+    for kern in ("flash_wide_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv"):
+        check(launches[kern] == 8 * 4,
+              f"{name}: {kern} launched {launches[kern]} times in 4 steps, not 8 a step")
+    check(launches["flash_fwd"] == launches["flash_wide_fwd"]
+          and launches["flash_bwd_dq"] == launches["flash_wide_bwd_dq"]
+          and launches["flash_bwd_dkv"] == launches["flash_wide_bwd_dkv"],
+          f"{name}: a training launch took another route: {launches}")
+    peak = torch.cuda.max_memory_allocated()
+    live = [t.detach().requires_grad_(True) for t in tree_leaves(model.params)]
+    ev[2].record()
+    loss, _ = model._loss(tree_unflatten_like(model.params, live), model.state, xt, yt,
+                          None, None, model._gen)
+    ev[3].record()
+    grads = torch.autograd.grad(loss, live)
+    ev[4].record()
+    model._update_params(tree_unflatten_like(model.params, list(grads)))
+    ev[5].record()
+    torch.cuda.synchronize()
+    del grads, live, loss
+    rows, T = xt.shape
+    return {"rows": int(rows), "steps_timed": 3, "loss": losses, "launches": launches,
+            "step_ms": step_ms,
+            "split_ms": {"forward": ev[2].elapsed_time(ev[3]),
+                         "backward": ev[3].elapsed_time(ev[4]),
+                         "update": ev[4].elapsed_time(ev[5])},
+            "tokens_per_s": rows * T / (step_ms / 1e3), "max_memory_allocated_bytes": peak}
+
+
 def wide_lm_phase() -> dict:
     """Phase 40: the flagship TransformerLM with 4 heads (WIDE_LM_CONF: D =
-    512, so every attention runs the wide-head route) served and trained,
-    then served in float32. Counts go to 0 just before each path and are
-    read just after: the bf16 model served (_wide_lm_serve); then a warm
-    Adam step and 3 timed ones at 16 x 2048 (CUDA events; 8 launches of the
-    wide forward, dq and dk/dv a step), a falling loss, one more step split
-    into forward / backward / update, and the peak memory; then the same
-    configuration with dtype float32 (the wide f32 forward on register
-    tiles) served the same way, with its peak memory."""
+    512, so every attention runs the wide-head route) served and trained in
+    bf16, then served and trained in float32 (the wide f32 forward, dq and
+    dk/dv on register tiles). Counts go to 0 just before each path and are
+    read just after: the bf16 model served (_wide_lm_serve); then trained
+    (_wide_lm_train: a warm Adam step and 3 timed ones at 16 x 2048, 8
+    launches of the wide forward, dq and dk/dv a step, a falling loss, one
+    more step split into forward / backward / update, the peak memory);
+    then the same configuration with dtype float32 served the same way,
+    with its peak memory, and trained the same way, its parameter gradients
+    on one 2 x 2048 batch within GRAD_CHECK_REL_F32 of the plain backward's
+    (grads_vs_plain_backward, outside the counted run)."""
     t0 = time.perf_counter()
     conf = zoo.TransformerLM(updater={"type": "adam", "lr": TRAIN_LR}, **WIDE_LM_CONF)
     V, T = WIDE_LM_CONF["vocab_size"], WIDE_LM_CONF["max_len"]
@@ -7769,53 +7835,22 @@ def wide_lm_phase() -> dict:
     # the training path: a warm step, then 3 timed, every launch counted
     xt = torch.as_tensor(ids16, device="cuda")
     yt = torch.as_tensor(np.roll(ids16, -1, axis=1), device="cuda")
-    _zero_flash_counts()
-    _zero_wide_counts()
-    losses = [model._fit_batch(xt, yt, None, None)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-    ev[0].record()
-    for _ in range(3):
-        losses.append(model._fit_batch(xt, yt, None, None))
-    ev[1].record()
-    torch.cuda.synchronize()
-    train_launches = _wide_lm_counts()
-    step_ms = ev[0].elapsed_time(ev[1]) / 3
-    losses = [float(v) for v in losses]
-    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
-          f"wide_lm: the loss did not fall over 3 steps: {losses}")
-    for name in ("flash_wide_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv"):
-        check(train_launches[name] == 8 * 4,
-              f"wide_lm: {name} launched {train_launches[name]} times in 4 steps, not 8 a step")
-    check(train_launches["flash_fwd"] == train_launches["flash_wide_fwd"]
-          and train_launches["flash_bwd_dq"] == train_launches["flash_wide_bwd_dq"]
-          and train_launches["flash_bwd_dkv"] == train_launches["flash_wide_bwd_dkv"],
-          f"wide_lm: a training launch took another route: {train_launches}")
-    peak = torch.cuda.max_memory_allocated()
-    leaves = tree_leaves(model.params)
-    live = [t.detach().requires_grad_(True) for t in leaves]
-    ev[2].record()
-    loss, _ = model._loss(tree_unflatten_like(model.params, live), model.state, xt, yt,
-                          None, None, model._gen)
-    ev[3].record()
-    grads = torch.autograd.grad(loss, live)
-    ev[4].record()
-    model._update_params(tree_unflatten_like(model.params, list(grads)))
-    ev[5].record()
-    torch.cuda.synchronize()
+    train = _wide_lm_train(model, xt, yt, "wide_lm")
     n_params = model.num_params()
     check(n_params == 415_455_232, f"wide_lm has {n_params} params, not the flagship's")
-    del model, grads, live, leaves, loss
+    del model
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the f32 serving path: the same configuration in float32
+    # the f32 paths: the same configuration in float32, served, then trained
     torch.cuda.reset_peak_memory_stats()
-    model = MultiLayerNetwork(zoo.TransformerLM(**dict(WIDE_LM_CONF, dtype="float32"))).init()
+    model = MultiLayerNetwork(zoo.TransformerLM(
+        updater={"type": "adam", "lr": TRAIN_LR}, **dict(WIDE_LM_CONF, dtype="float32"))).init()
     check(model.num_params() == n_params, "wide_lm_f32 has other params than wide_lm")
     serve32 = _wide_lm_serve(model, "wide_lm_f32", ids1, ids16, V)
     serve32["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    train32 = _wide_lm_train(model, xt, yt, "wide_lm_f32")
+    train32["grad_check"] = grads_vs_plain_backward(model, xt[:2], yt[:2], GRAD_CHECK_REL_F32)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -7827,13 +7862,8 @@ def wide_lm_phase() -> dict:
                        for dt in (torch.bfloat16, torch.float32)},
             "serve": serve,
             "serve_f32": serve32,
-            "train": {"rows": 16, "steps_timed": 3, "loss": losses, "launches": train_launches,
-                      "step_ms": step_ms,
-                      "split_ms": {"forward": ev[2].elapsed_time(ev[3]),
-                                   "backward": ev[3].elapsed_time(ev[4]),
-                                   "update": ev[4].elapsed_time(ev[5])},
-                      "tokens_per_s": 16 * T / (step_ms / 1e3),
-                      "max_memory_allocated_bytes": peak},
+            "train": train,
+            "train_f32": train32,
             "seconds": time.perf_counter() - t0}
 
 
@@ -8098,9 +8128,9 @@ def main() -> int:
                                           f"{key}_bound_ms", "library_bwd_ms")}
                        for r in kern["wide_head"]["timing"]]))
     # the wide-head kernels on phase 40's paths (the 16-bit forward, dq and
-    # dk/dv on wgmma, the f32 forward on register tiles): launches from
-    # phase 40 (the f32 forward: its f32 serving path), timed at
-    # WIDE_FLAGSHIP (the first two timing rows: bf16, f32)
+    # dk/dv on wgmma, the f32 forward, dq and dk/dv on register tiles):
+    # launches from phase 40 (the f32 kernels: its f32 serving and training
+    # paths), timed at WIDE_FLAGSHIP (the first two timing rows: bf16, f32)
     wh = kern["wide_head"]
     flagship = [WIDE_FLAGSHIP[k] for k in ("B", "T", "H", "D")]
     wt, wt32 = wh["timing"][:2]
@@ -8119,12 +8149,15 @@ def main() -> int:
             ("flash_wide_dq_wgmma", "dq", 224, "flash_wide_bwd_dq", ("dq",), "bfloat16",
              "flash_wide_dq_wgmma_kernel (bf16, f16; head dims past 256)"),
             ("flash_wide_dkv_wgmma", "dkv", 275, "flash_wide_bwd_dkv", ("dk", "dv"), "bfloat16",
-             "flash_wide_dkv_wgmma_kernel (bf16, f16; head dims past 256)")):
+             "flash_wide_dkv_wgmma_kernel (bf16, f16; head dims past 256)"),
+            ("flash_wide_dq_tiles", "dq", 224, "flash_wide_bwd_dq", ("dq",), "float32",
+             "flash_wide_dq_tiles_kernel (f32 register tiles; head dims past 256)"),
+            ("flash_wide_dkv_tiles", "dkv", 275, "flash_wide_bwd_dkv", ("dk", "dv"), "float32",
+             "flash_wide_dkv_tiles_kernel (f32 register tiles; head dims past 256)")):
         f32 = dtype == "float32"
         tr = wt32 if f32 else wt
-        by = ({"wide_lm_serve_f32": wlm["serve_f32"]["launches"][launch_key]} if f32 else
-              {"wide_lm_serve": wlm["serve"]["launches"][launch_key],
-               "wide_lm_train": wlm["train"]["launches"][launch_key]})
+        paths = ("serve_f32", "train_f32") if f32 else ("serve", "train")
+        by = {f"wide_lm_{path}": wlm[path]["launches"][launch_key] for path in paths}
         same = [c for c in (wh["cases"] if errs is None else wh["bwd_cases"])
                 if (c["dtype"] == "float32") == f32]
         if errs is None:

@@ -125,7 +125,7 @@
 // stay f32 in shared memory in their natural layout, rows 4 banks apart
 // (float2 score loads, float4 P.V loads, free of bank conflicts within
 // each phase of a warp's access); K and Q chunks and V slabs (16 keys x
-// the group's columns) come through a ring of RT_SLOTS slots filled by
+// the group's columns) come through a ring of 3 slots (tiles_slots) filled by
 // cp.async two items ahead of the products, so loads overlap the math. Q
 // streams with K (a resident 64 x 512 f32 Q would not fit beside the
 // partials). Column groups (past 512 columns) recompute the scores in the
@@ -138,26 +138,41 @@
 // 128 registers fit beside the 8 x 8 scores only with float2 score loads
 // and the row statistics out of registers.
 //
-// float32 dq and dk/dv: plain f32 FMAs from shared memory in a fixed order,
-// the first design of this route. D is a run-time loop over chunks of DC =
-// 64 columns; the only array that grows with D is the block's f32
-// accumulator in shared memory: dq's dQ [16 rows][G], dk/dv's dK and dV [8
-// rows][G], for a column group of G output columns. Where the whole of D
-// fits one block (D up to 2880 for dq's layout, 2944 for dk/dv's), G = D
-// and the grid has one group; past that the grid's z axis runs
-// ceil(D / Gmax) groups of G = D / groups columns (rounded up to 64; Gmax
-// the widest multiple of 64 that fits), and each block sums the scores and
-// dp = do . v^T over ALL of D again before accumulating its own columns, in
-// the same order in every group. Everything else streams through shared
-// memory in [rows][64] f32 chunks read with plain scalar loads through the
-// [B, T, H, D] strides.
-// - dq: a block owns 16 query rows; per 64-key tile the scores and
-//   dp = do . v^T are summed over the D chunks together, p = exp(s - lse)
-//   where the pair is valid and exactly 0 elsewhere, ds = p (dp - delta),
-//   then dQ += ds . k chunk by chunk.
-// - dk/dv: a block owns 8 key rows and walks 64-query tiles (those strictly
-//   below the causal diagonal skipped): p^T and ds^T as above, then
-//   dV += p^T . do and dK += ds^T . q chunk by chunk.
+// float32 dq and dk/dv (flash_wide_dq_tiles_kernel,
+// flash_wide_dkv_tiles_kernel): the forward's register tiles carried to the
+// backward. Each block of 256 threads keeps its output tile in registers
+// (128 f32 a thread at the widest group), streams its operands through a
+// cp.async ring of 2 slots (tiles_slots), and
+// computes its two score products one after the other on 8 x 8 tiles over
+// split columns, so that one score tile is live beside the outputs; p and
+// ds sit in shared memory. The ring sits last in shared memory, so that
+// everything else has a fixed offset.
+// - dq: 64 own query rows and a group of up to 512 dq columns. Per 64-key
+//   tile: S = Q.K^T over all of D (a K and a Q chunk an item), p = exp(s
+//   scale - lse) where the pair is valid and exactly 0 elsewhere, dP =
+//   dO.V^T (a V and a dO chunk an item), ds = p (dp - delta), then dQ +=
+//   dS.K over 16-key slabs of the group's K (tiles_acc, the forward's P.V).
+//   Against 16-row blocks K and V are read from L2 a quarter as often.
+// - dk/dv: 32 own key rows and a group of up to 512 columns of dk and dv
+//   (64 key rows in groups of up to 256, which recompute the scores at D =
+//   512, took 28.6 ms against 20.0 at B16 T2048 H4 D512 on an H100, and
+//   went). Per 64-query tile (those wholly before the shifted diagonal not
+//   loaded): S^T = K.Q^T and dP^T = V.dO^T over all of D, each chunk's
+//   columns split over eight groups of 32 threads, two chunks an item (one
+//   chunk's products are half of dq's, and the per-item barrier and copies
+//   showed: 19.9 ms against 21.7 with one chunk an item at B16 T2048 H4
+//   D512 on an H100, tools/wide_flash_bench.py --variants), p^T and ds^T
+//   to shared memory, then dV += P^T.dO on warps 0-3 and dK += dS^T.Q on
+//   warps 4-7 over slabs of 8 queries of the group's dO and Q (one output
+//   a thread: 8 FMAs a loaded word where both outputs a thread gave 4).
+// What bounds them: FMA issue, with only 8 warps an SM to hide latency; not
+// the ring's depth (dq with a depth of 2-4 read at run time within 1%) nor
+// what L2 holds (2 (batch, head) pairs a head group instead of 8: dq 14.7
+// ms against 14.0, dk/dv 19.95 against 19.95; --variants). A slab copy that divided by the
+// run-time group width in every address cost as many instructions as the
+// slab's products (tiles_slab now maps threads to rows and boxes).
+// Column groups recompute the scores in the same order, so every group
+// sees the same p and ds bit for bit.
 // Queries and keys may differ in length (Tq, Tk) and sit at absolute
 // offsets, as in flash_fwd.cu and flash_bwd.cu: the causal rule is
 // k_off + k <= q_off + q, a key k allowed for a query q when k <= q + shift
@@ -169,32 +184,20 @@
 // = 275 GFLOP, 0.278 ms at 989 TFLOP/s, against 0.54 GB of q, k, v and
 // out, 0.16 ms at 3.35 TB/s; dq's three products 0.417 ms, dk/dv's four
 // 0.556 ms: all bound by operations. In f32 the forward's 275 GFLOP take
-// 4.11 ms at 67 TFLOP/s of FMA. The kernels' own costs on top: the
-// products the column groups recompute (the 16-bit kernels' at D = 512,
-// the f32 forward's past 512), and each K/V (Q/dO) box read from L2 once
-// per block of own rows.
+// 4.11 ms at 67 TFLOP/s of FMA, dq's three 6.16 ms and dk/dv's four 8.21
+// ms. The kernels' own costs on top: the products the column groups
+// recompute (the 16-bit kernels' at D = 512, the f32 kernels' past 512),
+// and each K/V (Q/dO) box read from L2 once per block of own rows.
 
 #include "sm90_common.cuh"
 
 namespace {
 
 constexpr float NEG_BIG = -1e30f;      // the TPU kernel's masked-score value
-constexpr int THREADS = 128;           // FMA kernels: four warps
 constexpr int DC = 64;                 // head-dim columns of a chunk
-constexpr int LDC = DC + 1;            // chunk row pitch (floats): rows one bank apart
-constexpr int QR = 16;                 // dq: query rows a block owns
 constexpr int KT = 64;                 // forward, dq: keys of a tile
-constexpr int KR = 8;                  // dk/dv: key rows a block owns
-constexpr int QT = 64;                 // dk/dv: queries of a tile
-constexpr int RPT = 8;                 // dq: rows a thread sums (QR / 2)
-constexpr int KPT = 4;                 // dk/dv: key rows a thread sums (KR / 2)
 constexpr size_t SMEM_LIMIT = 232448;  // the opt-in shared memory of one block
 constexpr int ERR_PLAN = -4;           // a launch plan the kernel cannot run
-
-static_assert(THREADS == 2 * KT && THREADS == 2 * DC && THREADS == 2 * QT,
-              "a thread owns one key (or query, or column) of half the rows");
-static_assert(QR == 2 * RPT && KR == 2 * KPT, "two row halves");
-
 
 struct Params {
   const void* q;
@@ -212,37 +215,11 @@ struct Params {
   long long v_sb, v_st, v_sh;
   long long o_sb, o_st, o_sh;   // dout's
   int B, Tq, Tk, H, D;   // q, dout [B, Tq, H, D]; k, v [B, Tk, H, D]
-  int G;                 // columns of a group: the accumulators' row pitch
+  int G;                 // columns of a group
   int causal;
   int shift;             // q_off - k_off: key k is allowed for query q iff k <= q + shift
   float scale;
 };
-
-// The shared-memory floats of each FMA kernel's layout for a group of G columns.
-__host__ __device__ constexpr size_t dq_floats(int G) {
-  return size_t(QR) * G + 2 * size_t(QR) * LDC + 2 * size_t(KT) * LDC + size_t(QR) * (KT + 1) +
-         KT + 2 * QR;
-}
-__host__ __device__ constexpr size_t dkv_floats(int G) {
-  return 2 * size_t(KR) * G + 2 * size_t(KR) * LDC + 2 * size_t(QT) * LDC +
-         2 * size_t(KR) * (QT + 1) + 2 * QT + KR;
-}
-
-// Rows [t0, t0 + R) x columns [c0, c0 + DC) of one (batch, head) slice into
-// dst (pitch LDC) as f32; rows at or past T are zeros. Neighbouring threads
-// read neighbouring columns.
-template <typename T>
-__device__ __forceinline__ void load_chunk(float* dst, const T* base, long long st, int t0,
-                                           int R, int T_len, int c0, int tid) {
-  for (int i = tid; i < R * DC; i += THREADS) {
-    const int r = i / DC, c = i % DC, t = t0 + r;
-    dst[r * LDC + c] = t < T_len ? base[(long long)t * st + c0 + c] : 0.f;
-  }
-}
-
-__device__ __forceinline__ bool key_ok(const Params& p, int b, int t) {
-  return t < p.Tk && (p.kmask == nullptr || p.kmask[(long long)b * p.Tk + t] > 0.f);
-}
 
 // Key tiles of KT keys a block of query rows [q0, q0 + rows) walks: all of
 // Tk's, or under a causal mask those up to its last row's last allowed key
@@ -262,23 +239,41 @@ constexpr int RT_THREADS = 256;               // 8 warps
 constexpr int RT_ROWS = 64;                   // query rows a block owns
 constexpr int RT_LD = DC + 4;                 // 68 floats: a chunk row's pitch, 16-byte rows 4 banks apart
 constexpr int RT_CHUNK = RT_ROWS * RT_LD * 4; // 17,408 bytes: a 64 x 64 chunk
-constexpr int RT_SLOT = 2 * RT_CHUNK;         // a slot: a K chunk and a Q chunk, or a V slab
+constexpr int RT_SLOT = 2 * RT_CHUNK;         // a slot: two chunks, or a slab
 constexpr int RT_CSL = 4;                     // 128-column slices of O a thread holds
 constexpr int RT_BOXES = 2 * RT_CSL;          // 64-column chunks of a group (G <= 512)
 constexpr int RT_VKEYS = 16;                  // keys of a V slab
-constexpr int RT_VLD = RT_BOXES * DC + 4;     // 260 floats: a V slab row's pitch
+constexpr int RT_VLD = RT_BOXES * DC + 4;     // 516 floats: a V (dq: K) slab row's pitch
 constexpr int RT_SPLIT = 4;                   // 64-thread groups that split a chunk's columns
 constexpr int RT_PLD = KT + 8;                // 72 floats: the partial scores' and p's pitch
 constexpr int RT_PART = RT_ROWS * RT_PLD * 4; // 18,432 bytes: one group's partial scores, or p
-constexpr int RT_SLOTS = 3;                   // ring slots: two items in flight behind the products
+constexpr int QT = 64;                        // dk/dv: queries of a tile
+constexpr int RT_KROWS = 32;                  // dk/dv: key rows a block owns
+// dk/dv takes two 64-column chunks of K (V) and Q (dO) a score item, so that
+// an item holds as many products as dq's: 52,224 bytes a slot
+constexpr int RT_DKV_CHUNKS = 2;
+constexpr int RT_DKV_SLOT = RT_DKV_CHUNKS * (RT_KROWS + QT) * RT_LD * 4;
 static_assert(RT_VKEYS * RT_VLD * 4 <= RT_SLOT, "a V slab fits a slot");
 static_assert(RT_THREADS == RT_SPLIT * 64 && RT_ROWS == 64 && KT == 64 && DC == RT_SPLIT * 16,
               "8 x 8 score tiles of 64 threads, 16 columns of a chunk a group");
 
-// Shared memory of the f32 forward's layout: the ring, the four groups'
-// partial scores, p, the rows' running max and sum.
-__host__ __device__ constexpr size_t tiles_bytes() {
-  return size_t(RT_SLOTS) * RT_SLOT + size_t(RT_SPLIT) * RT_PART + RT_PART + 2 * RT_ROWS * 4;
+// Ring slots of register-tile kernel `which` (0 forward, 1 dq, 2 dk/dv):
+// item n is computed from its slot while the next slots - 1 are in flight.
+// dq took 13.8 ms with 2 slots against 15.6-15.7 with 3 or 4 at B16 T2048
+// H4 D512 on an H100 (tools/wide_flash_bench.py --variants; a depth read
+// at run time took 13.7 for 2 to 4); 2 of dk/dv's are all that fit beside
+// the rest of its layout.
+__host__ __device__ constexpr int tiles_slots(int which) { return which == 0 ? 3 : 2; }
+// Shared memory of a register-tile layout: the ring (the backward kernels'
+// last), the thread groups' partial scores (4 x 64 rows, or dk/dv's 8 x 32:
+// the same bytes), p (the forward's and dq's 64 rows; dq's ds over it) or
+// dk/dv's p^T and ds^T, and for the forward and dq two f32 a query row (the
+// running max and sum; lse and delta).
+__host__ __device__ constexpr size_t tiles_bytes(int which) {
+  const size_t ps = which == 2 ? size_t(2 * RT_KROWS) * RT_PLD * 4
+                                : size_t(RT_ROWS) * RT_PLD * 4 + 2 * RT_ROWS * 4;
+  return size_t(tiles_slots(which)) * (which == 2 ? RT_DKV_SLOT : RT_SLOT) +
+         size_t(RT_SPLIT) * RT_PART + ps;
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
@@ -295,13 +290,14 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Rows [t0, t0 + 64) x columns [c0, c0 + 64) of one (batch, head) slice
+// Rows [t0, t0 + ROWS) x columns [c0, c0 + 64) of one (batch, head) slice
 // into the chunk at dst (pitch RT_LD), one 16-byte copy at a time; rows at
 // or past T are zeros. Sixteen neighbouring threads copy one row.
+template <int ROWS = RT_ROWS>
 __device__ __forceinline__ void tiles_chunk(uint32_t dst, const float* base, long long st,
                                             int t0, int T_len, int c0, int tid) {
 #pragma unroll
-  for (int i = 0; i < RT_ROWS * DC / 4 / RT_THREADS; ++i) {
+  for (int i = 0; i < ROWS * DC / 4 / RT_THREADS; ++i) {
     const int idx = tid + RT_THREADS * i;
     const int r = idx >> 4, c4 = (idx & 15) * 4, t = t0 + r;
     const bool ok = t < T_len;
@@ -309,8 +305,22 @@ __device__ __forceinline__ void tiles_chunk(uint32_t dst, const float* base, lon
   }
 }
 
-__device__ __forceinline__ float lane_of(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+// Rows [t0, t0 + N) x columns [c0, c0 + w) (w a multiple of 64) of one
+// (batch, head) slice into dst at a pitch of ld floats, one 16-byte copy
+// at a time; rows at or past T are zeros. Sixteen neighbouring threads copy
+// a row's 64 columns of a box, and with N < 16 rows the block covers 16 / N
+// boxes a pass. (A division by the run-time width in each copy's address
+// cost a slab as many instructions as its products.)
+template <int N>
+__device__ __forceinline__ void tiles_slab(uint32_t dst, int ld, const float* base, long long st,
+                                           int t0, int T_len, int c0, int w, int tid) {
+  static_assert(RT_THREADS == 256 && N <= 16 && 16 % N == 0, "16 / N boxes a pass");
+  const int r = (tid >> 4) % N, t = t0 + r;
+  const bool ok = t < T_len;
+  const float* src = base + (long long)(ok ? t : 0) * st + c0;
+  const uint32_t row = dst + r * ld * 4;
+  for (int c = (tid >> 4) / N * DC + (tid & 15) * 4; c < w; c += 16 / N * DC)
+    cp_async16(row + c * 4, src + c, ok);
 }
 
 // max and sum over the 32 lanes of a warp (a row's 64 keys)
@@ -325,31 +335,47 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// O += P.V over one slab of RT_VKEYS keys from k_in: rows w + 8 r, columns
-// 4 lane + 128 c of the group (FULL: all 256 of them, no per-lane test).
-template <bool FULL>
-__device__ __forceinline__ void tiles_pv(float (&o)[8][RT_CSL][4], const float* Ps,
-                                         const float* sl, int k_in, int w, int lane, int gw) {
+// acc += P.X over one slab of N rows of X (pitch LD floats), from column
+// p0 of P (pitch RT_PLD): the thread's rows r0 + RS r (r < R) of P and of
+// acc, columns 4 lane + 128 c (c < C) of X (FULL: all of them, no per-lane
+// test); P read PV columns at a time (float4, or float2 where 16 rows a
+// thread would not fit 4 beside the accumulators). The forward's O += P.V,
+// dq's dQ += dS.K, dk/dv's dV += P^T.dO and dK += dS^T.Q.
+template <int R, int RS, int C, int N, int LD, int PV, bool FULL>
+__device__ __forceinline__ void tiles_acc(float (&acc)[R][C][4], const float* P, const float* X,
+                                          int p0, int r0, int lane, int gw) {
+  static_assert((PV == 2 || PV == 4) && N % PV == 0, "float2 or float4 reads of P");
 #pragma unroll 2
-  for (int kk = 0; kk < RT_VKEYS; kk += 4) {
-    float4 pv[8];
+  for (int kk = 0; kk < N; kk += PV) {
+    float pv[R][PV];
 #pragma unroll
-    for (int r = 0; r < 8; ++r)
-      pv[r] = *reinterpret_cast<const float4*>(Ps + (w + 8 * r) * RT_PLD + k_in + kk);
+    for (int r = 0; r < R; ++r) {
+      const float* src = P + (r0 + RS * r) * RT_PLD + p0 + kk;
+      if constexpr (PV == 4) {
+        const float4 t = *reinterpret_cast<const float4*>(src);
+        pv[r][0] = t.x;
+        pv[r][1] = t.y;
+        pv[r][2] = t.z;
+        pv[r][3] = t.w;
+      } else {
+        const float2 t = *reinterpret_cast<const float2*>(src);
+        pv[r][0] = t.x;
+        pv[r][1] = t.y;
+      }
+    }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float* vrow = sl + (kk + e) * RT_VLD + 4 * lane;
+    for (int e = 0; e < PV; ++e) {
+      const float* xrow = X + (kk + e) * LD + 4 * lane;
 #pragma unroll
-      for (int c = 0; c < RT_CSL; ++c) {
+      for (int c = 0; c < C; ++c) {
         if (FULL || 4 * lane + 128 * c < gw) {
-          const float4 v = *reinterpret_cast<const float4*>(vrow + 128 * c);
+          const float4 x = *reinterpret_cast<const float4*>(xrow + 128 * c);
 #pragma unroll
-          for (int r = 0; r < 8; ++r) {
-            const float pe = lane_of(pv[r], e);
-            o[r][c][0] = fmaf(pe, v.x, o[r][c][0]);
-            o[r][c][1] = fmaf(pe, v.y, o[r][c][1]);
-            o[r][c][2] = fmaf(pe, v.z, o[r][c][2]);
-            o[r][c][3] = fmaf(pe, v.w, o[r][c][3]);
+          for (int r = 0; r < R; ++r) {
+            acc[r][c][0] = fmaf(pv[r][e], x.x, acc[r][c][0]);
+            acc[r][c][1] = fmaf(pv[r][e], x.y, acc[r][c][1]);
+            acc[r][c][2] = fmaf(pv[r][e], x.z, acc[r][c][2]);
+            acc[r][c][3] = fmaf(pv[r][e], x.w, acc[r][c][3]);
           }
         }
       }
@@ -357,10 +383,78 @@ __device__ __forceinline__ void tiles_pv(float (&o)[8][RT_CSL][4], const float* 
   }
 }
 
+// s += A.B^T over columns [d0, d0 + N) of one chunk (pitch RT_LD): the
+// thread's 8 x 8 tile of A rows ay + AS r and B rows bx + 8 j, two columns
+// a step (16 float2 loads for 128 FMAs: 4 FMAs a loaded word), two steps
+// unrolled (against one: dk/dv 19.9 against 22.0 ms, dq 14.0 against 14.1,
+// at B16 T2048 H4 D512 on an H100; --variants)
+template <int AS, int N>
+__device__ __forceinline__ void tiles_scores(float (&s)[8][8], const float* A, const float* Bm,
+                                             int ay, int bx, int d0) {
+#pragma unroll 2
+  for (int d = d0; d < d0 + N; d += 2) {
+    float2 bv[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      bv[j] = *reinterpret_cast<const float2*>(Bm + (bx + 8 * j) * RT_LD + d);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const float2 av = *reinterpret_cast<const float2*>(A + (ay + AS * r) * RT_LD + d);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[r][j] = fmaf(av.x, bv[j].x, s[r][j]);
+        s[r][j] = fmaf(av.y, bv[j].y, s[r][j]);
+      }
+    }
+  }
+}
+
+// the thread's partial 8 x 8 tile into its group's partials (pitch RT_PLD)
+template <int AS>
+__device__ __forceinline__ void tiles_park(float* mine, const float (&s)[8][8], int ay, int bx) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mine[(ay + AS * r) * RT_PLD + bx + 8 * j] = s[r][j];
+}
+
+// the (batch, head) slice of an operand, from the parameters at each use (a
+// pointer held across the loops costs two registers beside the tiles)
+__device__ __forceinline__ const float* slice(const void* x, long long sb, long long sh, int b,
+                                              int h) {
+  return static_cast<const float*>(x) + b * sb + h * sh;
+}
+
+// the NG groups' partials of one score, summed in group order
+template <int NG>
+__device__ __forceinline__ float tiles_sum(const float* part, int stride, int at) {
+  float sum = part[at];
+#pragma unroll
+  for (int q = 1; q < NG; ++q) sum += part[q * stride + at];
+  return sum;
+}
+
+// Zero a thread's output tile.
+template <int R, int C>
+__device__ __forceinline__ void tiles_zero(float (&a)[R][C][4]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[r][c][e] = 0.f;
+}
+__device__ __forceinline__ void tiles_zero(float (&s)[8][8]) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[r][j] = 0.f;
+}
+
 // A block owns 64 query rows of one (batch, head) and one column group.
 // Its item stream, per 64-key tile: the score chunks of all of D (a K and
-// a Q chunk), then the group's V in 2 slabs of 32 keys; item n is computed
-// from slot n % RT_SLOTS while items n + 1 and n + 2 are in flight.
+// a Q chunk), then the group's V in 4 slabs of 16 keys; item n is computed
+// from slot n % SLOTS while items n + 1 and n + 2 are in flight.
 // Scores: group g (threads 64 g ..) sums columns [16 g, 16 g + 16) of each
 // chunk into an 8 x 8 tile a thread (rows sy + 8 r, keys sx + 8 j), the
 // groups' partials summed in shared memory in group order. The softmax and
@@ -369,6 +463,7 @@ __device__ __forceinline__ void tiles_pv(float (&o)[8][RT_CSL][4], const float* 
 template <typename T>
 __global__ void __launch_bounds__(RT_THREADS, 1) flash_wide_fwd_tiles_kernel(const Params p) {
   static_assert(std::is_same<T, float>::value, "float32 operands");
+  constexpr int SLOTS = tiles_slots(0);
   extern __shared__ __align__(16) float sm[];
   const int D = p.D, Tq = p.Tq, Tk = p.Tk, G = p.G, nbd = D / DC;
   const int n_qb = (Tq + RT_ROWS - 1) / RT_ROWS;
@@ -379,8 +474,8 @@ __global__ void __launch_bounds__(RT_THREADS, 1) flash_wide_fwd_tiles_kernel(con
   const int b = bh / p.H, h = bh % p.H;
   const int q0 = qblk * RT_ROWS;
   const int g0 = z * G, gw = min(G, D - g0);   // this block's columns
-  float* ring = sm;                                        // RT_SLOTS slots
-  float* part = ring + RT_SLOTS * (RT_SLOT / 4);           // [RT_SPLIT][64][RT_PLD]
+  float* ring = sm;                                        // SLOTS slots
+  float* part = ring + SLOTS * (RT_SLOT / 4);              // [RT_SPLIT][64][RT_PLD]
   float* Ps = part + RT_SPLIT * (RT_PART / 4);             // p [64][RT_PLD]
   float* m_s = Ps + RT_PART / 4;                           // [64] running max of each row
   float* l_s = m_s + RT_ROWS;                              // [64] running sum
@@ -406,24 +501,19 @@ __global__ void __launch_bounds__(RT_THREADS, 1) flash_wide_fwd_tiles_kernel(con
         tiles_chunk(dst, kb, p.k_st, k0, Tk, it_e * DC, tid);
         tiles_chunk(dst + RT_CHUNK, qb, p.q_st, q0, Tq, it_e * DC, tid);
       } else {
-        const int t0 = k0 + (it_e - nbd) * RT_VKEYS, n4 = gw / 4;
-        for (int idx = tid; idx < RT_VKEYS * n4; idx += RT_THREADS) {
-          const int r = idx / n4, c4 = (idx - r * n4) * 4, t = t0 + r;
-          const bool ok = t < Tk;
-          cp_async16(dst + (r * RT_VLD + c4) * 4,
-                     vb + (long long)(ok ? t : t0) * p.v_st + g0 + c4, ok);
-        }
+        tiles_slab<RT_VKEYS>(dst, RT_VLD, vb, p.v_st, k0 + (it_e - nbd) * RT_VKEYS, Tk, g0, gw,
+                             tid);
       }
       if (++it_e == per_tile) {
         it_e = 0;
         ++it_kt;
       }
-      if (++it_slot == RT_SLOTS) it_slot = 0;
+      if (++it_slot == SLOTS) it_slot = 0;
     }
     cp_commit();   // an empty group past the last item keeps the count
   };
 #pragma unroll
-  for (int i = 0; i < RT_SLOTS - 1; ++i) load_next();
+  for (int i = 0; i < SLOTS - 1; ++i) load_next();
 
   // O: rows w + 8 r, columns 4 lane + 128 c + e of the group; the rows'
   // running max and sum sit in shared memory (every lane of the row's warp
@@ -433,57 +523,25 @@ __global__ void __launch_bounds__(RT_THREADS, 1) flash_wide_fwd_tiles_kernel(con
     m_s[tid] = NEG_BIG;
     l_s[tid] = 0.f;
   }
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-#pragma unroll
-    for (int c = 0; c < RT_CSL; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[r][c][e] = 0.f;
-  }
+  tiles_zero(o);
   float s[8][8];      // the group's partial scores: rows sy + 8 r, keys sx + 8 j
   int kt = 0, e_i = 0, slot = 0;   // the item being computed
   for (int n = 0; n < n_items; ++n) {
-    cp_wait<RT_SLOTS - 2>();   // item n has landed (this thread's copies)
-    __syncthreads();           // ... everyone's; and slot (n - 1) % RT_SLOTS is read
+    cp_wait<SLOTS - 2>();   // item n has landed (this thread's copies)
+    __syncthreads();        // ... everyone's; and slot (n - 1) % SLOTS is read
     load_next();
     const float* sl = ring + slot * (RT_SLOT / 4);
     if (e_i < nbd) {
-      // the group's 16 columns of the chunk, 2 at a time (float2 loads: a
-      // float4's operands would not fit beside O)
-      const float* Kc = sl;
-      const float* Qc = sl + RT_CHUNK / 4;
-      if (e_i == 0) {
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) s[r][j] = 0.f;
-      }
-#pragma unroll 1
-      for (int d = 16 * g; d < 16 * g + 16; d += 2) {
-        float2 kv[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          kv[j] = *reinterpret_cast<const float2*>(Kc + (sx + 8 * j) * RT_LD + d);
-#pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          const float2 qv = *reinterpret_cast<const float2*>(Qc + (sy + 8 * r) * RT_LD + d);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            s[r][j] = fmaf(qv.x, kv[j].x, s[r][j]);
-            s[r][j] = fmaf(qv.y, kv[j].y, s[r][j]);
-          }
-        }
-      }
+      // the group's 16 columns of the chunk (Q rows, K rows), 2 at a time
+      // (float2 loads: a float4's operands would not fit beside O)
+      if (e_i == 0) tiles_zero(s);
+      tiles_scores<8, 16>(s, sl + RT_CHUNK / 4, sl, sy, sx, 16 * g);
       if (e_i == nbd - 1) {
         // the tile's scores: the groups' partials summed in group order,
         // masked to -1e30 (causal, keys past Tk, the key mask) as the TPU
         // kernel does, then the online softmax of the warp's rows; p goes
         // to shared memory for P.V
-        float* mine = part + g * (RT_PART / 4);
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) mine[(sy + 8 * r) * RT_PLD + sx + 8 * j] = s[r][j];
+        tiles_park<8>(part + g * (RT_PART / 4), s, sy, sx);
         __syncthreads();
         const int k0 = kt * KT;
         bool kok[2];
@@ -498,10 +556,7 @@ __global__ void __launch_bounds__(RT_THREADS, 1) flash_wide_fwd_tiles_kernel(con
           float x[2];
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
-            const int at = row * RT_PLD + lane + 32 * j;
-            float sum = part[at];
-#pragma unroll
-            for (int q = 1; q < RT_SPLIT; ++q) sum += part[q * (RT_PART / 4) + at];
+            const float sum = tiles_sum<RT_SPLIT>(part, RT_PART / 4, row * RT_PLD + lane + 32 * j);
             const bool ok = kok[j] && (!p.causal || k0 + lane + 32 * j <= qrow + p.shift);
             x[j] = ok ? sum * p.scale : NEG_BIG;
           }
@@ -527,15 +582,15 @@ __global__ void __launch_bounds__(RT_THREADS, 1) flash_wide_fwd_tiles_kernel(con
       // O += P.V over one slab of keys and the group's columns
       const int k_in = (e_i - nbd) * RT_VKEYS;   // the slab's first key in the tile
       if (gw == RT_BOXES * DC)
-        tiles_pv<true>(o, Ps, sl, k_in, w, lane, gw);
+        tiles_acc<8, 8, RT_CSL, RT_VKEYS, RT_VLD, 4, true>(o, Ps, sl, k_in, w, lane, gw);
       else
-        tiles_pv<false>(o, Ps, sl, k_in, w, lane, gw);
+        tiles_acc<8, 8, RT_CSL, RT_VKEYS, RT_VLD, 4, false>(o, Ps, sl, k_in, w, lane, gw);
     }
     if (++e_i == per_tile) {
       e_i = 0;
       ++kt;
     }
-    if (++slot == RT_SLOTS) slot = 0;
+    if (++slot == SLOTS) slot = 0;
   }
   cp_wait<0>();
 
@@ -557,219 +612,372 @@ __global__ void __launch_bounds__(RT_THREADS, 1) flash_wide_fwd_tiles_kernel(con
 }
 
 // ===========================================================================
-// FMA kernels: dq and dk/dv in float32
+// float32 dq and dk/dv: register tiles
 // ===========================================================================
 
-// dq (float32)
-
+// dq: a block of 256 threads owns 64 query rows of one (batch, head) and
+// one column group of up to 512 dq columns; dQ stays in registers (rows
+// w + 8 r, columns 4 lane + 128 c of the group: the forward's O). Its item
+// stream, per 64-key tile: the S chunks of all of D (a K and a Q chunk),
+// then the dP chunks (a V and a dO chunk), then the group's K in 4 slabs of
+// 16 keys; item n is computed from its slot while the next is in flight. S, then dP (one 8 x 8 score tile live beside dQ): the
+// forward's split, group g (threads 64 g ..) summing columns [16 g, 16 g +
+// 16) of each chunk into rows sy + 8 r, keys sx + 8 j, the four partials
+// summed in group order. After S, p = exp(s scale - lse) where the pair is
+// valid and exactly 0 elsewhere goes to shared memory (warp w rows w + 8 r,
+// lane l keys l + 32 j); after dP, ds = p (dp - delta) over it; then dQ +=
+// dS.K over the slabs (tiles_acc, as the forward's P.V). Column groups (past
+// 512 columns) recompute S and dP in the same order.
 template <typename T>
-__global__ void __launch_bounds__(THREADS) flash_wide_dq_kernel(const Params p) {
+__global__ void __launch_bounds__(RT_THREADS, 1) flash_wide_dq_tiles_kernel(const Params p) {
   static_assert(std::is_same<T, float>::value, "float32 operands");
+  constexpr int SLOTS = tiles_slots(1);
   extern __shared__ __align__(16) float sm[];
-  const int D = p.D, Tq = p.Tq, Tk = p.Tk, G = p.G;
-  const int g0 = blockIdx.z * G, gw = min(G, D - g0);   // this block's columns
-  float* dQ = sm;                          // [QR][G]
-  float* Qc = dQ + QR * G;                 // [QR][LDC]
-  float* Oc = Qc + QR * LDC;               // [QR][LDC] do
-  float* Kc = Oc + QR * LDC;               // [KT][LDC]
-  float* Vc = Kc + KT * LDC;               // [KT][LDC]
-  float* DS = Vc + KT * LDC;               // [QR][KT + 1]
-  float* kval = DS + QR * (KT + 1);        // [KT]
-  float* lse_s = kval + KT;                // [QR]
-  float* delta_s = lse_s + QR;             // [QR]
+  const int D = p.D, Tq = p.Tq, Tk = p.Tk, G = p.G, nbd = D / DC;
+  const int n_qb = (Tq + RT_ROWS - 1) / RT_ROWS;
+  const int n_groups = (D + G - 1) / G;
+  const int z = blockIdx.x % n_groups;   // column groups of one row block run side by side
+  int bh, qblk;
+  block_coords(blockIdx.x / n_groups, p.B * p.H, n_qb, p.causal, bh, qblk);
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = qblk * RT_ROWS;
+  const int g0 = z * G, gw = min(G, D - g0);   // this block's columns
+  // the ring last, so that everything else sits at a fixed offset
+  float* part = sm;                                  // [RT_SPLIT][64][RT_PLD]
+  float* Ps = part + RT_SPLIT * (RT_PART / 4);       // p, then ds: [64][RT_PLD]
+  float* lse_s = Ps + RT_PART / 4;                   // [64]
+  float* dl_s = lse_s + RT_ROWS;                     // [64] delta
+  float* ring = dl_s + RT_ROWS;                      // SLOTS slots
+  const uint32_t ring_s = smem_u32(ring);
 
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * QR;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* ob = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int g = tid >> 6, sy = (tid & 63) >> 3, sx = tid & 7;   // the score split
+  const int n_kt = key_tiles(p, q0, RT_ROWS);
+  const int per_tile = 2 * nbd + KT / RT_VKEYS;
 
-  for (int i = tid; i < QR * G; i += THREADS) dQ[i] = 0.f;
-  if (tid < QR) {
+  // the next item to load: tile it_kt, entry it_e
+  int it_kt = 0, it_e = 0;
+  auto load_next = [&](int to_slot) {
+    if (it_kt < n_kt) {
+      const int k0 = it_kt * KT;
+      const uint32_t dst = ring_s + to_slot * RT_SLOT;
+      if (it_e < nbd) {            // S: a K and a Q chunk
+        tiles_chunk(dst, slice(p.k, p.k_sb, p.k_sh, b, h), p.k_st, k0, Tk, it_e * DC, tid);
+        tiles_chunk(dst + RT_CHUNK, slice(p.q, p.q_sb, p.q_sh, b, h), p.q_st, q0, Tq,
+                    it_e * DC, tid);
+      } else if (it_e < 2 * nbd) { // dP: a V and a dO chunk
+        const int c0 = (it_e - nbd) * DC;
+        tiles_chunk(dst, slice(p.v, p.v_sb, p.v_sh, b, h), p.v_st, k0, Tk, c0, tid);
+        tiles_chunk(dst + RT_CHUNK, slice(p.dout, p.o_sb, p.o_sh, b, h), p.o_st, q0, Tq, c0,
+                    tid);
+      } else {                     // a slab of the group's K
+        tiles_slab<RT_VKEYS>(dst, RT_VLD, slice(p.k, p.k_sb, p.k_sh, b, h), p.k_st,
+                             k0 + (it_e - 2 * nbd) * RT_VKEYS, Tk, g0, gw, tid);
+      }
+      if (++it_e == per_tile) {
+        it_e = 0;
+        ++it_kt;
+      }
+    }
+    cp_commit();   // an empty group past the last item keeps the count
+  };
+  for (int i = 0; i < SLOTS - 1; ++i) load_next(i);
+  // the item being computed (in slot `slot`): wait for it, then load the
+  // one slots - 1 ahead into the previous item's slot, which every thread
+  // has finished with
+  int slot = 0;
+  auto next_item = [&]() {
+    cp_wait<SLOTS - 2>();
+    __syncthreads();
+    load_next(slot == 0 ? SLOTS - 1 : slot - 1);
+    const float* sl = ring + slot * (RT_SLOT / 4);
+    if (++slot == SLOTS) slot = 0;
+    return sl;
+  };
+
+  if (tid < RT_ROWS) {   // read after the first item's barrier
     const int t = q0 + tid;
     lse_s[tid] = t < Tq ? p.lse[(long long)bh * Tq + t] : 0.f;
-    delta_s[tid] = t < Tq ? p.delta[(long long)bh * Tq + t] : 0.f;
+    dl_s[tid] = t < Tq ? p.delta[(long long)bh * Tq + t] : 0.f;
   }
-  const int kk = tid % KT, rs0 = (tid / KT) * RPT;
-  const int cc = tid % DC, ro0 = (tid / DC) * RPT;
-  const int n_kt = key_tiles(p, q0, QR);
-
+  float a[8][RT_CSL][4];
+  tiles_zero(a);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * KT;
-    float s[RPT], dp[RPT];
+    float s[8][8];
+    // S = Q.K^T over all of D
+    tiles_zero(s);
+    for (int c = 0; c < nbd; ++c) {
+      const float* sl = next_item();
+      tiles_scores<8, 16>(s, sl + RT_CHUNK / 4, sl, sy, sx, 16 * g);
+    }
+    tiles_park<8>(part + g * (RT_PART / 4), s, sy, sx);
+    __syncthreads();
+    bool kok[2];
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) s[r] = dp[r] = 0.f;
-    for (int c0 = 0; c0 < D; c0 += DC) {
-      __syncthreads();
-      load_chunk(Qc, qb, p.q_st, q0, QR, Tq, c0, tid);
-      load_chunk(Oc, ob, p.o_st, q0, QR, Tq, c0, tid);
-      load_chunk(Kc, kb, p.k_st, k0, KT, Tk, c0, tid);
-      load_chunk(Vc, vb, p.v_st, k0, KT, Tk, c0, tid);
-      if (c0 == 0 && tid < KT) kval[tid] = key_ok(p, b, k0 + tid) ? 1.f : 0.f;
-      __syncthreads();
-      const float* kr = Kc + kk * LDC;
-      const float* vr = Vc + kk * LDC;
-#pragma unroll 4
-      for (int d = 0; d < DC; ++d) {
-        const float kv = kr[d], vv = vr[d];
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-          s[r] = fmaf(Qc[(rs0 + r) * LDC + d], kv, s[r]);
-          dp[r] = fmaf(Oc[(rs0 + r) * LDC + d], vv, dp[r]);
-        }
-      }
+    for (int j = 0; j < 2; ++j) {
+      const int key = k0 + lane + 32 * j;
+      kok[j] = key < Tk && (p.kmask == nullptr || p.kmask[(long long)b * Tk + key] > 0.f);
     }
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int row = rs0 + r, qpos = q0 + row;
-      const bool ok = qpos < Tq && kval[kk] > 0.f && (!p.causal || k0 + kk <= qpos + p.shift);
-      const float pv = ok ? expf(s[r] * p.scale - lse_s[row]) : 0.f;
-      DS[row * (KT + 1) + kk] = pv * (dp[r] - delta_s[row]);
-    }
-    // dQ += ds . k, chunk by chunk of the group's columns
-    for (int c0 = g0; c0 < g0 + gw; c0 += DC) {
-      __syncthreads();   // ds written; the previous K chunk read
-      load_chunk(Kc, kb, p.k_st, k0, KT, Tk, c0, tid);
-      __syncthreads();
-      float* qrow = dQ + c0 - g0 + cc;
-      float a[RPT];
+    for (int r = 0; r < 8; ++r) {
+      const int row = w + 8 * r, qrow = q0 + row;
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) a[r] = qrow[(ro0 + r) * G];
-#pragma unroll 4
-      for (int k = 0; k < KT; ++k) {
-        const float kv = Kc[k * LDC + cc];
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) a[r] = fmaf(DS[(ro0 + r) * (KT + 1) + k], kv, a[r]);
+      for (int j = 0; j < 2; ++j) {
+        const int at = row * RT_PLD + lane + 32 * j;
+        const bool ok = kok[j] && qrow < Tq && (!p.causal || k0 + lane + 32 * j <= qrow + p.shift);
+        const float sum = tiles_sum<RT_SPLIT>(part, RT_PART / 4, at);
+        Ps[at] = ok ? expf(sum * p.scale - lse_s[row]) : 0.f;
       }
+    }
+    // dP = dO.V^T over all of D (the partials rewritten after nbd barriers)
+    tiles_zero(s);
+    for (int c = 0; c < nbd; ++c) {
+      const float* sl = next_item();
+      tiles_scores<8, 16>(s, sl + RT_CHUNK / 4, sl, sy, sx, 16 * g);
+    }
+    tiles_park<8>(part + g * (RT_PART / 4), s, sy, sx);
+    __syncthreads();
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) qrow[(ro0 + r) * G] = a[r];
+    for (int r = 0; r < 8; ++r) {
+      const int row = w + 8 * r;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {   // the thread's own p: no barrier
+        const int at = row * RT_PLD + lane + 32 * j;
+        Ps[at] = Ps[at] * (tiles_sum<RT_SPLIT>(part, RT_PART / 4, at) - dl_s[row]);
+      }
+    }
+    // dQ += dS.K over the group's columns, a slab of 16 keys at a time
+    for (int e = 0; e < KT / RT_VKEYS; ++e) {
+      const float* sl = next_item();
+      if (gw == RT_BOXES * DC)
+        tiles_acc<8, 8, RT_CSL, RT_VKEYS, RT_VLD, 4, true>(a, Ps, sl, e * RT_VKEYS, w, lane, gw);
+      else
+        tiles_acc<8, 8, RT_CSL, RT_VKEYS, RT_VLD, 4, false>(a, Ps, sl, e * RT_VKEYS, w, lane,
+                                                            gw);
     }
   }
-  __syncthreads();
-  T* out = static_cast<T*>(p.o);
-  for (int i = tid; i < QR * gw; i += THREADS) {
-    const int r = i / gw, c = i % gw, t = q0 + r;
-    if (t < Tq)
-      out[(((long long)b * Tq + t) * p.H + h) * D + g0 + c] = dQ[r * G + c] * p.scale;
+  cp_wait<0>();
+
+  float* out = static_cast<float*>(p.o);
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int t = q0 + w + 8 * r;
+    if (t >= Tq) continue;
+    float* orow = out + (((long long)b * Tq + t) * p.H + h) * D + g0 + 4 * lane;
+#pragma unroll
+    for (int c = 0; c < RT_CSL; ++c)
+      if (4 * lane + 128 * c < gw)
+        *reinterpret_cast<float4*>(orow + 128 * c) =
+            make_float4(a[r][c][0] * p.scale, a[r][c][1] * p.scale, a[r][c][2] * p.scale,
+                        a[r][c][3] * p.scale);
   }
 }
 
-// dk/dv (float32)
-
+// dk/dv: a block of 256 threads owns 32 key rows of one (batch, head) and
+// one column group of up to 512 columns of dk and dv; dV stays in the
+// registers of warps 0-3, dK in those of warps 4-7 (keys w % 4 + 4 r,
+// columns 4 lane + 128 c of the group: G / 4 f32 a thread, each loaded word
+// of dO or Q used for 8 FMAs where one thread holding both dK and dV gets
+// 4). It walks 64-query tiles, those wholly before the shifted diagonal not
+// loaded. Its item stream, per query tile: the S^T chunks of all of D (two
+// K chunks of the block's keys and two Q chunks an item), then the dP^T
+// chunks (V and dO), then the group's dO and Q in slabs of 8 queries; item
+// n is computed from its slot while the next is in flight. S^T = K.Q^T,
+// then dP^T = V.dO^T: each 64-column chunk split over eight groups of 32
+// threads, group gi summing columns [8 gi, 8 gi + 8) into an 8 x 8 tile
+// (keys sy + 4 r, queries sx + 8 j), the partials summed in group order; p^T = exp(s scale - lse)
+// where the pair is valid and exactly 0 elsewhere and ds^T = p^T (dp^T -
+// delta) go to shared memory (warp w keys w + 8 r, lane l queries l + 32
+// j); then dV += P^T.dO (warps 0-3) and dK += dS^T.Q (warps 4-7) over the
+// slabs. Column groups recompute S^T and dP^T in the same order.
 template <typename T>
-__global__ void __launch_bounds__(THREADS) flash_wide_dkv_kernel(const Params p) {
+__global__ void __launch_bounds__(RT_THREADS, 1) flash_wide_dkv_tiles_kernel(const Params p) {
   static_assert(std::is_same<T, float>::value, "float32 operands");
+  constexpr int KROWS = RT_KROWS;
+  constexpr int NG = RT_THREADS / KROWS;   // groups splitting a chunk's columns
+  constexpr int NCOL = DC / NG;            // columns of a chunk a group sums
+  constexpr int AS = KROWS / 8;            // key stride of a thread's score tile
+  constexpr int KP = KROWS / 8;            // keys a thread holds in p^T and ds^T: w + 8 r
+  constexpr int KW = KROWS / 4;            // keys a thread holds in dV or dK: w % 4 + 4 r
+  constexpr int CSL = 128 / KROWS;         // 128-column slices of dV or dK a thread holds
+  constexpr int SQ = 8;                    // queries of a slab
+  constexpr int SLD = 128 * CSL + 4;       // a slab row's pitch (floats)
+  constexpr int PV = 4;                    // p^T (ds^T) columns read at a time
+  constexpr int CH = RT_DKV_CHUNKS;        // 64-column chunks of a score item
+  constexpr int KS = CH * KROWS * RT_LD;   // floats of a score item's K (V) chunks
+  constexpr int SLOT = RT_DKV_SLOT;
+  constexpr int SLOTS = tiles_slots(2);
+  static_assert(NG * KROWS * RT_PLD * 4 == RT_SPLIT * RT_PART, "the forward's partial bytes");
+  static_assert(2 * SQ * SLD * 4 <= SLOT && QT % SQ == 0 && SQ % 4 == 0,
+                "a dO and a Q slab fit a slot");
+  static_assert(KROWS * DC / 4 % RT_THREADS == 0, "whole copies of a key chunk");
   extern __shared__ __align__(16) float sm[];
-  const int D = p.D, Tq = p.Tq, Tk = p.Tk, G = p.G;
-  const int g0 = blockIdx.z * G, gw = min(G, D - g0);   // this block's columns
-  float* dK = sm;                          // [KR][G]
-  float* dV = dK + KR * G;                 // [KR][G]
-  float* Kc = dV + KR * G;                 // [KR][LDC]
-  float* Vc = Kc + KR * LDC;               // [KR][LDC]
-  float* Qc = Vc + KR * LDC;               // [QT][LDC]
-  float* Oc = Qc + QT * LDC;               // [QT][LDC] do
-  float* PT = Oc + QT * LDC;               // [KR][QT + 1] p^T
-  float* DST = PT + KR * (QT + 1);         // [KR][QT + 1] ds^T
-  float* lse_s = DST + KR * (QT + 1);      // [QT]
-  float* delta_s = lse_s + QT;             // [QT]
-  float* kval = delta_s + QT;              // [KR]
+  const int D = p.D, Tq = p.Tq, Tk = p.Tk, G = p.G, nbd = D / DC;
+  const int n_si = (nbd + CH - 1) / CH;   // score items of a pass over D
+  const int n_kb = (Tk + KROWS - 1) / KROWS;
+  const int n_groups = (D + G - 1) / G;
+  const int z = blockIdx.x % n_groups;
+  int bh, kblk;
+  // key blocks in order: under a causal mask the first see the most queries
+  block_coords(blockIdx.x / n_groups, p.B * p.H, n_kb, 0, bh, kblk);
+  const int b = bh / p.H, h = bh % p.H;
+  const int k0 = kblk * KROWS;
+  const int g0 = z * G, gw = min(G, D - g0);
+  // the ring last, so that everything else sits at a fixed offset
+  float* part = sm;                                 // [NG][KROWS][RT_PLD]
+  float* PT = part + RT_SPLIT * (RT_PART / 4);      // p^T [KROWS][RT_PLD]
+  float* DST = PT + KROWS * RT_PLD;                 // ds^T [KROWS][RT_PLD]
+  float* ring = DST + KROWS * RT_PLD;               // SLOTS slots
+  const uint32_t ring_s = smem_u32(ring);
 
-  const int tid = threadIdx.x;
-  const int k0 = blockIdx.x * KR;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* ob = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
-
-  for (int i = tid; i < 2 * KR * G; i += THREADS) dK[i] = 0.f;   // dK and dV
-  if (tid < KR) kval[tid] = key_ok(p, b, k0 + tid) ? 1.f : 0.f;
-  const int qq = tid % QT, ks0 = (tid / QT) * KPT;   // scores: one query, 4 keys
-  const int cc = tid % DC, ko0 = (tid / DC) * KPT;   // sums: one column, 4 keys
-  const int n_qt = (Tq + QT - 1) / QT;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int gi = tid / KROWS, sy = (tid % KROWS) >> 3, sx = tid & 7;   // the score split
+  const int dk_half = w >> 2, w4 = w & 3;   // warps 4-7 sum dK, warps 0-3 dV
   // query tiles wholly before k0 - shift (the first query that may see key
-  // k0) see none of the keys
-  const int qt0 = p.causal && k0 - p.shift > 0 ? (k0 - p.shift) / QT : 0;
+  // k0) see none of the block's keys: the first tile walked starts at qs_first
+  const int qs_first = p.causal && k0 - p.shift > 0 ? (k0 - p.shift) / QT * QT : 0;
 
-  for (int qt = qt0; qt < n_qt; ++qt) {
-    const int qs0 = qt * QT;
-    float s[KPT], dp[KPT];
+  int it_qs = qs_first, it_e = 0;   // the next item to load: tile it_qs, entry it_e
+  auto load_next = [&](int to_slot) {
+    if (it_qs < Tq) {
+      const int qs0 = it_qs;
+      const uint32_t dst = ring_s + to_slot * SLOT;
+      if (it_e < 2 * n_si) {   // S^T: CH K and Q chunks; dP^T: CH V and dO chunks
+        const bool s_step = it_e < n_si;
+        const int c0 = (s_step ? it_e : it_e - n_si) * CH;
 #pragma unroll
-    for (int r = 0; r < KPT; ++r) s[r] = dp[r] = 0.f;
-    for (int c0 = 0; c0 < D; c0 += DC) {
-      __syncthreads();
-      load_chunk(Qc, qb, p.q_st, qs0, QT, Tq, c0, tid);
-      load_chunk(Oc, ob, p.o_st, qs0, QT, Tq, c0, tid);
-      load_chunk(Kc, kb, p.k_st, k0, KR, Tk, c0, tid);
-      load_chunk(Vc, vb, p.v_st, k0, KR, Tk, c0, tid);
-      if (c0 == 0 && tid < QT) {
-        const int t = qs0 + tid;
-        lse_s[tid] = t < Tq ? p.lse[(long long)bh * Tq + t] : 0.f;
-        delta_s[tid] = t < Tq ? p.delta[(long long)bh * Tq + t] : 0.f;
-      }
-      __syncthreads();
-      const float* qr = Qc + qq * LDC;
-      const float* orow = Oc + qq * LDC;
-#pragma unroll 4
-      for (int d = 0; d < DC; ++d) {
-        const float qv = qr[d], ov = orow[d];
-#pragma unroll
-        for (int r = 0; r < KPT; ++r) {
-          s[r] = fmaf(Kc[(ks0 + r) * LDC + d], qv, s[r]);
-          dp[r] = fmaf(Vc[(ks0 + r) * LDC + d], ov, dp[r]);
+        for (int u = 0; u < CH; ++u) {
+          if (c0 + u < nbd) {
+            const int col = (c0 + u) * DC;
+            if (s_step) {
+              tiles_chunk<KROWS>(dst + u * KROWS * RT_LD * 4, slice(p.k, p.k_sb, p.k_sh, b, h),
+                                 p.k_st, k0, Tk, col, tid);
+              tiles_chunk(dst + (KS + u * QT * RT_LD) * 4, slice(p.q, p.q_sb, p.q_sh, b, h),
+                          p.q_st, qs0, Tq, col, tid);
+            } else {
+              tiles_chunk<KROWS>(dst + u * KROWS * RT_LD * 4, slice(p.v, p.v_sb, p.v_sh, b, h),
+                                 p.v_st, k0, Tk, col, tid);
+              tiles_chunk(dst + (KS + u * QT * RT_LD) * 4,
+                          slice(p.dout, p.o_sb, p.o_sh, b, h), p.o_st, qs0, Tq, col, tid);
+            }
+          }
         }
+      } else {                 // a slab of the group's dO, then of its Q
+        const int t0 = qs0 + (it_e - 2 * n_si) * SQ;
+        tiles_slab<SQ>(dst, SLD, slice(p.dout, p.o_sb, p.o_sh, b, h), p.o_st, t0, Tq, g0, gw,
+                       tid);
+        tiles_slab<SQ>(dst + SQ * SLD * 4, SLD, slice(p.q, p.q_sb, p.q_sh, b, h), p.q_st, t0,
+                       Tq, g0, gw, tid);
+      }
+      if (++it_e == 2 * n_si + QT / SQ) {
+        it_e = 0;
+        it_qs += QT;
       }
     }
-#pragma unroll
-    for (int r = 0; r < KPT; ++r) {
-      const int key = ks0 + r, qpos = qs0 + qq;
-      const bool ok = qpos < Tq && kval[key] > 0.f && (!p.causal || k0 + key <= qpos + p.shift);
-      const float pv = ok ? expf(s[r] * p.scale - lse_s[qq]) : 0.f;
-      PT[key * (QT + 1) + qq] = pv;
-      DST[key * (QT + 1) + qq] = pv * (dp[r] - delta_s[qq]);
+    cp_commit();
+  };
+  for (int i = 0; i < SLOTS - 1; ++i) load_next(i);
+  int slot = 0;
+  auto next_item = [&]() {
+    cp_wait<SLOTS - 2>();
+    __syncthreads();
+    load_next(slot == 0 ? SLOTS - 1 : slot - 1);
+    const float* sl = ring + slot * (SLOT / 4);
+    if (++slot == SLOTS) slot = 0;
+    return sl;
+  };
+
+  float acc[KW][CSL][4];   // dV (warps 0-3) or dK (warps 4-7)
+  tiles_zero(acc);
+  for (int qs0 = qs_first; qs0 < Tq; qs0 += QT) {
+    float s[8][8];
+    // S^T = K.Q^T over all of D, CH chunks an item (a loop: unrolled, the
+    // 32-row kernel spilled and took 20.7 ms against 19.9 at B16 T2048 H4
+    // D512; --variants)
+    tiles_zero(s);
+    for (int c = 0; c < nbd; c += CH) {
+      const float* sl = next_item();
+#pragma unroll 1
+      for (int u = 0; u < CH; ++u)
+        if (c + u < nbd)
+          tiles_scores<AS, NCOL>(s, sl + u * KROWS * RT_LD, sl + KS + u * QT * RT_LD, sy, sx,
+                                 NCOL * gi);
     }
-    // dV += p^T . do, dK += ds^T . q, chunk by chunk of the group's columns
-    for (int c0 = g0; c0 < g0 + gw; c0 += DC) {
-      __syncthreads();   // p^T and ds^T written; the previous chunks read
-      load_chunk(Qc, qb, p.q_st, qs0, QT, Tq, c0, tid);
-      load_chunk(Oc, ob, p.o_st, qs0, QT, Tq, c0, tid);
-      __syncthreads();
-      float* vrow = dV + c0 - g0 + cc;
-      float* krow = dK + c0 - g0 + cc;
-      float av[KPT], ak[KPT];
+    tiles_park<AS>(part + gi * (KROWS * RT_PLD), s, sy, sx);
+    __syncthreads();
+    float lse[2];   // of the lane's queries lane + 32 j
 #pragma unroll
-      for (int r = 0; r < KPT; ++r) {
-        av[r] = vrow[(ko0 + r) * G];
-        ak[r] = krow[(ko0 + r) * G];
-      }
-#pragma unroll 4
-      for (int q = 0; q < QT; ++q) {
-        const float ov = Oc[q * LDC + cc], qv = Qc[q * LDC + cc];
+    for (int j = 0; j < 2; ++j) {
+      const int q = qs0 + lane + 32 * j;
+      lse[j] = q < Tq ? p.lse[(long long)bh * Tq + q] : 0.f;
+    }
 #pragma unroll
-        for (int r = 0; r < KPT; ++r) {
-          av[r] = fmaf(PT[(ko0 + r) * (QT + 1) + q], ov, av[r]);
-          ak[r] = fmaf(DST[(ko0 + r) * (QT + 1) + q], qv, ak[r]);
-        }
-      }
+    for (int r = 0; r < KP; ++r) {
+      const int key = w + 8 * r;   // its validity against Tk and the key mask, read here
+      const bool kok = k0 + key < Tk &&
+                       (p.kmask == nullptr || p.kmask[(long long)b * Tk + k0 + key] > 0.f);
 #pragma unroll
-      for (int r = 0; r < KPT; ++r) {
-        vrow[(ko0 + r) * G] = av[r];
-        krow[(ko0 + r) * G] = ak[r];
+      for (int j = 0; j < 2; ++j) {
+        const int q = lane + 32 * j, qpos = qs0 + q, at = key * RT_PLD + q;
+        const bool ok = kok && qpos < Tq && (!p.causal || k0 + key <= qpos + p.shift);
+        const float sum = tiles_sum<NG>(part, KROWS * RT_PLD, at);
+        PT[at] = ok ? expf(sum * p.scale - lse[j]) : 0.f;
       }
+    }
+    // dP^T = V.dO^T over all of D
+    tiles_zero(s);
+    for (int c = 0; c < nbd; c += CH) {
+      const float* sl = next_item();
+#pragma unroll 1
+      for (int u = 0; u < CH; ++u)
+        if (c + u < nbd)
+          tiles_scores<AS, NCOL>(s, sl + u * KROWS * RT_LD, sl + KS + u * QT * RT_LD, sy, sx,
+                                 NCOL * gi);
+    }
+    tiles_park<AS>(part + gi * (KROWS * RT_PLD), s, sy, sx);
+    __syncthreads();
+    float delta[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int q = qs0 + lane + 32 * j;
+      delta[j] = q < Tq ? p.delta[(long long)bh * Tq + q] : 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < KP; ++r) {
+      const int key = w + 8 * r;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {   // the thread's own p^T: no barrier
+        const int at = key * RT_PLD + lane + 32 * j;
+        DST[at] = PT[at] * (tiles_sum<NG>(part, KROWS * RT_PLD, at) - delta[j]);
+      }
+    }
+    // dV += P^T.dO, dK += dS^T.Q over the group's columns, a slab at a time
+    const float* Pm = dk_half ? DST : PT;
+    for (int e = 0; e < QT / SQ; ++e) {
+      const float* X = next_item() + dk_half * (SQ * SLD);   // the slab's dO, or its Q
+      if (gw == 128 * CSL)
+        tiles_acc<KW, 4, CSL, SQ, SLD, PV, true>(acc, Pm, X, e * SQ, w4, lane, gw);
+      else
+        tiles_acc<KW, 4, CSL, SQ, SLD, PV, false>(acc, Pm, X, e * SQ, w4, lane, gw);
     }
   }
-  __syncthreads();
-  T* dk = static_cast<T*>(p.o);
-  T* dv = static_cast<T*>(p.o2);
-  for (int i = tid; i < KR * gw; i += THREADS) {
-    const int r = i / gw, c = i % gw, t = k0 + r;
-    if (t < Tk) {
-      const long long at = (((long long)b * Tk + t) * p.H + h) * D + g0 + c;
-      dk[at] = dK[r * G + c] * p.scale;
-      dv[at] = dV[r * G + c];
-    }
+  cp_wait<0>();
+
+  // dk = scale * dS^T.Q, dv = P^T.dO
+  float* out = static_cast<float*>(dk_half ? p.o : p.o2);
+  const float mul = dk_half ? p.scale : 1.f;
+#pragma unroll
+  for (int r = 0; r < KW; ++r) {
+    const int t = k0 + w4 + 4 * r;
+    if (t >= Tk) continue;
+    float* orow = out + (((long long)b * Tk + t) * p.H + h) * D + g0 + 4 * lane;
+#pragma unroll
+    for (int c = 0; c < CSL; ++c)
+      if (4 * lane + 128 * c < gw)
+        *reinterpret_cast<float4*>(orow + 128 * c) =
+            make_float4(acc[r][c][0] * mul, acc[r][c][1] * mul, acc[r][c][2] * mul,
+                        acc[r][c][3] * mul);
   }
 }
 
@@ -1760,14 +1968,9 @@ __global__ void __launch_bounds__(THREADS90, 1)
 // ---------------------------------------------------------------------------
 
 // which: 0 = forward, 1 = dq, 2 = dk/dv. The wgmma kernels run bf16 and
-// f16; in float32 the forward runs on register tiles, dq and dk/dv on FMAs.
-enum Route { FMA, WGMMA, TILES };
-Route route(int which, int dtype) { return dtype != 0 ? WGMMA : which == 0 ? TILES : FMA; }
-
-// FMA: shared memory of kernel `which`'s layout for a group of G columns
-size_t smem_bytes(int which, int G) {
-  return (which == 1 ? dq_floats(G) : dkv_floats(G)) * sizeof(float);
-}
+// f16, the register-tile kernels float32.
+enum Route { WGMMA, TILES };
+Route route(int dtype) { return dtype != 0 ? WGMMA : TILES; }
 
 bool supported(int D) { return D >= DC && D % DC == 0; }
 
@@ -1796,61 +1999,46 @@ struct Plan {
 };
 
 size_t plan_bytes(int which, int dtype, int D, const Plan& pl) {
-  switch (route(which, dtype)) {
-    case WGMMA: return wide_layout(which, D, pl.slots, pl.resident).bytes;
-    case TILES: return tiles_bytes();
-    default: return smem_bytes(which, pl.G);
-  }
+  if (route(dtype) == WGMMA) return wide_layout(which, D, pl.slots, pl.resident).bytes;
+  return tiles_bytes(which);
 }
 
 // Can kernel `which` run D with this plan?
 bool plan_ok(int which, int dtype, int D, const Plan& pl) {
   if (pl.G < BOX || pl.G % BOX != 0 || pl.G > D) return false;
-  if (plan_bytes(which, dtype, D, pl) > SMEM_LIMIT) return false;
   if (pl.resident != 0 && pl.resident != 1) return false;
-  switch (route(which, dtype)) {
-    case WGMMA:   // dq streams Q
-      return pl.G <= wide_max_group(which) && pl.slots >= wide_min_slots(which, D, pl.resident) &&
-             pl.slots <= MAX_SLOTS && (which != 1 || pl.resident == 0);
-    case TILES: return pl.G <= RT_BOXES * DC && pl.slots == RT_SLOTS && pl.resident == 0;
-    default: return pl.slots == 0 && pl.resident == 0;
-  }
+  if (plan_bytes(which, dtype, D, pl) > SMEM_LIMIT) return false;
+  // tiles: groups of up to 512 columns (the output tile within 128
+  // registers a thread), the kernel's own ring, every operand streamed
+  if (route(dtype) == TILES)
+    return pl.G <= RT_BOXES * DC && pl.slots == tiles_slots(which) && pl.resident == 0;
+  // wgmma: dq streams Q
+  return pl.G <= wide_max_group(which) && pl.slots >= wide_min_slots(which, D, pl.resident) &&
+         pl.slots <= MAX_SLOTS && (which != 1 || pl.resident == 0);
 }
 
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
+// a register-tile kernel: 64 own query rows a block (dk/dv: 32 key rows),
+// the column groups of a row block side by side
 template <typename K>
-int launch_kernel(K kernel, int which, Params p, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(which, p.G);
+int launch_tiles(K kernel, int which, const Params& p, cudaStream_t stream) {
+  const size_t bytes = tiles_bytes(which);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int rows = which == 2 ? KR : QR;
-  const int T_own = which == 2 ? p.Tk : p.Tq;   // the rows blocks own: keys or queries
-  kernel<<<dim3((T_own + rows - 1) / rows, p.B * p.H, (p.D + p.G - 1) / p.G), THREADS, bytes,
-           stream>>>(p);
+  const int T_own = which == 2 ? p.Tk : p.Tq, rows = which == 2 ? RT_KROWS : RT_ROWS;
+  const int blocks = (T_own + rows - 1) / rows * (p.B * p.H) * ((p.D + p.G - 1) / p.G);
+  kernel<<<blocks, RT_THREADS, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the f32 forward on register tiles: 64 query rows a block, the column
-// groups of a row block side by side
-int launch_tiles(const Params& p, cudaStream_t stream) {
-  const size_t bytes = tiles_bytes();
-  cudaError_t e = cudaFuncSetAttribute(flash_wide_fwd_tiles_kernel<float>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(bytes));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int blocks = (p.Tq + RT_ROWS - 1) / RT_ROWS * (p.B * p.H) * ((p.D + p.G - 1) / p.G);
-  flash_wide_fwd_tiles_kernel<float><<<blocks, RT_THREADS, bytes, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the FMA kernels: dq and dk/dv in float32
-int launch_fma(int which, const Params& p, cudaStream_t stream) {
-  if (which == 2) return launch_kernel(flash_wide_dkv_kernel<float>, 2, p, stream);
-  return launch_kernel(flash_wide_dq_kernel<float>, 1, p, stream);
+int launch_f32(int which, const Params& p, cudaStream_t stream) {
+  if (which == 0) return launch_tiles(flash_wide_fwd_tiles_kernel<float>, 0, p, stream);
+  if (which == 1) return launch_tiles(flash_wide_dq_tiles_kernel<float>, 1, p, stream);
+  return launch_tiles(flash_wide_dkv_tiles_kernel<float>, 2, p, stream);
 }
 
 template <typename T>
@@ -1904,12 +2092,8 @@ int run(int which, Params p, int dtype, const int* plan, void* stream) {
   if (!plan_ok(which, dtype, p.D, pl)) return ERR_PLAN;
   p.G = pl.G;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (route(which, dtype)) {
-    case TILES: return launch_tiles(p, s);
-    case FMA: return launch_fma(which, p, s);
-    default:
-      return dtype == 1 ? launch_wgmma<bf16>(which, p, pl, s) : launch_wgmma<f16>(which, p, pl, s);
-  }
+  if (route(dtype) == TILES) return launch_f32(which, p, s);
+  return dtype == 1 ? launch_wgmma<bf16>(which, p, pl, s) : launch_wgmma<f16>(which, p, pl, s);
 }
 
 Params common(const void* q, const void* k, const void* v, const float* kmask, int B, int Tq,
@@ -2004,8 +2188,8 @@ long long flash_wide_smem_bytes(int which, int dtype, int D, const int* plan) {
   return static_cast<long long>(plan_bytes(which, dtype, D, pl));
 }
 
-// The column groups the launch runs under that plan (the grid's z extent
-// for the FMA kernels, a factor of the other kernels' grid), or -1.
+// The column groups the launch runs under that plan (a factor of the
+// grid), or -1.
 int flash_wide_groups(int which, int dtype, int D, const int* plan) {
   if (flash_wide_smem_bytes(which, dtype, D, plan) < 0) return -1;
   return (D + plan[0] - 1) / plan[0];

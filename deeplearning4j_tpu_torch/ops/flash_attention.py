@@ -245,39 +245,38 @@ _CHUNKS = {"fwd": 4, "dq": 2, "dkv": 2}
 _DQ_P_BYTES = 2 * 128 * 32 * 4
 _MAX_SLOTS = 32
 _XCH_BYTES = 2 * 128 * 16 * 4
-# the f32 forward's register tiles: 64 query rows a block of 256 threads,
-# O in registers (64 rows x at most 512 columns over the threads), a ring
-# of 3 slots of a K and a Q chunk (64 x 64 f32, rows padded to 68 floats),
-# the four thread groups' partial scores and p (64 x 64 f32, rows padded to
-# 72 floats), the rows' running max and sum
-_TILE_ROWS = 64
+# the f32 register tiles: blocks of 256 threads; the forward and dq own 64
+# query rows, dk/dv 32 key rows; the output tile in registers (the
+# forward's O, dq's dQ: 64 rows x at most 512 columns over the threads;
+# dk/dv's dK and dV: 2 x 32 rows); a ring of slots of two 64 x 64 f32
+# chunks (rows padded to 68 floats; dk/dv's slot holds two chunks of 32 K
+# rows and two of 64 Q rows): 3 for the forward, 2 for dq (faster than 3
+# or 4) and dk/dv (all that fit); the four thread groups'
+# partial scores (64 x 64 f32, rows padded to 72 floats: dk/dv's eight
+# groups of 32 x 64 take the same bytes), p (dq: then ds; dk/dv: p^T and
+# ds^T, 32 x 64 each) and, but for dk/dv, two f32 a query row
+_TILE_ROWS = {"fwd": 64, "dq": 64, "dkv": 32}
 _TILE_THREADS = 256
 _TILE_MAX_GROUP = 512
-_TILE_SLOTS = 3
-_TILE_BYTES = _TILE_SLOTS * 2 * 64 * 68 * 4 + 5 * 64 * 72 * 4 + 2 * 64 * 4
-# FMA kernels (f32 dq and dk/dv): rows a block owns, and the f32 floats of
-# their shared layout for a group of G columns (a 64-column chunk's rows
-# padded to 65)
-_FMA_ROWS = {"dq": 16, "dkv": 8}
-_LDC = 65
-_FMA_FLOATS = {
-    "dq": lambda G: 16 * G + 2 * 16 * _LDC + 2 * 64 * _LDC + 16 * 65 + 64 + 2 * 16,
-    "dkv": lambda G: 2 * 8 * G + 2 * 8 * _LDC + 2 * 64 * _LDC + 2 * 8 * 65 + 2 * 64 + 8,
-}
+_TILE_SLOTS = {"fwd": 3, "dq": 2, "dkv": 2}
+_TILE_SLOT_BYTES = {"fwd": 2 * 64 * 68 * 4, "dq": 2 * 64 * 68 * 4, "dkv": 2 * 96 * 68 * 4}
+# p^T and ds^T (dk/dv reads lse and delta from device memory), or p and two
+# f32 a query row
+_TILE_P_BYTES = {"fwd": 64 * 72 * 4 + 2 * 64 * 4, "dq": 64 * 72 * 4 + 2 * 64 * 4,
+                 "dkv": 2 * 32 * 72 * 4}
 
 
 @dataclass(frozen=True)
 class WidePlan:
     """How one wide-head kernel runs a head dim: ``route`` "wgmma" (the
-    16-bit forward, dq and dk/dv), "tiles" (the f32 forward on register
-    tiles) or "fma" (the f32 dq and dk/dv); ``rows`` a block owns (queries,
-    or keys for dk/dv); ``groups`` the widths of the column groups, which
-    sum to D (``group_width`` the first); the ring's ``slots`` (8 KB boxes
-    for wgmma, 64 x 64 f32 chunks for tiles) and whether Q (dk/dv: K and V)
+    16-bit forward, dq and dk/dv) or "tiles" (the f32 forward, dq and dk/dv
+    on register tiles); ``rows`` a block owns (queries, or keys for dk/dv);
+    ``groups`` the widths of the column groups, which sum to D
+    (``group_width`` the first); the ring's ``slots`` (8 KB boxes for
+    wgmma, two 64 x 64 f32 chunks for tiles) and whether Q (dk/dv: K and V)
     is ``resident``; ``smem_bytes`` of dynamic shared memory a block takes;
     and ``acc_registers``, the f32 output accumulator registers a thread
-    holds (0 for the FMA kernels, whose accumulators live in shared
-    memory)."""
+    holds."""
 
     kernel: str
     route: str
@@ -337,11 +336,11 @@ def wide_plan(kernel: str, D: int, dtype: torch.dtype) -> WidePlan:
     dq: 128 own query rows a block, each consumer warpgroup its own 64 over
     all of the group's columns; dk/dv: 64 own key rows, the group's columns
     split over the two warpgroups), the forward's Q (dk/dv's K and V)
-    resident up to D = 512, dq's streamed, as many 8 KB ring slots as fit. The f32 forward takes the tiles route: 64
-    own query rows, groups of at most 512 columns, Q streamed beside K.
-    The f32 dq and dk/dv take the FMA route: 16 own rows (dk/dv: 8), all
-    of D in one group where its f32 accumulators fit one block, else the
-    fewest even groups that fit. Pure Python, so the CPU checks every plan;
+    resident up to D = 512, dq's streamed, as many 8 KB ring slots as fit.
+    The f32 kernels take the tiles route: the forward and dq 64 own query
+    rows, dk/dv 32 own key rows, groups of at most 512 columns, every
+    operand streamed through a ring of 3 (the forward) or 2 (dq; dk/dv, two
+    chunks a slot) slots. Pure Python, so the CPU checks every plan;
     ``flash_wide_smem_bytes`` and ``flash_wide_groups`` of the library
     report the shared memory and groups a launch takes under a plan, from
     the kernels' own layouts."""
@@ -364,19 +363,13 @@ def wide_plan(kernel: str, D: int, dtype: torch.dtype) -> WidePlan:
         regs = -(-boxes // 2) * 64 if kernel == "dkv" else boxes * 32
         return WidePlan(kernel, "wgmma", _WGMMA_ROWS[kernel], groups, slots, resident,
                         _wgmma_bytes(kernel, D, slots, resident), regs)
-    if kernel == "fwd":
-        groups = _even_groups(chunks, _TILE_MAX_GROUP // _BOX)
-        # O: 64 rows x the group's columns over 256 threads
-        return WidePlan(kernel, "tiles", _TILE_ROWS, groups, _TILE_SLOTS, False, _TILE_BYTES,
-                        _TILE_ROWS * groups[0] // _TILE_THREADS)
-    floats = _FMA_FLOATS[kernel]
-    if 4 * floats(D) <= _SMEM_LIMIT:
-        groups = (D,)
-    else:
-        gmax = max(c for c in range(1, chunks + 1) if 4 * floats(c * _BOX) <= _SMEM_LIMIT)
-        groups = _even_groups(chunks, gmax)
-    return WidePlan(kernel, "fma", _FMA_ROWS[kernel], groups, 0, False,
-                    4 * floats(groups[0]), 0)
+    groups = _even_groups(chunks, _TILE_MAX_GROUP // _BOX)
+    rows, slots = _TILE_ROWS[kernel], _TILE_SLOTS[kernel]
+    smem = slots * _TILE_SLOT_BYTES[kernel] + 4 * 64 * 72 * 4 + _TILE_P_BYTES[kernel]
+    # the output tile over 256 threads: O or dQ (64 rows), dK and dV (2 x 32)
+    outputs = 2 if kernel == "dkv" else 1
+    return WidePlan(kernel, "tiles", rows, groups, slots, False, smem,
+                    outputs * rows * groups[0] // _TILE_THREADS)
 
 
 def pad_head_dim(x: torch.Tensor, d: int) -> torch.Tensor:

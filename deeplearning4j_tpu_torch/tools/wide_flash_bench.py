@@ -10,7 +10,8 @@ B, A) in one call on one card to compare them. Prints one JSON line:
 
 - ``kernels``: the forward, dq and dk/dv through the port's wrappers
   (``flash_fwd_cuda``, ``flash_bwd_dq_cuda``, ``flash_bwd_dkv_cuda``),
-  causal, by CUDA events, at B16 T2048 H4 D512 (the products of kernel
+  causal, and the whole backward (delta, dq and dk/dv: ``flash_bwd_cuda``),
+  by CUDA events, at B16 T2048 H4 D512 (the products of kernel
   #1's flagship shape, B16 T2048 H16 D128) in bf16 and f32, B2 T512 H4 at
   D 320 and 512 in bf16 and f32, and B1 T256 H2 at D 3072 (column groups)
   in bf16, each beside its bounds (bf16 at 989 TFLOP/s, f32 at 67 of FMA)
@@ -23,16 +24,19 @@ B, A) in one call on one card to compare them. Prints one JSON line:
   512-column one, and builds of patched copies of the source
   (``_SOURCE_VARIANTS``): dk/dv with its producer skipping the score
   steps' Q and dO boxes, or every Q and dO box (what the box stream costs
-  it), and the f32 forward without its copies, its score FMAs or its P.V
-  (what each part costs);
+  it), the f32 forward without its copies, its score FMAs or its P.V
+  (what each part costs), and the f32 dq with a ring of 3 or 4 slots,
+  the f32 dq and dk/dv with 2 (batch, head) pairs a head group, their
+  score loop not unrolled, dk/dv's chunk loop unrolled or one chunk a
+  score item (the design choices);
 - with ``--lm``: the flagship TransformerLM of ``bench.py:546`` with 4
   heads (D = 512: vocab 2048, T 2048, d_model 2048, 8 blocks, bf16, seed
   12345, Adam 1e-4): one 16 x 2048 ``output`` dispatch (ms, CUDA events,
   after a warm one), then a warm training step and 3 timed ones
-  (``_fit_batch``, CUDA events) with one step split into forward /
-  backward / update, the loss of each, and the launches of each flash
-  kernel a dispatch and a step; then the same configuration in float32:
-  one 16 x 2048 ``output`` dispatch and its launches.
+  (``_fit_batch``, CUDA events) at 16 x 2048 with one step split into
+  forward / backward / update, the loss of each, the launches of each
+  flash kernel a dispatch and a step, and the peak memory; then the same
+  for the same configuration in float32 (under ``float32``).
 
 The card's name and power limit go with the line.
 """
@@ -116,7 +120,10 @@ def _kernels(torch, fa, variants: bool) -> dict:
                "dkv_ms": time_ms(lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, None,
                                                                True), iters),
                "dq_ms": time_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, None,
-                                                             True), max(1, iters // 4), 1)}
+                                                             True), max(1, iters // 4), 1),
+               # the whole backward: delta, dq and dk/dv (flash_bwd_cuda)
+               "bwd_ms": time_ms(lambda: fa.flash_bwd_cuda(q, k, v, o, lse, do, None, True),
+                                 max(1, iters // 2), 1)}
         row["fwd_bound_ms"], row["dq_bound_ms"], row["dkv_bound_ms"] = _bounds(B, T, H, D, dtype)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -145,12 +152,16 @@ def _kernels(torch, fa, variants: bool) -> dict:
                 else:   # the f32 forward in 256-column groups (the scores twice)
                     fa.wide_plan = lambda kern, d, t: _halved(plan(kern, d, t))
                     row["fwd_256_column_groups_ms"] = time_ms(run["fwd"], iters)
+                for label, (kern, kdtype, _, _, *slots) in _SOURCE_VARIANTS.items():
+                    if kdtype == dtype:
+                        # a variant's ring depth goes into the plan it is launched with
+                        fa.wide_plan = lambda k, d, t, kern=kern, slots=slots: (
+                            dataclasses.replace(plan(k, d, t), slots=slots[0])
+                            if slots and k == kern else plan(k, d, t))
+                        with _variant_source(fa, label):
+                            row[f"{label}_ms"] = time_ms(run[kern], iters)
             finally:
                 fa.wide_plan = plan
-            for label, (kern, kdtype, _, _) in _SOURCE_VARIANTS.items():
-                if kdtype == dtype:
-                    with _variant_source(fa, label):
-                        row[f"{label}_ms"] = time_ms(run[kern], iters)
         out.append(row)
         del q, k, v, qkv, o, lse, do, delta, qt, kt, vt, qg, kg, vg, og, dot
         torch.cuda.empty_cache()
@@ -173,6 +184,28 @@ _GROUP_PUTS = ("ring.put(pos, &p.q, (gb + j) * BOX, h, q0, b);",
                "ring.put(pos, &p.o, (gb + j) * BOX, h, q0, b);")
 _DKV = "flash_wide_dkv_wgmma_kernel(__grid_constant__"
 _TILES = "flash_wide_fwd_tiles_kernel(const Params p)"
+# the f32 dq and dk/dv with 2 (batch, head) pairs a head group in their
+# block order instead of block_coords' 8 (what L2 holds of K and V, or Q
+# and dO: 16 MB of f32 at D = 512 against 64)
+_DQ_TILES = "flash_wide_dq_tiles_kernel(const Params p)"
+_SCORES_UNROLL = ("#pragma unroll 2\n  for (int d = d0;", "#pragma unroll 1\n  for (int d = d0;")
+_DKV_TILES = "flash_wide_dkv_tiles_kernel(const Params p)"
+_TILES_SLOTS = "constexpr int tiles_slots(int which)"
+
+
+def _head_group_2(n, causal):
+    i = "blockIdx.x / n_groups"
+    return [(f"block_coords({i}, p.B * p.H, {n}, {causal}, bh, ",
+             f"block_coords_2({i}, p.B * p.H, {n}, {causal}, bh, ")]
+
+
+_HEAD_GROUP_2 = """__device__ __forceinline__ void block_coords_2(int i, int BH, int n_qb, int causal, int& bh,
+                                               int& qb) {
+  const int bh0 = i / (2 * n_qb) * 2, size = min(2, BH - bh0), r = i - bh0 * n_qb;
+  bh = bh0 + r % size;
+  qb = causal ? n_qb - 1 - r / size : r / size;
+}
+"""
 _SOURCE_VARIANTS = {
     "dkv_no_score_loads": ("dkv", "bfloat16", _DKV,
                            [(put, "ring.skip(pos);") for put in _SCORE_PUTS]),
@@ -180,12 +213,32 @@ _SOURCE_VARIANTS = {
                      [(put, "ring.skip(pos);") for put in _SCORE_PUTS + _GROUP_PUTS]),
     "fwd_f32_no_loads": ("fwd", "float32", _TILES,
                          [("if (it_kt < n_kt) {", "if (false && it_kt < n_kt) {")]),
-    "fwd_f32_no_score_fmas": ("fwd", "float32", _TILES,
-                              [("d < 16 * g + 16; d += 2", "d < 16 * g; d += 2")]),
-    "fwd_f32_no_pv": ("fwd", "float32", "void tiles_pv(",
-                      [("kk < RT_VKEYS; kk += 4", "kk < 0; kk += 4")]),
+    "fwd_f32_no_score_fmas": ("fwd", "float32", "void tiles_scores(",
+                              [("d < d0 + N; d += 2", "d < d0; d += 2")]),
+    "fwd_f32_no_pv": ("fwd", "float32", "void tiles_acc(",
+                      [("kk < N; kk += PV", "kk < 0; kk += PV")]),
+    # the f32 dq with a ring of 3 or 4 slots (the plan's slots follow)
+    "dq_f32_slots_3": ("dq", "float32", _TILES_SLOTS,
+                       [("which == 0 ? 3 : 2", "which == 0 ? 3 : which == 1 ? 3 : 2")], 3),
+    "dq_f32_slots_4": ("dq", "float32", _TILES_SLOTS,
+                       [("which == 0 ? 3 : 2", "which == 0 ? 3 : which == 1 ? 4 : 2")], 4),
+    "dq_f32_head_group_2": ("dq", "float32", _DQ_TILES, _head_group_2("n_qb", "p.causal")),
+    "dkv_f32_head_group_2": ("dkv", "float32", _DKV_TILES, _head_group_2("n_kb", "0")),
+    # the f32 score loop one column pair a step (no unroll); dk/dv's chunk
+    # loop of a score item unrolled; dk/dv with one chunk a score item (2
+    # slots of the forward's size)
+    "dq_f32_scores_unroll_1": ("dq", "float32", "void tiles_scores(", [_SCORES_UNROLL]),
+    "dkv_f32_scores_unroll_1": ("dkv", "float32", "void tiles_scores(", [_SCORES_UNROLL]),
+    "dkv_f32_chunk_loop_unrolled": ("dkv", "float32", _DKV_TILES, [
+        ("#pragma unroll 1\n      for (int u = 0; u < CH; ++u)",
+         "#pragma unroll\n      for (int u = 0; u < CH; ++u)", 2)]),
+    "dkv_f32_one_chunk_an_item": ("dkv", "float32", "constexpr int RT_DKV_CHUNKS",
+                                  [("RT_DKV_CHUNKS = 2;", "RT_DKV_CHUNKS = 1;"),
+                                   ("RT_DKV_SLOT = RT_DKV_CHUNKS * (RT_KROWS + QT) * RT_LD * 4;",
+                                    "RT_DKV_SLOT = RT_SLOT;")]),
 }
 _WAIT = "  __device__ __forceinline__ void wait(Pos p, int count) const {"
+_TILES_HELPERS = "// the (batch, head) slice of an operand"
 _SKIP = """  __device__ __forceinline__ void skip(Pos& p) const {
     bar_wait(&empty[p.slot], p.phase ^ 1u);
     bar_arrive(&full[p.slot]);
@@ -197,19 +250,21 @@ _SKIP = """  __device__ __forceinline__ void skip(Pos& p) const {
 @contextlib.contextmanager
 def _variant_source(fa, label):
     """Build and load ``flash_wide.cu`` with variant ``label``'s edits (each
-    must occur once in its function) from ``build/variants/<label>/``; the
-    checkout's library again after."""
+    must occur once from its first line to the next function's end, or as
+    often as its third entry says)
+    from ``build/variants/<label>/``; the checkout's library again after."""
     from deeplearning4j_tpu_torch.ops import _build
 
-    _, _, first, edits = _SOURCE_VARIANTS[label]
+    first, edits = _SOURCE_VARIANTS[label][2:4]
     text = (_build.SOURCE_DIR / "flash_wide.cu").read_text()
     assert text.count(_WAIT) == 1, "Ring::wait not found"
     text = text.replace(_WAIT, _SKIP + _WAIT)
+    text = text.replace(_TILES_HELPERS, _HEAD_GROUP_2 + _TILES_HELPERS, 1)
     start = text.index(first)
     end = text.index("\n}\n", start)   # the function's closing brace
     body = text[start:end]
-    for old, new in edits:
-        assert body.count(old) == 1, (label, old)
+    for old, new, *n in edits:
+        assert body.count(old) == (n[0] if n else 1), (label, old)
         body = body.replace(old, new)
     out = _build.BUILD_DIR / "variants" / label
     out.mkdir(parents=True, exist_ok=True)
@@ -252,38 +307,14 @@ def _streamed(fa, plan):
                                smem_bytes=fa._wgmma_bytes(k, D, slots, False))
 
 
-def _lm(torch, fa) -> dict:
-    import numpy as np
-
-    from deeplearning4j_tpu_torch.models import zoo
-    from deeplearning4j_tpu_torch.nn.model import MultiLayerNetwork
+def _train(torch, model, xt, yt, counts) -> dict:
+    """A warm training step and 3 timed ones (``_fit_batch``, CUDA events),
+    the loss of each and the flash launches a step, then one step split
+    into forward / backward / update, and the peak memory of the timed
+    steps."""
     from deeplearning4j_tpu_torch.utils.tree import tree_leaves, tree_unflatten_like
 
-    conf = zoo.TransformerLM(vocab_size=2048, max_len=2048, d_model=2048, n_heads=4,
-                             n_blocks=8, dtype="bfloat16", seed=12345,
-                             updater={"type": "adam", "lr": 1e-4})
-    model = MultiLayerNetwork(conf).init()
-    rng = np.random.RandomState(4)
-    x = rng.randint(0, 2048, (16, 2048)).astype(np.int64)
-    xt = torch.as_tensor(x, device="cuda")
-    yt = torch.as_tensor(np.roll(x, -1, axis=1), device="cuda")
-
-    def counts():
-        return (fa.flash_fwd_cuda.launches, fa.flash_bwd_dq_cuda.launches,
-                fa.flash_bwd_dkv_cuda.launches)
-
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-    model.output(xt)
-    # graftlint: disable=host-sync; a timing harness: the sync ends the timed region
-    torch.cuda.synchronize()
-    c0 = counts()
-    ev[0].record()
-    model.output(xt)
-    ev[1].record()
-    # graftlint: disable=host-sync; a timing harness: the sync ends the timed region
-    torch.cuda.synchronize()
-    dispatch_ms = ev[0].elapsed_time(ev[1])
-    dispatch_launches = [b - a for a, b in zip(c0, counts())]
     losses = [model._fit_batch(xt, yt, None, None)]   # the warm step
     # graftlint: disable=host-sync; a timing harness: the sync ends the timed region
     torch.cuda.synchronize()
@@ -295,9 +326,9 @@ def _lm(torch, fa) -> dict:
     ev[1].record()
     # graftlint: disable=host-sync; a timing harness: the sync ends the timed region
     torch.cuda.synchronize()
-    losses = [float(v) for v in losses]
-    step_ms = ev[0].elapsed_time(ev[1]) / 3
     step_launches = [(b - a) / 3 for a, b in zip(c0, counts())]
+    step_ms = ev[0].elapsed_time(ev[1]) / 3
+    peak = torch.cuda.max_memory_allocated()
     live = [p.detach().requires_grad_(True) for p in tree_leaves(model.params)]
     ev[2].record()
     loss, _ = model._loss(tree_unflatten_like(model.params, live), model.state, xt, yt,
@@ -309,35 +340,63 @@ def _lm(torch, fa) -> dict:
     ev[5].record()
     # graftlint: disable=host-sync; a timing harness: the sync ends the timed region
     torch.cuda.synchronize()
-    params, peak = model.num_params(), torch.cuda.max_memory_allocated()
-    del model, grads, live, loss
-    # graftlint: disable=host-sync; a timing harness: the sync ends the timed region
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    conf32 = zoo.TransformerLM(vocab_size=2048, max_len=2048, d_model=2048, n_heads=4,
-                               n_blocks=8, dtype="float32", seed=12345)
-    model = MultiLayerNetwork(conf32).init()
-    model.output(xt)
-    # graftlint: disable=host-sync; a timing harness: the sync ends the timed region
-    torch.cuda.synchronize()
-    c0 = counts()
-    ev[0].record()
-    model.output(xt)
-    ev[1].record()
-    # graftlint: disable=host-sync; a timing harness: the sync ends the timed region
-    torch.cuda.synchronize()
-    f32 = {"dispatch_16x2048_ms": ev[0].elapsed_time(ev[1]),
-           "dispatch_launches_fwd_dq_dkv": [b - a for a, b in zip(c0, counts())]}
-    return {"model": {"vocab": 2048, "T": 2048, "d_model": 2048, "heads": 4, "head_dim": 512,
-                      "blocks": 8, "dtype": "bfloat16", "params": params},
-            "float32": f32,
-            "dispatch_16x2048_ms": dispatch_ms,
-            "dispatch_launches_fwd_dq_dkv": dispatch_launches,
-            "step_16x2048_ms": step_ms, "step_launches_fwd_dq_dkv": step_launches,
+    return {"rows": int(xt.shape[0]), "step_ms": step_ms,
+            "step_launches_fwd_dq_dkv": step_launches,
             "split_ms": {"forward": ev[2].elapsed_time(ev[3]),
                          "backward": ev[3].elapsed_time(ev[4]),
                          "update": ev[4].elapsed_time(ev[5])},
-            "loss_sum": losses, "max_memory_allocated_bytes": peak}
+            "loss_sum": [float(v) for v in losses], "max_memory_allocated_bytes": peak}
+
+
+def _lm(torch, fa) -> dict:
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.model import MultiLayerNetwork
+
+    rng = np.random.RandomState(4)
+    x = rng.randint(0, 2048, (16, 2048)).astype(np.int64)
+    xt = torch.as_tensor(x, device="cuda")
+    yt = torch.as_tensor(np.roll(x, -1, axis=1), device="cuda")
+
+    def counts():
+        return (fa.flash_fwd_cuda.launches, fa.flash_bwd_dq_cuda.launches,
+                fa.flash_bwd_dkv_cuda.launches)
+
+    def dispatch(model):
+        """One 16 x 2048 ``output`` dispatch after a warm one: ms, launches."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        model.output(xt)
+        # graftlint: disable=host-sync; a timing harness: the sync ends the timed region
+        torch.cuda.synchronize()
+        c0 = counts()
+        ev[0].record()
+        model.output(xt)
+        ev[1].record()
+        # graftlint: disable=host-sync; a timing harness: the sync ends the timed region
+        torch.cuda.synchronize()
+        return {"dispatch_16x2048_ms": ev[0].elapsed_time(ev[1]),
+                "dispatch_launches_fwd_dq_dkv": [b - a for a, b in zip(c0, counts())]}
+
+    res = {"model": {"vocab": 2048, "T": 2048, "d_model": 2048, "heads": 4, "head_dim": 512,
+                     "blocks": 8, "dtype": "bfloat16"}}
+    for dtype in ("bfloat16", "float32"):
+        conf = zoo.TransformerLM(vocab_size=2048, max_len=2048, d_model=2048, n_heads=4,
+                                 n_blocks=8, dtype=dtype, seed=12345,
+                                 updater={"type": "adam", "lr": 1e-4})
+        model = MultiLayerNetwork(conf).init()
+        run = dispatch(model)
+        run.update(_train(torch, model, xt, yt, counts))
+        res["model"]["params"] = model.num_params()
+        if dtype == "bfloat16":
+            res.update(run)
+        else:
+            res["float32"] = run
+        del model
+        # graftlint: disable=host-sync; a timing harness: the sync ends the timed region
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return res
 
 
 def main(argv=None) -> int:

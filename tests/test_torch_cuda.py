@@ -821,6 +821,21 @@ def _rel_close(got, want, rel):
     assert (got - want).abs().max().item() <= rel * want.abs().max().item()
 
 
+def _bwd_float64(q, k, v, do, km, causal):
+    """(dq, dk, dv) of attention computed in float64 on the card, from the
+    float64 scores (its own lse and out; every row must see a key)."""
+    qd, kd, vd, dod = (x.double() for x in (q, k, v, do))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kd) * scale
+    p = torch.softmax(s.masked_fill(~fa._valid_pairs(q, k, causal, km), -math.inf), -1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vd)
+    delta = (dod * out).sum(-1).transpose(1, 2)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dod, vd) - delta[..., None])
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, kd) * scale,
+            torch.einsum("bhqk,bqhd->bkhd", ds, qd) * scale,
+            torch.einsum("bhqk,bqhd->bkhd", p, dod))
+
+
 @pytest.mark.parametrize("D,dtype", [(2881, torch.bfloat16), (3072, torch.bfloat16),
                                      (3072, torch.float32), (4096, torch.bfloat16)])
 @pytest.mark.parametrize("causal,masked", [(True, False), (False, True)])
@@ -859,8 +874,21 @@ def test_wide_head_past_2880_matches_plain_version(cuda, D, dtype, causal, maske
     # reference's 1.1e-5 (the FMA dq it replaced read 0.0, so the relative
     # check held): dq is held to 1e-4, about 2x what it read.
     one_key = km is not None and bool((km.sum(1) == 1).all())
-    for name, a, b in zip(("dq", "dk", "dv"), got, want):
-        if dtype == torch.float32:
+    # In f32 with that one key, dq and dk (0 in exact arithmetic) and dv
+    # (each query's p = exp of a rounding difference, ~1 +- 1e-6, summed
+    # over 256 queries) are f32 rounding of sums over D = 3072 on both
+    # sides: the plain version's cuBLAS products sum over D in the order the
+    # FMA kernels of the route did (they agreed to 1e-11), the register
+    # tiles over split columns. Both are held to a float64 truth instead,
+    # the kernel no further from it than the plain version (on an H100 the
+    # tiles read 8.7e-6, 2.0e-5 and 4.2e-5 from it, the plain version
+    # 1.9e-5, 6.7e-5 and 7.3e-5).
+    truth = _bwd_float64(q, k, v, do, km, causal) if one_key else (None,) * 3
+    for name, a, b, t in zip(("dq", "dk", "dv"), got, want, truth):
+        if dtype == torch.float32 and one_key:
+            assert ((a.double() - t).abs().max().item()
+                    <= (b.double() - t).abs().max().item()), name
+        elif dtype == torch.float32:
             torch.testing.assert_close(a, b, **F32)
         elif one_key and name == "dk":
             assert a.float().abs().max().item() <= 5e-4, name
@@ -871,14 +899,13 @@ def test_wide_head_past_2880_matches_plain_version(cuda, D, dtype, causal, maske
 
 
 def test_wide_head_one_group_up_to_2880(cuda):
-    """Up to 2880 the FMA kernels of the route (the f32 dq and dk/dv) keep
-    one column group (the layout of the route before groups, so those head
-    dims run as before), while the f32 forward on register tiles takes
-    groups of at most 512 columns and the 16-bit kernels on wgmma of at
-    most 256; under each
-    of the wrapper's plans (wide_plan) the library's layouts take the
-    shared memory and groups the plan says, and it refuses a plan that
-    does not fit."""
+    """The f32 kernels on register tiles (forward, dq, dk/dv) take one
+    column group up to 512 columns and groups of at most 512 past it (so D
+    = 2880 runs in 6), the 16-bit kernels on wgmma groups of at most 256;
+    under each of the wrapper's plans (wide_plan) the library's layouts
+    take the shared memory and groups the plan says, and it refuses a plan
+    that does not fit or that names slots, residency or a group width the
+    kernel does not take."""
     lib = fa._wide_kernel_lib()
 
     def groups(w, code, D):
@@ -887,10 +914,9 @@ def test_wide_head_one_group_up_to_2880(cuda):
                                                               dtype).c_plan())
 
     for D in (320, 512, 1024, 2048, 2880):
-        assert [groups(w, 0, D) for w in (1, 2)] == [1, 1], D
-        assert groups(0, 0, D) == -(-D // 512), D
+        assert [groups(w, 0, D) for w in range(3)] == [-(-D // 512)] * 3, D
         assert [groups(w, c, D) for w in range(3) for c in (1, 2)] == [-(-D // 256)] * 6, D
-    assert groups(1, 0, 2944) == 2
+    assert groups(1, 0, 2880) == 6
     for w, kernel in enumerate(fa.WIDE_KERNELS):
         for code, dtype in enumerate((torch.float32, torch.bfloat16, torch.float16)):
             for D in (320, 512, 576, 1024, 1088, 2880, 3072, 4096, 8192):
@@ -898,12 +924,22 @@ def test_wide_head_one_group_up_to_2880(cuda):
                 assert (lib.flash_wide_smem_bytes(w, code, D, plan.c_plan()),
                         lib.flash_wide_groups(w, code, D, plan.c_plan())
                         ) == (plan.smem_bytes, len(plan.groups)), (kernel, dtype, D)
-    # the whole of D = 4096 in one FMA dq group does not fit a block, nor
-    # 320 columns in one group of the wgmma dq, nor 576 in one of the f32
-    # forward's tiles
-    assert lib.flash_wide_smem_bytes(1, 0, 4096, (ctypes.c_int * 3)(4096, 0, 0)) == -1
-    assert lib.flash_wide_smem_bytes(1, 1, 320, (ctypes.c_int * 3)(320, 18, 1)) == -1
-    assert lib.flash_wide_smem_bytes(0, 0, 576, (ctypes.c_int * 3)(576, 3, 0)) == -1
+    # {G, slots, resident}: 576 columns in one group of the f32 dq's (or
+    # the forward's) tiles, 320 in one group of the wgmma dq, a ring depth
+    # other than the register-tile kernel's own (dk/dv's 3 slots would
+    # also exceed 232,448 bytes), resident operands on the tiles route and
+    # a group width not a multiple of 64 are refused; dk/dv at 256 columns
+    # is taken
+    plan = ctypes.c_int * 3
+    for w, code, D, pl in ((1, 0, 576, (576, 2, 0)), (0, 0, 576, (576, 3, 0)),
+                           (1, 1, 320, (320, 18, 1)), (2, 0, 512, (256, 3, 0)),
+                           (1, 0, 512, (512, 3, 0)), (1, 0, 512, (512, 4, 0)),
+                           (0, 0, 512, (512, 4, 0)), (2, 0, 512, (512, 2, 1)),
+                           (2, 0, 512, (480, 2, 0))):
+        assert lib.flash_wide_smem_bytes(w, code, D, plan(*pl)) == -1, (w, code, D, pl)
+    assert lib.flash_wide_smem_bytes(2, 0, 512, plan(256, 2, 0)) == 196608
+    assert lib.flash_wide_groups(2, 0, 512, plan(256, 2, 0)) == 2
+    assert lib.flash_wide_smem_bytes(1, 0, 512, plan(512, 2, 0)) == 162304
 
 
 # -- the wide-head wgmma kernels (16-bit forward and dk/dv past D = 256) ---------
@@ -1068,8 +1104,8 @@ def test_wide_f32_tiles_forward_ragged_T_and_masks(cuda, T, D, kmask):
 
 @pytest.mark.parametrize("case", WIDE16_CHUNKS)
 def test_wide_f32_chunk_entries_match_plain_version(cuda, case):
-    """The chunk entries in f32 (the forward on register tiles, the
-    backward on FMAs) with Tq != Tk, offsets, the key mask and D = 300:
+    """The chunk entries in f32 (the forward, dq and dk/dv on register
+    tiles) with Tq != Tk, offsets, the key mask and D = 300:
     out and lse against the plain version, then dq, dk and dv under both
     cotangents (do and the lse's) against the plain backward; rows without
     a key get exactly 0 in dq; both runs repeat bit for bit."""
@@ -1102,10 +1138,11 @@ def test_wide_f32_chunk_entries_match_plain_version(cuda, case):
 @pytest.mark.parametrize("D", [3072, 4096])
 def test_wide_dq_and_f32_forward_column_groups_see_the_same_p(cuda, D):
     """The wgmma dq's column groups each recompute S and dP over all of D,
-    the f32 forward's groups the scores: with q, k, v and do repeating
-    every 128 columns, every 128-column slice of dq (bf16) and of out (f32)
-    must be bit-equal to the first, which holds only if every group used
-    the same ds (p); each against its plain version."""
+    the f32 forward's, dq's and dk/dv's groups the scores: with q, k, v and
+    do repeating every 128 columns, every 128-column slice of dq (bf16),
+    and of out, dq, dk and dv (f32) must be bit-equal to the first, which
+    holds only if every group used the same p and ds; each against its
+    plain version."""
     B, T, H = 1, 256, 2
     g = torch.Generator(device=cuda).manual_seed(D)
 
@@ -1130,9 +1167,102 @@ def test_wide_dq_and_f32_forward_column_groups_see_the_same_p(cuda, D):
             _close_rel(dq, want, 2e-2)
             _close_per_tile(dq, want, 1e-2)
             checks.append(("dq", dq))
+        else:
+            # f32 dq, dk and dv on register tiles, in groups of 512 columns.
+            # With do and v repeating D / 128 times, dp and delta are sums of
+            # magnitude ~D / 128 * 11 whose f32 rounding (two orders, ~1e-3)
+            # reaches dq, dk and dv as ~1e-5 wherever they are: held to 1e-4
+            # of their largest entry (~1), not entry by entry
+            assert {fa.wide_plan(kern, D, dtype).route for kern in fa.WIDE_KERNELS} == {"tiles"}
+            got = fa.flash_bwd_cuda(q, k, v, out, lse, do, None, True)
+            want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, None, True)
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                _rel_close(a, b, 1e-4)
+                checks.append((name, a))
         for name, x in checks:
             slices = x.view(B, T, H, D // 128, 128)
             assert torch.equal(slices, slices[:, :, :, :1].expand_as(slices)), (name, dtype)
+
+
+# -- the wide-head f32 dq and dk/dv on register tiles ---------------------------
+
+@pytest.mark.parametrize("T", [1, 65, 129, 300])
+@pytest.mark.parametrize("D,kmask", [(512, None), (320, "varlen"), (576, "leading"),
+                                     (300, "leading")])
+def test_wide_f32_tiles_backward_ragged_T_and_masks(cuda, T, D, kmask):
+    """The f32 dq and dk/dv on register tiles (wide_plan route "tiles"): T
+    not a multiple of their 64 (dk/dv: 32) rows, the key mask, rows that see no key (the first 37 keys of batch 0
+    masked, causal), D = 576 in two column groups and 300 zero-padded to
+    320: dq, dk and dv against the plain backward, dq of a row without a
+    key and dk, dv of a masked key exactly 0, one launch of each kernel,
+    a second run bit-equal."""
+    B, H, dtype = 2, 2, torch.float32
+    d = fa.kernel_head_dim(D, dtype)
+    assert [fa.wide_plan(kern, d, dtype).route for kern in ("dq", "dkv")] == ["tiles"] * 2
+    q, k, v = _qkv(cuda, B, T, H, D, dtype, strided=True, seed=3 * T + D)
+    km = None
+    if kmask == "varlen":
+        km = _varlen(cuda, B, T, seed=T + 1)
+    elif kmask == "leading":
+        km = torch.ones(B, T, device=cuda)
+        km[0, :37] = 0.0
+    out, lse = fa.flash_fwd_cuda(q, k, v, kmask=km, causal=True)
+    g = torch.Generator(device=cuda).manual_seed(T + 5)
+    do = torch.randn(B, T, H, D, generator=g, device=cuda)
+    before = dict(fa.WIDE_LAUNCHES)
+    got = fa.flash_bwd_cuda(q, k, v, out, lse, do, km, True)
+    assert [fa.WIDE_LAUNCHES[n] - before[n] for n in ("flash_wide_bwd_dq",
+                                                      "flash_wide_bwd_dkv")] == [1, 1]
+    again = fa.flash_bwd_cuda(q, k, v, out, lse, do, km, True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, km, True)
+    for a, b in zip(got, want):
+        assert a.shape == (B, T, H, D) and a.dtype == dtype
+        torch.testing.assert_close(a, b, **F32)
+    if km is not None:
+        seen = (km > 0).cummax(1).values > 0
+        assert torch.count_nonzero(got[0][~seen]) == 0
+        assert torch.count_nonzero(got[1][km <= 0]) == 0
+        assert torch.count_nonzero(got[2][km <= 0]) == 0
+
+
+def test_wide_f32_chunk_entries_register_tiles(cuda):
+    """The chunk entries' f32 backward on register tiles (Tq != Tk,
+    offsets, the lse cotangent folded into delta, the key mask), against
+    the plain backward; masked keys get exactly 0."""
+    for case in WIDE16_CHUNKS:
+        q, k, v, km, do, dlse, kw = _chunk_case(cuda, case, torch.float32, seed=41)
+        out, lse = fa.flash_attention_block(q, k, v, kmask=km, **kw)
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        o, l = fa.flash_attention_block_grad(qg, kg, vg, kmask=km, **kw)
+        torch.autograd.backward((o, l), (do, dlse))
+        want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, km, dlse=dlse, **kw)
+        for got, ref_g in zip((qg.grad, kg.grad, vg.grad), want):
+            torch.testing.assert_close(got, ref_g, **F32)
+        if km is not None:
+            assert torch.count_nonzero(kg.grad[km <= 0]) == 0
+            assert torch.count_nonzero(vg.grad[km <= 0]) == 0
+
+
+@pytest.mark.parametrize("D", [512, 576])
+def test_wide_f32_backward_repeats_bit_for_bit(cuda, D):
+    """dq and dk/dv on register tiles sum in a fixed order with no atomics:
+    two runs give the same bits, and so do the single-kernel wrappers."""
+    B, T, H, dtype = 2, 512, 4, torch.float32
+    q, k, v = _qkv(cuda, B, T, H, D, dtype, strided=True, seed=D)
+    out, lse = fa.flash_fwd_cuda(q, k, v, causal=True)
+    do = torch.randn(B, T, H, D, generator=torch.Generator(device=cuda).manual_seed(2),
+                     device=cuda)
+    first = fa.flash_bwd_cuda(q, k, v, out, lse, do, None, True)
+    assert all(torch.equal(a, b)
+               for a, b in zip(first, fa.flash_bwd_cuda(q, k, v, out, lse, do, None, True)))
+    delta = fa._delta(out, do)
+    assert torch.equal(first[0], fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, None, True))
+    assert all(torch.equal(a, b) for a, b in zip(
+        first[1:], fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, None, True)))
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, None, True)
+    for a, b in zip(first, want):
+        torch.testing.assert_close(a, b, **F32)
 
 
 # -- ComputationGraph ---------------------------------------------------------

@@ -136,7 +136,7 @@ DTYPES = [torch.bfloat16, torch.float16, torch.float32]
 @pytest.mark.parametrize("kernel", fa.WIDE_KERNELS)
 @pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f16", "f32"])
 def test_wide_plan_covers_fits_and_keeps_the_register_budget(kernel, dtype):
-    route = ("wgmma" if dtype != torch.float32 else "tiles" if kernel == "fwd" else "fma")
+    route = "wgmma" if dtype != torch.float32 else "tiles"
     for D in WIDE_DIMS:
         plan = fa.wide_plan(kernel, D, dtype)
         assert plan.kernel == kernel and plan.route == route, D
@@ -161,20 +161,26 @@ def test_wide_plan_covers_fits_and_keeps_the_register_budget(kernel, dtype):
             assert plan.slots >= {"fwd": 4, "dq": 12, "dkv": 8}[kernel], (D, plan)
             # dq streams Q (resident it left 8 slots and ran slower)
             assert plan.resident == (D <= 512 and kernel != "dq"), (D, plan)
-        elif route == "tiles":
-            # 64 query rows over 256 threads, O in registers: 64 x G / 256
-            # f32 a thread (128 at G = 512); Q streams beside K through the
-            # 3-slot ring
-            assert plan.rows == 64 and plan.slots == 3, (D, plan)
-            assert plan.group_width <= 512, (D, plan)
-            assert plan.acc_registers == plan.group_width // 4 <= 128, (D, plan)
-            assert not plan.resident, (D, plan)
         else:
-            assert plan.rows == (8 if kernel == "dkv" else 16)
-            assert plan.acc_registers == 0 and plan.slots == 0 and not plan.resident
-            # one group wherever the f32 accumulators fit one block
-            assert (len(plan.groups) == 1) == (D <= {"fwd": 3200, "dq": 2880,
-                                                     "dkv": 2944}[kernel]), (D, plan)
+            # blocks of 256 threads, the output tile in registers: the
+            # forward's O and dq's dQ for 64 query rows (64 x G / 256 f32 a
+            # thread), dk/dv's dK and dV for 32 key rows (2 x 32 x G / 256):
+            # 128 at G = 512; every operand streams through a ring of slots
+            # of two 64 x 64 f32 chunks (dk/dv: two chunks of 32 K rows and
+            # of 64 Q rows), 3 for the forward, 2 for dq and dk/dv
+            assert plan.rows == (32 if kernel == "dkv" else 64), (D, plan)
+            assert plan.slots == (3 if kernel == "fwd" else 2), (D, plan)
+            assert not plan.resident, (D, plan)
+            assert plan.group_width <= 512, (D, plan)
+            assert len(plan.groups) == -(-D // 512), (D, plan)
+            assert 0 < plan.acc_registers <= fa.WIDE_ACC_REGISTERS, (D, plan)
+            assert plan.acc_registers == plan.group_width // 4, (D, plan)
+            # ring, four groups' partial scores, p and two f32 a row (lse and
+            # delta; the forward's running max and sum), or dk/dv's p^T and
+            # ds^T of 32 keys
+            ring = 2 * 2 * 96 * 68 * 4 if kernel == "dkv" else plan.slots * 2 * 17408
+            rest = 2 * 32 * 72 * 4 if kernel == "dkv" else 64 * 72 * 4 + 512
+            assert plan.smem_bytes == ring + 4 * 18432 + rest, (D, plan)
 
 
 def test_wide_plan_at_the_flagship_widths():
@@ -182,7 +188,7 @@ def test_wide_plan_at_the_flagship_widths():
     in two groups of 256 columns that recompute the scores (the forward
     1.5x its products, dq 1.67x), the forward's Q (128 rows) and dk/dv's K
     and V resident, dq's Q streamed; the bytes the layouts take; the f32
-    forward on register tiles in one group of 512 columns."""
+    forward, dq and dk/dv on register tiles in one group of 512 columns."""
     fwd = fa.wide_plan("fwd", 512, torch.bfloat16)
     assert (fwd.rows, fwd.groups, fwd.resident, fwd.slots) == (128, (256, 256), True, 12)
     assert fwd.smem_bytes == 131072 + 12 * 8192 + 25 * 8 + 1024
@@ -201,7 +207,17 @@ def test_wide_plan_at_the_flagship_widths():
                                                                           (512,), False, 3)
     # 3 slots of a K and a Q chunk, four partial score tiles, p, m and l
     assert f32.smem_bytes == 3 * 2 * 17408 + 5 * 18432 + 512 and f32.acc_registers == 128
-    assert fa.wide_plan("dq", 512, torch.float32).route == "fma"
+    f32dq = fa.wide_plan("dq", 512, torch.float32)
+    assert (f32dq.route, f32dq.rows, f32dq.groups, f32dq.slots) == ("tiles", 64, (512,), 2)
+    # the forward's layout with one slot fewer
+    assert f32dq.smem_bytes == f32.smem_bytes - 2 * 17408 and f32dq.acc_registers == 128
+    f32dkv = fa.wide_plan("dkv", 512, torch.float32)
+    # 32 own key rows: dK and dV 2 x 32 x 512 f32 over 256 threads; 2 slots
+    # of two K and two Q chunks; p^T and ds^T (2 x 32 rows) where the
+    # forward and dq keep p (64 rows) and two f32 a row
+    assert (f32dkv.route, f32dkv.rows, f32dkv.groups, f32dkv.slots) == ("tiles", 32, (512,), 2)
+    assert f32dkv.smem_bytes == 2 * 52224 + 4 * 18432 + 2 * 32 * 72 * 4
+    assert f32dkv.acc_registers == 128 and f32dkv.smem_bytes <= SMEM_LIMIT
     assert fa.wide_plan("dkv", 320, torch.float16).groups == (192, 128)
 
 
